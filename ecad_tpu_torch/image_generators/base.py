@@ -1,0 +1,202 @@
+"""ImageGenerator — the port's main object-oriented surface.
+
+Counterpart of ``ecad_tpu/image_generators/base.py``: encode_prompts,
+encode_and_save_prompts, generate_images (the reference's timing and
+saved-embedding drivers come with the benchmark slice). Generators run on
+``cuda`` unless constructed with ``device="cpu"``; without a GPU and
+without that request construction raises.
+
+This slice runs without checkpoints (``random_weights=True``: the exact
+architecture with seeded random parameters); loading a local
+``weights_root`` and topology (``dit_schedule``) files raise
+`NotImplementedError` naming the slice that brings them.
+"""
+
+from __future__ import annotations
+
+import json
+from abc import ABC, abstractmethod
+from pathlib import Path
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..schedules.cache_schedule import CacheSchedule
+from ..utils.io import save_embedding
+
+
+class ImageGenerator(ABC):
+    default_transformer_weights: str = ""
+    default_pipeline_weights: str = ""
+    default_pipeline: str = ""
+    num_blocks: int = 28
+    default_num_inference_steps: int = 20
+    height: int = 256
+    width: int = 256
+    guidance_scale: float = 4.5
+
+    schedule_cls: type[CacheSchedule] = CacheSchedule
+
+    def __init__(
+        self,
+        start_seed: int = 0,
+        seed_step: int = 1,
+        schedule_path: Optional[Path | str] = None,
+        weights_root: Optional[Path | str] = None,
+        random_weights: bool = False,
+        num_inference_steps: Optional[int] = None,
+        batch_size: int = 8,
+        device: str | torch.device = "cuda",
+    ) -> None:
+        self.device = resolve_device(device)
+        self.start_seed = start_seed
+        self.seed_step = seed_step
+        self.weights_root = Path(weights_root) if weights_root else None
+        self.random_weights = random_weights
+        self.batch_size = batch_size
+        self.num_inference_steps = (
+            num_inference_steps or self.default_num_inference_steps
+        )
+
+        self.transformer_weights = self.default_transformer_weights
+        self.pipeline_weights = self.default_pipeline_weights
+        self.pipeline_name = self.default_pipeline
+
+        self.cache_schedule = self._load_schedule_file(schedule_path)
+        self._encoder = None
+        self._pipeline = None
+        self._model = None  # transformer, built once per generator
+
+    # -- schedule / config resolution -------------------------------------
+
+    def _load_schedule_file(
+        self, schedule_path: Optional[Path | str]
+    ) -> CacheSchedule:
+        """Load the cache schedule (default all-recompute when None) and
+        apply its embedded config overrides (reference
+        image_generator.py:99-191)."""
+        if schedule_path is None:
+            sched = self._default_schedule()
+        else:
+            with open(schedule_path) as f:
+                raw = json.load(f)
+            if "dit_schedule" in raw:
+                raise NotImplementedError(
+                    "DiT topology schedules come with the PixArt-variants "
+                    "slice of the port"
+                )
+            sched = self.schedule_cls.from_dict(raw)
+            self.num_inference_steps = sched.num_inference_steps
+        cfg = sched.top_level_config or {}
+        self.transformer_weights = cfg.get(
+            "transformer_weights", self.transformer_weights
+        )
+        self.pipeline_weights = cfg.get("pipeline_weights", self.pipeline_weights)
+        pipe = cfg.get("pipeline") or {}
+        self.pipeline_name = pipe.get("name", self.pipeline_name)
+        self.height = cfg.get("height", self.height)
+        self.width = cfg.get("width", self.width)
+        if type(self).allow_guidance_override():
+            self.guidance_scale = cfg.get("guidance_scale", self.guidance_scale)
+        return sched
+
+    @classmethod
+    def allow_guidance_override(cls) -> bool:
+        # PixArt fixes guidance at 4.5 (reference inference.py:210-215)
+        return False
+
+    def _default_schedule(self) -> CacheSchedule:
+        return self.schedule_cls.default(
+            num_inference_steps=self.num_inference_steps,
+            num_blocks=self.num_blocks,
+        )
+
+    # -- abstract construction --------------------------------------------
+
+    @abstractmethod
+    def create_encoder_pipeline(self):
+        """Text-encoder stack."""
+
+    @abstractmethod
+    def create_diffusion_pipeline(self):
+        """Denoising pipeline for the loaded schedule."""
+
+    @abstractmethod
+    def encode_prompts(self, prompts: Sequence[str]) -> list[dict[str, Any]]:
+        """Prompt strings → embedding dicts (reference embedding keys)."""
+
+    @abstractmethod
+    def _generate_latents(
+        self, embeddings: list[dict[str, Any]], seed: int
+    ) -> torch.Tensor:
+        """One batch of final latents for the given embeddings and seed."""
+
+    @abstractmethod
+    def decode_latents(self, latents) -> np.ndarray:
+        """Latents → (N, H, W, 3) uint8 images (VAE or visualization)."""
+
+    # -- embedding round trip ----------------------------------------------
+
+    def encode_and_save_prompts(
+        self,
+        prompts: Sequence[str],
+        output_dir: Path | str,
+        names: Optional[Sequence[str]] = None,
+        fmt: str = ".pt",
+    ) -> list[Path]:
+        output_dir = Path(output_dir)
+        embeddings = self.encode_prompts(prompts)
+        paths = []
+        for i, emb in enumerate(embeddings):
+            name = names[i] if names else f"{i:03d}__prompt_seed:{self.start_seed:03}"
+            paths.append(save_embedding(output_dir / f"{name}{fmt}", emb))
+        return paths
+
+    # -- generation ---------------------------------------------------------
+
+    def generate_images(
+        self,
+        embeddings: list[dict[str, Any]],
+        images_per_prompt: int = 1,
+        output_dir: Optional[Path | str] = None,
+    ) -> list[np.ndarray]:
+        """images_per_prompt images per embedding; seeds follow the
+        reference protocol seed_i = start_seed + i·seed_step. Saved as
+        `<name>__image_seed:NNN.png` under rel_path subdirs."""
+        from PIL import Image
+
+        all_images = []
+        for i in range(images_per_prompt):
+            seed = self.start_seed + i * self.seed_step
+            latents = self._generate_latents(embeddings, seed)
+            images = self.decode_latents(latents)
+            for emb, img in zip(embeddings, images):
+                all_images.append(img)
+                if output_dir is not None:
+                    rel = Path(emb.get("relative_path", f"{emb['name']}.x")).parent
+                    out = (
+                        Path(output_dir)
+                        / rel
+                        / f"{emb['name']}__image_seed:{seed:03}.png"
+                    )
+                    out.parent.mkdir(parents=True, exist_ok=True)
+                    Image.fromarray(img).save(out)
+        return all_images
+
+    # -- misc ---------------------------------------------------------------
+
+    def describe(self) -> dict[str, Any]:
+        return {
+            "class": type(self).__name__,
+            "schedule": self.cache_schedule.name,
+            "num_inference_steps": self.num_inference_steps,
+            "transformer_weights": self.transformer_weights,
+            "pipeline": self.pipeline_name,
+            "height": self.height,
+            "width": self.width,
+            "guidance_scale": self.guidance_scale,
+            "random_weights": self.random_weights,
+            "device": str(self.device),
+        }

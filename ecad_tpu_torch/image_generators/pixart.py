@@ -1,0 +1,189 @@
+"""PixArt image generators (α, Σ and the tiny test double).
+
+Counterpart of ``ecad_tpu/image_generators/pixart.py``. Without weights
+(`random_weights=True`, or no `weights_root`) the exact architecture runs
+with seeded random parameters built on the device, and prompts go through
+the deterministic `_HashEncoder`. Loading a local checkpoint tree (T5, the
+transformer and the VAE) waits until checkpoints are in the repository.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+from ..models.pixart import PixArtConfig, init_model
+from ..pipelines import PixArtPipeline, PixArtPipelineConfig
+from ..schedules.pixart import PixArtCacheSchedule
+from .base import ImageGenerator
+
+_WEIGHTS_LATER = (
+    "loading a local weights_root (T5, transformer, VAE) waits until "
+    "checkpoints are in the repository; use random_weights"
+)
+_PIPELINES = ("pixart_alpha", "pixart_sigma")
+
+
+class PixArtImageGenerator(ImageGenerator):
+    schedule_cls = PixArtCacheSchedule
+    default_pipeline = "pixart_alpha"
+    guidance_scale = 4.5  # fixed (pixart_image_generator.py:377)
+    text_len = 120
+    caption_dim = 4096
+
+    def model_config(self) -> PixArtConfig:
+        if "1024" in self.transformer_weights:
+            raise NotImplementedError(
+                "PixArt at 1024² (additional size conditions) comes with the "
+                "PixArt-variants slice of the port"
+            )
+        return PixArtConfig(sample_size=self.height // 8)
+
+    # -- pipelines ---------------------------------------------------------
+
+    def create_encoder_pipeline(self):
+        if self._encoder is not None:
+            return self._encoder
+        if not (self.random_weights or self.weights_root is None):
+            raise NotImplementedError(_WEIGHTS_LATER)
+        self._encoder = _HashEncoder(self.text_len, self.caption_dim)
+        return self._encoder
+
+    def create_diffusion_pipeline(self) -> PixArtPipeline:
+        if self._pipeline is not None:
+            return self._pipeline
+        if not (self.random_weights or self.weights_root is None):
+            raise NotImplementedError(_WEIGHTS_LATER)
+        if (self.pipeline_name or "pixart_alpha") not in _PIPELINES:
+            raise NotImplementedError(
+                f"pipeline {self.pipeline_name!r} (TGATE, pass-through) comes "
+                "with the PixArt-variants slice of the port"
+            )
+        config = self.model_config()
+        if self._model is None:
+            self._model = init_model(config, 0, self.device)
+        pcfg = PixArtPipelineConfig(
+            model=config,
+            num_inference_steps=self.num_inference_steps,
+            guidance_scale=self.guidance_scale,
+        )
+        self._pipeline = PixArtPipeline(pcfg, self._model, self.cache_schedule)
+        return self._pipeline
+
+    # -- encoding ----------------------------------------------------------
+
+    def encode_prompts(self, prompts: Sequence[str]) -> list[dict[str, Any]]:
+        """Reference embedding keys (types.py:13-18): prompt_embeds,
+        prompt_attention_mask, negative_prompt_embeds,
+        negative_prompt_attention_mask. Negative = empty prompt ""."""
+        enc = self.create_encoder_pipeline()
+        neg_e, neg_m = enc.encode("")
+        out = []
+        for i, p in enumerate(prompts):
+            e, m = enc.encode(p)
+            out.append(
+                {
+                    "name": f"{i:03d}__prompt_seed:{self.start_seed:03}",
+                    "prompt_embeds": e,
+                    "prompt_attention_mask": m,
+                    "negative_prompt_embeds": neg_e,
+                    "negative_prompt_attention_mask": neg_m,
+                }
+            )
+        return out
+
+    # -- generation --------------------------------------------------------
+
+    def _stack(self, embeddings, key: str, dtype=None) -> torch.Tensor:
+        arr = np.stack([np.asarray(e[key]) for e in embeddings])
+        return torch.from_numpy(arr).to(device=self.device, dtype=dtype)
+
+    def _generate_latents(
+        self, embeddings: list[dict[str, Any]], seed: int
+    ) -> torch.Tensor:
+        pipe = self.create_diffusion_pipeline()
+        dtype = pipe.config.model.dtype
+        text = self._stack(embeddings, "prompt_embeds", dtype)
+        neg = self._stack(embeddings, "negative_prompt_embeds", dtype)
+        tm = nm = None
+        if "prompt_attention_mask" in embeddings[0]:
+            tm = self._stack(embeddings, "prompt_attention_mask")
+            nm = self._stack(embeddings, "negative_prompt_attention_mask")
+        return pipe.generate_latents(
+            text, neg, seed=seed, text_mask=tm, neg_mask=nm
+        )
+
+    def decode_latents(self, latents) -> np.ndarray:
+        # without checkpoints the images are the latent visualization, as
+        # in the reference (a random-weight VAE would only add decode cost)
+        from ..genetic.evaluate import latents_to_uint8
+
+        return latents_to_uint8(latents)
+
+
+class PixArtAlphaImageGenerator(PixArtImageGenerator):
+    """Weights per reference pixart_alpha_image_generator.py:18-20."""
+
+    default_transformer_weights = "PixArt-alpha/PixArt-XL-2-256x256"
+    default_pipeline_weights = "PixArt-alpha/PixArt-XL-2-1024-MS"
+    default_pipeline = "pixart_alpha"
+
+
+class PixArtSigmaImageGenerator(PixArtImageGenerator):
+    """Weights per reference pixart_sigma_image_generator.py:18-20."""
+
+    default_transformer_weights = "PixArt-alpha/PixArt-Sigma-XL-2-256x256"
+    default_pipeline_weights = "PixArt-alpha/PixArt-Sigma-XL-2-1024-MS"
+    default_pipeline = "pixart_sigma"
+
+
+class TinyPixArtImageGenerator(PixArtImageGenerator):
+    """2-block, 8×8-latent smoke-test generator (always random weights,
+    fp32) — keeps every CLI drivable in seconds."""
+
+    default_transformer_weights = "tiny"
+    default_pipeline = "pixart_alpha"
+    num_blocks = 2
+    default_num_inference_steps = 4
+    text_len = 8
+    caption_dim = 32
+
+    def __init__(self, *args, **kwargs):
+        kwargs["random_weights"] = True
+        super().__init__(*args, **kwargs)
+
+    def model_config(self) -> PixArtConfig:
+        return PixArtConfig.tiny(dtype=torch.float32)
+
+    def _load_schedule_file(self, schedule_path):
+        sched = super()._load_schedule_file(schedule_path)
+        if sched.num_blocks != self.num_blocks:
+            raise ValueError(
+                f"schedule has {sched.num_blocks} blocks; tiny model has "
+                f"{self.num_blocks}"
+            )
+        return sched
+
+
+class _HashEncoder:
+    """Deterministic stand-in encoder: stable pseudo-embeddings from prompt
+    content (the same bytes as the reference's ``_HashEncoder``)."""
+
+    def __init__(self, text_len: int, dim: int):
+        self.text_len = text_len
+        self.dim = dim
+
+    def encode(self, prompt: str) -> tuple[np.ndarray, np.ndarray]:
+        seed = int.from_bytes(
+            hashlib.sha256(prompt.encode()).digest()[:4], "little"
+        )
+        rng = np.random.default_rng(seed)
+        emb = rng.standard_normal((self.text_len, self.dim), dtype=np.float32)
+        n_tokens = max(1, min(self.text_len, len(prompt.split()) + 1))
+        mask = np.zeros((self.text_len,), dtype=np.int32)
+        mask[:n_tokens] = 1
+        emb[n_tokens:] = 0.0
+        return emb, mask

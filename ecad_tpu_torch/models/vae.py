@@ -1,0 +1,198 @@
+"""AutoencoderKL decoder in PyTorch.
+
+Counterpart of ``ecad_tpu/models/vae.py`` (:23-259): post-quant 1×1 conv →
+conv_in → mid block (resnet, single-head spatial attention, resnet) → up
+blocks of resnets with nearest ×2 upsampling between them → GroupNorm →
+conv_out. The public functions take and return NHWC, as the reference
+does; inside, the convolutions run NCHW through cuDNN. GroupNorm runs in
+fp32 with eps 1e-6 and casts back. The mid-attention is plain
+``matmul``/``softmax`` (the reference uses plain XLA attention there, :102),
+with fp32 logits and softmax and probabilities cast back, as
+``jax.nn.dot_product_attention`` does. Module and parameter names follow
+the reference's param tree, so `bridge.vae_state_dict` maps one onto the
+other.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from .. import resolve_device
+
+
+@dataclass(frozen=True)
+class VAEConfig:
+    latent_channels: int = 4
+    block_out_channels: tuple[int, ...] = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    norm_num_groups: int = 32
+    out_channels: int = 3
+    scaling_factor: float = 0.18215
+    shift_factor: float = 0.0
+    dtype: torch.dtype = torch.float32
+
+    @classmethod
+    def tiny(cls, **kw) -> "VAEConfig":
+        d = dict(
+            latent_channels=4, block_out_channels=(8, 16), layers_per_block=1,
+            norm_num_groups=4,
+        )
+        d.update(kw)
+        return cls(**d)
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm computed in fp32 (eps 1e-6), cast back to the input dtype."""
+
+    def __init__(self, groups: int, channels: int, dtype: torch.dtype) -> None:
+        super().__init__(groups, channels, eps=1e-6, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(
+            x.float(), self.num_groups, self.weight.float(), self.bias.float(),
+            self.eps,
+        ).to(x.dtype)
+
+
+def _conv(cin: int, cout: int, kernel: int, dtype: torch.dtype) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, kernel, padding=kernel // 2, dtype=dtype)
+
+
+class ResnetBlock(nn.Module):
+    def __init__(self, cin: int, cout: int, config: VAEConfig) -> None:
+        super().__init__()
+        g, dt = config.norm_num_groups, config.dtype
+        self.norm1 = GroupNorm(g, cin, dt)
+        self.conv1 = _conv(cin, cout, 3, dt)
+        self.norm2 = GroupNorm(g, cout, dt)
+        self.conv2 = _conv(cout, cout, 3, dt)
+        self.conv_shortcut = _conv(cin, cout, 1, dt) if cin != cout else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv2(F.silu(self.norm2(h)))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class MidAttention(nn.Module):
+    def __init__(self, ch: int, config: VAEConfig) -> None:
+        super().__init__()
+        dt = config.dtype
+        self.group_norm = GroupNorm(config.norm_num_groups, ch, dt)
+        self.to_q = nn.Linear(ch, ch, dtype=dt)
+        self.to_k = nn.Linear(ch, ch, dtype=dt)
+        self.to_v = nn.Linear(ch, ch, dtype=dt)
+        self.to_out = nn.Linear(ch, ch, dtype=dt)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
+        b, ch, hh, ww = x.shape
+        h = self.group_norm(x).flatten(2).transpose(1, 2)  # (B, HW, C)
+        q, k, v = self.to_q(h), self.to_k(h), self.to_v(h)
+        logits = (q.float() @ k.float().transpose(1, 2)) * (1.0 / math.sqrt(ch))
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        out = self.to_out(probs @ v)
+        return x + out.transpose(1, 2).reshape(b, ch, hh, ww)
+
+
+class VAEDecoder(nn.Module):
+    def __init__(self, config: VAEConfig) -> None:
+        super().__init__()
+        c = config
+        self.config = c
+        dt = c.dtype
+        ch = c.block_out_channels[-1]
+        self.post_quant_conv = _conv(c.latent_channels, c.latent_channels, 1, dt)
+        self.conv_in = _conv(c.latent_channels, ch, 3, dt)
+        self.mid_resnet_1 = ResnetBlock(ch, ch, c)
+        self.mid_attn = MidAttention(ch, c)
+        self.mid_resnet_2 = ResnetBlock(ch, ch, c)
+        rev = tuple(reversed(c.block_out_channels))
+        self._up: list[str] = []
+        cin = ch
+        for bi, out_ch in enumerate(rev):
+            for ri in range(c.layers_per_block + 1):
+                name = f"up_{bi}_resnet_{ri}"
+                self.add_module(name, ResnetBlock(cin, out_ch, c))
+                self._up.append(name)
+                cin = out_ch
+            if bi < len(rev) - 1:
+                name = f"up_{bi}_upsample"
+                self.add_module(name, _conv(out_ch, out_ch, 3, dt))
+                self._up.append(name)
+        self.conv_norm_out = GroupNorm(c.norm_num_groups, cin, dt)
+        self.conv_out = _conv(cin, c.out_channels, 3, dt)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        """(B, h, w, latent_channels) NHWC → (B, 8h, 8w, 3) NHWC in [-1, 1]."""
+        c = self.config
+        z = (z / c.scaling_factor + c.shift_factor).to(c.dtype)
+        h = self.post_quant_conv(z.permute(0, 3, 1, 2))
+        h = self.conv_in(h)
+        h = self.mid_resnet_2(self.mid_attn(self.mid_resnet_1(h)))
+        for name in self._up:
+            if name.endswith("_upsample"):
+                h = F.interpolate(h, scale_factor=2, mode="nearest")
+            h = getattr(self, name)(h)
+        h = self.conv_out(F.silu(self.conv_norm_out(h)))
+        return h.permute(0, 2, 3, 1)
+
+
+class VAEDecoderPipeline:
+    def __init__(self, model: VAEDecoder) -> None:
+        self.model = model
+        self.config = model.config
+
+    @torch.inference_mode()
+    def decode_device(self, latents: torch.Tensor) -> torch.Tensor:
+        """NHWC latents → (B, H, W, 3) uint8 images, left on the device."""
+        img = self.model(latents.float())
+        img = torch.clamp(img.float() / 2 + 0.5, 0, 1)
+        return torch.round(img * 255).to(torch.uint8)
+
+    def decode(self, latents: torch.Tensor) -> np.ndarray:
+        """NHWC latents → (B, H, W, 3) uint8 images on the host."""
+        return self.decode_device(latents).cpu().numpy()
+
+
+@torch.no_grad()
+def _randomize_vae_(model: VAEDecoder, seed: int) -> VAEDecoder:
+    """Seeded random weights in place: conv/linear weights N(0, 1/fan_in)
+    (LeCun normal, Flax's default), biases 0, norm weights 1."""
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for module in model.modules():
+        if isinstance(module, nn.GroupNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+        elif isinstance(module, (nn.Conv2d, nn.Linear)):
+            fan_in = module.weight[0].numel()
+            module.weight.normal_(0.0, fan_in ** -0.5, generator=gen)
+            module.bias.zero_()
+    return model
+
+
+def random_decoder_pipeline(
+    latent_channels: int = 4, device: str | torch.device = "cuda", seed: int = 7
+) -> VAEDecoderPipeline:
+    """Architecture-faithful decoder with random bf16 weights, built on the
+    device: the compute cost of the real VAE without a checkpoint."""
+    if latent_channels != 4:
+        raise NotImplementedError(
+            "the 16-channel FLUX VAE comes with the FLUX slice of the port"
+        )
+    dev = resolve_device(device)
+    config = VAEConfig(dtype=torch.bfloat16)
+    with torch.device("meta"):
+        model = VAEDecoder(config)
+    model = model.to_empty(device=dev)
+    return VAEDecoderPipeline(
+        _randomize_vae_(model, seed).eval().requires_grad_(False)
+    )

@@ -1,0 +1,38 @@
+"""Hand-written Hopper kernels and their plain PyTorch versions.
+
+Each wrapper runs its plain version for CPU tensors and launches its kernel
+(or raises) for CUDA tensors, counting launches in its module's
+``LAUNCHES``. `launch_counts` / `reset_launch_counts` read and clear them
+all, so a run can show that it went through the kernels.
+"""
+
+from . import attention as _attention
+from . import fused as _fused
+from .attention import fused_attention, fused_attention_reference
+from .fused import modulated_layer_norm, modulated_layer_norm_reference
+
+_COUNTERS = (_attention.LAUNCHES, _fused.LAUNCHES)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches since the last reset, by kernel name."""
+    out: dict[str, int] = {}
+    for counter in _COUNTERS:
+        out.update(counter)
+    return out
+
+
+def reset_launch_counts() -> None:
+    for counter in _COUNTERS:
+        for name in counter:
+            counter[name] = 0
+
+
+__all__ = [
+    "fused_attention",
+    "fused_attention_reference",
+    "modulated_layer_norm",
+    "modulated_layer_norm_reference",
+    "launch_counts",
+    "reset_launch_counts",
+]

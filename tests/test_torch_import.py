@@ -1,0 +1,44 @@
+"""Every module of ecad_tpu_torch, and chip_smoke.py, imports with jax, flax
+and ecad_tpu blocked: the port stands alone."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "ecad_tpu")
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import ecad_tpu_torch
+
+names = ["ecad_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(ecad_tpu_torch.__path__, "ecad_tpu_torch.")
+]
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+assert "triton" not in sys.modules  # imported only when a kernel launches
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_flax_or_ecad_tpu():
+    r = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert int(r.stdout.strip().splitlines()[-1]) >= 20  # every module was walked

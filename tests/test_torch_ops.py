@@ -1,0 +1,187 @@
+"""The port's kernels, through their CPU path (the plain PyTorch versions),
+against the reference's Pallas kernels run in interpret mode on the CPU.
+
+Inputs come from numpy with a fixed seed and go to both sides. On the CPU
+each wrapper runs its plain version; the CUDA kernels themselves are held
+against the same plain versions on the card by chip_smoke.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from ecad_tpu.models.common import layer_norm as jax_layer_norm
+from ecad_tpu.ops import fused_attention as jax_fused_attention
+from ecad_tpu.ops import modulated_layer_norm as jax_modulated_layer_norm
+from ecad_tpu_torch.models.common import layer_norm
+from ecad_tpu_torch.ops import (
+    fused_attention,
+    launch_counts,
+    modulated_layer_norm,
+    modulated_layer_norm_reference,
+)
+
+# fp32 on both sides, only the summation order differs
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _qkv(rng, b, tq, tk, h, d):
+    return tuple(
+        rng.standard_normal(shape, dtype=np.float32)
+        for shape in ((b, tq, h, d), (b, tk, h, d), (b, tk, h, d))
+    )
+
+
+def _both(q, k, v, bias=None):
+    want = jax_fused_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        bias=None if bias is None else jnp.asarray(bias), interpret=True,
+    )
+    got = fused_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        None if bias is None else torch.from_numpy(bias),
+    )
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("tq,tk,d", [(16, 16, 72), (16, 24, 16), (8, 128, 64)])
+def test_attention_matches_pallas_no_bias(tq, tk, d):
+    rng = np.random.default_rng(0)
+    got, want = _both(*_qkv(rng, 2, tq, tk, 3, d))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def _key_padding(lengths, tk):
+    lens = np.asarray(lengths)[:, None, None, None]
+    return np.where(np.arange(tk)[None, None, None, :] < lens, 0.0, -1e9).astype(
+        np.float32
+    )
+
+
+@pytest.mark.parametrize(
+    "name", ["key_padding", "per_batch_key_padding", "batch_broadcast", "dense"]
+)
+def test_attention_matches_pallas_with_bias(name):
+    rng = np.random.default_rng(1)
+    if name == "key_padding":  # tests/test_ops.py test_fused_attention_with_bias
+        q, k, v = _qkv(rng, 2, 8, 12, 2, 16)
+        bias = _key_padding([7, 7], 12)
+    elif name == "per_batch_key_padding":
+        q, k, v = _qkv(rng, 3, 16, 256, 2, 72)
+        bias = _key_padding([100, 200, 256], 256)
+    elif name == "batch_broadcast":  # (1, 1, 1, Tk) over b=3
+        q, k, v = _qkv(rng, 3, 16, 256, 2, 64)
+        bias = _key_padding([100], 256)
+    else:
+        q, k, v = _qkv(rng, 2, 8, 12, 3, 16)
+        bias = rng.standard_normal((2, 3, 8, 12), dtype=np.float32)
+    got, want = _both(q, k, v, bias)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_attention_text_bias_in_bf16_matches_pallas():
+    """The main path's text bias, (1 − mask)·−10000 cast to bf16 (−9984),
+    is widened to fp32 on both sides; bf16 inputs, fp32 softmax, one cast.
+    Both sides round the same fp32 result once: agreement to one bf16 ulp."""
+    rng = np.random.default_rng(2)
+    q, k, v = (x.astype(jnp.bfloat16) for x in _qkv(rng, 2, 16, 12, 2, 72))
+    mask = (np.arange(12)[None, :] < np.array([[5], [12]])).astype(np.float32)
+    bias16 = ((1.0 - mask) * -10000.0)[:, None, None, :].astype(jnp.bfloat16)
+    want = jax_fused_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), bias=jnp.asarray(bias16),
+        interpret=True,
+    )
+    as_t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)  # noqa: E731
+    got = fused_attention(as_t(q), as_t(k), as_t(v), as_t(bias16))
+    assert float(as_t(bias16).float().min()) == -9984.0
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32), rtol=2**-7, atol=2**-7
+    )
+
+
+def test_modulated_layer_norm_matches_pallas():
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((3, 16, 128), dtype=np.float32)
+    scale = rng.standard_normal((3, 1, 128), dtype=np.float32) * 0.1
+    shift = rng.standard_normal((3, 1, 128), dtype=np.float32) * 0.1
+    want = jax_modulated_layer_norm(
+        jnp.asarray(x), jnp.asarray(scale), jnp.asarray(shift), interpret=True
+    )
+    got = modulated_layer_norm(
+        torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(shift)
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # (B, d) modulation is accepted too, as in the reference
+    got2 = modulated_layer_norm(
+        torch.from_numpy(x), torch.from_numpy(scale[:, 0]),
+        torch.from_numpy(shift[:, 0]),
+    )
+    np.testing.assert_array_equal(got2.numpy(), got.numpy())
+
+
+def test_modulated_layer_norm_vs_model_form():
+    """The reference *model* computes layer_norm(h)·(1+scale)+shift with the
+    norm cast to the hidden dtype first (models/common.py:153); the kernel
+    modulates in fp32 and casts once. In fp32 the two agree to rounding. In
+    bf16 the model form rounds four times (the normed value, 1+scale, the
+    product, the sum) where the kernel rounds once; with intermediates of
+    magnitude below 8 here each extra rounding is at most 2^-6 absolute,
+    so the two agree within 2^-5 absolute plus 2^-6 relative (about two
+    bf16 ulps of the output)."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 32, 96), dtype=np.float32)
+    scale = rng.standard_normal((2, 1, 96), dtype=np.float32) * 0.5
+    shift = rng.standard_normal((2, 1, 96), dtype=np.float32) * 0.5
+    for dtype, jdt, tol in (
+        (torch.float32, jnp.float32, TOL),
+        (torch.bfloat16, jnp.bfloat16, dict(rtol=2**-6, atol=2**-5)),
+    ):
+        jx, js, jh = (jnp.asarray(a).astype(jdt) for a in (x, scale, shift))
+        want = jax_layer_norm(jx) * (1 + js) + jh
+        t = [torch.from_numpy(a).to(dtype) for a in (x, scale, shift)]
+        got = modulated_layer_norm(*t)
+        np.testing.assert_allclose(
+            got.float().numpy(), np.asarray(want, np.float32), **tol
+        )
+        # the port's own model-form helper agrees with the reference's
+        np.testing.assert_allclose(
+            layer_norm(t[0]).float().numpy(),
+            np.asarray(jax_layer_norm(jx), np.float32), **tol,
+        )
+
+
+def test_cpu_path_counts_no_launches():
+    """On CPU tensors the wrappers run the plain versions: no kernel launch
+    is counted."""
+    before = launch_counts()
+    x = torch.randn(2, 4, 8)
+    s = torch.zeros(2, 1, 8)
+    fused_attention(torch.randn(1, 4, 2, 8), torch.randn(1, 4, 2, 8),
+                    torch.randn(1, 4, 2, 8))
+    out = modulated_layer_norm(x, s, s)
+    assert launch_counts() == before
+    torch.testing.assert_close(out, modulated_layer_norm_reference(x, s, s))
+
+
+@pytest.mark.parametrize(
+    "shapes",
+    [
+        ((1, 4, 2, 8), (1, 5, 2, 8), (1, 6, 2, 8)),  # k/v mismatch
+        ((1, 4, 2, 8), (2, 4, 2, 8), (2, 4, 2, 8)),  # batch mismatch
+        ((1, 4, 2, 136), (1, 4, 2, 136), (1, 4, 2, 136)),  # head dim > 128
+    ],
+)
+def test_attention_rejects_bad_shapes(shapes):
+    q, k, v = (torch.zeros(s) for s in shapes)
+    with pytest.raises(ValueError):
+        fused_attention(q, k, v)
+
+
+def test_attention_rejects_bias_that_does_not_broadcast():
+    q = torch.zeros(2, 4, 2, 8)
+    with pytest.raises(ValueError):
+        fused_attention(q, q, q, torch.zeros(2, 1, 1, 5))
+    # an additive bias, not a boolean keep-mask
+    with pytest.raises(TypeError):
+        fused_attention(q, q, q, torch.ones(2, 1, 1, 4, dtype=torch.bool))
