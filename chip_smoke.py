@@ -9,24 +9,42 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 2. Build the kernels from the checkout's sources: ``nvcc`` for
    ``ecad_tpu_torch/csrc/*.cu`` (one process per source, started together),
    Triton for the modulated LayerNorm.
-3. Kernels: hold each kernel against its plain PyTorch version on the card,
-   at the main path's shapes in bf16, at the odd shapes of the reference's
-   kernel tests, and in fp32 at a tight tolerance; time kernel, plain
-   version and (attention) one ``scaled_dot_product_attention`` call as a
-   yardstick the port never calls.
-4. Main path: full-width PixArt-α 256 (28 blocks, d=1152) with seeded
-   random bf16 weights, batch 8 with CFG 4.5, 20 DPM-Solver++ steps, the
-   ECAD ``ours_fast`` schedule and then the all-recompute default, each
-   followed by the random bf16 VAE decode to (8, 256, 256, 3) uint8. Checks
-   the kernel launch counts of each trajectory against its schedule, and a
-   small fp32 trajectory on the card against the plain path on the CPU.
-5. Entry point: ``ecad_tpu_torch.inference.cli PixArtAlphaImageGenerator``
-   with a prompt file, random weights and ``ours_fast``; checks its PNGs.
+3. Kernels (``kernels``): hold each kernel against its plain PyTorch
+   version on the card, at the main paths' shapes in bf16, at the odd
+   shapes of the reference's kernel tests, and in fp32 at a tight
+   tolerance — the exact-softmax attention (K1/K2), the modulated LayerNorm
+   (K3) and the clamp-softmax attention (K4, both variants; also at
+   q×1e4, compared by value; in bf16 at a tolerance scaled to the output,
+   shown to reject a plain version that drops or repeats one 64-key tile
+   at the 4096-key shape); time kernel, plain version and (attention) one
+   ``scaled_dot_product_attention`` call as a yardstick the port never
+   calls.
+4. Main path at 256² (``main256``): full-width PixArt-α 256 (28 blocks,
+   d=1152) with seeded random bf16 weights, batch 8 with CFG 4.5, 20
+   DPM-Solver++ steps, the ECAD ``ours_fast`` schedule and the
+   all-recompute default, each followed by the random bf16 VAE decode to
+   (8, 256, 256, 3) uint8. Checks the kernel launch counts of each
+   trajectory against its schedule, and a small fp32 trajectory on the card
+   against the plain path on the CPU.
+5. Main path at 1024² (``main1024``): full-width PixArt-α 1024 (4096 image
+   tokens, the resolution and aspect-ratio conditions), batch 2 with CFG,
+   under the repo's ``default_1024x1024`` schedule, ``ours_fast`` and the
+   TGATE schedule ``tgate_m_010_sp_003_fi_001_warmup_002`` (gate at step
+   10), each decoded by the random VAE to (2, 1024, 1024, 3) uint8, with
+   the launch counts of K4 (self- and cross-attention) and K3 checked
+   against each schedule; and a tiny fp32 1024-style trajectory (size
+   conditions, TGATE, 2304 tokens so that both K4 variants run) on the card
+   against the plain path on the CPU.
+6. Entry points (``cli``): ``ecad_tpu_torch.inference.cli
+   PixArtAlphaImageGenerator`` with a prompt file, random weights and
+   ``ours_fast``, and again with the 1024 TGATE schedule at batch size 2;
+   checks their PNGs and launch counts.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. A longer report (every check's error,
-device and host times, per-trajectory profiles, the nvcc/ptxas log) goes
-to ``--report`` (default ``build/ecad_tpu_torch/chip_smoke_report.json``).
+device and host times, per-trajectory profiles, each phase's seconds, the
+nvcc/ptxas log) goes to ``--report`` (default
+``build/ecad_tpu_torch/chip_smoke_report.json``).
 """
 
 from __future__ import annotations
@@ -44,13 +62,35 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 OURS_FAST = ROOT / "schedules/schedules_in_paper/pixart_alpha_256/ours_fast.json"
+DEFAULT_1024 = (
+    ROOT / "schedules/alpha_cache_schedules/gen_default_1024x1024/default_1024x1024.json"
+)
+TGATE_1024 = (
+    ROOT / "schedules/alpha_cache_schedules/gen_tgate_1024"
+    / "tgate_m_010_sp_003_fi_001_warmup_002.json"
+)
 BATCH = 8
+BATCH_1024 = 2
 STEPS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 BF16_TOL = (2e-2, 2e-2)  # (atol, rtol): about two bf16 ulps of an O(1) output
 FP32_TOL = (1e-5, 1e-5)  # fp32 kernels against fp32 plain versions
+# fp32 clamp softmax at q×1e4: the logits are ~1e4, so their fp32 sums (in
+# another order on each side) differ by ~1e-3 in absolute terms, which
+# moves the weight of a key near the clamp's top by ~1e-3 relative
+HOT_FP32_TOL = (1e-3, 1e-3)
 REPORT: dict = {}
+
+
+def clamp_bf16_tol(want: torch.Tensor) -> tuple[float, float]:
+    """(atol, rtol) for a bf16 clamp-softmax (K4) output: one bf16 ulp
+    relative (2^-7, the rounding of the output itself) plus a tenth of the
+    output's standard deviation. With q, k, v ~ N(0, 1) an output averages
+    about Tk/e values of v, so its size falls like Tk^-1/2 (≈0.026 at 4096
+    keys): a fixed atol fitted to O(1) outputs would pass a kernel that
+    drops one key tile of 4096 keys."""
+    return 0.1 * float(want.std()), 2.0 ** -7
 
 
 def log(msg: str) -> None:
@@ -117,22 +157,43 @@ def timed_ms(label: str, fn, reps: int = 7, inner: int = 20) -> float:
     return dev_ms
 
 
-def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol) -> float:
-    atol, rtol = tol
+def beyond(got: torch.Tensor, want: torch.Tensor, tol) -> tuple[int, float, tuple]:
+    """Elements of `got` beyond atol + rtol·|want|, the largest error and
+    the (atol, rtol) used; `tol` is a pair or a function of `want` that
+    gives one."""
     got32, want32 = got.float(), want.float()
-    if not torch.isfinite(got32).all():
-        raise AssertionError(f"{name}: non-finite kernel output")
+    atol, rtol = tol(want32) if callable(tol) else tol
     err = (got32 - want32).abs()
-    bad = err > atol + rtol * want32.abs()
-    max_err = float(err.max())
+    n_bad = int((err > atol + rtol * want32.abs()).sum())
+    return n_bad, float(err.max()), (atol, rtol)
+
+
+def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol) -> float:
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    n_bad, max_err, (atol, rtol) = beyond(got, want, tol)
     REPORT.setdefault("cases", {})[name] = max_err
-    log(f"  {name}: max |kernel - plain| = {max_err:.3g}")
-    if bad.any():
+    log(f"  {name}: max |kernel - plain| = {max_err:.3g} (atol {atol:.3g}, rtol {rtol:.3g})")
+    if n_bad:
         raise AssertionError(
-            f"{name}: {int(bad.sum())} elements beyond atol {atol} + rtol {rtol}"
+            f"{name}: {n_bad} elements beyond atol {atol} + rtol {rtol}"
             f" (max err {max_err:.3g})"
         )
     return max_err
+
+
+def rejects(name: str, faulty: torch.Tensor, want: torch.Tensor, tol) -> None:
+    """Raises unless the check `compare` makes with `tol` fails `faulty`, a
+    plain version with a deliberate fault, against `want`: shows that the
+    check would catch a kernel with that fault at this shape."""
+    n_bad, max_err, (atol, rtol) = beyond(faulty, want, tol)
+    REPORT.setdefault("faults_rejected", {})[name] = {
+        "elements_beyond": n_bad, "of": want.numel(), "max_err": max_err,
+    }
+    log(f"  fault {name}: {n_bad} of {want.numel()} elements beyond atol {atol:.3g}"
+        f" + rtol {rtol:.3g} (max err {max_err:.3g})")
+    if not n_bad:
+        raise AssertionError(f"fault {name} passes the tolerance it should fail")
 
 
 def key_padding_bias(lengths, tk, fill, dtype=torch.float32):
@@ -143,7 +204,12 @@ def key_padding_bias(lengths, tk, fill, dtype=torch.float32):
 
 
 def attention_cases() -> None:
-    from ecad_tpu_torch.ops import fused_attention, fused_attention_reference
+    from ecad_tpu_torch.ops import (
+        fused_attention,
+        fused_attention_reference,
+        transposed_attention,
+        transposed_attention_reference,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -190,17 +256,46 @@ def attention_cases() -> None:
         if not torch.isfinite(hot.float()).all():
             raise AssertionError(f"attention/{tag}: q×1e4 gave non-finite output")
 
+        # the clamp softmax (K4) at the reference's TestTransposedAttention
+        # shapes (tests/test_ops.py:289-328)
+        def clamp_case(name, q, k, v, bias=None,
+                       tol=clamp_bf16_tol if dtype == torch.bfloat16 else tol):
+            compare(f"attention_long/{tag}/{name}",
+                    transposed_attention(q, k, v, bias),
+                    transposed_attention_reference(q, k, v, bias), tol)
 
-def kernel_phase(b2: int) -> dict:
-    """Checks every kernel and times it at the main path's shapes (2B = b2
-    rows of CFG batch). Returns the per-kernel measurements."""
+        clamp_case("multiblock_q_256_384_d72", rnd(2, 256, 2, 72, dtype=dtype),
+                   rnd(2, 384, 2, 72, dtype=dtype), rnd(2, 384, 2, 72, dtype=dtype))
+        clamp_case("multichunk_kv_128_512_d72", rnd(2, 128, 2, 72, dtype=dtype),
+                   rnd(2, 512, 2, 72, dtype=dtype), rnd(2, 512, 2, 72, dtype=dtype))
+        clamp_case("unaligned_tq130_tk300_d36", rnd(2, 130, 2, 36, dtype=dtype),
+                   rnd(2, 300, 2, 36, dtype=dtype), rnd(2, 300, 2, 36, dtype=dtype))
+        clamp_case("batch_broadcast_bias_1_1_1_tk", rnd(3, 128, 2, 72, dtype=dtype),
+                   rnd(3, 256, 2, 72, dtype=dtype), rnd(3, 256, 2, 72, dtype=dtype),
+                   key_padding_bias([100], 256, -1e9))
+        clamp_case("per_batch_key_padding_100_200_256", rnd(3, 128, 2, 72, dtype=dtype),
+                   rnd(3, 256, 2, 72, dtype=dtype), rnd(3, 256, 2, 72, dtype=dtype),
+                   key_padding_bias([100, 200, 256], 256, -1e9))
+        clamp_case("misaligned_rows_d72", wide[..., 1:73], wide[..., 3:75], wide[..., 5:77])
+        clamp_case("q_times_1e4", rnd(1, 128, 1, 72, dtype=dtype, scale=1e4),
+                   rnd(1, 256, 1, 72, dtype=dtype), rnd(1, 256, 1, 72, dtype=dtype),
+                   **({} if dtype == torch.bfloat16 else {"tol": HOT_FP32_TOL}))
+
+
+def kernel_phase(b2: int, b2_1024: int) -> dict:
+    """Checks every kernel and times it at the main paths' shapes (2B = b2
+    rows of CFG batch at 256², b2_1024 at 1024²). Returns the per-kernel
+    measurements."""
     import torch.nn.functional as F
 
     from ecad_tpu_torch.ops import (
         fused_attention,
         fused_attention_reference,
+        launch_counts,
         modulated_layer_norm,
         modulated_layer_norm_reference,
+        reset_launch_counts,
+        transposed_attention_reference,
     )
 
     log("kernel phase")
@@ -284,6 +379,101 @@ def kernel_phase(b2: int) -> dict:
                                lambda: modulated_layer_norm_reference(x, scale, shift)),
              bound_ms=b3, bound_by=by3, library_ms=None),
     ]
+
+    # the clamp softmax (K4) at PixArt-1024's shapes (self-attention over
+    # 4096 tokens, cross-attention to 120 text keys with the text bias) and
+    # at PixArt-512's self-attention, reached through the router
+    t4 = 4096
+    q4, k4, v4 = rnd(b2_1024, t4, h, d), rnd(b2_1024, t4, h, d), rnd(b2_1024, t4, h, d)
+    kc4, vc4 = rnd(b2_1024, l, h, d), rnd(b2_1024, l, h, d)
+    bias4 = key_padding_bias([(7, 60, 120)[i % 3] for i in range(b2_1024)], l, -10000.0, bf)
+    q5, k5, v5 = (rnd(b2, 1024, h, d) for _ in range(3))
+    reset_launch_counts()
+    got = {
+        "self_1024": fused_attention(q4, k4, v4),
+        "cross_1024": fused_attention(q4, kc4, vc4, bias4),
+        "self_512": fused_attention(q5, k5, v5),
+    }
+    torch.cuda.synchronize()
+    routed = launch_counts()
+    if (routed["attention_long"], routed["attention_long_bias"]) != (2, 1) or (
+        routed["attention"] or routed["attention_bias"]
+    ):
+        raise AssertionError(f"PixArt-512/1024 shapes did not route to K4: {routed}")
+    want4 = transposed_attention_reference(q4, k4, v4)
+    err4 = compare(f"attention_long/bf16/main_self_1024_{b2_1024}x4096x16x72",
+                   got["self_1024"], want4, clamp_bf16_tol)
+    # the same check must fail a kernel that skips or repeats one 64-key
+    # tile (the kernel's key step) of the 4096
+    rejects("self_1024_drops_key_tile_1",
+            transposed_attention_reference(q4, torch.cat((k4[:, :64], k4[:, 128:]), 1),
+                                           torch.cat((v4[:, :64], v4[:, 128:]), 1)),
+            want4, clamp_bf16_tol)
+    rejects("self_1024_repeats_key_tile_1",
+            transposed_attention_reference(q4, torch.cat((k4[:, :128], k4[:, 64:]), 1),
+                                           torch.cat((v4[:, :128], v4[:, 64:]), 1)),
+            want4, clamp_bf16_tol)
+    del want4
+    err5 = compare(f"attention_long/bf16/main_cross_1024_{b2_1024}x4096_to_120_key_padding",
+                   got["cross_1024"],
+                   transposed_attention_reference(q4, kc4, vc4, bias4), clamp_bf16_tol)
+    compare(f"attention_long/bf16/self_512_{b2}x1024x16x72", got["self_512"],
+            transposed_attention_reference(q5, k5, v5), clamp_bf16_tol)
+    q5t, k5t, v5t = (a.transpose(1, 2).contiguous() for a in (q5, k5, v5))
+    timed_ms("attention_long_512", lambda: fused_attention(q5, k5, v5))
+    timed_ms("attention_long_512/plain", lambda: transposed_attention_reference(q5, k5, v5))
+    timed_ms("attention_long_512/sdpa", lambda: F.scaled_dot_product_attention(q5t, k5t, v5t))
+    REPORT["attention_long_512_bound_ms"] = bound(
+        nbytes(q5, k5, v5, q5), 4 * b2 * h * 1024 * 1024 * d
+    )
+    del got, q5, k5, v5, q5t, k5t, v5t
+    qf, kf, vf = (rnd(1, 2048, 2, 72, dtype=torch.float32) for _ in range(3))
+    kcf, vcf = rnd(1, 120, 2, 72, dtype=torch.float32), rnd(1, 120, 2, 72, dtype=torch.float32)
+    biasf = key_padding_bias([60], l, -10000.0)
+    compare("attention_long/fp32/self_1x2048x2x72", fused_attention(qf, kf, vf),
+            transposed_attention_reference(qf, kf, vf), FP32_TOL)
+    compare("attention_long/fp32/cross_1x2048_to_120_key_padding",
+            fused_attention(qf, kcf, vcf, biasf),
+            transposed_attention_reference(qf, kcf, vcf, biasf), FP32_TOL)
+
+    q4t, k4t, v4t = (a.transpose(1, 2).contiguous() for a in (q4, k4, v4))
+    kc4t, vc4t = (a.transpose(1, 2).contiguous() for a in (kc4, vc4))
+    o4 = torch.empty_like(q4)
+    b4_ms, by4 = bound(nbytes(q4, k4, v4, o4), 4 * b2_1024 * h * t4 * t4 * d)
+    b5_ms, by5 = bound(nbytes(q4, kc4, vc4, o4, bias4.float()), 4 * b2_1024 * h * t4 * l * d)
+    rows += [
+        dict(name="attention_long", route="cuda",
+             source="ecad_tpu_torch/csrc/attention.cu",
+             replaces="ecad_tpu/ops/attention.py:344 (_transposed_kernel_nobias)",
+             max_abs_err=err4,
+             ms=timed_ms("attention_long", lambda: fused_attention(q4, k4, v4), reps=5),
+             plain_ms=timed_ms("attention_long/plain",
+                               lambda: transposed_attention_reference(q4, k4, v4),
+                               reps=3, inner=5),
+             bound_ms=b4_ms, bound_by=by4,
+             library_ms=timed_ms("attention_long/sdpa",
+                                 lambda: F.scaled_dot_product_attention(q4t, k4t, v4t),
+                                 reps=5)),
+        dict(name="attention_long_bias", route="cuda",
+             source="ecad_tpu_torch/csrc/attention.cu",
+             replaces="ecad_tpu/ops/attention.py:285 (_transposed_kernel)",
+             max_abs_err=err5,
+             ms=timed_ms("attention_long_bias",
+                         lambda: fused_attention(q4, kc4, vc4, bias4)),
+             plain_ms=timed_ms("attention_long_bias/plain",
+                               lambda: transposed_attention_reference(q4, kc4, vc4, bias4)),
+             bound_ms=b5_ms, bound_by=by5,
+             library_ms=timed_ms("attention_long_bias/sdpa",
+                                 lambda: F.scaled_dot_product_attention(
+                                     q4t, kc4t, vc4t, attn_mask=bias4))),
+    ]
+    # K3 at the 1024² path's shape, for the report
+    x4 = rnd(b2_1024, t4, dim)
+    mods4 = rnd(b2_1024, 6, dim) * 0.1
+    compare(f"modlnorm/bf16/main_{b2_1024}x4096x1152",
+            modulated_layer_norm(x4, mods4[:, 1:2], mods4[:, 0:1]),
+            modulated_layer_norm_reference(x4, mods4[:, 1:2], mods4[:, 0:1]), BF16_TOL)
+    timed_ms("modlnorm_1024", lambda: modulated_layer_norm(x4, mods4[:, 1:2], mods4[:, 0:1]))
     for r in rows:
         out[r["name"]] = r
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
@@ -296,55 +486,95 @@ def kernel_phase(b2: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def expected_counts(masks) -> dict[str, int]:
+def expected_counts(masks, clamp: bool = False) -> dict[str, int]:
+    """Launches per trajectory that a schedule's masks imply: one
+    self-attention per recomputed attn1, one cross-attention per attn2, one
+    modlnorm per attn1 and ff and one per step for the final norm. At 256²
+    attention takes the exact kernels (K1/K2), at 1024² the clamp kernel
+    (K4) in both of its variants."""
     arr = np.array(masks, dtype=bool)  # (steps, blocks, 3), step 0 forced
+    self_attn, cross_attn = int(arr[..., 0].sum()), int(arr[..., 1].sum())
     return {
-        "attention": int(arr[..., 0].sum()),
-        "attention_bias": int(arr[..., 1].sum()),
+        "attention": 0 if clamp else self_attn,
+        "attention_bias": 0 if clamp else cross_attn,
+        "attention_long": self_attn if clamp else 0,
+        "attention_long_bias": cross_attn if clamp else 0,
         "modlnorm": int(arr[..., 0].sum() + arr[..., 2].sum()) + arr.shape[0],
     }
 
 
-def small_reference_check() -> float:
+def small_reference_check(sized: bool = False) -> dict:
     """A tiny fp32 trajectory through the kernels on the card against the
-    same weights and noise through the plain versions on the CPU."""
+    same weights and noise through the plain versions on the CPU.
+
+    sized=False: PixArt-256 style (64 tokens, exact-softmax kernels), 20
+    steps that reuse attn2 and ff on odd steps. sized=True: 1024 style —
+    the size conditions (dim 96, a multiple of 3), a 96×96 latent (2304
+    tokens, so self-attention and the 2304→8 cross-attention both take the
+    clamp kernel) and TGATE gating at step 4 of 8."""
     from ecad_tpu_torch.models.pixart import PixArtConfig, init_model
-    from ecad_tpu_torch.pipelines import PixArtPipeline, PixArtPipelineConfig
+    from ecad_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ecad_tpu_torch.pipelines import (
+        PixArtPipeline,
+        PixArtPipelineConfig,
+        TGATEPixArtPipeline,
+    )
     from ecad_tpu_torch.schedules import PixArtCacheSchedule
 
-    cfg = PixArtConfig.tiny(dtype=torch.float32)
+    if sized:
+        cfg = PixArtConfig.tiny(dtype=torch.float32, dim=96, sample_size=96,
+                                use_additional_conditions=True)
+        steps, cls, kwargs = 8, TGATEPixArtPipeline, {"gate_step": 4}
+    else:
+        cfg = PixArtConfig.tiny(dtype=torch.float32)
+        steps, cls, kwargs = STEPS, PixArtPipeline, {}
     cpu_model = init_model(cfg, 3, "cpu")
     gpu_model = init_model(cfg, 3, "cuda")
     gpu_model.load_state_dict(cpu_model.state_dict())
-    sched = PixArtCacheSchedule.default(STEPS, cfg.num_blocks)
-    arr = sched.to_numpy()
-    arr[1::2, :, 1:] = False  # reuse attn2 and ff on odd steps
-    sched = PixArtCacheSchedule.from_numpy(arr.reshape(STEPS, -1), STEPS, cfg.num_blocks)
+    arr = np.ones((steps, cfg.num_blocks, 3), dtype=bool)
+    # reuse attn2 and ff on odd steps (before the gate: TGATE recomputes ff after it)
+    arr[1:kwargs.get("gate_step", steps):2, :, 1:] = False
+    sched = PixArtCacheSchedule.from_numpy(arr.reshape(steps, -1), steps, cfg.num_blocks)
     rng = np.random.default_rng(0)
-    noise = torch.from_numpy(rng.standard_normal((2, 8, 8, 4), dtype=np.float32))
+    side = cfg.sample_size
+    noise = torch.from_numpy(rng.standard_normal((2, side, side, 4), dtype=np.float32))
     text = torch.from_numpy(rng.standard_normal((2, 8, 32), dtype=np.float32))
     neg = torch.from_numpy(rng.standard_normal((2, 8, 32), dtype=np.float32))
     tm = torch.tensor([[1] * 5 + [0] * 3, [1] * 8])
     nm = torch.tensor([[1] + [0] * 7] * 2)
     outs = []
     for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
-        pipe = PixArtPipeline(PixArtPipelineConfig(cfg, STEPS), model, sched)
+        pipe = cls(PixArtPipelineConfig(cfg, steps), model, sched, **kwargs)
         args = [a.to(dev) for a in (noise, text, neg, tm, nm)]
+        reset_launch_counts()
         outs.append(pipe.denoise(*args).cpu())
+    counts = launch_counts()
     err = float((outs[0] - outs[1]).abs().max())
-    log(f"  tiny fp32 trajectory, card kernels vs CPU plain: max err {err:.3g}")
-    # fp32 throughout (TF32 off); 20 steps of CFG 4.5 amplify per-step
-    # rounding differences of ~1e-6 on O(1) latents to ~1e-4
-    if not err <= 1e-3:
-        raise AssertionError(f"tiny trajectory mismatch {err}")
-    return err
+    scale = float(outs[0].abs().max())
+    label = "1024-style (size conditions, TGATE)" if sized else "256-style"
+    log(f"  tiny fp32 {label} trajectory, card kernels vs CPU plain: max err "
+        f"{err:.3g} of max |latent| {scale:.3g}; card launches {counts}")
+    want_kernels = ("attention_long", "attention_long_bias") if sized else (
+        "attention", "attention_bias")
+    if not all(counts[k] > 0 for k in (*want_kernels, "modlnorm")):
+        raise AssertionError(f"tiny {label} trajectory missed a kernel: {counts}")
+    # fp32 throughout (TF32 off). 256-style: 20 steps of CFG 4.5 amplify
+    # per-step rounding differences of ~1e-6 on O(1) latents to ~1e-4.
+    # 1024-style: random-weight latents grow to O(100s) (x0 = x/α), so the
+    # bound is relative to the largest one.
+    limit = 1e-5 * scale if sized else 1e-3
+    if not err <= limit:
+        raise AssertionError(f"tiny {label} trajectory mismatch {err} > {limit}")
+    return {"max_err": err, "max_abs_latent": scale, "launches": counts}
 
 
 def kernel_family(name: str) -> str:
     """Family of a device kernel, from its (mangled or demangled) name."""
-    if "attn_bf16_kernel" in name:
-        biased = "true>" in name or "ELb1E" in name
-        return "attention_bias" if biased else "attention"
+    for kernel, family in (("attn_clamp_bf16_kernel", "attention_long"),
+                           ("attn_bf16_kernel", "attention")):
+        if kernel in name:
+            biased = "true>" in name or "ELb1E" in name
+            return family + "_bias" if biased else family
     if "_modlnorm_body" in name:
         return "modlnorm"
     low = name.lower()
@@ -367,7 +597,8 @@ def profile_trajectory(fn, wall_ms: float) -> dict:
         fn()
         torch.cuda.synchronize()
     fams = dict.fromkeys(
-        ("attention", "attention_bias", "modlnorm", "gemm", "conv", "other"), 0.0
+        ("attention", "attention_bias", "attention_long", "attention_long_bias",
+         "modlnorm", "gemm", "conv", "other"), 0.0
     )
     launches = 0
     host_ops = []
@@ -396,118 +627,219 @@ def profile_trajectory(fn, wall_ms: float) -> dict:
     }
 
 
-def main_path() -> dict:
-    from ecad_tpu_torch.models.pixart import PixArtConfig, init_model
-    from ecad_tpu_torch.models.vae import random_decoder_pipeline
-    from ecad_tpu_torch.ops import launch_counts, reset_launch_counts
-    from ecad_tpu_torch.pipelines import PixArtPipeline, PixArtPipelineConfig
-    from ecad_tpu_torch.schedules import PixArtCacheSchedule
-
-    log("main path: PixArt-α 256, full width, batch 8, 20 steps")
-    REPORT["tiny_trajectory_err"] = small_reference_check()
-    config = PixArtConfig()
-    t0 = time.perf_counter()
-    model = init_model(config, 0, "cuda")
-    vae = random_decoder_pipeline(4, "cuda")
-    torch.cuda.synchronize()
-    REPORT["init_s"] = time.perf_counter() - t0
+def path_inputs(config, batch: int) -> dict:
+    """Seeded bf16 text, negative and noise on the card; text masks of
+    random lengths 7..120 and a one-token negative mask."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    shape_t = (BATCH, config.text_len, config.caption_dim)
+    shape_t = (batch, config.text_len, config.caption_dim)
     text = torch.randn(shape_t, generator=gen, device="cuda").to(config.dtype)
     neg = torch.randn(shape_t, generator=gen, device="cuda").to(config.dtype)
     noise = torch.randn(
-        (BATCH, config.sample_size, config.sample_size, config.in_channels),
+        (batch, config.sample_size, config.sample_size, config.in_channels),
         generator=gen, device="cuda",
     ).to(config.dtype)
-    lengths = torch.randint(7, config.text_len + 1, (BATCH,), generator=gen, device="cuda")
+    lengths = torch.randint(7, config.text_len + 1, (batch,), generator=gen, device="cuda")
     text_mask = (torch.arange(config.text_len, device="cuda")[None] < lengths[:, None]).int()
     neg_mask = torch.zeros_like(text_mask)
     neg_mask[:, 0] = 1  # the empty negative prompt keeps one token
+    return dict(noise=noise, text=text, neg=neg, text_mask=text_mask, neg_mask=neg_mask)
 
-    pcfg = PixArtPipelineConfig(model=config, num_inference_steps=STEPS)
-    pipes = {
-        "ours_fast": PixArtPipeline(pcfg, model, PixArtCacheSchedule.from_json(OURS_FAST)),
-        "default": PixArtPipeline(pcfg, model, PixArtCacheSchedule.default(STEPS)),
-    }
+
+def drive(pipes: dict, inputs: dict, vae, batch: int, side: int, clamp: bool,
+          order: tuple) -> dict:
+    """Each pipeline once with the launch counters set to 0 just before and
+    read just after (checked against its schedule, with the image shape and
+    finite latents); then ms/img from synchronized runs taken in `order`;
+    then one profiled run each."""
+    from ecad_tpu_torch.ops import launch_counts, reset_launch_counts
 
     def run(pipe):
-        latents = pipe.denoise(noise, text, neg, text_mask, neg_mask)
+        latents = pipe.denoise(**inputs)
         return latents, vae.decode_device(latents)
 
+    torch.cuda.reset_peak_memory_stats()
     result = {}
     for name, pipe in pipes.items():
         reset_launch_counts()
         latents, img = run(pipe)
         torch.cuda.synchronize()
         counts = launch_counts()
-        want = expected_counts(pipe.masks)
+        want = expected_counts(pipe.masks, clamp)
         log(f"  {name}: launches {counts}, schedule says {want}")
         if counts != want:
             raise AssertionError(f"{name}: launches {counts} != schedule {want}")
-        if tuple(img.shape) != (BATCH, 256, 256, 3) or img.dtype != torch.uint8:
+        if tuple(img.shape) != (batch, side, side, 3) or img.dtype != torch.uint8:
             raise AssertionError(f"{name}: image {tuple(img.shape)} {img.dtype}")
         if not torch.isfinite(latents.float()).all():
             raise AssertionError(f"{name}: non-finite latents")
         result[name] = {"launches": counts, "latents_std": float(latents.float().std())}
 
-    # timing: alternate the two schedules, host clock around synchronized runs
     times = {name: [] for name in pipes}
-    for name in ("default", "ours_fast", "ours_fast", "default") * 2:
+    for name in order:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run(pipes[name])
         torch.cuda.synchronize()
-        times[name].append((time.perf_counter() - t0) * 1e3 / BATCH)
+        times[name].append((time.perf_counter() - t0) * 1e3 / batch)
     for name in pipes:
         result[name]["ms_per_img"] = statistics.median(times[name])
         result[name]["ms_per_img_runs"] = times[name]
-    result["speedup"] = result["default"]["ms_per_img"] / result["ours_fast"]["ms_per_img"]
-    result["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    log(f"  ms/img: ours_fast {result['ours_fast']['ms_per_img']:.3f}, default "
-        f"{result['default']['ms_per_img']:.3f}, ratio {result['speedup']:.4f}")
+        log(f"  {name}: {result[name]['ms_per_img']:.3f} ms/img (runs {times[name]})")
     for name, pipe in pipes.items():
         result[name]["profile"] = profile_trajectory(
-            lambda: run(pipe), result[name]["ms_per_img"] * BATCH
+            lambda: run(pipe), result[name]["ms_per_img"] * batch
         )
         log(f"  {name} device time by kernel family (ms per trajectory): "
             f"{result[name]['profile']}")
+    # the VAE decode alone, so that a trajectory's time splits into
+    # transformer and decode (its convolutions run as cuDNN xmma kernels,
+    # which the family test counts as "gemm")
+    vae_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vae.decode_device(latents)
+        torch.cuda.synchronize()
+        vae_ms.append((time.perf_counter() - t0) * 1e3)
+    result["vae_decode_ms"] = statistics.median(vae_ms)
+    result["vae_profile"] = profile_trajectory(
+        lambda: vae.decode_device(latents), result["vae_decode_ms"]
+    )
+    log(f"  VAE decode of {batch} latents: {result['vae_decode_ms']:.3f} ms, device "
+        f"{result['vae_profile']['device_ms']}")
+    result["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return result
+
+
+def main_path() -> dict:
+    from ecad_tpu_torch.models.pixart import PixArtConfig, init_model
+    from ecad_tpu_torch.models.vae import random_decoder_pipeline
+    from ecad_tpu_torch.pipelines import PixArtPipeline, PixArtPipelineConfig
+    from ecad_tpu_torch.schedules import PixArtCacheSchedule
+
+    log("main path: PixArt-α 256, full width, batch 8, 20 steps")
+    REPORT["tiny_trajectory"] = small_reference_check()
+    config = PixArtConfig()
+    t0 = time.perf_counter()
+    model = init_model(config, 0, "cuda")
+    vae = random_decoder_pipeline(4, "cuda")
+    torch.cuda.synchronize()
+    REPORT["init_s"] = time.perf_counter() - t0
+    pcfg = PixArtPipelineConfig(model=config, num_inference_steps=STEPS)
+    pipes = {
+        "ours_fast": PixArtPipeline(pcfg, model, PixArtCacheSchedule.from_json(OURS_FAST)),
+        "default": PixArtPipeline(pcfg, model, PixArtCacheSchedule.default(STEPS)),
+    }
+    result = drive(pipes, path_inputs(config, BATCH), vae, BATCH, 256, clamp=False,
+                   order=("default", "ours_fast", "ours_fast", "default"))
+    result["speedup"] = result["default"]["ms_per_img"] / result["ours_fast"]["ms_per_img"]
+    log(f"  ratio default / ours_fast {result['speedup']:.4f}")
     del model, vae, pipes
     torch.cuda.empty_cache()
     return result
 
 
-def entry_point() -> dict:
+def main_path_1024() -> dict:
+    from ecad_tpu_torch.models.pixart import PixArtConfig, init_model
+    from ecad_tpu_torch.models.vae import random_decoder_pipeline
+    from ecad_tpu_torch.pipelines import (
+        PixArtPipeline,
+        PixArtPipelineConfig,
+        pipeline_from_config,
+    )
+    from ecad_tpu_torch.schedules import PixArtCacheSchedule
+
+    log("main path: PixArt-α 1024, full width, batch 2, 20 steps")
+    REPORT["tiny_trajectory_1024"] = small_reference_check(sized=True)
+    config = PixArtConfig(sample_size=128, use_additional_conditions=True)
+    t0 = time.perf_counter()
+    model = init_model(config, 0, "cuda")
+    vae = random_decoder_pipeline(4, "cuda")
+    torch.cuda.synchronize()
+    REPORT["init_1024_s"] = time.perf_counter() - t0
+    pcfg = PixArtPipelineConfig(model=config, num_inference_steps=STEPS)
+    tgate = PixArtCacheSchedule.from_json(TGATE_1024)
+    tgate_cls, tgate_kwargs = pipeline_from_config(
+        tgate.top_level_config["pipeline"]["name"],
+        tgate.top_level_config["pipeline"]["kwargs"],
+    )
+    pipes = {
+        "default": PixArtPipeline(pcfg, model, PixArtCacheSchedule.from_json(DEFAULT_1024)),
+        "ours_fast": PixArtPipeline(pcfg, model, PixArtCacheSchedule.from_json(OURS_FAST)),
+        "tgate": tgate_cls(pcfg, model, tgate, **tgate_kwargs),
+    }
+    result = drive(pipes, path_inputs(config, BATCH_1024), vae, BATCH_1024, 1024,
+                   clamp=True,
+                   order=("default", "ours_fast", "tgate", "tgate", "ours_fast", "default"))
+    for name in ("ours_fast", "tgate"):
+        result[f"speedup_{name}"] = (
+            result["default"]["ms_per_img"] / result[name]["ms_per_img"]
+        )
+    log(f"  ratio default / ours_fast {result['speedup_ours_fast']:.4f}, "
+        f"default / tgate {result['speedup_tgate']:.4f}")
+    del model, vae, pipes
+    torch.cuda.empty_cache()
+    return result
+
+
+def run_cli(label: str, argv: list[str], n_prompts: int, side: int, want: dict) -> dict:
+    """The inference CLI on a prompt file, with the launch counters set to
+    0 just before; checks the PNG names and shapes and the launches."""
     from ecad_tpu_torch.inference.cli import main as cli_main
     from ecad_tpu_torch.ops import launch_counts, reset_launch_counts
     from PIL import Image
 
-    log("entry point: ecad_tpu_torch.inference.cli")
-    work = ROOT / "build" / "ecad_tpu_torch" / "smoke_cli"
+    log(f"entry point: ecad_tpu_torch.inference.cli ({label})")
+    work = ROOT / "build" / "ecad_tpu_torch" / f"smoke_cli_{label}"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     prompts = ["a red bicycle leaning on a wall", "a bowl of ramen", "mountains at dawn"]
-    (work / "prompts.txt").write_text("\n".join(prompts) + "\n")
+    (work / "prompts.txt").write_text("\n".join(prompts[:n_prompts]) + "\n")
     reset_launch_counts()
-    cli_main([
-        "PixArtAlphaImageGenerator", "--prompt-file", str(work / "prompts.txt"),
-        "--random-weights", "--schedule", str(OURS_FAST),
-        "--output-dir", str(work / "out"),
-    ])
+    cli_main([*argv, "--prompt-file", str(work / "prompts.txt"),
+              "--output-dir", str(work / "out")])
     torch.cuda.synchronize()
     counts = launch_counts()
     pngs = sorted((work / "out" / "images").glob("*.png"))
     names = [p.name for p in pngs]
-    want = [f"{i:03d}__prompt_seed:000__image_seed:000.png" for i in range(3)]
-    if names != want:
-        raise AssertionError(f"CLI wrote {names}, expected {want}")
+    want_names = [f"{i:03d}__prompt_seed:000__image_seed:000.png" for i in range(n_prompts)]
+    if names != want_names:
+        raise AssertionError(f"CLI wrote {names}, expected {want_names}")
     for p in pngs:
         arr = np.asarray(Image.open(p))
-        if arr.shape != (32, 32, 3) or arr.dtype != np.uint8:
+        if arr.shape != (side, side, 3) or arr.dtype != np.uint8:
             raise AssertionError(f"{p.name}: {arr.shape} {arr.dtype}")
-    if min(counts.values()) == 0:
-        raise AssertionError(f"CLI run missed a kernel: {counts}")
+    if counts != want:
+        raise AssertionError(f"CLI launches {counts} != schedule {want}")
     log(f"  CLI wrote {names}; launches {counts}")
     return {"pngs": names, "launches": counts}
+
+
+def entry_points() -> dict:
+    from ecad_tpu_torch.models.pixart import PixArtConfig, schedule_step_masks
+    from ecad_tpu_torch.schedules import PixArtCacheSchedule
+
+    def masks(path, gate_step=None):
+        m = schedule_step_masks(PixArtCacheSchedule.from_json(path), PixArtConfig())
+        if gate_step is None:
+            return m
+        # the TGATE pipeline's rewrite: no cross-attention after the gate
+        return [tuple((a1, a2 and step < gate_step, ff) for a1, a2, ff in row)
+                for step, row in enumerate(m)]
+
+    gate = PixArtCacheSchedule.from_json(TGATE_1024).top_level_config["pipeline"]
+    return {
+        "ours_fast_256": run_cli(
+            "ours_fast_256",
+            ["PixArtAlphaImageGenerator", "--random-weights", "--schedule", str(OURS_FAST)],
+            3, 32, expected_counts(masks(OURS_FAST))),
+        "tgate_1024": run_cli(
+            "tgate_1024",
+            ["PixArtAlphaImageGenerator", "--random-weights", "--batch-size", "2",
+             "--schedule", str(TGATE_1024)],
+            2, 128, expected_counts(masks(TGATE_1024, gate["kwargs"]["gate_step"]),
+                                    clamp=True)),
+    }
 
 
 def main() -> None:
@@ -521,24 +853,35 @@ def main() -> None:
     args = parser.parse_args()
     smi = check_card()
     REPORT["card"] = smi
-    build_kernels()
-    kernels = kernel_phase(b2=2 * BATCH)
-    REPORT["main_path"] = main_path()
-    REPORT["entry_point"] = entry_point()
-    launches = REPORT["main_path"]["ours_fast"]["launches"]
-    for name, row in kernels.items():
-        row["launches"] = launches[name]
-    REPORT["kernels"] = kernels
+    seconds = REPORT.setdefault("phase_s", {})
+
+    def phase(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        seconds[name] = time.perf_counter() - t0
+        log(f"phase {name}: {seconds[name]:.1f} s")
+        return out
+
+    phase("build", build_kernels)
+    kernels = phase("kernels", kernel_phase, b2=2 * BATCH, b2_1024=2 * BATCH_1024)
+    REPORT["main_path"] = phase("main256", main_path)
+    REPORT["main_path_1024"] = phase("main1024", main_path_1024)
+    REPORT["entry_point"] = phase("cli", entry_points)
     args.report.parent.mkdir(parents=True, exist_ok=True)
+    for name, row in kernels.items():
+        path = "main_path_1024" if name.startswith("attention_long") else "main_path"
+        row["launches"] = REPORT[path]["ours_fast"]["launches"][name]
+    REPORT["kernels"] = kernels
     args.report.write_text(json.dumps(REPORT, indent=1))
-    mp = REPORT["main_path"]
+    mp, mp4 = REPORT["main_path"], REPORT["main_path_1024"]
     print(json.dumps({
         "card": smi,
-        "ms_per_img_ours_fast": mp["ours_fast"]["ms_per_img"],
-        "ms_per_img_default": mp["default"]["ms_per_img"],
-        "speedup": mp["speedup"],
-        "launches_ours_fast": mp["ours_fast"]["launches"],
-        "launches_default": mp["default"]["launches"],
+        "ms_per_img_256": {k: mp[k]["ms_per_img"] for k in ("ours_fast", "default")},
+        "speedup_256": mp["speedup"],
+        "ms_per_img_1024": {k: mp4[k]["ms_per_img"] for k in ("ours_fast", "default", "tgate")},
+        "speedup_1024": {k: mp4[f"speedup_{k}"] for k in ("ours_fast", "tgate")},
+        "launches_1024": {k: mp4[k]["launches"] for k in ("ours_fast", "default", "tgate")},
+        "phase_s": seconds,
     }), flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

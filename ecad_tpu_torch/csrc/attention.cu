@@ -1,23 +1,45 @@
-// Fused attention forward for Hopper (sm_90a): softmax(q·kᵀ/√d + bias)·v.
+// Fused attention forward for Hopper (sm_90a), in two softmax variants
+// that share one tensor-core body:
 //
-// Replaces the Pallas kernels `_attn_kernel` (ecad_tpu/ops/attention.py:58,
-// no bias) and `_attn_kernel_bias` (:75, fp32 additive bias) that
-// `fused_attention` (:677) launches for every (batch·head) tile.
+//   * exact (max-subtract): softmax(q·kᵀ/√d + bias)·v. Replaces the Pallas
+//     kernels `_attn_kernel` (ecad_tpu/ops/attention.py:58, no bias) and
+//     `_attn_kernel_bias` (:75, fp32 additive bias) that `fused_attention`
+//     (:677) launches for every (batch·head) tile.
+//   * clamp (no row max): the function of `_transposed_kernel` (:285) and
+//     `_transposed_kernel_nobias` (:344), launched by `_transposed_attention`
+//     (:348-455) for lane-padded head dims (PixArt's D=72) at or above a
+//     1 MiB fp32 score tile: q pre-scaled by bf16(scale·log2e) and rounded
+//     to the input dtype (:378-383), s = q·kᵀ in fp32, plus the key-padding
+//     bias times log2e, p = exp2(clip(s, −100, 80)), Σp in fp32, p cast to
+//     v's dtype for p·v, one divide. With the clamp there is no running max
+//     and no rescale of the accumulator: p ≤ 2^80, so the fp32 sums cannot
+//     overflow, and p ≥ 2^-100, so the sum is never 0. Keys past Tk get
+//     weight 0 here (bounds); the Pallas kernel pads them to a 128-multiple
+//     and gives each of the n_pad pad keys 2^-100 through a −1e9 bias (its
+//     pad rows of v are 0, so only its Σp grows). A row's result therefore
+//     differs by a relative n_pad·2^-100/Σp: below 2^-90 whenever some key
+//     within Tk has a clamped logit above log2(n_pad) − 10, but n_pad/Tk
+//     for a row whose every logit is clamped at −100.
 //
-// What bounds it on the H100: at the main path's shapes (self-attention
-// 256×256 and cross-attention 256→120, D=72, bf16) a (batch·head) does
-// 4·Tq·Tk·D flops on (2·Tq + 2·Tk)·D·2 bytes of q, k, v and o, 80 to 130
-// flops per byte, below the ~295 flops per byte where the bf16 tensor
-// cores become the limit: the kernel is bound by those bytes. The design
-// therefore reads each operand once per query tile, keeps scores and
-// probabilities in registers (never in device memory), and accumulates in
-// fp32:
+// What bounds it on the H100. Exact path, at PixArt-256's shapes
+// (self-attention 256×256 and cross-attention 256→120, D=72, bf16): a
+// (batch·head) does 4·Tq·Tk·D flops on (2·Tq + 2·Tk)·D·2 bytes of q, k, v
+// and o, 80 to 130 flops per byte, below the ~295 flops per byte where the
+// bf16 tensor cores become the limit: bytes bound it. Clamp path, at
+// PixArt-1024's self-attention (2B=4, 16 heads, 4096×4096, D=72) it is
+// 4·B·H·Tq·Tk·D = 3.09e11 flops on 151 MB, 2048 flops per byte: the
+// tensor cores bound it (0.313 ms at 989 TFLOP/s); its cross-attention
+// (4096 → 120 keys) moves ≈78 MB for 9e9 flops and is bound by bytes
+// (0.023 ms at 3.35 TB/s). The design therefore reads each operand once
+// per query tile, keeps scores and probabilities in registers (never in
+// device memory), and accumulates in fp32:
 //
 //   * one block owns one (batch·head, 64-row query tile); four warps own
 //     16 query rows each;
-//   * it walks the keys in tiles of 64 with an online softmax (running max
-//     and sum in fp32, exp2 in the log2 domain), so any Tk works and the
-//     ragged key edge is handled by bounds, not by a padding bias;
+//   * it walks the keys in tiles of 64 — exact: with an online softmax
+//     (running max and sum in fp32, exp2 in the log2 domain); clamp: with
+//     a plain running sum, since the clamp needs no max — so any Tk works
+//     and the ragged key edge is handled by bounds, not by a padding bias;
 //   * k/v tiles stream into two shared-memory stages with cp.async, the
 //     next tile's copy overlapping this tile's math;
 //   * bf16 products run on the tensor cores through `mma.sync` m16n8k16
@@ -31,7 +53,8 @@
 //     (B,1,1,Tk), batch-broadcast (1,1,1,Tk) and dense (B,H,Tq,Tk) biases
 //     without materialising the broadcast;
 //   * fp32 inputs take a plain SIMT path (one warp per query row, fp32
-//     FMAs) so that fp32 results stay exact to fp32 rounding.
+//     FMAs), in both variants, so that fp32 results stay exact to fp32
+//     rounding.
 //
 // q, k, v and o are read and written in the (B, T, H, D) layout through
 // their strides; only the head dimension must be contiguous (16-byte
@@ -49,6 +72,9 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockQ = kWarps * 16;  // query rows per block (bf16 path)
 constexpr int kBlockK = 64;           // keys per shared-memory tile (bf16 path)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kClampLo = -100.f;  // clamp variant: log2-domain window of s
+constexpr float kClampHi = 80.f;
 
 struct Params {
   const void* q;
@@ -64,7 +90,7 @@ struct Params {
   // bias strides over (B, H, Tq, Tk); 0 on a broadcast dimension
   long long b_sb, b_sh, b_sq, b_sk;
   int H, Tq, Tk, D;
-  float scale;
+  float scale;  // exact: 1/√D; clamp: scale·log2e, rounded to q's dtype
   int vec_ok;  // every row start is 16-byte aligned and D % 8 == 0
 };
 
@@ -167,14 +193,21 @@ constexpr int bf16_smem_bytes() {
   return 2 * 2 * kBlockK * (DP + 8) * 2;
 }
 
-template <int DP, bool HAS_BIAS>
-__global__ void __launch_bounds__(kThreads) attn_bf16_kernel(const Params p) {
+// q fragment × a bf16-exact factor, rounded back to bf16 (round to nearest
+// even): the clamp variant's pre-scaled q, as the Pallas wrapper multiplies
+// q by the scale in q's dtype.
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float f) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&x);
+  return pack_bf16(__low2float(v) * f, __high2float(v) * f);
+}
+
+template <int DP, bool HAS_BIAS, bool CLAMP>
+__device__ __forceinline__ void attn_bf16_body(const Params& p) {
   constexpr int kSteps = DP / 16;       // k-steps of the q·kᵀ reduction over D
   constexpr int kSTiles = kBlockK / 8;  // 8-key score tiles per key tile
   constexpr int kOTiles = DP / 8;       // 8-column output tiles (ceil(D/8) used)
   constexpr int kStride = DP + 8;       // smem row stride: conflict-free ldmatrix rows
   constexpr int kTile = kBlockK * kStride;
-  constexpr float kLog2e = 1.4426950408889634f;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* const smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -212,7 +245,13 @@ __global__ void __launch_bounds__(kThreads) attn_bf16_kernel(const Params p) {
     const int r = warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
     const int c = (lane >> 4) * 8;
 #pragma unroll
-    for (int s = 0; s < kSteps; ++s) ldmatrix_x4(qf[s], k_tile(1) + r * kStride + s * 16 + c);
+    for (int s = 0; s < kSteps; ++s) {
+      ldmatrix_x4(qf[s], k_tile(1) + r * kStride + s * 16 + c);
+      if constexpr (CLAMP) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qf[s][i] = scale_bf16x2(qf[s][i], p.scale);
+      }
+    }
   }
   __syncthreads();
 
@@ -220,7 +259,8 @@ __global__ void __launch_bounds__(kThreads) attn_bf16_kernel(const Params p) {
   // this thread's two query rows: g and g + 8 of the warp's 16
   const int row_a = q0 + warp * 16 + g;
   const int rows[2] = {row_a, row_a + 8};
-  const float qk_scale = p.scale * kLog2e;  // scores in the log2 domain
+  // scores in the log2 domain (the clamp variant's q carries the scale)
+  const float qk_scale = CLAMP ? 1.f : p.scale * kLog2e;
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};  // per-thread partial sums, reduced at the end
   float acc[kOTiles][4];
@@ -259,52 +299,72 @@ __global__ void __launch_bounds__(kThreads) attn_bf16_kernel(const Params p) {
       }
     }
 
-    // scale, bias, ragged key edge (log2 domain); running max
-    float mx[2] = {m_run[0], m_run[1]};
+    if constexpr (CLAMP) {
+      // p = exp2(clip(s + bias·log2e, −100, 80)); keys past Tk weigh 0
 #pragma unroll
-    for (int j = 0; j < kSTiles; ++j) {
+      for (int j = 0; j < kSTiles; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + tg * 2 + (e & 1);
-        const int r = e >> 1;
-        float x = s[j][e] * qk_scale;
-        if (col >= p.Tk) {
-          x = -INFINITY;
-        } else if (HAS_BIAS) {
-          x += bias_at(p, b, h, min(rows[r], p.Tq - 1), col) * kLog2e;
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + tg * 2 + (e & 1);
+          const int r = e >> 1;
+          float pe = 0.f;
+          if (col < p.Tk) {
+            float x = s[j][e];
+            if (HAS_BIAS) x += bias_at(p, b, h, min(rows[r], p.Tq - 1), col) * kLog2e;
+            pe = exp2f(fminf(fmaxf(x, kClampLo), kClampHi));
+          }
+          s[j][e] = pe;
+          l_run[r] += pe;
         }
-        s[j][e] = x;
-        mx[r] = fmaxf(mx[r], x);
       }
-    }
+    } else {
+      // scale, bias, ragged key edge (log2 domain); running max
+      float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
-    float alpha[2];
+      for (int j = 0; j < kSTiles; ++j) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      alpha[r] = exp2f(m_run[r] - mx[r]);  // exp2(-inf) = 0 on the first tile
-      m_run[r] = mx[r];
-      l_run[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int j = 0; j < kSTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float pe = exp2f(s[j][e] - m_run[r]);
-        s[j][e] = pe;
-        l_run[r] += pe;
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + tg * 2 + (e & 1);
+          const int r = e >> 1;
+          float x = s[j][e] * qk_scale;
+          if (col >= p.Tk) {
+            x = -INFINITY;
+          } else if (HAS_BIAS) {
+            x += bias_at(p, b, h, min(rows[r], p.Tq - 1), col) * kLog2e;
+          }
+          s[j][e] = x;
+          mx[r] = fmaxf(mx[r], x);
+        }
       }
-    }
 #pragma unroll
-    for (int n = 0; n < kOTiles; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        alpha[r] = exp2f(m_run[r] - mx[r]);  // exp2(-inf) = 0 on the first tile
+        m_run[r] = mx[r];
+        l_run[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int j = 0; j < kSTiles; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float pe = exp2f(s[j][e] - m_run[r]);
+          s[j][e] = pe;
+          l_run[r] += pe;
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kOTiles; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
     }
 
     // acc += p · v: the score accumulators are the a-fragments of p; the
@@ -348,6 +408,16 @@ __global__ void __launch_bounds__(kThreads) attn_bf16_kernel(const Params p) {
   }
 }
 
+// Two kernel names, so that a profile tells the two softmax variants apart.
+template <int DP, bool HAS_BIAS>
+__global__ void __launch_bounds__(kThreads) attn_bf16_kernel(const Params p) {
+  attn_bf16_body<DP, HAS_BIAS, false>(p);
+}
+template <int DP, bool HAS_BIAS>
+__global__ void __launch_bounds__(kThreads) attn_clamp_bf16_kernel(const Params p) {
+  attn_bf16_body<DP, HAS_BIAS, true>(p);
+}
+
 // ---------------------------------------------------------------------------
 // fp32: SIMT path (exact to fp32 rounding)
 // ---------------------------------------------------------------------------
@@ -356,7 +426,7 @@ constexpr int kRowsF = 16;  // query rows per block, four per warp
 constexpr int kKeysF = 32;  // keys per tile: one per lane
 constexpr int kMaxD = 128;
 
-template <bool HAS_BIAS>
+template <bool HAS_BIAS, bool CLAMP>
 __global__ void __launch_bounds__(kThreads) attn_f32_kernel(const Params p) {
   __shared__ float q_s[kRowsF][kMaxD];
   __shared__ float k_s[kKeysF][kMaxD + 1];  // +1: lane j reads row j without conflicts
@@ -374,7 +444,8 @@ __global__ void __launch_bounds__(kThreads) attn_f32_kernel(const Params p) {
   const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
 
-  // q is pre-scaled, as _attn_kernel does
+  // q is pre-scaled, as _attn_kernel (by 1/√D) and _transposed_kernel (by
+  // scale·log2e) do
   for (int i = threadIdx.x; i < kRowsF * D; i += kThreads) {
     const int r = i / D, c = i % D;
     const int t = q0 + r;
@@ -408,24 +479,37 @@ __global__ void __launch_bounds__(kThreads) attn_f32_kernel(const Params p) {
       const int row = q0 + r;
       float sc = 0.f;
       for (int d = 0; d < D; ++d) sc = fmaf(q_s[r][d], k_s[lane][d], sc);
-      if (key >= p.Tk) {
-        sc = -INFINITY;
-      } else if (HAS_BIAS) {
-        sc += bias_at(p, b, h, min(row, p.Tq - 1), key);
+      float pj;
+      if constexpr (CLAMP) {
+        pj = 0.f;  // keys past Tk weigh 0
+        if (key < p.Tk) {
+          if (HAS_BIAS) sc += bias_at(p, b, h, min(row, p.Tq - 1), key) * kLog2e;
+          pj = exp2f(fminf(fmaxf(sc, kClampLo), kClampHi));
+        }
+        float ps = pj;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
+        l_run[rr] += ps;
+      } else {
+        if (key >= p.Tk) {
+          sc = -INFINITY;
+        } else if (HAS_BIAS) {
+          sc += bias_at(p, b, h, min(row, p.Tq - 1), key);
+        }
+        float mx = sc;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m_run[rr], mx);
+        const float alpha = expf(m_run[rr] - m_new);
+        pj = expf(sc - m_new);
+        float ps = pj;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
+        l_run[rr] = l_run[rr] * alpha + ps;
+        m_run[rr] = m_new;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[rr][i] *= alpha;
       }
-      float mx = sc;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run[rr], mx);
-      const float alpha = expf(m_run[rr] - m_new);
-      const float pj = expf(sc - m_new);
-      float ps = pj;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l_run[rr] = l_run[rr] * alpha + ps;
-      m_run[rr] = m_new;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[rr][i] *= alpha;
       for (int j = 0; j < kKeysF; ++j) {
         const float pjj = __shfl_sync(0xffffffffu, pj, j);
 #pragma unroll
@@ -451,16 +535,21 @@ __global__ void __launch_bounds__(kThreads) attn_f32_kernel(const Params p) {
 }
 
 template <int DP>
-cudaError_t launch_bf16(const Params& p, dim3 grid, bool has_bias, cudaStream_t stream) {
+cudaError_t launch_bf16(const Params& p, dim3 grid, bool has_bias, bool clamp,
+                        cudaStream_t stream) {
   constexpr int kSmem = bf16_smem_bytes<DP>();
-  auto kernel = has_bias ? attn_bf16_kernel<DP, true> : attn_bf16_kernel<DP, false>;
+  void (*const kernels[2][2])(const Params) = {
+      {attn_bf16_kernel<DP, false>, attn_bf16_kernel<DP, true>},
+      {attn_clamp_bf16_kernel<DP, false>, attn_clamp_bf16_kernel<DP, true>},
+  };
+  auto kernel = kernels[clamp][has_bias];
   // above 48 KB dynamic shared memory needs an opt-in (once per kernel)
-  static bool opted_in[2] = {false, false};
-  if (kSmem > 48 * 1024 && !opted_in[has_bias]) {
+  static bool opted_in[2][2] = {{false, false}, {false, false}};
+  if (kSmem > 48 * 1024 && !opted_in[clamp][has_bias]) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return err;
-    opted_in[has_bias] = true;
+    opted_in[clamp][has_bias] = true;
   }
   kernel<<<grid, kThreads, kSmem, stream>>>(p);
   return cudaSuccess;
@@ -470,10 +559,13 @@ cudaError_t launch_bf16(const Params& p, dim3 grid, bool has_bias, cudaStream_t 
 
 // dtype: 0 = bfloat16, 1 = float32. strides: 16 int64 — q, k, v, o as
 // (b, t, h) each, then the bias as (b, h, q, k). bias may be null.
-// Returns the cudaError_t of the launch (0 on success).
+// clamp: 0 = exact softmax (scale = 1/√D), 1 = clamp variant (scale =
+// scale·log2e, exact in q's dtype). Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int ecad_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                                   const float* bias, const long long* strides, int B, int H, int Tq,
-                                  int Tk, int D, float scale, int vec_ok, void* stream) {
+                                  int Tk, int D, float scale, int vec_ok, int clamp,
+                                  void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 1 || D > kMaxD || (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -494,28 +586,31 @@ extern "C" int ecad_attention_fwd(int dtype, const void* q, const void* k, const
   p.scale = scale;
   p.vec_ok = vec_ok;
   const bool has_bias = bias != nullptr;
+  const bool cl = clamp != 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
   if (dtype == 0) {
     const dim3 grid((Tq + kBlockQ - 1) / kBlockQ, B * H);
     cudaError_t err;
     switch ((D + 15) / 16) {
-      case 1: err = launch_bf16<16>(p, grid, has_bias, st); break;
-      case 2: err = launch_bf16<32>(p, grid, has_bias, st); break;
-      case 3: err = launch_bf16<48>(p, grid, has_bias, st); break;
-      case 4: err = launch_bf16<64>(p, grid, has_bias, st); break;
-      case 5: err = launch_bf16<80>(p, grid, has_bias, st); break;
-      case 6: err = launch_bf16<96>(p, grid, has_bias, st); break;
-      case 7: err = launch_bf16<112>(p, grid, has_bias, st); break;
-      default: err = launch_bf16<128>(p, grid, has_bias, st); break;
+      case 1: err = launch_bf16<16>(p, grid, has_bias, cl, st); break;
+      case 2: err = launch_bf16<32>(p, grid, has_bias, cl, st); break;
+      case 3: err = launch_bf16<48>(p, grid, has_bias, cl, st); break;
+      case 4: err = launch_bf16<64>(p, grid, has_bias, cl, st); break;
+      case 5: err = launch_bf16<80>(p, grid, has_bias, cl, st); break;
+      case 6: err = launch_bf16<96>(p, grid, has_bias, cl, st); break;
+      case 7: err = launch_bf16<112>(p, grid, has_bias, cl, st); break;
+      default: err = launch_bf16<128>(p, grid, has_bias, cl, st); break;
     }
     if (err != cudaSuccess) return (int)err;
   } else if (dtype == 1) {
     const dim3 grid((Tq + kRowsF - 1) / kRowsF, B * H);
-    if (has_bias)
-      attn_f32_kernel<true><<<grid, kThreads, 0, st>>>(p);
-    else
-      attn_f32_kernel<false><<<grid, kThreads, 0, st>>>(p);
+    void (*const kernels[2][2])(const Params) = {
+        {attn_f32_kernel<false, false>, attn_f32_kernel<true, false>},
+        {attn_f32_kernel<false, true>, attn_f32_kernel<true, true>},
+    };
+    const auto kernel = kernels[cl][has_bias];
+    kernel<<<grid, kThreads, 0, st>>>(p);
   } else {
     return (int)cudaErrorInvalidValue;
   }

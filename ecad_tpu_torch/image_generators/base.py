@@ -8,8 +8,10 @@ without that request construction raises.
 
 This slice runs without checkpoints (``random_weights=True``: the exact
 architecture with seeded random parameters); loading a local
-``weights_root`` and topology (``dit_schedule``) files raise
-`NotImplementedError` naming the slice that brings them.
+``weights_root`` raises `NotImplementedError`. A schedule JSON carries a
+cache schedule or a DiT topology schedule (``dit_schedule``), plus the
+config that picks the checkpoint, resolution and pipeline (with its
+kwargs, e.g. TGATE's ``gate_step``).
 """
 
 from __future__ import annotations
@@ -63,7 +65,9 @@ class ImageGenerator(ABC):
         self.transformer_weights = self.default_transformer_weights
         self.pipeline_weights = self.default_pipeline_weights
         self.pipeline_name = self.default_pipeline
+        self.pipeline_kwargs: dict[str, Any] = {}
 
+        self.dit_schedule = None
         self.cache_schedule = self._load_schedule_file(schedule_path)
         self._encoder = None
         self._pipeline = None
@@ -76,26 +80,32 @@ class ImageGenerator(ABC):
     ) -> CacheSchedule:
         """Load the cache schedule (default all-recompute when None) and
         apply its embedded config overrides (reference
-        image_generator.py:99-191)."""
+        image_generator.py:99-191). A JSON with a ``dit_schedule`` is a
+        topology schedule: the cache schedule is then the default."""
         if schedule_path is None:
             sched = self._default_schedule()
         else:
             with open(schedule_path) as f:
                 raw = json.load(f)
             if "dit_schedule" in raw:
-                raise NotImplementedError(
-                    "DiT topology schedules come with the PixArt-variants "
-                    "slice of the port"
-                )
-            sched = self.schedule_cls.from_dict(raw)
-            self.num_inference_steps = sched.num_inference_steps
+                from ..graph import DiTSchedule
+
+                self.dit_schedule = DiTSchedule.from_dict(raw)
+                self.num_inference_steps = self.dit_schedule.num_inference_steps
+                sched = self._default_schedule()
+                sched.top_level_config = self.dit_schedule.top_level_config
+            else:
+                sched = self.schedule_cls.from_dict(raw)
+                self.num_inference_steps = sched.num_inference_steps
         cfg = sched.top_level_config or {}
         self.transformer_weights = cfg.get(
             "transformer_weights", self.transformer_weights
         )
         self.pipeline_weights = cfg.get("pipeline_weights", self.pipeline_weights)
         pipe = cfg.get("pipeline") or {}
-        self.pipeline_name = pipe.get("name", self.pipeline_name)
+        if pipe:
+            self.pipeline_name = pipe.get("name", self.pipeline_name)
+            self.pipeline_kwargs = pipe.get("kwargs", {})
         self.height = cfg.get("height", self.height)
         self.width = cfg.get("width", self.width)
         if type(self).allow_guidance_override():

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..models.pixart import PixArtConfig, init_model
-from ..pipelines import PixArtPipeline, PixArtPipelineConfig
+from ..pipelines import PixArtPipeline, PixArtPipelineConfig, pipeline_from_config
 from ..schedules.pixart import PixArtCacheSchedule
 from .base import ImageGenerator
 
@@ -24,7 +24,6 @@ _WEIGHTS_LATER = (
     "loading a local weights_root (T5, transformer, VAE) waits until "
     "checkpoints are in the repository; use random_weights"
 )
-_PIPELINES = ("pixart_alpha", "pixart_sigma")
 
 
 class PixArtImageGenerator(ImageGenerator):
@@ -36,10 +35,7 @@ class PixArtImageGenerator(ImageGenerator):
 
     def model_config(self) -> PixArtConfig:
         if "1024" in self.transformer_weights:
-            raise NotImplementedError(
-                "PixArt at 1024² (additional size conditions) comes with the "
-                "PixArt-variants slice of the port"
-            )
+            return PixArtConfig(sample_size=128, use_additional_conditions=True)
         return PixArtConfig(sample_size=self.height // 8)
 
     # -- pipelines ---------------------------------------------------------
@@ -57,11 +53,6 @@ class PixArtImageGenerator(ImageGenerator):
             return self._pipeline
         if not (self.random_weights or self.weights_root is None):
             raise NotImplementedError(_WEIGHTS_LATER)
-        if (self.pipeline_name or "pixart_alpha") not in _PIPELINES:
-            raise NotImplementedError(
-                f"pipeline {self.pipeline_name!r} (TGATE, pass-through) comes "
-                "with the PixArt-variants slice of the port"
-            )
         config = self.model_config()
         if self._model is None:
             self._model = init_model(config, 0, self.device)
@@ -70,7 +61,13 @@ class PixArtImageGenerator(ImageGenerator):
             num_inference_steps=self.num_inference_steps,
             guidance_scale=self.guidance_scale,
         )
-        self._pipeline = PixArtPipeline(pcfg, self._model, self.cache_schedule)
+        cls, kwargs = pipeline_from_config(
+            self.pipeline_name or "pixart_alpha", self.pipeline_kwargs
+        )
+        self._pipeline = cls(
+            pcfg, self._model, self.cache_schedule,
+            dit_schedule=self.dit_schedule, **kwargs,
+        )
         return self._pipeline
 
     # -- encoding ----------------------------------------------------------

@@ -10,6 +10,10 @@ of the port's module of the same configuration:
 * a GroupNorm ``scale`` becomes ``weight``;
 * ``scale_shift_table`` and every ``bias`` are copied as they are;
 * PixArt's ``block_<i>`` becomes ``blocks.<i>``.
+
+Module names are the reference's, so every other path carries over as it
+is — among them the 1024² checkpoint's size-condition embedders,
+``adaln_single/{resolution,aspect_ratio}_embedder/linear_{1,2}``.
 """
 
 from __future__ import annotations

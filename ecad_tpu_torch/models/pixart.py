@@ -2,8 +2,10 @@
 
 Counterpart of ``ecad_tpu/models/pixart.py``: 28 ada_norm_single blocks of
 self-attn → cross-attn → gelu-approx FF at d=1152, 16 heads × 72, a shared
-AdaLayerNormSingle producing per-step (shift, scale, gate) modulation, and
-a final modulated projection.
+AdaLayerNormSingle producing per-step (shift, scale, gate) modulation (plus
+the resolution and aspect-ratio size conditions of the 1024² checkpoint),
+and a final modulated projection. An optional DiT topology `plan`
+(``ecad_tpu_torch.graph``) reorders, skips, repeats or fans out blocks.
 
 Cache design: the cache is an explicit dict ``{component: [per-block
 (B, T, d) tensor]}`` threaded through the forward pass. Recompute decisions
@@ -42,7 +44,10 @@ StepMask = tuple  # tuple[tuple[bool, bool, bool], ...] — one triple per block
 
 @dataclass(frozen=True)
 class PixArtConfig:
-    """Shapes for PixArt-XL-2 at 256 px (sample_size=32 latents)."""
+    """Shapes for PixArt-XL-2. 256-px checkpoints use sample_size=32; the
+    1024 checkpoint uses sample_size=128 and the additional size
+    conditions (whose two embedders are dim // 3 wide each, so dim must be
+    a multiple of 3 with them on)."""
 
     dim: int = 1152
     num_heads: int = 16
@@ -55,6 +60,7 @@ class PixArtConfig:
     caption_dim: int = 4096
     text_len: int = 120
     ff_mult: int = 4
+    use_additional_conditions: bool = False
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -108,17 +114,41 @@ def schedule_step_masks(schedule, config: PixArtConfig) -> list[StepMask]:
 
 class AdaLayerNormSingle(nn.Module):
     """Produces the shared (B, 6d) modulation vector and the (B, d) embedded
-    timestep used by the final layer (diffusers AdaLayerNormSingle)."""
+    timestep used by the final layer (diffusers AdaLayerNormSingle). With
+    the additional conditions, the (B, 2) resolution and (B,) aspect ratio
+    are embedded like timesteps and added to the timestep embedding."""
 
     def __init__(self, config: PixArtConfig) -> None:
         super().__init__()
-        self.config = config
-        self.timestep_embedder = TimestepEmbedding(256, config.dim, config.dtype)
-        self.linear = nn.Linear(config.dim, 6 * config.dim, dtype=config.dtype)
+        c = config
+        self.config = c
+        self.timestep_embedder = TimestepEmbedding(256, c.dim, c.dtype)
+        if c.use_additional_conditions:
+            self.resolution_embedder = TimestepEmbedding(256, c.dim // 3, c.dtype)
+            self.aspect_ratio_embedder = TimestepEmbedding(256, c.dim // 3, c.dtype)
+        self.linear = nn.Linear(c.dim, 6 * c.dim, dtype=c.dtype)
 
-    def forward(self, timestep: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(
+        self,
+        timestep: torch.Tensor,
+        resolution: Optional[torch.Tensor] = None,
+        aspect_ratio: Optional[torch.Tensor] = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        c = self.config
+        b = timestep.shape[0]
         t_proj = sinusoidal_embedding(timestep, 256)
-        emb = self.timestep_embedder(t_proj.to(self.config.dtype))
+        emb = self.timestep_embedder(t_proj.to(c.dtype))
+        if c.use_additional_conditions:
+            if resolution is None or aspect_ratio is None:
+                raise ValueError(
+                    "this configuration takes the resolution and aspect_ratio "
+                    "size conditions"
+                )
+            res = sinusoidal_embedding(resolution.reshape(-1), 256)
+            res = self.resolution_embedder(res.to(c.dtype)).reshape(b, -1)
+            ar = sinusoidal_embedding(aspect_ratio.reshape(-1), 256)
+            ar = self.aspect_ratio_embedder(ar.to(c.dtype)).reshape(b, -1)
+            emb = emb + torch.cat([res, ar], dim=-1)
         return self.linear(F.silu(emb)), emb
 
 
@@ -189,7 +219,9 @@ class PixArtBlock(nn.Module):
 
 class PixArtTransformer(nn.Module):
     """Full DiT. The block stage consumes a per-block component mask (the
-    cache schedule row for the current step) plus the cache dict."""
+    cache schedule row for the current step) plus the cache dict; an
+    optional `plan` reorders/skips/repeats blocks (the DiT topology search
+    space, ``ecad_tpu_torch.graph``)."""
 
     def __init__(self, config: PixArtConfig) -> None:
         super().__init__()
@@ -253,12 +285,15 @@ class PixArtTransformer(nn.Module):
         text_embeds: torch.Tensor,
         timestep: torch.Tensor,
         text_mask: Optional[torch.Tensor] = None,
+        resolution: Optional[torch.Tensor] = None,
+        aspect_ratio: Optional[torch.Tensor] = None,
         text_precomputed: Optional[tuple] = None,
     ):
         """Everything before the block stage: patchify + pos embed, adaln
-        modulation, caption projection, text bias."""
+        modulation (with the size conditions, where the config has them),
+        caption projection, text bias."""
         h = self.patchify(latents)
-        t6, emb_t = self.adaln_single(timestep)
+        t6, emb_t = self.adaln_single(timestep, resolution, aspect_ratio)
         if text_precomputed is not None:
             enc, enc_kv = text_precomputed
         else:
@@ -290,15 +325,19 @@ class PixArtTransformer(nn.Module):
         cache: dict[str, list],  # component → per-block (B, T, d)
         mask: StepMask,
         text_mask: Optional[torch.Tensor] = None,  # (B, L) 1=keep
+        resolution: Optional[torch.Tensor] = None,  # (B, 2), size conditions
+        aspect_ratio: Optional[torch.Tensor] = None,  # (B,)
+        plan: Optional[tuple] = None,  # DiT topology plan (graph.build_plan)
         text_precomputed: Optional[tuple] = None,  # (enc, enc_kv) from encode_text
     ) -> tuple[torch.Tensor, dict[str, list]]:
         p = self.config.patch_size
         gh, gw = latents.shape[1] // p, latents.shape[2] // p
         h, t6, emb_t, enc, enc_kv, enc_bias = self.process_input(
-            latents, text_embeds, timestep, text_mask, text_precomputed
+            latents, text_embeds, timestep, text_mask,
+            resolution, aspect_ratio, text_precomputed,
         )
         h, new_cache = run_block_stage(
-            self.blocks, h, enc, t6, enc_bias, cache, mask, enc_kv
+            self.blocks, h, enc, t6, enc_bias, cache, mask, plan, enc_kv
         )
         return self.create_output(h, emb_t, gh, gw), new_cache
 
@@ -311,18 +350,32 @@ def run_block_stage(
     enc_bias: Optional[torch.Tensor],
     cache: dict[str, list],
     mask: StepMask,
+    plan: Optional[tuple] = None,
     enc_kv: Optional[tuple] = None,
 ) -> tuple[torch.Tensor, dict[str, list]]:
-    """Run the blocks in order 0..N-1 (the default topology). Returns the
+    """Run the block stage. `plan` is an execution plan of the DiT topology
+    DSL (``graph.build_plan``) or a plain sequence of block indices
+    (default: 0..N-1). Cache rows are per block whatever the order; a
+    repeated block leaves its last application's outputs. Returns the
     hidden states and a new cache dict; the input cache is not mutated."""
     new_rows = {k: list(cache[k]) for k in COMPONENTS}
-    for i, block in enumerate(blocks):
-        h, updated = block(
-            h, enc, t6, enc_bias, {k: new_rows[k][i] for k in COMPONENTS},
+
+    def block_apply(i: int, x: torch.Tensor) -> torch.Tensor:
+        x, updated = blocks[i](
+            x, enc, t6, enc_bias, {k: new_rows[k][i] for k in COMPONENTS},
             mask[i], enc_kv=None if enc_kv is None else enc_kv[i],
         )
         for k in COMPONENTS:
             new_rows[k][i] = updated[k]
+        return x
+
+    if plan and hasattr(plan[0], "inputs"):
+        from ..graph.interpreter import execute_plan
+
+        h = execute_plan(plan, h, block_apply)
+    else:
+        for i in range(len(blocks)) if plan is None else plan:
+            h = block_apply(i, h)
     return h, new_rows
 
 

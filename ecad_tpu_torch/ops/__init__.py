@@ -8,7 +8,13 @@ all, so a run can show that it went through the kernels.
 
 from . import attention as _attention
 from . import fused as _fused
-from .attention import fused_attention, fused_attention_reference
+from .attention import (
+    attention_route,
+    fused_attention,
+    fused_attention_reference,
+    transposed_attention,
+    transposed_attention_reference,
+)
 from .fused import modulated_layer_norm, modulated_layer_norm_reference
 
 _COUNTERS = (_attention.LAUNCHES, _fused.LAUNCHES)
@@ -29,8 +35,11 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "attention_route",
     "fused_attention",
     "fused_attention_reference",
+    "transposed_attention",
+    "transposed_attention_reference",
     "modulated_layer_norm",
     "modulated_layer_norm_reference",
     "launch_counts",

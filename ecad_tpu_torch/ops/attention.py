@@ -1,17 +1,33 @@
-"""Fused attention: the hand-written CUDA kernel and its plain version.
+"""Fused attention: the hand-written CUDA kernel, its plain versions and
+the routing between its two softmax variants.
 
 `fused_attention(q, k, v, bias=None)` takes ``(B, T, H, D)`` tensors, as
-``ecad_tpu.ops.fused_attention`` does, and computes
-softmax(q·kᵀ/√D + bias)·v with an fp32 softmax. It replaces the Pallas
-kernels ``_attn_kernel`` (no bias, ecad_tpu/ops/attention.py:58) and
-``_attn_kernel_bias`` (fp32 additive bias, :75) with one CUDA C++ kernel,
-``csrc/attention.cu`` (the source says what bounds it on the H100 and what
-its design does about that).
+``ecad_tpu.ops.fused_attention`` does, and picks the function to compute
+the way that one does (`attention_route`):
 
-On a CPU tensor the wrapper runs `fused_attention_reference`, the plain
-PyTorch version of the same arithmetic. On a CUDA tensor it launches the
-kernel or raises: there is no fallback. Each launch adds one to
-``LAUNCHES["attention"]`` (no bias) or ``LAUNCHES["attention_bias"]``.
+* **exact** — softmax(q·kᵀ/√D + bias)·v with an fp32 softmax and the row
+  max subtracted. Replaces the Pallas kernels ``_attn_kernel`` (no bias,
+  ecad_tpu/ops/attention.py:58) and ``_attn_kernel_bias`` (fp32 additive
+  bias, :75). Plain version: `fused_attention_reference`.
+* **clamp** — the function of ``_transposed_kernel`` (:285) and
+  ``_transposed_kernel_nobias`` (:344), which the reference takes for
+  lane-padded head dims (PixArt's 72) from a 1 MiB score tile up:
+  ``p = exp2(clip(s, −100, 80))`` with no row max, q pre-scaled by
+  scale·log2e in its own dtype. `transposed_attention` launches it;
+  plain version: `transposed_attention_reference`.
+
+Both run in one CUDA C++ kernel source, ``csrc/attention.cu`` (a
+compile-time variant each; the source says what bounds each on the H100).
+The reference's row-block kernel (K5, D a multiple of 128 past an 8 MiB
+score tile) and its streaming flash kernel (K6, past 8192×128 key
+elements) are not ported yet: on a CUDA tensor those routes raise
+`NotImplementedError`; on a CPU tensor they run the plain version of the
+same function.
+
+On a CPU tensor every wrapper runs its plain version. On a CUDA tensor it
+launches the kernel or raises: there is no fallback. Each launch adds one
+to ``LAUNCHES``: ``attention`` / ``attention_bias`` (exact, without / with
+a bias) and ``attention_long`` / ``attention_long_bias`` (clamp).
 """
 
 from __future__ import annotations
@@ -22,11 +38,26 @@ from typing import Optional
 
 import torch
 
-LAUNCHES = {"attention": 0, "attention_bias": 0}
+LAUNCHES = {
+    "attention": 0,
+    "attention_bias": 0,
+    "attention_long": 0,
+    "attention_long_bias": 0,
+}
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 MAX_HEAD_DIM = 128
 _FN = None
+
+# The reference's routing constants (ecad_tpu/ops/attention.py :95, :134,
+# :148). They decide WHICH function a shape gets — the clamp softmax or the
+# max-subtract one — so they are kept as the reference has them; they are
+# not tuned for the H100.
+_SINGLE_TILE_SCORE_BYTES = 8 * 1024 * 1024
+_ROWBLOCK_MAX_KV_ELEMS = 8192 * 128
+_TRANSPOSED_MIN_SCORE_BYTES = 1024 * 1024
+_LOG2E = 1.4426950408889634
+_CLAMP_LO, _CLAMP_HI = -100.0, 80.0  # log2 domain (:200-201)
 
 
 def _kernel():
@@ -45,6 +76,7 @@ def _kernel():
             ctypes.c_int,  # D
             ctypes.c_float,  # scale
             ctypes.c_int,  # vec_ok
+            ctypes.c_int,  # clamp
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -105,18 +137,84 @@ def _check(q, k, v, bias) -> None:
             raise TypeError(f"bias is added to the scores; got {bias.dtype}")
 
 
-def fused_attention(
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _key_padding_bias_ok(bias: Optional[torch.Tensor], batch: int) -> bool:
+    """The reference's ``_flash_bias_ok`` (:43-55): None, or a key-padding
+    bias (B, 1, 1, Tk) / batch-broadcast (1, 1, 1, Tk)."""
+    return bias is None or (
+        bias.dim() == 4
+        and bias.shape[1] == 1
+        and bias.shape[2] == 1
+        and bias.shape[0] in (1, batch)
+    )
+
+
+def attention_route(
+    q_shape: tuple, tk: int, bias: Optional[torch.Tensor] = None
+) -> str:
+    """Which function the reference's ``fused_attention`` (:677-720, with
+    ``_flash_attention`` :591-597) computes for these shapes: "exact" (the
+    single-tile kernels, or XLA for a dense bias past the tile), "clamp"
+    (the transposed kernel K4), "rowblock" (K5) or "flash" (K6)."""
+    b, tq, _, d = q_shape
+    score_bytes = _round_up(tq, 8) * _round_up(tk, 128) * 4
+    padding_ok = _key_padding_bias_ok(bias, b)
+    if score_bytes > _SINGLE_TILE_SCORE_BYTES:
+        if not padding_ok:
+            return "exact"
+        if _round_up(tk, 128) * _round_up(d, 128) <= _ROWBLOCK_MAX_KV_ELEMS:
+            return "clamp" if d % 128 else "rowblock"
+        return "flash"
+    if d % 128 and score_bytes >= _TRANSPOSED_MIN_SCORE_BYTES and padding_ok:
+        return "clamp"
+    return "exact"
+
+
+def clamp_scale(d: int, dtype: torch.dtype) -> float:
+    """scale·log2e = log2(e)/√D rounded to `dtype`, as the reference's
+    ``jnp.asarray(scale, q.dtype)`` (:378-383) rounds it."""
+    return float(torch.tensor(_LOG2E / math.sqrt(d)).to(dtype))
+
+
+def transposed_attention_reference(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """(B, Tq, H, D) × (B, Tk, H, D) → (B, Tq, H, D). `bias` broadcasts
-    from (B|1, H|1, Tq|1, Tk|1), e.g. a (B, 1, 1, Tk) key-padding bias; it
-    is added in fp32."""
-    _check(q, k, v, bias)
-    if q.device.type == "cpu":
-        return fused_attention_reference(q, k, v, bias)
+    """Plain PyTorch version of the clamp kernel (and of
+    ``_transposed_kernel`` / ``_transposed_kernel_nobias``): q times
+    scale·log2e rounded to q's dtype, s = q·kᵀ in fp32 plus the
+    key-padding bias times log2e, p = exp2(clip(s, −100, 80)), Σp in fp32,
+    p rounded to v's dtype for p·v, one divide, one cast. Keys past Tk do
+    not exist here; the reference pads them and gives them 2^-100 each: a
+    relative difference below 2^-90 while some logit exceeds
+    log2(n_pad) − 10, up to n_pad/Tk for a row whose every logit is
+    clamped at −100."""
+    qs = q * torch.tensor(clamp_scale(q.shape[-1], q.dtype), dtype=q.dtype)
+    qf = qs.float().permute(0, 2, 1, 3)
+    kf = k.float().permute(0, 2, 1, 3)
+    vf = v.float().permute(0, 2, 1, 3)
+    s = qf @ kf.transpose(-1, -2)
+    if bias is not None:
+        s = s + bias.float() * _LOG2E
+    p = torch.exp2(s.clamp(_CLAMP_LO, _CLAMP_HI))
+    out = (p.to(v.dtype).float() @ vf) / p.sum(dim=-1, keepdim=True)
+    return out.to(q.dtype).permute(0, 2, 1, 3).contiguous()
+
+
+def _launch(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    clamp: bool,
+) -> torch.Tensor:
+    """One launch of the CUDA kernel on q's device, in the exact or the
+    clamp variant; counts it."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -140,6 +238,7 @@ def fused_attention(
         and all(t.data_ptr() % 16 == 0 for t in tensors)
         and all((s * elem) % 16 == 0 for s in strides[:12])
     )
+    scale = clamp_scale(d, q.dtype) if clamp else 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
         status = _kernel()(
             _DTYPES[q.dtype],
@@ -147,14 +246,71 @@ def fused_attention(
             None if bias is None else bias.data_ptr(),
             (ctypes.c_longlong * 16)(*strides),
             b, h, tq, tk, d,
-            1.0 / math.sqrt(d),
+            scale,
             vec_ok,
+            int(clamp),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if status != 0:
         raise RuntimeError(
             f"attention kernel launch failed: cudaError_t {status} "
-            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})"
+            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype}, clamp={clamp})"
         )
-    LAUNCHES["attention" if bias is None else "attention_bias"] += 1
+    name = "attention_long" if clamp else "attention"
+    LAUNCHES[name if bias is None else name + "_bias"] += 1
     return out
+
+
+def transposed_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The clamp softmax (the reference's ``_transposed_attention``) at any
+    shape: (B, Tq, H, D) × (B, Tk, H, D) → (B, Tq, H, D), with no bias or a
+    key-padding bias (B|1, 1, 1, Tk), added in fp32 in the log2 domain."""
+    _check(q, k, v, bias)
+    if not _key_padding_bias_ok(bias, q.shape[0]):
+        raise ValueError(
+            "the clamp kernel takes only key-padding biases (B|1, 1, 1, Tk);"
+            f" got {tuple(bias.shape)}"
+        )
+    if q.device.type == "cpu":
+        return transposed_attention_reference(q, k, v, bias)
+    return _launch(q, k, v, bias, clamp=True)
+
+
+def fused_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(B, Tq, H, D) × (B, Tk, H, D) → (B, Tq, H, D). `bias` broadcasts
+    from (B|1, H|1, Tq|1, Tk|1), e.g. a (B, 1, 1, Tk) key-padding bias; it
+    is added in fp32. The shapes pick the softmax (`attention_route`)."""
+    _check(q, k, v, bias)
+    route = attention_route(tuple(q.shape), k.shape[1], bias)
+    on_cpu = q.device.type == "cpu"
+    if route == "clamp":
+        return transposed_attention(q, k, v, bias)
+    if route == "rowblock":
+        # K5 computes the clamp function in the standard layout
+        if on_cpu:
+            return transposed_attention_reference(q, k, v, bias)
+        raise NotImplementedError(
+            "the row-block clamp kernel (ecad_tpu/ops/attention.py:255, "
+            f"K5) for {tuple(q.shape)} × Tk {k.shape[1]} comes with the "
+            "FLUX slice of the port"
+        )
+    if route == "flash":
+        if on_cpu:
+            return fused_attention_reference(q, k, v, bias)
+        raise NotImplementedError(
+            "the streaming flash kernel (ecad_tpu/ops/attention.py:151, K6) "
+            f"for Tk {k.shape[1]} × D {q.shape[-1]} is not ported yet"
+        )
+    if on_cpu:
+        return fused_attention_reference(q, k, v, bias)
+    return _launch(q, k, v, bias, clamp=False)

@@ -1,4 +1,5 @@
 from .pixart_pipeline import PixArtPipeline, PixArtPipelineConfig
+from .registry import PipelineRegistry, pipeline_from_config
 from .samplers import (
     DPMSolverSchedule,
     DPMState,
@@ -6,10 +7,15 @@ from .samplers import (
     dpm_step,
     make_dpm_schedule,
 )
+from .tgate import PassThroughPixArtPipeline, TGATEPixArtPipeline
 
 __all__ = [
     "PixArtPipeline",
     "PixArtPipelineConfig",
+    "TGATEPixArtPipeline",
+    "PassThroughPixArtPipeline",
+    "PipelineRegistry",
+    "pipeline_from_config",
     "DPMSolverSchedule",
     "DPMState",
     "dpm_scan_coeffs",

@@ -11,13 +11,15 @@ Classifier-free guidance follows the reference: the model batch is
 [negative; positive] (2B), guidance 4.5, and epsilon is taken from the
 first 4 of 8 output channels (learned-sigma checkpoints). The caption
 projection and every block's cross-attention K/V are computed once per
-trajectory. Latents are NHWC (B, H, W, C).
+trajectory. The 1024² configuration gets its resolution and aspect-ratio
+conditions (`_additional_conditions`); a DiT topology schedule gives each
+step an execution plan. Latents are NHWC (B, H, W, C).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -51,15 +53,19 @@ class PixArtPipeline:
         config: PixArtPipelineConfig,
         model: PixArtTransformer,
         schedule: Optional[PixArtCacheSchedule] = None,
+        dit_schedule: Any = None,  # Optional[ecad_tpu_torch.graph.DiTSchedule]
     ) -> None:
         self.config = config
         self.model = model
         self.device = next(model.parameters()).device
         self.dpm: DPMSolverSchedule = make_dpm_schedule(config.num_inference_steps)
-        self.set_schedule(schedule)
+        self.set_schedule(schedule, dit_schedule)
 
-    def set_schedule(self, schedule: Optional[PixArtCacheSchedule] = None) -> None:
-        """Swap the cache schedule on a resident pipeline."""
+    def set_schedule(
+        self, schedule: Optional[PixArtCacheSchedule] = None, dit_schedule: Any = None
+    ) -> None:
+        """Swap the cache (and optionally the topology) schedule on a
+        resident pipeline."""
         config = self.config
         if schedule is None:
             schedule = PixArtCacheSchedule.default(
@@ -73,6 +79,27 @@ class PixArtPipeline:
             )
         self.schedule = schedule
         self.masks: list[StepMask] = schedule_step_masks(schedule, config.model)
+        self.plans = (
+            dit_schedule.step_plans()
+            if dit_schedule is not None and not dit_schedule.is_default()
+            else [None] * config.num_inference_steps
+        )
+
+    def _additional_conditions(self, batch: int):
+        """(resolution (batch, 2), aspect_ratio (batch,)) for a config with
+        the size conditions — the square latent's pixel side and 1 — else
+        (None, None)."""
+        c = self.config.model
+        if not c.use_additional_conditions:
+            return None, None
+        side = c.sample_size * 8
+        res = torch.full((batch, 2), side, dtype=torch.float32, device=self.device)
+        ar = torch.ones((batch,), dtype=torch.float32, device=self.device)
+        return res, ar
+
+    def _encode_text(self, enc2: torch.Tensor):
+        """The trajectory-constant text work, done once per trajectory."""
+        return self.model.encode_text(enc2)
 
     def _model_eps(
         self,
@@ -82,6 +109,9 @@ class PixArtPipeline:
         t_value: float,
         cache: dict,
         mask: StepMask,
+        resolution: Optional[torch.Tensor] = None,
+        aspect_ratio: Optional[torch.Tensor] = None,
+        plan=None,
         text_precomputed=None,
     ) -> tuple[torch.Tensor, dict]:
         b = latents.shape[0]
@@ -89,7 +119,8 @@ class PixArtPipeline:
         t = torch.full((2 * b,), t_value, dtype=torch.float32, device=latents.device)
         out, cache = self.model(
             lat2, enc2, t, cache, mask,
-            text_mask=enc_mask2, text_precomputed=text_precomputed,
+            text_mask=enc_mask2, resolution=resolution, aspect_ratio=aspect_ratio,
+            plan=plan, text_precomputed=text_precomputed,
         )
         eps2 = out[..., : self.config.model.in_channels]
         eps_neg, eps_pos = eps2.chunk(2, dim=0)
@@ -117,14 +148,15 @@ class PixArtPipeline:
             enc_mask2 = torch.cat([neg_mask, text_mask], dim=0)
         tokens = (noise.shape[1] // c.patch_size) * (noise.shape[2] // c.patch_size)
         cache = init_cache(c, 2 * b, tokens, device=noise.device)
-        # trajectory-constant text work, done once
-        text_pre = self.model.encode_text(enc2)
+        res, ar = self._additional_conditions(2 * b)
+        text_pre = self._encode_text(enc2)
         x = noise * self.dpm.init_noise_sigma
         state = DPMState(x, torch.zeros_like(x, dtype=torch.float32), False)
         for i in range(self.dpm.num_steps):
             eps, cache = self._model_eps(
                 state.x, enc2, enc_mask2, float(self.dpm.timesteps[i]),
-                cache, masks[i], text_precomputed=text_pre,
+                cache, masks[i], res, ar, plan=self.plans[i],
+                text_precomputed=text_pre,
             )
             state = dpm_step(self.dpm, i, eps, state)
         return state.x

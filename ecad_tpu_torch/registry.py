@@ -9,7 +9,7 @@ We unify them behind one generic class.
 
 from __future__ import annotations
 
-from typing import Generic, Iterator, TypeVar
+from typing import Callable, Generic, Iterator, TypeVar
 
 T = TypeVar("T")
 
@@ -63,3 +63,17 @@ class Registry(Generic[T]):
     def names(self) -> list[str]:
         return sorted(self._items)
 
+
+
+def build_function_registry(
+    module_globals: dict, prefix: str = "gen_"
+) -> dict[str, Callable]:
+    """Collect all ``gen_*`` functions of a module into a dict, mirroring the
+    inspect-based GEN_FUNCTIONS pattern
+    (ecad/schedulers/cache_scheduler/generators/pixart_schedule_generators.py:548-557).
+    """
+    return {
+        name: fn
+        for name, fn in sorted(module_globals.items())
+        if callable(fn) and name.startswith(prefix)
+    }

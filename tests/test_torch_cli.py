@@ -76,3 +76,81 @@ def test_guidance_override_rejected(tmp_path):
     with pytest.raises(SystemExit):
         tcli.main(["TinyPixArtImageGenerator", "--prompt", "x", "--device", "cpu",
                    "--output-dir", str(tmp_path), "--guidance-scale", "7"])
+
+
+# ---------------------------------------------------------------------------
+# schedules that pick the pipeline, the topology and the 1024² checkpoint
+# ---------------------------------------------------------------------------
+
+REPO = Path(__file__).resolve().parent.parent
+ALPHA = REPO / "schedules" / "alpha_cache_schedules"
+SCHEDULES_1024 = sorted(
+    str(p.relative_to(ALPHA))
+    for p in [*ALPHA.glob("gen_tgate_1024/*.json"),
+              *ALPHA.glob("gen_default_1024x1024/*.json")]
+)
+
+
+def _tiny_schedule(tmp_path: Path, kind: str) -> Path:
+    """A 2-block, 4-step schedule for the tiny generator: TGATE gating at
+    step 2 (the JSON's config.pipeline, as in the repo's TGATE schedules),
+    or a DiT topology schedule that reverses the blocks from step 2."""
+    from ecad_tpu.graph import DiTSchedule, default_config, reverse
+    from ecad_tpu.schedules.pixart import PixArtCacheSchedule
+
+    path = tmp_path / f"{kind}.json"
+    if kind == "tgate":
+        genome = np.ones((4, 2, 3), bool)
+        genome[1, :, 1:] = False
+        sched = PixArtCacheSchedule.from_numpy(genome.reshape(4, -1), 4, 2)
+        sched.name = "tiny_tgate"
+        sched.top_level_config = {"pipeline": {"name": "tgate", "kwargs": {"gate_step": 2}}}
+        sched.to_json(path)
+    else:
+        steps = {s: (default_config(2) if s < 2 else reverse(2, 0, 1)) for s in range(4)}
+        DiTSchedule(2, 4, "tiny_reverse", steps).to_json(path)
+    return path
+
+
+@pytest.mark.parametrize("kind", ["tgate", "dit"])
+def test_schedule_driven_cli_same_outputs_as_reference(tmp_path, kind):
+    """The tiny generator served a TGATE schedule (pipeline from the JSON,
+    with its gate_step) or a DiT topology schedule writes the JAX CLI's
+    files."""
+    schedule = _tiny_schedule(tmp_path, kind)
+    args = ["TinyPixArtImageGenerator", "--prompt", "a small house",
+            "--schedule", str(schedule), "--batch-size", "2"]
+    jcli.main([*args, "--output-dir", str(tmp_path / "jax")])
+    tcli.main([*args, "--output-dir", str(tmp_path / "torch"), "--device", "cpu"])
+    files = _files(tmp_path / "torch")
+    assert files == _files(tmp_path / "jax")
+    assert files == [
+        "embeddings/000__prompt_seed:000.pt",
+        "images/000__prompt_seed:000__image_seed:000.png",
+    ]
+
+
+@pytest.mark.parametrize("name", SCHEDULES_1024)
+def test_1024_schedules_resolve_like_reference(name):
+    """Each of the repo's 1024² schedules gives the 1024 configuration
+    (128×128 latents, size conditions) and the pipeline (with kwargs) the
+    JAX generator gives. The full-size model is not built here."""
+    from ecad_tpu.image_generators import pixart as jgen
+    from ecad_tpu.pipelines.registry import pipeline_from_config as jpick
+    from ecad_tpu_torch.image_generators import pixart as tgen
+    from ecad_tpu_torch.pipelines.registry import pipeline_from_config as tpick
+
+    path = ALPHA / name
+    j = jgen.PixArtAlphaImageGenerator(schedule_path=path, random_weights=True)
+    t = tgen.PixArtAlphaImageGenerator(schedule_path=path, random_weights=True,
+                                       device="cpu")
+    jc, tc = j.model_config(), t.model_config()
+    assert (tc.sample_size, tc.use_additional_conditions, tc.tokens) == (
+        jc.sample_size, jc.use_additional_conditions, jc.tokens) == (128, True, 4096)
+    assert (t.height, t.width, t.num_inference_steps, t.pipeline_name) == (
+        j.height, j.width, j.num_inference_steps, j.pipeline_name)
+    jcls, jkw = jpick(j.pipeline_name or "pixart_alpha", j.pipeline_kwargs)
+    tcls, tkw = tpick(t.pipeline_name or "pixart_alpha", t.pipeline_kwargs)
+    assert tcls.__name__ == jcls.__name__ and tkw == jkw
+    want = "TGATEPixArtPipeline" if "tgate" in name else "PixArtPipeline"
+    assert tcls.__name__ == want

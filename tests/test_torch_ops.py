@@ -12,15 +12,20 @@ import torch
 import jax.numpy as jnp
 
 from ecad_tpu.models.common import layer_norm as jax_layer_norm
+from ecad_tpu.ops import attention as jax_attention
 from ecad_tpu.ops import fused_attention as jax_fused_attention
 from ecad_tpu.ops import modulated_layer_norm as jax_modulated_layer_norm
 from ecad_tpu_torch.models.common import layer_norm
 from ecad_tpu_torch.ops import (
+    attention_route,
     fused_attention,
     launch_counts,
     modulated_layer_norm,
     modulated_layer_norm_reference,
+    transposed_attention,
+    transposed_attention_reference,
 )
+from ecad_tpu_torch.ops import attention as port_attention
 
 # fp32 on both sides, only the summation order differs
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -153,15 +158,182 @@ def test_modulated_layer_norm_vs_model_form():
 
 def test_cpu_path_counts_no_launches():
     """On CPU tensors the wrappers run the plain versions: no kernel launch
-    is counted."""
+    is counted, on either softmax route."""
     before = launch_counts()
+    assert set(before) == {
+        "attention", "attention_bias", "attention_long", "attention_long_bias",
+        "modlnorm",
+    }
     x = torch.randn(2, 4, 8)
     s = torch.zeros(2, 1, 8)
     fused_attention(torch.randn(1, 4, 2, 8), torch.randn(1, 4, 2, 8),
                     torch.randn(1, 4, 2, 8))
+    q = torch.randn(1, 1024, 1, 72)  # a clamp-route shape
+    fused_attention(q, q, q)
+    transposed_attention(q[:, :8], q, q, torch.zeros(1, 1, 1, 1024))
     out = modulated_layer_norm(x, s, s)
     assert launch_counts() == before
     torch.testing.assert_close(out, modulated_layer_norm_reference(x, s, s))
+
+
+# ---------------------------------------------------------------------------
+# the clamp softmax (K4, _transposed_kernel / _transposed_kernel_nobias)
+# ---------------------------------------------------------------------------
+
+# fp32: the same function on both sides, only the summation order differs.
+# bf16: both sides round q·scale and p to bf16 identically and cast the
+# same fp32 result once; the fp32 sums differ in order, so the outputs
+# agree within one bf16 ulp.
+CLAMP_TOL = {"fp32": dict(rtol=1e-5, atol=1e-5), "bf16": dict(rtol=2**-7, atol=2**-7)}
+
+
+def _key_padding_bias_np(lengths, tk):
+    lens = np.asarray(lengths)[:, None, None, None]
+    return np.where(np.arange(tk)[None, None, None, :] < lens, 0.0, -1e9).astype(
+        np.float32
+    )
+
+
+# the reference's TestTransposedAttention cases (tests/test_ops.py:289-328):
+# (b, h, tq, tk, d, bias lengths or None, q scale, monkeypatched constants)
+CLAMP_CASES = {
+    "multiblock_q_d72": (2, 2, 256, 384, 72, None, 1.0, {"_TRANSPOSED_BLOCK_Q": 128}),
+    "multichunk_kv": (2, 2, 128, 512, 72, None, 1.0, {"_TRANSPOSED_MAX_CHUNK": 128}),
+    "unaligned_130_300_36": (2, 2, 130, 300, 36, None, 1.0, {}),
+    "batch_broadcast_bias": (3, 2, 128, 256, 72, [100], 1.0, {}),
+    "per_batch_key_padding": (3, 2, 128, 256, 72, [100, 200, 256], 1.0, {}),
+    "q_times_1e4": (1, 1, 128, 256, 72, None, 1e4, {}),
+}
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(CLAMP_CASES))
+def test_transposed_reference_matches_pallas(case, dtype, monkeypatch):
+    """transposed_attention_reference against _transposed_attention in
+    interpret mode, compared by value — also at q×1e4, where every logit
+    sits outside the clamp window and the row is near-uniform over the
+    keys clamped at 2^80."""
+    b, h, tq, tk, d, lengths, qscale, patch = CLAMP_CASES[case]
+    for name, value in patch.items():
+        monkeypatch.setattr(jax_attention, name, value)
+    rng = np.random.default_rng(5)
+    q, k, v = _qkv(rng, b, tq, tk, h, d)
+    q = q * np.float32(qscale)
+    bias = None if lengths is None else _key_padding_bias_np(lengths, tk)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "fp32" else (
+        jnp.bfloat16, torch.bfloat16)
+    want = jax_attention._transposed_attention(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)),
+        None if bias is None else jnp.asarray(bias), interpret=True,
+    )
+    got = transposed_attention_reference(
+        *(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+        None if bias is None else torch.from_numpy(bias),
+    )
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32), **CLAMP_TOL[dtype]
+    )
+    assert torch.isfinite(got.float()).all()
+
+
+@pytest.mark.parametrize("d", [16, 36, 64, 72, 80])
+def test_clamp_scale_rounds_like_reference(d):
+    """q is pre-scaled by scale·log2e rounded to q's dtype, as the reference
+    rounds ``jnp.asarray(scale, q.dtype)``."""
+    scale = jax_attention._LOG2E / float(np.sqrt(d))
+    for jdt, tdt in ((jnp.bfloat16, torch.bfloat16), (jnp.float32, torch.float32)):
+        want = float(np.asarray(jnp.asarray(scale, jdt), np.float32))
+        assert port_attention.clamp_scale(d, tdt) == want
+
+
+@pytest.mark.parametrize("case", ["self_q_times_1e4", "cross_key_padding"])
+def test_fused_attention_routes_like_reference(case):
+    """The port's fused_attention picks the reference's function: at the
+    PixArt-512 self-attention class (1, 1024, 1, 72) with q×1e4 the clamp
+    softmax is near-uniform over the clamped keys, the max-subtract one
+    one-hot (they differ by ≈4 there); and a 2048-query cross-attention to
+    120 keys with a key-padding bias takes the clamp route too."""
+    rng = np.random.default_rng(6)
+    if case == "self_q_times_1e4":
+        q, k, v = _qkv(rng, 1, 1024, 1024, 1, 72)
+        q = q * np.float32(1e4)
+        bias = None
+    else:
+        q, k, v = _qkv(rng, 2, 2048, 120, 2, 72)
+        bias = _key_padding_bias_np([7, 120], 120)
+    got, want = _both(q, k, v, bias)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    if case == "self_q_times_1e4":
+        exact = fused_attention_reference_np(q, k, v)
+        assert np.abs(exact - want).max() > 1.0  # the routes compute different functions
+
+
+def fused_attention_reference_np(q, k, v):
+    from ecad_tpu_torch.ops import fused_attention_reference
+
+    t = torch.from_numpy
+    return fused_attention_reference(t(q), t(k), t(v)).numpy()
+
+
+def test_routing_constants_match_reference():
+    for name in ("_SINGLE_TILE_SCORE_BYTES", "_ROWBLOCK_MAX_KV_ELEMS",
+                 "_TRANSPOSED_MIN_SCORE_BYTES", "_LOG2E", "_CLAMP_LO", "_CLAMP_HI"):
+        assert getattr(port_attention, name) == getattr(jax_attention, name), name
+
+
+# (q shape, tk, bias kind) → the reference's route
+ROUTES = {
+    "pixart256_self": ((16, 256, 16, 72), 256, None, "exact"),
+    "pixart256_cross": ((16, 256, 16, 72), 120, "padding", "exact"),
+    "pixart512_self": ((16, 1024, 16, 72), 1024, None, "clamp"),
+    "pixart512_cross": ((16, 1024, 16, 72), 120, "padding", "exact"),
+    "pixart1024_self": ((4, 4096, 16, 72), 4096, None, "clamp"),
+    "pixart1024_cross": ((4, 4096, 16, 72), 120, "padding", "clamp"),
+    "pixart1024_cross_batch_broadcast": ((4, 4096, 16, 72), 120, "broadcast", "clamp"),
+    "pixart1024_dense_bias": ((4, 4096, 16, 72), 4096, "dense", "exact"),
+    "pixart2048_self": ((2, 16384, 16, 72), 16384, None, "flash"),
+    "flux1024_joint": ((2, 4608, 24, 128), 4608, None, "rowblock"),
+    "flux256_joint": ((2, 768, 24, 128), 768, None, "exact"),
+    "d128_past_rowblock": ((1, 9000, 1, 128), 9000, None, "flash"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ROUTES))
+def test_attention_route(name):
+    shape, tk, kind, want = ROUTES[name]
+    b, tq, h, _ = shape
+    bias = {
+        None: None,
+        "padding": torch.zeros(b, 1, 1, tk, device="meta"),
+        "broadcast": torch.zeros(1, 1, 1, tk, device="meta"),
+        "dense": torch.zeros(b, h, tq, tk, device="meta"),
+    }[kind]
+    assert attention_route(shape, tk, bias) == want
+
+
+@pytest.mark.parametrize(
+    "shape,tk,error,match",
+    [
+        ((2, 4608, 2, 128), 4608, NotImplementedError, "FLUX"),
+        ((1, 9000, 1, 128), 9000, NotImplementedError, "K6"),
+        ((1, 1024, 1, 72), 1024, ValueError, "unsupported device"),
+    ],
+)
+def test_non_cpu_tensors_never_fall_back(shape, tk, error, match):
+    """Off the CPU the router launches a kernel or raises: the unported K5
+    and K6 routes raise naming what is missing, and a tensor on a device
+    without a kernel raises instead of running a plain version."""
+    b, tq, h, d = shape
+    q = torch.empty(shape, device="meta")
+    kv = torch.empty((b, tk, h, d), device="meta")
+    with pytest.raises(error, match=match):
+        fused_attention(q, kv, kv)
+
+
+def test_transposed_attention_rejects_dense_bias():
+    q = torch.zeros(2, 4, 2, 8)
+    with pytest.raises(ValueError, match="key-padding"):
+        transposed_attention(q, q, q, torch.zeros(2, 2, 4, 4))
 
 
 @pytest.mark.parametrize(

@@ -136,3 +136,149 @@ def test_vae_decode_matches_reference():
     assert got.shape == (2, 8, 8, 3) and got_u8.dtype == np.uint8
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
     assert np.abs(got_u8.astype(int) - want_u8.astype(int)).max() <= 1
+
+
+# ---------------------------------------------------------------------------
+# the PixArt variants: size conditions at 1024 tokens, TGATE, pass-through,
+# DiT plans, the pipeline registry
+# ---------------------------------------------------------------------------
+
+from ecad_tpu.pipelines import registry as jreg  # noqa: E402
+from ecad_tpu.pipelines import tgate as jtg  # noqa: E402
+from ecad_tpu_torch.pipelines import registry as treg  # noqa: E402
+from ecad_tpu_torch.pipelines import tgate as ttg  # noqa: E402
+
+VARIANT_STEPS = 4
+# a 1024-style tiny model: the size conditions (dim a multiple of 3) and a
+# 64×64 latent, i.e. 1024 image tokens, so that self-attention takes the
+# clamp-softmax route (a 4 MiB score tile, head dim 16)
+SIZED_KW = dict(dim=96, sample_size=64, use_additional_conditions=True)
+
+
+@pytest.fixture(scope="module")
+def tiny_sized():
+    jcfg = jpx.PixArtConfig.tiny(dtype=jnp.float32, **SIZED_KW)
+    _, params = jpx.init_params(jcfg, 0)
+    params = jax.tree.map(np.asarray, fnn.meta.unbox(params))
+    tcfg = tpx.PixArtConfig.tiny(dtype=torch.float32, **SIZED_KW)
+    model = tpx.PixArtTransformer(tcfg).eval().requires_grad_(False)
+    model.load_state_dict(pixart_state_dict(params), strict=True)
+    return jcfg, params, tcfg, model
+
+
+def _variant_inputs(side):
+    rng = np.random.default_rng(17)
+    b = 2
+    return dict(
+        noise=rng.standard_normal((b, side, side, 4), dtype=np.float32),
+        text=rng.standard_normal((b, 8, 32), dtype=np.float32),
+        neg=rng.standard_normal((b, 8, 32), dtype=np.float32),
+        tm=(np.arange(8)[None] < np.array([[3], [8]])).astype(np.int32),
+        nm=(np.arange(8)[None] < 1).repeat(b, 0).astype(np.int32),
+    )
+
+
+def _assert_latents_close(got, want):
+    """fp32 on both sides, sums in other orders. Random-weight latents grow
+    to O(700) over a few DPM steps (x0 = x/α with α ≈ 0.07 at the first
+    step), so the bound is relative to the largest latent: 2e-6 of it, a
+    few fp32 roundings of that magnitude."""
+    want = np.asarray(want)
+    np.testing.assert_allclose(
+        got.numpy(), want, rtol=1e-5, atol=2e-6 * float(np.abs(want).max())
+    )
+
+
+PIPELINES = {
+    "pixart_alpha": (jpp.PixArtPipeline, tpp.PixArtPipeline, {}),
+    "tgate": (jtg.TGATEPixArtPipeline, ttg.TGATEPixArtPipeline, {"gate_step": 2}),
+    "pass_through": (jtg.PassThroughPixArtPipeline, ttg.PassThroughPixArtPipeline, {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PIPELINES))
+def test_sized_trajectory_matches_reference(tiny_sized, name):
+    """Four DPM steps with the size conditions, CFG, text masks and a
+    schedule that caches cross-attention and FF at step 1; TGATE gates at
+    step 2 of 4 (its second phase runs at batch B without guidance)."""
+    jcfg, params, tcfg, model = tiny_sized
+    jcls, tcls, kwargs = PIPELINES[name]
+    g = np.ones((VARIANT_STEPS, jcfg.num_blocks, 3), bool)
+    g[1, :, 1:] = False
+    g = g.reshape(VARIANT_STEPS, -1)
+    jsched = JSched.from_numpy(g, VARIANT_STEPS, jcfg.num_blocks)
+    tsched = TSched.from_numpy(g, VARIANT_STEPS, tcfg.num_blocks)
+    x = _variant_inputs(jcfg.sample_size)
+    args = [x[k] for k in ("noise", "text", "neg", "tm", "nm")]
+    jpipe = jcls(jpp.PixArtPipelineConfig(jcfg, VARIANT_STEPS), params, jsched, **kwargs)
+    want = jpipe.build_denoise_fn(donate=False)(params, *args)
+    tpipe = tcls(tpp.PixArtPipelineConfig(tcfg, VARIANT_STEPS), model, tsched, **kwargs)
+    got = tpipe.denoise(*(torch.from_numpy(a) for a in args))
+    assert tpipe.masks == jpipe.masks
+    _assert_latents_close(got, want)
+
+
+@pytest.mark.parametrize(
+    "gate_step,cache_attn1_at",
+    [(0, None), (5, None), (2, 3)],
+)
+def test_tgate_rejects_what_the_reference_rejects(tiny, gate_step, cache_attn1_at):
+    """gate_step out of range, or a schedule that reuses self-attention
+    after the gate (the CFG-batch caches are dropped there)."""
+    jcfg, params, tcfg, model = tiny
+    g = np.ones((VARIANT_STEPS, jcfg.num_blocks, 3), bool)
+    if cache_attn1_at is not None:
+        g[cache_attn1_at, 0, 0] = False
+    g = g.reshape(VARIANT_STEPS, -1)
+    with pytest.raises(ValueError):
+        jtg.TGATEPixArtPipeline(
+            jpp.PixArtPipelineConfig(jcfg, VARIANT_STEPS), params,
+            JSched.from_numpy(g, VARIANT_STEPS, jcfg.num_blocks), gate_step=gate_step,
+        )
+    with pytest.raises(ValueError):
+        ttg.TGATEPixArtPipeline(
+            tpp.PixArtPipelineConfig(tcfg, VARIANT_STEPS), model,
+            TSched.from_numpy(g, VARIANT_STEPS, tcfg.num_blocks), gate_step=gate_step,
+        )
+
+
+def test_trajectory_under_dit_plan_matches_reference(tiny):
+    """A DiT topology schedule (default topology for two steps, then the two
+    blocks in reverse, then block 1 skipped) through both pipelines."""
+    from ecad_tpu import graph as jg
+    from ecad_tpu_torch import graph as tg
+
+    jcfg, params, tcfg, model = tiny
+
+    def dit(g):
+        n = jcfg.num_blocks
+        steps = {0: g.default_config(n), 1: g.default_config(n),
+                 2: g.reverse(n, 0, 1), 3: g.skip_blocks(n, [1])}
+        return g.DiTSchedule(n, VARIANT_STEPS, "mixed_topology", steps)
+
+    x = _variant_inputs(8)
+    args = [x[k] for k in ("noise", "text", "neg", "tm", "nm")]
+    jpipe = jpp.PixArtPipeline(
+        jpp.PixArtPipelineConfig(jcfg, VARIANT_STEPS), params, None, dit_schedule=dit(jg)
+    )
+    want = jpipe.build_denoise_fn(donate=False)(params, *args)
+    tpipe = tpp.PixArtPipeline(
+        tpp.PixArtPipelineConfig(tcfg, VARIANT_STEPS), model, None, dit_schedule=dit(tg)
+    )
+    got = tpipe.denoise(*(torch.from_numpy(a) for a in args))
+    assert [tg.plan_block_sequence(plan) for plan in tpipe.plans] == [
+        [0, 1], [0, 1], [1, 0], [0]
+    ]
+    _assert_latents_close(got, want)
+
+
+def test_pipeline_registry_names_match_reference():
+    assert treg.PipelineRegistry.names() == jreg.PipelineRegistry.names()
+    for name in ("pixart_alpha", "pixart_sigma", "tgate", "pass_through"):
+        jcls, jkw = jreg.pipeline_from_config(name, {"gate_step": 3})
+        tcls, tkw = treg.pipeline_from_config(name, {"gate_step": 3})
+        assert tcls.__name__ == jcls.__name__ and tkw == jkw == {"gate_step": 3}
+    assert treg.pipeline_from_config(None)[0] is tpp.PixArtPipeline
+    flux, _ = treg.pipeline_from_config("flux")
+    with pytest.raises(NotImplementedError, match="FLUX"):
+        flux(None, None)

@@ -167,3 +167,100 @@ def test_schedule_step_masks_force_step_zero():
     )
     assert tm == jm
     assert all(all(row) for row in tm[0])
+
+
+# ---------------------------------------------------------------------------
+# the 1024² configuration's size conditions, and DiT topology plans
+# ---------------------------------------------------------------------------
+
+# dim must be a multiple of 3: the two size embedders are dim // 3 wide and
+# their concatenation is added to the dim-wide timestep embedding
+SIZE_KW = dict(dim=96, sample_size=16, use_additional_conditions=True)
+
+
+@pytest.fixture(scope="module")
+def sized():
+    jcfg = jpx.PixArtConfig.tiny(dtype=jnp.float32, **SIZE_KW)
+    _, params = jpx.init_params(jcfg, 1)
+    params = jax.tree.map(np.asarray, fnn.meta.unbox(params))
+    tcfg = tpx.PixArtConfig.tiny(dtype=torch.float32, **SIZE_KW)
+    model = tpx.PixArtTransformer(tcfg).eval().requires_grad_(False)
+    model.load_state_dict(pixart_state_dict(params), strict=True)
+    return jcfg, params, model
+
+
+SIZES = {
+    "square_1024": ([[1024.0, 1024.0], [1024.0, 1024.0]], [1.0, 1.0]),
+    "mixed": ([[1024.0, 768.0], [512.0, 2048.0]], [0.75, 4.0]),
+}
+
+
+@pytest.mark.parametrize("sizes", sorted(SIZES))
+def test_adaln_single_size_conditions_match_reference(sized, sizes):
+    cfg, params, model = sized
+    res, ar = (np.asarray(a, np.float32) for a in SIZES[sizes])
+    t = np.array([999.0, 3.0], np.float32)
+    want_t6, want_emb = jax.jit(
+        lambda p: jpx.AdaLayerNormSingle(cfg).apply({"params": p}, t, res, ar)
+    )(params["adaln_single"])
+    with torch.inference_mode():
+        got_t6, got_emb = model.adaln_single(
+            torch.from_numpy(t), torch.from_numpy(res), torch.from_numpy(ar)
+        )
+    np.testing.assert_allclose(got_emb.numpy(), np.asarray(want_emb), **TOL)
+    np.testing.assert_allclose(got_t6.numpy(), np.asarray(want_t6), **TOL)
+    with pytest.raises(ValueError, match="size conditions"):
+        model.adaln_single(torch.from_numpy(t))
+
+
+def _plans():
+    from ecad_tpu import graph as jg
+    from ecad_tpu_torch import graph as tg
+
+    configs = {
+        "default": lambda g: g.default_config(2),
+        "reverse": lambda g: g.reverse(2, 0, 1),
+        "skip_1": lambda g: g.skip_blocks(2, [1]),
+        "parallel_avg_looped": lambda g: g.parallel(2, 0, 1, 1, "avg"),
+        "parallel_add": lambda g: g.parallel(2, 0, 1, 0, "add"),
+        "repeat_0": lambda g: g.middle_repeat(2, 0, 1),
+    }
+    return {k: (jg.build_plan(f(jg)), tg.build_plan(f(tg))) for k, f in configs.items()}
+
+
+@pytest.mark.parametrize("name", ["default", "reverse", "skip_1",
+                                  "parallel_avg_looped", "parallel_add", "repeat_0"])
+def test_forward_with_plan_and_size_conditions_matches_reference(sized, name):
+    """A forward pass under a DiT topology plan, with the size conditions:
+    the two graph packages build the same plan and the two models run it
+    to the same output and cache."""
+    cfg, params, model = sized
+    jplan, tplan = _plans()[name]
+    assert [tuple(vars(op).values()) for op in tplan] == [
+        tuple(vars(op).values()) for op in jplan
+    ]
+    x = _inputs(cfg, seed=4)
+    res = np.full((B, 2), 1024.0, np.float32)
+    ar = np.ones((B,), np.float32)
+    mask = MASKS["mixed"](cfg.num_blocks)
+    cache = {k: tuple(v) for k, v in x["cache"].items()}
+    want, want_cache = jax.jit(
+        lambda p, lat, txt, tt, c, m: jpx.PixArtTransformer(cfg).apply(
+            {"params": p}, lat, txt, tt, c, mask, text_mask=m,
+            resolution=res, aspect_ratio=ar, plan=jplan,
+        )
+    )(params, x["latents"], x["text"], x["t"], cache, x["text_mask"])
+    t = torch.from_numpy
+    with torch.inference_mode():
+        got, got_cache = model(
+            t(x["latents"]), t(x["text"]), t(x["t"]),
+            {k: [t(a) for a in v] for k, v in x["cache"].items()}, mask,
+            text_mask=t(x["text_mask"]), resolution=t(res), aspect_ratio=t(ar),
+            plan=tplan,
+        )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for k in jpx.COMPONENTS:
+        for i in range(cfg.num_blocks):
+            np.testing.assert_allclose(
+                got_cache[k][i].numpy(), np.asarray(want_cache[k][i]), **TOL
+            )
