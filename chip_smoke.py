@@ -12,11 +12,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 3. Kernels (``kernels``): hold each kernel against its plain PyTorch
    version on the card, at the main paths' shapes in bf16, at the odd
    shapes of the reference's kernel tests, and in fp32 at a tight
-   tolerance — the exact-softmax attention (K1/K2), the modulated LayerNorm
-   (K3) and the clamp-softmax attention (K4, both variants; also at
-   q×1e4, compared by value; in bf16 at a tolerance scaled to the output,
-   shown to reject a plain version that drops or repeats one 64-key tile
-   at the 4096-key shape); time kernel, plain version and (attention) one
+   tolerance — the exact-softmax attention (K1/K2; K1 also at FLUX-256's
+   (4, 768, 24, 128)), the modulated LayerNorm (K3), the clamp-softmax
+   attention of the transposed route (K4, both variants) and of the
+   row-block route (K5, both variants; at FLUX-1024's (1, 4608, 24, 128)
+   and at the reference's TestRowBlockAttention shapes at D=128); the
+   clamp kernels also at q×1e4, compared by value, and in bf16 at a
+   tolerance scaled to the output, shown to reject a plain version that
+   drops or repeats one 64-key tile at 4096 (K4) and 4608 (K5) keys; time
+   kernel, plain version and (attention) one
    ``scaled_dot_product_attention`` call as a yardstick the port never
    calls.
 4. Main path at 256² (``main256``): full-width PixArt-α 256 (28 blocks,
@@ -35,9 +39,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    against each schedule; and a tiny fp32 1024-style trajectory (size
    conditions, TGATE, 2304 tokens so that both K4 variants run) on the card
    against the plain path on the CPU.
-6. Entry points (``cli``): ``ecad_tpu_torch.inference.cli
+6. FLUX (``flux``): full-width FLUX.1-dev (19 dual + 38 single blocks,
+   d=3072, 24×128 heads, 512 text tokens, guidance embedding; 11.9 B
+   seeded random bf16 parameters) from hash-encoder prompts, 20 flow-match
+   Euler steps at guidance 5: 1024² at batch 1 under
+   ``default_1024x1024_gs_5.0_steps_20`` and ``fast_256_to_1024`` (joint
+   attention through K5), 256² at batch 4 under ``flux_256/ours_fast`` and
+   the default (through K1), each decoded by the random 16-channel VAE to
+   uint8, with the launch counts of K5, K1 and K3 checked against each
+   schedule; ``flux_256/ours_fast`` again with the caches stored as
+   ``float8_e4m3fn`` (the same seeded weights), held to the same checks
+   and set beside the bf16 caches' latents; and a tiny fp32 FLUX
+   trajectory (1536 joint tokens at D=128, the row-block route) on the
+   card against the plain path on the CPU.
+7. Entry points (``cli``): ``ecad_tpu_torch.inference.cli
    PixArtAlphaImageGenerator`` with a prompt file, random weights and
-   ``ours_fast``, and again with the 1024 TGATE schedule at batch size 2;
+   ``ours_fast``, again with the 1024 TGATE schedule at batch size 2, and
+   ``FluxImageGenerator`` with ``flux_256/ours_fast`` and two prompts;
    checks their PNGs and launch counts.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
@@ -49,6 +67,7 @@ nvcc/ptxas log) goes to ``--report`` (default
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import shutil
 import statistics
@@ -69,8 +88,19 @@ TGATE_1024 = (
     ROOT / "schedules/alpha_cache_schedules/gen_tgate_1024"
     / "tgate_m_010_sp_003_fi_001_warmup_002.json"
 )
+FLUX_DEFAULT_1024 = (
+    ROOT / "schedules/flux_cache_schedules/gen_default/default_1024x1024_gs_5.0_steps_20.json"
+)
+FLUX_FAST_1024 = ROOT / "schedules/schedules_in_paper/flux_256_to_1024/fast_256_to_1024.json"
+FLUX_OURS_FAST_256 = ROOT / "schedules/schedules_in_paper/flux_256/ours_fast.json"
+FLUX_DEFAULT_256 = (
+    ROOT / "schedules/flux_cache_schedules/gen_default_varied_guidance_256"
+    / "default_256x256_gs_5.json"
+)
 BATCH = 8
 BATCH_1024 = 2
+BATCH_FLUX_1024 = 1  # one 1024² image per request, as FLUX.1-dev is served
+BATCH_FLUX_256 = 4
 STEPS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
@@ -81,6 +111,8 @@ FP32_TOL = (1e-5, 1e-5)  # fp32 kernels against fp32 plain versions
 # moves the weight of a key near the clamp's top by ~1e-3 relative
 HOT_FP32_TOL = (1e-3, 1e-3)
 REPORT: dict = {}
+COUNTERS = ("attention", "attention_bias", "attention_long", "attention_long_bias",
+            "attention_rowblock", "attention_rowblock_bias", "modlnorm")
 
 
 def clamp_bf16_tol(want: torch.Tensor) -> tuple[float, float]:
@@ -90,7 +122,7 @@ def clamp_bf16_tol(want: torch.Tensor) -> tuple[float, float]:
     about Tk/e values of v, so its size falls like Tk^-1/2 (≈0.026 at 4096
     keys): a fixed atol fitted to O(1) outputs would pass a kernel that
     drops one key tile of 4096 keys."""
-    return 0.1 * float(want.std()), 2.0 ** -7
+    return 0.1 * float(want.float().std()), 2.0 ** -7
 
 
 def log(msg: str) -> None:
@@ -207,6 +239,8 @@ def attention_cases() -> None:
     from ecad_tpu_torch.ops import (
         fused_attention,
         fused_attention_reference,
+        rowblock_attention,
+        rowblock_attention_reference,
         transposed_attention,
         transposed_attention_reference,
     )
@@ -280,6 +314,34 @@ def attention_cases() -> None:
         clamp_case("q_times_1e4", rnd(1, 128, 1, 72, dtype=dtype, scale=1e4),
                    rnd(1, 256, 1, 72, dtype=dtype), rnd(1, 256, 1, 72, dtype=dtype),
                    **({} if dtype == torch.bfloat16 else {"tol": HOT_FP32_TOL}))
+
+        # the row-block clamp softmax (K5) at the reference's
+        # TestRowBlockAttention shapes (tests/test_ops.py:143-188), at the
+        # head dim the route serves (128)
+        def rowblock_case(name, q, k, v, bias=None,
+                          tol=clamp_bf16_tol if dtype == torch.bfloat16 else tol):
+            compare(f"attention_rowblock/{tag}/{name}",
+                    rowblock_attention(q, k, v, bias),
+                    rowblock_attention_reference(q, k, v, bias), tol)
+
+        rowblock_case("multiblock_q_48_384_d128", rnd(2, 48, 2, 128, dtype=dtype),
+                      rnd(2, 384, 2, 128, dtype=dtype), rnd(2, 384, 2, 128, dtype=dtype))
+        rowblock_case("ragged_tq30_tk300_d128", rnd(2, 30, 2, 128, dtype=dtype),
+                      rnd(2, 300, 2, 128, dtype=dtype), rnd(2, 300, 2, 128, dtype=dtype))
+        rowblock_case("ragged_tk300_key_padding_250_300", rnd(2, 30, 2, 128, dtype=dtype),
+                      rnd(2, 300, 2, 128, dtype=dtype), rnd(2, 300, 2, 128, dtype=dtype),
+                      key_padding_bias([250, 300], 300, -1e9))
+        rowblock_case("batch_broadcast_bias_b3_1_1_1_tk", rnd(3, 32, 2, 128, dtype=dtype),
+                      rnd(3, 256, 2, 128, dtype=dtype), rnd(3, 256, 2, 128, dtype=dtype),
+                      key_padding_bias([100], 256, -1e9))
+        rowblock_case("per_batch_key_padding_100_200_256", rnd(3, 32, 2, 128, dtype=dtype),
+                      rnd(3, 256, 2, 128, dtype=dtype), rnd(3, 256, 2, 128, dtype=dtype),
+                      key_padding_bias([100, 200, 256], 256, -1e9))
+        rowblock_case("logits_times_6", rnd(1, 16, 1, 128, dtype=dtype, scale=6.0),
+                      rnd(1, 256, 1, 128, dtype=dtype), rnd(1, 256, 1, 128, dtype=dtype))
+        rowblock_case("q_times_1e4", rnd(1, 16, 1, 128, dtype=dtype, scale=1e4),
+                      rnd(1, 256, 1, 128, dtype=dtype), rnd(1, 256, 1, 128, dtype=dtype),
+                      **({} if dtype == torch.bfloat16 else {"tol": HOT_FP32_TOL}))
 
 
 def kernel_phase(b2: int, b2_1024: int) -> dict:
@@ -467,6 +529,9 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
                                  lambda: F.scaled_dot_product_attention(
                                      q4t, kc4t, vc4t, attn_mask=bias4))),
     ]
+    del q4t, k4t, v4t, kc4t, vc4t
+    rows += flux_kernel_rows(rnd, bound, nbytes)
+
     # K3 at the 1024² path's shape, for the report
     x4 = rnd(b2_1024, t4, dim)
     mods4 = rnd(b2_1024, 6, dim) * 0.1
@@ -479,6 +544,105 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
             f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library {r['library_ms']})")
     return out
+
+
+def flux_kernel_rows(rnd, bound, nbytes) -> list[dict]:
+    """FLUX's joint attention: the row-block clamp kernel (K5) at FLUX-1024's
+    shape (1, 4608, 24, 128), with the tile-fault check at 4608 keys and
+    its bias variant timed at the same shape; the exact kernel (K1) at
+    FLUX-256's (4, 768, 24, 128); each reached through the router, checked
+    against its plain version and timed against it, one
+    ``scaled_dot_product_attention`` call and its bound."""
+    import torch.nn.functional as F
+
+    from ecad_tpu_torch.ops import (
+        fused_attention,
+        fused_attention_reference,
+        launch_counts,
+        reset_launch_counts,
+        rowblock_attention,
+        rowblock_attention_reference,
+    )
+
+    h, d, t1024, t256 = 24, 128, 4608, 768
+    q, k, v = (rnd(BATCH_FLUX_1024, t1024, h, d) for _ in range(3))
+    qs, ks, vs = (rnd(BATCH_FLUX_256, t256, h, d) for _ in range(3))
+    reset_launch_counts()
+    got, got256 = fused_attention(q, k, v), fused_attention(qs, ks, vs)
+    torch.cuda.synchronize()
+    routed = launch_counts()
+    if routed != {**dict.fromkeys(COUNTERS, 0), "attention_rowblock": 1, "attention": 1}:
+        raise AssertionError(f"FLUX shapes did not route to K5 / K1: {routed}")
+    want = rowblock_attention_reference(q, k, v)
+    err5 = compare(f"attention_rowblock/bf16/flux1024_{BATCH_FLUX_1024}x4608x24x128",
+                   got, want, clamp_bf16_tol)
+    # the same check must fail a kernel that skips or repeats one 64-key tile
+    rejects("flux1024_drops_key_tile_1",
+            rowblock_attention_reference(q, torch.cat((k[:, :64], k[:, 128:]), 1),
+                                         torch.cat((v[:, :64], v[:, 128:]), 1)),
+            want, clamp_bf16_tol)
+    rejects("flux1024_repeats_key_tile_1",
+            rowblock_attention_reference(q, torch.cat((k[:, :128], k[:, 64:]), 1),
+                                         torch.cat((v[:, :128], v[:, 64:]), 1)),
+            want, clamp_bf16_tol)
+    del want, got
+    err1 = compare(f"attention/bf16/flux256_{BATCH_FLUX_256}x768x24x128", got256,
+                   fused_attention_reference(qs, ks, vs), clamp_bf16_tol)
+    # the bias variant at the served shape, with a key-padding bias
+    bias = key_padding_bias([t1024 - 100] * BATCH_FLUX_1024, t1024, -1e9)
+    err5b = compare("attention_rowblock_bias/bf16/flux1024_key_padding",
+                    rowblock_attention(q, k, v, bias),
+                    rowblock_attention_reference(q, k, v, bias), clamp_bf16_tol)
+
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    o = torch.empty_like(q)
+    b5, by5 = bound(nbytes(q, k, v, o), 4 * BATCH_FLUX_1024 * h * t1024 * t1024 * d)
+    row5 = dict(
+        name="attention_rowblock", route="cuda",
+        source="ecad_tpu_torch/csrc/attention.cu",
+        replaces="ecad_tpu/ops/attention.py:274 (_rowblock_kernel_nobias)",
+        max_abs_err=err5,
+        ms=timed_ms("attention_rowblock", lambda: fused_attention(q, k, v), reps=5),
+        plain_ms=timed_ms("attention_rowblock/plain",
+                          lambda: rowblock_attention_reference(q, k, v), reps=3, inner=5),
+        bound_ms=b5, bound_by=by5,
+        library_ms=timed_ms("attention_rowblock/sdpa",
+                            lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=5),
+    )
+    b5b, by5b = bound(nbytes(q, k, v, o, bias), 4 * BATCH_FLUX_1024 * h * t1024 * t1024 * d)
+    row5b = dict(
+        name="attention_rowblock_bias", route="cuda",
+        source="ecad_tpu_torch/csrc/attention.cu",
+        replaces="ecad_tpu/ops/attention.py:255 (_rowblock_kernel)",
+        max_abs_err=err5b,
+        ms=timed_ms("attention_rowblock_bias", lambda: rowblock_attention(q, k, v, bias),
+                    reps=5),
+        plain_ms=timed_ms("attention_rowblock_bias/plain",
+                          lambda: rowblock_attention_reference(q, k, v, bias),
+                          reps=3, inner=5),
+        bound_ms=b5b, bound_by=by5b,
+        library_ms=timed_ms("attention_rowblock_bias/sdpa",
+                            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias),
+                            reps=5),
+    )
+    del qt, kt, vt
+    qst, kst, vst = (a.transpose(1, 2).contiguous() for a in (qs, ks, vs))
+    b1, by1 = bound(nbytes(qs, ks, vs, qs), 4 * BATCH_FLUX_256 * h * t256 * t256 * d)
+    # K1 again, at FLUX-256's head dim 128 (its own row: the `attention`
+    # row holds PixArt-256's D=72)
+    row1 = dict(
+        name="attention_flux256", route="cuda",
+        source="ecad_tpu_torch/csrc/attention.cu",
+        replaces="ecad_tpu/ops/attention.py:58 (_attn_kernel)",
+        max_abs_err=err1,
+        ms=timed_ms("attention_flux256", lambda: fused_attention(qs, ks, vs)),
+        plain_ms=timed_ms("attention_flux256/plain",
+                          lambda: fused_attention_reference(qs, ks, vs), reps=3, inner=5),
+        bound_ms=b1, bound_by=by1,
+        library_ms=timed_ms("attention_flux256/sdpa",
+                            lambda: F.scaled_dot_product_attention(qst, kst, vst)),
+    )
+    return [row5, row5b, row1]
 
 
 # ---------------------------------------------------------------------------
@@ -495,11 +659,31 @@ def expected_counts(masks, clamp: bool = False) -> dict[str, int]:
     arr = np.array(masks, dtype=bool)  # (steps, blocks, 3), step 0 forced
     self_attn, cross_attn = int(arr[..., 0].sum()), int(arr[..., 1].sum())
     return {
+        **dict.fromkeys(COUNTERS, 0),
         "attention": 0 if clamp else self_attn,
         "attention_bias": 0 if clamp else cross_attn,
         "attention_long": self_attn if clamp else 0,
         "attention_long_bias": cross_attn if clamp else 0,
         "modlnorm": int(arr[..., 0].sum() + arr[..., 2].sum()) + arr.shape[0],
+    }
+
+
+def flux_expected_counts(masks, num_blocks: int, rowblock: bool) -> dict[str, int]:
+    """Launches per FLUX trajectory that a schedule's masks imply: one joint
+    attention per recomputed full_attn or single_attn (FLUX-1024's 4608
+    tokens take the row-block clamp kernel K5, FLUX-256's 768 the exact
+    kernel K1); one modlnorm per stream of a recomputed full_attn, per
+    full_ff and full_ff_context, per single block whose attention or MLP
+    projection is recomputed (they share its norm), and one per step for
+    the final norm."""
+    arr = np.array(masks, dtype=bool)  # (steps, blocks + single blocks, 3)
+    full, single = arr[:, :num_blocks], arr[:, num_blocks:]
+    attn = int(full[..., 0].sum() + single[..., 0].sum())
+    return {
+        **dict.fromkeys(COUNTERS, 0),
+        "attention_rowblock" if rowblock else "attention": attn,
+        "modlnorm": int(2 * full[..., 0].sum() + full[..., 1:].sum()
+                        + (single[..., 0] | single[..., 1]).sum()) + arr.shape[0],
     }
 
 
@@ -571,6 +755,7 @@ def small_reference_check(sized: bool = False) -> dict:
 def kernel_family(name: str) -> str:
     """Family of a device kernel, from its (mangled or demangled) name."""
     for kernel, family in (("attn_clamp_bf16_kernel", "attention_long"),
+                           ("attn_rowblock_bf16_kernel", "attention_rowblock"),
                            ("attn_bf16_kernel", "attention")):
         if kernel in name:
             biased = "true>" in name or "ELb1E" in name
@@ -596,12 +781,9 @@ def profile_trajectory(fn, wall_ms: float) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    fams = dict.fromkeys(
-        ("attention", "attention_bias", "attention_long", "attention_long_bias",
-         "modlnorm", "gemm", "conv", "other"), 0.0
-    )
+    fams = dict.fromkeys((*COUNTERS, "gemm", "conv", "other"), 0.0)
     launches = 0
-    host_ops = []
+    host_ops, other = [], []
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             host_ops.append((evt.self_cpu_time_total / 1e3, evt.count, evt.key))
@@ -610,15 +792,21 @@ def profile_trajectory(fn, wall_ms: float) -> dict:
         if us is None:
             us = evt.self_cuda_time_total
         launches += evt.count
-        fams[kernel_family(evt.key)] += us / 1e3
+        family = kernel_family(evt.key)
+        fams[family] += us / 1e3
+        if family == "other":
+            other.append((us / 1e3, evt.count, evt.key[:120]))
     busy = sum(fams.values())
     host_ops.sort(reverse=True)
+    other.sort(reverse=True)
     return {
         "device_ms": fams,
         "busy_ms": busy,
         "wall_ms": wall_ms,
         "idle_share": 1.0 - busy / wall_ms,
         "kernel_launches": launches,
+        # the largest kernels of the elementwise family, by device ms
+        "other_top": [{"kernel": k, "calls": n, "device_ms": ms} for ms, n, k in other[:12]],
         # host ops by self CPU ms under the profiler (inflated by it), with calls
         "host_ops_top": [
             {"op": k, "calls": n, "self_cpu_ms_profiled": ms}
@@ -645,17 +833,18 @@ def path_inputs(config, batch: int) -> dict:
     return dict(noise=noise, text=text, neg=neg, text_mask=text_mask, neg_mask=neg_mask)
 
 
-def drive(pipes: dict, inputs: dict, vae, batch: int, side: int, clamp: bool,
+def drive(pipes: dict, inputs: dict, decode, batch: int, side: int, want_counts,
           order: tuple) -> dict:
     """Each pipeline once with the launch counters set to 0 just before and
-    read just after (checked against its schedule, with the image shape and
-    finite latents); then ms/img from synchronized runs taken in `order`;
-    then one profiled run each."""
+    read just after (checked against `want_counts(pipe)`, with the image
+    shape and finite latents); then ms/img from synchronized runs taken in
+    `order`; then one profiled run each. `decode` turns a trajectory's
+    latents into uint8 images on the card."""
     from ecad_tpu_torch.ops import launch_counts, reset_launch_counts
 
     def run(pipe):
         latents = pipe.denoise(**inputs)
-        return latents, vae.decode_device(latents)
+        return latents, decode(latents)
 
     torch.cuda.reset_peak_memory_stats()
     result = {}
@@ -664,7 +853,7 @@ def drive(pipes: dict, inputs: dict, vae, batch: int, side: int, clamp: bool,
         latents, img = run(pipe)
         torch.cuda.synchronize()
         counts = launch_counts()
-        want = expected_counts(pipe.masks, clamp)
+        want = want_counts(pipe)
         log(f"  {name}: launches {counts}, schedule says {want}")
         if counts != want:
             raise AssertionError(f"{name}: launches {counts} != schedule {want}")
@@ -698,12 +887,12 @@ def drive(pipes: dict, inputs: dict, vae, batch: int, side: int, clamp: bool,
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        vae.decode_device(latents)
+        decode(latents)
         torch.cuda.synchronize()
         vae_ms.append((time.perf_counter() - t0) * 1e3)
     result["vae_decode_ms"] = statistics.median(vae_ms)
     result["vae_profile"] = profile_trajectory(
-        lambda: vae.decode_device(latents), result["vae_decode_ms"]
+        lambda: decode(latents), result["vae_decode_ms"]
     )
     log(f"  VAE decode of {batch} latents: {result['vae_decode_ms']:.3f} ms, device "
         f"{result['vae_profile']['device_ms']}")
@@ -730,7 +919,8 @@ def main_path() -> dict:
         "ours_fast": PixArtPipeline(pcfg, model, PixArtCacheSchedule.from_json(OURS_FAST)),
         "default": PixArtPipeline(pcfg, model, PixArtCacheSchedule.default(STEPS)),
     }
-    result = drive(pipes, path_inputs(config, BATCH), vae, BATCH, 256, clamp=False,
+    result = drive(pipes, path_inputs(config, BATCH), vae.decode_device, BATCH, 256,
+                   lambda pipe: expected_counts(pipe.masks),
                    order=("default", "ours_fast", "ours_fast", "default"))
     result["speedup"] = result["default"]["ms_per_img"] / result["ours_fast"]["ms_per_img"]
     log(f"  ratio default / ours_fast {result['speedup']:.4f}")
@@ -768,8 +958,8 @@ def main_path_1024() -> dict:
         "ours_fast": PixArtPipeline(pcfg, model, PixArtCacheSchedule.from_json(OURS_FAST)),
         "tgate": tgate_cls(pcfg, model, tgate, **tgate_kwargs),
     }
-    result = drive(pipes, path_inputs(config, BATCH_1024), vae, BATCH_1024, 1024,
-                   clamp=True,
+    result = drive(pipes, path_inputs(config, BATCH_1024), vae.decode_device,
+                   BATCH_1024, 1024, lambda pipe: expected_counts(pipe.masks, clamp=True),
                    order=("default", "ours_fast", "tgate", "tgate", "ours_fast", "default"))
     for name in ("ours_fast", "tgate"):
         result[f"speedup_{name}"] = (
@@ -778,6 +968,152 @@ def main_path_1024() -> dict:
     log(f"  ratio default / ours_fast {result['speedup_ours_fast']:.4f}, "
         f"default / tgate {result['speedup_tgate']:.4f}")
     del model, vae, pipes
+    torch.cuda.empty_cache()
+    return result
+
+
+def small_flux_check() -> dict:
+    """A tiny fp32 FLUX trajectory (head dim 128, a 32×32 packed grid plus
+    512 text tokens = 1536 joint tokens, so that its attention takes the
+    row-block route) through the kernels on the card against the same
+    weights and noise through the plain versions on the CPU; 8 steps under
+    a seeded mask that reuses a third of the slots."""
+    from ecad_tpu_torch.models.flux import FluxConfig, init_model
+    from ecad_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ecad_tpu_torch.pipelines import FluxPipeline, FluxPipelineConfig
+    from ecad_tpu_torch.schedules import FluxCacheSchedule
+
+    cfg = FluxConfig.tiny(dtype=torch.float32, num_heads=2, head_dim=128,
+                          axes_dims=(16, 56, 56), text_len=512)
+    steps = 8
+    cpu_model = init_model(cfg, 3, "cpu")
+    gpu_model = init_model(cfg, 3, "cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.default_rng(0)
+    n_slots = (cfg.num_blocks + cfg.num_single_blocks) * 3
+    sched = FluxCacheSchedule.from_numpy(
+        rng.random(steps * n_slots) < 0.67, steps, cfg.num_blocks,
+        num_single_blocks=cfg.num_single_blocks,
+    )
+    pcfg = FluxPipelineConfig(cfg, steps, height=512, width=512)
+    noise = torch.from_numpy(
+        rng.standard_normal((2, pcfg.image_seq_len, cfg.in_channels), dtype=np.float32))
+    txt = torch.from_numpy(
+        rng.standard_normal((2, cfg.text_len, cfg.joint_dim), dtype=np.float32))
+    pooled = torch.from_numpy(rng.standard_normal((2, cfg.pooled_dim), dtype=np.float32))
+    outs = []
+    for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
+        pipe = FluxPipeline(pcfg, model, sched)
+        reset_launch_counts()
+        outs.append(pipe.denoise(*(a.to(dev) for a in (noise, txt, pooled))).cpu())
+    counts = launch_counts()
+    err = float((outs[0] - outs[1]).abs().max())
+    scale = float(outs[0].abs().max())
+    log(f"  tiny fp32 FLUX trajectory (1536 joint tokens, D=128), card kernels vs CPU "
+        f"plain: max err {err:.3g} of max |latent| {scale:.3g}; card launches {counts}")
+    if not (counts["attention_rowblock"] > 0 and counts["modlnorm"] > 0):
+        raise AssertionError(f"tiny FLUX trajectory missed a kernel: {counts}")
+    # fp32 throughout (TF32 off); only summation orders differ, over 8 steps
+    # of 5 blocks on O(1) latents
+    limit = 1e-4 * max(1.0, scale)
+    if not err <= limit:
+        raise AssertionError(f"tiny FLUX trajectory mismatch {err} > {limit}")
+    return {"max_err": err, "max_abs_latent": scale, "launches": counts}
+
+
+def flux_path() -> dict:
+    """Full-width FLUX.1-dev (19 dual + 38 single blocks, d=3072, 24×128
+    heads, 512 text tokens, guidance embedding) with seeded random bf16
+    weights, 20 flow-match Euler steps at guidance 5 from hash-encoder
+    prompts: 1024² at batch 1 under the default and ``fast_256_to_1024``,
+    256² at batch 4 under ``ours_fast`` and the default, each decoded by the
+    random 16-channel VAE to uint8."""
+    from ecad_tpu_torch.image_generators.flux import _FluxHashEncoder
+    from ecad_tpu_torch.models.flux import FluxConfig, init_model, unpack_latents
+    from ecad_tpu_torch.models.vae import random_decoder_pipeline
+    from ecad_tpu_torch.pipelines import FluxPipeline, FluxPipelineConfig
+    from ecad_tpu_torch.schedules import FluxCacheSchedule
+
+    log("FLUX.1-dev, full width, 20 steps: 1024² batch 1, 256² batch 4")
+    result = {"tiny_trajectory": small_flux_check()}
+    config = FluxConfig()
+    t0 = time.perf_counter()
+    model = init_model(config, 0, "cuda")
+    vae = random_decoder_pipeline(16, "cuda")
+    torch.cuda.synchronize()
+    result["init_s"] = time.perf_counter() - t0
+    result["params"] = sum(p.numel() for p in model.parameters())
+    log(f"  built {result['params'] / 1e9:.2f} B parameters in {result['init_s']:.1f} s")
+    enc = _FluxHashEncoder(config.text_len, config.joint_dim, config.pooled_dim)
+    prompts = ["a red bicycle leaning on a wall", "a bowl of ramen", "mountains at dawn",
+               "a lighthouse in a storm"]
+
+    def inputs(batch, pcfg):
+        pairs = [enc.encode(p) for p in prompts[:batch]]
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        noise = torch.randn((batch, pcfg.image_seq_len, config.in_channels),
+                            generator=gen, device="cuda").to(config.dtype)
+        return dict(
+            noise=noise,
+            txt=torch.from_numpy(np.stack([e for e, _ in pairs])).to("cuda", config.dtype),
+            pooled=torch.from_numpy(np.stack([p for _, p in pairs])).to("cuda", config.dtype),
+        )
+
+    for side, batch, names, order in (
+        (1024, BATCH_FLUX_1024, {"default": FLUX_DEFAULT_1024, "fast": FLUX_FAST_1024},
+         ("default", "fast", "fast", "default")),
+        (256, BATCH_FLUX_256, {"ours_fast": FLUX_OURS_FAST_256, "default": FLUX_DEFAULT_256},
+         ("default", "ours_fast", "ours_fast", "default")),
+    ):
+        pcfg = FluxPipelineConfig(config, STEPS, guidance_scale=5.0, height=side, width=side)
+        pipes = {n: FluxPipeline(pcfg, model, FluxCacheSchedule.from_json(p))
+                 for n, p in names.items()}
+        for n, pipe in pipes.items():
+            gs = pipe.schedule.top_level_config["guidance_scale"]
+            size = pipe.schedule.top_level_config["height"]
+            if gs != pcfg.guidance_scale or size != side:
+                raise AssertionError(f"{n}: schedule is for {size}² at guidance {gs}")
+        gh, gw = pcfg.grid_hw
+        result[str(side)] = drive(
+            pipes, inputs(batch, pcfg),
+            lambda lat: vae.decode_device(unpack_latents(lat, gh, gw)),
+            batch, side,
+            lambda pipe: flux_expected_counts(pipe.masks, config.num_blocks,
+                                              rowblock=side == 1024),
+            order=order,
+        )
+    r1024, r256 = result["1024"], result["256"]
+    result["speedup_1024_fast"] = r1024["default"]["ms_per_img"] / r1024["fast"]["ms_per_img"]
+    result["speedup_256_ours_fast"] = (
+        r256["default"]["ms_per_img"] / r256["ours_fast"]["ms_per_img"])
+    log(f"  ratio default / fast at 1024² {result['speedup_1024_fast']:.4f}, "
+        f"default / ours_fast at 256² {result['speedup_256_ours_fast']:.4f}")
+
+    # fp8 cache storage: the same seeded weights with cache_dtype
+    # float8_e4m3fn, 256² batch 4 under ours_fast, against the bf16 caches
+    inp = inputs(BATCH_FLUX_256, pcfg)
+    want = pipes["ours_fast"].denoise(**inp).float()
+    del model, pipes, pipe  # `pipe` of the check loop holds the model too
+    torch.cuda.empty_cache()
+    cfg8 = dataclasses.replace(config, cache_dtype=torch.float8_e4m3fn)
+    model = init_model(cfg8, 0, "cuda")
+    pcfg8 = FluxPipelineConfig(cfg8, STEPS, guidance_scale=5.0, height=256, width=256)
+    pipe8 = FluxPipeline(pcfg8, model, FluxCacheSchedule.from_json(FLUX_OURS_FAST_256))
+    result["256_fp8_cache"] = drive(
+        {"ours_fast": pipe8}, inp,
+        lambda lat: vae.decode_device(unpack_latents(lat, *pcfg8.grid_hw)),
+        BATCH_FLUX_256, 256,
+        lambda pipe: flux_expected_counts(pipe.masks, config.num_blocks, rowblock=False),
+        order=("ours_fast", "ours_fast"),
+    )
+    got = pipe8.denoise(**inp).float()
+    diff = float((got - want).abs().max())
+    result["256_fp8_cache"]["max_diff_to_bf16_cache"] = diff
+    result["256_fp8_cache"]["max_abs_latent"] = float(want.abs().max())
+    log(f"  fp8 caches at 256² ours_fast: "
+        f"{result['256_fp8_cache']['ours_fast']['ms_per_img']:.3f} ms/img, latents within "
+        f"{diff:.3g} of the bf16 caches' (max |latent| {float(want.abs().max()):.3g})")
+    del model, vae, pipe8
     torch.cuda.empty_cache()
     return result
 
@@ -827,7 +1163,12 @@ def entry_points() -> dict:
         return [tuple((a1, a2 and step < gate_step, ff) for a1, a2, ff in row)
                 for step, row in enumerate(m)]
 
+    from ecad_tpu_torch.models.flux import FluxConfig, flux_step_masks
+    from ecad_tpu_torch.schedules import FluxCacheSchedule
+
     gate = PixArtCacheSchedule.from_json(TGATE_1024).top_level_config["pipeline"]
+    flux = FluxConfig()
+    flux_masks = flux_step_masks(FluxCacheSchedule.from_json(FLUX_OURS_FAST_256), flux)
     return {
         "ours_fast_256": run_cli(
             "ours_fast_256",
@@ -839,6 +1180,12 @@ def entry_points() -> dict:
              "--schedule", str(TGATE_1024)],
             2, 128, expected_counts(masks(TGATE_1024, gate["kwargs"]["gate_step"]),
                                     clamp=True)),
+        # full-width FLUX.1-dev at 256²: the images are the latent
+        # visualisation of (32, 32, 16) latents, as in the reference
+        "flux_ours_fast_256": run_cli(
+            "flux_ours_fast_256",
+            ["FluxImageGenerator", "--random-weights", "--schedule", str(FLUX_OURS_FAST_256)],
+            2, 32, flux_expected_counts(flux_masks, flux.num_blocks, rowblock=False)),
     }
 
 
@@ -866,14 +1213,24 @@ def main() -> None:
     kernels = phase("kernels", kernel_phase, b2=2 * BATCH, b2_1024=2 * BATCH_1024)
     REPORT["main_path"] = phase("main256", main_path)
     REPORT["main_path_1024"] = phase("main1024", main_path_1024)
+    REPORT["flux"] = phase("flux", flux_path)
     REPORT["entry_point"] = phase("cli", entry_points)
     args.report.parent.mkdir(parents=True, exist_ok=True)
+    # launches from the run of each kernel's path: PixArt-256 `ours_fast`
+    # for K1-K3, PixArt-1024 `ours_fast` for K4, FLUX-1024 `fast` for K5,
+    # FLUX-256 `ours_fast` for K1 at D=128
     for name, row in kernels.items():
-        path = "main_path_1024" if name.startswith("attention_long") else "main_path"
-        row["launches"] = REPORT[path]["ours_fast"]["launches"][name]
+        if name.startswith("attention_long"):
+            row["launches"] = REPORT["main_path_1024"]["ours_fast"]["launches"][name]
+        elif name.startswith("attention_rowblock"):
+            row["launches"] = REPORT["flux"]["1024"]["fast"]["launches"][name]
+        elif name == "attention_flux256":
+            row["launches"] = REPORT["flux"]["256"]["ours_fast"]["launches"]["attention"]
+        else:
+            row["launches"] = REPORT["main_path"]["ours_fast"]["launches"][name]
     REPORT["kernels"] = kernels
     args.report.write_text(json.dumps(REPORT, indent=1))
-    mp, mp4 = REPORT["main_path"], REPORT["main_path_1024"]
+    mp, mp4, fx = REPORT["main_path"], REPORT["main_path_1024"], REPORT["flux"]
     print(json.dumps({
         "card": smi,
         "ms_per_img_256": {k: mp[k]["ms_per_img"] for k in ("ours_fast", "default")},
@@ -881,6 +1238,14 @@ def main() -> None:
         "ms_per_img_1024": {k: mp4[k]["ms_per_img"] for k in ("ours_fast", "default", "tgate")},
         "speedup_1024": {k: mp4[f"speedup_{k}"] for k in ("ours_fast", "tgate")},
         "launches_1024": {k: mp4[k]["launches"] for k in ("ours_fast", "default", "tgate")},
+        "flux_ms_per_img_1024": {k: fx["1024"][k]["ms_per_img"] for k in ("fast", "default")},
+        "flux_speedup_1024": fx["speedup_1024_fast"],
+        "flux_ms_per_img_256": {k: fx["256"][k]["ms_per_img"] for k in ("ours_fast", "default")},
+        "flux_speedup_256": fx["speedup_256_ours_fast"],
+        "flux_launches": {f"{side}/{k}": fx[side][k]["launches"]
+                          for side, ks in (("1024", ("fast", "default")),
+                                           ("256", ("ours_fast", "default")))
+                          for k in ks},
         "phase_s": seconds,
     }), flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

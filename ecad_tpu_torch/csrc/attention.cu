@@ -1,25 +1,34 @@
 // Fused attention forward for Hopper (sm_90a), in two softmax variants
-// that share one tensor-core body:
+// that share one tensor-core body, under three kernel names:
 //
 //   * exact (max-subtract): softmax(q·kᵀ/√d + bias)·v. Replaces the Pallas
 //     kernels `_attn_kernel` (ecad_tpu/ops/attention.py:58, no bias) and
 //     `_attn_kernel_bias` (:75, fp32 additive bias) that `fused_attention`
-//     (:677) launches for every (batch·head) tile.
+//     (:677) launches for every (batch·head) tile. Kernel `attn_bf16_kernel`.
 //   * clamp (no row max): the function of `_transposed_kernel` (:285) and
 //     `_transposed_kernel_nobias` (:344), launched by `_transposed_attention`
 //     (:348-455) for lane-padded head dims (PixArt's D=72) at or above a
-//     1 MiB fp32 score tile: q pre-scaled by bf16(scale·log2e) and rounded
-//     to the input dtype (:378-383), s = q·kᵀ in fp32, plus the key-padding
+//     1 MiB fp32 score tile (kernel `attn_clamp_bf16_kernel`, K4), and of
+//     `_rowblock_kernel` (:255) and `_rowblock_kernel_nobias` (:274),
+//     launched by `_rowblock_attention` (:458-570) for head dims that are a
+//     multiple of 128 past an 8 MiB score tile — FLUX-1024's joint attention
+//     (kernel `attn_rowblock_bf16_kernel`, K5). Both compute the same
+//     function: q pre-scaled by bf16(scale·log2e) and rounded to the input
+//     dtype (:378-383, :491-492), s = q·kᵀ in fp32, plus the key-padding
 //     bias times log2e, p = exp2(clip(s, −100, 80)), Σp in fp32, p cast to
-//     v's dtype for p·v, one divide. With the clamp there is no running max
-//     and no rescale of the accumulator: p ≤ 2^80, so the fp32 sums cannot
-//     overflow, and p ≥ 2^-100, so the sum is never 0. Keys past Tk get
-//     weight 0 here (bounds); the Pallas kernel pads them to a 128-multiple
-//     and gives each of the n_pad pad keys 2^-100 through a −1e9 bias (its
-//     pad rows of v are 0, so only its Σp grows). A row's result therefore
-//     differs by a relative n_pad·2^-100/Σp: below 2^-90 whenever some key
-//     within Tk has a clamped logit above log2(n_pad) − 10, but n_pad/Tk
-//     for a row whose every logit is clamped at −100.
+//     v's dtype for p·v, one divide; the TPU kernels differ only in layout
+//     (transposed, or standard with two kv chunks for MXU/VPU dual issue,
+//     which changes only the order of the fp32 sums). Two names, so that a
+//     profile and the launch counters tell the two routes apart. With the
+//     clamp there is no running max and no rescale of the accumulator: p ≤
+//     2^80, so the fp32 sums cannot overflow, and p ≥ 2^-100, so the sum is
+//     never 0. Keys past Tk get weight 0 here (bounds); the Pallas kernels
+//     pad them to a 128-multiple and give each of the n_pad pad keys 2^-100
+//     through a −1e9 bias (their pad rows of v are 0, so only Σp grows). A
+//     row's result therefore differs by a relative n_pad·2^-100/Σp: below
+//     2^-90 whenever some key within Tk has a clamped logit above
+//     log2(n_pad) − 10, but n_pad/Tk for a row whose every logit is clamped
+//     at −100.
 //
 // What bounds it on the H100. Exact path, at PixArt-256's shapes
 // (self-attention 256×256 and cross-attention 256→120, D=72, bf16): a
@@ -30,9 +39,16 @@
 // 4·B·H·Tq·Tk·D = 3.09e11 flops on 151 MB, 2048 flops per byte: the
 // tensor cores bound it (0.313 ms at 989 TFLOP/s); its cross-attention
 // (4096 → 120 keys) moves ≈78 MB for 9e9 flops and is bound by bytes
-// (0.023 ms at 3.35 TB/s). The design therefore reads each operand once
-// per query tile, keeps scores and probabilities in registers (never in
-// device memory), and accumulates in fp32:
+// (0.023 ms at 3.35 TB/s). Row-block path, at FLUX-1024's joint attention
+// (B=1, 24 heads, 4608×4608, D=128): 2.61e11 flops on 22.6 MB, the tensor
+// cores bound it (0.264 ms). At D=128 a thread holds its q fragments (32
+// registers), its share of the 16×128 fp32 accumulator (64) and of a 16×64
+// score tile (32): ptxas gives 165 registers (168 with the bias) and no
+// spills; a block takes 69.6 KB of shared memory (opt-in above 48 KB), so
+// registers and shared memory each allow three blocks per SM. The design
+// therefore reads each operand once per query tile, keeps scores and
+// probabilities in registers (never in device memory), and accumulates in
+// fp32:
 //
 //   * one block owns one (batch·head, 64-row query tile); four warps own
 //     16 query rows each;
@@ -408,13 +424,18 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
   }
 }
 
-// Two kernel names, so that a profile tells the two softmax variants apart.
+// Three kernel names, so that a profile tells the exact softmax, the
+// transposed-route clamp softmax (K4) and the row-block-route one (K5) apart.
 template <int DP, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads) attn_bf16_kernel(const Params p) {
   attn_bf16_body<DP, HAS_BIAS, false>(p);
 }
 template <int DP, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads) attn_clamp_bf16_kernel(const Params p) {
+  attn_bf16_body<DP, HAS_BIAS, true>(p);
+}
+template <int DP, bool HAS_BIAS>
+__global__ void __launch_bounds__(kThreads) attn_rowblock_bf16_kernel(const Params p) {
   attn_bf16_body<DP, HAS_BIAS, true>(p);
 }
 
@@ -535,21 +556,22 @@ __global__ void __launch_bounds__(kThreads) attn_f32_kernel(const Params p) {
 }
 
 template <int DP>
-cudaError_t launch_bf16(const Params& p, dim3 grid, bool has_bias, bool clamp,
+cudaError_t launch_bf16(const Params& p, dim3 grid, bool has_bias, int variant,
                         cudaStream_t stream) {
   constexpr int kSmem = bf16_smem_bytes<DP>();
-  void (*const kernels[2][2])(const Params) = {
+  void (*const kernels[3][2])(const Params) = {
       {attn_bf16_kernel<DP, false>, attn_bf16_kernel<DP, true>},
       {attn_clamp_bf16_kernel<DP, false>, attn_clamp_bf16_kernel<DP, true>},
+      {attn_rowblock_bf16_kernel<DP, false>, attn_rowblock_bf16_kernel<DP, true>},
   };
-  auto kernel = kernels[clamp][has_bias];
+  auto kernel = kernels[variant][has_bias];
   // above 48 KB dynamic shared memory needs an opt-in (once per kernel)
-  static bool opted_in[2][2] = {{false, false}, {false, false}};
-  if (kSmem > 48 * 1024 && !opted_in[clamp][has_bias]) {
+  static bool opted_in[3][2] = {{false, false}, {false, false}, {false, false}};
+  if (kSmem > 48 * 1024 && !opted_in[variant][has_bias]) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return err;
-    opted_in[clamp][has_bias] = true;
+    opted_in[variant][has_bias] = true;
   }
   kernel<<<grid, kThreads, kSmem, stream>>>(p);
   return cudaSuccess;
@@ -559,14 +581,17 @@ cudaError_t launch_bf16(const Params& p, dim3 grid, bool has_bias, bool clamp,
 
 // dtype: 0 = bfloat16, 1 = float32. strides: 16 int64 — q, k, v, o as
 // (b, t, h) each, then the bias as (b, h, q, k). bias may be null.
-// clamp: 0 = exact softmax (scale = 1/√D), 1 = clamp variant (scale =
-// scale·log2e, exact in q's dtype). Returns the cudaError_t of the launch
+// variant: 0 = exact softmax (scale = 1/√D); 1 = clamp softmax on the
+// transposed route (K4), 2 = the same on the row-block route (K5), both with
+// scale = scale·log2e, exact in q's dtype. fp32 inputs take the SIMT kernel
+// in the exact or the clamp variant. Returns the cudaError_t of the launch
 // (0 on success).
 extern "C" int ecad_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                                   const float* bias, const long long* strides, int B, int H, int Tq,
-                                  int Tk, int D, float scale, int vec_ok, int clamp,
+                                  int Tk, int D, float scale, int vec_ok, int variant,
                                   void* stream) {
-  if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 1 || D > kMaxD || (long long)B * H > 65535)
+  if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 1 || D > kMaxD || (long long)B * H > 65535 ||
+      variant < 0 || variant > 2)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -586,21 +611,21 @@ extern "C" int ecad_attention_fwd(int dtype, const void* q, const void* k, const
   p.scale = scale;
   p.vec_ok = vec_ok;
   const bool has_bias = bias != nullptr;
-  const bool cl = clamp != 0;
+  const bool cl = variant != 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
   if (dtype == 0) {
     const dim3 grid((Tq + kBlockQ - 1) / kBlockQ, B * H);
     cudaError_t err;
     switch ((D + 15) / 16) {
-      case 1: err = launch_bf16<16>(p, grid, has_bias, cl, st); break;
-      case 2: err = launch_bf16<32>(p, grid, has_bias, cl, st); break;
-      case 3: err = launch_bf16<48>(p, grid, has_bias, cl, st); break;
-      case 4: err = launch_bf16<64>(p, grid, has_bias, cl, st); break;
-      case 5: err = launch_bf16<80>(p, grid, has_bias, cl, st); break;
-      case 6: err = launch_bf16<96>(p, grid, has_bias, cl, st); break;
-      case 7: err = launch_bf16<112>(p, grid, has_bias, cl, st); break;
-      default: err = launch_bf16<128>(p, grid, has_bias, cl, st); break;
+      case 1: err = launch_bf16<16>(p, grid, has_bias, variant, st); break;
+      case 2: err = launch_bf16<32>(p, grid, has_bias, variant, st); break;
+      case 3: err = launch_bf16<48>(p, grid, has_bias, variant, st); break;
+      case 4: err = launch_bf16<64>(p, grid, has_bias, variant, st); break;
+      case 5: err = launch_bf16<80>(p, grid, has_bias, variant, st); break;
+      case 6: err = launch_bf16<96>(p, grid, has_bias, variant, st); break;
+      case 7: err = launch_bf16<112>(p, grid, has_bias, variant, st); break;
+      default: err = launch_bf16<128>(p, grid, has_bias, variant, st); break;
     }
     if (err != cudaSuccess) return (int)err;
   } else if (dtype == 1) {

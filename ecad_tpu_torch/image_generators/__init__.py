@@ -1,10 +1,10 @@
-"""Image-generator registry (reference: load_image_generator.py:16-85). The
-FLUX generators come with the FLUX slice of the port."""
+"""Image-generator registry (reference: load_image_generator.py:16-85)."""
 
 from __future__ import annotations
 
 from ..registry import Registry
 from .base import ImageGenerator
+from .flux import FluxImageGenerator, TinyFluxImageGenerator
 from .pixart import (
     PixArtAlphaImageGenerator,
     PixArtImageGenerator,
@@ -22,6 +22,8 @@ ImageGeneratorRegistry.register(
 ImageGeneratorRegistry.register(
     TinyPixArtImageGenerator, name="TinyPixArtImageGenerator"
 )
+ImageGeneratorRegistry.register(FluxImageGenerator, name="FluxImageGenerator")
+ImageGeneratorRegistry.register(TinyFluxImageGenerator, name="TinyFluxImageGenerator")
 
 
 def get_image_generator_type(name: str) -> type[ImageGenerator]:
@@ -31,6 +33,8 @@ def get_image_generator_type(name: str) -> type[ImageGenerator]:
 __all__ = [
     "ImageGenerator",
     "ImageGeneratorRegistry",
+    "FluxImageGenerator",
+    "TinyFluxImageGenerator",
     "PixArtImageGenerator",
     "PixArtAlphaImageGenerator",
     "PixArtSigmaImageGenerator",

@@ -8,10 +8,11 @@ without that request construction raises.
 
 This slice runs without checkpoints (``random_weights=True``: the exact
 architecture with seeded random parameters); loading a local
-``weights_root`` raises `NotImplementedError`. A schedule JSON carries a
-cache schedule or a DiT topology schedule (``dit_schedule``), plus the
-config that picks the checkpoint, resolution and pipeline (with its
-kwargs, e.g. TGATE's ``gate_step``).
+``weights_root`` raises `NotImplementedError`. FLUX generators take
+``cache_dtype="float8_e4m3fn"``; the others reject it. A schedule JSON
+carries a cache schedule or a DiT topology schedule (``dit_schedule``),
+plus the config that picks the checkpoint, resolution and pipeline (with
+its kwargs, e.g. TGATE's ``gate_step``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ class ImageGenerator(ABC):
     guidance_scale: float = 4.5
 
     schedule_cls: type[CacheSchedule] = CacheSchedule
+    supports_cache_dtype = False  # FLUX generators opt in
 
     def __init__(
         self,
@@ -51,8 +53,17 @@ class ImageGenerator(ABC):
         num_inference_steps: Optional[int] = None,
         batch_size: int = 8,
         device: str | torch.device = "cuda",
+        cache_dtype: Optional[str] = None,
     ) -> None:
         self.device = resolve_device(device)
+        # None | "float8_e4m3fn": storage dtype of the cached activations
+        # (FLUX only, as in the reference)
+        if cache_dtype is not None and not self.supports_cache_dtype:
+            raise ValueError(
+                "cache_dtype is a FLUX option (models/flux.py); "
+                f"{type(self).__name__} stores caches in the compute dtype"
+            )
+        self.cache_dtype = cache_dtype
         self.start_seed = start_seed
         self.seed_step = seed_step
         self.weights_root = Path(weights_root) if weights_root else None
@@ -147,6 +158,11 @@ class ImageGenerator(ABC):
     def decode_latents(self, latents) -> np.ndarray:
         """Latents → (N, H, W, 3) uint8 images (VAE or visualization)."""
 
+    def _stack(self, embeddings, key: str, dtype=None) -> torch.Tensor:
+        """One embedding field of a batch, stacked on the generator's device."""
+        arr = np.stack([np.asarray(e[key]) for e in embeddings])
+        return torch.from_numpy(arr).to(device=self.device, dtype=dtype)
+
     # -- embedding round trip ----------------------------------------------
 
     def encode_and_save_prompts(
@@ -208,5 +224,6 @@ class ImageGenerator(ABC):
             "width": self.width,
             "guidance_scale": self.guidance_scale,
             "random_weights": self.random_weights,
+            "cache_dtype": self.cache_dtype,
             "device": str(self.device),
         }

@@ -1,0 +1,175 @@
+"""FLUX.1-dev image generators (full width and the tiny test double).
+
+Counterpart of ``ecad_tpu/image_generators/flux.py`` (reference:
+ecad/image_generators/flux_image_generator.py): defaults 19+38 blocks, 20
+steps, 256², guidance 5, with height, width and guidance taken from the
+schedule's config. Embeddings are {prompt_embeds, pooled_prompt_embeds}.
+Without weights the exact architecture runs with seeded random bf16
+parameters built on the device, and prompts go through `_FluxHashEncoder`,
+which gives the same bytes as the reference's; the CLIP+T5 encoders and
+loading a local checkpoint tree wait until checkpoints are in the
+repository. ``cache_dtype="float8_e4m3fn"`` stores the caches in fp8.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+from ..models.flux import FluxConfig, init_model
+from ..pipelines.flux_pipeline import FluxPipeline, FluxPipelineConfig
+from ..schedules.flux import FluxCacheSchedule
+from .base import ImageGenerator
+from .pixart import _WEIGHTS_LATER
+
+_CACHE_DTYPES = {"float8_e4m3fn": torch.float8_e4m3fn}
+
+
+class FluxImageGenerator(ImageGenerator):
+    schedule_cls = FluxCacheSchedule
+    supports_cache_dtype = True
+    default_transformer_weights = "black-forest-labs/FLUX.1-dev"
+    default_pipeline_weights = "black-forest-labs/FLUX.1-dev"
+    default_pipeline = "flux"
+    num_blocks = 19
+    num_single_blocks = 38
+    guidance_scale = 5.0
+    text_len = 512
+    joint_dim = 4096
+    pooled_dim = 768
+
+    @classmethod
+    def allow_guidance_override(cls) -> bool:
+        return True  # flux guidance is a per-schedule config value
+
+    def _default_schedule(self) -> FluxCacheSchedule:
+        return FluxCacheSchedule.default(
+            num_inference_steps=self.num_inference_steps,
+            num_blocks=self.num_blocks,
+            num_single_blocks=self.num_single_blocks,
+            top_level_config={
+                "height": self.height,
+                "width": self.width,
+                "guidance_scale": self.guidance_scale,
+            },
+        )
+
+    def _cache_torch_dtype(self):
+        if self.cache_dtype is None:
+            return None
+        if self.cache_dtype not in _CACHE_DTYPES:
+            raise ValueError(
+                f"cache_dtype {self.cache_dtype!r} is not one of {list(_CACHE_DTYPES)}"
+            )
+        return _CACHE_DTYPES[self.cache_dtype]
+
+    def model_config(self) -> FluxConfig:
+        return FluxConfig(cache_dtype=self._cache_torch_dtype())
+
+    def create_encoder_pipeline(self):
+        if self._encoder is not None:
+            return self._encoder
+        if not (self.random_weights or self.weights_root is None):
+            raise NotImplementedError(_WEIGHTS_LATER)
+        self._encoder = _FluxHashEncoder(self.text_len, self.joint_dim, self.pooled_dim)
+        return self._encoder
+
+    def create_diffusion_pipeline(self) -> FluxPipeline:
+        if self._pipeline is not None:
+            return self._pipeline
+        if not (self.random_weights or self.weights_root is None):
+            raise NotImplementedError(_WEIGHTS_LATER)
+        config = self.model_config()
+        if self._model is None:
+            self._model = init_model(config, 0, self.device)
+        pcfg = FluxPipelineConfig(
+            model=config,
+            num_inference_steps=self.num_inference_steps,
+            guidance_scale=self.guidance_scale,
+            height=self.height,
+            width=self.width,
+        )
+        self._pipeline = FluxPipeline(pcfg, self._model, self.cache_schedule)
+        return self._pipeline
+
+    def encode_prompts(self, prompts: Sequence[str]) -> list[dict[str, Any]]:
+        enc = self.create_encoder_pipeline()
+        out = []
+        for i, p in enumerate(prompts):
+            embeds, pooled = enc.encode(p)
+            out.append(
+                {
+                    "name": f"{i:03d}__prompt_seed:{self.start_seed:03}",
+                    "prompt_embeds": embeds,
+                    "pooled_prompt_embeds": pooled,
+                }
+            )
+        return out
+
+    def _generate_latents(
+        self, embeddings: list[dict[str, Any]], seed: int
+    ) -> torch.Tensor:
+        pipe = self.create_diffusion_pipeline()
+        dtype = pipe.config.model.dtype
+        return pipe.generate_latents(
+            self._stack(embeddings, "prompt_embeds", dtype),
+            self._stack(embeddings, "pooled_prompt_embeds", dtype),
+            seed=seed,
+        )
+
+    def decode_latents(self, latents) -> np.ndarray:
+        # without checkpoints the images are the latent visualization, as
+        # in the reference
+        from ..genetic.evaluate import latents_to_uint8
+
+        return latents_to_uint8(latents)
+
+
+class TinyFluxImageGenerator(FluxImageGenerator):
+    """Tiny FLUX test double (2+3 blocks, 32×32 images, fp32, always random
+    weights)."""
+
+    num_blocks = 2
+    num_single_blocks = 3
+    default_num_inference_steps = 4
+    text_len = 8
+    joint_dim = 32
+    pooled_dim = 24
+    height = 32
+    width = 32
+
+    def __init__(self, *args, **kwargs):
+        kwargs["random_weights"] = True
+        super().__init__(*args, **kwargs)
+
+    def model_config(self) -> FluxConfig:
+        return FluxConfig.tiny(dtype=torch.float32, cache_dtype=self._cache_torch_dtype())
+
+    def _load_schedule_file(self, schedule_path):
+        sched = super()._load_schedule_file(schedule_path)
+        if sched.num_blocks != self.num_blocks:
+            raise ValueError(
+                f"schedule has {sched.num_blocks} blocks; tiny flux has "
+                f"{self.num_blocks}"
+            )
+        return sched
+
+
+class _FluxHashEncoder:
+    """Deterministic stand-in for the CLIP+T5 encoder stack: the same bytes
+    as the reference's ``_FluxHashEncoder``."""
+
+    def __init__(self, text_len: int, joint_dim: int, pooled_dim: int):
+        self.text_len = text_len
+        self.joint_dim = joint_dim
+        self.pooled_dim = pooled_dim
+
+    def encode(self, prompt: str) -> tuple[np.ndarray, np.ndarray]:
+        seed = int.from_bytes(hashlib.sha256(prompt.encode()).digest()[:4], "little")
+        rng = np.random.default_rng(seed)
+        emb = rng.standard_normal((self.text_len, self.joint_dim), dtype=np.float32)
+        pooled = rng.standard_normal((self.pooled_dim,), dtype=np.float32)
+        return emb, pooled

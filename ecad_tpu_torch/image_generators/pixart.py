@@ -94,10 +94,6 @@ class PixArtImageGenerator(ImageGenerator):
 
     # -- generation --------------------------------------------------------
 
-    def _stack(self, embeddings, key: str, dtype=None) -> torch.Tensor:
-        arr = np.stack([np.asarray(e[key]) for e in embeddings])
-        return torch.from_numpy(arr).to(device=self.device, dtype=dtype)
-
     def _generate_latents(
         self, embeddings: list[dict[str, Any]], seed: int
     ) -> torch.Tensor:

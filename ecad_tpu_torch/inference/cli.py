@@ -5,7 +5,9 @@ Counterpart of ``ecad_tpu/inference/cli.py`` with the same arguments plus
 path): positional image-generator name; exactly one of --prompt /
 --prompt-file / --input-embeddings; optional --schedule; outputs
 <out>/embeddings/*.pt and <out>/images/<name>__image_seed:NNN.png.
-``--quant`` and ``--cache-dtype`` are not ported yet and are rejected.
+``--cache-dtype float8_e4m3fn`` stores the FLUX generators' caches in fp8
+(other generators reject it); ``--quant`` is not ported yet and is
+rejected.
 
     python -m ecad_tpu_torch.inference.cli PixArtAlphaImageGenerator \\
         --prompt "a red bicycle" --random-weights --output-dir out
@@ -52,17 +54,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (default) or cpu; cuda must be present")
     p.add_argument("--quant", default=None,
                    help="not ported yet (serving quantization)")
-    p.add_argument("--cache-dtype", default=None,
-                   help="not ported yet (FLUX cache storage dtype)")
+    p.add_argument("--cache-dtype", choices=["float8_e4m3fn"], default=None,
+                   help="storage dtype for cached component activations (FLUX only)")
     return p
 
 
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for flag, value in (("--quant", args.quant), ("--cache-dtype", args.cache_dtype)):
-        if value is not None:
-            parser.error(f"{flag} is not ported to ecad_tpu_torch yet")
+    if args.quant is not None:
+        parser.error("--quant is not ported to ecad_tpu_torch yet")
     gen_type = get_image_generator_type(args.image_generator)
 
     if args.guidance_scale is not None and not gen_type.allow_guidance_override():
@@ -72,20 +73,26 @@ def main(argv=None) -> None:
             f"overrides (fixed at {gen_type.guidance_scale})"
         )
 
-    gen = gen_type(
-        start_seed=args.start_seed,
-        seed_step=args.seed_step,
-        schedule_path=args.schedule,
-        weights_root=args.weights_root,
-        random_weights=args.random_weights or args.weights_root is None,
-        num_inference_steps=args.num_inference_steps,
-        batch_size=args.batch_size,
-        device=args.device,
-    )
+    try:
+        gen = gen_type(
+            start_seed=args.start_seed,
+            seed_step=args.seed_step,
+            schedule_path=args.schedule,
+            weights_root=args.weights_root,
+            random_weights=args.random_weights or args.weights_root is None,
+            num_inference_steps=args.num_inference_steps,
+            batch_size=args.batch_size,
+            device=args.device,
+            cache_dtype=args.cache_dtype,
+        )
+    except ValueError as e:  # e.g. --cache-dtype for a generator without it
+        parser.error(str(e))
     if args.height:
         gen.height = args.height
     if args.width:
         gen.width = args.width
+    if args.guidance_scale is not None:
+        gen.guidance_scale = args.guidance_scale
     print(f"Image generator: {gen.describe()}")
 
     out = args.output_dir

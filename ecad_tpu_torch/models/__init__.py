@@ -1,3 +1,4 @@
+from .flux import FluxConfig, FluxTransformer
 from .pixart import (
     PixArtConfig,
     PixArtTransformer,
@@ -8,6 +9,8 @@ from .pixart import (
 )
 
 __all__ = [
+    "FluxConfig",
+    "FluxTransformer",
     "PixArtConfig",
     "PixArtTransformer",
     "full_step_mask",

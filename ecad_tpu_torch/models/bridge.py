@@ -1,15 +1,17 @@
 """Carry weights across from the JAX reference's param trees.
 
-`pixart_state_dict` and `vae_state_dict` take the Flax param tree of
-``ecad_tpu``'s PixArtTransformer or VAEDecoder as nested dicts of numpy
-arrays (unbox any partitioning metadata first) and return the ``state_dict``
-of the port's module of the same configuration:
+`pixart_state_dict`, `flux_state_dict` and `vae_state_dict` take the Flax
+param tree of ``ecad_tpu``'s PixArtTransformer, FluxTransformer or
+VAEDecoder as nested dicts of numpy arrays (unbox any partitioning
+metadata first) and return the ``state_dict`` of the port's module of the
+same configuration:
 
 * a Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in);
 * a Conv ``kernel`` HWIO becomes a Conv2d ``weight`` OIHW;
 * a GroupNorm ``scale`` becomes ``weight``;
 * ``scale_shift_table`` and every ``bias`` are copied as they are;
-* PixArt's ``block_<i>`` becomes ``blocks.<i>``.
+* ``block_<i>`` becomes ``blocks.<i>`` and FLUX's ``single_block_<i>``
+  ``single_blocks.<i>``.
 
 Module names are the reference's, so every other path carries over as it
 is — among them the 1024² checkpoint's size-condition embedders,
@@ -50,8 +52,9 @@ def _convert(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             name = "weight"
         elif name == "scale":
             name = "weight"
-        if parents and parents[0].startswith("block_"):
-            parents = ["blocks", parents[0][len("block_"):], *parents[1:]]
+        for prefix, modules in (("block_", "blocks"), ("single_block_", "single_blocks")):
+            if parents and parents[0].startswith(prefix):
+                parents = [modules, parents[0][len(prefix):], *parents[1:]]
         state[".".join([*parents, name])] = torch.from_numpy(
             np.array(arr, dtype=np.float32, order="C")
         )
@@ -60,6 +63,12 @@ def _convert(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
 def pixart_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """JAX PixArtTransformer params → port PixArtTransformer state_dict."""
+    return _convert(params)
+
+
+def flux_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX FluxTransformer params → port FluxTransformer state_dict. The
+    QK-norm ``q_scale``/``k_scale`` keep their names."""
     return _convert(params)
 
 

@@ -151,3 +151,23 @@ def sincos_2d_pos_embed(
     emb_h = _1d(dim // 2, grid[0])
     emb_w = _1d(dim // 2, grid[1])
     return np.concatenate([emb_h, emb_w], axis=1).astype(np.float32)
+
+
+@torch.no_grad()
+def randomize_(model: nn.Module, seed: int = 0, std: float = 0.02) -> nn.Module:
+    """Fill a transformer's weights in place from a seeded generator on the
+    model's device, as the reference's ``init_params`` /
+    ``init_flux_params`` initialise them: Linear weights N(0, std), biases
+    0, PixArt's modulation tables N(0, 1/√d), FLUX's QK-norm scales 1."""
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for name, param in model.named_parameters():
+        if name.endswith("scale_shift_table"):
+            param.normal_(0.0, param.shape[-1] ** -0.5, generator=gen)
+        elif name.endswith(("q_scale", "k_scale")):
+            param.fill_(1.0)
+        elif name.endswith("bias"):
+            param.zero_()
+        else:
+            param.normal_(0.0, std, generator=gen)
+    return model

@@ -1,0 +1,506 @@
+"""FLUX.1 transformer (dual-stream + single-stream) with ECAD block caching,
+in PyTorch.
+
+Counterpart of ``ecad_tpu/models/flux.py``: 19 dual-stream blocks (joint
+attention over [text; image] with per-head RMS q/k norms and 3-axis RoPE,
+AdaLayerNormZero modulation per stream) + 38 single-stream blocks (qkv and
+MLP projections from one modulated norm, one shared output projection), a
+guidance embedding (FLUX.1-dev), packed 2×2 latents (64 channels) and a
+final norm whose modulation is chunked scale first, then shift.
+
+Cache semantics are the reference's (cached_flux_transformer_block.py):
+
+* the dual ``full_attn`` caches the (image, text) attention pair
+  atomically, before the gates; ``full_ff``/``full_ff_context`` cache the
+  feed-forward outputs before the gates;
+* ``single_proj_mlp`` caches the PRE-activation projection (the GELU is
+  applied after the cache read), ``single_attn`` the attention output,
+  ``single_proj_out`` the output projection before the gate;
+* every component stores the value it used, recomputed or reused.
+
+The cache is a flat dict ``{f"{component}_{block}": tensor}`` (the pair for
+``full_attn``), as in the reference; step 0 starts from ``{}`` and
+recomputes everything (`flux_step_masks`). Recompute decisions arrive as
+Python bools: a cached component does no work, and neither do the
+modulated norms that only it consumes. Every LN·(1+scale)+shift site runs
+the port's `modulated_layer_norm` kernel; attention runs `fused_attention`,
+which routes FLUX-1024's joint attention (4608 tokens, D=128) to the
+row-block clamp kernel and FLUX-256's (768 tokens) to the exact one.
+
+With ``cache_dtype=torch.float8_e4m3fn`` the caches are stored in fp8 and
+read back in the compute dtype (the reference's ``_to_cache`` /
+``_from_cache``, :61-86). Serving quantization (``quant``) is not ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from .. import resolve_device
+from ..ops.attention import fused_attention
+from ..ops.fused import modulated_layer_norm
+from .common import TimestepEmbedding, randomize_, sinusoidal_embedding
+
+FULL_COMPONENTS = ("full_attn", "full_ff", "full_ff_context")
+SINGLE_COMPONENTS = ("single_attn", "single_proj_mlp", "single_proj_out")
+
+
+@dataclass(frozen=True)
+class FluxConfig:
+    """Shapes of FLUX.1-dev (black-forest-labs/FLUX.1-dev transformer)."""
+
+    dim: int = 3072
+    num_heads: int = 24
+    head_dim: int = 128
+    num_blocks: int = 19
+    num_single_blocks: int = 38
+    in_channels: int = 64  # packed 2×2 × 16 latent channels
+    joint_dim: int = 4096  # T5 embeddings
+    pooled_dim: int = 768  # CLIP pooled embedding
+    mlp_ratio: int = 4
+    axes_dims: tuple[int, ...] = (16, 56, 56)
+    rope_theta: int = 10000
+    text_len: int = 512
+    dtype: torch.dtype = torch.bfloat16
+    quant: Any = None
+    # None (caches in `dtype`) or a storage dtype for cached activations
+    cache_dtype: Optional[torch.dtype] = None
+
+    def __post_init__(self) -> None:
+        if self.quant is not None:
+            raise NotImplementedError(
+                f"FLUX quant={self.quant!r} is not ported yet (the int8 serving "
+                "modes are queue 1 item 10 of ROADMAP.md)"
+            )
+
+    @classmethod
+    def tiny(cls, **kw) -> "FluxConfig":
+        """The reference's ``FluxConfig.tiny`` shapes."""
+        defaults = dict(
+            dim=64,
+            num_heads=4,
+            head_dim=16,
+            num_blocks=2,
+            num_single_blocks=3,
+            in_channels=16,
+            joint_dim=32,
+            pooled_dim=24,
+            axes_dims=(4, 6, 6),
+            text_len=8,
+        )
+        defaults.update(kw)
+        return cls(**defaults)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (3-axis, diffusers FluxPosEmbed semantics)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(
+    ids: np.ndarray, axes_dims: tuple[int, ...], theta: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """ids (S, n_axes) → (cos, sin) of shape (S, head_dim/2), concatenated
+    per axis; angles in float64, results in float32 (as the reference)."""
+    cos_parts, sin_parts = [], []
+    for k, d in enumerate(axes_dims):
+        pos = ids[:, k].astype(np.float64)
+        freqs = 1.0 / (theta ** (np.arange(0, d, 2, dtype=np.float64) / d))
+        angles = np.outer(pos, freqs)  # (S, d/2)
+        cos_parts.append(np.cos(angles))
+        sin_parts.append(np.sin(angles))
+    return (
+        np.concatenate(cos_parts, axis=1).astype(np.float32),
+        np.concatenate(sin_parts, axis=1).astype(np.float32),
+    )
+
+
+def make_image_ids(grid_h: int, grid_w: int) -> np.ndarray:
+    ids = np.zeros((grid_h, grid_w, 3), dtype=np.float64)
+    ids[..., 1] = np.arange(grid_h)[:, None]
+    ids[..., 2] = np.arange(grid_w)[None, :]
+    return ids.reshape(-1, 3)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Interleaved rotary application on (B, S, H, D) in fp32: the pairs are
+    the last dim's (even, odd) elements (diffusers apply_rotary_emb,
+    use_real_unbind_dim=-1); cast back to x's dtype."""
+    b, s, h, d = x.shape
+    xf = x.float().reshape(b, s, h, d // 2, 2)
+    x1, x2 = xf[..., 0], xf[..., 1]
+    c = cos[None, :, None, :]
+    sn = sin[None, :, None, :]
+    return torch.stack([x1 * c - x2 * sn, x2 * c + x1 * sn], dim=-1).reshape(
+        b, s, h, d
+    ).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# modules
+# ---------------------------------------------------------------------------
+
+
+class AdaNorm(nn.Module):
+    """AdaLayerNormZero family: silu(temb) → linear → n_mods (B, 1, d)
+    chunks (shift, scale, gates…). The modulated norm itself is applied by
+    the caller, only where its consumer is recomputed."""
+
+    def __init__(self, dim: int, n_mods: int, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.n_mods = n_mods
+        self.linear = nn.Linear(dim, n_mods * dim, dtype=dtype)
+
+    def forward(self, temb: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        return self.linear(F.silu(temb))[:, None, :].chunk(self.n_mods, dim=-1)
+
+
+class QKNorm(nn.Module):
+    """Per-head RMS norm on q and k (flux qk_norm='rms_norm', eps 1e-6), in
+    fp32 with fp32 scales, cast to the compute dtype."""
+
+    def __init__(self, head_dim: int, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.q_scale = nn.Parameter(torch.ones(head_dim, dtype=torch.float32))
+        self.k_scale = nn.Parameter(torch.ones(head_dim, dtype=torch.float32))
+
+    def _rms(self, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        var = x32.square().mean(dim=-1, keepdim=True)
+        return (x32 * torch.rsqrt(var + 1e-6) * scale).to(self.dtype)
+
+    def forward(self, q: torch.Tensor, k: torch.Tensor):
+        return self._rms(q, self.q_scale), self._rms(k, self.k_scale)
+
+
+def _heads(x: torch.Tensor, c: FluxConfig) -> torch.Tensor:
+    return x.view(x.shape[0], x.shape[1], c.num_heads, c.head_dim)
+
+
+class FluxJointAttention(nn.Module):
+    """Dual-stream joint attention: text and image tokens get separate
+    qkv/out projections but attend jointly ([text; image] order)."""
+
+    def __init__(self, config: FluxConfig) -> None:
+        super().__init__()
+        c = config
+        self.config = c
+        inner = c.num_heads * c.head_dim
+        for name in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj"):
+            self.add_module(name, nn.Linear(c.dim, inner, dtype=c.dtype))
+        self.norm_qk = QKNorm(c.head_dim, c.dtype)
+        self.norm_added_qk = QKNorm(c.head_dim, c.dtype)
+        self.to_out = nn.Linear(inner, c.dim, dtype=c.dtype)
+        self.to_add_out = nn.Linear(inner, c.dim, dtype=c.dtype)
+
+    def forward(self, img, txt, cos, sin) -> tuple[torch.Tensor, torch.Tensor]:
+        c = self.config
+        b, tt = txt.shape[:2]
+        q, k = self.norm_qk(_heads(self.to_q(img), c), _heads(self.to_k(img), c))
+        v = _heads(self.to_v(img), c)
+        qc, kc = self.norm_added_qk(
+            _heads(self.add_q_proj(txt), c), _heads(self.add_k_proj(txt), c)
+        )
+        vc = _heads(self.add_v_proj(txt), c)
+        # text first, matching diffusers' concatenation order
+        q = apply_rope(torch.cat([qc, q], dim=1), cos, sin)
+        k = apply_rope(torch.cat([kc, k], dim=1), cos, sin)
+        v = torch.cat([vc, v], dim=1)
+        out = fused_attention(q, k, v).reshape(b, q.shape[1], -1)
+        return self.to_out(out[:, tt:]), self.to_add_out(out[:, :tt])
+
+
+class FluxSingleAttention(nn.Module):
+    """Single-stream attention: qkv + QK norm + RoPE + attention, no output
+    projection (it is fused into the block's proj_out)."""
+
+    def __init__(self, config: FluxConfig) -> None:
+        super().__init__()
+        c = config
+        self.config = c
+        inner = c.num_heads * c.head_dim
+        self.to_q = nn.Linear(c.dim, inner, dtype=c.dtype)
+        self.to_k = nn.Linear(c.dim, inner, dtype=c.dtype)
+        self.to_v = nn.Linear(c.dim, inner, dtype=c.dtype)
+        self.norm_qk = QKNorm(c.head_dim, c.dtype)
+
+    def forward(self, x, cos, sin) -> torch.Tensor:
+        c = self.config
+        q, k = self.norm_qk(_heads(self.to_q(x), c), _heads(self.to_k(x), c))
+        v = _heads(self.to_v(x), c)
+        out = fused_attention(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v)
+        return out.reshape(x.shape[0], x.shape[1], -1)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def _cast(value, dtype: torch.dtype):
+    if isinstance(value, tuple):
+        return tuple(v.to(dtype) for v in value)
+    return value.to(dtype)
+
+
+def _pick(recompute: bool, compute, cache: dict, key: str, new: dict, config: FluxConfig):
+    """One cached component: run `compute` and store what it gives, or reuse
+    the stored value and store it again; either way return the value in the
+    compute dtype. With a ``cache_dtype`` the store is cast to it and the
+    reuse back (the reference's ``_to_cache`` / ``_from_cache``, :61-86); a
+    pair (dual attention) is stored and read as one."""
+    store = config.cache_dtype
+    if recompute:
+        value = compute()
+        new[key] = value if store is None else _cast(value, store)
+        return value
+    new[key] = cache[key]
+    return cache[key] if store is None else _cast(cache[key], config.dtype)
+
+
+class FluxDualBlock(nn.Module):
+    def __init__(self, config: FluxConfig) -> None:
+        super().__init__()
+        c = config
+        self.config = c
+        self.norm1 = AdaNorm(c.dim, 6, c.dtype)
+        self.norm1_context = AdaNorm(c.dim, 6, c.dtype)
+        self.attn = FluxJointAttention(c)
+        hidden = c.dim * c.mlp_ratio
+        self.ff_in = nn.Linear(c.dim, hidden, dtype=c.dtype)
+        self.ff_out = nn.Linear(hidden, c.dim, dtype=c.dtype)
+        self.ff_context_in = nn.Linear(c.dim, hidden, dtype=c.dtype)
+        self.ff_context_out = nn.Linear(hidden, c.dim, dtype=c.dtype)
+
+    def forward(
+        self,
+        img: torch.Tensor,  # (B, Ti, d)
+        txt: torch.Tensor,  # (B, Tt, d)
+        temb: torch.Tensor,  # (B, d)
+        cos: torch.Tensor,
+        sin: torch.Tensor,
+        cache: dict[str, Any],  # component → stored value (absent at step 0)
+        mask: tuple[bool, bool, bool],  # (full_attn, full_ff, full_ff_context)
+    ):
+        c = self.config
+        recompute_attn, recompute_ff, recompute_ffc = mask
+        shift, scale, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.norm1(temb)
+        c_shift, c_scale, c_gate_msa, c_shift_mlp, c_scale_mlp, c_gate_mlp = (
+            self.norm1_context(temb)
+        )
+        new: dict[str, Any] = {}
+        attn_out, ctx_attn_out = _pick(
+            recompute_attn,
+            lambda: self.attn(modulated_layer_norm(img, scale, shift),
+                              modulated_layer_norm(txt, c_scale, c_shift), cos, sin),
+            cache, "full_attn", new, c,
+        )
+        img = img + gate_msa * attn_out
+        ff = _pick(
+            recompute_ff,
+            lambda: self.ff_out(
+                _gelu(self.ff_in(modulated_layer_norm(img, scale_mlp, shift_mlp)))),
+            cache, "full_ff", new, c,
+        )
+        img = img + gate_mlp * ff
+        txt = txt + c_gate_msa * ctx_attn_out
+        ffc = _pick(
+            recompute_ffc,
+            lambda: self.ff_context_out(
+                _gelu(self.ff_context_in(modulated_layer_norm(txt, c_scale_mlp, c_shift_mlp)))),
+            cache, "full_ff_context", new, c,
+        )
+        txt = txt + c_gate_mlp * ffc
+        return img, txt, new
+
+
+class FluxSingleBlock(nn.Module):
+    def __init__(self, config: FluxConfig) -> None:
+        super().__init__()
+        c = config
+        self.config = c
+        self.norm = AdaNorm(c.dim, 3, c.dtype)
+        self.attn = FluxSingleAttention(c)
+        self.proj_mlp = nn.Linear(c.dim, c.dim * c.mlp_ratio, dtype=c.dtype)
+        # input: [attention (heads·head_dim); activated MLP (mlp_ratio·d)]
+        self.proj_out = nn.Linear(
+            c.num_heads * c.head_dim + c.dim * c.mlp_ratio, c.dim, dtype=c.dtype
+        )
+
+    def forward(
+        self,
+        x: torch.Tensor,  # (B, Tt+Ti, d) joint stream
+        temb: torch.Tensor,
+        cos: torch.Tensor,
+        sin: torch.Tensor,
+        cache: dict[str, Any],
+        mask: tuple[bool, bool, bool],  # (attn, proj_mlp, proj_out)
+    ):
+        c = self.config
+        recompute_attn, recompute_mlp, recompute_out = mask
+        shift, scale, gate = self.norm(temb)
+        new: dict[str, Any] = {}
+        # the norm is shared by attention and the MLP projection
+        normed = (
+            modulated_layer_norm(x, scale, shift) if recompute_attn or recompute_mlp else None
+        )
+        # PRE-activation: the GELU runs after the cache read
+        mlp = _pick(recompute_mlp, lambda: self.proj_mlp(normed), cache,
+                    "single_proj_mlp", new, c)
+        attn = _pick(recompute_attn, lambda: self.attn(normed, cos, sin), cache,
+                     "single_attn", new, c)
+        out = _pick(recompute_out,
+                    lambda: self.proj_out(torch.cat([attn, _gelu(mlp)], dim=-1)),
+                    cache, "single_proj_out", new, c)
+        return x + gate * out, new
+
+
+class FluxTransformer(nn.Module):
+    """Full FLUX transformer over packed latents. `mask` is a tuple of
+    per-block component triples, full blocks first then single blocks (the
+    schedule's slot order)."""
+
+    def __init__(self, config: FluxConfig) -> None:
+        super().__init__()
+        c = config
+        self.config = c
+        self.x_embedder = nn.Linear(c.in_channels, c.dim, dtype=c.dtype)
+        self.context_embedder = nn.Linear(c.joint_dim, c.dim, dtype=c.dtype)
+        self.timestep_embedder = TimestepEmbedding(256, c.dim, c.dtype)
+        self.guidance_embedder = TimestepEmbedding(256, c.dim, c.dtype)
+        # pooled CLIP projection: the TimestepEmbedding MLP shape
+        self.text_embedder = TimestepEmbedding(c.pooled_dim, c.dim, c.dtype)
+        self.blocks = nn.ModuleList(FluxDualBlock(c) for _ in range(c.num_blocks))
+        self.single_blocks = nn.ModuleList(
+            FluxSingleBlock(c) for _ in range(c.num_single_blocks)
+        )
+        self.norm_out_linear = nn.Linear(c.dim, 2 * c.dim, dtype=c.dtype)
+        self.proj_out = nn.Linear(c.dim, c.in_channels, dtype=c.dtype)
+        self._rope_cache: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def rope(self, text_len: int, grid_hw: tuple[int, int], device) -> tuple:
+        """(cos, sin) over the [text; image] ids, fp32, cached per shape."""
+        key = (text_len, tuple(grid_hw), str(device))
+        out = self._rope_cache.get(key)
+        if out is None:
+            c = self.config
+            ids = np.concatenate([np.zeros((text_len, 3)), make_image_ids(*grid_hw)])
+            cos, sin = rope_freqs(ids, c.axes_dims, c.rope_theta)
+            out = (torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device))
+            self._rope_cache[key] = out
+        return out
+
+    def embed_conditions(
+        self,
+        timestep: torch.Tensor,  # (B,) sigma in [0, 1]
+        guidance: torch.Tensor,  # (B,)
+        pooled: torch.Tensor,  # (B, pooled_dim)
+    ) -> torch.Tensor:
+        c = self.config
+        temb = self.timestep_embedder(
+            sinusoidal_embedding(timestep.float() * 1000.0, 256).to(c.dtype)
+        )
+        temb = temb + self.guidance_embedder(
+            sinusoidal_embedding(guidance.float() * 1000.0, 256).to(c.dtype)
+        )
+        return temb + self.text_embedder(pooled)
+
+    def forward(
+        self,
+        latents: torch.Tensor,  # (B, T_img, in_channels) packed
+        txt: torch.Tensor,  # (B, T_txt, joint_dim)
+        pooled: torch.Tensor,  # (B, pooled_dim)
+        timestep: torch.Tensor,  # (B,) sigma
+        guidance: torch.Tensor,  # (B,)
+        cache: dict[str, Any],
+        mask: tuple,
+        grid_hw: tuple[int, int],
+    ) -> tuple[torch.Tensor, dict[str, Any]]:
+        c = self.config
+        tt = txt.shape[1]
+        img = self.x_embedder(latents)
+        txt_h = self.context_embedder(txt)
+        temb = self.embed_conditions(timestep, guidance, pooled)
+        cos, sin = self.rope(tt, grid_hw, latents.device)
+
+        new_cache: dict[str, Any] = {}
+        for i, block in enumerate(self.blocks):
+            block_cache = {k: cache.get(f"{k}_{i}") for k in FULL_COMPONENTS}
+            img, txt_h, updated = block(img, txt_h, temb, cos, sin, block_cache, mask[i])
+            for k, v in updated.items():
+                new_cache[f"{k}_{i}"] = v
+
+        x = torch.cat([txt_h, img], dim=1)
+        for i, block in enumerate(self.single_blocks):
+            block_cache = {k: cache.get(f"{k}_{i}") for k in SINGLE_COMPONENTS}
+            x, updated = block(x, temb, cos, sin, block_cache, mask[c.num_blocks + i])
+            for k, v in updated.items():
+                new_cache[f"{k}_{i}"] = v
+
+        # AdaLayerNormContinuous: diffusers chunks SCALE first, then shift
+        scale, shift = self.norm_out_linear(F.silu(temb))[:, None, :].chunk(2, dim=-1)
+        img = modulated_layer_norm(x[:, tt:], scale, shift)
+        return self.proj_out(img), new_cache
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+
+def flux_step_masks(schedule, config: FluxConfig) -> list[tuple]:
+    """Schedule → per-step masks (full blocks then single blocks), with
+    step 0 forced to recompute (there is no cache yet)."""
+    n_slots = config.num_blocks + config.num_single_blocks
+    masks = []
+    for step in range(schedule.num_inference_steps):
+        if step == 0:
+            masks.append(full_flux_mask(config))
+            continue
+        row = schedule.mask[step].reshape(n_slots, 3)
+        masks.append(tuple(tuple(bool(v) for v in r) for r in row))
+    return masks
+
+
+def full_flux_mask(config: FluxConfig, value: bool = True) -> tuple:
+    return tuple(
+        ((value,) * 3) for _ in range(config.num_blocks + config.num_single_blocks)
+    )
+
+
+def pack_latents(latents: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) → (B, H/2·W/2, 4C) FLUX packing (NHWC). Feature order
+    within a packed token is (channel, p_h, p_w), as diffusers'
+    `_pack_latents` has it."""
+    b, h, w, ch = latents.shape
+    x = latents.reshape(b, h // 2, 2, w // 2, 2, ch)
+    x = x.permute(0, 1, 3, 5, 2, 4)  # (b, gh, gw, c, ph, pw)
+    return x.reshape(b, (h // 2) * (w // 2), 4 * ch)
+
+
+def unpack_latents(packed: torch.Tensor, grid_h: int, grid_w: int) -> torch.Tensor:
+    b, _, c4 = packed.shape
+    ch = c4 // 4
+    x = packed.reshape(b, grid_h, grid_w, ch, 2, 2)
+    x = x.permute(0, 1, 4, 2, 5, 3)  # (b, gh, ph, gw, pw, c)
+    return x.reshape(b, grid_h * 2, grid_w * 2, ch)
+
+
+def init_model(
+    config: FluxConfig, seed: int = 0, device: str | torch.device = "cuda"
+) -> FluxTransformer:
+    """A random-weight FluxTransformer built directly in `config.dtype` on
+    `device` (the QK-norm scales in fp32, as the reference keeps them): no
+    host copy and no fp32 masters, so the 11.9 B-parameter model takes
+    23.8 GB of device memory in bf16. Eval mode, no gradients."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = FluxTransformer(config)
+    model = model.to_empty(device=dev)
+    return randomize_(model, seed).eval().requires_grad_(False)

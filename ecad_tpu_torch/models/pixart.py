@@ -33,6 +33,7 @@ from .common import (
     FeedForward,
     TextProjection,
     TimestepEmbedding,
+    randomize_,
     sincos_2d_pos_embed,
     sinusoidal_embedding,
 )
@@ -397,23 +398,6 @@ def init_cache(
         ]
         for k in COMPONENTS
     }
-
-
-@torch.no_grad()
-def randomize_(model: nn.Module, seed: int = 0, std: float = 0.02) -> nn.Module:
-    """Fill a model's weights in place from a seeded generator on the
-    model's device: Linear weights N(0, std), biases 0, modulation tables
-    N(0, 1/√d) — the initializers of the reference's ``init_params``."""
-    device = next(model.parameters()).device
-    gen = torch.Generator(device=device).manual_seed(seed)
-    for name, param in model.named_parameters():
-        if name.endswith("scale_shift_table"):
-            param.normal_(0.0, param.shape[-1] ** -0.5, generator=gen)
-        elif name.endswith("bias"):
-            param.zero_()
-        else:
-            param.normal_(0.0, std, generator=gen)
-    return model
 
 
 def init_model(

@@ -38,6 +38,13 @@ class VAEConfig:
     dtype: torch.dtype = torch.float32
 
     @classmethod
+    def flux(cls, **kw) -> "VAEConfig":
+        """FLUX.1's 16-channel autoencoder (ecad_tpu/models/vae.py:38-42)."""
+        d = dict(latent_channels=16, scaling_factor=0.3611, shift_factor=0.1159)
+        d.update(kw)
+        return cls(**d)
+
+    @classmethod
     def tiny(cls, **kw) -> "VAEConfig":
         d = dict(
             latent_channels=4, block_out_channels=(8, 16), layers_per_block=1,
@@ -183,13 +190,14 @@ def random_decoder_pipeline(
     latent_channels: int = 4, device: str | torch.device = "cuda", seed: int = 7
 ) -> VAEDecoderPipeline:
     """Architecture-faithful decoder with random bf16 weights, built on the
-    device: the compute cost of the real VAE without a checkpoint."""
-    if latent_channels != 4:
-        raise NotImplementedError(
-            "the 16-channel FLUX VAE comes with the FLUX slice of the port"
-        )
+    device: the compute cost of the real VAE without a checkpoint. 4 latent
+    channels give PixArt's (SD) autoencoder, 16 FLUX's."""
+    if latent_channels not in (4, 16):
+        raise ValueError(f"no autoencoder with {latent_channels} latent channels")
     dev = resolve_device(device)
-    config = VAEConfig(dtype=torch.bfloat16)
+    config = (VAEConfig.flux if latent_channels == 16 else VAEConfig)(
+        dtype=torch.bfloat16
+    )
     with torch.device("meta"):
         model = VAEDecoder(config)
     model = model.to_empty(device=dev)

@@ -12,6 +12,8 @@ from .attention import (
     attention_route,
     fused_attention,
     fused_attention_reference,
+    rowblock_attention,
+    rowblock_attention_reference,
     transposed_attention,
     transposed_attention_reference,
 )
@@ -38,6 +40,8 @@ __all__ = [
     "attention_route",
     "fused_attention",
     "fused_attention_reference",
+    "rowblock_attention",
+    "rowblock_attention_reference",
     "transposed_attention",
     "transposed_attention_reference",
     "modulated_layer_norm",

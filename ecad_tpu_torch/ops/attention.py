@@ -15,19 +15,25 @@ the way that one does (`attention_route`):
   ``p = exp2(clip(s, −100, 80))`` with no row max, q pre-scaled by
   scale·log2e in its own dtype. `transposed_attention` launches it;
   plain version: `transposed_attention_reference`.
+* **rowblock** — the same clamp function as the reference's row-block
+  kernels ``_rowblock_kernel`` (:255) and ``_rowblock_kernel_nobias``
+  (:274) compute it, for head dims that are a multiple of 128 past an
+  8 MiB score tile (FLUX-1024's joint attention). `rowblock_attention`
+  launches it under its own kernel name and counters; plain version:
+  `rowblock_attention_reference`.
 
-Both run in one CUDA C++ kernel source, ``csrc/attention.cu`` (a
+All three run in one CUDA C++ kernel source, ``csrc/attention.cu`` (a
 compile-time variant each; the source says what bounds each on the H100).
-The reference's row-block kernel (K5, D a multiple of 128 past an 8 MiB
-score tile) and its streaming flash kernel (K6, past 8192×128 key
-elements) are not ported yet: on a CUDA tensor those routes raise
-`NotImplementedError`; on a CPU tensor they run the plain version of the
-same function.
+The reference's streaming flash kernel (K6, past 8192×128 key elements) is
+not ported yet: on a CUDA tensor that route raises `NotImplementedError`;
+on a CPU tensor it runs the plain version of the same function.
 
 On a CPU tensor every wrapper runs its plain version. On a CUDA tensor it
 launches the kernel or raises: there is no fallback. Each launch adds one
 to ``LAUNCHES``: ``attention`` / ``attention_bias`` (exact, without / with
-a bias) and ``attention_long`` / ``attention_long_bias`` (clamp).
+a bias), ``attention_long`` / ``attention_long_bias`` (clamp, transposed
+route) and ``attention_rowblock`` / ``attention_rowblock_bias`` (clamp,
+row-block route).
 """
 
 from __future__ import annotations
@@ -43,7 +49,11 @@ LAUNCHES = {
     "attention_bias": 0,
     "attention_long": 0,
     "attention_long_bias": 0,
+    "attention_rowblock": 0,
+    "attention_rowblock_bias": 0,
 }
+# kernel variant of the C entry point → counter name (without "_bias")
+_VARIANTS = {0: "attention", 1: "attention_long", 2: "attention_rowblock"}
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 MAX_HEAD_DIM = 128
@@ -76,7 +86,7 @@ def _kernel():
             ctypes.c_int,  # D
             ctypes.c_float,  # scale
             ctypes.c_int,  # vec_ok
-            ctypes.c_int,  # clamp
+            ctypes.c_int,  # variant: 0 exact, 1 clamp (K4), 2 row-block (K5)
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -206,15 +216,31 @@ def transposed_attention_reference(
     return out.to(q.dtype).permute(0, 2, 1, 3).contiguous()
 
 
+def rowblock_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the row-block kernel (and of
+    ``_rowblock_kernel`` / ``_rowblock_kernel_nobias``). The function is
+    the transposed kernel's — q × bf16(scale·log2e) in q's dtype
+    (:491-492), exp2(clip(s, −100, 80)), Σp in fp32, bf16 p into p·v — only
+    the TPU layout differs, and its two kv chunks (:496-501) change only the
+    order of the fp32 sums; so the body is shared."""
+    return transposed_attention_reference(q, k, v, bias)
+
+
 def _launch(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     bias: Optional[torch.Tensor],
-    clamp: bool,
+    variant: int,
 ) -> torch.Tensor:
-    """One launch of the CUDA kernel on q's device, in the exact or the
-    clamp variant; counts it."""
+    """One launch of the CUDA kernel on q's device: `variant` 0 is the
+    exact softmax, 1 the clamp softmax of the transposed route (K4), 2 that
+    of the row-block route (K5). Counts it."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -238,7 +264,7 @@ def _launch(
         and all(t.data_ptr() % 16 == 0 for t in tensors)
         and all((s * elem) % 16 == 0 for s in strides[:12])
     )
-    scale = clamp_scale(d, q.dtype) if clamp else 1.0 / math.sqrt(d)
+    scale = clamp_scale(d, q.dtype) if variant else 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
         status = _kernel()(
             _DTYPES[q.dtype],
@@ -248,15 +274,15 @@ def _launch(
             b, h, tq, tk, d,
             scale,
             vec_ok,
-            int(clamp),
+            variant,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if status != 0:
         raise RuntimeError(
             f"attention kernel launch failed: cudaError_t {status} "
-            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype}, clamp={clamp})"
+            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype}, variant={variant})"
         )
-    name = "attention_long" if clamp else "attention"
+    name = _VARIANTS[variant]
     LAUNCHES[name if bias is None else name + "_bias"] += 1
     return out
 
@@ -270,15 +296,34 @@ def transposed_attention(
     """The clamp softmax (the reference's ``_transposed_attention``) at any
     shape: (B, Tq, H, D) × (B, Tk, H, D) → (B, Tq, H, D), with no bias or a
     key-padding bias (B|1, 1, 1, Tk), added in fp32 in the log2 domain."""
+    _check_clamp(q, k, v, bias)
+    if q.device.type == "cpu":
+        return transposed_attention_reference(q, k, v, bias)
+    return _launch(q, k, v, bias, variant=1)
+
+
+def rowblock_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The clamp softmax of the reference's ``_rowblock_attention`` at any
+    shape: (B, Tq, H, D) × (B, Tk, H, D) → (B, Tq, H, D), with no bias or a
+    key-padding bias (B|1, 1, 1, Tk), added in fp32 in the log2 domain."""
+    _check_clamp(q, k, v, bias)
+    if q.device.type == "cpu":
+        return rowblock_attention_reference(q, k, v, bias)
+    return _launch(q, k, v, bias, variant=2)
+
+
+def _check_clamp(q, k, v, bias) -> None:
     _check(q, k, v, bias)
     if not _key_padding_bias_ok(bias, q.shape[0]):
         raise ValueError(
             "the clamp kernel takes only key-padding biases (B|1, 1, 1, Tk);"
             f" got {tuple(bias.shape)}"
         )
-    if q.device.type == "cpu":
-        return transposed_attention_reference(q, k, v, bias)
-    return _launch(q, k, v, bias, clamp=True)
 
 
 def fused_attention(
@@ -296,14 +341,7 @@ def fused_attention(
     if route == "clamp":
         return transposed_attention(q, k, v, bias)
     if route == "rowblock":
-        # K5 computes the clamp function in the standard layout
-        if on_cpu:
-            return transposed_attention_reference(q, k, v, bias)
-        raise NotImplementedError(
-            "the row-block clamp kernel (ecad_tpu/ops/attention.py:255, "
-            f"K5) for {tuple(q.shape)} × Tk {k.shape[1]} comes with the "
-            "FLUX slice of the port"
-        )
+        return rowblock_attention(q, k, v, bias)
     if route == "flash":
         if on_cpu:
             return fused_attention_reference(q, k, v, bias)
@@ -313,4 +351,4 @@ def fused_attention(
         )
     if on_cpu:
         return fused_attention_reference(q, k, v, bias)
-    return _launch(q, k, v, bias, clamp=False)
+    return _launch(q, k, v, bias, variant=0)

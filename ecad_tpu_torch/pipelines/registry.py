@@ -3,24 +3,16 @@
 
 Reference: ecad/pipelines/load_pipeline.py:16-58 — {pixart_alpha,
 pixart_sigma, tgate, flux, pass_through}, with per-schedule pipeline kwargs
-closed over at construction (the schedule JSON's config.pipeline entry).
-The FLUX pipeline comes with the FLUX slice of the port: its name is
-registered and raises when it is built."""
+closed over at construction (the schedule JSON's config.pipeline entry)."""
 
 from __future__ import annotations
 
 from typing import Any
 
 from ..registry import Registry
+from .flux_pipeline import FluxPipeline
 from .pixart_pipeline import PixArtPipeline
 from .tgate import PassThroughPixArtPipeline, TGATEPixArtPipeline
-
-
-def FluxPipeline(*args, **kwargs):
-    raise NotImplementedError(
-        "the FLUX pipeline comes with the FLUX slice of the port"
-    )
-
 
 PipelineRegistry: Registry = Registry("pipeline", default="pixart_alpha")
 PipelineRegistry.register(PixArtPipeline, name="pixart_alpha")

@@ -1,10 +1,11 @@
-"""DPM-Solver++(2M) for PixArt, in PyTorch.
+"""DPM-Solver++(2M) for PixArt and flow-match Euler for FLUX, in PyTorch.
 
-Counterpart of the DPM part of ``ecad_tpu/pipelines/samplers.py`` (:27-107,
+Counterpart of ``ecad_tpu/pipelines/samplers.py``. DPM (:27-107,
 :160-191): diffusers' DPMSolverMultistepScheduler defaults (dpmsolver++,
 order 2, epsilon prediction, linear betas 1e-4→2e-2 over 1000 train steps,
-linspace timestep spacing). The per-step constants are host-side numpy;
-the carried state is a small tuple of tensors.
+linspace timestep spacing). Flow match (:115-157): FLUX's dynamically
+shifted sigmas and the Euler update. The per-step constants are host-side
+numpy; the carried state is a small tuple of tensors.
 """
 
 from __future__ import annotations
@@ -93,6 +94,54 @@ def dpm_step(
         d = (1.0 + 1.0 / (2.0 * r)) * x0 - (1.0 / (2.0 * r)) * state.prev_x0.float()
         new_x = (s_n / s_t) * x32 - a_n * (math.exp(-h) - 1.0) * d
     return DPMState(new_x.to(x.dtype), x0, True)
+
+
+# ---------------------------------------------------------------------------
+# FlowMatch Euler (FLUX), counterpart of samplers.py:115-157
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class FlowMatchSchedule:
+    sigmas: np.ndarray  # (steps+1,) descending, last = 0
+    timesteps: np.ndarray  # (steps,) sigma·1000 as flux model input
+
+    @property
+    def num_steps(self) -> int:
+        return len(self.timesteps)
+
+
+# FLUX.1-dev's FlowMatchEulerDiscreteScheduler config (dynamic shifting)
+FLOW_BASE_SHIFT = 0.5
+FLOW_MAX_SHIFT = 1.15
+FLOW_BASE_SEQ_LEN = 256
+FLOW_MAX_SEQ_LEN = 4096
+FLOW_NUM_TRAIN_TIMESTEPS = 1000
+
+
+def make_flow_schedule(num_inference_steps: int, image_seq_len: int) -> FlowMatchSchedule:
+    """FLUX's resolution-dependent sigma shift ("dynamic shifting"): the
+    shift parameter mu interpolates linearly in sequence length (float64)."""
+    sigmas = np.linspace(1.0, 1.0 / num_inference_steps, num_inference_steps)
+    m = (FLOW_MAX_SHIFT - FLOW_BASE_SHIFT) / (FLOW_MAX_SEQ_LEN - FLOW_BASE_SEQ_LEN)
+    b = FLOW_BASE_SHIFT - m * FLOW_BASE_SEQ_LEN
+    mu = image_seq_len * m + b
+    sigmas = math.exp(mu) / (math.exp(mu) + (1.0 / sigmas - 1.0))
+    timesteps = sigmas * FLOW_NUM_TRAIN_TIMESTEPS
+    sigmas = np.append(sigmas, 0.0)
+    return FlowMatchSchedule(sigmas=sigmas, timesteps=timesteps)
+
+
+def flow_step(
+    schedule: FlowMatchSchedule,
+    step_index: int,
+    velocity: torch.Tensor,
+    x: torch.Tensor,
+) -> torch.Tensor:
+    """One Euler step x + (σ_{i+1} − σ_i)·v in fp32, cast to x's dtype."""
+    s = schedule
+    dt = float(s.sigmas[step_index + 1] - s.sigmas[step_index])
+    return (x.float() + dt * velocity.float()).to(x.dtype)
 
 
 def dpm_scan_coeffs(schedule: DPMSolverSchedule) -> np.ndarray:

@@ -1,4 +1,12 @@
 from .cache_schedule import CacheSchedule
+from .flux import (
+    FLUX_DEFAULT_STEPS,
+    FLUX_FULL_COMPONENTS,
+    FLUX_NUM_BLOCKS,
+    FLUX_NUM_SINGLE_BLOCKS,
+    FLUX_SINGLE_COMPONENTS,
+    FluxCacheSchedule,
+)
 from .pixart import (
     PIXART_COMPONENTS,
     PIXART_DEFAULT_STEPS,
@@ -12,4 +20,10 @@ __all__ = [
     "PIXART_COMPONENTS",
     "PIXART_NUM_BLOCKS",
     "PIXART_DEFAULT_STEPS",
+    "FluxCacheSchedule",
+    "FLUX_FULL_COMPONENTS",
+    "FLUX_SINGLE_COMPONENTS",
+    "FLUX_NUM_BLOCKS",
+    "FLUX_NUM_SINGLE_BLOCKS",
+    "FLUX_DEFAULT_STEPS",
 ]

@@ -22,6 +22,8 @@ from ecad_tpu_torch.ops import (
     launch_counts,
     modulated_layer_norm,
     modulated_layer_norm_reference,
+    rowblock_attention,
+    rowblock_attention_reference,
     transposed_attention,
     transposed_attention_reference,
 )
@@ -162,7 +164,7 @@ def test_cpu_path_counts_no_launches():
     before = launch_counts()
     assert set(before) == {
         "attention", "attention_bias", "attention_long", "attention_long_bias",
-        "modlnorm",
+        "attention_rowblock", "attention_rowblock_bias", "modlnorm",
     }
     x = torch.randn(2, 4, 8)
     s = torch.zeros(2, 1, 8)
@@ -171,6 +173,9 @@ def test_cpu_path_counts_no_launches():
     q = torch.randn(1, 1024, 1, 72)  # a clamp-route shape
     fused_attention(q, q, q)
     transposed_attention(q[:, :8], q, q, torch.zeros(1, 1, 1, 1024))
+    q = torch.randn(1, 1536, 1, 128)  # a row-block-route shape
+    fused_attention(q, q, q)
+    rowblock_attention(q[:, :8], q, q, torch.zeros(1, 1, 1, 1536))
     out = modulated_layer_norm(x, s, s)
     assert launch_counts() == before
     torch.testing.assert_close(out, modulated_layer_norm_reference(x, s, s))
@@ -234,6 +239,62 @@ def test_transposed_reference_matches_pallas(case, dtype, monkeypatch):
         got.float().numpy(), np.asarray(want, np.float32), **CLAMP_TOL[dtype]
     )
     assert torch.isfinite(got.float()).all()
+
+
+# ---------------------------------------------------------------------------
+# the row-block clamp softmax (K5, _rowblock_kernel / _rowblock_kernel_nobias)
+# ---------------------------------------------------------------------------
+
+# the reference's TestRowBlockAttention cases (tests/test_ops.py:125-188),
+# with _ROWBLOCK_BLOCK_Q = 16 for several q blocks per (batch, head), and
+# the same at the head dim the route serves (128): (b, h, tq, tk, d, bias
+# lengths or None, q scale)
+ROWBLOCK_CASES = {
+    "multiblock_q_48_384_d64": (2, 2, 48, 384, 64, None, 1.0),
+    "unaligned_30_300_d72": (2, 2, 30, 300, 72, None, 1.0),
+    "batch_broadcast_bias_b3": (3, 2, 32, 256, 64, [100], 1.0),
+    "logits_times_6": (1, 1, 16, 256, 64, None, 6.0),
+    "q_times_1e4": (1, 1, 16, 256, 64, None, 1e4),
+    "multiblock_q_48_384_d128": (2, 2, 48, 384, 128, None, 1.0),
+    "ragged_tk300_key_padding_d128": (2, 2, 30, 300, 128, [250, 300], 1.0),
+    "per_batch_key_padding_d128": (3, 2, 32, 256, 128, [100, 200, 256], 1.0),
+}
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(ROWBLOCK_CASES))
+def test_rowblock_reference_matches_pallas(case, dtype, monkeypatch):
+    """rowblock_attention_reference, and the rowblock_attention wrapper on
+    the CPU, against _rowblock_attention in interpret mode, compared by
+    value — also at logits ×6 and at q×1e4, where every logit sits outside
+    the clamp window. Tolerances as for the transposed kernel: the same
+    function, sums in another order (the reference's two kv chunks)."""
+    b, h, tq, tk, d, lengths, qscale = ROWBLOCK_CASES[case]
+    monkeypatch.setattr(jax_attention, "_ROWBLOCK_BLOCK_Q", 16)
+    rng = np.random.default_rng(8)
+    q, k, v = _qkv(rng, b, tq, tk, h, d)
+    q = q * np.float32(qscale)
+    bias = None if lengths is None else _key_padding_bias_np(lengths, tk)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "fp32" else (
+        jnp.bfloat16, torch.bfloat16)
+    want = jax_attention._rowblock_attention(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)),
+        None if bias is None else jnp.asarray(bias), interpret=True,
+    )
+    args = [torch.from_numpy(a).to(tdt) for a in (q, k, v)]
+    args.append(None if bias is None else torch.from_numpy(bias))
+    got = rowblock_attention_reference(*args)
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32), **CLAMP_TOL[dtype]
+    )
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(rowblock_attention(*args), got, rtol=0, atol=0)
+
+
+def test_rowblock_attention_rejects_dense_bias():
+    q = torch.zeros(2, 4, 2, 128)
+    with pytest.raises(ValueError, match="key-padding"):
+        rowblock_attention(q, q, q, torch.zeros(2, 2, 4, 4))
 
 
 @pytest.mark.parametrize("d", [16, 36, 64, 72, 80])
@@ -314,15 +375,16 @@ def test_attention_route(name):
 @pytest.mark.parametrize(
     "shape,tk,error,match",
     [
-        ((2, 4608, 2, 128), 4608, NotImplementedError, "FLUX"),
+        ((2, 4608, 2, 128), 4608, ValueError, "unsupported device"),
         ((1, 9000, 1, 128), 9000, NotImplementedError, "K6"),
         ((1, 1024, 1, 72), 1024, ValueError, "unsupported device"),
     ],
 )
 def test_non_cpu_tensors_never_fall_back(shape, tk, error, match):
-    """Off the CPU the router launches a kernel or raises: the unported K5
-    and K6 routes raise naming what is missing, and a tensor on a device
-    without a kernel raises instead of running a plain version."""
+    """Off the CPU the router launches a kernel or raises: the unported K6
+    route raises naming what is missing, and a tensor on a device without a
+    kernel (here FLUX-1024's row-block shape, and a clamp-route shape)
+    raises instead of running a plain version."""
     b, tq, h, d = shape
     q = torch.empty(shape, device="meta")
     kv = torch.empty((b, tk, h, d), device="meta")

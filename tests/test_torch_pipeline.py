@@ -279,6 +279,6 @@ def test_pipeline_registry_names_match_reference():
         tcls, tkw = treg.pipeline_from_config(name, {"gate_step": 3})
         assert tcls.__name__ == jcls.__name__ and tkw == jkw == {"gate_step": 3}
     assert treg.pipeline_from_config(None)[0] is tpp.PixArtPipeline
-    flux, _ = treg.pipeline_from_config("flux")
-    with pytest.raises(NotImplementedError, match="FLUX"):
-        flux(None, None)
+    flux, kw = treg.pipeline_from_config("flux")
+    assert flux.__name__ == jreg.pipeline_from_config("flux")[0].__name__ == "FluxPipeline"
+    assert flux.__module__ == "ecad_tpu_torch.pipelines.flux_pipeline" and kw == {}
