@@ -19,8 +19,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    and at the reference's TestRowBlockAttention shapes at D=128); the
    clamp kernels also at q×1e4, compared by value, and in bf16 at a
    tolerance scaled to the output, shown to reject a plain version that
-   drops or repeats one 64-key tile at 4096 (K4) and 4608 (K5) keys; time
-   kernel, plain version and (attention) one
+   drops or repeats one 64-key tile at 4096 (K4) and 4608 (K5) keys; the
+   streaming exact softmax (K6) at PixArt-2048's (2, 16384, 16, 72), at
+   FLUX.1-dev-1536²'s (1, 9728, 24, 128), in its key-padding variant and
+   at the reference's TestFlashAttention shapes (fp32 and bf16, and at
+   q×1e4), in bf16 at a tolerance derived from its measured error
+   (`flash_bf16_tol`), shown to reject a plain version that drops or
+   repeats one 64-key tile at 16384 keys; the plain versions of K6 run per
+   (batch·head) slice, since the fp32 scores of the served shape would
+   take 34 GB; time kernel, plain version and (attention) one
    ``scaled_dot_product_attention`` call as a yardstick the port never
    calls.
 4. Main path at 256² (``main256``): full-width PixArt-α 256 (28 blocks,
@@ -39,7 +46,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    against each schedule; and a tiny fp32 1024-style trajectory (size
    conditions, TGATE, 2304 tokens so that both K4 variants run) on the card
    against the plain path on the CPU.
-6. FLUX (``flux``): full-width FLUX.1-dev (19 dual + 38 single blocks,
+6. Main path at 2048² (``main2048``): full-width PixArt-Σ at 2048²
+   (16384 image tokens, a 256×256 latent, no size conditions, position
+   embedding interpolated by 4), batch 1 with CFG, under Σ's
+   ``gen_default/default.json`` and ``pixart_sigma_256/ours_fast.json``
+   in turns, each decoded by the random VAE to (1, 2048, 2048, 3) uint8
+   (its mid-attention over 65536 tokens in query blocks), with the launch
+   counts of K6 (self-attention), K4's bias variant (cross-attention,
+   16384 → 120) and K3 checked against each schedule; and a tiny fp32
+   trajectory with 8464 tokens, past 8192 so that self-attention takes the
+   streaming route, on the card against the plain path on the CPU.
+7. FLUX (``flux``): full-width FLUX.1-dev (19 dual + 38 single blocks,
    d=3072, 24×128 heads, 512 text tokens, guidance embedding; 11.9 B
    seeded random bf16 parameters) from hash-encoder prompts, 20 flow-match
    Euler steps at guidance 5: 1024² at batch 1 under
@@ -52,11 +69,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    and set beside the bf16 caches' latents; and a tiny fp32 FLUX
    trajectory (1536 joint tokens at D=128, the row-block route) on the
    card against the plain path on the CPU.
-7. Entry points (``cli``): ``ecad_tpu_torch.inference.cli
+8. Entry points (``cli``): ``ecad_tpu_torch.inference.cli
    PixArtAlphaImageGenerator`` with a prompt file, random weights and
-   ``ours_fast``, again with the 1024 TGATE schedule at batch size 2, and
+   ``ours_fast``, again with the 1024 TGATE schedule at batch size 2,
+   ``PixArtSigmaImageGenerator`` at ``--height 2048 --width 2048
+   --batch-size 1`` with Σ's ``ours_fast`` and one prompt, and
    ``FluxImageGenerator`` with ``flux_256/ours_fast`` and two prompts;
-   checks their PNGs and launch counts.
+   checks their PNGs and launch counts. Without checkpoints the PNGs are
+   the latent visualisation, as the reference writes them (256×256 for a
+   2048² generation).
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. A longer report (every check's error,
@@ -88,6 +109,8 @@ TGATE_1024 = (
     ROOT / "schedules/alpha_cache_schedules/gen_tgate_1024"
     / "tgate_m_010_sp_003_fi_001_warmup_002.json"
 )
+SIGMA_OURS_FAST = ROOT / "schedules/schedules_in_paper/pixart_sigma_256/ours_fast.json"
+SIGMA_DEFAULT = ROOT / "schedules/sigma_cache_schedules/gen_default/default.json"
 FLUX_DEFAULT_1024 = (
     ROOT / "schedules/flux_cache_schedules/gen_default/default_1024x1024_gs_5.0_steps_20.json"
 )
@@ -99,6 +122,7 @@ FLUX_DEFAULT_256 = (
 )
 BATCH = 8
 BATCH_1024 = 2
+BATCH_2048 = 1  # the caches take 6.3 GB per image at 2048²
 BATCH_FLUX_1024 = 1  # one 1024² image per request, as FLUX.1-dev is served
 BATCH_FLUX_256 = 4
 STEPS = 20
@@ -112,17 +136,43 @@ FP32_TOL = (1e-5, 1e-5)  # fp32 kernels against fp32 plain versions
 HOT_FP32_TOL = (1e-3, 1e-3)
 REPORT: dict = {}
 COUNTERS = ("attention", "attention_bias", "attention_long", "attention_long_bias",
-            "attention_rowblock", "attention_rowblock_bias", "modlnorm")
+            "attention_rowblock", "attention_rowblock_bias", "attention_flash",
+            "attention_flash_bias", "modlnorm")
+def std_bf16_tol(share: float):
+    """The (atol, rtol) rule for a bf16 attention output over many keys, as
+    a function of the plain version's output `want`: one bf16 ulp relative
+    (2^-7, the rounding of the output itself) plus `share` of the output's
+    standard deviation. With q, k, v ~ N(0, 1) an output averages about
+    Tk/e values of v, so its size falls like Tk^-1/2 (≈0.026 at 4096 keys,
+    ≈0.013 at 16384): a fixed atol fitted to O(1) outputs would pass a
+    kernel that drops one key tile."""
+    return lambda want: (share * float(want.float().std()), 2.0 ** -7)
 
 
-def clamp_bf16_tol(want: torch.Tensor) -> tuple[float, float]:
-    """(atol, rtol) for a bf16 clamp-softmax (K4) output: one bf16 ulp
-    relative (2^-7, the rounding of the output itself) plus a tenth of the
-    output's standard deviation. With q, k, v ~ N(0, 1) an output averages
-    about Tk/e values of v, so its size falls like Tk^-1/2 (≈0.026 at 4096
-    keys): a fixed atol fitted to O(1) outputs would pass a kernel that
-    drops one key tile of 4096 keys."""
-    return 0.1 * float(want.float().std()), 2.0 ** -7
+# the clamp kernels (K4, K5): a tenth of the std, which the run shows
+# rejects a dropped or repeated 64-key tile at 4096 and 4608 keys
+clamp_bf16_tol = std_bf16_tol(0.1)
+# the streaming kernel (K6): over 16384 keys dropping one 64-key tile moves
+# an output by only ≈ √(64e)/16384 ≈ 8e-4, below a tenth of its std, so the
+# share comes from the kernel's measured error: the least atol that passes
+# it (beside the 2^-7 rtol) was at most 0.0117·std on the H100 (16384 keys
+# with the key-padding bias; 0.0108 without it, 0.0107 at 9728 keys, ≤
+# 0.0072 at the reference's shapes; the report's `least_atol_per_std`), and
+# this is twice that, rounded up; the run shows that it rejects the fault
+flash_bf16_tol = std_bf16_tol(0.025)
+
+
+def by_slices(plain, q, k, v, bias=None) -> torch.Tensor:
+    """A plain attention version run one (batch, head) slice at a time, so
+    that its fp32 scores fit the card at 16384 keys (34 GB for the whole
+    of PixArt-2048's self-attention)."""
+    out = torch.empty_like(q)
+    for b in range(q.shape[0]):
+        bb = None if bias is None else bias[b : b + 1] if bias.shape[0] > 1 else bias
+        for h in range(q.shape[2]):
+            sl = (slice(b, b + 1), slice(None), slice(h, h + 1))
+            out[sl] = plain(q[sl], k[sl], v[sl], bb)
+    return out
 
 
 def log(msg: str) -> None:
@@ -189,22 +239,26 @@ def timed_ms(label: str, fn, reps: int = 7, inner: int = 20) -> float:
     return dev_ms
 
 
-def beyond(got: torch.Tensor, want: torch.Tensor, tol) -> tuple[int, float, tuple]:
-    """Elements of `got` beyond atol + rtol·|want|, the largest error and
-    the (atol, rtol) used; `tol` is a pair or a function of `want` that
-    gives one."""
+def beyond(got: torch.Tensor, want: torch.Tensor, tol) -> tuple[int, float, float, tuple]:
+    """Elements of `got` beyond atol + rtol·|want|, the largest error, the
+    least atol that would pass with this rtol as a share of `want`'s
+    standard deviation (what flash_bf16_tol's share is derived from) and the
+    (atol, rtol) used; `tol` is a pair or a function of `want` that gives
+    one."""
     got32, want32 = got.float(), want.float()
     atol, rtol = tol(want32) if callable(tol) else tol
     err = (got32 - want32).abs()
     n_bad = int((err > atol + rtol * want32.abs()).sum())
-    return n_bad, float(err.max()), (atol, rtol)
+    least = float((err - rtol * want32.abs()).max().clamp(min=0))
+    return n_bad, float(err.max()), least / (float(want32.std()) or 1.0), (atol, rtol)
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol) -> float:
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: non-finite kernel output")
-    n_bad, max_err, (atol, rtol) = beyond(got, want, tol)
+    n_bad, max_err, least_per_std, (atol, rtol) = beyond(got, want, tol)
     REPORT.setdefault("cases", {})[name] = max_err
+    REPORT.setdefault("least_atol_per_std", {})[name] = least_per_std
     log(f"  {name}: max |kernel - plain| = {max_err:.3g} (atol {atol:.3g}, rtol {rtol:.3g})")
     if n_bad:
         raise AssertionError(
@@ -218,7 +272,7 @@ def rejects(name: str, faulty: torch.Tensor, want: torch.Tensor, tol) -> None:
     """Raises unless the check `compare` makes with `tol` fails `faulty`, a
     plain version with a deliberate fault, against `want`: shows that the
     check would catch a kernel with that fault at this shape."""
-    n_bad, max_err, (atol, rtol) = beyond(faulty, want, tol)
+    n_bad, max_err, _, (atol, rtol) = beyond(faulty, want, tol)
     REPORT.setdefault("faults_rejected", {})[name] = {
         "elements_beyond": n_bad, "of": want.numel(), "max_err": max_err,
     }
@@ -237,6 +291,8 @@ def key_padding_bias(lengths, tk, fill, dtype=torch.float32):
 
 def attention_cases() -> None:
     from ecad_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_reference,
         fused_attention,
         fused_attention_reference,
         rowblock_attention,
@@ -342,6 +398,29 @@ def attention_cases() -> None:
         rowblock_case("q_times_1e4", rnd(1, 16, 1, 128, dtype=dtype, scale=1e4),
                       rnd(1, 256, 1, 128, dtype=dtype), rnd(1, 256, 1, 128, dtype=dtype),
                       **({} if dtype == torch.bfloat16 else {"tol": HOT_FP32_TOL}))
+
+        # the streaming exact softmax (K6) at the reference's
+        # TestFlashAttention shapes (tests/test_ops.py:58-122), at their
+        # head dims and at the served 72 and 128; q×1e4 gives one-hot rows
+        def flash_case(name, q, k, v, bias=None):
+            compare(f"attention_flash/{tag}/{name}", flash_attention(q, k, v, bias),
+                    flash_attention_reference(q, k, v, bias),
+                    flash_bf16_tol if dtype == torch.bfloat16 else tol)
+
+        for d0 in (None, 72, 128):
+            d64, d32 = d0 or 64, d0 or 32  # the reference's head dims, or d0
+            flash_case(f"multiblock_kv_48_384_d{d64}", rnd(2, 48, 2, d64, dtype=dtype),
+                       rnd(2, 384, 2, d64, dtype=dtype), rnd(2, 384, 2, d64, dtype=dtype))
+            flash_case(f"unaligned_tq24_tk300_d{d32}", rnd(2, 24, 2, d32, dtype=dtype),
+                       rnd(2, 300, 2, d32, dtype=dtype), rnd(2, 300, 2, d32, dtype=dtype))
+            flash_case(f"key_padding_120_of_256_d{d64}", rnd(2, 32, 2, d64, dtype=dtype),
+                       rnd(2, 256, 2, d64, dtype=dtype), rnd(2, 256, 2, d64, dtype=dtype),
+                       key_padding_bias([120, 120], 256, -1e9))
+            flash_case(f"batch_broadcast_bias_b3_d{d64}", rnd(3, 32, 2, d64, dtype=dtype),
+                       rnd(3, 256, 2, d64, dtype=dtype), rnd(3, 256, 2, d64, dtype=dtype),
+                       key_padding_bias([100], 256, -1e9))
+        flash_case("q_times_1e4_d72", rnd(1, 32, 1, 72, dtype=dtype, scale=1e4),
+                   rnd(1, 256, 1, 72, dtype=dtype), rnd(1, 256, 1, 72, dtype=dtype))
 
 
 def kernel_phase(b2: int, b2_1024: int) -> dict:
@@ -531,6 +610,7 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
     ]
     del q4t, k4t, v4t, kc4t, vc4t
     rows += flux_kernel_rows(rnd, bound, nbytes)
+    rows += flash_kernel_rows(rnd, bound, nbytes)
 
     # K3 at the 1024² path's shape, for the report
     x4 = rnd(b2_1024, t4, dim)
@@ -645,25 +725,112 @@ def flux_kernel_rows(rnd, bound, nbytes) -> list[dict]:
     return [row5, row5b, row1]
 
 
+def flash_kernel_rows(rnd, bound, nbytes) -> list[dict]:
+    """The streaming exact softmax (K6): at PixArt-2048's self-attention
+    (2, 16384, 16, 72) and FLUX.1-dev-1536²'s joint attention (1, 9728, 24,
+    128), both reached through the router, and in its key-padding variant
+    at the first shape with per-batch lengths; each checked against its
+    plain version (run per slice) with `flash_bf16_tol`, which the run shows
+    rejects a plain version that drops or repeats one 64-key tile of the
+    16384; timed against the plain version, one
+    ``scaled_dot_product_attention`` call and its bound."""
+    import torch.nn.functional as F
+
+    from ecad_tpu_torch.ops import (
+        flash_attention_reference,
+        fused_attention,
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    t2k, t1536 = 16384, 9728
+    q, k, v = (rnd(2 * BATCH_2048, t2k, 16, 72) for _ in range(3))
+    qd, kd, vd = (rnd(1, t1536, 24, 128) for _ in range(3))
+    bias = key_padding_bias([t2k - 1000, 9000], t2k, -1e9)
+    reset_launch_counts()
+    got = fused_attention(q, k, v)
+    got_bias = fused_attention(q, k, v, bias)
+    got_d = fused_attention(qd, kd, vd)
+    torch.cuda.synchronize()
+    routed = launch_counts()
+    if routed != {**dict.fromkeys(COUNTERS, 0), "attention_flash": 2,
+                  "attention_flash_bias": 1}:
+        raise AssertionError(f"2048²/1536² shapes did not route to K6: {routed}")
+
+    def plain(q_, k_, v_, b_=None):
+        return by_slices(flash_attention_reference, q_, k_, v_, b_)
+
+    want = plain(q, k, v)
+    REPORT["flash_out_std"] = float(want.float().std())
+    err = compare(f"attention_flash/bf16/pixart2048_self_{2 * BATCH_2048}x16384x16x72",
+                  got, want, flash_bf16_tol)
+    # the same check must fail a kernel that skips or repeats one 64-key tile
+    rejects("pixart2048_drops_key_tile_1",
+            plain(q, torch.cat((k[:, :64], k[:, 128:]), 1), torch.cat((v[:, :64], v[:, 128:]), 1)),
+            want, flash_bf16_tol)
+    rejects("pixart2048_repeats_key_tile_1",
+            plain(q, torch.cat((k[:, :128], k[:, 64:]), 1), torch.cat((v[:, :128], v[:, 64:]), 1)),
+            want, flash_bf16_tol)
+    del want, got
+    err_b = compare("attention_flash_bias/bf16/pixart2048_key_padding_15384_9000",
+                    got_bias, plain(q, k, v, bias), flash_bf16_tol)
+    del got_bias
+    err_d = compare("attention_flash/bf16/flux1536_1x9728x24x128", got_d, plain(qd, kd, vd),
+                    flash_bf16_tol)
+    del got_d
+
+    o, od = torch.empty_like(q), torch.empty_like(qd)
+    flops, flops_d = 4 * q.shape[0] * 16 * t2k * t2k * 72, 4 * 24 * t1536 * t1536 * 128
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    qdt, kdt, vdt = (a.transpose(1, 2).contiguous() for a in (qd, kd, vd))
+    common = dict(route="cuda", source="ecad_tpu_torch/csrc/attention.cu",
+                  replaces="ecad_tpu/ops/attention.py:151 (_flash_kernel)")
+    rows = []
+    for name, max_err, args, (bnd, by), sdpa in (
+        ("attention_flash", err, (q, k, v), bound(nbytes(q, k, v, o), flops),
+         lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+        ("attention_flash_bias", err_b, (q, k, v, bias), bound(nbytes(q, k, v, o, bias), flops),
+         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)),
+        ("attention_flash_d128", err_d, (qd, kd, vd), bound(nbytes(qd, kd, vd, od), flops_d),
+         lambda: F.scaled_dot_product_attention(qdt, kdt, vdt)),
+    ):
+        rows.append(dict(
+            name=name, **common, max_abs_err=max_err,
+            ms=timed_ms(name, lambda: fused_attention(*args), reps=5, inner=5),
+            plain_ms=timed_ms(f"{name}/plain", lambda: plain(*args), reps=3, inner=2),
+            bound_ms=bnd, bound_by=by,
+            library_ms=timed_ms(f"{name}/sdpa", sdpa, reps=5, inner=5),
+        ))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
 
 
-def expected_counts(masks, clamp: bool = False) -> dict[str, int]:
+# the kernels of PixArt's self- and cross-attention at each image side: the
+# exact kernels (K1/K2) at 256², the clamp kernel (K4) in both of its
+# variants at 1024², the streaming kernel (K6) and K4's bias variant at
+# 2048² (16384 → 120 keys is an 8 MiB score tile: the clamp route)
+ATTENTION_KERNELS = {
+    256: ("attention", "attention_bias"),
+    1024: ("attention_long", "attention_long_bias"),
+    2048: ("attention_flash", "attention_long_bias"),
+}
+
+
+def expected_counts(masks, side: int = 256) -> dict[str, int]:
     """Launches per trajectory that a schedule's masks imply: one
-    self-attention per recomputed attn1, one cross-attention per attn2, one
-    modlnorm per attn1 and ff and one per step for the final norm. At 256²
-    attention takes the exact kernels (K1/K2), at 1024² the clamp kernel
-    (K4) in both of its variants."""
+    self-attention per recomputed attn1, one cross-attention per attn2 (in
+    the kernels of ATTENTION_KERNELS[side]), one modlnorm per attn1 and ff
+    and one per step for the final norm."""
     arr = np.array(masks, dtype=bool)  # (steps, blocks, 3), step 0 forced
-    self_attn, cross_attn = int(arr[..., 0].sum()), int(arr[..., 1].sum())
+    self_kernel, cross_kernel = ATTENTION_KERNELS[side]
     return {
         **dict.fromkeys(COUNTERS, 0),
-        "attention": 0 if clamp else self_attn,
-        "attention_bias": 0 if clamp else cross_attn,
-        "attention_long": self_attn if clamp else 0,
-        "attention_long_bias": cross_attn if clamp else 0,
+        self_kernel: int(arr[..., 0].sum()),
+        cross_kernel: int(arr[..., 1].sum()),
         "modlnorm": int(arr[..., 0].sum() + arr[..., 2].sum()) + arr.shape[0],
     }
 
@@ -687,15 +854,19 @@ def flux_expected_counts(masks, num_blocks: int, rowblock: bool) -> dict[str, in
     }
 
 
-def small_reference_check(sized: bool = False) -> dict:
+def small_reference_check(side: int = 256) -> dict:
     """A tiny fp32 trajectory through the kernels on the card against the
     same weights and noise through the plain versions on the CPU.
 
-    sized=False: PixArt-256 style (64 tokens, exact-softmax kernels), 20
-    steps that reuse attn2 and ff on odd steps. sized=True: 1024 style —
+    side=256: PixArt-256 style (64 tokens, exact-softmax kernels), 20
+    steps that reuse attn2 and ff on odd steps. side=1024: 1024 style —
     the size conditions (dim 96, a multiple of 3), a 96×96 latent (2304
     tokens, so self-attention and the 2304→8 cross-attention both take the
-    clamp kernel) and TGATE gating at step 4 of 8."""
+    clamp kernel) and TGATE gating at step 4 of 8. side=2048: a 184×184
+    latent (8464 tokens: past 8192 keys, so self-attention takes the
+    streaming kernel K6, and the 8464→8 cross-attention the clamp kernel),
+    two heads of 32, one prompt (2B=2, to keep the CPU's plain attention
+    at 1.1 GB of scores), 4 steps."""
     from ecad_tpu_torch.models.pixart import PixArtConfig, init_model
     from ecad_tpu_torch.ops import launch_counts, reset_launch_counts
     from ecad_tpu_torch.pipelines import (
@@ -705,10 +876,15 @@ def small_reference_check(sized: bool = False) -> dict:
     )
     from ecad_tpu_torch.schedules import PixArtCacheSchedule
 
-    if sized:
+    batch = 2
+    if side == 1024:
         cfg = PixArtConfig.tiny(dtype=torch.float32, dim=96, sample_size=96,
                                 use_additional_conditions=True)
         steps, cls, kwargs = 8, TGATEPixArtPipeline, {"gate_step": 4}
+    elif side == 2048:
+        cfg = PixArtConfig.tiny(dtype=torch.float32, num_heads=2, head_dim=32,
+                                sample_size=184)
+        steps, cls, kwargs, batch = 4, PixArtPipeline, {}, 1
     else:
         cfg = PixArtConfig.tiny(dtype=torch.float32)
         steps, cls, kwargs = STEPS, PixArtPipeline, {}
@@ -720,12 +896,13 @@ def small_reference_check(sized: bool = False) -> dict:
     arr[1:kwargs.get("gate_step", steps):2, :, 1:] = False
     sched = PixArtCacheSchedule.from_numpy(arr.reshape(steps, -1), steps, cfg.num_blocks)
     rng = np.random.default_rng(0)
-    side = cfg.sample_size
-    noise = torch.from_numpy(rng.standard_normal((2, side, side, 4), dtype=np.float32))
-    text = torch.from_numpy(rng.standard_normal((2, 8, 32), dtype=np.float32))
-    neg = torch.from_numpy(rng.standard_normal((2, 8, 32), dtype=np.float32))
-    tm = torch.tensor([[1] * 5 + [0] * 3, [1] * 8])
-    nm = torch.tensor([[1] + [0] * 7] * 2)
+    latent = cfg.sample_size
+    noise = torch.from_numpy(
+        rng.standard_normal((batch, latent, latent, 4), dtype=np.float32))
+    text = torch.from_numpy(rng.standard_normal((batch, 8, 32), dtype=np.float32))
+    neg = torch.from_numpy(rng.standard_normal((batch, 8, 32), dtype=np.float32))
+    tm = torch.tensor([[1] * 5 + [0] * 3, [1] * 8])[:batch]
+    nm = torch.tensor([[1] + [0] * 7] * batch)
     outs = []
     for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
         pipe = cls(PixArtPipelineConfig(cfg, steps), model, sched, **kwargs)
@@ -735,18 +912,17 @@ def small_reference_check(sized: bool = False) -> dict:
     counts = launch_counts()
     err = float((outs[0] - outs[1]).abs().max())
     scale = float(outs[0].abs().max())
-    label = "1024-style (size conditions, TGATE)" if sized else "256-style"
+    label = {256: "256-style", 1024: "1024-style (size conditions, TGATE)",
+             2048: "2048-style (8464 tokens, streaming route)"}[side]
     log(f"  tiny fp32 {label} trajectory, card kernels vs CPU plain: max err "
         f"{err:.3g} of max |latent| {scale:.3g}; card launches {counts}")
-    want_kernels = ("attention_long", "attention_long_bias") if sized else (
-        "attention", "attention_bias")
-    if not all(counts[k] > 0 for k in (*want_kernels, "modlnorm")):
+    if not all(counts[k] > 0 for k in (*ATTENTION_KERNELS[side], "modlnorm")):
         raise AssertionError(f"tiny {label} trajectory missed a kernel: {counts}")
     # fp32 throughout (TF32 off). 256-style: 20 steps of CFG 4.5 amplify
     # per-step rounding differences of ~1e-6 on O(1) latents to ~1e-4.
-    # 1024-style: random-weight latents grow to O(100s) (x0 = x/α), so the
-    # bound is relative to the largest one.
-    limit = 1e-5 * scale if sized else 1e-3
+    # 1024- and 2048-style: random-weight latents grow to O(100s) (x0 =
+    # x/α), so the bound is relative to the largest one.
+    limit = 1e-3 if side == 256 else 1e-5 * scale
     if not err <= limit:
         raise AssertionError(f"tiny {label} trajectory mismatch {err} > {limit}")
     return {"max_err": err, "max_abs_latent": scale, "launches": counts}
@@ -756,6 +932,7 @@ def kernel_family(name: str) -> str:
     """Family of a device kernel, from its (mangled or demangled) name."""
     for kernel, family in (("attn_clamp_bf16_kernel", "attention_long"),
                            ("attn_rowblock_bf16_kernel", "attention_rowblock"),
+                           ("attn_flash_bf16_kernel", "attention_flash"),
                            ("attn_bf16_kernel", "attention")):
         if kernel in name:
             biased = "true>" in name or "ELb1E" in name
@@ -907,7 +1084,7 @@ def main_path() -> dict:
     from ecad_tpu_torch.schedules import PixArtCacheSchedule
 
     log("main path: PixArt-α 256, full width, batch 8, 20 steps")
-    REPORT["tiny_trajectory"] = small_reference_check()
+    REPORT["tiny_trajectory"] = small_reference_check(256)
     config = PixArtConfig()
     t0 = time.perf_counter()
     model = init_model(config, 0, "cuda")
@@ -940,7 +1117,7 @@ def main_path_1024() -> dict:
     from ecad_tpu_torch.schedules import PixArtCacheSchedule
 
     log("main path: PixArt-α 1024, full width, batch 2, 20 steps")
-    REPORT["tiny_trajectory_1024"] = small_reference_check(sized=True)
+    REPORT["tiny_trajectory_1024"] = small_reference_check(1024)
     config = PixArtConfig(sample_size=128, use_additional_conditions=True)
     t0 = time.perf_counter()
     model = init_model(config, 0, "cuda")
@@ -959,7 +1136,7 @@ def main_path_1024() -> dict:
         "tgate": tgate_cls(pcfg, model, tgate, **tgate_kwargs),
     }
     result = drive(pipes, path_inputs(config, BATCH_1024), vae.decode_device,
-                   BATCH_1024, 1024, lambda pipe: expected_counts(pipe.masks, clamp=True),
+                   BATCH_1024, 1024, lambda pipe: expected_counts(pipe.masks, 1024),
                    order=("default", "ours_fast", "tgate", "tgate", "ours_fast", "default"))
     for name in ("ours_fast", "tgate"):
         result[f"speedup_{name}"] = (
@@ -967,6 +1144,39 @@ def main_path_1024() -> dict:
         )
     log(f"  ratio default / ours_fast {result['speedup_ours_fast']:.4f}, "
         f"default / tgate {result['speedup_tgate']:.4f}")
+    del model, vae, pipes
+    torch.cuda.empty_cache()
+    return result
+
+
+def main_path_2048() -> dict:
+    """Full-width PixArt-Σ at 2048² (the 2K checkpoint's shapes: a 256×256
+    latent, 16384 image tokens, no size conditions), batch 1 with CFG, 20
+    steps under Σ's default and ``ours_fast`` (the paper's 256² schedule
+    served at 2048²), each decoded by the random VAE to 2048² uint8."""
+    from ecad_tpu_torch.models.pixart import PixArtConfig, init_model
+    from ecad_tpu_torch.models.vae import random_decoder_pipeline
+    from ecad_tpu_torch.pipelines import PixArtPipeline, PixArtPipelineConfig
+    from ecad_tpu_torch.schedules import PixArtCacheSchedule
+
+    log("main path: PixArt-Σ 2048, full width, batch 1, 20 steps")
+    REPORT["tiny_trajectory_2048"] = small_reference_check(2048)
+    config = PixArtConfig(sample_size=256)
+    t0 = time.perf_counter()
+    model = init_model(config, 0, "cuda")
+    vae = random_decoder_pipeline(4, "cuda")
+    torch.cuda.synchronize()
+    REPORT["init_2048_s"] = time.perf_counter() - t0
+    pcfg = PixArtPipelineConfig(model=config, num_inference_steps=STEPS)
+    pipes = {
+        "default": PixArtPipeline(pcfg, model, PixArtCacheSchedule.from_json(SIGMA_DEFAULT)),
+        "ours_fast": PixArtPipeline(pcfg, model, PixArtCacheSchedule.from_json(SIGMA_OURS_FAST)),
+    }
+    result = drive(pipes, path_inputs(config, BATCH_2048), vae.decode_device,
+                   BATCH_2048, 2048, lambda pipe: expected_counts(pipe.masks, 2048),
+                   order=("default", "ours_fast", "ours_fast", "default"))
+    result["speedup"] = result["default"]["ms_per_img"] / result["ours_fast"]["ms_per_img"]
+    log(f"  ratio default / ours_fast {result['speedup']:.4f}")
     del model, vae, pipes
     torch.cuda.empty_cache()
     return result
@@ -1170,6 +1380,12 @@ def entry_points() -> dict:
     flux = FluxConfig()
     flux_masks = flux_step_masks(FluxCacheSchedule.from_json(FLUX_OURS_FAST_256), flux)
     return {
+        # the paper's Σ 256² schedule served at 2048²
+        "sigma_ours_fast_2048": run_cli(
+            "sigma_ours_fast_2048",
+            ["PixArtSigmaImageGenerator", "--random-weights", "--height", "2048",
+             "--width", "2048", "--batch-size", "1", "--schedule", str(SIGMA_OURS_FAST)],
+            1, 256, expected_counts(masks(SIGMA_OURS_FAST), 2048)),
         "ours_fast_256": run_cli(
             "ours_fast_256",
             ["PixArtAlphaImageGenerator", "--random-weights", "--schedule", str(OURS_FAST)],
@@ -1178,8 +1394,7 @@ def entry_points() -> dict:
             "tgate_1024",
             ["PixArtAlphaImageGenerator", "--random-weights", "--batch-size", "2",
              "--schedule", str(TGATE_1024)],
-            2, 128, expected_counts(masks(TGATE_1024, gate["kwargs"]["gate_step"]),
-                                    clamp=True)),
+            2, 128, expected_counts(masks(TGATE_1024, gate["kwargs"]["gate_step"]), 1024)),
         # full-width FLUX.1-dev at 256²: the images are the latent
         # visualisation of (32, 32, 16) latents, as in the reference
         "flux_ours_fast_256": run_cli(
@@ -1213,14 +1428,21 @@ def main() -> None:
     kernels = phase("kernels", kernel_phase, b2=2 * BATCH, b2_1024=2 * BATCH_1024)
     REPORT["main_path"] = phase("main256", main_path)
     REPORT["main_path_1024"] = phase("main1024", main_path_1024)
+    REPORT["main_path_2048"] = phase("main2048", main_path_2048)
     REPORT["flux"] = phase("flux", flux_path)
     REPORT["entry_point"] = phase("cli", entry_points)
     args.report.parent.mkdir(parents=True, exist_ok=True)
     # launches from the run of each kernel's path: PixArt-256 `ours_fast`
     # for K1-K3, PixArt-1024 `ours_fast` for K4, FLUX-1024 `fast` for K5,
-    # FLUX-256 `ours_fast` for K1 at D=128
+    # FLUX-256 `ours_fast` for K1 at D=128, PixArt-2048 `ours_fast` for K6;
+    # K6 at D=128 reads FLUX-1024 `fast`'s count, the largest D=128 path
+    # served (FLUX.1-dev at 1536² would reach K6, and is not run)
     for name, row in kernels.items():
-        if name.startswith("attention_long"):
+        if name == "attention_flash_d128":
+            row["launches"] = REPORT["flux"]["1024"]["fast"]["launches"]["attention_flash"]
+        elif name.startswith("attention_flash"):
+            row["launches"] = REPORT["main_path_2048"]["ours_fast"]["launches"][name]
+        elif name.startswith("attention_long"):
             row["launches"] = REPORT["main_path_1024"]["ours_fast"]["launches"][name]
         elif name.startswith("attention_rowblock"):
             row["launches"] = REPORT["flux"]["1024"]["fast"]["launches"][name]
@@ -1231,6 +1453,7 @@ def main() -> None:
     REPORT["kernels"] = kernels
     args.report.write_text(json.dumps(REPORT, indent=1))
     mp, mp4, fx = REPORT["main_path"], REPORT["main_path_1024"], REPORT["flux"]
+    mp2k = REPORT["main_path_2048"]
     print(json.dumps({
         "card": smi,
         "ms_per_img_256": {k: mp[k]["ms_per_img"] for k in ("ours_fast", "default")},
@@ -1238,6 +1461,9 @@ def main() -> None:
         "ms_per_img_1024": {k: mp4[k]["ms_per_img"] for k in ("ours_fast", "default", "tgate")},
         "speedup_1024": {k: mp4[f"speedup_{k}"] for k in ("ours_fast", "tgate")},
         "launches_1024": {k: mp4[k]["launches"] for k in ("ours_fast", "default", "tgate")},
+        "ms_per_img_2048": {k: mp2k[k]["ms_per_img"] for k in ("ours_fast", "default")},
+        "speedup_2048": mp2k["speedup"],
+        "launches_2048": {k: mp2k[k]["launches"] for k in ("ours_fast", "default")},
         "flux_ms_per_img_1024": {k: fx["1024"][k]["ms_per_img"] for k in ("fast", "default")},
         "flux_speedup_1024": fx["speedup_1024_fast"],
         "flux_ms_per_img_256": {k: fx["256"][k]["ms_per_img"] for k in ("ours_fast", "default")},

@@ -1,10 +1,23 @@
 // Fused attention forward for Hopper (sm_90a), in two softmax variants
-// that share one tensor-core body, under three kernel names:
+// that share one tensor-core body, under four kernel names:
 //
 //   * exact (max-subtract): softmax(q·kᵀ/√d + bias)·v. Replaces the Pallas
 //     kernels `_attn_kernel` (ecad_tpu/ops/attention.py:58, no bias) and
 //     `_attn_kernel_bias` (:75, fp32 additive bias) that `fused_attention`
 //     (:677) launches for every (batch·head) tile. Kernel `attn_bf16_kernel`.
+//     The same body, under the name `attn_flash_bf16_kernel` (K6), replaces
+//     the streaming kernel `_flash_kernel` (:151-197), which
+//     `_flash_attention` (:573-673) launches past 8192×128 key elements —
+//     PixArt-2048's 16384-token self-attention: s = q·kᵀ in fp32 from
+//     operands in their own dtype, times 1/√D on the fp32 scores (q is not
+//     pre-scaled), plus the fp32 key-padding bias, an online softmax with
+//     running max and sum in fp32, p cast to v's dtype for p·v, one divide.
+//     Here the scores move to the log2 domain (×log2e) and exp is exp2:
+//     exp(x − m) to fp32 rounding. The Pallas wrapper pads Tk to a multiple
+//     of 1536 and gives the pad keys a −1e9 bias (weight exactly 0); here
+//     they are excluded by bounds. In a row whose every real key is masked
+//     as well, the reference spreads the weight over Tk_pad keys (pad rows
+//     of v are 0) and this kernel over Tk; no served shape has such a row.
 //   * clamp (no row max): the function of `_transposed_kernel` (:285) and
 //     `_transposed_kernel_nobias` (:344), launched by `_transposed_attention`
 //     (:348-455) for lane-padded head dims (PixArt's D=72) at or above a
@@ -41,7 +54,12 @@
 // (4096 → 120 keys) moves ≈78 MB for 9e9 flops and is bound by bytes
 // (0.023 ms at 3.35 TB/s). Row-block path, at FLUX-1024's joint attention
 // (B=1, 24 heads, 4608×4608, D=128): 2.61e11 flops on 22.6 MB, the tensor
-// cores bound it (0.264 ms). At D=128 a thread holds its q fragments (32
+// cores bound it (0.264 ms). Streaming path (K6), at PixArt-2048's
+// self-attention (2B=2, 16 heads, 16384×16384, D=72): 2.47e12 flops on
+// 302 MB, the tensor cores bound it (2.50 ms); at FLUX.1-dev-1536²'s joint
+// attention (1, 9728, 24, 128): 1.16e12 flops on 239 MB (1.18 ms). Both
+// keep every score in registers: a key tile of 64 at a time, 256 tiles per
+// query tile at 16384 keys. At D=128 a thread holds its q fragments (32
 // registers), its share of the 16×128 fp32 accumulator (64) and of a 16×64
 // score tile (32): ptxas gives 165 registers (168 with the bias) and no
 // spills; a block takes 69.6 KB of shared memory (opt-in above 48 KB), so
@@ -424,8 +442,9 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
   }
 }
 
-// Three kernel names, so that a profile tells the exact softmax, the
-// transposed-route clamp softmax (K4) and the row-block-route one (K5) apart.
+// Four kernel names, so that a profile tells the exact softmax, the
+// transposed-route clamp softmax (K4), the row-block-route one (K5) and the
+// exact softmax of the streaming route (K6) apart.
 template <int DP, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads) attn_bf16_kernel(const Params p) {
   attn_bf16_body<DP, HAS_BIAS, false>(p);
@@ -437,6 +456,10 @@ __global__ void __launch_bounds__(kThreads) attn_clamp_bf16_kernel(const Params 
 template <int DP, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads) attn_rowblock_bf16_kernel(const Params p) {
   attn_bf16_body<DP, HAS_BIAS, true>(p);
+}
+template <int DP, bool HAS_BIAS>
+__global__ void __launch_bounds__(kThreads) attn_flash_bf16_kernel(const Params p) {
+  attn_bf16_body<DP, HAS_BIAS, false>(p);
 }
 
 // ---------------------------------------------------------------------------
@@ -559,14 +582,15 @@ template <int DP>
 cudaError_t launch_bf16(const Params& p, dim3 grid, bool has_bias, int variant,
                         cudaStream_t stream) {
   constexpr int kSmem = bf16_smem_bytes<DP>();
-  void (*const kernels[3][2])(const Params) = {
+  void (*const kernels[4][2])(const Params) = {
       {attn_bf16_kernel<DP, false>, attn_bf16_kernel<DP, true>},
       {attn_clamp_bf16_kernel<DP, false>, attn_clamp_bf16_kernel<DP, true>},
       {attn_rowblock_bf16_kernel<DP, false>, attn_rowblock_bf16_kernel<DP, true>},
+      {attn_flash_bf16_kernel<DP, false>, attn_flash_bf16_kernel<DP, true>},
   };
   auto kernel = kernels[variant][has_bias];
   // above 48 KB dynamic shared memory needs an opt-in (once per kernel)
-  static bool opted_in[3][2] = {{false, false}, {false, false}, {false, false}};
+  static bool opted_in[4][2] = {};
   if (kSmem > 48 * 1024 && !opted_in[variant][has_bias]) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -583,15 +607,16 @@ cudaError_t launch_bf16(const Params& p, dim3 grid, bool has_bias, int variant,
 // (b, t, h) each, then the bias as (b, h, q, k). bias may be null.
 // variant: 0 = exact softmax (scale = 1/√D); 1 = clamp softmax on the
 // transposed route (K4), 2 = the same on the row-block route (K5), both with
-// scale = scale·log2e, exact in q's dtype. fp32 inputs take the SIMT kernel
-// in the exact or the clamp variant. Returns the cudaError_t of the launch
-// (0 on success).
+// scale = scale·log2e, exact in q's dtype; 3 = the exact softmax on the
+// streaming route (K6, scale = 1/√D). fp32 inputs take the SIMT kernel in
+// the exact (0, 3) or the clamp (1, 2) variant. Returns the cudaError_t of
+// the launch (0 on success).
 extern "C" int ecad_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                                   const float* bias, const long long* strides, int B, int H, int Tq,
                                   int Tk, int D, float scale, int vec_ok, int variant,
                                   void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 1 || D > kMaxD || (long long)B * H > 65535 ||
-      variant < 0 || variant > 2)
+      variant < 0 || variant > 3)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -611,7 +636,7 @@ extern "C" int ecad_attention_fwd(int dtype, const void* q, const void* k, const
   p.scale = scale;
   p.vec_ok = vec_ok;
   const bool has_bias = bias != nullptr;
-  const bool cl = variant != 0;
+  const bool cl = variant == 1 || variant == 2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
   if (dtype == 0) {

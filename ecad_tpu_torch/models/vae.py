@@ -8,9 +8,11 @@ does; inside, the convolutions run NCHW through cuDNN. GroupNorm runs in
 fp32 with eps 1e-6 and casts back. The mid-attention is plain
 ``matmul``/``softmax`` (the reference uses plain XLA attention there, :102),
 with fp32 logits and softmax and probabilities cast back, as
-``jax.nn.dot_product_attention`` does. Module and parameter names follow
-the reference's param tree, so `bridge.vae_state_dict` maps one onto the
-other.
+``jax.nn.dot_product_attention`` does, taken in blocks of query rows so
+that a 2048² image's 65536 tokens never hold all their logits at once
+(each row's softmax is its own, so the function is unchanged). Module and
+parameter names follow the reference's param tree, so
+`bridge.vae_state_dict` maps one onto the other.
 """
 
 from __future__ import annotations
@@ -24,6 +26,12 @@ from torch import nn
 from torch.nn import functional as F
 
 from .. import resolve_device
+
+# fp32 logits the mid-attention holds at once (1 GiB): query rows are taken
+# in blocks of this many divided by (batch · tokens) — one block at 256²
+# (batch 8, 1024 tokens), two at 1024² (batch 2, 16384 tokens), 16 blocks
+# of 4096 rows at 2048² (batch 1, 65536 tokens)
+_MID_ATTENTION_LOGITS = 2**28
 
 
 @dataclass(frozen=True)
@@ -103,9 +111,14 @@ class MidAttention(nn.Module):
         b, ch, hh, ww = x.shape
         h = self.group_norm(x).flatten(2).transpose(1, 2)  # (B, HW, C)
         q, k, v = self.to_q(h), self.to_k(h), self.to_v(h)
-        logits = (q.float() @ k.float().transpose(1, 2)) * (1.0 / math.sqrt(ch))
-        probs = torch.softmax(logits, dim=-1).to(v.dtype)
-        out = self.to_out(probs @ v)
+        kt = k.float().transpose(1, 2)
+        t = hh * ww
+        rows = max(1, _MID_ATTENTION_LOGITS // (b * t))
+        attn = torch.empty_like(q)
+        for r0 in range(0, t, rows):
+            logits = (q[:, r0 : r0 + rows].float() @ kt) * (1.0 / math.sqrt(ch))
+            attn[:, r0 : r0 + rows] = torch.softmax(logits, dim=-1).to(v.dtype) @ v
+        out = self.to_out(attn)
         return x + out.transpose(1, 2).reshape(b, ch, hh, ww)
 
 

@@ -10,6 +10,8 @@ from . import attention as _attention
 from . import fused as _fused
 from .attention import (
     attention_route,
+    flash_attention,
+    flash_attention_reference,
     fused_attention,
     fused_attention_reference,
     rowblock_attention,
@@ -38,6 +40,8 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "attention_route",
+    "flash_attention",
+    "flash_attention_reference",
     "fused_attention",
     "fused_attention_reference",
     "rowblock_attention",

@@ -22,18 +22,23 @@ the way that one does (`attention_route`):
   launches it under its own kernel name and counters; plain version:
   `rowblock_attention_reference`.
 
-All three run in one CUDA C++ kernel source, ``csrc/attention.cu`` (a
+* **flash** — the exact softmax of the reference's streaming kernel
+  ``_flash_kernel`` (:151), which ``_flash_attention`` (:573-673) takes
+  past 8192×128 key elements (PixArt-2048's 16384-token self-attention):
+  q·kᵀ in fp32, then ×1/√D, plus the key-padding bias, p rounded to v's
+  dtype for p·v. `flash_attention` launches it under its own kernel name
+  and counters; plain version: `flash_attention_reference`.
+
+All four run in one CUDA C++ kernel source, ``csrc/attention.cu`` (a
 compile-time variant each; the source says what bounds each on the H100).
-The reference's streaming flash kernel (K6, past 8192×128 key elements) is
-not ported yet: on a CUDA tensor that route raises `NotImplementedError`;
-on a CPU tensor it runs the plain version of the same function.
 
 On a CPU tensor every wrapper runs its plain version. On a CUDA tensor it
 launches the kernel or raises: there is no fallback. Each launch adds one
 to ``LAUNCHES``: ``attention`` / ``attention_bias`` (exact, without / with
 a bias), ``attention_long`` / ``attention_long_bias`` (clamp, transposed
-route) and ``attention_rowblock`` / ``attention_rowblock_bias`` (clamp,
-row-block route).
+route), ``attention_rowblock`` / ``attention_rowblock_bias`` (clamp,
+row-block route) and ``attention_flash`` / ``attention_flash_bias``
+(exact, streaming route).
 """
 
 from __future__ import annotations
@@ -51,9 +56,14 @@ LAUNCHES = {
     "attention_long_bias": 0,
     "attention_rowblock": 0,
     "attention_rowblock_bias": 0,
+    "attention_flash": 0,
+    "attention_flash_bias": 0,
 }
 # kernel variant of the C entry point → counter name (without "_bias")
-_VARIANTS = {0: "attention", 1: "attention_long", 2: "attention_rowblock"}
+_VARIANTS = {
+    0: "attention", 1: "attention_long", 2: "attention_rowblock", 3: "attention_flash",
+}
+_CLAMP_VARIANTS = (1, 2)
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 MAX_HEAD_DIM = 128
@@ -86,7 +96,7 @@ def _kernel():
             ctypes.c_int,  # D
             ctypes.c_float,  # scale
             ctypes.c_int,  # vec_ok
-            ctypes.c_int,  # variant: 0 exact, 1 clamp (K4), 2 row-block (K5)
+            ctypes.c_int,  # variant: 0 exact, 1 clamp (K4), 2 row-block (K5), 3 flash (K6)
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -231,6 +241,36 @@ def rowblock_attention_reference(
     return transposed_attention_reference(q, k, v, bias)
 
 
+def flash_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the streaming kernel (and of
+    ``_flash_kernel``): s = q·kᵀ in fp32 from operands in their own dtype,
+    times 1/√D on the fp32 scores (q is not pre-scaled, :172-178), plus the
+    fp32 key-padding bias, the row max subtracted, natural exp, Σp in fp32,
+    p rounded to v's dtype for p·v (:187-190), one divide, one cast. The
+    reference streams keys in blocks of 1536 with an online max; that
+    changes only which running max each p is rounded against before the
+    cast, and the order of the fp32 sums. Keys past Tk do not exist here;
+    the reference pads them with a −1e9 bias, so they weigh exactly 0 —
+    except in a row whose every real key is masked too, where the
+    reference spreads the weight over Tk_pad keys (pad rows of v are 0)
+    and this over Tk."""
+    d = q.shape[-1]
+    qf = q.float().permute(0, 2, 1, 3)
+    kf = k.float().permute(0, 2, 1, 3)
+    vf = v.float().permute(0, 2, 1, 3)
+    s = (qf @ kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    if bias is not None:
+        s = s + bias.float()
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = (p.to(v.dtype).float() @ vf) / p.sum(dim=-1, keepdim=True)
+    return out.to(q.dtype).permute(0, 2, 1, 3).contiguous()
+
+
 def _launch(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -240,7 +280,8 @@ def _launch(
 ) -> torch.Tensor:
     """One launch of the CUDA kernel on q's device: `variant` 0 is the
     exact softmax, 1 the clamp softmax of the transposed route (K4), 2 that
-    of the row-block route (K5). Counts it."""
+    of the row-block route (K5), 3 the exact softmax of the streaming route
+    (K6). Counts it."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -264,7 +305,7 @@ def _launch(
         and all(t.data_ptr() % 16 == 0 for t in tensors)
         and all((s * elem) % 16 == 0 for s in strides[:12])
     )
-    scale = clamp_scale(d, q.dtype) if variant else 1.0 / math.sqrt(d)
+    scale = clamp_scale(d, q.dtype) if variant in _CLAMP_VARIANTS else 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
         status = _kernel()(
             _DTYPES[q.dtype],
@@ -296,7 +337,7 @@ def transposed_attention(
     """The clamp softmax (the reference's ``_transposed_attention``) at any
     shape: (B, Tq, H, D) × (B, Tk, H, D) → (B, Tq, H, D), with no bias or a
     key-padding bias (B|1, 1, 1, Tk), added in fp32 in the log2 domain."""
-    _check_clamp(q, k, v, bias)
+    _check_key_padding(q, k, v, bias)
     if q.device.type == "cpu":
         return transposed_attention_reference(q, k, v, bias)
     return _launch(q, k, v, bias, variant=1)
@@ -311,18 +352,34 @@ def rowblock_attention(
     """The clamp softmax of the reference's ``_rowblock_attention`` at any
     shape: (B, Tq, H, D) × (B, Tk, H, D) → (B, Tq, H, D), with no bias or a
     key-padding bias (B|1, 1, 1, Tk), added in fp32 in the log2 domain."""
-    _check_clamp(q, k, v, bias)
+    _check_key_padding(q, k, v, bias)
     if q.device.type == "cpu":
         return rowblock_attention_reference(q, k, v, bias)
     return _launch(q, k, v, bias, variant=2)
 
 
-def _check_clamp(q, k, v, bias) -> None:
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The exact softmax of the reference's streaming kernel
+    (``_flash_attention``) at any shape: (B, Tq, H, D) × (B, Tk, H, D) →
+    (B, Tq, H, D), with no bias or a key-padding bias (B|1, 1, 1, Tk),
+    added in fp32 to the scaled scores."""
+    _check_key_padding(q, k, v, bias)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, bias)
+    return _launch(q, k, v, bias, variant=3)
+
+
+def _check_key_padding(q, k, v, bias) -> None:
     _check(q, k, v, bias)
     if not _key_padding_bias_ok(bias, q.shape[0]):
         raise ValueError(
-            "the clamp kernel takes only key-padding biases (B|1, 1, 1, Tk);"
-            f" got {tuple(bias.shape)}"
+            "the clamp and streaming kernels take only key-padding biases "
+            f"(B|1, 1, 1, Tk); got {tuple(bias.shape)}"
         )
 
 
@@ -337,18 +394,12 @@ def fused_attention(
     is added in fp32. The shapes pick the softmax (`attention_route`)."""
     _check(q, k, v, bias)
     route = attention_route(tuple(q.shape), k.shape[1], bias)
-    on_cpu = q.device.type == "cpu"
     if route == "clamp":
         return transposed_attention(q, k, v, bias)
     if route == "rowblock":
         return rowblock_attention(q, k, v, bias)
     if route == "flash":
-        if on_cpu:
-            return fused_attention_reference(q, k, v, bias)
-        raise NotImplementedError(
-            "the streaming flash kernel (ecad_tpu/ops/attention.py:151, K6) "
-            f"for Tk {k.shape[1]} × D {q.shape[-1]} is not ported yet"
-        )
-    if on_cpu:
+        return flash_attention(q, k, v, bias)
+    if q.device.type == "cpu":
         return fused_attention_reference(q, k, v, bias)
     return _launch(q, k, v, bias, variant=0)

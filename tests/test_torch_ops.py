@@ -18,7 +18,10 @@ from ecad_tpu.ops import modulated_layer_norm as jax_modulated_layer_norm
 from ecad_tpu_torch.models.common import layer_norm
 from ecad_tpu_torch.ops import (
     attention_route,
+    flash_attention,
+    flash_attention_reference,
     fused_attention,
+    fused_attention_reference,
     launch_counts,
     modulated_layer_norm,
     modulated_layer_norm_reference,
@@ -160,11 +163,12 @@ def test_modulated_layer_norm_vs_model_form():
 
 def test_cpu_path_counts_no_launches():
     """On CPU tensors the wrappers run the plain versions: no kernel launch
-    is counted, on either softmax route."""
+    is counted, on any softmax route."""
     before = launch_counts()
     assert set(before) == {
         "attention", "attention_bias", "attention_long", "attention_long_bias",
-        "attention_rowblock", "attention_rowblock_bias", "modlnorm",
+        "attention_rowblock", "attention_rowblock_bias", "attention_flash",
+        "attention_flash_bias", "modlnorm",
     }
     x = torch.randn(2, 4, 8)
     s = torch.zeros(2, 1, 8)
@@ -176,6 +180,11 @@ def test_cpu_path_counts_no_launches():
     q = torch.randn(1, 1536, 1, 128)  # a row-block-route shape
     fused_attention(q, q, q)
     rowblock_attention(q[:, :8], q, q, torch.zeros(1, 1, 1, 1536))
+    q = torch.randn(1, 1024, 1, 16)
+    k = torch.randn(1, 8200, 1, 16)  # past 8192 keys and 8 MiB: the streaming route
+    assert attention_route(tuple(q.shape), 8200) == "flash"
+    fused_attention(q, k, k)
+    flash_attention(q[:, :8], k, k, torch.zeros(1, 1, 1, 8200))
     out = modulated_layer_norm(x, s, s)
     assert launch_counts() == before
     torch.testing.assert_close(out, modulated_layer_norm_reference(x, s, s))
@@ -291,6 +300,102 @@ def test_rowblock_reference_matches_pallas(case, dtype, monkeypatch):
     torch.testing.assert_close(rowblock_attention(*args), got, rtol=0, atol=0)
 
 
+# ---------------------------------------------------------------------------
+# the streaming exact softmax (K6, _flash_kernel)
+# ---------------------------------------------------------------------------
+
+# fp32: the same function on both sides, only the summation order differs
+# (the reference's online softmax over 128-key blocks here). bf16: both
+# sides round p to bf16, the reference against each block's running max,
+# the port against the row's max (a different rounding of the same p, of
+# relative size 2^-9, averaged over the keys), and cast the fp32 result
+# once: at most one flip of the output's last bit, 2^-9 at outputs in
+# [0.25, 0.5) (atol = rtol = 1.6e-3 passes every case). The limit, 2e-3,
+# stays below what a plain version that keeps p in fp32 (the single-tile
+# route's) needs at the key-padding and broadcast-bias cases, 2.4e-3 to
+# 2.6e-3: so it pins p's rounding to v's dtype.
+FLASH_TOL = {"fp32": dict(rtol=2e-5, atol=2e-5), "bf16": dict(rtol=2e-3, atol=2e-3)}
+
+# the reference's TestFlashAttention cases (tests/test_ops.py:58-122), at
+# their head dims and again at PixArt's 72 and FLUX's 128, plus q×1e4:
+# (b, h, tq, tk, d, bias lengths or None, q scale)
+_FLASH_SHAPES = {
+    "multiblock_kv_48_384": (2, 2, 48, 384, 64, None),
+    "unaligned_tk300": (2, 2, 24, 300, 32, None),
+    "key_padding_120_of_256": (2, 2, 32, 256, 64, [120, 120]),
+    "batch_broadcast_bias_b3": (3, 2, 32, 256, 64, [100]),
+}
+FLASH_CASES = {
+    f"{name}_d{d}": (b, h, tq, tk, d, lengths, 1.0)
+    for name, (b, h, tq, tk, ref_d, lengths) in _FLASH_SHAPES.items()
+    for d in (ref_d, 72, 128)
+}
+FLASH_CASES["q_times_1e4_d72"] = (1, 1, 32, 256, 72, None, 1e4)
+
+
+def _flash_case(case, dtype, monkeypatch):
+    """The case's torch (q, k, v, bias) in `dtype` and _flash_attention's
+    output on them in interpret mode, as fp32 numpy, with tiny blocks
+    (several q and kv blocks per (batch, head)) and _ROWBLOCK_MAX_KV_ELEMS
+    = 0 so that the streaming kernel runs."""
+    b, h, tq, tk, d, lengths, qscale = FLASH_CASES[case]
+    monkeypatch.setattr(jax_attention, "_ROWBLOCK_MAX_KV_ELEMS", 0)
+    monkeypatch.setattr(jax_attention, "_FLASH_BLOCK_Q", 16)
+    monkeypatch.setattr(jax_attention, "_FLASH_BLOCK_K", 128)
+    rng = np.random.default_rng(9)
+    q, k, v = _qkv(rng, b, tq, tk, h, d)
+    q = q * np.float32(qscale)
+    bias = None if lengths is None else _key_padding_bias_np(lengths, tk)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "fp32" else (
+        jnp.bfloat16, torch.bfloat16)
+    want = jax_attention._flash_attention(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)),
+        None if bias is None else jnp.asarray(bias), interpret=True,
+    )
+    args = [torch.from_numpy(a).to(tdt) for a in (q, k, v)]
+    args.append(None if bias is None else torch.from_numpy(bias))
+    return args, np.asarray(want, np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_reference_matches_pallas(case, dtype, monkeypatch):
+    """flash_attention_reference, and the flash_attention and
+    fused_attention wrappers on the CPU, against _flash_attention in
+    interpret mode (see _flash_case), compared by value — also at q×1e4,
+    where each row is one-hot."""
+    args, want = _flash_case(case, dtype, monkeypatch)
+    tk = args[1].shape[1]
+    got = flash_attention_reference(*args)
+    np.testing.assert_allclose(got.float().numpy(), want, **FLASH_TOL[dtype])
+    assert torch.isfinite(got.float()).all()
+    before = launch_counts()
+    torch.testing.assert_close(flash_attention(*args), got, rtol=0, atol=0)
+    # the port's router sends the same shape to the streaming route once
+    # its thresholds are lowered as the reference's are here
+    monkeypatch.setattr(port_attention, "_SINGLE_TILE_SCORE_BYTES", 0)
+    monkeypatch.setattr(port_attention, "_ROWBLOCK_MAX_KV_ELEMS", 0)
+    assert attention_route(tuple(args[0].shape), tk, args[3]) == "flash"
+    torch.testing.assert_close(fused_attention(*args), got, rtol=0, atol=0)
+    assert launch_counts() == before
+
+
+@pytest.mark.parametrize("case", [
+    "key_padding_120_of_256_d64", "key_padding_120_of_256_d128",
+    "batch_broadcast_bias_b3_d64", "batch_broadcast_bias_b3_d72",
+    "batch_broadcast_bias_b3_d128",
+])
+def test_flash_bf16_tolerance_pins_p_rounding(case, monkeypatch):
+    """FLASH_TOL's bf16 limit rejects a plain version that keeps p in fp32
+    for p·v (the single-tile route's, fused_attention_reference): the
+    streaming route must round p to v's dtype as _flash_kernel does."""
+    args, want = _flash_case(case, "bf16", monkeypatch)
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(
+            fused_attention_reference(*args).float().numpy(), want, **FLASH_TOL["bf16"]
+        )
+
+
 def test_rowblock_attention_rejects_dense_bias():
     q = torch.zeros(2, 4, 2, 128)
     with pytest.raises(ValueError, match="key-padding"):
@@ -330,8 +435,6 @@ def test_fused_attention_routes_like_reference(case):
 
 
 def fused_attention_reference_np(q, k, v):
-    from ecad_tpu_torch.ops import fused_attention_reference
-
     t = torch.from_numpy
     return fused_attention_reference(t(q), t(k), t(v)).numpy()
 
@@ -376,15 +479,15 @@ def test_attention_route(name):
     "shape,tk,error,match",
     [
         ((2, 4608, 2, 128), 4608, ValueError, "unsupported device"),
-        ((1, 9000, 1, 128), 9000, NotImplementedError, "K6"),
+        ((1, 9000, 1, 128), 9000, ValueError, "unsupported device"),
         ((1, 1024, 1, 72), 1024, ValueError, "unsupported device"),
     ],
 )
 def test_non_cpu_tensors_never_fall_back(shape, tk, error, match):
-    """Off the CPU the router launches a kernel or raises: the unported K6
-    route raises naming what is missing, and a tensor on a device without a
-    kernel (here FLUX-1024's row-block shape, and a clamp-route shape)
-    raises instead of running a plain version."""
+    """Off the CPU the router launches a kernel or raises: a tensor on a
+    device without a kernel (here FLUX-1024's row-block shape, a
+    streaming-route shape past 8192 keys, and a clamp-route shape) raises
+    instead of running a plain version."""
     b, tq, h, d = shape
     q = torch.empty(shape, device="meta")
     kv = torch.empty((b, tk, h, d), device="meta")
@@ -396,6 +499,12 @@ def test_transposed_attention_rejects_dense_bias():
     q = torch.zeros(2, 4, 2, 8)
     with pytest.raises(ValueError, match="key-padding"):
         transposed_attention(q, q, q, torch.zeros(2, 2, 4, 4))
+
+
+def test_flash_attention_rejects_dense_bias():
+    q = torch.zeros(2, 4, 2, 8)
+    with pytest.raises(ValueError, match="key-padding"):
+        flash_attention(q, q, q, torch.zeros(2, 2, 4, 4))
 
 
 @pytest.mark.parametrize(
