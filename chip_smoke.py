@@ -30,14 +30,27 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    take 34 GB; time kernel, plain version and (attention) one
    ``scaled_dot_product_attention`` call as a yardstick the port never
    calls.
-4. Main path at 256² (``main256``): full-width PixArt-α 256 (28 blocks,
+4. The attention-variant harness (``variants``): the port of the JAX
+   package's ``scripts/exp_attn_variants.py`` at its three shapes
+   (2, 4608, 24, 128), (8, 4096, 16, 72) and (64, 1024, 16, 72) in bf16.
+   Each of its kernels (X1 matmul only, X2 no max, X3 max on a pre-scaled
+   q, X4 clamp with the denominator from the p·v product; K4 for the
+   ``transposed`` rows) is held against its plain version on a 2-head
+   slice at a tolerance derived from its measured error and shown to
+   reject a dropped or repeated 64-key tile at 4096 keys; X2's inf/NaN
+   positions at q×64 against its plain version's; Tk = 200 refused by X1-X3
+   and the harness's K4 rows, and X4 right there; the harness's ``main``
+   once per shape (20 rows in all), with the launch counters checked
+   against its calls; plain versions timed two heads at a time, one
+   ``scaled_dot_product_attention`` call per shape as the yardstick.
+5. Main path at 256² (``main256``): full-width PixArt-α 256 (28 blocks,
    d=1152) with seeded random bf16 weights, batch 8 with CFG 4.5, 20
    DPM-Solver++ steps, the ECAD ``ours_fast`` schedule and the
    all-recompute default, each followed by the random bf16 VAE decode to
    (8, 256, 256, 3) uint8. Checks the kernel launch counts of each
    trajectory against its schedule, and a small fp32 trajectory on the card
    against the plain path on the CPU.
-5. Main path at 1024² (``main1024``): full-width PixArt-α 1024 (4096 image
+6. Main path at 1024² (``main1024``): full-width PixArt-α 1024 (4096 image
    tokens, the resolution and aspect-ratio conditions), batch 2 with CFG,
    under the repo's ``default_1024x1024`` schedule, ``ours_fast`` and the
    TGATE schedule ``tgate_m_010_sp_003_fi_001_warmup_002`` (gate at step
@@ -46,7 +59,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    against each schedule; and a tiny fp32 1024-style trajectory (size
    conditions, TGATE, 2304 tokens so that both K4 variants run) on the card
    against the plain path on the CPU.
-6. Main path at 2048² (``main2048``): full-width PixArt-Σ at 2048²
+7. Main path at 2048² (``main2048``): full-width PixArt-Σ at 2048²
    (16384 image tokens, a 256×256 latent, no size conditions, position
    embedding interpolated by 4), batch 1 with CFG, under Σ's
    ``gen_default/default.json`` and ``pixart_sigma_256/ours_fast.json``
@@ -56,7 +69,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    16384 → 120) and K3 checked against each schedule; and a tiny fp32
    trajectory with 8464 tokens, past 8192 so that self-attention takes the
    streaming route, on the card against the plain path on the CPU.
-7. FLUX (``flux``): full-width FLUX.1-dev (19 dual + 38 single blocks,
+8. FLUX (``flux``): full-width FLUX.1-dev (19 dual + 38 single blocks,
    d=3072, 24×128 heads, 512 text tokens, guidance embedding; 11.9 B
    seeded random bf16 parameters) from hash-encoder prompts, 20 flow-match
    Euler steps at guidance 5: 1024² at batch 1 under
@@ -69,7 +82,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    and set beside the bf16 caches' latents; and a tiny fp32 FLUX
    trajectory (1536 joint tokens at D=128, the row-block route) on the
    card against the plain path on the CPU.
-8. Entry points (``cli``): ``ecad_tpu_torch.inference.cli
+9. Entry points (``cli``): ``ecad_tpu_torch.inference.cli
    PixArtAlphaImageGenerator`` with a prompt file, random weights and
    ``ours_fast``, again with the 1024 TGATE schedule at batch size 2,
    ``PixArtSigmaImageGenerator`` at ``--height 2048 --width 2048
@@ -92,13 +105,15 @@ import dataclasses
 import json
 import shutil
 import statistics
-import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from ecad_tpu_torch.utils.timing import BF16_FLOPS, HBM_BYTES_PER_S, card_name, device_ms
 
 ROOT = Path(__file__).resolve().parent
 OURS_FAST = ROOT / "schedules/schedules_in_paper/pixart_alpha_256/ours_fast.json"
@@ -126,8 +141,6 @@ BATCH_2048 = 1  # the caches take 6.3 GB per image at 2048²
 BATCH_FLUX_1024 = 1  # one 1024² image per request, as FLUX.1-dev is served
 BATCH_FLUX_256 = 4
 STEPS = 20
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 BF16_TOL = (2e-2, 2e-2)  # (atol, rtol): about two bf16 ulps of an O(1) output
 FP32_TOL = (1e-5, 1e-5)  # fp32 kernels against fp32 plain versions
 # fp32 clamp softmax at q×1e4: the logits are ~1e4, so their fp32 sums (in
@@ -137,7 +150,8 @@ HOT_FP32_TOL = (1e-3, 1e-3)
 REPORT: dict = {}
 COUNTERS = ("attention", "attention_bias", "attention_long", "attention_long_bias",
             "attention_rowblock", "attention_rowblock_bias", "attention_flash",
-            "attention_flash_bias", "modlnorm")
+            "attention_flash_bias", "xattn_matmul_only", "xattn_nomax", "xattn_max",
+            "xattn_fd", "modlnorm")
 def std_bf16_tol(share: float):
     """The (atol, rtol) rule for a bf16 attention output over many keys, as
     a function of the plain version's output `want`: one bf16 ulp relative
@@ -185,10 +199,7 @@ def check_card() -> str:
     cap = torch.cuda.get_device_capability(0)
     if cap != (9, 0):
         raise SystemExit(f"chip_smoke: needs compute capability 9.0, got {cap}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_name()
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -211,31 +222,11 @@ def build_kernels() -> None:
 
 
 def timed_ms(label: str, fn, reps: int = 7, inner: int = 20) -> float:
-    """Device time of one call: median over `reps` of the mean of `inner`
-    back-to-back calls between CUDA events. A spin kernel queued first
-    keeps the device busy while the host enqueues the calls, so the events
-    see device execution, not the host's launch overhead (which is
-    reported apart, as host ms per call)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(inner):
-        fn()
-    host_s = (time.perf_counter() - t0) / inner
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(4e9 * host_s * inner) + 100_000)  # ≥ 2× the enqueue time
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    dev_ms = statistics.median(times)
-    REPORT.setdefault("timing_ms", {})[label] = {"device": dev_ms, "host": host_s * 1e3}
+    """Device ms of one call (`device_ms`: CUDA events behind a spin
+    kernel, median of `reps` means of `inner` calls); the host ms per call
+    goes to the report beside it."""
+    dev_ms, host_ms = device_ms(fn, reps, inner)
+    REPORT.setdefault("timing_ms", {})[label] = {"device": dev_ms, "host": host_ms}
     return dev_ms
 
 
@@ -802,6 +793,189 @@ def flash_kernel_rows(rnd, bound, nbytes) -> list[dict]:
             library_ms=timed_ms(f"{name}/sdpa", sdpa, reps=5, inner=5),
         ))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the attention-variant harness (X1-X4)
+# ---------------------------------------------------------------------------
+
+# kernel counter → (plain version's name in ecad_tpu_torch.ops, the Pallas
+# bodies it replaces in scripts/exp_attn_variants.py, its bf16 tolerance).
+# The shares are twice the largest least atol per std that the kernel
+# needed on the H100 at the harness's shapes, rounded up (the report's
+# `least_atol_per_std`): X1 0.0011 (its output is unnormalised, ≈ 10³, and
+# a flipped bf16 rounding of one s moves it by ≈ 0.06), X2 and X4 0.0051
+# (only sum orders differ), X3 0.0106 (p rounded against a running max, as
+# K6: 0.0117); K4 keeps its own rule. The run shows each one rejects a
+# dropped 64-key tile at 4096 keys, and X2-X4 a repeated one.
+XATTN = {
+    "xattn_matmul_only": ("matmul_only_attention", ":103 (k_matmul_only)",
+                          std_bf16_tol(0.0025)),
+    "xattn_nomax": ("nomax_attention", ":115 (k_nomax)", std_bf16_tol(0.011)),
+    "xattn_max": ("max_exp2_attention", ":129 (k_rowblock; :144 k_chunk2)",
+                  std_bf16_tol(0.025)),
+    "xattn_fd": ("clamp_fd_attention",
+                 ":288 (k_transposed_fd; :349 k_transposed_subk_fd)", std_bf16_tol(0.011)),
+    "attention_long": ("transposed_attention", ":190 (k_transposed; :317 k_transposed_subk)",
+                       clamp_bf16_tol),
+}
+
+
+def by_head_pairs(plain, q, k, v) -> torch.Tensor:
+    """A plain version run two heads at a time, so that its fp32 scores stay
+    near 1 GB at the harness's shapes (8.6 GB for all 16 heads of
+    (8, 4096, 16, 72))."""
+    out = torch.empty_like(q)
+    for h in range(0, q.shape[2], 2):
+        sl = (slice(None), slice(None), slice(h, h + 2))
+        out[sl] = plain(q[sl], k[sl], v[sl])
+    return out
+
+
+def variants_phase() -> dict:
+    """The port of the attention-variant harness at its full shapes: each
+    of X1-X4 (and K4 in its ``transposed`` rows) held against its plain
+    version on a 2-head slice at every harness shape; the tolerance shown
+    to reject a dropped or repeated 64-key tile at 4096 keys (X1: a dropped
+    one); X2's inf/NaN where its plain version has them; the Tk % 128 rule
+    on the card; the harness's ``main`` once per shape with the launch
+    counters set to 0 just before and read just after; timings of each
+    kernel's plain version (two heads at a time) and one
+    ``scaled_dot_product_attention`` call per shape. Returns the rows of the
+    ``kernels`` line."""
+    import torch.nn.functional as F
+
+    import ecad_tpu_torch.ops as ops
+    from ecad_tpu_torch.scripts import exp_attn_variants as harness
+    from ecad_tpu_torch.utils.timing import bound_ms
+
+    log("variants phase: the attention-variant harness (X1-X4)")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def kernel(counter):
+        return getattr(ops, XATTN[counter][0])
+
+    def plain(counter):
+        return getattr(ops, XATTN[counter][0] + "_reference")
+
+    def counters(d):
+        return [c for c in XATTN if d % 128 or c not in ("xattn_fd", "attention_long")]
+
+    # parity at each shape, kernel on the whole tensor, plain on 2 heads
+    errs = {}
+    for shape, s in harness.SHAPES.items():
+        q, k, v = (rnd(s["b"], s["t"], s["h"], s["d"]) for _ in range(3))
+        q2, k2, v2 = (a[:, :, :2] for a in (q, k, v))
+        for c in counters(s["d"]):
+            want = plain(c)(q2, k2, v2)
+            errs[c, shape] = compare(f"{c}/bf16/{shape}", kernel(c)(q, k, v)[:, :, :2],
+                                     want, XATTN[c][2])
+            if shape == "pixart1024" and c != "attention_long":
+                # the same check must fail a plain version that drops (or,
+                # with a softmax, repeats) one 64-key tile of the 4096
+                faults = {"drops": (torch.cat((k2[:, :64], k2[:, 128:]), 1),
+                                    torch.cat((v2[:, :64], v2[:, 128:]), 1))}
+                if c != "xattn_matmul_only":
+                    faults["repeats"] = (torch.cat((k2[:, :128], k2[:, 64:]), 1),
+                                         torch.cat((v2[:, :128], v2[:, 64:]), 1))
+                for fault, (kf, vf) in faults.items():
+                    rejects(f"{c}/{shape}_{fault}_key_tile_1", plain(c)(q2, kf, vf), want,
+                            XATTN[c][2])
+        del q, k, v, q2, k2, v2, want
+
+    # limits: X2 overflows where its plain version does (q×64 on every
+    # other row at D=128 puts s far past 128 there, and near 6 elsewhere)
+    q, k, v = rnd(1, 1024, 2, 128), rnd(1, 1024, 2, 128), rnd(1, 1024, 2, 128)
+    q[:, ::2] *= 64
+    got, want = ops.nomax_attention(q, k, v), ops.nomax_attention_reference(q, k, v)
+    finite, want_finite = torch.isfinite(got), torch.isfinite(want)
+    REPORT["xattn_nomax_overflow"] = {"non_finite": int((~finite).sum()),
+                                      "of": finite.numel()}
+    if not (torch.equal(finite, want_finite) and 0 < int(finite.sum()) < finite.numel()):
+        raise AssertionError("xattn_nomax: inf/NaN positions differ from the plain version's")
+    compare("xattn_nomax/bf16/finite_rows_of_q_times_64", got[:, 1::2], want[:, 1::2],
+            XATTN["xattn_nomax"][2])
+    log(f"  xattn_nomax: {int((~finite).sum())} of {finite.numel()} outputs non-finite"
+        " at q×64, at the plain version's positions")
+    # Tk % 128 != 0: refused by X1-X3 and the harness's K4 rows; X4 masks
+    q, k, v = rnd(2, 256, 2, 72), rnd(2, 200, 2, 72), rnd(2, 200, 2, 72)
+    for name, fn in (("matmul_only_attention", ops.matmul_only_attention),
+                     ("nomax_attention", ops.nomax_attention),
+                     ("max_exp2_attention", ops.max_exp2_attention),
+                     ("harness transposed", harness.TRANSPOSED["transposed"]),
+                     ("harness transposed_subk", harness.TRANSPOSED["transposed_subk"])):
+        try:
+            fn(q, k, v)
+        except ValueError:
+            continue
+        raise AssertionError(f"{name} accepted Tk=200")
+    try:
+        ops.nomax_attention(q.float(), q.float(), q.float())
+    except TypeError:
+        pass
+    else:
+        raise AssertionError("nomax_attention accepted fp32 on the card")
+    compare("xattn_fd/bf16/tq256_tk200_d72", ops.clamp_fd_attention(q, k, v),
+            ops.clamp_fd_attention_reference(q, k, v), XATTN["xattn_fd"][2])
+    del q, k, v, got, want
+
+    # the harness through its main, one shape at a time
+    harness_rows, launches = {}, {}
+    for shape, s in harness.SHAPES.items():
+        ops.reset_launch_counts()
+        rows = harness.main([f"--shape={shape}"])
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        calls = Counter()
+        for row in rows:
+            calls[row["detail"]["kernel_counter"]] += row["detail"]["calls"]
+            if not (row["value"] > 0 and (row["metric"].endswith("matmul_only")
+                                          or row["detail"]["max_abs_err_vs_plain_bf16"] < 1)):
+                raise AssertionError(f"harness row {row}")
+            harness_rows[row["metric"]] = row
+        if len(rows) != len(harness.rows_of(s["d"])) or counts != {
+                **dict.fromkeys(COUNTERS, 0), **calls}:
+            raise AssertionError(f"harness at {shape}: {len(rows)} rows, launches {counts}"
+                                 f" against its calls {dict(calls)}")
+        launches[shape] = counts
+    if len(harness_rows) != 20:
+        raise AssertionError(f"the harness printed {len(harness_rows)} rows, not 20")
+    REPORT["harness"] = harness_rows
+
+    # timings and the kernels line's rows
+    label = {"xattn_matmul_only": "matmul_only", "xattn_nomax": "nomax",
+             "xattn_max": "rowblock", "xattn_fd": "transposed_fd",
+             "attention_long": "transposed"}
+    out = {}
+    for shape, s in harness.SHAPES.items():
+        b, h, t, d = s["b"], s["h"], s["t"], s["d"]
+        q, k, v = (rnd(b, t, h, d) for _ in range(3))
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        sdpa = timed_ms(f"xattn/{shape}/sdpa", lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                        reps=5, inner=5)
+        del qt, kt, vt
+        bnd, by = bound_ms(4 * q.numel() * q.element_size(), 4 * b * h * t * t * d)
+        for c in counters(d):
+            out[f"{c}_{shape}"] = dict(
+                name=f"{c}_{shape}", route="cuda", source="ecad_tpu_torch/csrc/attention.cu",
+                replaces="scripts/exp_attn_variants.py" + XATTN[c][1],
+                launches=launches[shape][c], max_abs_err=errs[c, shape],
+                ms=harness_rows[f"exp_{shape}_{label[c]}"]["value"],
+                plain_ms=timed_ms(f"{c}_{shape}/plain",
+                                  lambda: by_head_pairs(plain(c), q, k, v), reps=3, inner=1),
+                bound_ms=bnd, bound_by=by,
+                # bf16(q·kᵀ)·v unnormalised has no one-call PyTorch counterpart
+                library_ms=None if c == "xattn_matmul_only" else sdpa,
+            )
+        del q, k, v
+    for r in out.values():
+        log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f} by {r['bound_by']}, SDPA {r['library_ms']}), "
+            f"{r['launches']} launches in the harness run")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1426,6 +1600,7 @@ def main() -> None:
 
     phase("build", build_kernels)
     kernels = phase("kernels", kernel_phase, b2=2 * BATCH, b2_1024=2 * BATCH_1024)
+    variants = phase("variants", variants_phase)
     REPORT["main_path"] = phase("main256", main_path)
     REPORT["main_path_1024"] = phase("main1024", main_path_1024)
     REPORT["main_path_2048"] = phase("main2048", main_path_2048)
@@ -1436,7 +1611,8 @@ def main() -> None:
     # for K1-K3, PixArt-1024 `ours_fast` for K4, FLUX-1024 `fast` for K5,
     # FLUX-256 `ours_fast` for K1 at D=128, PixArt-2048 `ours_fast` for K6;
     # K6 at D=128 reads FLUX-1024 `fast`'s count, the largest D=128 path
-    # served (FLUX.1-dev at 1536² would reach K6, and is not run)
+    # served (FLUX.1-dev at 1536² would reach K6, and is not run); the
+    # harness's rows carry the launches of its run at their shape
     for name, row in kernels.items():
         if name == "attention_flash_d128":
             row["launches"] = REPORT["flux"]["1024"]["fast"]["launches"]["attention_flash"]
@@ -1450,6 +1626,7 @@ def main() -> None:
             row["launches"] = REPORT["flux"]["256"]["ours_fast"]["launches"]["attention"]
         else:
             row["launches"] = REPORT["main_path"]["ours_fast"]["launches"][name]
+    kernels.update(variants)
     REPORT["kernels"] = kernels
     args.report.write_text(json.dumps(REPORT, indent=1))
     mp, mp4, fx = REPORT["main_path"], REPORT["main_path_1024"], REPORT["flux"]

@@ -1,5 +1,6 @@
 // Fused attention forward for Hopper (sm_90a), in two softmax variants
-// that share one tensor-core body, under four kernel names:
+// that share one tensor-core body, under four kernel names (and the
+// harness's four variants of the same body, at the end of this note):
 //
 //   * exact (max-subtract): softmax(q·kᵀ/√d + bias)·v. Replaces the Pallas
 //     kernels `_attn_kernel` (ecad_tpu/ops/attention.py:58, no bias) and
@@ -94,6 +95,45 @@
 // their strides; only the head dimension must be contiguous (16-byte
 // aligned rows take the cp.async path, others element-wise loads). No
 // wgmma or TMA yet.
+//
+// The attention-variant harness (X1–X4). `scripts/exp_attn_variants.py`
+// times the TPU's attention body with parts of its work taken out, through
+// eight Pallas bodies launched by `_call` (:77), `_call_transposed` (:261)
+// and `_call_transposed_v2` (:442). The same body here, with the softmax
+// mode a template argument, computes each of their functions (bf16, no
+// bias):
+//   * `attn_xmatmul_bf16_kernel` (X1) replaces `k_matmul_only` (:103):
+//     o = bf16(q·kᵀ)·v with unscaled scores, no exp, no sum, no divide;
+//   * `attn_xnomax_bf16_kernel` (X2) replaces `k_nomax` (:115): q
+//     pre-scaled by bf16(log2e/√D), p = exp2(s) with no max and no clamp
+//     (exp2f: +inf past s = 128, as on the TPU), Σp in fp32;
+//   * `attn_xmax_bf16_kernel` (X3) replaces `k_rowblock` (:129) and
+//     `k_chunk2` (:144): q pre-scaled, p = exp2(s − max), Σp in fp32. The
+//     Pallas bodies subtract the row max (or each chunk's max); here an
+//     online max over 64-key tiles, which changes only the max each p is
+//     rounded against before the bf16 cast and the order of the fp32 sums;
+//   * `attn_xfd_bf16_kernel` (X4) replaces `k_transposed_fd` (:288) and
+//     `k_transposed_subk_fd` (:349): the clamp numerator with the
+//     denominator taken by the tensor cores. The TPU kernels append a row
+//     of ones to vᵀ; here column D of both v stages, inside the zero pad
+//     (72 → 80), holds 1.0, so the p·v `mma` writes Σ bf16(p)
+//     (fp32-accumulated) into output column D from the same bf16 p that
+//     feeds the numerator: ⌈(D+1)/8⌉ output tiles (10 at D=72, +11 %)
+//     instead of a fp32 Σp pass over every score. The ones are stored once
+//     when the kernel starts, in the last 8-column chunk of each stage,
+//     which the tile loads then skip: keys past Tk weigh p = 0 by bounds,
+//     so their ones count nothing. (A first form rewrote that chunk with
+//     every v tile, below Tk only, and ran a quarter slower than K4.) So D
+//     must be 8 below a multiple of 16 (D = DP − 8; 72 → 80).
+// `k_transposed` (:190) and `k_transposed_subk` (:317) compute K4's
+// no-bias function and run on `attn_clamp_bf16_kernel`. X1–X3 are built
+// at DP = 80 and 128 (D = 72 and 128, the harness's head dims), X4 at DP =
+// 80. At the harness's shapes, counting 4·B·H·T²·D flops on the q, k, v, o
+// bytes, the tensor cores bound all three: (2, 4608, 24, 128) 5.22e11
+// flops on 226 MB, 0.528 ms; (8, 4096, 16, 72) 6.19e11 on 302 MB, 0.625
+// ms; (64, 1024, 16, 72) 3.09e11 on 604 MB, 0.313 ms (its bytes alone take
+// 0.180 ms). Their design is the shared body's; what each one leaves out
+// is the measurement.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -202,11 +242,13 @@ __device__ __forceinline__ uint4 load8(const __nv_bfloat16* row_ptr, bool row_ok
 // Rows [r0, r0 + 64) of a (T, D) slice into smem[row][DP] (row stride
 // `stride` elements), zero-filled past T and past D. With `vec_ok` the
 // copies are asynchronous 16-byte cp.async (the caller commits and waits);
-// otherwise they are element-wise loads and stores.
-template <int DP>
+// otherwise they are element-wise loads and stores. With ONES (X4's v
+// tile, D = DP − 8) the last 8 columns are left alone: they hold the ones
+// column, written once when the kernel starts.
+template <int DP, bool ONES = false>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* smem, int stride, const __nv_bfloat16* base,
                                           long long row_stride, int r0, int T, int D, bool vec_ok) {
-  constexpr int kChunks = DP / 8;
+  constexpr int kChunks = ONES ? DP / 8 - 1 : DP / 8;
   for (int c = threadIdx.x; c < kBlockK * kChunks; c += kThreads) {
     const int row = c / kChunks;
     const int col = (c % kChunks) * 8;
@@ -235,8 +277,22 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float f) {
   return pack_bf16(__low2float(v) * f, __high2float(v) * f);
 }
 
-template <int DP, bool HAS_BIAS, bool CLAMP>
+// Softmax modes of the shared bf16 body.
+enum Mode : int {
+  kExact = 0,      // K1, K6: ×scale on the fp32 score, online max
+  kClamp = 1,      // K4, K5 (and X4 with FD): q pre-scaled, exp2(clip(s, −100, 80))
+  kMaxScaledQ = 2, // X3: q pre-scaled as the clamp's, then the online max
+  kNoMax = 3,      // X2: q pre-scaled, exp2(s) with no max and no clip
+  kNone = 4,       // X1: p = s unscaled; no sum, no divide
+};
+
+// FD (with kClamp only): the denominator comes from the p·v mma through a
+// ones column of v (X4), not from a fp32 sum of p.
+template <int DP, bool HAS_BIAS, int MODE, bool FD = false>
 __device__ __forceinline__ void attn_bf16_body(const Params& p) {
+  constexpr bool kScaledQ = MODE == kClamp || MODE == kMaxScaledQ || MODE == kNoMax;
+  constexpr bool kOnlineMax = MODE == kExact || MODE == kMaxScaledQ;
+  static_assert(!FD || MODE == kClamp, "the mma denominator is X4's, on the clamp numerator");
   constexpr int kSteps = DP / 16;       // k-steps of the q·kᵀ reduction over D
   constexpr int kSTiles = kBlockK / 8;  // 8-key score tiles per key tile
   constexpr int kOTiles = DP / 8;       // 8-column output tiles (ceil(D/8) used)
@@ -264,12 +320,21 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
   const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
   const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
 
+  if constexpr (FD) {
+    // X4 (D = DP − 8): columns D..D+7 of both v stages hold (1, 0, ..., 0)
+    // in every row, stored once here (visible after the first barrier) and
+    // never overwritten by load_tile; keys past Tk get p = 0 by bounds, so
+    // their ones add nothing to the denominator
+    for (int r = threadIdx.x; r < 2 * kBlockK; r += kThreads)
+      *reinterpret_cast<uint4*>(v_tile(r / kBlockK) + (r % kBlockK) * kStride + DP - 8) =
+          make_uint4(0x3F80u, 0u, 0u, 0u);  // bf16 1.0 in the lowest half
+  }
   // q tile → stage-1 k buffer (free until the first prefetch) → registers,
   // while the first k/v tile streams into stage 0
   load_tile<DP>(k_tile(1), kStride, qb, p.q_st, q0, p.Tq, p.D, vec_ok);
   cp_async_commit();
   load_tile<DP>(k_tile(0), kStride, kb, p.k_st, 0, p.Tk, p.D, vec_ok);
-  load_tile<DP>(v_tile(0), kStride, vb, p.v_st, 0, p.Tk, p.D, vec_ok);
+  load_tile<DP, FD>(v_tile(0), kStride, vb, p.v_st, 0, p.Tk, p.D, vec_ok);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
@@ -281,7 +346,7 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
 #pragma unroll
     for (int s = 0; s < kSteps; ++s) {
       ldmatrix_x4(qf[s], k_tile(1) + r * kStride + s * 16 + c);
-      if constexpr (CLAMP) {
+      if constexpr (kScaledQ) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) qf[s][i] = scale_bf16x2(qf[s][i], p.scale);
       }
@@ -289,12 +354,13 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
   }
   __syncthreads();
 
-  const int o_tiles = (p.D + 7) / 8;
+  // X4 also computes output column D, the denominator
+  const int o_tiles = (p.D + (FD ? 8 : 7)) / 8;
   // this thread's two query rows: g and g + 8 of the warp's 16
   const int row_a = q0 + warp * 16 + g;
   const int rows[2] = {row_a, row_a + 8};
-  // scores in the log2 domain (the clamp variant's q carries the scale)
-  const float qk_scale = CLAMP ? 1.f : p.scale * kLog2e;
+  // scores in the log2 domain (a pre-scaled q carries the scale)
+  const float qk_scale = kScaledQ ? 1.f : p.scale * kLog2e;
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};  // per-thread partial sums, reduced at the end
   float acc[kOTiles][4];
@@ -309,7 +375,7 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
     const int k0 = t * kBlockK;
     if (t + 1 < n_tiles) {  // prefetch the next tile into the other stage
       load_tile<DP>(k_tile(stage ^ 1), kStride, kb, p.k_st, k0 + kBlockK, p.Tk, p.D, vec_ok);
-      load_tile<DP>(v_tile(stage ^ 1), kStride, vb, p.v_st, k0 + kBlockK, p.Tk, p.D, vec_ok);
+      load_tile<DP, FD>(v_tile(stage ^ 1), kStride, vb, p.v_st, k0 + kBlockK, p.Tk, p.D, vec_ok);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -333,7 +399,7 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
       }
     }
 
-    if constexpr (CLAMP) {
+    if constexpr (MODE == kClamp) {
       // p = exp2(clip(s + bias·log2e, −100, 80)); keys past Tk weigh 0
 #pragma unroll
       for (int j = 0; j < kSTiles; ++j) {
@@ -348,7 +414,20 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
             pe = exp2f(fminf(fmaxf(x, kClampLo), kClampHi));
           }
           s[j][e] = pe;
-          l_run[r] += pe;
+          if constexpr (!FD) l_run[r] += pe;
+        }
+      }
+    } else if constexpr (!kOnlineMax) {
+      // X2: p = exp2(s), +inf past s = 128; X1: p = s. Keys past Tk weigh 0
+#pragma unroll
+      for (int j = 0; j < kSTiles; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + tg * 2 + (e & 1);
+          float pe = 0.f;
+          if (col < p.Tk) pe = MODE == kNoMax ? exp2f(s[j][e]) : s[j][e];
+          s[j][e] = pe;
+          if constexpr (MODE == kNoMax) l_run[e >> 1] += pe;
         }
       }
     } else {
@@ -424,10 +503,25 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
     __syncthreads();  // this stage is refilled by the prefetch two tiles on
   }
 
+  if constexpr (FD) {
+    // output column D (tile D / 8, thread tg = (D % 8) / 2 of each group)
+    // holds the row's Σ bf16(p): broadcast it to the group's four threads
+    const int dn = p.D >> 3, dc = p.D & 7;
+    const int src = (lane & ~3) | (dc >> 1);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    for (int r = 0; r < 2; ++r) {
+      float den = 0.f;
+#pragma unroll
+      for (int n = 0; n < kOTiles; ++n)
+        if (n == dn) den = (dc & 1) ? acc[n][2 * r + 1] : acc[n][2 * r];
+      l_run[r] = __shfl_sync(0xffffffffu, den, src);
+    }
+  } else if constexpr (MODE != kNone) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    }
   }
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
@@ -437,7 +531,8 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
       const int r = e >> 1;
       const int col = n * 8 + tg * 2 + (e & 1);
       if (rows[r] < p.Tq && col < p.D)
-        ob[(long long)rows[r] * p.o_st + col] = __float2bfloat16(acc[n][e] / l_run[r]);
+        ob[(long long)rows[r] * p.o_st + col] =
+            __float2bfloat16(MODE == kNone ? acc[n][e] : acc[n][e] / l_run[r]);
     }
   }
 }
@@ -447,19 +542,37 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
 // exact softmax of the streaming route (K6) apart.
 template <int DP, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads) attn_bf16_kernel(const Params p) {
-  attn_bf16_body<DP, HAS_BIAS, false>(p);
+  attn_bf16_body<DP, HAS_BIAS, kExact>(p);
 }
 template <int DP, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads) attn_clamp_bf16_kernel(const Params p) {
-  attn_bf16_body<DP, HAS_BIAS, true>(p);
+  attn_bf16_body<DP, HAS_BIAS, kClamp>(p);
 }
 template <int DP, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads) attn_rowblock_bf16_kernel(const Params p) {
-  attn_bf16_body<DP, HAS_BIAS, true>(p);
+  attn_bf16_body<DP, HAS_BIAS, kClamp>(p);
 }
 template <int DP, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads) attn_flash_bf16_kernel(const Params p) {
-  attn_bf16_body<DP, HAS_BIAS, false>(p);
+  attn_bf16_body<DP, HAS_BIAS, kExact>(p);
+}
+
+// The harness's variants (X1–X4), without a bias, one name each.
+template <int DP>
+__global__ void __launch_bounds__(kThreads) attn_xmatmul_bf16_kernel(const Params p) {
+  attn_bf16_body<DP, false, kNone>(p);
+}
+template <int DP>
+__global__ void __launch_bounds__(kThreads) attn_xnomax_bf16_kernel(const Params p) {
+  attn_bf16_body<DP, false, kNoMax>(p);
+}
+template <int DP>
+__global__ void __launch_bounds__(kThreads) attn_xmax_bf16_kernel(const Params p) {
+  attn_bf16_body<DP, false, kMaxScaledQ>(p);
+}
+template <int DP>
+__global__ void __launch_bounds__(kThreads) attn_xfd_bf16_kernel(const Params p) {
+  attn_bf16_body<DP, false, kClamp, true>(p);
 }
 
 // ---------------------------------------------------------------------------
@@ -601,6 +714,32 @@ cudaError_t launch_bf16(const Params& p, dim3 grid, bool has_bias, int variant,
   return cudaSuccess;
 }
 
+// The harness's variants 4–7 (X1–X4), bf16 without a bias, at DP = 80 and
+// 128 (X4 at 80 only, D = 72: it needs D = DP − 8).
+template <int DP>
+cudaError_t launch_x(const Params& p, dim3 grid, int variant, cudaStream_t stream) {
+  constexpr int kSmem = bf16_smem_bytes<DP>();
+  void (*kernel)(const Params) = nullptr;
+  switch (variant) {
+    case 4: kernel = attn_xmatmul_bf16_kernel<DP>; break;
+    case 5: kernel = attn_xnomax_bf16_kernel<DP>; break;
+    case 6: kernel = attn_xmax_bf16_kernel<DP>; break;
+    case 7:
+      if constexpr (DP == 80) kernel = attn_xfd_bf16_kernel<DP>;
+      break;
+  }
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  static bool opted_in[4] = {};
+  if (kSmem > 48 * 1024 && !opted_in[variant - 4]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+    opted_in[variant - 4] = true;
+  }
+  kernel<<<grid, kThreads, kSmem, stream>>>(p);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // dtype: 0 = bfloat16, 1 = float32. strides: 16 int64 — q, k, v, o as
@@ -609,14 +748,17 @@ cudaError_t launch_bf16(const Params& p, dim3 grid, bool has_bias, int variant,
 // transposed route (K4), 2 = the same on the row-block route (K5), both with
 // scale = scale·log2e, exact in q's dtype; 3 = the exact softmax on the
 // streaming route (K6, scale = 1/√D). fp32 inputs take the SIMT kernel in
-// the exact (0, 3) or the clamp (1, 2) variant. Returns the cudaError_t of
-// the launch (0 on success).
+// the exact (0, 3) or the clamp (1, 2) variant. The harness's variants, bf16
+// only and without a bias: 4 = matmul only (X1, scale unused), 5 = no max
+// (X2), 6 = online max on a pre-scaled q (X3), 7 = clamp with the mma
+// denominator (X4, D % 16 == 8); 5–7 take scale = scale·log2e in q's dtype.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int ecad_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                                   const float* bias, const long long* strides, int B, int H, int Tq,
                                   int Tk, int D, float scale, int vec_ok, int variant,
                                   void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 1 || D > kMaxD || (long long)B * H > 65535 ||
-      variant < 0 || variant > 3)
+      variant < 0 || variant > 7)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -639,7 +781,16 @@ extern "C" int ecad_attention_fwd(int dtype, const void* q, const void* k, const
   const bool cl = variant == 1 || variant == 2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
-  if (dtype == 0) {
+  if (variant >= 4) {
+    if (dtype != 0 || has_bias || (variant == 7 && D % 16 != 8)) return (int)cudaErrorInvalidValue;
+    const dim3 grid((Tq + kBlockQ - 1) / kBlockQ, B * H);
+    const int dp = (D + 15) / 16 * 16;
+    cudaError_t err;
+    if (dp == 80) err = launch_x<80>(p, grid, variant, st);
+    else if (dp == 128) err = launch_x<128>(p, grid, variant, st);
+    else err = cudaErrorInvalidValue;
+    if (err != cudaSuccess) return (int)err;
+  } else if (dtype == 0) {
     const dim3 grid((Tq + kBlockQ - 1) / kBlockQ, B * H);
     cudaError_t err;
     switch ((D + 15) / 16) {

@@ -2,7 +2,8 @@
 
 Each wrapper runs its plain version for CPU tensors and launches its kernel
 (or raises) for CUDA tensors, counting launches in its module's
-``LAUNCHES``. `launch_counts` / `reset_launch_counts` read and clear them
+``LAUNCHES`` (the harness's kernels, ``attn_variants``, count in
+``attention.LAUNCHES``). `launch_counts` / `reset_launch_counts` read and clear them
 all, so a run can show that it went through the kernels.
 """
 
@@ -18,6 +19,16 @@ from .attention import (
     rowblock_attention_reference,
     transposed_attention,
     transposed_attention_reference,
+)
+from .attn_variants import (
+    clamp_fd_attention,
+    clamp_fd_attention_reference,
+    matmul_only_attention,
+    matmul_only_attention_reference,
+    max_exp2_attention,
+    max_exp2_attention_reference,
+    nomax_attention,
+    nomax_attention_reference,
 )
 from .fused import modulated_layer_norm, modulated_layer_norm_reference
 
@@ -48,6 +59,14 @@ __all__ = [
     "rowblock_attention_reference",
     "transposed_attention",
     "transposed_attention_reference",
+    "matmul_only_attention",
+    "matmul_only_attention_reference",
+    "nomax_attention",
+    "nomax_attention_reference",
+    "max_exp2_attention",
+    "max_exp2_attention_reference",
+    "clamp_fd_attention",
+    "clamp_fd_attention_reference",
     "modulated_layer_norm",
     "modulated_layer_norm_reference",
     "launch_counts",

@@ -38,7 +38,9 @@ to ``LAUNCHES``: ``attention`` / ``attention_bias`` (exact, without / with
 a bias), ``attention_long`` / ``attention_long_bias`` (clamp, transposed
 route), ``attention_rowblock`` / ``attention_rowblock_bias`` (clamp,
 row-block route) and ``attention_flash`` / ``attention_flash_bias``
-(exact, streaming route).
+(exact, streaming route). The attention-variant harness's kernels (X1-X4,
+variants 4-7 of the same source) are wrapped in `attn_variants` and count
+under ``xattn_*``.
 """
 
 from __future__ import annotations
@@ -58,12 +60,19 @@ LAUNCHES = {
     "attention_rowblock_bias": 0,
     "attention_flash": 0,
     "attention_flash_bias": 0,
+    # the attention-variant harness's kernels (X1-X4, ops/attn_variants.py)
+    "xattn_matmul_only": 0,
+    "xattn_nomax": 0,
+    "xattn_max": 0,
+    "xattn_fd": 0,
 }
 # kernel variant of the C entry point → counter name (without "_bias")
 _VARIANTS = {
     0: "attention", 1: "attention_long", 2: "attention_rowblock", 3: "attention_flash",
+    4: "xattn_matmul_only", 5: "xattn_nomax", 6: "xattn_max", 7: "xattn_fd",
 }
-_CLAMP_VARIANTS = (1, 2)
+# variants whose q is pre-scaled by bf16(scale·log2e); 4 (X1) takes no scale
+_SCALED_Q_VARIANTS = (1, 2, 5, 6, 7)
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 MAX_HEAD_DIM = 128
@@ -96,7 +105,8 @@ def _kernel():
             ctypes.c_int,  # D
             ctypes.c_float,  # scale
             ctypes.c_int,  # vec_ok
-            ctypes.c_int,  # variant: 0 exact, 1 clamp (K4), 2 row-block (K5), 3 flash (K6)
+            ctypes.c_int,  # variant: 0 exact, 1 clamp (K4), 2 row-block (K5), 3 flash (K6),
+            # 4-7 the harness's X1-X4
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -281,7 +291,8 @@ def _launch(
     """One launch of the CUDA kernel on q's device: `variant` 0 is the
     exact softmax, 1 the clamp softmax of the transposed route (K4), 2 that
     of the row-block route (K5), 3 the exact softmax of the streaming route
-    (K6). Counts it."""
+    (K6), 4-7 the attention-variant harness's X1-X4 (`attn_variants`).
+    Counts it."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -305,7 +316,10 @@ def _launch(
         and all(t.data_ptr() % 16 == 0 for t in tensors)
         and all((s * elem) % 16 == 0 for s in strides[:12])
     )
-    scale = clamp_scale(d, q.dtype) if variant in _CLAMP_VARIANTS else 1.0 / math.sqrt(d)
+    if variant in _SCALED_Q_VARIANTS:
+        scale = clamp_scale(d, q.dtype)
+    else:
+        scale = 1.0 if variant == 4 else 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
         status = _kernel()(
             _DTYPES[q.dtype],

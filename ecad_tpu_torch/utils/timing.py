@@ -1,0 +1,63 @@
+"""Device timing on one CUDA card, and the card's peaks for bounds.
+
+`device_ms` times a function's device work with CUDA events behind a spin
+kernel; `card_name` is the card's name and power limit as ``nvidia-smi``
+prints them, which every kept number carries beside it.
+"""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+import time
+
+import torch
+
+# NVIDIA H100 SXM, dense, at its full 700 W power limit (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+
+
+def bound_ms(bytes_: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the bf16 operations over the tensor cores' rate, and
+    which of the two it is."""
+    tb, tf = bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
+
+
+def device_ms(fn, reps: int = 7, inner: int = 20) -> tuple[float, float]:
+    """(device ms, host ms) per call of `fn`: the device time is the median
+    over `reps` of the mean of `inner` back-to-back calls between CUDA
+    events. A spin kernel queued first keeps the device busy while the host
+    enqueues the calls, so the events see device execution, not the host's
+    launch overhead (returned apart, from the host clock over one pass of
+    `inner` calls). `fn` runs 1 + inner + reps·inner times."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(inner):
+        fn()
+    host_s = (time.perf_counter() - t0) / inner
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(4e9 * host_s * inner) + 100_000)  # ≥ 2× the enqueue time
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times), host_s * 1e3
+
+
+def card_name() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` of
+    the first card, e.g. "NVIDIA H100 80GB HBM3, 700.00 W"."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]

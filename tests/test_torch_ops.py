@@ -18,13 +18,17 @@ from ecad_tpu.ops import modulated_layer_norm as jax_modulated_layer_norm
 from ecad_tpu_torch.models.common import layer_norm
 from ecad_tpu_torch.ops import (
     attention_route,
+    clamp_fd_attention,
     flash_attention,
     flash_attention_reference,
     fused_attention,
     fused_attention_reference,
     launch_counts,
+    matmul_only_attention,
+    max_exp2_attention,
     modulated_layer_norm,
     modulated_layer_norm_reference,
+    nomax_attention,
     rowblock_attention,
     rowblock_attention_reference,
     transposed_attention,
@@ -168,7 +172,8 @@ def test_cpu_path_counts_no_launches():
     assert set(before) == {
         "attention", "attention_bias", "attention_long", "attention_long_bias",
         "attention_rowblock", "attention_rowblock_bias", "attention_flash",
-        "attention_flash_bias", "modlnorm",
+        "attention_flash_bias", "xattn_matmul_only", "xattn_nomax", "xattn_max",
+        "xattn_fd", "modlnorm",
     }
     x = torch.randn(2, 4, 8)
     s = torch.zeros(2, 1, 8)
@@ -185,6 +190,10 @@ def test_cpu_path_counts_no_launches():
     assert attention_route(tuple(q.shape), 8200) == "flash"
     fused_attention(q, k, k)
     flash_attention(q[:, :8], k, k, torch.zeros(1, 1, 1, 8200))
+    q = torch.randn(1, 128, 1, 72)  # the attention-variant harness's kernels
+    for fn in (matmul_only_attention, nomax_attention, max_exp2_attention,
+               clamp_fd_attention):
+        fn(q, q, q)
     out = modulated_layer_norm(x, s, s)
     assert launch_counts() == before
     torch.testing.assert_close(out, modulated_layer_norm_reference(x, s, s))
