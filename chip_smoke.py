@@ -19,17 +19,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    and at the reference's TestRowBlockAttention shapes at D=128); the
    clamp kernels also at q×1e4, compared by value, and in bf16 at a
    tolerance scaled to the output, shown to reject a plain version that
-   drops or repeats one 64-key tile at 4096 (K4) and 4608 (K5) keys; the
-   streaming exact softmax (K6) at PixArt-2048's (2, 16384, 16, 72), at
-   FLUX.1-dev-1536²'s (1, 9728, 24, 128), in its key-padding variant and
-   at the reference's TestFlashAttention shapes (fp32 and bf16, and at
-   q×1e4), in bf16 at a tolerance derived from its measured error
+   drops or repeats one 64-key tile at 4096 (K4) and 4608 (K5) keys, and
+   one 128-key tile at 4608; the streaming exact softmax (K6) at
+   PixArt-2048's (2, 16384, 16, 72), at FLUX.1-dev-1536²'s (1, 9728, 24,
+   128), in its key-padding variant and at the reference's
+   TestFlashAttention shapes (fp32 and bf16, and at q×1e4 and logits ×6),
+   in bf16 at a tolerance derived from its measured error
    (`flash_bf16_tol`), shown to reject a plain version that drops or
-   repeats one 64-key tile at 16384 keys; the plain versions of K6 run per
-   (batch·head) slice, since the fp32 scores of the served shape would
-   take 34 GB; time kernel, plain version and (attention) one
-   ``scaled_dot_product_attention`` call as a yardstick the port never
-   calls.
+   repeats one 64-key tile at 16384 keys and one 128-key tile at 9728; the
+   plain versions of K6 run per (batch·head) slice, since the fp32 scores
+   of the served shape would take 34 GB. bf16 K5 and K6 at head dim 128
+   without a bias run on the Hopper body (``csrc/attention_sm90.cu``:
+   wgmma fed by TMA); the rest on ``csrc/attention.cu``. Time kernel (with
+   the SM clock, power and temperature sampled before and after), plain
+   version and (attention) one ``scaled_dot_product_attention`` call as a
+   yardstick the port never calls.
 4. The attention-variant harness (``variants``): the port of the JAX
    package's ``scripts/exp_attn_variants.py`` at its three shapes
    (2, 4608, 24, 128), (8, 4096, 16, 72) and (64, 1024, 16, 72) in bf16.
@@ -74,12 +78,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    seeded random bf16 parameters) from hash-encoder prompts, 20 flow-match
    Euler steps at guidance 5: 1024² at batch 1 under
    ``default_1024x1024_gs_5.0_steps_20`` and ``fast_256_to_1024`` (joint
-   attention through K5), 256² at batch 4 under ``flux_256/ours_fast`` and
-   the default (through K1), each decoded by the random 16-channel VAE to
-   uint8, with the launch counts of K5, K1 and K3 checked against each
-   schedule; ``flux_256/ours_fast`` again with the caches stored as
-   ``float8_e4m3fn`` (the same seeded weights), held to the same checks
-   and set beside the bf16 caches' latents; and a tiny fp32 FLUX
+   attention through K5), 1536² at batch 1 (9728 joint tokens: the
+   streaming route, K6 at D=128) under the all-recompute default and
+   ``fast_256_to_1024``'s masks served at 1536², 256² at batch 4 under
+   ``flux_256/ours_fast`` and the default (through K1), each decoded by the
+   random 16-channel VAE to uint8, with the launch counts of K5, K6, K1 and
+   K3 checked against each schedule; ``flux_256/ours_fast`` again with the
+   caches stored as ``float8_e4m3fn`` (the same seeded weights), held to
+   the same checks and set beside the bf16 caches' latents; and a tiny fp32 FLUX
    trajectory (1536 joint tokens at D=128, the row-block route) on the
    card against the plain path on the CPU.
 9. Entry points (``cli``): ``ecad_tpu_torch.inference.cli
@@ -113,7 +119,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ecad_tpu_torch.utils.timing import BF16_FLOPS, HBM_BYTES_PER_S, card_name, device_ms
+from ecad_tpu_torch.utils.timing import (
+    BF16_FLOPS,
+    HBM_BYTES_PER_S,
+    card_name,
+    device_ms,
+    sampled_device_ms,
+)
 
 ROOT = Path(__file__).resolve().parent
 OURS_FAST = ROOT / "schedules/schedules_in_paper/pixart_alpha_256/ours_fast.json"
@@ -139,6 +151,7 @@ BATCH = 8
 BATCH_1024 = 2
 BATCH_2048 = 1  # the caches take 6.3 GB per image at 2048²
 BATCH_FLUX_1024 = 1  # one 1024² image per request, as FLUX.1-dev is served
+BATCH_FLUX_1536 = 1  # its caches take ≈ 16 GB per image at 9728 joint tokens
 BATCH_FLUX_256 = 4
 STEPS = 20
 BF16_TOL = (2e-2, 2e-2)  # (atol, rtol): about two bf16 ulps of an O(1) output
@@ -221,12 +234,17 @@ def build_kernels() -> None:
 # ---------------------------------------------------------------------------
 
 
-def timed_ms(label: str, fn, reps: int = 7, inner: int = 20) -> float:
+def timed_ms(label: str, fn, reps: int = 7, inner: int = 20, clocks: bool = False) -> float:
     """Device ms of one call (`device_ms`: CUDA events behind a spin
     kernel, median of `reps` means of `inner` calls); the host ms per call
-    goes to the report beside it."""
-    dev_ms, host_ms = device_ms(fn, reps, inner)
-    REPORT.setdefault("timing_ms", {})[label] = {"device": dev_ms, "host": host_ms}
+    goes to the report beside it, and with `clocks` the card's SM clock,
+    power draw and temperature sampled just before and just after."""
+    if clocks:
+        dev_ms, host_ms, sample = sampled_device_ms(fn, reps, inner)
+    else:
+        (dev_ms, host_ms), sample = device_ms(fn, reps, inner), None
+    REPORT.setdefault("timing_ms", {})[label] = {"device": dev_ms, "host": host_ms,
+                                                 **({"clocks": sample} if clocks else {})}
     return dev_ms
 
 
@@ -410,8 +428,11 @@ def attention_cases() -> None:
             flash_case(f"batch_broadcast_bias_b3_d{d64}", rnd(3, 32, 2, d64, dtype=dtype),
                        rnd(3, 256, 2, d64, dtype=dtype), rnd(3, 256, 2, d64, dtype=dtype),
                        key_padding_bias([100], 256, -1e9))
-        flash_case("q_times_1e4_d72", rnd(1, 32, 1, 72, dtype=dtype, scale=1e4),
-                   rnd(1, 256, 1, 72, dtype=dtype), rnd(1, 256, 1, 72, dtype=dtype))
+        for d in (72, 128):
+            flash_case(f"q_times_1e4_d{d}", rnd(1, 32, 1, d, dtype=dtype, scale=1e4),
+                       rnd(1, 256, 1, d, dtype=dtype), rnd(1, 256, 1, d, dtype=dtype))
+        flash_case("logits_times_6_d128", rnd(1, 16, 1, 128, dtype=dtype, scale=6.0),
+                   rnd(1, 256, 1, 128, dtype=dtype), rnd(1, 256, 1, 128, dtype=dtype))
 
 
 def kernel_phase(b2: int, b2_1024: int) -> dict:
@@ -485,7 +506,7 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
              source="ecad_tpu_torch/csrc/attention.cu",
              replaces="ecad_tpu/ops/attention.py:58 (_attn_kernel)",
              max_abs_err=err1,
-             ms=timed_ms("attention", lambda: fused_attention(q, k, v)),
+             ms=timed_ms("attention", lambda: fused_attention(q, k, v), clocks=True),
              plain_ms=timed_ms("attention/plain",
                                lambda: fused_attention_reference(q, k, v)),
              bound_ms=b1, bound_by=by1,
@@ -495,7 +516,8 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
              source="ecad_tpu_torch/csrc/attention.cu",
              replaces="ecad_tpu/ops/attention.py:75 (_attn_kernel_bias)",
              max_abs_err=err2,
-             ms=timed_ms("attention_bias", lambda: fused_attention(q, kc, vc, bias)),
+             ms=timed_ms("attention_bias", lambda: fused_attention(q, kc, vc, bias),
+                         clocks=True),
              plain_ms=timed_ms("attention_bias/plain",
                                lambda: fused_attention_reference(q, kc, vc, bias)),
              bound_ms=b2_ms, bound_by=by2,
@@ -506,7 +528,8 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
              source="ecad_tpu_torch/ops/fused.py",
              replaces="ecad_tpu/ops/fused.py:20 (_modlnorm_kernel)",
              max_abs_err=err3,
-             ms=timed_ms("modlnorm", lambda: modulated_layer_norm(x, scale, shift)),
+             ms=timed_ms("modlnorm", lambda: modulated_layer_norm(x, scale, shift),
+                         clocks=True),
              plain_ms=timed_ms("modlnorm/plain",
                                lambda: modulated_layer_norm_reference(x, scale, shift)),
              bound_ms=b3, bound_by=by3, library_ms=None),
@@ -578,7 +601,8 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
              source="ecad_tpu_torch/csrc/attention.cu",
              replaces="ecad_tpu/ops/attention.py:344 (_transposed_kernel_nobias)",
              max_abs_err=err4,
-             ms=timed_ms("attention_long", lambda: fused_attention(q4, k4, v4), reps=5),
+             ms=timed_ms("attention_long", lambda: fused_attention(q4, k4, v4), reps=5,
+                         clocks=True),
              plain_ms=timed_ms("attention_long/plain",
                                lambda: transposed_attention_reference(q4, k4, v4),
                                reps=3, inner=5),
@@ -591,7 +615,7 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
              replaces="ecad_tpu/ops/attention.py:285 (_transposed_kernel)",
              max_abs_err=err5,
              ms=timed_ms("attention_long_bias",
-                         lambda: fused_attention(q4, kc4, vc4, bias4)),
+                         lambda: fused_attention(q4, kc4, vc4, bias4), clocks=True),
              plain_ms=timed_ms("attention_long_bias/plain",
                                lambda: transposed_attention_reference(q4, kc4, vc4, bias4)),
              bound_ms=b5_ms, bound_by=by5,
@@ -611,6 +635,7 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
             modulated_layer_norm_reference(x4, mods4[:, 1:2], mods4[:, 0:1]), BF16_TOL)
     timed_ms("modlnorm_1024", lambda: modulated_layer_norm(x4, mods4[:, 1:2], mods4[:, 0:1]))
     for r in rows:
+        r["clocks"] = REPORT["timing_ms"][r["name"]]["clocks"]
         out[r["name"]] = r
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
             f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library {r['library_ms']})")
@@ -647,15 +672,17 @@ def flux_kernel_rows(rnd, bound, nbytes) -> list[dict]:
     want = rowblock_attention_reference(q, k, v)
     err5 = compare(f"attention_rowblock/bf16/flux1024_{BATCH_FLUX_1024}x4608x24x128",
                    got, want, clamp_bf16_tol)
-    # the same check must fail a kernel that skips or repeats one 64-key tile
-    rejects("flux1024_drops_key_tile_1",
-            rowblock_attention_reference(q, torch.cat((k[:, :64], k[:, 128:]), 1),
-                                         torch.cat((v[:, :64], v[:, 128:]), 1)),
-            want, clamp_bf16_tol)
-    rejects("flux1024_repeats_key_tile_1",
-            rowblock_attention_reference(q, torch.cat((k[:, :128], k[:, 64:]), 1),
-                                         torch.cat((v[:, :128], v[:, 64:]), 1)),
-            want, clamp_bf16_tol)
+    # the same check must fail a kernel that skips or repeats one key tile:
+    # 64 keys (the mma.sync body's step) or 128 (the Hopper body's)
+    for n in (64, 128):
+        rejects(f"flux1024_drops_{n}_key_tile_1",
+                rowblock_attention_reference(q, torch.cat((k[:, :n], k[:, 2 * n:]), 1),
+                                             torch.cat((v[:, :n], v[:, 2 * n:]), 1)),
+                want, clamp_bf16_tol)
+        rejects(f"flux1024_repeats_{n}_key_tile_1",
+                rowblock_attention_reference(q, torch.cat((k[:, :2 * n], k[:, n:]), 1),
+                                             torch.cat((v[:, :2 * n], v[:, n:]), 1)),
+                want, clamp_bf16_tol)
     del want, got
     err1 = compare(f"attention/bf16/flux256_{BATCH_FLUX_256}x768x24x128", got256,
                    fused_attention_reference(qs, ks, vs), clamp_bf16_tol)
@@ -670,10 +697,11 @@ def flux_kernel_rows(rnd, bound, nbytes) -> list[dict]:
     b5, by5 = bound(nbytes(q, k, v, o), 4 * BATCH_FLUX_1024 * h * t1024 * t1024 * d)
     row5 = dict(
         name="attention_rowblock", route="cuda",
-        source="ecad_tpu_torch/csrc/attention.cu",
+        source="ecad_tpu_torch/csrc/attention_sm90.cu",
         replaces="ecad_tpu/ops/attention.py:274 (_rowblock_kernel_nobias)",
         max_abs_err=err5,
-        ms=timed_ms("attention_rowblock", lambda: fused_attention(q, k, v), reps=5),
+        ms=timed_ms("attention_rowblock", lambda: fused_attention(q, k, v), reps=5,
+                    clocks=True),
         plain_ms=timed_ms("attention_rowblock/plain",
                           lambda: rowblock_attention_reference(q, k, v), reps=3, inner=5),
         bound_ms=b5, bound_by=by5,
@@ -687,7 +715,7 @@ def flux_kernel_rows(rnd, bound, nbytes) -> list[dict]:
         replaces="ecad_tpu/ops/attention.py:255 (_rowblock_kernel)",
         max_abs_err=err5b,
         ms=timed_ms("attention_rowblock_bias", lambda: rowblock_attention(q, k, v, bias),
-                    reps=5),
+                    reps=5, clocks=True),
         plain_ms=timed_ms("attention_rowblock_bias/plain",
                           lambda: rowblock_attention_reference(q, k, v, bias),
                           reps=3, inner=5),
@@ -706,7 +734,7 @@ def flux_kernel_rows(rnd, bound, nbytes) -> list[dict]:
         source="ecad_tpu_torch/csrc/attention.cu",
         replaces="ecad_tpu/ops/attention.py:58 (_attn_kernel)",
         max_abs_err=err1,
-        ms=timed_ms("attention_flux256", lambda: fused_attention(qs, ks, vs)),
+        ms=timed_ms("attention_flux256", lambda: fused_attention(qs, ks, vs), clocks=True),
         plain_ms=timed_ms("attention_flux256/plain",
                           lambda: fused_attention_reference(qs, ks, vs), reps=3, inner=5),
         bound_ms=b1, bound_by=by1,
@@ -766,16 +794,23 @@ def flash_kernel_rows(rnd, bound, nbytes) -> list[dict]:
     err_b = compare("attention_flash_bias/bf16/pixart2048_key_padding_15384_9000",
                     got_bias, plain(q, k, v, bias), flash_bf16_tol)
     del got_bias
-    err_d = compare("attention_flash/bf16/flux1536_1x9728x24x128", got_d, plain(qd, kd, vd),
+    want_d = plain(qd, kd, vd)
+    err_d = compare("attention_flash/bf16/flux1536_1x9728x24x128", got_d, want_d,
                     flash_bf16_tol)
-    del got_d
+    # and a 128-key tile, the Hopper body's step, at the 9728 keys it serves
+    rejects("flux1536_drops_128_key_tile_1",
+            plain(qd, torch.cat((kd[:, :128], kd[:, 256:]), 1),
+                  torch.cat((vd[:, :128], vd[:, 256:]), 1)), want_d, flash_bf16_tol)
+    rejects("flux1536_repeats_128_key_tile_1",
+            plain(qd, torch.cat((kd[:, :256], kd[:, 128:]), 1),
+                  torch.cat((vd[:, :256], vd[:, 128:]), 1)), want_d, flash_bf16_tol)
+    del got_d, want_d
 
     o, od = torch.empty_like(q), torch.empty_like(qd)
     flops, flops_d = 4 * q.shape[0] * 16 * t2k * t2k * 72, 4 * 24 * t1536 * t1536 * 128
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
     qdt, kdt, vdt = (a.transpose(1, 2).contiguous() for a in (qd, kd, vd))
-    common = dict(route="cuda", source="ecad_tpu_torch/csrc/attention.cu",
-                  replaces="ecad_tpu/ops/attention.py:151 (_flash_kernel)")
+    common = dict(route="cuda", replaces="ecad_tpu/ops/attention.py:151 (_flash_kernel)")
     rows = []
     for name, max_err, args, (bnd, by), sdpa in (
         ("attention_flash", err, (q, k, v), bound(nbytes(q, k, v, o), flops),
@@ -787,7 +822,10 @@ def flash_kernel_rows(rnd, bound, nbytes) -> list[dict]:
     ):
         rows.append(dict(
             name=name, **common, max_abs_err=max_err,
-            ms=timed_ms(name, lambda: fused_attention(*args), reps=5, inner=5),
+            # bf16 at D=128 without a bias runs on the Hopper body
+            source="ecad_tpu_torch/csrc/attention_sm90.cu" if name == "attention_flash_d128"
+            else "ecad_tpu_torch/csrc/attention.cu",
+            ms=timed_ms(name, lambda: fused_attention(*args), reps=5, inner=5, clocks=True),
             plain_ms=timed_ms(f"{name}/plain", lambda: plain(*args), reps=3, inner=2),
             bound_ms=bnd, bound_by=by,
             library_ms=timed_ms(f"{name}/sdpa", sdpa, reps=5, inner=5),
@@ -1009,11 +1047,13 @@ def expected_counts(masks, side: int = 256) -> dict[str, int]:
     }
 
 
-def flux_expected_counts(masks, num_blocks: int, rowblock: bool) -> dict[str, int]:
+def flux_expected_counts(masks, num_blocks: int, attention: str) -> dict[str, int]:
     """Launches per FLUX trajectory that a schedule's masks imply: one joint
-    attention per recomputed full_attn or single_attn (FLUX-1024's 4608
-    tokens take the row-block clamp kernel K5, FLUX-256's 768 the exact
-    kernel K1); one modlnorm per stream of a recomputed full_attn, per
+    attention per recomputed full_attn or single_attn on the counter
+    `attention` of its route (FLUX-256's 768 tokens: the exact kernel K1,
+    ``attention``; FLUX-1024's 4608: the row-block clamp kernel K5,
+    ``attention_rowblock``; FLUX-1536's 9728: the streaming kernel K6,
+    ``attention_flash``); one modlnorm per stream of a recomputed full_attn, per
     full_ff and full_ff_context, per single block whose attention or MLP
     projection is recomputed (they share its norm), and one per step for
     the final norm."""
@@ -1022,7 +1062,7 @@ def flux_expected_counts(masks, num_blocks: int, rowblock: bool) -> dict[str, in
     attn = int(full[..., 0].sum() + single[..., 0].sum())
     return {
         **dict.fromkeys(COUNTERS, 0),
-        "attention_rowblock" if rowblock else "attention": attn,
+        attention: attn,
         "modlnorm": int(2 * full[..., 0].sum() + full[..., 1:].sum()
                         + (single[..., 0] | single[..., 1]).sum()) + arr.shape[0],
     }
@@ -1104,7 +1144,9 @@ def small_reference_check(side: int = 256) -> dict:
 
 def kernel_family(name: str) -> str:
     """Family of a device kernel, from its (mangled or demangled) name."""
-    for kernel, family in (("attn_clamp_bf16_kernel", "attention_long"),
+    for kernel, family in (("attn_rowblock_sm90_kernel", "attention_rowblock"),
+                           ("attn_flash_sm90_kernel", "attention_flash"),
+                           ("attn_clamp_bf16_kernel", "attention_long"),
                            ("attn_rowblock_bf16_kernel", "attention_rowblock"),
                            ("attn_flash_bf16_kernel", "attention_flash"),
                            ("attn_bf16_kernel", "attention")):
@@ -1346,9 +1388,10 @@ def main_path_2048() -> dict:
         "default": PixArtPipeline(pcfg, model, PixArtCacheSchedule.from_json(SIGMA_DEFAULT)),
         "ours_fast": PixArtPipeline(pcfg, model, PixArtCacheSchedule.from_json(SIGMA_OURS_FAST)),
     }
+    # one timed run each: the device is busy > 99 % of the wall time there
     result = drive(pipes, path_inputs(config, BATCH_2048), vae.decode_device,
                    BATCH_2048, 2048, lambda pipe: expected_counts(pipe.masks, 2048),
-                   order=("default", "ours_fast", "ours_fast", "default"))
+                   order=("default", "ours_fast"))
     result["speedup"] = result["default"]["ms_per_img"] / result["ours_fast"]["ms_per_img"]
     log(f"  ratio default / ours_fast {result['speedup']:.4f}")
     del model, vae, pipes
@@ -1410,15 +1453,18 @@ def flux_path() -> dict:
     heads, 512 text tokens, guidance embedding) with seeded random bf16
     weights, 20 flow-match Euler steps at guidance 5 from hash-encoder
     prompts: 1024² at batch 1 under the default and ``fast_256_to_1024``,
-    256² at batch 4 under ``ours_fast`` and the default, each decoded by the
-    random 16-channel VAE to uint8."""
+    1536² at batch 1 under the all-recompute default and
+    ``fast_256_to_1024``'s masks (the paper's 256² schedule transferred
+    once more, as PixArt-Σ's 256² schedule is served at 2048²), 256² at
+    batch 4 under ``ours_fast`` and the default, each decoded by the random
+    16-channel VAE to uint8."""
     from ecad_tpu_torch.image_generators.flux import _FluxHashEncoder
     from ecad_tpu_torch.models.flux import FluxConfig, init_model, unpack_latents
     from ecad_tpu_torch.models.vae import random_decoder_pipeline
     from ecad_tpu_torch.pipelines import FluxPipeline, FluxPipelineConfig
     from ecad_tpu_torch.schedules import FluxCacheSchedule
 
-    log("FLUX.1-dev, full width, 20 steps: 1024² batch 1, 256² batch 4")
+    log("FLUX.1-dev, full width, 20 steps: 1024² and 1536² batch 1, 256² batch 4")
     result = {"tiny_trajectory": small_flux_check()}
     config = FluxConfig()
     t0 = time.perf_counter()
@@ -1443,34 +1489,45 @@ def flux_path() -> dict:
             pooled=torch.from_numpy(np.stack([p for _, p in pairs])).to("cuda", config.dtype),
         )
 
-    for side, batch, names, order in (
-        (1024, BATCH_FLUX_1024, {"default": FLUX_DEFAULT_1024, "fast": FLUX_FAST_1024},
-         ("default", "fast", "fast", "default")),
-        (256, BATCH_FLUX_256, {"ours_fast": FLUX_OURS_FAST_256, "default": FLUX_DEFAULT_256},
-         ("default", "ours_fast", "ours_fast", "default")),
+    load = FluxCacheSchedule.from_json
+    default_1536 = FluxCacheSchedule.default(
+        STEPS, top_level_config={"height": 1536, "width": 1536, "guidance_scale": 5})
+    # side, batch, schedules, the joint attention's counter, timed order;
+    # one timed run each at 1024² and 1536² (device-bound: idle < 0.05)
+    for side, batch, schedules, attention, order in (
+        (1024, BATCH_FLUX_1024, {"default": load(FLUX_DEFAULT_1024), "fast": load(FLUX_FAST_1024)},
+         "attention_rowblock", ("default", "fast")),
+        (1536, BATCH_FLUX_1536, {"default": default_1536, "fast": load(FLUX_FAST_1024)},
+         "attention_flash", ("default", "fast")),
+        (256, BATCH_FLUX_256, {"ours_fast": load(FLUX_OURS_FAST_256),
+                               "default": load(FLUX_DEFAULT_256)},
+         "attention", ("default", "ours_fast", "ours_fast", "default")),
     ):
         pcfg = FluxPipelineConfig(config, STEPS, guidance_scale=5.0, height=side, width=side)
-        pipes = {n: FluxPipeline(pcfg, model, FluxCacheSchedule.from_json(p))
-                 for n, p in names.items()}
+        pipes = {n: FluxPipeline(pcfg, model, sched) for n, sched in schedules.items()}
         for n, pipe in pipes.items():
             gs = pipe.schedule.top_level_config["guidance_scale"]
             size = pipe.schedule.top_level_config["height"]
-            if gs != pcfg.guidance_scale or size != side:
+            # the one schedule served at a side it was not made for:
+            # fast_256_to_1024 at 1536²
+            transferred = side == 1536 and n == "fast"
+            if gs != pcfg.guidance_scale or (size != side and not transferred):
                 raise AssertionError(f"{n}: schedule is for {size}² at guidance {gs}")
         gh, gw = pcfg.grid_hw
         result[str(side)] = drive(
             pipes, inputs(batch, pcfg),
             lambda lat: vae.decode_device(unpack_latents(lat, gh, gw)),
             batch, side,
-            lambda pipe: flux_expected_counts(pipe.masks, config.num_blocks,
-                                              rowblock=side == 1024),
+            lambda pipe: flux_expected_counts(pipe.masks, config.num_blocks, attention),
             order=order,
         )
-    r1024, r256 = result["1024"], result["256"]
+    r1024, r1536, r256 = result["1024"], result["1536"], result["256"]
     result["speedup_1024_fast"] = r1024["default"]["ms_per_img"] / r1024["fast"]["ms_per_img"]
+    result["speedup_1536_fast"] = r1536["default"]["ms_per_img"] / r1536["fast"]["ms_per_img"]
     result["speedup_256_ours_fast"] = (
         r256["default"]["ms_per_img"] / r256["ours_fast"]["ms_per_img"])
-    log(f"  ratio default / fast at 1024² {result['speedup_1024_fast']:.4f}, "
+    log(f"  ratio default / fast at 1024² {result['speedup_1024_fast']:.4f}, at 1536² "
+        f"{result['speedup_1536_fast']:.4f} (peak {r1536['peak_mem_gib']:.2f} GiB), "
         f"default / ours_fast at 256² {result['speedup_256_ours_fast']:.4f}")
 
     # fp8 cache storage: the same seeded weights with cache_dtype
@@ -1487,7 +1544,7 @@ def flux_path() -> dict:
         {"ours_fast": pipe8}, inp,
         lambda lat: vae.decode_device(unpack_latents(lat, *pcfg8.grid_hw)),
         BATCH_FLUX_256, 256,
-        lambda pipe: flux_expected_counts(pipe.masks, config.num_blocks, rowblock=False),
+        lambda pipe: flux_expected_counts(pipe.masks, config.num_blocks, "attention"),
         order=("ours_fast", "ours_fast"),
     )
     got = pipe8.denoise(**inp).float()
@@ -1574,7 +1631,7 @@ def entry_points() -> dict:
         "flux_ours_fast_256": run_cli(
             "flux_ours_fast_256",
             ["FluxImageGenerator", "--random-weights", "--schedule", str(FLUX_OURS_FAST_256)],
-            2, 32, flux_expected_counts(flux_masks, flux.num_blocks, rowblock=False)),
+            2, 32, flux_expected_counts(flux_masks, flux.num_blocks, "attention")),
     }
 
 
@@ -1609,13 +1666,12 @@ def main() -> None:
     args.report.parent.mkdir(parents=True, exist_ok=True)
     # launches from the run of each kernel's path: PixArt-256 `ours_fast`
     # for K1-K3, PixArt-1024 `ours_fast` for K4, FLUX-1024 `fast` for K5,
-    # FLUX-256 `ours_fast` for K1 at D=128, PixArt-2048 `ours_fast` for K6;
-    # K6 at D=128 reads FLUX-1024 `fast`'s count, the largest D=128 path
-    # served (FLUX.1-dev at 1536² would reach K6, and is not run); the
-    # harness's rows carry the launches of its run at their shape
+    # FLUX-256 `ours_fast` for K1 at D=128, PixArt-2048 `ours_fast` for K6,
+    # FLUX-1536 `fast` for K6 at D=128; the harness's rows carry the
+    # launches of its run at their shape
     for name, row in kernels.items():
         if name == "attention_flash_d128":
-            row["launches"] = REPORT["flux"]["1024"]["fast"]["launches"]["attention_flash"]
+            row["launches"] = REPORT["flux"]["1536"]["fast"]["launches"]["attention_flash"]
         elif name.startswith("attention_flash"):
             row["launches"] = REPORT["main_path_2048"]["ours_fast"]["launches"][name]
         elif name.startswith("attention_long"):
@@ -1643,10 +1699,14 @@ def main() -> None:
         "launches_2048": {k: mp2k[k]["launches"] for k in ("ours_fast", "default")},
         "flux_ms_per_img_1024": {k: fx["1024"][k]["ms_per_img"] for k in ("fast", "default")},
         "flux_speedup_1024": fx["speedup_1024_fast"],
+        "flux_ms_per_img_1536": {k: fx["1536"][k]["ms_per_img"] for k in ("fast", "default")},
+        "flux_speedup_1536": fx["speedup_1536_fast"],
+        "flux_peak_mem_gib_1536": fx["1536"]["peak_mem_gib"],
         "flux_ms_per_img_256": {k: fx["256"][k]["ms_per_img"] for k in ("ours_fast", "default")},
         "flux_speedup_256": fx["speedup_256_ours_fast"],
         "flux_launches": {f"{side}/{k}": fx[side][k]["launches"]
                           for side, ks in (("1024", ("fast", "default")),
+                                           ("1536", ("fast", "default")),
                                            ("256", ("ours_fast", "default")))
                           for k in ks},
         "phase_s": seconds,

@@ -16,9 +16,10 @@
 //     Here the scores move to the log2 domain (×log2e) and exp is exp2:
 //     exp(x − m) to fp32 rounding. The Pallas wrapper pads Tk to a multiple
 //     of 1536 and gives the pad keys a −1e9 bias (weight exactly 0); here
-//     they are excluded by bounds. In a row whose every real key is masked
-//     as well, the reference spreads the weight over Tk_pad keys (pad rows
-//     of v are 0) and this kernel over Tk; no served shape has such a row.
+//     they are excluded by bounds. In a row whose every real key has a
+//     caller bias at or below −1e9 as well, the reference spreads the
+//     weight over Tk_pad keys (pad rows of v are 0) and this kernel over
+//     Tk; no served shape has such a row (the text masks bias by −10000).
 //   * clamp (no row max): the function of `_transposed_kernel` (:285) and
 //     `_transposed_kernel_nobias` (:344), launched by `_transposed_attention`
 //     (:348-455) for lane-padded head dims (PixArt's D=72) at or above a
@@ -37,12 +38,14 @@
 //     clamp there is no running max and no rescale of the accumulator: p ≤
 //     2^80, so the fp32 sums cannot overflow, and p ≥ 2^-100, so the sum is
 //     never 0. Keys past Tk get weight 0 here (bounds); the Pallas kernels
-//     pad them to a 128-multiple and give each of the n_pad pad keys 2^-100
-//     through a −1e9 bias (their pad rows of v are 0, so only Σp grows). A
-//     row's result therefore differs by a relative n_pad·2^-100/Σp: below
-//     2^-90 whenever some key within Tk has a clamped logit above
-//     log2(n_pad) − 10, but n_pad/Tk for a row whose every logit is clamped
-//     at −100.
+//     pad them to Tk_pad = round_up(Tk, 128) and give each of the n_pad =
+//     Tk_pad − Tk pad keys 2^-100 through a −1e9 bias (their pad rows of v
+//     are 0, so only Σp grows). So the epilogue adds n_pad·2^-100 to Σp: in
+//     a row whose every logit is clamped at −100 (an all-masked text row)
+//     the weights are then 1/Tk_pad, as the reference's. (X4's FD mode
+//     does not: the reference's `*_fd` bodies mask their pad keys.) The
+//     bf16 D=128 calls without a bias (K5 on FLUX's joint attention, and
+//     K6 there) run on the Hopper body of attention_sm90.cu instead.
 //
 // What bounds it on the H100. Exact path, at PixArt-256's shapes
 // (self-attention 256×256 and cross-attention 256→120, D=72, bf16): a
@@ -54,7 +57,7 @@
 // tensor cores bound it (0.313 ms at 989 TFLOP/s); its cross-attention
 // (4096 → 120 keys) moves ≈78 MB for 9e9 flops and is bound by bytes
 // (0.023 ms at 3.35 TB/s). Row-block path, at FLUX-1024's joint attention
-// (B=1, 24 heads, 4608×4608, D=128): 2.61e11 flops on 22.6 MB, the tensor
+// (B=1, 24 heads, 4608×4608, D=128): 2.61e11 flops on 113 MB, the tensor
 // cores bound it (0.264 ms). Streaming path (K6), at PixArt-2048's
 // self-attention (2B=2, 16 heads, 16384×16384, D=72): 2.47e12 flops on
 // 302 MB, the tensor cores bound it (2.50 ms); at FLUX.1-dev-1536²'s joint
@@ -93,8 +96,8 @@
 //
 // q, k, v and o are read and written in the (B, T, H, D) layout through
 // their strides; only the head dimension must be contiguous (16-byte
-// aligned rows take the cp.async path, others element-wise loads). No
-// wgmma or TMA yet.
+// aligned rows take the cp.async path, others element-wise loads). The
+// wgmma/TMA body for D=128 is attention_sm90.cu's.
 //
 // The attention-variant harness (X1–X4). `scripts/exp_attn_variants.py`
 // times the TPU's attention body with parts of its work taken out, through
@@ -149,6 +152,13 @@ constexpr int kBlockK = 64;           // keys per shared-memory tile (bf16 path)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kClampLo = -100.f;  // clamp variant: log2-domain window of s
 constexpr float kClampHi = 80.f;
+constexpr float kTwoPowMinus100 = 7.8886090522101181e-31f;  // a clamped pad key's weight
+
+// Σp of the reference's pad keys on the clamp routes: Tk_pad − Tk keys of
+// 2^-100 each, Tk_pad = round_up(Tk, 128).
+__device__ __forceinline__ float pad_key_mass(int Tk) {
+  return (float)((Tk + 127) / 128 * 128 - Tk) * kTwoPowMinus100;
+}
 
 struct Params {
   const void* q;
@@ -521,6 +531,7 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
     for (int r = 0; r < 2; ++r) {
       l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
       l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+      if constexpr (MODE == kClamp) l_run[r] += pad_key_mass(p.Tk);
     }
   }
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
@@ -683,6 +694,7 @@ __global__ void __launch_bounds__(kThreads) attn_f32_kernel(const Params p) {
   for (int rr = 0; rr < 4; ++rr) {
     const int row = q0 + warp * 4 + rr;
     if (row >= p.Tq) continue;
+    if constexpr (CLAMP) l_run[rr] += pad_key_mass(p.Tk);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int d = lane + 32 * i;

@@ -30,7 +30,13 @@ the way that one does (`attention_route`):
   and counters; plain version: `flash_attention_reference`.
 
 All four run in one CUDA C++ kernel source, ``csrc/attention.cu`` (a
-compile-time variant each; the source says what bounds each on the H100).
+compile-time variant each; the source says what bounds each on the H100),
+but for the calls that take the Hopper body of ``csrc/attention_sm90.cu``
+(wgmma fed by TMA): bf16 at head dim 128 without a bias, on the row-block
+(K5) and streaming (K6) routes — FLUX.1-dev's joint attention at 1024² and
+1536². The choice depends on dtype, head dim and bias only. Such a call
+whose operands TMA cannot map (`tma_operand`: a 16-byte-aligned base and
+strides) raises; it never drops back to the other body.
 
 On a CPU tensor every wrapper runs its plain version. On a CUDA tensor it
 launches the kernel or raises: there is no fallback. Each launch adds one
@@ -77,6 +83,11 @@ _SCALED_Q_VARIANTS = (1, 2, 5, 6, 7)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 MAX_HEAD_DIM = 128
 _FN = None
+_SM90_FN = None
+# the Hopper body's softmax modes (csrc/attention_sm90.cu), by counter name
+_SM90_MODES = {"attention_flash": 0, "attention_rowblock": 1}
+_SM90_HEAD_DIM = 128
+_SM90_BOX = (64, 1, 128, 1)  # 64 columns (128 bytes: the swizzle's width), 1 head, 128 rows
 
 # The reference's routing constants (ecad_tpu/ops/attention.py :95, :134,
 # :148). They decide WHICH function a shape gets — the clamp softmax or the
@@ -87,6 +98,7 @@ _ROWBLOCK_MAX_KV_ELEMS = 8192 * 128
 _TRANSPOSED_MIN_SCORE_BYTES = 1024 * 1024
 _LOG2E = 1.4426950408889634
 _CLAMP_LO, _CLAMP_HI = -100.0, 80.0  # log2 domain (:200-201)
+_PAD_KEY_WEIGHT = 2.0 ** _CLAMP_LO  # a −1e9-biased pad key of the clamp routes
 
 
 def _kernel():
@@ -112,6 +124,27 @@ def _kernel():
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+def _sm90_kernel():
+    global _SM90_FN
+    if _SM90_FN is None:
+        from ._build import load_library
+
+        fn = load_library("attention_sm90").ecad_attention_sm90_fwd
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v
+            ctypes.c_void_p,  # o
+            ctypes.POINTER(ctypes.c_ulonglong),  # 3 × 11 tensor-map arguments
+            ctypes.POINTER(ctypes.c_longlong),  # o's strides (b, t, h)
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H Tq Tk
+            ctypes.c_float,  # scale
+            ctypes.c_int,  # mode: 0 exact (K6), 1 clamp (K5)
+            ctypes.c_void_p,  # stream
+        ]
+        fn.restype = ctypes.c_int
+        _SM90_FN = fn
+    return _SM90_FN
 
 
 def fused_attention_reference(
@@ -219,11 +252,14 @@ def transposed_attention_reference(
     ``_transposed_kernel`` / ``_transposed_kernel_nobias``): q times
     scale·log2e rounded to q's dtype, s = q·kᵀ in fp32 plus the
     key-padding bias times log2e, p = exp2(clip(s, −100, 80)), Σp in fp32,
-    p rounded to v's dtype for p·v, one divide, one cast. Keys past Tk do
-    not exist here; the reference pads them and gives them 2^-100 each: a
-    relative difference below 2^-90 while some logit exceeds
-    log2(n_pad) − 10, up to n_pad/Tk for a row whose every logit is
-    clamped at −100."""
+    p rounded to v's dtype for p·v, one divide, one cast. The reference
+    pads the keys to Tk_pad = round_up(Tk, 128) with a −1e9 bias, which
+    clamps to 2^-100 each, and their rows of v are 0: so Σp here gains
+    (Tk_pad − Tk)·2^-100 for them. That is nothing beside a logit above the
+    clamp's floor, but in a row whose every logit is clamped at −100 (an
+    all-masked text row) it makes the weights 1/Tk_pad, as the
+    reference's."""
+    tk = k.shape[1]
     qs = q * torch.tensor(clamp_scale(q.shape[-1], q.dtype), dtype=q.dtype)
     qf = qs.float().permute(0, 2, 1, 3)
     kf = k.float().permute(0, 2, 1, 3)
@@ -232,7 +268,8 @@ def transposed_attention_reference(
     if bias is not None:
         s = s + bias.float() * _LOG2E
     p = torch.exp2(s.clamp(_CLAMP_LO, _CLAMP_HI))
-    out = (p.to(v.dtype).float() @ vf) / p.sum(dim=-1, keepdim=True)
+    denom = p.sum(dim=-1, keepdim=True) + (_round_up(tk, 128) - tk) * _PAD_KEY_WEIGHT
+    out = (p.to(v.dtype).float() @ vf) / denom
     return out.to(q.dtype).permute(0, 2, 1, 3).contiguous()
 
 
@@ -266,9 +303,10 @@ def flash_attention_reference(
     changes only which running max each p is rounded against before the
     cast, and the order of the fp32 sums. Keys past Tk do not exist here;
     the reference pads them with a −1e9 bias, so they weigh exactly 0 —
-    except in a row whose every real key is masked too, where the
-    reference spreads the weight over Tk_pad keys (pad rows of v are 0)
-    and this over Tk."""
+    except in a row whose every real key has a caller bias at or below
+    −1e9 too, where the reference spreads the weight over Tk_pad keys
+    (pad rows of v are 0) and this over Tk (pinned by
+    tests/test_torch_ops.py::test_exact_routes_pad_keys_under_a_minus_1e9_bias)."""
     d = q.shape[-1]
     qf = q.float().permute(0, 2, 1, 3)
     kf = k.float().permute(0, 2, 1, 3)
@@ -287,11 +325,14 @@ def _launch(
     v: torch.Tensor,
     bias: Optional[torch.Tensor],
     variant: int,
+    entry=None,
 ) -> torch.Tensor:
     """One launch of the CUDA kernel on q's device: `variant` 0 is the
     exact softmax, 1 the clamp softmax of the transposed route (K4), 2 that
     of the row-block route (K5), 3 the exact softmax of the streaming route
     (K6), 4-7 the attention-variant harness's X1-X4 (`attn_variants`).
+    `entry` is the C entry point to call, by default this tree's
+    ``ecad_attention_fwd`` (a comparison script passes an older build's).
     Counts it."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
@@ -321,7 +362,7 @@ def _launch(
     else:
         scale = 1.0 if variant == 4 else 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
-        status = _kernel()(
+        status = (entry or _kernel())(
             _DTYPES[q.dtype],
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if bias is None else bias.data_ptr(),
@@ -339,6 +380,69 @@ def _launch(
         )
     name = _VARIANTS[variant]
     LAUNCHES[name if bias is None else name + "_bias"] += 1
+    return out
+
+
+def tma_operand(t: torch.Tensor, name: str) -> list[int]:
+    """The arguments of the 4-D TMA tensor map of a bf16 (B, T, H, 128)
+    operand of the Hopper body: the dims {D, H, T, B} (innermost first),
+    the byte strides of H, T and B, and the box {64, 1, 128, 1} — 11
+    integers. TMA needs a 16-byte-aligned base and strides that are
+    multiples of 16 bytes (below 2^40); a dimension of size 1 is never
+    stepped along, so it takes the packed stride. Raises ValueError where
+    the operand does not meet them."""
+    b, tt, h, d = t.shape
+    if t.dtype != torch.bfloat16 or d != _SM90_HEAD_DIM:
+        raise ValueError(f"{name}: the Hopper body takes bf16 at head dim 128; got "
+                         f"{t.dtype}, {d}")
+    if t.stride(3) != 1:
+        raise ValueError(f"{name} must be contiguous in its last dim")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: TMA needs a 16-byte-aligned base; got {t.data_ptr():#x}")
+    elem = t.element_size()
+    strides, packed = [], d * elem
+    for size, stride in ((h, t.stride(2)), (tt, t.stride(1)), (b, t.stride(0))):
+        sb = stride * elem if size > 1 else packed
+        if sb % 16 or not 0 < sb < 2**40:
+            raise ValueError(f"{name}: TMA needs strides that are multiples of 16 bytes; "
+                             f"got strides {t.stride()} of {t.dtype}")
+        strides.append(sb)
+        packed = sb * size
+    return [d, h, tt, b, *strides, *_SM90_BOX]
+
+
+def _takes_sm90(q: torch.Tensor, bias: Optional[torch.Tensor]) -> bool:
+    """Whether a row-block or streaming call goes to the Hopper body
+    (csrc/attention_sm90.cu): bf16 at head dim 128 without a bias. A
+    function of dtype, head dim and bias only."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] == _SM90_HEAD_DIM and bias is None
+
+
+def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) -> torch.Tensor:
+    """One launch of the Hopper body in the softmax mode of counter `name`
+    (``attention_flash``: exact, K6; ``attention_rowblock``: clamp, K5).
+    Raises where TMA cannot map an operand (`tma_operand`). Counts it."""
+    maps = [a for t, n in ((q, "q"), (k, "k"), (v, "v")) for a in tma_operand(t, n)]
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention: unsupported device {q.device}")
+    b, tq, h, d = q.shape
+    mode = _SM90_MODES[name]
+    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    scale = clamp_scale(d, q.dtype) if mode == 1 else 1.0 / math.sqrt(d)
+    with torch.cuda.device(q.device):
+        status = _sm90_kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            (ctypes.c_ulonglong * len(maps))(*maps),
+            (ctypes.c_longlong * 3)(out.stride(0), out.stride(1), out.stride(2)),
+            b, h, tq, k.shape[1], scale, mode,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if status != 0:
+        raise RuntimeError(
+            f"Hopper attention launch failed: status {status} (cudaError_t, or 100000 + "
+            f"the CUresult of a refused tensor map; q {tuple(q.shape)}, k {tuple(k.shape)})"
+        )
+    LAUNCHES[name] += 1
     return out
 
 
@@ -369,6 +473,8 @@ def rowblock_attention(
     _check_key_padding(q, k, v, bias)
     if q.device.type == "cpu":
         return rowblock_attention_reference(q, k, v, bias)
+    if _takes_sm90(q, bias):
+        return _launch_sm90(q, k, v, "attention_rowblock")
     return _launch(q, k, v, bias, variant=2)
 
 
@@ -385,6 +491,8 @@ def flash_attention(
     _check_key_padding(q, k, v, bias)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, bias)
+    if _takes_sm90(q, bias):
+        return _launch_sm90(q, k, v, "attention_flash")
     return _launch(q, k, v, bias, variant=3)
 
 

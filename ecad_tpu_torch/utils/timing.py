@@ -1,8 +1,10 @@
 """Device timing on one CUDA card, and the card's peaks for bounds.
 
 `device_ms` times a function's device work with CUDA events behind a spin
-kernel; `card_name` is the card's name and power limit as ``nvidia-smi``
-prints them, which every kept number carries beside it.
+kernel; `sampled_device_ms` does the same with the card's SM clock, power
+draw and temperature sampled just before and just after (`card_sample`);
+`card_name` is the card's name and power limit as ``nvidia-smi`` prints
+them, which every kept number carries beside it.
 """
 
 from __future__ import annotations
@@ -61,3 +63,24 @@ def card_name() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def card_sample() -> dict:
+    """The first card's SM clock (MHz), power draw (W) and temperature (°C)
+    now, from ``nvidia-smi --query-gpu=clocks.sm,power.draw,temperature.gpu
+    --format=csv,noheader,nounits``."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    sm, power, temp = (v.strip() for v in out.split(","))
+    return {"sm_clock_mhz": float(sm), "power_w": float(power), "temp_c": float(temp)}
+
+
+def sampled_device_ms(fn, reps: int = 7, inner: int = 20) -> tuple[float, float, dict]:
+    """`device_ms` with `card_sample` taken just before and just after the
+    timing: (device ms, host ms, {"before": ..., "after": ...})."""
+    before = card_sample()
+    dev, host = device_ms(fn, reps, inner)
+    return dev, host, {"before": before, "after": card_sample()}

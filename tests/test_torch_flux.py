@@ -17,9 +17,12 @@ import jax.numpy as jnp
 from flax import linen as fnn
 
 from ecad_tpu.models import flux as jfx
+from ecad_tpu.pipelines import flux_pipeline as jfp
 from ecad_tpu.schedules import FluxCacheSchedule as JSched
 from ecad_tpu_torch.models import flux as tfx
 from ecad_tpu_torch.models.bridge import flux_state_dict
+from ecad_tpu_torch.ops import attention as port_attention
+from ecad_tpu_torch.pipelines import flux_pipeline as tfp
 from ecad_tpu_torch.schedules import FluxCacheSchedule as TSched
 
 REPO = Path(__file__).resolve().parent.parent
@@ -214,6 +217,49 @@ def test_forward_on_the_rowblock_route_matches_reference(monkeypatch):
         got, _ = model(*_t(inputs), {}, tfx.full_flux_mask(model.config), grid)
     assert routes == [(1, 1536, 2, 128)] * (jcfg.num_blocks + jcfg.num_single_blocks)
     _close(got, want)
+
+
+def test_trajectory_on_the_streaming_route_matches_reference(monkeypatch):
+    """Four flow-match Euler steps at guidance 5 under a mixed schedule at
+    head dim 128, with the port's routing thresholds lowered to 0 so that
+    every joint attention takes the streaming route (K6), as FLUX.1-dev's
+    9728 joint tokens do at 1536²; its plain version here. The reference
+    on the CPU runs XLA's exact softmax, the same function; fp32
+    throughout, so the final latents agree within 1e-4."""
+    steps, side = 4, 64  # 4×4 packed image tokens
+    kw = dict(num_heads=2, head_dim=128, axes_dims=(16, 56, 56))
+    jcfg = jfx.FluxConfig.tiny(dtype=jnp.float32, **kw)
+    params = _params(jcfg, 7)
+    model = _port(tfx.FluxConfig.tiny(dtype=torch.float32, **kw), params)
+    monkeypatch.setattr(port_attention, "_SINGLE_TILE_SCORE_BYTES", 0)
+    monkeypatch.setattr(port_attention, "_ROWBLOCK_MAX_KV_ELEMS", 0)
+    shapes = []
+    plain = port_attention.flash_attention_reference
+
+    def counted(q, k, v, bias=None):
+        shapes.append(tuple(q.shape))
+        return plain(q, k, v, bias)
+
+    monkeypatch.setattr(port_attention, "flash_attention_reference", counted)
+    n = (jcfg.num_blocks + jcfg.num_single_blocks) * 3
+    genome = np.random.default_rng(8).random(steps * n) < 0.5
+    jsched, tsched = (
+        S.from_numpy(genome, steps, jcfg.num_blocks, num_single_blocks=jcfg.num_single_blocks)
+        for S in (JSched, TSched)
+    )
+    jpipe = jfp.FluxPipeline(
+        jfp.FluxPipelineConfig(jcfg, steps, height=side, width=side), params, jsched)
+    tpipe = tfp.FluxPipeline(
+        tfp.FluxPipelineConfig(model.config, steps, height=side, width=side), model, tsched)
+    rng = np.random.default_rng(9)
+    noise = rng.standard_normal((B, (side // 16) ** 2, jcfg.in_channels), dtype=np.float32)
+    txt = rng.standard_normal((B, jcfg.text_len, jcfg.joint_dim), dtype=np.float32)
+    pooled = rng.standard_normal((B, jcfg.pooled_dim), dtype=np.float32)
+    want = jpipe.build_denoise_fn(donate=False)(params, noise, txt, pooled)
+    got = tpipe.build_denoise_fn()(*(torch.from_numpy(a) for a in (noise, txt, pooled)))
+    recomputed = sum(row[0] for step in tpipe.masks for row in step)
+    assert shapes == [(B, jcfg.text_len + 16, 2, 128)] * recomputed and recomputed > 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
 def test_cache_dtype_float8_storage(models):

@@ -190,6 +190,9 @@ def test_cpu_path_counts_no_launches():
     assert attention_route(tuple(q.shape), 8200) == "flash"
     fused_attention(q, k, k)
     flash_attention(q[:, :8], k, k, torch.zeros(1, 1, 1, 8200))
+    q = torch.randn(1, 1536, 1, 128, dtype=torch.bfloat16)  # the Hopper body's calls
+    rowblock_attention(q, q, q)
+    flash_attention(q, q, q)
     q = torch.randn(1, 128, 1, 72)  # the attention-variant harness's kernels
     for fn in (matmul_only_attention, nomax_attention, max_exp2_attention,
                clamp_fd_attention):
@@ -537,3 +540,205 @@ def test_attention_rejects_bias_that_does_not_broadcast():
     # an additive bias, not a boolean keep-mask
     with pytest.raises(TypeError):
         fused_attention(q, q, q, torch.ones(2, 1, 1, 4, dtype=torch.bool))
+
+
+# ---------------------------------------------------------------------------
+# fully clamped rows: the reference's pad keys on the clamp routes (K4, K5)
+# ---------------------------------------------------------------------------
+
+
+def _text_bias_np(lengths, tk):
+    """The models' text bias, (1 − mask)·−10000 (models/pixart.py:305-306),
+    as a (B, 1, 1, Tk) key-padding bias; a length of 0 masks every key."""
+    lens = np.asarray(lengths)[:, None, None, None]
+    return np.where(np.arange(tk)[None, None, None, :] < lens, 0.0, -10000.0).astype(
+        np.float32
+    )
+
+
+def _clamp_without_pad_keys(q, k, v, bias):
+    """The clamp plain version as it was before the repair: Σp over the Tk
+    real keys only."""
+    qs = q * torch.tensor(port_attention.clamp_scale(q.shape[-1], q.dtype), dtype=q.dtype)
+    s = qs.float().permute(0, 2, 1, 3) @ k.float().permute(0, 2, 3, 1)
+    s = s + bias.float() * port_attention._LOG2E
+    p = torch.exp2(s.clamp(port_attention._CLAMP_LO, port_attention._CLAMP_HI))
+    out = (p.to(v.dtype).float() @ v.float().permute(0, 2, 1, 3)) / p.sum(-1, keepdim=True)
+    return out.to(q.dtype).permute(0, 2, 1, 3)
+
+
+# route → (the reference's wrapper, the port's plain version, b, h, tq, tk,
+# d, text lengths): batch 0's text mask keeps no key, so every logit of
+# its rows clamps at −100 and each of the Tk real keys and the reference's
+# Tk_pad − Tk pad keys weighs 2^-100
+CLAMPED_ROWS = {
+    "transposed_k4_tk120_d72": ("_transposed_attention", transposed_attention_reference,
+                                2, 2, 16, 120, 72, [0, 60]),
+    "rowblock_k5_tk300_d128": ("_rowblock_attention", rowblock_attention_reference,
+                               2, 2, 16, 300, 128, [0, 250]),
+}
+
+
+def _clamped_case(case, dtype):
+    ref_name, plain, b, h, tq, tk, d, lengths = CLAMPED_ROWS[case]
+    rng = np.random.default_rng(31)
+    q, k, v = _qkv(rng, b, tq, tk, h, d)
+    bias = _text_bias_np(lengths, tk)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "fp32" else (
+        jnp.bfloat16, torch.bfloat16)
+    want = getattr(jax_attention, ref_name)(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)), jnp.asarray(bias), interpret=True)
+    args = [torch.from_numpy(a).to(tdt) for a in (q, k, v)] + [torch.from_numpy(bias)]
+    return plain, args, np.asarray(want, np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(CLAMPED_ROWS))
+def test_clamp_routes_match_reference_in_fully_clamped_rows(case, dtype):
+    """An all-masked text row on the clamp routes: the reference divides
+    by Tk_pad = round_up(Tk, 128) keys of 2^-100 (its pad keys' v rows are
+    0), so its output is Σv/Tk_pad; the plain version, which adds the pad
+    keys' (Tk_pad − Tk)·2^-100 to Σp, matches it there and in the
+    partly masked batch row."""
+    plain, args, want = _clamped_case(case, dtype)
+    got = plain(*args)
+    np.testing.assert_allclose(got.float().numpy(), want, **CLAMP_TOL[dtype])
+    tk = args[1].shape[1]
+    mean_v = args[2].float().sum(1, keepdim=True) / port_attention._round_up(tk, 128)
+    np.testing.assert_allclose(want[0], mean_v[0].expand_as(got[0]).numpy(),
+                               rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(CLAMPED_ROWS))
+def test_clamp_plain_version_without_pad_keys_fails_fully_clamped_rows(case, dtype):
+    """The plain version before the repair divided by Tk: in the all-masked
+    row it is the reference times Tk_pad/Tk (128/120 at Tk=120, 384/300 at
+    Tk=300), which the tolerance rejects; in the partly masked row it
+    agrees."""
+    _, args, want = _clamped_case(case, dtype)
+    old = _clamp_without_pad_keys(*args).float().numpy()
+    tk = args[1].shape[1]
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(old, want, **CLAMP_TOL[dtype])
+    np.testing.assert_allclose(old[1], want[1], **CLAMP_TOL[dtype])
+    ratio = port_attention._round_up(tk, 128) / tk
+    np.testing.assert_allclose(old[0], want[0] * ratio, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("route", ["single_tile_k2", "flash_k6"])
+def test_exact_routes_pad_keys_under_a_minus_1e9_bias(route, monkeypatch):
+    """The exact routes pad Tk with −1e9-biased keys before the max, so
+    they differ from the port only where a caller's bias puts every real
+    key at −1e9 too: there the reference's scores all round to −1e9, its
+    weight spreads over Tk_pad keys (pad rows of v are 0) and its output is
+    Σv/Tk_pad, while the port's is Σv/Tk. Pinned, not repaired: no model
+    passes such a bias (the text masks use −10000)."""
+    rng = np.random.default_rng(32)
+    tk = 300
+    q, k, v = _qkv(rng, 1, 8, tk, 1, 64)
+    bias = np.full((1, 1, 1, tk), -1e9, np.float32)
+    if route == "flash_k6":
+        monkeypatch.setattr(jax_attention, "_ROWBLOCK_MAX_KV_ELEMS", 0)
+        want = jax_attention._flash_attention(
+            *(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(bias), interpret=True)
+        got = flash_attention_reference(*(torch.from_numpy(a) for a in (q, k, v, bias)))
+        tk_pad = 384  # one key block of min(1536, round_up(300, 128))
+    else:
+        want = jax_fused_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                   bias=jnp.asarray(bias), interpret=True)
+        got = fused_attention_reference(*(torch.from_numpy(a) for a in (q, k, v, bias)))
+        tk_pad = 384
+    mean_v = v.sum(axis=1, keepdims=True)
+    np.testing.assert_allclose(got.numpy(), np.broadcast_to(mean_v / tk, got.shape),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(want), np.broadcast_to(mean_v / tk_pad, got.shape),
+                               rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the Hopper body (csrc/attention_sm90.cu): routing and TMA arguments
+# ---------------------------------------------------------------------------
+
+# (wrapper, q shape, tk, dtype, bias) → the launch it takes: ("sm90",
+# counter) or ("mma", variant of csrc/attention.cu)
+HOPPER_ROUTES = {
+    "flux1024_rowblock": ("fused", (1, 4608, 24, 128), 4608, "bf16", None,
+                          ("sm90", "attention_rowblock")),
+    "flux1536_flash": ("fused", (1, 9728, 24, 128), 9728, "bf16", None,
+                       ("sm90", "attention_flash")),
+    "flux256_exact_k1": ("fused", (4, 768, 24, 128), 768, "bf16", None, ("mma", 0)),
+    "rowblock_key_padding": ("rowblock", (2, 30, 2, 128), 300, "bf16", "padding", ("mma", 2)),
+    "flash_key_padding": ("flash", (2, 30, 2, 128), 300, "bf16", "padding", ("mma", 3)),
+    "rowblock_fp32": ("rowblock", (2, 30, 2, 128), 300, "fp32", None, ("mma", 2)),
+    "flash_fp32": ("flash", (2, 30, 2, 128), 300, "fp32", None, ("mma", 3)),
+    "flash_d72": ("flash", (2, 30, 2, 72), 300, "bf16", None, ("mma", 3)),
+    "rowblock_d64": ("rowblock", (2, 30, 2, 64), 300, "bf16", None, ("mma", 2)),
+    "transposed_d72": ("transposed", (2, 30, 2, 72), 300, "bf16", None, ("mma", 1)),
+    "pixart2048_flash_d72": ("fused", (2, 16384, 16, 72), 16384, "bf16", None, ("mma", 3)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(HOPPER_ROUTES))
+def test_hopper_body_routing(name, monkeypatch):
+    """bf16 calls at head dim 128 without a bias on the row-block (K5) and
+    streaming (K6) routes launch the Hopper body; every other call keeps
+    its csrc/attention.cu variant. Tensors on the meta device reach the
+    launch decision without a card; the launchers are replaced by
+    recorders."""
+    wrapper, shape, tk, dtype, bias_kind, want = HOPPER_ROUTES[name]
+    calls = []
+    monkeypatch.setattr(port_attention, "_launch_sm90",
+                        lambda q, k, v, counter: calls.append(("sm90", counter)))
+    monkeypatch.setattr(port_attention, "_launch",
+                        lambda q, k, v, bias, variant: calls.append(("mma", variant)))
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    b, _, h, d = shape
+    q = torch.empty(shape, dtype=tdt, device="meta")
+    kv = torch.empty((b, tk, h, d), dtype=tdt, device="meta")
+    bias = None if bias_kind is None else torch.zeros(b, 1, 1, tk, device="meta")
+    fn = {"fused": fused_attention, "rowblock": rowblock_attention,
+          "flash": flash_attention, "transposed": transposed_attention}[wrapper]
+    fn(q, kv, kv, bias)
+    assert calls == [want]
+
+
+def test_tma_operand_arguments():
+    """The tensor map of a (B, T, H, 128) bf16 operand: dims {D, H, T, B},
+    byte strides of H, T, B, box {64, 1, 128, 1}; a dimension of one takes
+    the packed stride; a strided view (a slice of heads) keeps its own."""
+    x = torch.zeros(2, 300, 3, 128, dtype=torch.bfloat16)
+    assert port_attention.tma_operand(x, "q") == [
+        128, 3, 300, 2, 256, 768, 300 * 768, 64, 1, 128, 1]
+    one = torch.zeros(1, 4608, 24, 128, dtype=torch.bfloat16)
+    assert port_attention.tma_operand(one, "k") == [
+        128, 24, 4608, 1, 256, 24 * 256, 4608 * 24 * 256, 64, 1, 128, 1]
+    heads = torch.zeros(2, 64, 6, 128, dtype=torch.bfloat16)[:, :, 1:4]
+    assert port_attention.tma_operand(heads, "v")[:7] == [128, 3, 64, 2, 256, 1536, 64 * 1536]
+
+
+@pytest.mark.parametrize("fault", ["base_off_16_bytes", "row_stride_264_bytes",
+                                   "head_dim_not_contiguous"])
+def test_hopper_body_refuses_what_tma_cannot_map(fault, monkeypatch):
+    """A bf16 D=128 call whose base or strides TMA cannot take raises,
+    through the row-block and streaming wrappers alike; it is not sent to
+    the csrc/attention.cu body instead."""
+    if fault == "base_off_16_bytes":
+        bad = torch.zeros(2 * 64 * 2 * 128 + 1, dtype=torch.bfloat16)[1:].view(2, 64, 2, 128)
+    elif fault == "row_stride_264_bytes":  # 132 elements per head row
+        bad = torch.zeros(2, 64, 2, 132, dtype=torch.bfloat16)[..., :128]
+    else:
+        bad = torch.zeros(2, 64, 128, 2, dtype=torch.bfloat16).transpose(2, 3)
+    with pytest.raises(ValueError, match="TMA|contiguous"):
+        port_attention.tma_operand(bad, "q")
+    monkeypatch.setattr(port_attention, "_launch",
+                        lambda *a, **kw: pytest.fail("fell back to attention.cu"))
+    good = torch.empty(2, 64, 2, 128, dtype=torch.bfloat16, device="meta")
+    meta_bad = torch.empty_strided(bad.shape, bad.stride(), dtype=torch.bfloat16,
+                                   device="meta")
+    if fault == "base_off_16_bytes":  # a meta view keeps the 2-byte offset
+        meta_bad = torch.empty(bad.numel() + 1, dtype=torch.bfloat16,
+                               device="meta")[1:].view(bad.shape)
+    for fn in (rowblock_attention, flash_attention):
+        with pytest.raises(ValueError, match="TMA|contiguous"):
+            fn(good, meta_bad, good)
