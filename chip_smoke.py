@@ -28,10 +28,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (`flash_bf16_tol`), shown to reject a plain version that drops or
    repeats one 64-key tile at 16384 keys and one 128-key tile at 9728; the
    plain versions of K6 run per (batch·head) slice, since the fp32 scores
-   of the served shape would take 34 GB. bf16 K5 and K6 at head dim 128
-   without a bias run on the Hopper body (``csrc/attention_sm90.cu``:
-   wgmma fed by TMA); the rest on ``csrc/attention.cu``. Time kernel (with
-   the SM clock, power and temperature sampled before and after), plain
+   of the served shape would take 34 GB. bf16 calls without a bias run on
+   the Hopper body (``csrc/attention_sm90.cu``: wgmma fed by TMA) — K1 and
+   K4 at head dims 72 and 128, K5 and K6 at 128 — and are held against
+   their plain versions at ragged shapes (tq=30, tk=300 at d=72 and d=128),
+   logits near ±40 (log2) and q×1e4, and shown to reject a plain version
+   that drops or repeats one 128-key tile (the body's step) at 768 (K1),
+   4096 (K4), 4608 (K5) and 9728 (K6) keys; a call whose operands TMA
+   cannot map raises there. The rest run on ``csrc/attention.cu``, whose
+   exact kernels (K2, K6 with a bias, fp32) are also held against the
+   plain versions in rows whose every key has a bias of −1e9 or −2e9,
+   where the reference's pad keys take their share. Time kernel (with the
+   SM clock, power and temperature sampled before and after), plain
    version and (attention) one ``scaled_dot_product_attention`` call as a
    yardstick the port never calls.
 4. The attention-variant harness (``variants``): the port of the JAX
@@ -291,6 +299,18 @@ def rejects(name: str, faulty: torch.Tensor, want: torch.Tensor, tol) -> None:
         raise AssertionError(f"fault {name} passes the tolerance it should fail")
 
 
+def refused(name: str, fn, *args) -> None:
+    """Raises unless `fn(*args)` raises ValueError: a call the Hopper body
+    cannot map with TMA is refused, not sent to another body."""
+    try:
+        fn(*args)
+    except ValueError as err:
+        REPORT.setdefault("refused", {})[name] = str(err)
+        log(f"  {name}: refused ({err})")
+        return
+    raise AssertionError(f"{name}: accepted operands TMA cannot map")
+
+
 def key_padding_bias(lengths, tk, fill, dtype=torch.float32):
     keep = torch.arange(tk, device="cuda")[None, :] < torch.tensor(
         lengths, device="cuda"
@@ -323,9 +343,28 @@ def attention_cases() -> None:
                     fused_attention(q, k, v, bias),
                     fused_attention_reference(q, k, v, bias), tol)
 
-        case("unaligned_tq30_tk300_d72",
-             rnd(2, 30, 3, 72, dtype=dtype), rnd(2, 300, 3, 72, dtype=dtype),
-             rnd(2, 300, 3, 72, dtype=dtype))
+        # bf16 at d=72 and d=128 without a bias: the Hopper body's K1
+        for d in (72, 128):
+            case(f"unaligned_tq30_tk300_d{d}",
+                 rnd(2, 30, 3, d, dtype=dtype), rnd(2, 300, 3, d, dtype=dtype),
+                 rnd(2, 300, 3, d, dtype=dtype))
+            case(f"logits_near_40_d{d}",
+                 rnd(1, 16, 1, d, dtype=dtype, scale=6.0),
+                 rnd(1, 256, 1, d, dtype=dtype), rnd(1, 256, 1, d, dtype=dtype))
+            case(f"one_key_tile_tq200_tk120_d{d}",
+                 rnd(3, 200, 2, d, dtype=dtype), rnd(3, 120, 2, d, dtype=dtype),
+                 rnd(3, 120, 2, d, dtype=dtype))
+        # rows whose every key has a bias of −1e9 (the reference's output
+        # there is Σv/Tk_pad) or −2e9 (0), beside a ragged row: K2 and K6's
+        # bias variant, against the repaired plain versions
+        for fill in (-1e9, -2e9):
+            qm, km, vm = (rnd(2, 8, 2, 64, dtype=dtype), rnd(2, 300, 2, 64, dtype=dtype),
+                          rnd(2, 300, 2, 64, dtype=dtype))
+            bias_m = key_padding_bias([0, 280], 300, fill)
+            case(f"every_key_biased_{fill:g}", qm, km, vm, bias_m)
+            compare(f"attention_flash_bias/{tag}/every_key_biased_{fill:g}",
+                    flash_attention(qm, km, vm, bias_m),
+                    flash_attention_reference(qm, km, vm, bias_m), tol)
         for d in (16, 64):
             case(f"d{d}", rnd(2, 16, 3, d, dtype=dtype),
                  rnd(2, 24, 3, d, dtype=dtype), rnd(2, 24, 3, d, dtype=dtype))
@@ -345,15 +384,26 @@ def attention_cases() -> None:
              rnd(2, 130, 2, 36, dtype=dtype), rnd(2, 300, 2, 36, dtype=dtype),
              rnd(2, 300, 2, 36, dtype=dtype))
         wide = rnd(2, 64, 3, 80, dtype=dtype)
-        case("misaligned_rows_d72", wide[..., 1:73], wide[..., 3:75], wide[..., 5:77])
+        misaligned = (wide[..., 1:73], wide[..., 3:75], wide[..., 5:77])
+        if dtype == torch.bfloat16:
+            # the Hopper body refuses what TMA cannot map; with a bias the
+            # call takes attention.cu's element-wise loads
+            refused("attention/bf16/misaligned_rows_d72", fused_attention, *misaligned)
+            refused("attention_long/bf16/misaligned_rows_d72", transposed_attention,
+                    *misaligned)
+            case("misaligned_rows_d72_key_padding", *misaligned,
+                 key_padding_bias([64, 50], 64, -1e9))
+        else:
+            case("misaligned_rows_d72", *misaligned)
         case("logits_near_40",
              rnd(1, 16, 1, 64, dtype=dtype, scale=6.0),
              rnd(1, 256, 1, 64, dtype=dtype), rnd(1, 256, 1, 64, dtype=dtype))
-        hot = fused_attention(rnd(1, 128, 1, 72, dtype=dtype, scale=1e4),
-                              rnd(1, 256, 1, 72, dtype=dtype),
-                              rnd(1, 256, 1, 72, dtype=dtype))
-        if not torch.isfinite(hot.float()).all():
-            raise AssertionError(f"attention/{tag}: q×1e4 gave non-finite output")
+        for d in (72, 128):
+            hot = fused_attention(rnd(1, 128, 1, d, dtype=dtype, scale=1e4),
+                                  rnd(1, 256, 1, d, dtype=dtype),
+                                  rnd(1, 256, 1, d, dtype=dtype))
+            if not torch.isfinite(hot.float()).all():
+                raise AssertionError(f"attention/{tag}: q×1e4 gave non-finite output at d={d}")
 
         # the clamp softmax (K4) at the reference's TestTransposedAttention
         # shapes (tests/test_ops.py:289-328)
@@ -375,9 +425,23 @@ def attention_cases() -> None:
         clamp_case("per_batch_key_padding_100_200_256", rnd(3, 128, 2, 72, dtype=dtype),
                    rnd(3, 256, 2, 72, dtype=dtype), rnd(3, 256, 2, 72, dtype=dtype),
                    key_padding_bias([100, 200, 256], 256, -1e9))
-        clamp_case("misaligned_rows_d72", wide[..., 1:73], wide[..., 3:75], wide[..., 5:77])
+        if dtype == torch.bfloat16:
+            clamp_case("misaligned_rows_d72_key_padding", *misaligned,
+                       key_padding_bias([64, 50], 64, -1e9))
+        else:
+            clamp_case("misaligned_rows_d72", *misaligned)
         clamp_case("q_times_1e4", rnd(1, 128, 1, 72, dtype=dtype, scale=1e4),
                    rnd(1, 256, 1, 72, dtype=dtype), rnd(1, 256, 1, 72, dtype=dtype),
+                   **({} if dtype == torch.bfloat16 else {"tol": HOT_FP32_TOL}))
+        # the Hopper body's K4 at the reference's K1 acceptance shapes, and
+        # at d=128 (transposed_attention takes it; the router never does)
+        for d in (72, 128):
+            clamp_case(f"ragged_tq30_tk300_d{d}", rnd(2, 30, 2, d, dtype=dtype),
+                       rnd(2, 300, 2, d, dtype=dtype), rnd(2, 300, 2, d, dtype=dtype))
+            clamp_case(f"logits_times_6_d{d}", rnd(1, 16, 1, d, dtype=dtype, scale=6.0),
+                       rnd(1, 256, 1, d, dtype=dtype), rnd(1, 256, 1, d, dtype=dtype))
+        clamp_case("q_times_1e4_d128", rnd(1, 128, 1, 128, dtype=dtype, scale=1e4),
+                   rnd(1, 256, 1, 128, dtype=dtype), rnd(1, 256, 1, 128, dtype=dtype),
                    **({} if dtype == torch.bfloat16 else {"tol": HOT_FP32_TOL}))
 
         # the row-block clamp softmax (K5) at the reference's
@@ -503,7 +567,7 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
     b3, by3 = bound(nbytes(x, x, scale, shift), 8 * x.numel())
     rows = [
         dict(name="attention", route="cuda",
-             source="ecad_tpu_torch/csrc/attention.cu",
+             source="ecad_tpu_torch/csrc/attention_sm90.cu",
              replaces="ecad_tpu/ops/attention.py:58 (_attn_kernel)",
              max_abs_err=err1,
              ms=timed_ms("attention", lambda: fused_attention(q, k, v), clocks=True),
@@ -558,16 +622,18 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
     want4 = transposed_attention_reference(q4, k4, v4)
     err4 = compare(f"attention_long/bf16/main_self_1024_{b2_1024}x4096x16x72",
                    got["self_1024"], want4, clamp_bf16_tol)
-    # the same check must fail a kernel that skips or repeats one 64-key
-    # tile (the kernel's key step) of the 4096
-    rejects("self_1024_drops_key_tile_1",
-            transposed_attention_reference(q4, torch.cat((k4[:, :64], k4[:, 128:]), 1),
-                                           torch.cat((v4[:, :64], v4[:, 128:]), 1)),
-            want4, clamp_bf16_tol)
-    rejects("self_1024_repeats_key_tile_1",
-            transposed_attention_reference(q4, torch.cat((k4[:, :128], k4[:, 64:]), 1),
-                                           torch.cat((v4[:, :128], v4[:, 64:]), 1)),
-            want4, clamp_bf16_tol)
+    # the same check must fail a kernel that skips or repeats one key tile
+    # of the 4096: 64 keys (the mma.sync body's step) or 128 (the Hopper
+    # body's)
+    for n, tag in ((64, ""), (128, "128_")):
+        rejects(f"self_1024_drops_{tag}key_tile_1",
+                transposed_attention_reference(q4, torch.cat((k4[:, :n], k4[:, 2 * n:]), 1),
+                                               torch.cat((v4[:, :n], v4[:, 2 * n:]), 1)),
+                want4, clamp_bf16_tol)
+        rejects(f"self_1024_repeats_{tag}key_tile_1",
+                transposed_attention_reference(q4, torch.cat((k4[:, :2 * n], k4[:, n:]), 1),
+                                               torch.cat((v4[:, :2 * n], v4[:, n:]), 1)),
+                want4, clamp_bf16_tol)
     del want4
     err5 = compare(f"attention_long/bf16/main_cross_1024_{b2_1024}x4096_to_120_key_padding",
                    got["cross_1024"],
@@ -598,7 +664,7 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
     b5_ms, by5 = bound(nbytes(q4, kc4, vc4, o4, bias4.float()), 4 * b2_1024 * h * t4 * l * d)
     rows += [
         dict(name="attention_long", route="cuda",
-             source="ecad_tpu_torch/csrc/attention.cu",
+             source="ecad_tpu_torch/csrc/attention_sm90.cu",
              replaces="ecad_tpu/ops/attention.py:344 (_transposed_kernel_nobias)",
              max_abs_err=err4,
              ms=timed_ms("attention_long", lambda: fused_attention(q4, k4, v4), reps=5,
@@ -646,7 +712,8 @@ def flux_kernel_rows(rnd, bound, nbytes) -> list[dict]:
     """FLUX's joint attention: the row-block clamp kernel (K5) at FLUX-1024's
     shape (1, 4608, 24, 128), with the tile-fault check at 4608 keys and
     its bias variant timed at the same shape; the exact kernel (K1) at
-    FLUX-256's (4, 768, 24, 128); each reached through the router, checked
+    FLUX-256's (4, 768, 24, 128), with the tile-fault check at 768 keys;
+    each reached through the router, checked
     against its plain version and timed against it, one
     ``scaled_dot_product_attention`` call and its bound."""
     import torch.nn.functional as F
@@ -684,8 +751,19 @@ def flux_kernel_rows(rnd, bound, nbytes) -> list[dict]:
                                              torch.cat((v[:, :2 * n], v[:, n:]), 1)),
                 want, clamp_bf16_tol)
     del want, got
+    want256 = fused_attention_reference(qs, ks, vs)
     err1 = compare(f"attention/bf16/flux256_{BATCH_FLUX_256}x768x24x128", got256,
-                   fused_attention_reference(qs, ks, vs), clamp_bf16_tol)
+                   want256, clamp_bf16_tol)
+    # and one 128-key tile (the Hopper body's step) of K1's 768 keys
+    rejects("flux256_drops_128_key_tile_1",
+            fused_attention_reference(qs, torch.cat((ks[:, :128], ks[:, 256:]), 1),
+                                      torch.cat((vs[:, :128], vs[:, 256:]), 1)),
+            want256, clamp_bf16_tol)
+    rejects("flux256_repeats_128_key_tile_1",
+            fused_attention_reference(qs, torch.cat((ks[:, :256], ks[:, 128:]), 1),
+                                      torch.cat((vs[:, :256], vs[:, 128:]), 1)),
+            want256, clamp_bf16_tol)
+    del want256
     # the bias variant at the served shape, with a key-padding bias
     bias = key_padding_bias([t1024 - 100] * BATCH_FLUX_1024, t1024, -1e9)
     err5b = compare("attention_rowblock_bias/bf16/flux1024_key_padding",
@@ -731,7 +809,7 @@ def flux_kernel_rows(rnd, bound, nbytes) -> list[dict]:
     # row holds PixArt-256's D=72)
     row1 = dict(
         name="attention_flux256", route="cuda",
-        source="ecad_tpu_torch/csrc/attention.cu",
+        source="ecad_tpu_torch/csrc/attention_sm90.cu",
         replaces="ecad_tpu/ops/attention.py:58 (_attn_kernel)",
         max_abs_err=err1,
         ms=timed_ms("attention_flux256", lambda: fused_attention(qs, ks, vs), clocks=True),
@@ -998,7 +1076,9 @@ def variants_phase() -> dict:
         bnd, by = bound_ms(4 * q.numel() * q.element_size(), 4 * b * h * t * t * d)
         for c in counters(d):
             out[f"{c}_{shape}"] = dict(
-                name=f"{c}_{shape}", route="cuda", source="ecad_tpu_torch/csrc/attention.cu",
+                name=f"{c}_{shape}", route="cuda",
+                source="ecad_tpu_torch/csrc/attention_sm90.cu" if c == "attention_long"
+                else "ecad_tpu_torch/csrc/attention.cu",
                 replaces="scripts/exp_attn_variants.py" + XATTN[c][1],
                 launches=launches[shape][c], max_abs_err=errs[c, shape],
                 ms=harness_rows[f"exp_{shape}_{label[c]}"]["value"],
@@ -1029,6 +1109,20 @@ ATTENTION_KERNELS = {
     256: ("attention", "attention_bias"),
     1024: ("attention_long", "attention_long_bias"),
     2048: ("attention_flash", "attention_long_bias"),
+}
+# the device kernel under each attention family of a served path's profile:
+# bf16 self-attention without a bias runs on the Hopper body
+# (csrc/attention_sm90.cu) at 256² and 1024², and at every FLUX side;
+# cross-attention (a text bias) and PixArt-2048's K6 at D=72 on attention.cu
+SERVED_KERNELS = {
+    "pixart256": {"attention": "attn_exact_sm90_kernel", "attention_bias": "attn_bf16_kernel"},
+    "pixart1024": {"attention_long": "attn_clamp_sm90_kernel",
+                   "attention_long_bias": "attn_clamp_bf16_kernel"},
+    "pixart2048": {"attention_flash": "attn_flash_bf16_kernel",
+                   "attention_long_bias": "attn_clamp_bf16_kernel"},
+    "flux256": {"attention": "attn_exact_sm90_kernel"},
+    "flux1024": {"attention_rowblock": "attn_rowblock_sm90_kernel"},
+    "flux1536": {"attention_flash": "attn_flash_sm90_kernel"},
 }
 
 
@@ -1146,6 +1240,8 @@ def kernel_family(name: str) -> str:
     """Family of a device kernel, from its (mangled or demangled) name."""
     for kernel, family in (("attn_rowblock_sm90_kernel", "attention_rowblock"),
                            ("attn_flash_sm90_kernel", "attention_flash"),
+                           ("attn_exact_sm90_kernel", "attention"),
+                           ("attn_clamp_sm90_kernel", "attention_long"),
                            ("attn_clamp_bf16_kernel", "attention_long"),
                            ("attn_rowblock_bf16_kernel", "attention_rowblock"),
                            ("attn_flash_bf16_kernel", "attention_flash"),
@@ -1175,6 +1271,7 @@ def profile_trajectory(fn, wall_ms: float) -> dict:
         fn()
         torch.cuda.synchronize()
     fams = dict.fromkeys((*COUNTERS, "gemm", "conv", "other"), 0.0)
+    names = {}  # the device kernels of each of the port's families
     launches = 0
     host_ops, other = [], []
     for evt in prof.key_averages():
@@ -1187,6 +1284,8 @@ def profile_trajectory(fn, wall_ms: float) -> dict:
         launches += evt.count
         family = kernel_family(evt.key)
         fams[family] += us / 1e3
+        if family in COUNTERS:
+            names.setdefault(family, []).append(evt.key[:100])
         if family == "other":
             other.append((us / 1e3, evt.count, evt.key[:120]))
     busy = sum(fams.values())
@@ -1198,6 +1297,7 @@ def profile_trajectory(fn, wall_ms: float) -> dict:
         "wall_ms": wall_ms,
         "idle_share": 1.0 - busy / wall_ms,
         "kernel_launches": launches,
+        "kernels": names,
         # the largest kernels of the elementwise family, by device ms
         "other_top": [{"kernel": k, "calls": n, "device_ms": ms} for ms, n, k in other[:12]],
         # host ops by self CPU ms under the profiler (inflated by it), with calls
@@ -1227,12 +1327,13 @@ def path_inputs(config, batch: int) -> dict:
 
 
 def drive(pipes: dict, inputs: dict, decode, batch: int, side: int, want_counts,
-          order: tuple) -> dict:
+          order: tuple, kernels: dict) -> dict:
     """Each pipeline once with the launch counters set to 0 just before and
     read just after (checked against `want_counts(pipe)`, with the image
     shape and finite latents); then ms/img from synchronized runs taken in
-    `order`; then one profiled run each. `decode` turns a trajectory's
-    latents into uint8 images on the card."""
+    `order`; then one profiled run each, whose profile must show, for each
+    family of `kernels`, the device kernel named there. `decode` turns a
+    trajectory's latents into uint8 images on the card."""
     from ecad_tpu_torch.ops import launch_counts, reset_launch_counts
 
     def run(pipe):
@@ -1273,6 +1374,11 @@ def drive(pipes: dict, inputs: dict, decode, batch: int, side: int, want_counts,
         )
         log(f"  {name} device time by kernel family (ms per trajectory): "
             f"{result[name]['profile']}")
+        seen = result[name]["profile"]["kernels"]
+        for family, kernel in kernels.items():
+            if not any(kernel in k for k in seen.get(family, ())):
+                raise AssertionError(f"{name}: the profile shows no {kernel} under "
+                                     f"{family}: {seen}")
     # the VAE decode alone, so that a trajectory's time splits into
     # transformer and decode (its convolutions run as cuDNN xmma kernels,
     # which the family test counts as "gemm")
@@ -1314,7 +1420,8 @@ def main_path() -> dict:
     }
     result = drive(pipes, path_inputs(config, BATCH), vae.decode_device, BATCH, 256,
                    lambda pipe: expected_counts(pipe.masks),
-                   order=("default", "ours_fast", "ours_fast", "default"))
+                   order=("default", "ours_fast", "ours_fast", "default"),
+                   kernels=SERVED_KERNELS["pixart256"])
     result["speedup"] = result["default"]["ms_per_img"] / result["ours_fast"]["ms_per_img"]
     log(f"  ratio default / ours_fast {result['speedup']:.4f}")
     del model, vae, pipes
@@ -1353,7 +1460,8 @@ def main_path_1024() -> dict:
     }
     result = drive(pipes, path_inputs(config, BATCH_1024), vae.decode_device,
                    BATCH_1024, 1024, lambda pipe: expected_counts(pipe.masks, 1024),
-                   order=("default", "ours_fast", "tgate", "tgate", "ours_fast", "default"))
+                   order=("default", "ours_fast", "tgate", "tgate", "ours_fast", "default"),
+                   kernels=SERVED_KERNELS["pixart1024"])
     for name in ("ours_fast", "tgate"):
         result[f"speedup_{name}"] = (
             result["default"]["ms_per_img"] / result[name]["ms_per_img"]
@@ -1391,7 +1499,7 @@ def main_path_2048() -> dict:
     # one timed run each: the device is busy > 99 % of the wall time there
     result = drive(pipes, path_inputs(config, BATCH_2048), vae.decode_device,
                    BATCH_2048, 2048, lambda pipe: expected_counts(pipe.masks, 2048),
-                   order=("default", "ours_fast"))
+                   order=("default", "ours_fast"), kernels=SERVED_KERNELS["pixart2048"])
     result["speedup"] = result["default"]["ms_per_img"] / result["ours_fast"]["ms_per_img"]
     log(f"  ratio default / ours_fast {result['speedup']:.4f}")
     del model, vae, pipes
@@ -1519,7 +1627,7 @@ def flux_path() -> dict:
             lambda lat: vae.decode_device(unpack_latents(lat, gh, gw)),
             batch, side,
             lambda pipe: flux_expected_counts(pipe.masks, config.num_blocks, attention),
-            order=order,
+            order=order, kernels=SERVED_KERNELS[f"flux{side}"],
         )
     r1024, r1536, r256 = result["1024"], result["1536"], result["256"]
     result["speedup_1024_fast"] = r1024["default"]["ms_per_img"] / r1024["fast"]["ms_per_img"]
@@ -1545,7 +1653,7 @@ def flux_path() -> dict:
         lambda lat: vae.decode_device(unpack_latents(lat, *pcfg8.grid_hw)),
         BATCH_FLUX_256, 256,
         lambda pipe: flux_expected_counts(pipe.masks, config.num_blocks, "attention"),
-        order=("ours_fast", "ours_fast"),
+        order=("ours_fast", "ours_fast"), kernels=SERVED_KERNELS["flux256"],
     )
     got = pipe8.denoise(**inp).float()
     diff = float((got - want).abs().max())

@@ -14,12 +14,16 @@
 //     pre-scaled), plus the fp32 key-padding bias, an online softmax with
 //     running max and sum in fp32, p cast to v's dtype for p·v, one divide.
 //     Here the scores move to the log2 domain (×log2e) and exp is exp2:
-//     exp(x − m) to fp32 rounding. The Pallas wrapper pads Tk to a multiple
-//     of 1536 and gives the pad keys a −1e9 bias (weight exactly 0); here
-//     they are excluded by bounds. In a row whose every real key has a
-//     caller bias at or below −1e9 as well, the reference spreads the
-//     weight over Tk_pad keys (pad rows of v are 0) and this kernel over
-//     Tk; no served shape has such a row (the text masks bias by −10000).
+//     exp(x − m) to fp32 rounding. Keys past Tk are excluded by bounds. The
+//     Pallas wrappers pad them instead with n_pad keys of score −1e9 whose
+//     rows of v are 0: round_up(Tk, 128) − Tk on the single-tile route
+//     (:755-772), round_up(Tk, bk) − Tk with bk = min(1536, round_up(Tk,
+//     128)) on the streaming one (:602-619). They weigh exactly 0 unless
+//     every real score of a row is near −1e9 or below it (a caller bias of
+//     −1e9 or less); then the reference's output is Σv/Tk_pad, or 0 below
+//     −1e9. So the exact epilogue adds them: m' = max(m, −1e9), the sums
+//     rescaled by exp(m − m'), n_pad·exp(−1e9 − m') added to Σp, in the
+//     bf16 body and the fp32 path alike.
 //   * clamp (no row max): the function of `_transposed_kernel` (:285) and
 //     `_transposed_kernel_nobias` (:344), launched by `_transposed_attention`
 //     (:348-455) for lane-padded head dims (PixArt's D=72) at or above a
@@ -44,8 +48,10 @@
 //     a row whose every logit is clamped at −100 (an all-masked text row)
 //     the weights are then 1/Tk_pad, as the reference's. (X4's FD mode
 //     does not: the reference's `*_fd` bodies mask their pad keys.) The
-//     bf16 D=128 calls without a bias (K5 on FLUX's joint attention, and
-//     K6 there) run on the Hopper body of attention_sm90.cu instead.
+//     bf16 calls without a bias run on the Hopper body of attention_sm90.cu
+//     instead: K1 and K4 at D=72 and 128, K5 and K6 at D=128. Here remain
+//     every call with a bias (K2, K4, K5 and K6 with one), fp32, the other
+//     head dims and K6 at D=72, and the harness's variants.
 //
 // What bounds it on the H100. Exact path, at PixArt-256's shapes
 // (self-attention 256×256 and cross-attention 256→120, D=72, bf16): a
@@ -96,8 +102,7 @@
 //
 // q, k, v and o are read and written in the (B, T, H, D) layout through
 // their strides; only the head dimension must be contiguous (16-byte
-// aligned rows take the cp.async path, others element-wise loads). The
-// wgmma/TMA body for D=128 is attention_sm90.cu's.
+// aligned rows take the cp.async path, others element-wise loads).
 //
 // The attention-variant harness (X1–X4). `scripts/exp_attn_variants.py`
 // times the TPU's attention body with parts of its work taken out, through
@@ -153,12 +158,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kClampLo = -100.f;  // clamp variant: log2-domain window of s
 constexpr float kClampHi = 80.f;
 constexpr float kTwoPowMinus100 = 7.8886090522101181e-31f;  // a clamped pad key's weight
-
-// Σp of the reference's pad keys on the clamp routes: Tk_pad − Tk keys of
-// 2^-100 each, Tk_pad = round_up(Tk, 128).
-__device__ __forceinline__ float pad_key_mass(int Tk) {
-  return (float)((Tk + 127) / 128 * 128 - Tk) * kTwoPowMinus100;
-}
+constexpr float kPadScore = -1e9f;  // a pad key's score on the exact routes
 
 struct Params {
   const void* q;
@@ -174,6 +174,9 @@ struct Params {
   // bias strides over (B, H, Tq, Tk); 0 on a broadcast dimension
   long long b_sb, b_sh, b_sq, b_sk;
   int H, Tq, Tk, D;
+  // the reference's pad keys on this route: 2^-100 each in Σp on the clamp
+  // routes, score −1e9 on the exact ones
+  int n_pad;
   float scale;  // exact: 1/√D; clamp: scale·log2e, rounded to q's dtype
   int vec_ok;  // every row start is 16-byte aligned and D % 8 == 0
 };
@@ -526,12 +529,22 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
         if (n == dn) den = (dc & 1) ? acc[n][2 * r + 1] : acc[n][2 * r];
       l_run[r] = __shfl_sync(0xffffffffu, den, src);
     }
-  } else if constexpr (MODE != kNone) {
+  }
+  float f[2] = {1.f, 1.f};  // the exact mode's rescale for its pad keys
+  if constexpr (!FD && MODE != kNone) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
       l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-      if constexpr (MODE == kClamp) l_run[r] += pad_key_mass(p.Tk);
+      if constexpr (MODE == kClamp) {
+        l_run[r] += (float)p.n_pad * kTwoPowMinus100;
+      } else if (MODE == kExact && p.n_pad > 0) {
+        // n_pad keys of score −1e9 (log2 domain): f = 1 and the added term
+        // 0 unless every score of the row is near −1e9 or below it
+        const float mp = fmaxf(m_run[r], kPadScore * kLog2e);
+        f[r] = exp2f(m_run[r] - mp);
+        l_run[r] = l_run[r] * f[r] + (float)p.n_pad * exp2f(kPadScore * kLog2e - mp);
+      }
     }
   }
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
@@ -543,7 +556,7 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
       const int col = n * 8 + tg * 2 + (e & 1);
       if (rows[r] < p.Tq && col < p.D)
         ob[(long long)rows[r] * p.o_st + col] =
-            __float2bfloat16(MODE == kNone ? acc[n][e] : acc[n][e] / l_run[r]);
+            __float2bfloat16(MODE == kNone ? acc[n][e] : acc[n][e] * f[r] / l_run[r]);
     }
   }
 }
@@ -694,11 +707,18 @@ __global__ void __launch_bounds__(kThreads) attn_f32_kernel(const Params p) {
   for (int rr = 0; rr < 4; ++rr) {
     const int row = q0 + warp * 4 + rr;
     if (row >= p.Tq) continue;
-    if constexpr (CLAMP) l_run[rr] += pad_key_mass(p.Tk);
+    float f = 1.f;  // the exact path's rescale for its pad keys (natural domain)
+    if constexpr (CLAMP) {
+      l_run[rr] += (float)p.n_pad * kTwoPowMinus100;
+    } else if (p.n_pad > 0) {
+      const float mp = fmaxf(m_run[rr], kPadScore);
+      f = expf(m_run[rr] - mp);
+      l_run[rr] = l_run[rr] * f + (float)p.n_pad * expf(kPadScore - mp);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int d = lane + 32 * i;
-      if (d < D) ob[(long long)row * p.o_st + d] = acc[rr][i] / l_run[rr];
+      if (d < D) ob[(long long)row * p.o_st + d] = acc[rr][i] * f / l_run[rr];
     }
   }
 }
@@ -787,6 +807,11 @@ extern "C" int ecad_attention_fwd(int dtype, const void* q, const void* k, const
   p.Tq = Tq;
   p.Tk = Tk;
   p.D = D;
+  // the reference's pad keys: to a multiple of 128, or of the streaming
+  // route's key block min(1536, round_up(Tk, 128)) (variant 3)
+  const int tk128 = (Tk + 127) / 128 * 128;
+  const int bk = variant == 3 ? (tk128 < 1536 ? tk128 : 1536) : 128;
+  p.n_pad = (Tk + bk - 1) / bk * bk - Tk;
   p.scale = scale;
   p.vec_ok = vec_ok;
   const bool has_bias = bias != nullptr;

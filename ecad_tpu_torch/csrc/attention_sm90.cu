@@ -1,70 +1,110 @@
-// Attention forward at head dim 128 for Hopper (sm_90a): wgmma fed by TMA
-// through mbarriers, with a producer warpgroup and two consumer warpgroups.
-// bf16 q, k, v of shape (B, T, H, 128) in any 16-byte-aligned strides, no
-// bias, in two softmax modes (a template argument, as in attention.cu):
+// Attention forward for Hopper (sm_90a): wgmma fed by TMA through
+// mbarriers, with a producer warpgroup and two consumer warpgroups. bf16 q,
+// k, v of shape (B, T, H, D), D = 72 or 128 (a template argument), in any
+// 16-byte-aligned strides, no bias, in two softmax modes (a template
+// argument, as in attention.cu) under four kernel names, one per route:
 //
-//   * exact (K6, kernel `attn_flash_sm90_kernel`): replaces the streaming
-//     kernel `_flash_kernel` (ecad_tpu/ops/attention.py:151-197, launched
-//     by `_flash_attention` :638) at D=128 — FLUX.1-dev at 1536², whose
-//     9216 image + 512 text = 9728 joint tokens take the streaming route.
+//   * exact:
+//     - `attn_flash_sm90_kernel` (K6) replaces the streaming kernel
+//       `_flash_kernel` (ecad_tpu/ops/attention.py:151-197, launched by
+//       `_flash_attention` :638) at D=128 — FLUX.1-dev at 1536², whose
+//       9216 image + 512 text = 9728 joint tokens take the streaming route;
+//     - `attn_exact_sm90_kernel` (K1) replaces the single-tile kernel
+//       `_attn_kernel` (:58, launched :746) at D=128 and D=72 — FLUX.1-dev's
+//       joint attention at 256² (4, 768, 24, 128) and PixArt's
+//       self-attention at 256² (2B, 256, 16, 72).
 //     s = q·kᵀ in fp32 from bf16 operands, times 1/√D on the fp32 score (q
 //     is not pre-scaled), an online max and sum in fp32 in the log2 domain
 //     (the max taken on the raw scores, then p = exp2(s·c − m·c) with c =
 //     scale·log2e in one FFMA), p rounded to bf16 for p·v against the
 //     running max of its 128-key tile, Σp over the unrounded fp32 p, one
-//     divide, one cast.
-//     Keys past Tk get −inf before the max (by bounds). The Pallas wrapper
-//     pads them with a −1e9 bias instead: the two differ only in a row
-//     whose every real key is at or below −1e9 too, which needs a caller
-//     bias, and this kernel takes none.
-//   * clamp (K5, kernel `attn_rowblock_sm90_kernel`): replaces the
-//     row-block kernel `_rowblock_kernel_nobias` (:274, launched :534) —
-//     FLUX.1-dev at 1024², 4608 joint tokens. q times bf16(scale·log2e),
-//     rounded to bf16 before the product (:491-492), p = exp2(clip(s,
-//     −100, 80)) with no max and no rescale, Σp in fp32, bf16 p into p·v,
-//     one divide. Keys past Tk weigh 0 here; the reference pads them to
-//     Tk_pad = round_up(Tk, 128) with a −1e9 bias, which clamps to 2^-100
-//     each (:542-546), so (Tk_pad − Tk)·2^-100 is added to Σp: the two
-//     then agree in a row whose every logit is clamped at −100 as well.
+//     divide, one cast. (The reference K1 keeps p in fp32 for p·v; the
+//     tolerance of chip_smoke.py's checks covers the rounding.) Keys past
+//     Tk get −∞ before the max (by bounds). The Pallas wrappers pad them
+//     instead with n_pad keys of score −1e9 whose rows of v are 0 (n_pad
+//     the route's: round_up(Tk, 128) − Tk on the single-tile route,
+//     round_up(Tk, bk) − Tk with bk = min(1536, round_up(Tk, 128)) on the
+//     streaming one); they weigh exactly 0 unless every score of a row is
+//     near −1e9 or below it, which needs a caller bias, and this body takes
+//     none. The epilogue adds them all the same, as attention.cu's exact
+//     epilogue does (m' = max(m, −1e9), the sums rescaled by exp(m − m'),
+//     n_pad·exp(−1e9 − m') added to Σp): a few instructions a row.
+//   * clamp:
+//     - `attn_rowblock_sm90_kernel` (K5) replaces the row-block kernel
+//       `_rowblock_kernel_nobias` (:274, launched :534) at D=128 — FLUX.1-dev
+//       at 1024², 4608 joint tokens;
+//     - `attn_clamp_sm90_kernel` (K4) replaces the transposed kernel
+//       `_transposed_kernel_nobias` (:344, launched :420) at D=72 (and 128)
+//       — PixArt's self-attention at 1024² (2B, 4096, 16, 72) and 512².
+//     q times bf16(scale·log2e), rounded to bf16 before the product
+//     (:378-383, :491-492), p = exp2(clip(s, −100, 80)) with no max and no
+//     rescale, Σp in fp32, bf16 p into p·v, one divide. Keys past Tk weigh
+//     0 here; the reference pads them to Tk_pad = round_up(Tk, 128) with a
+//     −1e9 bias, which clamps to 2^-100 each (:429-431, :542-546), so
+//     (Tk_pad − Tk)·2^-100 is added to Σp: the two then agree in a row whose
+//     every logit is clamped at −100 as well.
 //
 // What bounds it on the H100. K5 at FLUX-1024 (1, 4608, 24, 128): 4·B·H·
 // Tq·Tk·D = 2.61e11 flops on the 113 MB of q, k, v and o, 2300 flops per
 // byte, far above the ≈295 where bf16 tensor cores become the limit: 0.264
 // ms at 989 TFLOP/s. K6 at FLUX-1536 (1, 9728, 24, 128): 1.16e12 flops on
-// 239 MB, 1.18 ms. So the tensor cores bound both, and the exp2s come
-// second: one per score, 5.1e8 at FLUX-1024, which at 16 a clock per SM
-// (≈1.75 GHz, 132 SMs) take ≈0.14 ms of the special-function units — half
-// the tensor-core bound, so they must overlap the products, not follow
-// them.
+// 239 MB, 1.18 ms. K4 at PixArt-1024 (4, 4096, 16, 72): 3.09e11 flops on
+// 151 MB, 0.313 ms. K1 at FLUX-256 (4, 768, 24, 128): 2.9e10 flops on 38
+// MB, 0.029 ms by operations; at PixArt-256 (16, 256, 16, 72): 4.8e9 flops
+// on 38 MB, 0.011 ms by bytes. So the tensor cores bound all but the last,
+// and the exp2s come second: one per score, 5.1e8 at FLUX-1024, which at
+// 16 a clock per SM (≈1.75 GHz, 132 SMs) take ≈0.14 ms of the
+// special-function units — half the tensor-core bound at D=128, and nearer
+// the whole of it at D=72, where a score costs 0.59 of the products — so
+// they must overlap the products, not follow them.
 //
 // The design, in what it does about that:
-//   * Only `wgmma` reaches the full tensor-core rate on Hopper. One block
-//     owns one (batch·head, 128-row query tile) and has three warpgroups
-//     (384 threads): a producer, which gives its registers away
-//     (`setmaxnreg.dec` to 40) and issues every TMA load from one thread,
-//     and two consumers of 64 query rows each (`setmaxnreg.inc` to 232),
-//     which run s = q·kᵀ as eight `wgmma.mma_async` m64n128k16 with q and
-//     k from shared memory, the softmax in registers on the accumulator
-//     layout (row reductions over the quad, as attention.cu does), and o
-//     += p·v as eight m64n128k16 with p as the register A operand (bf16,
-//     packed from the fp32 scores) and v from shared memory, read
-//     MN-major (the transpose bit for 16-bit types), so v stays row-major.
-//     Each k or v element is read from shared memory once per consumer
-//     warpgroup, where the mma.sync body re-fetched it per 16-row warp
-//     through ldmatrix.
+//   * Only `wgmma` reaches the full tensor-core rate on Hopper. A block has
+//     three warpgroups (384 threads): a producer, which gives its
+//     registers away (`setmaxnreg.dec` to 40) and issues every TMA load
+//     from one thread, and two consumers of 64 query rows each
+//     (`setmaxnreg.inc` to 232). A work item is one (batch·head, 128-row
+//     query tile). Each consumer runs s = q·kᵀ as `wgmma.mma_async`
+//     m64n128k16 (eight k-steps at D=128, five at D=72) with q and k from
+//     shared memory, the softmax in registers on the accumulator layout
+//     (row reductions over the quad, as attention.cu does), and o += p·v
+//     as eight k-steps of m64n128k16 (D=128) or m64n64k16 + m64n8k16
+//     (D=72) with p as the register A operand (bf16, packed from the fp32
+//     scores) and v from shared memory, read MN-major (the transpose bit
+//     for 16-bit types), so v stays row-major. Each k or v element is read from shared memory once
+//     per consumer warpgroup, where the mma.sync body re-fetched it per
+//     16-row warp through ldmatrix.
 //   * Loads cost the consumers nothing: TMA copies whole tiles and
-//     reports to an mbarrier. The q tile (128 × 128 bf16, 32 KB) is
-//     loaded once; k and v stream through a ring of kStages stages of
-//     128 keys (32 KB each), each with a full barrier (the producer's
-//     expected bytes) and an empty barrier (all 256 consumer threads
-//     arrive once they are done with it), so the next tiles' copies run
-//     under this tile's products. 160 KB of shared memory: one block per
-//     SM.
+//     reports to an mbarrier. The q tile (128 rows) is loaded once per
+//     item; k and v stream through a ring of 128-key stages (two at D=128,
+//     three at D=72), each with a full barrier (the producer's expected
+//     bytes) and an empty barrier (all 256 consumer threads arrive once
+//     they are done with it), so the next tiles' copies run under this
+//     tile's products. 192 KB of shared memory at D=128, 160 KB at D=72;
+//     the registers allow one block per SM either way.
+//   * At D=72 the loads are the limit, not the products: with a row
+//     loaded as two 64-column boxes (the body's first form at D=72) the
+//     second box is 56 columns of zero-fill, and TMA took as long over it
+//     as over real data — taking out the exp2s, the softmax or p·v moved
+//     K4 hardly at all, taking out those loads moved it most of the way to
+//     its target (scratch probes on the card). So a D=72 tile is one
+//     64-column swizzled box and an 8-column unswizzled tail, 18 KB of
+//     loads instead of 32, with a third ring stage.
 //   * The exp2s hide under the products. Each consumer issues tile j's
 //     q·kᵀ and tile j−1's p·v together, waits for the first only, and
 //     computes tile j's softmax while the second runs on the tensor
 //     cores; the two consumer warpgroups drift against each other and
 //     fill each other's gaps as well.
+//   * Short key counts (K1: 6 key tiles at FLUX-256, 2 at PixArt-256) leave
+//     the q load, the ring's fill and drain and the o store in the open
+//     when a block owns one item. So a block walks the items from
+//     blockIdx.x in steps of gridDim.x, and K1's launch is persistent: one
+//     block per SM. The ring runs on across items, and q has two buffers
+//     with full and empty barriers of their own (the consumers arrive on
+//     the empty one after their last q·kᵀ of an item), so the producer
+//     loads the next item's q and first k/v tiles while the consumers work
+//     on this one. The other kernels launch one block per item (a grid of
+//     items), as before.
 //
 // Where trouble was met, and what the code does about it:
 //   1. The tensor map comes from the driver API (`cuTensorMapEncodeTiled`);
@@ -78,18 +118,28 @@
 //     box) and raises where an operand does not meet them; nothing falls
 //     back to the mma.sync body.
 //   3. With 128-byte swizzle a TMA box is at most 128 bytes (64 bf16)
-//     wide, so a 128-wide row is loaded as two boxes of 64 columns, each
-//     128 rows × 128 bytes (16 KB), one after the other in shared memory.
+//     wide, so a row is loaded as boxes of 64 columns, each 128 rows × 128
+//     bytes (16 KB): two at D=128, one after the other in shared memory.
 //     The wgmma descriptors use the same swizzle: q and k K-major (8-row
 //     groups 1024 bytes apart; a 16-column k-step moves the start by 32
 //     bytes inside the 128-byte swizzle row, or to the second box), v
-//     MN-major (its two 64-column boxes 16 KB apart, 8-key groups 1024
-//     bytes apart; a 16-key k-step moves the start by 2048 bytes).
-//   4. K5's pre-scaled q is rounded to bf16 before the product: each
-//     consumer scales its own 64 rows of the q tile in place in shared
-//     memory (elementwise, so the swizzle does not matter), then a
-//     `fence.proxy.async.shared::cta` and a named barrier over its 128
-//     threads order those generic-proxy writes before the first wgmma.
+//     MN-major (its two 64-column boxes 16 KB apart as the leading offset,
+//     8-key groups 1024 bytes apart; a 16-key k-step moves the start by
+//     2048 bytes). At D=72 columns 64-71 come from a second tensor map
+//     with an 8-column box and no swizzle: 16 bytes a row, so 8 rows are
+//     one 128-byte core matrix of the unswizzled wgmma layout. q·kᵀ's fifth
+//     k-step reads it K-major (8-row groups 128 bytes apart) with its
+//     second core matrix along K — columns 72-79 — in a 2 KB zero region
+//     after the tail, stored once when the block starts; p·v's m64n8k16
+//     reads it MN-major (8-key groups 128 bytes apart). TMA counts the
+//     bytes of rows past T toward the barrier too.
+//   4. K4's and K5's pre-scaled q is rounded to bf16 before the product:
+//     each consumer scales its own 64 rows of the q tile (and at D=72 of
+//     its tail) in place in shared memory (elementwise, so the swizzle does
+//     not matter), then a `fence.proxy.async.shared::cta` and a named
+//     barrier over its 128 threads order those generic-proxy writes before
+//     the first wgmma, and before a later item's TMA write of that q
+//     buffer.
 //   5. Ragged edges: TMA zero-fills the rows past Tq and Tk (and counts
 //     their bytes toward the barrier). Rows past Tq are not stored; keys
 //     past Tk get p = 0 (clamp) or −∞ before the max (exact) by bounds,
@@ -99,10 +149,10 @@
 //     fenced (an empty asm that reads and writes them) after each
 //     wgmma.wait_group, so the compiler neither reads nor reuses them
 //     while an asynchronous wgmma still owns them.
-//   7. Tile size changes the rounding: in K6 each p is rounded against
-//     the running max of its 128-key tile (64 in the mma.sync body).
-//     chip_smoke.py measures `least_atol_per_std` against the same
-//     tolerance rule as before.
+//   7. Tile size changes the rounding: in the exact mode each p is rounded
+//     against the running max of its 128-key tile (64 in the mma.sync
+//     body). chip_smoke.py measures `least_atol_per_std` against the same
+//     tolerance rules as before.
 //   8. No CUTLASS or CuTe: inline PTX, as in attention.cu, keeps the
 //     build to seconds.
 //   9. exp2 itself: `exp2f` compiles to more than the one special-function
@@ -120,21 +170,37 @@
 
 namespace {
 
-constexpr int kD = 128;
-constexpr int kBlockM = 128;  // query rows per block: two consumers of 64
+constexpr int kBlockM = 128;  // query rows per work item: two consumers of 64
 constexpr int kBlockN = 128;  // keys per tile
-constexpr int kStages = 2;    // k and v tiles in flight
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int kConsumerThreads = 256;
-constexpr int kTileBytes = kBlockN * kD * 2;  // 32 KB: one q, k or v tile
-constexpr int kBoxBytes = kTileBytes / 2;      // 16 KB: one 64-column TMA box
-constexpr int kBarriers = 1 + 4 * kStages;     // q full; k, v full; k, v empty
-// q, the k and v stages, the barriers, and 1024 bytes to align the base
-constexpr int kSmemBytes = (1 + 2 * kStages) * kTileBytes + kBarriers * 8 + 1024;
+constexpr int kBoxBytes = kBlockN * 64 * 2;  // 16 KB: one 64-column, 128-row TMA box
+constexpr int kTailBytes = kBlockN * 8 * 2;  // 2 KB: D=72's 8-column, 128-row tail box
+constexpr int kQBufs = 2;  // q tiles: the next item's loads while this one runs
+
+// One q, k or v tile of 128 rows in shared memory. D=128: two 64-column
+// boxes under the 128-byte swizzle, 32 KB. D=72: one such box (columns
+// 0-63), the unswizzled tail box (columns 64-71, 16 bytes a row) and 2 KB of
+// zeros after it, which q·kᵀ's fifth k-step reads as columns 72-79: 20 KB,
+// of which TMA writes 18. The ring has kStages stages of k and v: two at
+// D=128 (192 KB with the q buffers), three at D=72 (160 KB), where the
+// loads are the larger share of a tile's time.
+template <int D>
+struct Tile {
+  static_assert(D == 72 || D == 128, "the body is built at head dims 72 and 128");
+  static constexpr int kBytes = D == 128 ? 2 * kBoxBytes : kBoxBytes + 2 * kTailBytes;
+  static constexpr int kLoadBytes = D == 128 ? 2 * kBoxBytes : kBoxBytes + kTailBytes;
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr int kBarriers = 2 * kQBufs + 4 * kStages;  // q, k, v: full and empty
+  // the q buffers, the k and v stages, the barriers, and 1024 bytes to align the base
+  static constexpr int kSmemBytes = (kQBufs + 2 * kStages) * kBytes + kBarriers * 8 + 1024;
+};
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kClampLo = -100.f;
 constexpr float kClampHi = 80.f;
 constexpr float kTwoPowMinus100 = 7.8886090522101181e-31f;  // 2^-100
+// a pad key's score on the exact routes, −1e9, in the log2 domain
+constexpr float kPadScoreLog2 = -1e9f * kLog2e;
 
 enum Mode : int { kExact = 0, kClamp = 1 };
 
@@ -142,6 +208,8 @@ struct Params {
   __nv_bfloat16* o;
   long long o_sb, o_st, o_sh;  // element strides of o (B, T, H, D); D has stride 1
   int H, Tq, Tk;
+  int n_items;  // (batch·head, 128-row query tile) work items
+  int n_pad;    // the reference's pad keys on this route (see the note)
   float scale;  // exact: 1/√D; clamp: scale·log2e rounded to bf16
 };
 
@@ -188,12 +256,15 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// A (128-row, 128-column) bf16 tile at rows `row` of (batch b, head h):
-// two 64-column boxes, 16 KB apart.
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int h, int row, int b) {
+// A 128-row bf16 tile at rows `row` of (batch b, head h): two 64-column
+// boxes of `map`, 16 KB apart (D=128), or one and the 8-column box of
+// `tail` at column 64 after it (D=72).
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         const CUtensorMap* tail, uint32_t bar, int h, int row,
+                                         int b) {
   tma_load(dst, map, bar, 0, h, row, b);
-  tma_load(dst + kBoxBytes, map, bar, 64, h, row, b);
+  tma_load(dst + kBoxBytes, D == 128 ? map : tail, bar, 64, h, row, b);
 }
 
 // --- wgmma ------------------------------------------------------------------
@@ -204,6 +275,16 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
   return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// The same without swizzle (layout type 0), for D=72's tail: 8×8 core
+// matrices of 128 contiguous bytes (8 rows of 16). K-major: `lbo` steps
+// to the next core matrix along K, `sbo` to the next 8 rows; MN-major:
+// `lbo` to the next 8 rows along K (CUTLASS's canonical GMMA layouts).
+__device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -256,7 +337,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
 }
 
 // d (64 × 128, fp32) += a (64 × 16, bf16 registers) · b (16 × 128, shared,
-// MN-major: the transpose bit): o += p·v.
+// MN-major: the transpose bit): o += p·v at D=128.
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
@@ -264,6 +345,30 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : WGMMA_ACC64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#define WGMMA_D32                                                                                \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// D=72's p·v in two products: d[0..31] (64 × 64) += a · b, b the first 64
+// columns of v (one 128-byte-swizzled box, MN-major); d[32..35] (64 × 8)
+// += a · b, b the 8-column tail (unswizzled, MN-major). The accumulators
+// keep the layout of one 64 × 72 product: column block j in d[4j .. 4j+3].
+__device__ __forceinline__ void wgmma_rs(float (&d)[36], const uint32_t (&a)[4], uint64_t db,
+                                         uint64_t db_tail) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WGMMA_ACC8(0), WGMMA_ACC8(8), WGMMA_ACC8(16), WGMMA_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %9, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}"
+      ", {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+      : "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db_tail), "r"(1));
 }
 
 // 2^x in one special-function instruction. `exp2f` also computes results
@@ -358,35 +463,42 @@ __device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&p)[8][4]
     for (int i = 0; i < 4; ++i) p[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
 }
 
-// The shared body of both kernels; the maps are the kernel's
-// __grid_constant__ parameters (TMA reads them in parameter space).
-template <int MODE>
-__device__ __forceinline__ void attn_sm90_body(const CUtensorMap* map_q, const CUtensorMap* map_k,
-                                               const CUtensorMap* map_v, const Params& p) {
+// The shared body of every kernel, one work item (batch·head, 128-row
+// query tile) after another, from blockIdx.x in steps of gridDim.x; the
+// maps are the kernel's __grid_constant__ parameters (TMA reads them in
+// parameter space).
+template <int D, int MODE>
+__device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Params& p) {
+  constexpr int kQkSteps = (D + 15) / 16;  // k16 steps of q·kᵀ: 8 at D=128, 5 at D=72
+  constexpr int kAcc = D / 2;             // a thread's fp32 accumulators of o (64 × D)
+  constexpr int kTile = Tile<D>::kBytes;
+  constexpr int kLoad = Tile<D>::kLoadBytes;
+  constexpr int kStages = Tile<D>::kStages;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows of 128 bytes
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* const gbase = smem_raw + (base - raw);
-  const uint32_t q_s = base;
-  auto k_s = [&](int s) { return base + (1 + s) * kTileBytes; };
-  auto v_s = [&](int s) { return base + (1 + kStages + s) * kTileBytes; };
-  const uint32_t bars = base + (1 + 2 * kStages) * kTileBytes;
-  const uint32_t q_full = bars;
-  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
-  auto v_full = [&](int s) { return bars + 8 * (1 + kStages + s); };
-  auto k_empty = [&](int s) { return bars + 8 * (1 + 2 * kStages + s); };
-  auto v_empty = [&](int s) { return bars + 8 * (1 + 3 * kStages + s); };
+  auto q_s = [&](int qb) { return base + qb * kTile; };
+  auto k_s = [&](int s) { return base + (kQBufs + s) * kTile; };
+  auto v_s = [&](int s) { return base + (kQBufs + kStages + s) * kTile; };
+  const uint32_t bars = base + (kQBufs + 2 * kStages) * kTile;
+  auto q_full = [&](int qb) { return bars + 8 * qb; };
+  auto q_empty = [&](int qb) { return bars + 8 * (kQBufs + qb); };
+  auto k_full = [&](int s) { return bars + 8 * (2 * kQBufs + s); };
+  auto v_full = [&](int s) { return bars + 8 * (2 * kQBufs + kStages + s); };
+  auto k_empty = [&](int s) { return bars + 8 * (2 * kQBufs + 2 * kStages + s); };
+  auto v_empty = [&](int s) { return bars + 8 * (2 * kQBufs + 3 * kStages + s); };
 
-  const int bh = blockIdx.y;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  const int q0 = blockIdx.x * kBlockM;
+  const int n_qt = (p.Tq + kBlockM - 1) / kBlockM;
   const int n_tiles = (p.Tk + kBlockN - 1) / kBlockN;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
+    for (int qb = 0; qb < kQBufs; ++qb) {
+      mbar_init(q_full(qb), 1);
+      mbar_init(q_empty(qb), kConsumerThreads);
+    }
     for (int s = 0; s < kStages; ++s) {
       mbar_init(k_full(s), 1);
       mbar_init(v_full(s), 1);
@@ -398,26 +510,35 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* map_q, const C
   __syncthreads();
 
   if (wg == 0) {
-    // producer: one thread keeps the ring full
+    // producer: one thread keeps the q buffers and the ring full; `g` counts
+    // the ring's tiles across items, `it` this block's items (item it takes
+    // q buffer it % 2)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, kTileBytes);
-      tma_tile(q_s, map_q, q_full, h, q0, b);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % kStages;
-        const uint32_t free_parity = ((j / kStages) & 1) ^ 1;  // the first round finds it free
-        mbar_wait(k_empty(s), free_parity);
-        mbar_expect_tx(k_full(s), kTileBytes);
-        tma_tile(k_s(s), map_k, k_full(s), h, j * kBlockN, b);
-        mbar_wait(v_empty(s), free_parity);
-        mbar_expect_tx(v_full(s), kTileBytes);
-        tma_tile(v_s(s), map_v, v_full(s), h, j * kBlockN, b);
+      int g = 0, it = 0;
+      for (int item = blockIdx.x; item < p.n_items; item += gridDim.x, ++it) {
+        const int bh = item / n_qt;
+        const int b = bh / p.H, h = bh % p.H;
+        const int qb = it % kQBufs;
+        mbar_wait(q_empty(qb), ((it / kQBufs) & 1) ^ 1);  // the first round finds it free
+        mbar_expect_tx(q_full(qb), kLoad);
+        tma_tile<D>(q_s(qb), &maps[0], &maps[3], q_full(qb), h, (item % n_qt) * kBlockM, b);
+        for (int j = 0; j < n_tiles; ++j, ++g) {
+          const int s = g % kStages;
+          const uint32_t free_parity = ((g / kStages) & 1) ^ 1;  // the first round finds it free
+          mbar_wait(k_empty(s), free_parity);
+          mbar_expect_tx(k_full(s), kLoad);
+          tma_tile<D>(k_s(s), &maps[1], &maps[4], k_full(s), h, j * kBlockN, b);
+          mbar_wait(v_empty(s), free_parity);
+          mbar_expect_tx(v_full(s), kLoad);
+          tma_tile<D>(v_s(s), &maps[2], &maps[5], v_full(s), h, j * kBlockN, b);
+        }
       }
     }
     return;
   }
 
-  // consumers: warpgroup c owns query rows 64c .. 64c + 63 of the tile
+  // consumers: warpgroup c owns query rows 64c .. 64c + 63 of each item's tile
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int c = wg - 1;
   const int t = threadIdx.x % 128;
@@ -425,141 +546,221 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* map_q, const C
   const int row_t = 64 * c + 16 * (t / 32) + lane / 4;  // this thread's first row in the tile
   const int col_t = 2 * (lane % 4);                     // its first column in each 8-column block
 
-  mbar_wait(q_full, 0);
-  if constexpr (MODE == kClamp) {
-    // q × bf16(scale·log2e), rounded to bf16, in place: this warpgroup's
-    // 64 rows are bytes [8192c, 8192c + 8192) of each 16 KB box
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int chunk = t + 128 * i;  // 16-byte chunk of 1024
-      uint4* ptr = reinterpret_cast<uint4*>(gbase + (chunk / 512) * kBoxBytes + 8192 * c +
-                                            (chunk % 512) * 16);
-      uint4 x = *ptr;
-      uint32_t* w = reinterpret_cast<uint32_t*>(&x);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&w[e]);
-        w[e] = pack_bf16(__low2float(v) * p.scale, __high2float(v) * p.scale);
-      }
-      *ptr = x;
-    }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
-  }
-
-  // descriptors: q and k K-major (8-row groups 1024 bytes apart), v
-  // MN-major (64-column boxes 16 KB apart, 8-key groups 1024 bytes apart)
-  auto q_desc = [&](int kk) {
-    return desc_sw128(q_s + (kk / 4) * kBoxBytes + 8192 * c + (kk % 4) * 32, 16, 1024);
+  // descriptors: q and k K-major (8-row groups 1024 bytes apart in a
+  // swizzled box; at D=72 the fifth k-step reads the tail, 8-row groups 128
+  // bytes apart, and its columns 72-79 from the zeros 2 KB on), v MN-major
+  // (64-column boxes 16 KB apart, 8-key groups 1024 bytes apart; the tail's
+  // 8-key groups 128 bytes apart)
+  auto q_desc = [&](uint32_t q, int kk) {
+    if (D == 72 && kk == 4) return desc_plain(q + kBoxBytes + 1024 * c, kTailBytes, 128);
+    return desc_sw128(q + (kk / 4) * kBoxBytes + 8192 * c + (kk % 4) * 32, 16, 1024);
   };
   auto k_desc = [&](int s, int kk) {
+    if (D == 72 && kk == 4) return desc_plain(k_s(s) + kBoxBytes, kTailBytes, 128);
     return desc_sw128(k_s(s) + (kk / 4) * kBoxBytes + (kk % 4) * 32, 16, 1024);
   };
   auto v_desc = [&](int s, int kk) { return desc_sw128(v_s(s) + kk * 2048, kBoxBytes, 1024); };
-
+  auto pv = [&](float (&o)[kAcc], const uint32_t (&a)[4], int s, int kk) {
+    if constexpr (D == 72)
+      wgmma_rs(o, a, v_desc(s, kk), desc_plain(v_s(s) + kBoxBytes + kk * 256, 128, 128));
+    else
+      wgmma_rs(o, a, v_desc(s, kk));
+  };
+  if constexpr (D == 72) {
+    // the zeros after the q and k tails (tiles 0 .. kQBufs + kStages − 1),
+    // stored once (TMA never writes there), ordered before the first wgmma
+    // that reads them
+    constexpr int kChunks = kTailBytes / 16;  // 16-byte chunks of one zero region
+    for (int i = t + 128 * c; i < (kQBufs + kStages) * kChunks; i += kConsumerThreads)
+      *reinterpret_cast<uint4*>(gbase + (i / kChunks) * kTile + kBoxBytes + kTailBytes +
+                                (i % kChunks) * 16) = make_uint4(0u, 0u, 0u, 0u);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 3, 256;\n" ::: "memory");
+  }
   const float qk_scale = MODE == kExact ? p.scale * kLog2e : 1.f;
-  float o[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
-  float s[64];
-  uint32_t pf[8][4];
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};  // this thread's partial sums, reduced at the end
-  float alpha[2] = {1.f, 1.f};
 
-  // tile 0: scores, softmax
-  mbar_wait(k_full(0), 0);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) wgmma_ss(s, q_desc(kk), k_desc(0, kk), kk > 0);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(s);
-  mbar_arrive(k_empty(0));
-  softmax_tile<MODE>(s, m, l, alpha, qk_scale, 0, col_t, p.Tk);
-  pack_p(s, pf);
+  int g = 0, it = 0;
+  for (int item = blockIdx.x; item < p.n_items; item += gridDim.x, ++it, g += n_tiles) {
+    const int bh = item / n_qt;
+    const int b = bh / p.H, h = bh % p.H;
+    const int q0 = (item % n_qt) * kBlockM;
+    const int qb = it % kQBufs;
+    const uint32_t q_tile = q_s(qb);
 
-  for (int j = 1; j < n_tiles; ++j) {
-    const int sj = j % kStages, sp = (j - 1) % kStages;
-    // tile j's scores and tile j − 1's p·v, issued together
-    mbar_wait(k_full(sj), (j / kStages) & 1);
-    fence_regs(s);
-    wgmma_fence();
+    mbar_wait(q_full(qb), (it / kQBufs) & 1);
+    if constexpr (MODE == kClamp) {
+      // q × bf16(scale·log2e), rounded to bf16, in place: this warpgroup's
+      // 64 rows are bytes [8192c, 8192c + 8192) of each 16 KB box, or at
+      // D=72 of the first box, and bytes [1024c, 1024c + 1024) of the tail
+      constexpr int kChunks = D == 128 ? 1024 : 512 + 64;  // 16-byte chunks of 64 rows
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) wgmma_ss(s, q_desc(kk), k_desc(sj, kk), kk > 0);
-    wgmma_commit();
-    mbar_wait(v_full(sp), ((j - 1) / kStages) & 1);
-    fence_regs(o);
-    wgmma_fence();
+      for (int i = 0; i < (kChunks + 127) / 128; ++i) {
+        const int chunk = t + 128 * i;
+        if (chunk >= kChunks) continue;
+        uint4* ptr = reinterpret_cast<uint4*>(
+            gbase + qb * kTile + (chunk < 512 ? 8192 * c + chunk * 16
+                                 : kBoxBytes + (D == 128 ? 8192 : 1024) * c + (chunk - 512) * 16));
+        uint4 x = *ptr;
+        uint32_t* w = reinterpret_cast<uint32_t*>(&x);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) wgmma_rs(o, pf[kk], v_desc(sp, kk));
-    wgmma_commit();
-    // the scores first; their softmax runs under the p·v products
-    wgmma_wait<1>();
-    fence_regs(s);
-    mbar_arrive(k_empty(sj));
-    softmax_tile<MODE>(s, m, l, alpha, qk_scale, j * kBlockN, col_t, p.Tk);
-    wgmma_wait<0>();
-    fence_regs(o);
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) fence_regs(pf[kk]);
-    mbar_arrive(v_empty(sp));
-    if constexpr (MODE == kExact) {
-#pragma unroll
-      for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
+        for (int e = 0; e < 4; ++e) {
+          const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&w[e]);
+          w[e] = pack_bf16(__low2float(v) * p.scale, __high2float(v) * p.scale);
+        }
+        *ptr = x;
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
     }
-    pack_p(s, pf);
-  }
-  // the last tile's p·v
-  {
-    const int sl = (n_tiles - 1) % kStages;
-    mbar_wait(v_full(sl), ((n_tiles - 1) / kStages) & 1);
-    fence_regs(o);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) wgmma_rs(o, pf[kk], v_desc(sl, kk));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(o);
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) fence_regs(pf[kk]);
-    mbar_arrive(v_empty(sl));
-  }
 
-  // epilogue: the row sums over the quad, one divide, one cast
+    float o[kAcc];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    // the reference's pad keys up to a multiple of 128, 2^-100 each
-    if constexpr (MODE == kClamp) l[r] += (float)(n_tiles * kBlockN - p.Tk) * kTwoPowMinus100;
-  }
-  __nv_bfloat16* const ob = p.o + b * p.o_sb + h * p.o_sh;
+    for (int i = 0; i < kAcc; ++i) o[i] = 0.f;
+    float s[64];
+    uint32_t pf[8][4];
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};  // this thread's partial sums, reduced at the end
+    float alpha[2] = {1.f, 1.f};
+
+    // tile 0: scores, softmax
+    {
+      const int s0 = g % kStages;
+      mbar_wait(k_full(s0), (g / kStages) & 1);
+      wgmma_fence();
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + row_t + 8 * r;
-    if (row < p.Tq) {
-      __nv_bfloat16* orow = ob + (long long)row * p.o_st + col_t;
+      for (int kk = 0; kk < kQkSteps; ++kk) wgmma_ss(s, q_desc(q_tile, kk), k_desc(s0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      mbar_arrive(k_empty(s0));
+      if (n_tiles == 1) mbar_arrive(q_empty(qb));  // the item's last read of q
+      softmax_tile<MODE>(s, m, l, alpha, qk_scale, 0, col_t, p.Tk);
+      pack_p(s, pf);
+    }
+
+    for (int j = 1; j < n_tiles; ++j) {
+      const int sj = (g + j) % kStages, sp = (g + j - 1) % kStages;
+      // tile j's scores and tile j − 1's p·v, issued together
+      mbar_wait(k_full(sj), ((g + j) / kStages) & 1);
+      fence_regs(s);
+      wgmma_fence();
 #pragma unroll
-      for (int jb = 0; jb < 16; ++jb)
-        *reinterpret_cast<uint32_t*>(orow + 8 * jb) =
-            pack_bf16(o[4 * jb + 2 * r] / l[r], o[4 * jb + 2 * r + 1] / l[r]);
+      for (int kk = 0; kk < kQkSteps; ++kk) wgmma_ss(s, q_desc(q_tile, kk), k_desc(sj, kk), kk > 0);
+      wgmma_commit();
+      mbar_wait(v_full(sp), ((g + j - 1) / kStages) & 1);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) pv(o, pf[kk], sp, kk);
+      wgmma_commit();
+      // the scores first; their softmax runs under the p·v products
+      wgmma_wait<1>();
+      fence_regs(s);
+      mbar_arrive(k_empty(sj));
+      if (j == n_tiles - 1) mbar_arrive(q_empty(qb));  // the item's last read of q
+      softmax_tile<MODE>(s, m, l, alpha, qk_scale, j * kBlockN, col_t, p.Tk);
+      wgmma_wait<0>();
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) fence_regs(pf[kk]);
+      mbar_arrive(v_empty(sp));
+      if constexpr (MODE == kExact) {
+#pragma unroll
+        for (int i = 0; i < kAcc; ++i) o[i] *= alpha[(i >> 1) & 1];
+      }
+      pack_p(s, pf);
+    }
+    // the last tile's p·v
+    {
+      const int sl = (g + n_tiles - 1) % kStages;
+      mbar_wait(v_full(sl), ((g + n_tiles - 1) / kStages) & 1);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) pv(o, pf[kk], sl, kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) fence_regs(pf[kk]);
+      mbar_arrive(v_empty(sl));
+    }
+
+    // epilogue: the row sums over the quad, the reference's pad keys, one
+    // divide, one cast
+    float f[2] = {1.f, 1.f};  // the exact mode's rescale for its pad keys
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      if constexpr (MODE == kClamp) {
+        // up to a multiple of 128, 2^-100 each
+        l[r] += (float)p.n_pad * kTwoPowMinus100;
+      } else if (p.n_pad > 0) {
+        // n_pad keys of score −1e9: m' = max(m, −1e9), the sums rescaled by
+        // exp2(m − m'), n_pad·exp2(−1e9 − m') added (log2 domain); f = 1 and
+        // the added term 0 unless every score of the row is near −1e9
+        const float m2 = m[r] * qk_scale;
+        const float mp = fmaxf(m2, kPadScoreLog2);
+        f[r] = ex2(m2 - mp);
+        l[r] = l[r] * f[r] + (float)p.n_pad * ex2(kPadScoreLog2 - mp);
+      }
+    }
+    __nv_bfloat16* const ob = p.o + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + row_t + 8 * r;
+      const float inv = f[r] / l[r];  // one divide a row: o·(f/l) is within an fp32 ulp of o·f/l
+      if (row < p.Tq) {
+        __nv_bfloat16* orow = ob + (long long)row * p.o_st + col_t;
+#pragma unroll
+        for (int jb = 0; jb < D / 8; ++jb)
+          *reinterpret_cast<uint32_t*>(orow + 8 * jb) =
+              pack_bf16(o[4 * jb + 2 * r] * inv, o[4 * jb + 2 * r + 1] * inv);
+      }
     }
   }
 }
 
-// Two kernel names, so that a profile tells K6 and K5 apart.
+// Four kernel names, so that a profile tells K6, K5, K1 and K4 apart. The
+// maps: q, k, v and (at D=72) their 8-column tails.
+struct Maps {
+  CUtensorMap m[6];
+};
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-    attn_flash_sm90_kernel(const __grid_constant__ CUtensorMap mq,
-                           const __grid_constant__ CUtensorMap mk,
-                           const __grid_constant__ CUtensorMap mv, const Params p) {
-  attn_sm90_body<kExact>(&mq, &mk, &mv, p);
+    attn_flash_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
+  attn_sm90_body<D, kExact>(maps.m, p);
 }
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-    attn_rowblock_sm90_kernel(const __grid_constant__ CUtensorMap mq,
-                              const __grid_constant__ CUtensorMap mk,
-                              const __grid_constant__ CUtensorMap mv, const Params p) {
-  attn_sm90_body<kClamp>(&mq, &mk, &mv, p);
+    attn_rowblock_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
+  attn_sm90_body<D, kClamp>(maps.m, p);
+}
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    attn_exact_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
+  attn_sm90_body<D, kExact>(maps.m, p);
+}
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    attn_clamp_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
+  attn_sm90_body<D, kClamp>(maps.m, p);
+}
+
+using Kernel = void (*)(const Maps, const Params);
+
+// The kernel of `mode` at head dim D, or null where it is not built: K5
+// and K6 at D=128 only.
+Kernel sm90_kernel(int mode, unsigned long long D) {
+  if (D == 128) {
+    const Kernel k[4] = {attn_flash_sm90_kernel<128>, attn_rowblock_sm90_kernel<128>,
+                         attn_exact_sm90_kernel<128>, attn_clamp_sm90_kernel<128>};
+    return k[mode];
+  }
+  if (D == 72 && mode >= 2)
+    return mode == 2 ? attn_exact_sm90_kernel<72> : attn_clamp_sm90_kernel<72>;
+  return nullptr;
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -588,36 +789,50 @@ EncodeTiled encode_tiled() {
 
 }  // namespace
 
-// q, k, v: bf16 (B, T, H, 128); `maps` holds 11 values for each of q, k, v
-// in turn: the dims {D, H, T, B}, the byte strides of H, T and B, and the
-// box {64, 1, 128, 1}, as ops/attention.py's `tma_operand` computes them.
-// o: bf16 (B, Tq, H, 128) with element strides o_strides (b, t, h). mode 0:
-// the exact softmax (K6, scale = 1/√D); 1: the clamp softmax (K5, scale =
-// scale·log2e rounded to bf16). Returns 0, a cudaError_t of the launch, or
-// 100000 + the CUresult of a refused tensor map.
+// q, k, v: bf16 (B, T, H, D), D = 72 or 128; `maps` holds 11 values for
+// each of q, k, v in turn: the dims {D, H, T, B}, the byte strides of H, T
+// and B, and the box {64, 1, 128, 1}, as ops/attention.py's `tma_operand`
+// computes them. o: bf16 (B, Tq, H, D) with element strides o_strides (b,
+// t, h). mode 0: the exact softmax of the streaming route (K6, D=128); 1:
+// the clamp softmax of the row-block route (K5, D=128); 2: the exact
+// softmax of the single-tile route (K1); 3: the clamp softmax of the
+// transposed route (K4). Exact: scale = 1/√D; clamp: scale = scale·log2e
+// rounded to bf16. Mode 2 launches one block per SM, which walks the work
+// items; the others one block per item. Returns 0, a cudaError_t of the
+// launch, or 100000 + the CUresult of a refused tensor map.
 extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void* v, void* o,
                                        const unsigned long long* maps,
                                        const long long* o_strides, int B, int H, int Tq, int Tk,
                                        float scale, int mode, void* stream) {
-  if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || (long long)B * H > 65535 || mode < 0 || mode > 1)
+  if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || mode < 0 || mode > 3)
     return (int)cudaErrorInvalidValue;
+  const long long n_items = (long long)B * H * ((Tq + kBlockM - 1) / kBlockM);
+  const Kernel kernel = sm90_kernel(mode, maps[0]);
+  if (kernel == nullptr || n_items > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  CUtensorMap tmaps[3];
+  // q, k, v under the 128-byte swizzle, then (D=72) their 8-column tails
+  // without swizzle; at D=128 the last three are copies, never read
+  Maps tmaps;
   const void* ptrs[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i) {
-    const unsigned long long* a = maps + 11 * i;
-    if (a[0] != kD || a[7] != 64 || a[8] != 1 || a[9] != kBlockN || a[10] != 1)
+  for (int i = 0; i < 6; ++i) {
+    const unsigned long long* a = maps + 11 * (i % 3);
+    if (a[0] != maps[0] || a[7] != 64 || a[8] != 1 || a[9] != kBlockN || a[10] != 1)
       return (int)cudaErrorInvalidValue;
+    if (i >= 3 && maps[0] == 128) {
+      tmaps.m[i] = tmaps.m[i - 3];
+      continue;
+    }
     const cuuint64_t dims[4] = {a[0], a[1], a[2], a[3]};
     const cuuint64_t strides[3] = {a[4], a[5], a[6]};
-    const cuuint32_t box[4] = {(cuuint32_t)a[7], (cuuint32_t)a[8], (cuuint32_t)a[9],
+    const cuuint32_t box[4] = {i < 3 ? (cuuint32_t)a[7] : 8u, (cuuint32_t)a[8], (cuuint32_t)a[9],
                                (cuuint32_t)a[10]};
     const cuuint32_t elem[4] = {1, 1, 1, 1};
-    const CUresult r =
-        encode(&tmaps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptrs[i]), dims,
-               strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    const CUresult r = encode(
+        &tmaps.m[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptrs[i % 3]), dims,
+        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        i < 3 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r != CUDA_SUCCESS) return 100000 + (int)r;
   }
   Params p;
@@ -626,18 +841,31 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
   p.H = H;
   p.Tq = Tq;
   p.Tk = Tk;
+  p.n_items = (int)n_items;
+  // the reference's pad keys: to a multiple of 128, or of the streaming
+  // route's key block min(1536, round_up(Tk, 128))
+  const int tk128 = (Tk + 127) / 128 * 128;
+  const int bk = mode == 0 ? (tk128 < 1536 ? tk128 : 1536) : 128;
+  p.n_pad = (Tk + bk - 1) / bk * bk - Tk;
   p.scale = scale;
-  void (*const kernels[2])(const CUtensorMap, const CUtensorMap, const CUtensorMap,
-                           const Params) = {attn_flash_sm90_kernel, attn_rowblock_sm90_kernel};
-  static bool opted_in[2] = {};
-  if (!opted_in[mode]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernels[mode], cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  // above 48 KB dynamic shared memory needs an opt-in (once per kernel)
+  const int smem = maps[0] == 128 ? Tile<128>::kSmemBytes : Tile<72>::kSmemBytes;
+  static bool opted_in[2][4] = {};
+  if (!opted_in[maps[0] == 72][mode]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    opted_in[mode] = true;
+    opted_in[maps[0] == 72][mode] = true;
   }
-  const dim3 grid((Tq + kBlockM - 1) / kBlockM, B * H);
-  kernels[mode]<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      tmaps[0], tmaps[1], tmaps[2], p);
+  int grid = (int)n_items;
+  if (mode == 2) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (sms < grid) grid = sms;
+  }
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(tmaps, p);
   return (int)cudaGetLastError();
 }

@@ -32,11 +32,22 @@ the way that one does (`attention_route`):
 All four run in one CUDA C++ kernel source, ``csrc/attention.cu`` (a
 compile-time variant each; the source says what bounds each on the H100),
 but for the calls that take the Hopper body of ``csrc/attention_sm90.cu``
-(wgmma fed by TMA): bf16 at head dim 128 without a bias, on the row-block
-(K5) and streaming (K6) routes — FLUX.1-dev's joint attention at 1024² and
-1536². The choice depends on dtype, head dim and bias only. Such a call
-whose operands TMA cannot map (`tma_operand`: a 16-byte-aligned base and
-strides) raises; it never drops back to the other body.
+(wgmma fed by TMA): bf16 without a bias at head dim 72 or 128 on the exact
+single-tile (K1) and transposed clamp (K4) routes — PixArt's 256² and
+1024² self-attention, FLUX.1-dev's joint attention at 256² — and at head
+dim 128 on the row-block (K5) and streaming (K6) routes — FLUX.1-dev at
+1024² and 1536² (`_takes_sm90`). The choice depends on route, dtype, head
+dim and bias only. Such a call whose operands TMA cannot map
+(`tma_operand`: a 16-byte-aligned base and strides) raises; it never drops
+back to the other body.
+
+The exact routes' pad keys. The reference pads the keys of the exact
+routes with keys of score −1e9 whose rows of v are 0: to round_up(Tk, 128)
+on the single-tile route, to a multiple of min(1536, round_up(Tk, 128)) on
+the streaming one. They weigh exactly 0 unless every real score of a row
+is within 104 of −1e9 or below it (a caller bias of −1e9 or less); then
+they take their share. The plain versions and the kernels add them the
+same way (`_exact_weights`, and each kernel's epilogue).
 
 On a CPU tensor every wrapper runs its plain version. On a CUDA tensor it
 launches the kernel or raises: there is no fallback. Each launch adds one
@@ -84,9 +95,10 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 MAX_HEAD_DIM = 128
 _FN = None
 _SM90_FN = None
-# the Hopper body's softmax modes (csrc/attention_sm90.cu), by counter name
-_SM90_MODES = {"attention_flash": 0, "attention_rowblock": 1}
-_SM90_HEAD_DIM = 128
+# the Hopper body's kernels (csrc/attention_sm90.cu), by counter name: the
+# C entry's mode and the head dims it is built for
+_SM90_MODES = {"attention_flash": (0, (128,)), "attention_rowblock": (1, (128,)),
+               "attention": (2, (72, 128)), "attention_long": (3, (72, 128))}
 _SM90_BOX = (64, 1, 128, 1)  # 64 columns (128 bytes: the swizzle's width), 1 head, 128 rows
 
 # The reference's routing constants (ecad_tpu/ops/attention.py :95, :134,
@@ -99,6 +111,8 @@ _TRANSPOSED_MIN_SCORE_BYTES = 1024 * 1024
 _LOG2E = 1.4426950408889634
 _CLAMP_LO, _CLAMP_HI = -100.0, 80.0  # log2 domain (:200-201)
 _PAD_KEY_WEIGHT = 2.0 ** _CLAMP_LO  # a −1e9-biased pad key of the clamp routes
+_PAD_SCORE = -1e9  # a pad key's score on the exact routes (:103, :755-772)
+_FLASH_BLOCK_K = 1536  # the streaming route's key block (:102)
 
 
 def _kernel():
@@ -139,12 +153,29 @@ def _sm90_kernel():
             ctypes.POINTER(ctypes.c_longlong),  # o's strides (b, t, h)
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H Tq Tk
             ctypes.c_float,  # scale
-            ctypes.c_int,  # mode: 0 exact (K6), 1 clamp (K5)
+            ctypes.c_int,  # mode: 0 exact streaming (K6), 1 clamp row-block (K5),
+            # 2 exact single-tile (K1), 3 clamp transposed (K4)
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
         _SM90_FN = fn
     return _SM90_FN
+
+
+def _exact_weights(s: torch.Tensor, n_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """exp(s − m) and the row sums of the exact softmax over fp32 scores
+    `s`, with the reference's `n_pad` pad keys of score −1e9 (rows of v 0):
+    they raise the max to at least −1e9 and add n_pad·exp(−1e9 − m) to the
+    sum, which is exactly 0 unless every score of the row is near −1e9 or
+    below it."""
+    m = s.amax(dim=-1, keepdim=True)
+    if n_pad:
+        m = m.clamp(min=_PAD_SCORE)
+    p = torch.exp(s - m)
+    denom = p.sum(dim=-1, keepdim=True)
+    if n_pad:
+        denom = denom + n_pad * torch.exp(_PAD_SCORE - m)
+    return p, denom
 
 
 def fused_attention_reference(
@@ -155,16 +186,17 @@ def fused_attention_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel (and of ``_attn_kernel`` /
     ``_attn_kernel_bias``): fp32 upcast, q scaled by 1/√D, fp32 bias added,
-    row-max subtracted, exp, p·v, one divide by the row sum, one cast."""
-    d = q.shape[-1]
+    row-max subtracted, exp, p·v, one divide by the row sum, one cast; with
+    the reference's round_up(Tk, 128) − Tk pad keys (`_exact_weights`)."""
+    d, tk = q.shape[-1], k.shape[1]
     qf = q.float().permute(0, 2, 1, 3) * (1.0 / math.sqrt(d))
     kf = k.float().permute(0, 2, 1, 3)
     vf = v.float().permute(0, 2, 1, 3)
     s = qf @ kf.transpose(-1, -2)
     if bias is not None:
         s = s + bias.float()
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    out = (p @ vf) / p.sum(dim=-1, keepdim=True)
+    p, denom = _exact_weights(s, _round_up(tk, 128) - tk)
+    out = (p @ vf) / denom
     return out.to(q.dtype).permute(0, 2, 1, 3).contiguous()
 
 
@@ -301,21 +333,18 @@ def flash_attention_reference(
     p rounded to v's dtype for p·v (:187-190), one divide, one cast. The
     reference streams keys in blocks of 1536 with an online max; that
     changes only which running max each p is rounded against before the
-    cast, and the order of the fp32 sums. Keys past Tk do not exist here;
-    the reference pads them with a −1e9 bias, so they weigh exactly 0 —
-    except in a row whose every real key has a caller bias at or below
-    −1e9 too, where the reference spreads the weight over Tk_pad keys
-    (pad rows of v are 0) and this over Tk (pinned by
-    tests/test_torch_ops.py::test_exact_routes_pad_keys_under_a_minus_1e9_bias)."""
-    d = q.shape[-1]
+    cast, and the order of the fp32 sums. The reference pads the keys to a
+    multiple of bk = min(1536, round_up(Tk, 128)) with −1e9-biased keys
+    whose rows of v are 0; they are added as `_exact_weights` says."""
+    d, tk = q.shape[-1], k.shape[1]
     qf = q.float().permute(0, 2, 1, 3)
     kf = k.float().permute(0, 2, 1, 3)
     vf = v.float().permute(0, 2, 1, 3)
     s = (qf @ kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))
     if bias is not None:
         s = s + bias.float()
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    out = (p.to(v.dtype).float() @ vf) / p.sum(dim=-1, keepdim=True)
+    p, denom = _exact_weights(s, _round_up(tk, min(_FLASH_BLOCK_K, _round_up(tk, 128))) - tk)
+    out = (p.to(v.dtype).float() @ vf) / denom
     return out.to(q.dtype).permute(0, 2, 1, 3).contiguous()
 
 
@@ -325,14 +354,11 @@ def _launch(
     v: torch.Tensor,
     bias: Optional[torch.Tensor],
     variant: int,
-    entry=None,
 ) -> torch.Tensor:
     """One launch of the CUDA kernel on q's device: `variant` 0 is the
     exact softmax, 1 the clamp softmax of the transposed route (K4), 2 that
     of the row-block route (K5), 3 the exact softmax of the streaming route
     (K6), 4-7 the attention-variant harness's X1-X4 (`attn_variants`).
-    `entry` is the C entry point to call, by default this tree's
-    ``ecad_attention_fwd`` (a comparison script passes an older build's).
     Counts it."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
@@ -362,7 +388,7 @@ def _launch(
     else:
         scale = 1.0 if variant == 4 else 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
-        status = (entry or _kernel())(
+        status = _kernel()(
             _DTYPES[q.dtype],
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if bias is None else bias.data_ptr(),
@@ -384,16 +410,19 @@ def _launch(
 
 
 def tma_operand(t: torch.Tensor, name: str) -> list[int]:
-    """The arguments of the 4-D TMA tensor map of a bf16 (B, T, H, 128)
-    operand of the Hopper body: the dims {D, H, T, B} (innermost first),
-    the byte strides of H, T and B, and the box {64, 1, 128, 1} — 11
-    integers. TMA needs a 16-byte-aligned base and strides that are
-    multiples of 16 bytes (below 2^40); a dimension of size 1 is never
-    stepped along, so it takes the packed stride. Raises ValueError where
-    the operand does not meet them."""
+    """The arguments of the 4-D TMA tensor map of a bf16 (B, T, H, D)
+    operand of the Hopper body, D = 72 or 128: the dims {D, H, T, B}
+    (innermost first), the byte strides of H, T and B, and the box {64, 1,
+    128, 1} — 11 integers. The C entry builds from them a map under the
+    128-byte swizzle (columns 0-63, and 64-127 at D=128) and, at D=72, one
+    with an 8-column box and no swizzle for columns 64-71. TMA needs a
+    16-byte-aligned base and strides that are multiples of 16 bytes (below
+    2^40); a dimension of size 1 is never stepped along, so it takes the
+    packed stride. Raises ValueError where the operand does not meet
+    them."""
     b, tt, h, d = t.shape
-    if t.dtype != torch.bfloat16 or d != _SM90_HEAD_DIM:
-        raise ValueError(f"{name}: the Hopper body takes bf16 at head dim 128; got "
+    if t.dtype != torch.bfloat16 or d not in (72, 128):
+        raise ValueError(f"{name}: the Hopper body takes bf16 at head dim 72 or 128; got "
                          f"{t.dtype}, {d}")
     if t.stride(3) != 1:
         raise ValueError(f"{name} must be contiguous in its last dim")
@@ -411,24 +440,28 @@ def tma_operand(t: torch.Tensor, name: str) -> list[int]:
     return [d, h, tt, b, *strides, *_SM90_BOX]
 
 
-def _takes_sm90(q: torch.Tensor, bias: Optional[torch.Tensor]) -> bool:
-    """Whether a row-block or streaming call goes to the Hopper body
-    (csrc/attention_sm90.cu): bf16 at head dim 128 without a bias. A
-    function of dtype, head dim and bias only."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] == _SM90_HEAD_DIM and bias is None
+def _takes_sm90(counter: str, q: torch.Tensor, bias: Optional[torch.Tensor]) -> bool:
+    """Whether a call of the route that counts under `counter` goes to the
+    Hopper body (csrc/attention_sm90.cu): bf16 without a bias at a head dim
+    the body is built for on that route (`_SM90_MODES`). A function of
+    route, dtype, head dim and bias only."""
+    return (q.dtype == torch.bfloat16 and bias is None
+            and q.shape[-1] in _SM90_MODES[counter][1])
 
 
 def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) -> torch.Tensor:
-    """One launch of the Hopper body in the softmax mode of counter `name`
-    (``attention_flash``: exact, K6; ``attention_rowblock``: clamp, K5).
-    Raises where TMA cannot map an operand (`tma_operand`). Counts it."""
+    """One launch of the Hopper body in the mode of counter `name`
+    (``attention``: exact single-tile, K1; ``attention_long``: clamp
+    transposed, K4; ``attention_rowblock``: clamp row-block, K5;
+    ``attention_flash``: exact streaming, K6). Raises where TMA cannot map
+    an operand (`tma_operand`). Counts it."""
     maps = [a for t, n in ((q, "q"), (k, "k"), (v, "v")) for a in tma_operand(t, n)]
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     b, tq, h, d = q.shape
-    mode = _SM90_MODES[name]
+    mode = _SM90_MODES[name][0]
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
-    scale = clamp_scale(d, q.dtype) if mode == 1 else 1.0 / math.sqrt(d)
+    scale = clamp_scale(d, q.dtype) if mode in (1, 3) else 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
         status = _sm90_kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -458,6 +491,8 @@ def transposed_attention(
     _check_key_padding(q, k, v, bias)
     if q.device.type == "cpu":
         return transposed_attention_reference(q, k, v, bias)
+    if _takes_sm90("attention_long", q, bias):
+        return _launch_sm90(q, k, v, "attention_long")
     return _launch(q, k, v, bias, variant=1)
 
 
@@ -473,7 +508,7 @@ def rowblock_attention(
     _check_key_padding(q, k, v, bias)
     if q.device.type == "cpu":
         return rowblock_attention_reference(q, k, v, bias)
-    if _takes_sm90(q, bias):
+    if _takes_sm90("attention_rowblock", q, bias):
         return _launch_sm90(q, k, v, "attention_rowblock")
     return _launch(q, k, v, bias, variant=2)
 
@@ -491,7 +526,7 @@ def flash_attention(
     _check_key_padding(q, k, v, bias)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, bias)
-    if _takes_sm90(q, bias):
+    if _takes_sm90("attention_flash", q, bias):
         return _launch_sm90(q, k, v, "attention_flash")
     return _launch(q, k, v, bias, variant=3)
 
@@ -524,4 +559,6 @@ def fused_attention(
         return flash_attention(q, k, v, bias)
     if q.device.type == "cpu":
         return fused_attention_reference(q, k, v, bias)
+    if _takes_sm90("attention", q, bias):
+        return _launch_sm90(q, k, v, "attention")
     return _launch(q, k, v, bias, variant=0)

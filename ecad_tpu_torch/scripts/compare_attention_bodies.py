@@ -1,30 +1,28 @@
-"""K5 and K6 at head dim 128: this tree's Hopper body against an older
-tree's mma.sync body, in turns, in one process on one card.
+"""The Hopper body (``csrc/attention_sm90.cu``) against the mma.sync body
+it replaced (``csrc/attention.cu``, which still serves these routes with a
+bias), kernel by kernel, in turns, in one process on one card.
 
-    python -m ecad_tpu_torch.scripts.compare_attention_bodies \\
-        --old-tree build/pr5 [--out chiprun_out/bodies.json]
+    python -m ecad_tpu_torch.scripts.compare_attention_bodies [--out bodies.json]
 
-The older tree's ``ecad_tpu_torch/csrc/attention.cu`` (its plain C entry
-``ecad_attention_fwd``: variant 2 is K5's row-block clamp softmax, 3 K6's
-streaming exact softmax) is compiled with nvcc into
-``build/ecad_tpu_torch/`` and loaded beside this tree's kernels. At
-FLUX-1024's joint attention (1, 4608, 24, 128) for K5 and FLUX-1536's (1,
-9728, 24, 128) for K6, bf16 without a bias, both bodies are checked against
-this tree's plain version (run per head) and timed in turns — old, new,
-new, old — by spin-kernel CUDA events (`sampled_device_ms`, which samples
-the SM clock, power and temperature around each timing), beside one
-``scaled_dot_product_attention`` call. Prints one JSON line per shape, and
+Rows, each bf16 without a bias at the shape the main path gives it: K1
+(the exact single-tile softmax, variant 0 of attention.cu's C entry) at
+FLUX-256's joint attention (4, 768, 24, 128) and PixArt-256's
+self-attention (16, 256, 16, 72); K4 (the clamp softmax of the transposed
+route, variant 1) at PixArt-1024's (4, 4096, 16, 72); K5 (row-block clamp,
+variant 2) at FLUX-1024's (1, 4608, 24, 128); K6 (streaming exact, variant
+3) at FLUX-1536's (1, 9728, 24, 128). Both bodies are checked against the
+plain version (run per head) and timed in turns — old, new, new, old — by
+spin-kernel CUDA events (`sampled_device_ms`, which samples the SM clock,
+power and temperature around each timing), beside one
+``scaled_dot_product_attention`` call. Prints one JSON line per row, and
 writes them to ``--out``.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import json
 import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -34,35 +32,20 @@ from ecad_tpu_torch.ops import _build
 from ecad_tpu_torch.ops import attention as A
 from ecad_tpu_torch.utils.timing import bound_ms, card_name, sampled_device_ms
 
-# counter → (shape, the older body's variant, this tree's wrapper, plain
-# version, the share of the output's std in its bf16 tolerance, as
-# chip_smoke.py's clamp_bf16_tol and flash_bf16_tol)
+# row → (shape, the mma.sync body's variant of attention.cu's C entry, this
+# tree's wrapper, plain version, the share of the output's std in its bf16
+# tolerance, as chip_smoke.py's clamp_bf16_tol and flash_bf16_tol)
 CASES = {
+    "attention_flux256": ((4, 768, 24, 128), 0, A.fused_attention,
+                          A.fused_attention_reference, 0.1),
+    "attention": ((16, 256, 16, 72), 0, A.fused_attention, A.fused_attention_reference, 0.1),
+    "attention_long": ((4, 4096, 16, 72), 1, A.fused_attention,
+                       A.transposed_attention_reference, 0.1),
     "attention_rowblock": ((1, 4608, 24, 128), 2, A.rowblock_attention,
                            A.rowblock_attention_reference, 0.1),
     "attention_flash": ((1, 9728, 24, 128), 3, A.flash_attention,
                         A.flash_attention_reference, 0.025),
 }
-
-
-def old_entry(tree: Path):
-    """The older tree's ``ecad_attention_fwd``, built with this tree's nvcc
-    flags and given this tree's argument types (the C interface is the
-    same)."""
-    src = tree / "ecad_tpu_torch" / "csrc" / "attention.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = _build.BUILD_DIR / f"libattention_old_{digest}.so"
-    if not out.exists():
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run(
-            [_build.nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-             "-Xcompiler", "-fPIC", "-o", str(out), str(src)],
-            check=True,
-        )
-    fn = ctypes.CDLL(str(out)).ecad_attention_fwd
-    fn.argtypes = A._kernel().argtypes
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def by_heads(plain, q, k, v) -> torch.Tensor:
@@ -81,20 +64,18 @@ def max_err_and_bad(got, want, share) -> tuple[float, int]:
 
 def main(argv=None) -> list[dict]:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--old-tree", type=Path, required=True)
     parser.add_argument("--out", type=Path, default=None)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("compare_attention_bodies: needs a CUDA card")
     card = card_name()
     _build.build_all()
-    old = old_entry(args.old_tree)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for counter, (shape, variant, new_fn, plain, share) in CASES.items():
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
-        bodies = {"old": lambda: A._launch(q, k, v, None, variant, entry=old),
+        bodies = {"old": lambda: A._launch(q, k, v, None, variant),
                   "new": lambda: new_fn(q, k, v)}
         want = by_heads(plain, q, k, v)
         checks = {name: max_err_and_bad(fn(), want, share) for name, fn in bodies.items()}
@@ -112,6 +93,7 @@ def main(argv=None) -> list[dict]:
         bound, by = bound_ms(4 * q.numel() * q.element_size(), 4 * b * h * t * t * d)
         row = {
             "counter": counter, "shape": list(shape), "card": card,
+            "old_body": f"attention.cu variant {variant}",
             "old_ms": times["old"], "new_ms": times["new"],
             "old_over_new": statistics.median(times["old"]) / statistics.median(times["new"]),
             "sdpa_ms": sdpa, "bound_ms": bound, "bound_by": by,

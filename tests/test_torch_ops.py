@@ -193,6 +193,10 @@ def test_cpu_path_counts_no_launches():
     q = torch.randn(1, 1536, 1, 128, dtype=torch.bfloat16)  # the Hopper body's calls
     rowblock_attention(q, q, q)
     flash_attention(q, q, q)
+    fused_attention(q[:, :256], q[:, :256], q[:, :256])
+    q = torch.randn(1, 1024, 1, 72, dtype=torch.bfloat16)
+    fused_attention(q, q, q)
+    fused_attention(q[:, :256], q[:, :256], q[:, :256])
     q = torch.randn(1, 128, 1, 72)  # the attention-variant harness's kernels
     for fn in (matmul_only_attention, nomax_attention, max_exp2_attention,
                clamp_fd_attention):
@@ -626,34 +630,86 @@ def test_clamp_plain_version_without_pad_keys_fails_fully_clamped_rows(case, dty
     np.testing.assert_allclose(old[0], want[0] * ratio, rtol=1e-2, atol=1e-2)
 
 
-@pytest.mark.parametrize("route", ["single_tile_k2", "flash_k6"])
-def test_exact_routes_pad_keys_under_a_minus_1e9_bias(route, monkeypatch):
-    """The exact routes pad Tk with −1e9-biased keys before the max, so
-    they differ from the port only where a caller's bias puts every real
-    key at −1e9 too: there the reference's scores all round to −1e9, its
-    weight spreads over Tk_pad keys (pad rows of v are 0) and its output is
-    Σv/Tk_pad, while the port's is Σv/Tk. Pinned, not repaired: no model
-    passes such a bias (the text masks use −10000)."""
+# case → (route, Tk, the caller bias on batch 0's keys — on all of them at
+# −1e9 and below, on the last 50 above it — and the reference's pad keys
+# n_pad there): batch 1 keeps a ragged key-padding bias (its last 20 keys
+# at −10000), where the pad keys weigh 0
+EXACT_PAD_CASES = {
+    "single_tile_k2": ("single", 300, -1e9, 84),
+    "flash_k6": ("flash", 300, -1e9, 84),
+    "single_tile_minus_2e9": ("single", 300, -2e9, 84),
+    "flash_minus_2e9": ("flash", 300, -2e9, 84),
+    "single_tile_ragged_above_minus_1e9": ("single", 300, -1e4, 84),
+    "flash_ragged_above_minus_1e9": ("flash", 300, -1e4, 84),
+    # two 1536-key blocks: the streaming route pads 1600 keys to 3072
+    "flash_two_key_blocks": ("flash", 1600, -1e9, 1472),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EXACT_PAD_CASES))
+def test_exact_routes_pad_keys_under_a_minus_1e9_bias(case, monkeypatch):
+    """The exact routes pad Tk with keys of score −1e9 whose rows of v are
+    0: round_up(Tk, 128) on the single-tile route, a multiple of min(1536,
+    round_up(Tk, 128)) on the streaming one. Where a caller's bias puts
+    every real key of a row at −1e9 too, every score rounds to −1e9 and the
+    reference's output is Σv/Tk_pad; below −1e9 the pad keys win and it is
+    0; a bias above −1e9 leaves them at weight 0. The plain versions add
+    the same pad keys and agree with the reference's kernels (interpret
+    mode) in every row."""
+    route, tk, fill, n_pad = EXACT_PAD_CASES[case]
     rng = np.random.default_rng(32)
-    tk = 300
-    q, k, v = _qkv(rng, 1, 8, tk, 1, 64)
-    bias = np.full((1, 1, 1, tk), -1e9, np.float32)
-    if route == "flash_k6":
+    q, k, v = _qkv(rng, 2, 8, tk, 1, 64)
+    bias = np.zeros((2, 1, 1, tk), np.float32)
+    bias[0, ..., 0 if fill <= -1e9 else tk - 50:] = fill
+    bias[1, ..., tk - 20:] = -10000.0
+    if route == "flash":
         monkeypatch.setattr(jax_attention, "_ROWBLOCK_MAX_KV_ELEMS", 0)
         want = jax_attention._flash_attention(
             *(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(bias), interpret=True)
         got = flash_attention_reference(*(torch.from_numpy(a) for a in (q, k, v, bias)))
-        tk_pad = 384  # one key block of min(1536, round_up(300, 128))
     else:
         want = jax_fused_attention(*(jnp.asarray(a) for a in (q, k, v)),
                                    bias=jnp.asarray(bias), interpret=True)
         got = fused_attention_reference(*(torch.from_numpy(a) for a in (q, k, v, bias)))
-        tk_pad = 384
-    mean_v = v.sum(axis=1, keepdims=True)
-    np.testing.assert_allclose(got.numpy(), np.broadcast_to(mean_v / tk, got.shape),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(want), np.broadcast_to(mean_v / tk_pad, got.shape),
-                               rtol=1e-5, atol=1e-5)
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    # what the reference gives in batch 0's rows
+    if fill == -1e9:
+        row0 = np.broadcast_to(v[:1].sum(axis=1, keepdims=True) / (tk + n_pad), want[:1].shape)
+    elif fill == -2e9:
+        row0 = np.zeros_like(want[:1])
+    else:  # the softmax over the real keys alone, in float64
+        sc = np.einsum("qd,kd->qk", q[0, :, 0], k[0, :, 0]).astype(np.float64) / 8.0
+        w = np.exp(sc + bias[0, 0] - (sc + bias[0, 0]).max(-1, keepdims=True))
+        row0 = ((w / w.sum(-1, keepdims=True)) @ v[0, :, 0])[None, :, None]
+    np.testing.assert_allclose(want[:1], row0, rtol=1e-5, atol=1e-5)
+
+
+def _exact_without_pad_keys(q, k, v, bias):
+    """The single-tile plain version as it was before the repair: the
+    softmax over the Tk real keys only."""
+    s = (q.permute(0, 2, 1, 3) / q.shape[-1] ** 0.5) @ k.permute(0, 2, 3, 1) + bias
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return ((p @ v.permute(0, 2, 1, 3)) / p.sum(-1, keepdim=True)).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("fill", [-1e9, -2e9])
+def test_exact_plain_version_without_pad_keys_fails_minus_1e9_rows(fill):
+    """Before the repair the plain version gave Σv/Tk in a row whose every
+    key has a caller bias of −1e9 (the reference: Σv/Tk_pad, 300 against
+    384 keys) or −2e9 (the reference: 0): the test's tolerance rejects it
+    there and passes it in the ragged row."""
+    rng = np.random.default_rng(33)
+    q, k, v = _qkv(rng, 2, 8, 300, 1, 64)
+    bias = np.zeros((2, 1, 1, 300), np.float32)
+    bias[0] = fill
+    bias[1, ..., 280:] = -10000.0
+    want = np.asarray(jax_fused_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                          bias=jnp.asarray(bias), interpret=True))
+    old = _exact_without_pad_keys(*(torch.from_numpy(a) for a in (q, k, v, bias))).numpy()
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(old[:1], want[:1], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(old[1:], want[1:], rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -667,25 +723,41 @@ HOPPER_ROUTES = {
                           ("sm90", "attention_rowblock")),
     "flux1536_flash": ("fused", (1, 9728, 24, 128), 9728, "bf16", None,
                        ("sm90", "attention_flash")),
-    "flux256_exact_k1": ("fused", (4, 768, 24, 128), 768, "bf16", None, ("mma", 0)),
+    "flux256_exact_k1": ("fused", (4, 768, 24, 128), 768, "bf16", None,
+                         ("sm90", "attention")),
+    "pixart256_exact_k1_d72": ("fused", (16, 256, 16, 72), 256, "bf16", None,
+                               ("sm90", "attention")),
+    "pixart1024_clamp_k4_d72": ("fused", (4, 4096, 16, 72), 4096, "bf16", None,
+                                ("sm90", "attention_long")),
+    "exact_ragged_d72": ("fused", (2, 30, 2, 72), 300, "bf16", None, ("sm90", "attention")),
+    "exact_key_padding_k2": ("fused", (16, 256, 16, 72), 120, "bf16", "padding", ("mma", 0)),
+    "exact_key_padding_d128": ("fused", (2, 30, 2, 128), 300, "bf16", "padding", ("mma", 0)),
+    "exact_fp32_d72": ("fused", (2, 30, 2, 72), 300, "fp32", None, ("mma", 0)),
+    "exact_d64": ("fused", (2, 30, 2, 64), 300, "bf16", None, ("mma", 0)),
+    "transposed_key_padding": ("transposed", (4, 4096, 16, 72), 120, "bf16", "padding",
+                               ("mma", 1)),
+    "transposed_fp32": ("transposed", (2, 30, 2, 72), 300, "fp32", None, ("mma", 1)),
+    "transposed_d36": ("transposed", (2, 30, 2, 36), 300, "bf16", None, ("mma", 1)),
     "rowblock_key_padding": ("rowblock", (2, 30, 2, 128), 300, "bf16", "padding", ("mma", 2)),
     "flash_key_padding": ("flash", (2, 30, 2, 128), 300, "bf16", "padding", ("mma", 3)),
     "rowblock_fp32": ("rowblock", (2, 30, 2, 128), 300, "fp32", None, ("mma", 2)),
     "flash_fp32": ("flash", (2, 30, 2, 128), 300, "fp32", None, ("mma", 3)),
     "flash_d72": ("flash", (2, 30, 2, 72), 300, "bf16", None, ("mma", 3)),
     "rowblock_d64": ("rowblock", (2, 30, 2, 64), 300, "bf16", None, ("mma", 2)),
-    "transposed_d72": ("transposed", (2, 30, 2, 72), 300, "bf16", None, ("mma", 1)),
+    "transposed_d72": ("transposed", (2, 30, 2, 72), 300, "bf16", None,
+                       ("sm90", "attention_long")),
     "pixart2048_flash_d72": ("fused", (2, 16384, 16, 72), 16384, "bf16", None, ("mma", 3)),
 }
 
 
 @pytest.mark.parametrize("name", sorted(HOPPER_ROUTES))
 def test_hopper_body_routing(name, monkeypatch):
-    """bf16 calls at head dim 128 without a bias on the row-block (K5) and
-    streaming (K6) routes launch the Hopper body; every other call keeps
-    its csrc/attention.cu variant. Tensors on the meta device reach the
-    launch decision without a card; the launchers are replaced by
-    recorders."""
+    """bf16 calls without a bias at head dim 72 or 128 on the single-tile
+    exact (K1) and transposed clamp (K4) routes, and at 128 on the
+    row-block (K5) and streaming (K6) routes, launch the Hopper body; every
+    other call — a bias, fp32, another head dim, K6 at D=72 — keeps its
+    csrc/attention.cu variant. Tensors on the meta device reach the launch
+    decision without a card; the launchers are replaced by recorders."""
     wrapper, shape, tk, dtype, bias_kind, want = HOPPER_ROUTES[name]
     calls = []
     monkeypatch.setattr(port_attention, "_launch_sm90",
@@ -717,28 +789,70 @@ def test_tma_operand_arguments():
     assert port_attention.tma_operand(heads, "v")[:7] == [128, 3, 64, 2, 256, 1536, 64 * 1536]
 
 
+def test_tma_operand_arguments_at_d72():
+    """At D=72 the map's dims are {72, H, T, B} with 144-byte rows and the
+    same box {64, 1, 128, 1}: a tile is two 64-column boxes, the second
+    zero-filled past column 72. A slice of two heads keeps its strides."""
+    x = torch.zeros(4, 4096, 16, 72, dtype=torch.bfloat16)
+    assert port_attention.tma_operand(x, "q") == [
+        72, 16, 4096, 4, 144, 16 * 144, 4096 * 16 * 144, 64, 1, 128, 1]
+    one = torch.zeros(1, 256, 1, 72, dtype=torch.bfloat16)
+    assert port_attention.tma_operand(one, "k") == [
+        72, 1, 256, 1, 144, 144, 256 * 144, 64, 1, 128, 1]
+    pair = x[:, :, 2:4]
+    assert pair.data_ptr() % 16 == 0
+    assert port_attention.tma_operand(pair, "v")[:7] == [72, 2, 4096, 4, 144, 16 * 144,
+                                                         4096 * 16 * 144]
+
+
+@pytest.mark.parametrize("d", [64, 80, 96])
+def test_tma_operand_refuses_other_head_dims(d):
+    with pytest.raises(ValueError, match="head dim 72 or 128"):
+        port_attention.tma_operand(torch.zeros(1, 8, 1, d, dtype=torch.bfloat16), "q")
+
+
+def test_pixart_attention_operands_map_at_d72():
+    """PixArt's Attention views its separate q, k, v projections as (B, T,
+    H, 72) (models/common.py): each maps, and the self-attention call it
+    makes on the 256² shape takes the Hopper body's exact kernel."""
+    from ecad_tpu_torch.models.common import Attention
+
+    attn = Attention(1152, 16, 72, torch.bfloat16)
+    x = torch.randn(2, 256, 1152, dtype=torch.bfloat16)
+    q = attn.to_q(x).view(2, 256, 16, 72)
+    k, v = attn.kv(x)
+    maps = [port_attention.tma_operand(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
+    assert all(m == [72, 16, 256, 2, 144, 2304, 256 * 2304, 64, 1, 128, 1] for m in maps)
+    assert port_attention._takes_sm90("attention", q, None)
+
+
+@pytest.mark.parametrize("d", [128, 72])
 @pytest.mark.parametrize("fault", ["base_off_16_bytes", "row_stride_264_bytes",
                                    "head_dim_not_contiguous"])
-def test_hopper_body_refuses_what_tma_cannot_map(fault, monkeypatch):
-    """A bf16 D=128 call whose base or strides TMA cannot take raises,
-    through the row-block and streaming wrappers alike; it is not sent to
-    the csrc/attention.cu body instead."""
+def test_hopper_body_refuses_what_tma_cannot_map(fault, d, monkeypatch):
+    """A bf16 call for the Hopper body whose base or strides TMA cannot
+    take raises — at D=128 through the single-tile, transposed, row-block
+    and streaming wrappers, at D=72 through the first two; it is not sent
+    to the csrc/attention.cu body instead."""
     if fault == "base_off_16_bytes":
-        bad = torch.zeros(2 * 64 * 2 * 128 + 1, dtype=torch.bfloat16)[1:].view(2, 64, 2, 128)
+        bad = torch.zeros(2 * 64 * 2 * d + 1, dtype=torch.bfloat16)[1:].view(2, 64, 2, d)
     elif fault == "row_stride_264_bytes":  # 132 elements per head row
-        bad = torch.zeros(2, 64, 2, 132, dtype=torch.bfloat16)[..., :128]
+        bad = torch.zeros(2, 64, 2, 132, dtype=torch.bfloat16)[..., :d]
     else:
-        bad = torch.zeros(2, 64, 128, 2, dtype=torch.bfloat16).transpose(2, 3)
+        bad = torch.zeros(2, 64, d, 2, dtype=torch.bfloat16).transpose(2, 3)
     with pytest.raises(ValueError, match="TMA|contiguous"):
         port_attention.tma_operand(bad, "q")
     monkeypatch.setattr(port_attention, "_launch",
                         lambda *a, **kw: pytest.fail("fell back to attention.cu"))
-    good = torch.empty(2, 64, 2, 128, dtype=torch.bfloat16, device="meta")
+    good = torch.empty(2, 64, 2, d, dtype=torch.bfloat16, device="meta")
     meta_bad = torch.empty_strided(bad.shape, bad.stride(), dtype=torch.bfloat16,
                                    device="meta")
     if fault == "base_off_16_bytes":  # a meta view keeps the 2-byte offset
         meta_bad = torch.empty(bad.numel() + 1, dtype=torch.bfloat16,
                                device="meta")[1:].view(bad.shape)
-    for fn in (rowblock_attention, flash_attention):
+    wrappers = [fused_attention, transposed_attention]
+    if d == 128:
+        wrappers += [rowblock_attention, flash_attention]
+    for fn in wrappers:
         with pytest.raises(ValueError, match="TMA|contiguous"):
             fn(good, meta_bad, good)
