@@ -26,19 +26,24 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    TestFlashAttention shapes (fp32 and bf16, and at q×1e4 and logits ×6),
    in bf16 at a tolerance derived from its measured error
    (`flash_bf16_tol`), shown to reject a plain version that drops or
-   repeats one 64-key tile at 16384 keys and one 128-key tile at 9728; the
-   plain versions of K6 run per (batch·head) slice, since the fp32 scores
-   of the served shape would take 34 GB. bf16 calls without a bias run on
-   the Hopper body (``csrc/attention_sm90.cu``: wgmma fed by TMA) — K1 and
-   K4 at head dims 72 and 128, K5 and K6 at 128 — and are held against
-   their plain versions at ragged shapes (tq=30, tk=300 at d=72 and d=128),
-   logits near ±40 (log2) and q×1e4, and shown to reject a plain version
-   that drops or repeats one 128-key tile (the body's step) at 768 (K1),
-   4096 (K4), 4608 (K5) and 9728 (K6) keys; a call whose operands TMA
-   cannot map raises there. The rest run on ``csrc/attention.cu``, whose
-   exact kernels (K2, K6 with a bias, fp32) are also held against the
-   plain versions in rows whose every key has a bias of −1e9 or −2e9,
-   where the reference's pad keys take their share. Time kernel (with the
+   repeats one 64-key tile at 16384 keys and one 128-key tile at 16384 and
+   9728; the plain versions of K6 run per (batch·head) slice, since the
+   fp32 scores of the served shape would take 34 GB. bf16 calls without a
+   bias run on the Hopper body (``csrc/attention_sm90.cu``: wgmma fed by
+   TMA) — K1, K4 and K6 at head dims 72 and 128, K5 at 128 — and so do bf16
+   calls with a key-padding bias on the single-tile route (K2, at 72 and
+   128); they are held against their plain versions at ragged shapes
+   (tq=30, tk=300 at d=72 and d=128; K6 also at 1600 keys, two of the
+   reference's 1536-key blocks; K2 with key-padding lengths [100, 200,
+   256]), logits near ±40 (log2) and q×1e4, and shown to reject a plain
+   version that drops or repeats one 128-key tile (the body's step) at 768
+   (K1), 4096 (K4), 4608 (K5), 9728 and 16384 (K6) keys; a call whose
+   operands TMA cannot map, or whose bias the body does not read (fp16),
+   raises there. The rest run on ``csrc/attention.cu``. The exact kernels
+   of both (K2 in bf16 on the Hopper body and in fp32 on attention.cu, K6
+   with a bias) are also held against the plain versions in rows whose
+   every key has a bias of −1e9 or −2e9, where the reference's pad keys
+   take their share. Time kernel (with the
    SM clock, power and temperature sampled before and after), plain
    version and (attention) one ``scaled_dot_product_attention`` call as a
    yardstick the port never calls.
@@ -354,14 +359,35 @@ def attention_cases() -> None:
             case(f"one_key_tile_tq200_tk120_d{d}",
                  rnd(3, 200, 2, d, dtype=dtype), rnd(3, 120, 2, d, dtype=dtype),
                  rnd(3, 120, 2, d, dtype=dtype))
+            # K2: the same with a key-padding bias (on the Hopper body in
+            # bf16), per batch with lengths [100, 200, 256]
+            case(f"key_padding_100_200_256_tq30_tk300_d{d}",
+                 rnd(3, 30, 2, d, dtype=dtype), rnd(3, 300, 2, d, dtype=dtype),
+                 rnd(3, 300, 2, d, dtype=dtype), key_padding_bias([100, 200, 256], 300, -1e9))
+            case(f"key_padding_logits_near_40_d{d}",
+                 rnd(1, 16, 1, d, dtype=dtype, scale=6.0), rnd(1, 256, 1, d, dtype=dtype),
+                 rnd(1, 256, 1, d, dtype=dtype), key_padding_bias([200], 256, -1e4))
+            hot = fused_attention(rnd(1, 128, 1, d, dtype=dtype, scale=1e4),
+                                  rnd(1, 256, 1, d, dtype=dtype), rnd(1, 256, 1, d, dtype=dtype),
+                                  key_padding_bias([200], 256, -1e4))
+            if not torch.isfinite(hot.float()).all():
+                raise AssertionError(f"attention_bias/{tag}: q×1e4 gave non-finite output"
+                                     f" at d={d}")
         # rows whose every key has a bias of −1e9 (the reference's output
-        # there is Σv/Tk_pad) or −2e9 (0), beside a ragged row: K2 and K6's
-        # bias variant, against the repaired plain versions
+        # there is Σv/Tk_pad) or −2e9 (0), beside a ragged row: K2 (at d=72
+        # on the Hopper body in bf16, on attention.cu in fp32 and at d=64)
+        # and K6's bias variant, against the repaired plain versions
+        from ecad_tpu_torch.ops.attention import _takes_sm90
+
         for fill in (-1e9, -2e9):
-            qm, km, vm = (rnd(2, 8, 2, 64, dtype=dtype), rnd(2, 300, 2, 64, dtype=dtype),
-                          rnd(2, 300, 2, 64, dtype=dtype))
-            bias_m = key_padding_bias([0, 280], 300, fill)
-            case(f"every_key_biased_{fill:g}", qm, km, vm, bias_m)
+            for d in (64, 72):
+                qm, km, vm = (rnd(2, 8, 2, d, dtype=dtype), rnd(2, 300, 2, d, dtype=dtype),
+                              rnd(2, 300, 2, d, dtype=dtype))
+                bias_m = key_padding_bias([0, 280], 300, fill)
+                if _takes_sm90("attention", qm, bias_m) != (dtype == torch.bfloat16 and d == 72):
+                    raise AssertionError(f"every_key_biased_{fill:g} at d={d}: wrong body")
+                case(f"every_key_biased_{fill:g}" + ("" if d == 64 else f"_d{d}"),
+                     qm, km, vm, bias_m)
             compare(f"attention_flash_bias/{tag}/every_key_biased_{fill:g}",
                     flash_attention(qm, km, vm, bias_m),
                     flash_attention_reference(qm, km, vm, bias_m), tol)
@@ -386,13 +412,19 @@ def attention_cases() -> None:
         wide = rnd(2, 64, 3, 80, dtype=dtype)
         misaligned = (wide[..., 1:73], wide[..., 3:75], wide[..., 5:77])
         if dtype == torch.bfloat16:
-            # the Hopper body refuses what TMA cannot map; with a bias the
-            # call takes attention.cu's element-wise loads
+            # the Hopper body refuses what TMA cannot map, with or without
+            # K2's bias, and a bias it does not read; none of them is sent
+            # to attention.cu
             refused("attention/bf16/misaligned_rows_d72", fused_attention, *misaligned)
+            refused("attention_bias/bf16/misaligned_rows_d72_key_padding", fused_attention,
+                    *misaligned, key_padding_bias([64, 50], 64, -1e9))
             refused("attention_long/bf16/misaligned_rows_d72", transposed_attention,
                     *misaligned)
-            case("misaligned_rows_d72_key_padding", *misaligned,
-                 key_padding_bias([64, 50], 64, -1e9))
+            refused("attention_flash/bf16/misaligned_rows_d72", flash_attention, *misaligned)
+            refused("attention_bias/bf16/fp16_bias", fused_attention,
+                    rnd(2, 16, 2, 72, dtype=dtype), rnd(2, 120, 2, 72, dtype=dtype),
+                    rnd(2, 120, 2, 72, dtype=dtype),
+                    key_padding_bias([7, 60], 120, -1e4, torch.float16))
         else:
             case("misaligned_rows_d72", *misaligned)
         case("logits_near_40",
@@ -495,6 +527,12 @@ def attention_cases() -> None:
         for d in (72, 128):
             flash_case(f"q_times_1e4_d{d}", rnd(1, 32, 1, d, dtype=dtype, scale=1e4),
                        rnd(1, 256, 1, d, dtype=dtype), rnd(1, 256, 1, d, dtype=dtype))
+            flash_case(f"ragged_tq30_tk300_d{d}", rnd(2, 30, 2, d, dtype=dtype),
+                       rnd(2, 300, 2, d, dtype=dtype), rnd(2, 300, 2, d, dtype=dtype))
+        # two of the reference's 1536-key blocks: 1600 keys pad to 3072 (n_pad
+        # 1472), whose pad keys the body's epilogue adds
+        flash_case("two_key_blocks_tk1600_d72", rnd(2, 48, 2, 72, dtype=dtype),
+                   rnd(2, 1600, 2, 72, dtype=dtype), rnd(2, 1600, 2, 72, dtype=dtype))
         flash_case("logits_times_6_d128", rnd(1, 16, 1, 128, dtype=dtype, scale=6.0),
                    rnd(1, 256, 1, 128, dtype=dtype), rnd(1, 256, 1, 128, dtype=dtype))
 
@@ -563,7 +601,7 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
     kct, vct = (a.transpose(1, 2).contiguous() for a in (kc, vc))
     o = torch.empty_like(q)
     b1, by1 = bound(nbytes(q, k, v, o), 4 * b2 * h * t * t * d)
-    b2_ms, by2 = bound(nbytes(q, kc, vc, o, bias.float()), 4 * b2 * h * t * l * d)
+    b2_ms, by2 = bound(nbytes(q, kc, vc, o, bias), 4 * b2 * h * t * l * d)
     b3, by3 = bound(nbytes(x, x, scale, shift), 8 * x.numel())
     rows = [
         dict(name="attention", route="cuda",
@@ -577,7 +615,7 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
              library_ms=timed_ms("attention/sdpa",
                                  lambda: F.scaled_dot_product_attention(qt, kt, vt))),
         dict(name="attention_bias", route="cuda",
-             source="ecad_tpu_torch/csrc/attention.cu",
+             source="ecad_tpu_torch/csrc/attention_sm90.cu",
              replaces="ecad_tpu/ops/attention.py:75 (_attn_kernel_bias)",
              max_abs_err=err2,
              ms=timed_ms("attention_bias", lambda: fused_attention(q, kc, vc, bias),
@@ -828,7 +866,8 @@ def flash_kernel_rows(rnd, bound, nbytes) -> list[dict]:
     128), both reached through the router, and in its key-padding variant
     at the first shape with per-batch lengths; each checked against its
     plain version (run per slice) with `flash_bf16_tol`, which the run shows
-    rejects a plain version that drops or repeats one 64-key tile of the
+    rejects a plain version that drops or repeats one 64-key tile (the
+    mma.sync body's step) or one 128-key tile (the Hopper body's) of the
     16384; timed against the plain version, one
     ``scaled_dot_product_attention`` call and its bound."""
     import torch.nn.functional as F
@@ -861,13 +900,15 @@ def flash_kernel_rows(rnd, bound, nbytes) -> list[dict]:
     REPORT["flash_out_std"] = float(want.float().std())
     err = compare(f"attention_flash/bf16/pixart2048_self_{2 * BATCH_2048}x16384x16x72",
                   got, want, flash_bf16_tol)
-    # the same check must fail a kernel that skips or repeats one 64-key tile
-    rejects("pixart2048_drops_key_tile_1",
-            plain(q, torch.cat((k[:, :64], k[:, 128:]), 1), torch.cat((v[:, :64], v[:, 128:]), 1)),
-            want, flash_bf16_tol)
-    rejects("pixart2048_repeats_key_tile_1",
-            plain(q, torch.cat((k[:, :128], k[:, 64:]), 1), torch.cat((v[:, :128], v[:, 64:]), 1)),
-            want, flash_bf16_tol)
+    # the same check must fail a kernel that skips or repeats one key tile:
+    # 64 keys (the mma.sync body's step) or 128 (the Hopper body's)
+    for n, tag in ((64, ""), (128, "128_")):
+        rejects(f"pixart2048_drops_{tag}key_tile_1",
+                plain(q, torch.cat((k[:, :n], k[:, 2 * n:]), 1),
+                      torch.cat((v[:, :n], v[:, 2 * n:]), 1)), want, flash_bf16_tol)
+        rejects(f"pixart2048_repeats_{tag}key_tile_1",
+                plain(q, torch.cat((k[:, :2 * n], k[:, n:]), 1),
+                      torch.cat((v[:, :2 * n], v[:, n:]), 1)), want, flash_bf16_tol)
     del want, got
     err_b = compare("attention_flash_bias/bf16/pixart2048_key_padding_15384_9000",
                     got_bias, plain(q, k, v, bias), flash_bf16_tol)
@@ -900,9 +941,9 @@ def flash_kernel_rows(rnd, bound, nbytes) -> list[dict]:
     ):
         rows.append(dict(
             name=name, **common, max_abs_err=max_err,
-            # bf16 at D=128 without a bias runs on the Hopper body
-            source="ecad_tpu_torch/csrc/attention_sm90.cu" if name == "attention_flash_d128"
-            else "ecad_tpu_torch/csrc/attention.cu",
+            # bf16 without a bias runs on the Hopper body
+            source="ecad_tpu_torch/csrc/attention.cu" if name == "attention_flash_bias"
+            else "ecad_tpu_torch/csrc/attention_sm90.cu",
             ms=timed_ms(name, lambda: fused_attention(*args), reps=5, inner=5, clocks=True),
             plain_ms=timed_ms(f"{name}/plain", lambda: plain(*args), reps=3, inner=2),
             bound_ms=bnd, bound_by=by,
@@ -1112,13 +1153,15 @@ ATTENTION_KERNELS = {
 }
 # the device kernel under each attention family of a served path's profile:
 # bf16 self-attention without a bias runs on the Hopper body
-# (csrc/attention_sm90.cu) at 256² and 1024², and at every FLUX side;
-# cross-attention (a text bias) and PixArt-2048's K6 at D=72 on attention.cu
+# (csrc/attention_sm90.cu) at every side, and so does PixArt-256's
+# cross-attention with its text bias (K2); the cross-attention of the clamp
+# route (K4 with a bias, 1024² and 2048²) on attention.cu
 SERVED_KERNELS = {
-    "pixart256": {"attention": "attn_exact_sm90_kernel", "attention_bias": "attn_bf16_kernel"},
+    "pixart256": {"attention": "attn_exact_sm90_kernel",
+                  "attention_bias": "attn_exact_sm90_kernel"},
     "pixart1024": {"attention_long": "attn_clamp_sm90_kernel",
                    "attention_long_bias": "attn_clamp_bf16_kernel"},
-    "pixart2048": {"attention_flash": "attn_flash_bf16_kernel",
+    "pixart2048": {"attention_flash": "attn_flash_sm90_kernel",
                    "attention_long_bias": "attn_clamp_bf16_kernel"},
     "flux256": {"attention": "attn_exact_sm90_kernel"},
     "flux1024": {"attention_rowblock": "attn_rowblock_sm90_kernel"},

@@ -48,10 +48,10 @@
 //     a row whose every logit is clamped at −100 (an all-masked text row)
 //     the weights are then 1/Tk_pad, as the reference's. (X4's FD mode
 //     does not: the reference's `*_fd` bodies mask their pad keys.) The
-//     bf16 calls without a bias run on the Hopper body of attention_sm90.cu
-//     instead: K1 and K4 at D=72 and 128, K5 and K6 at D=128. Here remain
-//     every call with a bias (K2, K4, K5 and K6 with one), fp32, the other
-//     head dims and K6 at D=72, and the harness's variants.
+//     bf16 calls at D=72 and 128 run on the Hopper body of attention_sm90.cu
+//     instead — without a bias K1, K4 and K6 (and K5 at 128), with a
+//     key-padding bias K2. Here remain K4, K5 and K6 with a bias, dense
+//     biases, fp32, the other head dims, and the harness's variants.
 //
 // What bounds it on the H100. Exact path, at PixArt-256's shapes
 // (self-attention 256×256 and cross-attention 256→120, D=72, bf16): a

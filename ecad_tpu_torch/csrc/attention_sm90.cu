@@ -1,34 +1,46 @@
 // Attention forward for Hopper (sm_90a): wgmma fed by TMA through
 // mbarriers, with a producer warpgroup and two consumer warpgroups. bf16 q,
 // k, v of shape (B, T, H, D), D = 72 or 128 (a template argument), in any
-// 16-byte-aligned strides, no bias, in two softmax modes (a template
-// argument, as in attention.cu) under four kernel names, one per route:
+// 16-byte-aligned strides, in two softmax modes (a template argument, as in
+// attention.cu) under four kernel names, one per route; the exact
+// single-tile kernel also takes a key-padding bias (a template flag):
 //
 //   * exact:
 //     - `attn_flash_sm90_kernel` (K6) replaces the streaming kernel
 //       `_flash_kernel` (ecad_tpu/ops/attention.py:151-197, launched by
-//       `_flash_attention` :638) at D=128 — FLUX.1-dev at 1536², whose
-//       9216 image + 512 text = 9728 joint tokens take the streaming route;
-//     - `attn_exact_sm90_kernel` (K1) replaces the single-tile kernel
-//       `_attn_kernel` (:58, launched :746) at D=128 and D=72 — FLUX.1-dev's
-//       joint attention at 256² (4, 768, 24, 128) and PixArt's
-//       self-attention at 256² (2B, 256, 16, 72).
+//       `_flash_attention` :638) at D=128 and D=72 — FLUX.1-dev at 1536²,
+//       whose 9216 image + 512 text = 9728 joint tokens take the streaming
+//       route, and PixArt-Σ's self-attention at 2048² (2B, 16384, 16, 72);
+//     - `attn_exact_sm90_kernel<D, false>` (K1) replaces the single-tile
+//       kernel `_attn_kernel` (:58, launched :746) at D=128 and D=72 —
+//       FLUX.1-dev's joint attention at 256² (4, 768, 24, 128) and PixArt's
+//       self-attention at 256² (2B, 256, 16, 72);
+//     - `attn_exact_sm90_kernel<D, true>` (K2) replaces `_attn_kernel_bias`
+//       (:75, launched :781) for a key-padding bias (B|1, 1, 1, Tk), bf16 or
+//       fp32 — PixArt's text cross-attention at 256² (2B, 256, 16, 72) →
+//       120 keys, whose bias is bf16 0 or −9984.
 //     s = q·kᵀ in fp32 from bf16 operands, times 1/√D on the fp32 score (q
 //     is not pre-scaled), an online max and sum in fp32 in the log2 domain
-//     (the max taken on the raw scores, then p = exp2(s·c − m·c) with c =
-//     scale·log2e in one FFMA), p rounded to bf16 for p·v against the
-//     running max of its 128-key tile, Σp over the unrounded fp32 p, one
-//     divide, one cast. (The reference K1 keeps p in fp32 for p·v; the
-//     tolerance of chip_smoke.py's checks covers the rounding.) Keys past
-//     Tk get −∞ before the max (by bounds). The Pallas wrappers pad them
-//     instead with n_pad keys of score −1e9 whose rows of v are 0 (n_pad
-//     the route's: round_up(Tk, 128) − Tk on the single-tile route,
-//     round_up(Tk, bk) − Tk with bk = min(1536, round_up(Tk, 128)) on the
-//     streaming one); they weigh exactly 0 unless every score of a row is
-//     near −1e9 or below it, which needs a caller bias, and this body takes
-//     none. The epilogue adds them all the same, as attention.cu's exact
-//     epilogue does (m' = max(m, −1e9), the sums rescaled by exp(m − m'),
-//     n_pad·exp(−1e9 − m') added to Σp): a few instructions a row.
+//     (without a bias the max taken on the raw scores, then p = exp2(s·c −
+//     m·c) with c = scale·log2e in one FFMA; with one s₂ = s·c + bias·log2e
+//     in one FFMA, the max taken on s₂, p = exp2(s₂ − m₂)), p rounded to
+//     bf16 for p·v against the running max of its 128-key tile, Σp over the
+//     unrounded fp32 p, one divide, one cast. (The reference K1, K2 keep p
+//     in fp32 for p·v; the tolerance of chip_smoke.py's checks covers the
+//     rounding.) Keys past Tk get −∞ before the max (by bounds; with a bias,
+//     through the bias). The Pallas wrappers pad them instead with n_pad
+//     keys of score −1e9 whose rows of v are 0 (n_pad the route's:
+//     round_up(Tk, 128) − Tk on the single-tile route, round_up(Tk, bk) − Tk
+//     with bk = min(1536, round_up(Tk, 128)) on the streaming one); they
+//     weigh exactly 0 unless every score of a row is near −1e9 or below it,
+//     which needs a caller bias: K2 meets it. The epilogue adds them, as
+//     attention.cu's exact epilogue does (m' = max(m, −1e9), the sums
+//     rescaled by exp(m − m'), n_pad·exp(−1e9 − m') added to Σp): a few
+//     instructions a row. In a row whose every key has a bias of −1e9, s₂
+//     rounds to fp32(−1e9·log2e) for every real key while |s·c| < 64 (half
+//     an ulp there), the same value as the pad keys' −1e9·log2e, as the
+//     reference's s·scale − 1e9 rounds to −1e9 while |s·scale| < 32: the
+//     output is Σv/(Tk + n_pad) on both sides, and 0 below −1e9.
 //   * clamp:
 //     - `attn_rowblock_sm90_kernel` (K5) replaces the row-block kernel
 //       `_rowblock_kernel_nobias` (:274, launched :534) at D=128 — FLUX.1-dev
@@ -48,10 +60,12 @@
 // Tq·Tk·D = 2.61e11 flops on the 113 MB of q, k, v and o, 2300 flops per
 // byte, far above the ≈295 where bf16 tensor cores become the limit: 0.264
 // ms at 989 TFLOP/s. K6 at FLUX-1536 (1, 9728, 24, 128): 1.16e12 flops on
-// 239 MB, 1.18 ms. K4 at PixArt-1024 (4, 4096, 16, 72): 3.09e11 flops on
+// 239 MB, 1.18 ms. K6 at PixArt-2048 (2, 16384, 16, 72): 2.47e12 flops on
+// 302 MB, 2.50 ms. K4 at PixArt-1024 (4, 4096, 16, 72): 3.09e11 flops on
 // 151 MB, 0.313 ms. K1 at FLUX-256 (4, 768, 24, 128): 2.9e10 flops on 38
 // MB, 0.029 ms by operations; at PixArt-256 (16, 256, 16, 72): 4.8e9 flops
-// on 38 MB, 0.011 ms by bytes. So the tensor cores bound all but the last,
+// on 38 MB, 0.011 ms by bytes; K2 there, 256 → 120 keys: 2.3e9 flops on 28
+// MB, 0.008 ms by bytes. So the tensor cores bound all but the last two,
 // and the exp2s come second: one per score, 5.1e8 at FLUX-1024, which at
 // 16 a clock per SM (≈1.75 GHz, 132 SMs) take ≈0.14 ms of the
 // special-function units — half the tensor-core bound at D=128, and nearer
@@ -63,8 +77,9 @@
 //     three warpgroups (384 threads): a producer, which gives its
 //     registers away (`setmaxnreg.dec` to 40) and issues every TMA load
 //     from one thread, and two consumers of 64 query rows each
-//     (`setmaxnreg.inc` to 232). A work item is one (batch·head, 128-row
-//     query tile). Each consumer runs s = q·kᵀ as `wgmma.mma_async`
+//     (`setmaxnreg.inc` to 232); K6 at D=72 has three consumers (512
+//     threads, 24 and 160 registers; see below). A work item is one
+//     (batch·head, 64·consumers-row query tile). Each consumer runs s = q·kᵀ as `wgmma.mma_async`
 //     m64n128k16 (eight k-steps at D=128, five at D=72) with q and k from
 //     shared memory, the softmax in registers on the accumulator layout
 //     (row reductions over the quad, as attention.cu does), and o += p·v
@@ -80,8 +95,9 @@
 //     three at D=72), each with a full barrier (the producer's expected
 //     bytes) and an empty barrier (all 256 consumer threads arrive once
 //     they are done with it), so the next tiles' copies run under this
-//     tile's products. 192 KB of shared memory at D=128, 160 KB at D=72;
-//     the registers allow one block per SM either way.
+//     tile's products. 192 KB of shared memory at D=128, 160 KB at D=72
+//     (180 KB with three consumers); the registers allow one block per SM
+//     either way.
 //   * At D=72 the loads are the limit, not the products: with a row
 //     loaded as two 64-column boxes (the body's first form at D=72) the
 //     second box is 56 columns of zero-fill, and TMA took as long over it
@@ -95,6 +111,18 @@
 //     computes tile j's softmax while the second runs on the tensor
 //     cores; the two consumer warpgroups drift against each other and
 //     fill each other's gaps as well.
+//   * At D=72 that is not enough for K6's 128 key tiles an item: a tile's
+//     p·v is short (72 columns), so the chain of one consumer's softmax
+//     (max, shuffles, exp2s, sums, the bf16 pack) outlasts what the other
+//     consumer gives the tensor cores: on two consumers, taking out the
+//     softmax moved K6-D72 far more than taking out its k/v loads or its
+//     exp2s, or turns of the consumers at the tensor cores (named
+//     barriers) did (scripts/probe_attention_body.py times such variants
+//     on the card). So K6 at D=72 runs three consumers (192 query
+//     rows an item, as FlashAttention-3 does at head dims up to 96): a
+//     third independent chain for the tensor cores, and each k/v tile
+//     serves 1.5 times the rows. Its registers fit 160 a thread (s, o and
+//     p take 132); q's tile is 192 rows (a 24 KB box, a 3 KB tail).
 //   * Short key counts (K1: 6 key tiles at FLUX-256, 2 at PixArt-256) leave
 //     the q load, the ring's fill and drain and the o store in the open
 //     when a block owns one item. So a block walks the items from
@@ -105,6 +133,23 @@
 //     loads the next item's q and first k/v tiles while the consumers work
 //     on this one. The other kernels launch one block per item (a grid of
 //     items), as before.
+//   * The bias (K2) is read once per key, not once per score: a consumer
+//     thread holds the same 32 columns of a key tile for both of its rows,
+//     so it reads those 32 values once per tile through the read-only path,
+//     in the bias's own dtype (bf16 widens exactly), and turns them into
+//     bias·log2e (−∞ past Tk) once the tile's scores are there; the
+//     softmax folds them into the FFMA it does anyway. The 32 loads have no
+//     branch between them (past Tk the index is clamped) and at D=72 are
+//     issued one tile ahead — right after the softmax of the tile before,
+//     or of the item before — so their latency hides under p·v, the
+//     epilogue and the next q's wait (with a branch per load, their
+//     latencies added up, and they were K2's loss to K1). At D=128 they
+//     start with the tile they serve: 32 more live registers would spill
+//     there.
+//     Plain loads: the bias needs no alignment beyond its element's and
+//     takes any batch and key stride (0 where it broadcasts), so a bias
+//     TMA could not map (an odd Tk with a batch stride) runs on this body
+//     all the same.
 //
 // Where trouble was met, and what the code does about it:
 //   1. The tensor map comes from the driver API (`cuTensorMapEncodeTiled`);
@@ -132,7 +177,9 @@
 //     second core matrix along K — columns 72-79 — in a 2 KB zero region
 //     after the tail, stored once when the block starts; p·v's m64n8k16
 //     reads it MN-major (8-key groups 128 bytes apart). TMA counts the
-//     bytes of rows past T toward the barrier too.
+//     bytes of rows past T toward the barrier too. q's boxes take the work
+//     item's rows (128, or 192 for K6 at D=72), which the C entry sets in
+//     q's maps; the wrapper's box arguments are those of k and v.
 //   4. K4's and K5's pre-scaled q is rounded to bf16 before the product:
 //     each consumer scales its own 64 rows of the q tile (and at D=72 of
 //     its tail) in place in shared memory (elementwise, so the swizzle does
@@ -143,7 +190,7 @@
 //   5. Ragged edges: TMA zero-fills the rows past Tq and Tk (and counts
 //     their bytes toward the barrier). Rows past Tq are not stored; keys
 //     past Tk get p = 0 (clamp) or −∞ before the max (exact) by bounds,
-//     in the last key tile only.
+//     in the last key tile only (with a bias, −∞ through the bias).
 //   6. The overlap of exp2 with the products is the intra-warpgroup one
 //     above; the registers of the p operand and of the accumulators are
 //     fenced (an empty asm that reads and writes them) after each
@@ -170,31 +217,43 @@
 
 namespace {
 
-constexpr int kBlockM = 128;  // query rows per work item: two consumers of 64
 constexpr int kBlockN = 128;  // keys per tile
-constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
-constexpr int kConsumerThreads = 256;
-constexpr int kBoxBytes = kBlockN * 64 * 2;  // 16 KB: one 64-column, 128-row TMA box
-constexpr int kTailBytes = kBlockN * 8 * 2;  // 2 KB: D=72's 8-column, 128-row tail box
 constexpr int kQBufs = 2;  // q tiles: the next item's loads while this one runs
 
-// One q, k or v tile of 128 rows in shared memory. D=128: two 64-column
-// boxes under the 128-byte swizzle, 32 KB. D=72: one such box (columns
-// 0-63), the unswizzled tail box (columns 64-71, 16 bytes a row) and 2 KB of
-// zeros after it, which q·kᵀ's fifth k-step reads as columns 72-79: 20 KB,
-// of which TMA writes 18. The ring has kStages stages of k and v: two at
-// D=128 (192 KB with the q buffers), three at D=72 (160 KB), where the
-// loads are the larger share of a tile's time.
+// A tile of `rows` rows (128 keys of k or v; 64 query rows per consumer
+// warpgroup of q) in shared memory. D=128: two 64-column boxes under the
+// 128-byte swizzle, 256 bytes a row. D=72: one such box (columns 0-63), the
+// unswizzled tail box (columns 64-71, 16 bytes a row) and as many zeros
+// after it, which q·kᵀ's fifth k-step reads as columns 72-79: 160 bytes a
+// row, of which TMA writes 144. The ring has kStages stages of k and v: two
+// at D=128 (192 KB with the q buffers), three at D=72 (160 KB with two
+// consumers, 180 KB with three), where the loads are the larger share of a
+// tile's time.
 template <int D>
-struct Tile {
+struct TileOf {
   static_assert(D == 72 || D == 128, "the body is built at head dims 72 and 128");
-  static constexpr int kBytes = D == 128 ? 2 * kBoxBytes : kBoxBytes + 2 * kTailBytes;
-  static constexpr int kLoadBytes = D == 128 ? 2 * kBoxBytes : kBoxBytes + kTailBytes;
-  static constexpr int kStages = D == 128 ? 2 : 3;
-  static constexpr int kBarriers = 2 * kQBufs + 4 * kStages;  // q, k, v: full and empty
-  // the q buffers, the k and v stages, the barriers, and 1024 bytes to align the base
-  static constexpr int kSmemBytes = (kQBufs + 2 * kStages) * kBytes + kBarriers * 8 + 1024;
+  int rows;
+  __host__ __device__ constexpr int box() const { return rows * 128; }  // a 64-column swizzled box
+  __host__ __device__ constexpr int tail() const { return rows * 16; }  // D=72's 8-column tail
+  __host__ __device__ constexpr int bytes() const {
+    return D == 128 ? 2 * box() : box() + 2 * tail();
+  }
+  __host__ __device__ constexpr int load() const { return D == 128 ? 2 * box() : box() + tail(); }
 };
+
+// The shared memory of a block with NC consumer warpgroups (NC·64 query
+// rows a work item): the q buffers, the k and v stages, the barriers (q,
+// k, v: full and empty), and 1024 bytes to align the base.
+template <int D, int NC>
+struct Smem {
+  static constexpr TileOf<D> kQ{64 * NC}, kKV{kBlockN};
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr int kBarriers = 2 * kQBufs + 4 * kStages;
+  static constexpr int kBytes =
+      kQBufs * kQ.bytes() + 2 * kStages * kKV.bytes() + kBarriers * 8 + 1024;
+};
+constexpr int kBoxBytes = TileOf<72>{kBlockN}.box();    // 16 KB: a k or v tile's 64-column box
+constexpr int kTailBytes = TileOf<72>{kBlockN}.tail();  // 2 KB: its 8-column tail at D=72
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kClampLo = -100.f;
 constexpr float kClampHi = 80.f;
@@ -207,8 +266,14 @@ enum Mode : int { kExact = 0, kClamp = 1 };
 struct Params {
   __nv_bfloat16* o;
   long long o_sb, o_st, o_sh;  // element strides of o (B, T, H, D); D has stride 1
+  // the key-padding bias (B|1, 1, 1, Tk) of the exact single-tile kernel's
+  // bias form, bf16 or fp32 (bias_bf16), with its element strides over the
+  // batch and the keys (0 where it broadcasts); null elsewhere
+  const void* bias;
+  long long bias_sb, bias_sk;
+  int bias_bf16;
   int H, Tq, Tk;
-  int n_items;  // (batch·head, 128-row query tile) work items
+  int n_items;  // (batch·head, query tile of 64 rows a consumer) work items
   int n_pad;    // the reference's pad keys on this route (see the note)
   float scale;  // exact: 1/√D; clamp: scale·log2e rounded to bf16
 };
@@ -256,15 +321,15 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// A 128-row bf16 tile at rows `row` of (batch b, head h): two 64-column
-// boxes of `map`, 16 KB apart (D=128), or one and the 8-column box of
-// `tail` at column 64 after it (D=72).
+// A bf16 tile (`tile`'s rows) at rows `row` of (batch b, head h): two
+// 64-column boxes of `map`, one after the other (D=128), or one and the
+// 8-column box of `tail` at column 64 after it (D=72).
 template <int D>
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+__device__ __forceinline__ void tma_tile(uint32_t dst, TileOf<D> tile, const CUtensorMap* map,
                                          const CUtensorMap* tail, uint32_t bar, int h, int row,
                                          int b) {
   tma_load(dst, map, bar, 0, h, row, b);
-  tma_load(dst + kBoxBytes, D == 128 ? map : tail, bar, 64, h, row, b);
+  tma_load(dst + tile.box(), D == 128 ? map : tail, bar, 64, h, row, b);
 }
 
 // --- wgmma ------------------------------------------------------------------
@@ -439,13 +504,76 @@ __device__ __forceinline__ void softmax_exact(float (&s)[64], float (&m)[2], flo
   }
 }
 
-// One key tile's softmax, masked only where the tile passes Tk.
-template <int MODE>
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2], float qk_scale, int k0, int col_t,
-                                             int Tk) {
+// Exact with a key-padding bias: s₂ = s·scale·log2e + bias·log2e in one
+// FFMA (b2 holds bias·log2e, −∞ past Tk), the running max m of s₂ (log2
+// domain), the rescale factor of the earlier tiles (alpha), p = exp2(s₂ −
+// m) in place, Σp into l after rescaling it.
+__device__ __forceinline__ void softmax_exact_bias(float (&s)[64], const float (&b2)[32],
+                                                   float (&m)[2], float (&l)[2],
+                                                   float (&alpha)[2], float qk_scale) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    s[i] = fmaf(s[i], qk_scale, b2[2 * (i >> 2) + (i & 1)]);
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = ex2(m[r] - mx[r]);  // exp2(−∞) = 0 on the first tile
+    m[r] = mx[r];
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int r = (i >> 1) & 1;
+    const float p = ex2(s[i] - mx[r]);
+    s[i] = p;
+    l[r] += p;
+  }
+}
+
+// The bias of this thread's 32 columns of the key tile from column col0
+// (raw[2j + e] for column col0 + 8j + e), read once per key tile through
+// the read-only path in the bias's own dtype: 32 independent loads, all in
+// bounds (past Tk the index is clamped, and `bias_log2` masks the value),
+// with no branch between them, so their latencies overlap.
+__device__ __forceinline__ void load_bias(uint32_t (&raw)[32], const Params& p, int b, int col0) {
+  if (p.bias_bf16) {
+    const unsigned short* row = static_cast<const unsigned short*>(p.bias) + b * p.bias_sb;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      raw[i] = __ldg(row + min(col0 + (i >> 1) * 8 + (i & 1), p.Tk - 1) * p.bias_sk);
+  } else {
+    const unsigned int* row = static_cast<const unsigned int*>(p.bias) + b * p.bias_sb;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      raw[i] = __ldg(row + min(col0 + (i >> 1) * 8 + (i & 1), p.Tk - 1) * p.bias_sk);
+  }
+}
+
+// `load_bias`'s values in the log2 domain: bf16 widened exactly (its bits
+// are an fp32's upper half), times log2e, −∞ past Tk.
+__device__ __forceinline__ void bias_log2(float (&b2)[32], const uint32_t (&raw)[32],
+                                          int bias_bf16, int col0, int Tk) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float x = __uint_as_float(bias_bf16 ? raw[i] << 16 : raw[i]);
+    b2[i] = col0 + (i >> 1) * 8 + (i & 1) < Tk ? x * kLog2e : -INFINITY;
+  }
+}
+
+// One key tile's softmax, masked only where the tile passes Tk (with a
+// bias, through the bias b2).
+template <int MODE, bool BIAS>
+__device__ __forceinline__ void softmax_tile(float (&s)[64], const float (&b2)[BIAS ? 32 : 1],
+                                             float (&m)[2], float (&l)[2], float (&alpha)[2],
+                                             float qk_scale, int k0, int col_t, int Tk) {
   const bool edge = k0 + kBlockN > Tk;
-  if constexpr (MODE == kClamp) {
+  if constexpr (BIAS) {
+    softmax_exact_bias(s, b2, m, l, alpha, qk_scale);
+  } else if constexpr (MODE == kClamp) {
     if (edge) softmax_clamp<true>(s, l, k0 + col_t, Tk);
     else softmax_clamp<false>(s, l, k0 + col_t, Tk);
   } else {
@@ -463,26 +591,32 @@ __device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&p)[8][4]
     for (int i = 0; i < 4; ++i) p[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
 }
 
-// The shared body of every kernel, one work item (batch·head, 128-row
+// The shared body of every kernel, one work item (batch·head, 64·NC-row
 // query tile) after another, from blockIdx.x in steps of gridDim.x; the
 // maps are the kernel's __grid_constant__ parameters (TMA reads them in
 // parameter space).
-template <int D, int MODE>
+template <int D, int MODE, bool BIAS, int NC>
 __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Params& p) {
+  static_assert(!BIAS || MODE == kExact, "the bias is added in the exact mode");
+  static_assert(NC == 2 || NC == 3, "two or three consumer warpgroups");
+  constexpr int kBlockM = 64 * NC;  // query rows per work item
+  constexpr int kConsumerThreads = 128 * NC;
+  // registers a thread: the producer gives its own away, the consumers take
+  // them (128 × (40 + 2 × 232) and 128 × (24 + 3 × 160) ≤ 65536)
+  constexpr int kProducerRegs = NC == 2 ? 40 : 24, kConsumerRegs = NC == 2 ? 232 : 160;
   constexpr int kQkSteps = (D + 15) / 16;  // k16 steps of q·kᵀ: 8 at D=128, 5 at D=72
   constexpr int kAcc = D / 2;             // a thread's fp32 accumulators of o (64 × D)
-  constexpr int kTile = Tile<D>::kBytes;
-  constexpr int kLoad = Tile<D>::kLoadBytes;
-  constexpr int kStages = Tile<D>::kStages;
+  constexpr TileOf<D> kQ = Smem<D, NC>::kQ, kKV = Smem<D, NC>::kKV;
+  constexpr int kStages = Smem<D, NC>::kStages;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows of 128 bytes
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* const gbase = smem_raw + (base - raw);
-  auto q_s = [&](int qb) { return base + qb * kTile; };
-  auto k_s = [&](int s) { return base + (kQBufs + s) * kTile; };
-  auto v_s = [&](int s) { return base + (kQBufs + kStages + s) * kTile; };
-  const uint32_t bars = base + (kQBufs + 2 * kStages) * kTile;
+  auto q_s = [&](int qb) { return base + qb * kQ.bytes(); };
+  auto k_s = [&](int s) { return base + kQBufs * kQ.bytes() + s * kKV.bytes(); };
+  auto v_s = [&](int s) { return k_s(kStages + s); };
+  const uint32_t bars = k_s(2 * kStages);
   auto q_full = [&](int qb) { return bars + 8 * qb; };
   auto q_empty = [&](int qb) { return bars + 8 * (kQBufs + qb); };
   auto k_full = [&](int s) { return bars + 8 * (2 * kQBufs + s); };
@@ -513,7 +647,7 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
     // producer: one thread keeps the q buffers and the ring full; `g` counts
     // the ring's tiles across items, `it` this block's items (item it takes
     // q buffer it % 2)
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == 0) {
       int g = 0, it = 0;
       for (int item = blockIdx.x; item < p.n_items; item += gridDim.x, ++it) {
@@ -521,17 +655,17 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
         const int b = bh / p.H, h = bh % p.H;
         const int qb = it % kQBufs;
         mbar_wait(q_empty(qb), ((it / kQBufs) & 1) ^ 1);  // the first round finds it free
-        mbar_expect_tx(q_full(qb), kLoad);
-        tma_tile<D>(q_s(qb), &maps[0], &maps[3], q_full(qb), h, (item % n_qt) * kBlockM, b);
+        mbar_expect_tx(q_full(qb), kQ.load());
+        tma_tile<D>(q_s(qb), kQ, &maps[0], &maps[3], q_full(qb), h, (item % n_qt) * kBlockM, b);
         for (int j = 0; j < n_tiles; ++j, ++g) {
           const int s = g % kStages;
           const uint32_t free_parity = ((g / kStages) & 1) ^ 1;  // the first round finds it free
           mbar_wait(k_empty(s), free_parity);
-          mbar_expect_tx(k_full(s), kLoad);
-          tma_tile<D>(k_s(s), &maps[1], &maps[4], k_full(s), h, j * kBlockN, b);
+          mbar_expect_tx(k_full(s), kKV.load());
+          tma_tile<D>(k_s(s), kKV, &maps[1], &maps[4], k_full(s), h, j * kBlockN, b);
           mbar_wait(v_empty(s), free_parity);
-          mbar_expect_tx(v_full(s), kLoad);
-          tma_tile<D>(v_s(s), &maps[2], &maps[5], v_full(s), h, j * kBlockN, b);
+          mbar_expect_tx(v_full(s), kKV.load());
+          tma_tile<D>(v_s(s), kKV, &maps[2], &maps[5], v_full(s), h, j * kBlockN, b);
         }
       }
     }
@@ -539,7 +673,7 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
   }
 
   // consumers: warpgroup c owns query rows 64c .. 64c + 63 of each item's tile
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
   const int c = wg - 1;
   const int t = threadIdx.x % 128;
   const int lane = t % 32;
@@ -547,13 +681,14 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
   const int col_t = 2 * (lane % 4);                     // its first column in each 8-column block
 
   // descriptors: q and k K-major (8-row groups 1024 bytes apart in a
-  // swizzled box; at D=72 the fifth k-step reads the tail, 8-row groups 128
-  // bytes apart, and its columns 72-79 from the zeros 2 KB on), v MN-major
-  // (64-column boxes 16 KB apart, 8-key groups 1024 bytes apart; the tail's
-  // 8-key groups 128 bytes apart)
+  // swizzled box, this consumer's 64 rows of q 8 KB on per consumer; at D=72
+  // the fifth k-step reads the tail, 8-row groups 128 bytes apart, and its
+  // columns 72-79 from the zeros one tail on), v MN-major (64-column boxes
+  // 16 KB apart, 8-key groups 1024 bytes apart; the tail's 8-key groups 128
+  // bytes apart)
   auto q_desc = [&](uint32_t q, int kk) {
-    if (D == 72 && kk == 4) return desc_plain(q + kBoxBytes + 1024 * c, kTailBytes, 128);
-    return desc_sw128(q + (kk / 4) * kBoxBytes + 8192 * c + (kk % 4) * 32, 16, 1024);
+    if (D == 72 && kk == 4) return desc_plain(q + kQ.box() + 1024 * c, kQ.tail(), 128);
+    return desc_sw128(q + (kk / 4) * kQ.box() + 8192 * c + (kk % 4) * 32, 16, 1024);
   };
   auto k_desc = [&](int s, int kk) {
     if (D == 72 && kk == 4) return desc_plain(k_s(s) + kBoxBytes, kTailBytes, 128);
@@ -567,18 +702,32 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
       wgmma_rs(o, a, v_desc(s, kk));
   };
   if constexpr (D == 72) {
-    // the zeros after the q and k tails (tiles 0 .. kQBufs + kStages − 1),
-    // stored once (TMA never writes there), ordered before the first wgmma
-    // that reads them
-    constexpr int kChunks = kTailBytes / 16;  // 16-byte chunks of one zero region
-    for (int i = t + 128 * c; i < (kQBufs + kStages) * kChunks; i += kConsumerThreads)
-      *reinterpret_cast<uint4*>(gbase + (i / kChunks) * kTile + kBoxBytes + kTailBytes +
-                                (i % kChunks) * 16) = make_uint4(0u, 0u, 0u, 0u);
+    // the zeros after the tails of the q buffers and the k stages, stored
+    // once (TMA never writes there), ordered before the first wgmma that
+    // reads them
+    auto zero = [&](uint32_t at, int bytes) {
+      for (int i = 16 * (t + 128 * c); i < bytes; i += 16 * kConsumerThreads)
+        *reinterpret_cast<uint4*>(gbase + (at - base) + i) = make_uint4(0u, 0u, 0u, 0u);
+    };
+    for (int qb = 0; qb < kQBufs; ++qb) zero(q_s(qb) + kQ.box() + kQ.tail(), kQ.tail());
+    for (int s = 0; s < kStages; ++s) zero(k_s(s) + kKV.box() + kKV.tail(), kKV.tail());
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("bar.sync 3, 256;\n" ::: "memory");
+    asm volatile("bar.sync %0, %1;\n" ::"n"(1 + NC), "n"(kConsumerThreads) : "memory");
   }
   const float qk_scale = MODE == kExact ? p.scale * kLog2e : 1.f;
 
+  // the bias of this thread's columns of a key tile, as loaded and in the
+  // log2 domain. At D=72 the loads run one tile ahead: the next tile's, or
+  // the next item's first, right after a tile's softmax. At D=128, whose
+  // accumulators take 28 more registers, those 32 would spill: there each
+  // tile's loads start with the tile.
+  constexpr bool kBiasAhead = D == 72;
+  uint32_t braw[BIAS ? 32 : 1];
+  float b2[BIAS ? 32 : 1];
+  auto batch_of = [&](int item) { return item / n_qt / p.H; };
+  if constexpr (BIAS && kBiasAhead) {
+    if ((int)blockIdx.x < p.n_items) load_bias(braw, p, batch_of(blockIdx.x), col_t);
+  }
   int g = 0, it = 0;
   for (int item = blockIdx.x; item < p.n_items; item += gridDim.x, ++it, g += n_tiles) {
     const int bh = item / n_qt;
@@ -590,16 +739,16 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
     mbar_wait(q_full(qb), (it / kQBufs) & 1);
     if constexpr (MODE == kClamp) {
       // q × bf16(scale·log2e), rounded to bf16, in place: this warpgroup's
-      // 64 rows are bytes [8192c, 8192c + 8192) of each 16 KB box, or at
-      // D=72 of the first box, and bytes [1024c, 1024c + 1024) of the tail
+      // 64 rows are bytes [8192c, 8192c + 8192) of each box, or at D=72 of
+      // the first box, and bytes [1024c, 1024c + 1024) of the tail
       constexpr int kChunks = D == 128 ? 1024 : 512 + 64;  // 16-byte chunks of 64 rows
 #pragma unroll
       for (int i = 0; i < (kChunks + 127) / 128; ++i) {
         const int chunk = t + 128 * i;
         if (chunk >= kChunks) continue;
         uint4* ptr = reinterpret_cast<uint4*>(
-            gbase + qb * kTile + (chunk < 512 ? 8192 * c + chunk * 16
-                                 : kBoxBytes + (D == 128 ? 8192 : 1024) * c + (chunk - 512) * 16));
+            gbase + (q_tile - base) + (chunk < 512 ? 8192 * c + chunk * 16
+                                 : kQ.box() + (D == 128 ? 8192 : 1024) * c + (chunk - 512) * 16));
         uint4 x = *ptr;
         uint32_t* w = reinterpret_cast<uint32_t*>(&x);
 #pragma unroll
@@ -618,13 +767,22 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
     for (int i = 0; i < kAcc; ++i) o[i] = 0.f;
     float s[64];
     uint32_t pf[8][4];
-    float m[2] = {-INFINITY, -INFINITY};
+    float m[2] = {-INFINITY, -INFINITY};  // with a bias, in the log2 domain
     float l[2] = {0.f, 0.f};  // this thread's partial sums, reduced at the end
     float alpha[2] = {1.f, 1.f};
+    // after tile j's softmax (D=72): the loads of the bias of the tile after it
+    auto prefetch_bias = [&](int j) {
+      if constexpr (BIAS && kBiasAhead) {
+        if (j + 1 < n_tiles) load_bias(braw, p, b, (j + 1) * kBlockN + col_t);
+        else if (item + (int)gridDim.x < p.n_items)
+          load_bias(braw, p, batch_of(item + gridDim.x), col_t);
+      }
+    };
 
     // tile 0: scores, softmax
     {
       const int s0 = g % kStages;
+      if constexpr (BIAS && !kBiasAhead) load_bias(braw, p, b, col_t);
       mbar_wait(k_full(s0), (g / kStages) & 1);
       wgmma_fence();
 #pragma unroll
@@ -632,14 +790,17 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
+      if constexpr (BIAS) bias_log2(b2, braw, p.bias_bf16, col_t, p.Tk);
       mbar_arrive(k_empty(s0));
       if (n_tiles == 1) mbar_arrive(q_empty(qb));  // the item's last read of q
-      softmax_tile<MODE>(s, m, l, alpha, qk_scale, 0, col_t, p.Tk);
+      softmax_tile<MODE, BIAS>(s, b2, m, l, alpha, qk_scale, 0, col_t, p.Tk);
+      prefetch_bias(0);
       pack_p(s, pf);
     }
 
     for (int j = 1; j < n_tiles; ++j) {
       const int sj = (g + j) % kStages, sp = (g + j - 1) % kStages;
+      if constexpr (BIAS && !kBiasAhead) load_bias(braw, p, b, j * kBlockN + col_t);
       // tile j's scores and tile j − 1's p·v, issued together
       mbar_wait(k_full(sj), ((g + j) / kStages) & 1);
       fence_regs(s);
@@ -656,9 +817,11 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
       // the scores first; their softmax runs under the p·v products
       wgmma_wait<1>();
       fence_regs(s);
+      if constexpr (BIAS) bias_log2(b2, braw, p.bias_bf16, j * kBlockN + col_t, p.Tk);
       mbar_arrive(k_empty(sj));
       if (j == n_tiles - 1) mbar_arrive(q_empty(qb));  // the item's last read of q
-      softmax_tile<MODE>(s, m, l, alpha, qk_scale, j * kBlockN, col_t, p.Tk);
+      softmax_tile<MODE, BIAS>(s, b2, m, l, alpha, qk_scale, j * kBlockN, col_t, p.Tk);
+      prefetch_bias(j);
       wgmma_wait<0>();
       fence_regs(o);
 #pragma unroll
@@ -700,7 +863,7 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
         // n_pad keys of score −1e9: m' = max(m, −1e9), the sums rescaled by
         // exp2(m − m'), n_pad·exp2(−1e9 − m') added (log2 domain); f = 1 and
         // the added term 0 unless every score of the row is near −1e9
-        const float m2 = m[r] * qk_scale;
+        const float m2 = BIAS ? m[r] : m[r] * qk_scale;
         const float mp = fmaxf(m2, kPadScoreLog2);
         f[r] = ex2(m2 - mp);
         l[r] = l[r] * f[r] + (float)p.n_pad * ex2(kPadScoreLog2 - mp);
@@ -727,40 +890,61 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
 struct Maps {
   CUtensorMap m[6];
 };
+// K6's consumer warpgroups: three at D=72 (see the note), two at D=128
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+constexpr int kFlashConsumers = D == 72 ? 3 : 2;
+template <int D>
+__global__ void __launch_bounds__(128 * (kFlashConsumers<D> + 1), 1)
     attn_flash_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
-  attn_sm90_body<D, kExact>(maps.m, p);
+  attn_sm90_body<D, kExact, false, kFlashConsumers<D>>(maps.m, p);
 }
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(384, 1)
     attn_rowblock_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
-  attn_sm90_body<D, kClamp>(maps.m, p);
+  attn_sm90_body<D, kClamp, false, 2>(maps.m, p);
 }
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+// BIAS: K2 (the name carries the flag, so a profile files it apart from K1)
+template <int D, bool BIAS>
+__global__ void __launch_bounds__(384, 1)
     attn_exact_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
-  attn_sm90_body<D, kExact>(maps.m, p);
+  attn_sm90_body<D, kExact, BIAS, 2>(maps.m, p);
 }
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(384, 1)
     attn_clamp_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
-  attn_sm90_body<D, kClamp>(maps.m, p);
+  attn_sm90_body<D, kClamp, false, 2>(maps.m, p);
 }
 
 using Kernel = void (*)(const Maps, const Params);
 
-// The kernel of `mode` at head dim D, or null where it is not built: K5
-// and K6 at D=128 only.
-Kernel sm90_kernel(int mode, unsigned long long D) {
-  if (D == 128) {
-    const Kernel k[4] = {attn_flash_sm90_kernel<128>, attn_rowblock_sm90_kernel<128>,
-                         attn_exact_sm90_kernel<128>, attn_clamp_sm90_kernel<128>};
-    return k[mode];
+// A kernel with its consumer warpgroups and its dynamic shared memory.
+struct Launch {
+  Kernel kernel = nullptr;
+  int consumers = 2;
+  int smem = 0;
+};
+template <int D, int NC>
+Launch launch_of(Kernel kernel) {
+  return {kernel, NC, Smem<D, NC>::kBytes};
+}
+
+// The kernel of `mode` at head dim D, with or without a bias, or none where
+// it is not built: K5 at D=128 only, a bias on the exact single-tile route
+// (mode 2) only.
+template <int D>
+Launch sm90_launch(int mode, bool bias) {
+  if (bias) return mode == 2 ? launch_of<D, 2>(attn_exact_sm90_kernel<D, true>) : Launch{};
+  switch (mode) {
+    case 0:
+      return launch_of<D, kFlashConsumers<D>>(attn_flash_sm90_kernel<D>);
+    case 1:
+      if constexpr (D == 128) return launch_of<D, 2>(attn_rowblock_sm90_kernel<D>);
+      return Launch{};
+    case 2:
+      return launch_of<D, 2>(attn_exact_sm90_kernel<D, false>);
+    default:
+      return launch_of<D, 2>(attn_clamp_sm90_kernel<D>);
   }
-  if (D == 72 && mode >= 2)
-    return mode == 2 ? attn_exact_sm90_kernel<72> : attn_clamp_sm90_kernel<72>;
-  return nullptr;
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -793,22 +977,31 @@ EncodeTiled encode_tiled() {
 // each of q, k, v in turn: the dims {D, H, T, B}, the byte strides of H, T
 // and B, and the box {64, 1, 128, 1}, as ops/attention.py's `tma_operand`
 // computes them. o: bf16 (B, Tq, H, D) with element strides o_strides (b,
-// t, h). mode 0: the exact softmax of the streaming route (K6, D=128); 1:
-// the clamp softmax of the row-block route (K5, D=128); 2: the exact
-// softmax of the single-tile route (K1); 3: the clamp softmax of the
-// transposed route (K4). Exact: scale = 1/√D; clamp: scale = scale·log2e
-// rounded to bf16. Mode 2 launches one block per SM, which walks the work
-// items; the others one block per item. Returns 0, a cudaError_t of the
-// launch, or 100000 + the CUresult of a refused tensor map.
+// t, h). mode 0: the exact softmax of the streaming route (K6); 1: the
+// clamp softmax of the row-block route (K5, D=128); 2: the exact softmax of
+// the single-tile route (K1, or K2 with a bias); 3: the clamp softmax of
+// the transposed route (K4). bias: null, or mode 2's key-padding bias (B|1,
+// 1, 1, Tk), bf16 (bias_bf16 = 1) or fp32, with element strides
+// bias_strides (batch, key), 0 where it broadcasts (`bias_operand`).
+// Exact: scale = 1/√D; clamp: scale = scale·log2e rounded to bf16. Mode 2
+// launches one block per SM, which walks the work items; the others one
+// block per item. Returns 0, a cudaError_t of the launch, or 100000 + the
+// CUresult of a refused tensor map.
 extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void* v, void* o,
                                        const unsigned long long* maps,
-                                       const long long* o_strides, int B, int H, int Tq, int Tk,
-                                       float scale, int mode, void* stream) {
+                                       const long long* o_strides, const void* bias,
+                                       const long long* bias_strides, int bias_bf16, int B,
+                                       int H, int Tq, int Tk, float scale, int mode,
+                                       void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || mode < 0 || mode > 3)
     return (int)cudaErrorInvalidValue;
-  const long long n_items = (long long)B * H * ((Tq + kBlockM - 1) / kBlockM);
-  const Kernel kernel = sm90_kernel(mode, maps[0]);
-  if (kernel == nullptr || n_items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const bool has_bias = bias != nullptr;
+  const Launch launch = maps[0] == 128 ? sm90_launch<128>(mode, has_bias)
+                        : maps[0] == 72 ? sm90_launch<72>(mode, has_bias)
+                                        : Launch{};
+  const int block_m = 64 * launch.consumers;  // query rows per work item
+  const long long n_items = (long long)B * H * ((Tq + block_m - 1) / block_m);
+  if (launch.kernel == nullptr || n_items > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   // q, k, v under the 128-byte swizzle, then (D=72) their 8-column tails
@@ -825,7 +1018,9 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
     }
     const cuuint64_t dims[4] = {a[0], a[1], a[2], a[3]};
     const cuuint64_t strides[3] = {a[4], a[5], a[6]};
-    const cuuint32_t box[4] = {i < 3 ? (cuuint32_t)a[7] : 8u, (cuuint32_t)a[8], (cuuint32_t)a[9],
+    // q's box holds the work item's rows, 64 per consumer warpgroup
+    const cuuint32_t rows = i % 3 == 0 ? (cuuint32_t)block_m : (cuuint32_t)a[9];
+    const cuuint32_t box[4] = {i < 3 ? (cuuint32_t)a[7] : 8u, (cuuint32_t)a[8], rows,
                                (cuuint32_t)a[10]};
     const cuuint32_t elem[4] = {1, 1, 1, 1};
     const CUresult r = encode(
@@ -838,6 +1033,10 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
   Params p;
   p.o = static_cast<__nv_bfloat16*>(o);
   p.o_sb = o_strides[0], p.o_st = o_strides[1], p.o_sh = o_strides[2];
+  p.bias = bias;
+  p.bias_sb = has_bias ? bias_strides[0] : 0;
+  p.bias_sk = has_bias ? bias_strides[1] : 0;
+  p.bias_bf16 = bias_bf16;
   p.H = H;
   p.Tq = Tq;
   p.Tk = Tk;
@@ -849,13 +1048,13 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
   p.n_pad = (Tk + bk - 1) / bk * bk - Tk;
   p.scale = scale;
   // above 48 KB dynamic shared memory needs an opt-in (once per kernel)
-  const int smem = maps[0] == 128 ? Tile<128>::kSmemBytes : Tile<72>::kSmemBytes;
-  static bool opted_in[2][4] = {};
-  if (!opted_in[maps[0] == 72][mode]) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static bool opted_in[2][4][2] = {};
+  bool& opted = opted_in[maps[0] == 72][mode][has_bias];
+  if (!opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        launch.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, launch.smem);
     if (err != cudaSuccess) return (int)err;
-    opted_in[maps[0] == 72][mode] = true;
+    opted = true;
   }
   int grid = (int)n_items;
   if (mode == 2) {
@@ -866,6 +1065,7 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
     if (err != cudaSuccess) return (int)err;
     if (sms < grid) grid = sms;
   }
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(tmaps, p);
+  launch.kernel<<<grid, 128 * (launch.consumers + 1), launch.smem,
+                  static_cast<cudaStream_t>(stream)>>>(tmaps, p);
   return (int)cudaGetLastError();
 }

@@ -32,14 +32,17 @@ the way that one does (`attention_route`):
 All four run in one CUDA C++ kernel source, ``csrc/attention.cu`` (a
 compile-time variant each; the source says what bounds each on the H100),
 but for the calls that take the Hopper body of ``csrc/attention_sm90.cu``
-(wgmma fed by TMA): bf16 without a bias at head dim 72 or 128 on the exact
-single-tile (K1) and transposed clamp (K4) routes — PixArt's 256² and
-1024² self-attention, FLUX.1-dev's joint attention at 256² — and at head
-dim 128 on the row-block (K5) and streaming (K6) routes — FLUX.1-dev at
-1024² and 1536² (`_takes_sm90`). The choice depends on route, dtype, head
-dim and bias only. Such a call whose operands TMA cannot map
-(`tma_operand`: a 16-byte-aligned base and strides) raises; it never drops
-back to the other body.
+(wgmma fed by TMA), all in bf16 (`_takes_sm90`): without a bias at head
+dim 72 or 128 on the exact single-tile (K1), transposed clamp (K4) and
+streaming (K6) routes — PixArt's 256² and 1024² self-attention,
+PixArt-Σ's at 2048², FLUX.1-dev's joint attention at 256² and 1536² — and
+at 128 on the row-block route (K5) — FLUX.1-dev at 1024²; with a
+key-padding bias (B|1, 1, 1, Tk) at 72 or 128 on the exact single-tile
+route (K2) — PixArt's text cross-attention at 256² and 512². The choice
+depends on route, dtype, head dim and bias only. Such a call whose
+operands TMA cannot map (`tma_operand`: a 16-byte-aligned base and
+strides), or whose bias the body does not read (`bias_operand`: bf16 or
+fp32), raises; it never drops back to the other body.
 
 The exact routes' pad keys. The reference pads the keys of the exact
 routes with keys of score −1e9 whose rows of v are 0: to round_up(Tk, 128)
@@ -97,8 +100,12 @@ _FN = None
 _SM90_FN = None
 # the Hopper body's kernels (csrc/attention_sm90.cu), by counter name: the
 # C entry's mode and the head dims it is built for
-_SM90_MODES = {"attention_flash": (0, (128,)), "attention_rowblock": (1, (128,)),
+_SM90_MODES = {"attention_flash": (0, (72, 128)), "attention_rowblock": (1, (128,)),
                "attention": (2, (72, 128)), "attention_long": (3, (72, 128))}
+# the routes whose Hopper kernel also takes a key-padding bias: K2
+_SM90_BIAS = ("attention",)
+# the bias dtypes the Hopper body reads, with the C entry's code for each
+_SM90_BIAS_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SM90_BOX = (64, 1, 128, 1)  # 64 columns (128 bytes: the swizzle's width), 1 head, 128 rows
 
 # The reference's routing constants (ecad_tpu/ops/attention.py :95, :134,
@@ -151,10 +158,13 @@ def _sm90_kernel():
             ctypes.c_void_p,  # o
             ctypes.POINTER(ctypes.c_ulonglong),  # 3 × 11 tensor-map arguments
             ctypes.POINTER(ctypes.c_longlong),  # o's strides (b, t, h)
+            ctypes.c_void_p,  # key-padding bias or NULL
+            ctypes.POINTER(ctypes.c_longlong),  # its strides (batch, key)
+            ctypes.c_int,  # the bias is bf16 (1) or fp32 (0)
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H Tq Tk
             ctypes.c_float,  # scale
             ctypes.c_int,  # mode: 0 exact streaming (K6), 1 clamp row-block (K5),
-            # 2 exact single-tile (K1), 3 clamp transposed (K4)
+            # 2 exact single-tile (K1; K2 with a bias), 3 clamp transposed (K4)
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -440,25 +450,46 @@ def tma_operand(t: torch.Tensor, name: str) -> list[int]:
     return [d, h, tt, b, *strides, *_SM90_BOX]
 
 
+def bias_operand(bias: torch.Tensor, batch: int) -> tuple[list[int], int]:
+    """The launch arguments of the Hopper body's key-padding bias (B|1, 1,
+    1, Tk): its element strides over the batch and the keys, each 0 where
+    the bias broadcasts, and its dtype's code (1 bf16, 0 fp32). The body
+    reads it with plain loads in its own dtype, so any strides and any
+    element-aligned base will do. Raises ValueError for a bias of another
+    shape or dtype."""
+    if not _key_padding_bias_ok(bias, batch):
+        raise ValueError("the Hopper body takes only key-padding biases (B|1, 1, 1, Tk); "
+                         f"got {tuple(bias.shape)}")
+    if bias.dtype not in _SM90_BIAS_DTYPES:
+        raise ValueError(f"the Hopper body reads a bf16 or fp32 bias; got {bias.dtype}")
+    strides = [0 if bias.shape[i] == 1 else bias.stride(i) for i in (0, 3)]
+    return strides, _SM90_BIAS_DTYPES[bias.dtype]
+
+
 def _takes_sm90(counter: str, q: torch.Tensor, bias: Optional[torch.Tensor]) -> bool:
     """Whether a call of the route that counts under `counter` goes to the
-    Hopper body (csrc/attention_sm90.cu): bf16 without a bias at a head dim
-    the body is built for on that route (`_SM90_MODES`). A function of
-    route, dtype, head dim and bias only."""
-    return (q.dtype == torch.bfloat16 and bias is None
-            and q.shape[-1] in _SM90_MODES[counter][1])
+    Hopper body (csrc/attention_sm90.cu): bf16 at a head dim the body is
+    built for on that route (`_SM90_MODES`), without a bias or, on a route
+    whose kernel takes one (`_SM90_BIAS`), with a key-padding bias. A
+    function of route, dtype, head dim and bias only."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] in _SM90_MODES[counter][1]
+            and (bias is None or (counter in _SM90_BIAS
+                                  and _key_padding_bias_ok(bias, q.shape[0]))))
 
 
-def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) -> torch.Tensor:
+def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
+                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch of the Hopper body in the mode of counter `name`
-    (``attention``: exact single-tile, K1; ``attention_long``: clamp
-    transposed, K4; ``attention_rowblock``: clamp row-block, K5;
-    ``attention_flash``: exact streaming, K6). Raises where TMA cannot map
-    an operand (`tma_operand`). Counts it."""
+    (``attention``: exact single-tile, K1, or K2 with a key-padding `bias`;
+    ``attention_long``: clamp transposed, K4; ``attention_rowblock``: clamp
+    row-block, K5; ``attention_flash``: exact streaming, K6). Raises where
+    TMA cannot map an operand (`tma_operand`) or the body does not read the
+    bias (`bias_operand`). Counts it under `name`, or ``name_bias``."""
     maps = [a for t, n in ((q, "q"), (k, "k"), (v, "v")) for a in tma_operand(t, n)]
+    b, tq, h, d = q.shape
+    bias_strides, bias_bf16 = ([0, 0], 0) if bias is None else bias_operand(bias, b)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
-    b, tq, h, d = q.shape
     mode = _SM90_MODES[name][0]
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     scale = clamp_scale(d, q.dtype) if mode in (1, 3) else 1.0 / math.sqrt(d)
@@ -467,6 +498,8 @@ def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) -
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             (ctypes.c_ulonglong * len(maps))(*maps),
             (ctypes.c_longlong * 3)(out.stride(0), out.stride(1), out.stride(2)),
+            None if bias is None else bias.data_ptr(),
+            (ctypes.c_longlong * 2)(*bias_strides), bias_bf16,
             b, h, tq, k.shape[1], scale, mode,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -475,7 +508,7 @@ def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) -
             f"Hopper attention launch failed: status {status} (cudaError_t, or 100000 + "
             f"the CUresult of a refused tensor map; q {tuple(q.shape)}, k {tuple(k.shape)})"
         )
-    LAUNCHES[name] += 1
+    LAUNCHES[name if bias is None else name + "_bias"] += 1
     return out
 
 
@@ -560,5 +593,5 @@ def fused_attention(
     if q.device.type == "cpu":
         return fused_attention_reference(q, k, v, bias)
     if _takes_sm90("attention", q, bias):
-        return _launch_sm90(q, k, v, "attention")
+        return _launch_sm90(q, k, v, "attention", bias)
     return _launch(q, k, v, bias, variant=0)

@@ -4,13 +4,16 @@ bias), kernel by kernel, in turns, in one process on one card.
 
     python -m ecad_tpu_torch.scripts.compare_attention_bodies [--out bodies.json]
 
-Rows, each bf16 without a bias at the shape the main path gives it: K1
-(the exact single-tile softmax, variant 0 of attention.cu's C entry) at
-FLUX-256's joint attention (4, 768, 24, 128) and PixArt-256's
-self-attention (16, 256, 16, 72); K4 (the clamp softmax of the transposed
+Rows, each bf16 at the shape the main path gives it: K1 (the exact
+single-tile softmax, variant 0 of attention.cu's C entry) at FLUX-256's
+joint attention (4, 768, 24, 128) and PixArt-256's self-attention (16, 256,
+16, 72); K2 (the same with a key-padding bias, variant 0) at PixArt-256's
+cross-attention (16, 256, 16, 72) → 120 keys with the text bias in bf16
+(−9984 past lengths 7, 60, 120); K4 (the clamp softmax of the transposed
 route, variant 1) at PixArt-1024's (4, 4096, 16, 72); K5 (row-block clamp,
 variant 2) at FLUX-1024's (1, 4608, 24, 128); K6 (streaming exact, variant
-3) at FLUX-1536's (1, 9728, 24, 128). Both bodies are checked against the
+3) at FLUX-1536's (1, 9728, 24, 128) and PixArt-Σ-2048's (2, 16384, 16,
+72). Both bodies are checked against the
 plain version (run per head) and timed in turns — old, new, new, old — by
 spin-kernel CUDA events (`sampled_device_ms`, which samples the SM clock,
 power and temperature around each timing), beside one
@@ -32,27 +35,33 @@ from ecad_tpu_torch.ops import _build
 from ecad_tpu_torch.ops import attention as A
 from ecad_tpu_torch.utils.timing import bound_ms, card_name, sampled_device_ms
 
-# row → (shape, the mma.sync body's variant of attention.cu's C entry, this
-# tree's wrapper, plain version, the share of the output's std in its bf16
-# tolerance, as chip_smoke.py's clamp_bf16_tol and flash_bf16_tol)
+# row → (q shape, keys, the text lengths of a key-padding bias or None, the
+# mma.sync body's variant of attention.cu's C entry, this tree's wrapper,
+# plain version, the share of the output's std in its bf16 tolerance, as
+# chip_smoke.py's clamp_bf16_tol and flash_bf16_tol)
 CASES = {
-    "attention_flux256": ((4, 768, 24, 128), 0, A.fused_attention,
+    "attention_flux256": ((4, 768, 24, 128), 768, None, 0, A.fused_attention,
                           A.fused_attention_reference, 0.1),
-    "attention": ((16, 256, 16, 72), 0, A.fused_attention, A.fused_attention_reference, 0.1),
-    "attention_long": ((4, 4096, 16, 72), 1, A.fused_attention,
+    "attention": ((16, 256, 16, 72), 256, None, 0, A.fused_attention,
+                  A.fused_attention_reference, 0.1),
+    "attention_bias": ((16, 256, 16, 72), 120, (7, 60, 120), 0, A.fused_attention,
+                       A.fused_attention_reference, 0.1),
+    "attention_long": ((4, 4096, 16, 72), 4096, None, 1, A.fused_attention,
                        A.transposed_attention_reference, 0.1),
-    "attention_rowblock": ((1, 4608, 24, 128), 2, A.rowblock_attention,
+    "attention_rowblock": ((1, 4608, 24, 128), 4608, None, 2, A.rowblock_attention,
                            A.rowblock_attention_reference, 0.1),
-    "attention_flash": ((1, 9728, 24, 128), 3, A.flash_attention,
+    "attention_flash": ((1, 9728, 24, 128), 9728, None, 3, A.flash_attention,
                         A.flash_attention_reference, 0.025),
+    "attention_flash_d72": ((2, 16384, 16, 72), 16384, None, 3, A.flash_attention,
+                            A.flash_attention_reference, 0.025),
 }
 
 
-def by_heads(plain, q, k, v) -> torch.Tensor:
+def by_heads(plain, q, k, v, bias=None) -> torch.Tensor:
     out = torch.empty_like(q)
     for h in range(q.shape[2]):
         sl = (slice(None), slice(None), slice(h, h + 1))
-        out[sl] = plain(q[sl], k[sl], v[sl])
+        out[sl] = plain(q[sl], k[sl], v[sl], bias)
     return out
 
 
@@ -72,12 +81,18 @@ def main(argv=None) -> list[dict]:
     _build.build_all()
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for counter, (shape, variant, new_fn, plain, share) in CASES.items():
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-                   for _ in range(3))
-        bodies = {"old": lambda: A._launch(q, k, v, None, variant),
-                  "new": lambda: new_fn(q, k, v)}
-        want = by_heads(plain, q, k, v)
+    for counter, (shape, tk, lengths, variant, new_fn, plain, share) in CASES.items():
+        b, t, h, d = shape
+        q, k, v = (torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+                   for s in (shape, (b, tk, h, d), (b, tk, h, d)))
+        bias = None
+        if lengths is not None:  # the models' text bias, (1 − mask)·−10000 in bf16
+            keep = torch.arange(tk, device="cuda")[None] < torch.tensor(
+                [lengths[i % len(lengths)] for i in range(b)], device="cuda")[:, None]
+            bias = torch.where(keep, 0.0, -10000.0).to(torch.bfloat16)[:, None, None, :]
+        bodies = {"old": lambda: A._launch(q, k, v, bias, variant),
+                  "new": lambda: new_fn(q, k, v, bias)}
+        want = by_heads(plain, q, k, v, bias)
         checks = {name: max_err_and_bad(fn(), want, share) for name, fn in bodies.items()}
         del want
         times = {"old": [], "new": []}
@@ -88,11 +103,13 @@ def main(argv=None) -> list[dict]:
             clocks[name].append(sample)
         qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
         sdpa, _, sdpa_clocks = sampled_device_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), 5, 10)
-        b, t, h, d = shape
-        bound, by = bound_ms(4 * q.numel() * q.element_size(), 4 * b * h * t * t * d)
+            lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                                     attn_mask=bias), 5, 10)
+        nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
+        nbytes += 0 if bias is None else bias.numel() * bias.element_size()
+        bound, by = bound_ms(nbytes, 4 * b * h * t * tk * d)
         row = {
-            "counter": counter, "shape": list(shape), "card": card,
+            "counter": counter, "shape": list(shape), "keys": tk, "card": card,
             "old_body": f"attention.cu variant {variant}",
             "old_ms": times["old"], "new_ms": times["new"],
             "old_over_new": statistics.median(times["old"]) / statistics.median(times["new"]),

@@ -34,7 +34,9 @@ from ecad_tpu_torch.ops import (
     transposed_attention,
     transposed_attention_reference,
 )
+from ecad_tpu_torch.ops import _build
 from ecad_tpu_torch.ops import attention as port_attention
+from ecad_tpu_torch.scripts import probe_attention_body
 
 # fp32 on both sides, only the summation order differs
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -717,7 +719,9 @@ def test_exact_plain_version_without_pad_keys_fails_minus_1e9_rows(fill):
 # ---------------------------------------------------------------------------
 
 # (wrapper, q shape, tk, dtype, bias) → the launch it takes: ("sm90",
-# counter) or ("mma", variant of csrc/attention.cu)
+# counter; ``_bias`` where it takes a bias) or ("mma", variant of
+# csrc/attention.cu). A bias is "padding" (B, 1, 1, Tk), "broadcast" (1, 1,
+# 1, Tk) or "dense" (B, H, Tq, Tk).
 HOPPER_ROUTES = {
     "flux1024_rowblock": ("fused", (1, 4608, 24, 128), 4608, "bf16", None,
                           ("sm90", "attention_rowblock")),
@@ -730,45 +734,71 @@ HOPPER_ROUTES = {
     "pixart1024_clamp_k4_d72": ("fused", (4, 4096, 16, 72), 4096, "bf16", None,
                                 ("sm90", "attention_long")),
     "exact_ragged_d72": ("fused", (2, 30, 2, 72), 300, "bf16", None, ("sm90", "attention")),
-    "exact_key_padding_k2": ("fused", (16, 256, 16, 72), 120, "bf16", "padding", ("mma", 0)),
-    "exact_key_padding_d128": ("fused", (2, 30, 2, 128), 300, "bf16", "padding", ("mma", 0)),
+    "exact_key_padding_k2": ("fused", (16, 256, 16, 72), 120, "bf16", "padding",
+                             ("sm90", "attention_bias")),
+    "exact_key_padding_d128": ("fused", (2, 30, 2, 128), 300, "bf16", "padding",
+                               ("sm90", "attention_bias")),
+    "exact_batch_broadcast_bias_d72": ("fused", (3, 30, 2, 72), 300, "bf16", "broadcast",
+                                       ("sm90", "attention_bias")),
+    "pixart512_cross_k2": ("fused", (16, 1024, 16, 72), 120, "bf16", "padding",
+                           ("sm90", "attention_bias")),
+    "exact_dense_bias_d72": ("fused", (2, 30, 2, 72), 300, "bf16", "dense", ("mma", 0)),
+    "exact_key_padding_fp32": ("fused", (2, 30, 2, 72), 300, "fp32", "padding", ("mma", 0)),
+    "exact_key_padding_d64": ("fused", (2, 30, 2, 64), 300, "bf16", "padding", ("mma", 0)),
     "exact_fp32_d72": ("fused", (2, 30, 2, 72), 300, "fp32", None, ("mma", 0)),
     "exact_d64": ("fused", (2, 30, 2, 64), 300, "bf16", None, ("mma", 0)),
     "transposed_key_padding": ("transposed", (4, 4096, 16, 72), 120, "bf16", "padding",
                                ("mma", 1)),
+    "pixart1024_cross_k4_bias": ("fused", (4, 4096, 16, 72), 120, "bf16", "padding",
+                                 ("mma", 1)),
     "transposed_fp32": ("transposed", (2, 30, 2, 72), 300, "fp32", None, ("mma", 1)),
     "transposed_d36": ("transposed", (2, 30, 2, 36), 300, "bf16", None, ("mma", 1)),
     "rowblock_key_padding": ("rowblock", (2, 30, 2, 128), 300, "bf16", "padding", ("mma", 2)),
     "flash_key_padding": ("flash", (2, 30, 2, 128), 300, "bf16", "padding", ("mma", 3)),
+    "flash_key_padding_d72": ("flash", (2, 30, 2, 72), 300, "bf16", "padding", ("mma", 3)),
+    "pixart2048_flash_key_padding": ("fused", (2, 16384, 16, 72), 16384, "bf16", "padding",
+                                     ("mma", 3)),
     "rowblock_fp32": ("rowblock", (2, 30, 2, 128), 300, "fp32", None, ("mma", 2)),
     "flash_fp32": ("flash", (2, 30, 2, 128), 300, "fp32", None, ("mma", 3)),
-    "flash_d72": ("flash", (2, 30, 2, 72), 300, "bf16", None, ("mma", 3)),
+    "flash_fp32_d72": ("flash", (2, 30, 2, 72), 300, "fp32", None, ("mma", 3)),
+    "flash_d72": ("flash", (2, 30, 2, 72), 300, "bf16", None, ("sm90", "attention_flash")),
+    "flash_d64": ("flash", (2, 30, 2, 64), 300, "bf16", None, ("mma", 3)),
     "rowblock_d64": ("rowblock", (2, 30, 2, 64), 300, "bf16", None, ("mma", 2)),
+    "rowblock_key_padding_d128": ("fused", (1, 4608, 24, 128), 4608, "bf16", "padding",
+                                  ("mma", 2)),
     "transposed_d72": ("transposed", (2, 30, 2, 72), 300, "bf16", None,
                        ("sm90", "attention_long")),
-    "pixart2048_flash_d72": ("fused", (2, 16384, 16, 72), 16384, "bf16", None, ("mma", 3)),
+    "pixart2048_flash_d72": ("fused", (2, 16384, 16, 72), 16384, "bf16", None,
+                             ("sm90", "attention_flash")),
 }
 
 
 @pytest.mark.parametrize("name", sorted(HOPPER_ROUTES))
 def test_hopper_body_routing(name, monkeypatch):
     """bf16 calls without a bias at head dim 72 or 128 on the single-tile
-    exact (K1) and transposed clamp (K4) routes, and at 128 on the
-    row-block (K5) and streaming (K6) routes, launch the Hopper body; every
-    other call — a bias, fp32, another head dim, K6 at D=72 — keeps its
-    csrc/attention.cu variant. Tensors on the meta device reach the launch
-    decision without a card; the launchers are replaced by recorders."""
+    exact (K1), transposed clamp (K4) and streaming (K6) routes, and at 128
+    on the row-block route (K5), launch the Hopper body, and so do bf16
+    calls with a key-padding bias on the single-tile exact route (K2);
+    every other call — a dense bias, a bias on the clamp or streaming
+    routes, fp32, another head dim — keeps its csrc/attention.cu variant.
+    Tensors on the meta device reach the launch decision without a card;
+    the launchers are replaced by recorders."""
     wrapper, shape, tk, dtype, bias_kind, want = HOPPER_ROUTES[name]
     calls = []
-    monkeypatch.setattr(port_attention, "_launch_sm90",
-                        lambda q, k, v, counter: calls.append(("sm90", counter)))
+
+    def sm90(q, k, v, counter, bias=None):
+        calls.append(("sm90", counter if bias is None else counter + "_bias"))
+
+    monkeypatch.setattr(port_attention, "_launch_sm90", sm90)
     monkeypatch.setattr(port_attention, "_launch",
                         lambda q, k, v, bias, variant: calls.append(("mma", variant)))
     tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
-    b, _, h, d = shape
+    b, tq, h, d = shape
     q = torch.empty(shape, dtype=tdt, device="meta")
     kv = torch.empty((b, tk, h, d), dtype=tdt, device="meta")
-    bias = None if bias_kind is None else torch.zeros(b, 1, 1, tk, device="meta")
+    bias = {None: None, "padding": (b, 1, 1, tk), "broadcast": (1, 1, 1, tk),
+            "dense": (b, h, tq, tk)}[bias_kind]
+    bias = bias and torch.zeros(bias, dtype=tdt, device="meta")
     fn = {"fused": fused_attention, "rowblock": rowblock_attention,
           "flash": flash_attention, "transposed": transposed_attention}[wrapper]
     fn(q, kv, kv, bias)
@@ -826,14 +856,96 @@ def test_pixart_attention_operands_map_at_d72():
     assert port_attention._takes_sm90("attention", q, None)
 
 
+def test_pixart_cross_attention_operands_map_at_d72():
+    """PixArt's cross-attention operands as the model makes them — q from
+    the block's Attention (models/common.py), k and v from encode_text's
+    trajectory-constant enc_kv views (models/pixart.py), the text bias
+    from process_input, (2B, 1, 1, 120) in bf16 — map onto the Hopper
+    body's K2: each tensor map and the bias's arguments, and the call
+    takes the single-tile route with its bias to the Hopper kernel."""
+    from ecad_tpu_torch.models.pixart import PixArtConfig, init_model
+
+    cfg = PixArtConfig.tiny(num_heads=2, head_dim=72, dim=144, text_len=120,
+                            dtype=torch.bfloat16)
+    model = init_model(cfg, 0, "cpu")
+    text = torch.randn(4, 120, cfg.caption_dim, dtype=torch.bfloat16)
+    mask = (torch.arange(120)[None] < torch.tensor([7, 60, 120, 1])[:, None]).int()
+    latents = torch.zeros(4, 16, 16, cfg.in_channels, dtype=torch.bfloat16)
+    enc, enc_kv = model.encode_text(text)
+    h, _, _, _, _, enc_bias = model.process_input(
+        latents, text, torch.zeros(4), mask, text_precomputed=(enc, enc_kv))
+    attn = model.blocks[0].attn2
+    q = attn.to_q(h).view(4, h.shape[1], 2, 72)
+    k, v = enc_kv[0]
+    assert [port_attention.tma_operand(t, n) for t, n in ((k, "k"), (v, "v"))] == [
+        [72, 2, 120, 4, 144, 288, 120 * 288, 64, 1, 128, 1]] * 2
+    assert port_attention.tma_operand(q, "q")[:7] == [72, 2, 64, 4, 144, 288, 64 * 288]
+    assert enc_bias.shape == (4, 1, 1, 120) and enc_bias.dtype == torch.bfloat16
+    assert port_attention.bias_operand(enc_bias, 4) == ([120, 1], 1)
+    assert attention_route(tuple(q.shape), 120, enc_bias) == "exact"
+    assert port_attention._takes_sm90("attention", q, enc_bias)
+
+
+# bias → its launch arguments on the Hopper body: ([batch stride, key
+# stride] in elements, 0 where it broadcasts; dtype code, 1 bf16, 0 fp32)
+BIAS_OPERANDS = {
+    "per_batch_bf16": (lambda: torch.zeros(4, 1, 1, 120, dtype=torch.bfloat16), ([120, 1], 1)),
+    "per_batch_fp32": (lambda: torch.zeros(4, 1, 1, 120), ([120, 1], 0)),
+    "batch_broadcast": (lambda: torch.zeros(1, 1, 1, 300), ([0, 1], 0)),
+    "odd_tk_per_batch": (lambda: torch.zeros(4, 1, 1, 121, dtype=torch.bfloat16),
+                         ([121, 1], 1)),
+    "strided_view": (lambda: torch.zeros(4, 1, 1, 256)[..., :121:2], ([256, 2], 0)),
+    "key_broadcast": (lambda: torch.zeros(4, 1, 1, 1).expand(4, 1, 1, 120), ([1, 0], 0)),
+    "offset_base": (lambda: torch.zeros(4 * 121 + 1, dtype=torch.bfloat16)[1:].view(4, 1, 1, 121),
+                    ([121, 1], 1)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BIAS_OPERANDS))
+def test_bias_operand_arguments(name):
+    """A key-padding bias reaches the Hopper body as a pointer, its batch
+    and key strides (0 where it broadcasts) and its dtype; the body reads
+    it with plain loads, so an odd Tk, a strided view or a base off 16
+    bytes takes the same body."""
+    make, want = BIAS_OPERANDS[name]
+    assert port_attention.bias_operand(make(), 4) == want
+
+
+@pytest.mark.parametrize("bias,match", [
+    ((4, 2, 1, 120), "key-padding"),  # per head
+    ((4, 1, 8, 120), "key-padding"),  # per query row
+    ((2, 1, 1, 120), "key-padding"),  # another batch
+    (torch.float16, "bf16 or fp32"),
+    (torch.float64, "bf16 or fp32"),
+])
+def test_bias_operand_refusals(bias, match, monkeypatch):
+    """What the Hopper body does not read raises, through bias_operand and
+    through the router: a bias that is not (B|1, 1, 1, Tk), or one in
+    another dtype than bf16 or fp32; a dense bias is sent to
+    csrc/attention.cu by the router (test_hopper_body_routing) and so never
+    reaches bias_operand there."""
+    shape, dtype = (bias, torch.float32) if isinstance(bias, tuple) else ((4, 1, 1, 120), bias)
+    b = torch.zeros(shape, dtype=dtype)
+    with pytest.raises(ValueError, match=match):
+        port_attention.bias_operand(b, 4)
+    if dtype != torch.float32:
+        monkeypatch.setattr(port_attention, "_launch",
+                            lambda *a, **kw: pytest.fail("fell back to attention.cu"))
+        q = torch.empty(4, 64, 2, 72, dtype=torch.bfloat16, device="meta")
+        kv = torch.empty(4, 120, 2, 72, dtype=torch.bfloat16, device="meta")
+        with pytest.raises(ValueError, match=match):
+            fused_attention(q, kv, kv, torch.empty(shape, dtype=dtype, device="meta"))
+
+
 @pytest.mark.parametrize("d", [128, 72])
 @pytest.mark.parametrize("fault", ["base_off_16_bytes", "row_stride_264_bytes",
                                    "head_dim_not_contiguous"])
 def test_hopper_body_refuses_what_tma_cannot_map(fault, d, monkeypatch):
     """A bf16 call for the Hopper body whose base or strides TMA cannot
-    take raises — at D=128 through the single-tile, transposed, row-block
-    and streaming wrappers, at D=72 through the first two; it is not sent
-    to the csrc/attention.cu body instead."""
+    take raises — through the single-tile, transposed and streaming
+    wrappers, and at D=128 the row-block one — with or without the
+    single-tile route's key-padding bias; it is not sent to the
+    csrc/attention.cu body instead."""
     if fault == "base_off_16_bytes":
         bad = torch.zeros(2 * 64 * 2 * d + 1, dtype=torch.bfloat16)[1:].view(2, 64, 2, d)
     elif fault == "row_stride_264_bytes":  # 132 elements per head row
@@ -850,9 +962,179 @@ def test_hopper_body_refuses_what_tma_cannot_map(fault, d, monkeypatch):
     if fault == "base_off_16_bytes":  # a meta view keeps the 2-byte offset
         meta_bad = torch.empty(bad.numel() + 1, dtype=torch.bfloat16,
                                device="meta")[1:].view(bad.shape)
-    wrappers = [fused_attention, transposed_attention]
+    wrappers = [fused_attention, transposed_attention, flash_attention]
     if d == 128:
-        wrappers += [rowblock_attention, flash_attention]
+        wrappers.append(rowblock_attention)
     for fn in wrappers:
         with pytest.raises(ValueError, match="TMA|contiguous"):
             fn(good, meta_bad, good)
+    bias = torch.empty(2, 1, 1, 64, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="TMA|contiguous"):
+        fused_attention(good, meta_bad, good, bias)
+
+
+# ---------------------------------------------------------------------------
+# the Hopper body's exact-mode arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _chip_smoke_module():
+    """chip_smoke.py, loaded from its file, for the tolerances its checks
+    hold the kernels to on the card (it imports nothing CUDA-only)."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _hopper_exact_body(q, k, v, bias, n_pad):
+    """csrc/attention_sm90.cu's exact mode in its own order, on bf16 (B, T,
+    H, D) q, k, v: per 128-key tile, s = q·kᵀ in fp32, c = fp32(1/√D)·log2e
+    in fp32; with a key-padding bias s₂ = fp32(s·c + fp32(bias·log2e)) (one
+    FFMA), the running max m on s₂ and p = exp2(s₂ − m); without one the
+    max on the raw s and p = exp2(fp32(s·c + fp32(−m·c))); keys past Tk at
+    −∞; p rounded to bf16 for p·v against the running max of its tile, Σp
+    in fp32 over the unrounded p, both rescaled by exp2 of the change of
+    the max; then the n_pad pad keys of score −1e9: m′ = max(m₂, fp32(−1e9·
+    log2e)), f = exp2(m₂ − m′), Σp·f + n_pad·exp2(−1e9·log2e − m′), and one
+    factor f/Σp, one cast."""
+    f32 = torch.float32
+    log2e = torch.tensor(port_attention._LOG2E, dtype=f32)
+    c = torch.tensor(1.0 / np.sqrt(q.shape[-1]), dtype=f32) * log2e
+    pad = torch.tensor(port_attention._PAD_SCORE, dtype=f32) * log2e
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    b, h, tq, _ = qf.shape
+    tk = kf.shape[2]
+    b2 = None if bias is None else bias.float() * log2e  # (B|1, 1, 1, Tk)
+    m = torch.full((b, h, tq, 1), -torch.inf, dtype=f32)
+    l = torch.zeros((b, h, tq, 1), dtype=f32)
+    o = torch.zeros_like(qf)
+    for k0 in range(0, tk, 128):
+        s = qf @ kf[:, :, k0:k0 + 128].transpose(-1, -2)
+        if b2 is not None:
+            s = (s.double() * c.double() + b2[..., k0:k0 + 128].double()).float()
+        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+        if b2 is not None:
+            alpha, p = torch.exp2(m - mx), torch.exp2(s - mx)
+        else:
+            shift = -mx * c
+            alpha = torch.exp2((m - mx) * c)
+            p = torch.exp2((s.double() * c.double() + shift.double()).float())
+        m, l = mx, l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + 128]
+    m2 = m if b2 is not None else m * c
+    f = torch.ones_like(l)
+    if n_pad:
+        mp = torch.maximum(m2, pad)
+        f = torch.exp2(m2 - mp)
+        l = l * f + n_pad * torch.exp2(pad - mp)
+    return (o * (f / l)).to(torch.bfloat16).permute(0, 2, 1, 3)
+
+
+def _least_atol_per_std(got, want, rtol):
+    """The least atol that passes `got` beside `rtol`, per the std of
+    `want` (chip_smoke.py's `least_atol_per_std`)."""
+    err = (got - want).abs() - rtol * want.abs()
+    return float(err.max().clamp(min=0)) / float(want.std())
+
+
+# case → (the text lengths of batch rows 0 and 1, or a fill for every key of
+# row 0 beside a row of 60 keys): PixArt-256's cross-attention class, 256
+# queries to 120 keys, whose bias the model makes in bf16 (−10000 → −9984)
+K2_BODY_CASES = {
+    "text_lengths_7_60": ([7, 60], None),
+    "text_lengths_120_7": ([120, 7], None),
+    "every_key_minus_1e9": ([0, 60], -1e9),
+    "every_key_minus_2e9": ([0, 60], -2e9),
+}
+# the emulated body against _attn_kernel_bias: one bf16 ulp of the output
+# relative, 2^-7 (both sides round their fp32 result once), and 0.01 of the
+# output's std for p rounded to bf16 where the reference keeps it in fp32
+K2_BODY_TOL = dict(share=0.01, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("case", sorted(K2_BODY_CASES))
+def test_hopper_k2_arithmetic_matches_attn_kernel_bias(case):
+    """The Hopper body's K2 arithmetic (`_hopper_exact_body`: the bias
+    folded into the log2-domain FFMA, the max on the biased score, p
+    rounded to bf16 against its tile's running max, the route's 8 pad keys)
+    against `_attn_kernel_bias` in interpret mode at (2, 256, 2, 72) → 120
+    keys, bf16: within K2_BODY_TOL, which lies inside chip_smoke.py's
+    BF16_TOL; in a row whose every key has a bias of −1e9 both give
+    Σv/128, below it 0."""
+    lengths, fill = K2_BODY_CASES[case]
+    rng = np.random.default_rng(41)
+    q, k, v = (x.astype(jnp.bfloat16) for x in _qkv(rng, 2, 256, 120, 2, 72))
+    if fill is None:
+        bias = _text_bias_np(lengths, 120).astype(jnp.bfloat16)
+    else:
+        bias = _text_bias_np(lengths, 120)
+        bias[0] = fill
+    want = np.asarray(jax_fused_attention(
+        *(jnp.asarray(x) for x in (q, k, v)), bias=jnp.asarray(bias), interpret=True),
+        np.float32)
+    as_t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(  # noqa: E731
+        torch.bfloat16 if x.dtype == jnp.bfloat16 else torch.float32)
+    got = _hopper_exact_body(*(as_t(x) for x in (q, k, v, bias)), n_pad=8).float()
+    want = torch.from_numpy(want)
+    atol = K2_BODY_TOL["share"] * float(want.std())
+    torch.testing.assert_close(got, want, atol=atol, rtol=K2_BODY_TOL["rtol"])
+    if fill == -1e9:
+        mean_v = as_t(v).float()[:1].sum(1, keepdim=True) / 128
+        torch.testing.assert_close(got[:1], mean_v.expand_as(got[:1]), atol=2**-7, rtol=2**-7)
+    elif fill == -2e9:
+        assert float(got[:1].abs().max()) == 0.0
+    bf16_atol, bf16_rtol = _chip_smoke_module().BF16_TOL
+    assert atol <= bf16_atol and K2_BODY_TOL["rtol"] <= bf16_rtol
+
+
+def test_hopper_k6_arithmetic_matches_flash_kernel_at_d72(monkeypatch):
+    """The Hopper body's K6 arithmetic without a bias (the max on the raw
+    scores, p = exp2(s·c − m·c) in one FFMA, rounded to bf16 against the
+    running max of each 128-key tile, the route's pad keys: 3200 keys pad
+    to 4608, n_pad 1408) against `_flash_kernel` in interpret mode at
+    (1, 64, 2, 72) → 3200 keys, bf16, where the reference rounds p against
+    the running max of each 1536-key block instead: the least atol per std
+    that passes beside 2^-7 relative stays below half of chip_smoke.py's
+    flash_bf16_tol share (0.025), and the emulation passes that tolerance."""
+    monkeypatch.setattr(jax_attention, "_ROWBLOCK_MAX_KV_ELEMS", 0)
+    rng = np.random.default_rng(42)
+    q, k, v = (x.astype(jnp.bfloat16) for x in _qkv(rng, 1, 64, 3200, 2, 72))
+    want = torch.from_numpy(np.asarray(jax_attention._flash_attention(
+        *(jnp.asarray(x) for x in (q, k, v)), None, interpret=True), np.float32))
+    as_t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)  # noqa: E731
+    got = _hopper_exact_body(*(as_t(x) for x in (q, k, v)), None, n_pad=1408).float()
+    least = _least_atol_per_std(got, want, 2.0 ** -7)
+    assert least <= 0.0125, least
+    atol, rtol = _chip_smoke_module().flash_bf16_tol(want)
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+    assert rtol == 2.0 ** -7
+
+
+# ---------------------------------------------------------------------------
+# scripts/probe_attention_body.py: its variant builds of the Hopper body
+# ---------------------------------------------------------------------------
+
+
+PROBE_VARIANTS = {name: edits for row in probe_attention_body.ROWS.values()
+                  for name, edits in row[4].items()}
+
+
+@pytest.mark.parametrize("variant", sorted(PROBE_VARIANTS))
+def test_probe_variants_edit_the_current_source(variant):
+    """Each probe variant's text edits still match csrc/attention_sm90.cu
+    and change it (a probe that no longer applies raises on the card)."""
+    src = (_build.CSRC_DIR / "attention_sm90.cu").read_text()
+    edits = PROBE_VARIANTS[variant]
+    assert probe_attention_body.variant_source(src, edits) != src
+    with pytest.raises(ValueError, match="does not match"):
+        probe_attention_body.variant_source(src.replace(edits[0][0], ""), edits)
+
+
+def test_probe_script_needs_a_card():
+    with pytest.raises(SystemExit, match="CUDA"):
+        probe_attention_body.main([])
