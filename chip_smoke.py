@@ -32,14 +32,20 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    bias run on the Hopper body (``csrc/attention_sm90.cu``: wgmma fed by
    TMA) — K1, K4 and K6 at head dims 72 and 128, K5 at 128 — and so do bf16
    calls with a key-padding bias on the single-tile route (K2, at 72 and
-   128); they are held against their plain versions at ragged shapes
-   (tq=30, tk=300 at d=72 and d=128; K6 also at 1600 keys, two of the
-   reference's 1536-key blocks; K2 with key-padding lengths [100, 200,
-   256]), logits near ±40 (log2) and q×1e4, and shown to reject a plain
-   version that drops or repeats one 128-key tile (the body's step) at 768
-   (K1), 4096 (K4), 4608 (K5), 9728 and 16384 (K6) keys; a call whose
-   operands TMA cannot map, or whose bias the body does not read (fp16),
-   raises there. The rest run on ``csrc/attention.cu``. The exact kernels
+   128) and on the clamp routes (K4 with a bias at 72 and 128, K5 with a
+   bias at 128); they are held against their plain versions at ragged
+   shapes (tq=30, tk=300 at d=72 and d=128; K6 also at 1600 keys, two of
+   the reference's 1536-key blocks; K2 with key-padding lengths [100, 200,
+   256]; K4 and K5 with biases in bf16 and fp32, per batch and broadcast
+   over it, at Tk=300, and K4 at PixArt-Σ-2048's cross-attention (2,
+   16384, 16, 72) → 120), logits near ±40 (log2) and q×1e4, and shown to
+   reject a plain version that drops or repeats one 128-key tile (the
+   body's step) at 768 (K1), 4096 (K4), 4608 (K5), 9728 and 16384 (K6)
+   keys; K4 and K5 with a bias also in all-masked text rows, whose output
+   must be Σv/Tk_pad within 2^-7 relative, a check shown to reject the
+   pad keys counted twice (Σv/(Tk_pad + n_pad)); a call whose operands TMA
+   cannot map, or whose bias the body does not read (fp16), raises there.
+   The rest run on ``csrc/attention.cu``. The exact kernels
    of both (K2 in bf16 on the Hopper body and in fp32 on attention.cu, K6
    with a bias) are also held against the plain versions in rows whose
    every key has a bias of −1e9 or −2e9, where the reference's pad keys
@@ -458,8 +464,29 @@ def attention_cases() -> None:
                    rnd(3, 256, 2, 72, dtype=dtype), rnd(3, 256, 2, 72, dtype=dtype),
                    key_padding_bias([100, 200, 256], 256, -1e9))
         if dtype == torch.bfloat16:
-            clamp_case("misaligned_rows_d72_key_padding", *misaligned,
-                       key_padding_bias([64, 50], 64, -1e9))
+            # K4 and K5 with a bias refuse what TMA cannot map and a bias
+            # they do not read, as K2 does
+            refused("attention_long_bias/bf16/misaligned_rows_d72_key_padding",
+                    transposed_attention, *misaligned, key_padding_bias([64, 50], 64, -1e9))
+            for name, fn, d in (("attention_long_bias", transposed_attention, 72),
+                                ("attention_rowblock_bias", rowblock_attention, 128)):
+                refused(f"{name}/bf16/fp16_bias_d{d}", fn,
+                        rnd(2, 16, 2, d, dtype=dtype), rnd(2, 120, 2, d, dtype=dtype),
+                        rnd(2, 120, 2, d, dtype=dtype),
+                        key_padding_bias([7, 60], 120, -1e4, torch.float16))
+            # the text bias in bf16, as the models make it, per batch and
+            # broadcast over it, at an unaligned Tk
+            for d in (72, 128):
+                clamp_case(f"ragged_tq30_tk300_key_padding_bf16_d{d}",
+                           rnd(3, 30, 2, d, dtype=dtype), rnd(3, 300, 2, d, dtype=dtype),
+                           rnd(3, 300, 2, d, dtype=dtype),
+                           key_padding_bias([7, 120, 300], 300, -10000.0, dtype))
+                clamp_case(f"batch_broadcast_bias_bf16_d{d}", rnd(3, 64, 2, d, dtype=dtype),
+                           rnd(3, 120, 2, d, dtype=dtype), rnd(3, 120, 2, d, dtype=dtype),
+                           key_padding_bias([60], 120, -10000.0, dtype))
+            clamp_case("key_padding_logits_times_6_d72", rnd(1, 16, 1, 72, dtype=dtype, scale=6.0),
+                       rnd(1, 256, 1, 72, dtype=dtype), rnd(1, 256, 1, 72, dtype=dtype),
+                       key_padding_bias([200], 256, -1e4, dtype))
         else:
             clamp_case("misaligned_rows_d72", *misaligned)
         clamp_case("q_times_1e4", rnd(1, 128, 1, 72, dtype=dtype, scale=1e4),
@@ -503,6 +530,15 @@ def attention_cases() -> None:
         rowblock_case("q_times_1e4", rnd(1, 16, 1, 128, dtype=dtype, scale=1e4),
                       rnd(1, 256, 1, 128, dtype=dtype), rnd(1, 256, 1, 128, dtype=dtype),
                       **({} if dtype == torch.bfloat16 else {"tol": HOT_FP32_TOL}))
+        if dtype == torch.bfloat16:
+            rowblock_case("ragged_tk300_key_padding_bf16_250_300",
+                          rnd(2, 30, 2, 128, dtype=dtype), rnd(2, 300, 2, 128, dtype=dtype),
+                          rnd(2, 300, 2, 128, dtype=dtype),
+                          key_padding_bias([250, 300], 300, -10000.0, dtype))
+            rowblock_case("batch_broadcast_bias_bf16_b3", rnd(3, 32, 2, 128, dtype=dtype),
+                          rnd(3, 256, 2, 128, dtype=dtype), rnd(3, 256, 2, 128, dtype=dtype),
+                          key_padding_bias([100], 256, -10000.0, dtype))
+            all_masked_rows(rnd)
 
         # the streaming exact softmax (K6) at the reference's
         # TestFlashAttention shapes (tests/test_ops.py:58-122), at their
@@ -535,6 +571,49 @@ def attention_cases() -> None:
                    rnd(2, 1600, 2, 72, dtype=dtype), rnd(2, 1600, 2, 72, dtype=dtype))
         flash_case("logits_times_6_d128", rnd(1, 16, 1, 128, dtype=dtype, scale=6.0),
                    rnd(1, 256, 1, 128, dtype=dtype), rnd(1, 256, 1, 128, dtype=dtype))
+
+
+def all_masked_rows(rnd) -> None:
+    """K4 and K5 with a bias in an all-masked text row (batch row 0 keeps
+    no key): every logit clamps at −100 and the reference's Tk_pad −
+    Tk pad keys weigh 2^-100 as well, so the output there is Σv/Tk_pad
+    (the keys past Tk at weight 0, the pad keys added once). Each case is
+    held against its plain version, its all-masked row against Σv/Tk_pad
+    within 2^-7 relative, and that check is shown to reject the pad keys
+    counted twice, Σv/(Tk_pad + n_pad) — which the std-scaled tolerance
+    alone passes at 120 keys."""
+    from ecad_tpu_torch.ops import (
+        rowblock_attention,
+        rowblock_attention_reference,
+        transposed_attention,
+        transposed_attention_reference,
+    )
+
+    bf = torch.bfloat16
+    row_tol = (1e-6, 2.0 ** -7)
+    for name, fn, plain, d, tk, fill, bias_dtype in (
+        ("attention_long_bias", transposed_attention, transposed_attention_reference,
+         72, 120, -10000.0, bf),
+        ("attention_long_bias", transposed_attention, transposed_attention_reference,
+         72, 300, -1e9, torch.float32),
+        ("attention_long_bias", transposed_attention, transposed_attention_reference,
+         128, 300, -10000.0, bf),
+        ("attention_rowblock_bias", rowblock_attention, rowblock_attention_reference,
+         128, 300, -10000.0, bf),
+        ("attention_rowblock_bias", rowblock_attention, rowblock_attention_reference,
+         128, 300, -1e9, torch.float32),
+    ):
+        case = f"{name}/bf16/all_masked_row_tk{tk}_{fill:g}_d{d}"
+        q = rnd(2, 256, 2, d, dtype=bf)
+        k, v = rnd(2, tk, 2, d, dtype=bf), rnd(2, tk, 2, d, dtype=bf)
+        bias = key_padding_bias([0, tk - 20], tk, fill, bias_dtype)
+        got = fn(q, k, v, bias)
+        compare(case, got, plain(q, k, v, bias), clamp_bf16_tol)
+        tk_pad = (tk + 127) // 128 * 128
+        mean_v = (v[:1].float().sum(1, keepdim=True) / tk_pad).expand_as(got[:1])
+        compare(f"{case}/mean_v", got[:1], mean_v, row_tol)
+        rejects(f"{case}/pad_keys_counted_twice", mean_v * tk_pad / (2 * tk_pad - tk),
+                mean_v, row_tol)
 
 
 def kernel_phase(b2: int, b2_1024: int) -> dict:
@@ -679,6 +758,23 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
     compare(f"attention_long/bf16/self_512_{b2}x1024x16x72", got["self_512"],
             transposed_attention_reference(q5, k5, v5), clamp_bf16_tol)
     q5t, k5t, v5t = (a.transpose(1, 2).contiguous() for a in (q5, k5, v5))
+    # K4 with a bias at PixArt-Σ-2048's cross-attention, 16384 queries to 120
+    # text keys, through the router
+    q2k = rnd(2 * BATCH_2048, 16384, h, d)
+    kc2k, vc2k = rnd(2 * BATCH_2048, l, h, d), rnd(2 * BATCH_2048, l, h, d)
+    bias2k = key_padding_bias([(7, 60, 120)[i % 3] for i in range(2 * BATCH_2048)], l,
+                              -10000.0, bf)
+    compare(f"attention_long_bias/bf16/cross_2048_{2 * BATCH_2048}x16384_to_120_key_padding",
+            fused_attention(q2k, kc2k, vc2k, bias2k),
+            transposed_attention_reference(q2k, kc2k, vc2k, bias2k), clamp_bf16_tol)
+    q2kt, kc2kt, vc2kt = (a.transpose(1, 2).contiguous() for a in (q2k, kc2k, vc2k))
+    timed_ms("attention_long_bias_2048", lambda: fused_attention(q2k, kc2k, vc2k, bias2k),
+             clocks=True)
+    timed_ms("attention_long_bias_2048/sdpa", lambda: F.scaled_dot_product_attention(
+        q2kt, kc2kt, vc2kt, attn_mask=bias2k))
+    REPORT["attention_long_bias_2048_bound_ms"] = bound(
+        nbytes(q2k, kc2k, vc2k, q2k, bias2k), 4 * 2 * BATCH_2048 * h * 16384 * l * d)
+    del q2k, kc2k, vc2k, bias2k, q2kt, kc2kt, vc2kt
     timed_ms("attention_long_512", lambda: fused_attention(q5, k5, v5))
     timed_ms("attention_long_512/plain", lambda: transposed_attention_reference(q5, k5, v5))
     timed_ms("attention_long_512/sdpa", lambda: F.scaled_dot_product_attention(q5t, k5t, v5t))
@@ -715,7 +811,7 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
                                  lambda: F.scaled_dot_product_attention(q4t, k4t, v4t),
                                  reps=5)),
         dict(name="attention_long_bias", route="cuda",
-             source="ecad_tpu_torch/csrc/attention.cu",
+             source="ecad_tpu_torch/csrc/attention_sm90.cu",
              replaces="ecad_tpu/ops/attention.py:285 (_transposed_kernel)",
              max_abs_err=err5,
              ms=timed_ms("attention_long_bias",
@@ -827,7 +923,7 @@ def flux_kernel_rows(rnd, bound, nbytes) -> list[dict]:
     b5b, by5b = bound(nbytes(q, k, v, o, bias), 4 * BATCH_FLUX_1024 * h * t1024 * t1024 * d)
     row5b = dict(
         name="attention_rowblock_bias", route="cuda",
-        source="ecad_tpu_torch/csrc/attention.cu",
+        source="ecad_tpu_torch/csrc/attention_sm90.cu",
         replaces="ecad_tpu/ops/attention.py:255 (_rowblock_kernel)",
         max_abs_err=err5b,
         ms=timed_ms("attention_rowblock_bias", lambda: rowblock_attention(q, k, v, bias),
@@ -1153,16 +1249,16 @@ ATTENTION_KERNELS = {
 }
 # the device kernel under each attention family of a served path's profile:
 # bf16 self-attention without a bias runs on the Hopper body
-# (csrc/attention_sm90.cu) at every side, and so does PixArt-256's
-# cross-attention with its text bias (K2); the cross-attention of the clamp
-# route (K4 with a bias, 1024² and 2048²) on attention.cu
+# (csrc/attention_sm90.cu) at every side, and so does the cross-attention
+# with its text bias: K2 at 256², K4 with a bias at 1024² and 2048² (the
+# profile files the bias forms apart by their template flag)
 SERVED_KERNELS = {
     "pixart256": {"attention": "attn_exact_sm90_kernel",
                   "attention_bias": "attn_exact_sm90_kernel"},
     "pixart1024": {"attention_long": "attn_clamp_sm90_kernel",
-                   "attention_long_bias": "attn_clamp_bf16_kernel"},
+                   "attention_long_bias": "attn_clamp_sm90_kernel"},
     "pixart2048": {"attention_flash": "attn_flash_sm90_kernel",
-                   "attention_long_bias": "attn_clamp_bf16_kernel"},
+                   "attention_long_bias": "attn_clamp_sm90_kernel"},
     "flux256": {"attention": "attn_exact_sm90_kernel"},
     "flux1024": {"attention_rowblock": "attn_rowblock_sm90_kernel"},
     "flux1536": {"attention_flash": "attn_flash_sm90_kernel"},

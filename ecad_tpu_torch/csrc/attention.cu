@@ -50,8 +50,9 @@
 //     does not: the reference's `*_fd` bodies mask their pad keys.) The
 //     bf16 calls at D=72 and 128 run on the Hopper body of attention_sm90.cu
 //     instead — without a bias K1, K4 and K6 (and K5 at 128), with a
-//     key-padding bias K2. Here remain K4, K5 and K6 with a bias, dense
-//     biases, fp32, the other head dims, and the harness's variants.
+//     key-padding bias K2 and K4 (and K5 at 128). Here remain K6 with a
+//     bias, dense biases, fp32, the other head dims, and the harness's
+//     variants.
 //
 // What bounds it on the H100. Exact path, at PixArt-256's shapes
 // (self-attention 256×256 and cross-attention 256→120, D=72, bf16): a

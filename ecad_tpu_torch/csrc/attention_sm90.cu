@@ -2,8 +2,9 @@
 // mbarriers, with a producer warpgroup and two consumer warpgroups. bf16 q,
 // k, v of shape (B, T, H, D), D = 72 or 128 (a template argument), in any
 // 16-byte-aligned strides, in two softmax modes (a template argument, as in
-// attention.cu) under four kernel names, one per route; the exact
-// single-tile kernel also takes a key-padding bias (a template flag):
+// attention.cu) under four kernel names, one per route; the single-tile
+// exact kernel and both clamp kernels also take a key-padding bias (a
+// template flag in the name, so that a profile files the two forms apart):
 //
 //   * exact:
 //     - `attn_flash_sm90_kernel` (K6) replaces the streaming kernel
@@ -42,19 +43,28 @@
 //     reference's s·scale − 1e9 rounds to −1e9 while |s·scale| < 32: the
 //     output is Σv/(Tk + n_pad) on both sides, and 0 below −1e9.
 //   * clamp:
-//     - `attn_rowblock_sm90_kernel` (K5) replaces the row-block kernel
-//       `_rowblock_kernel_nobias` (:274, launched :534) at D=128 — FLUX.1-dev
-//       at 1024², 4608 joint tokens;
-//     - `attn_clamp_sm90_kernel` (K4) replaces the transposed kernel
-//       `_transposed_kernel_nobias` (:344, launched :420) at D=72 (and 128)
-//       — PixArt's self-attention at 1024² (2B, 4096, 16, 72) and 512².
+//     - `attn_rowblock_sm90_kernel<128, false>` (K5) replaces the row-block
+//       kernel `_rowblock_kernel_nobias` (:274, launched :534) at D=128 —
+//       FLUX.1-dev at 1024², 4608 joint tokens; `<128, true>` replaces
+//       `_rowblock_kernel` (:255, launched :563), the same with a
+//       key-padding bias;
+//     - `attn_clamp_sm90_kernel<D, false>` (K4) replaces the transposed
+//       kernel `_transposed_kernel_nobias` (:344, launched :420) at D=72
+//       (and 128) — PixArt's self-attention at 1024² (2B, 4096, 16, 72) and
+//       512²; `<D, true>` replaces `_transposed_kernel` (:285, launched
+//       :449) — PixArt's text cross-attention at 1024² (2B, 4096, 16, 72)
+//       and PixArt-Σ's at 2048² (2B, 16384, 16, 72), each to 120 keys.
 //     q times bf16(scale·log2e), rounded to bf16 before the product
-//     (:378-383, :491-492), p = exp2(clip(s, −100, 80)) with no max and no
-//     rescale, Σp in fp32, bf16 p into p·v, one divide. Keys past Tk weigh
-//     0 here; the reference pads them to Tk_pad = round_up(Tk, 128) with a
-//     −1e9 bias, which clamps to 2^-100 each (:429-431, :542-546), so
-//     (Tk_pad − Tk)·2^-100 is added to Σp: the two then agree in a row whose
-//     every logit is clamped at −100 as well.
+//     (:378-383, :491-492), s = q·kᵀ in fp32, with a bias plus
+//     fp32(bias·log2e) in a plain add (the reference's s + b_ref[...]: an
+//     FFMA would round the sum differently), p = exp2(clip(s, −100, 80))
+//     with no max and no rescale, Σp in fp32, bf16 p into p·v, one divide.
+//     Keys past Tk weigh 0 here, with a bias too (its −∞ there would clip
+//     to −100); the reference pads them to Tk_pad = round_up(Tk, 128) with
+//     a −1e9 bias, which clamps to 2^-100 each (:429-431, :542-546), so
+//     (Tk_pad − Tk)·2^-100 is added to Σp once: the two then agree in a row
+//     whose every logit is clamped at −100 as well (an all-masked text
+//     row: Σv/Tk_pad on both sides).
 //
 // What bounds it on the H100. K5 at FLUX-1024 (1, 4608, 24, 128): 4·B·H·
 // Tq·Tk·D = 2.61e11 flops on the 113 MB of q, k, v and o, 2300 flops per
@@ -62,7 +72,8 @@
 // ms at 989 TFLOP/s. K6 at FLUX-1536 (1, 9728, 24, 128): 1.16e12 flops on
 // 239 MB, 1.18 ms. K6 at PixArt-2048 (2, 16384, 16, 72): 2.47e12 flops on
 // 302 MB, 2.50 ms. K4 at PixArt-1024 (4, 4096, 16, 72): 3.09e11 flops on
-// 151 MB, 0.313 ms. K1 at FLUX-256 (4, 768, 24, 128): 2.9e10 flops on 38
+// 151 MB, 0.313 ms; with a bias, to 120 text keys: 1.4e10 flops on the
+// 78 MB of q and o, 0.023 ms by bytes. K1 at FLUX-256 (4, 768, 24, 128): 2.9e10 flops on 38
 // MB, 0.029 ms by operations; at PixArt-256 (16, 256, 16, 72): 4.8e9 flops
 // on 38 MB, 0.011 ms by bytes; K2 there, 256 → 120 keys: 2.3e9 flops on 28
 // MB, 0.008 ms by bytes. So the tensor cores bound all but the last two,
@@ -75,29 +86,36 @@
 // The design, in what it does about that:
 //   * Only `wgmma` reaches the full tensor-core rate on Hopper. A block has
 //     three warpgroups (384 threads): a producer, which gives its
-//     registers away (`setmaxnreg.dec` to 40) and issues every TMA load
-//     from one thread, and two consumers of 64 query rows each
+//     registers away (`setmaxnreg.dec` to 40), issues every TMA load from
+//     one thread and has its other three warps (the helpers) scale q and
+//     write the bias (below), and two consumers of 64 query rows each
 //     (`setmaxnreg.inc` to 232); K6 at D=72 has three consumers (512
 //     threads, 24 and 160 registers; see below). A work item is one
-//     (batch·head, 64·consumers-row query tile). Each consumer runs s = q·kᵀ as `wgmma.mma_async`
-//     m64n128k16 (eight k-steps at D=128, five at D=72) with q and k from
-//     shared memory, the softmax in registers on the accumulator layout
-//     (row reductions over the quad, as attention.cu does), and o += p·v
-//     as eight k-steps of m64n128k16 (D=128) or m64n64k16 + m64n8k16
-//     (D=72) with p as the register A operand (bf16, packed from the fp32
-//     scores) and v from shared memory, read MN-major (the transpose bit
-//     for 16-bit types), so v stays row-major. Each k or v element is read from shared memory once
-//     per consumer warpgroup, where the mma.sync body re-fetched it per
-//     16-row warp through ldmatrix.
+//     (batch·head, 64·consumers-row query tile). Each consumer runs s =
+//     q·kᵀ as `wgmma.mma_async` m64n128k16 (eight k-steps at D=128, five
+//     at D=72) with q and k from shared memory, the softmax in registers
+//     on the accumulator layout (row reductions over the quad, as
+//     attention.cu does), and o += p·v as eight k-steps of m64n128k16
+//     (D=128) or m64n64k16 + m64n8k16 (D=72) with p as the register A
+//     operand (bf16, packed from the fp32 scores) and v from shared
+//     memory, read MN-major (the transpose bit
+//     for 16-bit types), so v stays row-major. Each k or v element is read
+//     from shared memory once per consumer warpgroup, where the mma.sync
+//     body re-fetched it per 16-row warp through ldmatrix.
 //   * Loads cost the consumers nothing: TMA copies whole tiles and
 //     reports to an mbarrier. The q tile (128 rows) is loaded once per
 //     item; k and v stream through a ring of 128-key stages (two at D=128,
 //     three at D=72), each with a full barrier (the producer's expected
 //     bytes) and an empty barrier (all 256 consumer threads arrive once
 //     they are done with it), so the next tiles' copies run under this
-//     tile's products. 192 KB of shared memory at D=128, 160 KB at D=72
-//     (180 KB with three consumers); the registers allow one block per SM
-//     either way.
+//     tile's products. The o tile leaves the same way: each consumer
+//     writes its 64 rows, in bf16, to staging rows in shared memory and
+//     one of its threads stores them with TMA (`cp.async.bulk.tensor`,
+//     whose completion only the next item's staging waits for), where 32
+//     scattered 4-byte stores a thread were K4-with-a-bias's largest cost
+//     (scratch probes on the card). 226 KB of shared memory at D=128,
+//     181 KB at D=72 (210 KB with three consumers); the registers allow one
+//     block per SM either way.
 //   * At D=72 the loads are the limit, not the products: with a row
 //     loaded as two 64-column boxes (the body's first form at D=72) the
 //     second box is 56 columns of zero-fill, and TMA took as long over it
@@ -123,33 +141,45 @@
 //     third independent chain for the tensor cores, and each k/v tile
 //     serves 1.5 times the rows. Its registers fit 160 a thread (s, o and
 //     p take 132); q's tile is 192 rows (a 24 KB box, a 3 KB tail).
-//   * Short key counts (K1: 6 key tiles at FLUX-256, 2 at PixArt-256) leave
-//     the q load, the ring's fill and drain and the o store in the open
-//     when a block owns one item. So a block walks the items from
-//     blockIdx.x in steps of gridDim.x, and K1's launch is persistent: one
-//     block per SM. The ring runs on across items, and q has two buffers
-//     with full and empty barriers of their own (the consumers arrive on
-//     the empty one after their last q·kᵀ of an item), so the producer
-//     loads the next item's q and first k/v tiles while the consumers work
-//     on this one. The other kernels launch one block per item (a grid of
-//     items), as before.
-//   * The bias (K2) is read once per key, not once per score: a consumer
-//     thread holds the same 32 columns of a key tile for both of its rows,
-//     so it reads those 32 values once per tile through the read-only path,
-//     in the bias's own dtype (bf16 widens exactly), and turns them into
-//     bias·log2e (−∞ past Tk) once the tile's scores are there; the
-//     softmax folds them into the FFMA it does anyway. The 32 loads have no
-//     branch between them (past Tk the index is clamped) and at D=72 are
-//     issued one tile ahead — right after the softmax of the tile before,
-//     or of the item before — so their latency hides under p·v, the
-//     epilogue and the next q's wait (with a branch per load, their
-//     latencies added up, and they were K2's loss to K1). At D=128 they
-//     start with the tile they serve: 32 more live registers would spill
-//     there.
-//     Plain loads: the bias needs no alignment beyond its element's and
-//     takes any batch and key stride (0 where it broadcasts), so a bias
-//     TMA could not map (an odd Tk with a batch stride) runs on this body
-//     all the same.
+//   * Short key counts (K1: 6 key tiles at FLUX-256, 2 at PixArt-256; K4
+//     with a bias: one tile of 120 text keys) leave the q load, the ring's
+//     fill and drain and the o store in the open when a block owns one
+//     item. So a block walks the items from blockIdx.x in steps of
+//     gridDim.x, and the launch is persistent, one block per SM, for K1 and
+//     K2 and for any call of one key tile (Tk ≤ 128), which against one
+//     block per item takes about two fifths off K4 with a bias
+//     (`one_block_per_item`). The ring runs
+//     on across items, and q has two buffers with full and empty barriers
+//     of their own (the consumers arrive on the empty one after their last
+//     q·kᵀ of an item), so the producer loads the next item's q and first
+//     k/v tiles while the consumers work on this one. The other calls
+//     launch one block per item (a grid of items), as before. At any time
+//     the blocks work on neighbouring items, which share their (batch,
+//     head) and its k/v tiles in L2. A run of consecutive items a block
+//     (`items_in_runs` in scripts/probe_attention_body.py) makes K4 with a
+//     bias, whose k/v tiles all fit in L2 (2.2 MB at PixArt-1024's
+//     cross-attention), a little faster, but K1 at FLUX-256 much slower:
+//     there the blocks then hold ~100 (batch, head)s' k/v at once, 37 MB.
+//     For K4 with a bias a variant that loads no k/v tile after the ring's
+//     first is only a few per cent faster (`no_kv_loads`): only q and o
+//     come from and go to device memory.
+//   * The bias (K2; K4 and K5 with a bias) is read once per key, not once
+//     per score, and off the consumers' path: for each key tile the
+//     helpers write fp32(bias·log2e), −∞ past Tk, into the tile's 512-byte
+//     slot beside its ring stage, once the stage is free, and arrive on
+//     the stage's k_full (so it completes when k has landed and the bias is
+//     there); a consumer thread reads its 32 columns of the slot (the same
+//     for both of its rows) as 16 eight-byte shared loads. The exact
+//     softmax folds them into the FFMA it does anyway, the clamp softmax
+//     adds them to its scores (`__fadd_rn`: a plain add, as the
+//     reference's). Read by the consumers from global memory instead (the
+//     body's first form), 32 loads a thread a tile were most of K5's loss
+//     with a bias at D=128 and a part of K2's at D=72. The helpers' loads
+//     are plain
+//     ones in the bias's own dtype (bf16 widens exactly): the bias needs no
+//     alignment beyond its element's and takes any batch and key stride (0
+//     where it broadcasts), so a bias TMA could not map (an odd Tk with a
+//     batch stride) runs on this body all the same.
 //
 // Where trouble was met, and what the code does about it:
 //   1. The tensor map comes from the driver API (`cuTensorMapEncodeTiled`);
@@ -181,16 +211,22 @@
 //     item's rows (128, or 192 for K6 at D=72), which the C entry sets in
 //     q's maps; the wrapper's box arguments are those of k and v.
 //   4. K4's and K5's pre-scaled q is rounded to bf16 before the product:
-//     each consumer scales its own 64 rows of the q tile (and at D=72 of
-//     its tail) in place in shared memory (elementwise, so the swizzle does
-//     not matter), then a `fence.proxy.async.shared::cta` and a named
-//     barrier over its 128 threads order those generic-proxy writes before
-//     the first wgmma, and before a later item's TMA write of that q
-//     buffer.
+//     the helpers scale the whole q tile in place in shared memory once it
+//     has landed (elementwise, so the swizzle does not matter), then a
+//     `fence.proxy.async.shared::cta` and their arrival on the buffer's
+//     q_ready barrier, which the consumers wait on instead of q_full,
+//     order those generic-proxy writes before the first wgmma, and before
+//     a later item's TMA write of that q buffer. The consumers scaled their
+//     own rows before (the body's first form), on their path: the second
+//     largest piece of K4 with a bias. The staging rows of the o store are ordered the same
+//     way: the consumer's writes, a proxy fence and a named barrier over
+//     its 128 threads before the TMA store; its issuing thread waits for
+//     the store to have read them before the next item's writes.
 //   5. Ragged edges: TMA zero-fills the rows past Tq and Tk (and counts
-//     their bytes toward the barrier). Rows past Tq are not stored; keys
-//     past Tk get p = 0 (clamp) or −∞ before the max (exact) by bounds,
-//     in the last key tile only (with a bias, −∞ through the bias).
+//     their bytes toward the barrier), and does not store rows past Tq
+//     (outside o's map); keys past Tk get p = 0 (clamp) or −∞ before the
+//     max (exact) by bounds, in the last key tile only (with a bias in
+//     the exact mode, −∞ through the bias).
 //   6. The overlap of exp2 with the products is the intra-warpgroup one
 //     above; the registers of the p operand and of the accumulators are
 //     fenced (an empty asm that reads and writes them) after each
@@ -219,6 +255,7 @@ namespace {
 
 constexpr int kBlockN = 128;  // keys per tile
 constexpr int kQBufs = 2;  // q tiles: the next item's loads while this one runs
+constexpr int kHelperThreads = 96;  // the producer warpgroup's warps 1-3
 
 // A tile of `rows` rows (128 keys of k or v; 64 query rows per consumer
 // warpgroup of q) in shared memory. D=128: two 64-column boxes under the
@@ -242,15 +279,19 @@ struct TileOf {
 };
 
 // The shared memory of a block with NC consumer warpgroups (NC·64 query
-// rows a work item): the q buffers, the k and v stages, the barriers (q,
-// k, v: full and empty), and 1024 bytes to align the base.
+// rows a work item): the q buffers, the k and v stages, each consumer's
+// staging rows for the o store (64 × D bf16), each stage's bias slot (128
+// fp32), the barriers (q: full, empty and ready; k, v: full and empty),
+// and 1024 bytes to align the base: 226 KB at D=128, 181 KB at D=72 (210
+// KB with three consumers).
 template <int D, int NC>
 struct Smem {
   static constexpr TileOf<D> kQ{64 * NC}, kKV{kBlockN};
   static constexpr int kStages = D == 128 ? 2 : 3;
-  static constexpr int kBarriers = 2 * kQBufs + 4 * kStages;
-  static constexpr int kBytes =
-      kQBufs * kQ.bytes() + 2 * kStages * kKV.bytes() + kBarriers * 8 + 1024;
+  static constexpr int kOut = 64 * D * 2;  // 16 KB at D=128, 9 KB at D=72
+  static constexpr int kBarriers = 3 * kQBufs + 4 * kStages;
+  static constexpr int kBytes = kQBufs * kQ.bytes() + 2 * kStages * kKV.bytes() + NC * kOut +
+                                kStages * kBlockN * 4 + kBarriers * 8 + 1024;
 };
 constexpr int kBoxBytes = TileOf<72>{kBlockN}.box();    // 16 KB: a k or v tile's 64-column box
 constexpr int kTailBytes = TileOf<72>{kBlockN}.tail();  // 2 KB: its 8-column tail at D=72
@@ -264,11 +305,10 @@ constexpr float kPadScoreLog2 = -1e9f * kLog2e;
 enum Mode : int { kExact = 0, kClamp = 1 };
 
 struct Params {
-  __nv_bfloat16* o;
-  long long o_sb, o_st, o_sh;  // element strides of o (B, T, H, D); D has stride 1
-  // the key-padding bias (B|1, 1, 1, Tk) of the exact single-tile kernel's
-  // bias form, bf16 or fp32 (bias_bf16), with its element strides over the
-  // batch and the keys (0 where it broadcasts); null elsewhere
+  // the key-padding bias (B|1, 1, 1, Tk) of a kernel's bias form (exact
+  // single-tile, clamp transposed or row-block), bf16 or fp32 (bias_bf16),
+  // with its element strides over the batch and the keys (0 where it
+  // broadcasts); null elsewhere
   const void* bias;
   long long bias_sb, bias_sk;
   int bias_bf16;
@@ -309,6 +349,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 }
 
 // --- TMA --------------------------------------------------------------------
+
+// One box of a 4-D map out of shared memory, in the thread's bulk group.
+__device__ __forceinline__ void tma_store(uint32_t src, const CUtensorMap* map, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
 
 // One box of a 4-D map into shared memory; completion counts its bytes
 // on `bar`.
@@ -458,13 +508,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // at row 16·(t / 32) + t % 32 / 4 + 8·(e / 2) and column 8j + 2·(t % 4) +
 // e % 2 (j < 16): two rows, 32 scores of each.
 
-// Clamp: p = exp2(clip(s, −100, 80)) in place, 0 past Tk; Σp into l.
-template <bool MASK>
-__device__ __forceinline__ void softmax_clamp(float (&s)[64], float (&l)[2], int col0, int Tk) {
+// Clamp: p = exp2(clip(s, −100, 80)) in place, 0 past Tk; Σp into l. With
+// a key-padding bias, s + b2 first (b2 holds fp32(bias·log2e), −∞ past Tk):
+// a plain add, never fused with b2's product into an FFMA; a key past Tk
+// still weighs 0, not the 2^-100 its −∞ would clip to, since the epilogue
+// adds the reference's pad keys.
+template <bool MASK, bool BIAS>
+__device__ __forceinline__ void softmax_clamp(float (&s)[64], const float (&b2)[BIAS ? 32 : 1],
+                                              float (&l)[2], int col0, int Tk) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
     const int col = col0 + (i >> 2) * 8 + (i & 1);
-    float p = ex2(fminf(fmaxf(s[i], kClampLo), kClampHi));
+    const float x = BIAS ? __fadd_rn(s[i], b2[BIAS ? 2 * (i >> 2) + (i & 1) : 0]) : s[i];
+    float p = ex2(fminf(fmaxf(x, kClampLo), kClampHi));
     if (MASK && col >= Tk) p = 0.f;
     s[i] = p;
     l[(i >> 1) & 1] += p;
@@ -534,48 +590,51 @@ __device__ __forceinline__ void softmax_exact_bias(float (&s)[64], const float (
   }
 }
 
-// The bias of this thread's 32 columns of the key tile from column col0
-// (raw[2j + e] for column col0 + 8j + e), read once per key tile through
-// the read-only path in the bias's own dtype: 32 independent loads, all in
-// bounds (past Tk the index is clamped, and `bias_log2` masks the value),
-// with no branch between them, so their latencies overlap.
-__device__ __forceinline__ void load_bias(uint32_t (&raw)[32], const Params& p, int b, int col0) {
-  if (p.bias_bf16) {
-    const unsigned short* row = static_cast<const unsigned short*>(p.bias) + b * p.bias_sb;
-#pragma unroll
-    for (int i = 0; i < 32; ++i)
-      raw[i] = __ldg(row + min(col0 + (i >> 1) * 8 + (i & 1), p.Tk - 1) * p.bias_sk);
-  } else {
-    const unsigned int* row = static_cast<const unsigned int*>(p.bias) + b * p.bias_sb;
-#pragma unroll
-    for (int i = 0; i < 32; ++i)
-      raw[i] = __ldg(row + min(col0 + (i >> 1) * 8 + (i & 1), p.Tk - 1) * p.bias_sk);
+// One key tile's bias in the log2 domain, fp32(bias·log2e) for key col0 + i
+// (−∞ past Tk), written into the tile's slot by the producer's helper
+// thread `ht` (of kHelperThreads): plain loads in the bias's own dtype
+// (bf16 widens exactly: its bits are an fp32's upper half), any batch and
+// key stride.
+__device__ __forceinline__ void write_bias(float* slot, const Params& p, int b, int col0,
+                                           int ht) {
+  const unsigned short* const bf16_bias = static_cast<const unsigned short*>(p.bias);
+  const float* const f32_bias = static_cast<const float*>(p.bias);
+  for (int i = ht; i < kBlockN; i += kHelperThreads) {
+    const int col = col0 + i;
+    float x = -INFINITY;
+    if (col < p.Tk) {
+      const long long at = b * p.bias_sb + col * p.bias_sk;
+      x = p.bias_bf16 ? __uint_as_float((uint32_t)__ldg(bf16_bias + at) << 16)
+                      : __ldg(f32_bias + at);
+      x *= kLog2e;
+    }
+    slot[i] = x;
   }
 }
 
-// `load_bias`'s values in the log2 domain: bf16 widened exactly (its bits
-// are an fp32's upper half), times log2e, −∞ past Tk.
-__device__ __forceinline__ void bias_log2(float (&b2)[32], const uint32_t (&raw)[32],
-                                          int bias_bf16, int col0, int Tk) {
+// This consumer thread's 32 columns of a key tile's bias slot (b2[2j + e]
+// for column col_t + 8j + e): 16 eight-byte loads from shared memory.
+__device__ __forceinline__ void read_bias(float (&b2)[32], const float* slot, int col_t) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const float x = __uint_as_float(bias_bf16 ? raw[i] << 16 : raw[i]);
-    b2[i] = col0 + (i >> 1) * 8 + (i & 1) < Tk ? x * kLog2e : -INFINITY;
+  for (int j = 0; j < 16; ++j) {
+    const float2 x = *reinterpret_cast<const float2*>(slot + col_t + 8 * j);
+    b2[2 * j] = x.x;
+    b2[2 * j + 1] = x.y;
   }
 }
 
-// One key tile's softmax, masked only where the tile passes Tk (with a
-// bias, through the bias b2).
+// One key tile's softmax, masked only where the tile passes Tk (in the
+// exact mode with a bias, through the bias b2).
 template <int MODE, bool BIAS>
 __device__ __forceinline__ void softmax_tile(float (&s)[64], const float (&b2)[BIAS ? 32 : 1],
                                              float (&m)[2], float (&l)[2], float (&alpha)[2],
                                              float qk_scale, int k0, int col_t, int Tk) {
   const bool edge = k0 + kBlockN > Tk;
-  if constexpr (BIAS) {
+  if constexpr (MODE == kClamp) {
+    if (edge) softmax_clamp<true, BIAS>(s, b2, l, k0 + col_t, Tk);
+    else softmax_clamp<false, BIAS>(s, b2, l, k0 + col_t, Tk);
+  } else if constexpr (BIAS) {
     softmax_exact_bias(s, b2, m, l, alpha, qk_scale);
-  } else if constexpr (MODE == kClamp) {
-    if (edge) softmax_clamp<true>(s, l, k0 + col_t, Tk);
-    else softmax_clamp<false>(s, l, k0 + col_t, Tk);
   } else {
     if (edge) softmax_exact<true>(s, m, l, alpha, qk_scale, k0 + col_t, Tk);
     else softmax_exact<false>(s, m, l, alpha, qk_scale, k0 + col_t, Tk);
@@ -597,7 +656,6 @@ __device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&p)[8][4]
 // parameter space).
 template <int D, int MODE, bool BIAS, int NC>
 __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Params& p) {
-  static_assert(!BIAS || MODE == kExact, "the bias is added in the exact mode");
   static_assert(NC == 2 || NC == 3, "two or three consumer warpgroups");
   constexpr int kBlockM = 64 * NC;  // query rows per work item
   constexpr int kConsumerThreads = 128 * NC;
@@ -606,8 +664,11 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
   constexpr int kProducerRegs = NC == 2 ? 40 : 24, kConsumerRegs = NC == 2 ? 232 : 160;
   constexpr int kQkSteps = (D + 15) / 16;  // k16 steps of q·kᵀ: 8 at D=128, 5 at D=72
   constexpr int kAcc = D / 2;             // a thread's fp32 accumulators of o (64 × D)
-  constexpr TileOf<D> kQ = Smem<D, NC>::kQ, kKV = Smem<D, NC>::kKV;
-  constexpr int kStages = Smem<D, NC>::kStages;
+  using S = Smem<D, NC>;
+  constexpr TileOf<D> kQ = S::kQ, kKV = S::kKV;
+  constexpr int kStages = S::kStages;
+  // the producer's helper warps scale q (clamp) and write the bias (BIAS)
+  constexpr bool kHelpers = MODE == kClamp || BIAS;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows of 128 bytes
   const uint32_t raw = smem_u32(smem_raw);
@@ -616,13 +677,18 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
   auto q_s = [&](int qb) { return base + qb * kQ.bytes(); };
   auto k_s = [&](int s) { return base + kQBufs * kQ.bytes() + s * kKV.bytes(); };
   auto v_s = [&](int s) { return k_s(kStages + s); };
-  const uint32_t bars = k_s(2 * kStages);
+  auto out_s = [&](int c) { return k_s(2 * kStages) + c * S::kOut; };
+  auto bias_slot = [&](int s) {
+    return reinterpret_cast<float*>(gbase + (out_s(NC) - base) + s * kBlockN * 4);
+  };
+  const uint32_t bars = out_s(NC) + kStages * kBlockN * 4;
   auto q_full = [&](int qb) { return bars + 8 * qb; };
   auto q_empty = [&](int qb) { return bars + 8 * (kQBufs + qb); };
-  auto k_full = [&](int s) { return bars + 8 * (2 * kQBufs + s); };
-  auto v_full = [&](int s) { return bars + 8 * (2 * kQBufs + kStages + s); };
-  auto k_empty = [&](int s) { return bars + 8 * (2 * kQBufs + 2 * kStages + s); };
-  auto v_empty = [&](int s) { return bars + 8 * (2 * kQBufs + 3 * kStages + s); };
+  auto q_ready = [&](int qb) { return bars + 8 * (2 * kQBufs + qb); };
+  auto k_full = [&](int s) { return bars + 8 * (3 * kQBufs + s); };
+  auto v_full = [&](int s) { return bars + 8 * (3 * kQBufs + kStages + s); };
+  auto k_empty = [&](int s) { return bars + 8 * (3 * kQBufs + 2 * kStages + s); };
+  auto v_empty = [&](int s) { return bars + 8 * (3 * kQBufs + 3 * kStages + s); };
 
   const int n_qt = (p.Tq + kBlockM - 1) / kBlockM;
   const int n_tiles = (p.Tk + kBlockN - 1) / kBlockN;
@@ -632,9 +698,11 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
     for (int qb = 0; qb < kQBufs; ++qb) {
       mbar_init(q_full(qb), 1);
       mbar_init(q_empty(qb), kConsumerThreads);
+      mbar_init(q_ready(qb), kHelperThreads);
     }
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(k_full(s), 1);
+      // with a bias, the helpers' arrivals too: the tile's bias is written
+      mbar_init(k_full(s), 1 + (BIAS ? kHelperThreads : 0));
       mbar_init(v_full(s), 1);
       mbar_init(k_empty(s), kConsumerThreads);
       mbar_init(v_empty(s), kConsumerThreads);
@@ -668,6 +736,48 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
           tma_tile<D>(v_s(s), kKV, &maps[2], &maps[5], v_full(s), h, j * kBlockN, b);
         }
       }
+    } else if (kHelpers && threadIdx.x >= 128 - kHelperThreads) {
+      // helpers (warps 1-3): per item, the bias of its first key tile, then
+      // q × bf16(scale·log2e) rounded to bf16 in place over the whole q
+      // tile (elementwise, so the swizzle does not matter), a proxy fence
+      // and q_ready, then the bias of its other key tiles. A tile's bias goes
+      // into its stage's slot once the stage is free, then the helpers arrive
+      // on its k_full. The first tile's stage is freed by earlier tiles (none
+      // of which waits for this q), so its bias is written before q comes:
+      // the bias loads do not lengthen the wait for a one-tile item.
+      const int ht = threadIdx.x - (128 - kHelperThreads);
+      int g = 0, it = 0;
+      auto bias_tile = [&](int b, int j) {
+        const int s = g % kStages;
+        mbar_wait(k_empty(s), ((g / kStages) & 1) ^ 1);  // the first round finds it free
+        write_bias(bias_slot(s), p, b, j * kBlockN, ht);
+        mbar_arrive(k_full(s));
+        ++g;
+      };
+      for (int item = blockIdx.x; item < p.n_items; item += gridDim.x, ++it) {
+        const int qb = it % kQBufs;
+        const int b = item / n_qt / p.H;
+        if constexpr (BIAS) bias_tile(b, 0);
+        if constexpr (MODE == kClamp) {
+          mbar_wait(q_full(qb), (it / kQBufs) & 1);
+          uint4* const q = reinterpret_cast<uint4*>(gbase + (q_s(qb) - base));
+          for (int i = ht; i < kQ.load() / 16; i += kHelperThreads) {
+            uint4 x = q[i];
+            uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&w[e]);
+              w[e] = pack_bf16(__low2float(v) * p.scale, __high2float(v) * p.scale);
+            }
+            q[i] = x;
+          }
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          mbar_arrive(q_ready(qb));
+        }
+        if constexpr (BIAS) {
+          for (int j = 1; j < n_tiles; ++j) bias_tile(b, j);
+        }
+      }
     }
     return;
   }
@@ -677,8 +787,8 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
   const int c = wg - 1;
   const int t = threadIdx.x % 128;
   const int lane = t % 32;
-  const int row_t = 64 * c + 16 * (t / 32) + lane / 4;  // this thread's first row in the tile
-  const int col_t = 2 * (lane % 4);                     // its first column in each 8-column block
+  const int row_c = 16 * (t / 32) + lane / 4;  // this thread's first row of the consumer's 64
+  const int col_t = 2 * (lane % 4);            // its first column in each 8-column block
 
   // descriptors: q and k K-major (8-row groups 1024 bytes apart in a
   // swizzled box, this consumer's 64 rows of q 8 KB on per consumer; at D=72
@@ -715,19 +825,17 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
     asm volatile("bar.sync %0, %1;\n" ::"n"(1 + NC), "n"(kConsumerThreads) : "memory");
   }
   const float qk_scale = MODE == kExact ? p.scale * kLog2e : 1.f;
+  // the clamp mode's q is read once the helpers have scaled it
+  auto q_in = [&](int qb) { return MODE == kClamp ? q_ready(qb) : q_full(qb); };
+  // this consumer's staging rows for the o store (64 × D bf16: at D=128 two
+  // 64-column boxes under the 128-byte swizzle, at D=72 rows of 144 bytes)
+  const uint32_t out_tile = out_s(c);
+  auto out_at = [&](int row, int jb) {
+    return D == 128 ? (jb / 8) * 8192 + row * 128 + (((jb % 8) ^ (row % 8)) * 16) + 2 * col_t
+                    : row * 144 + jb * 16 + 2 * col_t;
+  };
 
-  // the bias of this thread's columns of a key tile, as loaded and in the
-  // log2 domain. At D=72 the loads run one tile ahead: the next tile's, or
-  // the next item's first, right after a tile's softmax. At D=128, whose
-  // accumulators take 28 more registers, those 32 would spill: there each
-  // tile's loads start with the tile.
-  constexpr bool kBiasAhead = D == 72;
-  uint32_t braw[BIAS ? 32 : 1];
   float b2[BIAS ? 32 : 1];
-  auto batch_of = [&](int item) { return item / n_qt / p.H; };
-  if constexpr (BIAS && kBiasAhead) {
-    if ((int)blockIdx.x < p.n_items) load_bias(braw, p, batch_of(blockIdx.x), col_t);
-  }
   int g = 0, it = 0;
   for (int item = blockIdx.x; item < p.n_items; item += gridDim.x, ++it, g += n_tiles) {
     const int bh = item / n_qt;
@@ -735,32 +843,7 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
     const int q0 = (item % n_qt) * kBlockM;
     const int qb = it % kQBufs;
     const uint32_t q_tile = q_s(qb);
-
-    mbar_wait(q_full(qb), (it / kQBufs) & 1);
-    if constexpr (MODE == kClamp) {
-      // q × bf16(scale·log2e), rounded to bf16, in place: this warpgroup's
-      // 64 rows are bytes [8192c, 8192c + 8192) of each box, or at D=72 of
-      // the first box, and bytes [1024c, 1024c + 1024) of the tail
-      constexpr int kChunks = D == 128 ? 1024 : 512 + 64;  // 16-byte chunks of 64 rows
-#pragma unroll
-      for (int i = 0; i < (kChunks + 127) / 128; ++i) {
-        const int chunk = t + 128 * i;
-        if (chunk >= kChunks) continue;
-        uint4* ptr = reinterpret_cast<uint4*>(
-            gbase + (q_tile - base) + (chunk < 512 ? 8192 * c + chunk * 16
-                                 : kQ.box() + (D == 128 ? 8192 : 1024) * c + (chunk - 512) * 16));
-        uint4 x = *ptr;
-        uint32_t* w = reinterpret_cast<uint32_t*>(&x);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&w[e]);
-          w[e] = pack_bf16(__low2float(v) * p.scale, __high2float(v) * p.scale);
-        }
-        *ptr = x;
-      }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
-    }
+    mbar_wait(q_in(qb), (it / kQBufs) & 1);
 
     float o[kAcc];
 #pragma unroll
@@ -770,19 +853,10 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
     float m[2] = {-INFINITY, -INFINITY};  // with a bias, in the log2 domain
     float l[2] = {0.f, 0.f};  // this thread's partial sums, reduced at the end
     float alpha[2] = {1.f, 1.f};
-    // after tile j's softmax (D=72): the loads of the bias of the tile after it
-    auto prefetch_bias = [&](int j) {
-      if constexpr (BIAS && kBiasAhead) {
-        if (j + 1 < n_tiles) load_bias(braw, p, b, (j + 1) * kBlockN + col_t);
-        else if (item + (int)gridDim.x < p.n_items)
-          load_bias(braw, p, batch_of(item + gridDim.x), col_t);
-      }
-    };
 
     // tile 0: scores, softmax
     {
       const int s0 = g % kStages;
-      if constexpr (BIAS && !kBiasAhead) load_bias(braw, p, b, col_t);
       mbar_wait(k_full(s0), (g / kStages) & 1);
       wgmma_fence();
 #pragma unroll
@@ -790,17 +864,15 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
-      if constexpr (BIAS) bias_log2(b2, braw, p.bias_bf16, col_t, p.Tk);
+      if constexpr (BIAS) read_bias(b2, bias_slot(s0), col_t);
       mbar_arrive(k_empty(s0));
       if (n_tiles == 1) mbar_arrive(q_empty(qb));  // the item's last read of q
       softmax_tile<MODE, BIAS>(s, b2, m, l, alpha, qk_scale, 0, col_t, p.Tk);
-      prefetch_bias(0);
       pack_p(s, pf);
     }
 
     for (int j = 1; j < n_tiles; ++j) {
       const int sj = (g + j) % kStages, sp = (g + j - 1) % kStages;
-      if constexpr (BIAS && !kBiasAhead) load_bias(braw, p, b, j * kBlockN + col_t);
       // tile j's scores and tile j − 1's p·v, issued together
       mbar_wait(k_full(sj), ((g + j) / kStages) & 1);
       fence_regs(s);
@@ -817,11 +889,10 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
       // the scores first; their softmax runs under the p·v products
       wgmma_wait<1>();
       fence_regs(s);
-      if constexpr (BIAS) bias_log2(b2, braw, p.bias_bf16, j * kBlockN + col_t, p.Tk);
+      if constexpr (BIAS) read_bias(b2, bias_slot(sj), col_t);
       mbar_arrive(k_empty(sj));
       if (j == n_tiles - 1) mbar_arrive(q_empty(qb));  // the item's last read of q
       softmax_tile<MODE, BIAS>(s, b2, m, l, alpha, qk_scale, j * kBlockN, col_t, p.Tk);
-      prefetch_bias(j);
       wgmma_wait<0>();
       fence_regs(o);
 #pragma unroll
@@ -850,7 +921,7 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
     }
 
     // epilogue: the row sums over the quad, the reference's pad keys, one
-    // divide, one cast
+    // divide, one cast into the staging rows, one TMA store of them
     float f[2] = {1.f, 1.f};  // the exact mode's rescale for its pad keys
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -869,26 +940,35 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
         l[r] = l[r] * f[r] + (float)p.n_pad * ex2(kPadScoreLog2 - mp);
       }
     }
-    __nv_bfloat16* const ob = p.o + b * p.o_sb + h * p.o_sh;
+    // the staging rows are free once the last item's store has read them
+    if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int row = q0 + row_t + 8 * r;
       const float inv = f[r] / l[r];  // one divide a row: o·(f/l) is within an fp32 ulp of o·f/l
-      if (row < p.Tq) {
-        __nv_bfloat16* orow = ob + (long long)row * p.o_st + col_t;
 #pragma unroll
-        for (int jb = 0; jb < D / 8; ++jb)
-          *reinterpret_cast<uint32_t*>(orow + 8 * jb) =
-              pack_bf16(o[4 * jb + 2 * r] * inv, o[4 * jb + 2 * r + 1] * inv);
-      }
+      for (int jb = 0; jb < D / 8; ++jb)
+        *reinterpret_cast<uint32_t*>(gbase + (out_tile - base) + out_at(row_c + 8 * r, jb)) =
+            pack_bf16(o[4 * jb + 2 * r] * inv, o[4 * jb + 2 * r + 1] * inv);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+    if (t == 0) {
+      // rows past Tq are outside the map: TMA does not store them
+      tma_store(out_tile, &maps[6], 0, h, q0 + 64 * c, b);
+      if constexpr (D == 128) tma_store(out_tile + 8192, &maps[6], 64, h, q0 + 64 * c, b);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     }
   }
+  // the staging rows stay until the last store has read them
+  if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
-// Four kernel names, so that a profile tells K6, K5, K1 and K4 apart. The
-// maps: q, k, v and (at D=72) their 8-column tails.
+// Four kernel names, so that a profile tells K6, K5, K1 and K4 apart, each
+// but K6's with a BIAS flag (K2, and K5 and K4 with a bias). The maps: q,
+// k, v, (at D=72) their 8-column tails, and o.
 struct Maps {
-  CUtensorMap m[6];
+  CUtensorMap m[7];
 };
 // K6's consumer warpgroups: three at D=72 (see the note), two at D=128
 template <int D>
@@ -898,21 +978,20 @@ __global__ void __launch_bounds__(128 * (kFlashConsumers<D> + 1), 1)
     attn_flash_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
   attn_sm90_body<D, kExact, false, kFlashConsumers<D>>(maps.m, p);
 }
-template <int D>
+template <int D, bool BIAS>
 __global__ void __launch_bounds__(384, 1)
     attn_rowblock_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
-  attn_sm90_body<D, kClamp, false, 2>(maps.m, p);
+  attn_sm90_body<D, kClamp, BIAS, 2>(maps.m, p);
 }
-// BIAS: K2 (the name carries the flag, so a profile files it apart from K1)
 template <int D, bool BIAS>
 __global__ void __launch_bounds__(384, 1)
     attn_exact_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
   attn_sm90_body<D, kExact, BIAS, 2>(maps.m, p);
 }
-template <int D>
+template <int D, bool BIAS>
 __global__ void __launch_bounds__(384, 1)
     attn_clamp_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
-  attn_sm90_body<D, kClamp, false, 2>(maps.m, p);
+  attn_sm90_body<D, kClamp, BIAS, 2>(maps.m, p);
 }
 
 using Kernel = void (*)(const Maps, const Params);
@@ -929,21 +1008,24 @@ Launch launch_of(Kernel kernel) {
 }
 
 // The kernel of `mode` at head dim D, with or without a bias, or none where
-// it is not built: K5 at D=128 only, a bias on the exact single-tile route
-// (mode 2) only.
+// it is not built: K5 at D=128 only, no bias on the streaming route (mode 0).
 template <int D>
 Launch sm90_launch(int mode, bool bias) {
-  if (bias) return mode == 2 ? launch_of<D, 2>(attn_exact_sm90_kernel<D, true>) : Launch{};
   switch (mode) {
     case 0:
+      if (bias) return Launch{};
       return launch_of<D, kFlashConsumers<D>>(attn_flash_sm90_kernel<D>);
     case 1:
-      if constexpr (D == 128) return launch_of<D, 2>(attn_rowblock_sm90_kernel<D>);
+      if constexpr (D == 128)
+        return launch_of<D, 2>(bias ? attn_rowblock_sm90_kernel<D, true>
+                                    : attn_rowblock_sm90_kernel<D, false>);
       return Launch{};
     case 2:
-      return launch_of<D, 2>(attn_exact_sm90_kernel<D, false>);
+      return launch_of<D, 2>(bias ? attn_exact_sm90_kernel<D, true>
+                                  : attn_exact_sm90_kernel<D, false>);
     default:
-      return launch_of<D, 2>(attn_clamp_sm90_kernel<D>);
+      return launch_of<D, 2>(bias ? attn_clamp_sm90_kernel<D, true>
+                                  : attn_clamp_sm90_kernel<D, false>);
   }
 }
 
@@ -977,16 +1059,17 @@ EncodeTiled encode_tiled() {
 // each of q, k, v in turn: the dims {D, H, T, B}, the byte strides of H, T
 // and B, and the box {64, 1, 128, 1}, as ops/attention.py's `tma_operand`
 // computes them. o: bf16 (B, Tq, H, D) with element strides o_strides (b,
-// t, h). mode 0: the exact softmax of the streaming route (K6); 1: the
-// clamp softmax of the row-block route (K5, D=128); 2: the exact softmax of
-// the single-tile route (K1, or K2 with a bias); 3: the clamp softmax of
-// the transposed route (K4). bias: null, or mode 2's key-padding bias (B|1,
-// 1, 1, Tk), bf16 (bias_bf16 = 1) or fp32, with element strides
-// bias_strides (batch, key), 0 where it broadcasts (`bias_operand`).
-// Exact: scale = 1/√D; clamp: scale = scale·log2e rounded to bf16. Mode 2
-// launches one block per SM, which walks the work items; the others one
-// block per item. Returns 0, a cudaError_t of the launch, or 100000 + the
-// CUresult of a refused tensor map.
+// t, h), each a multiple of 8 (TMA stores it). mode 0: the exact softmax
+// of the streaming route (K6); 1: the clamp softmax of the row-block route
+// (K5, D=128); 2: the exact softmax of the single-tile route (K1, or K2
+// with a bias); 3: the clamp softmax of the transposed route (K4). bias:
+// null, or a key-padding bias (B|1, 1, 1, Tk) in modes 1-3, bf16
+// (bias_bf16 = 1) or fp32, with element strides bias_strides (batch, key),
+// 0 where it broadcasts (`bias_operand`). Exact: scale = 1/√D; clamp: scale
+// = scale·log2e rounded to bf16. Mode 2, and any mode at Tk ≤ 128, launches
+// one block per SM, which walks the work items; the others one block per
+// item. Returns 0, a cudaError_t of the launch, or 100000 + the CUresult of
+// a refused tensor map.
 extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void* v, void* o,
                                        const unsigned long long* maps,
                                        const long long* o_strides, const void* bias,
@@ -1004,6 +1087,14 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
   if (launch.kernel == nullptr || n_items > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  auto encode_map = [&](CUtensorMap* map, const void* ptr, const cuuint64_t* dims,
+                        const cuuint64_t* strides, const cuuint32_t* box,
+                        CUtensorMapSwizzle swizzle) {
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                  box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  };
   // q, k, v under the 128-byte swizzle, then (D=72) their 8-column tails
   // without swizzle; at D=128 the last three are copies, never read
   Maps tmaps;
@@ -1022,17 +1113,23 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
     const cuuint32_t rows = i % 3 == 0 ? (cuuint32_t)block_m : (cuuint32_t)a[9];
     const cuuint32_t box[4] = {i < 3 ? (cuuint32_t)a[7] : 8u, (cuuint32_t)a[8], rows,
                                (cuuint32_t)a[10]};
-    const cuuint32_t elem[4] = {1, 1, 1, 1};
-    const CUresult r = encode(
-        &tmaps.m[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptrs[i % 3]), dims,
-        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-        i < 3 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    const CUresult r =
+        encode_map(&tmaps.m[i], ptrs[i % 3], dims, strides, box,
+                   i < 3 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (r != CUDA_SUCCESS) return 100000 + (int)r;
+  }
+  {
+    // o, stored 64 rows a consumer warpgroup: at D=128 two 64-column boxes
+    // under the 128-byte swizzle, at D=72 one 72-column box without it
+    const bool d128 = maps[0] == 128;
+    const cuuint64_t dims[4] = {maps[0], (cuuint64_t)H, (cuuint64_t)Tq, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {2ull * o_strides[2], 2ull * o_strides[1], 2ull * o_strides[0]};
+    const cuuint32_t box[4] = {d128 ? 64u : 72u, 1, 64, 1};
+    const CUresult r = encode_map(&tmaps.m[6], o, dims, strides, box,
+                                  d128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
     if (r != CUDA_SUCCESS) return 100000 + (int)r;
   }
   Params p;
-  p.o = static_cast<__nv_bfloat16*>(o);
-  p.o_sb = o_strides[0], p.o_st = o_strides[1], p.o_sh = o_strides[2];
   p.bias = bias;
   p.bias_sb = has_bias ? bias_strides[0] : 0;
   p.bias_sk = has_bias ? bias_strides[1] : 0;
@@ -1056,8 +1153,10 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
     if (err != cudaSuccess) return (int)err;
     opted = true;
   }
+  // one block per SM for K1 and K2, and for one-tile items (K4 with PixArt's
+  // 120 text keys), whose q load and o store are most of their work
   int grid = (int)n_items;
-  if (mode == 2) {
+  if (mode == 2 || Tk <= kBlockN) {
     int dev = 0, sms = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)

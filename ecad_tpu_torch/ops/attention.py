@@ -36,13 +36,17 @@ but for the calls that take the Hopper body of ``csrc/attention_sm90.cu``
 dim 72 or 128 on the exact single-tile (K1), transposed clamp (K4) and
 streaming (K6) routes — PixArt's 256² and 1024² self-attention,
 PixArt-Σ's at 2048², FLUX.1-dev's joint attention at 256² and 1536² — and
-at 128 on the row-block route (K5) — FLUX.1-dev at 1024²; with a
+at 128 on the row-block route (K5) — FLUX.1-dev at 1024²; and with a
 key-padding bias (B|1, 1, 1, Tk) at 72 or 128 on the exact single-tile
-route (K2) — PixArt's text cross-attention at 256² and 512². The choice
-depends on route, dtype, head dim and bias only. Such a call whose
-operands TMA cannot map (`tma_operand`: a 16-byte-aligned base and
-strides), or whose bias the body does not read (`bias_operand`: bf16 or
-fp32), raises; it never drops back to the other body.
+route (K2) — PixArt's text cross-attention at 256² and 512² — and on the
+transposed clamp route (K4 with a bias) — PixArt's text cross-attention at
+1024² and PixArt-Σ's at 2048² — and at 128 on the row-block route (K5 with
+a bias). The streaming route's bias form (K6 with a bias) stays on
+``csrc/attention.cu``. The choice depends on route, dtype, head dim and
+bias only. Such a call whose operands TMA cannot map (`tma_operand`: a
+16-byte-aligned base and strides), or whose bias the body does not read
+(`bias_operand`: bf16 or fp32), raises; it never drops back to the other
+body.
 
 The exact routes' pad keys. The reference pads the keys of the exact
 routes with keys of score −1e9 whose rows of v are 0: to round_up(Tk, 128)
@@ -102,8 +106,8 @@ _SM90_FN = None
 # C entry's mode and the head dims it is built for
 _SM90_MODES = {"attention_flash": (0, (72, 128)), "attention_rowblock": (1, (128,)),
                "attention": (2, (72, 128)), "attention_long": (3, (72, 128))}
-# the routes whose Hopper kernel also takes a key-padding bias: K2
-_SM90_BIAS = ("attention",)
+# the routes whose Hopper kernel also takes a key-padding bias: K2, K4, K5
+_SM90_BIAS = ("attention", "attention_long", "attention_rowblock")
 # the bias dtypes the Hopper body reads, with the C entry's code for each
 _SM90_BIAS_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SM90_BOX = (64, 1, 128, 1)  # 64 columns (128 bytes: the swizzle's width), 1 head, 128 rows
@@ -158,7 +162,7 @@ def _sm90_kernel():
             ctypes.c_void_p,  # o
             ctypes.POINTER(ctypes.c_ulonglong),  # 3 × 11 tensor-map arguments
             ctypes.POINTER(ctypes.c_longlong),  # o's strides (b, t, h)
-            ctypes.c_void_p,  # key-padding bias or NULL
+            ctypes.c_void_p,  # key-padding bias (modes 1-3) or NULL
             ctypes.POINTER(ctypes.c_longlong),  # its strides (batch, key)
             ctypes.c_int,  # the bias is bf16 (1) or fp32 (0)
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H Tq Tk
@@ -482,7 +486,8 @@ def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
     """One launch of the Hopper body in the mode of counter `name`
     (``attention``: exact single-tile, K1, or K2 with a key-padding `bias`;
     ``attention_long``: clamp transposed, K4; ``attention_rowblock``: clamp
-    row-block, K5; ``attention_flash``: exact streaming, K6). Raises where
+    row-block, K5, each also with a key-padding `bias`;
+    ``attention_flash``: exact streaming, K6). Raises where
     TMA cannot map an operand (`tma_operand`) or the body does not read the
     bias (`bias_operand`). Counts it under `name`, or ``name_bias``."""
     maps = [a for t, n in ((q, "q"), (k, "k"), (v, "v")) for a in tma_operand(t, n)]
@@ -525,7 +530,7 @@ def transposed_attention(
     if q.device.type == "cpu":
         return transposed_attention_reference(q, k, v, bias)
     if _takes_sm90("attention_long", q, bias):
-        return _launch_sm90(q, k, v, "attention_long")
+        return _launch_sm90(q, k, v, "attention_long", bias)
     return _launch(q, k, v, bias, variant=1)
 
 
@@ -542,7 +547,7 @@ def rowblock_attention(
     if q.device.type == "cpu":
         return rowblock_attention_reference(q, k, v, bias)
     if _takes_sm90("attention_rowblock", q, bias):
-        return _launch_sm90(q, k, v, "attention_rowblock")
+        return _launch_sm90(q, k, v, "attention_rowblock", bias)
     return _launch(q, k, v, bias, variant=2)
 
 

@@ -1,6 +1,7 @@
 """The Hopper body (``csrc/attention_sm90.cu``) against the mma.sync body
-it replaced (``csrc/attention.cu``, which still serves these routes with a
-bias), kernel by kernel, in turns, in one process on one card.
+it replaced (``csrc/attention.cu``, which still serves fp32, other head
+dims, dense biases and the streaming route's bias form), kernel by kernel,
+in turns, in one process on one card.
 
     python -m ecad_tpu_torch.scripts.compare_attention_bodies [--out bodies.json]
 
@@ -10,8 +11,11 @@ joint attention (4, 768, 24, 128) and PixArt-256's self-attention (16, 256,
 16, 72); K2 (the same with a key-padding bias, variant 0) at PixArt-256's
 cross-attention (16, 256, 16, 72) → 120 keys with the text bias in bf16
 (−9984 past lengths 7, 60, 120); K4 (the clamp softmax of the transposed
-route, variant 1) at PixArt-1024's (4, 4096, 16, 72); K5 (row-block clamp,
-variant 2) at FLUX-1024's (1, 4608, 24, 128); K6 (streaming exact, variant
+route, variant 1) at PixArt-1024's (4, 4096, 16, 72), and with a
+key-padding bias at PixArt-1024's cross-attention (4, 4096, 16, 72) → 120
+keys with the text bias in bf16; K5 (row-block clamp, variant 2) at
+FLUX-1024's (1, 4608, 24, 128), and with a key-padding bias in bf16 (4508
+of the 4608 keys kept) at the same shape; K6 (streaming exact, variant
 3) at FLUX-1536's (1, 9728, 24, 128) and PixArt-Σ-2048's (2, 16384, 16,
 72). Both bodies are checked against the
 plain version (run per head) and timed in turns — old, new, new, old — by
@@ -48,8 +52,12 @@ CASES = {
                        A.fused_attention_reference, 0.1),
     "attention_long": ((4, 4096, 16, 72), 4096, None, 1, A.fused_attention,
                        A.transposed_attention_reference, 0.1),
+    "attention_long_bias": ((4, 4096, 16, 72), 120, (7, 60, 120), 1, A.fused_attention,
+                            A.transposed_attention_reference, 0.1),
     "attention_rowblock": ((1, 4608, 24, 128), 4608, None, 2, A.rowblock_attention,
                            A.rowblock_attention_reference, 0.1),
+    "attention_rowblock_bias": ((1, 4608, 24, 128), 4608, (4508,), 2, A.rowblock_attention,
+                                A.rowblock_attention_reference, 0.1),
     "attention_flash": ((1, 9728, 24, 128), 9728, None, 3, A.flash_attention,
                         A.flash_attention_reference, 0.025),
     "attention_flash_d72": ((2, 16384, 16, 72), 16384, None, 3, A.flash_attention,

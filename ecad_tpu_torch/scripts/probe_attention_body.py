@@ -14,13 +14,26 @@ Rows, bf16 at the shape the main path gives each kernel:
   reused), ``no_pv`` (no p·v products) and ``no_pv_tail`` (no m64n8k16 for
   v's columns 64-71);
 * K2 at PixArt-256's cross-attention (16, 256, 16, 72) → 120 keys with the
-  text bias in bf16, with ``bias_in_tile`` (each tile's bias loaded when
-  the tile starts, not one tile ahead) and ``no_bias_loads`` (the bias read
-  as 0).
+  text bias in bf16, with ``no_bias_loads`` (the helper warps write 0 for
+  the bias);
+* K4 with a bias at PixArt-1024's cross-attention (4, 4096, 16, 72) → 120
+  keys with the text bias in bf16, with ``one_block_per_item`` (a grid of
+  items instead of one persistent block per SM), ``items_in_runs`` (a run
+  of consecutive items a block instead of items gridDim.x apart),
+  ``bias_after_q`` (the helpers write an item's bias after scaling its q,
+  not its first tile's before), ``no_bias_loads``, ``no_kv_loads`` (what
+  loading each (batch, head)'s k/v tile once could still save), ``no_q_scale``
+  (the helpers leave q unscaled) and ``no_store`` (the staging rows
+  written, never stored);
+* K5 with a bias at FLUX-1024's joint attention (1, 4608, 24, 128) with a
+  key-padding bias in bf16 (4508 keys kept), with ``no_bias_loads``;
+* K1 at FLUX-256's joint attention (4, 768, 24, 128), with
+  ``items_in_runs``.
 
 A variant that only reschedules the same arithmetic (``two_consumers``,
-``bias_in_tile``) must give the source's output bit for bit; the others
-compute something else and are timed only. Each variant's time is the
+``one_block_per_item``, ``items_in_runs``, ``bias_after_q``) must give the
+source's output bit for bit; the others compute something else and are
+timed only. Each variant's time is the
 median of spin-kernel CUDA-event timings (`device_ms`), taken in turns:
 source, variants, variants again in reverse, source. Prints one JSON line
 per row and writes them to ``--out``. The edits are text replacements
@@ -70,19 +83,42 @@ K6_VARIANTS = {
                     '      "}\\n"')],
 }
 K2_VARIANTS = {
-    "bias_in_tile": [("  constexpr bool kBiasAhead = D == 72;",
-                      "  constexpr bool kBiasAhead = false;")],
-    "no_bias_loads": [("      raw[i] = __ldg(row + min(col0 + (i >> 1) * 8 + (i & 1), p.Tk - 1) "
-                       "* p.bias_sk);", "      raw[i] = 0u;")],
+    "no_bias_loads": [("      x = p.bias_bf16 ? __uint_as_float((uint32_t)__ldg(bf16_bias + at) "
+                       "<< 16)\n                      : __ldg(f32_bias + at);", "      x = 0.f;")],
 }
+K4_BIAS_VARIANTS = {
+    "one_block_per_item": [("  if (mode == 2 || Tk <= kBlockN) {", "  if (mode == 2) {")],
+    "items_in_runs": [
+        ("for (int item = blockIdx.x; item < p.n_items; item += gridDim.x, ++it",
+         "for (int item = blockIdx.x * ((p.n_items + gridDim.x - 1) / gridDim.x); "
+         "item < min(p.n_items, (blockIdx.x + 1) * ((p.n_items + gridDim.x - 1) / gridDim.x)); "
+         "++item, ++it")],
+    "bias_after_q": [("        if constexpr (BIAS) bias_tile(b, 0);\n", ""),
+                     ("for (int j = 1; j < n_tiles; ++j) bias_tile(b, j);",
+                      "for (int j = 0; j < n_tiles; ++j) bias_tile(b, j);")],
+    "no_bias_loads": K2_VARIANTS["no_bias_loads"],
+    "no_kv_loads": K6_VARIANTS["no_kv_loads"],
+    "no_q_scale": [("          for (int i = ht; i < kQ.load() / 16; i += kHelperThreads) {",
+                    "          for (int i = ht; i < 0; i += kHelperThreads) {")],
+    "no_store": [("    if (t == 0) {\n      // rows past Tq are outside the map",
+                  "    if (t < 0) {\n      // rows past Tq are outside the map")],
+}
+K5_BIAS_VARIANTS = {"no_bias_loads": K2_VARIANTS["no_bias_loads"]}
 # row → (q shape, keys, text lengths of the bias or None, the wrapper's
 # counter, its variants, timing reps and calls per rep)
 ROWS = {
     "k6_pixart2048": ((2, 16384, 16, 72), 16384, None, "attention_flash", K6_VARIANTS, 3, 5),
     "k2_pixart256_cross": ((16, 256, 16, 72), 120, (7, 60, 120), "attention", K2_VARIANTS,
                            7, 20),
+    "k4_bias_pixart1024_cross": ((4, 4096, 16, 72), 120, (7, 60, 120), "attention_long",
+                                 K4_BIAS_VARIANTS, 7, 20),
+    "k5_bias_flux1024": ((1, 4608, 24, 128), 4608, (4508,), "attention_rowblock",
+                         K5_BIAS_VARIANTS, 5, 10),
+    "k1_flux256": ((4, 768, 24, 128), 768, None, "attention",
+                   {"items_in_runs": K4_BIAS_VARIANTS["items_in_runs"]}, 7, 20),
 }
-EXACT = ("two_consumers", "bias_in_tile")  # the same arithmetic, rescheduled
+# the same arithmetic, rescheduled
+EXACT = ("two_consumers", "one_block_per_item", "items_in_runs", "bias_after_q")
 
 
 def variant_source(src: str, edits: list[tuple[str, str]]) -> str:

@@ -748,12 +748,24 @@ HOPPER_ROUTES = {
     "exact_fp32_d72": ("fused", (2, 30, 2, 72), 300, "fp32", None, ("mma", 0)),
     "exact_d64": ("fused", (2, 30, 2, 64), 300, "bf16", None, ("mma", 0)),
     "transposed_key_padding": ("transposed", (4, 4096, 16, 72), 120, "bf16", "padding",
-                               ("mma", 1)),
+                               ("sm90", "attention_long_bias")),
     "pixart1024_cross_k4_bias": ("fused", (4, 4096, 16, 72), 120, "bf16", "padding",
-                                 ("mma", 1)),
+                                 ("sm90", "attention_long_bias")),
+    "pixart2048_cross_k4_bias": ("fused", (2, 16384, 16, 72), 120, "bf16", "padding",
+                                 ("sm90", "attention_long_bias")),
+    "transposed_batch_broadcast_bias_d128": ("transposed", (3, 30, 2, 128), 300, "bf16",
+                                             "broadcast", ("sm90", "attention_long_bias")),
+    "transposed_key_padding_fp32": ("transposed", (2, 30, 2, 72), 300, "fp32", "padding",
+                                    ("mma", 1)),
+    "transposed_key_padding_d36": ("transposed", (2, 30, 2, 36), 300, "bf16", "padding",
+                                   ("mma", 1)),
     "transposed_fp32": ("transposed", (2, 30, 2, 72), 300, "fp32", None, ("mma", 1)),
     "transposed_d36": ("transposed", (2, 30, 2, 36), 300, "bf16", None, ("mma", 1)),
-    "rowblock_key_padding": ("rowblock", (2, 30, 2, 128), 300, "bf16", "padding", ("mma", 2)),
+    "rowblock_key_padding": ("rowblock", (2, 30, 2, 128), 300, "bf16", "padding",
+                             ("sm90", "attention_rowblock_bias")),
+    "rowblock_key_padding_d64": ("rowblock", (2, 30, 2, 64), 300, "bf16", "padding", ("mma", 2)),
+    "rowblock_key_padding_fp32": ("rowblock", (2, 30, 2, 128), 300, "fp32", "padding",
+                                  ("mma", 2)),
     "flash_key_padding": ("flash", (2, 30, 2, 128), 300, "bf16", "padding", ("mma", 3)),
     "flash_key_padding_d72": ("flash", (2, 30, 2, 72), 300, "bf16", "padding", ("mma", 3)),
     "pixart2048_flash_key_padding": ("fused", (2, 16384, 16, 72), 16384, "bf16", "padding",
@@ -765,7 +777,7 @@ HOPPER_ROUTES = {
     "flash_d64": ("flash", (2, 30, 2, 64), 300, "bf16", None, ("mma", 3)),
     "rowblock_d64": ("rowblock", (2, 30, 2, 64), 300, "bf16", None, ("mma", 2)),
     "rowblock_key_padding_d128": ("fused", (1, 4608, 24, 128), 4608, "bf16", "padding",
-                                  ("mma", 2)),
+                                  ("sm90", "attention_rowblock_bias")),
     "transposed_d72": ("transposed", (2, 30, 2, 72), 300, "bf16", None,
                        ("sm90", "attention_long")),
     "pixart2048_flash_d72": ("fused", (2, 16384, 16, 72), 16384, "bf16", None,
@@ -778,9 +790,10 @@ def test_hopper_body_routing(name, monkeypatch):
     """bf16 calls without a bias at head dim 72 or 128 on the single-tile
     exact (K1), transposed clamp (K4) and streaming (K6) routes, and at 128
     on the row-block route (K5), launch the Hopper body, and so do bf16
-    calls with a key-padding bias on the single-tile exact route (K2);
-    every other call — a dense bias, a bias on the clamp or streaming
-    routes, fp32, another head dim — keeps its csrc/attention.cu variant.
+    calls with a key-padding bias on the single-tile exact route (K2) and
+    on both clamp routes (K4 and K5 with a bias, at the same head dims);
+    every other call — a dense bias, a bias on the streaming route, fp32,
+    another head dim — keeps its csrc/attention.cu variant.
     Tensors on the meta device reach the launch decision without a card;
     the launchers are replaced by recorders."""
     wrapper, shape, tk, dtype, bias_kind, want = HOPPER_ROUTES[name]
@@ -920,10 +933,10 @@ def test_bias_operand_arguments(name):
 ])
 def test_bias_operand_refusals(bias, match, monkeypatch):
     """What the Hopper body does not read raises, through bias_operand and
-    through the router: a bias that is not (B|1, 1, 1, Tk), or one in
-    another dtype than bf16 or fp32; a dense bias is sent to
-    csrc/attention.cu by the router (test_hopper_body_routing) and so never
-    reaches bias_operand there."""
+    through the single-tile and clamp wrappers: a bias that is not (B|1, 1,
+    1, Tk), or one in another dtype than bf16 or fp32; a dense bias is sent
+    to csrc/attention.cu by the router (test_hopper_body_routing) and so
+    never reaches bias_operand there."""
     shape, dtype = (bias, torch.float32) if isinstance(bias, tuple) else ((4, 1, 1, 120), bias)
     b = torch.zeros(shape, dtype=dtype)
     with pytest.raises(ValueError, match=match):
@@ -935,6 +948,12 @@ def test_bias_operand_refusals(bias, match, monkeypatch):
         kv = torch.empty(4, 120, 2, 72, dtype=torch.bfloat16, device="meta")
         with pytest.raises(ValueError, match=match):
             fused_attention(q, kv, kv, torch.empty(shape, dtype=dtype, device="meta"))
+        q128, kv128 = (torch.empty(4, t, 2, 128, dtype=torch.bfloat16, device="meta")
+                       for t in (64, 120))
+        for fn, args in ((transposed_attention, (q, kv, kv)),
+                         (rowblock_attention, (q128, kv128, kv128))):
+            with pytest.raises(ValueError, match="bf16 or fp32"):
+                fn(*args, torch.empty(4, 1, 1, 120, dtype=dtype, device="meta"))
 
 
 @pytest.mark.parametrize("d", [128, 72])
@@ -944,7 +963,7 @@ def test_hopper_body_refuses_what_tma_cannot_map(fault, d, monkeypatch):
     """A bf16 call for the Hopper body whose base or strides TMA cannot
     take raises — through the single-tile, transposed and streaming
     wrappers, and at D=128 the row-block one — with or without the
-    single-tile route's key-padding bias; it is not sent to the
+    single-tile and clamp routes' key-padding bias; it is not sent to the
     csrc/attention.cu body instead."""
     if fault == "base_off_16_bytes":
         bad = torch.zeros(2 * 64 * 2 * d + 1, dtype=torch.bfloat16)[1:].view(2, 64, 2, d)
@@ -969,8 +988,9 @@ def test_hopper_body_refuses_what_tma_cannot_map(fault, d, monkeypatch):
         with pytest.raises(ValueError, match="TMA|contiguous"):
             fn(good, meta_bad, good)
     bias = torch.empty(2, 1, 1, 64, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match="TMA|contiguous"):
-        fused_attention(good, meta_bad, good, bias)
+    for fn in [fused_attention, transposed_attention] + wrappers[3:]:
+        with pytest.raises(ValueError, match="TMA|contiguous"):
+            fn(good, meta_bad, good, bias)
 
 
 # ---------------------------------------------------------------------------
@@ -1113,6 +1133,133 @@ def test_hopper_k6_arithmetic_matches_flash_kernel_at_d72(monkeypatch):
     atol, rtol = _chip_smoke_module().flash_bf16_tol(want)
     torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
     assert rtol == 2.0 ** -7
+
+
+# ---------------------------------------------------------------------------
+# the Hopper body's clamp-mode arithmetic with a key-padding bias, emulated
+# ---------------------------------------------------------------------------
+
+
+def _hopper_clamp_body(q, k, v, bias, n_pad, clip_past_tk=False):
+    """csrc/attention_sm90.cu's clamp mode in its own order, on bf16 (B, T,
+    H, D) q, k, v: q × bf16(scale·log2e), rounded to bf16; per 128-key
+    tile, s = q·kᵀ in fp32 plus fp32(bias·log2e) in a plain fp32 add (−∞
+    past Tk), p = exp2(clip(s, −100, 80)), the keys past Tk at 0, Σp in
+    fp32 over the unrounded p, p rounded to bf16 for p·v; then the
+    reference's n_pad pad keys, n_pad·2^-100 added to Σp, one factor 1/Σp,
+    one cast. `clip_past_tk` keeps the clip's 2^-100 for the keys past Tk
+    too: the form that counts them twice."""
+    f32 = torch.float32
+    log2e = torch.tensor(port_attention._LOG2E, dtype=f32)
+    scale = torch.tensor(port_attention.clamp_scale(q.shape[-1], q.dtype), dtype=q.dtype)
+    qf = (q * scale).float().permute(0, 2, 1, 3)
+    kf, vf = (t.float().permute(0, 2, 1, 3) for t in (k, v))
+    tk = kf.shape[2]
+    tk_pad = port_attention._round_up(tk, 128)
+    kf, vf = (torch.nn.functional.pad(t, (0, 0, 0, tk_pad - tk)) for t in (kf, vf))
+    b2 = torch.full((*bias.shape[:3], tk_pad), -torch.inf, dtype=f32)
+    b2[..., :tk] = bias.float() * log2e
+    real = torch.arange(tk_pad) < tk
+    l = torch.zeros((*qf.shape[:3], 1), dtype=f32)
+    o = torch.zeros_like(qf)
+    for k0 in range(0, tk_pad, 128):
+        s = qf @ kf[:, :, k0:k0 + 128].transpose(-1, -2) + b2[..., k0:k0 + 128]
+        p = torch.exp2(s.clamp(port_attention._CLAMP_LO, port_attention._CLAMP_HI))
+        if not clip_past_tk:
+            p = torch.where(real[k0:k0 + 128], p, 0.0)
+        l = l + p.sum(-1, keepdim=True)
+        o = o + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + 128]
+    l = l + n_pad * port_attention._PAD_KEY_WEIGHT
+    return (o * (1.0 / l)).to(torch.bfloat16).permute(0, 2, 1, 3)
+
+
+# case → (the reference's wrapper, q shape, Tk, the text lengths of batch
+# rows 0 and 1, the fill past them): PixArt-1024's cross-attention class
+# (queries to 120 text keys, the transposed route, D=72) and the row-block
+# route at D=128 with an unaligned Tk; batch row 0 keeps no key, so every
+# logit of its rows clamps at −100
+K4_K5_BODY_CASES = {
+    "transposed_text_0_60": ("_transposed_attention", (2, 256, 2, 72), 120, [0, 60], -10000.0),
+    "transposed_text_0_120": ("_transposed_attention", (2, 256, 2, 72), 120, [0, 120],
+                              -10000.0),
+    "rowblock_tk300_minus_1e4": ("_rowblock_attention", (2, 64, 2, 128), 300, [0, 250],
+                                 -10000.0),
+    "rowblock_tk300_minus_1e9": ("_rowblock_attention", (2, 64, 2, 128), 300, [0, 250], -1e9),
+}
+# the emulated body against the Pallas kernels: one bf16 ulp of the output
+# relative, 2^-7 (both sides round their fp32 result once), and 0.01 of the
+# output's std for the order of the fp32 sums
+CLAMP_BODY_TOL = dict(share=0.01, rtol=2.0 ** -7)
+
+
+def _k4_k5_body_case(case, bias_dtype):
+    ref_name, (b, tq, h, d), tk, lengths, fill = K4_K5_BODY_CASES[case]
+    rng = np.random.default_rng(43)
+    q, k, v = (x.astype(jnp.bfloat16) for x in _qkv(rng, b, tq, tk, h, d))
+    bias = np.where(np.arange(tk)[None, None, None, :]
+                    < np.asarray(lengths)[:, None, None, None], 0.0, fill).astype(np.float32)
+    if bias_dtype == "bf16":
+        bias = bias.astype(jnp.bfloat16)
+    want = torch.from_numpy(np.asarray(getattr(jax_attention, ref_name)(
+        *(jnp.asarray(x) for x in (q, k, v, bias)), interpret=True), np.float32))
+    as_t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(  # noqa: E731
+        torch.bfloat16 if x.dtype == jnp.bfloat16 else torch.float32)
+    return [as_t(x) for x in (q, k, v, bias)], want
+
+
+def _mean_v(v, tk_pad):
+    """An all-masked row's output on the clamp routes: Σv/Tk_pad."""
+    return v.float().sum(1, keepdim=True) / tk_pad
+
+
+@pytest.mark.parametrize("bias_dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("case", sorted(K4_K5_BODY_CASES))
+def test_hopper_clamp_bias_arithmetic_matches_pallas(case, bias_dtype):
+    """The Hopper body's clamp mode with a key-padding bias
+    (`_hopper_clamp_body`: the bias added to the fp32 scores in a plain
+    add, the keys past Tk at weight 0, the route's pad keys in the
+    epilogue) against `_transposed_kernel` at (2, 256, 2, 72) → 120 keys
+    and `_rowblock_kernel` at (2, 64, 2, 128) → 300 keys, in interpret
+    mode, bf16, with the bias in bf16 and fp32: within CLAMP_BODY_TOL,
+    which lies inside chip_smoke.py's clamp_bf16_tol; the all-masked batch
+    row gives Σv/Tk_pad (Σv/128 at 120 keys, Σv/384 at 300) on both
+    sides."""
+    (q, k, v, bias), want = _k4_k5_body_case(case, bias_dtype)
+    tk = k.shape[1]
+    tk_pad = port_attention._round_up(tk, 128)
+    got = _hopper_clamp_body(q, k, v, bias, n_pad=tk_pad - tk).float()
+    atol = CLAMP_BODY_TOL["share"] * float(want.std())
+    torch.testing.assert_close(got, want, atol=atol, rtol=CLAMP_BODY_TOL["rtol"])
+    mean_v = _mean_v(v[:1], tk_pad).expand_as(got[:1])
+    for side in (got, want):
+        torch.testing.assert_close(side[:1], mean_v, atol=1e-6, rtol=2.0 ** -7)
+    clamp_atol, clamp_rtol = _chip_smoke_module().clamp_bf16_tol(want)
+    assert atol <= clamp_atol and CLAMP_BODY_TOL["rtol"] <= clamp_rtol
+
+
+@pytest.mark.parametrize("case", ["transposed_text_0_60", "rowblock_tk300_minus_1e9"])
+def test_hopper_clamp_bias_counting_pad_keys_twice_fails_masked_rows(case):
+    """The form that lets the clip weigh the keys past Tk at 2^-100 (their
+    bias is −∞) and also adds the epilogue's n_pad·2^-100 divides an
+    all-masked row by Tk_pad + n_pad (136 at 120 keys, 468 at 300): the
+    Σv/Tk_pad check rejects it there, though it passes the partly masked
+    row; at 120 keys (8 pad keys, 6 % off) it also passes the std-scaled
+    tolerance the whole output is held to, so that check alone would not
+    catch it."""
+    (q, k, v, bias), want = _k4_k5_body_case(case, "bf16")
+    tk = k.shape[1]
+    tk_pad = port_attention._round_up(tk, 128)
+    bad = _hopper_clamp_body(q, k, v, bias, n_pad=tk_pad - tk, clip_past_tk=True).float()
+    mean_v = _mean_v(v[:1], tk_pad).expand_as(bad[:1])
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(bad[:1], mean_v, atol=1e-6, rtol=2.0 ** -7)
+    torch.testing.assert_close(bad[:1], mean_v * tk_pad / (2 * tk_pad - tk),
+                               atol=1e-6, rtol=2.0 ** -7)
+    atol = CLAMP_BODY_TOL["share"] * float(want.std())
+    torch.testing.assert_close(bad[1:], want[1:], atol=atol, rtol=CLAMP_BODY_TOL["rtol"])
+    if tk == 120:
+        clamp_atol, clamp_rtol = _chip_smoke_module().clamp_bf16_tol(want)
+        torch.testing.assert_close(bad, want, atol=clamp_atol, rtol=clamp_rtol)
 
 
 # ---------------------------------------------------------------------------
