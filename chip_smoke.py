@@ -60,9 +60,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    q, X4 clamp with the denominator from the p·v product; K4 for the
    ``transposed`` rows) is held against its plain version on a 2-head
    slice at a tolerance derived from its measured error and shown to
-   reject a dropped or repeated 64-key tile at 4096 keys; X2's inf/NaN
-   positions at q×64 against its plain version's; Tk = 200 refused by X1-X3
-   and the harness's K4 rows, and X4 right there; the harness's ``main``
+   reject a dropped or repeated 64-key tile at 4096 keys; X2 and X3 run on
+   the Hopper body (``attn_xnomax_sm90_kernel``, ``attn_xmax_sm90_kernel``,
+   which a profile of one call each at every shape must name), X1 and X4
+   on ``csrc/attention.cu``; X2's inf/NaN positions at q×64 against its
+   plain version's; Tk = 200 refused by X1-X3 and the harness's K4 rows,
+   and X4 right there; X2 and X3 refused at head dim 80; the harness's ``main``
    once per shape (20 rows in all), with the launch counters checked
    against its calls; plain versions timed two heads at a time, one
    ``scaled_dot_product_attention`` call per shape as the yardstick.
@@ -1059,8 +1062,10 @@ def flash_kernel_rows(rnd, bound, nbytes) -> list[dict]:
 # `least_atol_per_std`): X1 0.0011 (its output is unnormalised, ≈ 10³, and
 # a flipped bf16 rounding of one s moves it by ≈ 0.06), X2 and X4 0.0051
 # (only sum orders differ), X3 0.0106 (p rounded against a running max, as
-# K6: 0.0117); K4 keeps its own rule. The run shows each one rejects a
-# dropped 64-key tile at 4096 keys, and X2-X4 a repeated one.
+# K6: 0.0117), measured on csrc/attention.cu; on the Hopper body X2 needs
+# 0.0051 and X3 0.0104 (128-key tiles); K4 keeps its own rule. The run
+# shows each one rejects a dropped 64-key tile at 4096 keys, and X2-X4 a
+# repeated one.
 XATTN = {
     "xattn_matmul_only": ("matmul_only_attention", ":103 (k_matmul_only)",
                           std_bf16_tol(0.0025)),
@@ -1072,6 +1077,24 @@ XATTN = {
     "attention_long": ("transposed_attention", ":190 (k_transposed; :317 k_transposed_subk)",
                        clamp_bf16_tol),
 }
+
+
+# the harness's kernels on the Hopper body (csrc/attention_sm90.cu) at its
+# head dims, by counter: the device kernel each must launch
+SM90_XATTN = {"xattn_nomax": "attn_xnomax_sm90_kernel", "xattn_max": "attn_xmax_sm90_kernel"}
+
+
+def device_kernel_names(fn) -> list[str]:
+    """The device kernels that one call of `fn` launches, from
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted(e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
 
 
 def by_head_pairs(plain, q, k, v) -> torch.Tensor:
@@ -1090,8 +1113,10 @@ def variants_phase() -> dict:
     of X1-X4 (and K4 in its ``transposed`` rows) held against its plain
     version on a 2-head slice at every harness shape; the tolerance shown
     to reject a dropped or repeated 64-key tile at 4096 keys (X1: a dropped
-    one); X2's inf/NaN where its plain version has them; the Tk % 128 rule
-    on the card; the harness's ``main`` once per shape with the launch
+    one); X2 and X3 on the Hopper body's kernels by name (a profile of one
+    call each); X2's inf/NaN where its plain version has them; the Tk % 128
+    rule on the card, in the wrappers and in the Hopper body's C entry; the
+    harness's ``main`` once per shape with the launch
     counters set to 0 just before and read just after; timings of each
     kernel's plain version (two heads at a time) and one
     ``scaled_dot_product_attention`` call per shape. Returns the rows of the
@@ -1122,6 +1147,12 @@ def variants_phase() -> dict:
     for shape, s in harness.SHAPES.items():
         q, k, v = (rnd(s["b"], s["t"], s["h"], s["d"]) for _ in range(3))
         q2, k2, v2 = (a[:, :, :2] for a in (q, k, v))
+        # X2 and X3 launch the Hopper body's kernels at every shape
+        names = device_kernel_names(lambda: [kernel(c)(q, k, v) for c in SM90_XATTN])
+        for c, name in SM90_XATTN.items():
+            if not any(name in n for n in names):
+                raise AssertionError(f"{c} at {shape} ran {names}, not {name}")
+        REPORT.setdefault("xattn_device_kernels", {})[shape] = names
         for c in counters(s["d"]):
             want = plain(c)(q2, k2, v2)
             errs[c, shape] = compare(f"{c}/bf16/{shape}", kernel(c)(q, k, v)[:, :, :2],
@@ -1165,15 +1196,34 @@ def variants_phase() -> dict:
         except ValueError:
             continue
         raise AssertionError(f"{name} accepted Tk=200")
+    # the C entry of the Hopper body refuses it too in X2's and X3's modes
+    from ecad_tpu_torch.ops import attention as A
+    for c in SM90_XATTN:
+        try:
+            A._launch_sm90(q, k, v, c)
+        except RuntimeError as err:
+            if "status 1 " not in str(err):  # cudaErrorInvalidValue
+                raise
+            continue
+        raise AssertionError(f"the Hopper body's {c} mode accepted Tk=200")
     try:
         ops.nomax_attention(q.float(), q.float(), q.float())
     except TypeError:
         pass
     else:
         raise AssertionError("nomax_attention accepted fp32 on the card")
+    # X2 and X3 run only on the Hopper body, which takes head dims 72 and 128
+    q80 = rnd(1, 256, 2, 80)
+    for name, fn in (("nomax_attention", ops.nomax_attention),
+                     ("max_exp2_attention", ops.max_exp2_attention)):
+        try:
+            fn(q80, q80, q80)
+        except ValueError:
+            continue
+        raise AssertionError(f"{name} accepted head dim 80")
     compare("xattn_fd/bf16/tq256_tk200_d72", ops.clamp_fd_attention(q, k, v),
             ops.clamp_fd_attention_reference(q, k, v), XATTN["xattn_fd"][2])
-    del q, k, v, got, want
+    del q, k, v, q80, got, want
 
     # the harness through its main, one shape at a time
     harness_rows, launches = {}, {}
@@ -1214,7 +1264,8 @@ def variants_phase() -> dict:
         for c in counters(d):
             out[f"{c}_{shape}"] = dict(
                 name=f"{c}_{shape}", route="cuda",
-                source="ecad_tpu_torch/csrc/attention_sm90.cu" if c == "attention_long"
+                source="ecad_tpu_torch/csrc/attention_sm90.cu"
+                if c == "attention_long" or c in SM90_XATTN
                 else "ecad_tpu_torch/csrc/attention.cu",
                 replaces="scripts/exp_attn_variants.py" + XATTN[c][1],
                 launches=launches[shape][c], max_abs_err=errs[c, shape],

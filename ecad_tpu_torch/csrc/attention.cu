@@ -1,6 +1,6 @@
 // Fused attention forward for Hopper (sm_90a), in two softmax variants
-// that share one tensor-core body, under four kernel names (and the
-// harness's four variants of the same body, at the end of this note):
+// that share one tensor-core body, under four kernel names (and two of
+// the harness's variants of the same body, at the end of this note):
 //
 //   * exact (max-subtract): softmax(q·kᵀ/√d + bias)·v. Replaces the Pallas
 //     kernels `_attn_kernel` (ecad_tpu/ops/attention.py:58, no bias) and
@@ -52,7 +52,7 @@
 //     instead — without a bias K1, K4 and K6 (and K5 at 128), with a
 //     key-padding bias K2 and K4 (and K5 at 128). Here remain K6 with a
 //     bias, dense biases, fp32, the other head dims, and the harness's
-//     variants.
+//     X1 and X4.
 //
 // What bounds it on the H100. Exact path, at PixArt-256's shapes
 // (self-attention 256×256 and cross-attention 256→120, D=72, bf16): a
@@ -109,18 +109,10 @@
 // times the TPU's attention body with parts of its work taken out, through
 // eight Pallas bodies launched by `_call` (:77), `_call_transposed` (:261)
 // and `_call_transposed_v2` (:442). The same body here, with the softmax
-// mode a template argument, computes each of their functions (bf16, no
-// bias):
+// mode a template argument, computes two of their functions (bf16, no
+// bias); the others run on attention_sm90.cu (below):
 //   * `attn_xmatmul_bf16_kernel` (X1) replaces `k_matmul_only` (:103):
 //     o = bf16(q·kᵀ)·v with unscaled scores, no exp, no sum, no divide;
-//   * `attn_xnomax_bf16_kernel` (X2) replaces `k_nomax` (:115): q
-//     pre-scaled by bf16(log2e/√D), p = exp2(s) with no max and no clamp
-//     (exp2f: +inf past s = 128, as on the TPU), Σp in fp32;
-//   * `attn_xmax_bf16_kernel` (X3) replaces `k_rowblock` (:129) and
-//     `k_chunk2` (:144): q pre-scaled, p = exp2(s − max), Σp in fp32. The
-//     Pallas bodies subtract the row max (or each chunk's max); here an
-//     online max over 64-key tiles, which changes only the max each p is
-//     rounded against before the bf16 cast and the order of the fp32 sums;
 //   * `attn_xfd_bf16_kernel` (X4) replaces `k_transposed_fd` (:288) and
 //     `k_transposed_subk_fd` (:349): the clamp numerator with the
 //     denominator taken by the tensor cores. The TPU kernels append a row
@@ -135,9 +127,11 @@
 //     every v tile, below Tk only, and ran a quarter slower than K4.) So D
 //     must be 8 below a multiple of 16 (D = DP − 8; 72 → 80).
 // `k_transposed` (:190) and `k_transposed_subk` (:317) compute K4's
-// no-bias function and run on `attn_clamp_bf16_kernel`. X1–X3 are built
-// at DP = 80 and 128 (D = 72 and 128, the harness's head dims), X4 at DP =
-// 80. At the harness's shapes, counting 4·B·H·T²·D flops on the q, k, v, o
+// no-bias function and run on the Hopper body, as do `k_nomax` (:115, X2)
+// and `k_rowblock` (:129) / `k_chunk2` (:144, X3): attention_sm90.cu's
+// `attn_xnomax_sm90_kernel` and `attn_xmax_sm90_kernel`. X1 is built at DP
+// = 80 and 128 (D = 72 and 128, the harness's head dims), X4 at DP = 80.
+// At the harness's shapes, counting 4·B·H·T²·D flops on the q, k, v, o
 // bytes, the tensor cores bound all three: (2, 4608, 24, 128) 5.22e11
 // flops on 226 MB, 0.528 ms; (8, 4096, 16, 72) 6.19e11 on 302 MB, 0.625
 // ms; (64, 1024, 16, 72) 3.09e11 on 604 MB, 0.313 ms (its bytes alone take
@@ -293,19 +287,16 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float f) {
 
 // Softmax modes of the shared bf16 body.
 enum Mode : int {
-  kExact = 0,      // K1, K6: ×scale on the fp32 score, online max
-  kClamp = 1,      // K4, K5 (and X4 with FD): q pre-scaled, exp2(clip(s, −100, 80))
-  kMaxScaledQ = 2, // X3: q pre-scaled as the clamp's, then the online max
-  kNoMax = 3,      // X2: q pre-scaled, exp2(s) with no max and no clip
-  kNone = 4,       // X1: p = s unscaled; no sum, no divide
+  kExact = 0,  // K1, K6: ×scale on the fp32 score, online max
+  kClamp = 1,  // K4, K5 (and X4 with FD): q pre-scaled, exp2(clip(s, −100, 80))
+  kNone = 2,   // X1: p = s unscaled; no sum, no divide
 };
 
 // FD (with kClamp only): the denominator comes from the p·v mma through a
 // ones column of v (X4), not from a fp32 sum of p.
 template <int DP, bool HAS_BIAS, int MODE, bool FD = false>
 __device__ __forceinline__ void attn_bf16_body(const Params& p) {
-  constexpr bool kScaledQ = MODE == kClamp || MODE == kMaxScaledQ || MODE == kNoMax;
-  constexpr bool kOnlineMax = MODE == kExact || MODE == kMaxScaledQ;
+  constexpr bool kScaledQ = MODE == kClamp;
   static_assert(!FD || MODE == kClamp, "the mma denominator is X4's, on the clamp numerator");
   constexpr int kSteps = DP / 16;       // k-steps of the q·kᵀ reduction over D
   constexpr int kSTiles = kBlockK / 8;  // 8-key score tiles per key tile
@@ -431,17 +422,14 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
           if constexpr (!FD) l_run[r] += pe;
         }
       }
-    } else if constexpr (!kOnlineMax) {
-      // X2: p = exp2(s), +inf past s = 128; X1: p = s. Keys past Tk weigh 0
+    } else if constexpr (MODE == kNone) {
+      // X1: p = s. Keys past Tk weigh 0
 #pragma unroll
       for (int j = 0; j < kSTiles; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = k0 + j * 8 + tg * 2 + (e & 1);
-          float pe = 0.f;
-          if (col < p.Tk) pe = MODE == kNoMax ? exp2f(s[j][e]) : s[j][e];
-          s[j][e] = pe;
-          if constexpr (MODE == kNoMax) l_run[e >> 1] += pe;
+          if (col >= p.Tk) s[j][e] = 0.f;
         }
       }
     } else {
@@ -582,18 +570,10 @@ __global__ void __launch_bounds__(kThreads) attn_flash_bf16_kernel(const Params 
   attn_bf16_body<DP, HAS_BIAS, kExact>(p);
 }
 
-// The harness's variants (X1–X4), without a bias, one name each.
+// The harness's variants X1 and X4, without a bias, one name each.
 template <int DP>
 __global__ void __launch_bounds__(kThreads) attn_xmatmul_bf16_kernel(const Params p) {
   attn_bf16_body<DP, false, kNone>(p);
-}
-template <int DP>
-__global__ void __launch_bounds__(kThreads) attn_xnomax_bf16_kernel(const Params p) {
-  attn_bf16_body<DP, false, kNoMax>(p);
-}
-template <int DP>
-__global__ void __launch_bounds__(kThreads) attn_xmax_bf16_kernel(const Params p) {
-  attn_bf16_body<DP, false, kMaxScaledQ>(p);
 }
 template <int DP>
 __global__ void __launch_bounds__(kThreads) attn_xfd_bf16_kernel(const Params p) {
@@ -747,27 +727,25 @@ cudaError_t launch_bf16(const Params& p, dim3 grid, bool has_bias, int variant,
   return cudaSuccess;
 }
 
-// The harness's variants 4–7 (X1–X4), bf16 without a bias, at DP = 80 and
-// 128 (X4 at 80 only, D = 72: it needs D = DP − 8).
+// The harness's variants 4 (X1) and 7 (X4), bf16 without a bias, at DP =
+// 80 and 128 (X4 at 80 only, D = 72: it needs D = DP − 8).
 template <int DP>
 cudaError_t launch_x(const Params& p, dim3 grid, int variant, cudaStream_t stream) {
   constexpr int kSmem = bf16_smem_bytes<DP>();
   void (*kernel)(const Params) = nullptr;
   switch (variant) {
     case 4: kernel = attn_xmatmul_bf16_kernel<DP>; break;
-    case 5: kernel = attn_xnomax_bf16_kernel<DP>; break;
-    case 6: kernel = attn_xmax_bf16_kernel<DP>; break;
     case 7:
       if constexpr (DP == 80) kernel = attn_xfd_bf16_kernel<DP>;
       break;
   }
   if (kernel == nullptr) return cudaErrorInvalidValue;
-  static bool opted_in[4] = {};
-  if (kSmem > 48 * 1024 && !opted_in[variant - 4]) {
+  static bool opted_in[2] = {};
+  if (kSmem > 48 * 1024 && !opted_in[variant == 7]) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return err;
-    opted_in[variant - 4] = true;
+    opted_in[variant == 7] = true;
   }
   kernel<<<grid, kThreads, kSmem, stream>>>(p);
   return cudaSuccess;
@@ -777,21 +755,22 @@ cudaError_t launch_x(const Params& p, dim3 grid, int variant, cudaStream_t strea
 
 // dtype: 0 = bfloat16, 1 = float32. strides: 16 int64 — q, k, v, o as
 // (b, t, h) each, then the bias as (b, h, q, k). bias may be null.
-// variant: 0 = exact softmax (scale = 1/√D); 1 = clamp softmax on the
-// transposed route (K4), 2 = the same on the row-block route (K5), both with
-// scale = scale·log2e, exact in q's dtype; 3 = the exact softmax on the
-// streaming route (K6, scale = 1/√D). fp32 inputs take the SIMT kernel in
-// the exact (0, 3) or the clamp (1, 2) variant. The harness's variants, bf16
-// only and without a bias: 4 = matmul only (X1, scale unused), 5 = no max
-// (X2), 6 = online max on a pre-scaled q (X3), 7 = clamp with the mma
-// denominator (X4, D % 16 == 8); 5–7 take scale = scale·log2e in q's dtype.
-// Returns the cudaError_t of the launch (0 on success).
+// variant: 0 = exact softmax; 1 = clamp softmax on the transposed route
+// (K4), 2 = the same on the row-block route (K5); 3 = the exact softmax on
+// the streaming route (K6). fp32 inputs take the SIMT kernel in the exact
+// (0, 3) or the clamp (1, 2) variant. The harness's variants, bf16 only and
+// without a bias: 4 = matmul only (X1, no scale), 7 = clamp with the mma
+// denominator (X4, D % 16 == 8); 5 and 6 (X2, X3) run on attention_sm90.cu
+// and are refused here. scale = 1/√D, which the exact variants multiply
+// into the fp32 scores; q_scale = scale·log2e rounded to q's dtype, which
+// the others multiply into q. Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int ecad_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                                   const float* bias, const long long* strides, int B, int H, int Tq,
-                                  int Tk, int D, float scale, int vec_ok, int variant,
-                                  void* stream) {
+                                  int Tk, int D, float scale, float q_scale, int vec_ok,
+                                  int variant, void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 1 || D > kMaxD || (long long)B * H > 65535 ||
-      variant < 0 || variant > 7)
+      variant < 0 || variant > 7 || variant == 5 || variant == 6)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -813,7 +792,7 @@ extern "C" int ecad_attention_fwd(int dtype, const void* q, const void* k, const
   const int tk128 = (Tk + 127) / 128 * 128;
   const int bk = variant == 3 ? (tk128 < 1536 ? tk128 : 1536) : 128;
   p.n_pad = (Tk + bk - 1) / bk * bk - Tk;
-  p.scale = scale;
+  p.scale = variant == 0 || variant == 3 ? scale : q_scale;
   p.vec_ok = vec_ok;
   const bool has_bias = bias != nullptr;
   const bool cl = variant == 1 || variant == 2;

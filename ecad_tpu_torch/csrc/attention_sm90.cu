@@ -1,10 +1,11 @@
 // Attention forward for Hopper (sm_90a): wgmma fed by TMA through
 // mbarriers, with a producer warpgroup and two consumer warpgroups. bf16 q,
 // k, v of shape (B, T, H, D), D = 72 or 128 (a template argument), in any
-// 16-byte-aligned strides, in two softmax modes (a template argument, as in
-// attention.cu) under four kernel names, one per route; the single-tile
-// exact kernel and both clamp kernels also take a key-padding bias (a
-// template flag in the name, so that a profile files the two forms apart):
+// 16-byte-aligned strides, in four softmax modes (a template argument, as in
+// attention.cu) under six kernel names, one per route and one per mode of
+// the attention-variant harness; the single-tile exact kernel and both
+// clamp kernels also take a key-padding bias (a template flag in the name,
+// so that a profile files the two forms apart):
 //
 //   * exact:
 //     - `attn_flash_sm90_kernel` (K6) replaces the streaming kernel
@@ -65,6 +66,37 @@
 //     (Tk_pad − Tk)·2^-100 is added to Σp once: the two then agree in a row
 //     whose every logit is clamped at −100 as well (an all-masked text
 //     row: Σv/Tk_pad on both sides).
+//   * the attention-variant harness (the port of the JAX package's
+//     scripts/exp_attn_variants.py, which takes the body apart), bf16
+//     without a bias, at D=72 and 128 (the only head dims the port takes
+//     them at):
+//     - no max (`kNoMax`): `attn_xnomax_sm90_kernel<D>` (X2) replaces
+//       `k_nomax` (scripts/exp_attn_variants.py:115, launched by `_call`
+//       :77): the clamp mode without its clip, p = exp2(s) with no max and
+//       no rescale (+inf from s = 128 on, so such a row comes out NaN, as
+//       the reference's does);
+//     - max on a pre-scaled q (`kMaxScaledQ`): `attn_xmax_sm90_kernel<D>`
+//       (X3) replaces `k_rowblock` (:129) and `k_chunk2` (:144), which differ
+//       only in the order of their sums: the exact mode's online max with a
+//       scale of 1 on the pre-scaled scores, p = exp2(s − m) rounded to
+//       bf16 against the running max of its 128-key tile, the rescale of
+//       the earlier tiles.
+//     Both take q × bf16(scale·log2e) rounded to bf16 before the product, as
+//     `_prep` does (:67-68), and keep Σp in fp32 over the unrounded p. The
+//     reference zero-pads the keys to a multiple of 128 and counts them (s =
+//     0), so the C entry refuses Tk % 128 ≠ 0 in these modes: no pad keys,
+//     no masked tile. Both run three consumer warpgroups at D=72, as
+//     K6-D72 does (`kFlashConsumers`; below: a D=72 tile's p·v is short,
+//     so a third independent chain feeds the tensor cores), and two at
+//     D=128, where three fit neither the registers nor the shared memory.
+//     On the card (scripts/probe_attention_body.py, NVIDIA H100 80GB HBM3,
+//     700 W), two consumers made X3 16–20 % slower at (8, 4096, 16, 72) and 2–4 % at
+//     (64, 1024, 16, 72), whose last 192-row item of each (batch, head)
+//     holds 64 rows, and X2 10–21 % and 1–2 %; X3 with its max taken out
+//     (`xmax_no_max`) took 15–18 % less than X3: the max, its shuffles and
+//     the rescale. At D=72 X2 and X3 take 1.7–2.7 times their bound (K4
+//     and K6-D72 about twice theirs); at D=128 X2 reaches 78 % of it and
+//     X3 64 %, near K5 and K6-D128 (chip_smoke.py's kernel rows).
 //
 // What bounds it on the H100. K5 at FLUX-1024 (1, 4608, 24, 128): 4·B·H·
 // Tq·Tk·D = 2.61e11 flops on the 113 MB of q, k, v and o, 2300 flops per
@@ -72,13 +104,16 @@
 // ms at 989 TFLOP/s. K6 at FLUX-1536 (1, 9728, 24, 128): 1.16e12 flops on
 // 239 MB, 1.18 ms. K6 at PixArt-2048 (2, 16384, 16, 72): 2.47e12 flops on
 // 302 MB, 2.50 ms. K4 at PixArt-1024 (4, 4096, 16, 72): 3.09e11 flops on
-// 151 MB, 0.313 ms; with a bias, to 120 text keys: 1.4e10 flops on the
-// 78 MB of q and o, 0.023 ms by bytes. K1 at FLUX-256 (4, 768, 24, 128): 2.9e10 flops on 38
-// MB, 0.029 ms by operations; at PixArt-256 (16, 256, 16, 72): 4.8e9 flops
-// on 38 MB, 0.011 ms by bytes; K2 there, 256 → 120 keys: 2.3e9 flops on 28
-// MB, 0.008 ms by bytes. So the tensor cores bound all but the last two,
-// and the exp2s come second: one per score, 5.1e8 at FLUX-1024, which at
-// 16 a clock per SM (≈1.75 GHz, 132 SMs) take ≈0.14 ms of the
+// 151 MB, 0.313 ms. X2 and X3 at the harness's shapes: (2, 4608, 24, 128)
+// 5.22e11 flops, 0.528 ms; (8, 4096, 16, 72) 6.18e11, 0.625 ms; (64, 1024,
+// 16, 72) 3.09e11, 0.313 ms. K4 with a bias, to 120 text keys: 1.4e10
+// flops on the 78 MB of q and o, 0.023 ms by bytes. K1 at FLUX-256 (4,
+// 768, 24, 128): 2.9e10 flops on 38 MB, 0.029 ms by operations; at
+// PixArt-256 (16, 256, 16, 72): 4.8e9 flops on 38 MB, 0.011 ms by bytes;
+// K2 there, 256 → 120 keys: 2.3e9 flops on 28 MB, 0.008 ms by bytes. So
+// the tensor cores bound all but the last two, and the exp2s come second:
+// one per score, 5.1e8 at FLUX-1024, which at 16 a clock per SM (≈1.75
+// GHz, 132 SMs) take ≈0.14 ms of the
 // special-function units — half the tensor-core bound at D=128, and nearer
 // the whole of it at D=72, where a score costs 0.59 of the products — so
 // they must overlap the products, not follow them.
@@ -302,7 +337,15 @@ constexpr float kTwoPowMinus100 = 7.8886090522101181e-31f;  // 2^-100
 // a pad key's score on the exact routes, −1e9, in the log2 domain
 constexpr float kPadScoreLog2 = -1e9f * kLog2e;
 
-enum Mode : int { kExact = 0, kClamp = 1 };
+// The softmax modes: exact (K1, K2, K6), clamp (K4, K5), and the
+// attention-variant harness's no max (X2) and max on a pre-scaled q (X3).
+enum Mode : int { kExact = 0, kClamp = 1, kNoMax = 2, kMaxScaledQ = 3 };
+// q is multiplied by bf16(scale·log2e) and rounded to bf16 (by the helpers)
+__host__ __device__ constexpr bool scaled_q(int mode) { return mode != kExact; }
+// a running max of the scores, p against it, and the rescale of earlier tiles
+__host__ __device__ constexpr bool online_max(int mode) {
+  return mode == kExact || mode == kMaxScaledQ;
+}
 
 struct Params {
   // the key-padding bias (B|1, 1, 1, Tk) of a kernel's bias form (exact
@@ -315,7 +358,7 @@ struct Params {
   int H, Tq, Tk;
   int n_items;  // (batch·head, query tile of 64 rows a consumer) work items
   int n_pad;    // the reference's pad keys on this route (see the note)
-  float scale;  // exact: 1/√D; clamp: scale·log2e rounded to bf16
+  float scale;  // exact: 1/√D; the other modes: scale·log2e rounded to bf16
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -489,8 +532,11 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[36], const uint32_t (&a)[4],
 // 2^x in one special-function instruction. `exp2f` also computes results
 // below 2^-126 exactly, which costs extra instructions on every score;
 // here none can matter: the clamp's results are at least 2^-100, and the
-// exact mode's p ≤ 1 loses only values below 2^-126 (flushed to 0) beside
-// a running sum of at least 1.
+// exact modes' p ≤ 1 loses only values below 2^-126 (flushed to 0) beside
+// a running sum of at least 1. Without a max (X2) a score below −126
+// weighs 0 where the reference's exp2 gives a denormal, which matters only
+// in a row whose every score is below −126 (its sum then 0 here); from
+// s = 128 on the result is +inf, as exp2 overflows in fp32.
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -508,19 +554,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // at row 16·(t / 32) + t % 32 / 4 + 8·(e / 2) and column 8j + 2·(t % 4) +
 // e % 2 (j < 16): two rows, 32 scores of each.
 
-// Clamp: p = exp2(clip(s, −100, 80)) in place, 0 past Tk; Σp into l. With
-// a key-padding bias, s + b2 first (b2 holds fp32(bias·log2e), −∞ past Tk):
-// a plain add, never fused with b2's product into an FFMA; a key past Tk
-// still weighs 0, not the 2^-100 its −∞ would clip to, since the epilogue
-// adds the reference's pad keys.
-template <bool MASK, bool BIAS>
-__device__ __forceinline__ void softmax_clamp(float (&s)[64], const float (&b2)[BIAS ? 32 : 1],
+// Without a max: p = exp2(clip(s, −100, 80)) (clamp, CLIP) or p = exp2(s)
+// (X2) in place, 0 past Tk; Σp into l. With a key-padding bias, s + b2
+// first (b2 holds fp32(bias·log2e), −∞ past Tk): a plain add, never fused
+// with b2's product into an FFMA; a key past Tk still weighs 0, not the
+// 2^-100 its −∞ would clip to, since the epilogue adds the reference's pad
+// keys.
+template <bool MASK, bool BIAS, bool CLIP>
+__device__ __forceinline__ void softmax_nomax(float (&s)[64], const float (&b2)[BIAS ? 32 : 1],
                                               float (&l)[2], int col0, int Tk) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
     const int col = col0 + (i >> 2) * 8 + (i & 1);
     const float x = BIAS ? __fadd_rn(s[i], b2[BIAS ? 2 * (i >> 2) + (i & 1) : 0]) : s[i];
-    float p = ex2(fminf(fmaxf(x, kClampLo), kClampHi));
+    float p = ex2(CLIP ? fminf(fmaxf(x, kClampLo), kClampHi) : x);
     if (MASK && col >= Tk) p = 0.f;
     s[i] = p;
     l[(i >> 1) & 1] += p;
@@ -531,6 +578,7 @@ __device__ __forceinline__ void softmax_clamp(float (&s)[64], const float (&b2)[
 // positive, so it commutes with the max), the rescale factor of the
 // earlier tiles (returned in alpha), p = exp2(s·scale·log2e − m·scale·log2e)
 // in place with the scale folded into one FFMA, Σp into l after rescaling it.
+// X3 takes it with qk_scale = 1 on its pre-scaled scores: p = exp2(s − m).
 template <bool MASK>
 __device__ __forceinline__ void softmax_exact(float (&s)[64], float (&m)[2], float (&l)[2],
                                               float (&alpha)[2], float qk_scale, int col0, int Tk) {
@@ -624,15 +672,16 @@ __device__ __forceinline__ void read_bias(float (&b2)[32], const float* slot, in
 }
 
 // One key tile's softmax, masked only where the tile passes Tk (in the
-// exact mode with a bias, through the bias b2).
+// exact mode with a bias, through the bias b2; X2 and X3 never pass it).
 template <int MODE, bool BIAS>
 __device__ __forceinline__ void softmax_tile(float (&s)[64], const float (&b2)[BIAS ? 32 : 1],
                                              float (&m)[2], float (&l)[2], float (&alpha)[2],
                                              float qk_scale, int k0, int col_t, int Tk) {
   const bool edge = k0 + kBlockN > Tk;
-  if constexpr (MODE == kClamp) {
-    if (edge) softmax_clamp<true, BIAS>(s, b2, l, k0 + col_t, Tk);
-    else softmax_clamp<false, BIAS>(s, b2, l, k0 + col_t, Tk);
+  if constexpr (!online_max(MODE)) {
+    constexpr bool kClip = MODE == kClamp;
+    if (edge) softmax_nomax<true, BIAS, kClip>(s, b2, l, k0 + col_t, Tk);
+    else softmax_nomax<false, BIAS, kClip>(s, b2, l, k0 + col_t, Tk);
   } else if constexpr (BIAS) {
     softmax_exact_bias(s, b2, m, l, alpha, qk_scale);
   } else {
@@ -667,8 +716,9 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
   using S = Smem<D, NC>;
   constexpr TileOf<D> kQ = S::kQ, kKV = S::kKV;
   constexpr int kStages = S::kStages;
-  // the producer's helper warps scale q (clamp) and write the bias (BIAS)
-  constexpr bool kHelpers = MODE == kClamp || BIAS;
+  // the producer's helper warps scale q (every mode but the exact one) and
+  // write the bias (BIAS)
+  constexpr bool kHelpers = scaled_q(MODE) || BIAS;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows of 128 bytes
   const uint32_t raw = smem_u32(smem_raw);
@@ -758,7 +808,7 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
         const int qb = it % kQBufs;
         const int b = item / n_qt / p.H;
         if constexpr (BIAS) bias_tile(b, 0);
-        if constexpr (MODE == kClamp) {
+        if constexpr (scaled_q(MODE)) {
           mbar_wait(q_full(qb), (it / kQBufs) & 1);
           uint4* const q = reinterpret_cast<uint4*>(gbase + (q_s(qb) - base));
           for (int i = ht; i < kQ.load() / 16; i += kHelperThreads) {
@@ -825,8 +875,8 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
     asm volatile("bar.sync %0, %1;\n" ::"n"(1 + NC), "n"(kConsumerThreads) : "memory");
   }
   const float qk_scale = MODE == kExact ? p.scale * kLog2e : 1.f;
-  // the clamp mode's q is read once the helpers have scaled it
-  auto q_in = [&](int qb) { return MODE == kClamp ? q_ready(qb) : q_full(qb); };
+  // a pre-scaled q is read once the helpers have scaled it
+  auto q_in = [&](int qb) { return scaled_q(MODE) ? q_ready(qb) : q_full(qb); };
   // this consumer's staging rows for the o store (64 × D bf16: at D=128 two
   // 64-column boxes under the 128-byte swizzle, at D=72 rows of 144 bytes)
   const uint32_t out_tile = out_s(c);
@@ -898,7 +948,7 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) fence_regs(pf[kk]);
       mbar_arrive(v_empty(sp));
-      if constexpr (MODE == kExact) {
+      if constexpr (online_max(MODE)) {
 #pragma unroll
         for (int i = 0; i < kAcc; ++i) o[i] *= alpha[(i >> 1) & 1];
       }
@@ -920,8 +970,9 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
       mbar_arrive(v_empty(sl));
     }
 
-    // epilogue: the row sums over the quad, the reference's pad keys, one
-    // divide, one cast into the staging rows, one TMA store of them
+    // epilogue: the row sums over the quad, the reference's pad keys (none
+    // in X2 and X3), one divide, one cast into the staging rows, one TMA
+    // store of them
     float f[2] = {1.f, 1.f};  // the exact mode's rescale for its pad keys
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -930,7 +981,7 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
       if constexpr (MODE == kClamp) {
         // up to a multiple of 128, 2^-100 each
         l[r] += (float)p.n_pad * kTwoPowMinus100;
-      } else if (p.n_pad > 0) {
+      } else if (MODE == kExact && p.n_pad > 0) {
         // n_pad keys of score −1e9: m' = max(m, −1e9), the sums rescaled by
         // exp2(m − m'), n_pad·exp2(−1e9 − m') added (log2 domain); f = 1 and
         // the added term 0 unless every score of the row is near −1e9
@@ -964,13 +1015,14 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
   if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
-// Four kernel names, so that a profile tells K6, K5, K1 and K4 apart, each
-// but K6's with a BIAS flag (K2, and K5 and K4 with a bias). The maps: q,
-// k, v, (at D=72) their 8-column tails, and o.
+// Six kernel names, so that a profile tells K6, K5, K1, K4, X2 and X3
+// apart, K1's, K4's and K5's with a BIAS flag (K2, and K5 and K4 with a
+// bias). The maps: q, k, v, (at D=72) their 8-column tails, and o.
 struct Maps {
   CUtensorMap m[7];
 };
-// K6's consumer warpgroups: three at D=72 (see the note), two at D=128
+// K6's, X2's and X3's consumer warpgroups: three at D=72 (see the note),
+// two at D=128
 template <int D>
 constexpr int kFlashConsumers = D == 72 ? 3 : 2;
 template <int D>
@@ -993,39 +1045,60 @@ __global__ void __launch_bounds__(384, 1)
     attn_clamp_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
   attn_sm90_body<D, kClamp, BIAS, 2>(maps.m, p);
 }
+template <int D>
+__global__ void __launch_bounds__(128 * (kFlashConsumers<D> + 1), 1)
+    attn_xnomax_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
+  attn_sm90_body<D, kNoMax, false, kFlashConsumers<D>>(maps.m, p);
+}
+template <int D>
+__global__ void __launch_bounds__(128 * (kFlashConsumers<D> + 1), 1)
+    attn_xmax_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
+  attn_sm90_body<D, kMaxScaledQ, false, kFlashConsumers<D>>(maps.m, p);
+}
 
 using Kernel = void (*)(const Maps, const Params);
 
-// A kernel with its consumer warpgroups and its dynamic shared memory.
+// A kernel with its consumer warpgroups, its dynamic shared memory and
+// whether its mode takes a pre-scaled q.
 struct Launch {
   Kernel kernel = nullptr;
   int consumers = 2;
   int smem = 0;
+  bool q_prescaled = false;
 };
-template <int D, int NC>
+template <int D, int NC, int MODE>
 Launch launch_of(Kernel kernel) {
-  return {kernel, NC, Smem<D, NC>::kBytes};
+  return {kernel, NC, Smem<D, NC>::kBytes, scaled_q(MODE)};
 }
 
 // The kernel of `mode` at head dim D, with or without a bias, or none where
-// it is not built: K5 at D=128 only, no bias on the streaming route (mode 0).
+// it is not built: K5 at D=128 only, no bias on the streaming route (mode 0)
+// nor in X2 and X3 (modes 4 and 5).
 template <int D>
 Launch sm90_launch(int mode, bool bias) {
   switch (mode) {
     case 0:
       if (bias) return Launch{};
-      return launch_of<D, kFlashConsumers<D>>(attn_flash_sm90_kernel<D>);
+      return launch_of<D, kFlashConsumers<D>, kExact>(attn_flash_sm90_kernel<D>);
     case 1:
       if constexpr (D == 128)
-        return launch_of<D, 2>(bias ? attn_rowblock_sm90_kernel<D, true>
-                                    : attn_rowblock_sm90_kernel<D, false>);
+        return launch_of<D, 2, kClamp>(bias ? attn_rowblock_sm90_kernel<D, true>
+                                            : attn_rowblock_sm90_kernel<D, false>);
       return Launch{};
     case 2:
-      return launch_of<D, 2>(bias ? attn_exact_sm90_kernel<D, true>
-                                  : attn_exact_sm90_kernel<D, false>);
+      return launch_of<D, 2, kExact>(bias ? attn_exact_sm90_kernel<D, true>
+                                          : attn_exact_sm90_kernel<D, false>);
+    case 3:
+      return launch_of<D, 2, kClamp>(bias ? attn_clamp_sm90_kernel<D, true>
+                                          : attn_clamp_sm90_kernel<D, false>);
+    case 4:
+      if (bias) return Launch{};
+      return launch_of<D, kFlashConsumers<D>, kNoMax>(attn_xnomax_sm90_kernel<D>);
+    case 5:
+      if (bias) return Launch{};
+      return launch_of<D, kFlashConsumers<D>, kMaxScaledQ>(attn_xmax_sm90_kernel<D>);
     default:
-      return launch_of<D, 2>(bias ? attn_clamp_sm90_kernel<D, true>
-                                  : attn_clamp_sm90_kernel<D, false>);
+      return Launch{};
   }
 }
 
@@ -1062,21 +1135,26 @@ EncodeTiled encode_tiled() {
 // t, h), each a multiple of 8 (TMA stores it). mode 0: the exact softmax
 // of the streaming route (K6); 1: the clamp softmax of the row-block route
 // (K5, D=128); 2: the exact softmax of the single-tile route (K1, or K2
-// with a bias); 3: the clamp softmax of the transposed route (K4). bias:
-// null, or a key-padding bias (B|1, 1, 1, Tk) in modes 1-3, bf16
-// (bias_bf16 = 1) or fp32, with element strides bias_strides (batch, key),
-// 0 where it broadcasts (`bias_operand`). Exact: scale = 1/√D; clamp: scale
-// = scale·log2e rounded to bf16. Mode 2, and any mode at Tk ≤ 128, launches
-// one block per SM, which walks the work items; the others one block per
-// item. Returns 0, a cudaError_t of the launch, or 100000 + the CUresult of
-// a refused tensor map.
+// with a bias); 3: the clamp softmax of the transposed route (K4); 4: the
+// harness's exp2 softmax without a max (X2); 5: its exp2 softmax with the
+// max on a pre-scaled q (X3), both only at Tk % 128 == 0 (the reference
+// counts its zero pad keys elsewhere). bias: null, or a key-padding bias
+// (B|1, 1, 1, Tk) in modes 1-3, bf16 (bias_bf16 = 1) or fp32, with element
+// strides bias_strides (batch, key), 0 where it broadcasts
+// (`bias_operand`). scale = 1/√D, which the exact modes (0, 2) multiply
+// into the fp32 scores; q_scale = scale·log2e rounded to bf16, which the
+// helpers of the others multiply into q (`scaled_q`). Mode 2, and any
+// mode at Tk ≤ 128, launches one block per SM, which walks the work
+// items; the others one block per item. Returns 0, a cudaError_t of the
+// launch, or 100000 + the CUresult of a refused tensor map.
 extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void* v, void* o,
                                        const unsigned long long* maps,
                                        const long long* o_strides, const void* bias,
                                        const long long* bias_strides, int bias_bf16, int B,
-                                       int H, int Tq, int Tk, float scale, int mode,
-                                       void* stream) {
-  if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || mode < 0 || mode > 3)
+                                       int H, int Tq, int Tk, float scale, float q_scale,
+                                       int mode, void* stream) {
+  if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || mode < 0 || mode > 5 ||
+      (mode >= 4 && Tk % kBlockN != 0))
     return (int)cudaErrorInvalidValue;
   const bool has_bias = bias != nullptr;
   const Launch launch = maps[0] == 128 ? sm90_launch<128>(mode, has_bias)
@@ -1139,13 +1217,14 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
   p.Tk = Tk;
   p.n_items = (int)n_items;
   // the reference's pad keys: to a multiple of 128, or of the streaming
-  // route's key block min(1536, round_up(Tk, 128))
+  // route's key block min(1536, round_up(Tk, 128)); none in X2 and X3,
+  // whose Tk is a multiple of 128
   const int tk128 = (Tk + 127) / 128 * 128;
   const int bk = mode == 0 ? (tk128 < 1536 ? tk128 : 1536) : 128;
   p.n_pad = (Tk + bk - 1) / bk * bk - Tk;
-  p.scale = scale;
+  p.scale = launch.q_prescaled ? q_scale : scale;
   // above 48 KB dynamic shared memory needs an opt-in (once per kernel)
-  static bool opted_in[2][4][2] = {};
+  static bool opted_in[2][6][2] = {};
   bool& opted = opted_in[maps[0] == 72][mode][has_bias];
   if (!opted) {
     const cudaError_t err = cudaFuncSetAttribute(

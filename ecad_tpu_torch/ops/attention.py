@@ -42,11 +42,12 @@ route (K2) — PixArt's text cross-attention at 256² and 512² — and on the
 transposed clamp route (K4 with a bias) — PixArt's text cross-attention at
 1024² and PixArt-Σ's at 2048² — and at 128 on the row-block route (K5 with
 a bias). The streaming route's bias form (K6 with a bias) stays on
-``csrc/attention.cu``. The choice depends on route, dtype, head dim and
-bias only. Such a call whose operands TMA cannot map (`tma_operand`: a
-16-byte-aligned base and strides), or whose bias the body does not read
-(`bias_operand`: bf16 or fp32), raises; it never drops back to the other
-body.
+``csrc/attention.cu``. The attention-variant harness's X2 and X3 take the
+same body in bf16 at 72 and 128 (`attn_variants`). The choice depends on
+route, dtype, head dim and bias only. Such a call whose operands TMA
+cannot map (`tma_operand`: a 16-byte-aligned base and strides), or whose
+bias the body does not read (`bias_operand`: bf16 or fp32), raises; it
+never drops back to the other body.
 
 The exact routes' pad keys. The reference pads the keys of the exact
 routes with keys of score −1e9 whose rows of v are 0: to round_up(Tk, 128)
@@ -62,9 +63,9 @@ to ``LAUNCHES``: ``attention`` / ``attention_bias`` (exact, without / with
 a bias), ``attention_long`` / ``attention_long_bias`` (clamp, transposed
 route), ``attention_rowblock`` / ``attention_rowblock_bias`` (clamp,
 row-block route) and ``attention_flash`` / ``attention_flash_bias``
-(exact, streaming route). The attention-variant harness's kernels (X1-X4,
-variants 4-7 of the same source) are wrapped in `attn_variants` and count
-under ``xattn_*``.
+(exact, streaming route). The attention-variant harness's kernels (X1 and
+X4: variants 4 and 7 of csrc/attention.cu; X2 and X3: modes 4 and 5 of the
+Hopper body) are wrapped in `attn_variants` and count under ``xattn_*``.
 """
 
 from __future__ import annotations
@@ -93,19 +94,19 @@ LAUNCHES = {
 # kernel variant of the C entry point → counter name (without "_bias")
 _VARIANTS = {
     0: "attention", 1: "attention_long", 2: "attention_rowblock", 3: "attention_flash",
-    4: "xattn_matmul_only", 5: "xattn_nomax", 6: "xattn_max", 7: "xattn_fd",
+    4: "xattn_matmul_only", 7: "xattn_fd",
 }
-# variants whose q is pre-scaled by bf16(scale·log2e); 4 (X1) takes no scale
-_SCALED_Q_VARIANTS = (1, 2, 5, 6, 7)
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 MAX_HEAD_DIM = 128
 _FN = None
 _SM90_FN = None
 # the Hopper body's kernels (csrc/attention_sm90.cu), by counter name: the
-# C entry's mode and the head dims it is built for
+# C entry's mode and the head dims it is built for; the last two are the
+# attention-variant harness's X2 and X3 (`attn_variants`)
 _SM90_MODES = {"attention_flash": (0, (72, 128)), "attention_rowblock": (1, (128,)),
-               "attention": (2, (72, 128)), "attention_long": (3, (72, 128))}
+               "attention": (2, (72, 128)), "attention_long": (3, (72, 128)),
+               "xattn_nomax": (4, (72, 128)), "xattn_max": (5, (72, 128))}
 # the routes whose Hopper kernel also takes a key-padding bias: K2, K4, K5
 _SM90_BIAS = ("attention", "attention_long", "attention_rowblock")
 # the bias dtypes the Hopper body reads, with the C entry's code for each
@@ -140,10 +141,11 @@ def _kernel():
             ctypes.POINTER(ctypes.c_longlong),  # 16 strides
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H Tq Tk
             ctypes.c_int,  # D
-            ctypes.c_float,  # scale
+            ctypes.c_float,  # scale: 1/√D (the exact variants)
+            ctypes.c_float,  # q_scale: bf16(scale·log2e) in q's dtype (the others)
             ctypes.c_int,  # vec_ok
             ctypes.c_int,  # variant: 0 exact, 1 clamp (K4), 2 row-block (K5), 3 flash (K6),
-            # 4-7 the harness's X1-X4
+            # 4 and 7 the harness's X1 and X4
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -166,9 +168,11 @@ def _sm90_kernel():
             ctypes.POINTER(ctypes.c_longlong),  # its strides (batch, key)
             ctypes.c_int,  # the bias is bf16 (1) or fp32 (0)
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H Tq Tk
-            ctypes.c_float,  # scale
+            ctypes.c_float,  # scale: 1/√D (the exact modes)
+            ctypes.c_float,  # q_scale: bf16(scale·log2e) (the modes with a pre-scaled q)
             ctypes.c_int,  # mode: 0 exact streaming (K6), 1 clamp row-block (K5),
-            # 2 exact single-tile (K1; K2 with a bias), 3 clamp transposed (K4)
+            # 2 exact single-tile (K1; K2 with a bias), 3 clamp transposed (K4),
+            # 4 the harness's no max (X2), 5 its max on a pre-scaled q (X3)
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -372,8 +376,8 @@ def _launch(
     """One launch of the CUDA kernel on q's device: `variant` 0 is the
     exact softmax, 1 the clamp softmax of the transposed route (K4), 2 that
     of the row-block route (K5), 3 the exact softmax of the streaming route
-    (K6), 4-7 the attention-variant harness's X1-X4 (`attn_variants`).
-    Counts it."""
+    (K6), 4 and 7 the attention-variant harness's X1 and X4
+    (`attn_variants`). Counts it."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -397,10 +401,6 @@ def _launch(
         and all(t.data_ptr() % 16 == 0 for t in tensors)
         and all((s * elem) % 16 == 0 for s in strides[:12])
     )
-    if variant in _SCALED_Q_VARIANTS:
-        scale = clamp_scale(d, q.dtype)
-    else:
-        scale = 1.0 if variant == 4 else 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
         status = _kernel()(
             _DTYPES[q.dtype],
@@ -408,7 +408,7 @@ def _launch(
             None if bias is None else bias.data_ptr(),
             (ctypes.c_longlong * 16)(*strides),
             b, h, tq, tk, d,
-            scale,
+            1.0 / math.sqrt(d), clamp_scale(d, q.dtype),
             vec_ok,
             variant,
             torch.cuda.current_stream(q.device).cuda_stream,
@@ -487,9 +487,12 @@ def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
     (``attention``: exact single-tile, K1, or K2 with a key-padding `bias`;
     ``attention_long``: clamp transposed, K4; ``attention_rowblock``: clamp
     row-block, K5, each also with a key-padding `bias`;
-    ``attention_flash``: exact streaming, K6). Raises where
-    TMA cannot map an operand (`tma_operand`) or the body does not read the
-    bias (`bias_operand`). Counts it under `name`, or ``name_bias``."""
+    ``attention_flash``: exact streaming, K6; ``xattn_nomax`` and
+    ``xattn_max``: the attention-variant harness's exp2 softmax without and
+    with the max on a pre-scaled q, X2 and X3, no bias, Tk % 128 == 0).
+    Raises where TMA cannot map an operand (`tma_operand`) or the body does
+    not read the bias (`bias_operand`). Counts it under `name`, or
+    ``name_bias``."""
     maps = [a for t, n in ((q, "q"), (k, "k"), (v, "v")) for a in tma_operand(t, n)]
     b, tq, h, d = q.shape
     bias_strides, bias_bf16 = ([0, 0], 0) if bias is None else bias_operand(bias, b)
@@ -497,7 +500,6 @@ def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     mode = _SM90_MODES[name][0]
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
-    scale = clamp_scale(d, q.dtype) if mode in (1, 3) else 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
         status = _sm90_kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -505,7 +507,7 @@ def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
             (ctypes.c_longlong * 3)(out.stride(0), out.stride(1), out.stride(2)),
             None if bias is None else bias.data_ptr(),
             (ctypes.c_longlong * 2)(*bias_strides), bias_bf16,
-            b, h, tq, k.shape[1], scale, mode,
+            b, h, tq, k.shape[1], 1.0 / math.sqrt(d), clamp_scale(d, q.dtype), mode,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if status != 0:

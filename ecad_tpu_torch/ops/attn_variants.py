@@ -3,17 +3,20 @@
 The JAX package's research harness ``scripts/exp_attn_variants.py`` times
 the TPU's attention body at its headline shapes with parts of the work
 taken out, through eight Pallas bodies. Each function has a counterpart
-here, computed by a variant of the shared CUDA body in ``csrc/attention.cu``
-(variants 4-7 of its C entry; the source says what bounds each):
+here. X2 and X3 run on the Hopper body, ``csrc/attention_sm90.cu`` (modes
+4 and 5 of its C entry, wgmma fed by TMA, keys in 128-key tiles), so that
+they take apart the body that serves K1-K6; X1 and X4 on the ``mma.sync``
+body of ``csrc/attention.cu`` (variants 4 and 7 of its C entry, 64-key
+tiles). Each source says what bounds each kernel.
 
 * ``k_matmul_only`` (:103) — o = bf16(q·kᵀ)·v with unscaled scores, no
   softmax: `matmul_only_attention` (X1, ``attn_xmatmul_bf16_kernel``);
 * ``k_nomax`` (:115) — q pre-scaled by bf16(log2e/√D), p = exp2(s) with no
   max and no clamp, Σp in fp32: `nomax_attention` (X2,
-  ``attn_xnomax_bf16_kernel``);
+  ``attn_xnomax_sm90_kernel<D>``);
 * ``k_rowblock`` (:129) and ``k_chunk2`` (:144) — q pre-scaled, p =
   exp2(s − max), Σp in fp32: `max_exp2_attention` (X3,
-  ``attn_xmax_bf16_kernel``);
+  ``attn_xmax_sm90_kernel<D>``);
 * ``k_transposed_fd`` (:288) and ``k_transposed_subk_fd`` (:349) — the
   clamp numerator, denominator Σ bf16(p) taken by the tensor cores through
   a ones column of v: `clamp_fd_attention` (X4, ``attn_xfd_bf16_kernel``);
@@ -42,10 +45,12 @@ import torch
 from . import attention as _attention
 from .attention import _CLAMP_HI, _CLAMP_LO, _round_up, clamp_scale
 
-# the padded head dims (DP) the kernels are built at: X1-X3 at D = 72 and
-# 128 (the harness's), X4 at 72 only (its ones column takes the last 8 of
-# DP's columns, so D = DP - 8)
-_BUILT_DP = {4: (80, 128), 5: (80, 128), 6: (80, 128), 7: (80,)}
+# X1 and X4 on csrc/attention.cu, by counter: the C entry's variant and the
+# padded head dims (DP) it is built at: X1 at D = 72 and 128 (the
+# harness's), X4 at 72 only (its ones column takes the last 8 of DP's
+# columns, so D = DP - 8). X2 and X3 run on the Hopper body, at the head
+# dims `attention._SM90_MODES` gives.
+_MMA = {"xattn_matmul_only": (4, (80, 128)), "xattn_fd": (7, (80,))}
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, scaled: bool) -> torch.Tensor:
@@ -86,7 +91,7 @@ def nomax_attention_reference(q, k, v) -> torch.Tensor:
 def max_exp2_attention_reference(q, k, v) -> torch.Tensor:
     """Plain version of X3 (and of ``k_rowblock`` / ``k_chunk2``): q
     pre-scaled, p = exp2(s − rowmax), Σp in fp32, p rounded to v's dtype for
-    p·v, one divide. The kernel keeps a running max over 64-key tiles, so
+    p·v, one divide. The kernel keeps a running max over 128-key tiles, so
     each p is rounded to bf16 against the max of the tiles seen so far and
     rescaled in fp32 afterwards (``k_chunk2`` rounds against each half's
     max); that changes the bf16 rounding of p (relative 2^-9 either way)
@@ -109,7 +114,7 @@ def clamp_fd_attention_reference(q, k, v) -> torch.Tensor:
     return _pv(p, v, q.dtype, p.float().sum(dim=-1, keepdim=True))
 
 
-def _run(q, k, v, variant: int, plain, aligned: bool) -> torch.Tensor:
+def _run(q, k, v, counter: str, plain, aligned: bool) -> torch.Tensor:
     _attention._check(q, k, v, None)
     tk, d = k.shape[1], q.shape[-1]
     if aligned and tk % 128:
@@ -121,31 +126,37 @@ def _run(q, k, v, variant: int, plain, aligned: bool) -> torch.Tensor:
         return plain(q, k, v)
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the harness's kernels take bfloat16; got {q.dtype}")
-    dp = _round_up(d, 16)
-    if dp not in _BUILT_DP[variant] or (variant == 7 and d % 16 != 8):
+    if counter in _attention._SM90_MODES:
+        if not _attention._takes_sm90(counter, q, None):
+            raise ValueError(f"head dim {d}: {counter} runs on the Hopper body, built for "
+                             f"head dims {_attention._SM90_MODES[counter][1]}")
+        return _attention._launch_sm90(q, k, v, counter)
+    variant, built = _MMA[counter]
+    fd = counter == "xattn_fd"
+    if _round_up(d, 16) not in built or (fd and d % 16 != 8):
         raise ValueError(
             f"head dim {d}: kernel variant {variant} is built for padded head "
-            f"dims {_BUILT_DP[variant]}" + (" with D = DP - 8" if variant == 7 else "")
+            f"dims {built}" + (" with D = DP - 8" if fd else "")
         )
     return _attention._launch(q, k, v, None, variant)
 
 
 def matmul_only_attention(q, k, v) -> torch.Tensor:
     """X1: bf16(q·kᵀ)·v, unnormalised. Tk % 128 == 0."""
-    return _run(q, k, v, 4, matmul_only_attention_reference, aligned=True)
+    return _run(q, k, v, "xattn_matmul_only", matmul_only_attention_reference, aligned=True)
 
 
 def nomax_attention(q, k, v) -> torch.Tensor:
     """X2: exp2 softmax without a max (overflows past s = 128). Tk % 128 == 0."""
-    return _run(q, k, v, 5, nomax_attention_reference, aligned=True)
+    return _run(q, k, v, "xattn_nomax", nomax_attention_reference, aligned=True)
 
 
 def max_exp2_attention(q, k, v) -> torch.Tensor:
     """X3: exp2 softmax with the max, on a pre-scaled q. Tk % 128 == 0."""
-    return _run(q, k, v, 6, max_exp2_attention_reference, aligned=True)
+    return _run(q, k, v, "xattn_max", max_exp2_attention_reference, aligned=True)
 
 
 def clamp_fd_attention(q, k, v) -> torch.Tensor:
     """X4: the clamp softmax with the denominator from the p·v product. Any
     Tk: the reference body masks its pad keys. On the card D % 16 == 8."""
-    return _run(q, k, v, 7, clamp_fd_attention_reference, aligned=False)
+    return _run(q, k, v, "xattn_fd", clamp_fd_attention_reference, aligned=False)

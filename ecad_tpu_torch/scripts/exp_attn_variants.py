@@ -28,9 +28,12 @@ not normalised), the bound (4·B·H·T²·D flops on the q, k, v and o bytes,
 many times the row called it.
 
 Left out on purpose: the reference's positional query-tile sizes (``bq``)
-and ``--chunks=`` set TPU tile shapes. The Hopper kernels' query tile is 64
-rows and their keys stream in 64-key tiles, so neither knob exists here,
-and the metric names drop the reference's ``_bq…``.
+and ``--chunks=`` set TPU tile shapes. The kernels here fix their own: on
+the Hopper body (X2, X3 and the ``transposed`` rows' K4 at the harness's
+head dims) each consumer warpgroup takes 64 query rows and the keys stream
+in 128-key tiles; on the ``mma.sync`` body (X1, X4) a block takes 64 query
+rows and 64-key tiles. So neither knob exists here, and the metric names
+drop the reference's ``_bq…``.
 
 Every row needs Tk % 128 == 0: the reference's ``_prep`` and
 ``_call_transposed`` count their zero pad keys (see `attn_variants`), so

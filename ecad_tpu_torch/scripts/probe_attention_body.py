@@ -28,11 +28,19 @@ Rows, bf16 at the shape the main path gives each kernel:
 * K5 with a bias at FLUX-1024's joint attention (1, 4608, 24, 128) with a
   key-padding bias in bf16 (4508 keys kept), with ``no_bias_loads``;
 * K1 at FLUX-256's joint attention (4, 768, 24, 128), with
-  ``items_in_runs``.
+  ``items_in_runs``;
+* the harness's X3 (max on a pre-scaled q) at its ``pixart1024`` (8, 4096,
+  16, 72) and ``pixart512_class_self`` (64, 1024, 16, 72) shapes, with
+  ``xmax_two_consumers`` (K6's ``two_consumers`` edit, since X2 and X3
+  share its consumer count: two consumer warpgroups and 128-row items
+  instead of three and 192) and ``xmax_no_max`` (X3's kernel with X2's
+  softmax: no max, no rescale), and X2 (no max) at both shapes with
+  ``xnomax_two_consumers``.
 
 A variant that only reschedules the same arithmetic (``two_consumers``,
-``one_block_per_item``, ``items_in_runs``, ``bias_after_q``) must give the
-source's output bit for bit; the others compute something else and are
+``one_block_per_item``, ``items_in_runs``, ``bias_after_q``,
+``xmax_two_consumers``, ``xnomax_two_consumers``) must give the source's
+output bit for bit; the others compute something else and are
 timed only. Each variant's time is the
 median of spin-kernel CUDA-event timings (`device_ms`), taken in turns:
 source, variants, variants again in reverse, source. Prints one JSON line
@@ -104,6 +112,13 @@ K4_BIAS_VARIANTS = {
                   "    if (t < 0) {\n      // rows past Tq are outside the map")],
 }
 K5_BIAS_VARIANTS = {"no_bias_loads": K2_VARIANTS["no_bias_loads"]}
+# X2 and X3 share K6's consumer count, so K6's edit takes each to two
+X3_VARIANTS = {
+    "xmax_two_consumers": K6_VARIANTS["two_consumers"],
+    "xmax_no_max": [("  return mode == kExact || mode == kMaxScaledQ;",
+                     "  return mode == kExact;")],
+}
+X2_VARIANTS = {"xnomax_two_consumers": K6_VARIANTS["two_consumers"]}
 # row → (q shape, keys, text lengths of the bias or None, the wrapper's
 # counter, its variants, timing reps and calls per rep)
 ROWS = {
@@ -116,9 +131,16 @@ ROWS = {
                          K5_BIAS_VARIANTS, 5, 10),
     "k1_flux256": ((4, 768, 24, 128), 768, None, "attention",
                    {"items_in_runs": K4_BIAS_VARIANTS["items_in_runs"]}, 7, 20),
+    "x3_pixart1024": ((8, 4096, 16, 72), 4096, None, "xattn_max", X3_VARIANTS, 5, 5),
+    "x3_pixart512_class_self": ((64, 1024, 16, 72), 1024, None, "xattn_max", X3_VARIANTS,
+                                5, 5),
+    "x2_pixart1024": ((8, 4096, 16, 72), 4096, None, "xattn_nomax", X2_VARIANTS, 5, 5),
+    "x2_pixart512_class_self": ((64, 1024, 16, 72), 1024, None, "xattn_nomax", X2_VARIANTS,
+                                5, 5),
 }
 # the same arithmetic, rescheduled
-EXACT = ("two_consumers", "one_block_per_item", "items_in_runs", "bias_after_q")
+EXACT = ("two_consumers", "one_block_per_item", "items_in_runs", "bias_after_q",
+         "xmax_two_consumers", "xnomax_two_consumers")
 
 
 def variant_source(src: str, edits: list[tuple[str, str]]) -> str:

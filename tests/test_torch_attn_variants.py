@@ -26,6 +26,7 @@ import torch
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
+from ecad_tpu_torch.ops import attention as port_attention
 from ecad_tpu_torch.ops import (
     clamp_fd_attention,
     matmul_only_attention,
@@ -34,6 +35,7 @@ from ecad_tpu_torch.ops import (
     nomax_attention_reference,
     transposed_attention,
 )
+from ecad_tpu_torch.ops.attention import clamp_scale
 from ecad_tpu_torch.scripts import exp_attn_variants as port_harness
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -197,3 +199,145 @@ def test_port_harness_main_on_cpu(monkeypatch, capsys):
     # only known shapes are accepted
     with pytest.raises(SystemExit):
         port_harness.main(["--device", "cpu", "--shape=flux1024"])
+
+
+# ---------------------------------------------------------------------------
+# X2 and X3 on the Hopper body (csrc/attention_sm90.cu): its arithmetic,
+# emulated, and the routing
+# ---------------------------------------------------------------------------
+
+
+def _chip_smoke_xattn():
+    """chip_smoke.py's XATTN table, loaded from its file, for the tolerances
+    its checks hold X2 and X3 to on the card."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.XATTN
+
+
+def _hopper_x_body(q, k, v, with_max):
+    """csrc/attention_sm90.cu's X3 (`with_max`) and X2 modes in their own
+    order, on bf16 (B, T, H, D) q, k, v: q × bf16(log2e/√D), rounded to
+    bf16; per 128-key tile s = q·kᵀ in fp32; X3: the running max m of the
+    pre-scaled scores, p = exp2(s − m), and Σp and o of the earlier tiles
+    rescaled by exp2(m_old − m); X2: p = exp2(s), no max, no rescale; Σp in
+    fp32 over the unrounded p, p rounded to bf16 for p·v against the max of
+    its tile, no pad keys (Tk % 128 == 0); one factor 1/Σp, one cast."""
+    scale = torch.tensor(clamp_scale(q.shape[-1], q.dtype), dtype=q.dtype)
+    qf = (q * scale).float().permute(0, 2, 1, 3)
+    kf, vf = (t.float().permute(0, 2, 1, 3) for t in (k, v))
+    m = torch.full((*qf.shape[:3], 1), -torch.inf)
+    l = torch.zeros((*qf.shape[:3], 1))
+    o = torch.zeros_like(qf)
+    for k0 in range(0, kf.shape[2], 128):
+        s = qf @ kf[:, :, k0:k0 + 128].transpose(-1, -2)
+        alpha = 1.0
+        if with_max:
+            mx = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha, s, m = torch.exp2(m - mx), s - mx, mx
+        p = torch.exp2(s)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + 128]
+    return (o * (1.0 / l)).to(torch.bfloat16).permute(0, 2, 1, 3)
+
+
+def _least_atol_per_std(got, want, rtol=2.0 ** -7):
+    """The least atol that passes `got` beside `rtol`, per the std of
+    `want` (chip_smoke.py's `least_atol_per_std`)."""
+    err = np.abs(got - want) - rtol * np.abs(want)
+    return float(max(err.max(), 0.0)) / float(np.std(want))
+
+
+# Pallas body → (the Hopper mode's emulation keeps a max, its chip_smoke.py
+# counter)
+HOPPER_X = {"rowblock": (True, "xattn_max"), "chunk2": (True, "xattn_max"),
+            "nomax": (False, "xattn_nomax")}
+
+
+@pytest.mark.parametrize("d", [72, 128])
+@pytest.mark.parametrize("name", sorted(HOPPER_X))
+def test_hopper_x_arithmetic_matches_pallas_body(interpret, name, d):
+    """The Hopper body's X3 arithmetic (a running max over 128-key tiles, p
+    rounded to bf16 against it) against ``k_rowblock`` (the row max) and
+    ``k_chunk2`` (each 128-key half's max, merged), and its X2 arithmetic
+    (exp2 with no max) against ``k_nomax``, in interpret mode at (1, 256,
+    2, D) → 256 keys, bf16: the least atol per std that passes beside 2^-7
+    relative stays below half of the share chip_smoke.py's XATTN holds the
+    kernel to on the card, and the emulation passes that tolerance."""
+    with_max, counter = HOPPER_X[name]
+    q, k, v = _qkv(5, 256, d)
+    want = np.asarray(_body(interpret, name, *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))),
+                      np.float32)
+    got = _hopper_x_body(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+                         with_max).float().numpy()
+    atol, rtol = _chip_smoke_xattn()[counter][2](torch.from_numpy(want))
+    share = atol / float(np.std(want))
+    assert rtol == 2.0 ** -7
+    assert _least_atol_per_std(got, want) <= share / 2, _least_atol_per_std(got, want)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("d", [72, 128])
+def test_hopper_x2_overflows_like_k_nomax(interpret, d):
+    """Without a max, a score past 128 gives exp2 = +inf: with q × 64 on
+    every other row, the Hopper X2 emulation is inf/NaN in exactly the
+    elements where ``k_nomax`` is, in bf16, and agrees elsewhere."""
+    q, k, v = _qkv(6, 256, d)
+    q[:, ::2] *= 64
+    want = np.asarray(_body(interpret, "nomax", *(jnp.asarray(a, jnp.bfloat16)
+                                                  for a in (q, k, v))), np.float32)
+    got = _hopper_x_body(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+                         False).float().numpy()
+    assert np.array_equal(np.isfinite(got), np.isfinite(want))
+    assert 0 < np.isfinite(got).sum() < got.size
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], **BF16_TOL)
+
+
+# (wrapper, dtype, head dim, keys) → the launch it takes: ("sm90", counter)
+# on the Hopper body, ("mma", variant) of csrc/attention.cu, or the
+# exception raised before either launcher
+HARNESS_ROUTES = {
+    "nomax_bf16_d72": (nomax_attention, "bf16", 72, 256, ("sm90", "xattn_nomax")),
+    "nomax_bf16_d128": (nomax_attention, "bf16", 128, 256, ("sm90", "xattn_nomax")),
+    "max_bf16_d72": (max_exp2_attention, "bf16", 72, 256, ("sm90", "xattn_max")),
+    "max_bf16_d128": (max_exp2_attention, "bf16", 128, 256, ("sm90", "xattn_max")),
+    "nomax_bf16_d80": (nomax_attention, "bf16", 80, 256, ValueError),
+    "max_bf16_d80": (max_exp2_attention, "bf16", 80, 256, ValueError),
+    "max_bf16_d120": (max_exp2_attention, "bf16", 120, 256, ValueError),
+    "nomax_fp32_d72": (nomax_attention, "fp32", 72, 256, TypeError),
+    "max_fp32_d128": (max_exp2_attention, "fp32", 128, 256, TypeError),
+    "nomax_tk200_d72": (nomax_attention, "bf16", 72, 200, ValueError),
+    "max_tk200_d128": (max_exp2_attention, "bf16", 128, 200, ValueError),
+    "matmul_only_bf16_d72": (matmul_only_attention, "bf16", 72, 256, ("mma", 4)),
+    "fd_bf16_d72": (clamp_fd_attention, "bf16", 72, 256, ("mma", 7)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HARNESS_ROUTES))
+def test_harness_kernel_routing(case, monkeypatch):
+    """X2 and X3 in bf16 at head dim 72 or 128 launch the Hopper body
+    (under ``xattn_nomax`` / ``xattn_max``), and X1 and X4 csrc/attention.cu's
+    variants 4 and 7; X2 and X3 at other head dims (the Hopper body is
+    built for 72 and 128 only), fp32 (no kernel takes it on the card) and
+    Tk = 200 (the reference counts its pad keys) raise before either
+    launcher.
+    Tensors on the meta device reach the launch decision without a card;
+    the launchers are replaced by recorders."""
+    fn, dtype, d, tk, want = HARNESS_ROUTES[case]
+    calls = []
+    monkeypatch.setattr(port_attention, "_launch_sm90",
+                        lambda q, k, v, counter, bias=None: calls.append(("sm90", counter)))
+    monkeypatch.setattr(port_attention, "_launch",
+                        lambda q, k, v, bias, variant: calls.append(("mma", variant)))
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q = torch.empty((2, 256, 3, d), dtype=tdt, device="meta")
+    kv = torch.empty((2, tk, 3, d), dtype=tdt, device="meta")
+    if isinstance(want, type):
+        with pytest.raises(want):
+            fn(q, kv, kv)
+        assert calls == []
+    else:
+        fn(q, kv, kv)
+        assert calls == [want]
