@@ -32,24 +32,32 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    bias run on the Hopper body (``csrc/attention_sm90.cu``: wgmma fed by
    TMA) — K1, K4 and K6 at head dims 72 and 128, K5 at 128 — and so do bf16
    calls with a key-padding bias on the single-tile route (K2, at 72 and
-   128) and on the clamp routes (K4 with a bias at 72 and 128, K5 with a
-   bias at 128); they are held against their plain versions at ragged
+   128), on the clamp routes (K4 with a bias at 72 and 128, K5 with a bias
+   at 128) and on the streaming route (K6 with a bias at 72 and 128, at
+   PixArt-2048's shape with lengths 15384 / 9000 and at FLUX-1536's with
+   9000 keys kept, each reached through the router with the launch
+   counters set to 0 just before and read just after, and named by a
+   profile); they are held against their plain versions at ragged
    shapes (tq=30, tk=300 at d=72 and d=128; K6 also at 1600 keys, two of
    the reference's 1536-key blocks; K2 with key-padding lengths [100, 200,
    256]; K4 and K5 with biases in bf16 and fp32, per batch and broadcast
    over it, at Tk=300, and K4 at PixArt-Σ-2048's cross-attention (2,
    16384, 16, 72) → 120), logits near ±40 (log2) and q×1e4, and shown to
    reject a plain version that drops or repeats one 128-key tile (the
-   body's step) at 768 (K1), 4096 (K4), 4608 (K5), 9728 and 16384 (K6)
-   keys; K4 and K5 with a bias also in all-masked text rows, whose output
+   body's step) at 768 (K1), 4096 (K4), 4608 (K5), 9728 and 16384 (K6,
+   also with its bias) keys; K4 and K5 with a bias also in all-masked text rows, whose output
    must be Σv/Tk_pad within 2^-7 relative, a check shown to reject the
    pad keys counted twice (Σv/(Tk_pad + n_pad)); a call whose operands TMA
    cannot map, or whose bias the body does not read (fp16), raises there.
    The rest run on ``csrc/attention.cu``. The exact kernels
    of both (K2 in bf16 on the Hopper body and in fp32 on attention.cu, K6
-   with a bias) are also held against the plain versions in rows whose
-   every key has a bias of −1e9 or −2e9, where the reference's pad keys
-   take their share. Time kernel (with the
+   with a bias at d=72 and d=128) are also held against the plain versions
+   in rows whose every key has a bias of −1e9 or −2e9, where the
+   reference's pad keys take their share; and a dense bias past the
+   single tile ((1, 2048, 2, 72) × 1100 keys, fp32 and bf16, on
+   attention.cu), which the reference sends to XLA without pad keys, is
+   held to its plain version with none, and its −1e9 and −2e9 rows to
+   Σv/Tk. Time kernel (with the
    SM clock, power and temperature sampled before and after), plain
    version and (attention) one ``scaled_dot_product_attention`` call as a
    yardstick the port never calls.
@@ -60,12 +68,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    q, X4 clamp with the denominator from the p·v product; K4 for the
    ``transposed`` rows) is held against its plain version on a 2-head
    slice at a tolerance derived from its measured error and shown to
-   reject a dropped or repeated 64-key tile at 4096 keys; X2 and X3 run on
-   the Hopper body (``attn_xnomax_sm90_kernel``, ``attn_xmax_sm90_kernel``,
-   which a profile of one call each at every shape must name), X1 and X4
-   on ``csrc/attention.cu``; X2's inf/NaN positions at q×64 against its
-   plain version's; Tk = 200 refused by X1-X3 and the harness's K4 rows,
-   and X4 right there; X2 and X3 refused at head dim 80; the harness's ``main``
+   reject a dropped or repeated 64-key tile at 4096 keys; X2, X3 and X4
+   run on the Hopper body (``attn_xnomax_sm90_kernel``,
+   ``attn_xmax_sm90_kernel``, ``attn_xfd_sm90_kernel``, which a profile of
+   one call each at every shape they take must name), X1 on
+   ``csrc/attention.cu``; X2's inf/NaN positions at q×64 against its
+   plain version's; Tk = 200 refused by X1-X3 and the harness's K4 rows
+   (and by the Hopper C entry in X2's and X3's modes), and X4 right there;
+   X2-X4 refused at head dim 80; the harness's ``main``
    once per shape (20 rows in all), with the launch counters checked
    against its calls; plain versions timed two heads at a time, one
    ``scaled_dot_product_attention`` call per shape as the yardstick.
@@ -385,21 +395,30 @@ def attention_cases() -> None:
         # rows whose every key has a bias of −1e9 (the reference's output
         # there is Σv/Tk_pad) or −2e9 (0), beside a ragged row: K2 (at d=72
         # on the Hopper body in bf16, on attention.cu in fp32 and at d=64)
-        # and K6's bias variant, against the repaired plain versions
+        # and K6's bias variant (at d=72 and 128, on the Hopper body in
+        # bf16), against the repaired plain versions
         from ecad_tpu_torch.ops.attention import _takes_sm90
 
         for fill in (-1e9, -2e9):
-            for d in (64, 72):
+            for d in (64, 72, 128):
                 qm, km, vm = (rnd(2, 8, 2, d, dtype=dtype), rnd(2, 300, 2, d, dtype=dtype),
                               rnd(2, 300, 2, d, dtype=dtype))
                 bias_m = key_padding_bias([0, 280], 300, fill)
-                if _takes_sm90("attention", qm, bias_m) != (dtype == torch.bfloat16 and d == 72):
+                on_sm90 = dtype == torch.bfloat16 and d != 64
+                if (_takes_sm90("attention", qm, bias_m), _takes_sm90(
+                        "attention_flash", qm, bias_m)) != (on_sm90, on_sm90):
                     raise AssertionError(f"every_key_biased_{fill:g} at d={d}: wrong body")
-                case(f"every_key_biased_{fill:g}" + ("" if d == 64 else f"_d{d}"),
-                     qm, km, vm, bias_m)
-            compare(f"attention_flash_bias/{tag}/every_key_biased_{fill:g}",
-                    flash_attention(qm, km, vm, bias_m),
-                    flash_attention_reference(qm, km, vm, bias_m), tol)
+                if d != 128:
+                    case(f"every_key_biased_{fill:g}" + ("" if d == 64 else f"_d{d}"),
+                         qm, km, vm, bias_m)
+                if d != 64:
+                    # K6 with a bias (on the Hopper body in bf16): the streaming
+                    # route's 84 pad keys
+                    compare(f"attention_flash_bias/{tag}/every_key_biased_{fill:g}"
+                            + ("" if d == 72 else f"_d{d}"),
+                            flash_attention(qm, km, vm, bias_m),
+                            flash_attention_reference(qm, km, vm, bias_m), tol)
+        dense_bias_past_the_tile(rnd, dtype, tol)
         for d in (16, 64):
             case(f"d{d}", rnd(2, 16, 3, d, dtype=dtype),
                  rnd(2, 24, 3, d, dtype=dtype), rnd(2, 24, 3, d, dtype=dtype))
@@ -617,6 +636,48 @@ def all_masked_rows(rnd) -> None:
         compare(f"{case}/mean_v", got[:1], mean_v, row_tol)
         rejects(f"{case}/pad_keys_counted_twice", mean_v * tk_pad / (2 * tk_pad - tk),
                 mean_v, row_tol)
+
+
+def dense_bias_past_the_tile(rnd, dtype, tol) -> None:
+    """A dense (1, 2, 2048, 1100) bias past the single tile (a 9.4 MB score
+    tile): the reference sends it to XLA, which adds no pad keys, so the
+    route is "exact_xla" and the kernel (csrc/attention.cu's exact variant,
+    counted under ``attention_bias``) gets n_pad = 0. Held to its plain
+    version with no pad keys at `tol`; the rows whose every key has a bias
+    of −1e9 (rows 0-7) or −2e9 (rows 8-15) to Σv/Tk within 2^-7 relative,
+    a check shown to reject the single-tile route's pad-key count there
+    (Σv/1152 and 0)."""
+    from ecad_tpu_torch.ops import (
+        attention_route,
+        fused_attention,
+        fused_attention_reference,
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+    tk = 1100
+    q, k, v = (rnd(1, 2048, 2, 72, dtype=dtype), rnd(1, tk, 2, 72, dtype=dtype),
+               rnd(1, tk, 2, 72, dtype=dtype))
+    bias = rnd(1, 2, 2048, tk)
+    bias[:, :, :8] = -1e9
+    bias[:, :, 8:16] = -2e9
+    if attention_route(tuple(q.shape), tk, bias) != "exact_xla":
+        raise AssertionError("the dense bias past the tile did not take the XLA route")
+    reset_launch_counts()
+    got = fused_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    if launch_counts() != {**dict.fromkeys(COUNTERS, 0), "attention_bias": 1}:
+        raise AssertionError(f"dense bias past the tile: launches {launch_counts()}")
+    name = f"attention_bias/{tag}/dense_bias_past_the_tile_1x2048x2x72_to_{tk}"
+    compare(name, got, fused_attention_reference(q, k, v, bias, 0), tol)
+    row_tol = (1e-6, 2.0 ** -7)
+    mean_v = (v.float().sum(1, keepdim=True) / tk).expand(1, 16, 2, 72)
+    compare(f"{name}/masked_rows_mean_v", got[:, :16], mean_v, row_tol)
+    rejects(f"{name}/minus_1e9_rows_with_pad_keys", mean_v[:, :8] * tk / 1152, mean_v[:, :8],
+            row_tol)
+    rejects(f"{name}/minus_2e9_rows_with_pad_keys", torch.zeros_like(mean_v[:, 8:]),
+            mean_v[:, 8:], row_tol)
 
 
 def kernel_phase(b2: int, b2_1024: int) -> dict:
@@ -963,12 +1024,16 @@ def flash_kernel_rows(rnd, bound, nbytes) -> list[dict]:
     """The streaming exact softmax (K6): at PixArt-2048's self-attention
     (2, 16384, 16, 72) and FLUX.1-dev-1536²'s joint attention (1, 9728, 24,
     128), both reached through the router, and in its key-padding variant
-    at the first shape with per-batch lengths; each checked against its
-    plain version (run per slice) with `flash_bf16_tol`, which the run shows
-    rejects a plain version that drops or repeats one 64-key tile (the
-    mma.sync body's step) or one 128-key tile (the Hopper body's) of the
-    16384; timed against the plain version, one
-    ``scaled_dot_product_attention`` call and its bound."""
+    at both shapes (lengths 15384 / 9000 at 2048², 9000 of 9728 keys at
+    1536²), each run with the launch counters set to 0 just before and read
+    just after (the rows' launches) and named by a profile
+    (``attn_flash_sm90_kernel``); each checked against its plain version
+    (run per slice) with `flash_bf16_tol`, which the run shows rejects a
+    plain version that drops or repeats one 64-key tile (the mma.sync
+    body's step) or one 128-key tile (the Hopper body's) of the 16384, and
+    a 128-key tile of the 9728 and of each bias row's keys; timed against
+    the plain version, one ``scaled_dot_product_attention`` call (with the
+    bias as a float mask) and its bound."""
     import torch.nn.functional as F
 
     from ecad_tpu_torch.ops import (
@@ -982,53 +1047,75 @@ def flash_kernel_rows(rnd, bound, nbytes) -> list[dict]:
     q, k, v = (rnd(2 * BATCH_2048, t2k, 16, 72) for _ in range(3))
     qd, kd, vd = (rnd(1, t1536, 24, 128) for _ in range(3))
     bias = key_padding_bias([t2k - 1000, 9000], t2k, -1e9)
+    bias_d = key_padding_bias([9000], t1536, -1e9)
     reset_launch_counts()
     got = fused_attention(q, k, v)
-    got_bias = fused_attention(q, k, v, bias)
     got_d = fused_attention(qd, kd, vd)
     torch.cuda.synchronize()
     routed = launch_counts()
-    if routed != {**dict.fromkeys(COUNTERS, 0), "attention_flash": 2,
-                  "attention_flash_bias": 1}:
+    if routed != {**dict.fromkeys(COUNTERS, 0), "attention_flash": 2}:
         raise AssertionError(f"2048²/1536² shapes did not route to K6: {routed}")
+    # K6 with a bias, one path run each: the launches of its rows
+    got_bias, launches = {}, REPORT.setdefault("flash_bias_launches", {})
+    for name, args in (("attention_flash_bias", (q, k, v, bias)),
+                       ("attention_flash_bias_d128", (qd, kd, vd, bias_d))):
+        reset_launch_counts()
+        got_bias[name] = fused_attention(*args)
+        torch.cuda.synchronize()
+        routed = launch_counts()
+        if routed != {**dict.fromkeys(COUNTERS, 0), "attention_flash_bias": 1}:
+            raise AssertionError(f"{name} did not route to K6 with a bias: {routed}")
+        launches[name] = routed["attention_flash_bias"]
+        kernels = device_kernel_names(lambda: fused_attention(*args))
+        if not any("attn_flash_sm90_kernel" in n for n in kernels) or any(
+                "attn_flash_bf16_kernel" in n for n in kernels):
+            raise AssertionError(f"{name} ran {kernels}, not attn_flash_sm90_kernel")
+        REPORT.setdefault("flash_bias_device_kernels", {})[name] = kernels
 
     def plain(q_, k_, v_, b_=None):
         return by_slices(flash_attention_reference, q_, k_, v_, b_)
+
+    def tile_faults(name, want, q_, k_, v_, b_=None, sizes=(128,)):
+        # the same check must fail a kernel that skips or repeats one key
+        # tile: 64 keys (the mma.sync body's step) or 128 (the Hopper body's)
+        for n in sizes:
+            tag = "" if n == 64 else f"{n}_"
+            cut = (lambda x: torch.cat((x[:, :n], x[:, 2 * n:]), 1),
+                   lambda x: torch.cat((x[:, :2 * n], x[:, n:]), 1))
+            for fault, f in zip(("drops", "repeats"), cut):
+                bf = None if b_ is None else f(b_.transpose(1, 3)).transpose(1, 3)
+                rejects(f"{name}_{fault}_{tag}key_tile_1", plain(q_, f(k_), f(v_), bf), want,
+                        flash_bf16_tol)
 
     want = plain(q, k, v)
     REPORT["flash_out_std"] = float(want.float().std())
     err = compare(f"attention_flash/bf16/pixart2048_self_{2 * BATCH_2048}x16384x16x72",
                   got, want, flash_bf16_tol)
-    # the same check must fail a kernel that skips or repeats one key tile:
-    # 64 keys (the mma.sync body's step) or 128 (the Hopper body's)
-    for n, tag in ((64, ""), (128, "128_")):
-        rejects(f"pixart2048_drops_{tag}key_tile_1",
-                plain(q, torch.cat((k[:, :n], k[:, 2 * n:]), 1),
-                      torch.cat((v[:, :n], v[:, 2 * n:]), 1)), want, flash_bf16_tol)
-        rejects(f"pixart2048_repeats_{tag}key_tile_1",
-                plain(q, torch.cat((k[:, :2 * n], k[:, n:]), 1),
-                      torch.cat((v[:, :2 * n], v[:, n:]), 1)), want, flash_bf16_tol)
+    tile_faults("pixart2048", want, q, k, v, sizes=(64, 128))
     del want, got
+    want = plain(q, k, v, bias)
     err_b = compare("attention_flash_bias/bf16/pixart2048_key_padding_15384_9000",
-                    got_bias, plain(q, k, v, bias), flash_bf16_tol)
-    del got_bias
+                    got_bias["attention_flash_bias"], want, flash_bf16_tol)
+    tile_faults("pixart2048_key_padding", want, q, k, v, bias)
+    del want
     want_d = plain(qd, kd, vd)
     err_d = compare("attention_flash/bf16/flux1536_1x9728x24x128", got_d, want_d,
                     flash_bf16_tol)
     # and a 128-key tile, the Hopper body's step, at the 9728 keys it serves
-    rejects("flux1536_drops_128_key_tile_1",
-            plain(qd, torch.cat((kd[:, :128], kd[:, 256:]), 1),
-                  torch.cat((vd[:, :128], vd[:, 256:]), 1)), want_d, flash_bf16_tol)
-    rejects("flux1536_repeats_128_key_tile_1",
-            plain(qd, torch.cat((kd[:, :256], kd[:, 128:]), 1),
-                  torch.cat((vd[:, :256], vd[:, 128:]), 1)), want_d, flash_bf16_tol)
+    tile_faults("flux1536", want_d, qd, kd, vd)
     del got_d, want_d
+    want_d = plain(qd, kd, vd, bias_d)
+    err_db = compare("attention_flash_bias/bf16/flux1536_key_padding_9000",
+                     got_bias["attention_flash_bias_d128"], want_d, flash_bf16_tol)
+    tile_faults("flux1536_key_padding", want_d, qd, kd, vd, bias_d)
+    del want_d, got_bias
 
     o, od = torch.empty_like(q), torch.empty_like(qd)
     flops, flops_d = 4 * q.shape[0] * 16 * t2k * t2k * 72, 4 * 24 * t1536 * t1536 * 128
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
     qdt, kdt, vdt = (a.transpose(1, 2).contiguous() for a in (qd, kd, vd))
-    common = dict(route="cuda", replaces="ecad_tpu/ops/attention.py:151 (_flash_kernel)")
+    common = dict(route="cuda", replaces="ecad_tpu/ops/attention.py:151 (_flash_kernel)",
+                  source="ecad_tpu_torch/csrc/attention_sm90.cu")
     rows = []
     for name, max_err, args, (bnd, by), sdpa in (
         ("attention_flash", err, (q, k, v), bound(nbytes(q, k, v, o), flops),
@@ -1037,12 +1124,12 @@ def flash_kernel_rows(rnd, bound, nbytes) -> list[dict]:
          lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)),
         ("attention_flash_d128", err_d, (qd, kd, vd), bound(nbytes(qd, kd, vd, od), flops_d),
          lambda: F.scaled_dot_product_attention(qdt, kdt, vdt)),
+        ("attention_flash_bias_d128", err_db, (qd, kd, vd, bias_d),
+         bound(nbytes(qd, kd, vd, od, bias_d), flops_d),
+         lambda: F.scaled_dot_product_attention(qdt, kdt, vdt, attn_mask=bias_d)),
     ):
         rows.append(dict(
             name=name, **common, max_abs_err=max_err,
-            # bf16 without a bias runs on the Hopper body
-            source="ecad_tpu_torch/csrc/attention.cu" if name == "attention_flash_bias"
-            else "ecad_tpu_torch/csrc/attention_sm90.cu",
             ms=timed_ms(name, lambda: fused_attention(*args), reps=5, inner=5, clocks=True),
             plain_ms=timed_ms(f"{name}/plain", lambda: plain(*args), reps=3, inner=2),
             bound_ms=bnd, bound_by=by,
@@ -1063,9 +1150,9 @@ def flash_kernel_rows(rnd, bound, nbytes) -> list[dict]:
 # a flipped bf16 rounding of one s moves it by ≈ 0.06), X2 and X4 0.0051
 # (only sum orders differ), X3 0.0106 (p rounded against a running max, as
 # K6: 0.0117), measured on csrc/attention.cu; on the Hopper body X2 needs
-# 0.0051 and X3 0.0104 (128-key tiles); K4 keeps its own rule. The run
-# shows each one rejects a dropped 64-key tile at 4096 keys, and X2-X4 a
-# repeated one.
+# 0.0051, X3 0.0104 (128-key tiles) and X4 0.0051; K4 keeps its own rule.
+# The run shows each one rejects a dropped 64-key tile at 4096 keys, and
+# X2-X4 a repeated one.
 XATTN = {
     "xattn_matmul_only": ("matmul_only_attention", ":103 (k_matmul_only)",
                           std_bf16_tol(0.0025)),
@@ -1081,19 +1168,23 @@ XATTN = {
 
 # the harness's kernels on the Hopper body (csrc/attention_sm90.cu) at its
 # head dims, by counter: the device kernel each must launch
-SM90_XATTN = {"xattn_nomax": "attn_xnomax_sm90_kernel", "xattn_max": "attn_xmax_sm90_kernel"}
+SM90_XATTN = {"xattn_nomax": "attn_xnomax_sm90_kernel", "xattn_max": "attn_xmax_sm90_kernel",
+              "xattn_fd": "attn_xfd_sm90_kernel"}
 
 
 def device_kernel_names(fn) -> list[str]:
-    """The device kernels that one call of `fn` launches, from
-    torch.profiler."""
+    """The device kernels that a call of `fn` launches, from torch.profiler.
+    `fn` runs twice inside the profile: a profile taken after two
+    earlier ones was seen to miss the first kernel it traced (X2's, ahead
+    of X3's)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
     return sorted(e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
 
 
@@ -1113,9 +1204,10 @@ def variants_phase() -> dict:
     of X1-X4 (and K4 in its ``transposed`` rows) held against its plain
     version on a 2-head slice at every harness shape; the tolerance shown
     to reject a dropped or repeated 64-key tile at 4096 keys (X1: a dropped
-    one); X2 and X3 on the Hopper body's kernels by name (a profile of one
-    call each); X2's inf/NaN where its plain version has them; the Tk % 128
-    rule on the card, in the wrappers and in the Hopper body's C entry; the
+    one); X2, X3 and X4 on the Hopper body's kernels by name (a profile of
+    one call each); X2's inf/NaN where its plain version has them; the Tk %
+    128 rule on the card, in the wrappers and in the Hopper body's C entry
+    (X4 takes any Tk); the
     harness's ``main`` once per shape with the launch
     counters set to 0 just before and read just after; timings of each
     kernel's plain version (two heads at a time) and one
@@ -1147,11 +1239,15 @@ def variants_phase() -> dict:
     for shape, s in harness.SHAPES.items():
         q, k, v = (rnd(s["b"], s["t"], s["h"], s["d"]) for _ in range(3))
         q2, k2, v2 = (a[:, :, :2] for a in (q, k, v))
-        # X2 and X3 launch the Hopper body's kernels at every shape
-        names = device_kernel_names(lambda: [kernel(c)(q, k, v) for c in SM90_XATTN])
-        for c, name in SM90_XATTN.items():
+        # X2 and X3 launch the Hopper body's kernels at every shape, X4 at
+        # D=72
+        on_sm90 = {c: n for c, n in SM90_XATTN.items() if c in counters(s["d"])}
+        names = device_kernel_names(lambda: [kernel(c)(q, k, v) for c in on_sm90])
+        for c, name in on_sm90.items():
             if not any(name in n for n in names):
                 raise AssertionError(f"{c} at {shape} ran {names}, not {name}")
+        if any("_bf16_kernel" in n for n in names):
+            raise AssertionError(f"X2-X4 at {shape} reached csrc/attention.cu: {names}")
         REPORT.setdefault("xattn_device_kernels", {})[shape] = names
         for c in counters(s["d"]):
             want = plain(c)(q2, k2, v2)
@@ -1198,7 +1294,7 @@ def variants_phase() -> dict:
         raise AssertionError(f"{name} accepted Tk=200")
     # the C entry of the Hopper body refuses it too in X2's and X3's modes
     from ecad_tpu_torch.ops import attention as A
-    for c in SM90_XATTN:
+    for c in ("xattn_nomax", "xattn_max"):
         try:
             A._launch_sm90(q, k, v, c)
         except RuntimeError as err:
@@ -1212,10 +1308,12 @@ def variants_phase() -> dict:
         pass
     else:
         raise AssertionError("nomax_attention accepted fp32 on the card")
-    # X2 and X3 run only on the Hopper body, which takes head dims 72 and 128
+    # X2-X4 run only on the Hopper body, which takes head dims 72 and 128
+    # (X4 72 only)
     q80 = rnd(1, 256, 2, 80)
     for name, fn in (("nomax_attention", ops.nomax_attention),
-                     ("max_exp2_attention", ops.max_exp2_attention)):
+                     ("max_exp2_attention", ops.max_exp2_attention),
+                     ("clamp_fd_attention", ops.clamp_fd_attention)):
         try:
             fn(q80, q80, q80)
         except ValueError:
@@ -1965,10 +2063,13 @@ def main() -> None:
     # launches from the run of each kernel's path: PixArt-256 `ours_fast`
     # for K1-K3, PixArt-1024 `ours_fast` for K4, FLUX-1024 `fast` for K5,
     # FLUX-256 `ours_fast` for K1 at D=128, PixArt-2048 `ours_fast` for K6,
-    # FLUX-1536 `fast` for K6 at D=128; the harness's rows carry the
-    # launches of its run at their shape
+    # FLUX-1536 `fast` for K6 at D=128, K6 with a bias (which no served
+    # path sends) its own router call at each shape; the harness's rows
+    # carry the launches of its run at their shape
     for name, row in kernels.items():
-        if name == "attention_flash_d128":
+        if name in REPORT["flash_bias_launches"]:
+            row["launches"] = REPORT["flash_bias_launches"][name]
+        elif name == "attention_flash_d128":
             row["launches"] = REPORT["flux"]["1536"]["fast"]["launches"]["attention_flash"]
         elif name.startswith("attention_flash"):
             row["launches"] = REPORT["main_path_2048"]["ours_fast"]["launches"][name]

@@ -1,5 +1,5 @@
 // Fused attention forward for Hopper (sm_90a), in two softmax variants
-// that share one tensor-core body, under four kernel names (and two of
+// that share one tensor-core body, under four kernel names (and one of
 // the harness's variants of the same body, at the end of this note):
 //
 //   * exact (max-subtract): softmax(q·kᵀ/√d + bias)·v. Replaces the Pallas
@@ -23,7 +23,9 @@
 //     −1e9 or less); then the reference's output is Σv/Tk_pad, or 0 below
 //     −1e9. So the exact epilogue adds them: m' = max(m, −1e9), the sums
 //     rescaled by exp(m − m'), n_pad·exp(−1e9 − m') added to Σp, in the
-//     bf16 body and the fp32 path alike.
+//     bf16 body and the fp32 path alike. The wrapper passes n_pad, the
+//     route's: a dense bias past the single tile takes the reference's XLA
+//     call (:701-707), which adds no pad keys, so n_pad is 0 there.
 //   * clamp (no row max): the function of `_transposed_kernel` (:285) and
 //     `_transposed_kernel_nobias` (:344), launched by `_transposed_attention`
 //     (:348-455) for lane-padded head dims (PixArt's D=72) at or above a
@@ -46,13 +48,11 @@
 //     Tk_pad − Tk pad keys 2^-100 through a −1e9 bias (their pad rows of v
 //     are 0, so only Σp grows). So the epilogue adds n_pad·2^-100 to Σp: in
 //     a row whose every logit is clamped at −100 (an all-masked text row)
-//     the weights are then 1/Tk_pad, as the reference's. (X4's FD mode
-//     does not: the reference's `*_fd` bodies mask their pad keys.) The
-//     bf16 calls at D=72 and 128 run on the Hopper body of attention_sm90.cu
-//     instead — without a bias K1, K4 and K6 (and K5 at 128), with a
-//     key-padding bias K2 and K4 (and K5 at 128). Here remain K6 with a
-//     bias, dense biases, fp32, the other head dims, and the harness's
-//     X1 and X4.
+//     the weights are then 1/Tk_pad, as the reference's. The bf16 calls
+//     at D=72 and 128 run on the Hopper body of attention_sm90.cu instead —
+//     K1, K4 and K6 (and K5 at 128), each also with a key-padding bias (K2
+//     for K1). Here remain dense biases, fp32, the other head dims, and the
+//     harness's X1.
 //
 // What bounds it on the H100. Exact path, at PixArt-256's shapes
 // (self-attention 256×256 and cross-attention 256→120, D=72, bf16): a
@@ -109,34 +109,22 @@
 // times the TPU's attention body with parts of its work taken out, through
 // eight Pallas bodies launched by `_call` (:77), `_call_transposed` (:261)
 // and `_call_transposed_v2` (:442). The same body here, with the softmax
-// mode a template argument, computes two of their functions (bf16, no
-// bias); the others run on attention_sm90.cu (below):
+// mode a template argument, computes one of their functions (bf16, no
+// bias); the others run on attention_sm90.cu:
 //   * `attn_xmatmul_bf16_kernel` (X1) replaces `k_matmul_only` (:103):
-//     o = bf16(q·kᵀ)·v with unscaled scores, no exp, no sum, no divide;
-//   * `attn_xfd_bf16_kernel` (X4) replaces `k_transposed_fd` (:288) and
-//     `k_transposed_subk_fd` (:349): the clamp numerator with the
-//     denominator taken by the tensor cores. The TPU kernels append a row
-//     of ones to vᵀ; here column D of both v stages, inside the zero pad
-//     (72 → 80), holds 1.0, so the p·v `mma` writes Σ bf16(p)
-//     (fp32-accumulated) into output column D from the same bf16 p that
-//     feeds the numerator: ⌈(D+1)/8⌉ output tiles (10 at D=72, +11 %)
-//     instead of a fp32 Σp pass over every score. The ones are stored once
-//     when the kernel starts, in the last 8-column chunk of each stage,
-//     which the tile loads then skip: keys past Tk weigh p = 0 by bounds,
-//     so their ones count nothing. (A first form rewrote that chunk with
-//     every v tile, below Tk only, and ran a quarter slower than K4.) So D
-//     must be 8 below a multiple of 16 (D = DP − 8; 72 → 80).
+//     o = bf16(q·kᵀ)·v with unscaled scores, no exp, no sum, no divide.
 // `k_transposed` (:190) and `k_transposed_subk` (:317) compute K4's
-// no-bias function and run on the Hopper body, as do `k_nomax` (:115, X2)
-// and `k_rowblock` (:129) / `k_chunk2` (:144, X3): attention_sm90.cu's
-// `attn_xnomax_sm90_kernel` and `attn_xmax_sm90_kernel`. X1 is built at DP
-// = 80 and 128 (D = 72 and 128, the harness's head dims), X4 at DP = 80.
-// At the harness's shapes, counting 4·B·H·T²·D flops on the q, k, v, o
-// bytes, the tensor cores bound all three: (2, 4608, 24, 128) 5.22e11
-// flops on 226 MB, 0.528 ms; (8, 4096, 16, 72) 6.19e11 on 302 MB, 0.625
-// ms; (64, 1024, 16, 72) 3.09e11 on 604 MB, 0.313 ms (its bytes alone take
-// 0.180 ms). Their design is the shared body's; what each one leaves out
-// is the measurement.
+// no-bias function and run on the Hopper body, as do `k_nomax` (:115, X2),
+// `k_rowblock` (:129) / `k_chunk2` (:144, X3) and `k_transposed_fd` (:288)
+// / `k_transposed_subk_fd` (:349, X4): attention_sm90.cu's
+// `attn_xnomax_sm90_kernel`, `attn_xmax_sm90_kernel` and
+// `attn_xfd_sm90_kernel`. X1 is built at DP = 80 and 128 (D = 72 and 128,
+// the harness's head dims). At the harness's shapes, counting 4·B·H·T²·D
+// flops on the q, k, v, o bytes, the tensor cores bound it: (2, 4608, 24,
+// 128) 5.22e11 flops on 226 MB, 0.528 ms; (8, 4096, 16, 72) 6.19e11 on 302
+// MB, 0.625 ms; (64, 1024, 16, 72) 3.09e11 on 604 MB, 0.313 ms (its bytes
+// alone take 0.180 ms). Its design is the shared body's; what it leaves
+// out is the measurement.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -169,8 +157,8 @@ struct Params {
   // bias strides over (B, H, Tq, Tk); 0 on a broadcast dimension
   long long b_sb, b_sh, b_sq, b_sk;
   int H, Tq, Tk, D;
-  // the reference's pad keys on this route: 2^-100 each in Σp on the clamp
-  // routes, score −1e9 on the exact ones
+  // the reference's pad keys on this route (the wrapper's count): 2^-100
+  // each in Σp on the clamp routes, score −1e9 on the exact ones
   int n_pad;
   float scale;  // exact: 1/√D; clamp: scale·log2e, rounded to q's dtype
   int vec_ok;  // every row start is 16-byte aligned and D % 8 == 0
@@ -250,13 +238,11 @@ __device__ __forceinline__ uint4 load8(const __nv_bfloat16* row_ptr, bool row_ok
 // Rows [r0, r0 + 64) of a (T, D) slice into smem[row][DP] (row stride
 // `stride` elements), zero-filled past T and past D. With `vec_ok` the
 // copies are asynchronous 16-byte cp.async (the caller commits and waits);
-// otherwise they are element-wise loads and stores. With ONES (X4's v
-// tile, D = DP − 8) the last 8 columns are left alone: they hold the ones
-// column, written once when the kernel starts.
-template <int DP, bool ONES = false>
+// otherwise they are element-wise loads and stores.
+template <int DP>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* smem, int stride, const __nv_bfloat16* base,
                                           long long row_stride, int r0, int T, int D, bool vec_ok) {
-  constexpr int kChunks = ONES ? DP / 8 - 1 : DP / 8;
+  constexpr int kChunks = DP / 8;
   for (int c = threadIdx.x; c < kBlockK * kChunks; c += kThreads) {
     const int row = c / kChunks;
     const int col = (c % kChunks) * 8;
@@ -288,16 +274,13 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float f) {
 // Softmax modes of the shared bf16 body.
 enum Mode : int {
   kExact = 0,  // K1, K6: ×scale on the fp32 score, online max
-  kClamp = 1,  // K4, K5 (and X4 with FD): q pre-scaled, exp2(clip(s, −100, 80))
+  kClamp = 1,  // K4, K5: q pre-scaled, exp2(clip(s, −100, 80))
   kNone = 2,   // X1: p = s unscaled; no sum, no divide
 };
 
-// FD (with kClamp only): the denominator comes from the p·v mma through a
-// ones column of v (X4), not from a fp32 sum of p.
-template <int DP, bool HAS_BIAS, int MODE, bool FD = false>
+template <int DP, bool HAS_BIAS, int MODE>
 __device__ __forceinline__ void attn_bf16_body(const Params& p) {
   constexpr bool kScaledQ = MODE == kClamp;
-  static_assert(!FD || MODE == kClamp, "the mma denominator is X4's, on the clamp numerator");
   constexpr int kSteps = DP / 16;       // k-steps of the q·kᵀ reduction over D
   constexpr int kSTiles = kBlockK / 8;  // 8-key score tiles per key tile
   constexpr int kOTiles = DP / 8;       // 8-column output tiles (ceil(D/8) used)
@@ -325,21 +308,12 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
   const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
   const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
 
-  if constexpr (FD) {
-    // X4 (D = DP − 8): columns D..D+7 of both v stages hold (1, 0, ..., 0)
-    // in every row, stored once here (visible after the first barrier) and
-    // never overwritten by load_tile; keys past Tk get p = 0 by bounds, so
-    // their ones add nothing to the denominator
-    for (int r = threadIdx.x; r < 2 * kBlockK; r += kThreads)
-      *reinterpret_cast<uint4*>(v_tile(r / kBlockK) + (r % kBlockK) * kStride + DP - 8) =
-          make_uint4(0x3F80u, 0u, 0u, 0u);  // bf16 1.0 in the lowest half
-  }
   // q tile → stage-1 k buffer (free until the first prefetch) → registers,
   // while the first k/v tile streams into stage 0
   load_tile<DP>(k_tile(1), kStride, qb, p.q_st, q0, p.Tq, p.D, vec_ok);
   cp_async_commit();
   load_tile<DP>(k_tile(0), kStride, kb, p.k_st, 0, p.Tk, p.D, vec_ok);
-  load_tile<DP, FD>(v_tile(0), kStride, vb, p.v_st, 0, p.Tk, p.D, vec_ok);
+  load_tile<DP>(v_tile(0), kStride, vb, p.v_st, 0, p.Tk, p.D, vec_ok);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
@@ -359,8 +333,7 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
   }
   __syncthreads();
 
-  // X4 also computes output column D, the denominator
-  const int o_tiles = (p.D + (FD ? 8 : 7)) / 8;
+  const int o_tiles = (p.D + 7) / 8;
   // this thread's two query rows: g and g + 8 of the warp's 16
   const int row_a = q0 + warp * 16 + g;
   const int rows[2] = {row_a, row_a + 8};
@@ -380,7 +353,7 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
     const int k0 = t * kBlockK;
     if (t + 1 < n_tiles) {  // prefetch the next tile into the other stage
       load_tile<DP>(k_tile(stage ^ 1), kStride, kb, p.k_st, k0 + kBlockK, p.Tk, p.D, vec_ok);
-      load_tile<DP, FD>(v_tile(stage ^ 1), kStride, vb, p.v_st, k0 + kBlockK, p.Tk, p.D, vec_ok);
+      load_tile<DP>(v_tile(stage ^ 1), kStride, vb, p.v_st, k0 + kBlockK, p.Tk, p.D, vec_ok);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -419,7 +392,7 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
             pe = exp2f(fminf(fmaxf(x, kClampLo), kClampHi));
           }
           s[j][e] = pe;
-          if constexpr (!FD) l_run[r] += pe;
+          l_run[r] += pe;
         }
       }
     } else if constexpr (MODE == kNone) {
@@ -505,22 +478,8 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
     __syncthreads();  // this stage is refilled by the prefetch two tiles on
   }
 
-  if constexpr (FD) {
-    // output column D (tile D / 8, thread tg = (D % 8) / 2 of each group)
-    // holds the row's Σ bf16(p): broadcast it to the group's four threads
-    const int dn = p.D >> 3, dc = p.D & 7;
-    const int src = (lane & ~3) | (dc >> 1);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float den = 0.f;
-#pragma unroll
-      for (int n = 0; n < kOTiles; ++n)
-        if (n == dn) den = (dc & 1) ? acc[n][2 * r + 1] : acc[n][2 * r];
-      l_run[r] = __shfl_sync(0xffffffffu, den, src);
-    }
-  }
   float f[2] = {1.f, 1.f};  // the exact mode's rescale for its pad keys
-  if constexpr (!FD && MODE != kNone) {
+  if constexpr (MODE != kNone) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
@@ -570,14 +529,10 @@ __global__ void __launch_bounds__(kThreads) attn_flash_bf16_kernel(const Params 
   attn_bf16_body<DP, HAS_BIAS, kExact>(p);
 }
 
-// The harness's variants X1 and X4, without a bias, one name each.
+// The harness's variant X1, without a bias, under its own name.
 template <int DP>
 __global__ void __launch_bounds__(kThreads) attn_xmatmul_bf16_kernel(const Params p) {
   attn_bf16_body<DP, false, kNone>(p);
-}
-template <int DP>
-__global__ void __launch_bounds__(kThreads) attn_xfd_bf16_kernel(const Params p) {
-  attn_bf16_body<DP, false, kClamp, true>(p);
 }
 
 // ---------------------------------------------------------------------------
@@ -727,25 +682,17 @@ cudaError_t launch_bf16(const Params& p, dim3 grid, bool has_bias, int variant,
   return cudaSuccess;
 }
 
-// The harness's variants 4 (X1) and 7 (X4), bf16 without a bias, at DP =
-// 80 and 128 (X4 at 80 only, D = 72: it needs D = DP − 8).
+// The harness's variant 4 (X1), bf16 without a bias, at DP = 80 and 128.
 template <int DP>
-cudaError_t launch_x(const Params& p, dim3 grid, int variant, cudaStream_t stream) {
+cudaError_t launch_x(const Params& p, dim3 grid, cudaStream_t stream) {
   constexpr int kSmem = bf16_smem_bytes<DP>();
-  void (*kernel)(const Params) = nullptr;
-  switch (variant) {
-    case 4: kernel = attn_xmatmul_bf16_kernel<DP>; break;
-    case 7:
-      if constexpr (DP == 80) kernel = attn_xfd_bf16_kernel<DP>;
-      break;
-  }
-  if (kernel == nullptr) return cudaErrorInvalidValue;
-  static bool opted_in[2] = {};
-  if (kSmem > 48 * 1024 && !opted_in[variant == 7]) {
+  void (*const kernel)(const Params) = attn_xmatmul_bf16_kernel<DP>;
+  static bool opted_in = false;
+  if (kSmem > 48 * 1024 && !opted_in) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return err;
-    opted_in[variant == 7] = true;
+    opted_in = true;
   }
   kernel<<<grid, kThreads, kSmem, stream>>>(p);
   return cudaSuccess;
@@ -758,19 +705,19 @@ cudaError_t launch_x(const Params& p, dim3 grid, int variant, cudaStream_t strea
 // variant: 0 = exact softmax; 1 = clamp softmax on the transposed route
 // (K4), 2 = the same on the row-block route (K5); 3 = the exact softmax on
 // the streaming route (K6). fp32 inputs take the SIMT kernel in the exact
-// (0, 3) or the clamp (1, 2) variant. The harness's variants, bf16 only and
-// without a bias: 4 = matmul only (X1, no scale), 7 = clamp with the mma
-// denominator (X4, D % 16 == 8); 5 and 6 (X2, X3) run on attention_sm90.cu
-// and are refused here. scale = 1/√D, which the exact variants multiply
+// (0, 3) or the clamp (1, 2) variant. The harness's variant, bf16 only and
+// without a bias: 4 = matmul only (X1, no scale); X2-X4 run on
+// attention_sm90.cu. n_pad: the reference's pad keys on the route (see the
+// note; X1 ignores it). scale = 1/√D, which the exact variants multiply
 // into the fp32 scores; q_scale = scale·log2e rounded to q's dtype, which
 // the others multiply into q. Returns the cudaError_t of the launch (0 on
 // success).
 extern "C" int ecad_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                                   const float* bias, const long long* strides, int B, int H, int Tq,
                                   int Tk, int D, float scale, float q_scale, int vec_ok,
-                                  int variant, void* stream) {
+                                  int variant, int n_pad, void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 1 || D > kMaxD || (long long)B * H > 65535 ||
-      variant < 0 || variant > 7 || variant == 5 || variant == 6)
+      variant < 0 || variant > 4 || n_pad < 0)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -787,24 +734,20 @@ extern "C" int ecad_attention_fwd(int dtype, const void* q, const void* k, const
   p.Tq = Tq;
   p.Tk = Tk;
   p.D = D;
-  // the reference's pad keys: to a multiple of 128, or of the streaming
-  // route's key block min(1536, round_up(Tk, 128)) (variant 3)
-  const int tk128 = (Tk + 127) / 128 * 128;
-  const int bk = variant == 3 ? (tk128 < 1536 ? tk128 : 1536) : 128;
-  p.n_pad = (Tk + bk - 1) / bk * bk - Tk;
+  p.n_pad = n_pad;
   p.scale = variant == 0 || variant == 3 ? scale : q_scale;
   p.vec_ok = vec_ok;
   const bool has_bias = bias != nullptr;
   const bool cl = variant == 1 || variant == 2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
-  if (variant >= 4) {
-    if (dtype != 0 || has_bias || (variant == 7 && D % 16 != 8)) return (int)cudaErrorInvalidValue;
+  if (variant == 4) {
+    if (dtype != 0 || has_bias) return (int)cudaErrorInvalidValue;
     const dim3 grid((Tq + kBlockQ - 1) / kBlockQ, B * H);
     const int dp = (D + 15) / 16 * 16;
     cudaError_t err;
-    if (dp == 80) err = launch_x<80>(p, grid, variant, st);
-    else if (dp == 128) err = launch_x<128>(p, grid, variant, st);
+    if (dp == 80) err = launch_x<80>(p, grid, st);
+    else if (dp == 128) err = launch_x<128>(p, grid, st);
     else err = cudaErrorInvalidValue;
     if (err != cudaSuccess) return (int)err;
   } else if (dtype == 0) {

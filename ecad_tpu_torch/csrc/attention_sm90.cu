@@ -1,18 +1,21 @@
 // Attention forward for Hopper (sm_90a): wgmma fed by TMA through
 // mbarriers, with a producer warpgroup and two consumer warpgroups. bf16 q,
 // k, v of shape (B, T, H, D), D = 72 or 128 (a template argument), in any
-// 16-byte-aligned strides, in four softmax modes (a template argument, as in
-// attention.cu) under six kernel names, one per route and one per mode of
-// the attention-variant harness; the single-tile exact kernel and both
-// clamp kernels also take a key-padding bias (a template flag in the name,
-// so that a profile files the two forms apart):
+// 16-byte-aligned strides, in five softmax modes (a template argument, as in
+// attention.cu) under seven kernel names, one per route and one per mode of
+// the attention-variant harness; every exact and clamp kernel also takes a
+// key-padding bias (a template flag in the name, so that a profile files
+// the two forms apart):
 //
 //   * exact:
-//     - `attn_flash_sm90_kernel` (K6) replaces the streaming kernel
-//       `_flash_kernel` (ecad_tpu/ops/attention.py:151-197, launched by
-//       `_flash_attention` :638) at D=128 and D=72 — FLUX.1-dev at 1536²,
+//     - `attn_flash_sm90_kernel<D, false>` (K6) replaces the streaming
+//       kernel `_flash_kernel` (ecad_tpu/ops/attention.py:151-197, launched
+//       by `_flash_attention` :638) at D=128 and D=72 — FLUX.1-dev at 1536²,
 //       whose 9216 image + 512 text = 9728 joint tokens take the streaming
 //       route, and PixArt-Σ's self-attention at 2048² (2B, 16384, 16, 72);
+//       `<D, true>` the same with a key-padding bias (B|1, 1, 1, Tk), which
+//       the reference streams past 8192×128 key elements (:573-673) and no
+//       served path sends;
 //     - `attn_exact_sm90_kernel<D, false>` (K1) replaces the single-tile
 //       kernel `_attn_kernel` (:58, launched :746) at D=128 and D=72 —
 //       FLUX.1-dev's joint attention at 256² (4, 768, 24, 128) and PixArt's
@@ -29,13 +32,15 @@
 //     bf16 for p·v against the running max of its 128-key tile, Σp over the
 //     unrounded fp32 p, one divide, one cast. (The reference K1, K2 keep p
 //     in fp32 for p·v; the tolerance of chip_smoke.py's checks covers the
-//     rounding.) Keys past Tk get −∞ before the max (by bounds; with a bias,
-//     through the bias). The Pallas wrappers pad them instead with n_pad
+//     rounding; K6 rounds p as this body does, against the max of its
+//     1536-key block.) Keys past Tk get −∞ before the max (by bounds; with a
+//     bias, through the bias). The Pallas wrappers pad them instead with n_pad
 //     keys of score −1e9 whose rows of v are 0 (n_pad the route's:
 //     round_up(Tk, 128) − Tk on the single-tile route, round_up(Tk, bk) − Tk
 //     with bk = min(1536, round_up(Tk, 128)) on the streaming one); they
 //     weigh exactly 0 unless every score of a row is near −1e9 or below it,
-//     which needs a caller bias: K2 meets it. The epilogue adds them, as
+//     which needs a caller bias: K2 and K6 with a bias meet it. The
+//     epilogue adds them, as
 //     attention.cu's exact epilogue does (m' = max(m, −1e9), the sums
 //     rescaled by exp(m − m'), n_pad·exp(−1e9 − m') added to Σp): a few
 //     instructions a row. In a row whose every key has a bias of −1e9, s₂
@@ -81,11 +86,26 @@
 //       scale of 1 on the pre-scaled scores, p = exp2(s − m) rounded to
 //       bf16 against the running max of its 128-key tile, the rescale of
 //       the earlier tiles.
-//     Both take q × bf16(scale·log2e) rounded to bf16 before the product, as
-//     `_prep` does (:67-68), and keep Σp in fp32 over the unrounded p. The
-//     reference zero-pads the keys to a multiple of 128 and counts them (s =
-//     0), so the C entry refuses Tk % 128 ≠ 0 in these modes: no pad keys,
-//     no masked tile. Both run three consumer warpgroups at D=72, as
+//     - the clamp with its denominator from the tensor cores (`kClampFD`):
+//       `attn_xfd_sm90_kernel<72>` (X4) replaces `k_transposed_fd` (:288)
+//       and `k_transposed_subk_fd` (:349), launched by `_call_transposed_v2`
+//       (:442): p = exp2(clip(s, −100, 80)) as in the clamp mode, rounded to
+//       bf16, and no fp32 Σp: the product of p with v's 8-column tail
+//       widens from m64n8k16 to m64n16k16, its second 8 columns a constant
+//       128 × 8 tile whose column 0 is 1 (the 2 KB after each stage's v
+//       tail, laid out as the tail box and written once per block, as the
+//       reference appends a ones row to vᵀ, :416-418), so column 72 of the
+//       64 × 80 product is Σ bf16(p) of the same bf16 p, accumulated in
+//       fp32, and one divide by it. Keys past Tk weigh p = 0 by bounds, so
+//       their ones count nothing — the reference's ones row is 0 at its
+//       pad keys — and X4, alone of the harness's bodies, takes any Tk.
+//       D=72 only (the harness runs it at no other head dim).
+//     X2, X3 and X4 take q × bf16(scale·log2e) rounded to bf16 before the
+//     product, as `_prep` does (:67-68); X2 and X3 keep Σp in fp32 over the
+//     unrounded p. The reference zero-pads the keys to a multiple of 128
+//     and counts them in X2 and X3 (s = 0), so the C entry refuses Tk % 128
+//     ≠ 0 in their modes: no pad keys, no masked tile. X2 and X3 run three
+//     consumer warpgroups at D=72 (X4 two: see below), as
 //     K6-D72 does (`kFlashConsumers`; below: a D=72 tile's p·v is short,
 //     so a third independent chain feeds the tensor cores), and two at
 //     D=128, where three fit neither the registers nor the shared memory.
@@ -198,8 +218,8 @@
 //     For K4 with a bias a variant that loads no k/v tile after the ring's
 //     first is only a few per cent faster (`no_kv_loads`): only q and o
 //     come from and go to device memory.
-//   * The bias (K2; K4 and K5 with a bias) is read once per key, not once
-//     per score, and off the consumers' path: for each key tile the
+//   * The bias (K2; K4, K5 and K6 with a bias) is read once per key, not
+//     once per score, and off the consumers' path: for each key tile the
 //     helpers write fp32(bias·log2e), −∞ past Tk, into the tile's 512-byte
 //     slot beside its ring stage, once the stage is free, and arrive on
 //     the stage's k_full (so it completes when k has landed and the bias is
@@ -210,11 +230,21 @@
 //     reference's). Read by the consumers from global memory instead (the
 //     body's first form), 32 loads a thread a tile were most of K5's loss
 //     with a bias at D=128 and a part of K2's at D=72. The helpers' loads
-//     are plain
-//     ones in the bias's own dtype (bf16 widens exactly): the bias needs no
-//     alignment beyond its element's and takes any batch and key stride (0
-//     where it broadcasts), so a bias TMA could not map (an odd Tk with a
-//     batch stride) runs on this body all the same.
+//     are plain ones in the bias's own dtype (bf16 widens exactly): the
+//     bias needs no alignment beyond its element's and takes any batch and
+//     key stride (0 where it broadcasts), so a bias TMA could not map (an
+//     odd Tk with a batch stride) runs on this body all the same.
+//   * K6 with a bias and X4 run two consumer warpgroups at D=72 too. On
+//     three, a consumer has 160 registers, and K6-D72's scores, o and p
+//     take 132 of them: beside them the 32 staged bias values spill (12
+//     bytes; folding each pair of them into the scores as it is read
+//     spilled as much), and so do X4's four more accumulators (the ones
+//     column's block of its 16-column tail product; 48 bytes). On the card
+//     (scripts/probe_attention_body.py, NVIDIA H100 80GB HBM3, 700 W) K6
+//     with a bias on three consumers, spills and all, took 5.93 ms against
+//     6.13 on two at (2, 16384, 16, 72), and X4 on three took 1.68 and 1.00
+//     ms against 1.41 and 0.85 on two at (8, 4096, 16, 72) and (64, 1024,
+//     16, 72); two keep the body free of spills.
 //
 // Where trouble was met, and what the code does about it:
 //   1. The tensor map comes from the driver API (`cuTensorMapEncodeTiled`);
@@ -338,20 +368,23 @@ constexpr float kTwoPowMinus100 = 7.8886090522101181e-31f;  // 2^-100
 constexpr float kPadScoreLog2 = -1e9f * kLog2e;
 
 // The softmax modes: exact (K1, K2, K6), clamp (K4, K5), and the
-// attention-variant harness's no max (X2) and max on a pre-scaled q (X3).
-enum Mode : int { kExact = 0, kClamp = 1, kNoMax = 2, kMaxScaledQ = 3 };
+// attention-variant harness's no max (X2), max on a pre-scaled q (X3) and
+// clamp with the denominator from the tensor cores (X4).
+enum Mode : int { kExact = 0, kClamp = 1, kNoMax = 2, kMaxScaledQ = 3, kClampFD = 4 };
 // q is multiplied by bf16(scale·log2e) and rounded to bf16 (by the helpers)
 __host__ __device__ constexpr bool scaled_q(int mode) { return mode != kExact; }
 // a running max of the scores, p against it, and the rescale of earlier tiles
 __host__ __device__ constexpr bool online_max(int mode) {
   return mode == kExact || mode == kMaxScaledQ;
 }
+// Σ bf16(p) from the p·v products through a ones column, no fp32 Σp
+__host__ __device__ constexpr bool ones_denominator(int mode) { return mode == kClampFD; }
 
 struct Params {
   // the key-padding bias (B|1, 1, 1, Tk) of a kernel's bias form (exact
-  // single-tile, clamp transposed or row-block), bf16 or fp32 (bias_bf16),
-  // with its element strides over the batch and the keys (0 where it
-  // broadcasts); null elsewhere
+  // single-tile or streaming, clamp transposed or row-block), bf16 or fp32
+  // (bias_bf16), with its element strides over the batch and the keys (0
+  // where it broadcasts); null elsewhere
   const void* bias;
   long long bias_sb, bias_sk;
   int bias_bf16;
@@ -513,20 +546,34 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 // columns of v (one 128-byte-swizzled box, MN-major); d[32..35] (64 × 8)
 // += a · b, b the 8-column tail (unswizzled, MN-major). The accumulators
 // keep the layout of one 64 × 72 product: column block j in d[4j .. 4j+3].
-__device__ __forceinline__ void wgmma_rs(float (&d)[36], const uint32_t (&a)[4], uint64_t db,
+// X4 (N = 40) widens the second product to 16 columns, d[32..39]: the tail
+// and, `db_tail`'s stride apart, the ones tile, as one 64 × 80 product.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N], const uint32_t (&a)[4], uint64_t db,
                                          uint64_t db_tail) {
+  static_assert(N == 36 || N == 40, "D=72's accumulators, and X4's denominator block");
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : WGMMA_ACC8(0), WGMMA_ACC8(8), WGMMA_ACC8(16), WGMMA_ACC8(24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %9, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}"
-      ", {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
-      : "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db_tail), "r"(1));
+  if constexpr (N == 36) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %9, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}"
+        ", {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+        : "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db_tail), "r"(1));
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16"
+        " {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+          "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db_tail), "r"(1));
+  }
 }
 
 // 2^x in one special-function instruction. `exp2f` also computes results
@@ -554,13 +601,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // at row 16·(t / 32) + t % 32 / 4 + 8·(e / 2) and column 8j + 2·(t % 4) +
 // e % 2 (j < 16): two rows, 32 scores of each.
 
-// Without a max: p = exp2(clip(s, −100, 80)) (clamp, CLIP) or p = exp2(s)
-// (X2) in place, 0 past Tk; Σp into l. With a key-padding bias, s + b2
+// Without a max: p = exp2(clip(s, −100, 80)) (clamp and X4, CLIP) or p =
+// exp2(s) (X2) in place, 0 past Tk; Σp into l (SUM: not in X4, whose
+// denominator the tensor cores take). With a key-padding bias, s + b2
 // first (b2 holds fp32(bias·log2e), −∞ past Tk): a plain add, never fused
 // with b2's product into an FFMA; a key past Tk still weighs 0, not the
 // 2^-100 its −∞ would clip to, since the epilogue adds the reference's pad
 // keys.
-template <bool MASK, bool BIAS, bool CLIP>
+template <bool MASK, bool BIAS, bool CLIP, bool SUM>
 __device__ __forceinline__ void softmax_nomax(float (&s)[64], const float (&b2)[BIAS ? 32 : 1],
                                               float (&l)[2], int col0, int Tk) {
 #pragma unroll
@@ -570,7 +618,7 @@ __device__ __forceinline__ void softmax_nomax(float (&s)[64], const float (&b2)[
     float p = ex2(CLIP ? fminf(fmaxf(x, kClampLo), kClampHi) : x);
     if (MASK && col >= Tk) p = 0.f;
     s[i] = p;
-    l[(i >> 1) & 1] += p;
+    if (SUM) l[(i >> 1) & 1] += p;
   }
 }
 
@@ -679,9 +727,9 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], const float (&b2)[B
                                              float qk_scale, int k0, int col_t, int Tk) {
   const bool edge = k0 + kBlockN > Tk;
   if constexpr (!online_max(MODE)) {
-    constexpr bool kClip = MODE == kClamp;
-    if (edge) softmax_nomax<true, BIAS, kClip>(s, b2, l, k0 + col_t, Tk);
-    else softmax_nomax<false, BIAS, kClip>(s, b2, l, k0 + col_t, Tk);
+    constexpr bool kClip = MODE != kNoMax, kSum = !ones_denominator(MODE);
+    if (edge) softmax_nomax<true, BIAS, kClip, kSum>(s, b2, l, k0 + col_t, Tk);
+    else softmax_nomax<false, BIAS, kClip, kSum>(s, b2, l, k0 + col_t, Tk);
   } else if constexpr (BIAS) {
     softmax_exact_bias(s, b2, m, l, alpha, qk_scale);
   } else {
@@ -706,13 +754,17 @@ __device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&p)[8][4]
 template <int D, int MODE, bool BIAS, int NC>
 __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Params& p) {
   static_assert(NC == 2 || NC == 3, "two or three consumer warpgroups");
+  static_assert(!ones_denominator(MODE) || (D == 72 && !BIAS),
+                "X4's ones column is D=72's tenth column block, without a bias");
   constexpr int kBlockM = 64 * NC;  // query rows per work item
   constexpr int kConsumerThreads = 128 * NC;
   // registers a thread: the producer gives its own away, the consumers take
   // them (128 × (40 + 2 × 232) and 128 × (24 + 3 × 160) ≤ 65536)
   constexpr int kProducerRegs = NC == 2 ? 40 : 24, kConsumerRegs = NC == 2 ? 232 : 160;
   constexpr int kQkSteps = (D + 15) / 16;  // k16 steps of q·kᵀ: 8 at D=128, 5 at D=72
-  constexpr int kAcc = D / 2;             // a thread's fp32 accumulators of o (64 × D)
+  // a thread's fp32 accumulators of o (64 × D) and, in X4, of the
+  // denominator's column block (64 × 8: column 72 of a 64 × 80 product)
+  constexpr int kAcc = D / 2 + (ones_denominator(MODE) ? 4 : 0);
   using S = Smem<D, NC>;
   constexpr TileOf<D> kQ = S::kQ, kKV = S::kKV;
   constexpr int kStages = S::kStages;
@@ -855,22 +907,34 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
     return desc_sw128(k_s(s) + (kk / 4) * kBoxBytes + (kk % 4) * 32, 16, 1024);
   };
   auto v_desc = [&](int s, int kk) { return desc_sw128(v_s(s) + kk * 2048, kBoxBytes, 1024); };
+  // X4's ones tile, 128 keys × 8 columns laid out as v's tail box, column
+  // 0 = 1: the 2 KB after each stage's v tail, which TMA never writes, so
+  // that the tail and the ones are one 16-column B operand, its two 8-column
+  // groups 2 KB apart (the descriptor's stride along N)
+  auto ones = [&](int s) { return v_s(s) + kBoxBytes + kTailBytes; };
   auto pv = [&](float (&o)[kAcc], const uint32_t (&a)[4], int s, int kk) {
     if constexpr (D == 72)
-      wgmma_rs(o, a, v_desc(s, kk), desc_plain(v_s(s) + kBoxBytes + kk * 256, 128, 128));
+      wgmma_rs(o, a, v_desc(s, kk),
+               desc_plain(v_s(s) + kBoxBytes + kk * 256, 128,
+                          ones_denominator(MODE) ? kTailBytes : 128));
     else
       wgmma_rs(o, a, v_desc(s, kk));
   };
   if constexpr (D == 72) {
-    // the zeros after the tails of the q buffers and the k stages, stored
-    // once (TMA never writes there), ordered before the first wgmma that
-    // reads them
-    auto zero = [&](uint32_t at, int bytes) {
+    // the zeros after the tails of the q buffers and the k stages (and X4's
+    // ones tile), stored once (TMA never writes there), ordered before the
+    // first wgmma that reads them
+    auto fill = [&](uint32_t at, int bytes, uint4 x) {
       for (int i = 16 * (t + 128 * c); i < bytes; i += 16 * kConsumerThreads)
-        *reinterpret_cast<uint4*>(gbase + (at - base) + i) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(gbase + (at - base) + i) = x;
     };
-    for (int qb = 0; qb < kQBufs; ++qb) zero(q_s(qb) + kQ.box() + kQ.tail(), kQ.tail());
-    for (int s = 0; s < kStages; ++s) zero(k_s(s) + kKV.box() + kKV.tail(), kKV.tail());
+    const uint4 zeros = make_uint4(0u, 0u, 0u, 0u);
+    for (int qb = 0; qb < kQBufs; ++qb) fill(q_s(qb) + kQ.box() + kQ.tail(), kQ.tail(), zeros);
+    for (int s = 0; s < kStages; ++s) fill(k_s(s) + kKV.box() + kKV.tail(), kKV.tail(), zeros);
+    // bf16 1.0 in each 16-byte row's first half-word
+    if constexpr (ones_denominator(MODE))
+      for (int s = 0; s < kStages; ++s)
+        fill(ones(s), kTailBytes, make_uint4(0x3F80u, 0u, 0u, 0u));
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, %1;\n" ::"n"(1 + NC), "n"(kConsumerThreads) : "memory");
   }
@@ -970,14 +1034,19 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
       mbar_arrive(v_empty(sl));
     }
 
-    // epilogue: the row sums over the quad, the reference's pad keys (none
-    // in X2 and X3), one divide, one cast into the staging rows, one TMA
+    // epilogue: the row sums over the quad (X4: its denominator from the
+    // quad's first thread, which holds column 72), the reference's pad keys
+    // (none in X2-X4), one divide, one cast into the staging rows, one TMA
     // store of them
     float f[2] = {1.f, 1.f};  // the exact mode's rescale for its pad keys
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      if constexpr (ones_denominator(MODE)) {
+        l[r] = __shfl_sync(0xffffffffu, o[kAcc - 4 + 2 * r], lane & ~3);
+      } else {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      }
       if constexpr (MODE == kClamp) {
         // up to a multiple of 128, 2^-100 each
         l[r] += (float)p.n_pad * kTwoPowMinus100;
@@ -1015,20 +1084,22 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
   if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
-// Six kernel names, so that a profile tells K6, K5, K1, K4, X2 and X3
-// apart, K1's, K4's and K5's with a BIAS flag (K2, and K5 and K4 with a
-// bias). The maps: q, k, v, (at D=72) their 8-column tails, and o.
+// Seven kernel names, so that a profile tells K6, K5, K1, K4, X2, X3 and X4
+// apart, K1's, K4's, K5's and K6's with a BIAS flag (K2, and K4, K5 and K6
+// with a bias). The maps: q, k, v, (at D=72) their 8-column tails, and o.
 struct Maps {
   CUtensorMap m[7];
 };
 // K6's, X2's and X3's consumer warpgroups: three at D=72 (see the note),
-// two at D=128
+// two at D=128; K6 with a bias takes two at D=72 too (see the note)
 template <int D>
 constexpr int kFlashConsumers = D == 72 ? 3 : 2;
-template <int D>
-__global__ void __launch_bounds__(128 * (kFlashConsumers<D> + 1), 1)
+template <int D, bool BIAS>
+constexpr int kStreamConsumers = BIAS ? 2 : kFlashConsumers<D>;
+template <int D, bool BIAS>
+__global__ void __launch_bounds__(128 * (kStreamConsumers<D, BIAS> + 1), 1)
     attn_flash_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
-  attn_sm90_body<D, kExact, false, kFlashConsumers<D>>(maps.m, p);
+  attn_sm90_body<D, kExact, BIAS, kStreamConsumers<D, BIAS>>(maps.m, p);
 }
 template <int D, bool BIAS>
 __global__ void __launch_bounds__(384, 1)
@@ -1055,6 +1126,12 @@ __global__ void __launch_bounds__(128 * (kFlashConsumers<D> + 1), 1)
     attn_xmax_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
   attn_sm90_body<D, kMaxScaledQ, false, kFlashConsumers<D>>(maps.m, p);
 }
+// X4 on two consumer warpgroups (see the note)
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    attn_xfd_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
+  attn_sm90_body<D, kClampFD, false, 2>(maps.m, p);
+}
 
 using Kernel = void (*)(const Maps, const Params);
 
@@ -1072,14 +1149,15 @@ Launch launch_of(Kernel kernel) {
 }
 
 // The kernel of `mode` at head dim D, with or without a bias, or none where
-// it is not built: K5 at D=128 only, no bias on the streaming route (mode 0)
-// nor in X2 and X3 (modes 4 and 5).
+// it is not built: K5 at D=128 only, X4 (mode 6) at D=72 only, no bias in
+// X2-X4 (modes 4-6).
 template <int D>
 Launch sm90_launch(int mode, bool bias) {
   switch (mode) {
     case 0:
-      if (bias) return Launch{};
-      return launch_of<D, kFlashConsumers<D>, kExact>(attn_flash_sm90_kernel<D>);
+      if (bias)
+        return launch_of<D, kStreamConsumers<D, true>, kExact>(attn_flash_sm90_kernel<D, true>);
+      return launch_of<D, kStreamConsumers<D, false>, kExact>(attn_flash_sm90_kernel<D, false>);
     case 1:
       if constexpr (D == 128)
         return launch_of<D, 2, kClamp>(bias ? attn_rowblock_sm90_kernel<D, true>
@@ -1097,6 +1175,10 @@ Launch sm90_launch(int mode, bool bias) {
     case 5:
       if (bias) return Launch{};
       return launch_of<D, kFlashConsumers<D>, kMaxScaledQ>(attn_xmax_sm90_kernel<D>);
+    case 6:
+      if constexpr (D == 72)
+        if (!bias) return launch_of<D, 2, kClampFD>(attn_xfd_sm90_kernel<D>);
+      return Launch{};
     default:
       return Launch{};
   }
@@ -1138,10 +1220,11 @@ EncodeTiled encode_tiled() {
 // with a bias); 3: the clamp softmax of the transposed route (K4); 4: the
 // harness's exp2 softmax without a max (X2); 5: its exp2 softmax with the
 // max on a pre-scaled q (X3), both only at Tk % 128 == 0 (the reference
-// counts its zero pad keys elsewhere). bias: null, or a key-padding bias
-// (B|1, 1, 1, Tk) in modes 1-3, bf16 (bias_bf16 = 1) or fp32, with element
-// strides bias_strides (batch, key), 0 where it broadcasts
-// (`bias_operand`). scale = 1/√D, which the exact modes (0, 2) multiply
+// counts its zero pad keys elsewhere); 6: its clamp softmax with the
+// denominator from the p·v products (X4, D=72, any Tk). bias: null, or a
+// key-padding bias (B|1, 1, 1, Tk) in modes 0-3, bf16 (bias_bf16 = 1) or
+// fp32, with element strides bias_strides (batch, key), 0 where it
+// broadcasts (`bias_operand`). scale = 1/√D, which the exact modes (0, 2) multiply
 // into the fp32 scores; q_scale = scale·log2e rounded to bf16, which the
 // helpers of the others multiply into q (`scaled_q`). Mode 2, and any
 // mode at Tk ≤ 128, launches one block per SM, which walks the work
@@ -1153,8 +1236,8 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
                                        const long long* bias_strides, int bias_bf16, int B,
                                        int H, int Tq, int Tk, float scale, float q_scale,
                                        int mode, void* stream) {
-  if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || mode < 0 || mode > 5 ||
-      (mode >= 4 && Tk % kBlockN != 0))
+  if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || mode < 0 || mode > 6 ||
+      ((mode == 4 || mode == 5) && Tk % kBlockN != 0))
     return (int)cudaErrorInvalidValue;
   const bool has_bias = bias != nullptr;
   const Launch launch = maps[0] == 128 ? sm90_launch<128>(mode, has_bias)
@@ -1218,13 +1301,13 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
   p.n_items = (int)n_items;
   // the reference's pad keys: to a multiple of 128, or of the streaming
   // route's key block min(1536, round_up(Tk, 128)); none in X2 and X3,
-  // whose Tk is a multiple of 128
+  // whose Tk is a multiple of 128, nor in X4, whose reference masks them
   const int tk128 = (Tk + 127) / 128 * 128;
   const int bk = mode == 0 ? (tk128 < 1536 ? tk128 : 1536) : 128;
-  p.n_pad = (Tk + bk - 1) / bk * bk - Tk;
+  p.n_pad = mode == 6 ? 0 : (Tk + bk - 1) / bk * bk - Tk;
   p.scale = launch.q_prescaled ? q_scale : scale;
   // above 48 KB dynamic shared memory needs an opt-in (once per kernel)
-  static bool opted_in[2][6][2] = {};
+  static bool opted_in[2][7][2] = {};
   bool& opted = opted_in[maps[0] == 72][mode][has_bias];
   if (!opted) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -9,6 +9,10 @@ the way that one does (`attention_route`):
   max subtracted. Replaces the Pallas kernels ``_attn_kernel`` (no bias,
   ecad_tpu/ops/attention.py:58) and ``_attn_kernel_bias`` (fp32 additive
   bias, :75). Plain version: `fused_attention_reference`.
+* **exact_xla** — the same function for a dense bias past the single tile,
+  where the reference calls XLA's ``jax.nn.dot_product_attention``
+  (:701-707) and so adds no pad keys (below); the same kernel and plain
+  version with n_pad = 0.
 * **clamp** — the function of ``_transposed_kernel`` (:285) and
   ``_transposed_kernel_nobias`` (:344), which the reference takes for
   lane-padded head dims (PixArt's 72) from a 1 MiB score tile up:
@@ -29,30 +33,31 @@ the way that one does (`attention_route`):
   dtype for p·v. `flash_attention` launches it under its own kernel name
   and counters; plain version: `flash_attention_reference`.
 
-All four run in one CUDA C++ kernel source, ``csrc/attention.cu`` (a
-compile-time variant each; the source says what bounds each on the H100),
-but for the calls that take the Hopper body of ``csrc/attention_sm90.cu``
-(wgmma fed by TMA), all in bf16 (`_takes_sm90`): without a bias at head
-dim 72 or 128 on the exact single-tile (K1), transposed clamp (K4) and
-streaming (K6) routes — PixArt's 256² and 1024² self-attention,
-PixArt-Σ's at 2048², FLUX.1-dev's joint attention at 256² and 1536² — and
-at 128 on the row-block route (K5) — FLUX.1-dev at 1024²; and with a
-key-padding bias (B|1, 1, 1, Tk) at 72 or 128 on the exact single-tile
-route (K2) — PixArt's text cross-attention at 256² and 512² — and on the
-transposed clamp route (K4 with a bias) — PixArt's text cross-attention at
-1024² and PixArt-Σ's at 2048² — and at 128 on the row-block route (K5 with
-a bias). The streaming route's bias form (K6 with a bias) stays on
-``csrc/attention.cu``. The attention-variant harness's X2 and X3 take the
-same body in bf16 at 72 and 128 (`attn_variants`). The choice depends on
-route, dtype, head dim and bias only. Such a call whose operands TMA
-cannot map (`tma_operand`: a 16-byte-aligned base and strides), or whose
-bias the body does not read (`bias_operand`: bf16 or fp32), raises; it
-never drops back to the other body.
+Every route runs on one of two hand-written CUDA C++ sources (each says
+what bounds its kernels on the H100). bf16 calls at head dim 72 or 128 take
+the Hopper body of ``csrc/attention_sm90.cu`` (wgmma fed by TMA;
+`_takes_sm90`), without a bias or with a key-padding bias (B|1, 1, 1, Tk):
+the exact single-tile route (K1; K2 with a bias) — PixArt's 256²
+self-attention and its text cross-attention at 256² and 512², FLUX.1-dev's
+joint attention at 256²; the transposed clamp route (K4, with a bias too)
+— PixArt's 1024² self-attention and its text cross-attention at 1024² and
+PixArt-Σ's at 2048²; the streaming route (K6, with a bias too) —
+PixArt-Σ's 2048² self-attention, FLUX.1-dev's at 1536²; and at 128 the
+row-block route (K5, with a bias too) — FLUX.1-dev at 1024². The
+attention-variant harness's X2 and X3 take the same body in bf16 at 72 and
+128, and X4 at 72 (`attn_variants`). The mma.sync body of
+``csrc/attention.cu`` (a compile-time variant per route) takes the rest:
+fp32, other head dims, dense biases, and the harness's X1. The choice
+depends on route, dtype, head dim and bias only. A call for the Hopper
+body whose operands TMA cannot map (`tma_operand`: a 16-byte-aligned base
+and strides), or whose bias the body does not read (`bias_operand`: bf16
+or fp32), raises; it never drops back to the other body.
 
 The exact routes' pad keys. The reference pads the keys of the exact
 routes with keys of score −1e9 whose rows of v are 0: to round_up(Tk, 128)
 on the single-tile route, to a multiple of min(1536, round_up(Tk, 128)) on
-the streaming one. They weigh exactly 0 unless every real score of a row
+the streaming one; none on the XLA route of a dense bias past the single
+tile (`pad_keys`). They weigh exactly 0 unless every real score of a row
 is within 104 of −1e9 or below it (a caller bias of −1e9 or less); then
 they take their share. The plain versions and the kernels add them the
 same way (`_exact_weights`, and each kernel's epilogue).
@@ -63,8 +68,8 @@ to ``LAUNCHES``: ``attention`` / ``attention_bias`` (exact, without / with
 a bias), ``attention_long`` / ``attention_long_bias`` (clamp, transposed
 route), ``attention_rowblock`` / ``attention_rowblock_bias`` (clamp,
 row-block route) and ``attention_flash`` / ``attention_flash_bias``
-(exact, streaming route). The attention-variant harness's kernels (X1 and
-X4: variants 4 and 7 of csrc/attention.cu; X2 and X3: modes 4 and 5 of the
+(exact, streaming route). The attention-variant harness's kernels (X1:
+variant 4 of csrc/attention.cu; X2, X3 and X4: modes 4, 5 and 6 of the
 Hopper body) are wrapped in `attn_variants` and count under ``xattn_*``.
 """
 
@@ -94,7 +99,7 @@ LAUNCHES = {
 # kernel variant of the C entry point → counter name (without "_bias")
 _VARIANTS = {
     0: "attention", 1: "attention_long", 2: "attention_rowblock", 3: "attention_flash",
-    4: "xattn_matmul_only", 7: "xattn_fd",
+    4: "xattn_matmul_only",
 }
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -102,13 +107,14 @@ MAX_HEAD_DIM = 128
 _FN = None
 _SM90_FN = None
 # the Hopper body's kernels (csrc/attention_sm90.cu), by counter name: the
-# C entry's mode and the head dims it is built for; the last two are the
-# attention-variant harness's X2 and X3 (`attn_variants`)
+# C entry's mode and the head dims it is built for; the last three are the
+# attention-variant harness's X2, X3 and X4 (`attn_variants`)
 _SM90_MODES = {"attention_flash": (0, (72, 128)), "attention_rowblock": (1, (128,)),
                "attention": (2, (72, 128)), "attention_long": (3, (72, 128)),
-               "xattn_nomax": (4, (72, 128)), "xattn_max": (5, (72, 128))}
-# the routes whose Hopper kernel also takes a key-padding bias: K2, K4, K5
-_SM90_BIAS = ("attention", "attention_long", "attention_rowblock")
+               "xattn_nomax": (4, (72, 128)), "xattn_max": (5, (72, 128)),
+               "xattn_fd": (6, (72,))}
+# the routes whose Hopper kernel also takes a key-padding bias: K2, K4, K5, K6
+_SM90_BIAS = ("attention", "attention_long", "attention_rowblock", "attention_flash")
 # the bias dtypes the Hopper body reads, with the C entry's code for each
 _SM90_BIAS_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SM90_BOX = (64, 1, 128, 1)  # 64 columns (128 bytes: the swizzle's width), 1 head, 128 rows
@@ -145,7 +151,8 @@ def _kernel():
             ctypes.c_float,  # q_scale: bf16(scale·log2e) in q's dtype (the others)
             ctypes.c_int,  # vec_ok
             ctypes.c_int,  # variant: 0 exact, 1 clamp (K4), 2 row-block (K5), 3 flash (K6),
-            # 4 and 7 the harness's X1 and X4
+            # 4 the harness's X1
+            ctypes.c_int,  # n_pad: the route's pad keys (`pad_keys`)
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -164,7 +171,7 @@ def _sm90_kernel():
             ctypes.c_void_p,  # o
             ctypes.POINTER(ctypes.c_ulonglong),  # 3 × 11 tensor-map arguments
             ctypes.POINTER(ctypes.c_longlong),  # o's strides (b, t, h)
-            ctypes.c_void_p,  # key-padding bias (modes 1-3) or NULL
+            ctypes.c_void_p,  # key-padding bias (modes 0-3) or NULL
             ctypes.POINTER(ctypes.c_longlong),  # its strides (batch, key)
             ctypes.c_int,  # the bias is bf16 (1) or fp32 (0)
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H Tq Tk
@@ -172,7 +179,8 @@ def _sm90_kernel():
             ctypes.c_float,  # q_scale: bf16(scale·log2e) (the modes with a pre-scaled q)
             ctypes.c_int,  # mode: 0 exact streaming (K6), 1 clamp row-block (K5),
             # 2 exact single-tile (K1; K2 with a bias), 3 clamp transposed (K4),
-            # 4 the harness's no max (X2), 5 its max on a pre-scaled q (X3)
+            # 4 the harness's no max (X2), 5 its max on a pre-scaled q (X3),
+            # 6 its clamp with the denominator from the p·v products (X4)
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -201,11 +209,16 @@ def fused_attention_reference(
     k: torch.Tensor,
     v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
+    n_pad: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel (and of ``_attn_kernel`` /
     ``_attn_kernel_bias``): fp32 upcast, q scaled by 1/√D, fp32 bias added,
     row-max subtracted, exp, p·v, one divide by the row sum, one cast; with
-    the reference's round_up(Tk, 128) − Tk pad keys (`_exact_weights`)."""
+    `n_pad` pad keys of score −1e9 (`_exact_weights`), by default the
+    single-tile route's round_up(Tk, 128) − Tk (`pad_keys`; 0 on the XLA
+    route of a dense bias past the tile, which normalises p in fp32 and
+    rounds it to v's dtype before p·v where this divides at the end: in
+    bf16 the two differ by p's rounding)."""
     d, tk = q.shape[-1], k.shape[1]
     qf = q.float().permute(0, 2, 1, 3) * (1.0 / math.sqrt(d))
     kf = k.float().permute(0, 2, 1, 3)
@@ -213,7 +226,7 @@ def fused_attention_reference(
     s = qf @ kf.transpose(-1, -2)
     if bias is not None:
         s = s + bias.float()
-    p, denom = _exact_weights(s, _round_up(tk, 128) - tk)
+    p, denom = _exact_weights(s, pad_keys("exact", tk) if n_pad is None else n_pad)
     out = (p @ vf) / denom
     return out.to(q.dtype).permute(0, 2, 1, 3).contiguous()
 
@@ -270,20 +283,32 @@ def attention_route(
 ) -> str:
     """Which function the reference's ``fused_attention`` (:677-720, with
     ``_flash_attention`` :591-597) computes for these shapes: "exact" (the
-    single-tile kernels, or XLA for a dense bias past the tile), "clamp"
-    (the transposed kernel K4), "rowblock" (K5) or "flash" (K6)."""
+    single-tile kernels), "exact_xla" (XLA, for a dense bias past the
+    tile), "clamp" (the transposed kernel K4), "rowblock" (K5) or "flash"
+    (K6)."""
     b, tq, _, d = q_shape
     score_bytes = _round_up(tq, 8) * _round_up(tk, 128) * 4
     padding_ok = _key_padding_bias_ok(bias, b)
     if score_bytes > _SINGLE_TILE_SCORE_BYTES:
         if not padding_ok:
-            return "exact"
+            return "exact_xla"
         if _round_up(tk, 128) * _round_up(d, 128) <= _ROWBLOCK_MAX_KV_ELEMS:
             return "clamp" if d % 128 else "rowblock"
         return "flash"
     if d % 128 and score_bytes >= _TRANSPOSED_MIN_SCORE_BYTES and padding_ok:
         return "clamp"
     return "exact"
+
+
+def pad_keys(route: str, tk: int) -> int:
+    """The reference's pad keys on `route` for `tk` keys: up to a multiple
+    of 128 on the single-tile and clamp routes (score −1e9 on the exact
+    one, 2^-100 each in Σp on the clamp ones), of the key block min(1536,
+    round_up(Tk, 128)) on the streaming route, none on the XLA route."""
+    if route == "exact_xla":
+        return 0
+    block = min(_FLASH_BLOCK_K, _round_up(tk, 128)) if route == "flash" else 128
+    return _round_up(tk, block) - tk
 
 
 def clamp_scale(d: int, dtype: torch.dtype) -> float:
@@ -318,7 +343,7 @@ def transposed_attention_reference(
     if bias is not None:
         s = s + bias.float() * _LOG2E
     p = torch.exp2(s.clamp(_CLAMP_LO, _CLAMP_HI))
-    denom = p.sum(dim=-1, keepdim=True) + (_round_up(tk, 128) - tk) * _PAD_KEY_WEIGHT
+    denom = p.sum(dim=-1, keepdim=True) + pad_keys("clamp", tk) * _PAD_KEY_WEIGHT
     out = (p.to(v.dtype).float() @ vf) / denom
     return out.to(q.dtype).permute(0, 2, 1, 3).contiguous()
 
@@ -361,7 +386,7 @@ def flash_attention_reference(
     s = (qf @ kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))
     if bias is not None:
         s = s + bias.float()
-    p, denom = _exact_weights(s, _round_up(tk, min(_FLASH_BLOCK_K, _round_up(tk, 128))) - tk)
+    p, denom = _exact_weights(s, pad_keys("flash", tk))
     out = (p.to(v.dtype).float() @ vf) / denom
     return out.to(q.dtype).permute(0, 2, 1, 3).contiguous()
 
@@ -372,12 +397,13 @@ def _launch(
     v: torch.Tensor,
     bias: Optional[torch.Tensor],
     variant: int,
+    n_pad: int,
 ) -> torch.Tensor:
     """One launch of the CUDA kernel on q's device: `variant` 0 is the
     exact softmax, 1 the clamp softmax of the transposed route (K4), 2 that
     of the row-block route (K5), 3 the exact softmax of the streaming route
-    (K6), 4 and 7 the attention-variant harness's X1 and X4
-    (`attn_variants`). Counts it."""
+    (K6), 4 the attention-variant harness's X1 (`attn_variants`), with the
+    route's `n_pad` pad keys (`pad_keys`). Counts it."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -411,6 +437,7 @@ def _launch(
             1.0 / math.sqrt(d), clamp_scale(d, q.dtype),
             vec_ok,
             variant,
+            n_pad,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if status != 0:
@@ -487,9 +514,11 @@ def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
     (``attention``: exact single-tile, K1, or K2 with a key-padding `bias`;
     ``attention_long``: clamp transposed, K4; ``attention_rowblock``: clamp
     row-block, K5, each also with a key-padding `bias`;
-    ``attention_flash``: exact streaming, K6; ``xattn_nomax`` and
-    ``xattn_max``: the attention-variant harness's exp2 softmax without and
-    with the max on a pre-scaled q, X2 and X3, no bias, Tk % 128 == 0).
+    ``attention_flash``: exact streaming, K6, also with a key-padding
+    `bias`; ``xattn_nomax`` and ``xattn_max``: the attention-variant
+    harness's exp2 softmax without and with the max on a pre-scaled q, X2
+    and X3, no bias, Tk % 128 == 0; ``xattn_fd``: its clamp softmax with
+    the denominator from the p·v products, X4, D=72, no bias, any Tk).
     Raises where TMA cannot map an operand (`tma_operand`) or the body does
     not read the bias (`bias_operand`). Counts it under `name`, or
     ``name_bias``."""
@@ -533,7 +562,7 @@ def transposed_attention(
         return transposed_attention_reference(q, k, v, bias)
     if _takes_sm90("attention_long", q, bias):
         return _launch_sm90(q, k, v, "attention_long", bias)
-    return _launch(q, k, v, bias, variant=1)
+    return _launch(q, k, v, bias, 1, pad_keys("clamp", k.shape[1]))
 
 
 def rowblock_attention(
@@ -550,7 +579,7 @@ def rowblock_attention(
         return rowblock_attention_reference(q, k, v, bias)
     if _takes_sm90("attention_rowblock", q, bias):
         return _launch_sm90(q, k, v, "attention_rowblock", bias)
-    return _launch(q, k, v, bias, variant=2)
+    return _launch(q, k, v, bias, 2, pad_keys("rowblock", k.shape[1]))
 
 
 def flash_attention(
@@ -567,8 +596,8 @@ def flash_attention(
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, bias)
     if _takes_sm90("attention_flash", q, bias):
-        return _launch_sm90(q, k, v, "attention_flash")
-    return _launch(q, k, v, bias, variant=3)
+        return _launch_sm90(q, k, v, "attention_flash", bias)
+    return _launch(q, k, v, bias, 3, pad_keys("flash", k.shape[1]))
 
 
 def _check_key_padding(q, k, v, bias) -> None:
@@ -597,8 +626,9 @@ def fused_attention(
         return rowblock_attention(q, k, v, bias)
     if route == "flash":
         return flash_attention(q, k, v, bias)
+    n_pad = pad_keys(route, k.shape[1])
     if q.device.type == "cpu":
-        return fused_attention_reference(q, k, v, bias)
+        return fused_attention_reference(q, k, v, bias, n_pad)
     if _takes_sm90("attention", q, bias):
         return _launch_sm90(q, k, v, "attention", bias)
-    return _launch(q, k, v, bias, variant=0)
+    return _launch(q, k, v, bias, 0, n_pad)

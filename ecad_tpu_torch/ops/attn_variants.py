@@ -3,11 +3,11 @@
 The JAX package's research harness ``scripts/exp_attn_variants.py`` times
 the TPU's attention body at its headline shapes with parts of the work
 taken out, through eight Pallas bodies. Each function has a counterpart
-here. X2 and X3 run on the Hopper body, ``csrc/attention_sm90.cu`` (modes
-4 and 5 of its C entry, wgmma fed by TMA, keys in 128-key tiles), so that
-they take apart the body that serves K1-K6; X1 and X4 on the ``mma.sync``
-body of ``csrc/attention.cu`` (variants 4 and 7 of its C entry, 64-key
-tiles). Each source says what bounds each kernel.
+here. X2, X3 and X4 run on the Hopper body, ``csrc/attention_sm90.cu``
+(modes 4, 5 and 6 of its C entry, wgmma fed by TMA, keys in 128-key
+tiles), so that they take apart the body that serves K1-K6; X1 on the
+``mma.sync`` body of ``csrc/attention.cu`` (variant 4 of its C entry,
+64-key tiles). Each source says what bounds each kernel.
 
 * ``k_matmul_only`` (:103) — o = bf16(q·kᵀ)·v with unscaled scores, no
   softmax: `matmul_only_attention` (X1, ``attn_xmatmul_bf16_kernel``);
@@ -19,7 +19,7 @@ tiles). Each source says what bounds each kernel.
   ``attn_xmax_sm90_kernel<D>``);
 * ``k_transposed_fd`` (:288) and ``k_transposed_subk_fd`` (:349) — the
   clamp numerator, denominator Σ bf16(p) taken by the tensor cores through
-  a ones column of v: `clamp_fd_attention` (X4, ``attn_xfd_bf16_kernel``);
+  a ones column of v: `clamp_fd_attention` (X4, ``attn_xfd_sm90_kernel<72>``);
 * ``k_transposed`` (:190) and ``k_transposed_subk`` (:317) compute K4's
   no-bias function: `transposed_attention` in ``attention.py``.
 
@@ -45,12 +45,10 @@ import torch
 from . import attention as _attention
 from .attention import _CLAMP_HI, _CLAMP_LO, _round_up, clamp_scale
 
-# X1 and X4 on csrc/attention.cu, by counter: the C entry's variant and the
-# padded head dims (DP) it is built at: X1 at D = 72 and 128 (the
-# harness's), X4 at 72 only (its ones column takes the last 8 of DP's
-# columns, so D = DP - 8). X2 and X3 run on the Hopper body, at the head
-# dims `attention._SM90_MODES` gives.
-_MMA = {"xattn_matmul_only": (4, (80, 128)), "xattn_fd": (7, (80,))}
+# X1 on csrc/attention.cu: the C entry's variant and the padded head dims
+# (DP) it is built at, those of D = 72 and 128 (the harness's). X2-X4 run
+# on the Hopper body, at the head dims `attention._SM90_MODES` gives.
+_X1_VARIANT, _X1_PADDED_DIMS = 4, (80, 128)
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, scaled: bool) -> torch.Tensor:
@@ -131,14 +129,10 @@ def _run(q, k, v, counter: str, plain, aligned: bool) -> torch.Tensor:
             raise ValueError(f"head dim {d}: {counter} runs on the Hopper body, built for "
                              f"head dims {_attention._SM90_MODES[counter][1]}")
         return _attention._launch_sm90(q, k, v, counter)
-    variant, built = _MMA[counter]
-    fd = counter == "xattn_fd"
-    if _round_up(d, 16) not in built or (fd and d % 16 != 8):
-        raise ValueError(
-            f"head dim {d}: kernel variant {variant} is built for padded head "
-            f"dims {built}" + (" with D = DP - 8" if fd else "")
-        )
-    return _attention._launch(q, k, v, None, variant)
+    if _round_up(d, 16) not in _X1_PADDED_DIMS:
+        raise ValueError(f"head dim {d}: kernel variant {_X1_VARIANT} is built for padded "
+                         f"head dims {_X1_PADDED_DIMS}")
+    return _attention._launch(q, k, v, None, _X1_VARIANT, 0)
 
 
 def matmul_only_attention(q, k, v) -> torch.Tensor:
@@ -158,5 +152,5 @@ def max_exp2_attention(q, k, v) -> torch.Tensor:
 
 def clamp_fd_attention(q, k, v) -> torch.Tensor:
     """X4: the clamp softmax with the denominator from the p·v product. Any
-    Tk: the reference body masks its pad keys. On the card D % 16 == 8."""
+    Tk: the reference body masks its pad keys. On the card D = 72."""
     return _run(q, k, v, "xattn_fd", clamp_fd_attention_reference, aligned=False)

@@ -1,7 +1,7 @@
 """The Hopper body (``csrc/attention_sm90.cu``) against the mma.sync body
 it replaced (``csrc/attention.cu``, which still serves fp32, other head
-dims, dense biases and the streaming route's bias form), kernel by kernel,
-in turns, in one process on one card.
+dims and dense biases), kernel by kernel, in turns, in one process on one
+card; and the harness's X3 against one library call, in turns.
 
     python -m ecad_tpu_torch.scripts.compare_attention_bodies [--out bodies.json]
 
@@ -17,12 +17,20 @@ keys with the text bias in bf16; K5 (row-block clamp, variant 2) at
 FLUX-1024's (1, 4608, 24, 128), and with a key-padding bias in bf16 (4508
 of the 4608 keys kept) at the same shape; K6 (streaming exact, variant
 3) at FLUX-1536's (1, 9728, 24, 128) and PixArt-Σ-2048's (2, 16384, 16,
-72). Both bodies are checked against the
+72), and with a key-padding bias in bf16 at both (lengths 15384 and 9000
+at 2048², 9000 of 9728 keys at 1536²). Both bodies are checked against the
 plain version (run per head) and timed in turns — old, new, new, old — by
 spin-kernel CUDA events (`sampled_device_ms`, which samples the SM clock,
 power and temperature around each timing), beside one
-``scaled_dot_product_attention`` call. Prints one JSON line per row, and
-writes them to ``--out``.
+``scaled_dot_product_attention`` call (with the bias as a float mask).
+
+Then X3 (`max_exp2_attention`, the harness's exp2 softmax with the max on a
+pre-scaled q; its old body is gone) against ``scaled_dot_product_attention``
+at the harness's three shapes, in turns — X3, SDPA, SDPA, X3 — three times
+a shape (`X3_ROUNDS`): one row a shape with both lists of times and the
+ratio of their medians.
+
+Prints one JSON line per row, and writes them to ``--out``.
 """
 
 from __future__ import annotations
@@ -37,6 +45,8 @@ import torch
 
 from ecad_tpu_torch.ops import _build
 from ecad_tpu_torch.ops import attention as A
+from ecad_tpu_torch.ops import max_exp2_attention
+from ecad_tpu_torch.scripts.exp_attn_variants import SHAPES
 from ecad_tpu_torch.utils.timing import bound_ms, card_name, sampled_device_ms
 
 # row → (q shape, keys, the text lengths of a key-padding bias or None, the
@@ -62,7 +72,14 @@ CASES = {
                         A.flash_attention_reference, 0.025),
     "attention_flash_d72": ((2, 16384, 16, 72), 16384, None, 3, A.flash_attention,
                             A.flash_attention_reference, 0.025),
+    "attention_flash_bias": ((2, 16384, 16, 72), 16384, (15384, 9000), 3, A.flash_attention,
+                             A.flash_attention_reference, 0.025),
+    "attention_flash_bias_d128": ((1, 9728, 24, 128), 9728, (9000,), 3, A.flash_attention,
+                                  A.flash_attention_reference, 0.025),
 }
+# attention.cu's variant → its route, for the route's pad keys (`pad_keys`)
+ROUTE = {0: "exact", 1: "clamp", 2: "rowblock", 3: "flash"}
+X3_ROUNDS = 3
 
 
 def by_heads(plain, q, k, v, bias=None) -> torch.Tensor:
@@ -77,6 +94,24 @@ def max_err_and_bad(got, want, share) -> tuple[float, int]:
     err = (got.float() - want.float()).abs()
     limit = share * float(want.float().std()) + 2.0 ** -7 * want.float().abs()
     return float(err.max()), int((err > limit).sum())
+
+
+def x3_against_sdpa(shape: str, s: dict, gen, card: str) -> dict:
+    """X3 and one ``scaled_dot_product_attention`` call on the same bf16
+    inputs at a harness shape, timed in turns (X3, SDPA, SDPA, X3)
+    `X3_ROUNDS` times."""
+    q, k, v = (torch.randn((s["b"], s["t"], s["h"], s["d"]), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    fns = {"x3": lambda: max_exp2_attention(q, k, v),
+           "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)}
+    times = {"x3": [], "sdpa": []}
+    for _ in range(X3_ROUNDS):
+        for name in ("x3", "sdpa", "sdpa", "x3"):
+            times[name].append(sampled_device_ms(fns[name], reps=5, inner=5)[0])
+    return {"counter": "xattn_max", "shape": shape, "card": card, "x3_ms": times["x3"],
+            "sdpa_ms": times["sdpa"],
+            "x3_over_sdpa": statistics.median(times["x3"]) / statistics.median(times["sdpa"])}
 
 
 def main(argv=None) -> list[dict]:
@@ -98,7 +133,8 @@ def main(argv=None) -> list[dict]:
             keep = torch.arange(tk, device="cuda")[None] < torch.tensor(
                 [lengths[i % len(lengths)] for i in range(b)], device="cuda")[:, None]
             bias = torch.where(keep, 0.0, -10000.0).to(torch.bfloat16)[:, None, None, :]
-        bodies = {"old": lambda: A._launch(q, k, v, bias, variant),
+        n_pad = A.pad_keys(ROUTE[variant], tk)
+        bodies = {"old": lambda: A._launch(q, k, v, bias, variant, n_pad),
                   "new": lambda: new_fn(q, k, v, bias)}
         want = by_heads(plain, q, k, v, bias)
         checks = {name: max_err_and_bad(fn(), want, share) for name, fn in bodies.items()}
@@ -130,6 +166,10 @@ def main(argv=None) -> list[dict]:
         rows.append(row)
         if any(c[1] for c in checks.values()):
             raise SystemExit(f"{counter}: a body is beyond its tolerance: {checks}")
+    for shape, s in SHAPES.items():
+        row = x3_against_sdpa(shape, s, gen, card)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(rows, indent=1))

@@ -29,10 +29,10 @@ many times the row called it.
 
 Left out on purpose: the reference's positional query-tile sizes (``bq``)
 and ``--chunks=`` set TPU tile shapes. The kernels here fix their own: on
-the Hopper body (X2, X3 and the ``transposed`` rows' K4 at the harness's
-head dims) each consumer warpgroup takes 64 query rows and the keys stream
-in 128-key tiles; on the ``mma.sync`` body (X1, X4) a block takes 64 query
-rows and 64-key tiles. So neither knob exists here, and the metric names
+the Hopper body (X2, X3, X4 and the ``transposed`` rows' K4 at the
+harness's head dims) each consumer warpgroup takes 64 query rows and the
+keys stream in 128-key tiles; on the ``mma.sync`` body (X1) a block takes
+64 query rows and 64-key tiles. So neither knob exists here, and the metric names
 drop the reference's ``_bq…``.
 
 Every row needs Tk % 128 == 0: the reference's ``_prep`` and

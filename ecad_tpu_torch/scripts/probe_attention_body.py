@@ -13,6 +13,11 @@ Rows, bf16 at the shape the main path gives each kernel:
   ``no_exp2``, ``no_kv_loads`` (each stage's k and v loaded once, then
   reused), ``no_pv`` (no p·v products) and ``no_pv_tail`` (no m64n8k16 for
   v's columns 64-71);
+* K6 with a key-padding bias (the text bias's form, in bf16, past lengths
+  15384 and 9000) at PixArt-Σ-2048's (2, 16384, 16, 72), with
+  ``no_bias_loads`` and ``k6_bias_three_consumers`` (three consumer
+  warpgroups, as K6 without a bias, and their spills), and at FLUX-1536's
+  (1, 9728, 24, 128) with 9000 keys kept, with ``no_bias_loads``;
 * K2 at PixArt-256's cross-attention (16, 256, 16, 72) → 120 keys with the
   text bias in bf16, with ``no_bias_loads`` (the helper warps write 0 for
   the bias);
@@ -34,14 +39,19 @@ Rows, bf16 at the shape the main path gives each kernel:
   ``xmax_two_consumers`` (K6's ``two_consumers`` edit, since X2 and X3
   share its consumer count: two consumer warpgroups and 128-row items
   instead of three and 192) and ``xmax_no_max`` (X3's kernel with X2's
-  softmax: no max, no rescale), and X2 (no max) at both shapes with
-  ``xnomax_two_consumers``.
+  softmax: no max, no rescale), X2 (no max) at both shapes with
+  ``xnomax_two_consumers``, and X4 (the clamp with the denominator from the
+  p·v product) at both shapes with ``xfd_three_consumers`` (and their
+  spills) and ``xfd_n8`` (the ones column as a second m64n8k16 product
+  beside the tail's, instead of one m64n16k16 over both).
 
 A variant that only reschedules the same arithmetic (``two_consumers``,
-``one_block_per_item``, ``items_in_runs``, ``bias_after_q``,
-``xmax_two_consumers``, ``xnomax_two_consumers``) must give the source's
-output bit for bit; the others compute something else and are
-timed only. Each variant's time is the
+``k6_bias_three_consumers``, ``one_block_per_item``, ``items_in_runs``,
+``bias_after_q``, ``xmax_two_consumers``, ``xnomax_two_consumers``,
+``xfd_three_consumers``) must give the source's output bit for bit; the
+others compute something else, or the same in another instruction, and
+are timed only. Each row also carries the spill bytes ``ptxas -v``
+reports for each build's kernel of that row. Each variant's time is the
 median of spin-kernel CUDA-event timings (`device_ms`), taken in turns:
 source, variants, variants again in reverse, source. Prints one JSON line
 per row and writes them to ``--out``. The edits are text replacements
@@ -54,6 +64,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -86,13 +97,18 @@ K6_VARIANTS = {
                "      for (int kk = 0; kk < 8; ++kk) pv(o, pf[kk], sp, kk);\n"
                "      wgmma_commit();", "      wgmma_commit();")],
     # the m64n8k16's instruction taken out of its asm (its operands stay)
-    "no_pv_tail": [('      " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}"\n'
-                    '      ", {%4, %5, %6, %7}, %8, p, 1, 1, 1;\\n}\\n"',
-                    '      "}\\n"')],
+    "no_pv_tail": [('        " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}"\n'
+                    '        ", {%4, %5, %6, %7}, %8, p, 1, 1, 1;\\n}\\n"',
+                    '        "}\\n"')],
 }
 K2_VARIANTS = {
     "no_bias_loads": [("      x = p.bias_bf16 ? __uint_as_float((uint32_t)__ldg(bf16_bias + at) "
                        "<< 16)\n                      : __ldg(f32_bias + at);", "      x = 0.f;")],
+}
+K6_BIAS_VARIANTS = {
+    **K2_VARIANTS,
+    "k6_bias_three_consumers": [("constexpr int kStreamConsumers = BIAS ? 2 : kFlashConsumers<D>;",
+                                 "constexpr int kStreamConsumers = kFlashConsumers<D>;")],
 }
 K4_BIAS_VARIANTS = {
     "one_block_per_item": [("  if (mode == 2 || Tk <= kBlockN) {", "  if (mode == 2) {")],
@@ -119,10 +135,33 @@ X3_VARIANTS = {
                      "  return mode == kExact;")],
 }
 X2_VARIANTS = {"xnomax_two_consumers": K6_VARIANTS["two_consumers"]}
+X4_VARIANTS = {
+    "xfd_three_consumers": [
+        ("__global__ void __launch_bounds__(384, 1)\n    attn_xfd_sm90_kernel",
+         "__global__ void __launch_bounds__(512, 1)\n    attn_xfd_sm90_kernel"),
+        ("attn_sm90_body<D, kClampFD, false, 2>", "attn_sm90_body<D, kClampFD, false, 3>"),
+        ("launch_of<D, 2, kClampFD>", "launch_of<D, 3, kClampFD>")],
+    # the ones tile (2 KB, 128 in the descriptor's address field, after the
+    # tail) in a product of its own
+    "xfd_n8": [
+        ('        " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16"\n'
+         '        " {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\\n}\\n"',
+         '        " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}"\n'
+         '        ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\\n"\n'
+         '        " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%4, %5, %6, %7}"\n'
+         '        ", {%8, %9, %10, %11}, %14, p, 1, 1, 1;\\n}\\n"'),
+        ('        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db_tail), "r"(1));\n  }\n}',
+         '        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db_tail), "r"(1),\n'
+         '          "l"(db_tail + 128));\n  }\n}')],
+}
 # row → (q shape, keys, text lengths of the bias or None, the wrapper's
 # counter, its variants, timing reps and calls per rep)
 ROWS = {
     "k6_pixart2048": ((2, 16384, 16, 72), 16384, None, "attention_flash", K6_VARIANTS, 3, 5),
+    "k6_bias_pixart2048": ((2, 16384, 16, 72), 16384, (15384, 9000), "attention_flash",
+                           K6_BIAS_VARIANTS, 3, 5),
+    "k6_bias_flux1536": ((1, 9728, 24, 128), 9728, (9000,), "attention_flash", K2_VARIANTS,
+                         3, 5),
     "k2_pixart256_cross": ((16, 256, 16, 72), 120, (7, 60, 120), "attention", K2_VARIANTS,
                            7, 20),
     "k4_bias_pixart1024_cross": ((4, 4096, 16, 72), 120, (7, 60, 120), "attention_long",
@@ -137,10 +176,42 @@ ROWS = {
     "x2_pixart1024": ((8, 4096, 16, 72), 4096, None, "xattn_nomax", X2_VARIANTS, 5, 5),
     "x2_pixart512_class_self": ((64, 1024, 16, 72), 1024, None, "xattn_nomax", X2_VARIANTS,
                                 5, 5),
+    "x4_pixart1024": ((8, 4096, 16, 72), 4096, None, "xattn_fd", X4_VARIANTS, 5, 5),
+    "x4_pixart512_class_self": ((64, 1024, 16, 72), 1024, None, "xattn_fd", X4_VARIANTS, 5, 5),
 }
 # the same arithmetic, rescheduled
-EXACT = ("two_consumers", "one_block_per_item", "items_in_runs", "bias_after_q",
-         "xmax_two_consumers", "xnomax_two_consumers")
+EXACT = ("two_consumers", "k6_bias_three_consumers", "one_block_per_item", "items_in_runs",
+         "bias_after_q", "xmax_two_consumers", "xnomax_two_consumers", "xfd_three_consumers")
+# the device kernel of each counter (its name, and whether it carries the
+# BIAS flag in its template arguments)
+KERNELS = {"attention_flash": ("attn_flash_sm90_kernel", True),
+           "attention": ("attn_exact_sm90_kernel", True),
+           "attention_long": ("attn_clamp_sm90_kernel", True),
+           "attention_rowblock": ("attn_rowblock_sm90_kernel", True),
+           "xattn_nomax": ("attn_xnomax_sm90_kernel", False),
+           "xattn_max": ("attn_xmax_sm90_kernel", False),
+           "xattn_fd": ("attn_xfd_sm90_kernel", False)}
+
+
+def kernel_symbol(counter: str, d: int, bias: bool) -> str:
+    """The part of the mangled name that tells a row's kernel apart, e.g.
+    ``attn_flash_sm90_kernelILi72ELb1E``."""
+    name, flagged = KERNELS[counter]
+    return f"{name}ILi{d}E" + (f"Lb{int(bias)}E" if flagged else "")
+
+
+def spill_bytes(log: str) -> dict[str, int]:
+    """The spill stores ``ptxas -v`` reports, by mangled kernel name."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            out[name] = int(m.group(1))
+            name = None
+    return out
 
 
 def variant_source(src: str, edits: list[tuple[str, str]]) -> str:
@@ -152,8 +223,9 @@ def variant_source(src: str, edits: list[tuple[str, str]]) -> str:
     return src
 
 
-def build(sources: dict[str, str], out_dir: Path) -> dict[str, ctypes.CDLL]:
-    """One nvcc per source, all started together, as `_build` builds."""
+def build(sources: dict[str, str], out_dir: Path) -> tuple[dict, dict]:
+    """One nvcc per source, all started together, as `_build` builds: the
+    loaded libraries and each one's spill bytes by kernel (`spill_bytes`)."""
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, src in sources.items():
@@ -161,16 +233,17 @@ def build(sources: dict[str, str], out_dir: Path) -> dict[str, ctypes.CDLL]:
         cu.write_text(src)
         so = out_dir / f"lib{name}.so"
         cmd = [_build.nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-o", str(so), str(cu)]
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(so), str(cu)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
+    libs, spills = {}, {}
     for name, (proc, so) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc {name} failed:\n{log}")
         libs[name] = ctypes.CDLL(str(so))
-    return libs
+        spills[name] = spill_bytes(log)
+    return libs, spills
 
 
 def main(argv=None) -> list[dict]:
@@ -184,7 +257,7 @@ def main(argv=None) -> list[dict]:
     sources = {"source": src}
     for _, _, _, _, variants, _, _ in ROWS.values():
         sources.update({n: variant_source(src, e) for n, e in variants.items()})
-    libs = build(sources, _build.BUILD_DIR / "probe_attention_body")
+    libs, spills = build(sources, _build.BUILD_DIR / "probe_attention_body")
     fns = {}
     for name, lib in libs.items():
         fn = lib.ecad_attention_sm90_fwd
@@ -219,8 +292,10 @@ def main(argv=None) -> list[dict]:
             times = {n: [] for n in names}
             for n in names + names[::-1]:
                 times[n].append(device_ms(call(n), reps, inner)[0])
+            symbol = kernel_symbol(counter, d, bias is not None)
+            spilled = {n: [b for k, b in spills[n].items() if symbol in k] for n in names}
             result = {"row": row, "shape": list(shape), "keys": tk, "card": card,
-                      "ms": times, "bit_identical": same,
+                      "ms": times, "bit_identical": same, "spill_bytes": spilled,
                       "sm_clock_mhz_after": card_sample()["sm_clock_mhz"]}
             print(json.dumps(result), flush=True)
             rows.append(result)

@@ -202,14 +202,14 @@ def test_port_harness_main_on_cpu(monkeypatch, capsys):
 
 
 # ---------------------------------------------------------------------------
-# X2 and X3 on the Hopper body (csrc/attention_sm90.cu): its arithmetic,
+# X2, X3 and X4 on the Hopper body (csrc/attention_sm90.cu): its arithmetic,
 # emulated, and the routing
 # ---------------------------------------------------------------------------
 
 
 def _chip_smoke_xattn():
     """chip_smoke.py's XATTN table, loaded from its file, for the tolerances
-    its checks hold X2 and X3 to on the card."""
+    its checks hold X2-X4 to on the card."""
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -295,6 +295,50 @@ def test_hopper_x2_overflows_like_k_nomax(interpret, d):
     np.testing.assert_allclose(got[fin], want[fin], **BF16_TOL)
 
 
+def _hopper_fd_body(q, k, v):
+    """csrc/attention_sm90.cu's X4 mode in its own order, on bf16 (B, T, H,
+    D) q, k, v: q × bf16(log2e/√D), rounded to bf16; per 128-key tile s =
+    q·kᵀ in fp32, p = exp2(clip(s, −100, 80)) rounded to bf16, keys past Tk
+    at 0 (the last tile is short here); o += bf16(p)·v and the denominator
+    += Σ bf16(p), both accumulated in fp32 (the ones column of the same
+    product); one factor 1/Σ, one cast."""
+    scale = torch.tensor(clamp_scale(q.shape[-1], q.dtype), dtype=q.dtype)
+    qf = (q * scale).float().permute(0, 2, 1, 3)
+    kf, vf = (t.float().permute(0, 2, 1, 3) for t in (k, v))
+    den = torch.zeros((*qf.shape[:3], 1))
+    o = torch.zeros_like(qf)
+    for k0 in range(0, kf.shape[2], 128):
+        s = qf @ kf[:, :, k0:k0 + 128].transpose(-1, -2)
+        p = torch.exp2(s.clamp(port_attention._CLAMP_LO, port_attention._CLAMP_HI))
+        p = p.to(torch.bfloat16).float()
+        den = den + p.sum(-1, keepdim=True)
+        o = o + p @ vf[:, :, k0:k0 + 128]
+    return (o * (1.0 / den)).to(torch.bfloat16).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("tk", [256, 200])
+@pytest.mark.parametrize("name", ["transposed_fd", "transposed_subk_fd"])
+def test_hopper_x4_arithmetic_matches_pallas_body(interpret, name, tk):
+    """The Hopper body's X4 arithmetic (p = bf16(exp2(clip(s))), the
+    denominator Σ bf16(p) from the same bf16 p in fp32, keys past Tk at 0)
+    against ``k_transposed_fd`` and ``k_transposed_subk_fd`` in interpret
+    mode at (1, 256, 2, 72) → 256 and → 200 keys (the Pallas wrapper pads
+    the 200 to 256 and its ones row gives the pad keys weight 0), bf16: the
+    least atol per std that passes beside 2^-7 relative stays below half of
+    the share chip_smoke.py's XATTN holds X4 to on the card, and the
+    emulation passes that tolerance."""
+    q, k, v = _qkv(7, tk, 72)
+    want = np.asarray(_body(interpret, name, *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))),
+                      np.float32)
+    got = _hopper_fd_body(*(torch.from_numpy(a).to(torch.bfloat16)
+                            for a in (q, k, v))).float().numpy()
+    atol, rtol = _chip_smoke_xattn()["xattn_fd"][2](torch.from_numpy(want))
+    share = atol / float(np.std(want))
+    assert rtol == 2.0 ** -7
+    assert _least_atol_per_std(got, want) <= share / 2, _least_atol_per_std(got, want)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=rtol)
+
+
 # (wrapper, dtype, head dim, keys) → the launch it takes: ("sm90", counter)
 # on the Hopper body, ("mma", variant) of csrc/attention.cu, or the
 # exception raised before either launcher
@@ -311,18 +355,22 @@ HARNESS_ROUTES = {
     "nomax_tk200_d72": (nomax_attention, "bf16", 72, 200, ValueError),
     "max_tk200_d128": (max_exp2_attention, "bf16", 128, 200, ValueError),
     "matmul_only_bf16_d72": (matmul_only_attention, "bf16", 72, 256, ("mma", 4)),
-    "fd_bf16_d72": (clamp_fd_attention, "bf16", 72, 256, ("mma", 7)),
+    "fd_bf16_d72": (clamp_fd_attention, "bf16", 72, 256, ("sm90", "xattn_fd")),
+    "fd_tk200_d72": (clamp_fd_attention, "bf16", 72, 200, ("sm90", "xattn_fd")),
+    "fd_bf16_d80": (clamp_fd_attention, "bf16", 80, 256, ValueError),
+    "fd_bf16_d128": (clamp_fd_attention, "bf16", 128, 256, ValueError),
+    "fd_fp32_d72": (clamp_fd_attention, "fp32", 72, 256, TypeError),
 }
 
 
 @pytest.mark.parametrize("case", sorted(HARNESS_ROUTES))
 def test_harness_kernel_routing(case, monkeypatch):
-    """X2 and X3 in bf16 at head dim 72 or 128 launch the Hopper body
-    (under ``xattn_nomax`` / ``xattn_max``), and X1 and X4 csrc/attention.cu's
-    variants 4 and 7; X2 and X3 at other head dims (the Hopper body is
-    built for 72 and 128 only), fp32 (no kernel takes it on the card) and
-    Tk = 200 (the reference counts its pad keys) raise before either
-    launcher.
+    """X2 and X3 in bf16 at head dim 72 or 128, and X4 at 72 with any Tk,
+    launch the Hopper body (under ``xattn_nomax`` / ``xattn_max`` /
+    ``xattn_fd``), and X1 csrc/attention.cu's variant 4; X2-X4 at other
+    head dims (the Hopper body is built for 72 and 128 only, X4 for 72),
+    fp32 (no kernel takes it on the card) and, for X2 and X3, Tk = 200 (the
+    reference counts its pad keys) raise before either launcher.
     Tensors on the meta device reach the launch decision without a card;
     the launchers are replaced by recorders."""
     fn, dtype, d, tk, want = HARNESS_ROUTES[case]
@@ -330,7 +378,7 @@ def test_harness_kernel_routing(case, monkeypatch):
     monkeypatch.setattr(port_attention, "_launch_sm90",
                         lambda q, k, v, counter, bias=None: calls.append(("sm90", counter)))
     monkeypatch.setattr(port_attention, "_launch",
-                        lambda q, k, v, bias, variant: calls.append(("mma", variant)))
+                        lambda q, k, v, bias, variant, n_pad: calls.append(("mma", variant)))
     tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
     q = torch.empty((2, 256, 3, d), dtype=tdt, device="meta")
     kv = torch.empty((2, tk, 3, d), dtype=tdt, device="meta")

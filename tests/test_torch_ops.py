@@ -472,7 +472,7 @@ ROUTES = {
     "pixart1024_self": ((4, 4096, 16, 72), 4096, None, "clamp"),
     "pixart1024_cross": ((4, 4096, 16, 72), 120, "padding", "clamp"),
     "pixart1024_cross_batch_broadcast": ((4, 4096, 16, 72), 120, "broadcast", "clamp"),
-    "pixart1024_dense_bias": ((4, 4096, 16, 72), 4096, "dense", "exact"),
+    "pixart1024_dense_bias": ((4, 4096, 16, 72), 4096, "dense", "exact_xla"),
     "pixart2048_self": ((2, 16384, 16, 72), 16384, None, "flash"),
     "flux1024_joint": ((2, 4608, 24, 128), 4608, None, "rowblock"),
     "flux256_joint": ((2, 768, 24, 128), 768, None, "exact"),
@@ -714,6 +714,68 @@ def test_exact_plain_version_without_pad_keys_fails_minus_1e9_rows(fill):
     np.testing.assert_allclose(old[1:], want[1:], rtol=1e-5, atol=1e-5)
 
 
+def _dense_past_the_tile(dtype):
+    """(1, 2048, 2, 72) queries to 1100 keys with a dense (1, 2, 2048, 1100)
+    fp32 bias: a 9.4 MB score tile, past the reference's 8 MiB single tile,
+    so the reference calls XLA (ecad_tpu/ops/attention.py:701-707), which
+    adds no pad keys. Rows 0-7 of each head have a bias of −1e9 at every
+    key, rows 8-15 one of −2e9. Returns the torch (q, k, v, bias) and the
+    reference's output."""
+    rng = np.random.default_rng(51)
+    q, k, v = _qkv(rng, 1, 2048, 1100, 2, 72)
+    bias = rng.standard_normal((1, 2, 2048, 1100), dtype=np.float32)
+    bias[:, :, :8] = -1e9
+    bias[:, :, 8:16] = -2e9
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "fp32" else (
+        jnp.bfloat16, torch.bfloat16)
+    want = jax_fused_attention(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                               bias=jnp.asarray(bias), interpret=True)
+    args = [torch.from_numpy(a).to(tdt) for a in (q, k, v)] + [torch.from_numpy(bias)]
+    return args, np.asarray(want, np.float32)
+
+
+# fp32: only the order of the fp32 sums differs (≤ 1.1e-6 measured). bf16:
+# XLA normalises p in fp32 and rounds it to v's dtype before p·v
+# (jax._src.nn.functions._dot_product_attention_core), where the port keeps
+# p in fp32 and divides at the end, as its kernel does: each weight differs
+# by up to 2^-9 relative, which moves an output by up to 2^-9 of Σ p|v|
+# beside its own rounding — measured ≤ 6.6e-4 beyond 2^-7 relative, at an
+# output std of 0.08
+DENSE_XLA_TOL = {"fp32": dict(rtol=1e-5, atol=1e-5), "bf16": dict(rtol=2**-7, atol=2e-3)}
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_dense_bias_past_the_tile_adds_no_pad_keys(dtype):
+    """A dense bias past the single tile takes the reference's XLA route
+    ("exact_xla"): no pad keys, so a row whose every key has a bias of −1e9
+    or −2e9 is uniform over its Tk keys, Σv/Tk, on both sides (the
+    single-tile route's 52 pad keys would give Σv/1152 and 0); the port's
+    fused_attention matches the reference within DENSE_XLA_TOL."""
+    args, want = _dense_past_the_tile(dtype)
+    assert attention_route(tuple(args[0].shape), 1100, args[3]) == "exact_xla"
+    assert port_attention.pad_keys("exact_xla", 1100) == 0
+    got = fused_attention(*args).float().numpy()
+    np.testing.assert_allclose(got, want, **DENSE_XLA_TOL[dtype])
+    mean_v = args[2].float().mean(1, keepdim=True).expand(1, 16, 2, 72).numpy()
+    for side in (got, want):
+        np.testing.assert_allclose(side[:, :16], mean_v, rtol=2**-7, atol=1e-6)
+
+
+def test_exact_plain_version_with_pad_keys_fails_dense_rows_past_the_tile():
+    """Before the repair the plain version (and the kernel) added the
+    single-tile route's round_up(Tk, 128) − Tk = 52 pad keys on the XLA
+    route too: it gives Σv/1152 in the −1e9 rows and 0 in the −2e9 ones,
+    which the test's tolerance rejects; in the other rows it agrees."""
+    args, want = _dense_past_the_tile("fp32")
+    old = fused_attention_reference(*args).numpy()
+    assert port_attention.pad_keys("exact", 1100) == 52
+    for rows in (slice(0, 8), slice(8, 16)):
+        with pytest.raises(AssertionError):
+            np.testing.assert_allclose(old[:, rows], want[:, rows], **DENSE_XLA_TOL["fp32"])
+    assert float(np.abs(old[:, 8:16]).max()) == 0.0
+    np.testing.assert_allclose(old[:, 16:], want[:, 16:], **DENSE_XLA_TOL["fp32"])
+
+
 # ---------------------------------------------------------------------------
 # the Hopper body (csrc/attention_sm90.cu): routing and TMA arguments
 # ---------------------------------------------------------------------------
@@ -766,10 +828,18 @@ HOPPER_ROUTES = {
     "rowblock_key_padding_d64": ("rowblock", (2, 30, 2, 64), 300, "bf16", "padding", ("mma", 2)),
     "rowblock_key_padding_fp32": ("rowblock", (2, 30, 2, 128), 300, "fp32", "padding",
                                   ("mma", 2)),
-    "flash_key_padding": ("flash", (2, 30, 2, 128), 300, "bf16", "padding", ("mma", 3)),
-    "flash_key_padding_d72": ("flash", (2, 30, 2, 72), 300, "bf16", "padding", ("mma", 3)),
+    "flash_key_padding": ("flash", (2, 30, 2, 128), 300, "bf16", "padding",
+                          ("sm90", "attention_flash_bias")),
+    "flash_key_padding_d72": ("flash", (2, 30, 2, 72), 300, "bf16", "padding",
+                              ("sm90", "attention_flash_bias")),
+    "flash_batch_broadcast_bias_d72": ("flash", (3, 30, 2, 72), 300, "bf16", "broadcast",
+                                       ("sm90", "attention_flash_bias")),
+    "flash_key_padding_fp32_d72": ("flash", (2, 30, 2, 72), 300, "fp32", "padding", ("mma", 3)),
+    "flash_key_padding_d64": ("flash", (2, 30, 2, 64), 300, "bf16", "padding", ("mma", 3)),
     "pixart2048_flash_key_padding": ("fused", (2, 16384, 16, 72), 16384, "bf16", "padding",
-                                     ("mma", 3)),
+                                     ("sm90", "attention_flash_bias")),
+    "flux1536_flash_key_padding_d128": ("fused", (1, 9728, 24, 128), 9728, "bf16", "padding",
+                                        ("sm90", "attention_flash_bias")),
     "rowblock_fp32": ("rowblock", (2, 30, 2, 128), 300, "fp32", None, ("mma", 2)),
     "flash_fp32": ("flash", (2, 30, 2, 128), 300, "fp32", None, ("mma", 3)),
     "flash_fp32_d72": ("flash", (2, 30, 2, 72), 300, "fp32", None, ("mma", 3)),
@@ -790,10 +860,10 @@ def test_hopper_body_routing(name, monkeypatch):
     """bf16 calls without a bias at head dim 72 or 128 on the single-tile
     exact (K1), transposed clamp (K4) and streaming (K6) routes, and at 128
     on the row-block route (K5), launch the Hopper body, and so do bf16
-    calls with a key-padding bias on the single-tile exact route (K2) and
-    on both clamp routes (K4 and K5 with a bias, at the same head dims);
-    every other call — a dense bias, a bias on the streaming route, fp32,
-    another head dim — keeps its csrc/attention.cu variant.
+    calls with a key-padding bias on each of them (K2, and K4, K5 and K6
+    with a bias, at the same head dims), the bias passed on; every other
+    call — a dense bias, fp32, another head dim — keeps its
+    csrc/attention.cu variant.
     Tensors on the meta device reach the launch decision without a card;
     the launchers are replaced by recorders."""
     wrapper, shape, tk, dtype, bias_kind, want = HOPPER_ROUTES[name]
@@ -804,7 +874,7 @@ def test_hopper_body_routing(name, monkeypatch):
 
     monkeypatch.setattr(port_attention, "_launch_sm90", sm90)
     monkeypatch.setattr(port_attention, "_launch",
-                        lambda q, k, v, bias, variant: calls.append(("mma", variant)))
+                        lambda q, k, v, bias, variant, n_pad: calls.append(("mma", variant)))
     tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
     b, tq, h, d = shape
     q = torch.empty(shape, dtype=tdt, device="meta")
@@ -816,6 +886,46 @@ def test_hopper_body_routing(name, monkeypatch):
           "flash": flash_attention, "transposed": transposed_attention}[wrapper]
     fn(q, kv, kv, bias)
     assert calls == [want]
+
+
+# (wrapper, q shape, tk, dtype, bias kind) → the pad keys the csrc/attention.cu
+# launch gets: none on the reference's XLA route (a dense bias past the
+# single tile), round_up(Tk, 128) − Tk on the single-tile and clamp routes,
+# round_up(Tk, min(1536, round_up(Tk, 128))) − Tk on the streaming one
+PAD_KEY_LAUNCHES = {
+    "dense_bias_past_the_tile_bf16": ("fused", (1, 2048, 2, 72), 1100, "bf16", "dense", 0),
+    "dense_bias_past_the_tile_fp32": ("fused", (1, 2048, 2, 72), 1100, "fp32", "dense", 0),
+    "dense_bias_past_the_tile_d64": ("fused", (2, 4096, 2, 64), 4096, "bf16", "dense", 0),
+    "dense_bias_single_tile": ("fused", (2, 30, 2, 72), 300, "bf16", "dense", 84),
+    "key_padding_single_tile_fp32": ("fused", (2, 30, 2, 72), 300, "fp32", "padding", 84),
+    "clamp_key_padding_fp32": ("transposed", (2, 30, 2, 72), 300, "fp32", "padding", 84),
+    "flash_key_padding_fp32": ("flash", (2, 30, 2, 72), 1600, "fp32", "padding", 1472),
+    "flash_key_padding_d64": ("flash", (2, 30, 2, 64), 300, "bf16", "padding", 84),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PAD_KEY_LAUNCHES))
+def test_mma_launches_get_the_routes_pad_keys(name, monkeypatch):
+    """csrc/attention.cu's C entry takes the pad keys from the wrapper: the
+    route's count (`pad_keys`), 0 on the XLA route of a dense bias past the
+    single tile, which the reference computes without pad keys. Meta
+    tensors reach the launch; the launcher is replaced by a recorder."""
+    wrapper, shape, tk, dtype, bias_kind, n_pad = PAD_KEY_LAUNCHES[name]
+    calls = []
+    monkeypatch.setattr(port_attention, "_launch_sm90",
+                        lambda *a, **kw: pytest.fail("took the Hopper body"))
+    monkeypatch.setattr(port_attention, "_launch",
+                        lambda q, k, v, bias, variant, n: calls.append(n))
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    b, tq, h, d = shape
+    q = torch.empty(shape, dtype=tdt, device="meta")
+    kv = torch.empty((b, tk, h, d), dtype=tdt, device="meta")
+    bias = torch.zeros((b, h, tq, tk) if bias_kind == "dense" else (b, 1, 1, tk),
+                       dtype=tdt, device="meta")
+    fn = {"fused": fused_attention, "flash": flash_attention,
+          "transposed": transposed_attention}[wrapper]
+    fn(q, kv, kv, bias)
+    assert calls == [n_pad]
 
 
 def test_tma_operand_arguments():
@@ -933,7 +1043,7 @@ def test_bias_operand_arguments(name):
 ])
 def test_bias_operand_refusals(bias, match, monkeypatch):
     """What the Hopper body does not read raises, through bias_operand and
-    through the single-tile and clamp wrappers: a bias that is not (B|1, 1,
+    through the single-tile, clamp and streaming wrappers: a bias that is not (B|1, 1,
     1, Tk), or one in another dtype than bf16 or fp32; a dense bias is sent
     to csrc/attention.cu by the router (test_hopper_body_routing) and so
     never reaches bias_operand there."""
@@ -951,6 +1061,7 @@ def test_bias_operand_refusals(bias, match, monkeypatch):
         q128, kv128 = (torch.empty(4, t, 2, 128, dtype=torch.bfloat16, device="meta")
                        for t in (64, 120))
         for fn, args in ((transposed_attention, (q, kv, kv)),
+                         (flash_attention, (q, kv, kv)),
                          (rowblock_attention, (q128, kv128, kv128))):
             with pytest.raises(ValueError, match="bf16 or fp32"):
                 fn(*args, torch.empty(4, 1, 1, 120, dtype=dtype, device="meta"))
@@ -962,9 +1073,9 @@ def test_bias_operand_refusals(bias, match, monkeypatch):
 def test_hopper_body_refuses_what_tma_cannot_map(fault, d, monkeypatch):
     """A bf16 call for the Hopper body whose base or strides TMA cannot
     take raises — through the single-tile, transposed and streaming
-    wrappers, and at D=128 the row-block one — with or without the
-    single-tile and clamp routes' key-padding bias; it is not sent to the
-    csrc/attention.cu body instead."""
+    wrappers, and at D=128 the row-block one — with or without a
+    key-padding bias; it is not sent to the csrc/attention.cu body
+    instead."""
     if fault == "base_off_16_bytes":
         bad = torch.zeros(2 * 64 * 2 * d + 1, dtype=torch.bfloat16)[1:].view(2, 64, 2, d)
     elif fault == "row_stride_264_bytes":  # 132 elements per head row
@@ -988,7 +1099,7 @@ def test_hopper_body_refuses_what_tma_cannot_map(fault, d, monkeypatch):
         with pytest.raises(ValueError, match="TMA|contiguous"):
             fn(good, meta_bad, good)
     bias = torch.empty(2, 1, 1, 64, dtype=torch.bfloat16, device="meta")
-    for fn in [fused_attention, transposed_attention] + wrappers[3:]:
+    for fn in wrappers:
         with pytest.raises(ValueError, match="TMA|contiguous"):
             fn(good, meta_bad, good, bias)
 
@@ -1133,6 +1244,53 @@ def test_hopper_k6_arithmetic_matches_flash_kernel_at_d72(monkeypatch):
     atol, rtol = _chip_smoke_module().flash_bf16_tol(want)
     torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
     assert rtol == 2.0 ** -7
+
+
+# case → (the key-padding lengths of batch rows 0 and 1, or a fill for every
+# key of row 0 beside a row of 700 keys)
+K6_BIAS_BODY_CASES = {
+    "lengths_1900_700": ([1900, 700], None),
+    "every_key_minus_1e9": ([0, 700], -1e9),
+    "every_key_minus_2e9": ([0, 700], -2e9),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K6_BIAS_BODY_CASES))
+def test_hopper_k6_bias_arithmetic_matches_flash_kernel(case, monkeypatch):
+    """The Hopper body's K6 arithmetic with a key-padding bias (the bias
+    folded into the log2-domain FFMA, the max on the biased score, p
+    rounded to bf16 against the running max of each 128-key tile, the
+    streaming route's pad keys: 2000 keys pad to 3072, n_pad 1072) against
+    `_flash_kernel` in interpret mode (its 1536-key blocks) at (2, 512, 2,
+    72) → 2000 keys, bf16, with an fp32 bias of −1e9 past each row's
+    length: the least atol per std that passes beside 2^-7 relative stays
+    below half of chip_smoke.py's flash_bf16_tol share (0.025), and the
+    emulation passes that tolerance; in a row whose every key has a bias of
+    −1e9 both give Σv/3072, below it 0."""
+    monkeypatch.setattr(jax_attention, "_ROWBLOCK_MAX_KV_ELEMS", 0)
+    lengths, fill = K6_BIAS_BODY_CASES[case]
+    rng = np.random.default_rng(44)
+    q, k, v = (x.astype(jnp.bfloat16) for x in _qkv(rng, 2, 512, 2000, 2, 72))
+    bias = _key_padding_bias_np(lengths, 2000)
+    if fill is not None:
+        bias[0] = fill
+    assert port_attention.pad_keys("flash", 2000) == 1072
+    want = torch.from_numpy(np.asarray(jax_attention._flash_attention(
+        *(jnp.asarray(x) for x in (q, k, v, bias)), interpret=True), np.float32))
+    as_t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)  # noqa: E731
+    got = _hopper_exact_body(*(as_t(x) for x in (q, k, v)), torch.from_numpy(bias),
+                             n_pad=1072).float()
+    least = _least_atol_per_std(got, want, 2.0 ** -7)
+    assert least <= 0.0125, least
+    atol, rtol = _chip_smoke_module().flash_bf16_tol(want)
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+    if fill == -1e9:
+        mean_v = as_t(v).float()[:1].sum(1, keepdim=True) / 3072
+        for side in (got, want):
+            torch.testing.assert_close(side[:1], mean_v.expand_as(got[:1]), atol=2**-7,
+                                       rtol=2**-7)
+    elif fill == -2e9:
+        assert float(got[:1].abs().max()) == 0.0 == float(want[:1].abs().max())
 
 
 # ---------------------------------------------------------------------------
