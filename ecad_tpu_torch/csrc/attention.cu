@@ -1,6 +1,5 @@
 // Fused attention forward for Hopper (sm_90a), in two softmax variants
-// that share one tensor-core body, under four kernel names (and one of
-// the harness's variants of the same body, at the end of this note):
+// that share one tensor-core body, under four kernel names:
 //
 //   * exact (max-subtract): softmax(q·kᵀ/√d + bias)·v. Replaces the Pallas
 //     kernels `_attn_kernel` (ecad_tpu/ops/attention.py:58, no bias) and
@@ -51,8 +50,8 @@
 //     the weights are then 1/Tk_pad, as the reference's. The bf16 calls
 //     at D=72 and 128 run on the Hopper body of attention_sm90.cu instead —
 //     K1, K4 and K6 (and K5 at 128), each also with a key-padding bias (K2
-//     for K1). Here remain dense biases, fp32, the other head dims, and the
-//     harness's X1.
+//     for K1), and so does the attention-variant harness (X1-X4). Here
+//     remain dense biases, fp32 and the other head dims.
 //
 // What bounds it on the H100. Exact path, at PixArt-256's shapes
 // (self-attention 256×256 and cross-attention 256→120, D=72, bf16): a
@@ -104,27 +103,6 @@
 // q, k, v and o are read and written in the (B, T, H, D) layout through
 // their strides; only the head dimension must be contiguous (16-byte
 // aligned rows take the cp.async path, others element-wise loads).
-//
-// The attention-variant harness (X1–X4). `scripts/exp_attn_variants.py`
-// times the TPU's attention body with parts of its work taken out, through
-// eight Pallas bodies launched by `_call` (:77), `_call_transposed` (:261)
-// and `_call_transposed_v2` (:442). The same body here, with the softmax
-// mode a template argument, computes one of their functions (bf16, no
-// bias); the others run on attention_sm90.cu:
-//   * `attn_xmatmul_bf16_kernel` (X1) replaces `k_matmul_only` (:103):
-//     o = bf16(q·kᵀ)·v with unscaled scores, no exp, no sum, no divide.
-// `k_transposed` (:190) and `k_transposed_subk` (:317) compute K4's
-// no-bias function and run on the Hopper body, as do `k_nomax` (:115, X2),
-// `k_rowblock` (:129) / `k_chunk2` (:144, X3) and `k_transposed_fd` (:288)
-// / `k_transposed_subk_fd` (:349, X4): attention_sm90.cu's
-// `attn_xnomax_sm90_kernel`, `attn_xmax_sm90_kernel` and
-// `attn_xfd_sm90_kernel`. X1 is built at DP = 80 and 128 (D = 72 and 128,
-// the harness's head dims). At the harness's shapes, counting 4·B·H·T²·D
-// flops on the q, k, v, o bytes, the tensor cores bound it: (2, 4608, 24,
-// 128) 5.22e11 flops on 226 MB, 0.528 ms; (8, 4096, 16, 72) 6.19e11 on 302
-// MB, 0.625 ms; (64, 1024, 16, 72) 3.09e11 on 604 MB, 0.313 ms (its bytes
-// alone take 0.180 ms). Its design is the shared body's; what it leaves
-// out is the measurement.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -275,7 +253,6 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float f) {
 enum Mode : int {
   kExact = 0,  // K1, K6: ×scale on the fp32 score, online max
   kClamp = 1,  // K4, K5: q pre-scaled, exp2(clip(s, −100, 80))
-  kNone = 2,   // X1: p = s unscaled; no sum, no divide
 };
 
 template <int DP, bool HAS_BIAS, int MODE>
@@ -395,16 +372,6 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
           l_run[r] += pe;
         }
       }
-    } else if constexpr (MODE == kNone) {
-      // X1: p = s. Keys past Tk weigh 0
-#pragma unroll
-      for (int j = 0; j < kSTiles; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + j * 8 + tg * 2 + (e & 1);
-          if (col >= p.Tk) s[j][e] = 0.f;
-        }
-      }
     } else {
       // scale, bias, ragged key edge (log2 domain); running max
       float mx[2] = {m_run[0], m_run[1]};
@@ -479,20 +446,18 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
   }
 
   float f[2] = {1.f, 1.f};  // the exact mode's rescale for its pad keys
-  if constexpr (MODE != kNone) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-      if constexpr (MODE == kClamp) {
-        l_run[r] += (float)p.n_pad * kTwoPowMinus100;
-      } else if (MODE == kExact && p.n_pad > 0) {
-        // n_pad keys of score −1e9 (log2 domain): f = 1 and the added term
-        // 0 unless every score of the row is near −1e9 or below it
-        const float mp = fmaxf(m_run[r], kPadScore * kLog2e);
-        f[r] = exp2f(m_run[r] - mp);
-        l_run[r] = l_run[r] * f[r] + (float)p.n_pad * exp2f(kPadScore * kLog2e - mp);
-      }
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    if constexpr (MODE == kClamp) {
+      l_run[r] += (float)p.n_pad * kTwoPowMinus100;
+    } else if (p.n_pad > 0) {
+      // n_pad keys of score −1e9 (log2 domain): f = 1 and the added term
+      // 0 unless every score of the row is near −1e9 or below it
+      const float mp = fmaxf(m_run[r], kPadScore * kLog2e);
+      f[r] = exp2f(m_run[r] - mp);
+      l_run[r] = l_run[r] * f[r] + (float)p.n_pad * exp2f(kPadScore * kLog2e - mp);
     }
   }
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
@@ -504,7 +469,7 @@ __device__ __forceinline__ void attn_bf16_body(const Params& p) {
       const int col = n * 8 + tg * 2 + (e & 1);
       if (rows[r] < p.Tq && col < p.D)
         ob[(long long)rows[r] * p.o_st + col] =
-            __float2bfloat16(MODE == kNone ? acc[n][e] : acc[n][e] * f[r] / l_run[r]);
+            __float2bfloat16(acc[n][e] * f[r] / l_run[r]);
     }
   }
 }
@@ -527,12 +492,6 @@ __global__ void __launch_bounds__(kThreads) attn_rowblock_bf16_kernel(const Para
 template <int DP, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads) attn_flash_bf16_kernel(const Params p) {
   attn_bf16_body<DP, HAS_BIAS, kExact>(p);
-}
-
-// The harness's variant X1, without a bias, under its own name.
-template <int DP>
-__global__ void __launch_bounds__(kThreads) attn_xmatmul_bf16_kernel(const Params p) {
-  attn_bf16_body<DP, false, kNone>(p);
 }
 
 // ---------------------------------------------------------------------------
@@ -682,22 +641,6 @@ cudaError_t launch_bf16(const Params& p, dim3 grid, bool has_bias, int variant,
   return cudaSuccess;
 }
 
-// The harness's variant 4 (X1), bf16 without a bias, at DP = 80 and 128.
-template <int DP>
-cudaError_t launch_x(const Params& p, dim3 grid, cudaStream_t stream) {
-  constexpr int kSmem = bf16_smem_bytes<DP>();
-  void (*const kernel)(const Params) = attn_xmatmul_bf16_kernel<DP>;
-  static bool opted_in = false;
-  if (kSmem > 48 * 1024 && !opted_in) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err != cudaSuccess) return err;
-    opted_in = true;
-  }
-  kernel<<<grid, kThreads, kSmem, stream>>>(p);
-  return cudaSuccess;
-}
-
 }  // namespace
 
 // dtype: 0 = bfloat16, 1 = float32. strides: 16 int64 — q, k, v, o as
@@ -705,10 +648,9 @@ cudaError_t launch_x(const Params& p, dim3 grid, cudaStream_t stream) {
 // variant: 0 = exact softmax; 1 = clamp softmax on the transposed route
 // (K4), 2 = the same on the row-block route (K5); 3 = the exact softmax on
 // the streaming route (K6). fp32 inputs take the SIMT kernel in the exact
-// (0, 3) or the clamp (1, 2) variant. The harness's variant, bf16 only and
-// without a bias: 4 = matmul only (X1, no scale); X2-X4 run on
-// attention_sm90.cu. n_pad: the reference's pad keys on the route (see the
-// note; X1 ignores it). scale = 1/√D, which the exact variants multiply
+// (0, 3) or the clamp (1, 2) variant; the attention-variant harness (X1-X4)
+// runs on attention_sm90.cu. n_pad: the reference's pad keys on the route
+// (see the note). scale = 1/√D, which the exact variants multiply
 // into the fp32 scores; q_scale = scale·log2e rounded to q's dtype, which
 // the others multiply into q. Returns the cudaError_t of the launch (0 on
 // success).
@@ -717,7 +659,7 @@ extern "C" int ecad_attention_fwd(int dtype, const void* q, const void* k, const
                                   int Tk, int D, float scale, float q_scale, int vec_ok,
                                   int variant, int n_pad, void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 1 || D > kMaxD || (long long)B * H > 65535 ||
-      variant < 0 || variant > 4 || n_pad < 0)
+      variant < 0 || variant > 3 || n_pad < 0)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -741,16 +683,7 @@ extern "C" int ecad_attention_fwd(int dtype, const void* q, const void* k, const
   const bool cl = variant == 1 || variant == 2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
-  if (variant == 4) {
-    if (dtype != 0 || has_bias) return (int)cudaErrorInvalidValue;
-    const dim3 grid((Tq + kBlockQ - 1) / kBlockQ, B * H);
-    const int dp = (D + 15) / 16 * 16;
-    cudaError_t err;
-    if (dp == 80) err = launch_x<80>(p, grid, st);
-    else if (dp == 128) err = launch_x<128>(p, grid, st);
-    else err = cudaErrorInvalidValue;
-    if (err != cudaSuccess) return (int)err;
-  } else if (dtype == 0) {
+  if (dtype == 0) {
     const dim3 grid((Tq + kBlockQ - 1) / kBlockQ, B * H);
     cudaError_t err;
     switch ((D + 15) / 16) {

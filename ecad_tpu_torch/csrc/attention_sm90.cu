@@ -1,8 +1,8 @@
 // Attention forward for Hopper (sm_90a): wgmma fed by TMA through
 // mbarriers, with a producer warpgroup and two consumer warpgroups. bf16 q,
 // k, v of shape (B, T, H, D), D = 72 or 128 (a template argument), in any
-// 16-byte-aligned strides, in five softmax modes (a template argument, as in
-// attention.cu) under seven kernel names, one per route and one per mode of
+// 16-byte-aligned strides, in six softmax modes (a template argument, as in
+// attention.cu) under eight kernel names, one per route and one per mode of
 // the attention-variant harness; every exact and clamp kernel also takes a
 // key-padding bias (a template flag in the name, so that a profile files
 // the two forms apart):
@@ -75,6 +75,14 @@
 //     scripts/exp_attn_variants.py, which takes the body apart), bf16
 //     without a bias, at D=72 and 128 (the only head dims the port takes
 //     them at):
+//     - the products alone (`kMatmulOnly`): `attn_xmatmul_sm90_kernel<D>`
+//       (X1) replaces `k_matmul_only` (scripts/exp_attn_variants.py:103,
+//       launched by `_call` :77): s = q·kᵀ in fp32 with q unscaled and no
+//       1/√D, s rounded to bf16 (to nearest even, the pack of p) and times
+//       v in fp32, with no max, exp, sum or divide: the output is
+//       unnormalised (≈ 10³ at D=128) and cast once. The harness's floor
+//       of this body: X2 − X1 is the exp2s and Σp, X1 against its bound
+//       the products and their feeding;
 //     - no max (`kNoMax`): `attn_xnomax_sm90_kernel<D>` (X2) replaces
 //       `k_nomax` (scripts/exp_attn_variants.py:115, launched by `_call`
 //       :77): the clamp mode without its clip, p = exp2(s) with no max and
@@ -101,22 +109,25 @@
 //       pad keys — and X4, alone of the harness's bodies, takes any Tk.
 //       D=72 only (the harness runs it at no other head dim).
 //     X2, X3 and X4 take q × bf16(scale·log2e) rounded to bf16 before the
-//     product, as `_prep` does (:67-68); X2 and X3 keep Σp in fp32 over the
+//     product, as `_prep` does (:67-68; X1's `prescale=False` leaves it,
+//     so X1 has no helper warps); X2 and X3 keep Σp in fp32 over the
 //     unrounded p. The reference zero-pads the keys to a multiple of 128
-//     and counts them in X2 and X3 (s = 0), so the C entry refuses Tk % 128
-//     ≠ 0 in their modes: no pad keys, no masked tile. X2 and X3 run three
-//     consumer warpgroups at D=72 (X4 two: see below), as
+//     and counts them in X1, X2 and X3 (s = 0), so the C entry refuses Tk %
+//     128 ≠ 0 in their modes: no pad keys, no masked tile. X1, X2 and X3
+//     run three consumer warpgroups at D=72 (X4 two: see below), as
 //     K6-D72 does (`kFlashConsumers`; below: a D=72 tile's p·v is short,
 //     so a third independent chain feeds the tensor cores), and two at
 //     D=128, where three fit neither the registers nor the shared memory.
 //     On the card (scripts/probe_attention_body.py, NVIDIA H100 80GB HBM3,
 //     700 W), two consumers made X3 16–20 % slower at (8, 4096, 16, 72) and 2–4 % at
 //     (64, 1024, 16, 72), whose last 192-row item of each (batch, head)
-//     holds 64 rows, and X2 10–21 % and 1–2 %; X3 with its max taken out
-//     (`xmax_no_max`) took 15–18 % less than X3: the max, its shuffles and
-//     the rescale. At D=72 X2 and X3 take 1.7–2.7 times their bound (K4
-//     and K6-D72 about twice theirs); at D=128 X2 reaches 78 % of it and
-//     X3 64 %, near K5 and K6-D128 (chip_smoke.py's kernel rows).
+//     holds 64 rows, X2 10–21 % and 1–2 %, and X1 16–21 % and 8–10 %; X3
+//     with its max taken out (`xmax_no_max`) took 15–18 % less than X3:
+//     the max, its shuffles and the rescale. At D=72 X2 and X3 take
+//     1.7–2.7 times their bound (K4 and K6-D72 about twice theirs) and X1,
+//     the products alone, 1.6–2.1 times; at D=128 X1 reaches 77–80 % of
+//     it, X2 78 % and X3 64 %, near K5 and K6-D128 (chip_smoke.py's kernel
+//     rows).
 //
 // What bounds it on the H100. K5 at FLUX-1024 (1, 4608, 24, 128): 4·B·H·
 // Tq·Tk·D = 2.61e11 flops on the 113 MB of q, k, v and o, 2300 flops per
@@ -124,7 +135,7 @@
 // ms at 989 TFLOP/s. K6 at FLUX-1536 (1, 9728, 24, 128): 1.16e12 flops on
 // 239 MB, 1.18 ms. K6 at PixArt-2048 (2, 16384, 16, 72): 2.47e12 flops on
 // 302 MB, 2.50 ms. K4 at PixArt-1024 (4, 4096, 16, 72): 3.09e11 flops on
-// 151 MB, 0.313 ms. X2 and X3 at the harness's shapes: (2, 4608, 24, 128)
+// 151 MB, 0.313 ms. X1-X4 at the harness's shapes: (2, 4608, 24, 128)
 // 5.22e11 flops, 0.528 ms; (8, 4096, 16, 72) 6.18e11, 0.625 ms; (64, 1024,
 // 16, 72) 3.09e11, 0.313 ms. K4 with a bias, to 120 text keys: 1.4e10
 // flops on the 78 MB of q and o, 0.023 ms by bytes. K1 at FLUX-256 (4,
@@ -368,11 +379,16 @@ constexpr float kTwoPowMinus100 = 7.8886090522101181e-31f;  // 2^-100
 constexpr float kPadScoreLog2 = -1e9f * kLog2e;
 
 // The softmax modes: exact (K1, K2, K6), clamp (K4, K5), and the
-// attention-variant harness's no max (X2), max on a pre-scaled q (X3) and
-// clamp with the denominator from the tensor cores (X4).
-enum Mode : int { kExact = 0, kClamp = 1, kNoMax = 2, kMaxScaledQ = 3, kClampFD = 4 };
+// attention-variant harness's no max (X2), max on a pre-scaled q (X3),
+// clamp with the denominator from the tensor cores (X4) and no softmax at
+// all (X1).
+enum Mode : int {
+  kExact = 0, kClamp = 1, kNoMax = 2, kMaxScaledQ = 3, kClampFD = 4, kMatmulOnly = 5
+};
 // q is multiplied by bf16(scale·log2e) and rounded to bf16 (by the helpers)
-__host__ __device__ constexpr bool scaled_q(int mode) { return mode != kExact; }
+__host__ __device__ constexpr bool scaled_q(int mode) {
+  return mode != kExact && mode != kMatmulOnly;
+}
 // a running max of the scores, p against it, and the rescale of earlier tiles
 __host__ __device__ constexpr bool online_max(int mode) {
   return mode == kExact || mode == kMaxScaledQ;
@@ -720,13 +736,16 @@ __device__ __forceinline__ void read_bias(float (&b2)[32], const float* slot, in
 }
 
 // One key tile's softmax, masked only where the tile passes Tk (in the
-// exact mode with a bias, through the bias b2; X2 and X3 never pass it).
+// exact mode with a bias, through the bias b2; X1-X3 never pass it). X1
+// has none: its p is s itself.
 template <int MODE, bool BIAS>
 __device__ __forceinline__ void softmax_tile(float (&s)[64], const float (&b2)[BIAS ? 32 : 1],
                                              float (&m)[2], float (&l)[2], float (&alpha)[2],
                                              float qk_scale, int k0, int col_t, int Tk) {
   const bool edge = k0 + kBlockN > Tk;
-  if constexpr (!online_max(MODE)) {
+  if constexpr (MODE == kMatmulOnly) {
+    (void)edge;
+  } else if constexpr (!online_max(MODE)) {
     constexpr bool kClip = MODE != kNoMax, kSum = !ones_denominator(MODE);
     if (edge) softmax_nomax<true, BIAS, kClip, kSum>(s, b2, l, k0 + col_t, Tk);
     else softmax_nomax<false, BIAS, kClip, kSum>(s, b2, l, k0 + col_t, Tk);
@@ -1036,11 +1055,11 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
 
     // epilogue: the row sums over the quad (X4: its denominator from the
     // quad's first thread, which holds column 72), the reference's pad keys
-    // (none in X2-X4), one divide, one cast into the staging rows, one TMA
-    // store of them
+    // (none in X1-X4), one divide, one cast into the staging rows, one TMA
+    // store of them; X1 has no sum (its l stays 0) and no divide
     float f[2] = {1.f, 1.f};  // the exact mode's rescale for its pad keys
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
+    for (int r = 0; r < 2 && MODE != kMatmulOnly; ++r) {
       if constexpr (ones_denominator(MODE)) {
         l[r] = __shfl_sync(0xffffffffu, o[kAcc - 4 + 2 * r], lane & ~3);
       } else {
@@ -1065,7 +1084,8 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float inv = f[r] / l[r];  // one divide a row: o·(f/l) is within an fp32 ulp of o·f/l
+      // one divide a row: o·(f/l) is within an fp32 ulp of o·f/l
+      const float inv = MODE == kMatmulOnly ? 1.f : f[r] / l[r];
 #pragma unroll
       for (int jb = 0; jb < D / 8; ++jb)
         *reinterpret_cast<uint32_t*>(gbase + (out_tile - base) + out_at(row_c + 8 * r, jb)) =
@@ -1084,14 +1104,15 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
   if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
-// Seven kernel names, so that a profile tells K6, K5, K1, K4, X2, X3 and X4
-// apart, K1's, K4's, K5's and K6's with a BIAS flag (K2, and K4, K5 and K6
-// with a bias). The maps: q, k, v, (at D=72) their 8-column tails, and o.
+// Eight kernel names, so that a profile tells K6, K5, K1, K4, X1, X2, X3
+// and X4 apart, K1's, K4's, K5's and K6's with a BIAS flag (K2, and K4, K5
+// and K6 with a bias). The maps: q, k, v, (at D=72) their 8-column tails,
+// and o.
 struct Maps {
   CUtensorMap m[7];
 };
-// K6's, X2's and X3's consumer warpgroups: three at D=72 (see the note),
-// two at D=128; K6 with a bias takes two at D=72 too (see the note)
+// K6's, X1's, X2's and X3's consumer warpgroups: three at D=72 (see the
+// note), two at D=128; K6 with a bias takes two at D=72 too (see the note)
 template <int D>
 constexpr int kFlashConsumers = D == 72 ? 3 : 2;
 template <int D, bool BIAS>
@@ -1115,6 +1136,11 @@ template <int D, bool BIAS>
 __global__ void __launch_bounds__(384, 1)
     attn_clamp_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
   attn_sm90_body<D, kClamp, BIAS, 2>(maps.m, p);
+}
+template <int D>
+__global__ void __launch_bounds__(128 * (kFlashConsumers<D> + 1), 1)
+    attn_xmatmul_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
+  attn_sm90_body<D, kMatmulOnly, false, kFlashConsumers<D>>(maps.m, p);
 }
 template <int D>
 __global__ void __launch_bounds__(128 * (kFlashConsumers<D> + 1), 1)
@@ -1150,7 +1176,7 @@ Launch launch_of(Kernel kernel) {
 
 // The kernel of `mode` at head dim D, with or without a bias, or none where
 // it is not built: K5 at D=128 only, X4 (mode 6) at D=72 only, no bias in
-// X2-X4 (modes 4-6).
+// X1-X4 (modes 4-7).
 template <int D>
 Launch sm90_launch(int mode, bool bias) {
   switch (mode) {
@@ -1179,6 +1205,9 @@ Launch sm90_launch(int mode, bool bias) {
       if constexpr (D == 72)
         if (!bias) return launch_of<D, 2, kClampFD>(attn_xfd_sm90_kernel<D>);
       return Launch{};
+    case 7:
+      if (bias) return Launch{};
+      return launch_of<D, kFlashConsumers<D>, kMatmulOnly>(attn_xmatmul_sm90_kernel<D>);
     default:
       return Launch{};
   }
@@ -1221,12 +1250,14 @@ EncodeTiled encode_tiled() {
 // harness's exp2 softmax without a max (X2); 5: its exp2 softmax with the
 // max on a pre-scaled q (X3), both only at Tk % 128 == 0 (the reference
 // counts its zero pad keys elsewhere); 6: its clamp softmax with the
-// denominator from the p·v products (X4, D=72, any Tk). bias: null, or a
+// denominator from the p·v products (X4, D=72, any Tk); 7: its bf16(q·kᵀ)·v
+// with no softmax (X1, Tk % 128 == 0, as 4 and 5). bias: null, or a
 // key-padding bias (B|1, 1, 1, Tk) in modes 0-3, bf16 (bias_bf16 = 1) or
 // fp32, with element strides bias_strides (batch, key), 0 where it
 // broadcasts (`bias_operand`). scale = 1/√D, which the exact modes (0, 2) multiply
 // into the fp32 scores; q_scale = scale·log2e rounded to bf16, which the
-// helpers of the others multiply into q (`scaled_q`). Mode 2, and any
+// helpers of modes 1 and 3-6 multiply into q (`scaled_q`); mode 7 reads
+// neither. Mode 2, and any
 // mode at Tk ≤ 128, launches one block per SM, which walks the work
 // items; the others one block per item. Returns 0, a cudaError_t of the
 // launch, or 100000 + the CUresult of a refused tensor map.
@@ -1236,8 +1267,8 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
                                        const long long* bias_strides, int bias_bf16, int B,
                                        int H, int Tq, int Tk, float scale, float q_scale,
                                        int mode, void* stream) {
-  if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || mode < 0 || mode > 6 ||
-      ((mode == 4 || mode == 5) && Tk % kBlockN != 0))
+  if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || mode < 0 || mode > 7 ||
+      ((mode == 4 || mode == 5 || mode == 7) && Tk % kBlockN != 0))
     return (int)cudaErrorInvalidValue;
   const bool has_bias = bias != nullptr;
   const Launch launch = maps[0] == 128 ? sm90_launch<128>(mode, has_bias)
@@ -1300,14 +1331,14 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
   p.Tk = Tk;
   p.n_items = (int)n_items;
   // the reference's pad keys: to a multiple of 128, or of the streaming
-  // route's key block min(1536, round_up(Tk, 128)); none in X2 and X3,
-  // whose Tk is a multiple of 128, nor in X4, whose reference masks them
+  // route's key block min(1536, round_up(Tk, 128)); none in the harness's
+  // modes: X1-X3's Tk is a multiple of 128, X4's reference masks them
   const int tk128 = (Tk + 127) / 128 * 128;
   const int bk = mode == 0 ? (tk128 < 1536 ? tk128 : 1536) : 128;
-  p.n_pad = mode == 6 ? 0 : (Tk + bk - 1) / bk * bk - Tk;
+  p.n_pad = mode >= 4 ? 0 : (Tk + bk - 1) / bk * bk - Tk;
   p.scale = launch.q_prescaled ? q_scale : scale;
   // above 48 KB dynamic shared memory needs an opt-in (once per kernel)
-  static bool opted_in[2][7][2] = {};
+  static bool opted_in[2][8][2] = {};
   bool& opted = opted_in[maps[0] == 72][mode][has_bias];
   if (!opted) {
     const cudaError_t err = cudaFuncSetAttribute(

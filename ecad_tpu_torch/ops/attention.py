@@ -44,10 +44,10 @@ joint attention at 256²; the transposed clamp route (K4, with a bias too)
 PixArt-Σ's at 2048²; the streaming route (K6, with a bias too) —
 PixArt-Σ's 2048² self-attention, FLUX.1-dev's at 1536²; and at 128 the
 row-block route (K5, with a bias too) — FLUX.1-dev at 1024². The
-attention-variant harness's X2 and X3 take the same body in bf16 at 72 and
-128, and X4 at 72 (`attn_variants`). The mma.sync body of
+attention-variant harness's X1, X2 and X3 take the same body in bf16 at 72
+and 128, and X4 at 72 (`attn_variants`). The mma.sync body of
 ``csrc/attention.cu`` (a compile-time variant per route) takes the rest:
-fp32, other head dims, dense biases, and the harness's X1. The choice
+fp32, other head dims and dense biases. The choice
 depends on route, dtype, head dim and bias only. A call for the Hopper
 body whose operands TMA cannot map (`tma_operand`: a 16-byte-aligned base
 and strides), or whose bias the body does not read (`bias_operand`: bf16
@@ -68,9 +68,9 @@ to ``LAUNCHES``: ``attention`` / ``attention_bias`` (exact, without / with
 a bias), ``attention_long`` / ``attention_long_bias`` (clamp, transposed
 route), ``attention_rowblock`` / ``attention_rowblock_bias`` (clamp,
 row-block route) and ``attention_flash`` / ``attention_flash_bias``
-(exact, streaming route). The attention-variant harness's kernels (X1:
-variant 4 of csrc/attention.cu; X2, X3 and X4: modes 4, 5 and 6 of the
-Hopper body) are wrapped in `attn_variants` and count under ``xattn_*``.
+(exact, streaming route). The attention-variant harness's kernels (X2,
+X3, X4 and X1: modes 4, 5, 6 and 7 of the Hopper body) are wrapped in
+`attn_variants` and count under ``xattn_*``.
 """
 
 from __future__ import annotations
@@ -97,22 +97,19 @@ LAUNCHES = {
     "xattn_fd": 0,
 }
 # kernel variant of the C entry point → counter name (without "_bias")
-_VARIANTS = {
-    0: "attention", 1: "attention_long", 2: "attention_rowblock", 3: "attention_flash",
-    4: "xattn_matmul_only",
-}
+_VARIANTS = {0: "attention", 1: "attention_long", 2: "attention_rowblock", 3: "attention_flash"}
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 MAX_HEAD_DIM = 128
 _FN = None
 _SM90_FN = None
 # the Hopper body's kernels (csrc/attention_sm90.cu), by counter name: the
-# C entry's mode and the head dims it is built for; the last three are the
-# attention-variant harness's X2, X3 and X4 (`attn_variants`)
+# C entry's mode and the head dims it is built for; the last four are the
+# attention-variant harness's X2, X3, X4 and X1 (`attn_variants`)
 _SM90_MODES = {"attention_flash": (0, (72, 128)), "attention_rowblock": (1, (128,)),
                "attention": (2, (72, 128)), "attention_long": (3, (72, 128)),
                "xattn_nomax": (4, (72, 128)), "xattn_max": (5, (72, 128)),
-               "xattn_fd": (6, (72,))}
+               "xattn_fd": (6, (72,)), "xattn_matmul_only": (7, (72, 128))}
 # the routes whose Hopper kernel also takes a key-padding bias: K2, K4, K5, K6
 _SM90_BIAS = ("attention", "attention_long", "attention_rowblock", "attention_flash")
 # the bias dtypes the Hopper body reads, with the C entry's code for each
@@ -150,8 +147,7 @@ def _kernel():
             ctypes.c_float,  # scale: 1/√D (the exact variants)
             ctypes.c_float,  # q_scale: bf16(scale·log2e) in q's dtype (the others)
             ctypes.c_int,  # vec_ok
-            ctypes.c_int,  # variant: 0 exact, 1 clamp (K4), 2 row-block (K5), 3 flash (K6),
-            # 4 the harness's X1
+            ctypes.c_int,  # variant: 0 exact, 1 clamp (K4), 2 row-block (K5), 3 flash (K6)
             ctypes.c_int,  # n_pad: the route's pad keys (`pad_keys`)
             ctypes.c_void_p,  # stream
         ]
@@ -180,7 +176,8 @@ def _sm90_kernel():
             ctypes.c_int,  # mode: 0 exact streaming (K6), 1 clamp row-block (K5),
             # 2 exact single-tile (K1; K2 with a bias), 3 clamp transposed (K4),
             # 4 the harness's no max (X2), 5 its max on a pre-scaled q (X3),
-            # 6 its clamp with the denominator from the p·v products (X4)
+            # 6 its clamp with the denominator from the p·v products (X4),
+            # 7 its bf16(q·kᵀ)·v with no softmax (X1)
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -402,8 +399,7 @@ def _launch(
     """One launch of the CUDA kernel on q's device: `variant` 0 is the
     exact softmax, 1 the clamp softmax of the transposed route (K4), 2 that
     of the row-block route (K5), 3 the exact softmax of the streaming route
-    (K6), 4 the attention-variant harness's X1 (`attn_variants`), with the
-    route's `n_pad` pad keys (`pad_keys`). Counts it."""
+    (K6), with the route's `n_pad` pad keys (`pad_keys`). Counts it."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -518,7 +514,9 @@ def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
     `bias`; ``xattn_nomax`` and ``xattn_max``: the attention-variant
     harness's exp2 softmax without and with the max on a pre-scaled q, X2
     and X3, no bias, Tk % 128 == 0; ``xattn_fd``: its clamp softmax with
-    the denominator from the p·v products, X4, D=72, no bias, any Tk).
+    the denominator from the p·v products, X4, D=72, no bias, any Tk;
+    ``xattn_matmul_only``: its bf16(q·kᵀ)·v with no softmax, X1, no bias,
+    Tk % 128 == 0).
     Raises where TMA cannot map an operand (`tma_operand`) or the body does
     not read the bias (`bias_operand`). Counts it under `name`, or
     ``name_bias``."""

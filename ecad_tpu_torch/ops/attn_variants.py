@@ -3,14 +3,13 @@
 The JAX package's research harness ``scripts/exp_attn_variants.py`` times
 the TPU's attention body at its headline shapes with parts of the work
 taken out, through eight Pallas bodies. Each function has a counterpart
-here. X2, X3 and X4 run on the Hopper body, ``csrc/attention_sm90.cu``
-(modes 4, 5 and 6 of its C entry, wgmma fed by TMA, keys in 128-key
-tiles), so that they take apart the body that serves K1-K6; X1 on the
-``mma.sync`` body of ``csrc/attention.cu`` (variant 4 of its C entry,
-64-key tiles). Each source says what bounds each kernel.
+here, and all four run on the Hopper body, ``csrc/attention_sm90.cu``
+(modes 7, 4, 5 and 6 of its C entry, wgmma fed by TMA, keys in 128-key
+tiles), so that they take apart the body that serves K1-K6. The source
+says what bounds each kernel.
 
 * ``k_matmul_only`` (:103) — o = bf16(q·kᵀ)·v with unscaled scores, no
-  softmax: `matmul_only_attention` (X1, ``attn_xmatmul_bf16_kernel``);
+  softmax: `matmul_only_attention` (X1, ``attn_xmatmul_sm90_kernel<D>``);
 * ``k_nomax`` (:115) — q pre-scaled by bf16(log2e/√D), p = exp2(s) with no
   max and no clamp, Σp in fp32: `nomax_attention` (X2,
   ``attn_xnomax_sm90_kernel<D>``);
@@ -26,9 +25,10 @@ tiles), so that they take apart the body that serves K1-K6; X1 on the
 All take (B, T, H, D) tensors and no bias. In every one, s = q·kᵀ is
 accumulated in fp32, p is rounded to v's dtype for p·v, and the output is
 cast once. On a CPU tensor each wrapper runs its plain version; on a CUDA
-tensor it launches its kernel (bf16 only, at the head dims the kernels are
-built for) or raises, and counts the launch in ``attention.LAUNCHES``
-(``xattn_matmul_only``, ``xattn_nomax``, ``xattn_max``, ``xattn_fd``).
+tensor it launches its kernel (bf16 only, at the head dims the Hopper body
+is built for: 72 and 128, X4 72) or raises, and counts the launch in
+``attention.LAUNCHES`` (``xattn_matmul_only``, ``xattn_nomax``,
+``xattn_max``, ``xattn_fd``).
 
 Key counts. The Pallas wrappers ``_prep`` and ``_call_transposed*`` pad the
 keys with zeros to a multiple of 128 and mask them only in the ``*_fd``
@@ -43,12 +43,7 @@ from __future__ import annotations
 import torch
 
 from . import attention as _attention
-from .attention import _CLAMP_HI, _CLAMP_LO, _round_up, clamp_scale
-
-# X1 on csrc/attention.cu: the C entry's variant and the padded head dims
-# (DP) it is built at, those of D = 72 and 128 (the harness's). X2-X4 run
-# on the Hopper body, at the head dims `attention._SM90_MODES` gives.
-_X1_VARIANT, _X1_PADDED_DIMS = 4, (80, 128)
+from .attention import _CLAMP_HI, _CLAMP_LO, clamp_scale
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, scaled: bool) -> torch.Tensor:
@@ -124,15 +119,10 @@ def _run(q, k, v, counter: str, plain, aligned: bool) -> torch.Tensor:
         return plain(q, k, v)
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the harness's kernels take bfloat16; got {q.dtype}")
-    if counter in _attention._SM90_MODES:
-        if not _attention._takes_sm90(counter, q, None):
-            raise ValueError(f"head dim {d}: {counter} runs on the Hopper body, built for "
-                             f"head dims {_attention._SM90_MODES[counter][1]}")
-        return _attention._launch_sm90(q, k, v, counter)
-    if _round_up(d, 16) not in _X1_PADDED_DIMS:
-        raise ValueError(f"head dim {d}: kernel variant {_X1_VARIANT} is built for padded "
-                         f"head dims {_X1_PADDED_DIMS}")
-    return _attention._launch(q, k, v, None, _X1_VARIANT, 0)
+    if not _attention._takes_sm90(counter, q, None):
+        raise ValueError(f"head dim {d}: {counter} runs on the Hopper body, built for "
+                         f"head dims {_attention._SM90_MODES[counter][1]}")
+    return _attention._launch_sm90(q, k, v, counter)
 
 
 def matmul_only_attention(q, k, v) -> torch.Tensor:

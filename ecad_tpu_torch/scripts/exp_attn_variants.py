@@ -8,7 +8,7 @@ the attention body with parts of its work taken out, and prints one JSON
 line per (shape, variant) as the reference does:
 
 * ``matmul_only`` — bf16(q·kᵀ)·v with no softmax: the floor of the
-  tensor-core body (X1, `matmul_only_attention`);
+  tensor-core body that serves K1-K6 (X1, `matmul_only_attention`);
 * ``nomax`` — the exp2 softmax without the max (X2, `nomax_attention`);
 * ``rowblock`` and ``chunk2`` — the exp2 softmax with the max (X3,
   `max_exp2_attention`; on the TPU ``chunk2`` splits the keys in two for
@@ -28,12 +28,13 @@ not normalised), the bound (4·B·H·T²·D flops on the q, k, v and o bytes,
 many times the row called it.
 
 Left out on purpose: the reference's positional query-tile sizes (``bq``)
-and ``--chunks=`` set TPU tile shapes. The kernels here fix their own: on
-the Hopper body (X2, X3, X4 and the ``transposed`` rows' K4 at the
-harness's head dims) each consumer warpgroup takes 64 query rows and the
-keys stream in 128-key tiles; on the ``mma.sync`` body (X1) a block takes
-64 query rows and 64-key tiles. So neither knob exists here, and the metric names
-drop the reference's ``_bq…``.
+and ``--chunks=`` set TPU tile shapes. The kernels here fix their own:
+every row runs on the Hopper body (``csrc/attention_sm90.cu``: X1-X4 and
+the ``transposed`` rows' K4 at the harness's head dims), where each
+consumer warpgroup takes 64 query rows (three warpgroups a block for X1,
+X2 and X3 at D=72, two elsewhere) and the keys stream in 128-key tiles.
+So neither knob exists here, and the metric names drop the reference's
+``_bq…``.
 
 Every row needs Tk % 128 == 0: the reference's ``_prep`` and
 ``_call_transposed`` count their zero pad keys (see `attn_variants`), so

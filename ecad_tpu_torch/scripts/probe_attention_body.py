@@ -43,12 +43,15 @@ Rows, bf16 at the shape the main path gives each kernel:
   ``xnomax_two_consumers``, and X4 (the clamp with the denominator from the
   p·v product) at both shapes with ``xfd_three_consumers`` (and their
   spills) and ``xfd_n8`` (the ones column as a second m64n8k16 product
-  beside the tail's, instead of one m64n16k16 over both).
+  beside the tail's, instead of one m64n16k16 over both);
+* the harness's X1 (the products alone, no softmax) at both shapes, with
+  ``xmatmul_two_consumers`` (K6's ``two_consumers`` edit, as for X2 and
+  X3).
 
 A variant that only reschedules the same arithmetic (``two_consumers``,
 ``k6_bias_three_consumers``, ``one_block_per_item``, ``items_in_runs``,
 ``bias_after_q``, ``xmax_two_consumers``, ``xnomax_two_consumers``,
-``xfd_three_consumers``) must give the source's output bit for bit; the
+``xfd_three_consumers``, ``xmatmul_two_consumers``) must give the source's output bit for bit; the
 others compute something else, or the same in another instruction, and
 are timed only. Each row also carries the spill bytes ``ptxas -v``
 reports for each build's kernel of that row. Each variant's time is the
@@ -128,7 +131,8 @@ K4_BIAS_VARIANTS = {
                   "    if (t < 0) {\n      // rows past Tq are outside the map")],
 }
 K5_BIAS_VARIANTS = {"no_bias_loads": K2_VARIANTS["no_bias_loads"]}
-# X2 and X3 share K6's consumer count, so K6's edit takes each to two
+# X1, X2 and X3 share K6's consumer count, so K6's edit takes each to two
+X1_VARIANTS = {"xmatmul_two_consumers": K6_VARIANTS["two_consumers"]}
 X3_VARIANTS = {
     "xmax_two_consumers": K6_VARIANTS["two_consumers"],
     "xmax_no_max": [("  return mode == kExact || mode == kMaxScaledQ;",
@@ -178,10 +182,14 @@ ROWS = {
                                 5, 5),
     "x4_pixart1024": ((8, 4096, 16, 72), 4096, None, "xattn_fd", X4_VARIANTS, 5, 5),
     "x4_pixart512_class_self": ((64, 1024, 16, 72), 1024, None, "xattn_fd", X4_VARIANTS, 5, 5),
+    "x1_pixart1024": ((8, 4096, 16, 72), 4096, None, "xattn_matmul_only", X1_VARIANTS, 5, 5),
+    "x1_pixart512_class_self": ((64, 1024, 16, 72), 1024, None, "xattn_matmul_only",
+                                X1_VARIANTS, 5, 5),
 }
 # the same arithmetic, rescheduled
 EXACT = ("two_consumers", "k6_bias_three_consumers", "one_block_per_item", "items_in_runs",
-         "bias_after_q", "xmax_two_consumers", "xnomax_two_consumers", "xfd_three_consumers")
+         "bias_after_q", "xmax_two_consumers", "xnomax_two_consumers", "xfd_three_consumers",
+         "xmatmul_two_consumers")
 # the device kernel of each counter (its name, and whether it carries the
 # BIAS flag in its template arguments)
 KERNELS = {"attention_flash": ("attn_flash_sm90_kernel", True),
@@ -190,7 +198,8 @@ KERNELS = {"attention_flash": ("attn_flash_sm90_kernel", True),
            "attention_rowblock": ("attn_rowblock_sm90_kernel", True),
            "xattn_nomax": ("attn_xnomax_sm90_kernel", False),
            "xattn_max": ("attn_xmax_sm90_kernel", False),
-           "xattn_fd": ("attn_xfd_sm90_kernel", False)}
+           "xattn_fd": ("attn_xfd_sm90_kernel", False),
+           "xattn_matmul_only": ("attn_xmatmul_sm90_kernel", False)}
 
 
 def kernel_symbol(counter: str, d: int, bias: bool) -> str:

@@ -202,30 +202,33 @@ def test_port_harness_main_on_cpu(monkeypatch, capsys):
 
 
 # ---------------------------------------------------------------------------
-# X2, X3 and X4 on the Hopper body (csrc/attention_sm90.cu): its arithmetic,
+# X1-X4 on the Hopper body (csrc/attention_sm90.cu): its arithmetic,
 # emulated, and the routing
 # ---------------------------------------------------------------------------
 
 
 def _chip_smoke_xattn():
     """chip_smoke.py's XATTN table, loaded from its file, for the tolerances
-    its checks hold X2-X4 to on the card."""
+    its checks hold X1-X4 to on the card."""
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.XATTN
 
 
-def _hopper_x_body(q, k, v, with_max):
-    """csrc/attention_sm90.cu's X3 (`with_max`) and X2 modes in their own
-    order, on bf16 (B, T, H, D) q, k, v: q × bf16(log2e/√D), rounded to
-    bf16; per 128-key tile s = q·kᵀ in fp32; X3: the running max m of the
-    pre-scaled scores, p = exp2(s − m), and Σp and o of the earlier tiles
-    rescaled by exp2(m_old − m); X2: p = exp2(s), no max, no rescale; Σp in
-    fp32 over the unrounded p, p rounded to bf16 for p·v against the max of
-    its tile, no pad keys (Tk % 128 == 0); one factor 1/Σp, one cast."""
-    scale = torch.tensor(clamp_scale(q.shape[-1], q.dtype), dtype=q.dtype)
-    qf = (q * scale).float().permute(0, 2, 1, 3)
+def _hopper_x_body(q, k, v, mode):
+    """csrc/attention_sm90.cu's X3 (`mode` "max"), X2 ("nomax") and X1
+    ("matmul") modes in their own order, on bf16 (B, T, H, D) q, k, v: q ×
+    bf16(log2e/√D), rounded to bf16 (X1: q as it is); per 128-key tile s =
+    q·kᵀ in fp32; X3: the running max m of the pre-scaled scores, p =
+    exp2(s − m), and Σp and o of the earlier tiles rescaled by exp2(m_old −
+    m); X2: p = exp2(s), no max, no rescale; X1: p = s, no sum; Σp in fp32
+    over the unrounded p, p rounded to bf16 for p·v against the max of its
+    tile, summed in fp32 over the tiles, no pad keys (Tk % 128 == 0); one
+    factor 1/Σp (X1: none), one cast."""
+    if mode != "matmul":
+        q = q * torch.tensor(clamp_scale(q.shape[-1], q.dtype), dtype=q.dtype)
+    qf = q.float().permute(0, 2, 1, 3)
     kf, vf = (t.float().permute(0, 2, 1, 3) for t in (k, v))
     m = torch.full((*qf.shape[:3], 1), -torch.inf)
     l = torch.zeros((*qf.shape[:3], 1))
@@ -233,13 +236,14 @@ def _hopper_x_body(q, k, v, with_max):
     for k0 in range(0, kf.shape[2], 128):
         s = qf @ kf[:, :, k0:k0 + 128].transpose(-1, -2)
         alpha = 1.0
-        if with_max:
+        if mode == "max":
             mx = torch.maximum(m, s.amax(-1, keepdim=True))
             alpha, s, m = torch.exp2(m - mx), s - mx, mx
-        p = torch.exp2(s)
+        p = s if mode == "matmul" else torch.exp2(s)
         l = l * alpha + p.sum(-1, keepdim=True)
         o = o * alpha + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + 128]
-    return (o * (1.0 / l)).to(torch.bfloat16).permute(0, 2, 1, 3)
+    out = o if mode == "matmul" else o * (1.0 / l)
+    return out.to(torch.bfloat16).permute(0, 2, 1, 3)
 
 
 def _least_atol_per_std(got, want, rtol=2.0 ** -7):
@@ -249,10 +253,10 @@ def _least_atol_per_std(got, want, rtol=2.0 ** -7):
     return float(max(err.max(), 0.0)) / float(np.std(want))
 
 
-# Pallas body → (the Hopper mode's emulation keeps a max, its chip_smoke.py
+# Pallas body → (the Hopper mode its emulation runs, its chip_smoke.py
 # counter)
-HOPPER_X = {"rowblock": (True, "xattn_max"), "chunk2": (True, "xattn_max"),
-            "nomax": (False, "xattn_nomax")}
+HOPPER_X = {"rowblock": ("max", "xattn_max"), "chunk2": ("max", "xattn_max"),
+            "nomax": ("nomax", "xattn_nomax")}
 
 
 @pytest.mark.parametrize("d", [72, 128])
@@ -265,17 +269,44 @@ def test_hopper_x_arithmetic_matches_pallas_body(interpret, name, d):
     2, D) → 256 keys, bf16: the least atol per std that passes beside 2^-7
     relative stays below half of the share chip_smoke.py's XATTN holds the
     kernel to on the card, and the emulation passes that tolerance."""
-    with_max, counter = HOPPER_X[name]
+    mode, counter = HOPPER_X[name]
     q, k, v = _qkv(5, 256, d)
     want = np.asarray(_body(interpret, name, *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))),
                       np.float32)
     got = _hopper_x_body(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
-                         with_max).float().numpy()
+                         mode).float().numpy()
     atol, rtol = _chip_smoke_xattn()[counter][2](torch.from_numpy(want))
     share = atol / float(np.std(want))
     assert rtol == 2.0 ** -7
     assert _least_atol_per_std(got, want) <= share / 2, _least_atol_per_std(got, want)
     np.testing.assert_allclose(got, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("d", [72, 128])
+def test_hopper_x1_arithmetic_matches_k_matmul_only(interpret, d):
+    """The Hopper body's X1 arithmetic (q unscaled, s = q·kᵀ in fp32 per
+    128-key tile rounded to bf16, p·v summed in fp32 over the tiles, one
+    cast, no divide) against ``k_matmul_only`` in interpret mode at (1,
+    256, 2, D) → 256 keys, bf16, within the std_bf16_tol(0.0025) that
+    chip_smoke.py's XATTN holds the card's kernel to: 2^-7 relative (the
+    output's own rounding) plus 0.0025 of the output's std. The output is
+    unnormalised (std ≈ 130-180 here), and a bf16 rounding of one s that
+    flips between two fp32 sum orders over D moves it by that s's ulp
+    (0.0625 at |s| ≈ 11) times |v|: those flips are all of the error here
+    (0.0014 of the std at D=128), as they are between the card's products
+    and the plain version, so the share is not halved as for X2-X4, whose
+    p passes through exp2. The emulation's own order matches the plain
+    version's function exactly: the tile sums only reorder fp32 sums."""
+    q, k, v = _qkv(8, 256, d)
+    want = np.asarray(_body(interpret, "matmul_only",
+                            *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))), np.float32)
+    got = _hopper_x_body(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+                         "matmul").float().numpy()
+    atol, rtol = _chip_smoke_xattn()["xattn_matmul_only"][2](torch.from_numpy(want))
+    assert rtol == 2.0 ** -7
+    assert atol == pytest.approx(0.0025 * float(torch.from_numpy(want).std()), rel=1e-6)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=rtol)
+    assert np.isfinite(got).all()
 
 
 @pytest.mark.parametrize("d", [72, 128])
@@ -288,7 +319,7 @@ def test_hopper_x2_overflows_like_k_nomax(interpret, d):
     want = np.asarray(_body(interpret, "nomax", *(jnp.asarray(a, jnp.bfloat16)
                                                   for a in (q, k, v))), np.float32)
     got = _hopper_x_body(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
-                         False).float().numpy()
+                         "nomax").float().numpy()
     assert np.array_equal(np.isfinite(got), np.isfinite(want))
     assert 0 < np.isfinite(got).sum() < got.size
     fin = np.isfinite(want)
@@ -340,8 +371,7 @@ def test_hopper_x4_arithmetic_matches_pallas_body(interpret, name, tk):
 
 
 # (wrapper, dtype, head dim, keys) → the launch it takes: ("sm90", counter)
-# on the Hopper body, ("mma", variant) of csrc/attention.cu, or the
-# exception raised before either launcher
+# on the Hopper body, or the exception raised before any launcher
 HARNESS_ROUTES = {
     "nomax_bf16_d72": (nomax_attention, "bf16", 72, 256, ("sm90", "xattn_nomax")),
     "nomax_bf16_d128": (nomax_attention, "bf16", 128, 256, ("sm90", "xattn_nomax")),
@@ -354,7 +384,13 @@ HARNESS_ROUTES = {
     "max_fp32_d128": (max_exp2_attention, "fp32", 128, 256, TypeError),
     "nomax_tk200_d72": (nomax_attention, "bf16", 72, 200, ValueError),
     "max_tk200_d128": (max_exp2_attention, "bf16", 128, 200, ValueError),
-    "matmul_only_bf16_d72": (matmul_only_attention, "bf16", 72, 256, ("mma", 4)),
+    "matmul_only_bf16_d72": (matmul_only_attention, "bf16", 72, 256,
+                             ("sm90", "xattn_matmul_only")),
+    "matmul_only_bf16_d128": (matmul_only_attention, "bf16", 128, 256,
+                              ("sm90", "xattn_matmul_only")),
+    "matmul_only_bf16_d80": (matmul_only_attention, "bf16", 80, 256, ValueError),
+    "matmul_only_fp32_d72": (matmul_only_attention, "fp32", 72, 256, TypeError),
+    "matmul_only_tk200_d128": (matmul_only_attention, "bf16", 128, 200, ValueError),
     "fd_bf16_d72": (clamp_fd_attention, "bf16", 72, 256, ("sm90", "xattn_fd")),
     "fd_tk200_d72": (clamp_fd_attention, "bf16", 72, 200, ("sm90", "xattn_fd")),
     "fd_bf16_d80": (clamp_fd_attention, "bf16", 80, 256, ValueError),
@@ -365,12 +401,13 @@ HARNESS_ROUTES = {
 
 @pytest.mark.parametrize("case", sorted(HARNESS_ROUTES))
 def test_harness_kernel_routing(case, monkeypatch):
-    """X2 and X3 in bf16 at head dim 72 or 128, and X4 at 72 with any Tk,
-    launch the Hopper body (under ``xattn_nomax`` / ``xattn_max`` /
-    ``xattn_fd``), and X1 csrc/attention.cu's variant 4; X2-X4 at other
-    head dims (the Hopper body is built for 72 and 128 only, X4 for 72),
-    fp32 (no kernel takes it on the card) and, for X2 and X3, Tk = 200 (the
-    reference counts its pad keys) raise before either launcher.
+    """X1, X2 and X3 in bf16 at head dim 72 or 128, and X4 at 72 with any
+    Tk, launch the Hopper body (under ``xattn_matmul_only`` /
+    ``xattn_nomax`` / ``xattn_max`` / ``xattn_fd``); X1-X4 at other head
+    dims (the Hopper body is built for 72 and 128 only, X4 for 72), fp32
+    (no kernel takes it on the card) and, for X1, X2 and X3, Tk = 200 (the
+    reference counts its pad keys) raise before either launcher, the Hopper
+    body's or csrc/attention.cu's.
     Tensors on the meta device reach the launch decision without a card;
     the launchers are replaced by recorders."""
     fn, dtype, d, tk, want = HARNESS_ROUTES[case]
