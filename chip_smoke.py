@@ -7,8 +7,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 1. Require CUDA on a compute-capability-9.0 card; print the card's name and
    power limit as nvidia-smi gives them.
 2. Build the kernels from the checkout's sources: ``nvcc`` for
-   ``ecad_tpu_torch/csrc/*.cu`` (one process per source, started together),
-   Triton for the modulated LayerNorm.
+   ``ecad_tpu_torch/csrc/*.cu`` (one process per source, started together).
 3. Kernels (``kernels``): hold each kernel against its plain PyTorch
    version on the card, at the main paths' shapes in bf16, at the odd
    shapes of the reference's kernel tests, and in fp32 at a tight
@@ -60,11 +59,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    Σv/Tk. Time kernel (with the
    SM clock, power and temperature sampled before and after), plain
    version and (attention) one ``scaled_dot_product_attention`` call as a
-   yardstick the port never calls. K3 also at each width a served path
-   gives it: PixArt-1024's (4, 4096, 1152), PixArt-Σ-2048's (2, 16384,
-   1152) and FLUX.1-dev-1024's image, text and joint streams (1, 4096 /
-   512 / 4608, 3072), each with its byte bound and its launches per
-   trajectory (from the paths' runs below).
+   yardstick the port never calls. K3 (``csrc/modlnorm_sm90.cu``) also at
+   each width a served path gives it: PixArt-1024's (4, 4096, 1152),
+   PixArt-Σ-2048's (2, 16384, 1152) and FLUX.1-dev-1024's image, text and
+   joint streams (1, 4096 / 512 / 4608, 3072), and FLUX-1024's image and
+   text streams of one dual-block site in one launch
+   (`modulated_layer_norm_pair`), each with its byte bound and its
+   launches per trajectory (from the paths' runs below); batch-1 rows
+   beside one ``F.layer_norm`` call with weight 1 + scale and bias shift
+   (two at the pair), which is first held to the plain version; the pair
+   shown to reject a text segment computed with the image segment's
+   scale; K3 also in fp32, at d = 72 on strided rows and 8-byte-aligned
+   ones, and in bf16 at d = 64, 96 and 99 (single elements).
 4. The attention-variant harness (``variants``): the port of the JAX
    package's ``scripts/exp_attn_variants.py`` at its three shapes
    (2, 4608, 24, 128), (8, 4096, 16, 72) and (64, 1024, 16, 72) in bf16.
@@ -754,6 +760,16 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
             modulated_layer_norm(x32[:3, :5, :72], s32[:3, :, :72], h32[:3, :, :72]),
             modulated_layer_norm_reference(x32[:3, :5, :72], s32[:3, :, :72],
                                            h32[:3, :, :72]), FP32_TOL)
+    # rows 8 bytes off 16: the kernel's 8-byte vectors
+    compare("modlnorm/fp32/d72_ragged_8_byte_aligned",
+            modulated_layer_norm(x32[:3, :5, 2:74], s32[:3, :, 2:74], h32[:3, :, 2:74]),
+            modulated_layer_norm_reference(x32[:3, :5, 2:74], s32[:3, :, 2:74],
+                                           h32[:3, :, 2:74]), FP32_TOL)
+    # the small widths of the tests, and a width only single elements tile
+    for dk in (64, 96, 99):
+        xk, mk = rnd(3, 5, dk), rnd(3, 6, dk) * 0.1
+        compare(f"modlnorm/bf16/d{dk}", modulated_layer_norm(xk, mk[:, 1:2], mk[:, 0:1]),
+                modulated_layer_norm_reference(xk, mk[:, 1:2], mk[:, 0:1]), BF16_TOL)
 
     def nbytes(*ts):
         return sum(tt.numel() * tt.element_size() for tt in ts)
@@ -791,8 +807,8 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
              library_ms=timed_ms("attention_bias/sdpa",
                                  lambda: F.scaled_dot_product_attention(
                                      qt, kct, vct, attn_mask=bias))),
-        dict(name="modlnorm", route="triton",
-             source="ecad_tpu_torch/ops/fused.py",
+        dict(name="modlnorm", route="cuda",
+             source="ecad_tpu_torch/csrc/modlnorm_sm90.cu",
              replaces="ecad_tpu/ops/fused.py:20 (_modlnorm_kernel)",
              max_abs_err=err3,
              ms=timed_ms("modlnorm", lambda: modulated_layer_norm(x, scale, shift),
@@ -913,28 +929,87 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
     rows += flux_kernel_rows(rnd, bound, nbytes)
     rows += flash_kernel_rows(rnd, bound, nbytes)
 
-    # K3 at the served widths: one read of x and the per-sample scale and
-    # shift, one write of the output
-    for name, (bk, tk3, dk) in K3_SERVED.items():
-        xk = rnd(bk, tk3, dk)
-        mk = rnd(bk, 6, dk) * 0.1
-        sk, hk = mk[:, 1:2], mk[:, 0:1]
-        errk = compare(f"modlnorm/bf16/main_{bk}x{tk3}x{dk}", modulated_layer_norm(xk, sk, hk),
-                       modulated_layer_norm_reference(xk, sk, hk), BF16_TOL)
-        bk_ms, byk = bound(nbytes(xk, xk, sk, hk), 8 * xk.numel())
-        rows.append(dict(
-            name=name, route="triton", source="ecad_tpu_torch/ops/fused.py",
-            replaces="ecad_tpu/ops/fused.py:20 (_modlnorm_kernel)", max_abs_err=errk,
-            ms=timed_ms(name, lambda: modulated_layer_norm(xk, sk, hk), clocks=True),
-            plain_ms=timed_ms(f"{name}/plain", lambda: modulated_layer_norm_reference(xk, sk, hk)),
-            bound_ms=bk_ms, bound_by=byk, library_ms=None))
-        del xk, mk, sk, hk
+    rows += k3_served_rows(rnd, bound, nbytes)
     for r in rows:
         r["clocks"] = REPORT["timing_ms"][r["name"]]["clocks"]
         out[r["name"]] = r
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
             f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library {r['library_ms']})")
     return out
+
+
+def layer_norm_yardstick(segments):
+    """The one PyTorch call that computes K3 on a batch-1 segment:
+    ``F.layer_norm`` with weight 1 + scale and bias shift, made here,
+    outside any timed window, in x's dtype (PyTorch on the card refuses
+    fp32 ones beside bf16 x; bf16 rounds 1 + scale once more, by at most
+    2^-9 of it); one call a segment."""
+    import torch.nn.functional as F
+
+    args = [(x, (1.0 + s.float()).reshape(-1).to(x.dtype), h.reshape(-1)) for x, s, h in segments]
+    return lambda: [F.layer_norm(x, (x.shape[-1],), w, b, 1e-6) for x, w, b in args]
+
+
+def k3_served_rows(rnd, bound, nbytes) -> list[dict]:
+    """K3 at each served width (`K3_SERVED`) and FLUX-1024's pair (image and
+    text streams of one dual-block site, one launch): checked against the
+    plain version, timed against it, its byte bound (one read of x and the
+    per-sample scale and shift, one write of the output, for every
+    segment) and, on batch-1 rows, `layer_norm_yardstick`'s time, after its
+    output is held to the plain version too. The pair's check is shown to
+    reject a text segment computed with the image segment's scale."""
+    from ecad_tpu_torch.ops import (
+        launch_counts,
+        modulated_layer_norm,
+        modulated_layer_norm_pair,
+        modulated_layer_norm_reference,
+        reset_launch_counts,
+    )
+
+    def segment(bk, tk, dk):
+        xk, mk = rnd(bk, tk, dk), rnd(bk, 6, dk) * 0.1
+        return xk, mk[:, 1:2], mk[:, 0:1]  # strided views, as in the blocks
+
+    cases = {name: (segment(*shape),) for name, shape in K3_SERVED.items()}
+    cases["modlnorm_flux1024_pair"] = (
+        segment(BATCH_FLUX_1024, 4096, 3072), segment(BATCH_FLUX_1024, 512, 3072))
+    rows = []
+    for name, segs in cases.items():
+        if len(segs) == 1:
+            kernel = lambda segs=segs: [modulated_layer_norm(*segs[0])]  # noqa: E731
+        else:
+            kernel = lambda segs=segs: list(modulated_layer_norm_pair(*segs))  # noqa: E731
+        want = [modulated_layer_norm_reference(*sg) for sg in segs]
+        reset_launch_counts()
+        got = kernel()
+        torch.cuda.synchronize()
+        if launch_counts()["modlnorm"] != 1:
+            raise AssertionError(f"{name}: {launch_counts()['modlnorm']} modlnorm launches, not 1")
+        shape = "+".join("x".join(map(str, sg[0].shape)) for sg in segs)
+        err = max(compare(f"modlnorm/bf16/{name}_{shape}/{i}", g, w, BF16_TOL)
+                  for i, (g, w) in enumerate(zip(got, want)))
+        if len(segs) == 2:
+            x1, _, h1 = segs[1]
+            rejects(f"{name}/text_with_the_image_scale",
+                    modulated_layer_norm_reference(x1, segs[0][1], h1), want[1], BF16_TOL)
+        library = None
+        if all(sg[0].shape[0] == 1 for sg in segs):
+            lib = layer_norm_yardstick(segs)
+            for i, (g, w) in enumerate(zip(lib(), want)):
+                compare(f"modlnorm/bf16/{name}_layer_norm/{i}", g, w, BF16_TOL)
+            library = timed_ms(f"{name}/layer_norm", lib)
+        del got, want
+        b_ms, b_by = bound(nbytes(*(t for x, sc, sh in segs for t in (x, x, sc, sh))),
+                           8 * sum(sg[0].numel() for sg in segs))
+        rows.append(dict(
+            name=name, route="cuda", source="ecad_tpu_torch/csrc/modlnorm_sm90.cu",
+            replaces="ecad_tpu/ops/fused.py:20 (_modlnorm_kernel)", max_abs_err=err,
+            ms=timed_ms(name, kernel, clocks=True),
+            plain_ms=timed_ms(f"{name}/plain",
+                              lambda segs=segs: [modulated_layer_norm_reference(*sg)
+                                                 for sg in segs]),
+            bound_ms=b_ms, bound_by=b_by, library_ms=library))
+    return rows
 
 
 def flux_kernel_rows(rnd, bound, nbytes) -> list[dict]:
@@ -1207,12 +1282,15 @@ SM90_XATTN = {"xattn_matmul_only": "attn_xmatmul_sm90_kernel",
 
 def device_kernel_names(fn) -> list[str]:
     """The device kernels that a call of `fn` launches, from torch.profiler.
-    `fn` runs twice inside the profile: a profile taken after two
-    earlier ones was seen to miss the first kernel it traced (X2's, ahead
-    of X3's)."""
+    `fn` runs once before the profile, so that each of its kernels is
+    loaded before it is traced (a profile of the first call of X1's kernel
+    in the process named only X2's and X3's), and twice inside it: a
+    profile taken after two earlier ones was seen to miss the first kernel
+    it traced (X2's, ahead of X3's)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
@@ -1445,7 +1523,8 @@ ATTENTION_KERNELS = {
 # bf16 self-attention without a bias runs on the Hopper body
 # (csrc/attention_sm90.cu) at every side, and so does the cross-attention
 # with its text bias: K2 at 256², K4 with a bias at 1024² and 2048² (the
-# profile files the bias forms apart by their template flag)
+# profile files the bias forms apart by their template flag); every
+# modulated norm runs csrc/modlnorm_sm90.cu
 SERVED_KERNELS = {
     "pixart256": {"attention": "attn_exact_sm90_kernel",
                   "attention_bias": "attn_exact_sm90_kernel"},
@@ -1457,6 +1536,8 @@ SERVED_KERNELS = {
     "flux1024": {"attention_rowblock": "attn_rowblock_sm90_kernel"},
     "flux1536": {"attention_flash": "attn_flash_sm90_kernel"},
 }
+for _kernels in SERVED_KERNELS.values():
+    _kernels["modlnorm"] = "modlnorm_sm90_kernel"
 
 
 def expected_counts(masks, side: int = 256) -> dict[str, int]:
@@ -1480,10 +1561,11 @@ def flux_expected_counts(masks, num_blocks: int, attention: str) -> dict[str, in
     `attention` of its route (FLUX-256's 768 tokens: the exact kernel K1,
     ``attention``; FLUX-1024's 4608: the row-block clamp kernel K5,
     ``attention_rowblock``; FLUX-1536's 9728: the streaming kernel K6,
-    ``attention_flash``); one modlnorm per stream of a recomputed full_attn, per
-    full_ff and full_ff_context, per single block whose attention or MLP
-    projection is recomputed (they share its norm), and one per step for
-    the final norm."""
+    ``attention_flash``); one modlnorm for both streams of a recomputed
+    full_attn, one for full_ff with full_ff_context when both are
+    recomputed and one for either alone, one per single block whose
+    attention or MLP projection is recomputed (they share its norm), and
+    one per step for the final norm."""
     arr = np.array(masks, dtype=bool)  # (steps, blocks + single blocks, 3)
     full, single = arr[:, :num_blocks], arr[:, num_blocks:]
     attn = int(full[..., 0].sum() + single[..., 0].sum())
@@ -1495,14 +1577,19 @@ def flux_expected_counts(masks, num_blocks: int, attention: str) -> dict[str, in
 
 
 def flux_modlnorm_streams(masks, num_blocks: int) -> dict[str, int]:
-    """The modlnorm launches of `flux_expected_counts` by the stream whose
-    x they normalise: the image stream (a recomputed full_attn's and
-    full_ff's norms, and the final norm), the text stream (full_attn's and
-    full_ff_context's) and the joint one (a single block's)."""
+    """The modlnorm launches of `flux_expected_counts` by what they
+    normalise: both dual-block streams in one launch (``pair``: a
+    recomputed full_attn's norms, and full_ff's with full_ff_context's when
+    both are recomputed), the image stream alone (full_ff's norm when
+    full_ff_context is cached, and the final norm), the text stream alone
+    (full_ff_context's when full_ff is cached) and the joint one (a single
+    block's)."""
     arr = np.array(masks, dtype=bool)  # (steps, blocks + single blocks, 3)
     full, single = arr[:, :num_blocks], arr[:, num_blocks:]
-    return {"img": int(full[..., 0].sum() + full[..., 1].sum()) + arr.shape[0],
-            "txt": int(full[..., 0].sum() + full[..., 2].sum()),
+    ff, ffc = full[..., 1], full[..., 2]
+    return {"pair": int(full[..., 0].sum() + (ff & ffc).sum()),
+            "img": int((ff & ~ffc).sum()) + arr.shape[0],
+            "txt": int((ffc & ~ff).sum()),
             "joint": int((single[..., 0] | single[..., 1]).sum())}
 
 
@@ -1593,7 +1680,7 @@ def kernel_family(name: str) -> str:
         if kernel in name:
             biased = "true>" in name or "ELb1E" in name
             return family + "_bias" if biased else family
-    if "_modlnorm_body" in name:
+    if "modlnorm_sm90_kernel" in name:
         return "modlnorm"
     low = name.lower()
     if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "wgmma")):

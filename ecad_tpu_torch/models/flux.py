@@ -23,7 +23,9 @@ The cache is a flat dict ``{f"{component}_{block}": tensor}`` (the pair for
 recomputes everything (`flux_step_masks`). Recompute decisions arrive as
 Python bools: a cached component does no work, and neither do the
 modulated norms that only it consumes. Every LN·(1+scale)+shift site runs
-the port's `modulated_layer_norm` kernel; attention runs `fused_attention`,
+the port's `modulated_layer_norm` kernel, a dual block's image- and
+text-stream norms of one site in one launch (`modulated_layer_norm_pair`)
+where both are needed; attention runs `fused_attention`,
 which routes FLUX-1024's joint attention (4608 tokens, D=128) to the
 row-block clamp kernel and FLUX-256's (768 tokens) to the exact one.
 
@@ -44,7 +46,7 @@ from torch.nn import functional as F
 
 from .. import resolve_device
 from ..ops.attention import fused_attention
-from ..ops.fused import modulated_layer_norm
+from ..ops.fused import modulated_layer_norm, modulated_layer_norm_pair
 from .common import TimestepEmbedding, randomize_, sinusoidal_embedding
 
 FULL_COMPONENTS = ("full_attn", "full_ff", "full_ff_context")
@@ -295,25 +297,31 @@ class FluxDualBlock(nn.Module):
             self.norm1_context(temb)
         )
         new: dict[str, Any] = {}
+        # the image- and text-stream norms of a site go out as one launch
+        # when both are needed
         attn_out, ctx_attn_out = _pick(
             recompute_attn,
-            lambda: self.attn(modulated_layer_norm(img, scale, shift),
-                              modulated_layer_norm(txt, c_scale, c_shift), cos, sin),
+            lambda: self.attn(*modulated_layer_norm_pair((img, scale, shift),
+                                                         (txt, c_scale, c_shift)), cos, sin),
             cache, "full_attn", new, c,
         )
         img = img + gate_msa * attn_out
+        txt = txt + c_gate_msa * ctx_attn_out
+        both = recompute_ff and recompute_ffc
+        if both:
+            img_normed, txt_normed = modulated_layer_norm_pair(
+                (img, scale_mlp, shift_mlp), (txt, c_scale_mlp, c_shift_mlp))
         ff = _pick(
             recompute_ff,
-            lambda: self.ff_out(
-                _gelu(self.ff_in(modulated_layer_norm(img, scale_mlp, shift_mlp)))),
+            lambda: self.ff_out(_gelu(self.ff_in(
+                img_normed if both else modulated_layer_norm(img, scale_mlp, shift_mlp)))),
             cache, "full_ff", new, c,
         )
         img = img + gate_mlp * ff
-        txt = txt + c_gate_msa * ctx_attn_out
         ffc = _pick(
             recompute_ffc,
-            lambda: self.ff_context_out(
-                _gelu(self.ff_context_in(modulated_layer_norm(txt, c_scale_mlp, c_shift_mlp)))),
+            lambda: self.ff_context_out(_gelu(self.ff_context_in(
+                txt_normed if both else modulated_layer_norm(txt, c_scale_mlp, c_shift_mlp)))),
             cache, "full_ff_context", new, c,
         )
         txt = txt + c_gate_mlp * ffc

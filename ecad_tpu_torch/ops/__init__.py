@@ -30,7 +30,11 @@ from .attn_variants import (
     nomax_attention,
     nomax_attention_reference,
 )
-from .fused import modulated_layer_norm, modulated_layer_norm_reference
+from .fused import (
+    modulated_layer_norm,
+    modulated_layer_norm_pair,
+    modulated_layer_norm_reference,
+)
 
 _COUNTERS = (_attention.LAUNCHES, _fused.LAUNCHES)
 
@@ -68,6 +72,7 @@ __all__ = [
     "clamp_fd_attention",
     "clamp_fd_attention_reference",
     "modulated_layer_norm",
+    "modulated_layer_norm_pair",
     "modulated_layer_norm_reference",
     "launch_counts",
     "reset_launch_counts",

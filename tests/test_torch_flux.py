@@ -308,6 +308,8 @@ def test_cached_components_do_no_work(models, monkeypatch):
     calls = []
     monkeypatch.setattr(tfx, "modulated_layer_norm",
                         lambda x, s, h: calls.append("norm") or x)
+    monkeypatch.setattr(tfx, "modulated_layer_norm_pair",
+                        lambda a, b: calls.append("norm") or (a[0], b[0]))
     for mod in (model.blocks[0].attn, model.single_blocks[0].attn,
                 model.single_blocks[0].proj_mlp, model.single_blocks[0].proj_out):
         monkeypatch.setattr(mod, "forward", lambda *a, **k: calls.append("work"))

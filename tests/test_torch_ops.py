@@ -5,6 +5,8 @@ Inputs come from numpy with a fixed seed and go to both sides. On the CPU
 each wrapper runs its plain version; the CUDA kernels themselves are held
 against the same plain versions on the card by chip_smoke.py."""
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,7 @@ from ecad_tpu_torch.ops import (
     matmul_only_attention,
     max_exp2_attention,
     modulated_layer_norm,
+    modulated_layer_norm_pair,
     modulated_layer_norm_reference,
     nomax_attention,
     rowblock_attention,
@@ -36,6 +39,7 @@ from ecad_tpu_torch.ops import (
 )
 from ecad_tpu_torch.ops import _build
 from ecad_tpu_torch.ops import attention as port_attention
+from ecad_tpu_torch.ops.fused import GROUPS, LANES, MAX_NV, launch_plan
 from ecad_tpu_torch.scripts import probe_attention_body
 
 # fp32 on both sides, only the summation order differs
@@ -134,6 +138,102 @@ def test_modulated_layer_norm_matches_pallas():
         torch.from_numpy(shift[:, 0]),
     )
     np.testing.assert_array_equal(got2.numpy(), got.numpy())
+
+
+def test_modulated_layer_norm_pair_matches_pallas():
+    """The pair's plain version (FLUX's image and text streams of one site)
+    against two calls of the reference kernel in interpret mode, fp32, with
+    the scale and shift of each segment strided views of a (1, 6, d)
+    modulation, as the dual block takes them: TOL, since only the
+    summation order differs."""
+    rng = np.random.default_rng(13)
+    segs = []
+    for t in (40, 8):
+        x = rng.standard_normal((1, t, 128), dtype=np.float32)
+        mods = rng.standard_normal((1, 6, 128), dtype=np.float32) * 0.1
+        segs.append((x, mods[:, 1:2], mods[:, 0:1]))
+    got = modulated_layer_norm_pair(*(tuple(torch.from_numpy(a) for a in s) for s in segs))
+    assert len(got) == 2
+    for g, (x, scale, shift) in zip(got, segs):
+        want = jax_modulated_layer_norm(
+            jnp.asarray(x), jnp.asarray(scale), jnp.asarray(shift), interpret=True)
+        assert g.shape == x.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), **TOL)
+
+
+def test_modulated_layer_norm_pair_refuses_segments_it_cannot_join():
+    """One launch takes one d, one dtype and one device: the pair raises
+    on segments whose d differs, that lie on different devices, or whose
+    dtypes differ."""
+    def seg(t, d, **kw):
+        return (torch.zeros(1, t, d, **kw), torch.zeros(1, 1, d, **kw),
+                torch.zeros(1, 1, d, **kw))
+
+    with pytest.raises(ValueError, match="differ in d"):
+        modulated_layer_norm_pair(seg(4, 128), seg(2, 64))
+    with pytest.raises(ValueError, match="different devices"):
+        modulated_layer_norm_pair(seg(4, 128), seg(2, 128, device="meta"))
+    with pytest.raises(ValueError, match="differ in dtype"):
+        modulated_layer_norm_pair(seg(4, 128), seg(2, 128, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("segments", [((2, 5),), ((1, 7), (3, 2))], ids=["one", "two"])
+@pytest.mark.parametrize("d", [1152, 3072, 72, 64, 96])
+def test_modlnorm_launch_plan_covers_each_vector_once(d, segments):
+    """The kernel's indexing, walked on the CPU: row group g of n (a group
+    is the plan's warps a row) takes rows g, g + n, ... numbered across the
+    segments, lane l of the group's 32·G vectors l, l + 32·G, ... of its
+    row. Every (segment, sample, token, vector) of a launch is covered
+    exactly once, for any number of groups, and the vectors tile a row
+    exactly (16 bytes each where the addresses allow it, 8 or one element
+    where they do not; a row too wide for the kernel raises)."""
+    for elem, offsets in ((2, ()), (4, ()), (2, (8,)), (4, (4,)), (2, (2,))):
+        vec = next(w for w in (16, 8, elem)
+                   if all(o % w == 0 for o in offsets) and d * elem % w == 0)
+        if d * elem // vec > MAX_NV * LANES * GROUPS[-1]:  # too wide
+            with pytest.raises(ValueError, match="more than the kernel"):
+                launch_plan(d, elem, segments, offsets)
+            continue
+        plan = launch_plan(d, elem, segments, offsets)
+        assert plan.vec_bytes == vec
+        assert plan.n_vec * plan.vec_bytes == d * elem
+        lanes = LANES * plan.group
+        assert plan.group in GROUPS
+        assert plan.nv <= MAX_NV and (plan.nv - 1) * lanes < plan.n_vec <= plan.nv * lanes
+        want = {(s, b, t, v) for s, (bs, ts) in enumerate(segments)
+                for b in range(bs) for t in range(ts) for v in range(plan.n_vec)}
+        for n_groups in (1, 3, 4, 8, 1000):
+            seen = Counter()
+            for group in range(n_groups):
+                for row in plan.group_rows(group, n_groups):
+                    seg, b, t = plan.locate(row)
+                    for lane in range(lanes):
+                        seen.update((seg, b, t, v) for v in plan.lane_vectors(lane))
+            assert set(seen) == want and set(seen.values()) == {1}
+
+
+def test_modlnorm_probe_variants_edit_the_current_source():
+    """Every edit of `probe_modlnorm.VARIANTS` matches the kernel's source
+    as it stands (the probe runs only on the card)."""
+    from ecad_tpu_torch.scripts import probe_modlnorm
+
+    src = (_build.CSRC_DIR / "modlnorm_sm90.cu").read_text()
+    for name, edits in probe_modlnorm.VARIANTS.items():
+        assert probe_modlnorm.variant_source(src, edits) != src, name
+    assert set(probe_modlnorm.EXACT) <= set(probe_modlnorm.VARIANTS)
+
+
+def test_modlnorm_launch_plan_refuses_rows_past_its_registers():
+    """A row the kernel's longest register array cannot hold raises (the
+    wrapper never falls back): five vectors a lane of eight warps, 10240
+    bf16 elements in 16-byte vectors, 1280 in single elements."""
+    most = MAX_NV * LANES * GROUPS[-1]
+    plan = launch_plan(most * 8, 2, [(1, 1)])
+    assert (plan.nv, plan.group) == (MAX_NV, GROUPS[-1]) and most * 8 == 10240
+    with pytest.raises(ValueError, match="more than the kernel"):
+        launch_plan(most * 8 + 8, 2, [(1, 1)])
+    with pytest.raises(ValueError, match="more than the kernel"):
+        launch_plan(most + 1, 2, [(1, 1)])
 
 
 def test_modulated_layer_norm_vs_model_form():
