@@ -99,7 +99,20 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (8, 256, 256, 3) uint8. Checks the kernel launch counts of each
    trajectory against its schedule, and a small fp32 trajectory on the card
    against the plain path on the CPU.
-6. Main path at 1024² (``main1024``): full-width PixArt-α 1024 (4096 image
+6. The search loop (``search``): ``ecad_tpu_torch.genetic.train.main`` in
+   this process at full-width PixArt-α 256² (random bf16 weights and
+   prompt embeddings, 20 steps, the weight-free fidelity scorer), 8
+   candidates × 4 prompts a generation, gen 0 seeded with the default
+   schedule, ``ours_fast`` and random genomes: two NSGA-II cycles, then a
+   resume for one more. Checks the checkpoint, every evaluated candidate's
+   scores.json and analytic MACs, the default candidate at exactly 200 dB
+   (its trajectory makes the same launches on the same inputs as the
+   uncached reference), ``ours_fast`` below it, K1 at the search's
+   cross-attention shape (no text mask: 256 → 120 keys on the exact route)
+   against its plain version, and the launch counts over both runs against
+   every evaluated candidate's masks plus each run's reference trajectory;
+   times each generation and profiles one candidate's evaluation.
+7. Main path at 1024² (``main1024``): full-width PixArt-α 1024 (4096 image
    tokens, the resolution and aspect-ratio conditions), batch 2 with CFG,
    under the repo's ``default_1024x1024`` schedule, ``ours_fast`` and the
    TGATE schedule ``tgate_m_010_sp_003_fi_001_warmup_002`` (gate at step
@@ -108,7 +121,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    against each schedule; and a tiny fp32 1024-style trajectory (size
    conditions, TGATE, 2304 tokens so that both K4 variants run) on the card
    against the plain path on the CPU.
-7. Main path at 2048² (``main2048``): full-width PixArt-Σ at 2048²
+8. Main path at 2048² (``main2048``): full-width PixArt-Σ at 2048²
    (16384 image tokens, a 256×256 latent, no size conditions, position
    embedding interpolated by 4), batch 1 with CFG, under Σ's
    ``gen_default/default.json`` and ``pixart_sigma_256/ours_fast.json``
@@ -118,7 +131,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    16384 → 120) and K3 checked against each schedule; and a tiny fp32
    trajectory with 8464 tokens, past 8192 so that self-attention takes the
    streaming route, on the card against the plain path on the CPU.
-8. FLUX (``flux``): full-width FLUX.1-dev (19 dual + 38 single blocks,
+9. FLUX (``flux``): full-width FLUX.1-dev (19 dual + 38 single blocks,
    d=3072, 24×128 heads, 512 text tokens, guidance embedding; 11.9 B
    seeded random bf16 parameters) from hash-encoder prompts, 20 flow-match
    Euler steps at guidance 5: 1024² at batch 1 under
@@ -130,10 +143,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    random 16-channel VAE to uint8, with the launch counts of K5, K6, K1 and
    K3 checked against each schedule; ``flux_256/ours_fast`` again with the
    caches stored as ``float8_e4m3fn`` (the same seeded weights), held to
-   the same checks and set beside the bf16 caches' latents; and a tiny fp32 FLUX
+   the same checks and set beside the bf16 caches' latents; one cycle of the
+   search loop on the same resident model at 256² (4 candidates × 1 prompt,
+   the fidelity scorer, checked as the PixArt search); and a tiny fp32 FLUX
    trajectory (1536 joint tokens at D=128, the row-block route) on the
    card against the plain path on the CPU.
-9. Entry points (``cli``): ``ecad_tpu_torch.inference.cli
+10. Entry points (``cli``): ``ecad_tpu_torch.inference.cli
    PixArtAlphaImageGenerator`` with a prompt file, random weights and
    ``ours_fast``, again with the 1024 TGATE schedule at batch size 2,
    ``PixArtSigmaImageGenerator`` at ``--height 2048 --width 2048
@@ -1593,6 +1608,48 @@ def flux_modlnorm_streams(masks, num_blocks: int) -> dict[str, int]:
             "joint": int((single[..., 0] | single[..., 1]).sum())}
 
 
+# the launch counter of each route of `fused_attention` (`attention_route`)
+ROUTE_COUNTERS = {"exact": "attention", "exact_xla": "attention", "clamp": "attention_long",
+                  "rowblock": "attention_rowblock", "flash": "attention_flash"}
+
+
+def attention_counter(q_shape: tuple, tk: int, bias=None) -> str:
+    """The launch counter a `fused_attention` call of these shapes counts
+    under: its route's (`attention_route`), ``_bias`` when it has a bias."""
+    from ecad_tpu_torch.ops import attention_route
+
+    name = ROUTE_COUNTERS[attention_route(tuple(q_shape), tk, bias)]
+    return name if bias is None else name + "_bias"
+
+
+def search_expected_counts(mask_arrays, config, batch: int) -> dict[str, int]:
+    """Launches of PixArt denoise calls on the search path, one
+    (steps, blocks, 3) step-0-forced mask array per call (each evaluated
+    candidate's, and each run's uncached reference trajectory's): as
+    `expected_counts`, but the evaluator passes no text mask (as the
+    reference's does), so the cross-attention counts under the counter of
+    its route without a bias — at PixArt-256's 256 queries → 120 keys the
+    exact single-tile route, K1 (``attention``), not K2."""
+    shape = (2 * batch, config.tokens, config.num_heads, config.head_dim)
+    self_kernel = attention_counter(shape, config.tokens)
+    cross_kernel = attention_counter(shape, config.text_len)
+    total = Counter(dict.fromkeys(COUNTERS, 0))
+    for arr in mask_arrays:
+        arr = np.asarray(arr, dtype=bool)
+        total[self_kernel] += int(arr[..., 0].sum())
+        total[cross_kernel] += int(arr[..., 1].sum())
+        total["modlnorm"] += int(arr[..., 0].sum() + arr[..., 2].sum()) + arr.shape[0]
+    return dict(total)
+
+
+def sum_counts(counts) -> dict[str, int]:
+    """The launch counts of several runs added up, key by key."""
+    total = Counter(dict.fromkeys(COUNTERS, 0))
+    for c in counts:
+        total.update(c)
+    return dict(total)
+
+
 def small_reference_check(side: int = 256) -> dict:
     """A tiny fp32 trajectory through the kernels on the card against the
     same weights and noise through the plain versions on the CPU.
@@ -1860,6 +1917,201 @@ def main_path() -> dict:
     return result
 
 
+SEARCH_POP = 8  # PixArt search: candidates a generation
+SEARCH_PROMPTS = 4
+SEARCH_FLUX_POP = 4
+
+
+def search_kernel_checks(label: str, attention_shapes, norm_shape) -> dict:
+    """K1 and K3 on the card at the shapes a search path gives them (its
+    batch of prompts; no text mask, so every attention there takes the
+    exact single-tile route), each held to its plain version within
+    BF16_TOL. These launches come before the counted run."""
+    from ecad_tpu_torch.ops import (
+        fused_attention,
+        fused_attention_reference,
+        modulated_layer_norm,
+        modulated_layer_norm_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    errs = {}
+    for b, tq, tk, h, d in attention_shapes:
+        if attention_counter((b, tq, h, d), tk) != "attention":
+            raise AssertionError(f"{label}: {b}×{tq}→{tk} left the exact route")
+        q, k, v = rnd(b, tq, h, d), rnd(b, tk, h, d), rnd(b, tk, h, d)
+        name = f"attention/bf16/{label}_{b}x{tq}x{tk}_d{d}"
+        errs[name] = compare(name, fused_attention(q, k, v),
+                             fused_attention_reference(q, k, v), BF16_TOL)
+    b, t, dim = norm_shape
+    x, mods = rnd(b, t, dim), rnd(b, 6, dim) * 0.1
+    name = f"modlnorm/bf16/{label}_{b}x{t}x{dim}"
+    errs[name] = compare(name, modulated_layer_norm(x, mods[:, 1:2], mods[:, 0:1]),
+                         modulated_layer_norm_reference(x, mods[:, 1:2], mods[:, 0:1]),
+                         BF16_TOL)
+    return errs
+
+
+def search_tree(pops: Path, bench: Path, name: str, generations, cls) -> dict:
+    """Checks a search's files: every candidate of each evaluated
+    generation has a scores.json with a finite total_score and the port's
+    analytic MACs (computed here, on the CPU) as its JSON's total_macs_T.
+    Returns {(generation, index): (schedule, total_score)}."""
+    from ecad_tpu_torch.macs import compute_schedule_metrics
+
+    out = {}
+    for g in generations:
+        paths = sorted((pops / name / f"gen_{g:03d}" / "candidates").glob("cand_*.json"))
+        if not paths:
+            raise AssertionError(f"{name}: generation {g} has no candidates")
+        for path in paths:
+            sched = cls.from_json(path)
+            macs = json.loads(path.read_text())["metrics"]["total_macs_T"]
+            want = compute_schedule_metrics(sched)["total_macs_T"]
+            if macs != want:
+                raise AssertionError(f"{path}: total_macs_T {macs} != {want}")
+            score_file = bench / name / f"gen_{g:03d}" / "candidates" / path.stem / "scores.json"
+            score = json.loads(score_file.read_text())["total_score"]
+            if not np.isfinite(score):
+                raise AssertionError(f"{score_file}: total_score {score}")
+            out[(g, int(path.stem.split("_")[1]))] = (sched, score)
+    return out
+
+
+def timed_cycles(train_module):
+    """Wraps `train_one_cycle` of ``ecad_tpu_torch.genetic.train`` (which
+    `main` looks up at each call) to record each cycle's seconds, device
+    work included, and the evaluator it ran; returns (records, undo)."""
+    records = {"cycle_s": [], "evaluator": None}
+    inner = train_module.train_one_cycle
+
+    def timed(args, manager, algo, evaluator):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner(args, manager, algo, evaluator)
+        torch.cuda.synchronize()
+        records["cycle_s"].append(time.perf_counter() - t0)
+        records["evaluator"] = evaluator
+
+    train_module.train_one_cycle = timed
+    return records, lambda: setattr(train_module, "train_one_cycle", inner)
+
+
+def profile_candidate(evaluator, sched, n_images: int) -> dict:
+    """One candidate's evaluation (its trajectory and fidelity score, the
+    reference trajectory already kept): wall ms of three synchronized runs,
+    then one profiled run (`profile_trajectory`) for the device's idle
+    share."""
+    evaluator.evaluate_candidate(sched)  # the reference trajectory, once
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluator.evaluate_candidate(sched)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(runs)
+    prof = profile_trajectory(lambda: evaluator.evaluate_candidate(sched), wall)
+    return {"ms": wall, "ms_runs": runs, "ms_per_img": wall / n_images, "profile": prof}
+
+
+def search_path() -> dict:
+    """ECAD's search loop at full width: `ecad_tpu_torch.genetic.train.main`
+    in this process on the card, PixArt-α 256² (28 blocks, d=1152) with
+    seeded random bf16 weights and random prompt embeddings, 20 steps, the
+    weight-free fidelity scorer, 8 candidates × 4 prompts a generation:
+    gen 0 seeded with the default schedule, ``ours_fast`` and six random
+    genomes, two cycles, then a resume for one more. Checks K1 and K3 at
+    the search's shapes against their plain versions, the files, the MACs,
+    the default candidate's exact 200 dB, ``ours_fast`` below it, and that
+    the launch counts over both runs equal the sum of every evaluated
+    candidate's masks plus each run's reference trajectory."""
+    import contextlib
+    import tempfile
+
+    from ecad_tpu_torch.genetic import train
+    from ecad_tpu_torch.genetic.population_io import PixArtPopulationIOManager
+    from ecad_tpu_torch.models.pixart import PixArtConfig, schedule_mask_array
+    from ecad_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ecad_tpu_torch.schedules import PixArtCacheSchedule
+
+    log(f"search: genetic.train.main, PixArt-α 256² full width, {SEARCH_POP} candidates "
+        f"× {SEARCH_PROMPTS} prompts, 2 cycles and a resume")
+    config = PixArtConfig()
+    b2 = 2 * SEARCH_PROMPTS  # CFG doubles the prompts
+    result = {"kernel_errors": search_kernel_checks(
+        "search_pixart256",
+        [(b2, config.tokens, tk, config.num_heads, config.head_dim)
+         for tk in (config.tokens, config.text_len)],
+        (b2, config.tokens, config.dim))}
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build" / "ecad_tpu_torch") as tmp:
+        pops, bench, name = Path(tmp) / "pops", Path(tmp) / "bench", "search256"
+        seeds = PixArtPopulationIOManager(name, pops, bench, generation_num=0)
+        X = np.random.default_rng(0).random((SEARCH_POP, seeds.n_var)) < 0.5
+        X[0] = True  # the default schedule
+        X[1] = PixArtCacheSchedule.from_json(OURS_FAST).to_numpy(flatten=True)
+        seeds.save_population(X, generation=0)
+        argv = ["--name", name, "--populations-dir", str(pops), "--benchmarks-dir", str(bench),
+                "--population-size", str(SEARCH_POP), "--num-prompts", str(SEARCH_PROMPTS),
+                "--num-inference-steps", str(STEPS), "--scorer", "fidelity", "--device", "cuda"]
+        records, undo = timed_cycles(train)
+        reset_launch_counts()
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                train.main([*argv, "--num-cycles", "2"])
+                if not (pops / name / "gen_003" / "checkpoint.npz").exists():
+                    raise AssertionError("no gen_003/checkpoint.npz after two cycles")
+                train.main([*argv, "--num-cycles", "1"])
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        cands = search_tree(pops, bench, name, (1, 2, 3), PixArtCacheSchedule)
+        if not (pops / name / "gen_004" / "checkpoint.npz").exists():
+            raise AssertionError("the resume wrote no gen_004/checkpoint.npz")
+        masks = [schedule_mask_array(s, config) for s, _ in cands.values()]
+        reference = np.ones((STEPS, config.num_blocks, 3), dtype=bool)
+        want = search_expected_counts(masks + [reference] * 2, config, SEARCH_PROMPTS)
+        log(f"  launches over both runs {counts}; {len(masks)} candidates + 2 reference "
+            f"trajectories say {want}")
+        if counts != want:
+            raise AssertionError(f"search launches {counts} != candidates' masks {want}")
+        default, fast = cands[(1, 0)][1], cands[(1, 1)][1]
+        log(f"  default candidate {default!r} dB, ours_fast {fast!r} dB")
+        if default != 200.0:
+            raise AssertionError(f"the default candidate scored {default!r} dB, not 200")
+        if not fast < 200.0:
+            raise AssertionError(f"ours_fast scored {fast!r} dB")
+        per_cand = [search_expected_counts([m], config, SEARCH_PROMPTS) for m in masks]
+        images = SEARCH_POP * SEARCH_PROMPTS
+        result.update(
+            launches=counts,
+            candidates=len(masks),
+            default_db=default,
+            ours_fast_db=fast,
+            scores_db={f"gen_{g:03d}/cand_{i:03d}": sc for (g, i), (_, sc) in cands.items()},
+            launches_per_candidate={k: statistics.mean(c[k] for c in per_cand)
+                                    for k in ("attention", "modlnorm")},
+            cycle_s=records["cycle_s"],
+            s_per_generation=statistics.median(records["cycle_s"]),
+            ms_per_image=statistics.median(records["cycle_s"]) * 1e3 / images,
+        )
+        result["candidate"] = profile_candidate(
+            records["evaluator"], PixArtCacheSchedule.from_json(OURS_FAST), SEARCH_PROMPTS)
+    log(f"  {result['s_per_generation']:.3f} s a generation (cycles {records['cycle_s']}), "
+        f"{result['ms_per_image']:.3f} ms an evaluated image; one ours_fast candidate "
+        f"{result['candidate']['ms']:.3f} ms, device idle share "
+        f"{result['candidate']['profile']['idle_share']:.4f}")
+    del records
+    torch.cuda.empty_cache()
+    return result
+
+
 def main_path_1024() -> dict:
     from ecad_tpu_torch.models.pixart import PixArtConfig, init_model
     from ecad_tpu_torch.models.vae import random_decoder_pipeline
@@ -1987,6 +2239,95 @@ def small_flux_check() -> dict:
     return {"max_err": err, "max_abs_latent": scale, "launches": counts}
 
 
+def flux_search(model, config, enc) -> dict:
+    """One cycle of ECAD's search loop on the flux phase's resident
+    full-width FLUX.1-dev at 256²: a `FluxCandidateEvaluator` with the
+    fidelity scorer, 4 candidates (the default, ``flux_256/ours_fast``, two
+    random genomes) × 1 hash-encoder prompt, through `train_one_cycle`.
+    Checks as `search_path`'s, the launches against `flux_expected_counts`
+    summed over the candidates and the reference trajectory."""
+    import argparse
+    import contextlib
+    import tempfile
+
+    from ecad_tpu_torch.genetic import train
+    from ecad_tpu_torch.genetic.evaluate import EvalConfig, FluxCandidateEvaluator
+    from ecad_tpu_torch.genetic.nsga2 import NSGA2
+    from ecad_tpu_torch.genetic.population_io import FluxPopulationIOManager
+    from ecad_tpu_torch.models.flux import flux_step_masks, full_flux_mask
+    from ecad_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ecad_tpu_torch.pipelines import FluxPipeline, FluxPipelineConfig
+    from ecad_tpu_torch.schedules import FluxCacheSchedule
+
+    log(f"  search: one cycle, {SEARCH_FLUX_POP} candidates × 1 prompt at 256²")
+    pcfg = FluxPipelineConfig(config, STEPS, guidance_scale=5.0, height=256, width=256)
+    joint = pcfg.image_seq_len + config.text_len
+    result = {"kernel_errors": search_kernel_checks(
+        "search_flux256", [(1, joint, joint, config.num_heads, config.head_dim)],
+        (1, joint, config.dim))}
+    text, pooled = enc.encode("a red bicycle leaning on a wall")
+    evaluator = FluxCandidateEvaluator(
+        FluxPipeline(pcfg, model),
+        torch.from_numpy(text[None]).to("cuda", config.dtype),
+        torch.from_numpy(pooled[None]).to("cuda", config.dtype),
+        ["prompt_0"], EvalConfig(scorer="fidelity", return_images=False),
+    )
+    with tempfile.TemporaryDirectory(dir=ROOT / "build" / "ecad_tpu_torch") as tmp:
+        pops, bench, name = Path(tmp) / "pops", Path(tmp) / "bench", "search_flux256"
+        manager = FluxPopulationIOManager(name, pops, bench, population_size=SEARCH_FLUX_POP)
+        X = np.random.default_rng(1).random((SEARCH_FLUX_POP, manager.n_var)) < 0.5
+        X[0] = True
+        X[1] = FluxCacheSchedule.from_json(FLUX_OURS_FAST_256).to_numpy(flatten=True)
+        algo = NSGA2(n_var=manager.n_var, pop_size=SEARCH_FLUX_POP, seed=0)
+        manager.save_population(algo.initialize(X))
+        manager.save_config()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            train.train_one_cycle(argparse.Namespace(print_not_submit=False), manager, algo,
+                                  evaluator)
+        torch.cuda.synchronize()
+        cycle_s = time.perf_counter() - t0
+        counts = launch_counts()
+        if not (pops / name / "gen_002" / "checkpoint.npz").exists():
+            raise AssertionError("no gen_002/checkpoint.npz after the FLUX cycle")
+        cands = search_tree(pops, bench, name, (1,), FluxCacheSchedule)
+        per_cand = [flux_expected_counts(flux_step_masks(s, config), config.num_blocks,
+                                         "attention") for s, _ in cands.values()]
+        ref = flux_expected_counts([full_flux_mask(config)] * STEPS, config.num_blocks,
+                                   "attention")
+        want = sum_counts(per_cand + [ref])
+        log(f"  search launches {counts}; {len(per_cand)} candidates + the reference say {want}")
+        if counts != want:
+            raise AssertionError(f"FLUX search launches {counts} != candidates' masks {want}")
+        default, fast = cands[(1, 0)][1], cands[(1, 1)][1]
+        log(f"  default candidate {default!r} dB, ours_fast {fast!r} dB")
+        if default != 200.0:
+            raise AssertionError(f"the default FLUX candidate scored {default!r} dB, not 200")
+        if not fast < 200.0:
+            raise AssertionError(f"FLUX ours_fast scored {fast!r} dB")
+        result.update(
+            launches=counts, candidates=len(per_cand), default_db=default, ours_fast_db=fast,
+            scores_db={f"cand_{i:03d}": sc for (_, i), (_, sc) in cands.items()},
+            launches_per_candidate={k: statistics.mean(c[k] for c in per_cand)
+                                    for k in ("attention", "modlnorm")},
+            modlnorm_streams_per_candidate={
+                k: statistics.mean(flux_modlnorm_streams(flux_step_masks(s, config),
+                                                         config.num_blocks)[k]
+                                   for s, _ in cands.values())
+                for k in ("pair", "img", "txt", "joint")},
+            s_per_generation=cycle_s,
+            ms_per_image=cycle_s * 1e3 / SEARCH_FLUX_POP,
+        )
+        result["candidate"] = profile_candidate(
+            evaluator, FluxCacheSchedule.from_json(FLUX_OURS_FAST_256), 1)
+    log(f"  {cycle_s:.3f} s a generation, {result['ms_per_image']:.3f} ms an evaluated "
+        f"image; one ours_fast candidate {result['candidate']['ms']:.3f} ms, device idle "
+        f"share {result['candidate']['profile']['idle_share']:.4f}")
+    return result
+
+
 def flux_path() -> dict:
     """Full-width FLUX.1-dev (19 dual + 38 single blocks, d=3072, 24×128
     heads, 512 text tokens, guidance embedding) with seeded random bf16
@@ -2071,6 +2412,8 @@ def flux_path() -> dict:
     log(f"  ratio default / fast at 1024² {result['speedup_1024_fast']:.4f}, at 1536² "
         f"{result['speedup_1536_fast']:.4f} (peak {r1536['peak_mem_gib']:.2f} GiB), "
         f"default / ours_fast at 256² {result['speedup_256_ours_fast']:.4f}")
+
+    result["search"] = flux_search(model, config, enc)
 
     # fp8 cache storage: the same seeded weights with cache_dtype
     # float8_e4m3fn, 256² batch 4 under ours_fast, against the bf16 caches
@@ -2201,6 +2544,7 @@ def main() -> None:
     kernels = phase("kernels", kernel_phase, b2=2 * BATCH, b2_1024=2 * BATCH_1024)
     variants = phase("variants", variants_phase)
     REPORT["main_path"] = phase("main256", main_path)
+    REPORT["search"] = phase("search", search_path)
     REPORT["main_path_1024"] = phase("main1024", main_path_1024)
     REPORT["main_path_2048"] = phase("main2048", main_path_2048)
     REPORT["flux"] = phase("flux", flux_path)
@@ -2259,6 +2603,11 @@ def main() -> None:
         "flux_peak_mem_gib_1536": fx["1536"]["peak_mem_gib"],
         "flux_ms_per_img_256": {k: fx["256"][k]["ms_per_img"] for k in ("ours_fast", "default")},
         "flux_speedup_256": fx["speedup_256_ours_fast"],
+        "search": {key: {k: r[k] for k in ("s_per_generation", "ms_per_image", "default_db",
+                                             "ours_fast_db", "launches")}
+                   | {"candidate_ms": r["candidate"]["ms"],
+                      "candidate_idle_share": r["candidate"]["profile"]["idle_share"]}
+                   for key, r in (("pixart256", REPORT["search"]), ("flux256", fx["search"]))},
         "flux_launches": {f"{side}/{k}": fx[side][k]["launches"]
                           for side, ks in (("1024", ("fast", "default")),
                                            ("1536", ("fast", "default")),

@@ -6,8 +6,7 @@ Parity with ecad/schedulers/dit_scheduler/generators/pixart_schedule_generators.
 evenly_spaced}) and flux_schedule_generators.py (gen_default only —
 non-sequential FLUX topologies are unimplemented upstream too,
 flux_builder.py:81-88). Names and attribute dicts match the reference.
-The port's own copy of ``ecad_tpu/graph/generators.py``, with the two step
-helpers it needs from ``ecad_tpu/schedules/generators/helpers.py``.
+The port's own copy of ``ecad_tpu/graph/generators.py``.
 """
 
 from __future__ import annotations
@@ -15,32 +14,10 @@ from __future__ import annotations
 import sys
 from typing import Iterator
 
-import numpy as np
-
 from ..registry import build_function_registry
+from ..schedules.generators.helpers import apply_n_times_centered, evenly_spaced
 from .configs import middle_repeat, middle_skip, parallel, reverse, skip_blocks
 from .dit_schedule import DiTSchedule, default_config
-
-
-def apply_n_times_centered(num_inference_steps: int, apply_n_times: int) -> list[int]:
-    """Place ``apply_n_times`` steps centered within the trajectory via
-    linspace (reference dit_scheduler/generators/helpers.py:9-20)."""
-    pts = np.linspace(
-        0, num_inference_steps + 1, num=apply_n_times + 2, endpoint=True
-    )[1:-1]
-    pts = np.ceil(pts - 1).astype(int).tolist()
-    assert len(pts) == apply_n_times
-    assert all(0 <= pt < num_inference_steps for pt in pts)
-    return pts
-
-
-def evenly_spaced(start: int, stop: int, count: int) -> list[int]:
-    """`count` evenly spaced ints from start to stop inclusive
-    (reference helpers.py:23-28)."""
-    if count == 1:
-        return [start]
-    step = (stop - start) / (count - 1)
-    return [int(round(start + i * step)) for i in range(count)]
 
 
 def get_progressive_steps(num_inference_steps: int) -> list[int]:

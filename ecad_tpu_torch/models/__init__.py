@@ -5,6 +5,7 @@ from .pixart import (
     full_step_mask,
     init_cache,
     init_model,
+    schedule_mask_array,
     schedule_step_masks,
 )
 
@@ -16,5 +17,6 @@ __all__ = [
     "full_step_mask",
     "init_cache",
     "init_model",
+    "schedule_mask_array",
     "schedule_step_masks",
 ]

@@ -22,6 +22,7 @@ import sys
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -111,6 +112,14 @@ def schedule_step_masks(schedule, config: PixArtConfig) -> list[StepMask]:
                 tuple(tuple(bool(v) for v in row) for row in arr[step])
             )
     return masks
+
+
+def schedule_mask_array(schedule, config: PixArtConfig) -> np.ndarray:
+    """Schedule → (steps, blocks, 3) bool array with step-0 forcing, the
+    form `PopulationDenoiser.denoise` takes."""
+    arr = np.array(schedule.to_numpy(), dtype=bool)
+    arr[0] = True
+    return arr
 
 
 class AdaLayerNormSingle(nn.Module):

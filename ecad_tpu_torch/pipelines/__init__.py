@@ -1,5 +1,16 @@
-from .flux_pipeline import FluxPipeline, FluxPipelineConfig
-from .pixart_pipeline import PixArtPipeline, PixArtPipelineConfig
+from .flux_pipeline import (
+    FluxPipeline,
+    FluxPipelineConfig,
+    FluxPopulationDenoiser,
+    SharedFluxStepper,
+)
+from .pixart_pipeline import (
+    PixArtPipeline,
+    PixArtPipelineConfig,
+    PopulationDenoiser,
+    SharedModelStepper,
+    cfg_dpm_step,
+)
 from .registry import PipelineRegistry, pipeline_from_config
 from .samplers import (
     DPMSolverSchedule,
@@ -16,11 +27,16 @@ from .tgate import PassThroughPixArtPipeline, TGATEPixArtPipeline
 __all__ = [
     "FluxPipeline",
     "FluxPipelineConfig",
+    "FluxPopulationDenoiser",
+    "SharedFluxStepper",
     "FlowMatchSchedule",
     "flow_step",
     "make_flow_schedule",
     "PixArtPipeline",
     "PixArtPipelineConfig",
+    "PopulationDenoiser",
+    "SharedModelStepper",
+    "cfg_dpm_step",
     "TGATEPixArtPipeline",
     "PassThroughPixArtPipeline",
     "PipelineRegistry",

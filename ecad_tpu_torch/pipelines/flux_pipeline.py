@@ -15,6 +15,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..models.flux import (
@@ -24,6 +25,7 @@ from ..models.flux import (
     unpack_latents,
 )
 from ..schedules.flux import FluxCacheSchedule
+from .pixart_pipeline import array_step_masks
 from .samplers import FlowMatchSchedule, flow_step, make_flow_schedule
 
 MODES = ("unrolled", "stepwise")
@@ -136,3 +138,34 @@ class FluxPipeline:
             generator=gen, device=self.device, dtype=torch.float32,
         ).to(c.model.dtype)
         return unpack_latents(self.denoise(noise, txt, pooled), *c.grid_hw)
+
+
+class SharedFluxStepper:
+    """One resident FLUX pipeline shared by a whole candidate population,
+    with each candidate's step masks (`flux_step_masks`) given per call
+    (see `SharedModelStepper`)."""
+
+    def __init__(self, pipeline: FluxPipeline):
+        self.pipeline = pipeline
+
+    def denoise(self, masks, noise, txt, pooled) -> torch.Tensor:
+        return self.pipeline.denoise(noise, txt, pooled, masks)
+
+
+class FluxPopulationDenoiser:
+    """One resident FLUX pipeline for a whole candidate population, with
+    each candidate's masks given per call as a (steps, blocks +
+    single_blocks, 3) bool array (see `PopulationDenoiser`: the reference's
+    one-compiled-program trade-off does not exist in eager PyTorch; the
+    array becomes Python-bool step masks for the pipeline's own loop)."""
+
+    def __init__(self, pipeline: FluxPipeline):
+        self.pipeline = pipeline
+
+    def denoise(self, masks, noise, txt, pooled) -> torch.Tensor:
+        c = self.pipeline.config
+        arr = np.asarray(masks, dtype=bool)
+        want = (c.num_inference_steps, c.model.num_blocks + c.model.num_single_blocks, 3)
+        if arr.shape != want:
+            raise ValueError(f"masks {arr.shape} != (steps, slots, 3) = {want}")
+        return self.pipeline.denoise(noise, txt, pooled, array_step_masks(arr))

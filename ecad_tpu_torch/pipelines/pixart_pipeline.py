@@ -21,6 +21,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from ..models.pixart import (
@@ -193,3 +194,82 @@ class PixArtPipeline:
             generator=gen, device=self.device, dtype=torch.float32,
         ).to(c.dtype)
         return self.denoise(noise, text, neg, text_mask, neg_mask)
+
+
+def dpm_update(x, prev_x0, co, eps):
+    """One DPM-Solver++(2M) update in scan form (the reference's
+    ``dpm_update``). `co` is one row of samplers.dpm_scan_coeffs; `eps` the
+    (already guidance-combined) noise prediction. Gives the same float32
+    values as `dpm_step` (tests/test_torch_search_eval.py)."""
+    sigma_t, alpha_t, c0, c1, d0, d1 = (float(v) for v in co[1:7])
+    x32 = x.float()
+    x0 = (x32 - sigma_t * eps.float()) / alpha_t
+    d = d0 * x0 + d1 * prev_x0
+    new_x = (c0 * x32 - c1 * d).to(x.dtype)
+    return new_x, x0
+
+
+def cfg_dpm_step(x, prev_x0, co, eps2, guidance_scale, in_channels):
+    """One classifier-free-guidance combine + DPM-Solver++(2M) update (the
+    reference's ``cfg_dpm_step``): `eps2` is the model output for the
+    [negative; positive] doubled batch."""
+    eps_neg, eps_pos = eps2[..., :in_channels].chunk(2, dim=0)
+    eps = eps_neg + guidance_scale * (eps_pos - eps_neg)
+    return dpm_update(x, prev_x0, co, eps)
+
+
+def array_step_masks(arr: np.ndarray) -> list[tuple]:
+    """(steps, slots, 3) bool array → per-step tuples of Python-bool
+    triples, the form the pipelines' step loops take."""
+    return [tuple(tuple(bool(v) for v in row) for row in step) for step in arr]
+
+
+class PopulationDenoiser:
+    """One resident pipeline for a whole candidate population, with each
+    candidate's recompute masks given per call as a (steps, blocks, 3) bool
+    array (the reference's ``PopulationDenoiser``).
+
+    The reference traces ONE program for every schedule (a lax.cond per
+    component, the step loop a lax.scan) and weighs its one compile against
+    the per-cond dispatch cost and lost cross-step fusion. In eager
+    PyTorch there is no program to compile, so that trade-off does not
+    exist here: the array becomes Python-bool step masks and the
+    pipeline's own step loop runs them, in which a cached component is
+    skipped, never computed and masked."""
+
+    def __init__(self, pipeline: PixArtPipeline):
+        self.pipeline = pipeline
+
+    def denoise(
+        self, masks, noise, text, neg, text_mask=None, neg_mask=None
+    ) -> torch.Tensor:
+        """masks: (steps, blocks, 3) bool array (the step-0 row should be
+        all True — apply `schedule_mask_array`'s step-0 forcing upstream)."""
+        c = self.pipeline.config
+        arr = np.asarray(masks, dtype=bool)
+        if arr.shape != (c.num_inference_steps, c.model.num_blocks, 3):
+            raise ValueError(
+                f"masks {arr.shape} != (steps, blocks, 3) = "
+                f"{(c.num_inference_steps, c.model.num_blocks, 3)}"
+            )
+        return self.pipeline.denoise(
+            noise, text, neg, text_mask, neg_mask, masks=array_step_masks(arr)
+        )
+
+
+class SharedModelStepper:
+    """One resident pipeline shared by a whole candidate population, with
+    each candidate's step masks (`schedule_step_masks`) given per call (the
+    reference's ``SharedModelStepper``). The pipeline's own schedule is
+    never touched, so candidates can share it."""
+
+    def __init__(self, pipeline: PixArtPipeline):
+        self.pipeline = pipeline
+
+    def denoise(
+        self, masks: list[StepMask], noise, text, neg,
+        text_mask=None, neg_mask=None,
+    ) -> torch.Tensor:
+        return self.pipeline.denoise(
+            noise, text, neg, text_mask, neg_mask, masks=masks
+        )

@@ -68,3 +68,83 @@ def test_flux_modlnorm_streams_split_the_norms_by_width(monkeypatch):
                               txt: streams["txt"], img + txt: streams["joint"]})
     want = cs.flux_expected_counts(pipe.masks, cfg.num_blocks, "attention")["modlnorm"]
     assert sum(streams.values()) == want
+
+
+def _counting(monkeypatch, cs, tally):
+    """Counts each attention call under the counter of its route
+    (`attention_counter`) and each modulated norm, as the card's wrappers
+    count their launches."""
+    from ecad_tpu_torch.models import common, pixart
+
+    attn, norm = common.fused_attention, pixart.modulated_layer_norm
+
+    def counted_attention(q, k, v, bias=None):
+        tally.update([cs.attention_counter(q.shape, k.shape[1], bias)])
+        return attn(q, k, v, bias)
+
+    def counted_norm(x, scale, shift):
+        tally.update(["modlnorm"])
+        return norm(x, scale, shift)
+
+    monkeypatch.setattr(common, "fused_attention", counted_attention)
+    monkeypatch.setattr(pixart, "modulated_layer_norm", counted_norm)
+
+
+def test_search_counts_sum_candidates_and_the_reference(monkeypatch, tmp_path):
+    """A generation of the tiny PixArt evaluated with the fidelity scorer
+    makes, over the whole run, the launches of every candidate's
+    step-0-forced masks plus one uncached reference trajectory; with no
+    text mask the cross-attention counts under the bias-free counter of its
+    route, as `search_expected_counts` has it."""
+    from ecad_tpu_torch.genetic.evaluate import CandidateEvaluator, EvalConfig
+    from ecad_tpu_torch.genetic.population_io import PixArtPopulationIOManager
+    from ecad_tpu_torch.models.pixart import PixArtConfig, init_model, schedule_mask_array
+    from ecad_tpu_torch.pipelines import PixArtPipeline, PixArtPipelineConfig
+    from ecad_tpu_torch.schedules import PixArtCacheSchedule
+
+    cs = _chip_smoke()
+    cfg = PixArtConfig.tiny(dtype=torch.float32)
+    steps, pop, prompts = 3, 4, 2
+    mgr = PixArtPopulationIOManager(
+        "count", tmp_path / "p", tmp_path / "b", population_size=pop,
+        num_inference_steps=steps,
+        default_schedule=PixArtCacheSchedule.default(steps, cfg.num_blocks))
+    X = np.random.default_rng(2).random((pop, mgr.n_var)) < 0.5
+    X[1, :6] = False  # a candidate that asks for cache reuse at step 0
+    mgr.save_population(X)
+    pipe = PixArtPipeline(PixArtPipelineConfig(cfg, steps), init_model(cfg, 0, "cpu"))
+    gen = torch.Generator().manual_seed(0)
+    text, neg = (torch.randn(prompts, cfg.text_len, cfg.caption_dim, generator=gen)
+                 for _ in range(2))
+    ev = CandidateEvaluator(pipe, text, neg, ["a", "b"],
+                            EvalConfig(scorer="fidelity", return_images=False))
+    tally = Counter()
+    _counting(monkeypatch, cs, tally)
+    ev.evaluate_generation(mgr, verbose=False)
+    masks = [schedule_mask_array(s, cfg) for _, s in mgr.load_population_schedules()]
+    reference = np.ones((steps, cfg.num_blocks, 3), dtype=bool)
+    want = cs.search_expected_counts(masks + [reference], cfg, prompts)
+    assert {k: n for k, n in want.items() if n} == dict(tally)
+    assert want["attention"] > 0 and want["attention_bias"] == 0
+    # the same run with one reference per candidate would count more
+    assert cs.search_expected_counts(masks + [reference] * pop, cfg, prompts) != want
+
+
+def test_search_cross_attention_route_without_a_text_mask():
+    """At PixArt-α 256² (256 queries, 120 text keys, D=72) the search's
+    cross-attention without a text mask takes the exact single-tile route
+    under ``attention`` (K1); served with its key-padding bias it counts
+    under ``attention_bias`` (K2), as ATTENTION_KERNELS[256] says."""
+    from ecad_tpu_torch.models.pixart import PixArtConfig
+
+    cs = _chip_smoke()
+    c = PixArtConfig()
+    shape = (8, c.tokens, c.num_heads, c.head_dim)
+    assert cs.attention_counter(shape, c.text_len) == "attention"
+    assert cs.attention_counter(shape, c.tokens) == "attention"
+    bias = torch.zeros(8, 1, 1, c.text_len)
+    assert cs.attention_counter(shape, c.text_len, bias) == cs.ATTENTION_KERNELS[256][1]
+    counts = cs.search_expected_counts([np.ones((20, 28, 3), bool)], c, 4)
+    served = cs.expected_counts([tuple(((True,) * 3,) * 28)] * 20)
+    assert counts["attention"] == served["attention"] + served["attention_bias"] == 1120
+    assert counts["attention_bias"] == 0 and counts["modlnorm"] == served["modlnorm"]

@@ -30,7 +30,14 @@ for name in names:
 for name in ("ecad_tpu_torch.graph.interpreter", "ecad_tpu_torch.graph.generators",
              "ecad_tpu_torch.pipelines.tgate", "ecad_tpu_torch.pipelines.registry",
              "ecad_tpu_torch.schedules.flux", "ecad_tpu_torch.models.flux",
-             "ecad_tpu_torch.pipelines.flux_pipeline", "ecad_tpu_torch.image_generators.flux"):
+             "ecad_tpu_torch.pipelines.flux_pipeline", "ecad_tpu_torch.image_generators.flux",
+             "ecad_tpu_torch.scoring", "ecad_tpu_torch.macs", "ecad_tpu_torch.genetic.problems",
+             "ecad_tpu_torch.genetic.nsga2", "ecad_tpu_torch.genetic.population_io",
+             "ecad_tpu_torch.genetic.evaluate", "ecad_tpu_torch.genetic.train",
+             "ecad_tpu_torch.schedules.generators.helpers",
+             "ecad_tpu_torch.schedules.generators.pixart_cache",
+             "ecad_tpu_torch.schedules.generators.flux_cache",
+             "ecad_tpu_torch.schedules.generate_cli"):
     assert name in names, name
 importlib.import_module("chip_smoke")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -46,4 +53,4 @@ def test_port_imports_without_jax_flax_or_ecad_tpu():
         text=True, timeout=300,
     )
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.strip().splitlines()[-1]) >= 37  # every module was walked
+    assert int(r.stdout.strip().splitlines()[-1]) >= 56  # every module was walked
