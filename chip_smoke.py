@@ -99,7 +99,28 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (8, 256, 256, 3) uint8. Checks the kernel launch counts of each
    trajectory against its schedule, and a small fp32 trajectory on the card
    against the plain path on the CPU.
-6. The search loop (``search``): ``ecad_tpu_torch.genetic.train.main`` in
+6. The benchmark tier (``benchmark``): the port's tools in this process at
+   full-width PixArt-α 256² (random bf16 weights), in a scratch directory
+   on copies of the schedule JSONs: ``generate_embeddings`` over the first
+   8 prompts of ``prompts/ImageRewardPrompts.json`` (hash encoder, text
+   masks); ``generate_images --schedule-dir`` over ``ours_fast``,
+   ``ours_faster`` and the default at batch 8 (one resident generator,
+   each schedule swapped in), with the K1 (self), K2 (masked cross) and K3
+   launches checked against the masks, the PNG counts, and a rerun that
+   skips every schedule with no launch; one profiled trajectory of the
+   tier's generator (``ours_fast`` with the random VAE) that must name the
+   Hopper kernels; ``compute_macs`` (``ours_fast``'s total_macs
+   2134989471744); ``score_images --scorer mock``; ``compute_fid
+   --extractor pixel_stats`` (the default tree against its own stats
+   within 1e-6, ``ours_fast`` against it finite and above 0);
+   ``compute_latency --random-vae`` on ``ours_fast`` and the default (2
+   warmups, 3 samples, batch 8; launches checked, ``metrics.latency.gpu``
+   the card's name). Then ``ecad_tpu_torch.bench``'s protocol at batch 32
+   (no text mask: the cross-attention on K1; each arm's launches checked),
+   uncached and ``ours_fast`` in 5 turns after 2 warmups each, and one
+   profiled run of each arm for its device idle share. Its numbers go on a
+   line of their own.
+7. The search loop (``search``): ``ecad_tpu_torch.genetic.train.main`` in
    this process at full-width PixArt-α 256² (random bf16 weights and
    prompt embeddings, 20 steps, the weight-free fidelity scorer), 8
    candidates × 4 prompts a generation, gen 0 seeded with the default
@@ -112,7 +133,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    against its plain version, and the launch counts over both runs against
    every evaluated candidate's masks plus each run's reference trajectory;
    times each generation and profiles one candidate's evaluation.
-7. Main path at 1024² (``main1024``): full-width PixArt-α 1024 (4096 image
+8. Main path at 1024² (``main1024``): full-width PixArt-α 1024 (4096 image
    tokens, the resolution and aspect-ratio conditions), batch 2 with CFG,
    under the repo's ``default_1024x1024`` schedule, ``ours_fast`` and the
    TGATE schedule ``tgate_m_010_sp_003_fi_001_warmup_002`` (gate at step
@@ -121,7 +142,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    against each schedule; and a tiny fp32 1024-style trajectory (size
    conditions, TGATE, 2304 tokens so that both K4 variants run) on the card
    against the plain path on the CPU.
-8. Main path at 2048² (``main2048``): full-width PixArt-Σ at 2048²
+9. Main path at 2048² (``main2048``): full-width PixArt-Σ at 2048²
    (16384 image tokens, a 256×256 latent, no size conditions, position
    embedding interpolated by 4), batch 1 with CFG, under Σ's
    ``gen_default/default.json`` and ``pixart_sigma_256/ours_fast.json``
@@ -131,7 +152,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    16384 → 120) and K3 checked against each schedule; and a tiny fp32
    trajectory with 8464 tokens, past 8192 so that self-attention takes the
    streaming route, on the card against the plain path on the CPU.
-9. FLUX (``flux``): full-width FLUX.1-dev (19 dual + 38 single blocks,
+10. FLUX (``flux``): full-width FLUX.1-dev (19 dual + 38 single blocks,
    d=3072, 24×128 heads, 512 text tokens, guidance embedding; 11.9 B
    seeded random bf16 parameters) from hash-encoder prompts, 20 flow-match
    Euler steps at guidance 5: 1024² at batch 1 under
@@ -148,7 +169,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the fidelity scorer, checked as the PixArt search); and a tiny fp32 FLUX
    trajectory (1536 joint tokens at D=128, the row-block route) on the
    card against the plain path on the CPU.
-10. Entry points (``cli``): ``ecad_tpu_torch.inference.cli
+11. Entry points (``cli``): ``ecad_tpu_torch.inference.cli
    PixArtAlphaImageGenerator`` with a prompt file, random weights and
    ``ours_fast``, again with the 1024 TGATE schedule at batch size 2,
    ``PixArtSigmaImageGenerator`` at ``--height 2048 --width 2048
@@ -158,8 +179,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the latent visualisation, as the reference writes them (256×256 for a
    2048² generation).
 
-Prints a ``{"kernels": [...]}`` line (X1's rows with ``two_call_ms``
-beside the contract's keys), then as its last line
+Prints a summary line, the ``benchmark`` phase's line, a ``{"kernels":
+[...]}`` line (X1's rows with ``two_call_ms`` beside the contract's keys),
+then as its last line
 ``{"ok": true, "device": {...}}``. A longer report (every check's error,
 device and host times, per-trajectory profiles, each phase's seconds, the
 nvcc/ptxas log) goes to ``--report`` (default
@@ -190,6 +212,8 @@ from ecad_tpu_torch.utils.timing import (
 
 ROOT = Path(__file__).resolve().parent
 OURS_FAST = ROOT / "schedules/schedules_in_paper/pixart_alpha_256/ours_fast.json"
+OURS_FASTER = ROOT / "schedules/schedules_in_paper/pixart_alpha_256/ours_faster.json"
+DEFAULT_256 = ROOT / "schedules/alpha_cache_schedules/gen_default/default.json"
 DEFAULT_1024 = (
     ROOT / "schedules/alpha_cache_schedules/gen_default_1024x1024/default_1024x1024.json"
 )
@@ -1622,17 +1646,21 @@ def attention_counter(q_shape: tuple, tk: int, bias=None) -> str:
     return name if bias is None else name + "_bias"
 
 
-def search_expected_counts(mask_arrays, config, batch: int) -> dict[str, int]:
-    """Launches of PixArt denoise calls on the search path, one
-    (steps, blocks, 3) step-0-forced mask array per call (each evaluated
-    candidate's, and each run's uncached reference trajectory's): as
-    `expected_counts`, but the evaluator passes no text mask (as the
-    reference's does), so the cross-attention counts under the counter of
-    its route without a bias — at PixArt-256's 256 queries → 120 keys the
-    exact single-tile route, K1 (``attention``), not K2."""
+def search_expected_counts(mask_arrays, config, batch: int,
+                           text_mask: bool = False) -> dict[str, int]:
+    """Launches of PixArt denoise calls, one (steps, blocks, 3) step-0-forced
+    mask array per call (on the search path each evaluated candidate's, and
+    each run's uncached reference trajectory's), each attention under the
+    counter of its route (`attention_counter`). The evaluator passes no
+    text mask (as the reference's does), so there the cross-attention
+    counts without a bias — at PixArt-256's 256 queries → 120 keys the
+    exact single-tile route, K1 (``attention``), not K2; the benchmark
+    tier's embeddings carry masks (``text_mask``), so its cross-attention
+    counts with the key-padding bias — K2 (``attention_bias``) there."""
     shape = (2 * batch, config.tokens, config.num_heads, config.head_dim)
     self_kernel = attention_counter(shape, config.tokens)
-    cross_kernel = attention_counter(shape, config.text_len)
+    bias = torch.zeros(2 * batch, 1, 1, config.text_len) if text_mask else None
+    cross_kernel = attention_counter(shape, config.text_len, bias)
     total = Counter(dict.fromkeys(COUNTERS, 0))
     for arr in mask_arrays:
         arr = np.asarray(arr, dtype=bool)
@@ -1915,6 +1943,260 @@ def main_path() -> dict:
     del model, vae, pipes
     torch.cuda.empty_cache()
     return result
+
+
+# ---------------------------------------------------------------------------
+# the benchmark tier
+# ---------------------------------------------------------------------------
+
+TIER_SCHEDULES = {"ours_fast": OURS_FAST, "ours_faster": OURS_FASTER, "default": DEFAULT_256}
+TIER_PROMPTS = 8
+OURS_FAST_MACS = 2134989471744  # the paper's ours_fast at PixArt-α 256²
+LATENCY_WARMUPS, LATENCY_SAMPLES = 2, 3
+FID_IMAGES_PER_PROMPT = 25  # 200 images of the default for its FID stats
+BENCH_TURNS = 5
+
+
+def tier_expected_counts(paths, batch: int, text_mask: bool = True) -> dict[str, int]:
+    """Launches of one full-width PixArt-α 256² trajectory a schedule file
+    (`search_expected_counts`); the tier's hash-encoder embeddings carry
+    text masks, so the cross-attention counts under K2."""
+    from ecad_tpu_torch.models.pixart import PixArtConfig, schedule_step_masks
+    from ecad_tpu_torch.schedules import PixArtCacheSchedule
+
+    config = PixArtConfig()
+    masks = [schedule_step_masks(PixArtCacheSchedule.from_json(p), config) for p in paths]
+    return search_expected_counts(masks, config, batch, text_mask=text_mask)
+
+
+def counted(fn) -> dict[str, int]:
+    """`fn()` with the launch counters set to 0 just before and read just
+    after a device sync."""
+    from ecad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    return launch_counts()
+
+
+def check_counts(label: str, counts: dict, want: dict) -> None:
+    log(f"  {label}: launches {counts}, schedules say {want}")
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts} != schedules {want}")
+
+
+def benchmark_phase(smi: str) -> dict:
+    """The port's benchmark tier at full-width PixArt-α 256² (random bf16
+    weights, hash-encoder prompts), in this process, in a scratch
+    directory, on copies of the schedule JSONs (compute_macs and
+    compute_latency write into the files they are given); then the port's
+    batch-32 bench in turns, with one profiled run of each arm."""
+    import tempfile
+
+    from ecad_tpu_torch import bench
+    from ecad_tpu_torch.benchmark import (
+        compute_fid,
+        compute_latency,
+        compute_macs,
+        generate_embeddings,
+        generate_images,
+        score_images,
+    )
+    from ecad_tpu_torch.image_generators import PixArtAlphaImageGenerator
+    from ecad_tpu_torch.utils.io import load_embedding_dir
+    from PIL import Image
+
+    log("benchmark phase: the benchmark tier at PixArt-α 256², then the batch-32 bench")
+    result = {}
+    scratch = ROOT / "build" / "ecad_tpu_torch"
+    scratch.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        items = json.loads((ROOT / "prompts/ImageRewardPrompts.json").read_text())
+        (tmp / "prompts.json").write_text(json.dumps(items[:TIER_PROMPTS]))
+        emb = tmp / "embeddings"
+        generate_embeddings.main(["PixArtAlphaImageGenerator", "--prompt-file",
+                                  str(tmp / "prompts.json"), "--output-dir", str(emb),
+                                  "--random-weights"])
+        entries = load_embedding_dir(emb)
+        if len(entries) != TIER_PROMPTS or entries[0]["prompt_embeds"].shape != (120, 4096):
+            raise AssertionError(f"embeddings: {len(entries)} files")
+        schedules = tmp / "schedules"
+        schedules.mkdir()
+        for name, path in TIER_SCHEDULES.items():
+            shutil.copy(path, schedules / f"{name}.json")
+        paths = [schedules / f"{name}.json" for name in TIER_SCHEDULES]
+
+        # the image tree: one resident generator, each schedule swapped in
+        images = tmp / "images"
+        argv = ["PixArtAlphaImageGenerator", "--input-embeddings", str(emb), "--output-dir",
+                str(images), "--schedule-dir", str(schedules), "--batch-size", str(BATCH),
+                "--random-weights"]
+        t0 = time.perf_counter()
+        counts = counted(lambda: generate_images.main(argv))
+        result["generate_images_s"] = time.perf_counter() - t0
+        check_counts("generate_images", counts, tier_expected_counts(paths, BATCH))
+        result["generate_images_launches"] = counts
+        pngs = {name: sorted((images / name).glob("*.png")) for name in TIER_SCHEDULES}
+        for name, files in pngs.items():
+            if len(files) != TIER_PROMPTS:
+                raise AssertionError(f"{name}: {len(files)} PNGs, expected {TIER_PROMPTS}")
+            arr = np.asarray(Image.open(files[0]))
+            if arr.shape != (32, 32, 3) or arr.dtype != np.uint8:  # the latent visualization
+                raise AssertionError(f"{files[0].name}: {arr.shape} {arr.dtype}")
+        stamps = {p: p.stat().st_mtime_ns for files in pngs.values() for p in files}
+        counts = counted(lambda: generate_images.main(argv))
+        if any(counts.values()) or {p: p.stat().st_mtime_ns for p in stamps} != stamps:
+            raise AssertionError(f"the rerun did work: launches {counts}")
+        log("  rerun: every schedule skipped, no launches")
+
+        # one trajectory of the tier's generator (denoise + random VAE),
+        # profiled: the Hopper kernels by name
+        gen = PixArtAlphaImageGenerator(random_weights=True, batch_size=BATCH,
+                                        schedule_path=paths[0])
+        gen.use_random_vae = True
+        wall = statistics.median(gen.generate_images_timed(entries) for _ in range(3))
+        prof = profile_trajectory(lambda: gen.generate_images_timed(entries), wall)
+        seen = prof["kernels"]
+        for family, kernel in SERVED_KERNELS["pixart256"].items():
+            if not any(kernel in k for k in seen.get(family, ())):
+                raise AssertionError(f"tier trajectory: no {kernel} under {family}: {seen}")
+        result["tier_trajectory"] = {"ms": wall, "profile": prof}
+        log(f"  tier trajectory (ours_fast, batch {BATCH}, random VAE): {wall:.3f} ms, "
+            f"idle share {prof['idle_share']:.4f}")
+        del gen
+
+        # MACs into the schedule copies
+        compute_macs.main(["--input-dir", str(schedules), "--overwrite"])
+        macs = {name: json.loads((schedules / f"{name}.json").read_text())["metrics"]
+                for name in TIER_SCHEDULES}
+        if macs["ours_fast"]["total_macs"] != OURS_FAST_MACS:
+            raise AssertionError(f"ours_fast MACs {macs['ours_fast']['total_macs']}")
+        result["total_macs_T"] = {k: m["total_macs_T"] for k, m in macs.items()}
+
+        # scores and FID
+        score_images.main(["--image-dir", str(images), "--prompt-file",
+                           str(tmp / "prompts.json"), "--scorer", "mock",
+                           "--exactly-n-images", str(TIER_PROMPTS)])
+        for name in TIER_SCHEDULES:
+            scores = json.loads((images / name / "scores.json").read_text())
+            if len(scores["avg_by_prompt"]) != TIER_PROMPTS:
+                raise AssertionError(f"{name} scores: {scores['avg_by_prompt']}")
+        # the default's FID tree: more images than pixel_stats has features
+        # (192), so its covariance has full rank and the self-FID carries
+        # only round-off
+        fid_images = tmp / "fid_images"
+        counts = counted(lambda: generate_images.main([
+            "PixArtAlphaImageGenerator", "--input-embeddings", str(emb), "--output-dir",
+            str(fid_images), "--schedule", str(schedules / "default.json"),
+            "--images-per-prompt", str(FID_IMAGES_PER_PROMPT), "--batch-size", str(BATCH),
+            "--random-weights"]))
+        check_counts("generate_images (FID tree)", counts, tier_expected_counts(
+            [schedules / "default.json"] * FID_IMAGES_PER_PROMPT, BATCH))
+        n_fid = len(list((fid_images / "default").glob("*.png")))
+        if n_fid != TIER_PROMPTS * FID_IMAGES_PER_PROMPT:
+            raise AssertionError(f"FID tree: {n_fid} PNGs")
+        stats = tmp / "default_stats.npz"
+        compute_fid.main(["--image-dir", str(fid_images / "default"), "--stats", str(stats),
+                          "--make-stats"])
+        fid = {}
+        for name, tree in (("default", fid_images), ("ours_fast", images)):
+            compute_fid.main(["--image-dir", str(tree / name), "--stats", str(stats)])
+            fid[name] = json.loads((tree / name / "fid_scores.json").read_text())["fid"]
+        if not (abs(fid["default"]) <= 1e-6 and np.isfinite(fid["ours_fast"])
+                and fid["ours_fast"] > 0):
+            raise AssertionError(f"FID {fid}")
+        result["fid_pixel_stats_vs_default"] = fid
+        result["fid_stats_images"] = n_fid
+
+        # the latency protocol at batch 8 with the random VAE
+        latency_dir = tmp / "latency"
+        latency_dir.mkdir()
+        timed = ("ours_fast", "default")
+        for name in timed:
+            shutil.copy(schedules / f"{name}.json", latency_dir / f"{name}.json")
+        counts = counted(lambda: compute_latency.main([
+            "PixArtAlphaImageGenerator", "--input-embeddings", str(emb), "--input-dir",
+            str(latency_dir), "--warmup-steps", str(LATENCY_WARMUPS), "--num-samples",
+            str(LATENCY_SAMPLES), "--batch-size", str(BATCH), "--random-weights",
+            "--random-vae"]))
+        runs = LATENCY_WARMUPS + LATENCY_SAMPLES
+        want = tier_expected_counts([latency_dir / f"{n}.json" for n in timed] * runs, BATCH)
+        check_counts("compute_latency", counts, want)
+        latency = {name: json.loads((latency_dir / f"{name}.json").read_text())["metrics"]
+                   ["latency"] for name in timed}
+        for name, lat in latency.items():
+            if lat["gpu"] != torch.cuda.get_device_name(0) or len(lat["latencies"]) != 3:
+                raise AssertionError(f"{name} metrics.latency {lat}")
+        result["compute_latency"] = latency
+        result["compute_latency_ratio"] = latency["default"]["avg"] / latency["ours_fast"]["avg"]
+        log(f"  compute_latency (batch {BATCH}, random VAE): "
+            f"{ {k: v['avg'] for k, v in latency.items()} } ms/img, ratio "
+            f"{result['compute_latency_ratio']:.4f}")
+    torch.cuda.empty_cache()
+
+    # the port's headline bench, batch 32, in turns, on one resident
+    # generator; first K1 and K3 at its shapes (CFG batch 64, no text mask)
+    b2 = 2 * bench.BATCH
+    result["bench_kernel_errors"] = search_kernel_checks(
+        "bench", [(b2, 256, 256, 16, 72), (b2, 256, 120, 16, 72)], (b2, 256, 1152))
+    gen, emb = bench.build("cuda")
+    arms = bench.arms()
+
+    def run(name):
+        return bench.run_arm(gen, emb, arms[name])
+
+    want = tier_expected_counts([DEFAULT_256, OURS_FAST], bench.BATCH, text_mask=False)
+    counts = [counted(lambda: run(name)) for name in bench.ARMS]
+    check_counts("bench arms (no text mask: cross-attention on K1)", sum_counts(counts), want)
+    result["bench_launches"] = dict(zip(bench.ARMS, counts))
+    out = bench.measure(gen, emb, arms, turns=BENCH_TURNS)
+    result["bench"] = out
+    d = out["detail"]
+    result["bench_profile"] = {}
+    for name in bench.ARMS:
+        prof = profile_trajectory(lambda: run(name), d[f"{name}_ms_per_image"] * bench.BATCH)
+        result["bench_profile"][name] = prof
+        log(f"  bench {name}: {d[f'{name}_ms_per_image']:.3f} ms/img "
+            f"(turns {d[f'{name}_ms_per_image_turns']}), idle share "
+            f"{prof['idle_share']:.4f}, device {prof['device_ms']}")
+    log(f"  bench ratio {out['value']:.4f} (per turn {d['ratio_per_turn']}), peak "
+        f"{d['peak_mem_gib']:.2f} GiB on {d['card']}")
+    if d["card"] != smi:
+        raise AssertionError(f"bench card {d['card']!r} != {smi!r}")
+    del gen, emb
+    torch.cuda.empty_cache()
+    return result
+
+
+def benchmark_line(smi: str, r: dict, seconds: float) -> dict:
+    """The benchmark phase's numbers for their own stdout line."""
+    d = r["bench"]["detail"]
+    lat = r["compute_latency"]
+    return {"benchmark": {
+        "card": smi,
+        "bench_batch32": {
+            "ms_per_img": {a: d[f"{a}_ms_per_image"] for a in ("uncached", "cached")},
+            "ms_per_img_range": {a: d[f"{a}_ms_per_image_range"]
+                                 for a in ("uncached", "cached")},
+            "ratio": r["bench"]["value"],
+            "ratio_per_turn": d["ratio_per_turn"],
+            "vs_baseline": r["bench"]["vs_baseline"],
+            "idle_share": {a: p["idle_share"] for a, p in r["bench_profile"].items()},
+            "peak_mem_gib": d["peak_mem_gib"],
+        },
+        "compute_latency_batch8": {
+            "ms_per_img": {k: v["avg"] for k, v in lat.items()},
+            "ms_per_img_samples": {k: v["latencies"] for k, v in lat.items()},
+            "ratio": r["compute_latency_ratio"],
+        },
+        "bench_kernel_max_abs_err": r["bench_kernel_errors"],
+        "tier_trajectory_idle_share": r["tier_trajectory"]["profile"]["idle_share"],
+        "fid_pixel_stats_vs_default": r["fid_pixel_stats_vs_default"],
+        "fid_stats_images": r["fid_stats_images"],
+        "phase_s": seconds,
+    }}
 
 
 SEARCH_POP = 8  # PixArt search: candidates a generation
@@ -2544,6 +2826,7 @@ def main() -> None:
     kernels = phase("kernels", kernel_phase, b2=2 * BATCH, b2_1024=2 * BATCH_1024)
     variants = phase("variants", variants_phase)
     REPORT["main_path"] = phase("main256", main_path)
+    REPORT["benchmark"] = phase("benchmark", benchmark_phase, smi)
     REPORT["search"] = phase("search", search_path)
     REPORT["main_path_1024"] = phase("main1024", main_path_1024)
     REPORT["main_path_2048"] = phase("main2048", main_path_2048)
@@ -2615,6 +2898,8 @@ def main() -> None:
                           for k in ks},
         "phase_s": seconds,
     }), flush=True)
+    print(json.dumps(benchmark_line(smi, REPORT["benchmark"], seconds["benchmark"])),
+          flush=True)
     # every row has the contract's keys; X1's also its two-call yardstick
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,10 +1,12 @@
 """ImageGenerator — the port's main object-oriented surface.
 
 Counterpart of ``ecad_tpu/image_generators/base.py``: encode_prompts,
-encode_and_save_prompts, generate_images (the reference's timing and
-saved-embedding drivers come with the benchmark slice). Generators run on
-``cuda`` unless constructed with ``device="cpu"``; without a GPU and
-without that request construction raises.
+encode_and_save_prompts, generate_images, and the entry points the benchmark
+tier calls (`set_schedule`, `generate_from_saved_prompts`,
+`generate_images_timed`, `time_image_generation`, `decode_latents_device`
+with `use_random_vae`). Generators run on ``cuda`` unless constructed with
+``device="cpu"``; without a GPU and without that request construction
+raises.
 
 This slice runs without checkpoints (``random_weights=True``: the exact
 architecture with seeded random parameters); loading a local
@@ -12,7 +14,9 @@ architecture with seeded random parameters); loading a local
 ``cache_dtype="float8_e4m3fn"``; the others reject it. A schedule JSON
 carries a cache schedule or a DiT topology schedule (``dit_schedule``),
 plus the config that picks the checkpoint, resolution and pipeline (with
-its kwargs, e.g. TGATE's ``gate_step``).
+its kwargs, e.g. TGATE's ``gate_step``). The reference's two execution
+modes ("unrolled", "stepwise") have no counterpart here: the port runs
+one eager step loop.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ import torch
 
 from .. import resolve_device
 from ..schedules.cache_schedule import CacheSchedule
-from ..utils.io import save_embedding
+from ..utils.io import load_embedding_dir, save_embedding
+from ..utils.timing import wall_ms
 
 
 class ImageGenerator(ABC):
@@ -42,6 +47,7 @@ class ImageGenerator(ABC):
 
     schedule_cls: type[CacheSchedule] = CacheSchedule
     supports_cache_dtype = False  # FLUX generators opt in
+    vae_latent_channels = 4  # the autoencoder `use_random_vae` builds
 
     def __init__(
         self,
@@ -83,6 +89,49 @@ class ImageGenerator(ABC):
         self._encoder = None
         self._pipeline = None
         self._model = None  # transformer, built once per generator
+        self._model_config = None  # the config `_model` was built for
+        self._vae = None  # VAE decoder pipeline, built once per generator
+        # decode through a random-weight VAE so the latency protocol carries
+        # the real decode cost without checkpoints (compute_latency
+        # --random-vae)
+        self.use_random_vae = False
+
+    def set_schedule(self, schedule_path) -> None:
+        """Point a resident generator at another schedule file, honoring
+        everything the schedule JSON carries (what its config leaves out
+        takes the class default, as in a generator built on the file, where
+        the reference keeps the previous file's). When only the recompute
+        masks changed the pipeline swaps them in place; otherwise it is rebuilt
+        around the resident model on the next generation (the model itself
+        is rebuilt only if the schedule asks for another architecture)."""
+        def pipeline_key():
+            return (self.num_inference_steps, self.pipeline_name,
+                    json.dumps(self.pipeline_kwargs, sort_keys=True), self.height,
+                    self.width, self.guidance_scale, self.transformer_weights)
+
+        old = pipeline_key()
+        cls = type(self)
+        self.transformer_weights = cls.default_transformer_weights
+        self.pipeline_weights = cls.default_pipeline_weights
+        self.pipeline_name = cls.default_pipeline
+        self.pipeline_kwargs = {}
+        self.height, self.width = cls.height, cls.width
+        self.guidance_scale = cls.guidance_scale
+        self.dit_schedule = None
+        self.cache_schedule = self._load_schedule_file(schedule_path)
+        pipe = self._pipeline
+        if pipe is not None and pipeline_key() == old and self.dit_schedule is None:
+            pipe.set_schedule(self.cache_schedule)
+            return
+        self._pipeline = None
+
+    def _resident_model(self, config, init_model):
+        """The transformer for `config`: the resident one when it was built
+        for the same config, else a fresh seeded one."""
+        if self._model is None or self._model_config != config:
+            self._model = init_model(config, 0, self.device)
+            self._model_config = config
+        return self._model
 
     # -- schedule / config resolution -------------------------------------
 
@@ -159,9 +208,14 @@ class ImageGenerator(ABC):
         """Latents → (N, H, W, 3) uint8 images (VAE or visualization)."""
 
     def _stack(self, embeddings, key: str, dtype=None) -> torch.Tensor:
-        """One embedding field of a batch, stacked on the generator's device."""
-        arr = np.stack([np.asarray(e[key]) for e in embeddings])
-        return torch.from_numpy(arr).to(device=self.device, dtype=dtype)
+        """One embedding field of a batch, stacked on the generator's device
+        (fields held as tensors are stacked where they lie)."""
+        vals = [e[key] for e in embeddings]
+        if isinstance(vals[0], torch.Tensor):
+            arr = torch.stack(vals)
+        else:
+            arr = torch.from_numpy(np.stack([np.asarray(v) for v in vals]))
+        return arr.to(device=self.device, dtype=dtype)
 
     # -- embedding round trip ----------------------------------------------
 
@@ -210,6 +264,89 @@ class ImageGenerator(ABC):
                     out.parent.mkdir(parents=True, exist_ok=True)
                     Image.fromarray(img).save(out)
         return all_images
+
+    def generate_from_saved_prompts(
+        self,
+        input_dir: Path | str,
+        output_dir: Path | str,
+        images_per_prompt: int = 1,
+        batch_size: Optional[int] = None,
+    ) -> int:
+        """Batched generation over an embeddings directory
+        (image_generator.py:366-421)."""
+        entries = load_embedding_dir(input_dir)
+        bs = batch_size or self.batch_size
+        count = 0
+        for lo in range(0, len(entries), bs):
+            batch = entries[lo : lo + bs]
+            imgs = self.generate_images(batch, images_per_prompt, output_dir)
+            count += len(imgs)
+        return count
+
+    # -- timing -------------------------------------------------------------
+
+    def _ensure_vae(self):
+        """The random-weight VAE when `use_random_vae` is set, else None
+        (a checkpoint's VAE waits with the other weights)."""
+        if self._vae is None and self.use_random_vae:
+            from ..models.vae import random_decoder_pipeline
+
+            self._vae = random_decoder_pipeline(self.vae_latent_channels, self.device)
+        return self._vae
+
+    def decode_latents_device(self, latents: torch.Tensor) -> torch.Tensor:
+        """Latents → uint8 images, left on the device: through the VAE when
+        one is attached (`use_random_vae`), else the weight-free latent
+        visualization (`latents_to_uint8` without the host copy)."""
+        vae = self._ensure_vae()
+        if vae is not None:
+            return vae.decode_device(latents)
+        x = torch.clamp(latents[..., :3].float() / 4.0 + 0.5, 0, 1)
+        return (x * 255).to(torch.uint8)
+
+    def generate_images_timed(
+        self, embeddings: list[dict[str, Any]], seed: int = 0
+    ) -> float:
+        """Wall-clock ms of one batch: the reference's timed region (the
+        full pipeline __call__, image_generator.py:442-487), denoise and
+        decode to uint8 pixels, ending at a device sync. The images stay on
+        the device: nothing in the region copies them to the host. Timed by
+        `wall_ms`: CUDA events from an idle device to a host sync, or
+        perf_counter on the CPU."""
+        return wall_ms(
+            lambda: self.decode_latents_device(self._generate_latents(embeddings, seed)),
+            self.device,
+        )
+
+    def time_image_generation(
+        self,
+        input_dir: Path | str,
+        warmup_steps: int = 10,
+        num_samples: int = 5,
+        batch_size: Optional[int] = None,
+    ) -> dict[str, Any]:
+        """Latency protocol of compute_latency.py:52-85: warmups, then timed
+        sample batches, per-image ms; the result is metrics.latency."""
+        entries = load_embedding_dir(input_dir)
+        bs = batch_size or self.batch_size
+        batch = (entries * ((bs // max(len(entries), 1)) + 1))[:bs]
+        warmups = [
+            self.generate_images_timed(batch, seed=s) for s in range(warmup_steps)
+        ]
+        latencies = [
+            self.generate_images_timed(batch, seed=s) for s in range(num_samples)
+        ]
+        per_image = [t / len(batch) for t in latencies]
+        return {
+            "avg": float(np.mean(per_image)),
+            "batch_size": len(batch),
+            "num_samples": num_samples,
+            "warmup_steps": warmup_steps,
+            "gpu": (torch.cuda.get_device_name(self.device)
+                    if self.device.type == "cuda" else "cpu"),
+            "warmups": [t / len(batch) for t in warmups],
+            "latencies": per_image,
+        }
 
     # -- misc ---------------------------------------------------------------
 

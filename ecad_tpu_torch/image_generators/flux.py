@@ -36,6 +36,7 @@ class FluxImageGenerator(ImageGenerator):
     default_pipeline = "flux"
     num_blocks = 19
     num_single_blocks = 38
+    vae_latent_channels = 16
     guidance_scale = 5.0
     text_len = 512
     joint_dim = 4096
@@ -83,8 +84,7 @@ class FluxImageGenerator(ImageGenerator):
         if not (self.random_weights or self.weights_root is None):
             raise NotImplementedError(_WEIGHTS_LATER)
         config = self.model_config()
-        if self._model is None:
-            self._model = init_model(config, 0, self.device)
+        model = self._resident_model(config, init_model)
         pcfg = FluxPipelineConfig(
             model=config,
             num_inference_steps=self.num_inference_steps,
@@ -92,7 +92,7 @@ class FluxImageGenerator(ImageGenerator):
             height=self.height,
             width=self.width,
         )
-        self._pipeline = FluxPipeline(pcfg, self._model, self.cache_schedule)
+        self._pipeline = FluxPipeline(pcfg, model, self.cache_schedule)
         return self._pipeline
 
     def encode_prompts(self, prompts: Sequence[str]) -> list[dict[str, Any]]:
@@ -122,7 +122,7 @@ class FluxImageGenerator(ImageGenerator):
 
     def decode_latents(self, latents) -> np.ndarray:
         # without checkpoints the images are the latent visualization, as
-        # in the reference
+        # in the reference, also with `use_random_vae`
         from ..genetic.evaluate import latents_to_uint8
 
         return latents_to_uint8(latents)
@@ -134,6 +134,9 @@ class TinyFluxImageGenerator(FluxImageGenerator):
 
     num_blocks = 2
     num_single_blocks = 3
+    # its latents have 4 channels (16 packed 2×2), which the random VAE
+    # decodes; the reference builds the 16-channel one and fails on them
+    vae_latent_channels = 4
     default_num_inference_steps = 4
     text_len = 8
     joint_dim = 32

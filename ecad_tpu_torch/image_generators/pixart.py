@@ -22,7 +22,8 @@ from .base import ImageGenerator
 
 _WEIGHTS_LATER = (
     "loading a local weights_root (T5, transformer, VAE) waits until "
-    "checkpoints are in the repository; use random_weights"
+    "checkpoints are in the repository (ROADMAP.md queue 1 item 5); use "
+    "random_weights"
 )
 
 
@@ -54,8 +55,7 @@ class PixArtImageGenerator(ImageGenerator):
         if not (self.random_weights or self.weights_root is None):
             raise NotImplementedError(_WEIGHTS_LATER)
         config = self.model_config()
-        if self._model is None:
-            self._model = init_model(config, 0, self.device)
+        model = self._resident_model(config, init_model)
         pcfg = PixArtPipelineConfig(
             model=config,
             num_inference_steps=self.num_inference_steps,
@@ -65,7 +65,7 @@ class PixArtImageGenerator(ImageGenerator):
             self.pipeline_name or "pixart_alpha", self.pipeline_kwargs
         )
         self._pipeline = cls(
-            pcfg, self._model, self.cache_schedule,
+            pcfg, model, self.cache_schedule,
             dit_schedule=self.dit_schedule, **kwargs,
         )
         return self._pipeline
@@ -106,12 +106,13 @@ class PixArtImageGenerator(ImageGenerator):
             tm = self._stack(embeddings, "prompt_attention_mask")
             nm = self._stack(embeddings, "negative_prompt_attention_mask")
         return pipe.generate_latents(
-            text, neg, seed=seed, text_mask=tm, neg_mask=nm
+            text, neg, seed=seed, text_mask=tm, neg_mask=nm,
         )
 
     def decode_latents(self, latents) -> np.ndarray:
         # without checkpoints the images are the latent visualization, as
-        # in the reference (a random-weight VAE would only add decode cost)
+        # in the reference, also with `use_random_vae` (a random-weight VAE
+        # adds the decode's cost, not an image)
         from ..genetic.evaluate import latents_to_uint8
 
         return latents_to_uint8(latents)

@@ -1,7 +1,8 @@
 """Device timing on one CUDA card, and the card's peaks for bounds.
 
-`device_ms` times a function's device work with CUDA events behind a spin
-kernel; `sampled_device_ms` does the same with the card's SM clock, power
+`wall_ms` times one run of a function from an idle device to a host sync
+(the latency protocol's timer); `device_ms` times a function's device work
+with CUDA events behind a spin kernel; `sampled_device_ms` does the same with the card's SM clock, power
 draw and temperature sampled just before and just after (`card_sample`);
 `card_name` is the card's name and power limit as ``nvidia-smi`` prints
 them, which every kept number carries beside it.
@@ -26,6 +27,24 @@ def bound_ms(bytes_: float, flops: float) -> tuple[float, str]:
     which of the two it is."""
     tb, tf = bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
+
+
+def wall_ms(fn, device) -> float:
+    """Wall ms of one run of `fn` on `device`: on a GPU, CUDA events around
+    a run that starts from an idle device and ends at a host sync of the
+    last event; on the CPU, `time.perf_counter` alone."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize(dev)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def device_ms(fn, reps: int = 7, inner: int = 20) -> tuple[float, float]:

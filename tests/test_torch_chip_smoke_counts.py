@@ -148,3 +148,77 @@ def test_search_cross_attention_route_without_a_text_mask():
     served = cs.expected_counts([tuple(((True,) * 3,) * 28)] * 20)
     assert counts["attention"] == served["attention"] + served["attention_bias"] == 1120
     assert counts["attention_bias"] == 0 and counts["modlnorm"] == served["modlnorm"]
+
+
+def test_benchmark_phase_counts_follow_the_route():
+    """The benchmark phase's expected launches at PixArt-α 256² (batch 8,
+    hash-encoder embeddings with text masks): for `ours_fast`,
+    `ours_faster` and the default, self-attention on K1 and the masked
+    cross-attention on K2 — the routes `attention_route` gives those shapes
+    — with the counts the served path's rule (`expected_counts`) takes from
+    the masks; the bench's arms (no text mask) count their
+    cross-attention under K1 instead."""
+    from ecad_tpu_torch.models.pixart import PixArtConfig, schedule_step_masks
+    from ecad_tpu_torch.ops import attention_route
+    from ecad_tpu_torch.schedules import PixArtCacheSchedule
+
+    cs = _chip_smoke()
+    c = PixArtConfig()
+    shape = (2 * cs.BATCH, c.tokens, c.num_heads, c.head_dim)
+    bias = torch.zeros(2 * cs.BATCH, 1, 1, c.text_len)
+    assert attention_route(shape, c.tokens) == attention_route(shape, c.text_len, bias) == "exact"
+    assert set(cs.TIER_SCHEDULES) == {"ours_fast", "ours_faster", "default"}
+    total = Counter()
+    for name, path in cs.TIER_SCHEDULES.items():
+        masks = schedule_step_masks(PixArtCacheSchedule.from_json(path), c)
+        want = cs.expected_counts(masks, 256)
+        got = cs.tier_expected_counts([path], cs.BATCH)
+        assert got == want, name
+        assert got["attention_bias"] == want["attention_bias"] > 0
+        total.update(got)
+        unmasked = cs.tier_expected_counts([path], 32, text_mask=False)
+        assert unmasked["attention"] == got["attention"] + got["attention_bias"]
+        assert unmasked["attention_bias"] == 0 and unmasked["modlnorm"] == got["modlnorm"]
+    assert cs.tier_expected_counts(list(cs.TIER_SCHEDULES.values()), cs.BATCH) == dict(total)
+    full = cs.tier_expected_counts([cs.DEFAULT_256], cs.BATCH)
+    assert full["attention"] == full["attention_bias"] == 20 * 28
+    assert full["modlnorm"] == 20 * 28 * 2 + 20
+
+
+def test_tier_image_tree_counts_sum_its_schedules(monkeypatch, tmp_path):
+    """generate_images over a two-schedule tree of the tiny PixArt, with
+    embeddings that carry text masks, makes the launches
+    `search_expected_counts(..., text_mask=True)` gives for the schedules'
+    masks: the cross-attention under the bias counter of its route; a
+    rerun makes none."""
+    from ecad_tpu_torch.benchmark import generate_embeddings, generate_images
+    from ecad_tpu_torch.models.pixart import PixArtConfig, schedule_step_masks
+    from ecad_tpu_torch.schedules import PixArtCacheSchedule
+    from ecad_tpu_torch.schedules.generators import pixart_cache, save_schedules
+
+    cs = _chip_smoke()
+    (tmp_path / "p.txt").write_text("a cat on a mat\nthe tower at night\none\n")
+    generate_embeddings.main(["TinyPixArtImageGenerator", "--prompt-file",
+                              str(tmp_path / "p.txt"), "--output-dir",
+                              str(tmp_path / "emb"), "--device", "cpu"])
+    sched = tmp_path / "s"
+    save_schedules((s for s in pixart_cache.gen_recompute_all_every_n(2, 4)
+                    if s.name == "recompute_all_every_002"), sched, verbose=False)
+    save_schedules(pixart_cache.gen_default(2, 4), sched, verbose=False)
+    argv = ["TinyPixArtImageGenerator", "--input-embeddings", str(tmp_path / "emb"),
+            "--output-dir", str(tmp_path / "img"), "--schedule-dir", str(sched),
+            "--batch-size", "2", "--device", "cpu"]
+    tally = Counter()
+    _counting(monkeypatch, cs, tally)
+    generate_images.main(argv)
+    cfg = PixArtConfig.tiny(dtype=torch.float32)
+    masks = [schedule_step_masks(PixArtCacheSchedule.from_json(p), cfg)
+             for p in sorted(sched.glob("*.json"))]
+    # 3 prompts at batch 2: two calls of each schedule, batches of 2 and 1
+    want = Counter(cs.search_expected_counts(masks, cfg, 2, text_mask=True))
+    want.update(cs.search_expected_counts(masks, cfg, 1, text_mask=True))
+    assert {k: n for k, n in want.items() if n} == dict(tally)
+    assert tally["attention_bias"] > 0
+    tally.clear()
+    generate_images.main(argv)
+    assert not tally
