@@ -142,7 +142,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    against each schedule; and a tiny fp32 1024-style trajectory (size
    conditions, TGATE, 2304 tokens so that both K4 variants run) on the card
    against the plain path on the CPU.
-9. Main path at 2048² (``main2048``): full-width PixArt-Σ at 2048²
+9. Serving quantization (``quant``): the int8 product (``torch._int_mm``
+   through ``ops/quant.py`` `int8_matmul`) held exact against the float64
+   product of its int8 operands at PixArt-1024's and FLUX-1024's
+   projection shapes (and FLUX's adaLN linear at one row, padded to 17),
+   each timed beside its bound, one bf16 ``F.linear`` and the whole
+   `int8_linear`; then full-width PixArt-α 1024² at batch 2 with CFG under
+   ``ours_fast`` and ``default_1024x1024``, bf16 and the four modes
+   (``int8``, ``int8_static``, ``int8_w``, ``int8_w_static``) on the same
+   weights (int8_w quantized from the bf16 model, the static modes
+   calibrated by the generator), each mode's K4, K3 and int8-product
+   launches checked against the masks, its one-forward and final-latents
+   error against bf16, ms/img in turns with bf16, peak memory, and one
+   profiled ``ours_fast`` run each split into the int8 product, the
+   quantize and dequant passes, the other GEMMs and the rest. FLUX.1-dev
+   1024² in ``int8_w`` and ``int8_w_static`` runs inside the flux phase,
+   on its weights (below).
+10. Main path at 2048² (``main2048``): full-width PixArt-Σ at 2048²
    (16384 image tokens, a 256×256 latent, no size conditions, position
    embedding interpolated by 4), batch 1 with CFG, under Σ's
    ``gen_default/default.json`` and ``pixart_sigma_256/ours_fast.json``
@@ -152,7 +168,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    16384 → 120) and K3 checked against each schedule; and a tiny fp32
    trajectory with 8464 tokens, past 8192 so that self-attention takes the
    streaming route, on the card against the plain path on the CPU.
-10. FLUX (``flux``): full-width FLUX.1-dev (19 dual + 38 single blocks,
+11. FLUX (``flux``): full-width FLUX.1-dev (19 dual + 38 single blocks,
    d=3072, 24×128 heads, 512 text tokens, guidance embedding; 11.9 B
    seeded random bf16 parameters) from hash-encoder prompts, 20 flow-match
    Euler steps at guidance 5: 1024² at batch 1 under
@@ -166,10 +182,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    caches stored as ``float8_e4m3fn`` (the same seeded weights), held to
    the same checks and set beside the bf16 caches' latents; one cycle of the
    search loop on the same resident model at 256² (4 candidates × 1 prompt,
-   the fidelity scorer, checked as the PixArt search); and a tiny fp32 FLUX
+   the fidelity scorer, checked as the PixArt search); the quant phase's
+   FLUX part (`flux_quant`): ``int8_w`` quantized from the resident bf16
+   model (which is then freed) and ``int8_w_static`` calibrated on it, at
+   1024² batch 1 under the default and ``fast_256_to_1024``, with the
+   launches of K5, K3 and the int8 products (the batch-1 adaLN linears'
+   among them, through the padded product) checked, the latents against
+   the bf16 runs' at the same noise, one timed run each, peak memory,
+   weight bytes and one profiled ``fast`` run of ``int8_w`` split as
+   PixArt's (the uncached 1536² and 256² trajectories are counted and
+   timed, not profiled, to keep the run under 900 s); and a tiny fp32 FLUX
    trajectory (1536 joint tokens at D=128, the row-block route) on the
    card against the plain path on the CPU.
-11. Entry points (``cli``): ``ecad_tpu_torch.inference.cli
+12. Entry points (``cli``): ``ecad_tpu_torch.inference.cli
    PixArtAlphaImageGenerator`` with a prompt file, random weights and
    ``ours_fast``, again with the 1024 TGATE schedule at batch size 2,
    ``PixArtSigmaImageGenerator`` at ``--height 2048 --width 2048
@@ -202,9 +227,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ecad_tpu_torch.ops.quant import MODES as QUANT_MODES
+from ecad_tpu_torch.ops.quant import STATIC_MODES, WEIGHT_MODES
 from ecad_tpu_torch.utils.timing import (
     BF16_FLOPS,
     HBM_BYTES_PER_S,
+    INT8_OPS,
     card_name,
     device_ms,
     sampled_device_ms,
@@ -249,7 +277,7 @@ REPORT: dict = {}
 COUNTERS = ("attention", "attention_bias", "attention_long", "attention_long_bias",
             "attention_rowblock", "attention_rowblock_bias", "attention_flash",
             "attention_flash_bias", "xattn_matmul_only", "xattn_nomax", "xattn_max",
-            "xattn_fd", "modlnorm")
+            "xattn_fd", "modlnorm", "int8_matmul")
 def std_bf16_tol(share: float):
     """The (atol, rtol) rule for a bf16 attention output over many keys, as
     a function of the plain version's output `want`: one bf16 ulp relative
@@ -1579,11 +1607,12 @@ for _kernels in SERVED_KERNELS.values():
     _kernels["modlnorm"] = "modlnorm_sm90_kernel"
 
 
-def expected_counts(masks, side: int = 256) -> dict[str, int]:
+def expected_counts(masks, side: int = 256, quant=None) -> dict[str, int]:
     """Launches per trajectory that a schedule's masks imply: one
     self-attention per recomputed attn1, one cross-attention per attn2 (in
     the kernels of ATTENTION_KERNELS[side]), one modlnorm per attn1 and ff
-    and one per step for the final norm."""
+    and one per step for the final norm; under a `quant` mode the int8
+    products of `pixart_int8_products`."""
     arr = np.array(masks, dtype=bool)  # (steps, blocks, 3), step 0 forced
     self_kernel, cross_kernel = ATTENTION_KERNELS[side]
     return {
@@ -1591,10 +1620,38 @@ def expected_counts(masks, side: int = 256) -> dict[str, int]:
         self_kernel: int(arr[..., 0].sum()),
         cross_kernel: int(arr[..., 1].sum()),
         "modlnorm": int(arr[..., 0].sum() + arr[..., 2].sum()) + arr.shape[0],
+        "int8_matmul": pixart_int8_products(arr) if quant else 0,
     }
 
 
-def flux_expected_counts(masks, num_blocks: int, attention: str) -> dict[str, int]:
+def pixart_int8_products(masks) -> int:
+    """The int8 products of one PixArt trajectory under a quant mode: four
+    per recomputed attn1 (q, k, v, out), two per attn2 (q, out: its k and v
+    are computed once a trajectory, two per block, from the text) and two
+    per ff (in, out)."""
+    arr = np.array(masks, dtype=bool)
+    return int(4 * arr[..., 0].sum() + 2 * arr[..., 1].sum() + 2 * arr[..., 2].sum()
+               + 2 * arr.shape[1])
+
+
+def flux_int8_products(masks, num_blocks: int, quant) -> int:
+    """The int8 products of one FLUX trajectory under a quant mode: eight per
+    recomputed full_attn (q, k, v and out of each stream), two per full_ff
+    and per full_ff_context, three per single_attn (q, k, v), one per
+    single_proj_mlp and per single_proj_out; in the weight-storage modes
+    also every adaLN linear at every step (two a dual block, one a single
+    block), recomputed or not: the gates need them."""
+    arr = np.array(masks, dtype=bool)  # (steps, blocks + single blocks, 3)
+    full, single = arr[:, :num_blocks], arr[:, num_blocks:]
+    n = int(8 * full[..., 0].sum() + 2 * full[..., 1].sum() + 2 * full[..., 2].sum()
+            + 3 * single[..., 0].sum() + single[..., 1].sum() + single[..., 2].sum())
+    if quant in WEIGHT_MODES:
+        n += arr.shape[0] * (2 * num_blocks + single.shape[1])
+    return n
+
+
+def flux_expected_counts(masks, num_blocks: int, attention: str,
+                         quant=None) -> dict[str, int]:
     """Launches per FLUX trajectory that a schedule's masks imply: one joint
     attention per recomputed full_attn or single_attn on the counter
     `attention` of its route (FLUX-256's 768 tokens: the exact kernel K1,
@@ -1604,7 +1661,8 @@ def flux_expected_counts(masks, num_blocks: int, attention: str) -> dict[str, in
     full_attn, one for full_ff with full_ff_context when both are
     recomputed and one for either alone, one per single block whose
     attention or MLP projection is recomputed (they share its norm), and
-    one per step for the final norm."""
+    one per step for the final norm; under a `quant` mode the int8
+    products of `flux_int8_products`."""
     arr = np.array(masks, dtype=bool)  # (steps, blocks + single blocks, 3)
     full, single = arr[:, :num_blocks], arr[:, num_blocks:]
     attn = int(full[..., 0].sum() + single[..., 0].sum())
@@ -1612,6 +1670,7 @@ def flux_expected_counts(masks, num_blocks: int, attention: str) -> dict[str, in
         **dict.fromkeys(COUNTERS, 0),
         attention: attn,
         "modlnorm": sum(flux_modlnorm_streams(masks, num_blocks).values()),
+        "int8_matmul": flux_int8_products(masks, num_blocks, quant) if quant else 0,
     }
 
 
@@ -1775,10 +1834,46 @@ def kernel_family(name: str) -> str:
     return "other"
 
 
-def profile_trajectory(fn, wall_ms: float) -> dict:
+# the profiler ranges ops/quant.py opens around its quantize pass, its
+# product and its dequant pass; on the device timeline each shows as an
+# annotation spanning the range's kernels, not as a kernel
+QUANT_SPANS = ("int8_quantize", "int8_gemm", "int8_dequant")
+
+
+def quant_split(prof) -> dict:
+    """Device ms of a profiled run by part: the kernels that start inside a
+    `QUANT_SPANS` range's device annotation (one stream, so the kernels of
+    a range run between its first and last) count for that range, every
+    other kernel by `kernel_family` (``gemm`` then is the bf16 GEMMs,
+    ``other`` the rest of the elementwise work); the quant parts also by
+    kernel name. Each device kernel counts once."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in device if e.name in QUANT_SPANS)
+    starts = [r[0] for r in ranges]
+    ms, names = Counter(), {}
+    for evt in device:
+        if evt.name in QUANT_SPANS:
+            continue
+        t = evt.time_range.start
+        i = bisect.bisect_right(starts, t) - 1
+        part = ranges[i][2] if i >= 0 and t < ranges[i][1] else None
+        us = evt.time_range.elapsed_us()
+        ms[part or kernel_family(evt.name)] += us / 1e3
+        if part:
+            names.setdefault(part, Counter())[evt.name[:100]] += us / 1e3
+    return {"device_ms": dict(ms), "total_ms": sum(ms.values()), "ranges": len(ranges),
+            "kernels": {p: dict(c.most_common(8)) for p, c in names.items()}}
+
+
+def profile_trajectory(fn, wall_ms: float, split: bool = False) -> dict:
     """Device time of one trajectory (denoise + decode) by kernel family,
     from torch.profiler, and the device's busy share of the unprofiled
-    wall time `wall_ms` of the same work."""
+    wall time `wall_ms` of the same work; with `split`, also `quant_split`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1794,6 +1889,8 @@ def profile_trajectory(fn, wall_ms: float) -> dict:
         if evt.device_type != DeviceType.CUDA:
             host_ops.append((evt.self_cpu_time_total / 1e3, evt.count, evt.key))
             continue
+        if evt.key in QUANT_SPANS:
+            continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
@@ -1808,6 +1905,7 @@ def profile_trajectory(fn, wall_ms: float) -> dict:
     host_ops.sort(reverse=True)
     other.sort(reverse=True)
     return {
+        **({"split": quant_split(prof)} if split else {}),
         "device_ms": fams,
         "busy_ms": busy,
         "wall_ms": wall_ms,
@@ -1843,13 +1941,15 @@ def path_inputs(config, batch: int) -> dict:
 
 
 def drive(pipes: dict, inputs: dict, decode, batch: int, side: int, want_counts,
-          order: tuple, kernels: dict) -> dict:
+          order: tuple, kernels: dict, latents_out: dict | None = None,
+          profiled: tuple | None = None) -> dict:
     """Each pipeline once with the launch counters set to 0 just before and
     read just after (checked against `want_counts(pipe)`, with the image
-    shape and finite latents); then ms/img from synchronized runs taken in
-    `order`; then one profiled run each, whose profile must show, for each
-    family of `kernels`, the device kernel named there. `decode` turns a
-    trajectory's latents into uint8 images on the card."""
+    shape and finite latents; each run's latents kept in `latents_out`);
+    then ms/img from synchronized runs taken in `order`; then one profiled
+    run of each (of those named in `profiled`, if given), whose profile
+    must show, for each family of `kernels`, the device kernel named there.
+    `decode` turns a trajectory's latents into uint8 images on the card."""
     from ecad_tpu_torch.ops import launch_counts, reset_launch_counts
 
     def run(pipe):
@@ -1872,6 +1972,8 @@ def drive(pipes: dict, inputs: dict, decode, batch: int, side: int, want_counts,
         if not torch.isfinite(latents.float()).all():
             raise AssertionError(f"{name}: non-finite latents")
         result[name] = {"launches": counts, "latents_std": float(latents.float().std())}
+        if latents_out is not None:
+            latents_out[name] = latents
 
     times = {name: [] for name in pipes}
     for name in order:
@@ -1885,6 +1987,8 @@ def drive(pipes: dict, inputs: dict, decode, batch: int, side: int, want_counts,
         result[name]["ms_per_img_runs"] = times[name]
         log(f"  {name}: {result[name]['ms_per_img']:.3f} ms/img (runs {times[name]})")
     for name, pipe in pipes.items():
+        if profiled is not None and name not in profiled:
+            continue
         result[name]["profile"] = profile_trajectory(
             lambda: run(pipe), result[name]["ms_per_img"] * batch
         )
@@ -2438,6 +2542,319 @@ def main_path_1024() -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# serving quantization
+# ---------------------------------------------------------------------------
+
+# the int8 product at served shapes, (rows, in, out): PixArt-1024's
+# projections at CFG batch 4 (q, k, v and out; ff in; ff out), FLUX-1024's
+# joint stream (q, k, v; proj_mlp; proj_out) and its adaLN linear at batch 1
+# (one row, padded to 17)
+INT8_SHAPES = {
+    "pixart1024_qkvo": (16384, 1152, 1152),
+    "pixart1024_ff_in": (16384, 1152, 4608),
+    "pixart1024_ff_out": (16384, 4608, 1152),
+    "flux1024_joint_qkv": (4608, 3072, 3072),
+    "flux1024_proj_mlp": (4608, 3072, 12288),
+    "flux1024_proj_out": (4608, 15360, 3072),
+    "flux1024_adanorm": (1, 3072, 18432),
+}
+
+
+def int8_product_checks() -> dict:
+    """At each served shape: the int8 product (`int8_matmul`, one
+    ``torch._int_mm``) equal to the float64 product of the same int8
+    operands (exact: every sum is far below 2^53), and its device ms beside
+    its bound (int8 operations at 1,979 TOP/s, or bytes), one bf16
+    ``F.linear`` of the same shape, and the whole `int8_linear` (quantize,
+    product, dequant) with its weight already quantized."""
+    from torch.nn import functional as F
+
+    from ecad_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    for name, (m, k, n) in INT8_SHAPES.items():
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((n, k), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+        bias = torch.zeros(n, device="cuda", dtype=torch.bfloat16)
+        wq = quant.quantize_weight(w)
+        xq, _ = quant.quantize_int8(x, -1)
+        acc = quant.int8_matmul(xq, wq[0])
+        if not torch.equal(acc.double(), xq.double() @ wq[0].double().t()):
+            raise AssertionError(f"int8 product at {name} {(m, k, n)} is not exact")
+        tb = (m * k + n * k + 4 * m * n) / HBM_BYTES_PER_S
+        tf = 2 * m * k * n / INT8_OPS
+        rows[name] = {
+            "shape": (m, k, n),
+            "int8_ms": timed_ms(f"int8_{name}", lambda: quant.int8_matmul(xq, wq[0])),
+            "bound_ms": max(tb, tf) * 1e3, "bound_by": "bytes" if tb >= tf else "operations",
+            "bf16_linear_ms": timed_ms(f"bf16_linear_{name}", lambda: F.linear(x, w, bias)),
+            "int8_linear_ms": timed_ms(f"int8_linear_{name}",
+                                       lambda: quant.int8_linear(x, w, bias, weight_q=wq)),
+            "int8_linear_rel_err": rel_err(quant.int8_linear(x, w, bias, weight_q=wq),
+                                           F.linear(x, w, bias)),
+        }
+        log(f"  int8 product {name} {(m, k, n)}: exact; {rows[name]}")
+    return rows
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """‖got − want‖ / ‖want‖, in fp32 (the reference's tests' `_rel_err`)."""
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-9))
+
+
+def weight_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def quant_variant(model, gen, quant: str) -> tuple:
+    """`model`'s architecture in a quant mode on its own weights (`rebuild`:
+    int8 and int8_static share them; int8_w quantizes float weights and
+    shares int8 ones); a static mode calibrated by the generator's
+    `_calibrate_static_scales` on the variant first. Returns the model and
+    the calibration's seconds (None for a dynamic mode)."""
+    from ecad_tpu_torch.models.common import rebuild
+
+    config = dataclasses.replace(model.config, quant=quant, act_scales=None)
+    variant = rebuild(model, config)
+    if quant not in STATIC_MODES:
+        return variant, None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = gen._calibrate_static_scales(variant)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    log(f"  {quant}: calibrated {len(table)} sites in {seconds:.2f} s")
+    return rebuild(model, dataclasses.replace(config, act_scales=table)), seconds
+
+
+def quant_runs(label: str, pipes: dict, inputs: dict, batch: int, want_counts,
+               turns: int, profiled: tuple = (), ref=None) -> dict:
+    """`turns` synchronized passes over the modes' pipelines, each pass in
+    the reverse order of the one before; ms/img the median of each mode's.
+    In the first pass the launch counters are set to 0 just before each run
+    and read just after (checked against `want_counts(pipe, mode)`), the
+    peak memory is reset just before, and the final latents are kept for
+    their relative error against bf16's (``pipes["bf16"]``'s, or `ref`).
+    One profiled run of each quant mode named in `profiled` (bf16's is the
+    main paths'), split by quant part (`quant_split`), which must show the
+    int8 product, the quantize and the dequant. Denoise only: the VAE
+    decode is the same in every mode."""
+    from ecad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    result, latents = {}, {}
+    times = {mode: [] for mode in pipes}
+    modes = list(pipes)
+    for turn in range(turns):
+        for mode in modes if turn % 2 == 0 else modes[::-1]:
+            torch.cuda.synchronize()
+            if turn == 0:
+                torch.cuda.reset_peak_memory_stats()
+                reset_launch_counts()
+            t0 = time.perf_counter()
+            out = pipes[mode].denoise(**inputs)
+            torch.cuda.synchronize()
+            times[mode].append((time.perf_counter() - t0) * 1e3 / batch)
+            if turn == 0:
+                counts = launch_counts()
+                check_counts(f"{label} {mode}", counts, want_counts(pipes[mode], mode))
+                if not torch.isfinite(out.float()).all():
+                    raise AssertionError(f"{label} {mode}: non-finite latents")
+                latents[mode] = out
+                result[mode] = {"launches": counts,
+                                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    ref = latents["bf16"] if ref is None else ref
+    for mode in pipes:
+        result[mode]["latents_rel_err"] = rel_err(latents[mode], ref)
+        result[mode]["ms_per_img"] = statistics.median(times[mode])
+        result[mode]["ms_per_img_runs"] = times[mode]
+    for mode, pipe in pipes.items():
+        if mode in profiled:
+            prof = profile_trajectory(lambda: pipe.denoise(**inputs),
+                                      result[mode]["ms_per_img"] * batch, split=True)
+            result[mode]["profile"] = prof
+            parts = prof["split"]["device_ms"]
+            if not all(parts.get(p, 0) > 0 for p in QUANT_SPANS):
+                raise AssertionError(f"{label} {mode}: the profile misses a quant part: {parts}")
+    for mode in pipes:
+        r = result[mode]
+        log(f"  {label} {mode}: {r['ms_per_img']:.3f} ms/img (runs {r['ms_per_img_runs']}), "
+            f"latents rel err {r['latents_rel_err']:.4g}, peak {r['peak_mem_gib']:.2f} GiB"
+            + (f", split {r['profile']['split']}" if "profile" in r else ""))
+    return result
+
+
+def quant_path() -> dict:
+    """PixArt-α 1024² at full width (random bf16 weights), batch 2 with CFG,
+    20 steps under ``default_1024x1024`` and ``ours_fast``: bf16 and the
+    four quant modes on the same weights (int8_w quantized from the bf16
+    model, each static mode calibrated by the generator), each mode's
+    launches (K4, K3 and the int8 products) checked against the masks, its
+    one-forward and final-latents error against bf16, ms/img in turns with
+    bf16 (two under ``ours_fast``, one under the default: the checked
+    runs), peak memory, and one profiled ``ours_fast`` run of each quant
+    mode split into the
+    int8 product, the quantize and dequant passes, the bf16 GEMMs and the
+    rest. The int8 product itself is first checked exact at every served
+    shape and timed against one bf16 ``F.linear``."""
+    from ecad_tpu_torch.image_generators.pixart import PixArtAlphaImageGenerator
+    from ecad_tpu_torch.models.common import rebuild
+    from ecad_tpu_torch.models.pixart import PixArtConfig, full_step_mask, init_cache, init_model
+    from ecad_tpu_torch.ops.quant import calibrate_dense_amax, merge_amax
+    from ecad_tpu_torch.pipelines import PixArtPipeline, PixArtPipelineConfig
+    from ecad_tpu_torch.schedules import PixArtCacheSchedule
+
+    log("quant: the int8 product at the served shapes")
+    result = {"int8_products": int8_product_checks()}
+    log("quant: PixArt-α 1024, full width, batch 2, 20 steps, bf16 and "
+        f"{', '.join(QUANT_MODES)}")
+    config = PixArtConfig(sample_size=128, use_additional_conditions=True)
+    models = {"bf16": init_model(config, 0, "cuda")}
+    gen = PixArtAlphaImageGenerator(schedule_path=DEFAULT_1024, random_weights=True,
+                                    device="cuda")
+    result["calibration_s"] = {}
+    for mode in QUANT_MODES:
+        base = models["int8_w"] if mode == "int8_w_static" else models["bf16"]
+        models[mode], seconds = quant_variant(base, gen, mode)
+        if seconds is not None:
+            result["calibration_s"][mode] = seconds
+    result["weight_bytes"] = {m: weight_bytes(models[m]) for m in ("bf16", "int8_w")}
+
+    # served as the generator serves them: its encoder's embeddings and text
+    # masks (the statistics the static modes were calibrated on), seeded noise
+    entries = gen.encode_prompts(["a red bicycle leaning on a wall", "a bowl of ramen"])
+    noise_gen = torch.Generator(device="cuda").manual_seed(0)
+    inp = dict(
+        noise=torch.randn((BATCH_1024, config.sample_size, config.sample_size,
+                           config.in_channels), generator=noise_gen,
+                          device="cuda").to(config.dtype),
+        text=gen._stack(entries, "prompt_embeds", config.dtype),
+        neg=gen._stack(entries, "negative_prompt_embeds", config.dtype),
+        text_mask=gen._stack(entries, "prompt_attention_mask"),
+        neg_mask=gen._stack(entries, "negative_prompt_attention_mask"))
+    # one forward at t = 500 of every block: each mode against bf16 (and
+    # the int8 weights of the int8 modes quantized before any timed run)
+    b2 = 2 * BATCH_1024
+    args = (torch.cat([inp["noise"]] * 2), torch.cat([inp["neg"], inp["text"]]),
+            torch.full((b2,), 500.0, device="cuda"), init_cache(config, b2),
+            full_step_mask(config))
+    kwargs = dict(text_mask=torch.cat([inp["neg_mask"], inp["text_mask"]]),
+                  resolution=torch.full((b2, 2), 1024.0, device="cuda"),
+                  aspect_ratio=torch.ones((b2,), device="cuda"))
+    with torch.inference_mode():
+        want = models["bf16"](*args, **kwargs)[0]
+        result["forward_rel_err"] = {
+            m: rel_err(models[m](*args, **kwargs)[0], want) for m in QUANT_MODES}
+    log(f"  one forward, rel err against bf16: {result['forward_rel_err']}")
+    # the generator calibrates as the reference does, without the text mask
+    # that the served cross-attention takes; the same recipe with the
+    # encoder's masks, for comparison (the modes keep the reference's)
+    cal = gen.encode_prompts(["a detailed photograph"])
+    cal_args = (inp["noise"], torch.cat([gen._stack(cal, "negative_prompt_embeds", config.dtype),
+                                         gen._stack(cal, "prompt_embeds", config.dtype)]))
+    cal_kwargs = dict(text_mask=torch.cat([gen._stack(cal, "negative_prompt_attention_mask"),
+                                           gen._stack(cal, "prompt_attention_mask")]),
+                      resolution=kwargs["resolution"][:2], aspect_ratio=kwargs["aspect_ratio"][:2])
+    table = merge_amax(*(
+        calibrate_dense_amax(models["bf16"], *cal_args, torch.full((2,), t, device="cuda"),
+                             init_cache(config, 2), full_step_mask(config), **cal_kwargs)
+        for t in (999.0, 500.0, 20.0)))
+    masked = rebuild(models["bf16"], dataclasses.replace(
+        config, quant="int8_static", act_scales=tuple(sorted(table.items()))))
+    with torch.inference_mode():
+        result["forward_rel_err_masked_calibration"] = rel_err(masked(*args, **kwargs)[0], want)
+    del masked
+    log("  int8_static calibrated with the text masks, one forward: rel err "
+        f"{result['forward_rel_err_masked_calibration']:.4g}")
+
+    modes = ("bf16", *QUANT_MODES)
+    for name, path, turns, profiled in (("ours_fast", OURS_FAST, 2, QUANT_MODES),
+                                        ("default", DEFAULT_1024, 1, ())):
+        sched = PixArtCacheSchedule.from_json(path)
+        pipes = {m: PixArtPipeline(PixArtPipelineConfig(model=models[m].config,
+                                                        num_inference_steps=STEPS),
+                                   models[m], sched) for m in modes}
+        result[name] = quant_runs(
+            f"PixArt-1024 {name}", pipes, inp, BATCH_1024,
+            lambda pipe, mode: expected_counts(pipe.masks, 1024, None if mode == "bf16" else mode),
+            turns, profiled)
+    del models, pipes
+    torch.cuda.empty_cache()
+    return result
+
+
+def quant_summary(pixart: dict, flux: dict) -> dict:
+    """The quant runs' numbers for the summary line: per size, schedule and
+    mode ms/img, the latents' error against bf16, peak GiB and int8
+    products; each profiled run's device ms by part."""
+    def runs(r, schedules):
+        return {s: {m: {"ms_per_img": v["ms_per_img"], "latents_rel_err": v["latents_rel_err"],
+                        "peak_mem_gib": v["peak_mem_gib"],
+                        "int8_matmul": v["launches"]["int8_matmul"],
+                        **({"split_ms": v["profile"]["split"]["device_ms"]}
+                           if "profile" in v else {})}
+                    for m, v in r[s].items()} for s in schedules}
+
+    return {
+        "pixart1024": {**runs(pixart, ("ours_fast", "default")),
+                       **{k: pixart[k] for k in ("calibration_s", "forward_rel_err",
+                                                 "forward_rel_err_masked_calibration",
+                                                 "weight_bytes")}},
+        "flux1024": {**runs(flux, ("fast", "default")),
+                     **{k: flux[k] for k in ("calibration_s", "weight_bytes", "seconds")}},
+        "int8_products": {k: {f: v[f] for f in ("int8_ms", "bound_ms", "bf16_linear_ms",
+                                                "int8_linear_ms")}
+                          for k, v in pixart["int8_products"].items()},
+    }
+
+
+def flux_quant(holder: list, config, inputs, bf16_latents: dict) -> dict:
+    """FLUX.1-dev 1024² at batch 1 in int8_w and int8_w_static, made from the
+    flux phase's resident bf16 model (``holder``'s one item, dropped once
+    int8_w is made from it, so that the two never serve side by side), under
+    the default and ``fast_256_to_1024``: launches (K5, K3, the int8
+    products, the adaLN linears' among them) checked, the final latents
+    against the flux phase's bf16 ones at the same noise, one timed run
+    each, the checked one (the device is busy > 92 % there), peak memory,
+    weight bytes, and one profiled ``fast`` run of int8_w split by quant
+    part (int8_w_static's profile differs from it only in the quantize
+    pass, as PixArt's show; profiling it too pushed the run past 900 s)."""
+    from ecad_tpu_torch.image_generators.flux import FluxImageGenerator
+    from ecad_tpu_torch.pipelines import FluxPipeline, FluxPipelineConfig
+    from ecad_tpu_torch.schedules import FluxCacheSchedule
+
+    log("quant: FLUX.1-dev 1024², batch 1, int8_w and int8_w_static")
+    t0 = time.perf_counter()
+    model = holder.pop()
+    gen = FluxImageGenerator(schedule_path=FLUX_DEFAULT_1024, random_weights=True,
+                             device="cuda")
+    result = {"weight_bytes": {"bf16": weight_bytes(model)}}
+    w8, _ = quant_variant(model, gen, "int8_w")
+    del model
+    torch.cuda.empty_cache()
+    ws, result["calibration_s"] = quant_variant(w8, gen, "int8_w_static")
+    result["weight_bytes"]["int8_w"] = weight_bytes(w8)
+    models = {"int8_w": w8, "int8_w_static": ws}
+    load = FluxCacheSchedule.from_json
+    for name, sched in (("default", load(FLUX_DEFAULT_1024)), ("fast", load(FLUX_FAST_1024))):
+        pipes = {m: FluxPipeline(FluxPipelineConfig(model.config, STEPS, guidance_scale=5.0,
+                                                    height=1024, width=1024), model, sched)
+                 for m, model in models.items()}
+        result[name] = quant_runs(
+            f"FLUX-1024 {name}", pipes, inputs(BATCH_FLUX_1024, pipes["int8_w"].config),
+            BATCH_FLUX_1024,
+            lambda pipe, mode: flux_expected_counts(pipe.masks, config.num_blocks,
+                                                    "attention_rowblock", mode),
+            1, ("int8_w",) if name == "fast" else (), ref=bf16_latents[name])
+    del models, pipes, w8, ws
+    torch.cuda.empty_cache()
+    result["seconds"] = time.perf_counter() - t0
+    log(f"  FLUX-1024 weights {result['weight_bytes']} bytes; {result['seconds']:.1f} s")
+    return result
+
+
 def main_path_2048() -> dict:
     """Full-width PixArt-Σ at 2048² (the 2K checkpoint's shapes: a 256×256
     latent, 16384 image tokens, no size conditions), batch 1 with CFG, 20
@@ -2654,16 +3071,22 @@ def flux_path() -> dict:
     load = FluxCacheSchedule.from_json
     default_1536 = FluxCacheSchedule.default(
         STEPS, top_level_config={"height": 1536, "width": 1536, "guidance_scale": 5})
-    # side, batch, schedules, the joint attention's counter, timed order;
-    # one timed run each at 1024² and 1536² (device-bound: idle < 0.05)
-    for side, batch, schedules, attention, order in (
+    # side, batch, schedules, the joint attention's counter, timed order,
+    # the schedules profiled; one timed run each at 1024² and 1536²
+    # (device-bound: idle < 0.05); the 1024² latents kept for the quant
+    # modes' error against bf16. The uncached 1536² and 256² trajectories
+    # are counted and timed but not profiled (processing their profiles
+    # takes tens of seconds each, which the quant parts need; PERF.md §5
+    # keeps an earlier breakdown of them)
+    latents_1024: dict = {}
+    for side, batch, schedules, attention, order, profiled in (
         (1024, BATCH_FLUX_1024, {"default": load(FLUX_DEFAULT_1024), "fast": load(FLUX_FAST_1024)},
-         "attention_rowblock", ("default", "fast")),
+         "attention_rowblock", ("default", "fast"), None),
         (1536, BATCH_FLUX_1536, {"default": default_1536, "fast": load(FLUX_FAST_1024)},
-         "attention_flash", ("default", "fast")),
+         "attention_flash", ("default", "fast"), ("fast",)),
         (256, BATCH_FLUX_256, {"ours_fast": load(FLUX_OURS_FAST_256),
                                "default": load(FLUX_DEFAULT_256)},
-         "attention", ("default", "ours_fast", "ours_fast", "default")),
+         "attention", ("default", "ours_fast", "ours_fast", "default"), ("ours_fast",)),
     ):
         pcfg = FluxPipelineConfig(config, STEPS, guidance_scale=5.0, height=side, width=side)
         pipes = {n: FluxPipeline(pcfg, model, sched) for n, sched in schedules.items()}
@@ -2682,6 +3105,7 @@ def flux_path() -> dict:
             batch, side,
             lambda pipe: flux_expected_counts(pipe.masks, config.num_blocks, attention),
             order=order, kernels=SERVED_KERNELS[f"flux{side}"],
+            latents_out=latents_1024 if side == 1024 else None, profiled=profiled,
         )
         for n, pipe in pipes.items():
             result[str(side)][n]["modlnorm_streams"] = flux_modlnorm_streams(
@@ -2701,7 +3125,12 @@ def flux_path() -> dict:
     # float8_e4m3fn, 256² batch 4 under ours_fast, against the bf16 caches
     inp = inputs(BATCH_FLUX_256, pcfg)
     want = pipes["ours_fast"].denoise(**inp).float()
-    del model, pipes, pipe  # `pipe` of the check loop holds the model too
+    # the int8 weight-storage modes at 1024², made from these weights: the
+    # holder's is the last reference to the bf16 model (`pipe` of the check
+    # loop holds it too), which flux_quant drops once int8_w is made
+    holder = [model]
+    del model, pipes, pipe
+    result["quant"] = flux_quant(holder, config, inputs, latents_1024)
     torch.cuda.empty_cache()
     cfg8 = dataclasses.replace(config, cache_dtype=torch.float8_e4m3fn)
     model = init_model(cfg8, 0, "cuda")
@@ -2829,6 +3258,7 @@ def main() -> None:
     REPORT["benchmark"] = phase("benchmark", benchmark_phase, smi)
     REPORT["search"] = phase("search", search_path)
     REPORT["main_path_1024"] = phase("main1024", main_path_1024)
+    REPORT["quant"] = phase("quant", quant_path)
     REPORT["main_path_2048"] = phase("main2048", main_path_2048)
     REPORT["flux"] = phase("flux", flux_path)
     REPORT["entry_point"] = phase("cli", entry_points)
@@ -2891,6 +3321,7 @@ def main() -> None:
                    | {"candidate_ms": r["candidate"]["ms"],
                       "candidate_idle_share": r["candidate"]["profile"]["idle_share"]}
                    for key, r in (("pixart256", REPORT["search"]), ("flux256", fx["search"]))},
+        "quant": quant_summary(REPORT["quant"], fx["quant"]),
         "flux_launches": {f"{side}/{k}": fx[side][k]["launches"]
                           for side, ks in (("1024", ("fast", "default")),
                                            ("1536", ("fast", "default")),

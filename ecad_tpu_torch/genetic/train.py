@@ -15,7 +15,9 @@ full width or ``--tiny-model``; prompts are random embeddings or
 raise with their ROADMAP.md queue 1 item: ``--weights-root``,
 ``--transformer-weights`` and ``--prompt-file`` (item 5),
 ``--scorer image_reward|clip`` and ``--image-reward-dir`` (item 6),
-``--quant`` (item 4), ``--dp``/``--tp``/``--sp`` > 1 (item 8).
+``--dp``/``--tp``/``--sp`` > 1 (item 8). ``--quant`` builds the evaluator's
+model in a serving quant mode (``ops/quant.py``); with random weights the
+static modes keep per-token scales, as the reference's do.
 
 Usage (mini smoke run, fidelity scorer, tiny random model on the CPU):
   python -m ecad_tpu_torch.genetic.train --name demo --population-size 8 \\
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..ops.quant import MODES as QUANT_MODES
 from .evaluate import CandidateEvaluator, EvalConfig
 from .nsga2 import NSGA2
 from .population_io import (
@@ -110,8 +113,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cache-dtype", choices=sorted(_CACHE_DTYPES), default=None,
                    help="storage dtype for cached component activations"
                    " (FLUX only)")
-    p.add_argument("--quant", default=None,
-                   help="serving quantization (not ported yet)")
+    p.add_argument("--quant",
+                   choices=QUANT_MODES, default=None,
+                   help="serving quantization for the denoiser's block"
+                   " projections (ops/quant.py): 'int8' = W8A8 dynamic on"
+                   " the int8 tensor cores; 'int8_w' also stores the weights"
+                   " as int8, halving their device memory")
     p.add_argument("--tiny-model", action="store_true",
                    help="2-block test model (random weights) for smoke runs")
     p.add_argument("--flux-dim", type=int, default=None,
@@ -146,7 +153,6 @@ def refuse_waiting_flags(args) -> None:
          "the scorer towers"),
         (args.image_reward_dir is not None, "--image-reward-dir", 6,
          "the scorer towers"),
-        (args.quant is not None, "--quant", 4, "quantization"),
         (args.dp > 1 or args.tp > 1 or args.sp > 1, "--dp/--tp/--sp > 1", 8,
          "multi-process parallelism"),
     ]
@@ -235,7 +241,8 @@ def build_evaluator(args, manager) -> CandidateEvaluator:
             "stay in the model dtype"
         )
     device = resolve_device(args.device)
-    config = PixArtConfig.tiny(dtype=torch.float32) if args.tiny_model else PixArtConfig()
+    config = (PixArtConfig.tiny(dtype=torch.float32, quant=args.quant) if args.tiny_model
+              else PixArtConfig(quant=args.quant))
     pcfg = PixArtPipelineConfig(model=config, num_inference_steps=args.num_inference_steps)
     pipeline = PixArtPipeline(pcfg, init_model(config, args.seed, device))
     shape = (config.text_len, config.caption_dim)
@@ -267,7 +274,8 @@ def _build_flux_evaluator(args):
     device = resolve_device(args.device)
     cache_dtype = _CACHE_DTYPES[args.cache_dtype] if args.cache_dtype else None
     if args.tiny_model:
-        config = FluxConfig.tiny(dtype=torch.float32, cache_dtype=cache_dtype)
+        config = FluxConfig.tiny(dtype=torch.float32, quant=args.quant,
+                                 cache_dtype=cache_dtype)
     else:
         width = {}
         if args.flux_dim is not None:
@@ -275,7 +283,7 @@ def _build_flux_evaluator(args):
                 dim=args.flux_dim,
                 num_heads=args.flux_heads or args.flux_dim // 128,
             )
-        config = FluxConfig(cache_dtype=cache_dtype, **width)
+        config = FluxConfig(quant=args.quant, cache_dtype=cache_dtype, **width)
     height = 64 if args.tiny_model else 256
     pcfg = FluxPipelineConfig(
         model=config,

@@ -11,7 +11,10 @@ raises.
 This slice runs without checkpoints (``random_weights=True``: the exact
 architecture with seeded random parameters); loading a local
 ``weights_root`` raises `NotImplementedError`. FLUX generators take
-``cache_dtype="float8_e4m3fn"``; the others reject it. A schedule JSON
+``cache_dtype="float8_e4m3fn"``; the others reject it. ``quant`` picks a
+serving quantization mode of the transformer's block projections
+(``ops/quant.py``); the static modes calibrate their activation scales
+when the resident model is built (`_calibrate_static_scales`). A schedule JSON
 carries a cache schedule or a DiT topology schedule (``dit_schedule``),
 plus the config that picks the checkpoint, resolution and pipeline (with
 its kwargs, e.g. TGATE's ``gate_step``). The reference's two execution
@@ -21,6 +24,7 @@ one eager step loop.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from abc import ABC, abstractmethod
 from pathlib import Path
@@ -30,6 +34,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..models.common import rebuild
+from ..ops.quant import STATIC_MODES
 from ..schedules.cache_schedule import CacheSchedule
 from ..utils.io import load_embedding_dir, save_embedding
 from ..utils.timing import wall_ms
@@ -60,8 +66,13 @@ class ImageGenerator(ABC):
         batch_size: int = 8,
         device: str | torch.device = "cuda",
         cache_dtype: Optional[str] = None,
+        quant: Optional[str] = None,
     ) -> None:
         self.device = resolve_device(device)
+        # None | "int8" | "int8_static" | "int8_w" | "int8_w_static":
+        # serving quantization of the transformer's block projections,
+        # threaded into model_config()
+        self.quant = quant
         # None | "float8_e4m3fn": storage dtype of the cached activations
         # (FLUX only, as in the reference)
         if cache_dtype is not None and not self.supports_cache_dtype:
@@ -107,7 +118,8 @@ class ImageGenerator(ABC):
         def pipeline_key():
             return (self.num_inference_steps, self.pipeline_name,
                     json.dumps(self.pipeline_kwargs, sort_keys=True), self.height,
-                    self.width, self.guidance_scale, self.transformer_weights)
+                    self.width, self.guidance_scale, self.transformer_weights,
+                    self.quant)
 
         old = pipeline_key()
         cls = type(self)
@@ -127,11 +139,21 @@ class ImageGenerator(ABC):
 
     def _resident_model(self, config, init_model):
         """The transformer for `config`: the resident one when it was built
-        for the same config, else a fresh seeded one."""
+        for the same config, else a fresh seeded one. In a static quant mode
+        the model carries the calibration table (its ``config.act_scales``)
+        that `_calibrate_static_scales` measures on it when it is built."""
         if self._model is None or self._model_config != config:
-            self._model = init_model(config, 0, self.device)
-            self._model_config = config
+            self._model = None  # free the old one before building the next
+            model = init_model(config, 0, self.device)
+            if config.quant in STATIC_MODES and config.act_scales is None:
+                table = self._calibrate_static_scales(model)
+                model = rebuild(model, dataclasses.replace(config, act_scales=table))
+            self._model, self._model_config = model, config
         return self._model
+
+    def _calibrate_static_scales(self, model) -> tuple:
+        """The static quant modes' calibration table for `model`."""
+        raise NotImplementedError(f"{type(self).__name__} has no static quant modes")
 
     # -- schedule / config resolution -------------------------------------
 
@@ -362,5 +384,6 @@ class ImageGenerator(ABC):
             "guidance_scale": self.guidance_scale,
             "random_weights": self.random_weights,
             "cache_dtype": self.cache_dtype,
+            "quant": self.quant,
             "device": str(self.device),
         }

@@ -13,13 +13,16 @@ repository. ``cache_dtype="float8_e4m3fn"`` stores the caches in fp8.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 from typing import Any, Sequence
 
 import numpy as np
 import torch
 
-from ..models.flux import FluxConfig, init_model
+from ..models.common import rebuild
+from ..models.flux import FluxConfig, full_flux_mask, init_model
+from ..ops.quant import calibrate_dense_amax, merge_amax
 from ..pipelines.flux_pipeline import FluxPipeline, FluxPipelineConfig
 from ..schedules.flux import FluxCacheSchedule
 from .base import ImageGenerator
@@ -68,7 +71,7 @@ class FluxImageGenerator(ImageGenerator):
         return _CACHE_DTYPES[self.cache_dtype]
 
     def model_config(self) -> FluxConfig:
-        return FluxConfig(cache_dtype=self._cache_torch_dtype())
+        return FluxConfig(quant=self.quant, cache_dtype=self._cache_torch_dtype())
 
     def create_encoder_pipeline(self):
         if self._encoder is not None:
@@ -83,10 +86,9 @@ class FluxImageGenerator(ImageGenerator):
             return self._pipeline
         if not (self.random_weights or self.weights_root is None):
             raise NotImplementedError(_WEIGHTS_LATER)
-        config = self.model_config()
-        model = self._resident_model(config, init_model)
+        model = self._resident_model(self.model_config(), init_model)
         pcfg = FluxPipelineConfig(
-            model=config,
+            model=model.config,
             num_inference_steps=self.num_inference_steps,
             guidance_scale=self.guidance_scale,
             height=self.height,
@@ -94,6 +96,34 @@ class FluxImageGenerator(ImageGenerator):
         )
         self._pipeline = FluxPipeline(pcfg, model, self.cache_schedule)
         return self._pipeline
+
+    @torch.inference_mode()
+    def _calibrate_static_scales(self, model) -> tuple:
+        """The static quant modes' activation max-abs table (ref
+        ``image_generators/flux.py:95-176``): one forward of every block at
+        σ 1.0, 0.5 and 0.05 at the generator's size and guidance, on the
+        encoder's embeddings (and pooled embeddings) of "" and "a detailed
+        photograph", from seeded noise. ``int8_static`` calibrates the float
+        model on `model`'s weights, ``int8_w_static`` the ``int8_w`` one."""
+        c = model.config
+        base = rebuild(model, dataclasses.replace(
+            c, quant="int8_w" if c.quant == "int8_w_static" else None, act_scales=None))
+        enc = self.create_encoder_pipeline()
+        pairs = [enc.encode(p) for p in ("", "a detailed photograph")]
+        txt = torch.from_numpy(np.stack([e for e, _ in pairs])).to(self.device, c.dtype)
+        pooled = torch.from_numpy(np.stack([p for _, p in pairs])).to(self.device, c.dtype)
+        b = txt.shape[0]
+        gh, gw = self.height // 16, self.width // 16
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        noise = torch.randn((b, gh * gw, c.in_channels), generator=gen,
+                            device=self.device).to(c.dtype)
+        guidance = torch.full((b,), self.guidance_scale, device=self.device)
+        table = merge_amax(*(
+            calibrate_dense_amax(base, noise, txt, pooled, torch.full((b,), t, device=self.device),
+                                 guidance, {}, full_flux_mask(c), (gh, gw))
+            for t in (1.0, 0.5, 0.05)
+        ))
+        return tuple(sorted(table.items()))
 
     def encode_prompts(self, prompts: Sequence[str]) -> list[dict[str, Any]]:
         enc = self.create_encoder_pipeline()
@@ -149,7 +179,8 @@ class TinyFluxImageGenerator(FluxImageGenerator):
         super().__init__(*args, **kwargs)
 
     def model_config(self) -> FluxConfig:
-        return FluxConfig.tiny(dtype=torch.float32, cache_dtype=self._cache_torch_dtype())
+        return FluxConfig.tiny(dtype=torch.float32, quant=self.quant,
+                               cache_dtype=self._cache_torch_dtype())
 
     def _load_schedule_file(self, schedule_path):
         sched = super()._load_schedule_file(schedule_path)

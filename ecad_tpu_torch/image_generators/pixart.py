@@ -9,13 +9,16 @@ transformer and the VAE) waits until checkpoints are in the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 from typing import Any, Sequence
 
 import numpy as np
 import torch
 
-from ..models.pixart import PixArtConfig, init_model
+from ..models.common import rebuild
+from ..models.pixart import PixArtConfig, full_step_mask, init_cache, init_model
+from ..ops.quant import calibrate_dense_amax, merge_amax
 from ..pipelines import PixArtPipeline, PixArtPipelineConfig, pipeline_from_config
 from ..schedules.pixart import PixArtCacheSchedule
 from .base import ImageGenerator
@@ -36,8 +39,9 @@ class PixArtImageGenerator(ImageGenerator):
 
     def model_config(self) -> PixArtConfig:
         if "1024" in self.transformer_weights:
-            return PixArtConfig(sample_size=128, use_additional_conditions=True)
-        return PixArtConfig(sample_size=self.height // 8)
+            return PixArtConfig(sample_size=128, use_additional_conditions=True,
+                                quant=self.quant)
+        return PixArtConfig(sample_size=self.height // 8, quant=self.quant)
 
     # -- pipelines ---------------------------------------------------------
 
@@ -54,10 +58,9 @@ class PixArtImageGenerator(ImageGenerator):
             return self._pipeline
         if not (self.random_weights or self.weights_root is None):
             raise NotImplementedError(_WEIGHTS_LATER)
-        config = self.model_config()
-        model = self._resident_model(config, init_model)
+        model = self._resident_model(self.model_config(), init_model)
         pcfg = PixArtPipelineConfig(
-            model=config,
+            model=model.config,
             num_inference_steps=self.num_inference_steps,
             guidance_scale=self.guidance_scale,
         )
@@ -69,6 +72,39 @@ class PixArtImageGenerator(ImageGenerator):
             dit_schedule=self.dit_schedule, **kwargs,
         )
         return self._pipeline
+
+    @torch.inference_mode()
+    def _calibrate_static_scales(self, model) -> tuple:
+        """The static quant modes' per-site activation max-abs table (ref
+        ``image_generators/pixart.py:74-150``): one forward of every block
+        at timesteps 999, 500 and 20, folded with `merge_amax`, on the
+        encoder's embeddings of "" (the CFG negative every generation runs)
+        and "a detailed photograph", from seeded noise, with no text mask
+        (as the reference). ``int8_static`` calibrates the float model on
+        `model`'s weights, ``int8_w_static`` the ``int8_w`` one."""
+        c = model.config
+        base = rebuild(model, dataclasses.replace(
+            c, quant="int8_w" if c.quant == "int8_w_static" else None, act_scales=None))
+        enc = self.create_encoder_pipeline()
+        text = torch.stack([
+            torch.from_numpy(enc.encode(p)[0]) for p in ("", "a detailed photograph")
+        ]).to(self.device, c.dtype)
+        b = text.shape[0]
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        noise = torch.randn((b, c.sample_size, c.sample_size, c.in_channels),
+                            generator=gen, device=self.device).to(c.dtype)
+        kwargs = {}
+        if c.use_additional_conditions:
+            size = float(c.sample_size * 8)
+            kwargs = dict(resolution=torch.full((b, 2), size, device=self.device),
+                          aspect_ratio=torch.ones((b, 1), device=self.device))
+        cache = init_cache(c, b, device=self.device)
+        table = merge_amax(*(
+            calibrate_dense_amax(base, noise, text, torch.full((b,), t, device=self.device),
+                                 cache, full_step_mask(c), **kwargs)
+            for t in (999.0, 500.0, 20.0)
+        ))
+        return tuple(sorted(table.items()))
 
     # -- encoding ----------------------------------------------------------
 
@@ -150,7 +186,7 @@ class TinyPixArtImageGenerator(PixArtImageGenerator):
         super().__init__(*args, **kwargs)
 
     def model_config(self) -> PixArtConfig:
-        return PixArtConfig.tiny(dtype=torch.float32)
+        return PixArtConfig.tiny(dtype=torch.float32, quant=self.quant)
 
     def _load_schedule_file(self, schedule_path):
         sched = super()._load_schedule_file(schedule_path)

@@ -6,8 +6,8 @@ path): positional image-generator name; exactly one of --prompt /
 --prompt-file / --input-embeddings; optional --schedule; outputs
 <out>/embeddings/*.pt and <out>/images/<name>__image_seed:NNN.png.
 ``--cache-dtype float8_e4m3fn`` stores the FLUX generators' caches in fp8
-(other generators reject it); ``--quant`` is not ported yet and is
-rejected.
+(other generators reject it); ``--quant`` serves the transformer's block
+projections through the int8 product (``ops/quant.py``).
 
     python -m ecad_tpu_torch.inference.cli PixArtAlphaImageGenerator \\
         --prompt "a red bicycle" --random-weights --output-dir out
@@ -20,6 +20,7 @@ import sys
 from pathlib import Path
 
 from ..image_generators import ImageGeneratorRegistry, get_image_generator_type
+from ..ops.quant import MODES as QUANT_MODES
 from ..utils.io import load_embedding_dir
 
 
@@ -52,8 +53,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda must be present")
-    p.add_argument("--quant", default=None,
-                   help="not ported yet (serving quantization)")
+    p.add_argument(
+        "--quant",
+        choices=QUANT_MODES,
+        default=None,
+        help="serving quantization for the transformer's block projections"
+        " (W8A8 dynamic, the int8 tensor-core product; 'int8_static' uses"
+        " per-site CALIBRATED activation scales — calibrates on first"
+        " pipeline build, PixArt + FLUX; 'int8_w' additionally STORES the"
+        " weights as int8, halving their device memory; 'int8_w_static'"
+        " combines int8 weight storage with the calibrated activation"
+        " scales)",
+    )
     p.add_argument("--cache-dtype", choices=["float8_e4m3fn"], default=None,
                    help="storage dtype for cached component activations (FLUX only)")
     return p
@@ -62,8 +73,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.quant is not None:
-        parser.error("--quant is not ported to ecad_tpu_torch yet")
     gen_type = get_image_generator_type(args.image_generator)
 
     if args.guidance_scale is not None and not gen_type.allow_guidance_override():
@@ -84,6 +93,7 @@ def main(argv=None) -> None:
             batch_size=args.batch_size,
             device=args.device,
             cache_dtype=args.cache_dtype,
+            quant=args.quant,
         )
     except ValueError as e:  # e.g. --cache-dtype for a generator without it
         parser.error(str(e))

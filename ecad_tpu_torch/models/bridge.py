@@ -10,8 +10,16 @@ same configuration:
 * a Conv ``kernel`` HWIO becomes a Conv2d ``weight`` OIHW;
 * a GroupNorm ``scale`` becomes ``weight``;
 * ``scale_shift_table`` and every ``bias`` are copied as they are;
+* an int8 ``kernel`` with a sibling ``scale`` (an ``int8_w`` site, ref
+  ``ops/quant.py`` ``Int8Dense``) becomes the `Int8Dense`'s int8
+  ``weight`` (out, in), and its ``scale`` stays the fp32 dequant
+  ``scale``, as the reference reads a ``scale`` beside an int8 kernel
+  (``models/common.py:281-295``);
 * ``block_<i>`` becomes ``blocks.<i>`` and FLUX's ``single_block_<i>``
   ``single_blocks.<i>``.
+
+`reference_path` maps a port module name back to the reference's module
+path, the key of the static quant modes' calibration tables.
 
 Module names are the reference's, so every other path carries over as it
 is — among them the 1024² checkpoint's size-condition embedders,
@@ -38,11 +46,30 @@ def _flatten(tree: Mapping[str, Any], prefix: tuple = ()) -> dict[tuple, np.ndar
     return out
 
 
+_BLOCK_LISTS = (("block_", "blocks"), ("single_block_", "single_blocks"))
+
+
+def reference_path(name: str) -> str:
+    """A port module name → the reference's module path:
+    ``blocks.3.attn1.to_q`` → ``block_3/attn1/to_q``,
+    ``single_blocks.2.proj_mlp`` → ``single_block_2/proj_mlp``."""
+    parts = name.split(".")
+    for prefix, modules in _BLOCK_LISTS:
+        if len(parts) > 1 and parts[0] == modules:
+            parts = [prefix + parts[1], *parts[2:]]
+    return "/".join(parts)
+
+
 def _convert(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     state: dict[str, torch.Tensor] = {}
-    for path, arr in _flatten(params).items():
+    flat = _flatten(params)
+    for path, arr in flat.items():
         *parents, name = path
-        if name == "kernel":
+        dtype = np.float32
+        if name == "kernel" and arr.dtype == np.int8:
+            # an Int8Dense's weight, (in, out) → (out, in)
+            arr, name, dtype = arr.T, "weight", np.int8
+        elif name == "kernel":
             if arr.ndim == 2:
                 arr = arr.T
             elif arr.ndim == 4:
@@ -50,13 +77,15 @@ def _convert(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             else:
                 raise ValueError(f"unexpected kernel rank at {'/'.join(path)}")
             name = "weight"
-        elif name == "scale":
+        elif name == "scale" and flat.get((*parents, "kernel"), arr).dtype != np.int8:
+            # a norm's affine scale; beside an int8 kernel it is the
+            # fp32 dequant scale and keeps its name
             name = "weight"
-        for prefix, modules in (("block_", "blocks"), ("single_block_", "single_blocks")):
+        for prefix, modules in _BLOCK_LISTS:
             if parents and parents[0].startswith(prefix):
                 parents = [modules, parents[0][len(prefix):], *parents[1:]]
         state[".".join([*parents, name])] = torch.from_numpy(
-            np.array(arr, dtype=np.float32, order="C")
+            np.array(arr, dtype=dtype, order="C")
         )
     return state
 

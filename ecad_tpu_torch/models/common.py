@@ -7,7 +7,11 @@ Counterparts of ``ecad_tpu/models/common.py``: `sinusoidal_embedding`
 Layouts are the reference's: tokens (B, T, d), attention heads (B, T, H, D).
 Attention calls the port's `fused_attention` kernel directly; the plain
 Linear products stay `torch.nn.functional.linear`, as the reference left
-them to XLA. Quantization and mesh sharding are not part of this slice.
+them to XLA. Under a serving quant mode the projections of `Attention` and
+`FeedForward` are built by `ops.quant.dense` (the reference's ``dense``
+helper, :563-597 and :641-690), each keyed by the reference's module path
+(`path`) in the static modes' calibration table. Mesh sharding comes in a
+later slice.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.attention import fused_attention
+from ..ops.quant import Int8Dense, dense, quantize_params_tree
 
 
 def sinusoidal_embedding(
@@ -81,19 +86,28 @@ class Attention(nn.Module):
 
     `kv()` exposes the projected keys/values so trajectory-constant
     cross-attention K/V can be computed once per trajectory and passed
-    back through `kv=`."""
+    back through `kv=`.
+
+    `quant` is a serving quant mode (``ops/quant.py``), `act_scales` the
+    static modes' calibration table and `path` this module's path in the
+    reference (``block_3/attn1``), which keys its sites there."""
 
     def __init__(
-        self, dim: int, heads: int, head_dim: int, dtype: torch.dtype
+        self, dim: int, heads: int, head_dim: int, dtype: torch.dtype,
+        quant: Optional[str] = None, act_scales=None, path: str = "",
     ) -> None:
         super().__init__()
         inner = heads * head_dim
         self.heads = heads
         self.head_dim = head_dim
-        self.to_q = nn.Linear(dim, inner, dtype=dtype)
-        self.to_k = nn.Linear(dim, inner, dtype=dtype)
-        self.to_v = nn.Linear(dim, inner, dtype=dtype)
-        self.to_out = nn.Linear(inner, dim, dtype=dtype)
+
+        def proj(name, n_in, n_out):
+            return dense(n_in, n_out, dtype, quant, f"{path}/{name}", act_scales)
+
+        self.to_q = proj("to_q", dim, inner)
+        self.to_k = proj("to_k", dim, inner)
+        self.to_v = proj("to_v", dim, inner)
+        self.to_out = proj("to_out", inner, dim)
 
     def kv(self, ctx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         b, tk = ctx.shape[:2]
@@ -118,12 +132,16 @@ class Attention(nn.Module):
 
 class FeedForward(nn.Module):
     """d → mult·d → d with tanh-approximate GELU (PixArt's
-    activation_fn="gelu-approximate")."""
+    activation_fn="gelu-approximate"). `quant`, `act_scales` and `path` as
+    in `Attention`."""
 
-    def __init__(self, dim: int, mult: int, dtype: torch.dtype) -> None:
+    def __init__(
+        self, dim: int, mult: int, dtype: torch.dtype,
+        quant: Optional[str] = None, act_scales=None, path: str = "",
+    ) -> None:
         super().__init__()
-        self.proj_in = nn.Linear(dim, dim * mult, dtype=dtype)
-        self.proj_out = nn.Linear(dim * mult, dim, dtype=dtype)
+        self.proj_in = dense(dim, dim * mult, dtype, quant, f"{path}/proj_in", act_scales)
+        self.proj_out = dense(dim * mult, dim, dtype, quant, f"{path}/proj_out", act_scales)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.proj_out(F.gelu(self.proj_in(x), approximate="tanh"))
@@ -158,11 +176,21 @@ def randomize_(model: nn.Module, seed: int = 0, std: float = 0.02) -> nn.Module:
     """Fill a transformer's weights in place from a seeded generator on the
     model's device, as the reference's ``init_params`` /
     ``init_flux_params`` initialise them: Linear weights N(0, std), biases
-    0, PixArt's modulation tables N(0, 1/√d), FLUX's QK-norm scales 1."""
+    0, PixArt's modulation tables N(0, 1/√d), FLUX's QK-norm scales 1; an
+    `Int8Dense`'s int8 weight uniform in [-127, 127] and its dequant scale
+    |N(0, 1)|·std/127 + 1e-6, as the reference's ``random_serving_params``
+    fills them (``models/common.py:212-300``)."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
+    int8_sites = {name for name, m in model.named_modules() if isinstance(m, Int8Dense)}
     for name, param in model.named_parameters():
-        if name.endswith("scale_shift_table"):
+        site, _, leaf = name.rpartition(".")
+        if site in int8_sites and leaf == "weight":
+            param.copy_(torch.randint(-127, 128, param.shape, generator=gen,
+                                      device=device, dtype=torch.int8))
+        elif site in int8_sites and leaf == "scale":
+            param.normal_(0.0, 1.0, generator=gen).abs_().mul_(std / 127.0).add_(1e-6)
+        elif name.endswith("scale_shift_table"):
             param.normal_(0.0, param.shape[-1] ** -0.5, generator=gen)
         elif name.endswith(("q_scale", "k_scale")):
             param.fill_(1.0)
@@ -171,3 +199,17 @@ def randomize_(model: nn.Module, seed: int = 0, std: float = 0.02) -> nn.Module:
         else:
             param.normal_(0.0, std, generator=gen)
     return model
+
+
+def rebuild(model: nn.Module, config) -> nn.Module:
+    """`model`'s architecture built for `config` (another quant mode or
+    calibration table) on `model`'s own tensors, without copying them: the
+    new module is made on the meta device and takes `model`'s state by
+    assignment. Sites that `config` stores as `Int8Dense` and `model` holds
+    in float are quantized from their float weights
+    (`ops.quant.quantize_params_tree`); everything else is shared."""
+    with torch.device("meta"):
+        new = type(model)(config)
+    state = quantize_params_tree(model.state_dict(), new)
+    new.load_state_dict(state, assign=True)
+    return new.eval().requires_grad_(False)

@@ -31,7 +31,10 @@ row-block clamp kernel and FLUX-256's (768 tokens) to the exact one.
 
 With ``cache_dtype=torch.float8_e4m3fn`` the caches are stored in fp8 and
 read back in the compute dtype (the reference's ``_to_cache`` /
-``_from_cache``, :61-86). Serving quantization (``quant``) is not ported.
+``_from_cache``, :61-86), in every quant mode. With ``quant`` the block
+projections run the int8 product (``ops/quant.py``), each site built by
+`_dense` and keyed by the reference's module path; the adaLN linears take
+only the weight-storage modes, with per-token activation scales.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from torch.nn import functional as F
 from .. import resolve_device
 from ..ops.attention import fused_attention
 from ..ops.fused import modulated_layer_norm, modulated_layer_norm_pair
+from ..ops.quant import WEIGHT_MODES, dense
 from .common import TimestepEmbedding, randomize_, sinusoidal_embedding
 
 FULL_COMPONENTS = ("full_attn", "full_ff", "full_ff_context")
@@ -70,16 +74,18 @@ class FluxConfig:
     rope_theta: int = 10000
     text_len: int = 512
     dtype: torch.dtype = torch.bfloat16
+    # None | "int8" | "int8_static" | "int8_w" | "int8_w_static"
+    # (ops/quant.py): the block projections through the int8 product; the
+    # storage modes also hold the adaLN linears in int8 (3.2 B of the
+    # 11.9 B parameters). Embedders, norm_out_linear and proj_out stay in
+    # `dtype`.
     quant: Any = None
+    # the static modes' calibration table: ("block_3/attn/to_q", amax)
+    # pairs (ops/quant.py calibrate_dense_amax); a site it lacks keeps
+    # per-token scales
+    act_scales: Optional[tuple] = None
     # None (caches in `dtype`) or a storage dtype for cached activations
     cache_dtype: Optional[torch.dtype] = None
-
-    def __post_init__(self) -> None:
-        if self.quant is not None:
-            raise NotImplementedError(
-                f"FLUX quant={self.quant!r} is not ported yet (the int8 serving "
-                "modes are queue 1 item 10 of ROADMAP.md)"
-            )
 
     @classmethod
     def tiny(cls, **kw) -> "FluxConfig":
@@ -149,15 +155,28 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # ---------------------------------------------------------------------------
 
 
+def _dense(n_in: int, n_out: int, config: FluxConfig, path: str) -> nn.Module:
+    """One block projection site under the config's quant mode (ref
+    :201-243); `path` is the reference's module path of the site."""
+    return dense(n_in, n_out, config.dtype, config.quant, path, config.act_scales)
+
+
 class AdaNorm(nn.Module):
     """AdaLayerNormZero family: silu(temb) → linear → n_mods (B, 1, d)
     chunks (shift, scale, gates…). The modulated norm itself is applied by
-    the caller, only where its consumer is recomputed."""
+    the caller, only where its consumer is recomputed.
 
-    def __init__(self, dim: int, n_mods: int, dtype: torch.dtype) -> None:
+    `quant` is honoured only in the weight-storage modes, and with per-token
+    activation scales (temb is one token a sample, so the max-abs costs
+    nothing and adaLN stays out of the calibration table), as in the
+    reference (:246-279)."""
+
+    def __init__(self, dim: int, n_mods: int, dtype: torch.dtype,
+                 quant: Optional[str] = None) -> None:
         super().__init__()
         self.n_mods = n_mods
-        self.linear = nn.Linear(dim, n_mods * dim, dtype=dtype)
+        self.linear = dense(dim, n_mods * dim, dtype,
+                            "int8_w" if quant in WEIGHT_MODES else None)
 
     def forward(self, temb: torch.Tensor) -> tuple[torch.Tensor, ...]:
         return self.linear(F.silu(temb))[:, None, :].chunk(self.n_mods, dim=-1)
@@ -190,17 +209,17 @@ class FluxJointAttention(nn.Module):
     """Dual-stream joint attention: text and image tokens get separate
     qkv/out projections but attend jointly ([text; image] order)."""
 
-    def __init__(self, config: FluxConfig) -> None:
+    def __init__(self, config: FluxConfig, path: str = "block_0/attn") -> None:
         super().__init__()
         c = config
         self.config = c
         inner = c.num_heads * c.head_dim
         for name in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj"):
-            self.add_module(name, nn.Linear(c.dim, inner, dtype=c.dtype))
+            self.add_module(name, _dense(c.dim, inner, c, f"{path}/{name}"))
         self.norm_qk = QKNorm(c.head_dim, c.dtype)
         self.norm_added_qk = QKNorm(c.head_dim, c.dtype)
-        self.to_out = nn.Linear(inner, c.dim, dtype=c.dtype)
-        self.to_add_out = nn.Linear(inner, c.dim, dtype=c.dtype)
+        self.to_out = _dense(inner, c.dim, c, f"{path}/to_out")
+        self.to_add_out = _dense(inner, c.dim, c, f"{path}/to_add_out")
 
     def forward(self, img, txt, cos, sin) -> tuple[torch.Tensor, torch.Tensor]:
         c = self.config
@@ -223,14 +242,14 @@ class FluxSingleAttention(nn.Module):
     """Single-stream attention: qkv + QK norm + RoPE + attention, no output
     projection (it is fused into the block's proj_out)."""
 
-    def __init__(self, config: FluxConfig) -> None:
+    def __init__(self, config: FluxConfig, path: str = "single_block_0/attn") -> None:
         super().__init__()
         c = config
         self.config = c
         inner = c.num_heads * c.head_dim
-        self.to_q = nn.Linear(c.dim, inner, dtype=c.dtype)
-        self.to_k = nn.Linear(c.dim, inner, dtype=c.dtype)
-        self.to_v = nn.Linear(c.dim, inner, dtype=c.dtype)
+        self.to_q = _dense(c.dim, inner, c, f"{path}/to_q")
+        self.to_k = _dense(c.dim, inner, c, f"{path}/to_k")
+        self.to_v = _dense(c.dim, inner, c, f"{path}/to_v")
         self.norm_qk = QKNorm(c.head_dim, c.dtype)
 
     def forward(self, x, cos, sin) -> torch.Tensor:
@@ -267,18 +286,21 @@ def _pick(recompute: bool, compute, cache: dict, key: str, new: dict, config: Fl
 
 
 class FluxDualBlock(nn.Module):
-    def __init__(self, config: FluxConfig) -> None:
+    """Dual-stream block `index` (its quant sites ``block_<index>/...``)."""
+
+    def __init__(self, config: FluxConfig, index: int = 0) -> None:
         super().__init__()
         c = config
         self.config = c
-        self.norm1 = AdaNorm(c.dim, 6, c.dtype)
-        self.norm1_context = AdaNorm(c.dim, 6, c.dtype)
-        self.attn = FluxJointAttention(c)
+        path = f"block_{index}"
+        self.norm1 = AdaNorm(c.dim, 6, c.dtype, c.quant)
+        self.norm1_context = AdaNorm(c.dim, 6, c.dtype, c.quant)
+        self.attn = FluxJointAttention(c, f"{path}/attn")
         hidden = c.dim * c.mlp_ratio
-        self.ff_in = nn.Linear(c.dim, hidden, dtype=c.dtype)
-        self.ff_out = nn.Linear(hidden, c.dim, dtype=c.dtype)
-        self.ff_context_in = nn.Linear(c.dim, hidden, dtype=c.dtype)
-        self.ff_context_out = nn.Linear(hidden, c.dim, dtype=c.dtype)
+        self.ff_in = _dense(c.dim, hidden, c, f"{path}/ff_in")
+        self.ff_out = _dense(hidden, c.dim, c, f"{path}/ff_out")
+        self.ff_context_in = _dense(c.dim, hidden, c, f"{path}/ff_context_in")
+        self.ff_context_out = _dense(hidden, c.dim, c, f"{path}/ff_context_out")
 
     def forward(
         self,
@@ -329,16 +351,19 @@ class FluxDualBlock(nn.Module):
 
 
 class FluxSingleBlock(nn.Module):
-    def __init__(self, config: FluxConfig) -> None:
+    """Single-stream block `index` (its quant sites ``single_block_<index>/...``)."""
+
+    def __init__(self, config: FluxConfig, index: int = 0) -> None:
         super().__init__()
         c = config
         self.config = c
-        self.norm = AdaNorm(c.dim, 3, c.dtype)
-        self.attn = FluxSingleAttention(c)
-        self.proj_mlp = nn.Linear(c.dim, c.dim * c.mlp_ratio, dtype=c.dtype)
+        path = f"single_block_{index}"
+        self.norm = AdaNorm(c.dim, 3, c.dtype, c.quant)
+        self.attn = FluxSingleAttention(c, f"{path}/attn")
+        self.proj_mlp = _dense(c.dim, c.dim * c.mlp_ratio, c, f"{path}/proj_mlp")
         # input: [attention (heads·head_dim); activated MLP (mlp_ratio·d)]
-        self.proj_out = nn.Linear(
-            c.num_heads * c.head_dim + c.dim * c.mlp_ratio, c.dim, dtype=c.dtype
+        self.proj_out = _dense(
+            c.num_heads * c.head_dim + c.dim * c.mlp_ratio, c.dim, c, f"{path}/proj_out"
         )
 
     def forward(
@@ -384,9 +409,9 @@ class FluxTransformer(nn.Module):
         self.guidance_embedder = TimestepEmbedding(256, c.dim, c.dtype)
         # pooled CLIP projection: the TimestepEmbedding MLP shape
         self.text_embedder = TimestepEmbedding(c.pooled_dim, c.dim, c.dtype)
-        self.blocks = nn.ModuleList(FluxDualBlock(c) for _ in range(c.num_blocks))
+        self.blocks = nn.ModuleList(FluxDualBlock(c, i) for i in range(c.num_blocks))
         self.single_blocks = nn.ModuleList(
-            FluxSingleBlock(c) for _ in range(c.num_single_blocks)
+            FluxSingleBlock(c, i) for i in range(c.num_single_blocks)
         )
         self.norm_out_linear = nn.Linear(c.dim, 2 * c.dim, dtype=c.dtype)
         self.proj_out = nn.Linear(c.dim, c.in_channels, dtype=c.dtype)
@@ -506,7 +531,8 @@ def init_model(
     """A random-weight FluxTransformer built directly in `config.dtype` on
     `device` (the QK-norm scales in fp32, as the reference keeps them): no
     host copy and no fp32 masters, so the 11.9 B-parameter model takes
-    23.8 GB of device memory in bf16. Eval mode, no gradients."""
+    23.8 GB of device memory in bf16 (``int8_w`` sites in int8,
+    `randomize_`). Eval mode, no gradients."""
     dev = resolve_device(device)
     with torch.device("meta"):
         model = FluxTransformer(config)

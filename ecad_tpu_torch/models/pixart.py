@@ -13,7 +13,9 @@ arrive as Python bools per (block, component); a cached component is not
 computed at all — its branch is skipped. Caches hold the *pre-gate*
 component outputs, which are re-gated with the current step's gates
 (reference: cached_transformer_block.py:240-244, 313-321). The three
-modulated norms run the port's `modulated_layer_norm` kernel.
+modulated norms run the port's `modulated_layer_norm` kernel. With a
+``quant`` mode the blocks' projections run the int8 product
+(``ops/quant.py``).
 """
 
 from __future__ import annotations
@@ -64,6 +66,15 @@ class PixArtConfig:
     ff_mult: int = 4
     use_additional_conditions: bool = False
     dtype: torch.dtype = torch.bfloat16
+    # None | "int8" | "int8_static" | "int8_w" | "int8_w_static"
+    # (ops/quant.py): serving quantization of the blocks' attn1, attn2 and
+    # ff projections; the embedders, t_block and the final layer stay in
+    # `dtype`, as in the reference
+    quant: Optional[str] = None
+    # the static modes' calibration table: ("block_3/attn1/to_q", amax)
+    # pairs from ops/quant.py calibrate_dense_amax (a tuple keeps the
+    # config hashable); a site it lacks keeps per-token scales
+    act_scales: Optional[tuple] = None
 
     @property
     def tokens(self) -> int:
@@ -168,18 +179,24 @@ class PixArtBlock(nn.Module):
     Returns the new hidden states and the per-component outputs (pre-gate).
 
     `enc_kv` optionally supplies precomputed cross-attention keys/values
-    (trajectory-constant; see PixArtTransformer.encode_text)."""
+    (trajectory-constant; see PixArtTransformer.encode_text). `index` is
+    the block's place in the stack, which names its quant sites as the
+    reference does (``block_<index>/attn1/to_q``)."""
 
-    def __init__(self, config: PixArtConfig) -> None:
+    def __init__(self, config: PixArtConfig, index: int = 0) -> None:
         super().__init__()
         c = config
         self.config = c
         self.scale_shift_table = nn.Parameter(
             torch.empty(6, c.dim, dtype=c.dtype)
         )
-        self.attn1 = Attention(c.dim, c.num_heads, c.head_dim, c.dtype)
-        self.attn2 = Attention(c.dim, c.num_heads, c.head_dim, c.dtype)
-        self.ff = FeedForward(c.dim, c.ff_mult, c.dtype)
+        q = dict(quant=c.quant, act_scales=c.act_scales)
+        path = f"block_{index}"
+        self.attn1 = Attention(c.dim, c.num_heads, c.head_dim, c.dtype, **q,
+                               path=f"{path}/attn1")
+        self.attn2 = Attention(c.dim, c.num_heads, c.head_dim, c.dtype, **q,
+                               path=f"{path}/attn2")
+        self.ff = FeedForward(c.dim, c.ff_mult, c.dtype, **q, path=f"{path}/ff")
 
     def cross_kv(self, enc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return self.attn2.kv(enc)
@@ -242,7 +259,7 @@ class PixArtTransformer(nn.Module):
         )
         self.adaln_single = AdaLayerNormSingle(c)
         self.caption_projection = TextProjection(c.caption_dim, c.dim, c.dtype)
-        self.blocks = nn.ModuleList(PixArtBlock(c) for _ in range(c.num_blocks))
+        self.blocks = nn.ModuleList(PixArtBlock(c, i) for i in range(c.num_blocks))
         self.proj_out = nn.Linear(
             c.dim, c.patch_size * c.patch_size * c.out_channels, dtype=c.dtype
         )
@@ -413,7 +430,8 @@ def init_model(
     config: PixArtConfig, seed: int = 0, device: str | torch.device = "cuda"
 ) -> PixArtTransformer:
     """A random-weight PixArtTransformer built directly in `config.dtype` on
-    `device` (no fp32 masters, no host copy), in eval mode."""
+    `device` (no fp32 masters, no host copy), in eval mode; ``int8_w``
+    sites are filled in int8 (`randomize_`)."""
     dev = resolve_device(device)
     with torch.device("meta"):
         model = PixArtTransformer(config)

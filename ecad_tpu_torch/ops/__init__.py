@@ -3,12 +3,15 @@
 Each wrapper runs its plain version for CPU tensors and launches its kernel
 (or raises) for CUDA tensors, counting launches in its module's
 ``LAUNCHES`` (the harness's kernels, ``attn_variants``, count in
-``attention.LAUNCHES``). `launch_counts` / `reset_launch_counts` read and clear them
+``attention.LAUNCHES``). ``quant.LAUNCHES["int8_matmul"]`` counts the int8
+products of the serving quantization (a library call, ``torch._int_mm``,
+on either device). `launch_counts` / `reset_launch_counts` read and clear them
 all, so a run can show that it went through the kernels.
 """
 
 from . import attention as _attention
 from . import fused as _fused
+from . import quant as _quant
 from .attention import (
     attention_route,
     flash_attention,
@@ -36,7 +39,7 @@ from .fused import (
     modulated_layer_norm_reference,
 )
 
-_COUNTERS = (_attention.LAUNCHES, _fused.LAUNCHES)
+_COUNTERS = (_attention.LAUNCHES, _fused.LAUNCHES, _quant.LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:

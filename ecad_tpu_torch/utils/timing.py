@@ -19,6 +19,7 @@ import torch
 # NVIDIA H100 SXM, dense, at its full 700 W power limit (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 
 
 def bound_ms(bytes_: float, flops: float) -> tuple[float, str]:

@@ -10,6 +10,7 @@ import pathlib
 from collections import Counter
 
 import numpy as np
+import pytest
 import torch
 
 from ecad_tpu_torch.models import flux as tfx
@@ -222,3 +223,53 @@ def test_tier_image_tree_counts_sum_its_schedules(monkeypatch, tmp_path):
     tally.clear()
     generate_images.main(argv)
     assert not tally
+
+
+@pytest.mark.parametrize("family", ["pixart", "flux"])
+@pytest.mark.parametrize("quant", ["int8", "int8_static", "int8_w", "int8_w_static"])
+def test_int8_products_follow_the_masks(family, quant):
+    """A tiny trajectory under a cached schedule in each quant mode makes the
+    int8 products chip_smoke.py's rules take from the masks
+    (`pixart_int8_products`: the cross-attention's k and v once a
+    trajectory; `flux_int8_products`: the adaLN linears at every step in
+    the weight-storage modes only), counted by `int8_matmul` on either
+    device."""
+    from ecad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cs = _chip_smoke()
+    steps, rng = 3, np.random.default_rng(5)
+    if family == "pixart":
+        from ecad_tpu_torch.models.pixart import PixArtConfig, init_model
+        from ecad_tpu_torch.pipelines import PixArtPipeline, PixArtPipelineConfig
+        from ecad_tpu_torch.schedules import PixArtCacheSchedule
+
+        cfg = PixArtConfig.tiny(dtype=torch.float32, quant=quant)
+        genome = rng.random(steps * cfg.num_blocks * 3) < 0.5
+        pipe = PixArtPipeline(PixArtPipelineConfig(cfg, steps), init_model(cfg, 0, "cpu"),
+                              PixArtCacheSchedule.from_numpy(genome, steps, cfg.num_blocks))
+        args = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                for s in ((1, 8, 8, 4), (1, 8, 32), (1, 8, 32))]
+        want = cs.expected_counts(pipe.masks, 256, quant)
+    else:
+        cfg = tfx.FluxConfig.tiny(dtype=torch.float32, quant=quant)
+        n = (cfg.num_blocks + cfg.num_single_blocks) * 3
+        sched = FluxCacheSchedule.from_numpy(rng.random(steps * n) < 0.5, steps,
+                                             cfg.num_blocks,
+                                             num_single_blocks=cfg.num_single_blocks)
+        pcfg = FluxPipelineConfig(cfg, steps, height=64, width=64)
+        pipe = FluxPipeline(pcfg, tfx.init_model(cfg, 0, "cpu"), sched)
+        args = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                for s in ((1, pcfg.image_seq_len, cfg.in_channels),
+                          (1, cfg.text_len, cfg.joint_dim), (1, cfg.pooled_dim))]
+        want = cs.flux_expected_counts(pipe.masks, cfg.num_blocks, "attention", quant)
+    reset_launch_counts()
+    with torch.inference_mode():
+        pipe.denoise(*args)
+    masks = np.array(pipe.masks)
+    assert masks.any() and not masks[1:].all()
+    assert launch_counts()["int8_matmul"] == want["int8_matmul"] > 0
+    plain = (cs.expected_counts(pipe.masks, 256) if family == "pixart" else
+             cs.flux_expected_counts(pipe.masks, cfg.num_blocks, "attention"))
+    assert plain["int8_matmul"] == 0
+    assert {k: v for k, v in want.items() if k != "int8_matmul"} == {
+        k: v for k, v in plain.items() if k != "int8_matmul"}

@@ -65,11 +65,35 @@ def test_entry_points_default_to_cuda_and_refuse_cpu(tmp_path, monkeypatch):
         random_decoder_pipeline()
 
 
-@pytest.mark.parametrize("flag", [["--quant", "int8"], ["--cache-dtype", "float8_e4m3fn"]])
+@pytest.mark.parametrize("flag", [["--quant", "fp4"], ["--cache-dtype", "float8_e4m3fn"]])
 def test_unported_options_rejected(tmp_path, flag):
+    """A quant mode outside the reference's four choices, and fp8 caches for
+    a PixArt generator, exit before any work."""
     with pytest.raises(SystemExit):
         tcli.main(["TinyPixArtImageGenerator", "--prompt", "x", "--device", "cpu",
                    "--output-dir", str(tmp_path), *flag])
+    assert not (tmp_path / "images").exists()
+
+
+@pytest.mark.parametrize("generator,quant", [("TinyPixArtImageGenerator", "int8_static"),
+                                             ("TinyFluxImageGenerator", "int8_w_static"),
+                                             ("TinyPixArtImageGenerator", "int8_w")])
+def test_quant_modes_write_their_images(tmp_path, capsys, generator, quant):
+    """--quant through the CLI: the generator calibrates a static mode when
+    it builds its model, every image of the prompt file is written, and the
+    generator's description names the mode."""
+    from ecad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    prompts = tmp_path / "prompts.txt"
+    prompts.write_text("first prompt\nsecond prompt here\n")
+    reset_launch_counts()
+    tcli.main([generator, "--prompt-file", str(prompts), "--num-inference-steps", "2",
+               "--device", "cpu", "--quant", quant, "--output-dir", str(tmp_path)])
+    pngs = sorted((tmp_path / "images").glob("*.png"))
+    assert [p.name for p in pngs] == [f"{i:03d}__prompt_seed:000__image_seed:000.png"
+                                      for i in range(2)]
+    assert f"'quant': '{quant}'" in capsys.readouterr().out
+    assert launch_counts()["int8_matmul"] > 0
 
 
 def test_guidance_override_rejected(tmp_path):

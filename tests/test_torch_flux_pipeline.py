@@ -201,8 +201,9 @@ def test_generator_resolves_schedules_like_reference(name):
 
 
 def test_generator_options():
-    """cache_dtype reaches the model config; quant modes and checkpoint
-    loading are not ported and say so; the registry serves both names."""
+    """cache_dtype and quant reach the model config and the description;
+    checkpoint loading is not ported and says so; the registry serves both
+    names."""
     from ecad_tpu_torch.image_generators import get_image_generator_type
     from ecad_tpu_torch.image_generators import flux as tgen
     from ecad_tpu_torch.pipelines.registry import pipeline_from_config
@@ -214,8 +215,10 @@ def test_generator_options():
     assert get_image_generator_type("FluxImageGenerator") is tgen.FluxImageGenerator
     assert get_image_generator_type("TinyFluxImageGenerator") is tgen.TinyFluxImageGenerator
     assert pipeline_from_config("flux")[0] is tfp.FluxPipeline
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tfx.FluxConfig(quant="int8")
+    quant = tgen.FluxImageGenerator(random_weights=True, device="cpu", quant="int8_w")
+    assert quant.model_config().quant == "int8_w" and quant.describe()["quant"] == "int8_w"
+    with pytest.raises(ValueError, match="unknown quant mode"):
+        tfx.FluxTransformer(tfx.FluxConfig.tiny(quant="int4"))
     loader = tgen.FluxImageGenerator(weights_root="/nonexistent", device="cpu")
     with pytest.raises(NotImplementedError, match="random_weights"):
         loader.create_diffusion_pipeline()

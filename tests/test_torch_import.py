@@ -47,7 +47,8 @@ for name in ("ecad_tpu_torch.graph.interpreter", "ecad_tpu_torch.graph.generator
              "ecad_tpu_torch.benchmark.score_images",
              "ecad_tpu_torch.benchmark.compute_fid",
              "ecad_tpu_torch.benchmark.compute_clip",
-             "ecad_tpu_torch.scoring.fid", "ecad_tpu_torch.bench"):
+             "ecad_tpu_torch.scoring.fid", "ecad_tpu_torch.bench",
+             "ecad_tpu_torch.ops.quant"):
     assert name in names, name
 importlib.import_module("chip_smoke")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)

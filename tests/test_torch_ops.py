@@ -275,7 +275,7 @@ def test_cpu_path_counts_no_launches():
         "attention", "attention_bias", "attention_long", "attention_long_bias",
         "attention_rowblock", "attention_rowblock_bias", "attention_flash",
         "attention_flash_bias", "xattn_matmul_only", "xattn_nomax", "xattn_max",
-        "xattn_fd", "modlnorm",
+        "xattn_fd", "modlnorm", "int8_matmul",
     }
     x = torch.randn(2, 4, 8)
     s = torch.zeros(2, 1, 8)

@@ -82,7 +82,6 @@ WAITING = [
     (["--scorer", "image_reward"], 6),
     (["--scorer", "clip"], 6),
     (["--image-reward-dir", "ir"], 6),
-    (["--quant", "int8"], 4),
     (["--dp", "2"], 8),
     (["--tp", "2"], 8),
     (["--sp", "2"], 8),
@@ -95,6 +94,20 @@ def test_waiting_flags_raise_with_their_item(tmp_path, flags, item):
         train.main(["--name", "w", "--tiny-model", "--device", "cpu",
                     "--populations-dir", str(tmp_path / "p"), *flags])
     assert not (tmp_path / "p").exists()
+
+
+@pytest.mark.parametrize("family", ["pixart", "flux"])
+def test_train_cli_quant_cycle(tmp_path, family):
+    """One cycle with the evaluator's model built under --quant int8 (the
+    tiny PixArt) or int8_w (the tiny FLUX)."""
+    quant, cls = {"pixart": ("int8", PixArtCacheSchedule),
+                  "flux": ("int8_w", FluxCacheSchedule)}[family]
+    out = _run(["--name", "q", "--model-family", family, "--population-size", "4",
+                "--num-inference-steps", "3", "--num-prompts", "1", "--random-seed-gen-0",
+                "--tiny-model", "--device", "cpu", "--num-cycles", "1", "--quant", quant],
+               tmp_path)
+    assert "Generation 2 saved" in out
+    _check_generations(tmp_path, "q", (1,), 2, cls, 4)
 
 
 def test_pixart_rejects_cache_dtype(tmp_path):
