@@ -99,7 +99,36 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (8, 256, 256, 3) uint8. Checks the kernel launch counts of each
    trajectory against its schedule, and a small fp32 trajectory on the card
    against the plain path on the CPU.
-6. The benchmark tier (``benchmark``): the port's tools in this process at
+6. Checkpoints (``checkpoints``): a checkpoint tree in the public
+   HuggingFace/diffusers layout, written under ``build/ecad_tpu_torch/ckpt``
+   by chip_smoke's own safetensors writer from seeded arrays made on the
+   card (the card has no ``safetensors``): PixArt-α 256's transformer at
+   full width and depth in fp32, T5-XXL at full width and depth (24
+   layers) in four BF16 shards and the SD VAE under the 1024-MS pipeline
+   repo; FLUX.1-dev's repo in its public layout (CLIP-L in
+   ``text_encoder/``, T5-XXL in ``text_encoder_2/``, hard links to the
+   same shards; the 16-channel VAE and the transformer at full width cut
+   to 2 dual + 2 single blocks, in bf16). Served through the generators'
+   weights branches: ``PixArtAlphaImageGenerator(weights_root=…)`` at
+   batch 8 under ``ours_fast`` and the default, 8 prompts of
+   ``prompts/ImageRewardPrompts.json``, T5-XXL attached with a word-hash
+   tokenizer stand-in (the card has no ``transformers``); PNGs written,
+   VAE-decoded at 256²; K1, K2 and K3 launches equal to the masks' (the
+   cross-attention with the tokenizer's mask lengths); each trajectory
+   bit-equal to the same model built in memory from the same arrays
+   (``bridge.pixart_state_dict``); ms/img in turns with a random-weight
+   generator (the random bf16 VAE) on the same embeddings, beside
+   ``main256``'s; one profiled ``ours_fast`` trajectory; T5-XXL's encode
+   at 120 tokens (batch 2: a prompt and "") and 512 (batch 1); two T5-XXL
+   layers in bf16 against the same module in fp32 on the CPU
+   (`T5_BF16_TOL`, shown to reject one layer less). Then the cut FLUX at
+   256², one prompt, ``flux_256/ours_fast``'s masks of its blocks: PNG,
+   launches, a trajectory
+   bit-equal to the in-memory build; CLIP-L at 77 tokens timed and its
+   pooled output against the CPU's. Load seconds and GB/s of each
+   directory (warm: just written), peak memory with the encoder resident.
+   Its numbers go on a line of their own.
+7. The benchmark tier (``benchmark``): the port's tools in this process at
    full-width PixArt-α 256² (random bf16 weights), in a scratch directory
    on copies of the schedule JSONs: ``generate_embeddings`` over the first
    8 prompts of ``prompts/ImageRewardPrompts.json`` (hash encoder, text
@@ -120,7 +149,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    uncached and ``ours_fast`` in 5 turns after 2 warmups each, and one
    profiled run of each arm for its device idle share. Its numbers go on a
    line of their own.
-7. The search loop (``search``): ``ecad_tpu_torch.genetic.train.main`` in
+8. The search loop (``search``): ``ecad_tpu_torch.genetic.train.main`` in
    this process at full-width PixArt-α 256² (random bf16 weights and
    prompt embeddings, 20 steps, the weight-free fidelity scorer), 8
    candidates × 4 prompts a generation, gen 0 seeded with the default
@@ -133,7 +162,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    against its plain version, and the launch counts over both runs against
    every evaluated candidate's masks plus each run's reference trajectory;
    times each generation and profiles one candidate's evaluation.
-8. Main path at 1024² (``main1024``): full-width PixArt-α 1024 (4096 image
+9. Main path at 1024² (``main1024``): full-width PixArt-α 1024 (4096 image
    tokens, the resolution and aspect-ratio conditions), batch 2 with CFG,
    under the repo's ``default_1024x1024`` schedule, ``ours_fast`` and the
    TGATE schedule ``tgate_m_010_sp_003_fi_001_warmup_002`` (gate at step
@@ -142,7 +171,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    against each schedule; and a tiny fp32 1024-style trajectory (size
    conditions, TGATE, 2304 tokens so that both K4 variants run) on the card
    against the plain path on the CPU.
-9. Serving quantization (``quant``): the int8 product (``torch._int_mm``
+10. Serving quantization (``quant``): the int8 product (``torch._int_mm``
    through ``ops/quant.py`` `int8_matmul`) held exact against the float64
    product of its int8 operands at PixArt-1024's and FLUX-1024's
    projection shapes (and FLUX's adaLN linear at one row, padded to 17),
@@ -158,7 +187,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    quantize and dequant passes, the other GEMMs and the rest. FLUX.1-dev
    1024² in ``int8_w`` and ``int8_w_static`` runs inside the flux phase,
    on its weights (below).
-10. Main path at 2048² (``main2048``): full-width PixArt-Σ at 2048²
+11. Main path at 2048² (``main2048``): full-width PixArt-Σ at 2048²
    (16384 image tokens, a 256×256 latent, no size conditions, position
    embedding interpolated by 4), batch 1 with CFG, under Σ's
    ``gen_default/default.json`` and ``pixart_sigma_256/ours_fast.json``
@@ -168,7 +197,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    16384 → 120) and K3 checked against each schedule; and a tiny fp32
    trajectory with 8464 tokens, past 8192 so that self-attention takes the
    streaming route, on the card against the plain path on the CPU.
-11. FLUX (``flux``): full-width FLUX.1-dev (19 dual + 38 single blocks,
+12. FLUX (``flux``): full-width FLUX.1-dev (19 dual + 38 single blocks,
    d=3072, 24×128 heads, 512 text tokens, guidance embedding; 11.9 B
    seeded random bf16 parameters) from hash-encoder prompts, 20 flow-match
    Euler steps at guidance 5: 1024² at batch 1 under
@@ -194,7 +223,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    timed, not profiled, to keep the run under 900 s); and a tiny fp32 FLUX
    trajectory (1536 joint tokens at D=128, the row-block route) on the
    card against the plain path on the CPU.
-12. Entry points (``cli``): ``ecad_tpu_torch.inference.cli
+13. Entry points (``cli``): ``ecad_tpu_torch.inference.cli
    PixArtAlphaImageGenerator`` with a prompt file, random weights and
    ``ours_fast``, again with the 1024 TGATE schedule at batch size 2,
    ``PixArtSigmaImageGenerator`` at ``--height 2048 --width 2048
@@ -204,9 +233,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the latent visualisation, as the reference writes them (256×256 for a
    2048² generation).
 
-Prints a summary line, the ``benchmark`` phase's line, a ``{"kernels":
-[...]}`` line (X1's rows with ``two_call_ms`` beside the contract's keys),
-then as its last line
+Prints a summary line, the ``benchmark`` and ``checkpoints`` phases'
+lines, a ``{"kernels": [...]}`` line (X1's rows with ``two_call_ms``
+beside the contract's keys), then as its last line
 ``{"ok": true, "device": {...}}``. A longer report (every check's error,
 device and host times, per-trajectory profiles, each phase's seconds, the
 nvcc/ptxas log) goes to ``--report`` (default
@@ -217,8 +246,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import shutil
 import statistics
+import struct
 import sys
 import time
 from collections import Counter
@@ -2050,6 +2081,608 @@ def main_path() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# checkpoints: a tree in the HuggingFace layout written here from seeded
+# arrays, served through the generators' weights branches
+# ---------------------------------------------------------------------------
+
+CKPT = ROOT / "build" / "ecad_tpu_torch" / "ckpt"
+PIXART_256_REPO = "PixArt-alpha/PixArt-XL-2-256x256"
+PIXART_PIPE_REPO = "PixArt-alpha/PixArt-XL-2-1024-MS"
+FLUX_REPO = "black-forest-labs/FLUX.1-dev"
+T5_TREE_LAYERS = 24  # T5-XXL's encoder at full depth in the written tree
+T5_SHARD_LAYERS = 6  # layers a BF16 shard
+T5_CPU_LAYERS = 2  # the depth held against the same module in fp32 on the CPU
+# bf16 against fp32 after two full-width T5-XXL layers, fed the same
+# bf16-valued weights: the bf16 rounding of the residual stream and of
+# each product's output, relative to the output's standard deviation (the
+# least atol that passes was 0.062·std on the H100; the run shows that this
+# rejects the output of one layer less)
+T5_BF16_TOL = std_bf16_tol(0.1)
+FLUX_CUT = (2, 2)  # dual and single blocks of the cut-depth FLUX tree
+CKPT_PROMPTS = 8
+SAFETENSORS_DTYPES = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16"}
+
+
+def write_safetensors(path: Path, tensors: dict) -> int:
+    """A ``.safetensors`` file of `tensors` (on any device, written in their
+    order): an 8-byte little-endian header length, the JSON header padded
+    with spaces to 8 bytes, then each tensor's raw little-endian bytes.
+    chip_smoke's own writer: the card has no ``safetensors`` package, and
+    the port only reads. Returns the bytes written."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": SAFETENSORS_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)) + raw)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy())
+    return 8 + len(raw) + offset
+
+
+def _lin_spec(spec: dict, key: str, n_in: int, n_out: int, bias: bool = True) -> None:
+    spec[f"{key}.weight"] = (n_out, n_in)
+    if bias:
+        spec[f"{key}.bias"] = (n_out,)
+
+
+def pixart_spec(c) -> dict:
+    """diffusers PixArtTransformer2DModel names → shapes, for `c` (256: no
+    size conditions)."""
+    d, inner = c.dim, c.num_heads * c.head_dim
+    s = {"pos_embed.proj.weight": (d, c.in_channels, c.patch_size, c.patch_size),
+         "pos_embed.proj.bias": (d,)}
+    _lin_spec(s, "adaln_single.emb.timestep_embedder.linear_1", 256, d)
+    _lin_spec(s, "adaln_single.emb.timestep_embedder.linear_2", d, d)
+    _lin_spec(s, "adaln_single.linear", d, 6 * d)
+    _lin_spec(s, "caption_projection.linear_1", c.caption_dim, d)
+    _lin_spec(s, "caption_projection.linear_2", d, d)
+    for i in range(c.num_blocks):
+        b = f"transformer_blocks.{i}"
+        s[f"{b}.scale_shift_table"] = (6, d)
+        for a in ("attn1", "attn2"):
+            for n in ("to_q", "to_k", "to_v"):
+                _lin_spec(s, f"{b}.{a}.{n}", d, inner)
+            _lin_spec(s, f"{b}.{a}.to_out.0", inner, d)
+        _lin_spec(s, f"{b}.ff.net.0.proj", d, c.ff_mult * d)
+        _lin_spec(s, f"{b}.ff.net.2", c.ff_mult * d, d)
+    s["scale_shift_table"] = (2, d)
+    _lin_spec(s, "proj_out", d, c.patch_size * c.patch_size * c.out_channels)
+    return s
+
+
+def t5_spec(c, layers: range) -> dict:
+    """transformers T5EncoderModel names → shapes for `layers` of `c` (the
+    embedding, position table and final norm with layer 0)."""
+    s, inner = {}, c.num_heads * c.d_kv
+    if 0 in layers:
+        s["shared.weight"] = (c.vocab_size, c.d_model)
+        s["encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] = (
+            c.relative_attention_num_buckets, c.num_heads)
+        s["encoder.final_layer_norm.weight"] = (c.d_model,)
+    for i in layers:
+        pre = f"encoder.block.{i}.layer"
+        for n in "qkv":
+            _lin_spec(s, f"{pre}.0.SelfAttention.{n}", c.d_model, inner, bias=False)
+        _lin_spec(s, f"{pre}.0.SelfAttention.o", inner, c.d_model, bias=False)
+        s[f"{pre}.0.layer_norm.weight"] = (c.d_model,)
+        for n in ("wi_0", "wi_1"):
+            _lin_spec(s, f"{pre}.1.DenseReluDense.{n}", c.d_model, c.d_ff, bias=False)
+        _lin_spec(s, f"{pre}.1.DenseReluDense.wo", c.d_ff, c.d_model, bias=False)
+        s[f"{pre}.1.layer_norm.weight"] = (c.d_model,)
+    return s
+
+
+def vae_spec(c) -> dict:
+    """diffusers AutoencoderKL names → shapes of its decoder half."""
+    s = {}
+
+    def conv(key, cin, cout, k):
+        s[f"{key}.weight"], s[f"{key}.bias"] = (cout, cin, k, k), (cout,)
+
+    def norm(key, ch):
+        s[f"{key}.weight"], s[f"{key}.bias"] = (ch,), (ch,)
+
+    def resnet(key, cin, cout):
+        norm(f"{key}.norm1", cin)
+        conv(f"{key}.conv1", cin, cout, 3)
+        norm(f"{key}.norm2", cout)
+        conv(f"{key}.conv2", cout, cout, 3)
+        if cin != cout:
+            conv(f"{key}.conv_shortcut", cin, cout, 1)
+
+    lc, ch = c.latent_channels, c.block_out_channels[-1]
+    conv("post_quant_conv", lc, lc, 1)
+    conv("decoder.conv_in", lc, ch, 3)
+    for i in range(2):
+        resnet(f"decoder.mid_block.resnets.{i}", ch, ch)
+    attn = "decoder.mid_block.attentions.0"
+    norm(f"{attn}.group_norm", ch)
+    for n in ("to_q", "to_k", "to_v", "to_out.0"):
+        _lin_spec(s, f"{attn}.{n}", ch, ch)
+    cin = ch
+    rev = tuple(reversed(c.block_out_channels))
+    for bi, cout in enumerate(rev):
+        for ri in range(c.layers_per_block + 1):
+            resnet(f"decoder.up_blocks.{bi}.resnets.{ri}", cin, cout)
+            cin = cout
+        if bi < len(rev) - 1:
+            conv(f"decoder.up_blocks.{bi}.upsamplers.0.conv", cout, cout, 3)
+    norm("decoder.conv_norm_out", cin)
+    conv("decoder.conv_out", cin, c.out_channels, 3)
+    return s
+
+
+def flux_spec(c) -> dict:
+    """diffusers FluxTransformer2DModel names → shapes, for `c`."""
+    s, d = {}, c.dim
+    inner, mlp = c.num_heads * c.head_dim, c.mlp_ratio * c.dim
+    tte = "time_text_embed"
+    _lin_spec(s, "x_embedder", c.in_channels, d)
+    _lin_spec(s, "context_embedder", c.joint_dim, d)
+    for name, n_in in (("timestep_embedder", 256), ("guidance_embedder", 256),
+                       ("text_embedder", c.pooled_dim)):
+        _lin_spec(s, f"{tte}.{name}.linear_1", n_in, d)
+        _lin_spec(s, f"{tte}.{name}.linear_2", d, d)
+    _lin_spec(s, "norm_out.linear", d, 2 * d)
+    _lin_spec(s, "proj_out", d, c.in_channels)
+    for i in range(c.num_blocks):
+        b = f"transformer_blocks.{i}"
+        _lin_spec(s, f"{b}.norm1.linear", d, 6 * d)
+        _lin_spec(s, f"{b}.norm1_context.linear", d, 6 * d)
+        for n in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj"):
+            _lin_spec(s, f"{b}.attn.{n}", d, inner)
+        _lin_spec(s, f"{b}.attn.to_out.0", inner, d)
+        _lin_spec(s, f"{b}.attn.to_add_out", inner, d)
+        for n in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            s[f"{b}.attn.{n}.weight"] = (c.head_dim,)
+        for ff in ("ff", "ff_context"):
+            _lin_spec(s, f"{b}.{ff}.net.0.proj", d, mlp)
+            _lin_spec(s, f"{b}.{ff}.net.2", mlp, d)
+    for i in range(c.num_single_blocks):
+        b = f"single_transformer_blocks.{i}"
+        _lin_spec(s, f"{b}.norm.linear", d, 3 * d)
+        for n in ("to_q", "to_k", "to_v"):
+            _lin_spec(s, f"{b}.attn.{n}", d, inner)
+        for n in ("norm_q", "norm_k"):
+            s[f"{b}.attn.{n}.weight"] = (c.head_dim,)
+        _lin_spec(s, f"{b}.proj_mlp", d, mlp)
+        _lin_spec(s, f"{b}.proj_out", d + mlp, d)
+    return s
+
+
+def clip_spec(c) -> dict:
+    """transformers CLIPTextModel names → shapes, for `c`."""
+    s, d, pre = {}, c.hidden_size, "text_model"
+    s[f"{pre}.embeddings.token_embedding.weight"] = (c.vocab_size, d)
+    s[f"{pre}.embeddings.position_embedding.weight"] = (c.max_position_embeddings, d)
+    for i in range(c.num_layers):
+        lay = f"{pre}.encoder.layers.{i}"
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _lin_spec(s, f"{lay}.self_attn.{n}", d, d)
+        _lin_spec(s, f"{lay}.mlp.fc1", d, c.intermediate_size)
+        _lin_spec(s, f"{lay}.mlp.fc2", c.intermediate_size, d)
+        for n in ("layer_norm1", "layer_norm2"):
+            s[f"{lay}.{n}.weight"], s[f"{lay}.{n}.bias"] = (d,), (d,)
+    s[f"{pre}.final_layer_norm.weight"] = s[f"{pre}.final_layer_norm.bias"] = (d,)
+    return s
+
+
+EMBEDDING_TABLES = ("shared.weight", "token_embedding.weight", "position_embedding.weight",
+                    "relative_attention_bias.weight")
+
+
+def seeded_arrays(spec: dict, seed: int, dtype: torch.dtype, device: str = "cuda") -> dict:
+    """Seeded arrays on `device` for `spec`, in `dtype`: weight matrices and
+    kernels N(0, 1/fan_in), embedding and position tables N(0, 1),
+    PixArt's modulation tables N(0, 1/d), norm weights 1 + N(0, 0.1²),
+    biases N(0, 0.02²)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for name, shape in spec.items():
+        t = torch.empty(shape, device=device)
+        if name.endswith(EMBEDDING_TABLES):
+            t.normal_(0.0, 1.0, generator=gen)
+        elif name.endswith("scale_shift_table"):
+            t.normal_(0.0, shape[-1] ** -0.5, generator=gen)
+        elif name.endswith(".bias"):
+            t.normal_(0.0, 0.02, generator=gen)
+        elif len(shape) == 1:
+            t.normal_(1.0, 0.1, generator=gen)
+        else:
+            t.normal_(0.0, float(np.prod(shape[1:])) ** -0.5, generator=gen)
+        out[name] = t.to(dtype)
+    return out
+
+
+class WordHashTokenizer:
+    """Tokenizer stand-in (the card has no ``transformers``): each
+    whitespace word becomes a hash id below the vocabulary, then `eos`;
+    `bos` first where given; padded with `pad` to max_length. Returns numpy
+    ``input_ids`` and ``attention_mask`` as a HuggingFace tokenizer does."""
+
+    def __init__(self, vocab: int, eos: int, pad: int, bos: int | None = None):
+        self.vocab, self.eos, self.pad, self.bos = vocab, eos, pad, bos
+
+    def __call__(self, prompt, padding="max_length", max_length=120, truncation=True,
+                 return_tensors="np"):
+        import zlib
+
+        ids = [] if self.bos is None else [self.bos]
+        ids += [2 + zlib.crc32(w.encode()) % (self.vocab - 3) for w in prompt.split()]
+        ids = ids[: max_length - 1] + [self.eos]
+        n = len(ids)
+        ids += [self.pad] * (max_length - n)
+        return {"input_ids": np.array([ids], np.int64),
+                "attention_mask": (np.arange(max_length) < n).astype(np.int64)[None]}
+
+
+def dir_bytes(d: Path) -> int:
+    return sum(p.stat().st_size for p in d.iterdir() if p.is_file())
+
+
+def timed_load(loads: dict, name: str, d: Path, fn):
+    """`fn()` timed from the files to the module on the card, with the
+    directory's bytes: seconds and GB/s in `loads[name]`."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    loads[name] = {"s": s, "GB": dir_bytes(d) / 1e9, "GBps": dir_bytes(d) / 1e9 / s}
+    log(f"  load {name}: {loads[name]['GB']:.3f} GB in {s:.2f} s "
+        f"({loads[name]['GBps']:.2f} GB/s)")
+    return out
+
+
+def write_dir(writes: dict, name: str, files: dict) -> None:
+    """Each of `files` ({path: tensors}) written with `write_safetensors`;
+    seconds and GB/s of the directory in `writes[name]`."""
+    t0 = time.perf_counter()
+    n = sum(write_safetensors(path, tensors) for path, tensors in files.items())
+    s = time.perf_counter() - t0
+    writes[name] = {"s": s, "GB": n / 1e9, "GBps": n / 1e9 / s}
+    log(f"  wrote {name}: {n / 1e9:.3f} GB in {s:.2f} s")
+
+
+def check_pngs(label: str, out: Path, n: int, side: int) -> list:
+    from PIL import Image
+
+    pngs = sorted(out.rglob("*.png"))
+    if len(pngs) != n:
+        raise AssertionError(f"{label}: {len(pngs)} PNGs, expected {n}")
+    arrays = [np.asarray(Image.open(p)) for p in pngs]
+    for p, a in zip(pngs, arrays):
+        if a.shape != (side, side, 3) or a.dtype != np.uint8:
+            raise AssertionError(f"{label}: {p.name} is {a.shape} {a.dtype}")
+    return arrays
+
+
+def checkpoint_pixart(writes: dict, loads: dict, random_path: dict) -> dict:
+    """PixArt-α 256² from the tree: the transformer (fp32, 28 blocks), T5-XXL
+    (BF16 shards) and the SD VAE, through `PixArtAlphaImageGenerator`'s
+    weights branches with the word-hash tokenizer attached."""
+    from ecad_tpu_torch.image_generators import PixArtAlphaImageGenerator
+    from ecad_tpu_torch.models.bridge import pixart_state_dict
+    from ecad_tpu_torch.models.pixart import init_model
+    from ecad_tpu_torch.models.t5 import T5Config, T5EncoderPipeline, load_t5_weights
+    from ecad_tpu_torch.models.vae import VAEConfig
+    from ecad_tpu_torch.models.weights import convert_pixart_state_dict
+    from ecad_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ecad_tpu_torch.pipelines import PixArtPipeline
+    from ecad_tpu_torch.schedules import PixArtCacheSchedule
+    from ecad_tpu_torch.utils.timing import wall_ms
+
+    gen = PixArtAlphaImageGenerator(weights_root=CKPT, schedule_path=OURS_FAST,
+                                    batch_size=CKPT_PROMPTS)
+    config, t5cfg = gen.model_config(), T5Config.xxl()
+    tdir = CKPT / PIXART_256_REPO / "transformer"
+    edir = CKPT / PIXART_PIPE_REPO / "text_encoder"
+    vdir = CKPT / PIXART_PIPE_REPO / "vae"
+    arrays = seeded_arrays(pixart_spec(config), 1, torch.float32)
+    write_dir(writes, "pixart_transformer", {
+        tdir / "diffusion_pytorch_model.safetensors": arrays})
+    shards = [range(lo, min(lo + T5_SHARD_LAYERS, T5_TREE_LAYERS))
+              for lo in range(0, T5_TREE_LAYERS, T5_SHARD_LAYERS)]
+    t0 = time.perf_counter()
+    for i, layers in enumerate(shards):
+        path = edir / f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        write_dir(writes, f"t5_shard_{i}", {
+            path: seeded_arrays(t5_spec(t5cfg, layers), 100 + i, torch.bfloat16)})
+    writes["t5_text_encoder"] = {"s": time.perf_counter() - t0, "GB": dir_bytes(edir) / 1e9,
+                                 "layers": T5_TREE_LAYERS}
+    write_dir(writes, "sd_vae", {vdir / "diffusion_pytorch_model.safetensors":
+                                 seeded_arrays(vae_spec(VAEConfig.sd()), 2, torch.float32)})
+
+    gen._encoder = timed_load(loads, "t5_xxl", edir, lambda: T5EncoderPipeline(
+        t5cfg, load_t5_weights(edir, t5cfg), WordHashTokenizer(t5cfg.vocab_size, 1, 0),
+        gen.text_len))
+    pipe = timed_load(loads, "pixart_transformer", tdir, gen.create_diffusion_pipeline)
+    vae = timed_load(loads, "sd_vae", vdir, gen._ensure_vae)
+    if not (vae.config.latent_channels == 4 and vae.config.dtype == torch.float32):
+        raise AssertionError(f"checkpoint VAE {vae.config}")
+
+    items = json.loads((ROOT / "prompts/ImageRewardPrompts.json").read_text())
+    prompts = [it["prompt"] for it in items[:CKPT_PROMPTS]]
+    torch.cuda.reset_peak_memory_stats()
+    embeddings = gen.encode_prompts(prompts)
+    lengths = [int(e["prompt_attention_mask"].sum()) for e in embeddings]
+    result = {"t5_tree_layers": T5_TREE_LAYERS, "mask_lengths": lengths}
+    work = ROOT / "build" / "ecad_tpu_torch" / "smoke_ckpt_pixart"
+    shutil.rmtree(work, ignore_errors=True)
+
+    schedules = {"ours_fast": OURS_FAST, "default": DEFAULT_256}
+    for name, path in schedules.items():
+        gen.set_schedule(path)  # swaps the masks of the one resident pipeline
+        pipe = gen.create_diffusion_pipeline()
+        reset_launch_counts()
+        gen.generate_images(embeddings, output_dir=work / name)
+        torch.cuda.synchronize()
+        counts, want = launch_counts(), expected_counts(pipe.masks)
+        log(f"  checkpoint {name}: launches {counts}, schedule says {want}")
+        if counts != want:
+            raise AssertionError(f"checkpoint {name}: launches {counts} != {want}")
+        check_pngs(f"checkpoint {name}", work / name, CKPT_PROMPTS, 256)
+        result[name] = {"launches": counts}
+    # T5-XXL, the transformer and the VAE resident, a batch of 8 generated
+    result["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # the same model built in memory from the same arrays, on the same inputs
+    mem_model = init_model(config, state=pixart_state_dict(
+        convert_pixart_state_dict(arrays, config)))
+    del arrays
+    gen_noise = torch.Generator(device="cuda").manual_seed(0)
+    inputs = dict(
+        noise=torch.randn((CKPT_PROMPTS, config.sample_size, config.sample_size,
+                           config.in_channels), generator=gen_noise,
+                          device="cuda").to(config.dtype),
+        text=gen._stack(embeddings, "prompt_embeds", config.dtype),
+        neg=gen._stack(embeddings, "negative_prompt_embeds", config.dtype),
+        text_mask=gen._stack(embeddings, "prompt_attention_mask"),
+        neg_mask=gen._stack(embeddings, "negative_prompt_attention_mask"))
+    for name, path in schedules.items():
+        gen.set_schedule(path)
+        pipe = gen.create_diffusion_pipeline()
+        mem = PixArtPipeline(pipe.config, mem_model, PixArtCacheSchedule.from_json(path))
+        a, b = pipe.denoise(**inputs), mem.denoise(**inputs)
+        if not torch.equal(a, b):
+            raise AssertionError(f"checkpoint {name}: the trajectory differs from the "
+                                 f"in-memory build by {float((a - b).abs().max())}")
+        result[name]["latents_std"] = float(a.float().std())
+    log(f"  trajectories bit-equal to the in-memory build; mask lengths {lengths}")
+    del mem_model, mem
+
+    # ms/img in turns against a random-weight generator (the random bf16 VAE)
+    # on the same embeddings, both timed by `generate_images_timed`
+    rand = PixArtAlphaImageGenerator(random_weights=True, schedule_path=OURS_FAST,
+                                     batch_size=CKPT_PROMPTS)
+    rand.use_random_vae = True
+    rand.generate_images_timed(embeddings, seed=1)  # builds its model and VAE, untimed
+    sources = {"checkpoint": gen, "random_weights": rand}
+    times = {(src, name): [] for src in sources for name in schedules}
+    for name in ("default", "ours_fast", "ours_fast", "default"):
+        for src in (("checkpoint", "random_weights") if len(times[("checkpoint", name)]) == 0
+                    else ("random_weights", "checkpoint")):
+            g = sources[src]
+            g.set_schedule(schedules[name])
+            times[(src, name)].append(g.generate_images_timed(embeddings, seed=1) / CKPT_PROMPTS)
+    for name in schedules:
+        r = result[name]
+        r["ms_per_img_runs"] = times[("checkpoint", name)]
+        r["ms_per_img"] = statistics.median(r["ms_per_img_runs"])
+        r["random_weights_ms_per_img_runs"] = times[("random_weights", name)]
+        r["random_weights_ms_per_img"] = statistics.median(r["random_weights_ms_per_img_runs"])
+        r["main256_ms_per_img"] = random_path[name]["ms_per_img"]
+        log(f"  checkpoint {name}: {r['ms_per_img']:.3f} ms/img (random-weight generator "
+            f"{r['random_weights_ms_per_img']:.3f}, main256 {r['main256_ms_per_img']:.3f})")
+    gen.set_schedule(OURS_FAST)
+    latents = gen._generate_latents(embeddings, 1)
+    for key, g in (("vae_decode_ms", gen), ("random_vae_decode_ms", rand)):
+        decode = g._ensure_vae().decode_device
+        result[key] = statistics.median(wall_ms(lambda: decode(latents), "cuda")
+                                        for _ in range(3))
+    del rand
+    result["profile"] = profile_trajectory(
+        lambda: gen.decode_latents_device(gen._generate_latents(embeddings, 1)),
+        result["ours_fast"]["ms_per_img"] * CKPT_PROMPTS)
+    seen = result["profile"]["kernels"]
+    for family, kernel in SERVED_KERNELS["pixart256"].items():
+        if not any(kernel in k for k in seen.get(family, ())):
+            raise AssertionError(f"checkpoint: the profile shows no {kernel} under {family}")
+    log(f"  peak {result['peak_mem_gib']:.2f} GiB with T5-XXL resident; VAE decode "
+        f"{result['vae_decode_ms']:.2f} ms (fp32) against {result['random_vae_decode_ms']:.2f}"
+        f" (random bf16)")
+
+    # T5-XXL: encode times, then two layers against the same module in fp32
+    enc = gen.create_encoder_pipeline()
+    tok = enc.tokenizer
+    batch = [tok(p, max_length=L) for p, L in ((prompts[0], 120), ("", 120))]
+    ids = torch.from_numpy(np.concatenate([t["input_ids"] for t in batch])).cuda()
+    mask = torch.from_numpy(np.concatenate([t["attention_mask"] for t in batch])).cuda()
+    long = tok(prompts[0], max_length=512)
+    ids512 = torch.from_numpy(long["input_ids"]).cuda()
+    mask512 = torch.from_numpy(long["attention_mask"]).cuda()
+    with torch.inference_mode():
+        result["t5_encode_ms"] = {
+            "120_tokens_batch_2": timed_ms("t5_xxl_120x2", lambda: enc.model(ids, mask), 5, 5),
+            "512_tokens_batch_1": timed_ms("t5_xxl_512x1", lambda: enc.model(ids512, mask512),
+                                           5, 5),
+            "layers": t5cfg.num_layers,
+        }
+    log(f"  T5-XXL encode ms: {result['t5_encode_ms']}")
+    del gen, enc, pipe, vae
+    torch.cuda.empty_cache()
+    cut = T5Config.xxl(num_layers=T5_CPU_LAYERS)
+    with torch.inference_mode():
+        got = load_t5_weights(edir, cut)(ids, mask)
+        want = load_t5_weights(edir, dataclasses.replace(cut, dtype=torch.float32), "cpu")(
+            ids.cpu(), mask.cpu())
+    result["t5_cpu_max_abs_err"] = compare("t5_xxl_2_layers_bf16_vs_cpu_fp32",
+                                           got, want.cuda(), T5_BF16_TOL)
+    with torch.inference_mode():
+        dropped = load_t5_weights(edir, dataclasses.replace(
+            cut, num_layers=T5_CPU_LAYERS - 1, dtype=torch.float32), "cpu")(ids.cpu(), mask.cpu())
+    rejects("t5_xxl_last_layer_dropped", dropped.cuda(), want.cuda(), T5_BF16_TOL)
+    return result
+
+
+def checkpoint_flux(writes: dict, loads: dict) -> dict:
+    """FLUX.1-dev 256² from a tree in the public layout: CLIP-L in
+    text_encoder/, T5-XXL in text_encoder_2/ (the PixArt tree's shards,
+    hard-linked), the transformer at full width cut to `FLUX_CUT` blocks
+    (bf16) and the 16-channel VAE (bf16), through a cut-depth subclass of
+    `FluxImageGenerator`, one prompt under `flux_256/ours_fast`'s masks of
+    those blocks."""
+    from ecad_tpu_torch.image_generators import FluxImageGenerator
+    from ecad_tpu_torch.image_generators.flux import _FluxRealEncoder
+    from ecad_tpu_torch.models.bridge import flux_state_dict
+    from ecad_tpu_torch.models.clip import CLIPTextConfig, CLIPTextPipeline, load_clip_weights
+    from ecad_tpu_torch.models.flux import FluxConfig, init_model
+    from ecad_tpu_torch.models.t5 import T5Config, T5EncoderPipeline, load_t5_weights
+    from ecad_tpu_torch.models.vae import VAEConfig
+    from ecad_tpu_torch.models.weights import convert_flux_state_dict
+    from ecad_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ecad_tpu_torch.pipelines.flux_pipeline import FluxPipeline
+    from ecad_tpu_torch.schedules import FluxCacheSchedule
+
+    n_dual, n_single = FLUX_CUT
+
+    class CutFluxGenerator(FluxImageGenerator):
+        num_blocks, num_single_blocks = n_dual, n_single
+
+        def model_config(self):
+            return dataclasses.replace(super().model_config(), num_blocks=n_dual,
+                                       num_single_blocks=n_single)
+
+    repo = CKPT / FLUX_REPO
+    config = CutFluxGenerator(random_weights=True).model_config()
+    ccfg, t5cfg = CLIPTextConfig.large(), T5Config.xxl()
+    arrays = seeded_arrays(flux_spec(config), 3, torch.bfloat16)
+    write_dir(writes, "flux_transformer_cut", {
+        repo / "transformer" / "diffusion_pytorch_model.safetensors": arrays})
+    write_dir(writes, "clip_l", {repo / "text_encoder" / "model.safetensors":
+                                 seeded_arrays(clip_spec(ccfg), 4, torch.float32)})
+    write_dir(writes, "flux_vae", {repo / "vae" / "diffusion_pytorch_model.safetensors":
+                                   seeded_arrays(vae_spec(VAEConfig.flux()), 5, torch.bfloat16)})
+    (repo / "text_encoder_2").mkdir(parents=True)
+    for f in sorted((CKPT / PIXART_PIPE_REPO / "text_encoder").iterdir()):
+        os.link(f, repo / "text_encoder_2" / f.name)
+
+    # flux_256/ours_fast's masks of the cut blocks: dual 0.., single 0..
+    full = FluxCacheSchedule.from_json(FLUX_OURS_FAST_256)
+    slots = full.mask.reshape(full.num_inference_steps, -1, 3)
+    keep = [*range(n_dual), *range(full.num_blocks, full.num_blocks + n_single)]
+    cut = FluxCacheSchedule.from_numpy(
+        slots[:, keep].reshape(full.num_inference_steps, -1), full.num_inference_steps,
+        n_dual, name="ours_fast_cut", num_single_blocks=n_single,
+        top_level_config=full.top_level_config)
+    sched = CKPT / "flux_ours_fast_cut.json"
+    sched.write_text(json.dumps(cut.to_dict()))
+
+    gen = CutFluxGenerator(weights_root=CKPT, schedule_path=sched, batch_size=1)
+    t5dir, cdir = repo / "text_encoder_2", repo / "text_encoder"
+    t5 = timed_load(loads, "t5_xxl_text_encoder_2", t5dir, lambda: T5EncoderPipeline(
+        t5cfg, load_t5_weights(t5dir, t5cfg), WordHashTokenizer(t5cfg.vocab_size, 1, 0),
+        gen.text_len))
+    clip = timed_load(loads, "clip_l", cdir, lambda: CLIPTextPipeline(
+        ccfg, load_clip_weights(cdir, ccfg),
+        WordHashTokenizer(ccfg.vocab_size, ccfg.eos_token_id, ccfg.eos_token_id,
+                          bos=ccfg.eos_token_id - 1)))
+    gen._encoder = _FluxRealEncoder(t5, clip)
+    pipe = timed_load(loads, "flux_transformer_cut", repo / "transformer",
+                      gen.create_diffusion_pipeline)
+    vae = timed_load(loads, "flux_vae", repo / "vae", gen._ensure_vae)
+    if vae.config.latent_channels != 16:
+        raise AssertionError(f"FLUX checkpoint VAE {vae.config}")
+
+    prompt = "a lighthouse on a cliff above a stormy sea at dusk"
+    [emb] = gen.encode_prompts([prompt])
+    work = ROOT / "build" / "ecad_tpu_torch" / "smoke_ckpt_flux"
+    shutil.rmtree(work, ignore_errors=True)
+    reset_launch_counts()
+    gen.generate_images([emb], output_dir=work)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = flux_expected_counts(pipe.masks, n_dual, "attention")
+    log(f"  checkpoint FLUX: launches {counts}, schedule says {want}")
+    if counts != want:
+        raise AssertionError(f"checkpoint FLUX: launches {counts} != {want}")
+    check_pngs("checkpoint FLUX", work, 1, 256)
+
+    mem_model = init_model(config, state=flux_state_dict(convert_flux_state_dict(arrays, config)))
+    del arrays
+    gen_noise = torch.Generator(device="cuda").manual_seed(0)
+    noise = torch.randn((1, pipe.config.image_seq_len, config.in_channels),
+                        generator=gen_noise, device="cuda").to(config.dtype)
+    txt = gen._stack([emb], "prompt_embeds", config.dtype)
+    pooled = gen._stack([emb], "pooled_prompt_embeds", config.dtype)
+    a = pipe.denoise(noise, txt, pooled)
+    b = FluxPipeline(pipe.config, mem_model, cut).denoise(noise, txt, pooled)
+    if not torch.equal(a, b):
+        raise AssertionError(f"checkpoint FLUX: the trajectory differs from the in-memory "
+                             f"build by {float((a - b).abs().max())}")
+    log("  FLUX trajectory bit-equal to the in-memory build")
+
+    toks = clip.tokenizer(prompt, max_length=ccfg.max_position_embeddings)
+    ids = torch.from_numpy(toks["input_ids"]).cuda()
+    with torch.inference_mode():
+        clip_ms = timed_ms("clip_l_77x1", lambda: clip.model(ids), 5, 5)
+        pooled_gpu = clip.model(ids)[1]
+        pooled_cpu = load_clip_weights(cdir, ccfg, "cpu")(ids.cpu())[1]
+    result = {"launches": counts, "blocks": list(FLUX_CUT), "clip_l_ms_77_tokens": clip_ms,
+              "clip_cpu_max_abs_err": compare("clip_l_pooled_vs_cpu", pooled_gpu,
+                                              pooled_cpu.cuda(), (1e-3, 1e-3)),
+              "latents_std": float(a.float().std())}
+    log(f"  CLIP-L at 77 tokens: {clip_ms:.3f} ms")
+    return result
+
+
+def checkpoints_phase(random_path: dict) -> dict:
+    """The `checkpoints` phase: write the tree under `CKPT`, serve PixArt-α
+    256² and the cut FLUX from it, and report the writes, loads (warm: the
+    files were just written), encode times and ms/img."""
+    log("checkpoints phase: a HuggingFace-layout tree written here, served from disk")
+    shutil.rmtree(CKPT, ignore_errors=True)
+    writes, loads = {}, {}
+    result = {"pixart256": checkpoint_pixart(writes, loads, random_path)}
+    torch.cuda.empty_cache()
+    result["flux256_cut"] = checkpoint_flux(writes, loads)
+    result.update(writes=writes, loads=loads)
+    shutil.rmtree(CKPT, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return result
+
+
+def checkpoints_line(smi: str, r: dict, seconds: float) -> dict:
+    """The phase's numbers for a line of their own."""
+    px, fx = r["pixart256"], r["flux256_cut"]
+    return {"checkpoints": {
+        "card": smi,
+        "load_s_GBps": {k: [v["s"], v["GBps"]] for k, v in r["loads"].items()},
+        "t5_xxl_layers": px["t5_encode_ms"]["layers"],
+        "t5_xxl_encode_ms": {k: v for k, v in px["t5_encode_ms"].items() if k != "layers"},
+        "clip_l_ms_77_tokens": fx["clip_l_ms_77_tokens"],
+        "peak_gib_t5_resident": px["peak_mem_gib"],
+        "ms_per_img_checkpoint": {k: px[k]["ms_per_img"] for k in ("ours_fast", "default")},
+        "ms_per_img_random_weights": {k: px[k]["random_weights_ms_per_img"]
+                                      for k in ("ours_fast", "default")},
+        "ms_per_img_main256": {k: px[k]["main256_ms_per_img"] for k in ("ours_fast", "default")},
+        "vae_decode_ms_fp32_checkpoint_vs_bf16_random": [px["vae_decode_ms"],
+                                                         px["random_vae_decode_ms"]],
+        "launches": {"pixart256/ours_fast": px["ours_fast"]["launches"],
+                     "pixart256/default": px["default"]["launches"],
+                     "flux256_cut/ours_fast": fx["launches"]},
+        "t5_2_layers_bf16_vs_cpu_fp32_max_abs_err": px["t5_cpu_max_abs_err"],
+        "seconds": seconds,
+    }}
+
+
+# ---------------------------------------------------------------------------
 # the benchmark tier
 # ---------------------------------------------------------------------------
 
@@ -3255,6 +3888,7 @@ def main() -> None:
     kernels = phase("kernels", kernel_phase, b2=2 * BATCH, b2_1024=2 * BATCH_1024)
     variants = phase("variants", variants_phase)
     REPORT["main_path"] = phase("main256", main_path)
+    REPORT["checkpoints"] = phase("checkpoints", checkpoints_phase, REPORT["main_path"])
     REPORT["benchmark"] = phase("benchmark", benchmark_phase, smi)
     REPORT["search"] = phase("search", search_path)
     REPORT["main_path_1024"] = phase("main1024", main_path_1024)
@@ -3330,6 +3964,8 @@ def main() -> None:
         "phase_s": seconds,
     }), flush=True)
     print(json.dumps(benchmark_line(smi, REPORT["benchmark"], seconds["benchmark"])),
+          flush=True)
+    print(json.dumps(checkpoints_line(smi, REPORT["checkpoints"], seconds["checkpoints"])),
           flush=True)
     # every row has the contract's keys; X1's also its two-call yardstick
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

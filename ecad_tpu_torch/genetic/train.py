@@ -9,15 +9,20 @@ checkpoint.npz) are the reference's, so a search started by either package
 resumes in the other.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU and
-without that flag it raises. Weights are random (seeded by ``--seed``), at
-full width or ``--tiny-model``; prompts are random embeddings or
-``--embeddings-dir``. Flags of modules not ported yet are accepted and
-raise with their ROADMAP.md queue 1 item: ``--weights-root``,
-``--transformer-weights`` and ``--prompt-file`` (item 5),
-``--scorer image_reward|clip`` and ``--image-reward-dir`` (item 6),
-``--dp``/``--tp``/``--sp`` > 1 (item 8). ``--quant`` builds the evaluator's
-model in a serving quant mode (``ops/quant.py``); with random weights the
-static modes keep per-token scales, as the reference's do.
+without that flag it raises. With ``--weights-root`` the evaluator serves
+the checkpoint tree there through the family's generator (PixArt-α or
+FLUX.1-dev; ``--transformer-weights`` names another transformer repo), and
+decodes through the checkpoint's VAE; ``--prompt-file`` then encodes its
+prompts with the checkpoint's text encoder(s). Otherwise weights are
+random (seeded by ``--seed``), at full width or ``--tiny-model``. Prompts
+not from ``--prompt-file`` are random embeddings or ``--embeddings-dir``.
+Flags of modules not ported yet are accepted and raise with their
+ROADMAP.md queue 1 item: ``--scorer image_reward|clip`` and
+``--image-reward-dir`` (item 6), ``--dp``/``--tp``/``--sp`` > 1 (item 8).
+``--quant`` builds the evaluator's model in a serving quant mode
+(``ops/quant.py``; the generator calibrates the static modes on a
+checkpoint); with random weights the static modes keep per-token scales,
+as the reference's do.
 
 Usage (mini smoke run, fidelity scorer, tiny random model on the CPU):
   python -m ecad_tpu_torch.genetic.train --name demo --population-size 8 \\
@@ -81,14 +86,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "the uncached trajectory of the same model "
                         "(latent-space SNR dB; evaluate.py:fidelity_snr_db)")
     p.add_argument("--weights-root", type=Path, default=None,
-                   help="root of local HF-layout checkpoints (not ported yet)")
+                   help="root of local HF-layout checkpoints (transformer, "
+                        "text encoder(s), VAE)")
     p.add_argument("--transformer-weights", default=None,
-                   help="repo name under --weights-root (not ported yet)")
+                   help="transformer repo name under --weights-root")
     p.add_argument("--image-reward-dir", type=Path, default=None,
                    help="ImageReward.pt and a BERT tokenizer dir (not ported yet)")
     p.add_argument("--prompt-file", type=Path, default=None,
-                   help="prompts encoded with the real text encoder (not "
-                        "ported yet)")
+                   help="prompts, one a line, encoded with the checkpoint's "
+                        "text encoder (needs --weights-root)")
     p.add_argument("--dp", type=int, default=0,
                    help="data-parallel size (only 0 or 1: one process, one card)")
     p.add_argument("--tp", type=int, default=1,
@@ -143,12 +149,6 @@ def refuse_waiting_flags(args) -> None:
     """Raise, at startup, for a flag whose module is not ported yet, naming
     its ROADMAP.md queue 1 item."""
     waiting = [
-        (args.weights_root is not None, "--weights-root", 5,
-         "encoders and local checkpoints"),
-        (args.transformer_weights is not None, "--transformer-weights", 5,
-         "encoders and local checkpoints"),
-        (args.prompt_file is not None, "--prompt-file", 5,
-         "encoders and local checkpoints"),
         (args.scorer in ("image_reward", "clip"), f"--scorer {args.scorer}", 6,
          "the scorer towers"),
         (args.image_reward_dir is not None, "--image-reward-dir", 6,
@@ -225,9 +225,37 @@ def _embeddings(args, keys: tuple[str, str], shapes, dtype, device) -> tuple:
     return first, second, [f"prompt_{i}" for i in range(p)]
 
 
+def _checkpoint_generator(args, cls):
+    """The family's generator on the checkpoint tree under --weights-root
+    (ref :292-330, :394-420), its transformer repo from
+    --transformer-weights when given."""
+    gen = cls(
+        quant=args.quant,
+        start_seed=args.start_seed,
+        seed_step=args.seed_step,
+        weights_root=args.weights_root,
+        num_inference_steps=args.num_inference_steps,
+        device=args.device,
+        **({"cache_dtype": args.cache_dtype} if cls.supports_cache_dtype else {}),
+    )
+    if args.transformer_weights:
+        gen.transformer_weights = args.transformer_weights
+    return gen
+
+
+def _prompt_file_embeddings(args, gen, keys: tuple[str, str], dtype) -> tuple:
+    """(first, second, prompts): the prompts of --prompt-file (one a line,
+    blank lines skipped) encoded by the generator's text encoder(s)."""
+    prompts = [line.strip() for line in Path(args.prompt_file).read_text().splitlines()
+               if line.strip()]
+    entries = gen.encode_prompts(prompts)
+    first, second = (gen._stack(entries, k, dtype) for k in keys)
+    return first, second, prompts
+
+
 def build_evaluator(args, manager) -> CandidateEvaluator:
-    """The evaluator on one resident random-weight model (seeded by
-    --seed) on --device."""
+    """The evaluator on one resident model on --device: the checkpoint's
+    under --weights-root, else a random-weight one seeded by --seed."""
     from ..models.pixart import PixArtConfig, init_model
     from ..pipelines import PixArtPipeline, PixArtPipelineConfig
 
@@ -241,16 +269,29 @@ def build_evaluator(args, manager) -> CandidateEvaluator:
             "stay in the model dtype"
         )
     device = resolve_device(args.device)
-    config = (PixArtConfig.tiny(dtype=torch.float32, quant=args.quant) if args.tiny_model
-              else PixArtConfig(quant=args.quant))
-    pcfg = PixArtPipelineConfig(model=config, num_inference_steps=args.num_inference_steps)
-    pipeline = PixArtPipeline(pcfg, init_model(config, args.seed, device))
+    keys = ("prompt_embeds", "negative_prompt_embeds")
+    if args.weights_root is not None:
+        from ..image_generators import PixArtAlphaImageGenerator
+
+        gen = _checkpoint_generator(args, PixArtAlphaImageGenerator)
+        pipeline = gen.create_diffusion_pipeline()
+        config = pipeline.config.model
+        decode_fn = gen.decode_latents
+        if args.prompt_file is not None:
+            text, neg, prompts = _prompt_file_embeddings(args, gen, keys, config.dtype)
+            return CandidateEvaluator(pipeline, text, neg, prompts, _eval_config(args),
+                                      decode_fn=decode_fn)
+    else:
+        config = (PixArtConfig.tiny(dtype=torch.float32, quant=args.quant)
+                  if args.tiny_model else PixArtConfig(quant=args.quant))
+        pcfg = PixArtPipelineConfig(model=config,
+                                    num_inference_steps=args.num_inference_steps)
+        pipeline = PixArtPipeline(pcfg, init_model(config, args.seed, device))
+        decode_fn = None
     shape = (config.text_len, config.caption_dim)
-    text, neg, prompts = _embeddings(
-        args, ("prompt_embeds", "negative_prompt_embeds"), (shape, shape),
-        config.dtype, device,
-    )
-    return CandidateEvaluator(pipeline, text, neg, prompts, _eval_config(args))
+    text, neg, prompts = _embeddings(args, keys, (shape, shape), config.dtype, device)
+    return CandidateEvaluator(pipeline, text, neg, prompts, _eval_config(args),
+                              decode_fn=decode_fn)
 
 
 def _eval_config(args) -> EvalConfig:
@@ -272,32 +313,46 @@ def _build_flux_evaluator(args):
     from .evaluate import FluxCandidateEvaluator
 
     device = resolve_device(args.device)
-    cache_dtype = _CACHE_DTYPES[args.cache_dtype] if args.cache_dtype else None
-    if args.tiny_model:
-        config = FluxConfig.tiny(dtype=torch.float32, quant=args.quant,
-                                 cache_dtype=cache_dtype)
+    keys = ("prompt_embeds", "pooled_prompt_embeds")
+    decode_fn = None
+    if args.weights_root is not None:
+        from ..image_generators import FluxImageGenerator
+
+        gen = _checkpoint_generator(args, FluxImageGenerator)
+        pipeline = gen.create_diffusion_pipeline()
+        config = pipeline.config.model
+        decode_fn = gen.decode_latents
+        if args.prompt_file is not None:
+            text, pooled, prompts = _prompt_file_embeddings(args, gen, keys, config.dtype)
+            return FluxCandidateEvaluator(pipeline, text, pooled, prompts,
+                                          _eval_config(args), decode_fn=decode_fn)
     else:
-        width = {}
-        if args.flux_dim is not None:
-            width = dict(
-                dim=args.flux_dim,
-                num_heads=args.flux_heads or args.flux_dim // 128,
-            )
-        config = FluxConfig(quant=args.quant, cache_dtype=cache_dtype, **width)
-    height = 64 if args.tiny_model else 256
-    pcfg = FluxPipelineConfig(
-        model=config,
-        num_inference_steps=args.num_inference_steps,
-        height=height,
-        width=height,
-    )
-    pipeline = FluxPipeline(pcfg, init_model(config, args.seed, device))
+        cache_dtype = _CACHE_DTYPES[args.cache_dtype] if args.cache_dtype else None
+        if args.tiny_model:
+            config = FluxConfig.tiny(dtype=torch.float32, quant=args.quant,
+                                     cache_dtype=cache_dtype)
+        else:
+            width = {}
+            if args.flux_dim is not None:
+                width = dict(
+                    dim=args.flux_dim,
+                    num_heads=args.flux_heads or args.flux_dim // 128,
+                )
+            config = FluxConfig(quant=args.quant, cache_dtype=cache_dtype, **width)
+        height = 64 if args.tiny_model else 256
+        pcfg = FluxPipelineConfig(
+            model=config,
+            num_inference_steps=args.num_inference_steps,
+            height=height,
+            width=height,
+        )
+        pipeline = FluxPipeline(pcfg, init_model(config, args.seed, device))
     text, pooled, prompts = _embeddings(
-        args, ("prompt_embeds", "pooled_prompt_embeds"),
-        ((config.text_len, config.joint_dim), (config.pooled_dim,)),
+        args, keys, ((config.text_len, config.joint_dim), (config.pooled_dim,)),
         config.dtype, device,
     )
-    return FluxCandidateEvaluator(pipeline, text, pooled, prompts, _eval_config(args))
+    return FluxCandidateEvaluator(pipeline, text, pooled, prompts, _eval_config(args),
+                                  decode_fn=decode_fn)
 
 
 def init_gen_0(args, manager: PopulationIOManager, algo: NSGA2) -> None:
@@ -354,6 +409,9 @@ def train_one_cycle(args, manager, algo: NSGA2, evaluator) -> None:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     refuse_waiting_flags(args)
+    if args.weights_root is None and (args.prompt_file or args.transformer_weights):
+        # the reference ignores both without a checkpoint tree; say so
+        raise SystemExit("--prompt-file and --transformer-weights need --weights-root")
     resolve_device(args.device)  # no GPU and no --device cpu: raise now
     manager = initialize_manager(args)
 

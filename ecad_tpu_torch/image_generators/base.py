@@ -8,9 +8,13 @@ with `use_random_vae`). Generators run on ``cuda`` unless constructed with
 ``device="cpu"``; without a GPU and without that request construction
 raises.
 
-This slice runs without checkpoints (``random_weights=True``: the exact
-architecture with seeded random parameters); loading a local
-``weights_root`` raises `NotImplementedError`. FLUX generators take
+Weights resolve from a local checkpoint tree (``weights_root/<repo>/…`` in
+the HuggingFace layout: the transformer, the text encoders and the VAE, read
+by `models.weights`); with ``random_weights=True``, or without a
+``weights_root``, the exact architecture runs with seeded random parameters,
+prompts go through a hash encoder and images are the latent visualisation.
+Either way the transformer is built on the meta device and then takes its
+weights in ``config.dtype`` on the device. FLUX generators take
 ``cache_dtype="float8_e4m3fn"``; the others reject it. ``quant`` picks a
 serving quantization mode of the transformer's block projections
 (``ops/quant.py``); the static modes calibrate their activation scales
@@ -100,7 +104,7 @@ class ImageGenerator(ABC):
         self._encoder = None
         self._pipeline = None
         self._model = None  # transformer, built once per generator
-        self._model_config = None  # the config `_model` was built for
+        self._model_key = None  # the config (and checkpoint) `_model` was built for
         self._vae = None  # VAE decoder pipeline, built once per generator
         # decode through a random-weight VAE so the latency protocol carries
         # the real decode cost without checkpoints (compute_latency
@@ -137,18 +141,33 @@ class ImageGenerator(ABC):
             return
         self._pipeline = None
 
-    def _resident_model(self, config, init_model):
+    def loads_weights(self) -> bool:
+        """Whether this generator serves the checkpoint tree under
+        `weights_root` (else seeded random weights)."""
+        return not self.random_weights and self.weights_root is not None
+
+    def _pipeline_repo(self) -> str:
+        """The repo whose text encoder and VAE the generator loads."""
+        return self.pipeline_weights or self.transformer_weights
+
+    def _resident_model(self, config, init_model, load_state=None):
         """The transformer for `config`: the resident one when it was built
-        for the same config, else a fresh seeded one. In a static quant mode
-        the model carries the calibration table (its ``config.act_scales``)
-        that `_calibrate_static_scales` measures on it when it is built."""
-        if self._model is None or self._model_config != config:
+        for the same config (and checkpoint), else a fresh one, built on the
+        meta device, that takes `load_state()`, a loaded state_dict, when
+        the generator serves a checkpoint, else seeded random weights. In a
+        static quant mode the model carries the calibration table (its
+        ``config.act_scales``) that `_calibrate_static_scales` measures on
+        it when it is built."""
+        key = (config, self.transformer_weights if self.loads_weights() else None)
+        if self._model is None or self._model_key != key:
             self._model = None  # free the old one before building the next
-            model = init_model(config, 0, self.device)
+            state = load_state() if self.loads_weights() else None
+            model = init_model(config, 0, self.device, state=state)
+            del state
             if config.quant in STATIC_MODES and config.act_scales is None:
                 table = self._calibrate_static_scales(model)
                 model = rebuild(model, dataclasses.replace(config, act_scales=table))
-            self._model, self._model_config = model, config
+            self._model, self._model_key = model, key
         return self._model
 
     def _calibrate_static_scales(self, model) -> tuple:
@@ -225,9 +244,17 @@ class ImageGenerator(ABC):
     ) -> torch.Tensor:
         """One batch of final latents for the given embeddings and seed."""
 
-    @abstractmethod
     def decode_latents(self, latents) -> np.ndarray:
-        """Latents → (N, H, W, 3) uint8 images (VAE or visualization)."""
+        """Latents → (N, H, W, 3) uint8 images on the host: through the
+        checkpoint's VAE, else the latent visualization (also with
+        `use_random_vae`: a random-weight VAE adds the decode's cost, not an
+        image), as in the reference."""
+        vae = self._ensure_vae()
+        if vae is not None and not self.use_random_vae:
+            return vae.decode(latents)
+        from ..genetic.evaluate import latents_to_uint8
+
+        return latents_to_uint8(latents)
 
     def _stack(self, embeddings, key: str, dtype=None) -> torch.Tensor:
         """One embedding field of a batch, stacked on the generator's device
@@ -308,9 +335,17 @@ class ImageGenerator(ABC):
     # -- timing -------------------------------------------------------------
 
     def _ensure_vae(self):
-        """The random-weight VAE when `use_random_vae` is set, else None
-        (a checkpoint's VAE waits with the other weights)."""
-        if self._vae is None and self.use_random_vae:
+        """The checkpoint's VAE (fp32, ``<pipeline repo>/vae``) when the
+        generator serves a checkpoint, else the random-weight VAE when
+        `use_random_vae` is set, else None."""
+        if self._vae is None and self.loads_weights():
+            from ..models.vae import VAEDecoderPipeline
+
+            self._vae = VAEDecoderPipeline.from_weights(
+                self.weights_root, self._pipeline_repo(), self.vae_latent_channels,
+                self.device,
+            )
+        elif self._vae is None and self.use_random_vae:
             from ..models.vae import random_decoder_pipeline
 
             self._vae = random_decoder_pipeline(self.vae_latent_channels, self.device)
@@ -318,8 +353,9 @@ class ImageGenerator(ABC):
 
     def decode_latents_device(self, latents: torch.Tensor) -> torch.Tensor:
         """Latents → uint8 images, left on the device: through the VAE when
-        one is attached (`use_random_vae`), else the weight-free latent
-        visualization (`latents_to_uint8` without the host copy)."""
+        one is attached (the checkpoint's, or `use_random_vae`), else the
+        weight-free latent visualization (`latents_to_uint8` without the
+        host copy)."""
         vae = self._ensure_vae()
         if vae is not None:
             return vae.decode_device(latents)

@@ -4,11 +4,16 @@ Counterpart of ``ecad_tpu/image_generators/flux.py`` (reference:
 ecad/image_generators/flux_image_generator.py): defaults 19+38 blocks, 20
 steps, 256², guidance 5, with height, width and guidance taken from the
 schedule's config. Embeddings are {prompt_embeds, pooled_prompt_embeds}.
-Without weights the exact architecture runs with seeded random bf16
-parameters built on the device, and prompts go through `_FluxHashEncoder`,
-which gives the same bytes as the reference's; the CLIP+T5 encoders and
-loading a local checkpoint tree wait until checkpoints are in the
-repository. ``cache_dtype="float8_e4m3fn"`` stores the caches in fp8.
+With a `weights_root` (and not `random_weights`) everything comes from
+``<transformer repo>`` (ref :62-95, :207-236): the transformer from
+``transformer/``, the 16-channel VAE from ``vae/``, CLIP-L's pooled
+embedding from ``text_encoder/`` and ``tokenizer/``, and T5-XXL from
+``text_encoder_2/`` and ``tokenizer_2/`` (FLUX.1-dev's public layout) where
+that directory exists, else from ``text_encoder/`` and ``tokenizer/``,
+where the reference reads it. Without weights the exact architecture runs
+with seeded random bf16 parameters built on the device, and prompts go
+through `_FluxHashEncoder`, which gives the same bytes as the reference's.
+``cache_dtype="float8_e4m3fn"`` stores the caches in fp8.
 """
 
 from __future__ import annotations
@@ -22,11 +27,11 @@ import torch
 
 from ..models.common import rebuild
 from ..models.flux import FluxConfig, full_flux_mask, init_model
+from ..models.weights import load_flux_params
 from ..ops.quant import calibrate_dense_amax, merge_amax
 from ..pipelines.flux_pipeline import FluxPipeline, FluxPipelineConfig
 from ..schedules.flux import FluxCacheSchedule
 from .base import ImageGenerator
-from .pixart import _WEIGHTS_LATER
 
 _CACHE_DTYPES = {"float8_e4m3fn": torch.float8_e4m3fn}
 
@@ -76,17 +81,33 @@ class FluxImageGenerator(ImageGenerator):
     def create_encoder_pipeline(self):
         if self._encoder is not None:
             return self._encoder
-        if not (self.random_weights or self.weights_root is None):
-            raise NotImplementedError(_WEIGHTS_LATER)
-        self._encoder = _FluxHashEncoder(self.text_len, self.joint_dim, self.pooled_dim)
+        if not self.loads_weights():
+            self._encoder = _FluxHashEncoder(self.text_len, self.joint_dim, self.pooled_dim)
+            return self._encoder
+        from ..models.clip import CLIPTextPipeline
+        from ..models.t5 import T5EncoderPipeline
+
+        repo = self.transformer_weights
+        public = (self.weights_root / repo / "text_encoder_2").is_dir()
+        self._encoder = _FluxRealEncoder(
+            T5EncoderPipeline.from_weights(
+                self.weights_root, repo, max_length=self.text_len, device=self.device,
+                encoder_dir="text_encoder_2" if public else "text_encoder",
+                tokenizer_dir="tokenizer_2" if public else "tokenizer",
+            ),
+            CLIPTextPipeline.from_weights(self.weights_root, repo, device=self.device),
+        )
         return self._encoder
+
+    def _pipeline_repo(self) -> str:
+        return self.transformer_weights  # the VAE too comes from it (ref :207-218)
 
     def create_diffusion_pipeline(self) -> FluxPipeline:
         if self._pipeline is not None:
             return self._pipeline
-        if not (self.random_weights or self.weights_root is None):
-            raise NotImplementedError(_WEIGHTS_LATER)
-        model = self._resident_model(self.model_config(), init_model)
+        config = self.model_config()
+        model = self._resident_model(config, init_model, lambda: load_flux_params(
+            self.weights_root, self.transformer_weights, config))
         pcfg = FluxPipelineConfig(
             model=model.config,
             num_inference_steps=self.num_inference_steps,
@@ -150,13 +171,6 @@ class FluxImageGenerator(ImageGenerator):
             seed=seed,
         )
 
-    def decode_latents(self, latents) -> np.ndarray:
-        # without checkpoints the images are the latent visualization, as
-        # in the reference, also with `use_random_vae`
-        from ..genetic.evaluate import latents_to_uint8
-
-        return latents_to_uint8(latents)
-
 
 class TinyFluxImageGenerator(FluxImageGenerator):
     """Tiny FLUX test double (2+3 blocks, 32×32 images, fp32, always random
@@ -207,3 +221,15 @@ class _FluxHashEncoder:
         emb = rng.standard_normal((self.text_len, self.joint_dim), dtype=np.float32)
         pooled = rng.standard_normal((self.pooled_dim,), dtype=np.float32)
         return emb, pooled
+
+
+class _FluxRealEncoder:
+    """T5-XXL's embeddings and CLIP-L's pooled embedding of one prompt."""
+
+    def __init__(self, t5, clip):
+        self.t5 = t5
+        self.clip = clip
+
+    def encode(self, prompt: str) -> tuple[np.ndarray, np.ndarray]:
+        embeds, _mask = self.t5.encode(prompt)
+        return embeds, self.clip.encode_pooled(prompt)

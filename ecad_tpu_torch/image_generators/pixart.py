@@ -1,10 +1,13 @@
 """PixArt image generators (α, Σ and the tiny test double).
 
-Counterpart of ``ecad_tpu/image_generators/pixart.py``. Without weights
-(`random_weights=True`, or no `weights_root`) the exact architecture runs
-with seeded random parameters built on the device, and prompts go through
-the deterministic `_HashEncoder`. Loading a local checkpoint tree (T5, the
-transformer and the VAE) waits until checkpoints are in the repository.
+Counterpart of ``ecad_tpu/image_generators/pixart.py``. With a
+`weights_root` (and not `random_weights`) the T5-XXL encoder and its
+tokenizer come from ``<pipeline repo>/text_encoder`` and ``tokenizer`` (the
+pipeline repo, else the transformer's), the transformer from
+``<transformer repo>/transformer`` and the VAE from ``<pipeline repo>/vae``
+(ref :43-75, :211-240). Without weights the exact architecture runs with
+seeded random parameters built on the device, and prompts go through the
+deterministic `_HashEncoder`.
 """
 
 from __future__ import annotations
@@ -18,17 +21,11 @@ import torch
 
 from ..models.common import rebuild
 from ..models.pixart import PixArtConfig, full_step_mask, init_cache, init_model
+from ..models.weights import load_pixart_params
 from ..ops.quant import calibrate_dense_amax, merge_amax
 from ..pipelines import PixArtPipeline, PixArtPipelineConfig, pipeline_from_config
 from ..schedules.pixart import PixArtCacheSchedule
 from .base import ImageGenerator
-
-_WEIGHTS_LATER = (
-    "loading a local weights_root (T5, transformer, VAE) waits until "
-    "checkpoints are in the repository (ROADMAP.md queue 1 item 5); use "
-    "random_weights"
-)
-
 
 class PixArtImageGenerator(ImageGenerator):
     schedule_cls = PixArtCacheSchedule
@@ -48,17 +45,23 @@ class PixArtImageGenerator(ImageGenerator):
     def create_encoder_pipeline(self):
         if self._encoder is not None:
             return self._encoder
-        if not (self.random_weights or self.weights_root is None):
-            raise NotImplementedError(_WEIGHTS_LATER)
-        self._encoder = _HashEncoder(self.text_len, self.caption_dim)
+        if self.loads_weights():
+            from ..models.t5 import T5EncoderPipeline
+
+            self._encoder = T5EncoderPipeline.from_weights(
+                self.weights_root, self._pipeline_repo(), max_length=self.text_len,
+                device=self.device,
+            )
+        else:
+            self._encoder = _HashEncoder(self.text_len, self.caption_dim)
         return self._encoder
 
     def create_diffusion_pipeline(self) -> PixArtPipeline:
         if self._pipeline is not None:
             return self._pipeline
-        if not (self.random_weights or self.weights_root is None):
-            raise NotImplementedError(_WEIGHTS_LATER)
-        model = self._resident_model(self.model_config(), init_model)
+        config = self.model_config()
+        model = self._resident_model(config, init_model, lambda: load_pixart_params(
+            self.weights_root, self.transformer_weights, config))
         pcfg = PixArtPipelineConfig(
             model=model.config,
             num_inference_steps=self.num_inference_steps,
@@ -144,14 +147,6 @@ class PixArtImageGenerator(ImageGenerator):
         return pipe.generate_latents(
             text, neg, seed=seed, text_mask=tm, neg_mask=nm,
         )
-
-    def decode_latents(self, latents) -> np.ndarray:
-        # without checkpoints the images are the latent visualization, as
-        # in the reference, also with `use_random_vae` (a random-weight VAE
-        # adds the decode's cost, not an image)
-        from ..genetic.evaluate import latents_to_uint8
-
-        return latents_to_uint8(latents)
 
 
 class PixArtAlphaImageGenerator(PixArtImageGenerator):

@@ -1,10 +1,13 @@
 """Carry weights across from the JAX reference's param trees.
 
-`pixart_state_dict`, `flux_state_dict` and `vae_state_dict` take the Flax
-param tree of ``ecad_tpu``'s PixArtTransformer, FluxTransformer or
-VAEDecoder as nested dicts of numpy arrays (unbox any partitioning
-metadata first) and return the ``state_dict`` of the port's module of the
-same configuration:
+`pixart_state_dict`, `flux_state_dict`, `vae_state_dict`, `t5_state_dict`
+and `clip_state_dict` take the Flax param tree of ``ecad_tpu``'s
+PixArtTransformer, FluxTransformer, VAEDecoder, T5Encoder or
+CLIPTextEncoder as nested dicts of numpy arrays (unbox any partitioning
+metadata first), or the same tree of torch tensors that the checkpoint
+converters of `models.weights` build, and return the ``state_dict`` of the
+port's module of the same configuration (numpy leaves as fp32 tensors,
+torch leaves as views in their own dtype):
 
 * a Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in);
 * a Conv ``kernel`` HWIO becomes a Conv2d ``weight`` OIHW;
@@ -16,7 +19,7 @@ same configuration:
   ``scale``, as the reference reads a ``scale`` beside an int8 kernel
   (``models/common.py:281-295``);
 * ``block_<i>`` becomes ``blocks.<i>`` and FLUX's ``single_block_<i>``
-  ``single_blocks.<i>``.
+  ``single_blocks.<i>`` (the encoders' ``layer_<i>`` keep their names).
 
 `reference_path` maps a port module name back to the reference's module
 path, the key of the static quant modes' calibration tables.
@@ -35,15 +38,19 @@ import numpy as np
 import torch
 
 
-def _flatten(tree: Mapping[str, Any], prefix: tuple = ()) -> dict[tuple, np.ndarray]:
-    out: dict[tuple, np.ndarray] = {}
+def _flatten(tree: Mapping[str, Any], prefix: tuple = ()) -> dict[tuple, Any]:
+    out: dict[tuple, Any] = {}
     for key, value in tree.items():
         path = prefix + (str(key),)
         if isinstance(value, Mapping):
             out.update(_flatten(value, path))
         else:
-            out[path] = np.asarray(value)
+            out[path] = value if isinstance(value, torch.Tensor) else np.asarray(value)
     return out
+
+
+def _is_int8(arr) -> bool:
+    return arr.dtype in (np.int8, torch.int8)
 
 
 _BLOCK_LISTS = (("block_", "blocks"), ("single_block_", "single_blocks"))
@@ -65,28 +72,28 @@ def _convert(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     flat = _flatten(params)
     for path, arr in flat.items():
         *parents, name = path
-        dtype = np.float32
-        if name == "kernel" and arr.dtype == np.int8:
-            # an Int8Dense's weight, (in, out) → (out, in)
-            arr, name, dtype = arr.T, "weight", np.int8
-        elif name == "kernel":
+        if name == "kernel":
+            # a Dense kernel (in, out) → (out, in), an int8 one included; a
+            # Conv kernel HWIO → OIHW
             if arr.ndim == 2:
                 arr = arr.T
             elif arr.ndim == 4:
-                arr = arr.transpose(3, 2, 0, 1)
+                arr = (arr.permute if isinstance(arr, torch.Tensor) else arr.transpose)(
+                    3, 2, 0, 1)
             else:
                 raise ValueError(f"unexpected kernel rank at {'/'.join(path)}")
             name = "weight"
-        elif name == "scale" and flat.get((*parents, "kernel"), arr).dtype != np.int8:
+        elif name == "scale" and not _is_int8(flat.get((*parents, "kernel"), arr)):
             # a norm's affine scale; beside an int8 kernel it is the
             # fp32 dequant scale and keeps its name
             name = "weight"
         for prefix, modules in _BLOCK_LISTS:
             if parents and parents[0].startswith(prefix):
                 parents = [modules, parents[0][len(prefix):], *parents[1:]]
-        state[".".join([*parents, name])] = torch.from_numpy(
-            np.array(arr, dtype=dtype, order="C")
-        )
+        if not isinstance(arr, torch.Tensor):
+            dtype = np.int8 if _is_int8(arr) else np.float32
+            arr = torch.from_numpy(np.array(arr, dtype=dtype, order="C"))
+        state[".".join([*parents, name])] = arr
     return state
 
 
@@ -103,4 +110,15 @@ def flux_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
 def vae_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """JAX VAEDecoder params → port VAEDecoder state_dict."""
+    return _convert(params)
+
+
+def t5_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX T5Encoder params → port T5Encoder state_dict (the RMS norms'
+    weights are bare arrays and keep their names)."""
+    return _convert(params)
+
+
+def clip_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX CLIPTextEncoder params → port CLIPTextEncoder state_dict."""
     return _convert(params)

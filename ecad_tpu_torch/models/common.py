@@ -213,3 +213,33 @@ def rebuild(model: nn.Module, config) -> nn.Module:
     state = quantize_params_tree(model.state_dict(), new)
     new.load_state_dict(state, assign=True)
     return new.eval().requires_grad_(False)
+
+
+def load_module(model: nn.Module, state: dict, device: torch.device) -> nn.Module:
+    """`model`, built on the meta device, placed on `device` and filled from
+    `state` (a port state_dict of CPU tensors in any float dtype): each
+    tensor is copied into its parameter's own dtype, so a module built in
+    bf16 takes an fp32 checkpoint as the reference's ``serving_cast`` does,
+    while the parameters a module keeps in fp32 stay fp32. Eval mode, no
+    gradients."""
+    model = model.to_empty(device=device)
+    model.load_state_dict(state, strict=True)
+    return model.eval().requires_grad_(False)
+
+
+def dot_product_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain softmax attention, (B, T, H, D) q and (B, S, H, D) k, v →
+    (B, T, H, D), as ``jax.nn.dot_product_attention`` computes it under XLA
+    (the text encoders' attention; no Pallas kernel there, so none here):
+    fp32 logits from the operands' own values, times `scale` (1/√D by
+    default), plus an fp32 `bias` broadcast to (B, H, T, S), softmax in
+    fp32, the probabilities cast to v's dtype, then ·v in that dtype."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)

@@ -51,7 +51,7 @@ from .. import resolve_device
 from ..ops.attention import fused_attention
 from ..ops.fused import modulated_layer_norm, modulated_layer_norm_pair
 from ..ops.quant import WEIGHT_MODES, dense
-from .common import TimestepEmbedding, randomize_, sinusoidal_embedding
+from .common import TimestepEmbedding, load_module, randomize_, sinusoidal_embedding
 
 FULL_COMPONENTS = ("full_attn", "full_ff", "full_ff_context")
 SINGLE_COMPONENTS = ("single_attn", "single_proj_mlp", "single_proj_out")
@@ -526,15 +526,21 @@ def unpack_latents(packed: torch.Tensor, grid_h: int, grid_w: int) -> torch.Tens
 
 
 def init_model(
-    config: FluxConfig, seed: int = 0, device: str | torch.device = "cuda"
+    config: FluxConfig, seed: int = 0, device: str | torch.device = "cuda",
+    state: Optional[dict] = None,
 ) -> FluxTransformer:
     """A random-weight FluxTransformer built directly in `config.dtype` on
     `device` (the QK-norm scales in fp32, as the reference keeps them): no
     host copy and no fp32 masters, so the 11.9 B-parameter model takes
     23.8 GB of device memory in bf16 (``int8_w`` sites in int8,
-    `randomize_`). Eval mode, no gradients."""
+    `randomize_`). With `state`, a loaded state_dict
+    (`models.weights.load_flux_params`), the module takes its tensors
+    instead, cast into its dtypes (`common.load_module`). Eval mode, no
+    gradients."""
     dev = resolve_device(device)
     with torch.device("meta"):
         model = FluxTransformer(config)
+    if state is not None:
+        return load_module(model, state, dev)
     model = model.to_empty(device=dev)
     return randomize_(model, seed).eval().requires_grad_(False)

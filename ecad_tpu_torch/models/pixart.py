@@ -36,6 +36,7 @@ from .common import (
     FeedForward,
     TextProjection,
     TimestepEmbedding,
+    load_module,
     randomize_,
     sincos_2d_pos_embed,
     sinusoidal_embedding,
@@ -427,13 +428,18 @@ def init_cache(
 
 
 def init_model(
-    config: PixArtConfig, seed: int = 0, device: str | torch.device = "cuda"
+    config: PixArtConfig, seed: int = 0, device: str | torch.device = "cuda",
+    state: Optional[dict] = None,
 ) -> PixArtTransformer:
-    """A random-weight PixArtTransformer built directly in `config.dtype` on
-    `device` (no fp32 masters, no host copy), in eval mode; ``int8_w``
-    sites are filled in int8 (`randomize_`)."""
+    """A PixArtTransformer built directly in `config.dtype` on `device` (no
+    fp32 masters, no host copy), in eval mode: with seeded random weights
+    (``int8_w`` sites filled in int8, `randomize_`), or with `state`, a
+    loaded state_dict (`models.weights.load_pixart_params`), cast into the
+    module's dtypes (`common.load_module`)."""
     dev = resolve_device(device)
     with torch.device("meta"):
         model = PixArtTransformer(config)
+    if state is not None:
+        return load_module(model, state, dev)
     model = model.to_empty(device=dev)
     return randomize_(model, seed).eval().requires_grad_(False)

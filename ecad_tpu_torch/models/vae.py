@@ -12,13 +12,16 @@ with fp32 logits and softmax and probabilities cast back, as
 that a 2048² image's 65536 tokens never hold all their logits at once
 (each row's softmax is its own, so the function is unchanged). Module and
 parameter names follow the reference's param tree, so
-`bridge.vae_state_dict` maps one onto the other.
+`bridge.vae_state_dict` maps one onto the other; a diffusers checkpoint
+loads through `convert_vae_decoder_state_dict` and
+`VAEDecoderPipeline.from_weights`.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -44,6 +47,11 @@ class VAEConfig:
     scaling_factor: float = 0.18215
     shift_factor: float = 0.0
     dtype: torch.dtype = torch.float32
+
+    @classmethod
+    def sd(cls, **kw) -> "VAEConfig":
+        """PixArt's (SD) 4-channel autoencoder (ecad_tpu/models/vae.py:34-36)."""
+        return cls(**kw)
 
     @classmethod
     def flux(cls, **kw) -> "VAEConfig":
@@ -165,10 +173,104 @@ class VAEDecoder(nn.Module):
         return h.permute(0, 2, 3, 1)
 
 
+# ---------------------------------------------------------------------------
+# weights (ecad_tpu/models/vae.py:148-212): diffusers AutoencoderKL keys →
+# the reference's param tree, which `bridge.vae_state_dict` maps onto the
+# port's module; tensors stay in the checkpoint's dtype (the reference
+# widens to fp32, the module's load casts)
+# ---------------------------------------------------------------------------
+
+
+def _cv(state, key):
+    out = {"kernel": state[f"{key}.weight"].permute(2, 3, 1, 0)}
+    if f"{key}.bias" in state:
+        out["bias"] = state[f"{key}.bias"]
+    return out
+
+
+def _gn(state, key):
+    return {"scale": state[f"{key}.weight"], "bias": state[f"{key}.bias"]}
+
+
+def _attn_lin(state, key):
+    w = state[f"{key}.weight"]
+    if w.ndim == 4:  # old checkpoints use 1×1 convs for attention projections
+        w = w[:, :, 0, 0]
+    out = {"kernel": w.T}
+    if f"{key}.bias" in state:
+        out["bias"] = state[f"{key}.bias"]
+    return out
+
+
+def _resnet(state, key):
+    p = {
+        "norm1": _gn(state, f"{key}.norm1"),
+        "conv1": _cv(state, f"{key}.conv1"),
+        "norm2": _gn(state, f"{key}.norm2"),
+        "conv2": _cv(state, f"{key}.conv2"),
+    }
+    if f"{key}.conv_shortcut.weight" in state:
+        p["conv_shortcut"] = _cv(state, f"{key}.conv_shortcut")
+    return p
+
+
+def convert_vae_decoder_state_dict(state: dict, config: VAEConfig) -> dict:
+    """The decoder half of a diffusers AutoencoderKL state dict (its
+    ``post_quant_conv`` and ``decoder.*``; the encoder's keys are not
+    read) → the reference's VAEDecoder param tree."""
+    d = "decoder"
+    attn = f"{d}.mid_block.attentions.0"
+    params = {
+        "post_quant_conv": _cv(state, "post_quant_conv"),
+        "conv_in": _cv(state, f"{d}.conv_in"),
+        "mid_resnet_1": _resnet(state, f"{d}.mid_block.resnets.0"),
+        "mid_resnet_2": _resnet(state, f"{d}.mid_block.resnets.1"),
+        "mid_attn": {
+            "group_norm": _gn(state, f"{attn}.group_norm"),
+            "to_q": _attn_lin(state, f"{attn}.to_q"),
+            "to_k": _attn_lin(state, f"{attn}.to_k"),
+            "to_v": _attn_lin(state, f"{attn}.to_v"),
+            "to_out": _attn_lin(state, f"{attn}.to_out.0"),
+        },
+        "conv_norm_out": _gn(state, f"{d}.conv_norm_out"),
+        "conv_out": _cv(state, f"{d}.conv_out"),
+    }
+    n_up = len(config.block_out_channels)
+    for bi in range(n_up):
+        for ri in range(config.layers_per_block + 1):
+            params[f"up_{bi}_resnet_{ri}"] = _resnet(
+                state, f"{d}.up_blocks.{bi}.resnets.{ri}"
+            )
+        if bi < n_up - 1:
+            params[f"up_{bi}_upsample"] = _cv(
+                state, f"{d}.up_blocks.{bi}.upsamplers.0.conv"
+            )
+    return params
+
+
 class VAEDecoderPipeline:
     def __init__(self, model: VAEDecoder) -> None:
         self.model = model
         self.config = model.config
+
+    @classmethod
+    def from_weights(
+        cls, weights_root: Path | str, repo: str, latent_channels: int = 4,
+        device: str | torch.device = "cuda",
+    ) -> "VAEDecoderPipeline":
+        """The checkpoint's decoder from ``weights_root/repo/vae``, in fp32 on
+        `device`, as the reference serves it (``VAEConfig.sd()``, or
+        ``.flux()`` for 16 latent channels; ref :224-232)."""
+        from .bridge import vae_state_dict
+        from .common import load_module
+        from .weights import load_state_dict
+
+        config = VAEConfig.flux() if latent_channels == 16 else VAEConfig.sd()
+        state = load_state_dict(Path(weights_root) / repo / "vae")
+        with torch.device("meta"):
+            model = VAEDecoder(config)
+        params = convert_vae_decoder_state_dict(state, config)
+        return cls(load_module(model, vae_state_dict(params), resolve_device(device)))
 
     @torch.inference_mode()
     def decode_device(self, latents: torch.Tensor) -> torch.Tensor:

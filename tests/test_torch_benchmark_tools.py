@@ -3,7 +3,8 @@ against the JAX package's tools on the same inputs: prompt names,
 embedding files, the image tree and its skip/regenerate rule, MACs in the
 schedule JSONs, scores.json, the metrics.latency schema, the random VAE's
 decode; the resident generator's `set_schedule`; the port's batch-32 bench
-on the tiny model; and the refusals (no GPU without --device cpu, the
+on the tiny model; `generate_embeddings --weights-root` on a tiny
+checkpoint tree; and the refusals (no GPU without --device cpu, the
 weight-backed scorers, more than one process)."""
 
 import json
@@ -569,8 +570,24 @@ def test_more_than_one_process_names_its_item(ws, tmp_path, monkeypatch, var):
     assert list((tmp_path / "imgs").rglob("scores.json"))
 
 
-def test_weights_root_names_its_item(ws, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        temb.main(["PixArtAlphaImageGenerator", "--prompt-file", str(ws / "prompts.json"),
-                   "--output-dir", str(tmp_path / "e"), "--weights-root", str(tmp_path),
-                   *CPU])
+def test_generate_embeddings_weights_root_encodes_with_t5(ws, tmp_path, monkeypatch):
+    """`generate_embeddings --weights-root` on a tiny checkpoint tree
+    (tests/test_torch_checkpoints.py, both packages' generators resized to
+    it): the same file names as the JAX tool's, T5 embeddings within 2e-5
+    and the tokenizer's masks equal."""
+    from test_torch_checkpoints import patch_tiny, write_pixart_tree
+
+    patch_tiny(monkeypatch)
+    root = write_pixart_tree(tmp_path / "w")
+    argv = ["PixArtAlphaImageGenerator", "--prompt-file", str(ws / "prompts.json"),
+            "--weights-root", str(root)]
+    temb.main([*argv, "--output-dir", str(tmp_path / "t"), *CPU])
+    jemb.main([*argv, "--output-dir", str(tmp_path / "j")])
+    got, want = load_embedding_dir(tmp_path / "t"), load_embedding_dir(tmp_path / "j")
+    assert [e["name"] for e in got] == [e["name"] for e in want] and len(got) == 2
+    for g, w in zip(got, want):
+        for key in ("prompt_attention_mask", "negative_prompt_attention_mask"):
+            np.testing.assert_array_equal(g[key], w[key])
+        for key in ("prompt_embeds", "negative_prompt_embeds"):
+            assert g[key].shape == (8, 32)
+            np.testing.assert_allclose(g[key], w[key], rtol=2e-5, atol=2e-5)

@@ -202,7 +202,8 @@ def test_generator_resolves_schedules_like_reference(name):
 
 def test_generator_options():
     """cache_dtype and quant reach the model config and the description;
-    checkpoint loading is not ported and says so; the registry serves both
+    checkpoint loading reads the weights_root tree, and a tree without the
+    transformer's files says where it looked; the registry serves both
     names."""
     from ecad_tpu_torch.image_generators import get_image_generator_type
     from ecad_tpu_torch.image_generators import flux as tgen
@@ -220,7 +221,7 @@ def test_generator_options():
     with pytest.raises(ValueError, match="unknown quant mode"):
         tfx.FluxTransformer(tfx.FluxConfig.tiny(quant="int4"))
     loader = tgen.FluxImageGenerator(weights_root="/nonexistent", device="cpu")
-    with pytest.raises(NotImplementedError, match="random_weights"):
+    with pytest.raises(FileNotFoundError, match="FLUX.1-dev/transformer"):
         loader.create_diffusion_pipeline()
 
 

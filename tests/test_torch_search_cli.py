@@ -1,6 +1,7 @@
 """The port's search CLI (`python -m ecad_tpu_torch.genetic.train`) on the
 CPU: a tiny PixArt mini-run of two cycles and its resume (mirroring the JAX
-package's test in tests/test_genetic.py), one tiny FLUX cycle, the flags
+package's test in tests/test_genetic.py), one tiny FLUX cycle, a cycle
+served from a tiny checkpoint tree under each checkpoint flag, the flags
 that wait for a later ROADMAP.md queue 1 item, and the no-silent-CPU rule."""
 
 import json
@@ -76,9 +77,6 @@ def test_train_cli_flux_cycle(tmp_path):
 
 
 WAITING = [
-    (["--weights-root", "w"], 5),
-    (["--transformer-weights", "PixArt-alpha/PixArt-XL-2-256x256"], 5),
-    (["--prompt-file", "prompts.txt"], 5),
     (["--scorer", "image_reward"], 6),
     (["--scorer", "clip"], 6),
     (["--image-reward-dir", "ir"], 6),
@@ -93,6 +91,86 @@ def test_waiting_flags_raise_with_their_item(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"queue 1 item {item}\\b"):
         train.main(["--name", "w", "--tiny-model", "--device", "cpu",
                     "--populations-dir", str(tmp_path / "p"), *flags])
+    assert not (tmp_path / "p").exists()
+
+
+CHECKPOINT_FLAGS = ["--weights-root", "--transformer-weights", "--prompt-file"]
+
+
+@pytest.mark.parametrize("flag", CHECKPOINT_FLAGS)
+def test_checkpoint_flags_run_on_the_tiny_tree(tmp_path, monkeypatch, flag):
+    """One cycle of the search served from a tiny checkpoint tree
+    (tests/test_torch_checkpoints.py, the generators resized to it): the
+    model, VAE and, with --prompt-file, T5 come from the tree, and every
+    candidate's images go through the checkpoint's VAE. --transformer-weights
+    names a transformer repo that only it can reach; --prompt-file's prompts
+    are the evaluator's."""
+    from test_torch_checkpoints import PIXART_256, patch_tiny, write_pixart_tree
+
+    from ecad_tpu_torch.models.vae import VAEDecoderPipeline
+
+    patch_tiny(monkeypatch, reference=False)
+    root = write_pixart_tree(tmp_path / "w")
+    decoded = []
+    decode = VAEDecoderPipeline.decode
+    monkeypatch.setattr(VAEDecoderPipeline, "decode",
+                        lambda self, z: decoded.append(len(z)) or decode(self, z))
+    extra = ["--weights-root", str(root)]
+    if flag == "--transformer-weights":
+        (root / "local").mkdir()
+        (root / PIXART_256).rename(root / "local" / "tuned")
+        extra += [flag, "local/tuned"]
+    elif flag == "--prompt-file":
+        (tmp_path / "prompts.txt").write_text("a red cat\n\nphoto of a dog on the mat\n")
+        extra += [flag, str(tmp_path / "prompts.txt")]
+    seen = {}
+    build = train.build_evaluator
+    monkeypatch.setattr(train, "build_evaluator", lambda a, m: seen.setdefault(
+        "evaluator", build(a, m)))
+    train.main(["--name", "ck", "--population-size", "4", "--num-inference-steps", "3",
+                "--num-prompts", "2", "--random-seed-gen-0", "--tiny-model",
+                "--device", "cpu", "--num-cycles", "1",
+                "--populations-dir", str(tmp_path / "pops"),
+                "--benchmarks-dir", str(tmp_path / "bench"), *extra])
+    _check_generations(tmp_path, "ck", (1,), 2, PixArtCacheSchedule, 4)
+    assert sum(decoded) == 4 * 2  # candidates × prompts, all through the VAE
+    prompts = seen["evaluator"].prompts
+    if flag == "--prompt-file":
+        assert prompts == ["a red cat", "photo of a dog on the mat"]
+    else:
+        assert prompts == ["prompt_0", "prompt_1"]
+
+
+def test_checkpoint_flux_cycle_with_prompt_file(tmp_path, monkeypatch):
+    """The FLUX search served from a tiny FLUX.1-dev tree in the public
+    layout: its prompts encoded by T5 (text_encoder_2/) and CLIP, every
+    candidate decoded by its 16-channel VAE."""
+    from test_torch_checkpoints import patch_tiny, write_flux_tree
+
+    from ecad_tpu_torch.models.vae import VAEDecoderPipeline
+
+    patch_tiny(monkeypatch, reference=False)
+    root = write_flux_tree(tmp_path / "w", public=True)
+    decoded = []
+    decode = VAEDecoderPipeline.decode
+    monkeypatch.setattr(VAEDecoderPipeline, "decode",
+                        lambda self, z: decoded.append(z.shape) or decode(self, z))
+    (tmp_path / "prompts.txt").write_text("a red cat\nphoto of a dog on the mat\n")
+    train.main(["--name", "fk", "--model-family", "flux", "--population-size", "4",
+                "--num-inference-steps", "3", "--random-seed-gen-0", "--tiny-model",
+                "--device", "cpu", "--num-cycles", "1",
+                "--populations-dir", str(tmp_path / "pops"),
+                "--benchmarks-dir", str(tmp_path / "bench"),
+                "--weights-root", str(root), "--prompt-file", str(tmp_path / "prompts.txt")])
+    _check_generations(tmp_path, "fk", (1,), 2, FluxCacheSchedule, 4)
+    assert sum(s[0] for s in decoded) == 4 * 2 and all(s[-1] == 16 for s in decoded)
+
+
+@pytest.mark.parametrize("flag", ["--transformer-weights", "--prompt-file"])
+def test_checkpoint_flags_need_weights_root(tmp_path, flag):
+    with pytest.raises(SystemExit, match="need --weights-root"):
+        train.main(["--name", "w", "--tiny-model", "--device", "cpu",
+                    "--populations-dir", str(tmp_path / "p"), flag, "x"])
     assert not (tmp_path / "p").exists()
 
 
