@@ -127,7 +127,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    bit-equal to the in-memory build; CLIP-L at 77 tokens timed and its
    pooled output against the CPU's. Load seconds and GB/s of each
    directory (warm: just written), peak memory with the encoder resident.
-   Its numbers go on a line of their own.
+   Its numbers go on a line of their own. PixArt-α 256's transformer and
+   the SD VAE stay for the scorers phase.
 7. The benchmark tier (``benchmark``): the port's tools in this process at
    full-width PixArt-α 256² (random bf16 weights), in a scratch directory
    on copies of the schedule JSONs: ``generate_embeddings`` over the first
@@ -146,14 +147,40 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    warmups, 3 samples, batch 8; launches checked, ``metrics.latency.gpu``
    the card's name). Then ``ecad_tpu_torch.bench``'s protocol at batch 32
    (no text mask: the cross-attention on K1; each arm's launches checked),
-   uncached and ``ours_fast`` in 5 turns after 2 warmups each, and one
+   uncached and ``ours_fast`` in 3 turns after 2 warmups each, and one
    profiled run of each arm for its device idle share. Its numbers go on a
    line of their own.
-8. The search loop (``search``): ``ecad_tpu_torch.genetic.train.main`` in
+8. The scorer towers (``scorers``): seeded full-width checkpoints written
+   under ``build/ecad_tpu_torch/ckpt/scorers`` in each one's published
+   layout — ImageReward.pt (fp32, ``torch.save``: ViT-L/16 at 224², 24
+   layers × 1024, 16×64 heads, 197 tokens; BLIP's BERT-base with
+   cross-attention, 12 layers × 768, vocab 30524, 35 tokens, encoder width
+   1024; the 768→1024→128→64→16→1 head) with a vocab.txt, a ViT-B/32
+   CLIP directory (config.json and safetensors) and a pt_inception
+   checkpoint with batchnorm statistics. Each tower on the card (IEEE
+   fp32: no TF32) against the same module on the CPU from the same arrays
+   within `tower_tol`, each check shown to reject the CPU's output on a
+   perturbed input (the top two patch rows black, or a prompt changed),
+   and the ViT with TF32 on measured against the same bound; ms an image
+   of each tower at batch 8 and 32 on 256² uint8 images on the card;
+   ``score_images --scorer image_reward``, ``compute_clip`` (its default
+   ``--scorer clip``) and ``compute_fid --extractor inception`` and
+   ``clip_vision`` over the benchmark phase's PNGs, their outputs' counts
+   and shapes checked; then ``genetic.train.main --scorer image_reward
+   --image-reward-dir`` at PixArt-α 256² served from the checkpoints
+   phase's tree (its transformer and SD VAE), 8 candidates × 4 prompts,
+   one cycle and a resume: K1 and K3 launches equal to the evaluated
+   candidates' masks, decoded images uint8 on the card, one candidate
+   evaluated again to the same score, and an ``ours_fast`` candidate's
+   time beside its scoring alone. The card has no ``transformers``: the
+   ImageReward and CLIP scorers are built with the word-hash tokenizer
+   and put in the registry's resident slots. Its numbers go on a line of
+   their own. The phase deletes the checkpoint tree.
+9. The search loop (``search``): ``ecad_tpu_torch.genetic.train.main`` in
    this process at full-width PixArt-α 256² (random bf16 weights and
    prompt embeddings, 20 steps, the weight-free fidelity scorer), 8
    candidates × 4 prompts a generation, gen 0 seeded with the default
-   schedule, ``ours_fast`` and random genomes: two NSGA-II cycles, then a
+   schedule, ``ours_fast`` and random genomes: one NSGA-II cycle, then a
    resume for one more. Checks the checkpoint, every evaluated candidate's
    scores.json and analytic MACs, the default candidate at exactly 200 dB
    (its trajectory makes the same launches on the same inputs as the
@@ -162,7 +189,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    against its plain version, and the launch counts over both runs against
    every evaluated candidate's masks plus each run's reference trajectory;
    times each generation and profiles one candidate's evaluation.
-9. Main path at 1024² (``main1024``): full-width PixArt-α 1024 (4096 image
+10. Main path at 1024² (``main1024``): full-width PixArt-α 1024 (4096 image
    tokens, the resolution and aspect-ratio conditions), batch 2 with CFG,
    under the repo's ``default_1024x1024`` schedule, ``ours_fast`` and the
    TGATE schedule ``tgate_m_010_sp_003_fi_001_warmup_002`` (gate at step
@@ -171,7 +198,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    against each schedule; and a tiny fp32 1024-style trajectory (size
    conditions, TGATE, 2304 tokens so that both K4 variants run) on the card
    against the plain path on the CPU.
-10. Serving quantization (``quant``): the int8 product (``torch._int_mm``
+11. Serving quantization (``quant``): the int8 product (``torch._int_mm``
    through ``ops/quant.py`` `int8_matmul`) held exact against the float64
    product of its int8 operands at PixArt-1024's and FLUX-1024's
    projection shapes (and FLUX's adaLN linear at one row, padded to 17),
@@ -182,12 +209,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    weights (int8_w quantized from the bf16 model, the static modes
    calibrated by the generator), each mode's K4, K3 and int8-product
    launches checked against the masks, its one-forward and final-latents
-   error against bf16, ms/img in turns with bf16, peak memory, and one
-   profiled ``ours_fast`` run each split into the int8 product, the
-   quantize and dequant passes, the other GEMMs and the rest. FLUX.1-dev
-   1024² in ``int8_w`` and ``int8_w_static`` runs inside the flux phase,
-   on its weights (below).
-11. Main path at 2048² (``main2048``): full-width PixArt-Σ at 2048²
+   error against bf16, ms/img from one synchronized pass with bf16, peak
+   memory, and one profiled ``ours_fast`` run each split into the int8
+   product, the quantize and dequant passes, the other GEMMs and the rest.
+   FLUX.1-dev 1024² in ``int8_w`` and ``int8_w_static`` runs inside the
+   flux phase, on its weights (below).
+12. Main path at 2048² (``main2048``): full-width PixArt-Σ at 2048²
    (16384 image tokens, a 256×256 latent, no size conditions, position
    embedding interpolated by 4), batch 1 with CFG, under Σ's
    ``gen_default/default.json`` and ``pixart_sigma_256/ours_fast.json``
@@ -197,7 +224,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    16384 → 120) and K3 checked against each schedule; and a tiny fp32
    trajectory with 8464 tokens, past 8192 so that self-attention takes the
    streaming route, on the card against the plain path on the CPU.
-12. FLUX (``flux``): full-width FLUX.1-dev (19 dual + 38 single blocks,
+13. FLUX (``flux``): full-width FLUX.1-dev (19 dual + 38 single blocks,
    d=3072, 24×128 heads, 512 text tokens, guidance embedding; 11.9 B
    seeded random bf16 parameters) from hash-encoder prompts, 20 flow-match
    Euler steps at guidance 5: 1024² at batch 1 under
@@ -219,11 +246,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    among them, through the padded product) checked, the latents against
    the bf16 runs' at the same noise, one timed run each, peak memory,
    weight bytes and one profiled ``fast`` run of ``int8_w`` split as
-   PixArt's (the uncached 1536² and 256² trajectories are counted and
-   timed, not profiled, to keep the run under 900 s); and a tiny fp32 FLUX
+   PixArt's (the uncached 1024², 1536² and 256² trajectories are counted
+   and timed, not profiled, to keep the run under 900 s); and a tiny fp32 FLUX
    trajectory (1536 joint tokens at D=128, the row-block route) on the
    card against the plain path on the CPU.
-13. Entry points (``cli``): ``ecad_tpu_torch.inference.cli
+14. Entry points (``cli``): ``ecad_tpu_torch.inference.cli
    PixArtAlphaImageGenerator`` with a prompt file, random weights and
    ``ours_fast``, again with the 1024 TGATE schedule at batch size 2,
    ``PixArtSigmaImageGenerator`` at ``--height 2048 --width 2048
@@ -233,8 +260,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the latent visualisation, as the reference writes them (256×256 for a
    2048² generation).
 
-Prints a summary line, the ``benchmark`` and ``checkpoints`` phases'
-lines, a ``{"kernels": [...]}`` line (X1's rows with ``two_call_ms``
+Prints a summary line, the ``benchmark``, ``checkpoints`` and
+``scorers`` phases' lines, a ``{"kernels": [...]}`` line (X1's rows with ``two_call_ms``
 beside the contract's keys), then as its last line
 ``{"ok": true, "device": {...}}``. A longer report (every check's error,
 device and host times, per-trajectory profiles, each phase's seconds, the
@@ -2303,23 +2330,27 @@ def seeded_arrays(spec: dict, seed: int, dtype: torch.dtype, device: str = "cuda
 class WordHashTokenizer:
     """Tokenizer stand-in (the card has no ``transformers``): each
     whitespace word becomes a hash id below the vocabulary, then `eos`;
-    `bos` first where given; padded with `pad` to max_length. Returns numpy
-    ``input_ids`` and ``attention_mask`` as a HuggingFace tokenizer does."""
+    `bos` first where given; padded with `pad` to max_length. Takes one
+    prompt or a list of them and returns numpy ``input_ids`` and
+    ``attention_mask`` (one row a prompt) as a HuggingFace tokenizer does."""
 
     def __init__(self, vocab: int, eos: int, pad: int, bos: int | None = None):
         self.vocab, self.eos, self.pad, self.bos = vocab, eos, pad, bos
 
-    def __call__(self, prompt, padding="max_length", max_length=120, truncation=True,
+    def __call__(self, prompts, padding="max_length", max_length=120, truncation=True,
                  return_tensors="np"):
         import zlib
 
-        ids = [] if self.bos is None else [self.bos]
-        ids += [2 + zlib.crc32(w.encode()) % (self.vocab - 3) for w in prompt.split()]
-        ids = ids[: max_length - 1] + [self.eos]
-        n = len(ids)
-        ids += [self.pad] * (max_length - n)
-        return {"input_ids": np.array([ids], np.int64),
-                "attention_mask": (np.arange(max_length) < n).astype(np.int64)[None]}
+        rows, lengths = [], []
+        for prompt in [prompts] if isinstance(prompts, str) else prompts:
+            ids = [] if self.bos is None else [self.bos]
+            ids += [2 + zlib.crc32(w.encode()) % (self.vocab - 3) for w in prompt.split()]
+            ids = ids[: max_length - 1] + [self.eos]
+            lengths.append(len(ids))
+            rows.append(ids + [self.pad] * (max_length - len(ids)))
+        return {"input_ids": np.array(rows, np.int64),
+                "attention_mask": (np.arange(max_length)[None]
+                                   < np.array(lengths)[:, None]).astype(np.int64)}
 
 
 def dir_bytes(d: Path) -> int:
@@ -2645,7 +2676,8 @@ def checkpoint_flux(writes: dict, loads: dict) -> dict:
 def checkpoints_phase(random_path: dict) -> dict:
     """The `checkpoints` phase: write the tree under `CKPT`, serve PixArt-α
     256² and the cut FLUX from it, and report the writes, loads (warm: the
-    files were just written), encode times and ms/img."""
+    files were just written), encode times and ms/img. PixArt-α 256's
+    transformer and the SD VAE stay for the `scorers` phase."""
     log("checkpoints phase: a HuggingFace-layout tree written here, served from disk")
     shutil.rmtree(CKPT, ignore_errors=True)
     writes, loads = {}, {}
@@ -2653,7 +2685,10 @@ def checkpoints_phase(random_path: dict) -> dict:
     torch.cuda.empty_cache()
     result["flux256_cut"] = checkpoint_flux(writes, loads)
     result.update(writes=writes, loads=loads)
-    shutil.rmtree(CKPT, ignore_errors=True)
+    # the scorers phase serves PixArt-α 256² from the transformer and the
+    # VAE, and deletes the tree when it ends
+    shutil.rmtree(CKPT / FLUX_REPO, ignore_errors=True)
+    shutil.rmtree(CKPT / PIXART_PIPE_REPO / "text_encoder", ignore_errors=True)
     torch.cuda.empty_cache()
     return result
 
@@ -2691,7 +2726,8 @@ TIER_PROMPTS = 8
 OURS_FAST_MACS = 2134989471744  # the paper's ours_fast at PixArt-α 256²
 LATENCY_WARMUPS, LATENCY_SAMPLES = 2, 3
 FID_IMAGES_PER_PROMPT = 25  # 200 images of the default for its FID stats
-BENCH_TURNS = 5
+BENCH_TURNS = 3
+TIER_KEEP = ROOT / "build" / "ecad_tpu_torch" / "tier"  # PNGs the scorers phase scores
 
 
 def tier_expected_counts(paths, batch: int, text_mask: bool = True) -> dict[str, int]:
@@ -2871,6 +2907,10 @@ def benchmark_phase(smi: str) -> dict:
         log(f"  compute_latency (batch {BATCH}, random VAE): "
             f"{ {k: v['avg'] for k, v in latency.items()} } ms/img, ratio "
             f"{result['compute_latency_ratio']:.4f}")
+        # the PNGs (not their mock scores) and prompts, for the scorers phase
+        shutil.rmtree(TIER_KEEP, ignore_errors=True)
+        shutil.copytree(images, TIER_KEEP / "images", ignore=shutil.ignore_patterns("*.json"))
+        shutil.copy(tmp / "prompts.json", TIER_KEEP / "prompts.json")
     torch.cuda.empty_cache()
 
     # the port's headline bench, batch 32, in turns, on one resident
@@ -2932,6 +2972,451 @@ def benchmark_line(smi: str, r: dict, seconds: float) -> dict:
         "tier_trajectory_idle_share": r["tier_trajectory"]["profile"]["idle_share"],
         "fid_pixel_stats_vs_default": r["fid_pixel_stats_vs_default"],
         "fid_stats_images": r["fid_stats_images"],
+        "phase_s": seconds,
+    }}
+
+
+# ---------------------------------------------------------------------------
+# the scorer towers
+# ---------------------------------------------------------------------------
+
+SCORERS = CKPT / "scorers"
+
+
+def tower_tol(want: torch.Tensor) -> tuple[float, float]:
+    """(atol, rtol) of a scorer tower on the card against the same module
+    on the CPU. Both run in IEEE fp32 (`fid.ieee_fp32`: no TF32, for the
+    convolutions either), so they differ only in the order of their sums,
+    each rounded at 2^-24: 1e-4 of the output's spread plus 1e-4 relative
+    leaves room for that over ViT-L's 24 layers, and lies below what TF32's
+    2^-11 rounding of every operand gives (the run measures the ViT with
+    TF32 on against the same bound: `vit_tf32_least_atol_per_std`)."""
+    return 1e-4 * float(want.float().std()), 1e-4
+
+TOWER_BATCHES = (8, 32)
+TOWER_CHECK_IMAGES = 2
+BERT_VOCAB = 30524  # BLIP's BERT: [PAD] 0, [CLS] 101, [SEP] 102, then 2 added tokens
+CLIP_B32_VISION = dict(image_size=224, patch_size=32, hidden_size=768, intermediate_size=3072,
+                       num_layers=12, num_heads=12)
+CLIP_B32_TEXT = dict(vocab_size=49408, hidden_size=512, intermediate_size=2048, num_layers=12,
+                     num_heads=8, max_position_embeddings=77)
+IR_MLP_LAYERS = (0, 2, 4, 6, 7)  # Sequential indices of the head's Linears, dropouts between
+
+
+def _ln_spec(spec: dict, key: str, d: int) -> None:
+    spec[f"{key}.weight"], spec[f"{key}.bias"] = (d,), (d,)
+
+
+def image_reward_spec(v, b, mlp_dims) -> dict:
+    """ImageReward.pt names (the reference converter's layout: timm ViT,
+    BLIP's BERT with cross-attention, the head) → shapes."""
+    s, d, p, bd = {}, v.hidden_size, v.patch_size, b.hidden_size
+    ve, te = "blip.visual_encoder", "blip.text_encoder.bert"
+    s[f"{ve}.patch_embed.proj.weight"], s[f"{ve}.patch_embed.proj.bias"] = (d, 3, p, p), (d,)
+    s[f"{ve}.cls_token"] = (1, 1, d)
+    s[f"{ve}.pos_embed"] = (1, (v.image_size // p) ** 2 + 1, d)
+    _ln_spec(s, f"{ve}.norm", d)
+    for i in range(v.num_layers):
+        blk = f"{ve}.blocks.{i}"
+        _ln_spec(s, f"{blk}.norm1", d)
+        _ln_spec(s, f"{blk}.norm2", d)
+        _lin_spec(s, f"{blk}.attn.qkv", d, 3 * d)
+        _lin_spec(s, f"{blk}.attn.proj", d, d)
+        _lin_spec(s, f"{blk}.mlp.fc1", d, v.mlp_ratio * d)
+        _lin_spec(s, f"{blk}.mlp.fc2", v.mlp_ratio * d, d)
+    s[f"{te}.embeddings.word_embeddings.weight"] = (b.vocab_size, bd)
+    s[f"{te}.embeddings.position_embeddings.weight"] = (b.max_position_embeddings, bd)
+    _ln_spec(s, f"{te}.embeddings.LayerNorm", bd)
+    for i in range(b.num_layers):
+        lay = f"{te}.encoder.layer.{i}"
+        for a, kv in (("attention", bd), ("crossattention", b.encoder_width)):
+            _lin_spec(s, f"{lay}.{a}.self.query", bd, bd)
+            _lin_spec(s, f"{lay}.{a}.self.key", kv, bd)
+            _lin_spec(s, f"{lay}.{a}.self.value", kv, bd)
+            _lin_spec(s, f"{lay}.{a}.output.dense", bd, bd)
+            _ln_spec(s, f"{lay}.{a}.output.LayerNorm", bd)
+        _lin_spec(s, f"{lay}.intermediate.dense", bd, b.intermediate_size)
+        _lin_spec(s, f"{lay}.output.dense", b.intermediate_size, bd)
+        _ln_spec(s, f"{lay}.output.LayerNorm", bd)
+    for idx, n_in, n_out in zip(IR_MLP_LAYERS, (bd, *mlp_dims[:-1]), mlp_dims):
+        _lin_spec(s, f"mlp.layers.{idx}", n_in, n_out)
+    return s
+
+
+def clip_vision_spec(c) -> dict:
+    """transformers CLIPVisionModel names → shapes, for `c`."""
+    s, d, pre = {}, c.hidden_size, "vision_model"
+    s[f"{pre}.embeddings.patch_embedding.weight"] = (d, 3, c.patch_size, c.patch_size)
+    s[f"{pre}.embeddings.class_embedding"] = (d,)
+    s[f"{pre}.embeddings.position_embedding.weight"] = ((c.image_size // c.patch_size) ** 2 + 1,
+                                                        d)
+    _ln_spec(s, f"{pre}.pre_layrnorm", d)
+    _ln_spec(s, f"{pre}.post_layernorm", d)
+    for i in range(c.num_layers):
+        lay = f"{pre}.encoder.layers.{i}"
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _lin_spec(s, f"{lay}.self_attn.{n}", d, d)
+        _lin_spec(s, f"{lay}.mlp.fc1", d, c.intermediate_size)
+        _lin_spec(s, f"{lay}.mlp.fc2", c.intermediate_size, d)
+        _ln_spec(s, f"{lay}.layer_norm1", d)
+        _ln_spec(s, f"{lay}.layer_norm2", d)
+    return s
+
+
+def inception_spec() -> dict:
+    """pt_inception names (torchvision's: ``X.conv.weight``, ``X.bn.*``) →
+    shapes, from the port's module on the meta device."""
+    from ecad_tpu_torch.scoring.inception import InceptionV3FID
+
+    bn = {"bn_scale": "bn.weight", "bn_bias": "bn.bias", "bn_mean": "bn.running_mean",
+          "bn_var": "bn.running_var"}
+    with torch.device("meta"):
+        model = InceptionV3FID()
+    s = {}
+    for name, p in model.named_parameters():
+        site, leaf = name.rsplit(".", 1)
+        s[f"{site}.{bn[leaf]}" if leaf in bn else name] = tuple(p.shape)
+    return s
+
+
+def write_scorer_trees(writes: dict) -> dict:
+    """Seeded full-width scorer checkpoints under `SCORERS`: ImageReward.pt
+    (fp32, ``torch.save``) with a vocab.txt; a ViT-B/32 CLIP directory
+    (config.json and safetensors); a pt_inception checkpoint with batchnorm
+    statistics (its means N(0, 0.1²), variances 1 + N(0, 0.1²), its
+    convolutions He-scaled so that activations keep their size through the
+    ReLUs). Returns the paths."""
+    from ecad_tpu_torch.scoring.image_reward import MLP_DIMS, BertConfig, ViTConfig
+
+    shutil.rmtree(SCORERS, ignore_errors=True)
+    ir = SCORERS / "ImageReward"
+    ir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    arrays = seeded_arrays(image_reward_spec(ViTConfig.large(), BertConfig.base(), MLP_DIMS),
+                           40, torch.float32)
+    torch.save({k: v.cpu() for k, v in arrays.items()}, ir / "ImageReward.pt")
+    del arrays
+    vocab = ["[PAD]", *(f"[unused{i}]" for i in range(99)), "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    vocab += [f"w{i}" for i in range(BERT_VOCAB - 2 - len(vocab))]
+    (ir / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    writes["image_reward"] = {"s": time.perf_counter() - t0, "GB": dir_bytes(ir) / 1e9}
+
+    from ecad_tpu_torch.models.clip import CLIPTextConfig
+    from ecad_tpu_torch.scoring.clip_score import CLIPVisionConfig
+
+    clip = SCORERS / "clip-vit-base-patch32"
+    vcfg, tcfg = CLIPVisionConfig(**CLIP_B32_VISION), CLIPTextConfig(**CLIP_B32_TEXT)
+    spec = {**clip_vision_spec(vcfg), **clip_spec(tcfg)}
+    _lin_spec(spec, "visual_projection", vcfg.hidden_size, 512, bias=False)
+    _lin_spec(spec, "text_projection", tcfg.hidden_size, 512, bias=False)
+    write_dir(writes, "clip_b32", {clip / "model.safetensors": seeded_arrays(spec, 41,
+                                                                          torch.float32)})
+    hf = {"num_layers": "num_hidden_layers", "num_heads": "num_attention_heads"}
+    (clip / "config.json").write_text(json.dumps({
+        "projection_dim": 512,
+        "vision_config": {hf.get(k, k): v for k, v in CLIP_B32_VISION.items()},
+        "text_config": {hf.get(k, k): v for k, v in CLIP_B32_TEXT.items()}}))
+
+    t0 = time.perf_counter()
+    arrays = seeded_arrays(inception_spec(), 42, torch.float32)
+    for name, t in arrays.items():
+        if name.endswith("running_mean"):
+            t.sub_(1.0)
+        elif name.endswith("conv.weight"):
+            t.mul_(2.0 ** 0.5)
+    inception = SCORERS / "pt_inception-2015-12-05.pth"
+    torch.save({k: v.cpu() for k, v in arrays.items()}, inception)
+    writes["pt_inception"] = {"s": time.perf_counter() - t0,
+                              "GB": inception.stat().st_size / 1e9}
+    log(f"  scorer trees written: {writes}")
+    return {"image_reward": ir, "clip": clip, "inception": inception}
+
+
+def tower_check(name: str, card_fn, cpu_fn, card_in, cpu_in, perturbed) -> dict:
+    """`card_fn(card_in)` held to `cpu_fn(cpu_in)` (the same module on the
+    CPU, from the same arrays) within tower_tol; the check shown to reject
+    the CPU's output on `perturbed` inputs."""
+    with torch.inference_mode():
+        got, want = card_fn(*card_in), cpu_fn(*cpu_in)
+        faulty = cpu_fn(*perturbed)
+    err = compare(f"scorers/{name}_card_vs_cpu", got, want.cuda(), tower_tol)
+    rejects(f"scorers/{name}_perturbed_input", faulty.cuda(), want.cuda(), tower_tol)
+    return {"max_abs_err": err,
+            "least_atol_per_std": REPORT["least_atol_per_std"][f"scorers/{name}_card_vs_cpu"]}
+
+
+def tower_checks(trees: dict, ir_tok, clip_tok) -> tuple[dict, dict]:
+    """Each tower on the card against the same module on the CPU, then each
+    tower's ms an image at TOWER_BATCHES. Returns (checks, ms a image) and
+    leaves the card's ImageReward and CLIP scorers resident in their
+    registry slots."""
+    from ecad_tpu_torch.scoring import clip_score, image_reward, inception
+    from ecad_tpu_torch.scoring.fid import ieee_fp32_context
+
+    gen = torch.Generator().manual_seed(7)
+    imgs = torch.randint(0, 256, (TOWER_CHECK_IMAGES, 256, 256, 3), generator=gen,
+                         dtype=torch.uint8)
+    dark = imgs.clone()
+    dark[:, :32] = 0  # the top two rows of ViT-L/16 patches black
+    items = json.loads((ROOT / "prompts/ImageRewardPrompts.json").read_text())
+    prompts = [it["prompt"] for it in items[:TOWER_CHECK_IMAGES]]
+    other = [prompts[0] + " at night", *prompts[1:]]
+    checks = {}
+
+    ir = {dev: image_reward.ImageRewardScorer(
+        image_reward.load_image_reward(trees["image_reward"] / "ImageReward.pt", dev), ir_tok)
+        for dev in ("cuda", "cpu")}
+    c, h = ir["cuda"], ir["cpu"]
+    px = {dev: s.preprocess(imgs) for dev, s in ir.items()}
+    toks = {dev: s.tokenize(prompts) for dev, s in ir.items()}
+    vit_c, vit_h = c.model.visual_encoder, h.model.visual_encoder
+    checks["image_reward_vit"] = tower_check(
+        "image_reward_vit", vit_c, vit_h, (px["cuda"],), (px["cpu"],), (h.preprocess(dark),))
+    # the ViT's own forward (without its ieee_fp32 wrapper) with TF32 on
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    with torch.inference_mode(), ieee_fp32_context():
+        cudnn.allow_tf32 = matmul.allow_tf32 = True
+        tf32 = type(vit_c).forward.__wrapped__(vit_c, px["cuda"])
+    with torch.inference_mode(), ieee_fp32_context():
+        n_bad, _, tf32_share, _ = beyond(tf32, vit_h(px["cpu"]).cuda(), tower_tol)
+        ctx = vit_c(px["cuda"])  # the BERT alone, on the same image tokens
+    checks["vit_tf32_least_atol_per_std"] = tf32_share
+    checks["vit_tf32_elements_beyond_tol"] = n_bad
+    log(f"  ViT-L/16 with TF32 on: least atol {tf32_share:.3g}·std, {n_bad} elements beyond "
+        "the fp32 tolerance")
+    ids_other, _ = h.tokenize(other)
+    (ids_c, mask_c), (ids_h, mask_h) = toks["cuda"], toks["cpu"]
+    checks["image_reward_bert"] = tower_check(
+        "image_reward_bert", c.model.text_encoder, h.model.text_encoder,
+        (ids_c, ctx, mask_c), (ids_h, ctx.cpu(), mask_h), (ids_other, ctx.cpu(), mask_h))
+    checks["image_reward_score"] = tower_check(
+        "image_reward_score", lambda i: c.rewards(i, prompts), lambda i, p=prompts: h.rewards(
+            i, p), (imgs.cuda(),), (imgs,), (imgs, other))
+    del ir, h, px, ctx, vit_h
+
+    clip = {dev: clip_score.CLIPScorer(*clip_score.load_clip_towers(trees["clip"], dev),
+                                       clip_tok) for dev in ("cuda", "cpu")}
+    cc, ch = clip["cuda"], clip["cpu"]
+    checks["clip_vision"] = tower_check(
+        "clip_vision", cc.image_features, ch.image_features, (imgs.cuda(),), (imgs,), (dark,))
+    checks["clip_score"] = tower_check(
+        "clip_score", lambda i: cc.scores(i, prompts), lambda i, p=prompts: ch.scores(i, p),
+        (imgs.cuda(),), (imgs,), (imgs, other))
+    del clip, ch
+
+    inc = {dev: inception.InceptionFeatureExtractor.from_weights(trees["inception"], dev)
+           for dev in ("cuda", "cpu")}
+    checks["inception"] = tower_check(
+        "inception", inc["cuda"].features, inc["cpu"].features, (imgs.cuda(),), (imgs,),
+        (dark,))
+    ic = inc["cuda"]
+    del inc
+
+    ms = {}
+    for b in TOWER_BATCHES:
+        batch = torch.randint(0, 256, (b, 256, 256, 3), generator=gen,
+                              dtype=torch.uint8).cuda()
+        texts = [items[i % len(items)]["prompt"] for i in range(b)]
+        ids, mask = c.tokenize(texts)
+        clip_ids = cc.tokenize(texts)
+        with torch.inference_mode():
+            runs = {"image_reward": lambda: c.model(c.preprocess(batch), ids, mask),
+                    "clip": lambda: cc.scores_of_ids(batch, clip_ids),
+                    "inception": lambda: ic.features(batch)}
+            for name, fn in runs.items():
+                ms.setdefault(name, {})[b] = timed_ms(f"scorers/{name}_b{b}", fn, 3, 2) / b
+    log(f"  ms an image (256² uint8 on the card, preprocess + towers): {ms}")
+    image_reward._RESIDENT, clip_score._RESIDENT = c, cc
+    return checks, ms
+
+
+def scorer_search(ir_dir: Path) -> dict:
+    """`genetic.train.main --scorer image_reward --image-reward-dir` at
+    PixArt-α 256² served from the checkpoints phase's tree: one cycle, then
+    a resume for one more; the launches against the evaluated candidates'
+    masks; one candidate evaluated again; the scorer's share of an
+    evaluated candidate."""
+    import contextlib
+    import tempfile
+
+    from ecad_tpu_torch.genetic import train
+    from ecad_tpu_torch.genetic.population_io import PixArtPopulationIOManager
+    from ecad_tpu_torch.models.pixart import PixArtConfig, schedule_mask_array
+    from ecad_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ecad_tpu_torch.schedules import PixArtCacheSchedule
+    from ecad_tpu_torch.scoring import image_reward
+
+    config = PixArtConfig()
+    result = {}
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build" / "ecad_tpu_torch") as tmp:
+        pops, bench, name = Path(tmp) / "pops", Path(tmp) / "bench", "ir256"
+        seeds = PixArtPopulationIOManager(name, pops, bench, generation_num=0)
+        X = np.random.default_rng(1).random((SEARCH_POP, seeds.n_var)) < 0.5
+        X[0] = True  # the default schedule
+        X[1] = PixArtCacheSchedule.from_json(OURS_FAST).to_numpy(flatten=True)
+        seeds.save_population(X, generation=0)
+        argv = ["--name", name, "--populations-dir", str(pops), "--benchmarks-dir", str(bench),
+                "--population-size", str(SEARCH_POP), "--num-prompts", str(SEARCH_PROMPTS),
+                "--num-inference-steps", str(STEPS), "--scorer", "image_reward",
+                "--image-reward-dir", str(ir_dir), "--weights-root", str(CKPT),
+                "--device", "cuda", "--num-cycles", "1"]
+        records, undo = timed_cycles(train)
+        env = {k: os.environ.get(k) for k in (image_reward.ENV_CHECKPOINT,
+                                              image_reward.ENV_TOKENIZER)}
+        reset_launch_counts()
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                train.main(argv)
+                train.main(argv)  # the resume
+        finally:
+            undo()
+            for k, v in env.items():  # --image-reward-dir set them
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        cands = search_tree(pops, bench, name, (1, 2), PixArtCacheSchedule)
+        if not (pops / name / "gen_003" / "checkpoint.npz").exists():
+            raise AssertionError("the resume wrote no gen_003/checkpoint.npz")
+        masks = [schedule_mask_array(sc, config) for sc, _ in cands.values()]
+        want = search_expected_counts(masks, config, SEARCH_PROMPTS)
+        log(f"  launches over both runs {counts}; {len(masks)} candidates say {want}")
+        if counts != want:
+            raise AssertionError(f"ImageReward search launches {counts} != masks {want}")
+        scores = {f"gen_{g:03d}/cand_{i:03d}": sc for (g, i), (_, sc) in cands.items()}
+        if len(set(scores.values())) < 2:
+            raise AssertionError(f"every candidate scored the same: {scores}")
+        evaluator = records["evaluator"]
+        again = evaluator.evaluate_candidate(cands[(1, 0)][0])[0]["total_score"]
+        if abs(again - cands[(1, 0)][1]) > 1e-6 * max(1.0, abs(again)):
+            raise AssertionError(f"gen_001/cand_000 scored {cands[(1, 0)][1]!r}, then {again!r}")
+        log(f"  gen_001/cand_000 again: {again!r} (scores.json {cands[(1, 0)][1]!r})")
+
+        # an ours_fast candidate end to end against its scoring alone
+        sched = PixArtCacheSchedule.from_json(OURS_FAST)
+        masks_fast = schedule_mask_array(sched, config)
+        *arrays, prompts, ids = evaluator._noise_batch()
+        imgs = evaluator._decode(evaluator._denoiser()(masks_fast, *arrays))
+        if not (isinstance(imgs, torch.Tensor) and imgs.is_cuda and imgs.dtype == torch.uint8):
+            raise AssertionError(f"decoded images {type(imgs)} are not uint8 on the card")
+        cand_ms, score_ms = [], []
+        for _ in range(3):
+            for runs, fn in ((cand_ms, lambda: evaluator.evaluate_candidate(sched)),
+                             (score_ms, lambda: image_reward._RESIDENT(imgs, prompts, ids))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3)
+        images = SEARCH_POP * SEARCH_PROMPTS
+        result.update(
+            launches=counts, candidates=len(masks), scores=scores,
+            same_score_again=again == cands[(1, 0)][1],
+            cycle_s=records["cycle_s"], s_per_generation=statistics.median(records["cycle_s"]),
+            ms_per_image=statistics.median(records["cycle_s"]) * 1e3 / images,
+            candidate_ms=statistics.median(cand_ms), candidate_ms_runs=cand_ms,
+            score_ms=statistics.median(score_ms), score_ms_runs=score_ms,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        result["scorer_share"] = result["score_ms"] / result["candidate_ms"]
+    log(f"  {result['s_per_generation']:.3f} s a generation, {result['ms_per_image']:.3f} ms an "
+        f"evaluated image; an ours_fast candidate {result['candidate_ms']:.3f} ms, of which "
+        f"ImageReward {result['score_ms']:.3f} ms ({result['scorer_share']:.4f})")
+    del records, evaluator
+    return result
+
+
+def scorer_clis(trees: dict) -> dict:
+    """The benchmark tools with the scorer towers over the benchmark
+    phase's PNGs (a copy without their mock scores): score_images
+    (ImageReward), compute_clip (its default scorer, CLIP), compute_fid
+    with the inception and clip_vision extractors."""
+    import tempfile
+
+    from ecad_tpu_torch.benchmark import compute_clip, compute_fid, score_images
+    from ecad_tpu_torch.scoring import inception
+
+    out = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build" / "ecad_tpu_torch") as tmp:
+        images, prompts = Path(tmp) / "images", str(TIER_KEEP / "prompts.json")
+        shutil.copytree(TIER_KEEP / "images", images)
+        score_images.main(["--image-dir", str(images), "--prompt-file", prompts, "--scorer",
+                           "image_reward", "--exactly-n-images", str(TIER_PROMPTS)])
+        compute_clip.main(["--image-dir", str(images), "--prompt-file", prompts])
+        for name in TIER_SCHEDULES:
+            for file, key in (("scores.json", "image_reward"), ("clip_scores.json", "clip")):
+                r = json.loads((images / name / file).read_text())
+                vals = [v for vs in r["score_by_prompt_id"].values() for v in vs]
+                if len(vals) != TIER_PROMPTS or not all(np.isfinite(vals)):
+                    raise AssertionError(f"{name}/{file}: {r['score_by_prompt_id']}")
+                if key == "clip" and not all(0 <= v <= 100 for v in vals):
+                    raise AssertionError(f"{name}/{file}: CLIP scores outside [0, 100]")
+                out.setdefault(key, {})[name] = r["total_score"]
+        os.environ[inception.ENV_CHECKPOINT] = str(trees["inception"])
+        try:
+            for extractor, dim in (("inception", 2048), ("clip_vision", 768)):
+                stats = Path(tmp) / f"{extractor}.npz"
+                compute_fid.main(["--image-dir", str(images / "default"), "--stats", str(stats),
+                                  "--make-stats", "--extractor", extractor])
+                compute_fid.main(["--image-dir", str(images / "ours_fast"), "--stats",
+                                  str(stats), "--extractor", extractor])
+                r = json.loads((images / "ours_fast" / "fid_scores.json").read_text())
+                with np.load(stats) as st:
+                    mu = st["mu"].shape
+                if (mu != (dim,) or r["n_images"] != TIER_PROMPTS or r["extractor"] != extractor
+                        or not np.isfinite(r["fid"])):
+                    raise AssertionError(f"compute_fid {extractor}: {r}, mu {mu}")
+                out[f"fid_{extractor}"] = r["fid"]
+        finally:
+            os.environ.pop(inception.ENV_CHECKPOINT)
+            inception._RESIDENT = None
+    log(f"  the tools over the tier's PNGs: {out}")
+    return out
+
+
+def scorers_phase(smi: str) -> dict:
+    """The `scorers` phase: seeded full-width scorer checkpoints; each
+    tower on the card against the CPU; the benchmark tools with the towers;
+    the search scored by ImageReward at PixArt-α 256² from the checkpoint
+    tree. Deletes the tree when it ends."""
+    from ecad_tpu_torch.scoring import clip_score, image_reward
+
+    log("scorers phase: ImageReward, CLIP ViT-B/32 and InceptionV3 at full width")
+    writes = {}
+    result = {"card": smi}
+    try:
+        trees = write_scorer_trees(writes)
+        result["writes"] = writes
+        ir_tok = WordHashTokenizer(BERT_VOCAB, eos=102, pad=0, bos=101)
+        clip_tok = WordHashTokenizer(CLIP_B32_TEXT["vocab_size"], eos=49407, pad=0, bos=49406)
+        result["checks"], result["ms_per_image"] = tower_checks(trees, ir_tok, clip_tok)
+        result["clis"] = scorer_clis(trees)
+        result["search"] = scorer_search(trees["image_reward"])
+    finally:
+        image_reward._RESIDENT = clip_score._RESIDENT = None
+        shutil.rmtree(CKPT, ignore_errors=True)
+        shutil.rmtree(TIER_KEEP, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return result
+
+
+def scorers_line(r: dict, seconds: float) -> dict:
+    """The phase's numbers for a line of their own."""
+    s = r["search"]
+    return {"scorers": {
+        "card": r["card"],
+        "ms_per_image_256_uint8": r["ms_per_image"],
+        "card_vs_cpu_max_abs_err": {k: v["max_abs_err"] for k, v in r["checks"].items()
+                                    if isinstance(v, dict)},
+        "vit_tf32_least_atol_per_std": r["checks"]["vit_tf32_least_atol_per_std"],
+        "search_image_reward": {
+            "s_per_generation": s["s_per_generation"], "ms_per_image": s["ms_per_image"],
+            "candidate_ms": s["candidate_ms"], "score_ms": s["score_ms"],
+            "scorer_share": s["scorer_share"], "launches": s["launches"],
+            "peak_mem_gib": s["peak_mem_gib"]},
+        "tools": r["clis"],
         "phase_s": seconds,
     }}
 
@@ -3044,7 +3529,7 @@ def search_path() -> dict:
     seeded random bf16 weights and random prompt embeddings, 20 steps, the
     weight-free fidelity scorer, 8 candidates × 4 prompts a generation:
     gen 0 seeded with the default schedule, ``ours_fast`` and six random
-    genomes, two cycles, then a resume for one more. Checks K1 and K3 at
+    genomes, one cycle, then a resume for one more. Checks K1 and K3 at
     the search's shapes against their plain versions, the files, the MACs,
     the default candidate's exact 200 dB, ``ours_fast`` below it, and that
     the launch counts over both runs equal the sum of every evaluated
@@ -3059,7 +3544,7 @@ def search_path() -> dict:
     from ecad_tpu_torch.schedules import PixArtCacheSchedule
 
     log(f"search: genetic.train.main, PixArt-α 256² full width, {SEARCH_POP} candidates "
-        f"× {SEARCH_PROMPTS} prompts, 2 cycles and a resume")
+        f"× {SEARCH_PROMPTS} prompts, a cycle and a resume")
     config = PixArtConfig()
     b2 = 2 * SEARCH_PROMPTS  # CFG doubles the prompts
     result = {"kernel_errors": search_kernel_checks(
@@ -3082,17 +3567,17 @@ def search_path() -> dict:
         reset_launch_counts()
         try:
             with contextlib.redirect_stdout(sys.stderr):
-                train.main([*argv, "--num-cycles", "2"])
-                if not (pops / name / "gen_003" / "checkpoint.npz").exists():
-                    raise AssertionError("no gen_003/checkpoint.npz after two cycles")
+                train.main([*argv, "--num-cycles", "1"])
+                if not (pops / name / "gen_002" / "checkpoint.npz").exists():
+                    raise AssertionError("no gen_002/checkpoint.npz after one cycle")
                 train.main([*argv, "--num-cycles", "1"])
         finally:
             undo()
         torch.cuda.synchronize()
         counts = launch_counts()
-        cands = search_tree(pops, bench, name, (1, 2, 3), PixArtCacheSchedule)
-        if not (pops / name / "gen_004" / "checkpoint.npz").exists():
-            raise AssertionError("the resume wrote no gen_004/checkpoint.npz")
+        cands = search_tree(pops, bench, name, (1, 2), PixArtCacheSchedule)
+        if not (pops / name / "gen_003" / "checkpoint.npz").exists():
+            raise AssertionError("the resume wrote no gen_003/checkpoint.npz")
         masks = [schedule_mask_array(s, config) for s, _ in cands.values()]
         reference = np.ones((STEPS, config.num_blocks, 3), dtype=bool)
         want = search_expected_counts(masks + [reference] * 2, config, SEARCH_PROMPTS)
@@ -3325,11 +3810,10 @@ def quant_path() -> dict:
     four quant modes on the same weights (int8_w quantized from the bf16
     model, each static mode calibrated by the generator), each mode's
     launches (K4, K3 and the int8 products) checked against the masks, its
-    one-forward and final-latents error against bf16, ms/img in turns with
-    bf16 (two under ``ours_fast``, one under the default: the checked
-    runs), peak memory, and one profiled ``ours_fast`` run of each quant
-    mode split into the
-    int8 product, the quantize and dequant passes, the bf16 GEMMs and the
+    one-forward and final-latents error against bf16, ms/img from one
+    synchronized pass with bf16 (the checked runs), peak memory, and one
+    profiled ``ours_fast`` run of each quant mode split into the int8
+    product, the quantize and dequant passes, the bf16 GEMMs and the
     rest. The int8 product itself is first checked exact at every served
     shape and timed against one bf16 ``F.linear``."""
     from ecad_tpu_torch.image_generators.pixart import PixArtAlphaImageGenerator
@@ -3403,7 +3887,7 @@ def quant_path() -> dict:
         f"{result['forward_rel_err_masked_calibration']:.4g}")
 
     modes = ("bf16", *QUANT_MODES)
-    for name, path, turns, profiled in (("ours_fast", OURS_FAST, 2, QUANT_MODES),
+    for name, path, turns, profiled in (("ours_fast", OURS_FAST, 1, QUANT_MODES),
                                         ("default", DEFAULT_1024, 1, ())):
         sched = PixArtCacheSchedule.from_json(path)
         pipes = {m: PixArtPipeline(PixArtPipelineConfig(model=models[m].config,
@@ -3705,21 +4189,22 @@ def flux_path() -> dict:
     default_1536 = FluxCacheSchedule.default(
         STEPS, top_level_config={"height": 1536, "width": 1536, "guidance_scale": 5})
     # side, batch, schedules, the joint attention's counter, timed order,
-    # the schedules profiled; one timed run each at 1024² and 1536²
-    # (device-bound: idle < 0.05); the 1024² latents kept for the quant
-    # modes' error against bf16. The uncached 1536² and 256² trajectories
-    # are counted and timed but not profiled (processing their profiles
-    # takes tens of seconds each, which the quant parts need; PERF.md §5
-    # keeps an earlier breakdown of them)
+    # the schedules profiled; one timed run each (device-bound at 1024² and
+    # 1536²: idle < 0.05; the host-bound 256² spreads more between runs);
+    # the 1024² latents kept for the quant
+    # modes' error against bf16. The uncached trajectories are counted and
+    # timed but not profiled (processing their profiles takes tens of
+    # seconds each, which the quant parts and the scorers phase need;
+    # PERF.md §5 keeps an earlier breakdown of them)
     latents_1024: dict = {}
     for side, batch, schedules, attention, order, profiled in (
         (1024, BATCH_FLUX_1024, {"default": load(FLUX_DEFAULT_1024), "fast": load(FLUX_FAST_1024)},
-         "attention_rowblock", ("default", "fast"), None),
+         "attention_rowblock", ("default", "fast"), ("fast",)),
         (1536, BATCH_FLUX_1536, {"default": default_1536, "fast": load(FLUX_FAST_1024)},
          "attention_flash", ("default", "fast"), ("fast",)),
         (256, BATCH_FLUX_256, {"ours_fast": load(FLUX_OURS_FAST_256),
                                "default": load(FLUX_DEFAULT_256)},
-         "attention", ("default", "ours_fast", "ours_fast", "default"), ("ours_fast",)),
+         "attention", ("default", "ours_fast"), ("ours_fast",)),
     ):
         pcfg = FluxPipelineConfig(config, STEPS, guidance_scale=5.0, height=side, width=side)
         pipes = {n: FluxPipeline(pcfg, model, sched) for n, sched in schedules.items()}
@@ -3890,6 +4375,7 @@ def main() -> None:
     REPORT["main_path"] = phase("main256", main_path)
     REPORT["checkpoints"] = phase("checkpoints", checkpoints_phase, REPORT["main_path"])
     REPORT["benchmark"] = phase("benchmark", benchmark_phase, smi)
+    REPORT["scorers"] = phase("scorers", scorers_phase, smi)
     REPORT["search"] = phase("search", search_path)
     REPORT["main_path_1024"] = phase("main1024", main_path_1024)
     REPORT["quant"] = phase("quant", quant_path)
@@ -3967,6 +4453,7 @@ def main() -> None:
           flush=True)
     print(json.dumps(checkpoints_line(smi, REPORT["checkpoints"], seconds["checkpoints"])),
           flush=True)
+    print(json.dumps(scorers_line(REPORT["scorers"], seconds["scorers"])), flush=True)
     # every row has the contract's keys; X1's also its two-call yardstick
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

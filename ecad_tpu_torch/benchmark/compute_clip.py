@@ -2,12 +2,12 @@
 
 Counterpart of ``ecad_tpu/benchmark/compute_clip.py``, plus ``--device``
 (default ``cuda``, which must exist; ``--device cpu`` for a machine
-without one). Parity with ecad/benchmark/compute_clip.py: prompts are
-resolved from image filenames via the naming-mode regexes (:18-33), each
-schedule directory is scored, and clip_scores.json written. The ``clip``
-scorer needs the CLIP towers and their weights, which wait for ROADMAP.md
-queue 1 item 6: `get_scorer` raises for it; ``--scorer mock`` drives the
-tool.
+without one), where each directory's images are stacked and scored.
+Parity with ecad/benchmark/compute_clip.py: prompts are resolved from
+image filenames via the naming-mode regexes (:18-33), each schedule
+directory is scored, and clip_scores.json written. The ``clip`` scorer
+(``scoring/clip_score.py``) reads a local HF-layout CLIP directory from
+``ECAD_CLIP_MODEL_DIR``; ``--scorer mock`` drives the tool without weights.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import json
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from .. import resolve_device
 from ..scoring import get_scorer
@@ -30,13 +31,13 @@ def main(argv=None) -> None:
     p.add_argument("--naming", choices=sorted(NAMING_MODES),
                    default="image_reward")
     p.add_argument("--scorer", default="clip",
-                   help="scorer registry name (clip waits for its weights; "
+                   help="scorer registry name (clip needs ECAD_CLIP_MODEL_DIR; "
                         "mock for smoke tests)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda must be present")
     args = p.parse_args(argv)
 
-    resolve_device(args.device)
+    device = resolve_device(args.device)
     prompts = prompts_by_id(args.prompt_file)
     leaf_dirs = sorted({q.parent for q in args.image_dir.rglob("*.png")})
     scorer = get_scorer(args.scorer)
@@ -45,7 +46,7 @@ def main(argv=None) -> None:
                                                args.naming, warn=False)
         if not images:
             continue
-        result = scorer(np.stack(images), texts, ids)
+        result = scorer(torch.from_numpy(np.stack(images)).to(device), texts, ids)
         out = d / "clip_scores.json"
         with out.open("w") as f:
             json.dump(result, f, indent=4)

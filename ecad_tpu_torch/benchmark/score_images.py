@@ -2,15 +2,17 @@
 
 Counterpart of ``ecad_tpu/benchmark/score_images.py``, plus ``--device``
 (default ``cuda``, which must exist; ``--device cpu`` for a machine
-without one), where the weight-backed scorers will run; the ``mock``
-scorer hashes the images on the host. Parity with
+without one): each directory's images are stacked there, and the
+weight-backed scorers (``image_reward``, ``clip``) run on it; the
+``mock`` scorer hashes them on the host. Parity with
 ecad/benchmark/score_images.py: filename-regex naming modes (image_reward
 / parti / toca, :19-28), exact-image-count gating before scoring
 (:200-205), skip when scores.json exists (:206-207), --delete-after
 removes PNGs (:187-238). The scorer comes from the port's registry
-(`ecad_tpu_torch.scoring.get_scorer`); ``image_reward`` and ``clip`` raise
-there until ROADMAP.md queue 1 item 6. Every leaf directory is scored in
-one process (`_processes.host_shard`).
+(`ecad_tpu_torch.scoring.get_scorer`; the weight-backed ones read their
+weights' paths from the ECAD_IMAGE_REWARD_* / ECAD_CLIP_MODEL_DIR
+variables). Every leaf directory is scored in one process
+(`_processes.host_shard`).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import re
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from .. import resolve_device
 from ..scoring import get_scorer
@@ -91,6 +94,7 @@ def score_schedule_dir(
     exactly_n_images: int | None,
     delete_after: bool,
     naming: str,
+    device="cuda",
 ) -> dict | None:
     pngs = sorted(image_dir.rglob("*.png"))
     score_file = image_dir / "scores.json"
@@ -114,7 +118,7 @@ def score_schedule_dir(
         )
         return None
     scorer = get_scorer(scorer_name)
-    result = scorer(np.stack(images), texts, ids)
+    result = scorer(torch.from_numpy(np.stack(images)).to(device), texts, ids)
     with score_file.open("w") as f:
         json.dump(result, f, indent=4)
     print(f"{image_dir}: total_score={result['total_score']:.4f}")
@@ -138,8 +142,8 @@ def main(argv=None) -> None:
                    help="cuda (default) or cpu; cuda must be present")
     args = p.parse_args(argv)
 
-    resolve_device(args.device)
-    get_scorer(args.scorer)  # a scorer that is not ported raises here
+    device = resolve_device(args.device)
+    get_scorer(args.scorer)  # an unknown name raises here
     prompts = prompts_by_id(args.prompt_file) if args.prompt_file else {}
     initialize()  # one process; raises if the environment asks for more
     # leaf dirs = dirs containing pngs directly
@@ -151,7 +155,7 @@ def main(argv=None) -> None:
     for d in leaf_dirs:
         if score_schedule_dir(
             d, prompts, args.scorer, args.exactly_n_images,
-            args.delete_after, args.naming,
+            args.delete_after, args.naming, device,
         ):
             n += 1
     print(f"Scored {n} directories.")

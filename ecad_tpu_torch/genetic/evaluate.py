@@ -178,7 +178,10 @@ class CandidateEvaluator:
 
         scorer == "fidelity" scores in LATENT space against the uncached
         trajectory (no decode unless images were asked for); every other
-        scorer sees decoded images."""
+        scorer sees the decoded images as `decode_fn` returns them — a
+        device decode (the search CLI's, with a checkpoint's VAE) keeps
+        decode → resize → towers on the device, and only the scores come
+        to the host."""
         *arrays, prompts, ids = self._noise_batch()
         fidelity = self.config.scorer == "fidelity"
         scorer = None if fidelity else get_scorer(self.config.scorer)
@@ -199,7 +202,8 @@ class CandidateEvaluator:
             if not fidelity:
                 score_chunks.append(scorer(imgs, prompts[lo:hi], ids[lo:hi]))
             if self.config.return_images:
-                imgs_all.append(np.asarray(imgs))
+                imgs_all.append(imgs.cpu().numpy() if isinstance(imgs, torch.Tensor)
+                                else np.asarray(imgs))
         scores = merge_scores(score_chunks)
         if not self.config.return_images:
             return scores, None

@@ -16,9 +16,12 @@ decodes through the checkpoint's VAE; ``--prompt-file`` then encodes its
 prompts with the checkpoint's text encoder(s). Otherwise weights are
 random (seeded by ``--seed``), at full width or ``--tiny-model``. Prompts
 not from ``--prompt-file`` are random embeddings or ``--embeddings-dir``.
-Flags of modules not ported yet are accepted and raise with their
-ROADMAP.md queue 1 item: ``--scorer image_reward|clip`` and
-``--image-reward-dir`` (item 6), ``--dp``/``--tp``/``--sp`` > 1 (item 8).
+``--scorer image_reward`` (ECAD's objective) needs its weights
+(``--image-reward-dir``: ImageReward.pt and a BERT tokenizer's vocab.txt,
+or the ECAD_IMAGE_REWARD_* variables) and ``--weights-root``, whose VAE
+decodes what it scores; decoded images stay on the device for the scorer.
+``--dp``/``--tp``/``--sp`` > 1 raise with their ROADMAP.md queue 1 item
+(item 8, multi-process parallelism).
 ``--quant`` builds the evaluator's model in a serving quant mode
 (``ops/quant.py``; the generator calibrates the static modes on a
 checkpoint); with random weights the static modes keep per-token scales,
@@ -33,6 +36,7 @@ Usage (mini smoke run, fidelity scorer, tiny random model on the CPU):
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from pathlib import Path
 
@@ -41,6 +45,8 @@ import torch
 
 from .. import resolve_device
 from ..ops.quant import MODES as QUANT_MODES
+from ..scoring.clip_score import ENV_MODEL_DIR as CLIP_MODEL_DIR
+from ..scoring.image_reward import ENV_CHECKPOINT, ENV_TOKENIZER
 from .evaluate import CandidateEvaluator, EvalConfig
 from .nsga2 import NSGA2
 from .population_io import (
@@ -80,18 +86,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--start-seed", type=int, default=0)
     p.add_argument("--seed-step", type=int, default=1)
     p.add_argument("--scorer", default="mock",
-                   help="scorer name (mock | fidelity; image_reward and clip "
-                        "are not ported yet). 'fidelity' needs no weights: "
-                        "it scores each candidate's final latents against "
-                        "the uncached trajectory of the same model "
-                        "(latent-space SNR dB; evaluate.py:fidelity_snr_db)")
+                   help="scorer name (mock | fidelity | image_reward | clip). "
+                        "'fidelity' needs no weights: it scores each "
+                        "candidate's final latents against the uncached "
+                        "trajectory of the same model (latent-space SNR dB; "
+                        "evaluate.py:fidelity_snr_db)")
     p.add_argument("--weights-root", type=Path, default=None,
                    help="root of local HF-layout checkpoints (transformer, "
                         "text encoder(s), VAE)")
     p.add_argument("--transformer-weights", default=None,
                    help="transformer repo name under --weights-root")
     p.add_argument("--image-reward-dir", type=Path, default=None,
-                   help="ImageReward.pt and a BERT tokenizer dir (not ported yet)")
+                   help="directory with ImageReward.pt and a BERT tokenizer "
+                        "(vocab.txt here or one level down); sets the "
+                        "ECAD_IMAGE_REWARD_* variables for --scorer "
+                        "image_reward")
     p.add_argument("--prompt-file", type=Path, default=None,
                    help="prompts, one a line, encoded with the checkpoint's "
                         "text encoder (needs --weights-root)")
@@ -149,10 +158,6 @@ def refuse_waiting_flags(args) -> None:
     """Raise, at startup, for a flag whose module is not ported yet, naming
     its ROADMAP.md queue 1 item."""
     waiting = [
-        (args.scorer in ("image_reward", "clip"), f"--scorer {args.scorer}", 6,
-         "the scorer towers"),
-        (args.image_reward_dir is not None, "--image-reward-dir", 6,
-         "the scorer towers"),
         (args.dp > 1 or args.tp > 1 or args.sp > 1, "--dp/--tp/--sp > 1", 8,
          "multi-process parallelism"),
     ]
@@ -162,6 +167,45 @@ def refuse_waiting_flags(args) -> None:
                 f"{flag} is not ported to ecad_tpu_torch yet (ROADMAP.md "
                 f"queue 1 item {item}, {what})"
             )
+
+
+def resolve_scorer_weights(args) -> None:
+    """Fail loudly at startup — not mid-generation — when a weight-backed
+    scorer lacks weights (ref :190-229, which checks image_reward only).
+    --image-reward-dir sets the variables the scorer registry reads."""
+    if args.scorer == "clip" and not os.environ.get(CLIP_MODEL_DIR):
+        raise SystemExit(f"--scorer clip needs weights: set {CLIP_MODEL_DIR} to a "
+                         "CLIP model directory (HF layout)")
+    if args.scorer != "image_reward":
+        return
+    if args.image_reward_dir is not None:
+        d = Path(args.image_reward_dir)
+        ckpt = d / "ImageReward.pt"
+        if not ckpt.exists():
+            raise SystemExit(f"--image-reward-dir: {ckpt} not found")
+        if (d / "vocab.txt").exists():
+            tok = d
+        else:
+            toks = sorted(p.parent for p in d.glob("*/vocab.txt"))
+            if not toks:
+                raise SystemExit(
+                    f"--image-reward-dir: no BERT tokenizer (vocab.txt) under {d}"
+                )
+            tok = toks[0]
+        os.environ[ENV_CHECKPOINT] = str(ckpt)
+        os.environ[ENV_TOKENIZER] = str(tok)
+    if not (os.environ.get(ENV_CHECKPOINT) and os.environ.get(ENV_TOKENIZER)):
+        raise SystemExit(
+            "--scorer image_reward needs weights: pass --image-reward-dir "
+            f"(ImageReward.pt + BERT tokenizer) or set {ENV_CHECKPOINT} / "
+            f"{ENV_TOKENIZER}"
+        )
+    if args.weights_root is None:
+        raise SystemExit(
+            "--scorer image_reward without --weights-root would score "
+            "latent visualizations, not VAE-decoded images — pass "
+            "--weights-root (or use --scorer mock for smoke runs)"
+        )
 
 
 def initialize_manager(args) -> PopulationIOManager:
@@ -276,7 +320,7 @@ def build_evaluator(args, manager) -> CandidateEvaluator:
         gen = _checkpoint_generator(args, PixArtAlphaImageGenerator)
         pipeline = gen.create_diffusion_pipeline()
         config = pipeline.config.model
-        decode_fn = gen.decode_latents
+        decode_fn = gen.decode_latents_device
         if args.prompt_file is not None:
             text, neg, prompts = _prompt_file_embeddings(args, gen, keys, config.dtype)
             return CandidateEvaluator(pipeline, text, neg, prompts, _eval_config(args),
@@ -321,7 +365,7 @@ def _build_flux_evaluator(args):
         gen = _checkpoint_generator(args, FluxImageGenerator)
         pipeline = gen.create_diffusion_pipeline()
         config = pipeline.config.model
-        decode_fn = gen.decode_latents
+        decode_fn = gen.decode_latents_device
         if args.prompt_file is not None:
             text, pooled, prompts = _prompt_file_embeddings(args, gen, keys, config.dtype)
             return FluxCandidateEvaluator(pipeline, text, pooled, prompts,
@@ -409,6 +453,7 @@ def train_one_cycle(args, manager, algo: NSGA2, evaluator) -> None:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     refuse_waiting_flags(args)
+    resolve_scorer_weights(args)
     if args.weights_root is None and (args.prompt_file or args.transformer_weights):
         # the reference ignores both without a checkpoint tree; say so
         raise SystemExit("--prompt-file and --transformer-weights need --weights-root")

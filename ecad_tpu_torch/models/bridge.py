@@ -1,13 +1,15 @@
 """Carry weights across from the JAX reference's param trees.
 
-`pixart_state_dict`, `flux_state_dict`, `vae_state_dict`, `t5_state_dict`
-and `clip_state_dict` take the Flax param tree of ``ecad_tpu``'s
-PixArtTransformer, FluxTransformer, VAEDecoder, T5Encoder or
-CLIPTextEncoder as nested dicts of numpy arrays (unbox any partitioning
+`pixart_state_dict`, `flux_state_dict`, `vae_state_dict`, `t5_state_dict`,
+`clip_state_dict` and the scorer towers' `image_reward_state_dict`,
+`clip_vision_state_dict` and `inception_state_dict` take the Flax param
+tree of ``ecad_tpu``'s PixArtTransformer, FluxTransformer, VAEDecoder,
+T5Encoder, CLIPTextEncoder, ImageRewardModel, CLIPVisionEncoder or
+InceptionV3FID as nested dicts of numpy arrays (unbox any partitioning
 metadata first), or the same tree of torch tensors that the checkpoint
-converters of `models.weights` build, and return the ``state_dict`` of the
-port's module of the same configuration (numpy leaves as fp32 tensors,
-torch leaves as views in their own dtype):
+converters of `models.weights` and `scoring` build, and return the
+``state_dict`` of the port's module of the same configuration (numpy
+leaves as fp32 tensors, torch leaves as views in their own dtype):
 
 * a Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in);
 * a Conv ``kernel`` HWIO becomes a Conv2d ``weight`` OIHW;
@@ -18,8 +20,10 @@ torch leaves as views in their own dtype):
   ``weight`` (out, in), and its ``scale`` stays the fp32 dequant
   ``scale``, as the reference reads a ``scale`` beside an int8 kernel
   (``models/common.py:281-295``);
-* ``block_<i>`` becomes ``blocks.<i>`` and FLUX's ``single_block_<i>``
-  ``single_blocks.<i>`` (the encoders' ``layer_<i>`` keep their names).
+* ``block_<i>`` at the top of the tree becomes ``blocks.<i>`` and FLUX's
+  ``single_block_<i>`` ``single_blocks.<i>`` (the encoders' ``layer_<i>``,
+  ImageReward's ``visual_encoder/block_<i>`` and Inception's
+  ``bn_scale`` keep their names).
 
 `reference_path` maps a port module name back to the reference's module
 path, the key of the static quant modes' calibration tables.
@@ -121,4 +125,21 @@ def t5_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
 def clip_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """JAX CLIPTextEncoder params → port CLIPTextEncoder state_dict."""
+    return _convert(params)
+
+
+def image_reward_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ImageRewardModel params → port ImageRewardModel state_dict (the
+    ViT's patch conv HWIO → OIHW)."""
+    return _convert(params)
+
+
+def clip_vision_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX CLIPVisionEncoder params → port CLIPVisionEncoder state_dict."""
+    return _convert(params)
+
+
+def inception_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX InceptionV3FID params → port InceptionV3FID state_dict (every
+    conv HWIO → OIHW; the batchnorm's ``bn_*`` keep their names)."""
     return _convert(params)

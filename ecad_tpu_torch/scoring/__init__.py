@@ -12,8 +12,17 @@ available in every deployment, so scorers are a registry:
   quantity caching actually degrades. Implemented inside the candidate
   evaluator (it needs the reference trajectory), see
   ``ecad_tpu_torch/genetic/evaluate.py`` `fidelity_snr_db`.
-* ``image_reward`` and ``clip`` — the weight-backed scorers; not ported yet
-  (ROADMAP.md queue 1 item 6): `get_scorer` raises for them.
+* ``image_reward`` — ImageReward-v1.0 (BLIP ViT-L/16 + BERT + MLP head),
+  ``scoring/image_reward.py``; local weights from
+  ``ECAD_IMAGE_REWARD_CHECKPOINT`` / ``ECAD_IMAGE_REWARD_TOKENIZER``.
+* ``clip`` — CLIP text-image similarity (clip-score parity),
+  ``scoring/clip_score.py``; local weights from ``ECAD_CLIP_MODEL_DIR``.
+
+`get_scorer` imports the module that registers a weight-backed name the
+first time it is asked for it. Scorers take (N, H, W, 3) uint8 images as a
+numpy array or as a tensor; the weight-backed ones run on a tensor's own
+device (without copying it), so decoded images scored on the card stay
+there and only the scores come to the host.
 
 All scorers return the reference's scores.json payload shape:
 {"total_score": float, "avg_by_prompt": {...}, "score_by_prompt_id": {...}}
@@ -23,9 +32,11 @@ All scorers return the reference's scores.json payload shape:
 from __future__ import annotations
 
 import hashlib
+import importlib
 from typing import Protocol, Sequence
 
 import numpy as np
+import torch
 
 from ..registry import Registry
 
@@ -33,7 +44,7 @@ from ..registry import Registry
 class Scorer(Protocol):
     def __call__(
         self,
-        images: np.ndarray,  # (N, H, W, 3) uint8 or float
+        images: np.ndarray | torch.Tensor,  # (N, H, W, 3) uint8 or float
         prompts: Sequence[str],
         prompt_ids: Sequence[str] | None = None,
     ) -> dict: ...
@@ -72,7 +83,10 @@ def mock_scorer(
     prompt_ids: Sequence[str] | None = None,
 ) -> dict:
     """Deterministic content-hash pseudo-score in [-1, 1]. Distinct images →
-    distinct stable scores; identical pipelines reproduce identical scores."""
+    distinct stable scores; identical pipelines reproduce identical scores.
+    A tensor is hashed from its host copy."""
+    if isinstance(images, torch.Tensor):
+        images = images.cpu().numpy()
     per_image = []
     for img in images:
         arr = np.ascontiguousarray(np.asarray(img))
@@ -98,14 +112,12 @@ def merge_scores(chunks: Sequence[dict]) -> dict:
     }
 
 
-WEIGHT_BACKED = ("image_reward", "clip")
+# weight-backed scorer → the module that registers it
+WEIGHT_BACKED = {"image_reward": "image_reward", "clip": "clip_score"}
 
 
 def get_scorer(name: str | None = None) -> Scorer:
     if name in WEIGHT_BACKED and name not in ScorerRegistry:
-        raise NotImplementedError(
-            f"scorer {name!r} needs its network and local weights, which "
-            "ecad_tpu_torch does not port yet (ROADMAP.md queue 1 item 6, "
-            "the scorer towers); use 'fidelity' or 'mock'"
-        )
+        # imported when first asked for, so the registry stays light
+        importlib.import_module(f".{WEIGHT_BACKED[name]}", __name__)
     return ScorerRegistry.get(name)

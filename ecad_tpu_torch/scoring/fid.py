@@ -5,20 +5,30 @@ The reference uses clean-fid with precomputed custom stats for mjhq-30k
 (ecad/benchmark/compute_fid.py:9-50). The protocol is kept: feature
 statistics (mu, sigma) cached as .npz, in the same layout as the JAX
 package's, so a stats file written by either package loads in the other.
-The feature extractor is a registry entry. ``pixel_stats`` is weight-free
-and runs on the device; ``inception`` and ``clip_vision`` need their
-networks and weights, which wait for ROADMAP.md queue 1 item 6.
-Statistics from different extractors are incomparable: the stats file
-records the extractor's name and the loader enforces the match.
+The feature extractor is a registry entry, run on the device:
+``pixel_stats`` is weight-free; ``inception`` (``scoring/inception.py``,
+a pt_inception checkpoint from ``ECAD_INCEPTION_CHECKPOINT``) and
+``clip_vision`` (the CLIP vision tower's pooled output, from
+``ECAD_CLIP_MODEL_DIR``) need their weights. Statistics from different
+extractors are incomparable: the stats file records the extractor's name
+and the loader enforces the match.
+
+The scorer towers' shared preprocessing lives here too: `image_batch`
+(uint8 images, on the host or already on the device, to fp32 NCHW in
+[0, 1]), `resize_images` (``jax.image.resize``'s antialiased bicubic and
+bilinear) and `ieee_fp32` (the towers' fp32 precision on the card).
 """
 
 from __future__ import annotations
 
+import functools
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.nn import functional as F
 
 from .. import resolve_device
 from ..registry import Registry
@@ -27,8 +37,6 @@ from ..registry import Registry
 FeatureExtractor = Callable[[np.ndarray, torch.device], np.ndarray]
 
 FeatureExtractorRegistry: Registry = Registry("fid_feature_extractor")
-
-WEIGHT_BACKED = ("inception", "clip_vision")
 
 PIXEL_STATS_SIDE = 8
 
@@ -55,6 +63,57 @@ def triangle_resize_weights(n_in: int, n_out: int, device=None) -> torch.Tensor:
     return torch.where(inside[None, :], w, torch.zeros_like(w))
 
 
+def image_batch(images, device) -> torch.Tensor:
+    """(N, H, W, 3) images, a numpy array or a tensor (moved to `device` if
+    it lies elsewhere; a uint8 tensor already there is not copied), →
+    float32 (N, 3, H, W) divided by 255, as the reference's
+    ``jnp.asarray(images, jnp.float32) / 255.0``."""
+    x = images if isinstance(images, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(images))
+    return x.to(device).permute(0, 3, 1, 2).float() / 255.0
+
+
+def resize_images(x: torch.Tensor, size: int, method: str) -> torch.Tensor:
+    """(N, C, H, W) float → (N, C, size, size), as ``jax.image.resize(x,
+    (N, size, size, C), method)`` on the NHWC array: ``"bicubic"`` (Keys'
+    cubic, a = −0.5) or ``"bilinear"``, half-pixel centres, and — because
+    JAX antialiases whenever it shrinks — the kernel widened by the
+    factor when downsampling. ``F.interpolate`` computes exactly that with
+    ``antialias=True`` (within 2e-6 on [0, 1] pixels at 256→224 and
+    1024→224 bicubic, 256→299 and 1024→299 bilinear; without it, 0.2–0.77
+    off at every downsample)."""
+    return F.interpolate(x, size=(size, size), mode=method, antialias=True,
+                         align_corners=False)
+
+
+@contextmanager
+def ieee_fp32_context():
+    """cuDNN convolutions and cuBLAS products in IEEE fp32 while the block
+    runs — no TF32, whose 10-bit mantissa PyTorch allows for convolutions
+    by default (``torch.backends.cudnn.allow_tf32``) — the flags restored
+    after."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+def ieee_fp32(forward):
+    """A module's `forward` run under `ieee_fp32_context`: the scorer
+    towers compute in fp32 as the reference's do, on the card as on the
+    CPU."""
+
+    @functools.wraps(forward)
+    def wrapped(*args, **kwargs):
+        with ieee_fp32_context():
+            return forward(*args, **kwargs)
+
+    return wrapped
+
+
 @FeatureExtractorRegistry.register(name="pixel_stats")
 def pixel_stats_extractor(images: np.ndarray, device="cuda") -> np.ndarray:
     """Weight-free fallback: pixels in [0, 1] downsampled to 8×8×3, as the
@@ -70,6 +129,17 @@ def pixel_stats_extractor(images: np.ndarray, device="cuda") -> np.ndarray:
     if w != side:
         x = torch.einsum("nhwc,wq->nhqc", x, triangle_resize_weights(w, side, dev))
     return x.reshape(n, -1).cpu().numpy()
+
+
+@FeatureExtractorRegistry.register(name="clip_vision")
+def clip_vision_extractor(images: np.ndarray, device="cuda") -> np.ndarray:
+    """The CLIP vision tower's pooled, post-LayerNorm output (before the
+    projection) of the model in ``ECAD_CLIP_MODEL_DIR``. The reference
+    rebuilds its scorer for every batch; the port keeps the one resident
+    CLIP scorer, whose features are the same."""
+    from .clip_score import resident_scorer
+
+    return resident_scorer(device).image_features(images).cpu().numpy()
 
 
 def compute_statistics(features: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -93,12 +163,8 @@ def frechet_distance(
 
 
 def get_extractor(name: str) -> FeatureExtractor:
-    if name in WEIGHT_BACKED and name not in FeatureExtractorRegistry:
-        raise NotImplementedError(
-            f"FID extractor {name!r} needs its network and local weights, "
-            "which ecad_tpu_torch does not port yet (ROADMAP.md queue 1 item "
-            "6, the scorer towers); use 'pixel_stats'"
-        )
+    if name == "inception" and name not in FeatureExtractorRegistry:
+        from . import inception  # noqa: F401  (registers it)
     return FeatureExtractorRegistry.get(name)
 
 

@@ -543,15 +543,29 @@ def test_tools_refuse_without_a_gpu(ws, tmp_path, monkeypatch, tool):
     assert _files(tmp_path) == before
 
 
-def test_weight_backed_scorers_and_extractors_name_their_item(ws, tmp_path):
+def test_weight_backed_scorers_and_extractors_name_their_item(ws, tmp_path, monkeypatch):
+    """Without their weights the weight-backed scorers and extractors raise
+    the reference's error naming the variable that holds them, and the
+    tools write nothing (tests/test_torch_scorers.py runs them on tiny
+    trees)."""
+    from ecad_tpu_torch.scoring import clip_score, image_reward, inception
+
+    for module in (clip_score, image_reward, inception):
+        monkeypatch.setattr(module, "_RESIDENT", None)
+    for var in ("ECAD_IMAGE_REWARD_CHECKPOINT", "ECAD_IMAGE_REWARD_TOKENIZER",
+                "ECAD_CLIP_MODEL_DIR", "ECAD_INCEPTION_CHECKPOINT"):
+        monkeypatch.delenv(var, raising=False)
     calls = _cli_calls(ws, tmp_path)
     images = str(tmp_path / "imgs")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(RuntimeError, match="ECAD_CLIP_MODEL_DIR"):
         tscore.main(["--image-dir", images, "--scorer", "clip", *CPU])
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(RuntimeError, match="ECAD_IMAGE_REWARD_CHECKPOINT"):
+        tscore.main(["--image-dir", images, "--scorer", "image_reward", *CPU])
+    with pytest.raises(RuntimeError, match="ECAD_CLIP_MODEL_DIR"):
         tclip.main([*calls["compute_clip"][1][:4], *CPU])  # --scorer clip by default
-    for extractor in ("inception", "clip_vision"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    for extractor, var in (("inception", "ECAD_INCEPTION_CHECKPOINT"),
+                           ("clip_vision", "ECAD_CLIP_MODEL_DIR")):
+        with pytest.raises(RuntimeError, match=var):
             tfid.main(["--image-dir", images, "--stats", str(tmp_path / "x.npz"),
                        "--make-stats", "--extractor", extractor, *CPU])
     assert not list(tmp_path.rglob("*scores.json")) and not (tmp_path / "x.npz").exists()

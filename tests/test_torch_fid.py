@@ -120,8 +120,16 @@ def test_compute_fid_against_own_stats_and_the_jax_tool(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["inception", "clip_vision"])
-def test_weight_backed_extractors_name_their_item(name):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tfid.get_extractor(name)
+def test_weight_backed_extractors_name_their_item(name, monkeypatch):
+    """The weight-backed extractors resolve and, without their weights,
+    raise the reference's error naming the variable that holds them."""
+    from ecad_tpu_torch.scoring import clip_score, inception
+
+    var = {"inception": "ECAD_INCEPTION_CHECKPOINT", "clip_vision": "ECAD_CLIP_MODEL_DIR"}[name]
+    monkeypatch.setattr({"inception": inception, "clip_vision": clip_score}[name],
+                        "_RESIDENT", None)
+    monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match=var):
+        tfid.get_extractor(name)(np.zeros((1, 8, 8, 3), np.uint8), "cpu")
     with pytest.raises(KeyError):
         tfid.get_extractor("no_such_extractor")

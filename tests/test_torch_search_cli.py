@@ -2,7 +2,9 @@
 CPU: a tiny PixArt mini-run of two cycles and its resume (mirroring the JAX
 package's test in tests/test_genetic.py), one tiny FLUX cycle, a cycle
 served from a tiny checkpoint tree under each checkpoint flag, the flags
-that wait for a later ROADMAP.md queue 1 item, and the no-silent-CPU rule."""
+that raise at startup (a weight-backed scorer without its weights, and
+those that wait for a later ROADMAP.md queue 1 item), and the
+no-silent-CPU rule."""
 
 import json
 import subprocess
@@ -76,21 +78,31 @@ def test_train_cli_flux_cycle(tmp_path):
     _check_generations(tmp_path, "fx", (1,), 2, FluxCacheSchedule, 4)
 
 
+# flags that raise at startup, before anything is written, with what they
+# name: a weight-backed scorer without its weights (the reference's
+# missing-weights errors; --image-reward-dir with --scorer image_reward),
+# and the flags whose module waits for a later ROADMAP.md queue 1 item
 WAITING = [
-    (["--scorer", "image_reward"], 6),
-    (["--scorer", "clip"], 6),
-    (["--image-reward-dir", "ir"], 6),
-    (["--dp", "2"], 8),
-    (["--tp", "2"], 8),
-    (["--sp", "2"], 8),
+    (["--scorer", "image_reward"], "--scorer image_reward needs weights"),
+    (["--scorer", "clip"], "ECAD_CLIP_MODEL_DIR"),
+    (["--image-reward-dir", "ir"], "ImageReward.pt not found"),
+    (["--dp", "2"], "queue 1 item 8\\b"),
+    (["--tp", "2"], "queue 1 item 8\\b"),
+    (["--sp", "2"], "queue 1 item 8\\b"),
 ]
 
 
 @pytest.mark.parametrize("flags,item", WAITING, ids=[" ".join(f) for f, _ in WAITING])
-def test_waiting_flags_raise_with_their_item(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=f"queue 1 item {item}\\b"):
+def test_waiting_flags_raise_with_their_item(tmp_path, monkeypatch, flags, item):
+    from ecad_tpu_torch.scoring import clip_score, image_reward
+
+    for var in (image_reward.ENV_CHECKPOINT, image_reward.ENV_TOKENIZER,
+                clip_score.ENV_MODEL_DIR):
+        monkeypatch.delenv(var, raising=False)
+    scorer = ["--scorer", "image_reward"] if flags[0] == "--image-reward-dir" else []
+    with pytest.raises((NotImplementedError, SystemExit), match=item):
         train.main(["--name", "w", "--tiny-model", "--device", "cpu",
-                    "--populations-dir", str(tmp_path / "p"), *flags])
+                    "--populations-dir", str(tmp_path / "p"), *flags, *scorer])
     assert not (tmp_path / "p").exists()
 
 
@@ -112,8 +124,8 @@ def test_checkpoint_flags_run_on_the_tiny_tree(tmp_path, monkeypatch, flag):
     patch_tiny(monkeypatch, reference=False)
     root = write_pixart_tree(tmp_path / "w")
     decoded = []
-    decode = VAEDecoderPipeline.decode
-    monkeypatch.setattr(VAEDecoderPipeline, "decode",
+    decode = VAEDecoderPipeline.decode_device
+    monkeypatch.setattr(VAEDecoderPipeline, "decode_device",
                         lambda self, z: decoded.append(len(z)) or decode(self, z))
     extra = ["--weights-root", str(root)]
     if flag == "--transformer-weights":
@@ -152,8 +164,8 @@ def test_checkpoint_flux_cycle_with_prompt_file(tmp_path, monkeypatch):
     patch_tiny(monkeypatch, reference=False)
     root = write_flux_tree(tmp_path / "w", public=True)
     decoded = []
-    decode = VAEDecoderPipeline.decode
-    monkeypatch.setattr(VAEDecoderPipeline, "decode",
+    decode = VAEDecoderPipeline.decode_device
+    monkeypatch.setattr(VAEDecoderPipeline, "decode_device",
                         lambda self, z: decoded.append(z.shape) or decode(self, z))
     (tmp_path / "prompts.txt").write_text("a red cat\nphoto of a dog on the mat\n")
     train.main(["--name", "fk", "--model-family", "flux", "--population-size", "4",

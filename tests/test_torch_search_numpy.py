@@ -271,6 +271,21 @@ def test_mock_scorer_and_merge_equal():
 
 
 @pytest.mark.parametrize("name", ["image_reward", "clip"])
-def test_weight_backed_scorers_name_their_queue_item(name):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tscoring.get_scorer(name)
+def test_weight_backed_scorers_name_their_queue_item(name, monkeypatch):
+    """The weight-backed scorers resolve (their modules registered on
+    demand) and, without their weights, raise the reference's error naming
+    the variable that holds them."""
+    import importlib
+
+    import torch
+
+    module = importlib.import_module(f"ecad_tpu_torch.scoring.{tscoring.WEIGHT_BACKED[name]}")
+    monkeypatch.setattr(module, "_RESIDENT", None)
+    envs = ("ECAD_IMAGE_REWARD_CHECKPOINT", "ECAD_IMAGE_REWARD_TOKENIZER",
+            "ECAD_CLIP_MODEL_DIR")
+    for var in envs:
+        monkeypatch.delenv(var, raising=False)
+    scorer = tscoring.get_scorer(name)
+    assert scorer is tscoring.ScorerRegistry.get(name)
+    with pytest.raises(RuntimeError, match=envs[0] if name == "image_reward" else envs[2]):
+        scorer(torch.zeros((1, 8, 8, 3), dtype=torch.uint8), ["p"])
