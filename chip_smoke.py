@@ -92,6 +92,40 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ``scaled_dot_product_attention`` call per shape as the yardstick (X1,
    whose output is unnormalised, has none: its row carries the two cuBLAS
    products bf16(q·kᵀ) then ·v, ``two_call_ms``, instead).
+4a. The kernel scripts (``kernel_scripts``): the port's
+   ``scripts/bench_attention_kernels.py`` (SDPA, K6, K5, K4 at D=72 and
+   `fused_attention`'s routing at FLUX-1024's and PixArt-1024's shapes,
+   one turn) and ``scripts/exp_attn_pixart256.py`` (SDPA, the single-tile
+   route K1/K2 and the row-block route at the reference's "PixArt-256"
+   and FLUX-256 shapes) once each with 3 reps a row: every row timed and
+   within 2e-2 of its fp32 / plain softmax, the kernels' launches seen.
+   Their rows go on the parallel line.
+4b. Multi-process parallelism (``parallel``): a one-rank NCCL group
+   (spawned, NCCL's initialization and call sites on the card) runs the
+   one-rank references alone on the card — full-width PixArt-α 256²
+   (seeded bf16 weights, batch 8 with text masks, ``ours_fast``) and
+   FLUX.1-dev 256² at full width cut to 2 dual + 2 single blocks (batch 4,
+   ``flux_256/ours_fast``'s masks of those blocks) — then the tp code
+   path at tp=1 with every block's row-parallel site marked, so each
+   all-reduce runs through NCCL, ``generate_images`` over three schedules
+   and one ``genetic.train`` cycle (fidelity, 4 candidates × 2 prompts) in
+   one process. Then two ranks share the card over gloo (spawned with a
+   ``file://`` rendezvous; every spawn and every collective has a
+   deadline, so a hung rank fails the run): PixArt under dp=2, sp=2, tp=2
+   and pp=2 (n_micro 2), the cut FLUX under sp=2 and tp=2, each after a
+   warm-up run, its final latents within its mode's `PARALLEL_TOL` of the
+   one-rank trajectory (relative L2) and each rank's launches of K1, K2 (PixArt),
+   K1-D128 (FLUX) and K3 equal to those of its local shapes (pp: its
+   stage's blocks, once a microbatch); then ``generate_images`` through
+   ``host_shard`` (each rank every second schedule, the PNG union equal
+   to the one-process set, no file twice) and one cooperative
+   ``genetic.train --dp 2`` cycle (rank 1 opens no file for writing and
+   rank 0 writes the one-process run's files; each rank's denoise calls
+   take half of one process's batch, one dp all-gather a call; the scores
+   within `SEARCH_AMP_TOL` of one process's). Records per mode each rank's peak
+   memory beside one rank's, ms per trajectory (two ranks sharing one
+   card over gloo: not a scaling result) and the collectives' payload
+   bytes per trajectory, on a line of their own.
 5. Main path at 256² (``main256``): full-width PixArt-α 256 (28 blocks,
    d=1152) with seeded random bf16 weights, batch 8 with CFG 4.5, 20
    DPM-Solver++ steps, the ECAD ``ours_fast`` schedule and the
@@ -210,8 +244,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    calibrated by the generator), each mode's K4, K3 and int8-product
    launches checked against the masks, its one-forward and final-latents
    error against bf16, ms/img from one synchronized pass with bf16, peak
-   memory, and one profiled ``ours_fast`` run each split into the int8
-   product, the quantize and dequant passes, the other GEMMs and the rest.
+   memory, and one profiled ``ours_fast`` run of ``int8`` and of
+   ``int8_w`` split into the int8 product, the quantize and dequant passes,
+   the other GEMMs and the rest.
    FLUX.1-dev 1024² in ``int8_w`` and ``int8_w_static`` runs inside the
    flux phase, on its weights (below).
 12. Main path at 2048² (``main2048``): full-width PixArt-Σ at 2048²
@@ -260,9 +295,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the latent visualisation, as the reference writes them (256×256 for a
    2048² generation).
 
-Prints a summary line, the ``benchmark``, ``checkpoints`` and
-``scorers`` phases' lines, a ``{"kernels": [...]}`` line (X1's rows with ``two_call_ms``
-beside the contract's keys), then as its last line
+Prints a summary line, the ``benchmark``, ``checkpoints``, ``scorers``
+and ``parallel`` phases' lines (the last with the kernel scripts' rows), a
+``{"kernels": [...]}`` line (X1's rows with ``two_call_ms`` beside the
+contract's keys), then as its last line
 ``{"ok": true, "device": {...}}``. A longer report (every check's error,
 device and host times, per-trajectory profiles, each phase's seconds, the
 nvcc/ptxas log) goes to ``--report`` (default
@@ -3812,9 +3848,9 @@ def quant_path() -> dict:
     launches (K4, K3 and the int8 products) checked against the masks, its
     one-forward and final-latents error against bf16, ms/img from one
     synchronized pass with bf16 (the checked runs), peak memory, and one
-    profiled ``ours_fast`` run of each quant mode split into the int8
-    product, the quantize and dequant passes, the bf16 GEMMs and the
-    rest. The int8 product itself is first checked exact at every served
+    profiled ``ours_fast`` run of ``int8`` and of ``int8_w`` split into
+    the int8 product, the quantize and dequant passes, the bf16 GEMMs and
+    the rest. The int8 product itself is first checked exact at every served
     shape and timed against one bf16 ``F.linear``."""
     from ecad_tpu_torch.image_generators.pixart import PixArtAlphaImageGenerator
     from ecad_tpu_torch.models.common import rebuild
@@ -3887,7 +3923,10 @@ def quant_path() -> dict:
         f"{result['forward_rel_err_masked_calibration']:.4g}")
 
     modes = ("bf16", *QUANT_MODES)
-    for name, path, turns, profiled in (("ours_fast", OURS_FAST, 1, QUANT_MODES),
+    # profiled: the two products (per-token int8 of bf16 weights, int8
+    # weight storage); the static modes differ from them only in their
+    # activation scales (their splits are in PERF_HISTORY.md)
+    for name, path, turns, profiled in (("ours_fast", OURS_FAST, 1, ("int8", "int8_w")),
                                         ("default", DEFAULT_1024, 1, ())):
         sched = PixArtCacheSchedule.from_json(path)
         pipes = {m: PixArtPipeline(PixArtPipelineConfig(model=models[m].config,
@@ -4349,6 +4388,522 @@ def entry_points() -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# the kernel scripts and multi-process parallelism
+# ---------------------------------------------------------------------------
+
+
+def kernel_scripts_phase() -> dict:
+    """The port's two kernel scripts once on the card with reduced samples
+    (`bench_attention_kernels`: 1 turn of 3 reps; `exp_attn_pixart256`: 3
+    reps): every row timed, finite and within its error bound (bf16
+    outputs: 2e-2 against the fp32 / plain softmax, a few bf16 ulps of
+    outputs below 1), with the launches of the port's kernels counted."""
+    from ecad_tpu_torch.scripts import bench_attention_kernels, exp_attn_pixart256
+
+    log("kernel scripts: bench_attention_kernels, exp_attn_pixart256")
+    rows = []
+    counts = counted(lambda: rows.extend(
+        bench_attention_kernels.main(["--turns", "1", "--reps", "3"])
+        + exp_attn_pixart256.main(["--reps", "3"])))
+    for r in rows:
+        err = r["detail"].get("max_abs_err_vs_fp32", r["detail"].get("max_abs_err_vs_plain"))
+        if not (r["value"] and np.isfinite(r["value"]) and err < 2e-2):
+            raise AssertionError(f"{r['metric']}: {r['value']} ms, error {err}")
+    for name in ("attention", "attention_bias", "attention_long", "attention_rowblock",
+                 "attention_flash"):
+        if not counts[name]:
+            raise AssertionError(f"the kernel scripts launched no {name}: {counts}")
+    return {"rows": [{"metric": r["metric"], "ms": r["value"],
+                      "max_abs_err": r["detail"].get("max_abs_err_vs_fp32",
+                                                     r["detail"].get("max_abs_err_vs_plain"))}
+                     for r in rows], "launches": counts}
+
+
+# two ranks sharing the card: the final latents of each mode against the
+# one-rank trajectory of the same weights and inputs, as the relative L2
+# error ||a − b|| / ||b||. Not bit-equality: dp, sp and n_micro change the
+# GEMMs' M and row-parallel products sum in another order, in bf16, over 20
+# steps. Stated before the first run: 0.05 for every mode, against a
+# prediction of ≤ 1e-2. On the H100 two whole runs then read 0 for PixArt
+# dp, sp and pp and the one-rank NCCL path, 1.229e-2 for PixArt tp,
+# 6.0e-3 for FLUX sp and 6.0–6.4e-3 for FLUX tp; each mode's bound is now
+# a few times its reading, so that a stale microbatch cache or a token at
+# the wrong RoPE position fails
+PARALLEL_TOL = {"pixart_dp": 1e-3, "pixart_sp": 1e-3, "pixart_pp": 1e-3, "nccl_tp1": 1e-3,
+                "pixart_tp": 3e-2, "flux_sp": 2e-2, "flux_tp": 2e-2}
+# the cooperative search's fidelity scores against one process's, as the
+# largest difference of the amplitudes 10^(−dB/20): read 7.3e-4
+SEARCH_AMP_TOL = 5e-3
+PARALLEL_SPAWN_S = 300  # the deadline of one spawn of the phase
+PAR_FLUX_BATCH = 4
+PAR_POP, PAR_PROMPTS = 4, 2  # the cooperative search cycle
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+def parallel_inputs(out: Path) -> None:
+    """The phase's inputs, made once and saved for the ranks: PixArt-α
+    256²'s (`path_inputs`, batch 8, text masks) and `ours_fast`'s mask
+    array; FLUX.1-dev 256²'s at batch 4 (seeded text, pooled and noise) and
+    `flux_256/ours_fast`'s masks of the cut blocks."""
+    from ecad_tpu_torch.models.pixart import PixArtConfig, schedule_mask_array
+    from ecad_tpu_torch.schedules import FluxCacheSchedule, PixArtCacheSchedule
+
+    c = PixArtConfig()
+    pix = {k: v.cpu() for k, v in path_inputs(c, BATCH).items()}
+    masks = schedule_mask_array(PixArtCacheSchedule.from_json(OURS_FAST), c)
+    full = FluxCacheSchedule.from_json(FLUX_OURS_FAST_256)
+    slots = np.array(full.mask, bool).reshape(full.num_inference_steps, -1, 3)
+    n_dual, n_single = FLUX_CUT
+    fmasks = np.concatenate([slots[:, :n_dual], slots[:, 19:19 + n_single]], axis=1)
+    fmasks[0] = True
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    flux = {"noise": torch.randn((PAR_FLUX_BATCH, 256, 64), generator=gen, device="cuda"),
+            "txt": torch.randn((PAR_FLUX_BATCH, 512, 4096), generator=gen, device="cuda"),
+            "pooled": torch.randn((PAR_FLUX_BATCH, 768), generator=gen, device="cuda")}
+    flux = {k: v.to(torch.bfloat16).cpu() for k, v in flux.items()}
+    torch.save({"pixart": pix, "masks": torch.from_numpy(masks), "flux": flux,
+                "fmasks": torch.from_numpy(fmasks)}, out / "inputs.pt")
+
+
+def _load_inputs(out: Path) -> dict:
+    """`parallel_inputs`' file, the mask arrays back in numpy."""
+    data = torch.load(out / "inputs.pt")
+    data["masks"], data["fmasks"] = data["masks"].numpy(), data["fmasks"].numpy()
+    return data
+
+
+def _pixart_pipe(model):
+    from ecad_tpu_torch.pipelines import PixArtPipeline, PixArtPipelineConfig
+
+    return PixArtPipeline(PixArtPipelineConfig(model.config, STEPS), model)
+
+
+def _flux_pipe(model):
+    from ecad_tpu_torch.pipelines.flux_pipeline import FluxPipeline, FluxPipelineConfig
+
+    return FluxPipeline(FluxPipelineConfig(model.config, STEPS, height=256, width=256), model)
+
+
+def _flux_config():
+    from ecad_tpu_torch.models.flux import FluxConfig
+
+    return FluxConfig(num_blocks=FLUX_CUT[0], num_single_blocks=FLUX_CUT[1])
+
+
+def _timed_run(fn, mesh=None) -> dict:
+    """A warm-up run of `fn`, then one with the launch counters, the peak
+    memory and the collectives' tallies set to 0 just before: its result,
+    ms (wall, synchronized), launches, peak GiB and the collectives' calls
+    and payload bytes."""
+    from ecad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    fn()
+    if mesh is not None:
+        mesh.calls.clear()
+        mesh.traffic.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"out": out.cpu(), "ms": ms, "launches": {k: v for k, v in launch_counts().items() if v},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "calls": dict(mesh.calls) if mesh else {},
+            "bytes": dict(mesh.traffic) if mesh else {}}
+
+
+def _pixart_run(pipe, data, mesh=None):
+    from ecad_tpu_torch.pipelines.pixart_pipeline import PopulationDenoiser
+
+    p = {k: v.cuda() for k, v in data["pixart"].items()}
+    if mesh is not None and mesh.size("dp") > 1:
+        p = {k: mesh.shard(v, "dp", 0) for k, v in p.items()}
+    den = PopulationDenoiser(pipe)
+
+    def run():
+        x = den.denoise(data["masks"], p["noise"], p["text"], p["neg"], p["text_mask"],
+                        p["neg_mask"])
+        return x if mesh is None or mesh.size("dp") == 1 else mesh.all_gather(x, "dp", 0)
+
+    return _timed_run(run, mesh)
+
+
+def _flux_run(pipe, data, mesh=None):
+    from ecad_tpu_torch.pipelines.flux_pipeline import FluxPopulationDenoiser
+
+    f = {k: v.cuda() for k, v in data["flux"].items()}
+    den = FluxPopulationDenoiser(pipe)
+    return _timed_run(lambda: den.denoise(data["fmasks"], f["noise"], f["txt"], f["pooled"]),
+                      mesh)
+
+
+def _search_argv(root: Path, dp: bool) -> list[str]:
+    return ["--name", "coop", "--populations-dir", str(root / "pops"), "--benchmarks-dir",
+            str(root / "bench"), "--population-size", str(PAR_POP), "--num-prompts",
+            str(PAR_PROMPTS), "--num-inference-steps", str(STEPS), "--scorer", "fidelity",
+            "--random-seed-gen-0", "--num-cycles", "1", "--device", "cuda",
+            *(["--dp", "2", "--dist-backend", "gloo"] if dp else [])]
+
+
+def _watched_search(root: Path, dp: bool) -> dict:
+    """One `genetic.train` cycle into `root` (`_search_argv`), recording
+    the files under `root` this process opens for writing, the batch of
+    each `PixArtPipeline.denoise` call and the evaluator's collectives."""
+    import builtins
+    import io
+
+    from ecad_tpu_torch.genetic import train
+    from ecad_tpu_torch.pipelines import PixArtPipeline
+
+    seen = {"writes": [], "batches": []}
+    opener, denoise, build = io.open, PixArtPipeline.denoise, train.build_evaluator
+    evaluators = []
+
+    def watched_open(file, mode="r", *a, **kw):
+        if isinstance(file, (str, Path)) and any(m in mode for m in "wax+"):
+            path = Path(file).resolve()
+            if path.is_relative_to(root.resolve()):
+                seen["writes"].append(str(path.relative_to(root.resolve())))
+        return opener(file, mode, *a, **kw)
+
+    def watched_denoise(self, noise, *a, **kw):
+        seen["batches"].append(int(noise.shape[0]))
+        return denoise(self, noise, *a, **kw)
+
+    def kept_evaluator(*a, **kw):
+        evaluators.append(build(*a, **kw))
+        return evaluators[-1]
+
+    io.open = builtins.open = watched_open
+    PixArtPipeline.denoise = watched_denoise
+    train.build_evaluator = kept_evaluator
+    train.main(_search_argv(root, dp))
+    io.open = builtins.open = opener
+    PixArtPipeline.denoise = denoise
+    train.build_evaluator = build
+    mesh = evaluators[0].mesh
+    seen["calls"] = dict(mesh.calls) if mesh is not None else {}
+    return seen
+
+
+def _tier_argv(out: Path, images: Path) -> list[str]:
+    return ["PixArtAlphaImageGenerator", "--input-embeddings", str(out / "emb"), "--output-dir",
+            str(images), "--schedule-dir", str(out / "schedules"), "--batch-size", str(BATCH),
+            "--random-weights"]
+
+
+def parallel_one_rank(rank: int, world: int, out: str) -> None:
+    """The one-rank side, in a process of its own on a one-rank NCCL group:
+    the plain trajectories (PixArt-α 256², the cut FLUX.1-dev 256²) with
+    their ms and peak memory alone on the card; then the tp code path at
+    tp=1 with every row-parallel site marked, so that each of its
+    all-reduces runs through NCCL on the card; `generate_images` and one
+    search cycle in one process."""
+    from ecad_tpu_torch.benchmark import generate_images
+    from ecad_tpu_torch.genetic import train
+    from ecad_tpu_torch.models import flux, pixart
+    from ecad_tpu_torch.parallel import create_mesh
+
+    out = Path(out)
+    data = _load_inputs(out)
+    res = {"backend": torch.distributed.get_backend()}
+    model = pixart.init_model(pixart.PixArtConfig(), 0, "cuda")
+    res["pixart"] = _pixart_run(_pixart_pipe(model), data)
+    mesh = create_mesh(tp=1)
+    # the tp code path at tp=1: each block's row-parallel site marked as a
+    # whole-width slice, so `row_parallel` all-reduces it over the group
+    for name, m in model.named_modules():
+        if name.startswith("blocks.") and name.endswith(("to_out", "proj_out")):
+            m.tp_split = (1, (m.in_features,))
+        if hasattr(m, "mesh"):
+            m.mesh = mesh
+    res["pixart_nccl"] = _pixart_run(_pixart_pipe(model), data, mesh)
+    del model, mesh
+    torch.cuda.empty_cache()
+    fmodel = flux.init_model(_flux_config(), 0, "cuda")
+    res["flux"] = _flux_run(_flux_pipe(fmodel), data)
+    del fmodel
+    torch.cuda.empty_cache()
+    generate_images.main(_tier_argv(out, out / "images_one"))
+    res["search"] = _watched_search(out / "search_one", dp=False)
+    torch.save(res, out / "one_rank.pt")
+
+
+def parallel_two_ranks(rank: int, world: int, out: str) -> None:
+    """One of two ranks sharing the card over gloo: PixArt-α 256² under
+    dp=2, sp=2, tp=2 and pp=2 (n_micro 2), the cut FLUX.1-dev 256² under
+    sp=2 and tp=2, then `generate_images` through `host_shard` and one
+    cooperative `genetic.train --dp 2` cycle. Each mode's result (rank 0's
+    latents; every rank's launches, ms, peak and collective bytes) is saved
+    for the parent to check."""
+    from ecad_tpu_torch.benchmark import generate_images
+    from ecad_tpu_torch.genetic import train
+    from ecad_tpu_torch.models import flux, pixart
+    from ecad_tpu_torch.models.common import shard_module
+    from ecad_tpu_torch.parallel import (
+        PipelinedPopulationDenoiser,
+        barrier,
+        create_mesh,
+        create_pp_mesh,
+    )
+
+    out = Path(out)
+    data = _load_inputs(out)
+    res = {}
+    c = pixart.PixArtConfig()
+    full = pixart.init_model(c, 0, "cuda")
+    for mode, layout in (("dp", (2, 1, 1)), ("sp", (1, 2, 1))):
+        mesh = create_mesh(dp=layout[0], sp=layout[1], tp=layout[2])
+        res[f"pixart_{mode}"] = _pixart_run(_pixart_pipe(shard_module(full, mesh)), data, mesh)
+    mesh = create_mesh(tp=2)
+    local = shard_module(full, mesh)
+    del full
+    torch.cuda.empty_cache()
+    res["pixart_tp"] = _pixart_run(_pixart_pipe(local), data, mesh)
+    del local
+    torch.cuda.empty_cache()
+    mesh = create_pp_mesh(2)
+    pipe = _pixart_pipe(pixart.init_model(c, 0, "cuda"))
+    den = PipelinedPopulationDenoiser(pipe, mesh, 2)  # cuts the model to its stage
+    torch.cuda.empty_cache()
+    p = {k: v.cuda() for k, v in data["pixart"].items()}
+    res["pixart_pp"] = _timed_run(lambda: den.denoise(
+        data["masks"], p["noise"], p["text"], p["neg"], p["text_mask"], p["neg_mask"]), mesh)
+    res["pixart_pp"]["stage"] = [pipe.model.stage.start, pipe.model.stage.stop]
+    del pipe, den
+    torch.cuda.empty_cache()
+    ffull = flux.init_model(_flux_config(), 0, "cuda")
+    mesh = create_mesh(sp=2)
+    res["flux_sp"] = _flux_run(_flux_pipe(shard_module(ffull, mesh)), data, mesh)
+    mesh = create_mesh(tp=2)
+    local = shard_module(ffull, mesh)
+    del ffull
+    torch.cuda.empty_cache()
+    res["flux_tp"] = _flux_run(_flux_pipe(local), data, mesh)
+    del local
+    torch.cuda.empty_cache()
+    render = generate_images.generate_for_schedule
+    rendered = []
+
+    def counted_render(gen_type, schedule_path, *a, **kw):
+        rendered.append(schedule_path.stem)
+        return render(gen_type, schedule_path, *a, **kw)
+
+    generate_images.generate_for_schedule = counted_render
+    generate_images.main(_tier_argv(out, out / "images_two"))
+    generate_images.generate_for_schedule = render
+    res["rendered"] = rendered
+    barrier("rendered")
+    res["search"] = _watched_search(out / "search_two", dp=True)
+    torch.save(res, out / f"rank{rank}.pt")
+
+
+def parallel_expected(masks, local_q: tuple, tk_self: int, stage=None,
+                      n_micro: int = 1) -> dict[str, int]:
+    """A PixArt rank's launches from its local shapes: self-attention (its
+    local queries against `tk_self` keys) and the text cross-attention (120
+    keys, key-padding bias) under their routes' counters, K3 for each
+    recomputed attn1 and ff and one final norm a step; under pp only the
+    stage's blocks, each microbatch a launch of its own."""
+    arr = np.asarray(masks, bool)
+    if stage is not None:
+        arr = arr[:, stage[0]:stage[1]]
+    self_k = attention_counter(local_q, tk_self)
+    cross_k = attention_counter(local_q, 120, torch.zeros(local_q[0], 1, 1, 120))
+    want = Counter()
+    want[self_k] += n_micro * int(arr[..., 0].sum())
+    want[cross_k] += n_micro * int(arr[..., 1].sum())
+    want["modlnorm"] += n_micro * int(arr[..., 0].sum() + arr[..., 2].sum()) + arr.shape[0]
+    return {k: v for k, v in want.items() if v}
+
+
+def parallel_phase(smi: str) -> dict:
+    """Multi-process parallelism on the one card: a one-rank NCCL group
+    (the one-rank references, the tp code path through NCCL), then two
+    gloo ranks sharing the card (`parallel_two_ranks`), each spawn with a
+    deadline and a file rendezvous. Checks each mode's final latents
+    against the one-rank trajectory within `PARALLEL_TOL`, each rank's
+    launches against its local shapes, the PNG union of `generate_images`
+    over two ranks against the one-process set (no file twice), the
+    cooperative search's files against one process's (only rank 0 writes).
+    Records per mode each rank's peak memory beside one rank's, ms per
+    trajectory (two ranks sharing one card over gloo: not a scaling
+    result) and the collectives' payload bytes per trajectory."""
+    import tempfile
+
+    from ecad_tpu_torch.benchmark import generate_embeddings
+    from ecad_tpu_torch.parallel import spawn
+    from PIL import Image
+
+    log("parallel phase: one-rank NCCL group, then two gloo ranks on the one card")
+    scratch = ROOT / "build" / "ecad_tpu_torch"
+    scratch.mkdir(parents=True, exist_ok=True)
+    result = {"card": smi, "tolerance": PARALLEL_TOL, "search_tolerance": SEARCH_AMP_TOL}
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        out = Path(tmp)
+        parallel_inputs(out)
+        items = json.loads((ROOT / "prompts/ImageRewardPrompts.json").read_text())
+        (out / "prompts.json").write_text(json.dumps(items[:4]))
+        generate_embeddings.main(["PixArtAlphaImageGenerator", "--prompt-file",
+                                  str(out / "prompts.json"), "--output-dir", str(out / "emb"),
+                                  "--random-weights"])
+        (out / "schedules").mkdir()
+        for name in ("ours_fast", "ours_faster", "default"):
+            shutil.copy(TIER_SCHEDULES[name], out / "schedules" / f"{name}.json")
+        t0 = time.perf_counter()
+        spawn(parallel_one_rank, 1, (str(out),), backend="nccl", device="cuda",
+              timeout_s=PARALLEL_SPAWN_S, init_dir=out)
+        result["one_rank_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        spawn(parallel_two_ranks, 2, (str(out),), backend="gloo", device="cuda",
+              timeout_s=PARALLEL_SPAWN_S, init_dir=out)
+        result["two_ranks_s"] = time.perf_counter() - t0
+        one = torch.load(out / "one_rank.pt")
+        ranks = [torch.load(out / f"rank{r}.pt") for r in range(2)]
+        data = _load_inputs(out)
+        masks, fmasks = data["masks"], data["fmasks"]
+        if one["backend"] != "nccl":
+            raise AssertionError(f"the one-rank group ran on {one['backend']}")
+
+        # the tp code path through NCCL: one all-reduce a recomputed
+        # row-parallel product (attn1, attn2, ff of each block)
+        nccl = one["pixart_nccl"]
+        n_rows = int(masks[..., 0].sum() + masks[..., 1].sum() + masks[..., 2].sum())
+        if nccl["calls"].get("all_reduce_sum/tp") != n_rows:
+            raise AssertionError(f"NCCL all-reduces {nccl['calls']} != {n_rows}")
+        err = _rel_err(nccl["out"], one["pixart"]["out"])
+        if not np.isfinite(err) or err > PARALLEL_TOL["nccl_tp1"]:
+            raise AssertionError(f"the NCCL tp path: latents off by {err}")
+        result["nccl_tp1"] = {"rel_err": err, "ms": nccl["ms"], "all_reduces": n_rows,
+                              "launches": nccl["launches"]}
+        log(f"  one-rank NCCL group, tp code path: {n_rows} all-reduces, rel err {err:.3e}")
+
+        b2, t, h, d = 2 * BATCH, 256, 16, 72
+        expected = {
+            "pixart_dp": lambda r: parallel_expected(masks, (b2 // 2, t, h, d), t),
+            "pixart_sp": lambda r: parallel_expected(masks, (b2, t // 2, h, d), t),
+            "pixart_tp": lambda r: parallel_expected(masks, (b2, t, h // 2, d), t),
+            "pixart_pp": lambda r: parallel_expected(masks, (b2 // 2, t, h, d), t,
+                                                     r["stage"], 2),
+        }
+        fc = _flux_config()
+        fb, ft = PAR_FLUX_BATCH, 512 + 256
+        fwant = flux_expected_counts(fmasks, fc.num_blocks, "attention")
+        fwant = {k: v for k, v in fwant.items() if v}
+        for mode, (q_shape, tk) in {"flux_sp": ((fb, ft // 2, 24, 128), ft),
+                                    "flux_tp": ((fb, ft, 12, 128), ft)}.items():
+            if attention_counter(q_shape, tk) != "attention":
+                raise AssertionError(f"{mode}: local shapes {q_shape} × {tk} leave K1")
+            expected[mode] = lambda r, w=fwant: w
+        for mode in ("pixart_dp", "pixart_sp", "pixart_tp", "pixart_pp", "flux_sp", "flux_tp"):
+            base = one["pixart" if mode.startswith("pixart") else "flux"]
+            err = _rel_err(ranks[0][mode]["out"], base["out"])
+            log(f"  {mode}: rel err {err:.3e} (tolerance {PARALLEL_TOL[mode]}), ms "
+                f"{[r[mode]['ms'] for r in ranks]} vs one rank {base['ms']:.1f}, peak GiB "
+                f"{[round(r[mode]['peak_gib'], 3) for r in ranks]} vs {base['peak_gib']:.3f}")
+            if not np.isfinite(err) or err > PARALLEL_TOL[mode]:
+                raise AssertionError(f"{mode}: final latents off by {err} > "
+                                     f"{PARALLEL_TOL[mode]}")
+            for r, rank in enumerate(ranks):
+                want = expected[mode](rank[mode])
+                if rank[mode]["launches"] != want:
+                    raise AssertionError(f"{mode} rank {r}: launches {rank[mode]['launches']} "
+                                         f"!= local shapes' {want}")
+            result[mode] = {
+                "rel_err": err,
+                "ms_per_trajectory": [rank[mode]["ms"] for rank in ranks],
+                "one_rank_ms": base["ms"],
+                "peak_gib": [rank[mode]["peak_gib"] for rank in ranks],
+                "one_rank_peak_gib": base["peak_gib"],
+                "launches": [rank[mode]["launches"] for rank in ranks],
+                "collective_calls": ranks[0][mode]["calls"],
+                "collective_bytes": ranks[0][mode]["bytes"],
+            }
+
+        # generate_images over two ranks: strided schedules, no file twice,
+        # the one-process set
+        stems = sorted(p.stem for p in (out / "schedules").glob("*.json"))
+        for r, rank in enumerate(ranks):
+            if rank["rendered"] != stems[r::2]:
+                raise AssertionError(f"rank {r} rendered {rank['rendered']}")
+        one_set = sorted(p.relative_to(out / "images_one")
+                         for p in (out / "images_one").rglob("*.png"))
+        two_set = sorted(p.relative_to(out / "images_two")
+                         for p in (out / "images_two").rglob("*.png"))
+        if one_set != two_set or len(one_set) != 4 * len(stems):
+            raise AssertionError(f"PNGs: {len(two_set)} over two ranks, {len(one_set)} in one")
+        for rel in one_set:
+            a, b = (np.asarray(Image.open(out / d / rel)) for d in ("images_one", "images_two"))
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{rel}: two ranks rendered other pixels")
+        result["generate_images"] = {"pngs": len(two_set), "by_rank": [r["rendered"] for r in ranks]}
+
+        # the cooperative search cycle: rank 0 wrote every score, equal to one
+        # process's within the fidelity amplitude tolerance
+        def scores(root):
+            d = root / "bench" / "coop" / "gen_001" / "candidates"
+            return {p.parent.name: json.loads(p.read_text())
+                    for p in sorted(d.glob("*/scores.json"))}
+
+        got, want = scores(out / "search_two"), scores(out / "search_one")
+        if got.keys() != want.keys() or len(got) != PAR_POP:
+            raise AssertionError(f"cooperative search scores {sorted(got)} vs {sorted(want)}")
+        amp = max(abs(10 ** (-a / 20) - 10 ** (-b / 20))
+                  for cand in got for a, b in zip(
+                      np.ravel(list(got[cand]["score_by_prompt_id"].values())),
+                      np.ravel(list(want[cand]["score_by_prompt_id"].values()))))
+        if not np.isfinite(amp) or amp > SEARCH_AMP_TOL:
+            raise AssertionError(f"cooperative search: score amplitudes differ by {amp}")
+        # who wrote: rank 1 nothing, rank 0 the one process's files; the
+        # batch split over dp, one all-gather a denoise call
+        one_s, two_s = one["search"], [rank["search"] for rank in ranks]
+        if two_s[1]["writes"]:
+            raise AssertionError(f"rank 1 of the --dp 2 search wrote {two_s[1]['writes']}")
+        if sorted(set(two_s[0]["writes"])) != sorted(set(one_s["writes"])):
+            raise AssertionError(f"rank 0 wrote {sorted(set(two_s[0]['writes']))}, one "
+                                 f"process {sorted(set(one_s['writes']))}")
+        want_batches = [b // 2 for b in one_s["batches"]]
+        for r, rs in enumerate(two_s):
+            if not want_batches or any(b % 2 for b in one_s["batches"]):
+                raise AssertionError(f"one process's denoise batches {one_s['batches']}")
+            if rs["batches"] != want_batches:
+                raise AssertionError(f"rank {r} denoised batches {rs['batches']}, "
+                                     f"want halves of {one_s['batches']}")
+            if rs["calls"] != {"all_gather/dp": len(want_batches)}:
+                raise AssertionError(f"rank {r}'s search collectives {rs['calls']}")
+        result["search_dp2"] = {"candidates": len(got), "max_amplitude_diff": amp,
+                                "rank0_files": len(set(two_s[0]["writes"])),
+                                "rank1_files": 0, "denoise_calls": len(want_batches),
+                                "batch_a_rank": sorted(set(want_batches))}
+    return result
+
+
+def parallel_line(r: dict, scripts: dict, seconds: dict) -> dict:
+    """The parallel phase's numbers, one JSON object: per mode each rank's
+    peak GiB beside one rank's, ms per trajectory beside one rank's
+    (labelled: two ranks sharing one card over gloo), the collectives'
+    payload bytes per trajectory and the relative error against one rank;
+    the kernel scripts' rows."""
+    modes = {m: {k: r[m][k] for k in ("rel_err", "ms_per_trajectory", "one_rank_ms", "peak_gib",
+                                      "one_rank_peak_gib", "collective_bytes")}
+             for m in ("pixart_dp", "pixart_sp", "pixart_tp", "pixart_pp", "flux_sp", "flux_tp")}
+    return {"parallel": {"card": r["card"], "ms_label": "two ranks sharing one card over gloo "
+                         "(not a scaling result)", "tolerance": r["tolerance"], "modes": modes,
+                         "search_tolerance": r["search_tolerance"],
+                         "nccl_tp1": r["nccl_tp1"], "generate_images": r["generate_images"],
+                         "search_dp2": r["search_dp2"],
+                         "seconds": {"kernel_scripts": seconds["kernel_scripts"],
+                                     "parallel": seconds["parallel"]}},
+            "kernel_scripts": scripts["rows"]}
+
+
 def main() -> None:
     import argparse
 
@@ -4372,6 +4927,10 @@ def main() -> None:
     phase("build", build_kernels)
     kernels = phase("kernels", kernel_phase, b2=2 * BATCH, b2_1024=2 * BATCH_1024)
     variants = phase("variants", variants_phase)
+    scripts = phase("kernel_scripts", kernel_scripts_phase)
+    REPORT["kernel_scripts"] = scripts
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    REPORT["parallel"] = phase("parallel", parallel_phase, smi)
     REPORT["main_path"] = phase("main256", main_path)
     REPORT["checkpoints"] = phase("checkpoints", checkpoints_phase, REPORT["main_path"])
     REPORT["benchmark"] = phase("benchmark", benchmark_phase, smi)
@@ -4454,6 +5013,7 @@ def main() -> None:
     print(json.dumps(checkpoints_line(smi, REPORT["checkpoints"], seconds["checkpoints"])),
           flush=True)
     print(json.dumps(scorers_line(REPORT["scorers"], seconds["scorers"])), flush=True)
+    print(json.dumps(parallel_line(REPORT["parallel"], scripts, seconds)), flush=True)
     # every row has the contract's keys; X1's also its two-call yardstick
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -8,8 +8,9 @@ subdir per schedule stem, mirrored recursion over schedule directories,
 skip/regenerate keyed on the exact PNG count (:25-43). Over a directory
 one resident generator serves the whole tree: each schedule swaps in
 through `set_schedule`, instead of the reference's model reload per
-schedule (:13-63). The tree is rendered in one process
-(`_processes.host_shard`).
+schedule (:13-63). Under several processes (``torchrun``: ``WORLD_SIZE``
+> 1, or the reference's ``JAX_NUM_PROCESSES``) each process renders its
+strided share of the schedule files (`parallel.host_shard`, :107-110).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from pathlib import Path
 
 from ..image_generators import get_image_generator_type
 from ..utils.io import load_embedding_dir
-from ._processes import host_shard, initialize
+from ..parallel.distributed import host_shard, initialize
 
 
 def expected_images(n_embeddings: int, images_per_prompt: int) -> int:
@@ -89,9 +90,13 @@ def main(argv=None) -> None:
     p.add_argument("--random-weights", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda must be present")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend under torchrun (WORLD_SIZE > 1): "
+                        "nccl by default, one card a rank; gloo where ranks "
+                        "share a card or on the CPU")
     args = p.parse_args(argv)
 
-    initialize()  # one process; raises if the environment asks for more
+    initialize(args.dist_backend, args.device)  # no-op for one process
     gen_type = get_image_generator_type(args.image_generator)
     if args.schedule is not None:
         generate_for_schedule(

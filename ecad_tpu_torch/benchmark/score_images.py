@@ -11,8 +11,9 @@ ecad/benchmark/score_images.py: filename-regex naming modes (image_reward
 removes PNGs (:187-238). The scorer comes from the port's registry
 (`ecad_tpu_torch.scoring.get_scorer`; the weight-backed ones read their
 weights' paths from the ECAD_IMAGE_REWARD_* / ECAD_CLIP_MODEL_DIR
-variables). Every leaf directory is scored in one process
-(`_processes.host_shard`).
+variables). Under several processes (``WORLD_SIZE`` > 1) each process
+scores its strided share of the leaf directories (`parallel.host_shard`,
+:120-126).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 
 from .. import resolve_device
 from ..scoring import get_scorer
-from ._processes import host_shard, initialize
+from ..parallel.distributed import host_shard, initialize
 from .prompts import normalize_prompt_id, read_benchmark_prompts
 
 FILENAME_PATTERN = re.compile(
@@ -140,12 +141,16 @@ def main(argv=None) -> None:
     p.add_argument("--delete-after", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda must be present")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend under torchrun (WORLD_SIZE > 1): "
+                        "nccl by default, one card a rank; gloo where ranks "
+                        "share a card or on the CPU")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
     get_scorer(args.scorer)  # an unknown name raises here
     prompts = prompts_by_id(args.prompt_file) if args.prompt_file else {}
-    initialize()  # one process; raises if the environment asks for more
+    initialize(args.dist_backend, args.device)  # no-op for one process
     # leaf dirs = dirs containing pngs directly
     leaf_dirs = host_shard(
         sorted({p.parent for p in args.image_dir.rglob("*.png")})

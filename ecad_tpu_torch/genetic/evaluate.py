@@ -16,8 +16,13 @@ whole stage runs in-process against ONE resident model on the card:
   candidate JSONs) is the reference's, so a search started by either
   package resumes in the other.
 
-Single process: the reference's mesh and multi-host branches wait for
-ROADMAP.md queue 1 item 8.
+Several processes (``ecad_tpu_torch.parallel``), the reference's two
+regimes (`evaluate_generation`): without a mesh each process evaluates its
+`host_shard` of the candidates; with a mesh over the processes (``--dp``,
+``--tp``, ``--sp``) every process runs every candidate together — the
+batch over dp (`parallel.mesh.batch_sharding`, the latents gathered back
+over dp), heads and MLP width over tp and tokens over sp inside the model
+— and only the coordinator writes.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ import numpy as np
 import torch
 
 from ..models.pixart import schedule_mask_array, schedule_step_masks
+from ..parallel.distributed import host_shard, is_coordinator
+from ..parallel.mesh import batch_sharding
 from ..pipelines.pixart_pipeline import PopulationDenoiser, SharedModelStepper
 from ..scoring import aggregate_scores, get_scorer, merge_scores
 from .population_io import PopulationIOManager
@@ -97,7 +104,13 @@ class CandidateEvaluator:
     images first), used instead of drawing one. Otherwise the noise comes
     from a `torch.Generator` on the pipeline's device, reseeded per image
     as the reference reseeds (seed = start + i·step); its numbers differ
-    from the reference's ``jax.random`` ones."""
+    from the reference's ``jax.random`` ones.
+
+    `mesh` (a `parallel.Mesh` over the processes, the pipeline's model
+    built for it) makes the evaluation cooperative: each chunk's batch is
+    split over dp (which must divide it, as the reference's dp sharding
+    demands) and its latents gathered back, so every rank holds every
+    score."""
 
     def __init__(
         self,
@@ -109,20 +122,40 @@ class CandidateEvaluator:
         prompt_ids: Optional[Sequence[str]] = None,
         decode_fn: Optional[Callable[[torch.Tensor], np.ndarray]] = None,
         noise: Optional[torch.Tensor] = None,
+        mesh=None,
     ) -> None:
         self.pipeline = pipeline
         self.stepper = SharedModelStepper(pipeline)
         self.dynamic = PopulationDenoiser(pipeline)
         self.text = text
         self.neg = neg
-        self._init_common(prompts, config, prompt_ids, decode_fn, noise)
+        self._init_common(prompts, config, prompt_ids, decode_fn, noise, mesh)
 
-    def _init_common(self, prompts, config, prompt_ids, decode_fn, noise) -> None:
+    def _init_common(self, prompts, config, prompt_ids, decode_fn, noise, mesh) -> None:
         self.prompts = list(prompts)
         self.prompt_ids = list(prompt_ids) if prompt_ids else None
         self.config = config or EvalConfig()
         self.decode_fn = decode_fn or latents_to_uint8
         self.noise = noise
+        self.mesh = mesh
+
+    def _mesh_spans_processes(self) -> bool:
+        """True when the evaluator's mesh covers more than one process, so
+        every process runs every candidate in lockstep (the reference's
+        cooperative regime)."""
+        return self.mesh is not None and self.mesh.layout.size > 1
+
+    def _sharded_denoise(self, denoise, masks, arrays) -> torch.Tensor:
+        """One chunk's denoise: on a cooperative mesh each dp rank runs its
+        rows of the batch and the latents are gathered over dp (the
+        reference's dp-sharded batch and ``process_allgather``); a chunk
+        that dp does not divide raises (`Mesh.shard`), as the reference's
+        ``device_put`` onto the dp sharding does."""
+        mesh = self.mesh
+        if mesh is None or mesh.size("dp") == 1:
+            return denoise(masks, *arrays)
+        local = denoise(masks, *(batch_sharding(mesh, a) for a in arrays))
+        return mesh.all_gather(local, "dp", dim=0)
 
     def _noise_shape(self, p: int) -> tuple:
         c = self.pipeline.config.model
@@ -184,13 +217,20 @@ class CandidateEvaluator:
         to the host."""
         *arrays, prompts, ids = self._noise_batch()
         fidelity = self.config.scorer == "fidelity"
+        if self._mesh_spans_processes() and (not fidelity or self.config.return_images):
+            raise ValueError(
+                "cooperative evaluation (a mesh over the processes) computes "
+                "device-side scores only: use scorer='fidelity' and "
+                "return_images=False (host scorers and image gathers would need "
+                "every process to hold the whole batch)"
+            )
         scorer = None if fidelity else get_scorer(self.config.scorer)
         ref = self._reference_latents() if fidelity else None
         bs = self.config.batch_size or len(prompts)
         imgs_all, score_chunks = [], []
         for lo in range(0, len(prompts), bs):
             hi = min(lo + bs, len(prompts))
-            latents = denoise(masks, *(a[lo:hi] for a in arrays))
+            latents = self._sharded_denoise(denoise, masks, [a[lo:hi] for a in arrays])
             if fidelity:
                 per_image = fidelity_snr_db(latents, ref[lo:hi]).cpu().numpy()
                 score_chunks.append(
@@ -238,7 +278,7 @@ class CandidateEvaluator:
             chunks = []
             for lo in range(0, len(prompts), bs):
                 hi = min(lo + bs, len(prompts))
-                chunks.append(denoise(masks, *(a[lo:hi] for a in arrays)))
+                chunks.append(self._sharded_denoise(denoise, masks, [a[lo:hi] for a in arrays]))
             self._ref_latents = torch.cat(chunks)
             self._ref_latents_key = key
         return self._ref_latents
@@ -255,18 +295,34 @@ class CandidateEvaluator:
     ) -> dict[int, dict]:
         """Run the full offline-eval stage: per-candidate scores.json +
         analytic MACs written into candidate JSONs. A candidate whose
-        scores.json exists is kept as it is when `skip_existing`."""
+        scores.json exists is kept as it is when `skip_existing`.
+
+        Several processes, two regimes (ref :279-345):
+        * work-sharded (no mesh): each process evaluates its `host_shard`
+          of the candidates (strided by rank) and writes their scores; the
+          per-candidate scores.json files on a shared file system are the
+          gather, and the caller's barrier and `check_offline_eval` wait
+          for every shard;
+        * cooperative (a mesh over the processes): every process runs
+          every candidate together and only the coordinator writes.
+        The coordinator computes the generation's MACs."""
+        work = list(manager.load_population_schedules(generation))
+        cooperative = self._mesh_spans_processes()
+        if not cooperative:
+            work = host_shard(work)
+        write = is_coordinator() if cooperative else True
         results = {}
         t0 = time.perf_counter()
-        for idx, sched in manager.load_population_schedules(generation):
+        for idx, sched in work:
             cand_dir = manager.score_dir(generation) / f"cand_{idx:03d}"
             score_file = cand_dir / "scores.json"
             if skip_existing and score_file.exists():
                 continue
             scores, _ = self.evaluate_candidate(sched)
-            cand_dir.mkdir(parents=True, exist_ok=True)
-            with score_file.open("w") as f:
-                json.dump(scores, f, indent=4)
+            if write:
+                cand_dir.mkdir(parents=True, exist_ok=True)
+                with score_file.open("w") as f:
+                    json.dump(scores, f, indent=4)
             results[idx] = scores
             if verbose:
                 dt = time.perf_counter() - t0
@@ -274,7 +330,8 @@ class CandidateEvaluator:
                     f"  cand_{idx:03d}: total_score="
                     f"{scores['total_score']:.4f} ({dt:.1f}s elapsed)"
                 )
-        manager.compute_macs_for_generation(generation)
+        if is_coordinator():
+            manager.compute_macs_for_generation(generation)
         return results
 
 
@@ -293,6 +350,7 @@ class FluxCandidateEvaluator(CandidateEvaluator):
         prompt_ids: Optional[Sequence[str]] = None,
         decode_fn: Optional[Callable[[torch.Tensor], np.ndarray]] = None,
         noise: Optional[torch.Tensor] = None,
+        mesh=None,
     ) -> None:
         from ..pipelines.flux_pipeline import FluxPopulationDenoiser, SharedFluxStepper
 
@@ -301,7 +359,7 @@ class FluxCandidateEvaluator(CandidateEvaluator):
         self.dynamic = FluxPopulationDenoiser(pipeline)
         self.text = text
         self.pooled = pooled
-        self._init_common(prompts, config, prompt_ids, decode_fn, noise)
+        self._init_common(prompts, config, prompt_ids, decode_fn, noise, mesh)
 
     def _second(self) -> torch.Tensor:
         return self.pooled

@@ -20,8 +20,15 @@ not from ``--prompt-file`` are random embeddings or ``--embeddings-dir``.
 (``--image-reward-dir``: ImageReward.pt and a BERT tokenizer's vocab.txt,
 or the ECAD_IMAGE_REWARD_* variables) and ``--weights-root``, whose VAE
 decodes what it scores; decoded images stay on the device for the scorer.
-``--dp``/``--tp``/``--sp`` > 1 raise with their ROADMAP.md queue 1 item
-(item 8, multi-process parallelism).
+Several processes (``torchrun``; ``ecad_tpu_torch.parallel``): each calls
+`parallel.initialize` (``--dist-backend`` picks the backend: ``nccl`` by
+default on cards of their own, ``gloo`` where ranks share a card or on the
+CPU). Without ``--dp``/``--tp``/``--sp`` > 1 each process evaluates its
+share of the candidates; with them the mesh is laid over the launched
+ranks (`_build_mesh`; dp·sp·tp must be the world size) and every rank runs
+every candidate, the batch over dp, heads and MLP width over tp, tokens
+over sp. Only the coordinator writes the generation's files, with barriers
+where the reference has them, so the files stay the JAX package's.
 ``--quant`` builds the evaluator's model in a serving quant mode
 (``ops/quant.py``; the generator calibrates the static modes on a
 checkpoint); with random weights the static modes keep per-token scales,
@@ -45,6 +52,7 @@ import torch
 
 from .. import resolve_device
 from ..ops.quant import MODES as QUANT_MODES
+from ..parallel.distributed import barrier, initialize, is_coordinator
 from ..scoring.clip_score import ENV_MODEL_DIR as CLIP_MODEL_DIR
 from ..scoring.image_reward import ENV_CHECKPOINT, ENV_TOKENIZER
 from .evaluate import CandidateEvaluator, EvalConfig
@@ -105,11 +113,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="prompts, one a line, encoded with the checkpoint's "
                         "text encoder (needs --weights-root)")
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel size (only 0 or 1: one process, one card)")
+                   help="data-parallel size over the launched ranks (0: the "
+                        "world size / (tp·sp) when a mesh is built)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel size (only 1: one process, one card)")
+                   help="tensor-parallel size (heads and MLP width)")
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel size (only 1: one process, one card)")
+                   help="sequence-parallel size (image / joint tokens)")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend when several processes run "
+                        "(default nccl, one card a rank; gloo where ranks "
+                        "share a card)")
     p.add_argument("--eval-mode", default="dynamic",
                    choices=["dynamic", "stepwise"],
                    help="candidate-eval mode (EvalConfig.mode): the masks as "
@@ -154,19 +167,26 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_waiting_flags(args) -> None:
-    """Raise, at startup, for a flag whose module is not ported yet, naming
-    its ROADMAP.md queue 1 item."""
-    waiting = [
-        (args.dp > 1 or args.tp > 1 or args.sp > 1, "--dp/--tp/--sp > 1", 8,
-         "multi-process parallelism"),
-    ]
-    for given, flag, item, what in waiting:
-        if given:
-            raise NotImplementedError(
-                f"{flag} is not ported to ecad_tpu_torch yet (ROADMAP.md "
-                f"queue 1 item {item}, {what})"
-            )
+def _build_mesh(args):
+    """The mesh from --dp/--sp/--tp over the launched ranks (ref :243-252),
+    None when none is above 1; `create_mesh` raises when dp·sp·tp is not
+    the world size."""
+    if args.dp <= 1 and args.tp <= 1 and args.sp <= 1:
+        return None
+    from ..parallel import create_mesh
+
+    return create_mesh(dp=args.dp or None, tp=args.tp, sp=args.sp)
+
+
+def _shard_pipeline(pipeline, mesh):
+    """The pipeline's model remade for the mesh, each rank keeping its tp
+    slice of the same weights (ref :255-268; `models.common.shard_module`)."""
+    if mesh is None:
+        return pipeline
+    from ..models.common import shard_module
+
+    pipeline.model = shard_module(pipeline.model, mesh)
+    return pipeline
 
 
 def resolve_scorer_weights(args) -> None:
@@ -313,29 +333,30 @@ def build_evaluator(args, manager) -> CandidateEvaluator:
             "stay in the model dtype"
         )
     device = resolve_device(args.device)
+    mesh = _build_mesh(args)
     keys = ("prompt_embeds", "negative_prompt_embeds")
     if args.weights_root is not None:
         from ..image_generators import PixArtAlphaImageGenerator
 
         gen = _checkpoint_generator(args, PixArtAlphaImageGenerator)
-        pipeline = gen.create_diffusion_pipeline()
+        pipeline = _shard_pipeline(gen.create_diffusion_pipeline(), mesh)
         config = pipeline.config.model
         decode_fn = gen.decode_latents_device
         if args.prompt_file is not None:
             text, neg, prompts = _prompt_file_embeddings(args, gen, keys, config.dtype)
             return CandidateEvaluator(pipeline, text, neg, prompts, _eval_config(args),
-                                      decode_fn=decode_fn)
+                                      decode_fn=decode_fn, mesh=mesh)
     else:
         config = (PixArtConfig.tiny(dtype=torch.float32, quant=args.quant)
                   if args.tiny_model else PixArtConfig(quant=args.quant))
         pcfg = PixArtPipelineConfig(model=config,
                                     num_inference_steps=args.num_inference_steps)
-        pipeline = PixArtPipeline(pcfg, init_model(config, args.seed, device))
+        pipeline = PixArtPipeline(pcfg, init_model(config, args.seed, device, mesh=mesh))
         decode_fn = None
     shape = (config.text_len, config.caption_dim)
     text, neg, prompts = _embeddings(args, keys, (shape, shape), config.dtype, device)
     return CandidateEvaluator(pipeline, text, neg, prompts, _eval_config(args),
-                              decode_fn=decode_fn)
+                              decode_fn=decode_fn, mesh=mesh)
 
 
 def _eval_config(args) -> EvalConfig:
@@ -357,19 +378,21 @@ def _build_flux_evaluator(args):
     from .evaluate import FluxCandidateEvaluator
 
     device = resolve_device(args.device)
+    mesh = _build_mesh(args)
     keys = ("prompt_embeds", "pooled_prompt_embeds")
     decode_fn = None
     if args.weights_root is not None:
         from ..image_generators import FluxImageGenerator
 
         gen = _checkpoint_generator(args, FluxImageGenerator)
-        pipeline = gen.create_diffusion_pipeline()
+        pipeline = _shard_pipeline(gen.create_diffusion_pipeline(), mesh)
         config = pipeline.config.model
         decode_fn = gen.decode_latents_device
         if args.prompt_file is not None:
             text, pooled, prompts = _prompt_file_embeddings(args, gen, keys, config.dtype)
             return FluxCandidateEvaluator(pipeline, text, pooled, prompts,
-                                          _eval_config(args), decode_fn=decode_fn)
+                                          _eval_config(args), decode_fn=decode_fn,
+                                          mesh=mesh)
     else:
         cache_dtype = _CACHE_DTYPES[args.cache_dtype] if args.cache_dtype else None
         if args.tiny_model:
@@ -390,13 +413,13 @@ def _build_flux_evaluator(args):
             height=height,
             width=height,
         )
-        pipeline = FluxPipeline(pcfg, init_model(config, args.seed, device))
+        pipeline = FluxPipeline(pcfg, init_model(config, args.seed, device, mesh=mesh))
     text, pooled, prompts = _embeddings(
         args, keys, ((config.text_len, config.joint_dim), (config.pooled_dim,)),
         config.dtype, device,
     )
     return FluxCandidateEvaluator(pipeline, text, pooled, prompts, _eval_config(args),
-                                  decode_fn=decode_fn)
+                                  decode_fn=decode_fn, mesh=mesh)
 
 
 def init_gen_0(args, manager: PopulationIOManager, algo: NSGA2) -> None:
@@ -417,11 +440,14 @@ def init_gen_0(args, manager: PopulationIOManager, algo: NSGA2) -> None:
                 sys.exit(1)
         X0 = algo.initialize()
     manager.generation_num = max(manager.generation_num, 1)
-    manager.save_population(X0)
-    manager.save_config()
+    if is_coordinator():
+        manager.save_population(X0)
+        manager.save_config()
+    barrier("gen-0-seeded")
 
 
 def train_one_cycle(args, manager, algo: NSGA2, evaluator) -> None:
+    gen = manager.generation_num
     if not manager.check_offline_eval():
         if args.print_not_submit:
             print(
@@ -434,15 +460,23 @@ def train_one_cycle(args, manager, algo: NSGA2, evaluator) -> None:
             sys.exit(0)
         print(f"Evaluating generation {manager.generation_num}…")
         evaluator.evaluate_generation(manager)
+        # several processes: each evaluated its share; wait for every share
+        # (and the coordinator's MACs) before checking
+        barrier(f"offline-eval-{gen}")
         if not manager.check_offline_eval():
             raise RuntimeError("offline evaluation incomplete after eval run")
+    # tell/ask is deterministic (the same files, the same RNG state), so
+    # every process computes the same next population; only the
+    # coordinator writes it
     X, F, G = manager.ask()
     algo.tell(X, F, G)
     next_X = algo.ask()
     manager.generation_num += 1
-    manager.save_population(next_X)
-    manager.save_config()
-    algo.save(manager.checkpoint_path())
+    if is_coordinator():
+        manager.save_population(next_X)
+        manager.save_config()
+        algo.save(manager.checkpoint_path())
+    barrier(f"gen-saved-{gen}")
     print(
         f"Generation {manager.generation_num} saved "
         f"({len(next_X)} candidates). Pareto front size: "
@@ -452,12 +486,12 @@ def train_one_cycle(args, manager, algo: NSGA2, evaluator) -> None:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    refuse_waiting_flags(args)
     resolve_scorer_weights(args)
     if args.weights_root is None and (args.prompt_file or args.transformer_weights):
         # the reference ignores both without a checkpoint tree; say so
         raise SystemExit("--prompt-file and --transformer-weights need --weights-root")
     resolve_device(args.device)  # no GPU and no --device cpu: raise now
+    initialize(args.dist_backend, args.device)  # no-op for one process
     manager = initialize_manager(args)
 
     ckpt = manager.checkpoint_path()

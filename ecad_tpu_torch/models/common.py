@@ -10,8 +10,17 @@ Linear products stay `torch.nn.functional.linear`, as the reference left
 them to XLA. Under a serving quant mode the projections of `Attention` and
 `FeedForward` are built by `ops.quant.dense` (the reference's ``dense``
 helper, :563-597 and :641-690), each keyed by the reference's module path
-(`path`) in the static modes' calibration table. Mesh sharding comes in a
-later slice.
+(`path`) in the static modes' calibration table.
+
+Mesh sharding (``ecad_tpu_torch.parallel``): built with a `Mesh`, the
+projections of `Attention` and `FeedForward` hold their tp rank's slice —
+q/k/v and the first FF product column-parallel (heads, MLP width), the
+out projections row-parallel, each followed by one explicit all-reduce
+over tp (`row_parallel`) — the reference's logical axes (:33-40, :599-602,
+:661-686), marked on each site for `parallel.mesh.shard_params`. Where a
+width does not divide by tp, the site stays whole on every rank
+(`tp_degree`): the same function, computed replicated. Self-attention on
+an sp mesh gathers K and V over sp (`sharded_attention`).
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.attention import fused_attention
-from ..ops.quant import Int8Dense, dense, quantize_params_tree
+from ..ops.quant import Int8Dense, QuantLinear, dense, int8_linear, quantize_params_tree
 
 
 def sinusoidal_embedding(
@@ -79,6 +88,87 @@ def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
+def tp_degree(mesh, *widths: int) -> int:
+    """The tp degree of a group of sites whose split axes are `widths`
+    wide: the mesh's tp where each divides by it, else 1 — the sites then
+    stay whole on every tp rank and compute the same function replicated
+    (the reference's `_shard_map_attention` returns None there and XLA
+    computes the attention unsharded, :444-457)."""
+    tp = 1 if mesh is None else mesh.size("tp")
+    return tp if all(w % tp == 0 for w in widths) else 1
+
+
+def column_parallel(site: nn.Module, width: int, tp: int) -> nn.Module:
+    """Mark a projection built with `width` / `tp` output features as the
+    rank's slice of a `width`-wide column-parallel site (no mark at tp 1)."""
+    if tp > 1:
+        site.tp_split = (0, (width,))
+    return site
+
+
+def row_parallel_site(site: nn.Module, widths: tuple, tp: int) -> nn.Module:
+    """Mark a projection built with sum(`widths`) / `tp` input features as
+    the rank's slice of a row-parallel site whose input is the segments
+    `widths`, each sliced alike (no mark at tp 1)."""
+    if tp > 1:
+        site.tp_split = (1, tuple(widths))
+    return site
+
+
+def row_parallel(site: nn.Module, x: torch.Tensor, mesh) -> torch.Tensor:
+    """A site's product; at a row-parallel site (`row_parallel_site`) the
+    rank's partial product summed over tp by one all-reduce, then the bias
+    added once. An int8 site all-reduces its token max-abs and its int32
+    sums instead (`ops.quant.int8_linear`'s `reduce`), so that its output
+    equals the one-rank product bit for bit."""
+    split = getattr(site, "tp_split", None)
+    if split is None or split[0] != 1:
+        return site(x)
+
+    def reduce(t, op="sum"):
+        return mesh.all_reduce(t, "tp", op)
+
+    if isinstance(site, Int8Dense):
+        return int8_linear(x, None, site.bias, act_amax=site.act_amax,
+                           weight_q=(site.weight, site.scale), dtype=site.dtype,
+                           reduce=reduce)
+    if isinstance(site, QuantLinear):
+        return site.fn(x, site.weight, site.bias, weight_q=site.weight_q(reduce),
+                       reduce=reduce)
+    y = reduce(F.linear(x, site.weight))
+    return y if site.bias is None else y + site.bias
+
+
+def seq_parallel(mesh, *lengths: int) -> bool:
+    """Whether token sequences of `lengths` split over the mesh's sp: an
+    sp axis > 1 that divides each. Where one does not divide, every sp rank
+    runs the whole sequence (the same function, replicated), as the
+    reference's attention wrapper falls back to XLA (:453-454)."""
+    sp = 1 if mesh is None else mesh.size("sp")
+    return sp > 1 and all(t % sp == 0 for t in lengths)
+
+
+def sharded_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None, mesh=None, gather_kv: bool = False,
+) -> torch.Tensor:
+    """`fused_attention` on one rank's shard: the counterpart of the
+    reference's `_shard_map_attention` (ecad_tpu/models/common.py:430-490)
+    with the models holding the shards. The batch is the rank's dp rows and
+    the heads its tp heads already, which needs no collective; on an sp
+    mesh the queries are the rank's tokens, and with `gather_kv` (self- or
+    joint attention, whose K and V are sharded like the queries) K and V
+    are all-gathered along sp before the kernel (:459-465). Cross-attention
+    keeps its text K, V and key-padding bias whole on each rank. The kernel
+    routes on the local shapes, as the reference's does inside shard_map:
+    PixArt-α 256² under sp=2 sends 128 queries against 256 gathered keys to
+    K1 and 128 against the 120 text keys to K2."""
+    if gather_kv and mesh is not None:
+        k = mesh.all_gather(k, "sp", dim=1)
+        v = mesh.all_gather(v, "sp", dim=1)
+    return fused_attention(q, k, v, bias)
+
+
 class Attention(nn.Module):
     """Multi-head attention matching diffusers' Attention used by PixArt:
     separate q/k/v linears with bias, one out projection with bias.
@@ -90,24 +180,29 @@ class Attention(nn.Module):
 
     `quant` is a serving quant mode (``ops/quant.py``), `act_scales` the
     static modes' calibration table and `path` this module's path in the
-    reference (``block_3/attn1``), which keys its sites there."""
+    reference (``block_3/attn1``), which keys its sites there. With a
+    `mesh` the module holds its tp rank's heads (`self.heads` is then the
+    local count)."""
 
     def __init__(
         self, dim: int, heads: int, head_dim: int, dtype: torch.dtype,
-        quant: Optional[str] = None, act_scales=None, path: str = "",
+        quant: Optional[str] = None, act_scales=None, path: str = "", mesh=None,
     ) -> None:
         super().__init__()
-        inner = heads * head_dim
-        self.heads = heads
+        tp = tp_degree(mesh, heads)
+        width = heads * head_dim
+        inner = width // tp
+        self.heads = heads // tp
         self.head_dim = head_dim
+        self.mesh = mesh
 
         def proj(name, n_in, n_out):
             return dense(n_in, n_out, dtype, quant, f"{path}/{name}", act_scales)
 
-        self.to_q = proj("to_q", dim, inner)
-        self.to_k = proj("to_k", dim, inner)
-        self.to_v = proj("to_v", dim, inner)
-        self.to_out = proj("to_out", inner, dim)
+        self.to_q = column_parallel(proj("to_q", dim, inner), width, tp)
+        self.to_k = column_parallel(proj("to_k", dim, inner), width, tp)
+        self.to_v = column_parallel(proj("to_v", dim, inner), width, tp)
+        self.to_out = row_parallel_site(proj("to_out", inner, dim), (width,), tp)
 
     def kv(self, ctx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         b, tk = ctx.shape[:2]
@@ -121,30 +216,41 @@ class Attention(nn.Module):
         context: Optional[torch.Tensor] = None,
         bias: Optional[torch.Tensor] = None,
         kv: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+        gather_kv: bool = False,
     ) -> torch.Tensor:
+        """`gather_kv`: `x` holds the rank's sp share of the tokens, so
+        self-attention gathers its K and V over sp."""
         b, tq = x.shape[:2]
         q = self.to_q(x).view(b, tq, self.heads, self.head_dim)
+        gather = gather_kv and context is None and kv is None
         if kv is None:
             kv = self.kv(x if context is None else context)
-        out = fused_attention(q, kv[0], kv[1], bias)
-        return self.to_out(out.reshape(b, tq, self.heads * self.head_dim))
+        out = sharded_attention(q, kv[0], kv[1], bias, self.mesh, gather)
+        return row_parallel(self.to_out, out.reshape(b, tq, self.heads * self.head_dim),
+                            self.mesh)
 
 
 class FeedForward(nn.Module):
     """d → mult·d → d with tanh-approximate GELU (PixArt's
-    activation_fn="gelu-approximate"). `quant`, `act_scales` and `path` as
-    in `Attention`."""
+    activation_fn="gelu-approximate"). `quant`, `act_scales`, `path` and
+    `mesh` as in `Attention` (the MLP width splits over tp)."""
 
     def __init__(
         self, dim: int, mult: int, dtype: torch.dtype,
-        quant: Optional[str] = None, act_scales=None, path: str = "",
+        quant: Optional[str] = None, act_scales=None, path: str = "", mesh=None,
     ) -> None:
         super().__init__()
-        self.proj_in = dense(dim, dim * mult, dtype, quant, f"{path}/proj_in", act_scales)
-        self.proj_out = dense(dim * mult, dim, dtype, quant, f"{path}/proj_out", act_scales)
+        width = dim * mult
+        tp = tp_degree(mesh, width)
+        self.mesh = mesh
+        self.proj_in = column_parallel(
+            dense(dim, width // tp, dtype, quant, f"{path}/proj_in", act_scales), width, tp)
+        self.proj_out = row_parallel_site(
+            dense(width // tp, dim, dtype, quant, f"{path}/proj_out", act_scales), (width,), tp)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.proj_out(F.gelu(self.proj_in(x), approximate="tanh"))
+        return row_parallel(self.proj_out, F.gelu(self.proj_in(x), approximate="tanh"),
+                            self.mesh)
 
 
 def sincos_2d_pos_embed(
@@ -207,12 +313,35 @@ def rebuild(model: nn.Module, config) -> nn.Module:
     new module is made on the meta device and takes `model`'s state by
     assignment. Sites that `config` stores as `Int8Dense` and `model` holds
     in float are quantized from their float weights
-    (`ops.quant.quantize_params_tree`); everything else is shared."""
+    (`ops.quant.quantize_params_tree`); everything else is shared. A model
+    built for a mesh is remade for the same mesh, its row-parallel sites'
+    channel scales taken over the whole rows (an all-reduce over tp)."""
+    mesh = getattr(model, "mesh", None)
     with torch.device("meta"):
-        new = type(model)(config)
-    state = quantize_params_tree(model.state_dict(), new)
+        new = type(model)(config) if mesh is None else type(model)(config, mesh=mesh)
+
+    def reduce(name):
+        split = getattr(new.get_submodule(name), "tp_split", None)
+        if split is None or split[0] != 1:
+            return None
+        return lambda t, op: mesh.all_reduce(t, "tp", op)
+
+    state = quantize_params_tree(model.state_dict(), new, reduce)
     new.load_state_dict(state, assign=True)
     return new.eval().requires_grad_(False)
+
+
+def shard_module(model: nn.Module, mesh) -> nn.Module:
+    """`model` (a whole PixArt or FLUX transformer) remade for `mesh`: the
+    same class built with the mesh on the meta device takes this rank's tp
+    slice of each marked site (`parallel.mesh.shard_params`, copies) and
+    every other tensor of `model` as it is. Eval mode, no gradients."""
+    from ..parallel.mesh import shard_params
+
+    with torch.device("meta"):
+        local = type(model)(model.config, mesh=mesh)
+    local.load_state_dict(shard_params(model.state_dict(), local, mesh), assign=True)
+    return local.eval().requires_grad_(False)
 
 
 def load_module(model: nn.Module, state: dict, device: torch.device) -> nn.Module:

@@ -35,6 +35,22 @@ read back in the compute dtype (the reference's ``_to_cache`` /
 projections run the int8 product (``ops/quant.py``), each site built by
 `_dense` and keyed by the reference's module path; the adaLN linears take
 only the weight-storage modes, with per-token activation scales.
+
+Built with a `parallel.Mesh` (`init_model(..., mesh=)`), the blocks hold
+their tp rank's heads and MLP width: q/k/v (both streams), ``ff_in``,
+``ff_context_in`` and ``proj_mlp`` column-parallel, ``to_out``,
+``to_add_out``, ``ff_out``, ``ff_context_out`` and the single block's
+``proj_out`` row-parallel with one all-reduce each — ``proj_out`` reads
+[attention ‖ MLP], so its input rows are sliced segment by segment, the
+rank's heads then the rank's MLP columns. The caches keep the reference's
+layout (`logical_constraint`, ref :405-510): every cached component is the
+reduced, replicated tensor — ``single_attn`` too, gathered over tp, which
+the reference constrains to the whole width — except ``single_proj_mlp``,
+the rank's MLP slice. On an sp mesh both streams are split into the rank's
+share of the text and of the image tokens (each must divide by sp; else
+every rank runs all of them), RoPE takes those tokens' positions, joint
+attention gathers K and V over sp (attention does not depend on the keys'
+order), and the image tokens are gathered after the final projection.
 """
 
 from __future__ import annotations
@@ -48,10 +64,21 @@ from torch import nn
 from torch.nn import functional as F
 
 from .. import resolve_device
-from ..ops.attention import fused_attention
 from ..ops.fused import modulated_layer_norm, modulated_layer_norm_pair
 from ..ops.quant import WEIGHT_MODES, dense
-from .common import TimestepEmbedding, load_module, randomize_, sinusoidal_embedding
+from .common import (
+    TimestepEmbedding,
+    column_parallel,
+    load_module,
+    randomize_,
+    row_parallel,
+    row_parallel_site,
+    seq_parallel,
+    shard_module,
+    sharded_attention,
+    sinusoidal_embedding,
+    tp_degree,
+)
 
 FULL_COMPONENTS = ("full_attn", "full_ff", "full_ff_context")
 SINGLE_COMPONENTS = ("single_attn", "single_proj_mlp", "single_proj_out")
@@ -202,26 +229,36 @@ class QKNorm(nn.Module):
 
 
 def _heads(x: torch.Tensor, c: FluxConfig) -> torch.Tensor:
-    return x.view(x.shape[0], x.shape[1], c.num_heads, c.head_dim)
+    """(B, T, heads·head_dim) → (B, T, heads, head_dim), the rank's heads
+    under tp."""
+    return x.view(x.shape[0], x.shape[1], -1, c.head_dim)
 
 
 class FluxJointAttention(nn.Module):
     """Dual-stream joint attention: text and image tokens get separate
-    qkv/out projections but attend jointly ([text; image] order)."""
+    qkv/out projections but attend jointly ([text; image] order). With a
+    `mesh`, the rank's heads (module docstring)."""
 
-    def __init__(self, config: FluxConfig, path: str = "block_0/attn") -> None:
+    def __init__(self, config: FluxConfig, path: str = "block_0/attn", mesh=None) -> None:
         super().__init__()
         c = config
         self.config = c
-        inner = c.num_heads * c.head_dim
+        self.mesh = mesh
+        width = c.num_heads * c.head_dim
+        tp = tp_degree(mesh, c.num_heads)
+        inner = width // tp
         for name in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj"):
-            self.add_module(name, _dense(c.dim, inner, c, f"{path}/{name}"))
+            self.add_module(name, column_parallel(_dense(c.dim, inner, c, f"{path}/{name}"),
+                                                  width, tp))
         self.norm_qk = QKNorm(c.head_dim, c.dtype)
         self.norm_added_qk = QKNorm(c.head_dim, c.dtype)
-        self.to_out = _dense(inner, c.dim, c, f"{path}/to_out")
-        self.to_add_out = _dense(inner, c.dim, c, f"{path}/to_add_out")
+        self.to_out = row_parallel_site(_dense(inner, c.dim, c, f"{path}/to_out"), (width,), tp)
+        self.to_add_out = row_parallel_site(_dense(inner, c.dim, c, f"{path}/to_add_out"),
+                                            (width,), tp)
 
-    def forward(self, img, txt, cos, sin) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, img, txt, cos, sin, gather_kv: bool = False):
+        """`gather_kv`: `img` and `txt` are the rank's sp share of the
+        tokens, and `cos`, `sin` theirs."""
         c = self.config
         b, tt = txt.shape[:2]
         q, k = self.norm_qk(_heads(self.to_q(img), c), _heads(self.to_k(img), c))
@@ -234,29 +271,34 @@ class FluxJointAttention(nn.Module):
         q = apply_rope(torch.cat([qc, q], dim=1), cos, sin)
         k = apply_rope(torch.cat([kc, k], dim=1), cos, sin)
         v = torch.cat([vc, v], dim=1)
-        out = fused_attention(q, k, v).reshape(b, q.shape[1], -1)
-        return self.to_out(out[:, tt:]), self.to_add_out(out[:, :tt])
+        out = sharded_attention(q, k, v, None, self.mesh, gather_kv).reshape(b, q.shape[1], -1)
+        return (row_parallel(self.to_out, out[:, tt:], self.mesh),
+                row_parallel(self.to_add_out, out[:, :tt], self.mesh))
 
 
 class FluxSingleAttention(nn.Module):
     """Single-stream attention: qkv + QK norm + RoPE + attention, no output
-    projection (it is fused into the block's proj_out)."""
+    projection (it is fused into the block's proj_out). With a `mesh`, the
+    rank's heads at the block's tp degree `tp`."""
 
-    def __init__(self, config: FluxConfig, path: str = "single_block_0/attn") -> None:
+    def __init__(self, config: FluxConfig, path: str = "single_block_0/attn",
+                 mesh=None, tp: int = 1) -> None:
         super().__init__()
         c = config
         self.config = c
-        inner = c.num_heads * c.head_dim
-        self.to_q = _dense(c.dim, inner, c, f"{path}/to_q")
-        self.to_k = _dense(c.dim, inner, c, f"{path}/to_k")
-        self.to_v = _dense(c.dim, inner, c, f"{path}/to_v")
+        self.mesh = mesh
+        width = c.num_heads * c.head_dim
+        self.to_q = column_parallel(_dense(c.dim, width // tp, c, f"{path}/to_q"), width, tp)
+        self.to_k = column_parallel(_dense(c.dim, width // tp, c, f"{path}/to_k"), width, tp)
+        self.to_v = column_parallel(_dense(c.dim, width // tp, c, f"{path}/to_v"), width, tp)
         self.norm_qk = QKNorm(c.head_dim, c.dtype)
 
-    def forward(self, x, cos, sin) -> torch.Tensor:
+    def forward(self, x, cos, sin, gather_kv: bool = False) -> torch.Tensor:
         c = self.config
         q, k = self.norm_qk(_heads(self.to_q(x), c), _heads(self.to_k(x), c))
         v = _heads(self.to_v(x), c)
-        out = fused_attention(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v)
+        out = sharded_attention(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v, None,
+                                self.mesh, gather_kv)
         return out.reshape(x.shape[0], x.shape[1], -1)
 
 
@@ -286,21 +328,25 @@ def _pick(recompute: bool, compute, cache: dict, key: str, new: dict, config: Fl
 
 
 class FluxDualBlock(nn.Module):
-    """Dual-stream block `index` (its quant sites ``block_<index>/...``)."""
+    """Dual-stream block `index` (its quant sites ``block_<index>/...``);
+    with a `mesh`, its tp slice."""
 
-    def __init__(self, config: FluxConfig, index: int = 0) -> None:
+    def __init__(self, config: FluxConfig, index: int = 0, mesh=None) -> None:
         super().__init__()
         c = config
         self.config = c
+        self.mesh = mesh
         path = f"block_{index}"
         self.norm1 = AdaNorm(c.dim, 6, c.dtype, c.quant)
         self.norm1_context = AdaNorm(c.dim, 6, c.dtype, c.quant)
-        self.attn = FluxJointAttention(c, f"{path}/attn")
+        self.attn = FluxJointAttention(c, f"{path}/attn", mesh)
         hidden = c.dim * c.mlp_ratio
-        self.ff_in = _dense(c.dim, hidden, c, f"{path}/ff_in")
-        self.ff_out = _dense(hidden, c.dim, c, f"{path}/ff_out")
-        self.ff_context_in = _dense(c.dim, hidden, c, f"{path}/ff_context_in")
-        self.ff_context_out = _dense(hidden, c.dim, c, f"{path}/ff_context_out")
+        tp = tp_degree(mesh, hidden)
+        for name in ("ff", "ff_context"):
+            self.add_module(f"{name}_in", column_parallel(
+                _dense(c.dim, hidden // tp, c, f"{path}/{name}_in"), hidden, tp))
+            self.add_module(f"{name}_out", row_parallel_site(
+                _dense(hidden // tp, c.dim, c, f"{path}/{name}_out"), (hidden,), tp))
 
     def forward(
         self,
@@ -311,8 +357,10 @@ class FluxDualBlock(nn.Module):
         sin: torch.Tensor,
         cache: dict[str, Any],  # component → stored value (absent at step 0)
         mask: tuple[bool, bool, bool],  # (full_attn, full_ff, full_ff_context)
+        gather_kv: bool = False,  # img, txt: the rank's sp share of the tokens
     ):
         c = self.config
+        mesh = self.mesh
         recompute_attn, recompute_ff, recompute_ffc = mask
         shift, scale, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.norm1(temb)
         c_shift, c_scale, c_gate_msa, c_shift_mlp, c_scale_mlp, c_gate_mlp = (
@@ -324,7 +372,8 @@ class FluxDualBlock(nn.Module):
         attn_out, ctx_attn_out = _pick(
             recompute_attn,
             lambda: self.attn(*modulated_layer_norm_pair((img, scale, shift),
-                                                         (txt, c_scale, c_shift)), cos, sin),
+                                                         (txt, c_scale, c_shift)), cos, sin,
+                              gather_kv),
             cache, "full_attn", new, c,
         )
         img = img + gate_msa * attn_out
@@ -335,15 +384,16 @@ class FluxDualBlock(nn.Module):
                 (img, scale_mlp, shift_mlp), (txt, c_scale_mlp, c_shift_mlp))
         ff = _pick(
             recompute_ff,
-            lambda: self.ff_out(_gelu(self.ff_in(
-                img_normed if both else modulated_layer_norm(img, scale_mlp, shift_mlp)))),
+            lambda: row_parallel(self.ff_out, _gelu(self.ff_in(
+                img_normed if both else modulated_layer_norm(img, scale_mlp, shift_mlp))), mesh),
             cache, "full_ff", new, c,
         )
         img = img + gate_mlp * ff
         ffc = _pick(
             recompute_ffc,
-            lambda: self.ff_context_out(_gelu(self.ff_context_in(
-                txt_normed if both else modulated_layer_norm(txt, c_scale_mlp, c_shift_mlp)))),
+            lambda: row_parallel(self.ff_context_out, _gelu(self.ff_context_in(
+                txt_normed if both else modulated_layer_norm(txt, c_scale_mlp, c_shift_mlp))),
+                mesh),
             cache, "full_ff_context", new, c,
         )
         txt = txt + c_gate_mlp * ffc
@@ -351,20 +401,26 @@ class FluxDualBlock(nn.Module):
 
 
 class FluxSingleBlock(nn.Module):
-    """Single-stream block `index` (its quant sites ``single_block_<index>/...``)."""
+    """Single-stream block `index` (its quant sites ``single_block_<index>/...``);
+    with a `mesh`, its tp slice."""
 
-    def __init__(self, config: FluxConfig, index: int = 0) -> None:
+    def __init__(self, config: FluxConfig, index: int = 0, mesh=None) -> None:
         super().__init__()
         c = config
         self.config = c
+        self.mesh = mesh
         path = f"single_block_{index}"
+        width, hidden = c.num_heads * c.head_dim, c.dim * c.mlp_ratio
+        tp = tp_degree(mesh, c.num_heads, hidden)
+        self.tp = tp
         self.norm = AdaNorm(c.dim, 3, c.dtype, c.quant)
-        self.attn = FluxSingleAttention(c, f"{path}/attn")
-        self.proj_mlp = _dense(c.dim, c.dim * c.mlp_ratio, c, f"{path}/proj_mlp")
-        # input: [attention (heads·head_dim); activated MLP (mlp_ratio·d)]
-        self.proj_out = _dense(
-            c.num_heads * c.head_dim + c.dim * c.mlp_ratio, c.dim, c, f"{path}/proj_out"
-        )
+        self.attn = FluxSingleAttention(c, f"{path}/attn", mesh, tp)
+        self.proj_mlp = column_parallel(
+            _dense(c.dim, hidden // tp, c, f"{path}/proj_mlp"), hidden, tp)
+        # input: [attention (heads·head_dim); activated MLP (mlp_ratio·d)],
+        # each segment sliced to the rank's share under tp
+        self.proj_out = row_parallel_site(
+            _dense((width + hidden) // tp, c.dim, c, f"{path}/proj_out"), (width, hidden), tp)
 
     def forward(
         self,
@@ -374,8 +430,10 @@ class FluxSingleBlock(nn.Module):
         sin: torch.Tensor,
         cache: dict[str, Any],
         mask: tuple[bool, bool, bool],  # (attn, proj_mlp, proj_out)
+        gather_kv: bool = False,  # x: the rank's sp share of the tokens
     ):
         c = self.config
+        mesh = self.mesh
         recompute_attn, recompute_mlp, recompute_out = mask
         shift, scale, gate = self.norm(temb)
         new: dict[str, Any] = {}
@@ -386,32 +444,43 @@ class FluxSingleBlock(nn.Module):
         # PRE-activation: the GELU runs after the cache read
         mlp = _pick(recompute_mlp, lambda: self.proj_mlp(normed), cache,
                     "single_proj_mlp", new, c)
-        attn = _pick(recompute_attn, lambda: self.attn(normed, cos, sin), cache,
-                     "single_attn", new, c)
+        # the cached attention output is the whole width (the reference's
+        # layout), gathered over tp; proj_out reads the rank's heads of it
+        attn = _pick(recompute_attn, lambda: self._whole(self.attn(normed, cos, sin, gather_kv)),
+                     cache, "single_attn", new, c)
         out = _pick(recompute_out,
-                    lambda: self.proj_out(torch.cat([attn, _gelu(mlp)], dim=-1)),
+                    lambda: row_parallel(self.proj_out, torch.cat(
+                        [self._rank_heads(attn), _gelu(mlp)], dim=-1), mesh),
                     cache, "single_proj_out", new, c)
         return x + gate * out, new
+
+    def _whole(self, attn: torch.Tensor) -> torch.Tensor:
+        return attn if self.tp == 1 else self.mesh.all_gather(attn, "tp", dim=-1)
+
+    def _rank_heads(self, attn: torch.Tensor) -> torch.Tensor:
+        return attn if self.tp == 1 else self.mesh.shard(attn, "tp", dim=-1)
 
 
 class FluxTransformer(nn.Module):
     """Full FLUX transformer over packed latents. `mask` is a tuple of
     per-block component triples, full blocks first then single blocks (the
-    schedule's slot order)."""
+    schedule's slot order). With a `mesh`, the rank's tp slice and sp share
+    of the tokens (module docstring)."""
 
-    def __init__(self, config: FluxConfig) -> None:
+    def __init__(self, config: FluxConfig, mesh=None) -> None:
         super().__init__()
         c = config
         self.config = c
+        self.mesh = mesh
         self.x_embedder = nn.Linear(c.in_channels, c.dim, dtype=c.dtype)
         self.context_embedder = nn.Linear(c.joint_dim, c.dim, dtype=c.dtype)
         self.timestep_embedder = TimestepEmbedding(256, c.dim, c.dtype)
         self.guidance_embedder = TimestepEmbedding(256, c.dim, c.dtype)
         # pooled CLIP projection: the TimestepEmbedding MLP shape
         self.text_embedder = TimestepEmbedding(c.pooled_dim, c.dim, c.dtype)
-        self.blocks = nn.ModuleList(FluxDualBlock(c, i) for i in range(c.num_blocks))
+        self.blocks = nn.ModuleList(FluxDualBlock(c, i, mesh) for i in range(c.num_blocks))
         self.single_blocks = nn.ModuleList(
-            FluxSingleBlock(c, i) for i in range(c.num_single_blocks)
+            FluxSingleBlock(c, i, mesh) for i in range(c.num_single_blocks)
         )
         self.norm_out_linear = nn.Linear(c.dim, 2 * c.dim, dtype=c.dtype)
         self.proj_out = nn.Linear(c.dim, c.in_channels, dtype=c.dtype)
@@ -461,25 +530,34 @@ class FluxTransformer(nn.Module):
         txt_h = self.context_embedder(txt)
         temb = self.embed_conditions(timestep, guidance, pooled)
         cos, sin = self.rope(tt, grid_hw, latents.device)
+        sp = seq_parallel(self.mesh, tt, img.shape[1])
+        if sp:
+            # the rank's text tokens then its image tokens, with their positions
+            txt_h, img = self.mesh.shard(txt_h, "sp", 1), self.mesh.shard(img, "sp", 1)
+            cos, sin = (torch.cat([self.mesh.shard(a[:tt], "sp", 0),
+                                   self.mesh.shard(a[tt:], "sp", 0)]) for a in (cos, sin))
+            tt = txt_h.shape[1]
 
         new_cache: dict[str, Any] = {}
         for i, block in enumerate(self.blocks):
             block_cache = {k: cache.get(f"{k}_{i}") for k in FULL_COMPONENTS}
-            img, txt_h, updated = block(img, txt_h, temb, cos, sin, block_cache, mask[i])
+            img, txt_h, updated = block(img, txt_h, temb, cos, sin, block_cache, mask[i], sp)
             for k, v in updated.items():
                 new_cache[f"{k}_{i}"] = v
 
         x = torch.cat([txt_h, img], dim=1)
         for i, block in enumerate(self.single_blocks):
             block_cache = {k: cache.get(f"{k}_{i}") for k in SINGLE_COMPONENTS}
-            x, updated = block(x, temb, cos, sin, block_cache, mask[c.num_blocks + i])
+            x, updated = block(x, temb, cos, sin, block_cache, mask[c.num_blocks + i], sp)
             for k, v in updated.items():
                 new_cache[f"{k}_{i}"] = v
 
         # AdaLayerNormContinuous: diffusers chunks SCALE first, then shift
         scale, shift = self.norm_out_linear(F.silu(temb))[:, None, :].chunk(2, dim=-1)
-        img = modulated_layer_norm(x[:, tt:], scale, shift)
-        return self.proj_out(img), new_cache
+        out = self.proj_out(modulated_layer_norm(x[:, tt:], scale, shift))
+        if sp:
+            out = self.mesh.all_gather(out, "sp", dim=1)
+        return out, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -527,7 +605,7 @@ def unpack_latents(packed: torch.Tensor, grid_h: int, grid_w: int) -> torch.Tens
 
 def init_model(
     config: FluxConfig, seed: int = 0, device: str | torch.device = "cuda",
-    state: Optional[dict] = None,
+    state: Optional[dict] = None, mesh=None,
 ) -> FluxTransformer:
     """A random-weight FluxTransformer built directly in `config.dtype` on
     `device` (the QK-norm scales in fp32, as the reference keeps them): no
@@ -536,11 +614,13 @@ def init_model(
     `randomize_`). With `state`, a loaded state_dict
     (`models.weights.load_flux_params`), the module takes its tensors
     instead, cast into its dtypes (`common.load_module`). Eval mode, no
-    gradients."""
+    gradients. With a `mesh`, the whole model is made so and then cut to
+    this rank's tp slice (`common.shard_module`)."""
     dev = resolve_device(device)
     with torch.device("meta"):
         model = FluxTransformer(config)
     if state is not None:
-        return load_module(model, state, dev)
-    model = model.to_empty(device=dev)
-    return randomize_(model, seed).eval().requires_grad_(False)
+        model = load_module(model, state, dev)
+    else:
+        model = randomize_(model.to_empty(device=dev), seed).eval().requires_grad_(False)
+    return model if mesh is None else shard_module(model, mesh)

@@ -16,6 +16,13 @@ component outputs, which are re-gated with the current step's gates
 modulated norms run the port's `modulated_layer_norm` kernel. With a
 ``quant`` mode the blocks' projections run the int8 product
 (``ops/quant.py``).
+
+Built with a `parallel.Mesh` (`init_model(..., mesh=)`), the blocks hold
+their tp rank's heads and MLP width (`models.common`), and on an sp mesh
+the block stage runs on the rank's share of the image tokens: split after
+the patch embedding, gathered after the final projection, the caches
+holding the rank's tokens, self-attention gathering K and V. The batch
+split over dp is the caller's (`genetic.evaluate`).
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ from .common import (
     TimestepEmbedding,
     load_module,
     randomize_,
+    seq_parallel,
+    shard_module,
     sincos_2d_pos_embed,
     sinusoidal_embedding,
 )
@@ -182,16 +191,17 @@ class PixArtBlock(nn.Module):
     `enc_kv` optionally supplies precomputed cross-attention keys/values
     (trajectory-constant; see PixArtTransformer.encode_text). `index` is
     the block's place in the stack, which names its quant sites as the
-    reference does (``block_<index>/attn1/to_q``)."""
+    reference does (``block_<index>/attn1/to_q``). `mesh` as in
+    `PixArtTransformer`."""
 
-    def __init__(self, config: PixArtConfig, index: int = 0) -> None:
+    def __init__(self, config: PixArtConfig, index: int = 0, mesh=None) -> None:
         super().__init__()
         c = config
         self.config = c
         self.scale_shift_table = nn.Parameter(
             torch.empty(6, c.dim, dtype=c.dtype)
         )
-        q = dict(quant=c.quant, act_scales=c.act_scales)
+        q = dict(quant=c.quant, act_scales=c.act_scales, mesh=mesh)
         path = f"block_{index}"
         self.attn1 = Attention(c.dim, c.num_heads, c.head_dim, c.dtype, **q,
                                path=f"{path}/attn1")
@@ -211,6 +221,7 @@ class PixArtBlock(nn.Module):
         cache: dict[str, torch.Tensor],  # component → (B, T, d)
         mask: tuple[bool, bool, bool],
         enc_kv: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+        gather_kv: bool = False,  # h is the rank's sp share of the tokens
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         b = h.shape[0]
         # modulation in fp32, cast to the hidden dtype (pixart.py:230-233)
@@ -224,7 +235,8 @@ class PixArtBlock(nn.Module):
         recompute_attn1, recompute_attn2, recompute_ff = mask
 
         if recompute_attn1:
-            a1 = self.attn1(modulated_layer_norm(h, scale_msa, shift_msa))
+            a1 = self.attn1(modulated_layer_norm(h, scale_msa, shift_msa),
+                            gather_kv=gather_kv)
         else:
             a1 = cache["attn1"]
         h = gate_msa * a1 + h
@@ -249,18 +261,21 @@ class PixArtTransformer(nn.Module):
     """Full DiT. The block stage consumes a per-block component mask (the
     cache schedule row for the current step) plus the cache dict; an
     optional `plan` reorders/skips/repeats blocks (the DiT topology search
-    space, ``ecad_tpu_torch.graph``)."""
+    space, ``ecad_tpu_torch.graph``). With a `mesh` it holds its rank's
+    tp slice of the blocks and runs the block stage on its sp share of the
+    tokens (module docstring)."""
 
-    def __init__(self, config: PixArtConfig) -> None:
+    def __init__(self, config: PixArtConfig, mesh=None) -> None:
         super().__init__()
         c = config
         self.config = c
+        self.mesh = mesh
         self.patch_proj = nn.Linear(
             c.patch_size * c.patch_size * c.in_channels, c.dim, dtype=c.dtype
         )
         self.adaln_single = AdaLayerNormSingle(c)
         self.caption_projection = TextProjection(c.caption_dim, c.dim, c.dtype)
-        self.blocks = nn.ModuleList(PixArtBlock(c, i) for i in range(c.num_blocks))
+        self.blocks = nn.ModuleList(PixArtBlock(c, i, mesh) for i in range(c.num_blocks))
         self.proj_out = nn.Linear(
             c.dim, c.patch_size * c.patch_size * c.out_channels, dtype=c.dtype
         )
@@ -335,15 +350,24 @@ class PixArtTransformer(nn.Module):
             ].to(h.dtype)
         return h, t6, emb_t, enc, enc_kv, enc_bias
 
+    def local_tokens(self, tokens: int) -> int:
+        """The image tokens this rank's block stage (and its caches) holds:
+        its sp share where the tokens split over sp, else all."""
+        return tokens // self.mesh.size("sp") if seq_parallel(self.mesh, tokens) else tokens
+
     def create_output(
-        self, h: torch.Tensor, emb_t: torch.Tensor, gh: int, gw: int
+        self, h: torch.Tensor, emb_t: torch.Tensor, gh: int, gw: int,
+        gather: bool = False,
     ) -> torch.Tensor:
-        """Final modulated projection + unpatchify."""
+        """Final modulated projection + unpatchify; with `gather`, `h` is the
+        rank's sp share of the tokens, gathered after the projection."""
         shift, scale = (
             self.scale_shift_table[None].float() + emb_t[:, None].float()
         ).to(h.dtype).transpose(0, 1)
-        h = modulated_layer_norm(h, scale[:, None], shift[:, None])
-        return self.unpatchify(self.proj_out(h), gh, gw)
+        h = self.proj_out(modulated_layer_norm(h, scale[:, None], shift[:, None]))
+        if gather:
+            h = self.mesh.all_gather(h, "sp", dim=1)
+        return self.unpatchify(h, gh, gw)
 
     def forward(
         self,
@@ -364,10 +388,13 @@ class PixArtTransformer(nn.Module):
             latents, text_embeds, timestep, text_mask,
             resolution, aspect_ratio, text_precomputed,
         )
+        sp = seq_parallel(self.mesh, h.shape[1])
+        if sp:
+            h = self.mesh.shard(h, "sp", dim=1)
         h, new_cache = run_block_stage(
-            self.blocks, h, enc, t6, enc_bias, cache, mask, plan, enc_kv
+            self.blocks, h, enc, t6, enc_bias, cache, mask, plan, enc_kv, gather_kv=sp
         )
-        return self.create_output(h, emb_t, gh, gw), new_cache
+        return self.create_output(h, emb_t, gh, gw, gather=sp), new_cache
 
 
 def run_block_stage(
@@ -380,18 +407,20 @@ def run_block_stage(
     mask: StepMask,
     plan: Optional[tuple] = None,
     enc_kv: Optional[tuple] = None,
+    gather_kv: bool = False,
 ) -> tuple[torch.Tensor, dict[str, list]]:
     """Run the block stage. `plan` is an execution plan of the DiT topology
     DSL (``graph.build_plan``) or a plain sequence of block indices
     (default: 0..N-1). Cache rows are per block whatever the order; a
     repeated block leaves its last application's outputs. Returns the
-    hidden states and a new cache dict; the input cache is not mutated."""
+    hidden states and a new cache dict; the input cache is not mutated.
+    `gather_kv`: `h` is the rank's sp share of the tokens."""
     new_rows = {k: list(cache[k]) for k in COMPONENTS}
 
     def block_apply(i: int, x: torch.Tensor) -> torch.Tensor:
         x, updated = blocks[i](
             x, enc, t6, enc_bias, {k: new_rows[k][i] for k in COMPONENTS},
-            mask[i], enc_kv=None if enc_kv is None else enc_kv[i],
+            mask[i], enc_kv=None if enc_kv is None else enc_kv[i], gather_kv=gather_kv,
         )
         for k in COMPONENTS:
             new_rows[k][i] = updated[k]
@@ -413,15 +442,18 @@ def init_cache(
     tokens: int | None = None,
     dtype: torch.dtype | None = None,
     device: str | torch.device = "cuda",
+    blocks: int | None = None,
 ) -> dict[str, list]:
-    """Zero-initialized cache {component: [per-block (B, T, d)]}. Step 0
-    always recomputes (schedule_step_masks), so the zeros are never read."""
+    """Zero-initialized cache {component: [per-block (B, T, d)]}, for
+    `blocks` blocks (the config's by default; a pipeline stage's own
+    count under pp). Step 0 always recomputes (schedule_step_masks), so
+    the zeros are never read."""
     t = config.tokens if tokens is None else tokens
     shape = (batch, t, config.dim)
     return {
         k: [
             torch.zeros(shape, dtype=dtype or config.dtype, device=device)
-            for _ in range(config.num_blocks)
+            for _ in range(config.num_blocks if blocks is None else blocks)
         ]
         for k in COMPONENTS
     }
@@ -429,17 +461,20 @@ def init_cache(
 
 def init_model(
     config: PixArtConfig, seed: int = 0, device: str | torch.device = "cuda",
-    state: Optional[dict] = None,
+    state: Optional[dict] = None, mesh=None,
 ) -> PixArtTransformer:
     """A PixArtTransformer built directly in `config.dtype` on `device` (no
     fp32 masters, no host copy), in eval mode: with seeded random weights
     (``int8_w`` sites filled in int8, `randomize_`), or with `state`, a
     loaded state_dict (`models.weights.load_pixart_params`), cast into the
-    module's dtypes (`common.load_module`)."""
+    module's dtypes (`common.load_module`). With a `mesh`, the whole model
+    is made so and then cut to this rank's tp slice (`common.shard_module`),
+    so every rank holds a slice of the same weights."""
     dev = resolve_device(device)
     with torch.device("meta"):
         model = PixArtTransformer(config)
     if state is not None:
-        return load_module(model, state, dev)
-    model = model.to_empty(device=dev)
-    return randomize_(model, seed).eval().requires_grad_(False)
+        model = load_module(model, state, dev)
+    else:
+        model = randomize_(model.to_empty(device=dev), seed).eval().requires_grad_(False)
+    return model if mesh is None else shard_module(model, mesh)

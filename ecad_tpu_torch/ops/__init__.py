@@ -20,6 +20,7 @@ from .attention import (
     fused_attention_reference,
     rowblock_attention,
     rowblock_attention_reference,
+    single_tile_attention,
     transposed_attention,
     transposed_attention_reference,
 )
@@ -64,6 +65,7 @@ __all__ = [
     "fused_attention_reference",
     "rowblock_attention",
     "rowblock_attention_reference",
+    "single_tile_attention",
     "transposed_attention",
     "transposed_attention_reference",
     "matmul_only_attention",

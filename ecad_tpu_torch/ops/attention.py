@@ -598,6 +598,26 @@ def flash_attention(
     return _launch(q, k, v, bias, 3, pad_keys("flash", k.shape[1]))
 
 
+def single_tile_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The exact softmax of the single-tile route (K1; K2 with a bias) at
+    any shape, whatever `attention_route` would pick there: what the
+    reference's routing experiments call through ``fused_attention.
+    __wrapped__`` (scripts/exp_attn_pixart256.py), with that route's pad
+    keys (`pad_keys`)."""
+    _check(q, k, v, bias)
+    n_pad = pad_keys("exact", k.shape[1])
+    if q.device.type == "cpu":
+        return fused_attention_reference(q, k, v, bias, n_pad)
+    if _takes_sm90("attention", q, bias):
+        return _launch_sm90(q, k, v, "attention", bias)
+    return _launch(q, k, v, bias, 0, n_pad)
+
+
 def _check_key_padding(q, k, v, bias) -> None:
     _check(q, k, v, bias)
     if not _key_padding_bias_ok(bias, q.shape[0]):

@@ -58,21 +58,26 @@ def _span(name: str):
     return contextlib.nullcontext()
 
 
-def quantize_int8(x: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(x: torch.Tensor, dim: int, reduce=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 quantization along `dim`: (q, scale) with q int8 in
     [-127, 127] and scale fp32 shaped like `x` with `dim` kept as 1, so
-    that q · scale ≈ x (ref :45)."""
+    that q · scale ≈ x (ref :45). Where `x` is one rank's slice of `dim`
+    (a row-parallel site under tp), `reduce(t, "max")` takes the max-abs
+    over every rank's slice, so the scale is the whole row's."""
     x32 = x.float()
     amax = x32.abs().amax(dim=dim, keepdim=True)
+    if reduce is not None:
+        amax = reduce(amax, "max")
     scale = amax.clamp_min(_EPS) * (1.0 / 127.0)
     q = torch.round(x32 / scale).clamp_(-127.0, 127.0).to(torch.int8)
     return q, scale
 
 
-def quantize_weight(weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_weight(weight: torch.Tensor, reduce=None) -> tuple[torch.Tensor, torch.Tensor]:
     """A Linear weight (out, in) → its int8 (out, in) and its fp32 scale per
-    output channel (out,)."""
-    q, scale = quantize_int8(weight, dim=1)
+    output channel (out,); `reduce` as in `quantize_int8`, for a slice of
+    the input features."""
+    q, scale = quantize_int8(weight, dim=1, reduce=reduce)
     return q, scale.reshape(-1)
 
 
@@ -103,6 +108,7 @@ def int8_linear(
     act_amax: Optional[float] = None,
     weight_q: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     dtype: Optional[torch.dtype] = None,
+    reduce=None,
 ) -> torch.Tensor:
     """The W8A8 Linear: ``x @ weight.T + bias`` through the int8 product.
 
@@ -111,19 +117,27 @@ def int8_linear(
     `static_int8_dot_general` :110, with ``inv = 127 / amax`` and
     ``scale = 1 / inv`` in Python floats). `weight_q` is the weight's
     (int8, scale) pair when it is held already; else `weight` is quantized
-    here. The output is in `dtype` (default x's)."""
+    here. The output is in `dtype` (default x's).
+
+    At a row-parallel site under tp, `x` and the weight hold one rank's
+    slice of the input features and `reduce(t, op)` all-reduces over the
+    tp ranks: the token scales take the whole row's max-abs and the int32
+    sums are added across ranks before the dequant, so the output equals
+    the one-rank product bit for bit (integer sums in any order)."""
     dtype = x.dtype if dtype is None else dtype
     lead, k = x.shape[:-1], x.shape[-1]
     with _span("int8_quantize"):
-        wq, ws = quantize_weight(weight) if weight_q is None else weight_q
+        wq, ws = quantize_weight(weight, reduce) if weight_q is None else weight_q
         x2 = x.reshape(-1, k)
         if act_amax is None:
-            xq, xs = quantize_int8(x2, dim=-1)
+            xq, xs = quantize_int8(x2, dim=-1, reduce=reduce)
         else:
             inv = 127.0 / max(float(act_amax), _EPS)
             xq = torch.round(x2.float() * inv).clamp_(-127.0, 127.0).to(torch.int8)
             xs = 1.0 / inv
     acc = int8_matmul(xq, wq)
+    if reduce is not None:
+        acc = reduce(acc, "sum")
     with _span("int8_dequant"):
         y = (acc.float() * xs * ws).to(dtype)
         if bias is not None:
@@ -170,12 +184,15 @@ class QuantLinear(nn.Linear):
         self._wq = None
         self._wq_key = None
 
-    def weight_q(self) -> tuple[torch.Tensor, torch.Tensor]:
+    def weight_q(self, reduce=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """The int8 weight and its channel scales; `reduce` as in
+        `quantize_int8` where the weight is a slice of the input features
+        (a row-parallel site under tp)."""
         w = self.weight
         # an inference tensor has no version counter and cannot change
         key = (None if w.is_inference() else w._version, w.data_ptr(), w.device)
         if key != self._wq_key:
-            self._wq, self._wq_key = quantize_weight(w.detach()), key
+            self._wq, self._wq_key = quantize_weight(w.detach(), reduce), key
         return self._wq
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -240,17 +257,20 @@ def dense(
     return QuantLinear(in_features, out_features, fn, bias=bias, dtype=dtype)
 
 
-def quantize_params_tree(state: dict, ref: nn.Module) -> dict:
+def quantize_params_tree(state: dict, ref: nn.Module, reduce=None) -> dict:
     """A float model's state_dict → the state_dict of `ref`, the same
     architecture built for ``int8_w`` (ref :380): wherever `ref` has an
     `Int8Dense`, the float weight is quantized per output channel into its
     int8 ``weight`` and fp32 ``scale``; every other entry, an int8 weight
-    with its scale among them, passes through."""
+    with its scale among them, passes through. `reduce(name)` gives a
+    site's `reduce` for `quantize_weight` (a row-parallel slice under tp)
+    or None."""
     out = dict(state)
     for name, module in ref.named_modules():
         weight = state[f"{name}.weight"] if isinstance(module, Int8Dense) else None
         if weight is not None and weight.is_floating_point():
-            out[f"{name}.weight"], out[f"{name}.scale"] = quantize_weight(weight)
+            out[f"{name}.weight"], out[f"{name}.scale"] = quantize_weight(
+                weight, None if reduce is None else reduce(name))
     return out
 
 

@@ -148,7 +148,8 @@ class PixArtPipeline:
         if text_mask is not None and neg_mask is not None:
             enc_mask2 = torch.cat([neg_mask, text_mask], dim=0)
         tokens = (noise.shape[1] // c.patch_size) * (noise.shape[2] // c.patch_size)
-        cache = init_cache(c, 2 * b, tokens, device=noise.device)
+        cache = init_cache(c, 2 * b, self.model.local_tokens(tokens), device=noise.device,
+                           blocks=len(self.model.blocks))
         res, ar = self._additional_conditions(2 * b)
         text_pre = self._encode_text(enc2)
         x = noise * self.dpm.init_noise_sigma

@@ -80,7 +80,8 @@ class TGATEPixArtPipeline(PixArtPipeline):
         res2, ar2 = self._additional_conditions(2 * b)
         res1, ar1 = self._additional_conditions(b)
         tokens = (noise.shape[1] // c.patch_size) * (noise.shape[2] // c.patch_size)
-        cache = init_cache(c, 2 * b, tokens, device=noise.device)
+        cache = init_cache(c, 2 * b, self.model.local_tokens(tokens), device=noise.device,
+                           blocks=len(self.model.blocks))
         text_pre = self._encode_text(enc2)
         x = noise * self.dpm.init_noise_sigma
         state = DPMState(x, torch.zeros_like(x, dtype=torch.float32), False)

@@ -5,7 +5,8 @@ schedule JSONs, scores.json, the metrics.latency schema, the random VAE's
 decode; the resident generator's `set_schedule`; the port's batch-32 bench
 on the tiny model; `generate_embeddings --weights-root` on a tiny
 checkpoint tree; and the refusals (no GPU without --device cpu, the
-weight-backed scorers, more than one process)."""
+weight-backed scorers). More than one process:
+tests/test_torch_parallel_tools.py."""
 
 import json
 import shutil
@@ -569,19 +570,6 @@ def test_weight_backed_scorers_and_extractors_name_their_item(ws, tmp_path, monk
             tfid.main(["--image-dir", images, "--stats", str(tmp_path / "x.npz"),
                        "--make-stats", "--extractor", extractor, *CPU])
     assert not list(tmp_path.rglob("*scores.json")) and not (tmp_path / "x.npz").exists()
-
-
-@pytest.mark.parametrize("var", ["WORLD_SIZE", "JAX_NUM_PROCESSES"])
-def test_more_than_one_process_names_its_item(ws, tmp_path, monkeypatch, var):
-    calls = _cli_calls(ws, tmp_path)
-    monkeypatch.setenv(var, "2")
-    for tool in ("generate_images", "score_images"):
-        main, argv = calls[tool]
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            main([*argv, *CPU])
-    monkeypatch.setenv(var, "1")
-    tscore.main([*calls["score_images"][1], *CPU])
-    assert list((tmp_path / "imgs").rglob("scores.json"))
 
 
 def test_generate_embeddings_weights_root_encodes_with_t5(ws, tmp_path, monkeypatch):

@@ -41,7 +41,6 @@ for name in ("ecad_tpu_torch.graph.interpreter", "ecad_tpu_torch.graph.generator
              "ecad_tpu_torch.schedules.generators.flux_cache",
              "ecad_tpu_torch.schedules.generate_cli",
              "ecad_tpu_torch.benchmark", "ecad_tpu_torch.benchmark.prompts",
-             "ecad_tpu_torch.benchmark._processes",
              "ecad_tpu_torch.benchmark.generate_embeddings",
              "ecad_tpu_torch.benchmark.generate_images",
              "ecad_tpu_torch.benchmark.compute_latency",
@@ -53,7 +52,12 @@ for name in ("ecad_tpu_torch.graph.interpreter", "ecad_tpu_torch.graph.generator
              "ecad_tpu_torch.ops.quant", "ecad_tpu_torch.models.weights",
              "ecad_tpu_torch.models.t5", "ecad_tpu_torch.models.clip",
              "ecad_tpu_torch.scoring.image_reward", "ecad_tpu_torch.scoring.clip_score",
-             "ecad_tpu_torch.scoring.inception"):
+             "ecad_tpu_torch.scoring.inception",
+             "ecad_tpu_torch.parallel", "ecad_tpu_torch.parallel.distributed",
+             "ecad_tpu_torch.parallel.mesh", "ecad_tpu_torch.parallel.pipeline",
+             "ecad_tpu_torch.parallel.launch", "ecad_tpu_torch.parallel.dryrun",
+             "ecad_tpu_torch.scripts.bench_attention_kernels",
+             "ecad_tpu_torch.scripts.exp_attn_pixart256"):
     assert name in names, name
 importlib.import_module("chip_smoke")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -69,4 +73,4 @@ def test_port_imports_without_jax_flax_or_ecad_tpu():
         text=True, timeout=300,
     )
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.strip().splitlines()[-1]) >= 74  # every module was walked
+    assert int(r.stdout.strip().splitlines()[-1]) >= 80  # every module was walked

@@ -2,9 +2,9 @@
 CPU: a tiny PixArt mini-run of two cycles and its resume (mirroring the JAX
 package's test in tests/test_genetic.py), one tiny FLUX cycle, a cycle
 served from a tiny checkpoint tree under each checkpoint flag, the flags
-that raise at startup (a weight-backed scorer without its weights, and
-those that wait for a later ROADMAP.md queue 1 item), and the
-no-silent-CPU rule."""
+that raise at startup (a weight-backed scorer without its weights), and
+the no-silent-CPU rule. ``--dp``/``--tp``/``--sp`` over several ranks:
+tests/test_torch_parallel_tools.py."""
 
 import json
 import subprocess
@@ -80,15 +80,11 @@ def test_train_cli_flux_cycle(tmp_path):
 
 # flags that raise at startup, before anything is written, with what they
 # name: a weight-backed scorer without its weights (the reference's
-# missing-weights errors; --image-reward-dir with --scorer image_reward),
-# and the flags whose module waits for a later ROADMAP.md queue 1 item
+# missing-weights errors; --image-reward-dir with --scorer image_reward)
 WAITING = [
     (["--scorer", "image_reward"], "--scorer image_reward needs weights"),
     (["--scorer", "clip"], "ECAD_CLIP_MODEL_DIR"),
     (["--image-reward-dir", "ir"], "ImageReward.pt not found"),
-    (["--dp", "2"], "queue 1 item 8\\b"),
-    (["--tp", "2"], "queue 1 item 8\\b"),
-    (["--sp", "2"], "queue 1 item 8\\b"),
 ]
 
 
@@ -100,7 +96,7 @@ def test_waiting_flags_raise_with_their_item(tmp_path, monkeypatch, flags, item)
                 clip_score.ENV_MODEL_DIR):
         monkeypatch.delenv(var, raising=False)
     scorer = ["--scorer", "image_reward"] if flags[0] == "--image-reward-dir" else []
-    with pytest.raises((NotImplementedError, SystemExit), match=item):
+    with pytest.raises(SystemExit, match=item):
         train.main(["--name", "w", "--tiny-model", "--device", "cpu",
                     "--populations-dir", str(tmp_path / "p"), *flags, *scorer])
     assert not (tmp_path / "p").exists()
