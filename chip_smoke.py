@@ -29,22 +29,25 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    9728; the plain versions of K6 run per (batch·head) slice, since the
    fp32 scores of the served shape would take 34 GB. bf16 calls without a
    bias run on the Hopper body (``csrc/attention_sm90.cu``: wgmma fed by
-   TMA) — K1, K4 and K6 at head dims 72 and 128, K5 at 128 — and so do bf16
-   calls with a key-padding bias on the single-tile route (K2, at 72 and
-   128), on the clamp routes (K4 with a bias at 72 and 128, K5 with a bias
+   TMA) — K1, K4 and K6 at head dims 72 and 128, K5 at 128, K1 also at 64
+   — and so do bf16
+   calls with a key-padding bias on the single-tile route (K2, at 64, 72
+   and 128), on the clamp routes (K4 with a bias at 72 and 128, K5 with a bias
    at 128) and on the streaming route (K6 with a bias at 72 and 128, at
    PixArt-2048's shape with lengths 15384 / 9000 and at FLUX-1536's with
    9000 keys kept, each reached through the router with the launch
    counters set to 0 just before and read just after, and named by a
    profile); they are held against their plain versions at ragged
-   shapes (tq=30, tk=300 at d=72 and d=128; K6 also at 1600 keys, two of
+   shapes (tq=30, tk=300 at d=64, 72 and 128; K6 also at 1600 keys, two of
    the reference's 1536-key blocks; K2 with key-padding lengths [100, 200,
    256]; K4 and K5 with biases in bf16 and fp32, per batch and broadcast
    over it, at Tk=300, and K4 at PixArt-Σ-2048's cross-attention (2,
-   16384, 16, 72) → 120), logits near ±40 (log2) and q×1e4, and shown to
+   16384, 16, 72) → 120), logits near ±40 (log2; at d=64 within the
+   reference's 2e-3 beside one bf16 ulp) and q×1e4, and shown to
    reject a plain version that drops or repeats one 128-key tile (the
-   body's step) at 768 (K1), 4096 (K4), 4608 (K5), 9728 and 16384 (K6,
-   also with its bias) keys; K4 and K5 with a bias also in all-masked text rows, whose output
+   body's step) at 768 (K1 at d=128 and 64, K2 at 64), 4096 (K4), 4608
+   (K5), 9728 and 16384 (K6, also with its bias) keys; K4 and K5 with a
+   bias also in all-masked text rows, whose output
    must be Σv/Tk_pad within 2^-7 relative, a check shown to reject the
    pad keys counted twice (Σv/(Tk_pad + n_pad)); a call whose operands TMA
    cannot map, or whose bias the body does not read (fp16), raises there.
@@ -59,7 +62,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    Σv/Tk. Time kernel (with the
    SM clock, power and temperature sampled before and after), plain
    version and (attention) one ``scaled_dot_product_attention`` call as a
-   yardstick the port never calls. K3 (``csrc/modlnorm_sm90.cu``) also at
+   yardstick the port never calls. K1 and K2 at head dim 64 at the
+   reference's width-reduced FLUX 256² (8, 768, 24, 64; K2 with 700 of
+   768 keys kept) are timed in turns against SDPA and the mma.sync body of
+   ``attention.cu`` they replaced (``old_body_ms`` on their rows). K3 (``csrc/modlnorm_sm90.cu``) also at
    each width a served path gives it: PixArt-1024's (4, 4096, 1152),
    PixArt-Σ-2048's (2, 16384, 1152) and FLUX.1-dev-1024's image, text and
    joint streams (1, 4096 / 512 / 4608, 3072), and FLUX-1024's image and
@@ -97,8 +103,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    `fused_attention`'s routing at FLUX-1024's and PixArt-1024's shapes,
    one turn) and ``scripts/exp_attn_pixart256.py`` (SDPA, the single-tile
    route K1/K2 and the row-block route at the reference's "PixArt-256"
-   and FLUX-256 shapes) once each with 3 reps a row: every row timed and
-   within 2e-2 of its fp32 / plain softmax, the kernels' launches seen.
+   and FLUX-256 shapes, one shape at a time) once each with 3 reps a row:
+   every row timed and within 2e-2 of its fp32 / plain softmax, the
+   kernels' launches seen; the head-dim-64 shape's launches are K1's
+   alone, and a profile of that shape names
+   ``attn_exact_sm90_kernel<64, false>`` and no kernel of ``attention.cu``.
    Their rows go on the parallel line.
 4b. Multi-process parallelism (``parallel``): a one-rank NCCL group
    (spawned, NCCL's initialization and call sites on the card) runs the
@@ -271,7 +280,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    random 16-channel VAE to uint8, with the launch counts of K5, K6, K1 and
    K3 checked against each schedule; ``flux_256/ours_fast`` again with the
    caches stored as ``float8_e4m3fn`` (the same seeded weights), held to
-   the same checks and set beside the bf16 caches' latents; one cycle of the
+   the same launch checks (not profiled) and set beside the bf16 caches'
+   latents; one cycle of the
    search loop on the same resident model at 256² (4 candidates × 1 prompt,
    the fidelity scorer, checked as the PixArt search); the quant phase's
    FLUX part (`flux_quant`): ``int8_w`` quantized from the resident bf16
@@ -542,8 +552,8 @@ def attention_cases() -> None:
                     fused_attention(q, k, v, bias),
                     fused_attention_reference(q, k, v, bias), tol)
 
-        # bf16 at d=72 and d=128 without a bias: the Hopper body's K1
-        for d in (72, 128):
+        # bf16 at d=64, 72 and 128 without a bias: the Hopper body's K1
+        for d in (64, 72, 128):
             case(f"unaligned_tq30_tk300_d{d}",
                  rnd(2, 30, 3, d, dtype=dtype), rnd(2, 300, 3, d, dtype=dtype),
                  rnd(2, 300, 3, d, dtype=dtype))
@@ -568,10 +578,10 @@ def attention_cases() -> None:
                 raise AssertionError(f"attention_bias/{tag}: q×1e4 gave non-finite output"
                                      f" at d={d}")
         # rows whose every key has a bias of −1e9 (the reference's output
-        # there is Σv/Tk_pad) or −2e9 (0), beside a ragged row: K2 (at d=72
-        # on the Hopper body in bf16, on attention.cu in fp32 and at d=64)
-        # and K6's bias variant (at d=72 and 128, on the Hopper body in
-        # bf16), against the repaired plain versions
+        # there is Σv/Tk_pad) or −2e9 (0), beside a ragged row: K2 (at d=64
+        # and 72 on the Hopper body in bf16, on attention.cu in fp32) and
+        # K6's bias variant (at d=72 and 128, on the Hopper body in bf16; at
+        # d=64 on attention.cu), against the repaired plain versions
         from ecad_tpu_torch.ops.attention import _takes_sm90
 
         for fill in (-1e9, -2e9):
@@ -579,9 +589,9 @@ def attention_cases() -> None:
                 qm, km, vm = (rnd(2, 8, 2, d, dtype=dtype), rnd(2, 300, 2, d, dtype=dtype),
                               rnd(2, 300, 2, d, dtype=dtype))
                 bias_m = key_padding_bias([0, 280], 300, fill)
-                on_sm90 = dtype == torch.bfloat16 and d != 64
+                on_sm90 = (dtype == torch.bfloat16, dtype == torch.bfloat16 and d != 64)
                 if (_takes_sm90("attention", qm, bias_m), _takes_sm90(
-                        "attention_flash", qm, bias_m)) != (on_sm90, on_sm90):
+                        "attention_flash", qm, bias_m)) != on_sm90:
                     raise AssertionError(f"every_key_biased_{fill:g} at d={d}: wrong body")
                 if d != 128:
                     case(f"every_key_biased_{fill:g}" + ("" if d == 64 else f"_d{d}"),
@@ -630,10 +640,17 @@ def attention_cases() -> None:
                     key_padding_bias([7, 60], 120, -1e4, torch.float16))
         else:
             case("misaligned_rows_d72", *misaligned)
-        case("logits_near_40",
-             rnd(1, 16, 1, 64, dtype=dtype, scale=6.0),
-             rnd(1, 256, 1, 64, dtype=dtype), rnd(1, 256, 1, 64, dtype=dtype))
-        for d in (72, 128):
+        # the reference's extreme-logits case (tests/test_ops.py:165-187) at
+        # its own shape, d=64: logits to ±40 log2 within its 2e-3 — in bf16
+        # beside one bf16 ulp of the output, which both sides round once
+        # (K1 rounds p to bf16 for p·v, at most 2^-8 of each weight: below
+        # 2e-3 of an output whose |v| ≈ 0.8)
+        q40, k40, v40 = (rnd(1, 16, 1, 64, dtype=dtype, scale=6.0),
+                         rnd(1, 256, 1, 64, dtype=dtype), rnd(1, 256, 1, 64, dtype=dtype))
+        compare(f"attention/{tag}/logits_near_40", fused_attention(q40, k40, v40),
+                fused_attention_reference(q40, k40, v40),
+                (2e-3, 2.0 ** -7) if dtype == torch.bfloat16 else FP32_TOL)
+        for d in (64, 72, 128):
             hot = fused_attention(rnd(1, 128, 1, d, dtype=dtype, scale=1e4),
                                   rnd(1, 256, 1, d, dtype=dtype),
                                   rnd(1, 256, 1, d, dtype=dtype))
@@ -1088,6 +1105,7 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
     ]
     del q4t, k4t, v4t, kc4t, vc4t
     rows += flux_kernel_rows(rnd, bound, nbytes)
+    rows += d64_kernel_rows(rnd, bound, nbytes)
     rows += flash_kernel_rows(rnd, bound, nbytes)
 
     rows += k3_served_rows(rnd, bound, nbytes)
@@ -1285,6 +1303,73 @@ def flux_kernel_rows(rnd, bound, nbytes) -> list[dict]:
                             lambda: F.scaled_dot_product_attention(qst, kst, vst)),
     )
     return [row5, row5b, row1]
+
+
+# the reference's width-reduced FLUX (dim 1536: 24 heads of 64) at 256²,
+# 256 image + 512 text tokens, which its routing experiment forces onto
+# the single-tile route (scripts/exp_attn_pixart256.py:91-108); K2's
+# key-padding bias keeps 700 of the 768 keys
+D64_SHAPE, D64_KEEP = (8, 768, 24, 64), 700
+D64_TURNS = ("old", "new", "sdpa", "sdpa", "new", "old")
+
+
+def d64_kernel_rows(rnd, bound, nbytes) -> list[dict]:
+    """K1 and K2 at head dim 64 on the Hopper body (`attn_exact_sm90_kernel
+    <64, false|true>`) at `D64_SHAPE`: each reached through the
+    single-tile wrapper, held to its plain version (with a dropped and a
+    repeated 128-key tile rejected), then timed in turns (`D64_TURNS`)
+    against the mma.sync body of csrc/attention.cu it replaced at this
+    width (``old_body_ms``) and one ``scaled_dot_product_attention`` call.
+    K2's launches are its own router call's: no path sends it."""
+    import torch.nn.functional as F
+
+    from ecad_tpu_torch.ops import attention as A
+
+    q, k, v = (rnd(*D64_SHAPE) for _ in range(3))
+    b, t, h, d = D64_SHAPE
+    bias = key_padding_bias([D64_KEEP] * b, t, -1e9, torch.bfloat16)
+    n_pad = A.pad_keys("exact", t)
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    rows = []
+    for name, bb, replaces in (
+            ("attention_d64", None, "ecad_tpu/ops/attention.py:58 (_attn_kernel)"),
+            ("attention_bias_d64", bias, "ecad_tpu/ops/attention.py:75 (_attn_kernel_bias)")):
+        out = []
+        counts = counted(lambda: out.append(A.single_tile_attention(q, k, v, bb)))
+        got = out.pop()
+        want_counts = {**dict.fromkeys(COUNTERS, 0), name.replace("_d64", ""): 1}
+        if counts != want_counts:
+            raise AssertionError(f"{name}: launches {counts}, not one Hopper K1/K2")
+        REPORT.setdefault("d64_launches", {})[name] = 1
+        want = A.fused_attention_reference(q, k, v, bb)
+        err = compare(f"{name.replace('_d64', '')}/bf16/flux256_dim1536_8x768x24x64", got, want,
+                      clamp_bf16_tol)
+        for fault, (lo, hi) in (("drops", (128, 256)), ("repeats", (256, 128))):
+            def cut(x, dim):  # keys [0, lo) then [hi, Tk): tile 1 dropped or repeated
+                return None if x is None else torch.cat(
+                    (x.narrow(dim, 0, lo), x.narrow(dim, hi, x.shape[dim] - hi)), dim)
+            rejects(f"{name}_{fault}_128_key_tile_1",
+                    A.fused_attention_reference(q, cut(k, 1), cut(v, 1), cut(bb, 3)), want,
+                    clamp_bf16_tol)
+        del got, want
+        fns = {"new": lambda: A.single_tile_attention(q, k, v, bb),
+               "old": lambda: A._launch(q, k, v, bb, 0, n_pad),
+               "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bb)}
+        times = {w: [] for w in fns}
+        for i, which in enumerate(D64_TURNS):
+            label = name if which == "new" and not times["new"] else f"{name}/{which}/{i}"
+            times[which].append(timed_ms(label, fns[which], clocks=label == name))
+        REPORT.setdefault("d64_turns", {})[name] = times
+        b_ms, by = bound(nbytes(q, k, v, q, *(() if bb is None else (bb,))),
+                         4 * b * h * t * t * d)
+        rows.append(dict(
+            name=name, route="cuda", source="ecad_tpu_torch/csrc/attention_sm90.cu",
+            replaces=replaces, max_abs_err=err, ms=statistics.median(times["new"]),
+            plain_ms=timed_ms(f"{name}/plain", lambda: A.fused_attention_reference(q, k, v, bb),
+                              reps=3, inner=5),
+            bound_ms=b_ms, bound_by=by, library_ms=statistics.median(times["sdpa"]),
+            old_body_ms=statistics.median(times["old"])))
+    return rows
 
 
 def flash_kernel_rows(rnd, bound, nbytes) -> list[dict]:
@@ -4293,12 +4378,15 @@ def flux_path() -> dict:
     model = init_model(cfg8, 0, "cuda")
     pcfg8 = FluxPipelineConfig(cfg8, STEPS, guidance_scale=5.0, height=256, width=256)
     pipe8 = FluxPipeline(pcfg8, model, FluxCacheSchedule.from_json(FLUX_OURS_FAST_256))
+    # counted and timed, not profiled: its kernels are the bf16 run's above
+    # (the launch counts say so), and the profile's processing took the
+    # seconds the D=64 kernel rows (PR 20) added to the script
     result["256_fp8_cache"] = drive(
         {"ours_fast": pipe8}, inp,
         lambda lat: vae.decode_device(unpack_latents(lat, *pcfg8.grid_hw)),
         BATCH_FLUX_256, 256,
         lambda pipe: flux_expected_counts(pipe.masks, config.num_blocks, "attention"),
-        order=("ours_fast", "ours_fast"), kernels=SERVED_KERNELS["flux256"],
+        order=("ours_fast", "ours_fast"), kernels=SERVED_KERNELS["flux256"], profiled=(),
     )
     got = pipe8.denoise(**inp).float()
     diff = float((got - want).abs().max())
@@ -4398,14 +4486,32 @@ def kernel_scripts_phase() -> dict:
     (`bench_attention_kernels`: 1 turn of 3 reps; `exp_attn_pixart256`: 3
     reps): every row timed, finite and within its error bound (bf16
     outputs: 2e-2 against the fp32 / plain softmax, a few bf16 ulps of
-    outputs below 1), with the launches of the port's kernels counted."""
+    outputs below 1), with the launches of the port's kernels counted, those
+    of `exp_attn_pixart256` shape by shape: its head-dim-64 row
+    (``flux256_dim1536_self``) launches K1 on the Hopper body, which a
+    profile of that row names, and nothing of csrc/attention.cu."""
     from ecad_tpu_torch.scripts import bench_attention_kernels, exp_attn_pixart256
 
     log("kernel scripts: bench_attention_kernels, exp_attn_pixart256")
     rows = []
     counts = counted(lambda: rows.extend(
-        bench_attention_kernels.main(["--turns", "1", "--reps", "3"])
-        + exp_attn_pixart256.main(["--reps", "3"])))
+        bench_attention_kernels.main(["--turns", "1", "--reps", "3"])))
+    shapes, by_shape = exp_attn_pixart256.SHAPES, {}
+    d64 = "flux256_dim1536_self"
+    try:
+        for shape, s in shapes.items():
+            exp_attn_pixart256.SHAPES = {shape: s}
+            by_shape[shape] = counted(lambda: rows.extend(exp_attn_pixart256.main(["--reps", "3"])))
+        exp_attn_pixart256.SHAPES = {d64: shapes[d64]}
+        d64_names = device_kernel_names(lambda: exp_attn_pixart256.main(["--reps", "1"]))
+    finally:
+        exp_attn_pixart256.SHAPES = shapes
+    counts = {c: n + sum(by_shape[shape][c] for shape in shapes) for c, n in counts.items()}
+    if [c for c, n in by_shape[d64].items() if n] != ["attention"]:
+        raise AssertionError(f"{d64}: launches {by_shape[d64]}, not K1's alone")
+    if not any("attn_exact_sm90_kernel<64, false>" in n or "attn_exact_sm90_kernelILi64ELb0E" in n
+               for n in d64_names) or any("_bf16_kernel" in n for n in d64_names):
+        raise AssertionError(f"{d64} ran {d64_names}: not K1 on the Hopper body at D=64 alone")
     for r in rows:
         err = r["detail"].get("max_abs_err_vs_fp32", r["detail"].get("max_abs_err_vs_plain"))
         if not (r["value"] and np.isfinite(r["value"]) and err < 2e-2):
@@ -4417,7 +4523,9 @@ def kernel_scripts_phase() -> dict:
     return {"rows": [{"metric": r["metric"], "ms": r["value"],
                       "max_abs_err": r["detail"].get("max_abs_err_vs_fp32",
                                                      r["detail"].get("max_abs_err_vs_plain"))}
-                     for r in rows], "launches": counts}
+                     for r in rows], "launches": counts,
+            "launches_by_shape": {"exp_attn_pixart256": by_shape},
+            "device_kernels": {d64: [n for n in d64_names if "attn" in n]}}
 
 
 # two ranks sharing the card: the final latents of each mode against the
@@ -4944,7 +5052,9 @@ def main() -> None:
     args.report.parent.mkdir(parents=True, exist_ok=True)
     # launches from the run of each kernel's path: PixArt-256 `ours_fast`
     # for K1-K3, PixArt-1024 `ours_fast` for K4, FLUX-1024 `fast` for K5,
-    # FLUX-256 `ours_fast` for K1 at D=128, PixArt-2048 `ours_fast` for K6,
+    # FLUX-256 `ours_fast` for K1 at D=128, the kernel scripts' run of
+    # `exp_attn_pixart256`'s D=64 row for K1 at D=64 (K2 at D=64, which
+    # nothing sends, its own router call), PixArt-2048 `ours_fast` for K6,
     # FLUX-1536 `fast` for K6 at D=128, K6 with a bias (which no served
     # path sends) its own router call at each shape, K3's rows at the
     # served widths their path's cached run (FLUX-1024 `fast` split by
@@ -4971,6 +5081,11 @@ def main() -> None:
             row["launches"] = REPORT["flux"]["1024"]["fast"]["launches"][name]
         elif name == "attention_flux256":
             row["launches"] = REPORT["flux"]["256"]["ours_fast"]["launches"]["attention"]
+        elif name == "attention_d64":
+            row["launches"] = scripts["launches_by_shape"]["exp_attn_pixart256"][
+                "flux256_dim1536_self"]["attention"]
+        elif name in REPORT["d64_launches"]:
+            row["launches"] = REPORT["d64_launches"][name]
         else:
             row["launches"] = REPORT["main_path"]["ours_fast"]["launches"][name]
     kernels.update(variants)
@@ -5014,11 +5129,13 @@ def main() -> None:
           flush=True)
     print(json.dumps(scorers_line(REPORT["scorers"], seconds["scorers"])), flush=True)
     print(json.dumps(parallel_line(REPORT["parallel"], scripts, seconds)), flush=True)
-    # every row has the contract's keys; X1's also its two-call yardstick
+    # every row has the contract's keys; X1's also its two-call yardstick,
+    # the D=64 rows the time of the mma.sync body they replaced
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
-                                   **{k: r[k] for k in ("two_call_ms",) if k in r}}
+                                   **{k: r[k] for k in ("two_call_ms", "old_body_ms")
+                                      if k in r}}
                                   for r in kernels.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,6 +1,7 @@
 // Attention forward for Hopper (sm_90a): wgmma fed by TMA through
 // mbarriers, with a producer warpgroup and two consumer warpgroups. bf16 q,
-// k, v of shape (B, T, H, D), D = 72 or 128 (a template argument), in any
+// k, v of shape (B, T, H, D), D = 72 or 128 (and 64 for K1 and K2; a
+// template argument), in any
 // 16-byte-aligned strides, in six softmax modes (a template argument, as in
 // attention.cu) under eight kernel names, one per route and one per mode of
 // the attention-variant harness; every exact and clamp kernel also takes a
@@ -17,13 +18,16 @@
 //       the reference streams past 8192×128 key elements (:573-673) and no
 //       served path sends;
 //     - `attn_exact_sm90_kernel<D, false>` (K1) replaces the single-tile
-//       kernel `_attn_kernel` (:58, launched :746) at D=128 and D=72 —
-//       FLUX.1-dev's joint attention at 256² (4, 768, 24, 128) and PixArt's
-//       self-attention at 256² (2B, 256, 16, 72);
+//       kernel `_attn_kernel` (:58, launched :746) at D=128, D=72 and D=64
+//       — FLUX.1-dev's joint attention at 256² (4, 768, 24, 128), PixArt's
+//       self-attention at 256² (2B, 256, 16, 72), and the reference's
+//       width-reduced FLUX (dim 1536, 24 heads of 64) at 256² (8, 768, 24,
+//       64), which its routing experiment (scripts/exp_attn_pixart256.py)
+//       forces onto this route;
 //     - `attn_exact_sm90_kernel<D, true>` (K2) replaces `_attn_kernel_bias`
 //       (:75, launched :781) for a key-padding bias (B|1, 1, 1, Tk), bf16 or
-//       fp32 — PixArt's text cross-attention at 256² (2B, 256, 16, 72) →
-//       120 keys, whose bias is bf16 0 or −9984.
+//       fp32, at the same head dims — PixArt's text cross-attention at 256²
+//       (2B, 256, 16, 72) → 120 keys, whose bias is bf16 0 or −9984.
 //     s = q·kᵀ in fp32 from bf16 operands, times 1/√D on the fp32 score (q
 //     is not pre-scaled), an online max and sum in fp32 in the log2 domain
 //     (without a bias the max taken on the raw scores, then p = exp2(s·c −
@@ -139,7 +143,8 @@
 // 5.22e11 flops, 0.528 ms; (8, 4096, 16, 72) 6.18e11, 0.625 ms; (64, 1024,
 // 16, 72) 3.09e11, 0.313 ms. K4 with a bias, to 120 text keys: 1.4e10
 // flops on the 78 MB of q and o, 0.023 ms by bytes. K1 at FLUX-256 (4,
-// 768, 24, 128): 2.9e10 flops on 38 MB, 0.029 ms by operations; at
+// 768, 24, 128): 2.9e10 flops on 38 MB, 0.029 ms by operations, and the
+// same at D=64 (8, 768, 24, 64) on 38 MB; at
 // PixArt-256 (16, 256, 16, 72): 4.8e9 flops on 38 MB, 0.011 ms by bytes;
 // K2 there, 256 → 120 keys: 2.3e9 flops on 28 MB, 0.008 ms by bytes. So
 // the tensor cores bound all but the last two, and the exp2s come second:
@@ -147,7 +152,10 @@
 // GHz, 132 SMs) take ≈0.14 ms of the
 // special-function units — half the tensor-core bound at D=128, and nearer
 // the whole of it at D=72, where a score costs 0.59 of the products — so
-// they must overlap the products, not follow them.
+// they must overlap the products, not follow them. At D=64 a score costs
+// the tensor cores 4·64 flops, 1/16 of an SM's clock, and its exp2 1/16 of
+// the special-function units' clock: the exp2s alone take as long as the
+// bound.
 //
 // The design, in what it does about that:
 //   * Only `wgmma` reaches the full tensor-core rate on Hopper. A block has
@@ -207,6 +215,19 @@
 //     third independent chain for the tensor cores, and each k/v tile
 //     serves 1.5 times the rows. Its registers fit 160 a thread (s, o and
 //     p take 132); q's tile is 192 rows (a 24 KB box, a 3 KB tail).
+//   * At D=64 (K1 and K2 only) a k or v tile is one 64-column box, 16 KB
+//     with no tail, and the freed shared memory holds a fourth ring stage.
+//     Its p·v is short (64 columns), and the softmax chain costs what the
+//     products do (above), so K1 and K2 run three consumer warpgroups, as
+//     K6 at D=72 does: 192 query rows an item, 160 registers a consumer
+//     (s, o and p take 128), 203 KB of shared memory; K2's 32 staged bias
+//     values spill 12 bytes there. On the card
+//     (scripts/probe_attention_body.py, NVIDIA H100 80GB HBM3, 700 W, at
+//     (8, 768, 24, 64)) two consumers made K1 11 % slower and K2 8 %;
+//     taking out K1's softmax took 34 % off, its exp2s 16 %, its p·v
+//     products 11 %, its k/v loads nothing: the softmax chain, not the
+//     products or the loads, holds it at 2.3 times its bound (0.069
+//     against 0.029 ms; SDPA 0.076).
 //   * Short key counts (K1: 6 key tiles at FLUX-256, 2 at PixArt-256; K4
 //     with a bias: one tile of 120 text keys) leave the q load, the ring's
 //     fill and drain and the o store in the open when a block owns one
@@ -335,23 +356,27 @@ constexpr int kHelperThreads = 96;  // the producer warpgroup's warps 1-3
 
 // A tile of `rows` rows (128 keys of k or v; 64 query rows per consumer
 // warpgroup of q) in shared memory. D=128: two 64-column boxes under the
-// 128-byte swizzle, 256 bytes a row. D=72: one such box (columns 0-63), the
-// unswizzled tail box (columns 64-71, 16 bytes a row) and as many zeros
-// after it, which q·kᵀ's fifth k-step reads as columns 72-79: 160 bytes a
-// row, of which TMA writes 144. The ring has kStages stages of k and v: two
-// at D=128 (192 KB with the q buffers), three at D=72 (160 KB with two
-// consumers, 180 KB with three), where the loads are the larger share of a
-// tile's time.
+// 128-byte swizzle, 256 bytes a row. D=64: one such box, 128 bytes a row.
+// D=72: one such box (columns 0-63), the unswizzled tail box (columns
+// 64-71, 16 bytes a row) and as many zeros after it, which q·kᵀ's fifth
+// k-step reads as columns 72-79: 160 bytes a row, of which TMA writes 144.
+// The ring has kStages stages of k and v: two at D=128 (192 KB with the q
+// buffers), three at D=72 (160 KB with two consumers, 180 KB with three),
+// where the loads are the larger share of a tile's time, four at D=64,
+// whose 16 KB tiles leave room for them (176 KB with the q buffers of
+// three consumers).
 template <int D>
 struct TileOf {
-  static_assert(D == 72 || D == 128, "the body is built at head dims 72 and 128");
+  static_assert(D == 64 || D == 72 || D == 128, "the body is built at head dims 64, 72 and 128");
   int rows;
   __host__ __device__ constexpr int box() const { return rows * 128; }  // a 64-column swizzled box
   __host__ __device__ constexpr int tail() const { return rows * 16; }  // D=72's 8-column tail
   __host__ __device__ constexpr int bytes() const {
-    return D == 128 ? 2 * box() : box() + 2 * tail();
+    return D == 128 ? 2 * box() : D == 64 ? box() : box() + 2 * tail();
   }
-  __host__ __device__ constexpr int load() const { return D == 128 ? 2 * box() : box() + tail(); }
+  __host__ __device__ constexpr int load() const {
+    return D == 128 ? 2 * box() : D == 64 ? box() : box() + tail();
+  }
 };
 
 // The shared memory of a block with NC consumer warpgroups (NC·64 query
@@ -359,12 +384,12 @@ struct TileOf {
 // staging rows for the o store (64 × D bf16), each stage's bias slot (128
 // fp32), the barriers (q: full, empty and ready; k, v: full and empty),
 // and 1024 bytes to align the base: 226 KB at D=128, 181 KB at D=72 (210
-// KB with three consumers).
+// KB with three consumers), 203 KB at D=64 (three consumers).
 template <int D, int NC>
 struct Smem {
   static constexpr TileOf<D> kQ{64 * NC}, kKV{kBlockN};
-  static constexpr int kStages = D == 128 ? 2 : 3;
-  static constexpr int kOut = 64 * D * 2;  // 16 KB at D=128, 9 KB at D=72
+  static constexpr int kStages = D == 128 ? 2 : D == 72 ? 3 : 4;
+  static constexpr int kOut = 64 * D * 2;  // 16 KB at D=128, 9 KB at D=72, 8 KB at D=64
   static constexpr int kBarriers = 3 * kQBufs + 4 * kStages;
   static constexpr int kBytes = kQBufs * kQ.bytes() + 2 * kStages * kKV.bytes() + NC * kOut +
                                 kStages * kBlockN * 4 + kBarriers * 8 + 1024;
@@ -464,14 +489,14 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
 }
 
 // A bf16 tile (`tile`'s rows) at rows `row` of (batch b, head h): two
-// 64-column boxes of `map`, one after the other (D=128), or one and the
-// 8-column box of `tail` at column 64 after it (D=72).
+// 64-column boxes of `map`, one after the other (D=128), one (D=64), or one
+// and the 8-column box of `tail` at column 64 after it (D=72).
 template <int D>
 __device__ __forceinline__ void tma_tile(uint32_t dst, TileOf<D> tile, const CUtensorMap* map,
                                          const CUtensorMap* tail, uint32_t bar, int h, int row,
                                          int b) {
   tma_load(dst, map, bar, 0, h, row, b);
-  tma_load(dst + tile.box(), D == 128 ? map : tail, bar, 64, h, row, b);
+  if constexpr (D != 64) tma_load(dst + tile.box(), D == 128 ? map : tail, bar, 64, h, row, b);
 }
 
 // --- wgmma ------------------------------------------------------------------
@@ -558,22 +583,30 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
   "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 
-// D=72's p·v in two products: d[0..31] (64 × 64) += a · b, b the first 64
-// columns of v (one 128-byte-swizzled box, MN-major); d[32..35] (64 × 8)
-// += a · b, b the 8-column tail (unswizzled, MN-major). The accumulators
-// keep the layout of one 64 × 72 product: column block j in d[4j .. 4j+3].
-// X4 (N = 40) widens the second product to 16 columns, d[32..39]: the tail
-// and, `db_tail`'s stride apart, the ones tile, as one 64 × 80 product.
+// p·v over v's first 64 columns: d[0..31] (64 × 64) += a · b, b one
+// 128-byte-swizzled box of v (MN-major). At D=64 (N = 32) the whole of it.
 template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N], const uint32_t (&a)[4], uint64_t db,
-                                         uint64_t db_tail) {
-  static_assert(N == 36 || N == 40, "D=72's accumulators, and X4's denominator block");
+__device__ __forceinline__ void wgmma_rs64(float (&d)[N], const uint32_t (&a)[4], uint64_t db) {
+  static_assert(N >= 32, "64 columns of o: 32 accumulators a thread");
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : WGMMA_ACC8(0), WGMMA_ACC8(8), WGMMA_ACC8(16), WGMMA_ACC8(24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D=72's p·v in two products: d[0..31] (64 × 64) += a · b (`wgmma_rs64`);
+// d[32..35] (64 × 8) += a · b, b the 8-column tail (unswizzled, MN-major).
+// The accumulators keep the layout of one 64 × 72 product: column block j
+// in d[4j .. 4j+3]. X4 (N = 40) widens the second product to 16 columns,
+// d[32..39]: the tail and, `db_tail`'s stride apart, the ones tile, as one
+// 64 × 80 product.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N], const uint32_t (&a)[4], uint64_t db,
+                                         uint64_t db_tail) {
+  static_assert(N == 36 || N == 40, "D=72's accumulators, and X4's denominator block");
+  wgmma_rs64(d, a, db);
   if constexpr (N == 36) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %9, 0;\n"
@@ -773,6 +806,7 @@ __device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&p)[8][4]
 template <int D, int MODE, bool BIAS, int NC>
 __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Params& p) {
   static_assert(NC == 2 || NC == 3, "two or three consumer warpgroups");
+  static_assert(D != 64 || MODE == kExact, "D=64 is built for the exact single-tile mode only");
   static_assert(!ones_denominator(MODE) || (D == 72 && !BIAS),
                 "X4's ones column is D=72's tenth column block, without a bias");
   constexpr int kBlockM = 64 * NC;  // query rows per work item
@@ -780,7 +814,7 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
   // registers a thread: the producer gives its own away, the consumers take
   // them (128 × (40 + 2 × 232) and 128 × (24 + 3 × 160) ≤ 65536)
   constexpr int kProducerRegs = NC == 2 ? 40 : 24, kConsumerRegs = NC == 2 ? 232 : 160;
-  constexpr int kQkSteps = (D + 15) / 16;  // k16 steps of q·kᵀ: 8 at D=128, 5 at D=72
+  constexpr int kQkSteps = (D + 15) / 16;  // k16 steps of q·kᵀ: 8 at D=128, 5 at D=72, 4 at D=64
   // a thread's fp32 accumulators of o (64 × D) and, in X4, of the
   // denominator's column block (64 × 8: column 72 of a 64 × 80 product)
   constexpr int kAcc = D / 2 + (ones_denominator(MODE) ? 4 : 0);
@@ -936,6 +970,8 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
       wgmma_rs(o, a, v_desc(s, kk),
                desc_plain(v_s(s) + kBoxBytes + kk * 256, 128,
                           ones_denominator(MODE) ? kTailBytes : 128));
+    else if constexpr (D == 64)
+      wgmma_rs64(o, a, v_desc(s, kk));
     else
       wgmma_rs(o, a, v_desc(s, kk));
   };
@@ -960,12 +996,13 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
   const float qk_scale = MODE == kExact ? p.scale * kLog2e : 1.f;
   // a pre-scaled q is read once the helpers have scaled it
   auto q_in = [&](int qb) { return scaled_q(MODE) ? q_ready(qb) : q_full(qb); };
-  // this consumer's staging rows for the o store (64 × D bf16: at D=128 two
-  // 64-column boxes under the 128-byte swizzle, at D=72 rows of 144 bytes)
+  // this consumer's staging rows for the o store (64 × D bf16: at D=128
+  // two 64-column boxes under the 128-byte swizzle, at D=64 one, at D=72
+  // rows of 144 bytes)
   const uint32_t out_tile = out_s(c);
   auto out_at = [&](int row, int jb) {
-    return D == 128 ? (jb / 8) * 8192 + row * 128 + (((jb % 8) ^ (row % 8)) * 16) + 2 * col_t
-                    : row * 144 + jb * 16 + 2 * col_t;
+    return D != 72 ? (jb / 8) * 8192 + row * 128 + (((jb % 8) ^ (row % 8)) * 16) + 2 * col_t
+                   : row * 144 + jb * 16 + 2 * col_t;
   };
 
   float b2[BIAS ? 32 : 1];
@@ -1127,10 +1164,13 @@ __global__ void __launch_bounds__(384, 1)
     attn_rowblock_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
   attn_sm90_body<D, kClamp, BIAS, 2>(maps.m, p);
 }
+// K1's and K2's consumer warpgroups: two, three at D=64 (see the note)
+template <int D>
+constexpr int kExactConsumers = D == 64 ? 3 : 2;
 template <int D, bool BIAS>
-__global__ void __launch_bounds__(384, 1)
+__global__ void __launch_bounds__(128 * (kExactConsumers<D> + 1), 1)
     attn_exact_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
-  attn_sm90_body<D, kExact, BIAS, 2>(maps.m, p);
+  attn_sm90_body<D, kExact, BIAS, kExactConsumers<D>>(maps.m, p);
 }
 template <int D, bool BIAS>
 __global__ void __launch_bounds__(384, 1)
@@ -1190,8 +1230,8 @@ Launch sm90_launch(int mode, bool bias) {
                                             : attn_rowblock_sm90_kernel<D, false>);
       return Launch{};
     case 2:
-      return launch_of<D, 2, kExact>(bias ? attn_exact_sm90_kernel<D, true>
-                                          : attn_exact_sm90_kernel<D, false>);
+      return launch_of<D, kExactConsumers<D>, kExact>(bias ? attn_exact_sm90_kernel<D, true>
+                                                           : attn_exact_sm90_kernel<D, false>);
     case 3:
       return launch_of<D, 2, kClamp>(bias ? attn_clamp_sm90_kernel<D, true>
                                           : attn_clamp_sm90_kernel<D, false>);
@@ -1211,6 +1251,13 @@ Launch sm90_launch(int mode, bool bias) {
     default:
       return Launch{};
   }
+}
+// At D=64 only K1 and K2 (mode 2) are built.
+template <>
+Launch sm90_launch<64>(int mode, bool bias) {
+  if (mode != 2) return Launch{};
+  return launch_of<64, kExactConsumers<64>, kExact>(bias ? attn_exact_sm90_kernel<64, true>
+                                                         : attn_exact_sm90_kernel<64, false>);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1239,7 +1286,8 @@ EncodeTiled encode_tiled() {
 
 }  // namespace
 
-// q, k, v: bf16 (B, T, H, D), D = 72 or 128; `maps` holds 11 values for
+// q, k, v: bf16 (B, T, H, D), D = 72 or 128 (and 64 in mode 2 only);
+// `maps` holds 11 values for
 // each of q, k, v in turn: the dims {D, H, T, B}, the byte strides of H, T
 // and B, and the box {64, 1, 128, 1}, as ops/attention.py's `tma_operand`
 // computes them. o: bf16 (B, Tq, H, D) with element strides o_strides (b,
@@ -1273,6 +1321,7 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
   const bool has_bias = bias != nullptr;
   const Launch launch = maps[0] == 128 ? sm90_launch<128>(mode, has_bias)
                         : maps[0] == 72 ? sm90_launch<72>(mode, has_bias)
+                        : maps[0] == 64 ? sm90_launch<64>(mode, has_bias)
                                         : Launch{};
   const int block_m = 64 * launch.consumers;  // query rows per work item
   const long long n_items = (long long)B * H * ((Tq + block_m - 1) / block_m);
@@ -1288,14 +1337,14 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   };
   // q, k, v under the 128-byte swizzle, then (D=72) their 8-column tails
-  // without swizzle; at D=128 the last three are copies, never read
+  // without swizzle; at D=128 and D=64 the last three are copies, never read
   Maps tmaps;
   const void* ptrs[3] = {q, k, v};
   for (int i = 0; i < 6; ++i) {
     const unsigned long long* a = maps + 11 * (i % 3);
     if (a[0] != maps[0] || a[7] != 64 || a[8] != 1 || a[9] != kBlockN || a[10] != 1)
       return (int)cudaErrorInvalidValue;
-    if (i >= 3 && maps[0] == 128) {
+    if (i >= 3 && maps[0] != 72) {
       tmaps.m[i] = tmaps.m[i - 3];
       continue;
     }
@@ -1312,13 +1361,15 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
   }
   {
     // o, stored 64 rows a consumer warpgroup: at D=128 two 64-column boxes
-    // under the 128-byte swizzle, at D=72 one 72-column box without it
-    const bool d128 = maps[0] == 128;
+    // under the 128-byte swizzle, at D=64 one, at D=72 one 72-column box
+    // without it
+    const bool swizzled = maps[0] != 72;
     const cuuint64_t dims[4] = {maps[0], (cuuint64_t)H, (cuuint64_t)Tq, (cuuint64_t)B};
     const cuuint64_t strides[3] = {2ull * o_strides[2], 2ull * o_strides[1], 2ull * o_strides[0]};
-    const cuuint32_t box[4] = {d128 ? 64u : 72u, 1, 64, 1};
-    const CUresult r = encode_map(&tmaps.m[6], o, dims, strides, box,
-                                  d128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
+    const cuuint32_t box[4] = {swizzled ? 64u : 72u, 1, 64, 1};
+    const CUresult r =
+        encode_map(&tmaps.m[6], o, dims, strides, box,
+                   swizzled ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
     if (r != CUDA_SUCCESS) return 100000 + (int)r;
   }
   Params p;
@@ -1338,8 +1389,8 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
   p.n_pad = mode >= 4 ? 0 : (Tk + bk - 1) / bk * bk - Tk;
   p.scale = launch.q_prescaled ? q_scale : scale;
   // above 48 KB dynamic shared memory needs an opt-in (once per kernel)
-  static bool opted_in[2][8][2] = {};
-  bool& opted = opted_in[maps[0] == 72][mode][has_bias];
+  static bool opted_in[3][8][2] = {};
+  bool& opted = opted_in[maps[0] == 128 ? 0 : maps[0] == 72 ? 1 : 2][mode][has_bias];
   if (!opted) {
     const cudaError_t err = cudaFuncSetAttribute(
         launch.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, launch.smem);

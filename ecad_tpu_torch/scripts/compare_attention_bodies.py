@@ -4,6 +4,7 @@ dims and dense biases), kernel by kernel, in turns, in one process on one
 card; and the harness's X3 against one library call, in turns.
 
     python -m ecad_tpu_torch.scripts.compare_attention_bodies [--out bodies.json]
+        [--rows attention_d64,attention_bias_d64]
 
 Rows, each bf16 at the shape the main path gives it: K1 (the exact
 single-tile softmax, variant 0 of attention.cu's C entry) at FLUX-256's
@@ -18,7 +19,11 @@ FLUX-1024's (1, 4608, 24, 128), and with a key-padding bias in bf16 (4508
 of the 4608 keys kept) at the same shape; K6 (streaming exact, variant
 3) at FLUX-1536's (1, 9728, 24, 128) and PixArt-Σ-2048's (2, 16384, 16,
 72), and with a key-padding bias in bf16 at both (lengths 15384 and 9000
-at 2048², 9000 of 9728 keys at 1536²). Both bodies are checked against the
+at 2048², 9000 of 9728 keys at 1536²); K1 and K2 at head dim 64 (variant
+0) at the reference's width-reduced FLUX 256² (8, 768, 24, 64), which its
+routing experiment forces onto the single-tile route
+(`single_tile_attention`), K2 with 700 of the 768 keys kept. Both bodies
+are checked against the
 plain version (run per head) and timed in turns — old, new, new, old — by
 spin-kernel CUDA events (`sampled_device_ms`, which samples the SM clock,
 power and temperature around each timing), beside one
@@ -30,7 +35,8 @@ at the harness's three shapes, in turns — X3, SDPA, SDPA, X3 — three times
 a shape (`X3_ROUNDS`): one row a shape with both lists of times and the
 ratio of their medians.
 
-Prints one JSON line per row, and writes them to ``--out``.
+Prints one JSON line per row, and writes them to ``--out``. ``--rows``
+takes a comma-separated subset of the bodies' rows (`CASES`) and skips X3.
 """
 
 from __future__ import annotations
@@ -76,6 +82,10 @@ CASES = {
                              A.flash_attention_reference, 0.025),
     "attention_flash_bias_d128": ((1, 9728, 24, 128), 9728, (9000,), 3, A.flash_attention,
                                   A.flash_attention_reference, 0.025),
+    "attention_d64": ((8, 768, 24, 64), 768, None, 0, A.single_tile_attention,
+                      A.fused_attention_reference, 0.1),
+    "attention_bias_d64": ((8, 768, 24, 64), 768, (700,), 0, A.single_tile_attention,
+                           A.fused_attention_reference, 0.1),
 }
 # attention.cu's variant → its route, for the route's pad keys (`pad_keys`)
 ROUTE = {0: "exact", 1: "clamp", 2: "rowblock", 3: "flash"}
@@ -117,14 +127,17 @@ def x3_against_sdpa(shape: str, s: dict, gen, card: str) -> dict:
 def main(argv=None) -> list[dict]:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", type=Path, default=None)
+    parser.add_argument("--rows", default=None,
+                        help="comma-separated rows of CASES (default: all, then X3)")
     args = parser.parse_args(argv)
+    cases = CASES if args.rows is None else {r: CASES[r] for r in args.rows.split(",")}
     if not torch.cuda.is_available():
         raise SystemExit("compare_attention_bodies: needs a CUDA card")
     card = card_name()
     _build.build_all()
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for counter, (shape, tk, lengths, variant, new_fn, plain, share) in CASES.items():
+    for counter, (shape, tk, lengths, variant, new_fn, plain, share) in cases.items():
         b, t, h, d = shape
         q, k, v = (torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
                    for s in (shape, (b, tk, h, d), (b, tk, h, d)))
@@ -166,7 +179,7 @@ def main(argv=None) -> list[dict]:
         rows.append(row)
         if any(c[1] for c in checks.values()):
             raise SystemExit(f"{counter}: a body is beyond its tolerance: {checks}")
-    for shape, s in SHAPES.items():
+    for shape, s in SHAPES.items() if args.rows is None else ():
         row = x3_against_sdpa(shape, s, gen, card)
         print(json.dumps(row), flush=True)
         rows.append(row)

@@ -4,6 +4,7 @@ design choice undone, built beside it and timed against it in turns, in one
 process on one card.
 
     python -m ecad_tpu_torch.scripts.probe_attention_body [--out probes.json]
+        [--rows k1_dim1536,k2_dim1536]
 
 Rows, bf16 at the shape the main path gives each kernel:
 
@@ -34,6 +35,11 @@ Rows, bf16 at the shape the main path gives each kernel:
   key-padding bias in bf16 (4508 keys kept), with ``no_bias_loads``;
 * K1 at FLUX-256's joint attention (4, 768, 24, 128), with
   ``items_in_runs``;
+* K1 at head dim 64, the reference's width-reduced FLUX 256² (8, 768, 24,
+  64), with ``d64_two_consumers`` (two consumer warpgroups and 128-row
+  items instead of three and 192), K6's ``no_softmax``, ``no_exp2``,
+  ``no_pv`` and ``no_kv_loads``; K2 at the same shape with 700 of the 768
+  keys kept, with ``no_bias_loads`` and ``d64_two_consumers``;
 * the harness's X3 (max on a pre-scaled q) at its ``pixart1024`` (8, 4096,
   16, 72) and ``pixart512_class_self`` (64, 1024, 16, 72) shapes, with
   ``xmax_two_consumers`` (K6's ``two_consumers`` edit, since X2 and X3
@@ -49,9 +55,10 @@ Rows, bf16 at the shape the main path gives each kernel:
   X3).
 
 A variant that only reschedules the same arithmetic (``two_consumers``,
-``k6_bias_three_consumers``, ``one_block_per_item``, ``items_in_runs``,
-``bias_after_q``, ``xmax_two_consumers``, ``xnomax_two_consumers``,
-``xfd_three_consumers``, ``xmatmul_two_consumers``) must give the source's output bit for bit; the
+``k6_bias_three_consumers``, ``d64_two_consumers``, ``one_block_per_item``,
+``items_in_runs``, ``bias_after_q``, ``xmax_two_consumers``,
+``xnomax_two_consumers``, ``xfd_three_consumers``, ``xmatmul_two_consumers``)
+must give the source's output bit for bit; the
 others compute something else, or the same in another instruction, and
 are timed only. Each row also carries the spill bytes ``ptxas -v``
 reports for each build's kernel of that row. Each variant's time is the
@@ -59,7 +66,8 @@ median of spin-kernel CUDA-event timings (`device_ms`), taken in turns:
 source, variants, variants again in reverse, source. Prints one JSON line
 per row and writes them to ``--out``. The edits are text replacements
 (every occurrence) checked against the source: one that no longer matches
-raises.
+raises. ``--rows`` takes a comma-separated subset of the rows (`ROWS`),
+and builds only their variants.
 """
 
 from __future__ import annotations
@@ -131,6 +139,13 @@ K4_BIAS_VARIANTS = {
                   "    if (t < 0) {\n      // rows past Tq are outside the map")],
 }
 K5_BIAS_VARIANTS = {"no_bias_loads": K2_VARIANTS["no_bias_loads"]}
+D64_VARIANTS = {"d64_two_consumers": [("constexpr int kExactConsumers = D == 64 ? 3 : 2;",
+                                        "constexpr int kExactConsumers = 2;")]}
+K1_D64_VARIANTS = {
+    **D64_VARIANTS,
+    **{n: K6_VARIANTS[n] for n in ("no_softmax", "no_exp2", "no_pv", "no_kv_loads")},
+}
+K2_D64_VARIANTS = {**K2_VARIANTS, **D64_VARIANTS}
 # X1, X2 and X3 share K6's consumer count, so K6's edit takes each to two
 X1_VARIANTS = {"xmatmul_two_consumers": K6_VARIANTS["two_consumers"]}
 X3_VARIANTS = {
@@ -174,6 +189,8 @@ ROWS = {
                          K5_BIAS_VARIANTS, 5, 10),
     "k1_flux256": ((4, 768, 24, 128), 768, None, "attention",
                    {"items_in_runs": K4_BIAS_VARIANTS["items_in_runs"]}, 7, 20),
+    "k1_dim1536": ((8, 768, 24, 64), 768, None, "attention", K1_D64_VARIANTS, 7, 20),
+    "k2_dim1536": ((8, 768, 24, 64), 768, (700,), "attention", K2_D64_VARIANTS, 7, 20),
     "x3_pixart1024": ((8, 4096, 16, 72), 4096, None, "xattn_max", X3_VARIANTS, 5, 5),
     "x3_pixart512_class_self": ((64, 1024, 16, 72), 1024, None, "xattn_max", X3_VARIANTS,
                                 5, 5),
@@ -187,7 +204,8 @@ ROWS = {
                                 X1_VARIANTS, 5, 5),
 }
 # the same arithmetic, rescheduled
-EXACT = ("two_consumers", "k6_bias_three_consumers", "one_block_per_item", "items_in_runs",
+EXACT = ("two_consumers", "k6_bias_three_consumers", "d64_two_consumers",
+         "one_block_per_item", "items_in_runs",
          "bias_after_q", "xmax_two_consumers", "xnomax_two_consumers", "xfd_three_consumers",
          "xmatmul_two_consumers")
 # the device kernel of each counter (its name, and whether it carries the
@@ -258,13 +276,15 @@ def build(sources: dict[str, str], out_dir: Path) -> tuple[dict, dict]:
 def main(argv=None) -> list[dict]:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", type=Path, default=None)
+    parser.add_argument("--rows", default=None, help="comma-separated rows of ROWS (default: all)")
     args = parser.parse_args(argv)
+    rows_run = ROWS if args.rows is None else {r: ROWS[r] for r in args.rows.split(",")}
     if not torch.cuda.is_available():
         raise SystemExit("probe_attention_body: needs a CUDA card")
     card = card_name()
     src = (_build.CSRC_DIR / "attention_sm90.cu").read_text()
     sources = {"source": src}
-    for _, _, _, _, variants, _, _ in ROWS.values():
+    for _, _, _, _, variants, _, _ in rows_run.values():
         sources.update({n: variant_source(src, e) for n, e in variants.items()})
     libs, spills = build(sources, _build.BUILD_DIR / "probe_attention_body")
     fns = {}
@@ -275,7 +295,7 @@ def main(argv=None) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     try:
-        for row, (shape, tk, lengths, counter, variants, reps, inner) in ROWS.items():
+        for row, (shape, tk, lengths, counter, variants, reps, inner) in rows_run.items():
             b, _, h, d = shape
             q, k, v = (torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
                        for s in (shape, (b, tk, h, d), (b, tk, h, d)))

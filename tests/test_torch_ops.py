@@ -120,6 +120,29 @@ def test_attention_text_bias_in_bf16_matches_pallas():
     )
 
 
+@pytest.mark.parametrize("bias", [None, "key_padding"])
+def test_attention_bf16_d64_matches_pallas(bias):
+    """K1 and K2 in bf16 at head dim 64, the width the Hopper body now takes
+    on the exact single-tile route: the plain version against the Pallas
+    kernels in interpret mode at the reference's odd shape (tq 30, tk 300,
+    pad keys to 384; key padding per batch at [100, 200, 256]). Both sides
+    take bf16 operands into an fp32 softmax and round the fp32 result once:
+    agreement to one bf16 ulp (2^-7 of an O(1) output)."""
+    rng = np.random.default_rng(4)
+    q, k, v = (x.astype(jnp.bfloat16) for x in _qkv(rng, 3, 30, 300, 2, 64))
+    b = None if bias is None else _key_padding([100, 200, 256], 300)
+    want = jax_fused_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        bias=None if b is None else jnp.asarray(b), interpret=True,
+    )
+    as_t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)  # noqa: E731
+    got = fused_attention(as_t(q), as_t(k), as_t(v), None if b is None else torch.from_numpy(b))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32), rtol=2**-7, atol=2**-7
+    )
+
+
 def test_modulated_layer_norm_matches_pallas():
     rng = np.random.default_rng(3)
     x = rng.standard_normal((3, 16, 128), dtype=np.float32)
@@ -906,9 +929,24 @@ HOPPER_ROUTES = {
                            ("sm90", "attention_bias")),
     "exact_dense_bias_d72": ("fused", (2, 30, 2, 72), 300, "bf16", "dense", ("mma", 0)),
     "exact_key_padding_fp32": ("fused", (2, 30, 2, 72), 300, "fp32", "padding", ("mma", 0)),
-    "exact_key_padding_d64": ("fused", (2, 30, 2, 64), 300, "bf16", "padding", ("mma", 0)),
+    "exact_key_padding_d64": ("fused", (2, 30, 2, 64), 300, "bf16", "padding",
+                              ("sm90", "attention_bias")),
     "exact_fp32_d72": ("fused", (2, 30, 2, 72), 300, "fp32", None, ("mma", 0)),
-    "exact_d64": ("fused", (2, 30, 2, 64), 300, "bf16", None, ("mma", 0)),
+    "exact_d64": ("fused", (2, 30, 2, 64), 300, "bf16", None, ("sm90", "attention")),
+    "exact_fp32_d64": ("fused", (2, 30, 2, 64), 300, "fp32", None, ("mma", 0)),
+    # the reference's width-reduced FLUX (dim 1536, head dim 64) at 256²:
+    # forced onto the single-tile route (K1, K2 with a bias) on the Hopper
+    # body; the router sends the same shape to the clamp (K4) on attention.cu
+    "single_tile_flux256_dim1536_d64": ("single", (8, 768, 24, 64), 768, "bf16", None,
+                                        ("sm90", "attention")),
+    "single_tile_key_padding_flux256_dim1536_d64": ("single", (8, 768, 24, 64), 768, "bf16",
+                                                    "padding", ("sm90", "attention_bias")),
+    "flux256_dim1536_clamp_d64": ("fused", (8, 768, 24, 64), 768, "bf16", None, ("mma", 1)),
+    "transposed_d64": ("transposed", (2, 30, 2, 64), 300, "bf16", None, ("mma", 1)),
+    "transposed_key_padding_d64": ("transposed", (2, 30, 2, 64), 300, "bf16", "padding",
+                                   ("mma", 1)),
+    "flash_d64_through_the_router": ("fused", (1, 9728, 24, 64), 9728, "bf16", None,
+                                     ("mma", 3)),
     "transposed_key_padding": ("transposed", (4, 4096, 16, 72), 120, "bf16", "padding",
                                ("sm90", "attention_long_bias")),
     "pixart1024_cross_k4_bias": ("fused", (4, 4096, 16, 72), 120, "bf16", "padding",
@@ -958,12 +996,13 @@ HOPPER_ROUTES = {
 @pytest.mark.parametrize("name", sorted(HOPPER_ROUTES))
 def test_hopper_body_routing(name, monkeypatch):
     """bf16 calls without a bias at head dim 72 or 128 on the single-tile
-    exact (K1), transposed clamp (K4) and streaming (K6) routes, and at 128
-    on the row-block route (K5), launch the Hopper body, and so do bf16
-    calls with a key-padding bias on each of them (K2, and K4, K5 and K6
-    with a bias, at the same head dims), the bias passed on; every other
-    call — a dense bias, fp32, another head dim — keeps its
-    csrc/attention.cu variant.
+    exact (K1), transposed clamp (K4) and streaming (K6) routes, at 128
+    on the row-block route (K5) and at 64 on the single-tile route only,
+    launch the Hopper body, and so do bf16 calls with a key-padding bias on
+    each of them (K2, and K4, K5 and K6 with a bias, at the same head
+    dims), the bias passed on; every other call — a dense bias, fp32,
+    another head dim, head dim 64 on the clamp, row-block and streaming
+    routes — keeps its csrc/attention.cu variant.
     Tensors on the meta device reach the launch decision without a card;
     the launchers are replaced by recorders."""
     wrapper, shape, tk, dtype, bias_kind, want = HOPPER_ROUTES[name]
@@ -983,7 +1022,8 @@ def test_hopper_body_routing(name, monkeypatch):
             "dense": (b, h, tq, tk)}[bias_kind]
     bias = bias and torch.zeros(bias, dtype=tdt, device="meta")
     fn = {"fused": fused_attention, "rowblock": rowblock_attention,
-          "flash": flash_attention, "transposed": transposed_attention}[wrapper]
+          "flash": flash_attention, "transposed": transposed_attention,
+          "single": port_attention.single_tile_attention}[wrapper]
     fn(q, kv, kv, bias)
     assert calls == [want]
 
@@ -1058,9 +1098,24 @@ def test_tma_operand_arguments_at_d72():
                                                          4096 * 16 * 144]
 
 
-@pytest.mark.parametrize("d", [64, 80, 96])
+def test_tma_operand_arguments_at_d64():
+    """At D=64 the map's dims are {64, H, T, B} with 128-byte rows and the
+    same box {64, 1, 128, 1}: one 64-column box under the 128-byte swizzle
+    is the whole row (no tail map). A slice of heads keeps its strides."""
+    x = torch.zeros(8, 768, 24, 64, dtype=torch.bfloat16)
+    assert port_attention.tma_operand(x, "q") == [
+        64, 24, 768, 8, 128, 24 * 128, 768 * 24 * 128, 64, 1, 128, 1]
+    one = torch.zeros(1, 300, 1, 64, dtype=torch.bfloat16)
+    assert port_attention.tma_operand(one, "k") == [
+        64, 1, 300, 1, 128, 128, 300 * 128, 64, 1, 128, 1]
+    pair = x[:, :, 2:4]
+    assert port_attention.tma_operand(pair, "v")[:7] == [64, 2, 768, 8, 128, 24 * 128,
+                                                         768 * 24 * 128]
+
+
+@pytest.mark.parametrize("d", [80, 96])
 def test_tma_operand_refuses_other_head_dims(d):
-    with pytest.raises(ValueError, match="head dim 72 or 128"):
+    with pytest.raises(ValueError, match="head dim 64, 72 or 128"):
         port_attention.tma_operand(torch.zeros(1, 8, 1, d, dtype=torch.bfloat16), "q")
 
 

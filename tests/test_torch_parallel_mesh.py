@@ -24,9 +24,19 @@ from ecad_tpu_torch.parallel.launch import spawn
 SPAWN_S = 90  # deadline of one spawn: a hung collective fails the test
 
 
+def _clear_env(monkeypatch, names) -> None:
+    """Takes `names` out of os.environ so that teardown puts back what was
+    there, set or not: `delenv` of an absent variable records nothing, and
+    `_map_reference_env` writes torchrun's variables into os.environ
+    directly, so without the `setenv` first they would outlive the test."""
+    for var in names:
+        monkeypatch.setenv(var, "")
+        monkeypatch.delenv(var)
+
+
 def test_initialize_is_a_noop_for_one_process(monkeypatch):
-    for var in ("WORLD_SIZE", "JAX_NUM_PROCESSES", "JAX_COORDINATOR_ADDRESS"):
-        monkeypatch.delenv(var, raising=False)
+    _clear_env(monkeypatch, ("WORLD_SIZE", "RANK", "LOCAL_RANK", "JAX_NUM_PROCESSES",
+                             "JAX_COORDINATOR_ADDRESS"))
     tdist.initialize()
     monkeypatch.setenv("WORLD_SIZE", "1")
     tdist.initialize(device="cpu")
@@ -57,16 +67,26 @@ def test_ranks_sharing_a_card_need_gloo_named(monkeypatch):
 
 
 def test_reference_environment_maps_onto_torchrun(monkeypatch):
-    for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
-        monkeypatch.delenv(var, raising=False)
+    """The reference's JAX_* variables map onto torchrun's, which
+    `_map_reference_env` writes into os.environ itself: the test clears
+    them through monkeypatch (`_clear_env`), so that teardown takes them
+    away again and a later `initialize` in this process sees one process,
+    not a 4-rank rendezvous."""
+    import os
+
+    torchrun = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    before = {v: os.environ.get(v) for v in torchrun}
+    _clear_env(monkeypatch, torchrun)
     monkeypatch.setenv("JAX_NUM_PROCESSES", "4")
     monkeypatch.setenv("JAX_PROCESS_ID", "3")
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "10.0.0.7:8476")
     tdist._map_reference_env()
-    import os
-
-    assert [os.environ[v] for v in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
-                                    "MASTER_PORT")] == ["4", "3", "3", "10.0.0.7", "8476"]
+    assert [os.environ[v] for v in torchrun] == ["4", "3", "3", "10.0.0.7", "8476"]
+    monkeypatch.undo()
+    assert {v: os.environ.get(v) for v in torchrun} == before
+    assert os.environ.get("WORLD_SIZE") in (None, "1")
+    tdist.initialize(device="cpu")
+    assert not torch.distributed.is_initialized() and tdist.process_count() == 1
 
 
 @pytest.mark.parametrize("world", [1, 2, 3])

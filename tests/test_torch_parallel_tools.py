@@ -251,7 +251,11 @@ def test_train_mesh_flags_need_the_launched_ranks(tmp_path):
 @pytest.mark.parametrize("var", ["WORLD_SIZE", "JAX_NUM_PROCESSES"])
 def test_one_process_environment_is_a_noop(ws, tmp_path, monkeypatch, var):
     """``WORLD_SIZE=1`` (or the reference's ``JAX_NUM_PROCESSES=1``): the
-    tools run in this process and take every item."""
+    tools run in this process and take every item. The torchrun variables
+    that `_map_reference_env` writes go back to their state at teardown."""
+    for name in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.setenv(name, "")
+        monkeypatch.delenv(name)
     monkeypatch.setenv(var, "1")
     timg.main(_image_args(ws, tmp_path / "imgs"))
     assert len(_files(tmp_path / "imgs")) == 3 * len(PROMPTS)
