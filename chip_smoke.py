@@ -29,11 +29,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    9728; the plain versions of K6 run per (batch·head) slice, since the
    fp32 scores of the served shape would take 34 GB. bf16 calls without a
    bias run on the Hopper body (``csrc/attention_sm90.cu``: wgmma fed by
-   TMA) — K1, K4 and K6 at head dims 72 and 128, K5 at 128, K1 also at 64
-   — and so do bf16
-   calls with a key-padding bias on the single-tile route (K2, at 64, 72
-   and 128), on the clamp routes (K4 with a bias at 72 and 128, K5 with a bias
-   at 128) and on the streaming route (K6 with a bias at 72 and 128, at
+   TMA) — K1, K4 and K6 at head dims 64, 72 and 128, K5 at 128 — and so do
+   bf16 calls with a key-padding bias on the single-tile route (K2, at 64,
+   72 and 128), on the clamp routes (K4 with a bias at 64, 72 and 128, K5
+   with a bias at 128) and on the streaming route (K6 with a bias at 64, 72
+   and 128, at
    PixArt-2048's shape with lengths 15384 / 9000 and at FLUX-1536's with
    9000 keys kept, each reached through the router with the launch
    counters set to 0 just before and read just after, and named by a
@@ -43,17 +43,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    256]; K4 and K5 with biases in bf16 and fp32, per batch and broadcast
    over it, at Tk=300, and K4 at PixArt-Σ-2048's cross-attention (2,
    16384, 16, 72) → 120), logits near ±40 (log2; at d=64 within the
-   reference's 2e-3 beside one bf16 ulp) and q×1e4, and shown to
+   reference's 2e-3 beside one bf16 ulp, K1, K2, K4 and K6 each with and
+   without a bias) and q×1e4, and shown to
    reject a plain version that drops or repeats one 128-key tile (the
-   body's step) at 768 (K1 at d=128 and 64, K2 at 64), 4096 (K4), 4608
-   (K5), 9728 and 16384 (K6, also with its bias) keys; K4 and K5 with a
+   body's step) at 768 (K1 at d=128 and 64, K2 and K4 at 64, K4 also with
+   a bias), 4096 (K4), 4608 (K5), 9728 and 16384 (K6, also with its bias;
+   at 9728 also at d=64) keys; K4 and K5 with a
    bias also in all-masked text rows, whose output
    must be Σv/Tk_pad within 2^-7 relative, a check shown to reject the
    pad keys counted twice (Σv/(Tk_pad + n_pad)); a call whose operands TMA
-   cannot map, or whose bias the body does not read (fp16), raises there.
+   cannot map (at d=64 also a base off 16 bytes and rows 136 bytes apart,
+   on the single-tile, clamp and streaming routes, with and without a
+   bias), or whose bias the body does not read (fp16), raises there.
    The rest run on ``csrc/attention.cu``. The exact kernels
    of both (K2 in bf16 on the Hopper body and in fp32 on attention.cu, K6
-   with a bias at d=72 and d=128) are also held against the plain versions
+   with a bias at d=64, 72 and 128) are also held against the plain versions
    in rows whose every key has a bias of −1e9 or −2e9, where the
    reference's pad keys take their share; and a dense bias past the
    single tile ((1, 2048, 2, 72) × 1100 keys, fp32 and bf16, on
@@ -62,10 +66,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    Σv/Tk. Time kernel (with the
    SM clock, power and temperature sampled before and after), plain
    version and (attention) one ``scaled_dot_product_attention`` call as a
-   yardstick the port never calls. K1 and K2 at head dim 64 at the
-   reference's width-reduced FLUX 256² (8, 768, 24, 64; K2 with 700 of
-   768 keys kept) are timed in turns against SDPA and the mma.sync body of
-   ``attention.cu`` they replaced (``old_body_ms`` on their rows). K3 (``csrc/modlnorm_sm90.cu``) also at
+   yardstick the port never calls. K1, K2, K4 and K6 at head dim 64 at
+   the reference's width-reduced FLUX (`D64_ROWS`: K1, K2 and K4 at 256²,
+   (8, 768, 24, 64), 700 of 768 keys kept with a bias; K6 at 1536², (1,
+   9728, 24, 64), 9000 of 9728 kept), each reached through its wrapper
+   with its launch counted and named by a profile, are timed in turns
+   against SDPA and the mma.sync body of ``attention.cu`` they replaced
+   (``old_body_ms`` on their rows). K3 (``csrc/modlnorm_sm90.cu``) also at
    each width a served path gives it: PixArt-1024's (4, 4096, 1152),
    PixArt-Σ-2048's (2, 16384, 1152) and FLUX.1-dev-1024's image, text and
    joint streams (1, 4096 / 512 / 4608, 3072), and FLUX-1024's image and
@@ -579,9 +586,9 @@ def attention_cases() -> None:
                                      f" at d={d}")
         # rows whose every key has a bias of −1e9 (the reference's output
         # there is Σv/Tk_pad) or −2e9 (0), beside a ragged row: K2 (at d=64
-        # and 72 on the Hopper body in bf16, on attention.cu in fp32) and
-        # K6's bias variant (at d=72 and 128, on the Hopper body in bf16; at
-        # d=64 on attention.cu), against the repaired plain versions
+        # and 72) and K6's bias variant (at d=64, 72 and 128), on the Hopper
+        # body in bf16, on attention.cu in fp32, against the repaired plain
+        # versions
         from ecad_tpu_torch.ops.attention import _takes_sm90
 
         for fill in (-1e9, -2e9):
@@ -589,20 +596,18 @@ def attention_cases() -> None:
                 qm, km, vm = (rnd(2, 8, 2, d, dtype=dtype), rnd(2, 300, 2, d, dtype=dtype),
                               rnd(2, 300, 2, d, dtype=dtype))
                 bias_m = key_padding_bias([0, 280], 300, fill)
-                on_sm90 = (dtype == torch.bfloat16, dtype == torch.bfloat16 and d != 64)
+                on_sm90 = (dtype == torch.bfloat16, dtype == torch.bfloat16)
                 if (_takes_sm90("attention", qm, bias_m), _takes_sm90(
                         "attention_flash", qm, bias_m)) != on_sm90:
                     raise AssertionError(f"every_key_biased_{fill:g} at d={d}: wrong body")
                 if d != 128:
                     case(f"every_key_biased_{fill:g}" + ("" if d == 64 else f"_d{d}"),
                          qm, km, vm, bias_m)
-                if d != 64:
-                    # K6 with a bias (on the Hopper body in bf16): the streaming
-                    # route's 84 pad keys
-                    compare(f"attention_flash_bias/{tag}/every_key_biased_{fill:g}"
-                            + ("" if d == 72 else f"_d{d}"),
-                            flash_attention(qm, km, vm, bias_m),
-                            flash_attention_reference(qm, km, vm, bias_m), tol)
+                # K6 with a bias: the streaming route's 84 pad keys
+                compare(f"attention_flash_bias/{tag}/every_key_biased_{fill:g}"
+                        + ("" if d == 72 else f"_d{d}"),
+                        flash_attention(qm, km, vm, bias_m),
+                        flash_attention_reference(qm, km, vm, bias_m), tol)
         dense_bias_past_the_tile(rnd, dtype, tol)
         for d in (16, 64):
             case(f"d{d}", rnd(2, 16, 3, d, dtype=dtype),
@@ -634,6 +639,18 @@ def attention_cases() -> None:
             refused("attention_long/bf16/misaligned_rows_d72", transposed_attention,
                     *misaligned)
             refused("attention_flash/bf16/misaligned_rows_d72", flash_attention, *misaligned)
+            # and at d=64, where K4 and K6 take the Hopper body too: a base
+            # off 16 bytes, and rows 136 bytes apart
+            misaligned64 = (wide[..., 1:65], wide[..., 3:67], wide[..., 5:69])
+            strided64 = tuple(rnd(2, 64, 3, 68, dtype=dtype)[..., :64] for _ in range(3))
+            for fault, qkv in (("misaligned_rows", misaligned64), ("row_stride_136_bytes",
+                                                                    strided64)):
+                bias64 = key_padding_bias([64, 50], 64, -1e9)
+                for name, fn in (("attention", fused_attention),
+                                 ("attention_long", transposed_attention),
+                                 ("attention_flash", flash_attention)):
+                    refused(f"{name}/bf16/{fault}_d64", fn, *qkv)
+                    refused(f"{name}_bias/bf16/{fault}_d64_key_padding", fn, *qkv, bias64)
             refused("attention_bias/bf16/fp16_bias", fused_attention,
                     rnd(2, 16, 2, 72, dtype=dtype), rnd(2, 120, 2, 72, dtype=dtype),
                     rnd(2, 120, 2, 72, dtype=dtype),
@@ -706,13 +723,29 @@ def attention_cases() -> None:
         clamp_case("q_times_1e4", rnd(1, 128, 1, 72, dtype=dtype, scale=1e4),
                    rnd(1, 256, 1, 72, dtype=dtype), rnd(1, 256, 1, 72, dtype=dtype),
                    **({} if dtype == torch.bfloat16 else {"tol": HOT_FP32_TOL}))
-        # the Hopper body's K4 at the reference's K1 acceptance shapes, and
-        # at d=128 (transposed_attention takes it; the router never does)
-        for d in (72, 128):
+        # the Hopper body's K4 at the reference's K1 acceptance shapes, at
+        # d=128 (transposed_attention takes it; the router never does) and
+        # at d=64 (the router's width-reduced FLUX-256)
+        for d in (64, 72, 128):
             clamp_case(f"ragged_tq30_tk300_d{d}", rnd(2, 30, 2, d, dtype=dtype),
                        rnd(2, 300, 2, d, dtype=dtype), rnd(2, 300, 2, d, dtype=dtype))
             clamp_case(f"logits_times_6_d{d}", rnd(1, 16, 1, d, dtype=dtype, scale=6.0),
                        rnd(1, 256, 1, d, dtype=dtype), rnd(1, 256, 1, d, dtype=dtype))
+        # d=64 with a key-padding bias per batch at [100, 200, 256]; logits
+        # near ±40 (log2) with and without a bias within the reference's 2e-3
+        # beside one bf16 ulp (both sides round p to bf16 for p·v); q×1e4
+        clamp_case("key_padding_100_200_256_tq30_tk300_d64", rnd(3, 30, 2, 64, dtype=dtype),
+                   rnd(3, 300, 2, 64, dtype=dtype), rnd(3, 300, 2, 64, dtype=dtype),
+                   key_padding_bias([100, 200, 256], 300, -1e9))
+        hot_tol = (2e-3, 2.0 ** -7) if dtype == torch.bfloat16 else FP32_TOL
+        for bias40 in (None, key_padding_bias([200], 256, -1e4)):
+            clamp_case("logits_near_40_d64" + ("" if bias40 is None else "_key_padding"),
+                       rnd(1, 16, 1, 64, dtype=dtype, scale=6.0),
+                       rnd(1, 256, 1, 64, dtype=dtype), rnd(1, 256, 1, 64, dtype=dtype),
+                       bias40, tol=hot_tol)
+        clamp_case("q_times_1e4_d64", rnd(1, 128, 1, 64, dtype=dtype, scale=1e4),
+                   rnd(1, 256, 1, 64, dtype=dtype), rnd(1, 256, 1, 64, dtype=dtype),
+                   **({} if dtype == torch.bfloat16 else {"tol": HOT_FP32_TOL}))
         clamp_case("q_times_1e4_d128", rnd(1, 128, 1, 128, dtype=dtype, scale=1e4),
                    rnd(1, 256, 1, 128, dtype=dtype), rnd(1, 256, 1, 128, dtype=dtype),
                    **({} if dtype == torch.bfloat16 else {"tol": HOT_FP32_TOL}))
@@ -774,15 +807,27 @@ def attention_cases() -> None:
             flash_case(f"batch_broadcast_bias_b3_d{d64}", rnd(3, 32, 2, d64, dtype=dtype),
                        rnd(3, 256, 2, d64, dtype=dtype), rnd(3, 256, 2, d64, dtype=dtype),
                        key_padding_bias([100], 256, -1e9))
-        for d in (72, 128):
+        for d in (64, 72, 128):
             flash_case(f"q_times_1e4_d{d}", rnd(1, 32, 1, d, dtype=dtype, scale=1e4),
                        rnd(1, 256, 1, d, dtype=dtype), rnd(1, 256, 1, d, dtype=dtype))
             flash_case(f"ragged_tq30_tk300_d{d}", rnd(2, 30, 2, d, dtype=dtype),
                        rnd(2, 300, 2, d, dtype=dtype), rnd(2, 300, 2, d, dtype=dtype))
         # two of the reference's 1536-key blocks: 1600 keys pad to 3072 (n_pad
         # 1472), whose pad keys the body's epilogue adds
-        flash_case("two_key_blocks_tk1600_d72", rnd(2, 48, 2, 72, dtype=dtype),
-                   rnd(2, 1600, 2, 72, dtype=dtype), rnd(2, 1600, 2, 72, dtype=dtype))
+        for d in (64, 72):
+            flash_case(f"two_key_blocks_tk1600_d{d}", rnd(2, 48, 2, d, dtype=dtype),
+                       rnd(2, 1600, 2, d, dtype=dtype), rnd(2, 1600, 2, d, dtype=dtype))
+        # d=64 with a key-padding bias per batch at [100, 200, 256], and
+        # logits near ±40 with and without a bias, as K4's
+        flash_case("key_padding_100_200_256_tq30_tk300_d64", rnd(3, 30, 2, 64, dtype=dtype),
+                   rnd(3, 300, 2, 64, dtype=dtype), rnd(3, 300, 2, 64, dtype=dtype),
+                   key_padding_bias([100, 200, 256], 300, -1e9))
+        for bias40 in (None, key_padding_bias([200], 256, -1e4)):
+            q40, k40, v40 = (rnd(1, 16, 1, 64, dtype=dtype, scale=6.0),
+                             rnd(1, 256, 1, 64, dtype=dtype), rnd(1, 256, 1, 64, dtype=dtype))
+            compare(f"attention_flash{'' if bias40 is None else '_bias'}/{tag}/logits_near_40_d64",
+                    flash_attention(q40, k40, v40, bias40),
+                    flash_attention_reference(q40, k40, v40, bias40), hot_tol)
         flash_case("logits_times_6_d128", rnd(1, 16, 1, 128, dtype=dtype, scale=6.0),
                    rnd(1, 256, 1, 128, dtype=dtype), rnd(1, 256, 1, 128, dtype=dtype))
 
@@ -1305,68 +1350,122 @@ def flux_kernel_rows(rnd, bound, nbytes) -> list[dict]:
     return [row5, row5b, row1]
 
 
-# the reference's width-reduced FLUX (dim 1536: 24 heads of 64) at 256²,
-# 256 image + 512 text tokens, which its routing experiment forces onto
-# the single-tile route (scripts/exp_attn_pixart256.py:91-108); K2's
-# key-padding bias keeps 700 of the 768 keys
-D64_SHAPE, D64_KEEP = (8, 768, 24, 64), 700
+# the reference's width-reduced FLUX (dim 1536: 24 heads of 64): at 256², 256
+# image + 512 text tokens, which its routing experiment forces onto the
+# single-tile route (K1, K2; scripts/exp_attn_pixart256.py:91-108) and the
+# router sends to the clamp transposed route (K4); at 1536², 9728 joint
+# tokens, which the router sends to the streaming route (K6). Each
+# key-padding bias keeps D64_KEEP of the keys.
+D64_SHAPE, D64_FLASH_SHAPE = (8, 768, 24, 64), (1, 9728, 24, 64)
+D64_KEEP = {D64_SHAPE: 700, D64_FLASH_SHAPE: 9000}
 D64_TURNS = ("old", "new", "sdpa", "sdpa", "new", "old")
+# row → (shape, with a key-padding bias, the wrapper that reaches it, the
+# route, csrc/attention.cu's variant, the Hopper kernel, the TPU kernel)
+D64_ROWS = {
+    "attention_d64": (D64_SHAPE, False, "single", "exact", 0,
+                      "attn_exact_sm90_kernel<64, false>", ":58 (_attn_kernel)"),
+    "attention_bias_d64": (D64_SHAPE, True, "single", "exact", 0,
+                           "attn_exact_sm90_kernel<64, true>", ":75 (_attn_kernel_bias)"),
+    "attention_long_d64": (D64_SHAPE, False, "fused", "clamp", 1,
+                           "attn_clamp_sm90_kernel<64, false>",
+                           ":344 (_transposed_kernel_nobias)"),
+    "attention_long_bias_d64": (D64_SHAPE, True, "fused", "clamp", 1,
+                                "attn_clamp_sm90_kernel<64, true>", ":285 (_transposed_kernel)"),
+    "attention_flash_d64": (D64_FLASH_SHAPE, False, "fused", "flash", 3,
+                            "attn_flash_sm90_kernel<64, false>", ":151 (_flash_kernel)"),
+    "attention_flash_bias_d64": (D64_FLASH_SHAPE, True, "fused", "flash", 3,
+                                 "attn_flash_sm90_kernel<64, true>", ":151 (_flash_kernel)"),
+}
+
+
+def ran_hopper_kernel(names: list[str], kernel: str) -> bool:
+    """Whether a profile's device kernels include the Hopper kernel named
+    like ``attn_clamp_sm90_kernel<64, true>`` (demangled or mangled) and
+    none of csrc/attention.cu's."""
+    base, args = kernel.rstrip(">").split("<")
+    d, bias = (a.strip() for a in args.split(","))
+    mangled = f"{base}ILi{d}ELb{int(bias == 'true')}E"
+    return any(kernel in n or mangled in n for n in names) and not any(
+        "_bf16_kernel" in n or "attn_f32_kernel" in n for n in names)
 
 
 def d64_kernel_rows(rnd, bound, nbytes) -> list[dict]:
-    """K1 and K2 at head dim 64 on the Hopper body (`attn_exact_sm90_kernel
-    <64, false|true>`) at `D64_SHAPE`: each reached through the
-    single-tile wrapper, held to its plain version (with a dropped and a
-    repeated 128-key tile rejected), then timed in turns (`D64_TURNS`)
-    against the mma.sync body of csrc/attention.cu it replaced at this
-    width (``old_body_ms``) and one ``scaled_dot_product_attention`` call.
-    K2's launches are its own router call's: no path sends it."""
+    """K1, K2, K4 and K6 (the last two with and without a key-padding bias)
+    at head dim 64 on the Hopper body (`D64_ROWS`): each reached through the
+    wrapper that reaches it at that shape (K1 and K2 the single-tile
+    wrapper, K4 and K6 the router, `fused_attention`), with its launch
+    counted, held to its plain version (with a dropped and a repeated
+    128-key tile rejected; K6's plain version per slice), named by a
+    profile (its Hopper kernel and nothing of csrc/attention.cu), then timed
+    in turns (`D64_TURNS`) against the mma.sync body of csrc/attention.cu
+    it replaced at this width (``old_body_ms``) and one
+    ``scaled_dot_product_attention`` call (the bias as a float mask). Only
+    K1's launches come from a path (`kernel_scripts`); the other rows'
+    are their own router call's: no path sends them."""
     import torch.nn.functional as F
 
     from ecad_tpu_torch.ops import attention as A
 
-    q, k, v = (rnd(*D64_SHAPE) for _ in range(3))
-    b, t, h, d = D64_SHAPE
-    bias = key_padding_bias([D64_KEEP] * b, t, -1e9, torch.bfloat16)
-    n_pad = A.pad_keys("exact", t)
-    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    inputs = {}
+    for shape in (D64_SHAPE, D64_FLASH_SHAPE):
+        b, t = shape[:2]
+        inputs[shape] = ((*(rnd(*shape) for _ in range(3)),
+                          key_padding_bias([D64_KEEP[shape]] * b, t, -1e9, torch.bfloat16)))
+    plains = {"exact": A.fused_attention_reference,
+              "clamp": A.transposed_attention_reference,
+              "flash": lambda *a: by_slices(A.flash_attention_reference, *a)}
     rows = []
-    for name, bb, replaces in (
-            ("attention_d64", None, "ecad_tpu/ops/attention.py:58 (_attn_kernel)"),
-            ("attention_bias_d64", bias, "ecad_tpu/ops/attention.py:75 (_attn_kernel_bias)")):
+    for name, (shape, biased, wrapper, route, variant, kernel, replaces) in D64_ROWS.items():
+        q, k, v, bias = inputs[shape]
+        bb = bias if biased else None
+        b, t, h, d = shape
+        fn = A.single_tile_attention if wrapper == "single" else A.fused_attention
+        plain, flash = plains[route], route == "flash"
+        tol = flash_bf16_tol if flash else clamp_bf16_tol
         out = []
-        counts = counted(lambda: out.append(A.single_tile_attention(q, k, v, bb)))
+        counts = counted(lambda: out.append(fn(q, k, v, bb)))
         got = out.pop()
-        want_counts = {**dict.fromkeys(COUNTERS, 0), name.replace("_d64", ""): 1}
-        if counts != want_counts:
-            raise AssertionError(f"{name}: launches {counts}, not one Hopper K1/K2")
+        counter = name.replace("_d64", "")
+        if counts != {**dict.fromkeys(COUNTERS, 0), counter: 1}:
+            raise AssertionError(f"{name}: launches {counts}, not one {counter}")
         REPORT.setdefault("d64_launches", {})[name] = 1
-        want = A.fused_attention_reference(q, k, v, bb)
-        err = compare(f"{name.replace('_d64', '')}/bf16/flux256_dim1536_8x768x24x64", got, want,
-                      clamp_bf16_tol)
+        names = device_kernel_names(lambda: fn(q, k, v, bb))
+        REPORT.setdefault("d64_device_kernels", {})[name] = [n for n in names if "attn" in n]
+        if not ran_hopper_kernel(names, kernel):
+            raise AssertionError(f"{name} ran {names}, not {kernel} alone")
+        want = plain(q, k, v, bb)
+        side = "flux1536" if flash else "flux256"
+        err = compare(f"{counter}/bf16/{side}_dim1536_{'x'.join(map(str, shape))}", got, want,
+                      tol)
+        del got
         for fault, (lo, hi) in (("drops", (128, 256)), ("repeats", (256, 128))):
             def cut(x, dim):  # keys [0, lo) then [hi, Tk): tile 1 dropped or repeated
                 return None if x is None else torch.cat(
                     (x.narrow(dim, 0, lo), x.narrow(dim, hi, x.shape[dim] - hi)), dim)
             rejects(f"{name}_{fault}_128_key_tile_1",
-                    A.fused_attention_reference(q, cut(k, 1), cut(v, 1), cut(bb, 3)), want,
-                    clamp_bf16_tol)
-        del got, want
-        fns = {"new": lambda: A.single_tile_attention(q, k, v, bb),
-               "old": lambda: A._launch(q, k, v, bb, 0, n_pad),
+                    plain(q, cut(k, 1), cut(v, 1), cut(bb, 3)), want, tol)
+        del want
+        n_pad = A.pad_keys(route, t)
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        fns = {"new": lambda: fn(q, k, v, bb),
+               "old": lambda: A._launch(q, k, v, bb, variant, n_pad),
                "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bb)}
+        reps, inner = (5, 5) if flash else (7, 20)
         times = {w: [] for w in fns}
         for i, which in enumerate(D64_TURNS):
             label = name if which == "new" and not times["new"] else f"{name}/{which}/{i}"
-            times[which].append(timed_ms(label, fns[which], clocks=label == name))
+            times[which].append(timed_ms(label, fns[which], reps=reps, inner=inner,
+                                         clocks=label == name))
+        del qt, kt, vt
         REPORT.setdefault("d64_turns", {})[name] = times
         b_ms, by = bound(nbytes(q, k, v, q, *(() if bb is None else (bb,))),
                          4 * b * h * t * t * d)
         rows.append(dict(
             name=name, route="cuda", source="ecad_tpu_torch/csrc/attention_sm90.cu",
-            replaces=replaces, max_abs_err=err, ms=statistics.median(times["new"]),
-            plain_ms=timed_ms(f"{name}/plain", lambda: A.fused_attention_reference(q, k, v, bb),
-                              reps=3, inner=5),
+            replaces=f"ecad_tpu/ops/attention.py{replaces}", max_abs_err=err,
+            ms=statistics.median(times["new"]),
+            plain_ms=timed_ms(f"{name}/plain", lambda: plain(q, k, v, bb),
+                              reps=3, inner=2 if flash else 5),
             bound_ms=b_ms, bound_by=by, library_ms=statistics.median(times["sdpa"]),
             old_body_ms=statistics.median(times["old"])))
     return rows
@@ -4509,8 +4608,7 @@ def kernel_scripts_phase() -> dict:
     counts = {c: n + sum(by_shape[shape][c] for shape in shapes) for c, n in counts.items()}
     if [c for c, n in by_shape[d64].items() if n] != ["attention"]:
         raise AssertionError(f"{d64}: launches {by_shape[d64]}, not K1's alone")
-    if not any("attn_exact_sm90_kernel<64, false>" in n or "attn_exact_sm90_kernelILi64ELb0E" in n
-               for n in d64_names) or any("_bf16_kernel" in n for n in d64_names):
+    if not ran_hopper_kernel(d64_names, "attn_exact_sm90_kernel<64, false>"):
         raise AssertionError(f"{d64} ran {d64_names}: not K1 on the Hopper body at D=64 alone")
     for r in rows:
         err = r["detail"].get("max_abs_err_vs_fp32", r["detail"].get("max_abs_err_vs_plain"))
@@ -5053,8 +5151,8 @@ def main() -> None:
     # launches from the run of each kernel's path: PixArt-256 `ours_fast`
     # for K1-K3, PixArt-1024 `ours_fast` for K4, FLUX-1024 `fast` for K5,
     # FLUX-256 `ours_fast` for K1 at D=128, the kernel scripts' run of
-    # `exp_attn_pixart256`'s D=64 row for K1 at D=64 (K2 at D=64, which
-    # nothing sends, its own router call), PixArt-2048 `ours_fast` for K6,
+    # `exp_attn_pixart256`'s D=64 row for K1 at D=64 (K2, K4 and K6 at D=64,
+    # which nothing sends, their own router call), PixArt-2048 `ours_fast` for K6,
     # FLUX-1536 `fast` for K6 at D=128, K6 with a bias (which no served
     # path sends) its own router call at each shape, K3's rows at the
     # served widths their path's cached run (FLUX-1024 `fast` split by
@@ -5069,6 +5167,11 @@ def main() -> None:
     for name, row in kernels.items():
         if name in k3_launches:
             row["launches"] = k3_launches[name]
+        elif name == "attention_d64":
+            row["launches"] = scripts["launches_by_shape"]["exp_attn_pixart256"][
+                "flux256_dim1536_self"]["attention"]
+        elif name in REPORT["d64_launches"]:
+            row["launches"] = REPORT["d64_launches"][name]
         elif name in REPORT["flash_bias_launches"]:
             row["launches"] = REPORT["flash_bias_launches"][name]
         elif name == "attention_flash_d128":
@@ -5081,11 +5184,6 @@ def main() -> None:
             row["launches"] = REPORT["flux"]["1024"]["fast"]["launches"][name]
         elif name == "attention_flux256":
             row["launches"] = REPORT["flux"]["256"]["ours_fast"]["launches"]["attention"]
-        elif name == "attention_d64":
-            row["launches"] = scripts["launches_by_shape"]["exp_attn_pixart256"][
-                "flux256_dim1536_self"]["attention"]
-        elif name in REPORT["d64_launches"]:
-            row["launches"] = REPORT["d64_launches"][name]
         else:
             row["launches"] = REPORT["main_path"]["ours_fast"]["launches"][name]
     kernels.update(variants)

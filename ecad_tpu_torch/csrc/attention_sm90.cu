@@ -1,7 +1,7 @@
 // Attention forward for Hopper (sm_90a): wgmma fed by TMA through
 // mbarriers, with a producer warpgroup and two consumer warpgroups. bf16 q,
-// k, v of shape (B, T, H, D), D = 72 or 128 (and 64 for K1 and K2; a
-// template argument), in any
+// k, v of shape (B, T, H, D), D = 64, 72 or 128 (a template argument; K5
+// and the harness's X1-X4 not at 64), in any
 // 16-byte-aligned strides, in six softmax modes (a template argument, as in
 // attention.cu) under eight kernel names, one per route and one per mode of
 // the attention-variant harness; every exact and clamp kernel also takes a
@@ -11,9 +11,11 @@
 //   * exact:
 //     - `attn_flash_sm90_kernel<D, false>` (K6) replaces the streaming
 //       kernel `_flash_kernel` (ecad_tpu/ops/attention.py:151-197, launched
-//       by `_flash_attention` :638) at D=128 and D=72 — FLUX.1-dev at 1536²,
-//       whose 9216 image + 512 text = 9728 joint tokens take the streaming
-//       route, and PixArt-Σ's self-attention at 2048² (2B, 16384, 16, 72);
+//       by `_flash_attention` :638) at D=128, 72 and 64 — FLUX.1-dev at
+//       1536², whose 9216 image + 512 text = 9728 joint tokens take the
+//       streaming route, PixArt-Σ's self-attention at 2048² (2B, 16384, 16,
+//       72), and the reference's width-reduced FLUX (dim 1536, 24 heads of
+//       64) at 1536² (1, 9728, 24, 64), which no served path runs;
 //       `<D, true>` the same with a key-padding bias (B|1, 1, 1, Tk), which
 //       the reference streams past 8192×128 key elements (:573-673) and no
 //       served path sends;
@@ -60,10 +62,12 @@
 //       key-padding bias;
 //     - `attn_clamp_sm90_kernel<D, false>` (K4) replaces the transposed
 //       kernel `_transposed_kernel_nobias` (:344, launched :420) at D=72
-//       (and 128) — PixArt's self-attention at 1024² (2B, 4096, 16, 72) and
-//       512²; `<D, true>` replaces `_transposed_kernel` (:285, launched
-//       :449) — PixArt's text cross-attention at 1024² (2B, 4096, 16, 72)
-//       and PixArt-Σ's at 2048² (2B, 16384, 16, 72), each to 120 keys.
+//       (and 128, and 64) — PixArt's self-attention at 1024² (2B, 4096, 16,
+//       72) and 512², and the width-reduced FLUX at 256² (8, 768, 24, 64),
+//       which the router sends here (scripts/exp_attn_pixart256.py:91);
+//       `<D, true>` replaces `_transposed_kernel` (:285, launched :449) —
+//       PixArt's text cross-attention at 1024² (2B, 4096, 16, 72) and
+//       PixArt-Σ's at 2048² (2B, 16384, 16, 72), each to 120 keys.
 //     q times bf16(scale·log2e), rounded to bf16 before the product
 //     (:378-383, :491-492), s = q·kᵀ in fp32, with a bias plus
 //     fp32(bias·log2e) in a plain add (the reference's s + b_ref[...]: an
@@ -144,7 +148,8 @@
 // 16, 72) 3.09e11, 0.313 ms. K4 with a bias, to 120 text keys: 1.4e10
 // flops on the 78 MB of q and o, 0.023 ms by bytes. K1 at FLUX-256 (4,
 // 768, 24, 128): 2.9e10 flops on 38 MB, 0.029 ms by operations, and the
-// same at D=64 (8, 768, 24, 64) on 38 MB; at
+// same at D=64 (8, 768, 24, 64) on 38 MB (K1, K2 and K4 there); K6 at
+// D=64 (1, 9728, 24, 64): 5.8e11 flops on 120 MB, 0.588 ms; at
 // PixArt-256 (16, 256, 16, 72): 4.8e9 flops on 38 MB, 0.011 ms by bytes;
 // K2 there, 256 → 120 keys: 2.3e9 flops on 28 MB, 0.008 ms by bytes. So
 // the tensor cores bound all but the last two, and the exp2s come second:
@@ -163,11 +168,12 @@
 //     registers away (`setmaxnreg.dec` to 40), issues every TMA load from
 //     one thread and has its other three warps (the helpers) scale q and
 //     write the bias (below), and two consumers of 64 query rows each
-//     (`setmaxnreg.inc` to 232); K6 at D=72 has three consumers (512
-//     threads, 24 and 160 registers; see below). A work item is one
-//     (batch·head, 64·consumers-row query tile). Each consumer runs s =
-//     q·kᵀ as `wgmma.mma_async` m64n128k16 (eight k-steps at D=128, five
-//     at D=72) with q and k from shared memory, the softmax in registers
+//     (`setmaxnreg.inc` to 232); K6 at D=72 and the D=64 kernels but K4
+//     with a bias have three consumers (512 threads, 24 and 160
+//     registers; see below). A work item is one (batch·head,
+//     64·consumers-row query tile). Each consumer runs s = q·kᵀ as
+//     `wgmma.mma_async` m64n128k16 (eight k-steps at D=128, five at D=72,
+//     four at D=64) with q and k from shared memory, the softmax in registers
 //     on the accumulator layout (row reductions over the quad, as
 //     attention.cu does), and o += p·v as eight k-steps of m64n128k16
 //     (D=128) or m64n64k16 + m64n8k16 (D=72) with p as the register A
@@ -215,27 +221,43 @@
 //     third independent chain for the tensor cores, and each k/v tile
 //     serves 1.5 times the rows. Its registers fit 160 a thread (s, o and
 //     p take 132); q's tile is 192 rows (a 24 KB box, a 3 KB tail).
-//   * At D=64 (K1 and K2 only) a k or v tile is one 64-column box, 16 KB
-//     with no tail, and the freed shared memory holds a fourth ring stage.
-//     Its p·v is short (64 columns), and the softmax chain costs what the
-//     products do (above), so K1 and K2 run three consumer warpgroups, as
-//     K6 at D=72 does: 192 query rows an item, 160 registers a consumer
-//     (s, o and p take 128), 203 KB of shared memory; K2's 32 staged bias
-//     values spill 12 bytes there. On the card
+//   * At D=64 (K1, K2, K4 and K6) a k or v tile is one 64-column box, 16
+//     KB with no tail, and the freed shared memory holds a fourth ring
+//     stage. Its p·v is short (64 columns), and the softmax chain costs
+//     what the products do (above), so these kernels run three consumer
+//     warpgroups, as K6 at D=72 does: 192 query rows an item, 160
+//     registers a consumer (s, o and p take 128), 203 KB of shared memory.
+//     With a bias the 32 staged bias values spill there: 12 bytes in the
+//     exact mode (K2, K6), which three consumers repay (two were 8 and 7 %
+//     slower), 124 bytes in the clamp mode, where two consumers, free of
+//     spills, were 8 % faster, so K4 with a bias runs two. On the card
 //     (scripts/probe_attention_body.py, NVIDIA H100 80GB HBM3, 700 W, at
-//     (8, 768, 24, 64)) two consumers made K1 11 % slower and K2 8 %;
-//     taking out K1's softmax took 34 % off, its exp2s 16 %, its p·v
-//     products 11 %, its k/v loads nothing: the softmax chain, not the
-//     products or the loads, holds it at 2.3 times its bound (0.069
-//     against 0.029 ms; SDPA 0.076).
+//     the width-reduced FLUX's (8, 768, 24, 64) and, for K6, (1, 9728,
+//     24, 64)) two consumers made K1 12 % slower, K4 5 % and K6 12 %;
+//     taking out the softmax took 33 % off K1, 25 % off K4 and 34 % off
+//     K6, the exp2s 10–16 %, the p·v products 10–12 %, the k/v loads at
+//     most 2 %: the softmax chain, not the products or the loads, holds
+//     each at 2.1 (K4), 1.9 (K6) and 2.3 (K1) times its bound. The exp2s
+//     of a quarter or an eighth of the scores as a polynomial on the FMA
+//     pipes (`poly_every_4`, `poly_every_8`: the 1.5·2^23 rounding trick
+//     and a degree-3 polynomial) made every one of them 3–12 % slower:
+//     those pipes already carry the rest of the chain (scale, max, sum,
+//     the bf16 pack), so the special-function unit is not the only limit.
+//     A second score buffer on two consumers, so that tile j + 1's q·kᵀ
+//     is issued before tile j's softmax, was slower than three consumers
+//     on one (a variant build of this body, not kept): at D=64 the third
+//     consumer's independent chain hides more than the deeper pipeline
+//     does.
 //   * Short key counts (K1: 6 key tiles at FLUX-256, 2 at PixArt-256; K4
-//     with a bias: one tile of 120 text keys) leave the q load, the ring's
-//     fill and drain and the o store in the open when a block owns one
-//     item. So a block walks the items from blockIdx.x in steps of
-//     gridDim.x, and the launch is persistent, one block per SM, for K1 and
-//     K2 and for any call of one key tile (Tk ≤ 128), which against one
-//     block per item takes about two fifths off K4 with a bias
-//     (`one_block_per_item`). The ring runs
+//     with a bias: one tile of 120 text keys; K4 at D=64: 6 tiles of the
+//     width-reduced FLUX-256's 768 keys) leave the q load, the ring's fill
+//     and drain and the o store in the open when a block owns one item. So
+//     a block walks the items from blockIdx.x in steps of gridDim.x, and
+//     the launch is persistent, one block per SM, for K1 and K2 and for any
+//     call of at most six key tiles (`kPersistentTiles`; no served call of
+//     K4, K5 or K6 but PixArt's one-tile cross-attention has so few), which
+//     against one block per item takes about two fifths off K4 with a bias
+//     and a fifth off K4 at D=64 (`one_block_per_item`). The ring runs
 //     on across items, and q has two buffers with full and empty barriers
 //     of their own (the consumers arrive on the empty one after their last
 //     q·kᵀ of an item), so the producer loads the next item's q and first
@@ -353,6 +375,7 @@ namespace {
 constexpr int kBlockN = 128;  // keys per tile
 constexpr int kQBufs = 2;  // q tiles: the next item's loads while this one runs
 constexpr int kHelperThreads = 96;  // the producer warpgroup's warps 1-3
+constexpr int kPersistentTiles = 6;  // key tiles an item up to which a launch is persistent
 
 // A tile of `rows` rows (128 keys of k or v; 64 query rows per consumer
 // warpgroup of q) in shared memory. D=128: two 64-column boxes under the
@@ -806,7 +829,8 @@ __device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&p)[8][4]
 template <int D, int MODE, bool BIAS, int NC>
 __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Params& p) {
   static_assert(NC == 2 || NC == 3, "two or three consumer warpgroups");
-  static_assert(D != 64 || MODE == kExact, "D=64 is built for the exact single-tile mode only");
+  static_assert(D != 64 || MODE == kExact || MODE == kClamp,
+                "D=64 is built for the exact and clamp modes only");
   static_assert(!ones_denominator(MODE) || (D == 72 && !BIAS),
                 "X4's ones column is D=72's tenth column block, without a bias");
   constexpr int kBlockM = 64 * NC;  // query rows per work item
@@ -1151,9 +1175,9 @@ struct Maps {
 // K6's, X1's, X2's and X3's consumer warpgroups: three at D=72 (see the
 // note), two at D=128; K6 with a bias takes two at D=72 too (see the note)
 template <int D>
-constexpr int kFlashConsumers = D == 72 ? 3 : 2;
+constexpr int kFlashConsumers = D == 128 ? 2 : 3;
 template <int D, bool BIAS>
-constexpr int kStreamConsumers = BIAS ? 2 : kFlashConsumers<D>;
+constexpr int kStreamConsumers = BIAS && D != 64 ? 2 : kFlashConsumers<D>;
 template <int D, bool BIAS>
 __global__ void __launch_bounds__(128 * (kStreamConsumers<D, BIAS> + 1), 1)
     attn_flash_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
@@ -1172,10 +1196,13 @@ __global__ void __launch_bounds__(128 * (kExactConsumers<D> + 1), 1)
     attn_exact_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
   attn_sm90_body<D, kExact, BIAS, kExactConsumers<D>>(maps.m, p);
 }
+// K4's consumer warpgroups: two, three at D=64 without a bias (see the note)
 template <int D, bool BIAS>
-__global__ void __launch_bounds__(384, 1)
+constexpr int kClampConsumers = D == 64 && !BIAS ? 3 : 2;
+template <int D, bool BIAS>
+__global__ void __launch_bounds__(128 * (kClampConsumers<D, BIAS> + 1), 1)
     attn_clamp_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
-  attn_sm90_body<D, kClamp, BIAS, 2>(maps.m, p);
+  attn_sm90_body<D, kClamp, BIAS, kClampConsumers<D, BIAS>>(maps.m, p);
 }
 template <int D>
 __global__ void __launch_bounds__(128 * (kFlashConsumers<D> + 1), 1)
@@ -1215,8 +1242,8 @@ Launch launch_of(Kernel kernel) {
 }
 
 // The kernel of `mode` at head dim D, with or without a bias, or none where
-// it is not built: K5 at D=128 only, X4 (mode 6) at D=72 only, no bias in
-// X1-X4 (modes 4-7).
+// it is not built: K5 at D=128 only, X4 (mode 6) at D=72 only, X1-X3
+// (modes 4, 5, 7) not at D=64, no bias in X1-X4 (modes 4-7).
 template <int D>
 Launch sm90_launch(int mode, bool bias) {
   switch (mode) {
@@ -1233,31 +1260,30 @@ Launch sm90_launch(int mode, bool bias) {
       return launch_of<D, kExactConsumers<D>, kExact>(bias ? attn_exact_sm90_kernel<D, true>
                                                            : attn_exact_sm90_kernel<D, false>);
     case 3:
-      return launch_of<D, 2, kClamp>(bias ? attn_clamp_sm90_kernel<D, true>
-                                          : attn_clamp_sm90_kernel<D, false>);
+      if (bias)
+        return launch_of<D, kClampConsumers<D, true>, kClamp>(attn_clamp_sm90_kernel<D, true>);
+      return launch_of<D, kClampConsumers<D, false>, kClamp>(attn_clamp_sm90_kernel<D, false>);
     case 4:
-      if (bias) return Launch{};
-      return launch_of<D, kFlashConsumers<D>, kNoMax>(attn_xnomax_sm90_kernel<D>);
+      if constexpr (D != 64)
+        if (!bias) return launch_of<D, kFlashConsumers<D>, kNoMax>(attn_xnomax_sm90_kernel<D>);
+      return Launch{};
     case 5:
-      if (bias) return Launch{};
-      return launch_of<D, kFlashConsumers<D>, kMaxScaledQ>(attn_xmax_sm90_kernel<D>);
+      if constexpr (D != 64)
+        if (!bias)
+          return launch_of<D, kFlashConsumers<D>, kMaxScaledQ>(attn_xmax_sm90_kernel<D>);
+      return Launch{};
     case 6:
       if constexpr (D == 72)
         if (!bias) return launch_of<D, 2, kClampFD>(attn_xfd_sm90_kernel<D>);
       return Launch{};
     case 7:
-      if (bias) return Launch{};
-      return launch_of<D, kFlashConsumers<D>, kMatmulOnly>(attn_xmatmul_sm90_kernel<D>);
+      if constexpr (D != 64)
+        if (!bias)
+          return launch_of<D, kFlashConsumers<D>, kMatmulOnly>(attn_xmatmul_sm90_kernel<D>);
+      return Launch{};
     default:
       return Launch{};
   }
-}
-// At D=64 only K1 and K2 (mode 2) are built.
-template <>
-Launch sm90_launch<64>(int mode, bool bias) {
-  if (mode != 2) return Launch{};
-  return launch_of<64, kExactConsumers<64>, kExact>(bias ? attn_exact_sm90_kernel<64, true>
-                                                         : attn_exact_sm90_kernel<64, false>);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1286,7 +1312,7 @@ EncodeTiled encode_tiled() {
 
 }  // namespace
 
-// q, k, v: bf16 (B, T, H, D), D = 72 or 128 (and 64 in mode 2 only);
+// q, k, v: bf16 (B, T, H, D), D = 64, 72 or 128 (64 in modes 0, 2 and 3);
 // `maps` holds 11 values for
 // each of q, k, v in turn: the dims {D, H, T, B}, the byte strides of H, T
 // and B, and the box {64, 1, 128, 1}, as ops/attention.py's `tma_operand`
@@ -1306,8 +1332,8 @@ EncodeTiled encode_tiled() {
 // into the fp32 scores; q_scale = scale·log2e rounded to bf16, which the
 // helpers of modes 1 and 3-6 multiply into q (`scaled_q`); mode 7 reads
 // neither. Mode 2, and any
-// mode at Tk ≤ 128, launches one block per SM, which walks the work
-// items; the others one block per item. Returns 0, a cudaError_t of the
+// mode at Tk ≤ kPersistentTiles · 128, launches one block per SM, which
+// walks the work items; the others one block per item. Returns 0, a cudaError_t of the
 // launch, or 100000 + the CUresult of a refused tensor map.
 extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void* v, void* o,
                                        const unsigned long long* maps,
@@ -1397,10 +1423,12 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
     if (err != cudaSuccess) return (int)err;
     opted = true;
   }
-  // one block per SM for K1 and K2, and for one-tile items (K4 with PixArt's
-  // 120 text keys), whose q load and o store are most of their work
+  // one block per SM for K1 and K2, and for items of at most
+  // kPersistentTiles key tiles (K4 with PixArt's 120 text keys, K4 at the
+  // width-reduced FLUX-256's 768 keys), whose q load, ring fill and o store
+  // are a large share of their work
   int grid = (int)n_items;
-  if (mode == 2 || Tk <= kBlockN) {
+  if (mode == 2 || (Tk + kBlockN - 1) / kBlockN <= kPersistentTiles) {
     int dev = 0, sms = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)

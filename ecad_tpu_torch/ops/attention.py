@@ -34,24 +34,26 @@ the way that one does (`attention_route`):
   and counters; plain version: `flash_attention_reference`.
 
 Every route runs on one of two hand-written CUDA C++ sources (each says
-what bounds its kernels on the H100). bf16 calls at head dim 72 or 128 take
-the Hopper body of ``csrc/attention_sm90.cu`` (wgmma fed by TMA;
+what bounds its kernels on the H100). bf16 calls at head dim 64, 72 or 128
+take the Hopper body of ``csrc/attention_sm90.cu`` (wgmma fed by TMA;
 `_takes_sm90`), without a bias or with a key-padding bias (B|1, 1, 1, Tk):
-the exact single-tile route (K1; K2 with a bias, at head dim 64 too) —
-PixArt's 256² self-attention and its text cross-attention at 256² and
-512², FLUX.1-dev's joint attention at 256², and the reference's
-width-reduced FLUX (head dim 64) in its routing experiment
-(scripts/exp_attn_pixart256.py); the transposed clamp route (K4, with a bias too)
-— PixArt's 1024² self-attention and its text cross-attention at 1024² and
-PixArt-Σ's at 2048²; the streaming route (K6, with a bias too) —
-PixArt-Σ's 2048² self-attention, FLUX.1-dev's at 1536²; and at 128 the
-row-block route (K5, with a bias too) — FLUX.1-dev at 1024². The
-attention-variant harness's X1, X2 and X3 take the same body in bf16 at 72
-and 128, and X4 at 72 (`attn_variants`). The mma.sync body of
-``csrc/attention.cu`` (a compile-time variant per route) takes the rest:
-fp32, other head dims (and 64 on every route but the exact single-tile
-one, which no served path sends there) and dense biases. The choice
-depends on route, dtype, head dim and bias only. A call for the Hopper
+the exact single-tile route (K1; K2 with a bias) — PixArt's 256²
+self-attention and its text cross-attention at 256² and 512², FLUX.1-dev's
+joint attention at 256², and the reference's width-reduced FLUX (head dim
+64) in its routing experiment (scripts/exp_attn_pixart256.py); the
+transposed clamp route (K4, with a bias too) — PixArt's 1024²
+self-attention and its text cross-attention at 1024² and PixArt-Σ's at
+2048², and the width-reduced FLUX at 256² as the router sends it; the
+streaming route (K6, with a bias too) — PixArt-Σ's 2048² self-attention,
+FLUX.1-dev's at 1536² and the width-reduced FLUX's; and at 128 the
+row-block route (K5, with a bias too) — FLUX.1-dev at 1024². No served
+path runs head dim 64. The attention-variant harness's X1, X2 and X3 take
+the same body in bf16 at 72 and 128, and X4 at 72 (`attn_variants`). The
+mma.sync body of ``csrc/attention.cu`` (a compile-time variant per route)
+takes the rest: fp32, dense biases, other head dims, and the row-block
+route at head dims other than 128, which only `rowblock_attention`
+called directly reaches (the router takes that route at 128 alone). The
+choice depends on route, dtype, head dim and bias only. A call for the Hopper
 body whose operands TMA cannot map (`tma_operand`: a 16-byte-aligned base
 and strides), or whose bias the body does not read (`bias_operand`: bf16
 or fp32), raises; it never drops back to the other body.
@@ -107,11 +109,11 @@ MAX_HEAD_DIM = 128
 _FN = None
 _SM90_FN = None
 # the Hopper body's kernels (csrc/attention_sm90.cu), by counter name: the
-# C entry's mode and the head dims it is built for (64 on the exact
-# single-tile route only); the last four are the attention-variant
-# harness's X2, X3, X4 and X1 (`attn_variants`)
-_SM90_MODES = {"attention_flash": (0, (72, 128)), "attention_rowblock": (1, (128,)),
-               "attention": (2, (72, 128, 64)), "attention_long": (3, (72, 128)),
+# C entry's mode and the head dims it is built for (64 on the exact and
+# clamp transposed routes, not on the row-block one); the last four are the
+# attention-variant harness's X2, X3, X4 and X1 (`attn_variants`)
+_SM90_MODES = {"attention_flash": (0, (72, 128, 64)), "attention_rowblock": (1, (128,)),
+               "attention": (2, (72, 128, 64)), "attention_long": (3, (72, 128, 64)),
                "xattn_nomax": (4, (72, 128)), "xattn_max": (5, (72, 128)),
                "xattn_fd": (6, (72,)), "xattn_matmul_only": (7, (72, 128))}
 # the routes whose Hopper kernel also takes a key-padding bias: K2, K4, K5, K6

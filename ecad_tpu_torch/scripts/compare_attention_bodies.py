@@ -22,7 +22,10 @@ of the 4608 keys kept) at the same shape; K6 (streaming exact, variant
 at 2048², 9000 of 9728 keys at 1536²); K1 and K2 at head dim 64 (variant
 0) at the reference's width-reduced FLUX 256² (8, 768, 24, 64), which its
 routing experiment forces onto the single-tile route
-(`single_tile_attention`), K2 with 700 of the 768 keys kept. Both bodies
+(`single_tile_attention`), K2 with 700 of the 768 keys kept; K4 (variant
+1) at the same shape as the router sends it, also with 700 keys kept; K6
+(variant 3) at the width-reduced FLUX's 1536² (1, 9728, 24, 64), also with
+9000 keys kept. Both bodies
 are checked against the
 plain version (run per head) and timed in turns — old, new, new, old — by
 spin-kernel CUDA events (`sampled_device_ms`, which samples the SM clock,
@@ -86,6 +89,14 @@ CASES = {
                       A.fused_attention_reference, 0.1),
     "attention_bias_d64": ((8, 768, 24, 64), 768, (700,), 0, A.single_tile_attention,
                            A.fused_attention_reference, 0.1),
+    "attention_long_d64": ((8, 768, 24, 64), 768, None, 1, A.fused_attention,
+                           A.transposed_attention_reference, 0.1),
+    "attention_long_bias_d64": ((8, 768, 24, 64), 768, (700,), 1, A.fused_attention,
+                                A.transposed_attention_reference, 0.1),
+    "attention_flash_d64": ((1, 9728, 24, 64), 9728, None, 3, A.fused_attention,
+                            A.flash_attention_reference, 0.025),
+    "attention_flash_bias_d64": ((1, 9728, 24, 64), 9728, (9000,), 3, A.fused_attention,
+                                 A.flash_attention_reference, 0.025),
 }
 # attention.cu's variant → its route, for the route's pad keys (`pad_keys`)
 ROUTE = {0: "exact", 1: "clamp", 2: "rowblock", 3: "flash"}

@@ -40,6 +40,21 @@ Rows, bf16 at the shape the main path gives each kernel:
   items instead of three and 192), K6's ``no_softmax``, ``no_exp2``,
   ``no_pv`` and ``no_kv_loads``; K2 at the same shape with 700 of the 768
   keys kept, with ``no_bias_loads`` and ``d64_two_consumers``;
+* K4 at head dim 64 at the same shape, as the router sends it, with
+  ``clamp_two_consumers`` (two consumer warpgroups instead of three),
+  ``one_block_per_item`` (a grid of items instead of the persistent
+  launch), ``clamp_no_softmax``, ``clamp_no_exp2``, ``no_pv``,
+  ``no_kv_loads`` and ``poly_every_4`` / ``poly_every_8`` (the exp2s of
+  every fourth or eighth column block of 8 scores as a polynomial on the
+  FMA pipes); K4 with 700 of the 768 keys kept, with
+  ``clamp_bias_three_consumers`` (three consumer warpgroups instead of
+  two, and their spills), ``one_block_per_item``, ``no_bias_loads`` and
+  ``poly_every_4``;
+* K6 at head dim 64 at the width-reduced FLUX's 1536² (1, 9728, 24, 64),
+  with ``two_consumers``, ``no_softmax``, ``no_exp2``, ``no_pv``,
+  ``no_kv_loads``, ``poly_every_4`` and ``poly_every_8``; K6 with 9000 of
+  the 9728 keys kept, with ``two_consumers``, ``no_bias_loads`` and
+  ``poly_every_4``;
 * the harness's X3 (max on a pre-scaled q) at its ``pixart1024`` (8, 4096,
   16, 72) and ``pixart512_class_self`` (64, 1024, 16, 72) shapes, with
   ``xmax_two_consumers`` (K6's ``two_consumers`` edit, since X2 and X3
@@ -55,7 +70,8 @@ Rows, bf16 at the shape the main path gives each kernel:
   X3).
 
 A variant that only reschedules the same arithmetic (``two_consumers``,
-``k6_bias_three_consumers``, ``d64_two_consumers``, ``one_block_per_item``,
+``k6_bias_three_consumers``, ``d64_two_consumers``, ``clamp_two_consumers``,
+``clamp_bias_three_consumers``, ``one_block_per_item``,
 ``items_in_runs``, ``bias_after_q``, ``xmax_two_consumers``,
 ``xnomax_two_consumers``, ``xfd_three_consumers``, ``xmatmul_two_consumers``)
 must give the source's output bit for bit; the
@@ -88,7 +104,7 @@ from ecad_tpu_torch.utils.timing import card_name, card_sample, device_ms
 
 # variant → [(text in the source, its replacement), ...]
 K6_VARIANTS = {
-    "two_consumers": [("constexpr int kFlashConsumers = D == 72 ? 3 : 2;",
+    "two_consumers": [("constexpr int kFlashConsumers = D == 128 ? 2 : 3;",
                        "constexpr int kFlashConsumers = 2;")],
     "no_softmax": [(
         "    if (edge) softmax_exact<true>(s, m, l, alpha, qk_scale, k0 + col_t, Tk);\n"
@@ -118,11 +134,13 @@ K2_VARIANTS = {
 }
 K6_BIAS_VARIANTS = {
     **K2_VARIANTS,
-    "k6_bias_three_consumers": [("constexpr int kStreamConsumers = BIAS ? 2 : kFlashConsumers<D>;",
+    "k6_bias_three_consumers": [("constexpr int kStreamConsumers = BIAS && D != 64 ? 2 : "
+                                 "kFlashConsumers<D>;",
                                  "constexpr int kStreamConsumers = kFlashConsumers<D>;")],
 }
 K4_BIAS_VARIANTS = {
-    "one_block_per_item": [("  if (mode == 2 || Tk <= kBlockN) {", "  if (mode == 2) {")],
+    "one_block_per_item": [("  if (mode == 2 || (Tk + kBlockN - 1) / kBlockN <= kPersistentTiles) {",
+                            "  if (mode == 2) {")],
     "items_in_runs": [
         ("for (int item = blockIdx.x; item < p.n_items; item += gridDim.x, ++it",
          "for (int item = blockIdx.x * ((p.n_items + gridDim.x - 1) / gridDim.x); "
@@ -146,6 +164,65 @@ K1_D64_VARIANTS = {
     **{n: K6_VARIANTS[n] for n in ("no_softmax", "no_exp2", "no_pv", "no_kv_loads")},
 }
 K2_D64_VARIANTS = {**K2_VARIANTS, **D64_VARIANTS}
+# K4 and K6 at D=64: the exp2s of every fourth or eighth column block of a
+# tile's scores from the FMA pipes (`ex2_poly`: x = j + f with j = rint(x)
+# by the 1.5·2^23 trick, 2^f by a degree-3 polynomial on [−½, ½], relative
+# error below 7.5e-5, j added to the exponent field), K4 on two consumers
+# (three with a bias), its launch a grid of items (`one_block_per_item`),
+# its softmax or its exp2s taken out
+EX2_POLY = """__device__ __forceinline__ float ex2_poly(float x) {
+  x = fmaxf(x, -126.f);
+  const float t = __fadd_rn(x, 12582912.f);
+  const float f = __fsub_rn(x, __fsub_rn(t, 12582912.f));
+  const float p = fmaf(fmaf(fmaf(0.0551716685f, f, 0.2426111400f), f, 0.6932609677f), f,
+                       0.9999280572f);
+  return __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));
+}
+"""
+
+
+def poly_edits(n: int) -> list[tuple[str, str]]:
+    on = f"(i >> 2) % {n} == {n - 1}"
+    return [
+        ("__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {",
+         EX2_POLY + "__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {"),
+        ("    const float p = ex2(fmaf(s[i], qk_scale, shift[r]));",
+         "    const float x = fmaf(s[i], qk_scale, shift[r]);\n"
+         f"    const float p = {on} ? ex2_poly(x) : ex2(x);"),
+        ("    const float p = ex2(s[i] - mx[r]);",
+         f"    const float p = {on} ? ex2_poly(s[i] - mx[r]) : ex2(s[i] - mx[r]);"),
+        ("    float p = ex2(CLIP ? fminf(fmaxf(x, kClampLo), kClampHi) : x);",
+         "    const float xc = CLIP ? fminf(fmaxf(x, kClampLo), kClampHi) : x;\n"
+         f"    float p = {on} ? ex2_poly(xc) : ex2(xc);")]
+
+
+POLY_VARIANTS = {f"poly_every_{n}": poly_edits(n) for n in (4, 8)}
+K4_D64_VARIANTS = {
+    "clamp_two_consumers": [("constexpr int kClampConsumers = D == 64 && !BIAS ? 3 : 2;",
+                             "constexpr int kClampConsumers = 2;")],
+    "one_block_per_item": K4_BIAS_VARIANTS["one_block_per_item"],
+    **POLY_VARIANTS,
+    "clamp_no_softmax": [(
+        "    if (edge) softmax_nomax<true, BIAS, kClip, kSum>(s, b2, l, k0 + col_t, Tk);\n"
+        "    else softmax_nomax<false, BIAS, kClip, kSum>(s, b2, l, k0 + col_t, Tk);",
+        "    (void)edge;")],
+    "clamp_no_exp2": [("    float p = ex2(CLIP ? fminf(fmaxf(x, kClampLo), kClampHi) : x);",
+                       "    float p = CLIP ? fminf(fmaxf(x, kClampLo), kClampHi) : x;")],
+    **{n: K6_VARIANTS[n] for n in ("no_pv", "no_kv_loads")},
+}
+K4_BIAS_D64_VARIANTS = {
+    "clamp_bias_three_consumers": [
+        ("constexpr int kClampConsumers = D == 64 && !BIAS ? 3 : 2;",
+         "constexpr int kClampConsumers = D == 64 ? 3 : 2;")],
+    "one_block_per_item": K4_BIAS_VARIANTS["one_block_per_item"],
+    **K2_VARIANTS, "poly_every_4": POLY_VARIANTS["poly_every_4"]}
+K6_D64_VARIANTS = {
+    **{n: K6_VARIANTS[n] for n in ("two_consumers", "no_softmax", "no_exp2", "no_pv",
+                                   "no_kv_loads")},
+    **POLY_VARIANTS,
+}
+K6_BIAS_D64_VARIANTS = {"two_consumers": K6_VARIANTS["two_consumers"], **K2_VARIANTS,
+                        "poly_every_4": POLY_VARIANTS["poly_every_4"]}
 # X1, X2 and X3 share K6's consumer count, so K6's edit takes each to two
 X1_VARIANTS = {"xmatmul_two_consumers": K6_VARIANTS["two_consumers"]}
 X3_VARIANTS = {
@@ -191,6 +268,12 @@ ROWS = {
                    {"items_in_runs": K4_BIAS_VARIANTS["items_in_runs"]}, 7, 20),
     "k1_dim1536": ((8, 768, 24, 64), 768, None, "attention", K1_D64_VARIANTS, 7, 20),
     "k2_dim1536": ((8, 768, 24, 64), 768, (700,), "attention", K2_D64_VARIANTS, 7, 20),
+    "k4_dim1536": ((8, 768, 24, 64), 768, None, "attention_long", K4_D64_VARIANTS, 7, 20),
+    "k4_bias_dim1536": ((8, 768, 24, 64), 768, (700,), "attention_long", K4_BIAS_D64_VARIANTS,
+                        7, 20),
+    "k6_dim1536": ((1, 9728, 24, 64), 9728, None, "attention_flash", K6_D64_VARIANTS, 3, 5),
+    "k6_bias_dim1536": ((1, 9728, 24, 64), 9728, (9000,), "attention_flash",
+                        K6_BIAS_D64_VARIANTS, 3, 5),
     "x3_pixart1024": ((8, 4096, 16, 72), 4096, None, "xattn_max", X3_VARIANTS, 5, 5),
     "x3_pixart512_class_self": ((64, 1024, 16, 72), 1024, None, "xattn_max", X3_VARIANTS,
                                 5, 5),
@@ -205,6 +288,7 @@ ROWS = {
 }
 # the same arithmetic, rescheduled
 EXACT = ("two_consumers", "k6_bias_three_consumers", "d64_two_consumers",
+         "clamp_two_consumers", "clamp_bias_three_consumers",
          "one_block_per_item", "items_in_runs",
          "bias_after_q", "xmax_two_consumers", "xnomax_two_consumers", "xfd_three_consumers",
          "xmatmul_two_consumers")

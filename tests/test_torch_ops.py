@@ -143,6 +143,34 @@ def test_attention_bf16_d64_matches_pallas(bias):
     )
 
 
+@pytest.mark.parametrize("bias", [None, "key_padding"])
+@pytest.mark.parametrize("route", ["transposed", "flash"])
+def test_clamp_and_streaming_bf16_d64_match_pallas(route, bias, monkeypatch):
+    """K4 and K6 in bf16 at head dim 64, the width the Hopper body now takes
+    on the clamp transposed and streaming routes: each plain version,
+    through its wrapper on the CPU, against the Pallas kernels in interpret
+    mode (`_transposed_attention`; `_flash_attention` with
+    _ROWBLOCK_MAX_KV_ELEMS = 0, so that the streaming kernel runs) at the
+    reference's odd shape (tq 30, tk 300: pad keys to 384 on both routes;
+    key padding per batch at [100, 200, 256]). Both sides round q·scale (the
+    clamp) and p to bf16 the same way and round the fp32 result once:
+    agreement to one bf16 ulp (2^-7 of an O(1) output)."""
+    monkeypatch.setattr(jax_attention, "_ROWBLOCK_MAX_KV_ELEMS", 0)
+    rng = np.random.default_rng(45)
+    q, k, v = (x.astype(jnp.bfloat16) for x in _qkv(rng, 3, 30, 300, 2, 64))
+    b = None if bias is None else _key_padding([100, 200, 256], 300)
+    ref, port = {"transposed": (jax_attention._transposed_attention, transposed_attention),
+                 "flash": (jax_attention._flash_attention, flash_attention)}[route]
+    want = ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+               None if b is None else jnp.asarray(b), interpret=True)
+    as_t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)  # noqa: E731
+    got = port(as_t(q), as_t(k), as_t(v), None if b is None else torch.from_numpy(b))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32), rtol=2**-7, atol=2**-7
+    )
+
+
 def test_modulated_layer_norm_matches_pallas():
     rng = np.random.default_rng(3)
     x = rng.standard_normal((3, 16, 128), dtype=np.float32)
@@ -936,17 +964,20 @@ HOPPER_ROUTES = {
     "exact_fp32_d64": ("fused", (2, 30, 2, 64), 300, "fp32", None, ("mma", 0)),
     # the reference's width-reduced FLUX (dim 1536, head dim 64) at 256²:
     # forced onto the single-tile route (K1, K2 with a bias) on the Hopper
-    # body; the router sends the same shape to the clamp (K4) on attention.cu
+    # body; the router sends the same shape to the clamp (K4), on the Hopper
+    # body too
     "single_tile_flux256_dim1536_d64": ("single", (8, 768, 24, 64), 768, "bf16", None,
                                         ("sm90", "attention")),
     "single_tile_key_padding_flux256_dim1536_d64": ("single", (8, 768, 24, 64), 768, "bf16",
                                                     "padding", ("sm90", "attention_bias")),
-    "flux256_dim1536_clamp_d64": ("fused", (8, 768, 24, 64), 768, "bf16", None, ("mma", 1)),
-    "transposed_d64": ("transposed", (2, 30, 2, 64), 300, "bf16", None, ("mma", 1)),
+    "flux256_dim1536_clamp_d64": ("fused", (8, 768, 24, 64), 768, "bf16", None,
+                                  ("sm90", "attention_long")),
+    "transposed_d64": ("transposed", (2, 30, 2, 64), 300, "bf16", None,
+                       ("sm90", "attention_long")),
     "transposed_key_padding_d64": ("transposed", (2, 30, 2, 64), 300, "bf16", "padding",
-                                   ("mma", 1)),
+                                   ("sm90", "attention_long_bias")),
     "flash_d64_through_the_router": ("fused", (1, 9728, 24, 64), 9728, "bf16", None,
-                                     ("mma", 3)),
+                                     ("sm90", "attention_flash")),
     "transposed_key_padding": ("transposed", (4, 4096, 16, 72), 120, "bf16", "padding",
                                ("sm90", "attention_long_bias")),
     "pixart1024_cross_k4_bias": ("fused", (4, 4096, 16, 72), 120, "bf16", "padding",
@@ -973,7 +1004,8 @@ HOPPER_ROUTES = {
     "flash_batch_broadcast_bias_d72": ("flash", (3, 30, 2, 72), 300, "bf16", "broadcast",
                                        ("sm90", "attention_flash_bias")),
     "flash_key_padding_fp32_d72": ("flash", (2, 30, 2, 72), 300, "fp32", "padding", ("mma", 3)),
-    "flash_key_padding_d64": ("flash", (2, 30, 2, 64), 300, "bf16", "padding", ("mma", 3)),
+    "flash_key_padding_d64": ("flash", (2, 30, 2, 64), 300, "bf16", "padding",
+                              ("sm90", "attention_flash_bias")),
     "pixart2048_flash_key_padding": ("fused", (2, 16384, 16, 72), 16384, "bf16", "padding",
                                      ("sm90", "attention_flash_bias")),
     "flux1536_flash_key_padding_d128": ("fused", (1, 9728, 24, 128), 9728, "bf16", "padding",
@@ -982,7 +1014,7 @@ HOPPER_ROUTES = {
     "flash_fp32": ("flash", (2, 30, 2, 128), 300, "fp32", None, ("mma", 3)),
     "flash_fp32_d72": ("flash", (2, 30, 2, 72), 300, "fp32", None, ("mma", 3)),
     "flash_d72": ("flash", (2, 30, 2, 72), 300, "bf16", None, ("sm90", "attention_flash")),
-    "flash_d64": ("flash", (2, 30, 2, 64), 300, "bf16", None, ("mma", 3)),
+    "flash_d64": ("flash", (2, 30, 2, 64), 300, "bf16", None, ("sm90", "attention_flash")),
     "rowblock_d64": ("rowblock", (2, 30, 2, 64), 300, "bf16", None, ("mma", 2)),
     "rowblock_key_padding_d128": ("fused", (1, 4608, 24, 128), 4608, "bf16", "padding",
                                   ("sm90", "attention_rowblock_bias")),
@@ -995,14 +1027,13 @@ HOPPER_ROUTES = {
 
 @pytest.mark.parametrize("name", sorted(HOPPER_ROUTES))
 def test_hopper_body_routing(name, monkeypatch):
-    """bf16 calls without a bias at head dim 72 or 128 on the single-tile
-    exact (K1), transposed clamp (K4) and streaming (K6) routes, at 128
-    on the row-block route (K5) and at 64 on the single-tile route only,
-    launch the Hopper body, and so do bf16 calls with a key-padding bias on
-    each of them (K2, and K4, K5 and K6 with a bias, at the same head
-    dims), the bias passed on; every other call — a dense bias, fp32,
-    another head dim, head dim 64 on the clamp, row-block and streaming
-    routes — keeps its csrc/attention.cu variant.
+    """bf16 calls without a bias at head dim 64, 72 or 128 on the
+    single-tile exact (K1), transposed clamp (K4) and streaming (K6)
+    routes, and at 128 on the row-block route (K5), launch the Hopper body,
+    and so do bf16 calls with a key-padding bias on each of them (K2, and
+    K4, K5 and K6 with a bias, at the same head dims), the bias passed on;
+    every other call — a dense bias, fp32, another head dim, the row-block
+    route at head dim 64 — keeps its csrc/attention.cu variant.
     Tensors on the meta device reach the launch decision without a card;
     the launchers are replaced by recorders."""
     wrapper, shape, tk, dtype, bias_kind, want = HOPPER_ROUTES[name]
@@ -1040,7 +1071,7 @@ PAD_KEY_LAUNCHES = {
     "key_padding_single_tile_fp32": ("fused", (2, 30, 2, 72), 300, "fp32", "padding", 84),
     "clamp_key_padding_fp32": ("transposed", (2, 30, 2, 72), 300, "fp32", "padding", 84),
     "flash_key_padding_fp32": ("flash", (2, 30, 2, 72), 1600, "fp32", "padding", 1472),
-    "flash_key_padding_d64": ("flash", (2, 30, 2, 64), 300, "bf16", "padding", 84),
+    "flash_key_padding_d64": ("flash", (2, 30, 2, 64), 300, "fp32", "padding", 84),
 }
 
 
@@ -1399,6 +1430,34 @@ def test_hopper_k6_arithmetic_matches_flash_kernel_at_d72(monkeypatch):
     atol, rtol = _chip_smoke_module().flash_bf16_tol(want)
     torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
     assert rtol == 2.0 ** -7
+
+
+@pytest.mark.parametrize("bias", [None, "key_padding"])
+def test_hopper_k6_arithmetic_matches_flash_kernel_at_d64(bias, monkeypatch):
+    """The Hopper body's K6 arithmetic at head dim 64 (`_hopper_exact_body`:
+    p rounded to bf16 against the running max of each 128-key tile; with a
+    key-padding bias folded into the log2-domain FFMA), the route's pad
+    keys (1600 keys pad to 3072, n_pad 1472), against `_flash_kernel` in
+    interpret mode (its 1536-key blocks) at (2, 64, 2, 64) → 1600 keys,
+    bf16, without a bias and with an fp32 bias of −1e9 past lengths [1600,
+    700]: the least atol per std that passes beside 2^-7 relative stays
+    below half of chip_smoke.py's flash_bf16_tol share (0.025), and the
+    emulation passes that tolerance."""
+    monkeypatch.setattr(jax_attention, "_ROWBLOCK_MAX_KV_ELEMS", 0)
+    rng = np.random.default_rng(46)
+    q, k, v = (x.astype(jnp.bfloat16) for x in _qkv(rng, 2, 64, 1600, 2, 64))
+    b = None if bias is None else _key_padding_bias_np([1600, 700], 1600)
+    assert port_attention.pad_keys("flash", 1600) == 1472
+    want = torch.from_numpy(np.asarray(jax_attention._flash_attention(
+        *(jnp.asarray(x) for x in (q, k, v)), None if b is None else jnp.asarray(b),
+        interpret=True), np.float32))
+    as_t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)  # noqa: E731
+    got = _hopper_exact_body(*(as_t(x) for x in (q, k, v)),
+                             None if b is None else torch.from_numpy(b), n_pad=1472).float()
+    least = _least_atol_per_std(got, want, 2.0 ** -7)
+    assert least <= 0.0125, least
+    atol, rtol = _chip_smoke_module().flash_bf16_tol(want)
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
 
 
 # case → (the key-padding lengths of batch rows 0 and 1, or a fill for every
