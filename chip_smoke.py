@@ -29,32 +29,34 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    9728; the plain versions of K6 run per (batch·head) slice, since the
    fp32 scores of the served shape would take 34 GB. bf16 calls without a
    bias run on the Hopper body (``csrc/attention_sm90.cu``: wgmma fed by
-   TMA) — K1, K4 and K6 at head dims 64, 72 and 128, K5 at 128 — and so do
+   TMA) — K1, K4, K5 and K6 at head dims 64, 72 and 128 — and so do
    bf16 calls with a key-padding bias on the single-tile route (K2, at 64,
-   72 and 128), on the clamp routes (K4 with a bias at 64, 72 and 128, K5
-   with a bias at 128) and on the streaming route (K6 with a bias at 64, 72
-   and 128, at
+   72 and 128), on the clamp routes (K4 and K5 with a bias at 64, 72 and
+   128) and on the streaming route (K6 with a bias at 64, 72 and 128, at
    PixArt-2048's shape with lengths 15384 / 9000 and at FLUX-1536's with
    9000 keys kept, each reached through the router with the launch
    counters set to 0 just before and read just after, and named by a
    profile); they are held against their plain versions at ragged
    shapes (tq=30, tk=300 at d=64, 72 and 128; K6 also at 1600 keys, two of
-   the reference's 1536-key blocks; K2 with key-padding lengths [100, 200,
-   256]; K4 and K5 with biases in bf16 and fp32, per batch and broadcast
-   over it, at Tk=300, and K4 at PixArt-Σ-2048's cross-attention (2,
-   16384, 16, 72) → 120), logits near ±40 (log2; at d=64 within the
-   reference's 2e-3 beside one bf16 ulp, K1, K2, K4 and K6 each with and
-   without a bias) and q×1e4, and shown to
+   the reference's 1536-key blocks; K2, and K5 at d=64 and 72, with
+   key-padding lengths [100, 200, 256]; K4 and K5 with biases in bf16 and
+   fp32, per batch and broadcast over it, at Tk=300 (K5 also at d=64 and
+   72), and K4 at PixArt-Σ-2048's cross-attention (2, 16384, 16, 72) →
+   120), logits near ±40 (log2; at d=64 within the reference's 2e-3 beside
+   one bf16 ulp, K1, K2, K4, K5 and K6 each with and without a bias, K5
+   also at d=72) and q×1e4, and shown to
    reject a plain version that drops or repeats one 128-key tile (the
-   body's step) at 768 (K1 at d=128 and 64, K2 and K4 at 64, K4 also with
-   a bias), 4096 (K4), 4608 (K5), 9728 and 16384 (K6, also with its bias;
-   at 9728 also at d=64) keys; K4 and K5 with a
-   bias also in all-masked text rows, whose output
+   body's step) at 768 (K1 at d=128 and 64, K2, K4 and K5 at 64, K4 and K5
+   also with a bias), 4096 (K4; K5 at d=72, also with a bias), 4608 (K5),
+   9728 and 16384 (K6, also with its bias; at 9728 also at d=64) keys; K4
+   and K5 with a bias also in all-masked text rows (K5 at d=64, 72 and
+   128), whose output
    must be Σv/Tk_pad within 2^-7 relative, a check shown to reject the
    pad keys counted twice (Σv/(Tk_pad + n_pad)); a call whose operands TMA
    cannot map (at d=64 also a base off 16 bytes and rows 136 bytes apart,
-   on the single-tile, clamp and streaming routes, with and without a
-   bias), or whose bias the body does not read (fp16), raises there.
+   on the single-tile, clamp, row-block and streaming routes, with and
+   without a bias; K5 also at d=72, rows 152 bytes apart), or whose bias
+   the body does not read (fp16; K5 at d=64, 72 and 128), raises there.
    The rest run on ``csrc/attention.cu``. The exact kernels
    of both (K2 in bf16 on the Hopper body and in fp32 on attention.cu, K6
    with a bias at d=64, 72 and 128) are also held against the plain versions
@@ -66,13 +68,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    Σv/Tk. Time kernel (with the
    SM clock, power and temperature sampled before and after), plain
    version and (attention) one ``scaled_dot_product_attention`` call as a
-   yardstick the port never calls. K1, K2, K4 and K6 at head dim 64 at
-   the reference's width-reduced FLUX (`D64_ROWS`: K1, K2 and K4 at 256²,
-   (8, 768, 24, 64), 700 of 768 keys kept with a bias; K6 at 1536², (1,
-   9728, 24, 64), 9000 of 9728 kept), each reached through its wrapper
-   with its launch counted and named by a profile, are timed in turns
-   against SDPA and the mma.sync body of ``attention.cu`` they replaced
-   (``old_body_ms`` on their rows). K3 (``csrc/modlnorm_sm90.cu``) also at
+   yardstick the port never calls. K1, K2, K4, K5 and K6 at head dim 64
+   at the reference's width-reduced FLUX (`D64_ROWS`: K1, K2, K4 and K5 at
+   256², (8, 768, 24, 64), 700 of 768 keys kept with a bias; K6 at 1536²,
+   (1, 9728, 24, 64), 9000 of 9728 kept), and K5 at head dim 72 at the
+   kernel shoot-out's (8, 4096, 16, 72) (`K5_D72_ROWS`, 4000 of 4096 kept
+   with a bias), each reached through its wrapper with its launch counted
+   and named by a profile, are timed in turns against SDPA and the
+   mma.sync body of ``attention.cu`` they replaced (``old_body_ms`` on
+   their rows), K5 also against K4 on the same inputs, which computes the
+   same function (``k4_ms``). The routes that stay on ``attention.cu``
+   (fp32 K1, K4 and K5 at PixArt-256's, PixArt-1024's and FLUX-1024's
+   self-attention, K2 with a dense bias at PixArt-256's cross-attention)
+   are each timed once beside one SDPA call in the same dtype, with their
+   bound (the report's ``stays_on_attention_cu``). K3
+   (``csrc/modlnorm_sm90.cu``) also at
    each width a served path gives it: PixArt-1024's (4, 4096, 1152),
    PixArt-Σ-2048's (2, 16384, 1152) and FLUX.1-dev-1024's image, text and
    joint streams (1, 4096 / 512 / 4608, 3072), and FLUX-1024's image and
@@ -108,13 +118,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 4a. The kernel scripts (``kernel_scripts``): the port's
    ``scripts/bench_attention_kernels.py`` (SDPA, K6, K5, K4 at D=72 and
    `fused_attention`'s routing at FLUX-1024's and PixArt-1024's shapes,
-   one turn) and ``scripts/exp_attn_pixart256.py`` (SDPA, the single-tile
-   route K1/K2 and the row-block route at the reference's "PixArt-256"
-   and FLUX-256 shapes, one shape at a time) once each with 3 reps a row:
+   one turn, one shape at a time) and ``scripts/exp_attn_pixart256.py``
+   (SDPA, the single-tile route K1/K2 and the row-block route at the
+   reference's "PixArt-256" and FLUX-256 shapes, one shape at a time)
+   once each with 3 reps a row:
    every row timed and within 2e-2 of its fp32 / plain softmax, the
-   kernels' launches seen; the head-dim-64 shape's launches are K1's
-   alone, and a profile of that shape names
-   ``attn_exact_sm90_kernel<64, false>`` and no kernel of ``attention.cu``.
+   kernels' launches seen shape by shape; the head-dim-64 shape's launches
+   are K1's alone, and a profile of that shape names
+   ``attn_exact_sm90_kernel<64, false>`` and no kernel of ``attention.cu``;
+   a profile of one call of the shoot-out's ``pixart1024`` row-block row
+   names ``attn_rowblock_sm90_kernel<72, false>`` and no kernel of
+   ``attention.cu``.
    Their rows go on the parallel line.
 4b. Multi-process parallelism (``parallel``): a one-rank NCCL group
    (spawned, NCCL's initialization and call sites on the card) runs the
@@ -342,6 +356,7 @@ from ecad_tpu_torch.ops.quant import MODES as QUANT_MODES
 from ecad_tpu_torch.ops.quant import STATIC_MODES, WEIGHT_MODES
 from ecad_tpu_torch.utils.timing import (
     BF16_FLOPS,
+    FP32_FLOPS,
     HBM_BYTES_PER_S,
     INT8_OPS,
     card_name,
@@ -700,7 +715,9 @@ def attention_cases() -> None:
             refused("attention_long_bias/bf16/misaligned_rows_d72_key_padding",
                     transposed_attention, *misaligned, key_padding_bias([64, 50], 64, -1e9))
             for name, fn, d in (("attention_long_bias", transposed_attention, 72),
-                                ("attention_rowblock_bias", rowblock_attention, 128)):
+                                ("attention_rowblock_bias", rowblock_attention, 128),
+                                ("attention_rowblock_bias", rowblock_attention, 72),
+                                ("attention_rowblock_bias", rowblock_attention, 64)):
                 refused(f"{name}/bf16/fp16_bias_d{d}", fn,
                         rnd(2, 16, 2, d, dtype=dtype), rnd(2, 120, 2, d, dtype=dtype),
                         rnd(2, 120, 2, d, dtype=dtype),
@@ -752,7 +769,7 @@ def attention_cases() -> None:
 
         # the row-block clamp softmax (K5) at the reference's
         # TestRowBlockAttention shapes (tests/test_ops.py:143-188), at the
-        # head dim the route serves (128)
+        # head dim the route serves (128); at 72 and 64 below
         def rowblock_case(name, q, k, v, bias=None,
                           tol=clamp_bf16_tol if dtype == torch.bfloat16 else tol):
             compare(f"attention_rowblock/{tag}/{name}",
@@ -786,6 +803,50 @@ def attention_cases() -> None:
                           rnd(3, 256, 2, 128, dtype=dtype), rnd(3, 256, 2, 128, dtype=dtype),
                           key_padding_bias([100], 256, -10000.0, dtype))
             all_masked_rows(rnd)
+        # K5 at head dims 72 (the kernel shoot-out's width) and 64, on the
+        # Hopper body in bf16 as at 128: the reference's acceptance shapes
+        # (tq=30, tk=300; key padding per batch at [100, 200, 256] and
+        # broadcast over it, fp32 and bf16 biases; logits near ±40 within its
+        # 2e-3 beside one bf16 ulp, with and without a bias; q×1e4 by value)
+        for d in (64, 72):
+            rowblock_case(f"ragged_tq30_tk300_d{d}", rnd(2, 30, 2, d, dtype=dtype),
+                          rnd(2, 300, 2, d, dtype=dtype), rnd(2, 300, 2, d, dtype=dtype))
+            rowblock_case(f"key_padding_100_200_256_tq30_tk300_d{d}",
+                          rnd(3, 30, 2, d, dtype=dtype), rnd(3, 300, 2, d, dtype=dtype),
+                          rnd(3, 300, 2, d, dtype=dtype),
+                          key_padding_bias([100, 200, 256], 300, -1e9))
+            rowblock_case(f"batch_broadcast_bias_b3_d{d}", rnd(3, 32, 2, d, dtype=dtype),
+                          rnd(3, 256, 2, d, dtype=dtype), rnd(3, 256, 2, d, dtype=dtype),
+                          key_padding_bias([100], 256, -1e9))
+            for bias40 in (None, key_padding_bias([200], 256, -1e4)):
+                rowblock_case(f"logits_near_40_d{d}" + ("" if bias40 is None else "_key_padding"),
+                              rnd(1, 16, 1, d, dtype=dtype, scale=6.0),
+                              rnd(1, 256, 1, d, dtype=dtype), rnd(1, 256, 1, d, dtype=dtype),
+                              bias40, tol=hot_tol)
+            rowblock_case(f"q_times_1e4_d{d}", rnd(1, 128, 1, d, dtype=dtype, scale=1e4),
+                          rnd(1, 256, 1, d, dtype=dtype), rnd(1, 256, 1, d, dtype=dtype),
+                          **({} if dtype == torch.bfloat16 else {"tol": HOT_FP32_TOL}))
+            if dtype == torch.bfloat16:
+                rowblock_case(f"ragged_tq30_tk300_key_padding_bf16_d{d}",
+                              rnd(3, 30, 2, d, dtype=dtype), rnd(3, 300, 2, d, dtype=dtype),
+                              rnd(3, 300, 2, d, dtype=dtype),
+                              key_padding_bias([7, 120, 300], 300, -10000.0, dtype))
+                rowblock_case(f"batch_broadcast_bias_bf16_d{d}", rnd(3, 64, 2, d, dtype=dtype),
+                              rnd(3, 120, 2, d, dtype=dtype), rnd(3, 120, 2, d, dtype=dtype),
+                              key_padding_bias([60], 120, -10000.0, dtype))
+        if dtype == torch.bfloat16:
+            # and refuses, with and without a bias, what TMA cannot map: a
+            # base off 16 bytes, and rows 136 bytes apart at d=64 (152 at
+            # d=72, whose rows take 144)
+            for d in (64, 72):
+                wide_d = rnd(2, 64, 3, d + 8, dtype=dtype)
+                off = (wide_d[..., 1:d + 1], wide_d[..., 3:d + 3], wide_d[..., 5:d + 5])
+                apart = tuple(rnd(2, 64, 3, d + 4, dtype=dtype)[..., :d] for _ in range(3))
+                for fault, qkv in (("misaligned_rows", off),
+                                   (f"row_stride_{2 * (d + 4)}_bytes", apart)):
+                    refused(f"attention_rowblock/bf16/{fault}_d{d}", rowblock_attention, *qkv)
+                    refused(f"attention_rowblock_bias/bf16/{fault}_d{d}_key_padding",
+                            rowblock_attention, *qkv, key_padding_bias([64, 50], 64, -1e9))
 
         # the streaming exact softmax (K6) at the reference's
         # TestFlashAttention shapes (tests/test_ops.py:58-122), at their
@@ -861,6 +922,14 @@ def all_masked_rows(rnd) -> None:
          128, 300, -10000.0, bf),
         ("attention_rowblock_bias", rowblock_attention, rowblock_attention_reference,
          128, 300, -1e9, torch.float32),
+        ("attention_rowblock_bias", rowblock_attention, rowblock_attention_reference,
+         72, 120, -10000.0, bf),
+        ("attention_rowblock_bias", rowblock_attention, rowblock_attention_reference,
+         72, 300, -1e9, torch.float32),
+        ("attention_rowblock_bias", rowblock_attention, rowblock_attention_reference,
+         64, 300, -10000.0, bf),
+        ("attention_rowblock_bias", rowblock_attention, rowblock_attention_reference,
+         64, 120, -1e9, torch.float32),
     ):
         case = f"{name}/bf16/all_masked_row_tk{tk}_{fill:g}_d{d}"
         q = rnd(2, 256, 2, d, dtype=bf)
@@ -1097,6 +1166,8 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
              clocks=True)
     timed_ms("attention_long_bias_2048/sdpa", lambda: F.scaled_dot_product_attention(
         q2kt, kc2kt, vc2kt, attn_mask=bias2k))
+    timed_ms("attention_long_bias_2048/plain",
+             lambda: transposed_attention_reference(q2k, kc2k, vc2k, bias2k), reps=3, inner=5)
     REPORT["attention_long_bias_2048_bound_ms"] = bound(
         nbytes(q2k, kc2k, vc2k, q2k, bias2k), 4 * 2 * BATCH_2048 * h * 16384 * l * d)
     del q2k, kc2k, vc2k, bias2k, q2kt, kc2kt, vc2kt
@@ -1150,7 +1221,8 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
     ]
     del q4t, k4t, v4t, kc4t, vc4t
     rows += flux_kernel_rows(rnd, bound, nbytes)
-    rows += d64_kernel_rows(rnd, bound, nbytes)
+    rows += hopper_kernel_rows(rnd, bound, nbytes)
+    REPORT["stays_on_attention_cu"] = attention_cu_rows(rnd, nbytes)
     rows += flash_kernel_rows(rnd, bound, nbytes)
 
     rows += k3_served_rows(rnd, bound, nbytes)
@@ -1352,13 +1424,18 @@ def flux_kernel_rows(rnd, bound, nbytes) -> list[dict]:
 
 # the reference's width-reduced FLUX (dim 1536: 24 heads of 64): at 256², 256
 # image + 512 text tokens, which its routing experiment forces onto the
-# single-tile route (K1, K2; scripts/exp_attn_pixart256.py:91-108) and the
-# router sends to the clamp transposed route (K4); at 1536², 9728 joint
-# tokens, which the router sends to the streaming route (K6). Each
-# key-padding bias keeps D64_KEEP of the keys.
-D64_SHAPE, D64_FLASH_SHAPE = (8, 768, 24, 64), (1, 9728, 24, 64)
-D64_KEEP = {D64_SHAPE: 700, D64_FLASH_SHAPE: 9000}
+# single-tile route (K1, K2; scripts/exp_attn_pixart256.py:91-108), the
+# router sends to the clamp transposed route (K4), and `rowblock_attention`
+# called directly takes onto the row-block route (K5); at 1536², 9728 joint
+# tokens, which the router sends to the streaming route (K6). And the kernel
+# shoot-out's `pixart1024` (scripts/bench_attention_kernels.py), where it
+# calls K5 at head dim 72. Each key-padding bias keeps HOPPER_KEEP of the
+# keys.
+D64_SHAPE, D64_FLASH_SHAPE, K5_D72_SHAPE = (8, 768, 24, 64), (1, 9728, 24, 64), (8, 4096, 16, 72)
+HOPPER_KEEP = {D64_SHAPE: 700, D64_FLASH_SHAPE: 9000, K5_D72_SHAPE: 4000}
 D64_TURNS = ("old", "new", "sdpa", "sdpa", "new", "old")
+# K5 beside K4, which computes the same function at the same shape
+K5_TURNS = ("old", "new", "k4", "sdpa", "sdpa", "k4", "new", "old")
 # row → (shape, with a key-padding bias, the wrapper that reaches it, the
 # route, csrc/attention.cu's variant, the Hopper kernel, the TPU kernel)
 D64_ROWS = {
@@ -1371,10 +1448,24 @@ D64_ROWS = {
                            ":344 (_transposed_kernel_nobias)"),
     "attention_long_bias_d64": (D64_SHAPE, True, "fused", "clamp", 1,
                                 "attn_clamp_sm90_kernel<64, true>", ":285 (_transposed_kernel)"),
+    "attention_rowblock_d64": (D64_SHAPE, False, "rowblock", "rowblock", 2,
+                               "attn_rowblock_sm90_kernel<64, false>",
+                               ":274 (_rowblock_kernel_nobias)"),
+    "attention_rowblock_bias_d64": (D64_SHAPE, True, "rowblock", "rowblock", 2,
+                                    "attn_rowblock_sm90_kernel<64, true>",
+                                    ":255 (_rowblock_kernel)"),
     "attention_flash_d64": (D64_FLASH_SHAPE, False, "fused", "flash", 3,
                             "attn_flash_sm90_kernel<64, false>", ":151 (_flash_kernel)"),
     "attention_flash_bias_d64": (D64_FLASH_SHAPE, True, "fused", "flash", 3,
                                  "attn_flash_sm90_kernel<64, true>", ":151 (_flash_kernel)"),
+}
+K5_D72_ROWS = {
+    "attention_rowblock_d72": (K5_D72_SHAPE, False, "rowblock", "rowblock", 2,
+                               "attn_rowblock_sm90_kernel<72, false>",
+                               ":274 (_rowblock_kernel_nobias)"),
+    "attention_rowblock_bias_d72": (K5_D72_SHAPE, True, "rowblock", "rowblock", 2,
+                                    "attn_rowblock_sm90_kernel<72, true>",
+                                    ":255 (_rowblock_kernel)"),
 }
 
 
@@ -1389,54 +1480,63 @@ def ran_hopper_kernel(names: list[str], kernel: str) -> bool:
         "_bf16_kernel" in n or "attn_f32_kernel" in n for n in names)
 
 
-def d64_kernel_rows(rnd, bound, nbytes) -> list[dict]:
-    """K1, K2, K4 and K6 (the last two with and without a key-padding bias)
-    at head dim 64 on the Hopper body (`D64_ROWS`): each reached through the
-    wrapper that reaches it at that shape (K1 and K2 the single-tile
-    wrapper, K4 and K6 the router, `fused_attention`), with its launch
-    counted, held to its plain version (with a dropped and a repeated
-    128-key tile rejected; K6's plain version per slice), named by a
-    profile (its Hopper kernel and nothing of csrc/attention.cu), then timed
-    in turns (`D64_TURNS`) against the mma.sync body of csrc/attention.cu
-    it replaced at this width (``old_body_ms``) and one
+def hopper_kernel_rows(rnd, bound, nbytes) -> list[dict]:
+    """K1, K2, K4, K5 and K6 (the last three with and without a key-padding
+    bias) at head dim 64 on the Hopper body (`D64_ROWS`), and K5 at head dim
+    72 at the kernel shoot-out's shape (`K5_D72_ROWS`): each reached through
+    the wrapper that reaches it at that shape (K1 and K2 the single-tile
+    wrapper, K4 and K6 the router, `fused_attention`, K5
+    `rowblock_attention`), with its launch counted, held to its plain
+    version (with a dropped and a repeated 128-key tile rejected; K6's, and
+    K5's at 4096 keys, per slice), named by a profile (its Hopper kernel and
+    nothing of csrc/attention.cu), then timed in turns (`D64_TURNS`; K5's
+    `K5_TURNS`, beside K4 on the same inputs) against the mma.sync body of
+    csrc/attention.cu it replaced at this width (``old_body_ms``) and one
     ``scaled_dot_product_attention`` call (the bias as a float mask). Only
-    K1's launches come from a path (`kernel_scripts`); the other rows'
-    are their own router call's: no path sends them."""
+    K1's and K5-D72's launches come from a path (`kernel_scripts`); the
+    other rows' are their own wrapper call's: no path sends them."""
     import torch.nn.functional as F
 
     from ecad_tpu_torch.ops import attention as A
 
     inputs = {}
-    for shape in (D64_SHAPE, D64_FLASH_SHAPE):
+    for shape in HOPPER_KEEP:
         b, t = shape[:2]
         inputs[shape] = ((*(rnd(*shape) for _ in range(3)),
-                          key_padding_bias([D64_KEEP[shape]] * b, t, -1e9, torch.bfloat16)))
+                          key_padding_bias([HOPPER_KEEP[shape]] * b, t, -1e9, torch.bfloat16)))
     plains = {"exact": A.fused_attention_reference,
               "clamp": A.transposed_attention_reference,
-              "flash": lambda *a: by_slices(A.flash_attention_reference, *a)}
+              "rowblock": A.rowblock_attention_reference,
+              "flash": A.flash_attention_reference}
+    wrappers = {"single": A.single_tile_attention, "fused": A.fused_attention,
+                "rowblock": A.rowblock_attention}
     rows = []
-    for name, (shape, biased, wrapper, route, variant, kernel, replaces) in D64_ROWS.items():
+    for name, (shape, biased, wrapper, route, variant, kernel, replaces) in {
+            **D64_ROWS, **K5_D72_ROWS}.items():
         q, k, v, bias = inputs[shape]
         bb = bias if biased else None
         b, t, h, d = shape
-        fn = A.single_tile_attention if wrapper == "single" else A.fused_attention
-        plain, flash = plains[route], route == "flash"
-        tol = flash_bf16_tol if flash else clamp_bf16_tol
+        fn = wrappers[wrapper]
+        # the fp32 scores of K6's and of K5-D72's shapes take 9–17 GB whole
+        big = route == "flash" or shape == K5_D72_SHAPE
+        plain = (lambda *a, p=plains[route]: by_slices(p, *a)) if big else plains[route]
+        tol = flash_bf16_tol if route == "flash" else clamp_bf16_tol
         out = []
         counts = counted(lambda: out.append(fn(q, k, v, bb)))
         got = out.pop()
-        counter = name.replace("_d64", "")
+        counter = name.rsplit("_d", 1)[0]
         if counts != {**dict.fromkeys(COUNTERS, 0), counter: 1}:
             raise AssertionError(f"{name}: launches {counts}, not one {counter}")
-        REPORT.setdefault("d64_launches", {})[name] = 1
+        REPORT.setdefault("hopper_row_launches", {})[name] = 1
         names = device_kernel_names(lambda: fn(q, k, v, bb))
-        REPORT.setdefault("d64_device_kernels", {})[name] = [n for n in names if "attn" in n]
+        REPORT.setdefault("hopper_row_device_kernels", {})[name] = [
+            n for n in names if "attn" in n]
         if not ran_hopper_kernel(names, kernel):
             raise AssertionError(f"{name} ran {names}, not {kernel} alone")
         want = plain(q, k, v, bb)
-        side = "flux1536" if flash else "flux256"
-        err = compare(f"{counter}/bf16/{side}_dim1536_{'x'.join(map(str, shape))}", got, want,
-                      tol)
+        side = {D64_SHAPE: "flux256_dim1536", D64_FLASH_SHAPE: "flux1536_dim1536",
+                K5_D72_SHAPE: "pixart1024_shootout"}[shape]
+        err = compare(f"{counter}/bf16/{side}_{'x'.join(map(str, shape))}", got, want, tol)
         del got
         for fault, (lo, hi) in (("drops", (128, 256)), ("repeats", (256, 128))):
             def cut(x, dim):  # keys [0, lo) then [hi, Tk): tile 1 dropped or repeated
@@ -1449,15 +1549,17 @@ def d64_kernel_rows(rnd, bound, nbytes) -> list[dict]:
         qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
         fns = {"new": lambda: fn(q, k, v, bb),
                "old": lambda: A._launch(q, k, v, bb, variant, n_pad),
+               "k4": lambda: A.transposed_attention(q, k, v, bb),
                "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bb)}
-        reps, inner = (5, 5) if flash else (7, 20)
-        times = {w: [] for w in fns}
-        for i, which in enumerate(D64_TURNS):
+        turns = K5_TURNS if route == "rowblock" else D64_TURNS
+        reps, inner = (5, 5) if route == "flash" else (3, 10) if big else (7, 20)
+        times = {w: [] for w in turns}
+        for i, which in enumerate(turns):
             label = name if which == "new" and not times["new"] else f"{name}/{which}/{i}"
             times[which].append(timed_ms(label, fns[which], reps=reps, inner=inner,
                                          clocks=label == name))
         del qt, kt, vt
-        REPORT.setdefault("d64_turns", {})[name] = times
+        REPORT.setdefault("hopper_row_turns", {})[name] = times
         b_ms, by = bound(nbytes(q, k, v, q, *(() if bb is None else (bb,))),
                          4 * b * h * t * t * d)
         rows.append(dict(
@@ -1465,10 +1567,73 @@ def d64_kernel_rows(rnd, bound, nbytes) -> list[dict]:
             replaces=f"ecad_tpu/ops/attention.py{replaces}", max_abs_err=err,
             ms=statistics.median(times["new"]),
             plain_ms=timed_ms(f"{name}/plain", lambda: plain(q, k, v, bb),
-                              reps=3, inner=2 if flash else 5),
+                              reps=3, inner=2 if big else 5),
             bound_ms=b_ms, bound_by=by, library_ms=statistics.median(times["sdpa"]),
-            old_body_ms=statistics.median(times["old"])))
+            old_body_ms=statistics.median(times["old"]),
+            **({"k4_ms": statistics.median(times["k4"])} if "k4" in times else {})))
     return rows
+
+
+# the routes that stay on csrc/attention.cu, each timed beside one
+# `scaled_dot_product_attention` call in its dtype (a float mask for the
+# bias): row → (the wrapper, q's shape, keys, dtype, bias: None, "dense"
+# (B, H, Tq, Tk))
+ATTENTION_CU_ROWS = {
+    "attention_fp32_pixart256": ("fused", (16, 256, 16, 72), 256, torch.float32, None),
+    "attention_long_fp32_pixart1024": ("fused", (4, 4096, 16, 72), 4096, torch.float32, None),
+    "attention_rowblock_fp32_flux1024": ("fused", (1, 4608, 24, 128), 4608, torch.float32,
+                                         None),
+    "attention_bias_dense_pixart256_cross": ("fused", (16, 256, 16, 72), 120, torch.bfloat16,
+                                             "dense"),
+}
+
+
+def attention_cu_rows(rnd, nbytes) -> dict:
+    """One timing of each route that stays on csrc/attention.cu
+    (`ATTENTION_CU_ROWS`: fp32 K1, K4 and K5 at PixArt-256's, PixArt-1024's
+    and FLUX-1024's self-attention, K2 with a dense bias at PixArt-256's
+    cross-attention) beside one SDPA call on the same inputs, with its bound
+    (fp32 operations at the card's fp32 rate outside the tensor cores) and
+    its launch counted, so that the next kernel PR can tell which of them
+    loses to the library and by what factor. Output finite, of q's shape;
+    its plain version's agreement is checked at the reference's shapes
+    above. Not a kernel row: no kernel of this repository but csrc/
+    attention.cu's, which the kernels line's rows replaced, runs there."""
+    import torch.nn.functional as F
+
+    from ecad_tpu_torch.ops import fused_attention
+
+    out = {}
+    for name, (_, shape, tk, dtype, bias_kind) in ATTENTION_CU_ROWS.items():
+        b, tq, h, d = shape
+        q, k, v = rnd(*shape, dtype=dtype), rnd(b, tk, h, d, dtype=dtype), rnd(b, tk, h, d,
+                                                                            dtype=dtype)
+        bias = None if bias_kind is None else rnd(b, h, tq, tk, dtype=dtype)
+        res = []
+        counts = counted(lambda: res.append(fused_attention(q, k, v, bias)))
+        got = res.pop()
+        if got.shape != q.shape or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{name}: {tuple(got.shape)}, finite "
+                                 f"{bool(torch.isfinite(got.float()).all())}")
+        del got
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        slow = tq * tk >= 4096 * 4096
+        reps, inner = (2, 2) if slow else (7, 20)
+        ms = timed_ms(name, lambda: fused_attention(q, k, v, bias), reps=reps, inner=inner,
+                      clocks=True)
+        sdpa = timed_ms(f"{name}/sdpa", lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=bias), reps=reps, inner=inner)
+        flops = 4 * b * h * tq * tk * d
+        tb = nbytes(q, k, v, q, *(() if bias is None else (bias,))) / HBM_BYTES_PER_S
+        tf = flops / (FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
+        out[name] = {"shape": list(shape), "keys": tk, "dtype": str(dtype).split(".")[-1],
+                     "bias": bias_kind, "ms": ms, "sdpa_ms": sdpa, "over_sdpa": ms / sdpa,
+                     "bound_ms": max(tb, tf) * 1e3,
+                     "bound_by": "bytes" if tb >= tf else "operations",
+                     "launches": {c: n for c, n in counts.items() if n}}
+        log(f"  {name} (attention.cu): {ms:.4f} ms, SDPA {sdpa:.4f} ms")
+        del q, k, v, bias, qt, kt, vt
+    return out
 
 
 def flash_kernel_rows(rnd, bound, nbytes) -> list[dict]:
@@ -4585,31 +4750,57 @@ def kernel_scripts_phase() -> dict:
     (`bench_attention_kernels`: 1 turn of 3 reps; `exp_attn_pixart256`: 3
     reps): every row timed, finite and within its error bound (bf16
     outputs: 2e-2 against the fp32 / plain softmax, a few bf16 ulps of
-    outputs below 1), with the launches of the port's kernels counted, those
-    of `exp_attn_pixart256` shape by shape: its head-dim-64 row
+    outputs below 1), with the launches of the port's kernels counted shape
+    by shape: `exp_attn_pixart256`'s head-dim-64 row
     (``flux256_dim1536_self``) launches K1 on the Hopper body, which a
-    profile of that row names, and nothing of csrc/attention.cu."""
+    profile of that row names, and nothing of csrc/attention.cu; the
+    shoot-out's ``attn_pixart1024_rowblock`` row launches K5 there, which a
+    profile of one call of that row's function at its shape names
+    (`attn_rowblock_sm90_kernel<72, false>`), and nothing of
+    csrc/attention.cu."""
     from ecad_tpu_torch.scripts import bench_attention_kernels, exp_attn_pixart256
 
     log("kernel scripts: bench_attention_kernels, exp_attn_pixart256")
-    rows = []
-    counts = counted(lambda: rows.extend(
-        bench_attention_kernels.main(["--turns", "1", "--reps", "3"])))
-    shapes, by_shape = exp_attn_pixart256.SHAPES, {}
-    d64 = "flux256_dim1536_self"
+    rows, by_shape = [], {}
+    for script, argv in ((bench_attention_kernels, ["--turns", "1", "--reps", "3"]),
+                         (exp_attn_pixart256, ["--reps", "3"])):
+        shapes = script.SHAPES
+        launches = by_shape[script.__name__.rsplit(".", 1)[-1]] = {}
+        try:
+            for shape, s in shapes.items():
+                script.SHAPES = {shape: s}
+                launches[shape] = counted(lambda: rows.extend(script.main(argv)))
+        finally:
+            script.SHAPES = shapes
+    # one profile of the head-dim-64 row and of one call of the shoot-out's
+    # row-block row at its shape: a profile of that call alone (two kernel
+    # launches) was seen on the H100 to record no device kernel at all,
+    # three times running, while its launch counter rose
+    d64, shapes = "flux256_dim1536_self", exp_attn_pixart256.SHAPES
+    s72 = bench_attention_kernels.SHAPES["pixart1024"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((s72["b"], s72["t"], s72["h"], s72["d"]), generator=gen,
+                           device="cuda").to(torch.bfloat16) for _ in range(3))
+    rowblock = bench_attention_kernels.rows_of(s72["d"])["rowblock"]
     try:
-        for shape, s in shapes.items():
-            exp_attn_pixart256.SHAPES = {shape: s}
-            by_shape[shape] = counted(lambda: rows.extend(exp_attn_pixart256.main(["--reps", "3"])))
         exp_attn_pixart256.SHAPES = {d64: shapes[d64]}
-        d64_names = device_kernel_names(lambda: exp_attn_pixart256.main(["--reps", "1"]))
+        names = device_kernel_names(lambda: (exp_attn_pixart256.main(["--reps", "1"]),
+                                             rowblock(q, k, v)))
     finally:
         exp_attn_pixart256.SHAPES = shapes
-    counts = {c: n + sum(by_shape[shape][c] for shape in shapes) for c, n in counts.items()}
-    if [c for c, n in by_shape[d64].items() if n] != ["attention"]:
-        raise AssertionError(f"{d64}: launches {by_shape[d64]}, not K1's alone")
-    if not ran_hopper_kernel(d64_names, "attn_exact_sm90_kernel<64, false>"):
-        raise AssertionError(f"{d64} ran {d64_names}: not K1 on the Hopper body at D=64 alone")
+    del q, k, v
+    counts = {c: sum(n[c] for shapes in by_shape.values() for n in shapes.values())
+              for c in COUNTERS}
+    exp_d64 = by_shape["exp_attn_pixart256"][d64]
+    if [c for c, n in exp_d64.items() if n] != ["attention"]:
+        raise AssertionError(f"{d64}: launches {exp_d64}, not K1's alone")
+    if not ran_hopper_kernel(names, "attn_exact_sm90_kernel<64, false>"):
+        raise AssertionError(f"{d64} ran {names}: not K1 on the Hopper body at D=64 alone")
+    if not by_shape["bench_attention_kernels"]["pixart1024"]["attention_rowblock"]:
+        raise AssertionError("the shoot-out's pixart1024 rows launched no K5")
+    if not ran_hopper_kernel(names, "attn_rowblock_sm90_kernel<72, false>"):
+        raise AssertionError(f"attn_pixart1024_rowblock ran {names}: not K5 on the Hopper "
+                             "body at D=72 alone")
     for r in rows:
         err = r["detail"].get("max_abs_err_vs_fp32", r["detail"].get("max_abs_err_vs_plain"))
         if not (r["value"] and np.isfinite(r["value"]) and err < 2e-2):
@@ -4622,8 +4813,8 @@ def kernel_scripts_phase() -> dict:
                       "max_abs_err": r["detail"].get("max_abs_err_vs_fp32",
                                                      r["detail"].get("max_abs_err_vs_plain"))}
                      for r in rows], "launches": counts,
-            "launches_by_shape": {"exp_attn_pixart256": by_shape},
-            "device_kernels": {d64: [n for n in d64_names if "attn" in n]}}
+            "launches_by_shape": by_shape,
+            "device_kernels": {f"{d64}+pixart1024_rowblock": [n for n in names if "attn" in n]}}
 
 
 # two ranks sharing the card: the final latents of each mode against the
@@ -5170,8 +5361,11 @@ def main() -> None:
         elif name == "attention_d64":
             row["launches"] = scripts["launches_by_shape"]["exp_attn_pixart256"][
                 "flux256_dim1536_self"]["attention"]
-        elif name in REPORT["d64_launches"]:
-            row["launches"] = REPORT["d64_launches"][name]
+        elif name == "attention_rowblock_d72":
+            row["launches"] = scripts["launches_by_shape"]["bench_attention_kernels"][
+                "pixart1024"]["attention_rowblock"]
+        elif name in REPORT["hopper_row_launches"]:
+            row["launches"] = REPORT["hopper_row_launches"][name]
         elif name in REPORT["flash_bias_launches"]:
             row["launches"] = REPORT["flash_bias_launches"][name]
         elif name == "attention_flash_d128":
@@ -5228,11 +5422,12 @@ def main() -> None:
     print(json.dumps(scorers_line(REPORT["scorers"], seconds["scorers"])), flush=True)
     print(json.dumps(parallel_line(REPORT["parallel"], scripts, seconds)), flush=True)
     # every row has the contract's keys; X1's also its two-call yardstick,
-    # the D=64 rows the time of the mma.sync body they replaced
+    # the D=64 and K5-D72 rows the time of the mma.sync body they replaced,
+    # the K5 rows K4's time on the same inputs
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
-                                   **{k: r[k] for k in ("two_call_ms", "old_body_ms")
+                                   **{k: r[k] for k in ("two_call_ms", "old_body_ms", "k4_ms")
                                       if k in r}}
                                   for r in kernels.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -48,8 +48,8 @@
 //     are 0, so only Σp grows). So the epilogue adds n_pad·2^-100 to Σp: in
 //     a row whose every logit is clamped at −100 (an all-masked text row)
 //     the weights are then 1/Tk_pad, as the reference's. The bf16 calls
-//     at D=72 and 128 run on the Hopper body of attention_sm90.cu instead —
-//     K1, K4 and K6 (and K5 at 128), each also with a key-padding bias (K2
+//     at D=64, 72 and 128 run on the Hopper body of attention_sm90.cu
+//     instead — K1, K4, K5 and K6, each also with a key-padding bias (K2
 //     for K1), and so does the attention-variant harness (X1-X4). Here
 //     remain dense biases, fp32 and the other head dims.
 //

@@ -1,7 +1,7 @@
 // Attention forward for Hopper (sm_90a): wgmma fed by TMA through
 // mbarriers, with a producer warpgroup and two consumer warpgroups. bf16 q,
-// k, v of shape (B, T, H, D), D = 64, 72 or 128 (a template argument; K5
-// and the harness's X1-X4 not at 64), in any
+// k, v of shape (B, T, H, D), D = 64, 72 or 128 (a template argument; the
+// harness's X1-X4 not at 64), in any
 // 16-byte-aligned strides, in six softmax modes (a template argument, as in
 // attention.cu) under eight kernel names, one per route and one per mode of
 // the attention-variant harness; every exact and clamp kernel also takes a
@@ -55,11 +55,16 @@
 //     reference's s·scale − 1e9 rounds to −1e9 while |s·scale| < 32: the
 //     output is Σv/(Tk + n_pad) on both sides, and 0 below −1e9.
 //   * clamp:
-//     - `attn_rowblock_sm90_kernel<128, false>` (K5) replaces the row-block
+//     - `attn_rowblock_sm90_kernel<D, false>` (K5) replaces the row-block
 //       kernel `_rowblock_kernel_nobias` (:274, launched :534) at D=128 —
-//       FLUX.1-dev at 1024², 4608 joint tokens; `<128, true>` replaces
-//       `_rowblock_kernel` (:255, launched :563), the same with a
-//       key-padding bias;
+//       FLUX.1-dev at 1024², 4608 joint tokens — and at D=72 and 64, which
+//       the reference keeps for its kernel shoot-out (its padded-head-dim
+//       branch, :475-479; scripts/bench_attention_kernels.py at (8, 4096,
+//       16, 72)) and no served path sends (the router takes the row-block
+//       route at D % 128 = 0 only); `<D, true>` replaces `_rowblock_kernel`
+//       (:255, launched :563), the same with a key-padding bias. It
+//       computes K4's function (below) on K4's body, under a name of its
+//       own so that a profile files the two routes apart;
 //     - `attn_clamp_sm90_kernel<D, false>` (K4) replaces the transposed
 //       kernel `_transposed_kernel_nobias` (:344, launched :420) at D=72
 //       (and 128, and 64) — PixArt's self-attention at 1024² (2B, 4096, 16,
@@ -145,10 +150,11 @@
 // 302 MB, 2.50 ms. K4 at PixArt-1024 (4, 4096, 16, 72): 3.09e11 flops on
 // 151 MB, 0.313 ms. X1-X4 at the harness's shapes: (2, 4608, 24, 128)
 // 5.22e11 flops, 0.528 ms; (8, 4096, 16, 72) 6.18e11, 0.625 ms; (64, 1024,
-// 16, 72) 3.09e11, 0.313 ms. K4 with a bias, to 120 text keys: 1.4e10
+// 16, 72) 3.09e11, 0.313 ms; K5 at the shoot-out's (8, 4096, 16, 72) as X1-X4
+// there. K4 with a bias, to 120 text keys: 1.4e10
 // flops on the 78 MB of q and o, 0.023 ms by bytes. K1 at FLUX-256 (4,
 // 768, 24, 128): 2.9e10 flops on 38 MB, 0.029 ms by operations, and the
-// same at D=64 (8, 768, 24, 64) on 38 MB (K1, K2 and K4 there); K6 at
+// same at D=64 (8, 768, 24, 64) on 38 MB (K1, K2, K4 and K5 there); K6 at
 // D=64 (1, 9728, 24, 64): 5.8e11 flops on 120 MB, 0.588 ms; at
 // PixArt-256 (16, 256, 16, 72): 4.8e9 flops on 38 MB, 0.011 ms by bytes;
 // K2 there, 256 → 120 keys: 2.3e9 flops on 28 MB, 0.008 ms by bytes. So
@@ -168,8 +174,9 @@
 //     registers away (`setmaxnreg.dec` to 40), issues every TMA load from
 //     one thread and has its other three warps (the helpers) scale q and
 //     write the bias (below), and two consumers of 64 query rows each
-//     (`setmaxnreg.inc` to 232); K6 at D=72 and the D=64 kernels but K4
-//     with a bias have three consumers (512 threads, 24 and 160
+//     (`setmaxnreg.inc` to 232); K6 and K5 (without a bias) at D=72 and the
+//     D=64 kernels but K4 and K5 with a bias have three consumers (512
+//     threads, 24 and 160
 //     registers; see below). A work item is one (batch·head,
 //     64·consumers-row query tile). Each consumer runs s = q·kᵀ as
 //     `wgmma.mma_async` m64n128k16 (eight k-steps at D=128, five at D=72,
@@ -221,7 +228,7 @@
 //     third independent chain for the tensor cores, and each k/v tile
 //     serves 1.5 times the rows. Its registers fit 160 a thread (s, o and
 //     p take 132); q's tile is 192 rows (a 24 KB box, a 3 KB tail).
-//   * At D=64 (K1, K2, K4 and K6) a k or v tile is one 64-column box, 16
+//   * At D=64 (K1, K2, K4, K5 and K6) a k or v tile is one 64-column box, 16
 //     KB with no tail, and the freed shared memory holds a fourth ring
 //     stage. Its p·v is short (64 columns), and the softmax chain costs
 //     what the products do (above), so these kernels run three consumer
@@ -248,6 +255,17 @@
 //     on one (a variant build of this body, not kept): at D=64 the third
 //     consumer's independent chain hides more than the deeper pipeline
 //     does.
+//   * K5 at D=72 and 64 is K4's function on K4's body, but its consumer
+//     count is its own (`kRowblockConsumers`), settled by
+//     scripts/probe_attention_body.py in turns (NVIDIA H100 80GB HBM3, 700
+//     W): at the kernel shoot-out's (8, 4096, 16, 72) three consumers took
+//     8 % off two without a bias (four rounds, medians 1.163 and 1.267 ms,
+//     no spill), as X2 and X3 gain there, and with a bias spilled 164 bytes
+//     and were 32 % slower; at D=64 (8, 768, 24, 64) two consumers were 5 %
+//     slower without a bias, three 8 % slower with one (124 bytes
+//     spilled), as for K4. So K5 runs three at D=72 and 64 without a bias
+//     and two with one. (K4 at PixArt-1024's (4, 4096, 16, 72) on three was
+//     7.5 % faster in the same probe; its count is K4's own choice.)
 //   * Short key counts (K1: 6 key tiles at FLUX-256, 2 at PixArt-256; K4
 //     with a bias: one tile of 120 text keys; K4 at D=64: 6 tiles of the
 //     width-reduced FLUX-256's 768 keys) leave the q load, the ring's fill
@@ -1183,11 +1201,6 @@ __global__ void __launch_bounds__(128 * (kStreamConsumers<D, BIAS> + 1), 1)
     attn_flash_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
   attn_sm90_body<D, kExact, BIAS, kStreamConsumers<D, BIAS>>(maps.m, p);
 }
-template <int D, bool BIAS>
-__global__ void __launch_bounds__(384, 1)
-    attn_rowblock_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
-  attn_sm90_body<D, kClamp, BIAS, 2>(maps.m, p);
-}
 // K1's and K2's consumer warpgroups: two, three at D=64 (see the note)
 template <int D>
 constexpr int kExactConsumers = D == 64 ? 3 : 2;
@@ -1203,6 +1216,16 @@ template <int D, bool BIAS>
 __global__ void __launch_bounds__(128 * (kClampConsumers<D, BIAS> + 1), 1)
     attn_clamp_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
   attn_sm90_body<D, kClamp, BIAS, kClampConsumers<D, BIAS>>(maps.m, p);
+}
+// K5's consumer warpgroups: K4's function on K4's body, with a count of its
+// own: three at D=72 and 64 without a bias, two with one and at D=128 (see
+// the note)
+template <int D, bool BIAS>
+constexpr int kRowblockConsumers = D != 128 && !BIAS ? 3 : 2;
+template <int D, bool BIAS>
+__global__ void __launch_bounds__(128 * (kRowblockConsumers<D, BIAS> + 1), 1)
+    attn_rowblock_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
+  attn_sm90_body<D, kClamp, BIAS, kRowblockConsumers<D, BIAS>>(maps.m, p);
 }
 template <int D>
 __global__ void __launch_bounds__(128 * (kFlashConsumers<D> + 1), 1)
@@ -1242,8 +1265,8 @@ Launch launch_of(Kernel kernel) {
 }
 
 // The kernel of `mode` at head dim D, with or without a bias, or none where
-// it is not built: K5 at D=128 only, X4 (mode 6) at D=72 only, X1-X3
-// (modes 4, 5, 7) not at D=64, no bias in X1-X4 (modes 4-7).
+// it is not built: X4 (mode 6) at D=72 only, X1-X3 (modes 4, 5, 7) not at
+// D=64, no bias in X1-X4 (modes 4-7).
 template <int D>
 Launch sm90_launch(int mode, bool bias) {
   switch (mode) {
@@ -1252,10 +1275,11 @@ Launch sm90_launch(int mode, bool bias) {
         return launch_of<D, kStreamConsumers<D, true>, kExact>(attn_flash_sm90_kernel<D, true>);
       return launch_of<D, kStreamConsumers<D, false>, kExact>(attn_flash_sm90_kernel<D, false>);
     case 1:
-      if constexpr (D == 128)
-        return launch_of<D, 2, kClamp>(bias ? attn_rowblock_sm90_kernel<D, true>
-                                            : attn_rowblock_sm90_kernel<D, false>);
-      return Launch{};
+      if (bias)
+        return launch_of<D, kRowblockConsumers<D, true>, kClamp>(
+            attn_rowblock_sm90_kernel<D, true>);
+      return launch_of<D, kRowblockConsumers<D, false>, kClamp>(
+          attn_rowblock_sm90_kernel<D, false>);
     case 2:
       return launch_of<D, kExactConsumers<D>, kExact>(bias ? attn_exact_sm90_kernel<D, true>
                                                            : attn_exact_sm90_kernel<D, false>);
@@ -1312,14 +1336,14 @@ EncodeTiled encode_tiled() {
 
 }  // namespace
 
-// q, k, v: bf16 (B, T, H, D), D = 64, 72 or 128 (64 in modes 0, 2 and 3);
+// q, k, v: bf16 (B, T, H, D), D = 64, 72 or 128 (64 in modes 0-3);
 // `maps` holds 11 values for
 // each of q, k, v in turn: the dims {D, H, T, B}, the byte strides of H, T
 // and B, and the box {64, 1, 128, 1}, as ops/attention.py's `tma_operand`
 // computes them. o: bf16 (B, Tq, H, D) with element strides o_strides (b,
 // t, h), each a multiple of 8 (TMA stores it). mode 0: the exact softmax
 // of the streaming route (K6); 1: the clamp softmax of the row-block route
-// (K5, D=128); 2: the exact softmax of the single-tile route (K1, or K2
+// (K5); 2: the exact softmax of the single-tile route (K1, or K2
 // with a bias); 3: the clamp softmax of the transposed route (K4); 4: the
 // harness's exp2 softmax without a max (X2); 5: its exp2 softmax with the
 // max on a pre-scaled q (X3), both only at Tk % 128 == 0 (the reference

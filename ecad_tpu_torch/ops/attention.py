@@ -22,9 +22,10 @@ the way that one does (`attention_route`):
 * **rowblock** — the same clamp function as the reference's row-block
   kernels ``_rowblock_kernel`` (:255) and ``_rowblock_kernel_nobias``
   (:274) compute it, for head dims that are a multiple of 128 past an
-  8 MiB score tile (FLUX-1024's joint attention). `rowblock_attention`
-  launches it under its own kernel name and counters; plain version:
-  `rowblock_attention_reference`.
+  8 MiB score tile (FLUX-1024's joint attention); called directly, at any
+  head dim (the reference's kernel shoot-out takes it at 72).
+  `rowblock_attention` launches it under its own kernel name and counters;
+  plain version: `rowblock_attention_reference`.
 
 * **flash** — the exact softmax of the reference's streaming kernel
   ``_flash_kernel`` (:151), which ``_flash_attention`` (:573-673) takes
@@ -45,15 +46,16 @@ transposed clamp route (K4, with a bias too) — PixArt's 1024²
 self-attention and its text cross-attention at 1024² and PixArt-Σ's at
 2048², and the width-reduced FLUX at 256² as the router sends it; the
 streaming route (K6, with a bias too) — PixArt-Σ's 2048² self-attention,
-FLUX.1-dev's at 1536² and the width-reduced FLUX's; and at 128 the
-row-block route (K5, with a bias too) — FLUX.1-dev at 1024². No served
-path runs head dim 64. The attention-variant harness's X1, X2 and X3 take
-the same body in bf16 at 72 and 128, and X4 at 72 (`attn_variants`). The
-mma.sync body of ``csrc/attention.cu`` (a compile-time variant per route)
-takes the rest: fp32, dense biases, other head dims, and the row-block
-route at head dims other than 128, which only `rowblock_attention`
-called directly reaches (the router takes that route at 128 alone). The
-choice depends on route, dtype, head dim and bias only. A call for the Hopper
+FLUX.1-dev's at 1536² and the width-reduced FLUX's; and the row-block
+route (K5, with a bias too) — FLUX.1-dev at 1024², and at 64 and 72 what
+`rowblock_attention` called directly reaches (the router takes that route
+at 128 alone; the kernel shoot-out, scripts/bench_attention_kernels.py,
+calls it at 72). No served path runs head dim 64. The attention-variant
+harness's X1, X2 and X3 take the same body in bf16 at 72 and 128, and X4
+at 72 (`attn_variants`). The mma.sync body of ``csrc/attention.cu`` (a
+compile-time variant per route) takes the rest: fp32, dense biases and
+other head dims. The choice depends on route, dtype, head dim and bias
+only. A call for the Hopper
 body whose operands TMA cannot map (`tma_operand`: a 16-byte-aligned base
 and strides), or whose bias the body does not read (`bias_operand`: bf16
 or fp32), raises; it never drops back to the other body.
@@ -109,10 +111,9 @@ MAX_HEAD_DIM = 128
 _FN = None
 _SM90_FN = None
 # the Hopper body's kernels (csrc/attention_sm90.cu), by counter name: the
-# C entry's mode and the head dims it is built for (64 on the exact and
-# clamp transposed routes, not on the row-block one); the last four are the
+# C entry's mode and the head dims it is built for; the last four are the
 # attention-variant harness's X2, X3, X4 and X1 (`attn_variants`)
-_SM90_MODES = {"attention_flash": (0, (72, 128, 64)), "attention_rowblock": (1, (128,)),
+_SM90_MODES = {"attention_flash": (0, (72, 128, 64)), "attention_rowblock": (1, (72, 128, 64)),
                "attention": (2, (72, 128, 64)), "attention_long": (3, (72, 128, 64)),
                "xattn_nomax": (4, (72, 128)), "xattn_max": (5, (72, 128)),
                "xattn_fd": (6, (72,)), "xattn_matmul_only": (7, (72, 128))}

@@ -25,7 +25,10 @@ routing experiment forces onto the single-tile route
 (`single_tile_attention`), K2 with 700 of the 768 keys kept; K4 (variant
 1) at the same shape as the router sends it, also with 700 keys kept; K6
 (variant 3) at the width-reduced FLUX's 1536² (1, 9728, 24, 64), also with
-9000 keys kept. Both bodies
+9000 keys kept; K5 (variant 2) at head dim 72 at the kernel shoot-out's
+(8, 4096, 16, 72), also with 4000 of the 4096 keys kept, and at head dim
+64 at the width-reduced FLUX 256² (8, 768, 24, 64), also with 700 of the
+768 keys kept, each through `rowblock_attention`. Both bodies
 are checked against the
 plain version (run per head) and timed in turns — old, new, new, old — by
 spin-kernel CUDA events (`sampled_device_ms`, which samples the SM clock,
@@ -97,6 +100,14 @@ CASES = {
                             A.flash_attention_reference, 0.025),
     "attention_flash_bias_d64": ((1, 9728, 24, 64), 9728, (9000,), 3, A.fused_attention,
                                  A.flash_attention_reference, 0.025),
+    "attention_rowblock_d72": ((8, 4096, 16, 72), 4096, None, 2, A.rowblock_attention,
+                               A.rowblock_attention_reference, 0.1),
+    "attention_rowblock_bias_d72": ((8, 4096, 16, 72), 4096, (4000,), 2,
+                                    A.rowblock_attention, A.rowblock_attention_reference, 0.1),
+    "attention_rowblock_d64": ((8, 768, 24, 64), 768, None, 2, A.rowblock_attention,
+                               A.rowblock_attention_reference, 0.1),
+    "attention_rowblock_bias_d64": ((8, 768, 24, 64), 768, (700,), 2, A.rowblock_attention,
+                                    A.rowblock_attention_reference, 0.1),
 }
 # attention.cu's variant → its route, for the route's pad keys (`pad_keys`)
 ROUTE = {0: "exact", 1: "clamp", 2: "rowblock", 3: "flash"}

@@ -4,7 +4,7 @@ design choice undone, built beside it and timed against it in turns, in one
 process on one card.
 
     python -m ecad_tpu_torch.scripts.probe_attention_body [--out probes.json]
-        [--rows k1_dim1536,k2_dim1536]
+        [--rows k1_dim1536,k2_dim1536] [--rounds N]
 
 Rows, bf16 at the shape the main path gives each kernel:
 
@@ -33,6 +33,19 @@ Rows, bf16 at the shape the main path gives each kernel:
   written, never stored);
 * K5 with a bias at FLUX-1024's joint attention (1, 4608, 24, 128) with a
   key-padding bias in bf16 (4508 keys kept), with ``no_bias_loads``;
+* K5 at head dim 72, at the kernel shoot-out's ``pixart1024`` (8, 4096,
+  16, 72), with ``rowblock_two_consumers`` (two consumer warpgroups and
+  128-row items instead of three and 192), and with a key-padding bias
+  (4000 of the 4096 keys kept) with ``rowblock_three_consumers`` (three
+  instead of two, and their spills) and ``no_bias_loads``; K5 at the
+  reference's "PixArt-256" self-attention (64, 1024, 16, 72) of
+  scripts/exp_attn_pixart256.py, whose last 192-row item of each (batch,
+  head) holds 64 rows, with ``rowblock_two_consumers``; K5 at head dim
+  64 at the width-reduced FLUX 256² (8, 768, 24, 64), the same variants;
+  K4 at PixArt-1024's
+  self-attention (4, 4096, 16, 72) with ``clamp_three_consumers`` (three
+  consumer warpgroups at D=72 as well), K5-D72's count on the route that
+  serves that width;
 * K1 at FLUX-256's joint attention (4, 768, 24, 128), with
   ``items_in_runs``;
 * K1 at head dim 64, the reference's width-reduced FLUX 256² (8, 768, 24,
@@ -71,7 +84,8 @@ Rows, bf16 at the shape the main path gives each kernel:
 
 A variant that only reschedules the same arithmetic (``two_consumers``,
 ``k6_bias_three_consumers``, ``d64_two_consumers``, ``clamp_two_consumers``,
-``clamp_bias_three_consumers``, ``one_block_per_item``,
+``clamp_bias_three_consumers``, ``clamp_three_consumers``, ``rowblock_three_consumers``,
+``rowblock_two_consumers``, ``one_block_per_item``,
 ``items_in_runs``, ``bias_after_q``, ``xmax_two_consumers``,
 ``xnomax_two_consumers``, ``xfd_three_consumers``, ``xmatmul_two_consumers``)
 must give the source's output bit for bit; the
@@ -79,7 +93,8 @@ others compute something else, or the same in another instruction, and
 are timed only. Each row also carries the spill bytes ``ptxas -v``
 reports for each build's kernel of that row. Each variant's time is the
 median of spin-kernel CUDA-event timings (`device_ms`), taken in turns:
-source, variants, variants again in reverse, source. Prints one JSON line
+source, variants, variants again in reverse, source, ``--rounds`` times
+(one by default). Prints one JSON line
 per row and writes them to ``--out``. The edits are text replacements
 (every occurrence) checked against the source: one that no longer matches
 raises. ``--rows`` takes a comma-separated subset of the rows (`ROWS`),
@@ -157,6 +172,14 @@ K4_BIAS_VARIANTS = {
                   "    if (t < 0) {\n      // rows past Tq are outside the map")],
 }
 K5_BIAS_VARIANTS = {"no_bias_loads": K2_VARIANTS["no_bias_loads"]}
+# K5 at D=72 and 64: the other consumer count of each width and bias form
+ROWBLOCK_CONSUMERS = "constexpr int kRowblockConsumers = D != 128 && !BIAS ? 3 : 2;"
+K5_VARIANTS = {"rowblock_two_consumers": [
+    (ROWBLOCK_CONSUMERS, "constexpr int kRowblockConsumers = 2;")]}
+K5_BIAS_NARROW_VARIANTS = {
+    "rowblock_three_consumers": [
+        (ROWBLOCK_CONSUMERS, "constexpr int kRowblockConsumers = D == 128 ? 2 : 3;")],
+    **K5_BIAS_VARIANTS}
 D64_VARIANTS = {"d64_two_consumers": [("constexpr int kExactConsumers = D == 64 ? 3 : 2;",
                                         "constexpr int kExactConsumers = 2;")]}
 K1_D64_VARIANTS = {
@@ -210,6 +233,9 @@ K4_D64_VARIANTS = {
                        "    float p = CLIP ? fminf(fmaxf(x, kClampLo), kClampHi) : x;")],
     **{n: K6_VARIANTS[n] for n in ("no_pv", "no_kv_loads")},
 }
+K4_D72_VARIANTS = {"clamp_three_consumers": [
+    ("constexpr int kClampConsumers = D == 64 && !BIAS ? 3 : 2;",
+     "constexpr int kClampConsumers = D != 128 && !BIAS ? 3 : 2;")]}
 K4_BIAS_D64_VARIANTS = {
     "clamp_bias_three_consumers": [
         ("constexpr int kClampConsumers = D == 64 && !BIAS ? 3 : 2;",
@@ -264,6 +290,15 @@ ROWS = {
                                  K4_BIAS_VARIANTS, 7, 20),
     "k5_bias_flux1024": ((1, 4608, 24, 128), 4608, (4508,), "attention_rowblock",
                          K5_BIAS_VARIANTS, 5, 10),
+    "k4_pixart1024": ((4, 4096, 16, 72), 4096, None, "attention_long", K4_D72_VARIANTS, 5, 10),
+    "k5_pixart1024": ((8, 4096, 16, 72), 4096, None, "attention_rowblock", K5_VARIANTS, 5, 5),
+    "k5_pixart512_class_self": ((64, 1024, 16, 72), 1024, None, "attention_rowblock",
+                                K5_VARIANTS, 5, 5),
+    "k5_bias_pixart1024": ((8, 4096, 16, 72), 4096, (4000,), "attention_rowblock",
+                           K5_BIAS_NARROW_VARIANTS, 5, 5),
+    "k5_dim1536": ((8, 768, 24, 64), 768, None, "attention_rowblock", K5_VARIANTS, 7, 20),
+    "k5_bias_dim1536": ((8, 768, 24, 64), 768, (700,), "attention_rowblock",
+                        K5_BIAS_NARROW_VARIANTS, 7, 20),
     "k1_flux256": ((4, 768, 24, 128), 768, None, "attention",
                    {"items_in_runs": K4_BIAS_VARIANTS["items_in_runs"]}, 7, 20),
     "k1_dim1536": ((8, 768, 24, 64), 768, None, "attention", K1_D64_VARIANTS, 7, 20),
@@ -288,8 +323,9 @@ ROWS = {
 }
 # the same arithmetic, rescheduled
 EXACT = ("two_consumers", "k6_bias_three_consumers", "d64_two_consumers",
-         "clamp_two_consumers", "clamp_bias_three_consumers",
-         "one_block_per_item", "items_in_runs",
+         "clamp_two_consumers", "clamp_bias_three_consumers", "clamp_three_consumers",
+         "rowblock_three_consumers",
+         "rowblock_two_consumers", "one_block_per_item", "items_in_runs",
          "bias_after_q", "xmax_two_consumers", "xnomax_two_consumers", "xfd_three_consumers",
          "xmatmul_two_consumers")
 # the device kernel of each counter (its name, and whether it carries the
@@ -361,6 +397,8 @@ def main(argv=None) -> list[dict]:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", type=Path, default=None)
     parser.add_argument("--rows", default=None, help="comma-separated rows of ROWS (default: all)")
+    parser.add_argument("--rounds", type=int, default=1,
+                        help="times to take the turns (source, variants, reversed)")
     args = parser.parse_args(argv)
     rows_run = ROWS if args.rows is None else {r: ROWS[r] for r in args.rows.split(",")}
     if not torch.cuda.is_available():
@@ -403,7 +441,7 @@ def main(argv=None) -> list[dict]:
                     same[n] = bool(torch.equal(call(n)(), want))
             del want
             times = {n: [] for n in names}
-            for n in names + names[::-1]:
+            for n in (names + names[::-1]) * args.rounds:
                 times[n].append(device_ms(call(n), reps, inner)[0])
             symbol = kernel_symbol(counter, d, bias is not None)
             spilled = {n: [b for k, b in spills[n].items() if symbol in k] for n in names}

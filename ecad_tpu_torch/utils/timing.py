@@ -19,6 +19,7 @@ import torch
 # NVIDIA H100 SXM, dense, at its full 700 W power limit (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12  # outside the tensor cores
 INT8_OPS = 1979e12
 
 

@@ -425,8 +425,8 @@ def test_transposed_reference_matches_pallas(case, dtype, monkeypatch):
 
 # the reference's TestRowBlockAttention cases (tests/test_ops.py:125-188),
 # with _ROWBLOCK_BLOCK_Q = 16 for several q blocks per (batch, head), and
-# the same at the head dim the route serves (128): (b, h, tq, tk, d, bias
-# lengths or None, q scale)
+# the same at the head dim the route serves (128) and at 72: (b, h, tq, tk,
+# d, bias lengths or None, q scale)
 ROWBLOCK_CASES = {
     "multiblock_q_48_384_d64": (2, 2, 48, 384, 64, None, 1.0),
     "unaligned_30_300_d72": (2, 2, 30, 300, 72, None, 1.0),
@@ -436,6 +436,9 @@ ROWBLOCK_CASES = {
     "multiblock_q_48_384_d128": (2, 2, 48, 384, 128, None, 1.0),
     "ragged_tk300_key_padding_d128": (2, 2, 30, 300, 128, [250, 300], 1.0),
     "per_batch_key_padding_d128": (3, 2, 32, 256, 128, [100, 200, 256], 1.0),
+    # the reference's padded-head-dim branch (:475-479), which its kernel
+    # shoot-out reaches at 72
+    "per_batch_key_padding_d72": (3, 2, 30, 300, 72, [100, 200, 256], 1.0),
 }
 
 
@@ -994,7 +997,12 @@ HOPPER_ROUTES = {
     "transposed_d36": ("transposed", (2, 30, 2, 36), 300, "bf16", None, ("mma", 1)),
     "rowblock_key_padding": ("rowblock", (2, 30, 2, 128), 300, "bf16", "padding",
                              ("sm90", "attention_rowblock_bias")),
-    "rowblock_key_padding_d64": ("rowblock", (2, 30, 2, 64), 300, "bf16", "padding", ("mma", 2)),
+    "rowblock_key_padding_d64": ("rowblock", (2, 30, 2, 64), 300, "bf16", "padding",
+                                 ("sm90", "attention_rowblock_bias")),
+    "rowblock_key_padding_d72": ("rowblock", (2, 30, 2, 72), 300, "bf16", "padding",
+                                 ("sm90", "attention_rowblock_bias")),
+    "rowblock_batch_broadcast_bias_d72": ("rowblock", (3, 30, 2, 72), 300, "bf16",
+                                          "broadcast", ("sm90", "attention_rowblock_bias")),
     "rowblock_key_padding_fp32": ("rowblock", (2, 30, 2, 128), 300, "fp32", "padding",
                                   ("mma", 2)),
     "flash_key_padding": ("flash", (2, 30, 2, 128), 300, "bf16", "padding",
@@ -1015,7 +1023,14 @@ HOPPER_ROUTES = {
     "flash_fp32_d72": ("flash", (2, 30, 2, 72), 300, "fp32", None, ("mma", 3)),
     "flash_d72": ("flash", (2, 30, 2, 72), 300, "bf16", None, ("sm90", "attention_flash")),
     "flash_d64": ("flash", (2, 30, 2, 64), 300, "bf16", None, ("sm90", "attention_flash")),
-    "rowblock_d64": ("rowblock", (2, 30, 2, 64), 300, "bf16", None, ("mma", 2)),
+    "rowblock_d64": ("rowblock", (2, 30, 2, 64), 300, "bf16", None,
+                     ("sm90", "attention_rowblock")),
+    # the kernel shoot-out's row-block row at PixArt-1024's width
+    # (scripts/bench_attention_kernels.py `pixart1024`)
+    "rowblock_d72": ("rowblock", (8, 4096, 16, 72), 4096, "bf16", None,
+                     ("sm90", "attention_rowblock")),
+    "rowblock_d36": ("rowblock", (2, 30, 2, 36), 300, "bf16", None, ("mma", 2)),
+    "rowblock_fp32_d72": ("rowblock", (2, 30, 2, 72), 300, "fp32", None, ("mma", 2)),
     "rowblock_key_padding_d128": ("fused", (1, 4608, 24, 128), 4608, "bf16", "padding",
                                   ("sm90", "attention_rowblock_bias")),
     "transposed_d72": ("transposed", (2, 30, 2, 72), 300, "bf16", None,
@@ -1028,12 +1043,11 @@ HOPPER_ROUTES = {
 @pytest.mark.parametrize("name", sorted(HOPPER_ROUTES))
 def test_hopper_body_routing(name, monkeypatch):
     """bf16 calls without a bias at head dim 64, 72 or 128 on the
-    single-tile exact (K1), transposed clamp (K4) and streaming (K6)
-    routes, and at 128 on the row-block route (K5), launch the Hopper body,
-    and so do bf16 calls with a key-padding bias on each of them (K2, and
-    K4, K5 and K6 with a bias, at the same head dims), the bias passed on;
-    every other call — a dense bias, fp32, another head dim, the row-block
-    route at head dim 64 — keeps its csrc/attention.cu variant.
+    single-tile exact (K1), transposed clamp (K4), row-block clamp (K5) and
+    streaming (K6) routes launch the Hopper body, and so do bf16 calls with
+    a key-padding bias on each of them (K2, and K4, K5 and K6 with a bias,
+    at the same head dims), the bias passed on; every other call — a dense
+    bias, fp32, another head dim — keeps its csrc/attention.cu variant.
     Tensors on the meta device reach the launch decision without a card;
     the launchers are replaced by recorders."""
     wrapper, shape, tk, dtype, bias_kind, want = HOPPER_ROUTES[name]
