@@ -57,13 +57,20 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    on the single-tile, clamp, row-block and streaming routes, with and
    without a bias; K5 also at d=72, rows 152 bytes apart), or whose bias
    the body does not read (fp16; K5 at d=64, 72 and 128), raises there.
+   fp32 calls at head dims 16, 32, 64, 72 and 128 whose operands TMA can
+   map run on the fp32 body (``csrc/attention_f32_sm90.cu``: 3×TF32 on
+   wgmma) on every route, with any bias the route takes (a dense one on
+   the single-tile route); fp32 at d=36 and on rows TMA cannot map run on
+   attention.cu's SIMT kernel, which a profile of each such case must name,
+   with no bias, a key-padding bias through each wrapper and a dense bias
+   on the single-tile route.
    The rest run on ``csrc/attention.cu``. The exact kernels
-   of both (K2 in bf16 on the Hopper body and in fp32 on attention.cu, K6
+   (K2 in bf16 on the Hopper body and in fp32 on the fp32 body, K6
    with a bias at d=64, 72 and 128) are also held against the plain versions
    in rows whose every key has a bias of −1e9 or −2e9, where the
    reference's pad keys take their share; and a dense bias past the
-   single tile ((1, 2048, 2, 72) × 1100 keys, fp32 and bf16, on
-   attention.cu), which the reference sends to XLA without pad keys, is
+   single tile ((1, 2048, 2, 72) × 1100 keys, fp32 on the fp32 body and
+   bf16 on attention.cu), which the reference sends to XLA without pad keys, is
    held to its plain version with none, and its −1e9 and −2e9 rows to
    Σv/Tk. Time kernel (with the
    SM clock, power and temperature sampled before and after), plain
@@ -77,11 +84,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    and named by a profile, are timed in turns against SDPA and the
    mma.sync body of ``attention.cu`` they replaced (``old_body_ms`` on
    their rows), K5 also against K4 on the same inputs, which computes the
-   same function (``k4_ms``). The routes that stay on ``attention.cu``
-   (fp32 K1, K4 and K5 at PixArt-256's, PixArt-1024's and FLUX-1024's
-   self-attention, K2 with a dense bias at PixArt-256's cross-attention)
-   are each timed once beside one SDPA call in the same dtype, with their
-   bound (the report's ``stays_on_attention_cu``). K3
+   same function (``k4_ms``). fp32 K1, K2, K4, K5 and K6 on the fp32 body
+   (`F32_ROWS`: PixArt-256's self-attention and its text cross-attention
+   → 120 keys with lengths 7, 60 and 120, PixArt-1024's, FLUX-1024's and
+   PixArt-Σ-2048's), each reached through the router with its launch
+   counted and named by a profile, held to its plain version at
+   ``FP32_TOL`` (K6's per slice), shown to reject a dropped or repeated key
+   tile of the body's step (64 keys, 32 at D=128), timed in turns against
+   attention.cu's SIMT kernel (``old_body_ms``) and one fp32 SDPA call,
+   beside its 3×TF32 bound and the fp32 FMA bound (``fma_bound_ms``). The
+   route that stays on ``attention.cu`` (bf16 K2 with a dense bias at
+   PixArt-256's cross-attention) is timed once beside one SDPA call, with
+   its bound (the report's ``stays_on_attention_cu``). K3
    (``csrc/modlnorm_sm90.cu``) also at
    each width a served path gives it: PixArt-1024's (4, 4096, 1152),
    PixArt-Σ-2048's (2, 16384, 1152) and FLUX.1-dev-1024's image, text and
@@ -261,7 +275,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the launch counts of K4 (self- and cross-attention) and K3 checked
    against each schedule; and a tiny fp32 1024-style trajectory (size
    conditions, TGATE, 2304 tokens so that both K4 variants run) on the card
-   against the plain path on the CPU.
+   (the fp32 body, which a profile of the run must name) against the plain
+   path on the CPU.
 11. Serving quantization (``quant``): the int8 product (``torch._int_mm``
    through ``ops/quant.py`` `int8_matmul`) held exact against the float64
    product of its int8 operands at PixArt-1024's and FLUX-1024's
@@ -288,7 +303,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    counts of K6 (self-attention), K4's bias variant (cross-attention,
    16384 → 120) and K3 checked against each schedule; and a tiny fp32
    trajectory with 8464 tokens, past 8192 so that self-attention takes the
-   streaming route, on the card against the plain path on the CPU.
+   streaming route, on the card (the fp32 body, named by a profile) against
+   the plain path on the CPU.
 13. FLUX (``flux``): full-width FLUX.1-dev (19 dual + 38 single blocks,
    d=3072, 24×128 heads, 512 text tokens, guidance embedding; 11.9 B
    seeded random bf16 parameters) from hash-encoder prompts, 20 flow-match
@@ -315,7 +331,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    PixArt's (the uncached 1024², 1536² and 256² trajectories are counted
    and timed, not profiled, to keep the run under 900 s); and a tiny fp32 FLUX
    trajectory (1536 joint tokens at D=128, the row-block route) on the
-   card against the plain path on the CPU.
+   card (the fp32 body, named by a profile) against the plain path on the
+   CPU.
 14. Entry points (``cli``): ``ecad_tpu_torch.inference.cli
    PixArtAlphaImageGenerator`` with a prompt file, random weights and
    ``ours_fast``, again with the 1024 TGATE schedule at batch size 2,
@@ -358,6 +375,7 @@ from ecad_tpu_torch.utils.timing import (
     BF16_FLOPS,
     FP32_FLOPS,
     HBM_BYTES_PER_S,
+    TF32_FLOPS,
     INT8_OPS,
     card_name,
     device_ms,
@@ -542,6 +560,60 @@ def refused(name: str, fn, *args) -> None:
     raise AssertionError(f"{name}: accepted operands TMA cannot map")
 
 
+def on_simt_kernel(name: str, fn, *args) -> None:
+    """Raises unless an fp32 call `fn(q, k, v[, bias])` that the fp32 body
+    does not take (a head dim it is not built for, operands TMA cannot map:
+    `_takes_f32`) runs on csrc/attention.cu's SIMT kernel, by a profile of
+    it."""
+    from ecad_tpu_torch.ops.attention import _takes_f32
+
+    names = device_kernel_names(lambda: fn(*args))
+    if _takes_f32(*args[:3]) or not any("attn_f32_kernel" in n for n in names) or any(
+            "_f32_sm90_kernel" in n for n in names):
+        raise AssertionError(f"{name} ran {names}, not attention.cu's attn_f32_kernel")
+    REPORT.setdefault("simt_kernel_cases", {})[name] = [n for n in names if "attn" in n]
+
+
+def simt_bias_cases(rnd) -> None:
+    """The SIMT kernel's bias forms (attn_f32_kernel<true, false|true>),
+    which fp32 calls at d=36 or on rows TMA cannot map still take: a
+    key-padding bias per batch at [100, 200, 256] of 300 keys through each
+    wrapper (K2, K4, K5 and K6), and a dense (B, H, Tq, Tk) bias on the
+    exact route, each held to its plain version at ``FP32_TOL`` and shown by
+    a profile to run on attention.cu's SIMT kernel."""
+    from ecad_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_reference,
+        fused_attention,
+        fused_attention_reference,
+        rowblock_attention,
+        rowblock_attention_reference,
+        transposed_attention,
+        transposed_attention_reference,
+    )
+
+    wide = [rnd(3, t, 2, 80) for t in (30, 300, 300)]
+    operands = {
+        "d36": tuple(rnd(3, t, 2, 36) for t in (30, 300, 300)),
+        "misaligned_rows_d72": (wide[0][..., 1:73], wide[1][..., 3:75], wide[2][..., 5:77]),
+    }
+    padding = key_padding_bias([100, 200, 256], 300, -1e9)
+    dense = rnd(3, 2, 30, 300)
+    for tag, qkv in operands.items():
+        for route, fn, plain in (
+                ("attention", fused_attention, fused_attention_reference),
+                ("attention_long", transposed_attention, transposed_attention_reference),
+                ("attention_rowblock", rowblock_attention, rowblock_attention_reference),
+                ("attention_flash", flash_attention, flash_attention_reference)):
+            name = f"{route}_bias/fp32/{tag}_key_padding_100_200_256_tq30_tk300"
+            compare(name, fn(*qkv, padding), plain(*qkv, padding), FP32_TOL)
+            on_simt_kernel(name, fn, *qkv, padding)
+        name = f"attention_bias/fp32/{tag}_dense_bias_tq30_tk300"
+        compare(name, fused_attention(*qkv, dense), fused_attention_reference(*qkv, dense),
+                FP32_TOL)
+        on_simt_kernel(name, fused_attention, *qkv, dense)
+
+
 def key_padding_bias(lengths, tk, fill, dtype=torch.float32):
     keep = torch.arange(tk, device="cuda")[None, :] < torch.tensor(
         lengths, device="cuda"
@@ -602,9 +674,9 @@ def attention_cases() -> None:
         # rows whose every key has a bias of −1e9 (the reference's output
         # there is Σv/Tk_pad) or −2e9 (0), beside a ragged row: K2 (at d=64
         # and 72) and K6's bias variant (at d=64, 72 and 128), on the Hopper
-        # body in bf16, on attention.cu in fp32, against the repaired plain
+        # body in bf16, on the fp32 body in fp32, against the repaired plain
         # versions
-        from ecad_tpu_torch.ops.attention import _takes_sm90
+        from ecad_tpu_torch.ops.attention import _takes_f32, _takes_sm90
 
         for fill in (-1e9, -2e9):
             for d in (64, 72, 128):
@@ -613,7 +685,8 @@ def attention_cases() -> None:
                 bias_m = key_padding_bias([0, 280], 300, fill)
                 on_sm90 = (dtype == torch.bfloat16, dtype == torch.bfloat16)
                 if (_takes_sm90("attention", qm, bias_m), _takes_sm90(
-                        "attention_flash", qm, bias_m)) != on_sm90:
+                        "attention_flash", qm, bias_m)) != on_sm90 or _takes_f32(
+                            qm, km, vm) != (dtype == torch.float32):
                     raise AssertionError(f"every_key_biased_{fill:g} at d={d}: wrong body")
                 if d != 128:
                     case(f"every_key_biased_{fill:g}" + ("" if d == 64 else f"_d{d}"),
@@ -639,11 +712,16 @@ def attention_cases() -> None:
              rnd(2, 70, 3, 64, dtype=dtype), rnd(2, 3, 40, 70))
         # head dim not a multiple of 8, and rows off 16-byte alignment:
         # the element-wise (non-cp.async) load path
-        case("unaligned_tq130_tk300_d36",
-             rnd(2, 130, 2, 36, dtype=dtype), rnd(2, 300, 2, 36, dtype=dtype),
-             rnd(2, 300, 2, 36, dtype=dtype))
+        d36 = (rnd(2, 130, 2, 36, dtype=dtype), rnd(2, 300, 2, 36, dtype=dtype),
+               rnd(2, 300, 2, 36, dtype=dtype))
+        case("unaligned_tq130_tk300_d36", *d36)
         wide = rnd(2, 64, 3, 80, dtype=dtype)
         misaligned = (wide[..., 1:73], wide[..., 3:75], wide[..., 5:77])
+        if dtype == torch.float32:
+            # the fp32 calls the fp32 body does not take stay on attention.cu
+            on_simt_kernel("attention/fp32/unaligned_tq130_tk300_d36", fused_attention, *d36)
+            on_simt_kernel("attention/fp32/misaligned_rows_d72", fused_attention, *misaligned)
+            simt_bias_cases(rnd)
         if dtype == torch.bfloat16:
             # the Hopper body refuses what TMA cannot map, with or without
             # K2's bias, and a bias it does not read; none of them is sent
@@ -737,6 +815,10 @@ def attention_cases() -> None:
                        key_padding_bias([200], 256, -1e4, dtype))
         else:
             clamp_case("misaligned_rows_d72", *misaligned)
+            on_simt_kernel("attention_long/fp32/misaligned_rows_d72", transposed_attention,
+                           *misaligned)
+            on_simt_kernel("attention_long/fp32/unaligned_tq130_tk300_d36",
+                           transposed_attention, *d36)
         clamp_case("q_times_1e4", rnd(1, 128, 1, 72, dtype=dtype, scale=1e4),
                    rnd(1, 256, 1, 72, dtype=dtype), rnd(1, 256, 1, 72, dtype=dtype),
                    **({} if dtype == torch.bfloat16 else {"tol": HOT_FP32_TOL}))
@@ -947,8 +1029,9 @@ def all_masked_rows(rnd) -> None:
 def dense_bias_past_the_tile(rnd, dtype, tol) -> None:
     """A dense (1, 2, 2048, 1100) bias past the single tile (a 9.4 MB score
     tile): the reference sends it to XLA, which adds no pad keys, so the
-    route is "exact_xla" and the kernel (csrc/attention.cu's exact variant,
-    counted under ``attention_bias``) gets n_pad = 0. Held to its plain
+    route is "exact_xla" and the kernel (csrc/attention.cu's exact variant
+    in bf16, the fp32 body's exact single-tile kernel in fp32, counted under
+    ``attention_bias``) gets n_pad = 0. Held to its plain
     version with no pad keys at `tol`; the rows whose every key has a bias
     of −1e9 (rows 0-7) or −2e9 (rows 8-15) to Σv/Tk within 2^-7 relative,
     a check shown to reject the single-tile route's pad-key count there
@@ -1222,6 +1305,7 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
     del q4t, k4t, v4t, kc4t, vc4t
     rows += flux_kernel_rows(rnd, bound, nbytes)
     rows += hopper_kernel_rows(rnd, bound, nbytes)
+    rows += f32_kernel_rows(rnd, nbytes)
     REPORT["stays_on_attention_cu"] = attention_cu_rows(rnd, nbytes)
     rows += flash_kernel_rows(rnd, bound, nbytes)
 
@@ -1574,15 +1658,122 @@ def hopper_kernel_rows(rnd, bound, nbytes) -> list[dict]:
     return rows
 
 
-# the routes that stay on csrc/attention.cu, each timed beside one
+# fp32 on the fp32 body (csrc/attention_f32_sm90.cu), each reached through
+# the router: row → (q's shape, keys, the key-padding bias's lengths (cycled
+# over the batch; the models' text bias, −10000 past them) or None, the
+# route, csrc/attention.cu's variant, the kernel, the TPU kernel)
+F32_ROWS = {
+    "attention_fp32_pixart256": ((16, 256, 16, 72), 256, None, "exact", 0,
+                                 "attn_exact_f32_sm90_kernel<72, false>", ":58 (_attn_kernel)"),
+    "attention_bias_fp32_pixart256_cross": ((16, 256, 16, 72), 120, (7, 60, 120), "exact", 0,
+                                            "attn_exact_f32_sm90_kernel<72, true>",
+                                            ":75 (_attn_kernel_bias)"),
+    "attention_long_fp32_pixart1024": ((4, 4096, 16, 72), 4096, None, "clamp", 1,
+                                       "attn_clamp_f32_sm90_kernel<72, false>",
+                                       ":344 (_transposed_kernel_nobias)"),
+    "attention_rowblock_fp32_flux1024": ((1, 4608, 24, 128), 4608, None, "rowblock", 2,
+                                         "attn_rowblock_f32_sm90_kernel<128, false>",
+                                         ":274 (_rowblock_kernel_nobias)"),
+    "attention_flash_fp32_pixart2048": ((2, 16384, 16, 72), 16384, None, "flash", 3,
+                                        "attn_flash_f32_sm90_kernel<72, false>",
+                                        ":151 (_flash_kernel)"),
+}
+F32_TURNS = ("old", "new", "sdpa", "sdpa", "new", "old")
+
+
+def f32_kernel_rows(rnd, nbytes) -> list[dict]:
+    """fp32 K1, K2, K4, K5 and K6 on the fp32 body (`F32_ROWS`), each
+    reached through the router with its launch counted (the row's
+    launches: no served path sends fp32 at these shapes), named by a
+    profile (its kernel and nothing of csrc/attention.cu), held to its
+    plain version at ``FP32_TOL`` (K6's per slice: its fp32 scores would take
+    34 GB) with a dropped and a repeated key tile of the body's step (64
+    keys, 32 at D=128) rejected, then timed in turns (`F32_TURNS`; K6's
+    attention.cu body once) against csrc/attention.cu's SIMT kernel, which
+    took fp32 before (``old_body_ms``), and one fp32
+    ``scaled_dot_product_attention`` call (the bias as a float mask). Its
+    bound is the 3×TF32 one: max(bytes / 3.35 TB/s, 3 · 4·B·H·Tq·Tk·D /
+    494.7 TFLOP/s), the three TF32 products a product takes;
+    ``fma_bound_ms`` is the same work at the card's fp32 FMA rate outside
+    the tensor cores."""
+    import torch.nn.functional as F
+
+    from ecad_tpu_torch.ops import attention as A
+
+    plains = {"exact": A.fused_attention_reference, "clamp": A.transposed_attention_reference,
+              "rowblock": A.rowblock_attention_reference, "flash": A.flash_attention_reference}
+    rows = []
+    for name, (shape, tk, lengths, route, variant, kernel, replaces) in F32_ROWS.items():
+        b, tq, h, d = shape
+        q, k, v = (rnd(*s, dtype=torch.float32) for s in (shape, (b, tk, h, d), (b, tk, h, d)))
+        bias = None if lengths is None else key_padding_bias(
+            [lengths[i % len(lengths)] for i in range(b)], tk, -10000.0)
+        counter = ROUTE_COUNTERS[route] + ("" if bias is None else "_bias")
+        out = []
+        counts = counted(lambda: out.append(A.fused_attention(q, k, v, bias)))
+        got = out.pop()
+        if counts != {**dict.fromkeys(COUNTERS, 0), counter: 1}:
+            raise AssertionError(f"{name}: launches {counts}, not one {counter}")
+        REPORT.setdefault("f32_row_launches", {})[name] = 1
+        names = device_kernel_names(lambda: A.fused_attention(q, k, v, bias))
+        REPORT.setdefault("f32_row_device_kernels", {})[name] = [n for n in names if "attn" in n]
+        if not ran_hopper_kernel(names, kernel):
+            raise AssertionError(f"{name} ran {names}, not {kernel} alone")
+        plain = ((lambda *a, p=plains[route]: by_slices(p, *a)) if route == "flash"
+                 else plains[route])
+        want = plain(q, k, v, bias)
+        err = compare(f"{counter}/fp32/{name}_{'x'.join(map(str, shape))}_to_{tk}", got, want,
+                      FP32_TOL)
+        del got
+        step = 32 if d == 128 else 64
+        end = min(2 * step, tk)  # K2's 120 keys: tile 1 is keys 64-119
+        for fault, (lo, hi) in (("drops", (step, end)), ("repeats", (end, step))):
+            def cut(x, dim):  # keys [0, lo) then [hi, Tk): tile 1 dropped or repeated
+                return None if x is None else torch.cat(
+                    (x.narrow(dim, 0, lo), x.narrow(dim, hi, x.shape[dim] - hi)), dim)
+            rejects(f"{name}_{fault}_{step}_key_tile_1",
+                    plain(q, cut(k, 1), cut(v, 1), cut(bias, 3)), want, FP32_TOL)
+        del want
+        n_pad = A.pad_keys(route, tk)
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        fns = {"new": lambda: A.fused_attention(q, k, v, bias),
+               "old": lambda: A._launch(q, k, v, bias, variant, n_pad),
+               "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)}
+        reps, inner = ((2, 1) if route == "flash" else (3, 2) if tq * tk >= 4096 * 4096
+                       else (7, 20))
+        # K6's attention.cu body takes a third of a second a call: one turn
+        # of one rep, before the others
+        turns = F32_TURNS[:-1] if route == "flash" else F32_TURNS
+        times = {w: [] for w in turns}
+        for i, which in enumerate(turns):
+            label = name if which == "new" and not times["new"] else f"{name}/{which}/{i}"
+            times[which].append(timed_ms(
+                label, fns[which], reps=1 if route == "flash" and which == "old" else reps,
+                inner=inner, clocks=label == name))
+        del qt, kt, vt
+        REPORT.setdefault("f32_row_turns", {})[name] = times
+        flops = 4 * b * h * tq * tk * d
+        tb = nbytes(q, k, v, q, *(() if bias is None else (bias,))) / HBM_BYTES_PER_S
+        tf = 3 * flops / TF32_FLOPS
+        rows.append(dict(
+            name=name, route="cuda", source="ecad_tpu_torch/csrc/attention_f32_sm90.cu",
+            replaces=f"ecad_tpu/ops/attention.py{replaces}", max_abs_err=err,
+            ms=statistics.median(times["new"]),
+            plain_ms=timed_ms(f"{name}/plain", lambda: plain(q, k, v, bias),
+                              reps=1 if route == "flash" else 3,
+                              inner=1 if route == "flash" else 2),
+            bound_ms=max(tb, tf) * 1e3, bound_by="bytes" if tb >= tf else "operations",
+            fma_bound_ms=flops / FP32_FLOPS * 1e3, library_ms=statistics.median(times["sdpa"]),
+            old_body_ms=statistics.median(times["old"])))
+        del q, k, v, bias
+    return rows
+
+
+# the route that stays on csrc/attention.cu, timed beside one
 # `scaled_dot_product_attention` call in its dtype (a float mask for the
 # bias): row → (the wrapper, q's shape, keys, dtype, bias: None, "dense"
 # (B, H, Tq, Tk))
 ATTENTION_CU_ROWS = {
-    "attention_fp32_pixart256": ("fused", (16, 256, 16, 72), 256, torch.float32, None),
-    "attention_long_fp32_pixart1024": ("fused", (4, 4096, 16, 72), 4096, torch.float32, None),
-    "attention_rowblock_fp32_flux1024": ("fused", (1, 4608, 24, 128), 4608, torch.float32,
-                                         None),
     "attention_bias_dense_pixart256_cross": ("fused", (16, 256, 16, 72), 120, torch.bfloat16,
                                              "dense"),
 }
@@ -1590,15 +1781,14 @@ ATTENTION_CU_ROWS = {
 
 def attention_cu_rows(rnd, nbytes) -> dict:
     """One timing of each route that stays on csrc/attention.cu
-    (`ATTENTION_CU_ROWS`: fp32 K1, K4 and K5 at PixArt-256's, PixArt-1024's
-    and FLUX-1024's self-attention, K2 with a dense bias at PixArt-256's
+    (`ATTENTION_CU_ROWS`: bf16 K2 with a dense bias at PixArt-256's
     cross-attention) beside one SDPA call on the same inputs, with its bound
-    (fp32 operations at the card's fp32 rate outside the tensor cores) and
-    its launch counted, so that the next kernel PR can tell which of them
+    and its launch counted, so that the next kernel PR can tell whether it
     loses to the library and by what factor. Output finite, of q's shape;
     its plain version's agreement is checked at the reference's shapes
     above. Not a kernel row: no kernel of this repository but csrc/
     attention.cu's, which the kernels line's rows replaced, runs there."""
+
     import torch.nn.functional as F
 
     from ecad_tpu_torch.ops import fused_attention
@@ -1625,7 +1815,7 @@ def attention_cu_rows(rnd, nbytes) -> dict:
             qt, kt, vt, attn_mask=bias), reps=reps, inner=inner)
         flops = 4 * b * h * tq * tk * d
         tb = nbytes(q, k, v, q, *(() if bias is None else (bias,))) / HBM_BYTES_PER_S
-        tf = flops / (FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
+        tf = flops / BF16_FLOPS
         out[name] = {"shape": list(shape), "keys": tk, "dtype": str(dtype).split(".")[-1],
                      "bias": bias_kind, "ms": ms, "sdpa_ms": sdpa, "over_sdpa": ms / sdpa,
                      "bound_ms": max(tb, tf) * 1e3,
@@ -1790,23 +1980,42 @@ SM90_XATTN = {"xattn_matmul_only": "attn_xmatmul_sm90_kernel",
               "xattn_fd": "attn_xfd_sm90_kernel"}
 
 
+def traced_kernels(fn, tries: int = 3):
+    """`fn()` under torch.profiler: its result and the sorted names of the
+    device kernels it launched. A trace that holds no device kernel at all
+    is taken again, up to `tries` times: in one run of the kernels phase,
+    among some thirty short profiles, one came back empty for a call that
+    launched its kernel (and named it when the same call was profiled in
+    another run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        names = sorted(e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        if names:
+            break
+    return out, names
+
+
 def device_kernel_names(fn) -> list[str]:
-    """The device kernels that a call of `fn` launches, from torch.profiler.
+    """The device kernels that a call of `fn` launches (`traced_kernels`).
     `fn` runs once before the profile, so that each of its kernels is
     loaded before it is traced (a profile of the first call of X1's kernel
     in the process named only X2's and X3's), and twice inside it: a
     profile taken after two earlier ones was seen to miss the first kernel
     it traced (X2's, ahead of X3's)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def twice():
         for _ in range(2):
             fn()
             torch.cuda.synchronize()
-    return sorted(e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+    return traced_kernels(twice)[1]
 
 
 def by_head_pairs(plain, q, k, v) -> torch.Tensor:
@@ -2180,6 +2389,20 @@ def sum_counts(counts) -> dict[str, int]:
     return dict(total)
 
 
+def f32_body_run(fn, label: str):
+    """`fn()` under torch.profiler (`traced_kernels`): its result and the
+    fp32 body's kernels among the device kernels it launched
+    (csrc/attention_f32_sm90.cu).
+    Raises unless the fp32 body ran and attention.cu's fp32 SIMT kernel did
+    not: the tiny fp32 trajectories take the fp32 body on every route."""
+    out, names = traced_kernels(fn)
+    body = [n for n in names if "_f32_sm90_kernel" in n]
+    if not body or any("attn_f32_kernel" in n for n in names):
+        raise AssertionError(f"{label} ran {sorted(n for n in names if 'attn' in n)}, "
+                             "not the fp32 body alone")
+    return out, body
+
+
 def small_reference_check(side: int = 256) -> dict:
     """A tiny fp32 trajectory through the kernels on the card against the
     same weights and noise through the plain versions on the CPU.
@@ -2229,19 +2452,23 @@ def small_reference_check(side: int = 256) -> dict:
     neg = torch.from_numpy(rng.standard_normal((batch, 8, 32), dtype=np.float32))
     tm = torch.tensor([[1] * 5 + [0] * 3, [1] * 8])[:batch]
     nm = torch.tensor([[1] + [0] * 7] * batch)
+    label = {256: "256-style", 1024: "1024-style (size conditions, TGATE)",
+             2048: "2048-style (8464 tokens, streaming route)"}[side]
     outs = []
     for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
         pipe = cls(PixArtPipelineConfig(cfg, steps), model, sched, **kwargs)
         args = [a.to(dev) for a in (noise, text, neg, tm, nm)]
         reset_launch_counts()
-        outs.append(pipe.denoise(*args).cpu())
+        if dev == "cuda":
+            out, body = f32_body_run(lambda: pipe.denoise(*args).cpu(), f"tiny fp32 {label}")
+            outs.append(out)
+        else:
+            outs.append(pipe.denoise(*args).cpu())
     counts = launch_counts()
     err = float((outs[0] - outs[1]).abs().max())
     scale = float(outs[0].abs().max())
-    label = {256: "256-style", 1024: "1024-style (size conditions, TGATE)",
-             2048: "2048-style (8464 tokens, streaming route)"}[side]
     log(f"  tiny fp32 {label} trajectory, card kernels vs CPU plain: max err "
-        f"{err:.3g} of max |latent| {scale:.3g}; card launches {counts}")
+        f"{err:.3g} of max |latent| {scale:.3g}; card launches {counts}; fp32 body {body}")
     if not all(counts[k] > 0 for k in (*ATTENTION_KERNELS[side], "modlnorm")):
         raise AssertionError(f"tiny {label} trajectory missed a kernel: {counts}")
     # fp32 throughout (TF32 off). 256-style: 20 steps of CFG 4.5 amplify
@@ -2251,12 +2478,17 @@ def small_reference_check(side: int = 256) -> dict:
     limit = 1e-3 if side == 256 else 1e-5 * scale
     if not err <= limit:
         raise AssertionError(f"tiny {label} trajectory mismatch {err} > {limit}")
-    return {"max_err": err, "max_abs_latent": scale, "launches": counts}
+    return {"max_err": err, "max_abs_latent": scale, "launches": counts,
+            "f32_body_kernels": body}
 
 
 def kernel_family(name: str) -> str:
     """Family of a device kernel, from its (mangled or demangled) name."""
     for kernel, family in (("attn_rowblock_sm90_kernel", "attention_rowblock"),
+                           ("attn_rowblock_f32_sm90_kernel", "attention_rowblock"),
+                           ("attn_flash_f32_sm90_kernel", "attention_flash"),
+                           ("attn_exact_f32_sm90_kernel", "attention"),
+                           ("attn_clamp_f32_sm90_kernel", "attention_long"),
                            ("attn_flash_sm90_kernel", "attention_flash"),
                            ("attn_exact_sm90_kernel", "attention"),
                            ("attn_clamp_sm90_kernel", "attention_long"),
@@ -4426,13 +4658,19 @@ def small_flux_check() -> dict:
     outs = []
     for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
         pipe = FluxPipeline(pcfg, model, sched)
+        args = [a.to(dev) for a in (noise, txt, pooled)]
         reset_launch_counts()
-        outs.append(pipe.denoise(*(a.to(dev) for a in (noise, txt, pooled))).cpu())
+        if dev == "cuda":
+            out, body = f32_body_run(lambda: pipe.denoise(*args).cpu(), "tiny fp32 FLUX")
+            outs.append(out)
+        else:
+            outs.append(pipe.denoise(*args).cpu())
     counts = launch_counts()
     err = float((outs[0] - outs[1]).abs().max())
     scale = float(outs[0].abs().max())
     log(f"  tiny fp32 FLUX trajectory (1536 joint tokens, D=128), card kernels vs CPU "
-        f"plain: max err {err:.3g} of max |latent| {scale:.3g}; card launches {counts}")
+        f"plain: max err {err:.3g} of max |latent| {scale:.3g}; card launches {counts}; "
+        f"fp32 body {body}")
     if not (counts["attention_rowblock"] > 0 and counts["modlnorm"] > 0):
         raise AssertionError(f"tiny FLUX trajectory missed a kernel: {counts}")
     # fp32 throughout (TF32 off); only summation orders differ, over 8 steps
@@ -4440,7 +4678,8 @@ def small_flux_check() -> dict:
     limit = 1e-4 * max(1.0, scale)
     if not err <= limit:
         raise AssertionError(f"tiny FLUX trajectory mismatch {err} > {limit}")
-    return {"max_err": err, "max_abs_latent": scale, "launches": counts}
+    return {"max_err": err, "max_abs_latent": scale, "launches": counts,
+            "f32_body_kernels": body}
 
 
 def flux_search(model, config, enc) -> dict:
@@ -5348,7 +5587,8 @@ def main() -> None:
     # path sends) its own router call at each shape, K3's rows at the
     # served widths their path's cached run (FLUX-1024 `fast` split by
     # stream, a split whose sum `drive` held to the run's count); the
-    # harness's rows carry the launches of its run at their shape
+    # harness's rows carry the launches of its run at their shape; the fp32
+    # rows (which no served path sends at their shapes) their own router call
     k3_launches = {
         "modlnorm_pixart1024": REPORT["main_path_1024"]["ours_fast"]["launches"]["modlnorm"],
         "modlnorm_pixart2048": REPORT["main_path_2048"]["ours_fast"]["launches"]["modlnorm"],
@@ -5366,6 +5606,8 @@ def main() -> None:
                 "pixart1024"]["attention_rowblock"]
         elif name in REPORT["hopper_row_launches"]:
             row["launches"] = REPORT["hopper_row_launches"][name]
+        elif name in REPORT["f32_row_launches"]:
+            row["launches"] = REPORT["f32_row_launches"][name]
         elif name in REPORT["flash_bias_launches"]:
             row["launches"] = REPORT["flash_bias_launches"][name]
         elif name == "attention_flash_d128":
@@ -5422,12 +5664,14 @@ def main() -> None:
     print(json.dumps(scorers_line(REPORT["scorers"], seconds["scorers"])), flush=True)
     print(json.dumps(parallel_line(REPORT["parallel"], scripts, seconds)), flush=True)
     # every row has the contract's keys; X1's also its two-call yardstick,
-    # the D=64 and K5-D72 rows the time of the mma.sync body they replaced,
-    # the K5 rows K4's time on the same inputs
+    # the D=64, K5-D72 and fp32 rows the time of the attention.cu kernel they
+    # replaced, the K5 rows K4's time on the same inputs, the fp32 rows their
+    # FMA bound
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
-                                   **{k: r[k] for k in ("two_call_ms", "old_body_ms", "k4_ms")
+                                   **{k: r[k] for k in ("two_call_ms", "old_body_ms", "k4_ms",
+                                                        "fma_bound_ms")
                                       if k in r}}
                                   for r in kernels.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

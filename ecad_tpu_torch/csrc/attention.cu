@@ -50,8 +50,11 @@
 //     the weights are then 1/Tk_pad, as the reference's. The bf16 calls
 //     at D=64, 72 and 128 run on the Hopper body of attention_sm90.cu
 //     instead — K1, K4, K5 and K6, each also with a key-padding bias (K2
-//     for K1), and so does the attention-variant harness (X1-X4). Here
-//     remain dense biases, fp32 and the other head dims.
+//     for K1), and so does the attention-variant harness (X1-X4); the fp32
+//     calls at D=16, 32, 64, 72 and 128 whose operands TMA can map run on
+//     attention_f32_sm90.cu (3×TF32 on the tensor cores), every route and
+//     bias. Here remain bf16 dense biases and the other head dims, and fp32
+//     at the other head dims (36) or in strides TMA cannot map.
 //
 // What bounds it on the H100. Exact path, at PixArt-256's shapes
 // (self-attention 256×256 and cross-attention 256→120, D=72, bf16): a
@@ -96,9 +99,10 @@
 //     stride 0 on a broadcast dimension: one path serves key-padding
 //     (B,1,1,Tk), batch-broadcast (1,1,1,Tk) and dense (B,H,Tq,Tk) biases
 //     without materialising the broadcast;
-//   * fp32 inputs take a plain SIMT path (one warp per query row, fp32
-//     FMAs), in both variants, so that fp32 results stay exact to fp32
-//     rounding.
+//   * fp32 inputs take a plain SIMT path (four query rows a warp, one key
+//     a lane, fp32 FMAs), in both variants, so that fp32 results stay
+//     exact to fp32 rounding: the fp32 calls the 3×TF32 body of
+//     attention_f32_sm90.cu does not take.
 //
 // q, k, v and o are read and written in the (B, T, H, D) layout through
 // their strides; only the head dimension must be contiguous (16-byte

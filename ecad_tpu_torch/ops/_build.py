@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled, at
 first use, into ``build/ecad_tpu_torch/lib<name>_<hash>.so`` at the root of
-the checkout (the hash is of the source, so an edited kernel rebuilds),
+the checkout (the hash is of the source and csrc/'s headers, so an edited
+kernel or header rebuilds),
 then loaded with ``ctypes``. Nothing here includes PyTorch's headers, so a
 build takes seconds. ``build_all`` starts one ``nvcc`` per source at once.
 """
@@ -41,9 +42,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """Where `name`'s library is built: its hash covers the source and every
+    header in csrc/, so an edited header rebuilds the sources that share it."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def _command(name: str, out: Path) -> list[str]:

@@ -34,7 +34,7 @@ the way that one does (`attention_route`):
   dtype for p·v. `flash_attention` launches it under its own kernel name
   and counters; plain version: `flash_attention_reference`.
 
-Every route runs on one of two hand-written CUDA C++ sources (each says
+Every route runs on one of three hand-written CUDA C++ sources (each says
 what bounds its kernels on the H100). bf16 calls at head dim 64, 72 or 128
 take the Hopper body of ``csrc/attention_sm90.cu`` (wgmma fed by TMA;
 `_takes_sm90`), without a bias or with a key-padding bias (B|1, 1, 1, Tk):
@@ -52,10 +52,16 @@ route (K5, with a bias too) — FLUX.1-dev at 1024², and at 64 and 72 what
 at 128 alone; the kernel shoot-out, scripts/bench_attention_kernels.py,
 calls it at 72). No served path runs head dim 64. The attention-variant
 harness's X1, X2 and X3 take the same body in bf16 at 72 and 128, and X4
-at 72 (`attn_variants`). The mma.sync body of ``csrc/attention.cu`` (a
-compile-time variant per route) takes the rest: fp32, dense biases and
-other head dims. The choice depends on route, dtype, head dim and bias
-only. A call for the Hopper
+at 72 (`attn_variants`). fp32 calls at head dim 16, 32, 64, 72 or 128
+whose q, k and v TMA can map take the fp32 body of
+``csrc/attention_f32_sm90.cu`` (the products on the tensor cores through a
+3×TF32 split; `_takes_f32`) on every route — K1, K2 (with any bias that
+broadcasts, dense ones too), K4, K5 and K6 — under the same counters. The
+body of ``csrc/attention.cu`` (a compile-time variant per route) takes
+the rest: bf16 dense biases and other head dims on its mma.sync kernels,
+and fp32 at other head dims or in strides TMA cannot map on its SIMT
+kernel. The choice depends on route, dtype, head dim, bias and (fp32) the
+operands' strides only. A bf16 call for the Hopper
 body whose operands TMA cannot map (`tma_operand`: a 16-byte-aligned base
 and strides), or whose bias the body does not read (`bias_operand`: bf16
 or fp32), raises; it never drops back to the other body.
@@ -110,6 +116,7 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 MAX_HEAD_DIM = 128
 _FN = None
 _SM90_FN = None
+_F32_FN = None
 # the Hopper body's kernels (csrc/attention_sm90.cu), by counter name: the
 # C entry's mode and the head dims it is built for; the last four are the
 # attention-variant harness's X2, X3, X4 and X1 (`attn_variants`)
@@ -122,6 +129,10 @@ _SM90_BIAS = ("attention", "attention_long", "attention_rowblock", "attention_fl
 # the bias dtypes the Hopper body reads, with the C entry's code for each
 _SM90_BIAS_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SM90_BOX = (64, 1, 128, 1)  # 64 columns (128 bytes: the swizzle's width), 1 head, 128 rows
+# the fp32 Hopper body's kernels (csrc/attention_f32_sm90.cu), by counter
+# name: the C entry's route; and the head dims it is built for
+_F32_ROUTES = {"attention_flash": 0, "attention_rowblock": 1, "attention": 2, "attention_long": 3}
+F32_HEAD_DIMS = (16, 32, 64, 72, 128)
 
 # The reference's routing constants (ecad_tpu/ops/attention.py :95, :134,
 # :148). They decide WHICH function a shape gets — the clamp softmax or the
@@ -190,6 +201,30 @@ def _sm90_kernel():
         fn.restype = ctypes.c_int
         _SM90_FN = fn
     return _SM90_FN
+
+
+def _f32_kernel():
+    global _F32_FN
+    if _F32_FN is None:
+        from ._build import load_library
+
+        fn = load_library("attention_f32_sm90").ecad_attention_f32_sm90_fwd
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v
+            ctypes.c_void_p,  # o
+            ctypes.POINTER(ctypes.c_ulonglong),  # 3 × 7 tensor-map arguments (q, k, v)
+            ctypes.POINTER(ctypes.c_longlong),  # 7 strides: o (b, t, h), bias (b, h, q, k)
+            ctypes.c_void_p,  # fp32 bias or NULL
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H Tq Tk
+            ctypes.c_float,  # 1/√D (exact routes) or clamp_scale(D, float32) (clamp routes)
+            ctypes.c_int,  # route: 0 streaming (K6), 1 row-block (K5), 2 single-tile (K1,
+            # K2), 3 transposed (K4)
+            ctypes.c_int,  # n_pad: the route's pad keys (`pad_keys`)
+            ctypes.c_void_p,  # stream
+        ]
+        fn.restype = ctypes.c_int
+        _F32_FN = fn
+    return _F32_FN
 
 
 def _exact_weights(s: torch.Tensor, n_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -403,10 +438,11 @@ def _launch(
     variant: int,
     n_pad: int,
 ) -> torch.Tensor:
-    """One launch of the CUDA kernel on q's device: `variant` 0 is the
-    exact softmax, 1 the clamp softmax of the transposed route (K4), 2 that
-    of the row-block route (K5), 3 the exact softmax of the streaming route
-    (K6), with the route's `n_pad` pad keys (`pad_keys`). Counts it."""
+    """One launch of csrc/attention.cu's kernel on q's device (its mma.sync
+    body in bf16, its SIMT kernel in fp32): `variant` 0 is the exact
+    softmax, 1 the clamp softmax of the transposed route (K4), 2 that of the
+    row-block route (K5), 3 the exact softmax of the streaming route (K6),
+    with the route's `n_pad` pad keys (`pad_keys`). Counts it."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -469,20 +505,60 @@ def tma_operand(t: torch.Tensor, name: str) -> list[int]:
     if t.dtype != torch.bfloat16 or d not in (64, 72, 128):
         raise ValueError(f"{name}: the Hopper body takes bf16 at head dim 64, 72 or 128; got "
                          f"{t.dtype}, {d}")
+    strides, problem = _tma_strides(t)
+    if problem:
+        raise ValueError(name + problem)
+    return [d, h, tt, b, *strides, *_SM90_BOX]
+
+
+def _tma_strides(t: torch.Tensor) -> tuple[list[int], str]:
+    """The byte strides of H, T and B of a (B, T, H, D) operand for a TMA
+    tensor map, and "" — or no strides and what TMA cannot take: a last
+    dim that is not contiguous, a base off 16 bytes, a stride that is not a
+    multiple of 16 bytes (below 2^40). A dimension of size 1 is never
+    stepped along, so it takes the packed stride."""
+    b, tt, h, d = t.shape
     if t.stride(3) != 1:
-        raise ValueError(f"{name} must be contiguous in its last dim")
+        return [], " must be contiguous in its last dim"
     if t.data_ptr() % 16:
-        raise ValueError(f"{name}: TMA needs a 16-byte-aligned base; got {t.data_ptr():#x}")
+        return [], f": TMA needs a 16-byte-aligned base; got {t.data_ptr():#x}"
     elem = t.element_size()
     strides, packed = [], d * elem
     for size, stride in ((h, t.stride(2)), (tt, t.stride(1)), (b, t.stride(0))):
         sb = stride * elem if size > 1 else packed
         if sb % 16 or not 0 < sb < 2**40:
-            raise ValueError(f"{name}: TMA needs strides that are multiples of 16 bytes; "
-                             f"got strides {t.stride()} of {t.dtype}")
+            return [], (f": TMA needs strides that are multiples of 16 bytes; "
+                        f"got strides {t.stride()} of {t.dtype}")
         strides.append(sb)
         packed = sb * size
-    return [d, h, tt, b, *strides, *_SM90_BOX]
+    return strides, ""
+
+
+def f32_tma_operand(t: torch.Tensor, name: str) -> list[int]:
+    """The arguments of the TMA tensor map of an fp32 (B, T, H, D) operand
+    of the fp32 Hopper body, D in `F32_HEAD_DIMS`: the dims {D, H, T, B}
+    and the byte strides of H, T and B — 7 integers; the C entry loads q
+    and k in 8-column boxes under the 32-byte swizzle, v in whole rows.
+    Raises ValueError where TMA cannot map the operand (`_tma_strides`)."""
+    b, tt, h, d = t.shape
+    if t.dtype != torch.float32 or d not in F32_HEAD_DIMS:
+        raise ValueError(f"{name}: the fp32 Hopper body takes fp32 at head dim "
+                         f"{', '.join(map(str, F32_HEAD_DIMS))}; got {t.dtype}, {d}")
+    strides, problem = _tma_strides(t)
+    if problem:
+        raise ValueError(name + problem)
+    return [d, h, tt, b, *strides]
+
+
+def _takes_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether an fp32 call goes to the fp32 Hopper body
+    (csrc/attention_f32_sm90.cu) rather than attention.cu's SIMT kernel:
+    fp32 at a head dim the body is built for (`F32_HEAD_DIMS`), with q, k
+    and v in strides TMA can map (`_tma_strides`). Each route's kernel there
+    takes the route's bias. A function of dtype, head dim and the operands'
+    layout only."""
+    return (q.dtype == torch.float32 and q.shape[-1] in F32_HEAD_DIMS
+            and not any(_tma_strides(t)[1] for t in (q, k, v)))
 
 
 def bias_operand(bias: torch.Tensor, batch: int) -> tuple[list[int], int]:
@@ -554,6 +630,46 @@ def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
     return out
 
 
+def _launch_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
+                bias: Optional[torch.Tensor], n_pad: int) -> torch.Tensor:
+    """One launch of the fp32 Hopper body on the route of counter `name`
+    (``attention``: exact single-tile, K1, or K2 with a `bias` that
+    broadcasts from (B|1, H|1, Tq|1, Tk|1), dense too; ``attention_flash``:
+    exact streaming, K6; ``attention_long`` and ``attention_rowblock``:
+    clamp transposed, K4, and row-block, K5; these three with no bias or a
+    key-padding one), with the route's `n_pad` pad keys (`pad_keys`).
+    Raises where TMA cannot map an operand (`f32_tma_operand`). Counts it
+    under `name`, or ``name_bias``."""
+    maps = [a for t, n in ((q, "q"), (k, "k"), (v, "v")) for a in f32_tma_operand(t, n)]
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention: unsupported device {q.device}")
+    b, tq, h, d = q.shape
+    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    strides = [out.stride(0), out.stride(1), out.stride(2)]
+    if bias is not None:
+        bias = bias.float()
+        strides += [0 if bias.shape[i] == 1 else bias.stride(i) for i in range(4)]
+    else:
+        strides += [0, 0, 0, 0]
+    route = _F32_ROUTES[name]
+    scale = 1.0 / math.sqrt(d) if route in (0, 2) else clamp_scale(d, torch.float32)
+    with torch.cuda.device(q.device):
+        status = _f32_kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            (ctypes.c_ulonglong * len(maps))(*maps), (ctypes.c_longlong * 7)(*strides),
+            None if bias is None else bias.data_ptr(),
+            b, h, tq, k.shape[1], scale, route, n_pad,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if status != 0:
+        raise RuntimeError(
+            f"fp32 Hopper attention launch failed: status {status} (cudaError_t, or 100000 + "
+            f"the CUresult of a refused tensor map; q {tuple(q.shape)}, k {tuple(k.shape)})"
+        )
+    LAUNCHES[name if bias is None else name + "_bias"] += 1
+    return out
+
+
 def transposed_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -568,6 +684,8 @@ def transposed_attention(
         return transposed_attention_reference(q, k, v, bias)
     if _takes_sm90("attention_long", q, bias):
         return _launch_sm90(q, k, v, "attention_long", bias)
+    if _takes_f32(q, k, v):
+        return _launch_f32(q, k, v, "attention_long", bias, pad_keys("clamp", k.shape[1]))
     return _launch(q, k, v, bias, 1, pad_keys("clamp", k.shape[1]))
 
 
@@ -585,6 +703,8 @@ def rowblock_attention(
         return rowblock_attention_reference(q, k, v, bias)
     if _takes_sm90("attention_rowblock", q, bias):
         return _launch_sm90(q, k, v, "attention_rowblock", bias)
+    if _takes_f32(q, k, v):
+        return _launch_f32(q, k, v, "attention_rowblock", bias, pad_keys("rowblock", k.shape[1]))
     return _launch(q, k, v, bias, 2, pad_keys("rowblock", k.shape[1]))
 
 
@@ -603,6 +723,8 @@ def flash_attention(
         return flash_attention_reference(q, k, v, bias)
     if _takes_sm90("attention_flash", q, bias):
         return _launch_sm90(q, k, v, "attention_flash", bias)
+    if _takes_f32(q, k, v):
+        return _launch_f32(q, k, v, "attention_flash", bias, pad_keys("flash", k.shape[1]))
     return _launch(q, k, v, bias, 3, pad_keys("flash", k.shape[1]))
 
 
@@ -623,6 +745,8 @@ def single_tile_attention(
         return fused_attention_reference(q, k, v, bias, n_pad)
     if _takes_sm90("attention", q, bias):
         return _launch_sm90(q, k, v, "attention", bias)
+    if _takes_f32(q, k, v):
+        return _launch_f32(q, k, v, "attention", bias, n_pad)
     return _launch(q, k, v, bias, 0, n_pad)
 
 
@@ -657,4 +781,6 @@ def fused_attention(
         return fused_attention_reference(q, k, v, bias, n_pad)
     if _takes_sm90("attention", q, bias):
         return _launch_sm90(q, k, v, "attention", bias)
+    if _takes_f32(q, k, v):
+        return _launch_f32(q, k, v, "attention", bias, n_pad)
     return _launch(q, k, v, bias, 0, n_pad)

@@ -1,7 +1,9 @@
-"""The Hopper body (``csrc/attention_sm90.cu``) against the mma.sync body
-it replaced (``csrc/attention.cu``, which still serves fp32, other head
-dims and dense biases), kernel by kernel, in turns, in one process on one
-card; and the harness's X3 against one library call, in turns.
+"""The Hopper bodies (``csrc/attention_sm90.cu`` in bf16,
+``csrc/attention_f32_sm90.cu`` in fp32) against the kernels of
+``csrc/attention.cu`` they replaced (its mma.sync body in bf16, its SIMT
+kernel in fp32; attention.cu still serves bf16 dense biases and other head
+dims), kernel by kernel, in turns, in one process on one card; and the
+harness's X3 against one library call, in turns.
 
     python -m ecad_tpu_torch.scripts.compare_attention_bodies [--out bodies.json]
         [--rows attention_d64,attention_bias_d64]
@@ -35,6 +37,16 @@ spin-kernel CUDA events (`sampled_device_ms`, which samples the SM clock,
 power and temperature around each timing), beside one
 ``scaled_dot_product_attention`` call (with the bias as a float mask).
 
+The fp32 rows (`F32_CASES`, at chip_smoke.py's fp32 rows' shapes): K1 at
+PixArt-256's (16, 256, 16, 72), K2 with the text bias in fp32 at its
+cross-attention → 120 keys, K4 at PixArt-1024's (4, 4096, 16, 72), K5 at
+FLUX-1024's (1, 4608, 24, 128) and K6 at PixArt-Σ-2048's (2, 16384, 16,
+72): the fp32 body against attention.cu's SIMT kernel, each checked against
+the plain version at chip_smoke.py's FP32_TOL and timed in turns — old,
+new, SDPA, SDPA, new, old — with SDPA in fp32; their bound is the 3×TF32
+one (three TF32 products at 494.7 TFLOP/s, or the bytes), beside the fp32
+FMA bound (``fma_bound_ms``).
+
 Then X3 (`max_exp2_attention`, the harness's exp2 softmax with the max on a
 pre-scaled q; its old body is gone) against ``scaled_dot_product_attention``
 at the harness's three shapes, in turns — X3, SDPA, SDPA, X3 — three times
@@ -59,7 +71,14 @@ from ecad_tpu_torch.ops import _build
 from ecad_tpu_torch.ops import attention as A
 from ecad_tpu_torch.ops import max_exp2_attention
 from ecad_tpu_torch.scripts.exp_attn_variants import SHAPES
-from ecad_tpu_torch.utils.timing import bound_ms, card_name, sampled_device_ms
+from ecad_tpu_torch.utils.timing import (
+    FP32_FLOPS,
+    HBM_BYTES_PER_S,
+    TF32_FLOPS,
+    bound_ms,
+    card_name,
+    sampled_device_ms,
+)
 
 # row → (q shape, keys, the text lengths of a key-padding bias or None, the
 # mma.sync body's variant of attention.cu's C entry, this tree's wrapper,
@@ -109,6 +128,21 @@ CASES = {
     "attention_rowblock_bias_d64": ((8, 768, 24, 64), 768, (700,), 2, A.rowblock_attention,
                                     A.rowblock_attention_reference, 0.1),
 }
+# fp32: the fp32 body against attention.cu's SIMT kernel (the same layout;
+# share None: chip_smoke.py's FP32_TOL, atol 1e-5 and rtol 1e-5)
+F32_CASES = {
+    "attention_fp32": ((16, 256, 16, 72), 256, None, 0, A.fused_attention,
+                       A.fused_attention_reference, None),
+    "attention_bias_fp32": ((16, 256, 16, 72), 120, (7, 60, 120), 0, A.fused_attention,
+                            A.fused_attention_reference, None),
+    "attention_long_fp32": ((4, 4096, 16, 72), 4096, None, 1, A.fused_attention,
+                            A.transposed_attention_reference, None),
+    "attention_rowblock_fp32": ((1, 4608, 24, 128), 4608, None, 2, A.fused_attention,
+                                A.rowblock_attention_reference, None),
+    "attention_flash_fp32": ((2, 16384, 16, 72), 16384, None, 3, A.fused_attention,
+                             A.flash_attention_reference, None),
+}
+CASES.update(F32_CASES)
 # attention.cu's variant → its route, for the route's pad keys (`pad_keys`)
 ROUTE = {0: "exact", 1: "clamp", 2: "rowblock", 3: "flash"}
 X3_ROUNDS = 3
@@ -123,8 +157,14 @@ def by_heads(plain, q, k, v, bias=None) -> torch.Tensor:
 
 
 def max_err_and_bad(got, want, share) -> tuple[float, int]:
+    """The largest error and the elements beyond the tolerance: `share` of
+    the output's std beside 2^-7 relative (bf16), or 1e-5 + 1e-5 relative
+    (fp32, share None)."""
     err = (got.float() - want.float()).abs()
-    limit = share * float(want.float().std()) + 2.0 ** -7 * want.float().abs()
+    if share is None:
+        limit = 1e-5 + 1e-5 * want.float().abs()
+    else:
+        limit = share * float(want.float().std()) + 2.0 ** -7 * want.float().abs()
     return float(err.max()), int((err > limit).sum())
 
 
@@ -161,41 +201,57 @@ def main(argv=None) -> list[dict]:
     rows = []
     for counter, (shape, tk, lengths, variant, new_fn, plain, share) in cases.items():
         b, t, h, d = shape
-        q, k, v = (torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+        dtype = torch.float32 if share is None else torch.bfloat16
+        q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
                    for s in (shape, (b, tk, h, d), (b, tk, h, d)))
         bias = None
-        if lengths is not None:  # the models' text bias, (1 − mask)·−10000 in bf16
+        if lengths is not None:  # the models' text bias, (1 − mask)·−10000 in q's dtype
             keep = torch.arange(tk, device="cuda")[None] < torch.tensor(
                 [lengths[i % len(lengths)] for i in range(b)], device="cuda")[:, None]
-            bias = torch.where(keep, 0.0, -10000.0).to(torch.bfloat16)[:, None, None, :]
+            bias = torch.where(keep, 0.0, -10000.0).to(dtype)[:, None, None, :]
         n_pad = A.pad_keys(ROUTE[variant], tk)
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
         bodies = {"old": lambda: A._launch(q, k, v, bias, variant, n_pad),
-                  "new": lambda: new_fn(q, k, v, bias)}
+                  "new": lambda: new_fn(q, k, v, bias),
+                  "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+                      qt, kt, vt, attn_mask=bias)}
         want = by_heads(plain, q, k, v, bias)
-        checks = {name: max_err_and_bad(fn(), want, share) for name, fn in bodies.items()}
+        checks = {name: max_err_and_bad(bodies[name](), want, share) for name in ("old", "new")}
         del want
-        times = {"old": [], "new": []}
-        clocks = {"old": [], "new": []}
-        for name in ("old", "new", "new", "old"):
-            ms, _, sample = sampled_device_ms(bodies[name], reps=5, inner=10)
+        # bf16: old, new, new, old, then SDPA once; fp32: SDPA in the turns,
+        # and fewer calls where the old kernel takes a third of a second
+        turns = (("old", "new", "sdpa", "sdpa", "new", "old") if share is None
+                 else ("old", "new", "new", "old", "sdpa"))
+        reps, inner = ((2, 1) if t * tk >= 16384 * 16384 else (3, 2) if t * tk >= 4096 * 4096
+                       else (5, 10)) if share is None else (5, 10)
+        times = {"old": [], "new": [], "sdpa": []}
+        clocks = {"old": [], "new": [], "sdpa": []}
+        for name in turns:
+            ms, _, sample = sampled_device_ms(bodies[name], reps=reps, inner=inner)
             times[name].append(ms)
             clocks[name].append(sample)
-        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-        sdpa, _, sdpa_clocks = sampled_device_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
-                                                                     attn_mask=bias), 5, 10)
         nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
         nbytes += 0 if bias is None else bias.numel() * bias.element_size()
-        bound, by = bound_ms(nbytes, 4 * b * h * t * tk * d)
+        flops = 4 * b * h * t * tk * d
+        if share is None:  # three TF32 products a product
+            tb, tf = nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS
+            bound, by = max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
+        else:
+            bound, by = bound_ms(nbytes, flops)
+        sdpa = statistics.median(times["sdpa"])
         row = {
             "counter": counter, "shape": list(shape), "keys": tk, "card": card,
+            "dtype": str(dtype).split(".")[-1],
             "old_body": f"attention.cu variant {variant}",
             "old_ms": times["old"], "new_ms": times["new"],
             "old_over_new": statistics.median(times["old"]) / statistics.median(times["new"]),
-            "sdpa_ms": sdpa, "bound_ms": bound, "bound_by": by,
+            "sdpa_ms": sdpa,
+            "new_over_sdpa": statistics.median(times["new"]) / sdpa,
+            "bound_ms": bound, "bound_by": by,
+            **({"fma_bound_ms": flops / FP32_FLOPS * 1e3} if share is None else {}),
             "max_err": {n: c[0] for n, c in checks.items()},
             "elements_beyond_tolerance": {n: c[1] for n, c in checks.items()},
-            "clocks": {**clocks, "sdpa": sdpa_clocks},
+            "clocks": clocks,
         }
         print(json.dumps(row), flush=True)
         rows.append(row)

@@ -1,7 +1,7 @@
-"""What sets the pace of the Hopper attention body (``csrc/attention_sm90.cu``):
-copies of the source, each with one piece of a kernel's work taken out or one
-design choice undone, built beside it and timed against it in turns, in one
-process on one card.
+"""What sets the pace of the Hopper attention bodies (``csrc/attention_sm90.cu``,
+bf16, and ``csrc/attention_f32_sm90.cu``, fp32): copies of a source, each
+with one piece of a kernel's work taken out or one design choice undone,
+built beside it and timed against it in turns, in one process on one card.
 
     python -m ecad_tpu_torch.scripts.probe_attention_body [--out probes.json]
         [--rows k1_dim1536,k2_dim1536] [--rounds N]
@@ -82,7 +82,21 @@ Rows, bf16 at the shape the main path gives each kernel:
   ``xmatmul_two_consumers`` (K6's ``two_consumers`` edit, as for X2 and
   X3).
 
+Rows of the fp32 body (`F32_ROWS`), fp32 at the shapes of chip_smoke.py's
+fp32 rows — K4 at PixArt-1024's (4, 4096, 16, 72), K5 at FLUX-1024's (1,
+4608, 24, 128), K1 at PixArt-256's (16, 256, 16, 72) and K6 at PixArt-Σ-
+2048's (2, 16384, 16, 72) — with ``pv_mma_sync`` (p·v on ``mma.sync``
+m16n8k8 .tf32 from v's split rows as stored, instead of wgmma from the
+transposed vᵀ the helpers write), ``bn32_three_stages`` (three stages of 32
+keys instead of two of 64, at D ≤ 72), ``helpers_three_warps`` (one
+producer-side warpgroup: three helper warps instead of seven), ``no_vt``
+(the helpers write no vᵀ), ``no_k_split`` (nor split k), ``no_helper_work``
+(neither), ``no_softmax`` (clamp: p = s), ``no_pv`` (no p·v products),
+``pv_one_pass`` and ``s_one_pass`` (only the big·big TF32 product of p·v,
+or of q·kᵀ).
+
 A variant that only reschedules the same arithmetic (``two_consumers``,
+``helpers_three_warps``,
 ``k6_bias_three_consumers``, ``d64_two_consumers``, ``clamp_two_consumers``,
 ``clamp_bias_three_consumers``, ``clamp_three_consumers``, ``rowblock_three_consumers``,
 ``rowblock_two_consumers``, ``one_block_per_item``,
@@ -321,8 +335,112 @@ ROWS = {
     "x1_pixart512_class_self": ((64, 1024, 16, 72), 1024, None, "xattn_matmul_only",
                                 X1_VARIANTS, 5, 5),
 }
+# the fp32 body's variants (csrc/attention_f32_sm90.cu). `pv_mma_sync`: p·v on
+# `mma.sync` m16n8k8 .tf32 for each warp's 16 rows — p's A fragments as for
+# wgmma (a warp's slice of them), v's big and small rows ([BN][D], split in
+# place of the transpose: the helpers copy v's raw tile into the vᵀ parts)
+# read as B fragments in p's key order (logical k = t is key 2t, t + 4 key
+# 2t + 1); o's accumulators keep wgmma's layout
+F32_PV_MMA_SYNC = """__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7},"
+      " {%8, %9}, {%0, %1, %2, %3};\\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+template <int D, int BN>
+__device__ __forceinline__ void pv_mma_sync(float (&o)[D / 2], const uint32_t (&pb)[BN / 8][4],
+                                            const uint32_t (&ps)[BN / 8][4], const float* vb,
+                                            const float* vs, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 8; ++kk)
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb) {
+      const int at = (8 * kk + 2 * (lane % 4)) * D + 8 * nb + lane / 4;
+      const uint32_t b0 = __float_as_uint(vb[at]), b1 = __float_as_uint(vb[at + D]);
+      mma_tf32(o + 4 * nb, ps[kk], b0, b1);
+      mma_tf32(o + 4 * nb, pb[kk], __float_as_uint(vs[at]), __float_as_uint(vs[at + D]));
+      mma_tf32(o + 4 * nb, pb[kk], b0, b1);
+    }
+}
+
+"""
+F32_PV = """#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk) wgmma_rs<D>(ot, ps[kk], vt_desc(vb, kk));
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk) wgmma_rs<D>(ot, pb[kk], vt_desc(vs, kk));
+"""
+F32_PV_BIG = """#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk) wgmma_rs<D>(ot, pb[kk], vt_desc(vb, kk));
+"""
+F32_S = """#pragma unroll
+      for (int kc = 0; kc < D / 8; ++kc) wgmma_ss<BN>(sc, q_desc(q_small, kc), k_desc(kb, kc), kc);
+#pragma unroll
+      for (int kc = 0; kc < D / 8; ++kc) wgmma_ss<BN>(sc, q_desc(q_big, kc), k_desc(ks, kc), 1);
+#pragma unroll
+      for (int kc = 0; kc < D / 8; ++kc) wgmma_ss<BN>(sc, q_desc(q_big, kc), k_desc(kb, kc), 1);"""
+F32_VT = "          write_vt<D, BN>(kb + 2 * C::kKV, kb + 3 * C::kKV, kb + C::kKV, ht);\n"
+F32_NO_VT = [(F32_VT, "")]
+F32_NO_K_SPLIT = [("          split_tile(kb, kb + C::kKV, C::kKV, 1.f, ht);\n", "")]
+F32_VARIANTS = {
+    "pv_mma_sync": [
+        ("// The shared body of the four kernels,",
+         F32_PV_MMA_SYNC + "// The shared body of the four kernels,"),
+        (F32_VT, "          for (int i = ht; i < C::kKV / 16; i += kHelperThreads) {\n"
+                 "            const float4 x = reinterpret_cast<float4*>(kb + C::kKV)[i];\n"
+                 "            float4 hi, lo;\n"
+                 "            split(x.x, hi.x, lo.x);\n            split(x.y, hi.y, lo.y);\n"
+                 "            split(x.z, hi.z, lo.z);\n            split(x.w, hi.w, lo.w);\n"
+                 "            reinterpret_cast<float4*>(kb + 2 * C::kKV)[i] = hi;\n"
+                 "            reinterpret_cast<float4*>(kb + 3 * C::kKV)[i] = lo;\n"
+                 "          }\n"),
+        ("      wgmma_fence();\n" + F32_PV + F32_PV_BIG + """      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(ot);
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk) {
+        fence_regs(pb[kk]);
+        fence_regs(ps[kk]);
+      }""", "      pv_mma_sync<D, BN>(ot, pb, ps, reinterpret_cast<const float*>(gen(vb)),\n"
+              "                         reinterpret_cast<const float*>(gen(vs)), lane);")],
+    "bn32_three_stages": [("  static constexpr int kBN = D > 72 ? 32 : 64;\n"
+                           "  static constexpr int kStages = 2;",
+                           "  static constexpr int kBN = 32;\n"
+                           "  static constexpr int kStages = D > 72 ? 2 : 3;")],
+    "helpers_three_warps": [("constexpr int kProducerGroups = 2;",
+                             "constexpr int kProducerGroups = 1;")],
+    "no_vt": F32_NO_VT,
+    "no_k_split": F32_NO_K_SPLIT,
+    "no_helper_work": F32_NO_VT + F32_NO_K_SPLIT,
+    "no_softmax": [("          const float pe = col < p.Tk ? ex2(fminf(fmaxf(x, kClampLo), "
+                    "kClampHi)) : 0.f;", "          const float pe = x;")],
+    "no_pv": [(F32_PV + F32_PV_BIG, "")],
+    "pv_one_pass": [(F32_PV, "")],
+    "s_one_pass": [(F32_S, """#pragma unroll
+      for (int kc = 0; kc < D / 8; ++kc) wgmma_ss<BN>(sc, q_desc(q_big, kc), k_desc(kb, kc), kc);""")],
+}
+F32_ROWS = {
+    "f32_k4_pixart1024": ((4, 4096, 16, 72), 4096, None, "attention_long", F32_VARIANTS, 3, 2),
+    "f32_k5_flux1024": ((1, 4608, 24, 128), 4608, None, "attention_rowblock",
+                        {n: e for n, e in F32_VARIANTS.items() if n != "bn32_three_stages"},
+                        3, 2),
+    "f32_k1_pixart256": ((16, 256, 16, 72), 256, None, "attention",
+                         {n: e for n, e in F32_VARIANTS.items() if n != "no_softmax"}, 5, 10),
+    "f32_k6_pixart2048": ((2, 16384, 16, 72), 16384, None, "attention_flash",
+                          {n: F32_VARIANTS[n] for n in ("pv_mma_sync", "bn32_three_stages",
+                                                        "helpers_three_warps")}, 3, 1),
+}
+# each body: its source, C entry, the cached C function in ops/attention.py
+# and its loader, and the rows' dtype
+BODIES = {"sm90": ("attention_sm90", "ecad_attention_sm90_fwd", "_SM90_FN", A._sm90_kernel,
+                   torch.bfloat16),
+          "f32": ("attention_f32_sm90", "ecad_attention_f32_sm90_fwd", "_F32_FN",
+                  A._f32_kernel, torch.float32)}
+ROUTES = {"attention": "exact", "attention_long": "clamp", "attention_rowblock": "rowblock",
+          "attention_flash": "flash"}
 # the same arithmetic, rescheduled
-EXACT = ("two_consumers", "k6_bias_three_consumers", "d64_two_consumers",
+EXACT = ("two_consumers", "helpers_three_warps", "k6_bias_three_consumers", "d64_two_consumers",
          "clamp_two_consumers", "clamp_bias_three_consumers", "clamp_three_consumers",
          "rowblock_three_consumers",
          "rowblock_two_consumers", "one_block_per_item", "items_in_runs",
@@ -340,10 +458,13 @@ KERNELS = {"attention_flash": ("attn_flash_sm90_kernel", True),
            "xattn_matmul_only": ("attn_xmatmul_sm90_kernel", False)}
 
 
-def kernel_symbol(counter: str, d: int, bias: bool) -> str:
+def kernel_symbol(counter: str, d: int, bias: bool, body: str = "sm90") -> str:
     """The part of the mangled name that tells a row's kernel apart, e.g.
-    ``attn_flash_sm90_kernelILi72ELb1E``."""
+    ``attn_flash_sm90_kernelILi72ELb1E`` (``attn_flash_f32_sm90_kernel...``
+    on the fp32 body)."""
     name, flagged = KERNELS[counter]
+    if body == "f32":
+        name = name.replace("_sm90_kernel", "_f32_sm90_kernel")
     return f"{name}ILi{d}E" + (f"Lb{int(bias)}E" if flagged else "")
 
 
@@ -371,8 +492,9 @@ def variant_source(src: str, edits: list[tuple[str, str]]) -> str:
 
 
 def build(sources: dict[str, str], out_dir: Path) -> tuple[dict, dict]:
-    """One nvcc per source, all started together, as `_build` builds: the
-    loaded libraries and each one's spill bytes by kernel (`spill_bytes`)."""
+    """One nvcc per source, all started together, as `_build` builds (csrc/
+    on the include path, for its headers): the loaded libraries and each
+    one's spill bytes by kernel (`spill_bytes`)."""
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, src in sources.items():
@@ -380,7 +502,8 @@ def build(sources: dict[str, str], out_dir: Path) -> tuple[dict, dict]:
         cu.write_text(src)
         so = out_dir / f"lib{name}.so"
         cmd = [_build.nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(so), str(cu)]
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(_build.CSRC_DIR),
+               "-o", str(so), str(cu)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), so)
     libs, spills = {}, {}
@@ -396,30 +519,35 @@ def build(sources: dict[str, str], out_dir: Path) -> tuple[dict, dict]:
 def main(argv=None) -> list[dict]:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", type=Path, default=None)
-    parser.add_argument("--rows", default=None, help="comma-separated rows of ROWS (default: all)")
+    parser.add_argument("--rows", default=None,
+                        help="comma-separated rows of ROWS and F32_ROWS (default: all)")
     parser.add_argument("--rounds", type=int, default=1,
                         help="times to take the turns (source, variants, reversed)")
     args = parser.parse_args(argv)
-    rows_run = ROWS if args.rows is None else {r: ROWS[r] for r in args.rows.split(",")}
+    every = {**{r: ("sm90", *v) for r, v in ROWS.items()},
+             **{r: ("f32", *v) for r, v in F32_ROWS.items()}}
+    rows_run = every if args.rows is None else {r: every[r] for r in args.rows.split(",")}
     if not torch.cuda.is_available():
         raise SystemExit("probe_attention_body: needs a CUDA card")
     card = card_name()
-    src = (_build.CSRC_DIR / "attention_sm90.cu").read_text()
-    sources = {"source": src}
-    for _, _, _, _, variants, _, _ in rows_run.values():
-        sources.update({n: variant_source(src, e) for n, e in variants.items()})
-    libs, spills = build(sources, _build.BUILD_DIR / "probe_attention_body")
-    fns = {}
-    for name, lib in libs.items():
-        fn = lib.ecad_attention_sm90_fwd
-        fn.argtypes, fn.restype = A._sm90_kernel().argtypes, ctypes.c_int
-        fns[name] = fn
+    fns, spills = {}, {}
+    for body in sorted({r[0] for r in rows_run.values()}):
+        source, entry, _, loader, _ = BODIES[body]
+        src = (_build.CSRC_DIR / f"{source}.cu").read_text()
+        sources = {"source": src}
+        for _, _, _, _, _, variants, _, _ in (r for r in rows_run.values() if r[0] == body):
+            sources.update({n: variant_source(src, e) for n, e in variants.items()})
+        libs, body_spills = build(sources, _build.BUILD_DIR / "probe_attention_body" / body)
+        for name, lib in libs.items():
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = loader().argtypes, ctypes.c_int
+            fns[body, name], spills[body, name] = fn, body_spills[name]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     try:
-        for row, (shape, tk, lengths, counter, variants, reps, inner) in rows_run.items():
+        for row, (body, shape, tk, lengths, counter, variants, reps, inner) in rows_run.items():
             b, _, h, d = shape
-            q, k, v = (torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+            q, k, v = (torch.randn(s, generator=gen, device="cuda").to(BODIES[body][4])
                        for s in (shape, (b, tk, h, d), (b, tk, h, d)))
             bias = None
             if lengths is not None:  # the models' text bias, (1 − mask)·−10000 in bf16
@@ -429,7 +557,10 @@ def main(argv=None) -> list[dict]:
 
             def call(name):
                 def go():
-                    A._SM90_FN = fns[name]
+                    setattr(A, BODIES[body][2], fns[body, name])
+                    if body == "f32":
+                        return A._launch_f32(q, k, v, counter, bias,
+                                             A.pad_keys(ROUTES[counter], tk))
                     return A._launch_sm90(q, k, v, counter, bias)
                 return go
 
@@ -443,9 +574,9 @@ def main(argv=None) -> list[dict]:
             times = {n: [] for n in names}
             for n in (names + names[::-1]) * args.rounds:
                 times[n].append(device_ms(call(n), reps, inner)[0])
-            symbol = kernel_symbol(counter, d, bias is not None)
-            spilled = {n: [b for k, b in spills[n].items() if symbol in k] for n in names}
-            result = {"row": row, "shape": list(shape), "keys": tk, "card": card,
+            symbol = kernel_symbol(counter, d, bias is not None, body)
+            spilled = {n: [b for k, b in spills[body, n].items() if symbol in k] for n in names}
+            result = {"row": row, "body": body, "shape": list(shape), "keys": tk, "card": card,
                       "ms": times, "bit_identical": same, "spill_bytes": spilled,
                       "sm_clock_mhz_after": card_sample()["sm_clock_mhz"]}
             print(json.dumps(result), flush=True)
@@ -453,7 +584,7 @@ def main(argv=None) -> list[dict]:
             if not all(same.values()):
                 raise SystemExit(f"{row}: a rescheduled variant changed the output: {same}")
     finally:
-        A._SM90_FN = None  # the tree's own library again on the next call
+        A._SM90_FN = A._F32_FN = None  # the tree's own libraries again on the next call
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(rows, indent=1))

@@ -20,6 +20,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12  # outside the tensor cores
+TF32_FLOPS = 494.7e12
 INT8_OPS = 1979e12
 
 

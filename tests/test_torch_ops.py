@@ -389,6 +389,97 @@ CLAMP_CASES = {
 }
 
 
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: x rounded to 10 mantissa bits, to nearest, ties
+    away from zero (adding half of the 13 dropped bits to the magnitude)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    big = _tf32(x)
+    return big, _tf32(np.float32(x) - big)
+
+
+def _mm_3xtf32(a, b, passes=3):
+    """a @ b as the fp32 body takes it on the tensor cores: each operand
+    split into big = tf32(x) and small = tf32(x − big), the small products
+    summed before the big one, in fp32 (every product of two tf32 values is
+    exact in fp32); ``passes=1`` is one plain TF32 product."""
+    (ab, as_), (bb, bs) = _split(a), _split(b)
+    if passes == 1:
+        return np.matmul(ab, bb)
+    acc = np.matmul(as_, bb)
+    acc = acc + np.matmul(ab, bs)
+    return acc + np.matmul(ab, bb)
+
+
+def _emulated_f32_body(q, k, v, bias, route, passes=3):
+    """The fp32 body's arithmetic in numpy on (B, T, H, D) inputs: q scaled
+    in fp32 (1/√D on the exact route, clamp_scale(D, float32) on the clamp
+    one), s = q·kᵀ and o = p·v through `_mm_3xtf32`, the exact softmax with
+    the route's pad keys of score −1e9 or the clamp's exp2(clip(s, −100,
+    80)) with n_pad·2^-100 in Σp."""
+    d, tk = q.shape[-1], k.shape[1]
+    qh, kh, vh = (np.transpose(a, (0, 2, 1, 3)) for a in (q, k, v))
+    n_pad = port_attention.pad_keys(route, tk)
+    if route == "exact":
+        s = _mm_3xtf32(qh * np.float32(1.0 / np.sqrt(d)), np.swapaxes(kh, -1, -2), passes)
+        if bias is not None:
+            s = s + bias
+        m = np.maximum(s.max(-1, keepdims=True), np.float32(-1e9) if n_pad else -np.inf)
+        p = np.exp(s - m)
+        denom = p.sum(-1, keepdims=True) + np.float32(n_pad) * np.exp(np.float32(-1e9) - m)
+    else:
+        scale = np.float32(port_attention.clamp_scale(d, torch.float32))
+        s = _mm_3xtf32(qh * scale, np.swapaxes(kh, -1, -2), passes)
+        if bias is not None:
+            s = s + bias * np.float32(1.4426950408889634)
+        p = np.exp2(np.clip(s, -100, 80))
+        denom = p.sum(-1, keepdims=True) + np.float32(n_pad * 2.0 ** -100)
+    out = _mm_3xtf32(p.astype(np.float32), vh, passes) / denom
+    return np.transpose(out, (0, 2, 1, 3)).astype(np.float32)
+
+
+# chip_smoke.py's fp32 attention cases: (route, b, tq, tk, h, d, q scale,
+# key-padding lengths or None)
+TF32X3_CASES = {
+    "logits_near_40_d64": ("exact", 1, 16, 256, 1, 64, 6.0, None),
+    "logits_near_40_d72": ("exact", 1, 16, 256, 1, 72, 6.0, None),
+    "key_padding_100_200_256_tk300_d72": ("exact", 3, 30, 300, 2, 72, 1.0, (100, 200, 256)),
+    "key_padding_100_200_256_tk300_d128": ("exact", 3, 30, 300, 2, 128, 1.0, (100, 200, 256)),
+    "clamp_key_padding_100_200_256_tk300_d72": ("clamp", 3, 30, 300, 2, 72, 1.0,
+                                                (100, 200, 256)),
+    "clamp_logits_times_6_d128": ("clamp", 1, 16, 256, 1, 128, 6.0, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TF32X3_CASES))
+def test_3xtf32_emulation_meets_fp32_tol(case):
+    """The fp32 body's 3×TF32 products (`_emulated_f32_body`: the rna split,
+    three products, fp32 sums) against the Pallas kernels in interpret mode
+    on fp32 inputs — `fused_attention` (the exact single-tile route, its
+    pad keys to 384) and `_transposed_attention` (the clamp) — at
+    chip_smoke.py's fp32 shapes: logits near ±40, key padding [100, 200,
+    256] at Tk 300, and the clamp route. Within chip_smoke.py's FP32_TOL
+    (atol 1e-5, rtol 1e-5) before the card runs it; one plain TF32 product
+    in its place misses that tolerance."""
+    route, b, tq, tk, h, d, qscale, lengths = TF32X3_CASES[case]
+    rng = np.random.default_rng(23)
+    q, k, v = _qkv(rng, b, tq, tk, h, d)
+    q = q * np.float32(qscale)
+    bias = None if lengths is None else _key_padding_bias_np(lengths, tk)
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    jbias = None if bias is None else jnp.asarray(bias)
+    want = np.asarray(jax_fused_attention(*args, bias=jbias, interpret=True) if route == "exact"
+                      else jax_attention._transposed_attention(*args, jbias, interpret=True))
+    atol, rtol = _chip_smoke_module().FP32_TOL
+    got = _emulated_f32_body(q, k, v, bias, route)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=rtol)
+    one_pass = _emulated_f32_body(q, k, v, bias, route, passes=1)
+    assert (np.abs(one_pass - want) > atol + rtol * np.abs(want)).any()
+
+
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("case", sorted(CLAMP_CASES))
 def test_transposed_reference_matches_pallas(case, dtype, monkeypatch):
@@ -959,12 +1050,28 @@ HOPPER_ROUTES = {
     "pixart512_cross_k2": ("fused", (16, 1024, 16, 72), 120, "bf16", "padding",
                            ("sm90", "attention_bias")),
     "exact_dense_bias_d72": ("fused", (2, 30, 2, 72), 300, "bf16", "dense", ("mma", 0)),
-    "exact_key_padding_fp32": ("fused", (2, 30, 2, 72), 300, "fp32", "padding", ("mma", 0)),
+    "exact_key_padding_fp32": ("fused", (2, 30, 2, 72), 300, "fp32", "padding",
+                               ("f32", "attention_bias")),
     "exact_key_padding_d64": ("fused", (2, 30, 2, 64), 300, "bf16", "padding",
                               ("sm90", "attention_bias")),
-    "exact_fp32_d72": ("fused", (2, 30, 2, 72), 300, "fp32", None, ("mma", 0)),
+    "exact_fp32_d72": ("fused", (2, 30, 2, 72), 300, "fp32", None, ("f32", "attention")),
     "exact_d64": ("fused", (2, 30, 2, 64), 300, "bf16", None, ("sm90", "attention")),
-    "exact_fp32_d64": ("fused", (2, 30, 2, 64), 300, "fp32", None, ("mma", 0)),
+    "exact_fp32_d64": ("fused", (2, 30, 2, 64), 300, "fp32", None, ("f32", "attention")),
+    # fp32 on the fp32 body at the tiny test doubles' head dims, with a dense
+    # bias (the single-tile route takes any bias there); on attention.cu at a
+    # head dim it is not built for and on rows TMA cannot map
+    "exact_fp32_d16": ("fused", (2, 30, 2, 16), 300, "fp32", None, ("f32", "attention")),
+    "exact_fp32_d32": ("fused", (2, 30, 2, 32), 300, "fp32", None, ("f32", "attention")),
+    "flash_fp32_d32": ("flash", (1, 8464, 2, 32), 8464, "fp32", None,
+                       ("f32", "attention_flash")),
+    "exact_dense_bias_fp32_d72": ("fused", (2, 30, 2, 72), 300, "fp32", "dense",
+                                  ("f32", "attention_bias")),
+    "exact_fp32_misaligned_rows_d72": ("fused", (2, 30, 2, 72), 300, "fp32_rows_292_bytes",
+                                       None, ("mma", 0)),
+    "transposed_fp32_misaligned_rows_d72": ("transposed", (2, 30, 2, 72), 300,
+                                            "fp32_rows_292_bytes", None, ("mma", 1)),
+    "exact_fp32_d36": ("fused", (2, 130, 2, 36), 300, "fp32", None, ("mma", 0)),
+    "transposed_fp32_d36": ("transposed", (2, 130, 2, 36), 300, "fp32", None, ("mma", 1)),
     # the reference's width-reduced FLUX (dim 1536, head dim 64) at 256²:
     # forced onto the single-tile route (K1, K2 with a bias) on the Hopper
     # body; the router sends the same shape to the clamp (K4), on the Hopper
@@ -990,10 +1097,11 @@ HOPPER_ROUTES = {
     "transposed_batch_broadcast_bias_d128": ("transposed", (3, 30, 2, 128), 300, "bf16",
                                              "broadcast", ("sm90", "attention_long_bias")),
     "transposed_key_padding_fp32": ("transposed", (2, 30, 2, 72), 300, "fp32", "padding",
-                                    ("mma", 1)),
+                                    ("f32", "attention_long_bias")),
     "transposed_key_padding_d36": ("transposed", (2, 30, 2, 36), 300, "bf16", "padding",
                                    ("mma", 1)),
-    "transposed_fp32": ("transposed", (2, 30, 2, 72), 300, "fp32", None, ("mma", 1)),
+    "transposed_fp32": ("transposed", (2, 30, 2, 72), 300, "fp32", None,
+                        ("f32", "attention_long")),
     "transposed_d36": ("transposed", (2, 30, 2, 36), 300, "bf16", None, ("mma", 1)),
     "rowblock_key_padding": ("rowblock", (2, 30, 2, 128), 300, "bf16", "padding",
                              ("sm90", "attention_rowblock_bias")),
@@ -1004,23 +1112,25 @@ HOPPER_ROUTES = {
     "rowblock_batch_broadcast_bias_d72": ("rowblock", (3, 30, 2, 72), 300, "bf16",
                                           "broadcast", ("sm90", "attention_rowblock_bias")),
     "rowblock_key_padding_fp32": ("rowblock", (2, 30, 2, 128), 300, "fp32", "padding",
-                                  ("mma", 2)),
+                                  ("f32", "attention_rowblock_bias")),
     "flash_key_padding": ("flash", (2, 30, 2, 128), 300, "bf16", "padding",
                           ("sm90", "attention_flash_bias")),
     "flash_key_padding_d72": ("flash", (2, 30, 2, 72), 300, "bf16", "padding",
                               ("sm90", "attention_flash_bias")),
     "flash_batch_broadcast_bias_d72": ("flash", (3, 30, 2, 72), 300, "bf16", "broadcast",
                                        ("sm90", "attention_flash_bias")),
-    "flash_key_padding_fp32_d72": ("flash", (2, 30, 2, 72), 300, "fp32", "padding", ("mma", 3)),
+    "flash_key_padding_fp32_d72": ("flash", (2, 30, 2, 72), 300, "fp32", "padding",
+                                   ("f32", "attention_flash_bias")),
     "flash_key_padding_d64": ("flash", (2, 30, 2, 64), 300, "bf16", "padding",
                               ("sm90", "attention_flash_bias")),
     "pixart2048_flash_key_padding": ("fused", (2, 16384, 16, 72), 16384, "bf16", "padding",
                                      ("sm90", "attention_flash_bias")),
     "flux1536_flash_key_padding_d128": ("fused", (1, 9728, 24, 128), 9728, "bf16", "padding",
                                         ("sm90", "attention_flash_bias")),
-    "rowblock_fp32": ("rowblock", (2, 30, 2, 128), 300, "fp32", None, ("mma", 2)),
-    "flash_fp32": ("flash", (2, 30, 2, 128), 300, "fp32", None, ("mma", 3)),
-    "flash_fp32_d72": ("flash", (2, 30, 2, 72), 300, "fp32", None, ("mma", 3)),
+    "rowblock_fp32": ("rowblock", (2, 30, 2, 128), 300, "fp32", None,
+                      ("f32", "attention_rowblock")),
+    "flash_fp32": ("flash", (2, 30, 2, 128), 300, "fp32", None, ("f32", "attention_flash")),
+    "flash_fp32_d72": ("flash", (2, 30, 2, 72), 300, "fp32", None, ("f32", "attention_flash")),
     "flash_d72": ("flash", (2, 30, 2, 72), 300, "bf16", None, ("sm90", "attention_flash")),
     "flash_d64": ("flash", (2, 30, 2, 64), 300, "bf16", None, ("sm90", "attention_flash")),
     "rowblock_d64": ("rowblock", (2, 30, 2, 64), 300, "bf16", None,
@@ -1030,7 +1140,8 @@ HOPPER_ROUTES = {
     "rowblock_d72": ("rowblock", (8, 4096, 16, 72), 4096, "bf16", None,
                      ("sm90", "attention_rowblock")),
     "rowblock_d36": ("rowblock", (2, 30, 2, 36), 300, "bf16", None, ("mma", 2)),
-    "rowblock_fp32_d72": ("rowblock", (2, 30, 2, 72), 300, "fp32", None, ("mma", 2)),
+    "rowblock_fp32_d72": ("rowblock", (2, 30, 2, 72), 300, "fp32", None,
+                          ("f32", "attention_rowblock")),
     "rowblock_key_padding_d128": ("fused", (1, 4608, 24, 128), 4608, "bf16", "padding",
                                   ("sm90", "attention_rowblock_bias")),
     "transposed_d72": ("transposed", (2, 30, 2, 72), 300, "bf16", None,
@@ -1046,10 +1157,13 @@ def test_hopper_body_routing(name, monkeypatch):
     single-tile exact (K1), transposed clamp (K4), row-block clamp (K5) and
     streaming (K6) routes launch the Hopper body, and so do bf16 calls with
     a key-padding bias on each of them (K2, and K4, K5 and K6 with a bias,
-    at the same head dims), the bias passed on; every other call — a dense
-    bias, fp32, another head dim — keeps its csrc/attention.cu variant.
-    Tensors on the meta device reach the launch decision without a card;
-    the launchers are replaced by recorders."""
+    at the same head dims), the bias passed on; fp32 calls at a head dim the
+    fp32 body is built for (16, 32, 64, 72, 128) in strides TMA can map
+    launch the fp32 body on every route, with any bias the route takes (a
+    dense one on the single-tile route); every other call — a bf16 dense
+    bias, another head dim, fp32 rows 292 bytes apart — keeps its
+    csrc/attention.cu variant. Tensors on the meta device reach the launch
+    decision without a card; the launchers are replaced by recorders."""
     wrapper, shape, tk, dtype, bias_kind, want = HOPPER_ROUTES[name]
     calls = []
 
@@ -1057,12 +1171,17 @@ def test_hopper_body_routing(name, monkeypatch):
         calls.append(("sm90", counter if bias is None else counter + "_bias"))
 
     monkeypatch.setattr(port_attention, "_launch_sm90", sm90)
+    monkeypatch.setattr(port_attention, "_launch_f32",
+                        lambda q, k, v, counter, bias, n_pad: calls.append(
+                            ("f32", counter if bias is None else counter + "_bias")))
     monkeypatch.setattr(port_attention, "_launch",
                         lambda q, k, v, bias, variant, n_pad: calls.append(("mma", variant)))
     tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
     b, tq, h, d = shape
-    q = torch.empty(shape, dtype=tdt, device="meta")
-    kv = torch.empty((b, tk, h, d), dtype=tdt, device="meta")
+    # rows 292 bytes apart: a head dim of 72 floats cut from rows of 73
+    width = d + 1 if dtype == "fp32_rows_292_bytes" else d
+    q = torch.empty((b, tq, h, width), dtype=tdt, device="meta")[..., :d]
+    kv = torch.empty((b, tk, h, width), dtype=tdt, device="meta")[..., :d]
     bias = {None: None, "padding": (b, 1, 1, tk), "broadcast": (1, 1, 1, tk),
             "dense": (b, h, tq, tk)}[bias_kind]
     bias = bias and torch.zeros(bias, dtype=tdt, device="meta")
@@ -1091,16 +1210,19 @@ PAD_KEY_LAUNCHES = {
 
 @pytest.mark.parametrize("name", sorted(PAD_KEY_LAUNCHES))
 def test_mma_launches_get_the_routes_pad_keys(name, monkeypatch):
-    """csrc/attention.cu's C entry takes the pad keys from the wrapper: the
-    route's count (`pad_keys`), 0 on the XLA route of a dense bias past the
-    single tile, which the reference computes without pad keys. Meta
-    tensors reach the launch; the launcher is replaced by a recorder."""
+    """csrc/attention.cu's C entry, and the fp32 body's, take the pad keys
+    from the wrapper: the route's count (`pad_keys`), 0 on the XLA route of
+    a dense bias past the single tile, which the reference computes without
+    pad keys. Meta tensors reach the launch; the launchers are replaced by
+    recorders."""
     wrapper, shape, tk, dtype, bias_kind, n_pad = PAD_KEY_LAUNCHES[name]
     calls = []
     monkeypatch.setattr(port_attention, "_launch_sm90",
                         lambda *a, **kw: pytest.fail("took the Hopper body"))
     monkeypatch.setattr(port_attention, "_launch",
                         lambda q, k, v, bias, variant, n: calls.append(n))
+    monkeypatch.setattr(port_attention, "_launch_f32",
+                        lambda q, k, v, counter, bias, n: calls.append(n))
     tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
     b, tq, h, d = shape
     q = torch.empty(shape, dtype=tdt, device="meta")
@@ -1111,6 +1233,48 @@ def test_mma_launches_get_the_routes_pad_keys(name, monkeypatch):
           "transposed": transposed_attention}[wrapper]
     fn(q, kv, kv, bias)
     assert calls == [n_pad]
+
+
+@pytest.mark.parametrize("edited", ["source", "header"])
+def test_library_path_hashes_the_source_and_the_headers(tmp_path, monkeypatch, edited):
+    """A library's name changes when its source or a csrc/ header changes,
+    so an edited shared header rebuilds every source that includes it."""
+    (tmp_path / "body.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// helpers\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    before = _build.library_path("body")
+    assert _build.library_path("body") == before
+    (tmp_path / ("body.cu" if edited == "source" else "common.cuh")).write_text("// edited\n")
+    assert _build.library_path("body") != before
+
+
+@pytest.mark.parametrize("source", ["attention_sm90", "attention_f32_sm90"])
+def test_hopper_bodies_share_the_common_header(source):
+    """Both Hopper bodies take their mbarrier, TMA and wgmma helpers from
+    csrc/sm90_common.cuh rather than from a copy of their own."""
+    src = (_build.CSRC_DIR / f"{source}.cu").read_text()
+    assert '#include "sm90_common.cuh"' in src
+    for helper in ("void mbar_wait(", "void tma_load(", "EncodeTiled encode_tiled("):
+        assert helper not in src
+        assert helper in (_build.CSRC_DIR / "sm90_common.cuh").read_text()
+
+
+def test_f32_tma_operand_arguments():
+    """The fp32 body's tensor map of a (B, T, H, D) operand: dims {D, H, T,
+    B} and the byte strides of H, T, B (a dimension of one takes the packed
+    stride); a head dim it is not built for, a base off 16 bytes and rows
+    292 bytes apart raise, and `_takes_f32` sends such calls elsewhere."""
+    x = torch.zeros(2, 300, 3, 72)
+    assert port_attention.f32_tma_operand(x, "q") == [72, 3, 300, 2, 288, 864, 259200]
+    one = torch.zeros(1, 300, 1, 16)
+    assert port_attention.f32_tma_operand(one, "k") == [16, 1, 300, 1, 64, 64, 19200]
+    assert port_attention._takes_f32(x, x, x)
+    for bad, match in ((torch.zeros(2, 30, 2, 36), "head dim"),
+                       (torch.zeros(2 * 30 * 2 * 72 + 1)[1:].view(2, 30, 2, 72), "16-byte"),
+                       (torch.zeros(2, 30, 2, 73)[..., :72], "multiples of 16")):
+        with pytest.raises(ValueError, match=match):
+            port_attention.f32_tma_operand(bad, "v")
+        assert not port_attention._takes_f32(*((bad,) * 3 if match == "head dim" else (x, x, bad)))
 
 
 def test_tma_operand_arguments():
@@ -1663,6 +1827,21 @@ def test_probe_variants_edit_the_current_source(variant):
     and change it (a probe that no longer applies raises on the card)."""
     src = (_build.CSRC_DIR / "attention_sm90.cu").read_text()
     edits = PROBE_VARIANTS[variant]
+    assert probe_attention_body.variant_source(src, edits) != src
+    with pytest.raises(ValueError, match="does not match"):
+        probe_attention_body.variant_source(src.replace(edits[0][0], ""), edits)
+
+
+F32_PROBE_VARIANTS = {name: edits for row in probe_attention_body.F32_ROWS.values()
+                      for name, edits in row[4].items()}
+
+
+@pytest.mark.parametrize("variant", sorted(F32_PROBE_VARIANTS))
+def test_f32_probe_variants_edit_the_current_source(variant):
+    """Each fp32-body probe variant's text edits still match
+    csrc/attention_f32_sm90.cu and change it."""
+    src = (_build.CSRC_DIR / "attention_f32_sm90.cu").read_text()
+    edits = F32_PROBE_VARIANTS[variant]
     assert probe_attention_body.variant_source(src, edits) != src
     with pytest.raises(ValueError, match="does not match"):
         probe_attention_body.variant_source(src.replace(edits[0][0], ""), edits)
