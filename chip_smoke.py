@@ -63,14 +63,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the single-tile route); fp32 at d=36 and on rows TMA cannot map run on
    attention.cu's SIMT kernel, which a profile of each such case must name,
    with no bias, a key-padding bias through each wrapper and a dense bias
-   on the single-tile route.
-   The rest run on ``csrc/attention.cu``. The exact kernels
-   (K2 in bf16 on the Hopper body and in fp32 on the fp32 body, K6
+   on the single-tile route. bf16 calls at d=64, 72 and 128 with any other
+   bias (dense, per head, per query row, strided) on the single-tile route
+   and on the XLA route past it run on the Hopper body's
+   ``attn_exact_dense_sm90_kernel`` (`dense_bias_cases`): at tq=30, tk=300
+   with bf16 and fp32 dense biases, per-head and per-query ones and a
+   transposed view, each named by a profile; at 768 keys, each shown to
+   reject a dropped or repeated 128-key tile; logits near ±40, q×1e4, rows
+   biased −1e9 (Σv/384) and −2e9 (0); an fp16 or fp64 bias refused.
+   The rest (bf16 at other head dims) run on ``csrc/attention.cu``. The
+   exact kernels (K2 in bf16 on the Hopper body, with a key-padding and a
+   dense bias, and in fp32 on the fp32 body, K6
    with a bias at d=64, 72 and 128) are also held against the plain versions
    in rows whose every key has a bias of −1e9 or −2e9, where the
    reference's pad keys take their share; and a dense bias past the
    single tile ((1, 2048, 2, 72) × 1100 keys, fp32 on the fp32 body and
-   bf16 on attention.cu), which the reference sends to XLA without pad keys, is
+   bf16 on the Hopper body's dense kernel, named by a profile), which the
+   reference sends to XLA without pad keys, is
    held to its plain version with none, and its −1e9 and −2e9 rows to
    Σv/Tk. Time kernel (with the
    SM clock, power and temperature sampled before and after), plain
@@ -92,10 +101,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ``FP32_TOL`` (K6's per slice), shown to reject a dropped or repeated key
    tile of the body's step (64 keys, 32 at D=128), timed in turns against
    attention.cu's SIMT kernel (``old_body_ms``) and one fp32 SDPA call,
-   beside its 3×TF32 bound and the fp32 FMA bound (``fma_bound_ms``). The
-   route that stays on ``attention.cu`` (bf16 K2 with a dense bias at
-   PixArt-256's cross-attention) is timed once beside one SDPA call, with
-   its bound (the report's ``stays_on_attention_cu``). K3
+   beside its 3×TF32 bound and the fp32 FMA bound (``fma_bound_ms``). K2
+   with a dense bf16 (B, H, Tq, Tk) bias on the Hopper body (`DENSE_ROWS`:
+   PixArt-256's cross-attention (16, 256, 16, 72) → 120, FLUX-256's width
+   (4, 768, 24, 128) → 768, and past the single tile (2, 4096, 16, 72) →
+   4096 on the XLA route), each reached through the router with its launch
+   counted and named by a profile, held to its plain version (past one key
+   tile shown to reject a dropped or repeated 128-key tile), timed in turns
+   against attention.cu's mma.sync body (``old_body_ms``) and SDPA with the
+   bias as a float mask. What stays on ``attention.cu`` (bf16 at head dim
+   32 on its mma.sync kernel, fp32 at 36 on its SIMT kernel, both at
+   PixArt-256's self-attention shape) is timed once beside one SDPA call,
+   named by a profile, with its bound (the report's
+   ``stays_on_attention_cu``). K3
    (``csrc/modlnorm_sm90.cu``) also at
    each width a served path gives it: PixArt-1024's (4, 4096, 1152),
    PixArt-Σ-2048's (2, 16384, 1152) and FLUX.1-dev-1024's image, text and
@@ -567,7 +585,8 @@ def on_simt_kernel(name: str, fn, *args) -> None:
     it."""
     from ecad_tpu_torch.ops.attention import _takes_f32
 
-    names = device_kernel_names(lambda: fn(*args))
+    names = device_kernel_names(lambda: fn(*args),
+                                want=lambda ns: any("attn_f32_kernel" in n for n in ns))
     if _takes_f32(*args[:3]) or not any("attn_f32_kernel" in n for n in names) or any(
             "_f32_sm90_kernel" in n for n in names):
         raise AssertionError(f"{name} ran {names}, not attention.cu's attn_f32_kernel")
@@ -748,6 +767,7 @@ def attention_cases() -> None:
                     rnd(2, 16, 2, 72, dtype=dtype), rnd(2, 120, 2, 72, dtype=dtype),
                     rnd(2, 120, 2, 72, dtype=dtype),
                     key_padding_bias([7, 60], 120, -1e4, torch.float16))
+            dense_bias_cases(rnd)
         else:
             case("misaligned_rows_d72", *misaligned)
         # the reference's extreme-logits case (tests/test_ops.py:165-187) at
@@ -1029,8 +1049,9 @@ def all_masked_rows(rnd) -> None:
 def dense_bias_past_the_tile(rnd, dtype, tol) -> None:
     """A dense (1, 2, 2048, 1100) bias past the single tile (a 9.4 MB score
     tile): the reference sends it to XLA, which adds no pad keys, so the
-    route is "exact_xla" and the kernel (csrc/attention.cu's exact variant
-    in bf16, the fp32 body's exact single-tile kernel in fp32, counted under
+    route is "exact_xla" and the kernel (the Hopper body's
+    ``attn_exact_dense_sm90_kernel<72>`` in bf16, which a profile must
+    name, the fp32 body's exact single-tile kernel in fp32, counted under
     ``attention_bias``) gets n_pad = 0. Held to its plain
     version with no pad keys at `tol`; the rows whose every key has a bias
     of −1e9 (rows 0-7) or −2e9 (rows 8-15) to Σv/Tk within 2^-7 relative,
@@ -1060,6 +1081,12 @@ def dense_bias_past_the_tile(rnd, dtype, tol) -> None:
         raise AssertionError(f"dense bias past the tile: launches {launch_counts()}")
     name = f"attention_bias/{tag}/dense_bias_past_the_tile_1x2048x2x72_to_{tk}"
     compare(name, got, fused_attention_reference(q, k, v, bias, 0), tol)
+    if dtype == torch.bfloat16:
+        dense72 = "attn_exact_dense_sm90_kernel<72>"
+        names = device_kernel_names(lambda: fused_attention(q, k, v, bias),
+                                    want=lambda ns: ran_hopper_kernel(ns, dense72))
+        if not ran_hopper_kernel(names, dense72):
+            raise AssertionError(f"{name} ran {names}, not attn_exact_dense_sm90_kernel<72>")
     row_tol = (1e-6, 2.0 ** -7)
     mean_v = (v.float().sum(1, keepdim=True) / tk).expand(1, 16, 2, 72)
     compare(f"{name}/masked_rows_mean_v", got[:, :16], mean_v, row_tol)
@@ -1067,6 +1094,87 @@ def dense_bias_past_the_tile(rnd, dtype, tol) -> None:
             row_tol)
     rejects(f"{name}/minus_2e9_rows_with_pad_keys", torch.zeros_like(mean_v[:, 8:]),
             mean_v[:, 8:], row_tol)
+
+
+def dense_bias_cases(rnd) -> None:
+    """K2 with a dense bias on the Hopper body (``attn_exact_dense_sm90_kernel``)
+    in bf16 at head dims 64, 72 and 128, with a bf16 and an fp32 dense (B,
+    H, Tq, Tk) bias, a per-head (1, H, 1, Tk) and a per-query-row (B, 1, Tq,
+    Tk) one, and a transposed view (key stride Tq: no aligned key pairs, so
+    each value is loaded where it is used). At the reference's odd shape
+    (tq 30, tk 300: rows 600 bytes apart, 84 pad keys) each is held to its
+    plain version at ``BF16_TOL`` (the key-padding K2 checks') and named by
+    a profile (the dense kernel at that head dim, nothing of
+    csrc/attention.cu); at 200 queries → 768 keys each is held at
+    `clamp_bf16_tol`, shown to reject a plain version that drops or repeats
+    the 128-key tile 1. Also logits near ±40 (log2) and q × 1e4 with a dense
+    bias; rows whose every key has a bias of −1e9 (Σv/(Tk + n_pad) =
+    Σv/384, a check shown to reject Σv/Tk) or −2e9 (0); and a dense bias in
+    fp16 or fp64 refused."""
+    from ecad_tpu_torch.ops import fused_attention, fused_attention_reference
+
+    bf = torch.bfloat16
+    row_tol = (1e-6, 2.0 ** -7)
+
+    def forms(b, h, tq, tk):
+        return {"dense_bf16": rnd(b, h, tq, tk, dtype=bf),
+                "dense_fp32": rnd(b, h, tq, tk, dtype=torch.float32),
+                "per_head": rnd(1, h, 1, tk, dtype=bf),
+                "per_query": rnd(b, 1, tq, tk, dtype=bf),
+                "transposed_view": rnd(b, h, tk, tq, dtype=bf).transpose(2, 3)}
+
+    def cut(x, dim, lo, hi):  # keys [0, lo) then [hi, Tk): tile 1 dropped or repeated
+        return torch.cat((x.narrow(dim, 0, lo), x.narrow(dim, hi, x.shape[dim] - hi)), dim)
+
+    for d in (64, 72, 128):
+        kernel = f"attn_exact_dense_sm90_kernel<{d}>"
+        q, k, v = rnd(2, 30, 2, d, dtype=bf), rnd(2, 300, 2, d, dtype=bf), rnd(2, 300, 2, d,
+                                                                               dtype=bf)
+        for form, bias in forms(2, 2, 30, 300).items():
+            name = f"attention_bias/bf16/dense/{form}_tq30_tk300_d{d}"
+            compare(name, fused_attention(q, k, v, bias),
+                    fused_attention_reference(q, k, v, bias), BF16_TOL)
+            names = device_kernel_names(lambda: fused_attention(q, k, v, bias),
+                                        want=lambda ns: ran_hopper_kernel(ns, kernel))
+            REPORT.setdefault("dense_case_device_kernels", {})[name] = [
+                n for n in names if "attn" in n]
+            if not ran_hopper_kernel(names, kernel):
+                raise AssertionError(f"{name} ran {names}, not {kernel} alone")
+        ql, kl, vl = rnd(2, 200, 2, d, dtype=bf), rnd(2, 768, 2, d, dtype=bf), rnd(2, 768, 2, d,
+                                                                                  dtype=bf)
+        for form, bias in forms(2, 2, 200, 768).items():
+            name = f"attention_bias/bf16/dense/{form}_tq200_tk768_d{d}"
+            want = fused_attention_reference(ql, kl, vl, bias)
+            compare(name, fused_attention(ql, kl, vl, bias), want, clamp_bf16_tol)
+            for fault, (lo, hi) in (("drops", (128, 256)), ("repeats", (256, 128))):
+                rejects(f"{name}_{fault}_128_key_tile_1", fused_attention_reference(
+                    ql, cut(kl, 1, lo, hi), cut(vl, 1, lo, hi), cut(bias, 3, lo, hi)),
+                    want, clamp_bf16_tol)
+        q40, k40, v40 = (rnd(1, 16, 1, d, dtype=bf, scale=6.0), rnd(1, 256, 1, d, dtype=bf),
+                         rnd(1, 256, 1, d, dtype=bf))
+        b40 = rnd(1, 1, 16, 256, dtype=bf)
+        compare(f"attention_bias/bf16/dense/logits_near_40_d{d}",
+                fused_attention(q40, k40, v40, b40),
+                fused_attention_reference(q40, k40, v40, b40), BF16_TOL)
+        hot = fused_attention(rnd(1, 128, 1, d, dtype=bf, scale=1e4), k40, v40,
+                              rnd(1, 1, 128, 256, dtype=bf))
+        if not torch.isfinite(hot.float()).all():
+            raise AssertionError(f"attention_bias/bf16/dense: q×1e4 gave non-finite output"
+                                 f" at d={d}")
+        # rows 0-7 of batch row 0 biased −1e9 at every key, of batch row 1 −2e9
+        masked = rnd(2, 2, 30, 300)
+        masked[0, :, :8], masked[1, :, :8] = -1e9, -2e9
+        got = fused_attention(q, k, v, masked)
+        name = f"attention_bias/bf16/dense/every_key_biased_rows_d{d}"
+        compare(name, got, fused_attention_reference(q, k, v, masked), BF16_TOL)
+        mean_v = (v[:1].float().sum(1, keepdim=True) / 384).expand(1, 8, 2, d)
+        compare(f"{name}/minus_1e9_mean_v", got[:1, :8], mean_v, row_tol)
+        rejects(f"{name}/minus_1e9_without_pad_keys", mean_v * 384 / 300, mean_v, row_tol)
+        compare(f"{name}/minus_2e9_zero", got[1:, :8], torch.zeros_like(mean_v), row_tol)
+    for dtype in (torch.float16, torch.float64):
+        refused(f"attention_bias/bf16/dense_{str(dtype).split('.')[-1]}_bias", fused_attention,
+                rnd(2, 30, 2, 72, dtype=bf), rnd(2, 300, 2, 72, dtype=bf),
+                rnd(2, 300, 2, 72, dtype=bf), rnd(2, 2, 30, 300, dtype=dtype))
 
 
 # K3 at each width a served path gives it, by row name: x's (B, T, d) —
@@ -1305,6 +1413,7 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
     del q4t, k4t, v4t, kc4t, vc4t
     rows += flux_kernel_rows(rnd, bound, nbytes)
     rows += hopper_kernel_rows(rnd, bound, nbytes)
+    rows += dense_kernel_rows(rnd, bound, nbytes)
     rows += f32_kernel_rows(rnd, nbytes)
     REPORT["stays_on_attention_cu"] = attention_cu_rows(rnd, nbytes)
     rows += flash_kernel_rows(rnd, bound, nbytes)
@@ -1555,11 +1664,12 @@ K5_D72_ROWS = {
 
 def ran_hopper_kernel(names: list[str], kernel: str) -> bool:
     """Whether a profile's device kernels include the Hopper kernel named
-    like ``attn_clamp_sm90_kernel<64, true>`` (demangled or mangled) and
-    none of csrc/attention.cu's."""
+    like ``attn_clamp_sm90_kernel<64, true>`` or
+    ``attn_exact_dense_sm90_kernel<72>`` (demangled or mangled) and none of
+    csrc/attention.cu's."""
     base, args = kernel.rstrip(">").split("<")
-    d, bias = (a.strip() for a in args.split(","))
-    mangled = f"{base}ILi{d}ELb{int(bias == 'true')}E"
+    d, *bias = (a.strip() for a in args.split(","))
+    mangled = f"{base}ILi{d}E" + "".join(f"Lb{int(b == 'true')}E" for b in bias)
     return any(kernel in n or mangled in n for n in names) and not any(
         "_bf16_kernel" in n or "attn_f32_kernel" in n for n in names)
 
@@ -1612,7 +1722,8 @@ def hopper_kernel_rows(rnd, bound, nbytes) -> list[dict]:
         if counts != {**dict.fromkeys(COUNTERS, 0), counter: 1}:
             raise AssertionError(f"{name}: launches {counts}, not one {counter}")
         REPORT.setdefault("hopper_row_launches", {})[name] = 1
-        names = device_kernel_names(lambda: fn(q, k, v, bb))
+        names = device_kernel_names(lambda: fn(q, k, v, bb),
+                                    want=lambda ns: ran_hopper_kernel(ns, kernel))
         REPORT.setdefault("hopper_row_device_kernels", {})[name] = [
             n for n in names if "attn" in n]
         if not ran_hopper_kernel(names, kernel):
@@ -1655,6 +1766,97 @@ def hopper_kernel_rows(rnd, bound, nbytes) -> list[dict]:
             bound_ms=b_ms, bound_by=by, library_ms=statistics.median(times["sdpa"]),
             old_body_ms=statistics.median(times["old"]),
             **({"k4_ms": statistics.median(times["k4"])} if "k4" in times else {})))
+    return rows
+
+
+# K2 with a dense bf16 (B, H, Tq, Tk) bias on the Hopper body, each reached
+# through the router (no served path sends such a bias): row → (q's shape,
+# keys, the Hopper kernel). PixArt-256's text cross-attention (one key tile
+# an item), FLUX-256's joint attention width (six) and, past the single
+# tile, the reference's XLA route (no pad keys; 32 tiles)
+DENSE_ROWS = {
+    "attention_bias_dense_pixart256_cross": ((16, 256, 16, 72), 120,
+                                             "attn_exact_dense_sm90_kernel<72>"),
+    "attention_bias_dense_flux256": ((4, 768, 24, 128), 768, "attn_exact_dense_sm90_kernel<128>"),
+    "attention_bias_dense_past_the_tile": ((2, 4096, 16, 72), 4096,
+                                           "attn_exact_dense_sm90_kernel<72>"),
+}
+
+
+def dense_kernel_rows(rnd, bound, nbytes) -> list[dict]:
+    """K2 with a dense bf16 bias (`DENSE_ROWS`) on the Hopper body
+    (``attn_exact_dense_sm90_kernel``): each reached through the router with
+    its launch counted (the row's launches), named by a profile (the kernel
+    and nothing of csrc/attention.cu), held to its plain version with the
+    route's pad keys (`fused_attention_reference`; at one key tile
+    ``BF16_TOL``, the key-padding K2's, past it `clamp_bf16_tol`, shown to
+    reject a dropped and a repeated 128-key tile), then timed in turns
+    (`D64_TURNS`) against the mma.sync body of csrc/attention.cu that took
+    these calls before (``old_body_ms``: its launch with the bias widened to
+    fp32, as it was called) and one ``scaled_dot_product_attention`` call
+    with the bias as a float mask. Its bound counts the bias once, in bf16."""
+    import torch.nn.functional as F
+
+    from ecad_tpu_torch.ops import attention as A
+
+    rows = []
+    for name, (shape, tk, kernel) in DENSE_ROWS.items():
+        b, tq, h, d = shape
+        q, k, v = rnd(*shape), rnd(b, tk, h, d), rnd(b, tk, h, d)
+        bias = rnd(b, h, tq, tk)
+        route = A.attention_route(shape, tk, bias)
+        n_pad = A.pad_keys(route, tk)
+        out = []
+        counts = counted(lambda: out.append(A.fused_attention(q, k, v, bias)))
+        got = out.pop()
+        if counts != {**dict.fromkeys(COUNTERS, 0), "attention_bias": 1}:
+            raise AssertionError(f"{name}: launches {counts}, not one attention_bias")
+        REPORT.setdefault("hopper_row_launches", {})[name] = 1
+        names = device_kernel_names(lambda: A.fused_attention(q, k, v, bias),
+                                    want=lambda ns: ran_hopper_kernel(ns, kernel))
+        REPORT.setdefault("hopper_row_device_kernels", {})[name] = [
+            n for n in names if "attn" in n]
+        if not ran_hopper_kernel(names, kernel):
+            raise AssertionError(f"{name} ran {names}, not {kernel} alone")
+        want = A.fused_attention_reference(q, k, v, bias, n_pad)
+        tol = BF16_TOL if tk <= 128 else clamp_bf16_tol
+        err = compare(f"attention_bias/bf16/{name}_{'x'.join(map(str, shape))}_to_{tk}_{route}",
+                      got, want, tol)
+        del got
+        if tk > 128:
+            for fault, (lo, hi) in (("drops", (128, 256)), ("repeats", (256, 128))):
+                def cut(x, dim):  # keys [0, lo) then [hi, Tk): tile 1 dropped or repeated
+                    return torch.cat((x.narrow(dim, 0, lo), x.narrow(dim, hi, x.shape[dim] - hi)),
+                                     dim)
+                rejects(f"{name}_{fault}_128_key_tile_1",
+                        A.fused_attention_reference(q, cut(k, 1), cut(v, 1), cut(bias, 3), n_pad),
+                        want, tol)
+        del want
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        fns = {"new": lambda: A.fused_attention(q, k, v, bias),
+               "old": lambda: A._launch(q, k, v, bias, 0, n_pad),
+               "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)}
+        reps, inner = (3, 5) if tk >= 4096 else (7, 20)
+        times = {w: [] for w in fns}
+        for i, which in enumerate(D64_TURNS):
+            label = name if which == "new" and not times["new"] else f"{name}/{which}/{i}"
+            times[which].append(timed_ms(label, fns[which], reps=reps, inner=inner,
+                                         clocks=label == name))
+        del qt, kt, vt
+        REPORT.setdefault("hopper_row_turns", {})[name] = times
+        b_ms, by = bound(nbytes(q, k, v, q, bias), 4 * b * h * tq * tk * d)
+        rows.append(dict(
+            name=name, route="cuda", source="ecad_tpu_torch/csrc/attention_sm90.cu",
+            replaces="ecad_tpu/ops/attention.py:75 (_attn_kernel_bias, its dense branch "
+                     ":773-779" + ("; past the tile the reference's XLA call, :701-707)"
+                                   if route == "exact_xla" else ")"),
+            max_abs_err=err, ms=statistics.median(times["new"]),
+            plain_ms=timed_ms(f"{name}/plain",
+                              lambda: A.fused_attention_reference(q, k, v, bias, n_pad),
+                              reps=3, inner=2 if tk >= 4096 else 5),
+            bound_ms=b_ms, bound_by=by, library_ms=statistics.median(times["sdpa"]),
+            old_body_ms=statistics.median(times["old"])))
+        del q, k, v, bias
     return rows
 
 
@@ -1715,7 +1917,8 @@ def f32_kernel_rows(rnd, nbytes) -> list[dict]:
         if counts != {**dict.fromkeys(COUNTERS, 0), counter: 1}:
             raise AssertionError(f"{name}: launches {counts}, not one {counter}")
         REPORT.setdefault("f32_row_launches", {})[name] = 1
-        names = device_kernel_names(lambda: A.fused_attention(q, k, v, bias))
+        names = device_kernel_names(lambda: A.fused_attention(q, k, v, bias),
+                                    want=lambda ns: ran_hopper_kernel(ns, kernel))
         REPORT.setdefault("f32_row_device_kernels", {})[name] = [n for n in names if "attn" in n]
         if not ran_hopper_kernel(names, kernel):
             raise AssertionError(f"{name} ran {names}, not {kernel} alone")
@@ -1769,60 +1972,67 @@ def f32_kernel_rows(rnd, nbytes) -> list[dict]:
     return rows
 
 
-# the route that stays on csrc/attention.cu, timed beside one
-# `scaled_dot_product_attention` call in its dtype (a float mask for the
-# bias): row → (the wrapper, q's shape, keys, dtype, bias: None, "dense"
-# (B, H, Tq, Tk))
+# what stays on csrc/attention.cu, timed beside one
+# `scaled_dot_product_attention` call in its dtype: row → (q's shape, keys,
+# dtype, the kernel a profile must name). bf16 at a head dim the Hopper body
+# is not built for (PixArt-256's self-attention shape at 32) on the mma.sync
+# kernel; fp32 at 36 on the SIMT kernel
 ATTENTION_CU_ROWS = {
-    "attention_bias_dense_pixart256_cross": ("fused", (16, 256, 16, 72), 120, torch.bfloat16,
-                                             "dense"),
+    "attention_bf16_d32_pixart256_self": ((16, 256, 16, 32), 256, torch.bfloat16,
+                                          "attn_bf16_kernel"),
+    "attention_fp32_d36_pixart256_self": ((16, 256, 16, 36), 256, torch.float32,
+                                          "attn_f32_kernel"),
 }
 
 
 def attention_cu_rows(rnd, nbytes) -> dict:
-    """One timing of each route that stays on csrc/attention.cu
-    (`ATTENTION_CU_ROWS`: bf16 K2 with a dense bias at PixArt-256's
-    cross-attention) beside one SDPA call on the same inputs, with its bound
-    and its launch counted, so that the next kernel PR can tell whether it
-    loses to the library and by what factor. Output finite, of q's shape;
-    its plain version's agreement is checked at the reference's shapes
-    above. Not a kernel row: no kernel of this repository but csrc/
-    attention.cu's, which the kernels line's rows replaced, runs there."""
+    """One timing of each call that stays on csrc/attention.cu
+    (`ATTENTION_CU_ROWS`) beside one SDPA call and its plain version on the
+    same inputs, with its bound (bf16: the tensor cores' rate; fp32: the
+    FMA rate outside them, which its SIMT kernel uses) and its launch
+    counted, so that a later
+    kernel PR can tell whether it loses to the library and by what factor.
+    A profile must name the row's attention.cu kernel and no Hopper one;
+    output finite, of q's shape; its plain version's agreement is checked
+    at the reference's shapes above. Not a kernel row: no kernel of this
+    repository but csrc/attention.cu's, which the kernels line's rows
+    replaced, runs there."""
 
     import torch.nn.functional as F
 
-    from ecad_tpu_torch.ops import fused_attention
+    from ecad_tpu_torch.ops import fused_attention, fused_attention_reference
 
     out = {}
-    for name, (_, shape, tk, dtype, bias_kind) in ATTENTION_CU_ROWS.items():
+    for name, (shape, tk, dtype, kernel) in ATTENTION_CU_ROWS.items():
         b, tq, h, d = shape
         q, k, v = rnd(*shape, dtype=dtype), rnd(b, tk, h, d, dtype=dtype), rnd(b, tk, h, d,
                                                                             dtype=dtype)
-        bias = None if bias_kind is None else rnd(b, h, tq, tk, dtype=dtype)
         res = []
-        counts = counted(lambda: res.append(fused_attention(q, k, v, bias)))
+        counts = counted(lambda: res.append(fused_attention(q, k, v)))
         got = res.pop()
         if got.shape != q.shape or not torch.isfinite(got.float()).all():
             raise AssertionError(f"{name}: {tuple(got.shape)}, finite "
                                  f"{bool(torch.isfinite(got.float()).all())}")
         del got
+        names = device_kernel_names(lambda: fused_attention(q, k, v),
+                                    want=lambda ns: any(kernel in n for n in ns))
+        if not any(kernel in n for n in names) or any("sm90_kernel" in n for n in names):
+            raise AssertionError(f"{name} ran {names}, not attention.cu's {kernel}")
         qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-        slow = tq * tk >= 4096 * 4096
-        reps, inner = (2, 2) if slow else (7, 20)
-        ms = timed_ms(name, lambda: fused_attention(q, k, v, bias), reps=reps, inner=inner,
-                      clocks=True)
-        sdpa = timed_ms(f"{name}/sdpa", lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=bias), reps=reps, inner=inner)
+        ms = timed_ms(name, lambda: fused_attention(q, k, v), clocks=True)
+        sdpa = timed_ms(f"{name}/sdpa", lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        plain = timed_ms(f"{name}/plain", lambda: fused_attention_reference(q, k, v), reps=3,
+                         inner=5)
         flops = 4 * b * h * tq * tk * d
-        tb = nbytes(q, k, v, q, *(() if bias is None else (bias,))) / HBM_BYTES_PER_S
-        tf = flops / BF16_FLOPS
+        tb = nbytes(q, k, v, q) / HBM_BYTES_PER_S
+        tf = flops / (BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
         out[name] = {"shape": list(shape), "keys": tk, "dtype": str(dtype).split(".")[-1],
-                     "bias": bias_kind, "ms": ms, "sdpa_ms": sdpa, "over_sdpa": ms / sdpa,
-                     "bound_ms": max(tb, tf) * 1e3,
+                     "kernel": [n for n in names if "attn" in n], "ms": ms, "sdpa_ms": sdpa,
+                     "plain_ms": plain, "over_sdpa": ms / sdpa, "bound_ms": max(tb, tf) * 1e3,
                      "bound_by": "bytes" if tb >= tf else "operations",
                      "launches": {c: n for c, n in counts.items() if n}}
         log(f"  {name} (attention.cu): {ms:.4f} ms, SDPA {sdpa:.4f} ms")
-        del q, k, v, bias, qt, kt, vt
+        del q, k, v, qt, kt, vt
     return out
 
 
@@ -1872,7 +2082,9 @@ def flash_kernel_rows(rnd, bound, nbytes) -> list[dict]:
         if routed != {**dict.fromkeys(COUNTERS, 0), "attention_flash_bias": 1}:
             raise AssertionError(f"{name} did not route to K6 with a bias: {routed}")
         launches[name] = routed["attention_flash_bias"]
-        kernels = device_kernel_names(lambda: fused_attention(*args))
+        kernels = device_kernel_names(
+            lambda: fused_attention(*args),
+            want=lambda ns: any("attn_flash_sm90_kernel" in n for n in ns))
         if not any("attn_flash_sm90_kernel" in n for n in kernels) or any(
                 "attn_flash_bf16_kernel" in n for n in kernels):
             raise AssertionError(f"{name} ran {kernels}, not attn_flash_sm90_kernel")
@@ -1980,13 +2192,17 @@ SM90_XATTN = {"xattn_matmul_only": "attn_xmatmul_sm90_kernel",
               "xattn_fd": "attn_xfd_sm90_kernel"}
 
 
-def traced_kernels(fn, tries: int = 3):
+def traced_kernels(fn, tries: int = 3, want=None):
     """`fn()` under torch.profiler: its result and the sorted names of the
-    device kernels it launched. A trace that holds no device kernel at all
-    is taken again, up to `tries` times: in one run of the kernels phase,
-    among some thirty short profiles, one came back empty for a call that
-    launched its kernel (and named it when the same call was profiled in
-    another run)."""
+    device kernels it launched. A trace that holds no device kernel at all,
+    or whose names `want` (the caller's check, if given) rejects, is taken
+    again, up to `tries` times: in one run of the kernels phase, among some
+    thirty short profiles, one came back empty for a call that launched its
+    kernel (and named it when the same call was profiled in another run);
+    in another, a profile of X1's, X2's and X3's calls named X2's and X3's
+    kernels but not X1's, whose launch the counters saw. A call that takes
+    another kernel is still refused: no retake names the one it did not
+    launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1995,18 +2211,19 @@ def traced_kernels(fn, tries: int = 3):
             out = fn()
             torch.cuda.synchronize()
         names = sorted(e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-        if names:
+        if names and (want is None or want(names)):
             break
     return out, names
 
 
-def device_kernel_names(fn) -> list[str]:
+def device_kernel_names(fn, want=None) -> list[str]:
     """The device kernels that a call of `fn` launches (`traced_kernels`).
     `fn` runs once before the profile, so that each of its kernels is
     loaded before it is traced (a profile of the first call of X1's kernel
     in the process named only X2's and X3's), and twice inside it: a
     profile taken after two earlier ones was seen to miss the first kernel
-    it traced (X2's, ahead of X3's)."""
+    it traced (X2's, ahead of X3's). `want`: the caller's check of the
+    names, which `traced_kernels` retakes a trace for."""
     fn()
     torch.cuda.synchronize()
 
@@ -2015,7 +2232,7 @@ def device_kernel_names(fn) -> list[str]:
             fn()
             torch.cuda.synchronize()
 
-    return traced_kernels(twice)[1]
+    return traced_kernels(twice, want=want)[1]
 
 
 def by_head_pairs(plain, q, k, v) -> torch.Tensor:
@@ -2072,7 +2289,9 @@ def variants_phase() -> dict:
         # X1, X2 and X3 launch the Hopper body's kernels at every shape, X4
         # at D=72
         on_sm90 = {c: n for c, n in SM90_XATTN.items() if c in counters(s["d"])}
-        names = device_kernel_names(lambda: [kernel(c)(q, k, v) for c in on_sm90])
+        names = device_kernel_names(
+            lambda: [kernel(c)(q, k, v) for c in on_sm90],
+            want=lambda ns: all(any(n in x for x in ns) for n in on_sm90.values()))
         for c, name in on_sm90.items():
             if not any(name in n for n in names):
                 raise AssertionError(f"{c} at {shape} ran {names}, not {name}")
@@ -2395,7 +2614,7 @@ def f32_body_run(fn, label: str):
     (csrc/attention_f32_sm90.cu).
     Raises unless the fp32 body ran and attention.cu's fp32 SIMT kernel did
     not: the tiny fp32 trajectories take the fp32 body on every route."""
-    out, names = traced_kernels(fn)
+    out, names = traced_kernels(fn, want=lambda ns: any("_f32_sm90_kernel" in n for n in ns))
     body = [n for n in names if "_f32_sm90_kernel" in n]
     if not body or any("attn_f32_kernel" in n for n in names):
         raise AssertionError(f"{label} ran {sorted(n for n in names if 'attn' in n)}, "
@@ -5023,8 +5242,10 @@ def kernel_scripts_phase() -> dict:
     rowblock = bench_attention_kernels.rows_of(s72["d"])["rowblock"]
     try:
         exp_attn_pixart256.SHAPES = {d64: shapes[d64]}
-        names = device_kernel_names(lambda: (exp_attn_pixart256.main(["--reps", "1"]),
-                                             rowblock(q, k, v)))
+        names = device_kernel_names(
+            lambda: (exp_attn_pixart256.main(["--reps", "1"]), rowblock(q, k, v)),
+            want=lambda ns: ran_hopper_kernel(ns, "attn_exact_sm90_kernel<64, false>")
+            and ran_hopper_kernel(ns, "attn_rowblock_sm90_kernel<72, false>"))
     finally:
         exp_attn_pixart256.SHAPES = shapes
     del q, k, v

@@ -50,11 +50,14 @@
 //     the weights are then 1/Tk_pad, as the reference's. The bf16 calls
 //     at D=64, 72 and 128 run on the Hopper body of attention_sm90.cu
 //     instead — K1, K4, K5 and K6, each also with a key-padding bias (K2
-//     for K1), and so does the attention-variant harness (X1-X4); the fp32
-//     calls at D=16, 32, 64, 72 and 128 whose operands TMA can map run on
-//     attention_f32_sm90.cu (3×TF32 on the tensor cores), every route and
-//     bias. Here remain bf16 dense biases and the other head dims, and fp32
-//     at the other head dims (36) or in strides TMA cannot map.
+//     for K1), K2 with a dense bias on the single-tile and XLA routes
+//     (`attn_exact_dense_sm90_kernel`), and the attention-variant harness
+//     (X1-X4); the fp32 calls at D=16, 32, 64, 72 and 128 whose operands
+//     TMA can map run on attention_f32_sm90.cu (3×TF32 on the tensor
+//     cores), every route and bias. Here remain bf16 at the other head dims
+//     (32 and 36 in chip_smoke.py: on the H100, NVIDIA H100 80GB HBM3,
+//     700.00 W, its `stays_on_attention_cu` rows time them beside SDPA), and
+//     fp32 at the other head dims (36) or in strides TMA cannot map.
 //
 // What bounds it on the H100. Exact path, at PixArt-256's shapes
 // (self-attention 256×256 and cross-attention 256→120, D=72, bf16): a

@@ -3,10 +3,11 @@
 // k, v of shape (B, T, H, D), D = 64, 72 or 128 (a template argument; the
 // harness's X1-X4 not at 64), in any
 // 16-byte-aligned strides, in six softmax modes (a template argument, as in
-// attention.cu) under eight kernel names, one per route and one per mode of
+// attention.cu) under nine kernel names, one per route and one per mode of
 // the attention-variant harness; every exact and clamp kernel also takes a
 // key-padding bias (a template flag in the name, so that a profile files
-// the two forms apart):
+// the two forms apart), and the exact single-tile route any other bias
+// under a name of its own:
 //
 //   * exact:
 //     - `attn_flash_sm90_kernel<D, false>` (K6) replaces the streaming
@@ -29,7 +30,14 @@
 //     - `attn_exact_sm90_kernel<D, true>` (K2) replaces `_attn_kernel_bias`
 //       (:75, launched :781) for a key-padding bias (B|1, 1, 1, Tk), bf16 or
 //       fp32, at the same head dims — PixArt's text cross-attention at 256²
-//       (2B, 256, 16, 72) → 120 keys, whose bias is bf16 0 or −9984.
+//       (2B, 256, 16, 72) → 120 keys, whose bias is bf16 0 or −9984;
+//     - `attn_exact_dense_sm90_kernel<D>` (K2 with a dense bias) replaces
+//       the dense branch of `_attn_kernel_bias` (:773-779: any bias that is
+//       not a key-padding one, (B|1, H|1, Tq|1, Tk|1), widened to fp32
+//       (B, H, Tq, Tk)) at the same head dims, and computes the same
+//       function with no pad keys where the reference sends a dense bias
+//       past the single tile to XLA (:701-707; the wrapper passes n_pad 0).
+//       No served path sends such a bias.
 //     s = q·kᵀ in fp32 from bf16 operands, times 1/√D on the fp32 score (q
 //     is not pre-scaled), an online max and sum in fp32 in the log2 domain
 //     (without a bias the max taken on the raw scores, then p = exp2(s·c −
@@ -157,8 +165,12 @@
 // same at D=64 (8, 768, 24, 64) on 38 MB (K1, K2, K4 and K5 there); K6 at
 // D=64 (1, 9728, 24, 64): 5.8e11 flops on 120 MB, 0.588 ms; at
 // PixArt-256 (16, 256, 16, 72): 4.8e9 flops on 38 MB, 0.011 ms by bytes;
-// K2 there, 256 → 120 keys: 2.3e9 flops on 28 MB, 0.008 ms by bytes. So
-// the tensor cores bound all but the last two, and the exp2s come second:
+// K2 there, 256 → 120 keys: 2.3e9 flops on 28 MB, 0.008 ms by bytes. K2
+// with a dense bf16 bias is bound by bytes, and the bias is most of them:
+// 15.7 of 43.5 MB at PixArt-256's cross-attention (0.013 ms), 113 of 189
+// MB at FLUX-256's width (4, 768, 24, 128) → 768 (0.056 ms), 1.07 of 1.15
+// GB past the single tile at (2, 4096, 16, 72) → 4096 (0.343 ms). So
+// the tensor cores bound all but the last three, and the exp2s come second:
 // one per score, 5.1e8 at FLUX-1024, which at 16 a clock per SM (≈1.75
 // GHz, 132 SMs) take ≈0.14 ms of the
 // special-function units — half the tensor-core bound at D=128, and nearer
@@ -306,6 +318,36 @@
 //     bias needs no alignment beyond its element's and takes any batch and
 //     key stride (0 where it broadcasts), so a bias TMA could not map (an
 //     odd Tk with a batch stride) runs on this body all the same.
+//   * A dense bias (`attn_exact_dense_sm90_kernel`) is one value per score,
+//     not per key, so the slot above would be 128 rows × 128 keys a stage:
+//     32 KB in bf16 and 64 KB in fp32, which neither D=128's shared memory
+//     (226 KB already) nor fp32 at any head dim leaves room for. So the
+//     consumers read it themselves, with no helpers: two consumer
+//     warpgroups at every head dim (the bias's registers beside s, o and
+//     p), each thread its 2 rows × 32 keys of a tile — the columns of its
+//     scores — as 32 four-byte loads of bf16 key pairs, where the bias has
+//     them aligned (an even base, key stride 1, even strides and an even
+//     Tk: `bias_pairs`), −∞ past Tk, a row past Tq read as row Tq − 1. At
+//     D=64 and 72 they are issued one tile ahead of their use, just after a
+//     tile's softmax has read its own (`kDensePrefetch`): the next tile's,
+//     or the block's next item's first, so that they land under this
+//     tile's p·v and, for a one-tile item (PixArt-256's 120 keys), under
+//     the next item's q load. At D=128 they are issued just after their own
+//     tile's q·kᵀ, under it. Each value is fp32(bias·log2e) before the
+//     FFMA, as a key-padding bias's slot holds it. A bias without aligned
+//     pairs (fp32, an odd Tk or stride, a transposed view) is read value by
+//     value where the softmax uses it, in its own dtype. On the card
+//     (scripts/probe_attention_body.py, NVIDIA H100 80GB HBM3, 700.00 W, in
+//     turns, two rounds), one tile ahead / under the tile's q·kᵀ / no bias
+//     loads at all: at PixArt-256's cross-attention 0.0215 / 0.0232 /
+//     0.0158 ms; past the tile 0.716 / 0.813 / 0.478; at the width-reduced
+//     FLUX-256's (8, 768, 24, 64) 0.162 / 0.179 / 0.098; at FLUX-256's
+//     D=128 the other way, 0.124 / 0.106 / 0.072. Issued just before the
+//     softmax instead (an earlier form) they took 0.025, 0.80 and 0.19 at
+//     D=72 and 64, and at D=128 0.107 or 0.119 in two builds that differed
+//     only in how the code was laid out. The value-by-value form
+//     (`dense_scalar_loads`) takes 3.5–4 times as long; the byte bounds
+//     are 0.013, 0.343, 0.090 and 0.056 ms.
 //   * K6 with a bias and X4 run two consumer warpgroups at D=72 too. On
 //     three, a consumer has 160 registers, and K6-D72's scores, o and p
 //     take 132 of them: beside them the 32 staged bias values spill (12
@@ -381,6 +423,15 @@
 //     its scale into an FFMA. A ping-pong of the two consumers' products
 //     (named barriers, one warpgroup's turn at a time) was also tried on
 //     the card, and added nothing on top of these.
+//  10. The dense bias's code leaves the other kernels' alone: its Params
+//     fields come after the ones every kernel reads, and its per-thread
+//     state and softmax are function templates that only
+//     `attn_exact_dense_sm90_kernel` instantiates. With the fields inserted
+//     before the old ones and that code as lambdas in the shared body (both
+//     at once, not told apart), K1's code changed — Tk's arithmetic moved
+//     from uniform to vector registers — and K1 ran 2–3.5 % slower against
+//     the earlier build in turns (NVIDIA H100 80GB HBM3, 700.00 W); as they
+//     are, K1 and K2 compile to the earlier build's SASS.
 
 #include <cuda.h>  // CUtensorMap and the driver-API types of its encoder
 #include <cuda_bf16.h>
@@ -468,7 +519,9 @@ struct Params {
   // the key-padding bias (B|1, 1, 1, Tk) of a kernel's bias form (exact
   // single-tile or streaming, clamp transposed or row-block), bf16 or fp32
   // (bias_bf16), with its element strides over the batch and the keys (0
-  // where it broadcasts); null elsewhere
+  // where it broadcasts); or the dense bias (B|1, H|1, Tq|1, Tk|1) of
+  // `attn_exact_dense_sm90_kernel`, with its head and row strides below;
+  // null elsewhere
   const void* bias;
   long long bias_sb, bias_sk;
   int bias_bf16;
@@ -476,6 +529,12 @@ struct Params {
   int n_items;  // (batch·head, query tile of 64 rows a consumer) work items
   int n_pad;    // the reference's pad keys on this route (see the note)
   float scale;  // exact: 1/√D; the other modes: scale·log2e rounded to bf16
+  // the dense bias only (after the fields every kernel reads, whose offsets
+  // the other kernels' code was tuned with): its strides over the heads and
+  // the query rows, and whether it is bf16 with 4-byte-aligned pairs of
+  // neighbouring keys (an even base, key stride 1, even strides, even Tk)
+  long long bias_sh, bias_sq;
+  int bias_pairs;
 };
 
 // --- TMA --------------------------------------------------------------------
@@ -681,17 +740,19 @@ __device__ __forceinline__ void softmax_exact(float (&s)[64], float (&m)[2], flo
   }
 }
 
-// Exact with a key-padding bias: s₂ = s·scale·log2e + bias·log2e in one
-// FFMA (b2 holds bias·log2e, −∞ past Tk), the running max m of s₂ (log2
-// domain), the rescale factor of the earlier tiles (alpha), p = exp2(s₂ −
-// m) in place, Σp into l after rescaling it.
-__device__ __forceinline__ void softmax_exact_bias(float (&s)[64], const float (&b2)[32],
-                                                   float (&m)[2], float (&l)[2],
-                                                   float (&alpha)[2], float qk_scale) {
+// Exact with a bias: s₂ = s·scale·log2e + bias·log2e in one FFMA (b2(i)
+// gives score i's fp32(bias·log2e), −∞ past Tk: a key-padding bias from its
+// staged slot, a dense one from the consumer's own loads), the running max
+// m of s₂ (log2 domain), the rescale factor of the earlier tiles (alpha),
+// p = exp2(s₂ − m) in place, Σp into l after rescaling it.
+template <class B2>
+__device__ __forceinline__ void softmax_exact_bias(float (&s)[64], B2 b2, float (&m)[2],
+                                                   float (&l)[2], float (&alpha)[2],
+                                                   float qk_scale) {
   float mx[2] = {m[0], m[1]};
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
-    s[i] = fmaf(s[i], qk_scale, b2[2 * (i >> 2) + (i & 1)]);
+    s[i] = fmaf(s[i], qk_scale, b2(i));
     mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
   }
 #pragma unroll
@@ -744,6 +805,102 @@ __device__ __forceinline__ void read_bias(float (&b2)[32], const float* slot, in
   }
 }
 
+// --- the dense bias, read by the consumers ------------------------------------
+//
+// A consumer thread's scores of a key tile are 2 rows × 32 columns (above):
+// column pairs col_t + 8j + {0, 1} of its rows row_c and row_c + 8. `off`
+// holds the two rows' element offsets into the bias (b·sb + h·sh + row·sq,
+// a row past Tq read as row Tq − 1: it is never stored).
+
+// bf16 −∞ twice: the pair of two keys past Tk
+constexpr uint32_t kNegInfPair = 0xFF80FF80u;
+
+// The tile's 32 bf16 pairs (w[2j + r]: row r, columns col + 8j and col + 8j
+// + 1) as 4-byte loads, −∞ past Tk (Tk is even, so a pair is in or out).
+// At D=64 and 72 issued one tile ahead of their use (`kDensePrefetch`): a
+// load completes only where its register is first read.
+__device__ __forceinline__ void load_dense_pairs(uint32_t (&w)[32], const Params& p,
+                                                 const long long (&off)[2], int col) {
+  const unsigned short* const bias = static_cast<const unsigned short*>(p.bias);
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      w[2 * j + r] = col + 8 * j < p.Tk
+                         ? __ldg(reinterpret_cast<const unsigned int*>(bias + off[r] + col + 8 * j))
+                         : kNegInfPair;
+}
+
+// Score i's bias from the pairs, times log2e in fp32 (bf16 widens exactly).
+__device__ __forceinline__ float pair_bias_log2(const uint32_t (&w)[32], int i) {
+  const uint32_t x = w[2 * (i >> 2) + ((i >> 1) & 1)];
+  return __uint_as_float(i & 1 ? x & 0xFFFF0000u : x << 16) * kLog2e;
+}
+
+// Score i's bias loaded where it is used, in the bias's own dtype and
+// strides (fp32, or bf16 whose pairs are not 4-byte aligned), times log2e;
+// −∞ past Tk.
+__device__ __forceinline__ float dense_bias_log2(const Params& p, const long long (&off)[2],
+                                                 int col0, int i) {
+  const int col = col0 + 8 * (i >> 2) + (i & 1);
+  if (col >= p.Tk) return -INFINITY;
+  const long long at = off[(i >> 1) & 1] + col * p.bias_sk;
+  const float x = p.bias_bf16
+                      ? __uint_as_float((uint32_t)__ldg(static_cast<const unsigned short*>(p.bias) +
+                                                        at) << 16)
+                      : __ldg(static_cast<const float*>(p.bias) + at);
+  return x * kLog2e;
+}
+
+// The element offsets of a consumer thread's two rows of `item` (rows row_t
+// and row_t + 8 of its block_m-row query tile) in the dense bias.
+__device__ __forceinline__ void dense_rows(long long (&at)[2], const Params& p, int item,
+                                           int n_qt, int block_m, int row_t) {
+  const int bh = item / n_qt;
+  const int row = (item % n_qt) * block_m + row_t;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    at[r] = (bh / p.H) * p.bias_sb + (bh % p.H) * p.bias_sh +
+            (long long)min(row + 8 * r, p.Tq - 1) * p.bias_sq;
+}
+
+// The dense bias's pairs are loaded one tile ahead of their use (the next
+// tile of the item, or the next item's first), under this tile's p·v, at
+// D=64 and 72; at D=128 just after their own tile's q·kᵀ is issued, under
+// it (see the note)
+template <int D>
+constexpr bool kDensePrefetch = D != 128;
+
+// Key tile j's exact softmax in `item` with a dense bias: from the pairs in
+// `bp` (`kDensePrefetch`), then, one tile ahead, the next tile's pairs into
+// `bp` (the item's next, or the block's next item's first, under this
+// tile's p·v and that item's q load); or, where the bias has no aligned
+// bf16 pairs, each value loaded where it is used. `off`: this thread's rows
+// of `item`.
+template <int D>
+__device__ __forceinline__ void softmax_dense(float (&s)[64], float (&m)[2], float (&l)[2],
+                                              float (&alpha)[2], float qk_scale,
+                                              uint32_t (&bp)[32], const long long (&off)[2],
+                                              const Params& p, int item, int j, int n_tiles,
+                                              int n_qt, int block_m, int row_t, int col_t) {
+  const int col0 = j * kBlockN + col_t;
+  if (p.bias_pairs) {
+    softmax_exact_bias(s, [&](int i) { return pair_bias_log2(bp, i); }, m, l, alpha, qk_scale);
+    if (kDensePrefetch<D>) {
+      if (j + 1 < n_tiles) {
+        load_dense_pairs(bp, p, off, col0 + kBlockN);
+      } else if (const int next_item = item + gridDim.x; next_item < p.n_items) {
+        long long next[2];
+        dense_rows(next, p, next_item, n_qt, block_m, row_t);
+        load_dense_pairs(bp, p, next, col_t);
+      }
+    }
+  } else {
+    softmax_exact_bias(s, [&](int i) { return dense_bias_log2(p, off, col0, i); }, m, l, alpha,
+                       qk_scale);
+  }
+}
+
 // One key tile's softmax, masked only where the tile passes Tk (in the
 // exact mode with a bias, through the bias b2; X1-X3 never pass it). X1
 // has none: its p is s itself.
@@ -759,7 +916,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], const float (&b2)[B
     if (edge) softmax_nomax<true, BIAS, kClip, kSum>(s, b2, l, k0 + col_t, Tk);
     else softmax_nomax<false, BIAS, kClip, kSum>(s, b2, l, k0 + col_t, Tk);
   } else if constexpr (BIAS) {
-    softmax_exact_bias(s, b2, m, l, alpha, qk_scale);
+    softmax_exact_bias(s, [&](int i) { return b2[2 * (i >> 2) + (i & 1)]; }, m, l, alpha,
+                       qk_scale);
   } else {
     if (edge) softmax_exact<true>(s, m, l, alpha, qk_scale, k0 + col_t, Tk);
     else softmax_exact<false>(s, m, l, alpha, qk_scale, k0 + col_t, Tk);
@@ -778,14 +936,16 @@ __device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&p)[8][4]
 // The shared body of every kernel, one work item (batch·head, 64·NC-row
 // query tile) after another, from blockIdx.x in steps of gridDim.x; the
 // maps are the kernel's __grid_constant__ parameters (TMA reads them in
-// parameter space).
-template <int D, int MODE, bool BIAS, int NC>
+// parameter space). DENSE: the bias is a dense one, which the consumers
+// read themselves (no helpers, no slot).
+template <int D, int MODE, bool BIAS, int NC, bool DENSE = false>
 __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Params& p) {
   static_assert(NC == 2 || NC == 3, "two or three consumer warpgroups");
   static_assert(D != 64 || MODE == kExact || MODE == kClamp,
                 "D=64 is built for the exact and clamp modes only");
   static_assert(!ones_denominator(MODE) || (D == 72 && !BIAS),
                 "X4's ones column is D=72's tenth column block, without a bias");
+  static_assert(!DENSE || (BIAS && MODE == kExact), "a dense bias on the exact mode only");
   constexpr int kBlockM = 64 * NC;  // query rows per work item
   constexpr int kConsumerThreads = 128 * NC;
   // registers a thread: the producer gives its own away, the consumers take
@@ -799,8 +959,8 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
   constexpr TileOf<D> kQ = S::kQ, kKV = S::kKV;
   constexpr int kStages = S::kStages;
   // the producer's helper warps scale q (every mode but the exact one) and
-  // write the bias (BIAS)
-  constexpr bool kHelpers = scaled_q(MODE) || BIAS;
+  // write a key-padding bias (BIAS)
+  constexpr bool kHelpers = scaled_q(MODE) || (BIAS && !DENSE);
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows of 128 bytes
   const uint32_t raw = smem_u32(smem_raw);
@@ -833,8 +993,9 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
       mbar_init(q_ready(qb), kHelperThreads);
     }
     for (int s = 0; s < kStages; ++s) {
-      // with a bias, the helpers' arrivals too: the tile's bias is written
-      mbar_init(k_full(s), 1 + (BIAS ? kHelperThreads : 0));
+      // with a key-padding bias, the helpers' arrivals too: the tile's bias
+      // is written
+      mbar_init(k_full(s), 1 + (BIAS && !DENSE ? kHelperThreads : 0));
       mbar_init(v_full(s), 1);
       mbar_init(k_empty(s), kConsumerThreads);
       mbar_init(v_empty(s), kConsumerThreads);
@@ -982,7 +1143,17 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
                    : row * 144 + jb * 16 + 2 * col_t;
   };
 
-  float b2[BIAS ? 32 : 1];
+  float b2[BIAS && !DENSE ? 32 : 1];
+  // DENSE: this thread's two rows of the item (`dense_rows`) and the pairs
+  // of the next tile whose softmax reads them (`softmax_dense`)
+  long long off[DENSE ? 2 : 1];
+  uint32_t bp[DENSE ? 32 : 1];
+  if constexpr (DENSE && kDensePrefetch<D>) {
+    if (p.bias_pairs && blockIdx.x < p.n_items) {
+      dense_rows(off, p, blockIdx.x, n_qt, kBlockM, 64 * c + row_c);
+      load_dense_pairs(bp, p, off, col_t);
+    }
+  }
   int g = 0, it = 0;
   for (int item = blockIdx.x; item < p.n_items; item += gridDim.x, ++it, g += n_tiles) {
     const int bh = item / n_qt;
@@ -990,6 +1161,7 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
     const int q0 = (item % n_qt) * kBlockM;
     const int qb = it % kQBufs;
     const uint32_t q_tile = q_s(qb);
+    if constexpr (DENSE) dense_rows(off, p, item, n_qt, kBlockM, 64 * c + row_c);
     mbar_wait(q_in(qb), (it / kQBufs) & 1);
 
     float o[kAcc];
@@ -1009,12 +1181,18 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
 #pragma unroll
       for (int kk = 0; kk < kQkSteps; ++kk) wgmma_ss(s, q_desc(q_tile, kk), k_desc(s0, kk), kk > 0);
       wgmma_commit();
+      if constexpr (DENSE && !kDensePrefetch<D>) {
+        if (p.bias_pairs) load_dense_pairs(bp, p, off, col_t);  // under the q·kᵀ
+      }
       wgmma_wait<0>();
       fence_regs(s);
-      if constexpr (BIAS) read_bias(b2, bias_slot(s0), col_t);
+      if constexpr (BIAS && !DENSE) read_bias(b2, bias_slot(s0), col_t);
       mbar_arrive(k_empty(s0));
       if (n_tiles == 1) mbar_arrive(q_empty(qb));  // the item's last read of q
-      softmax_tile<MODE, BIAS>(s, b2, m, l, alpha, qk_scale, 0, col_t, p.Tk);
+      if constexpr (DENSE)
+        softmax_dense<D>(s, m, l, alpha, qk_scale, bp, off, p, item, 0, n_tiles, n_qt, kBlockM,
+                         64 * c + row_c, col_t);
+      else softmax_tile<MODE, BIAS>(s, b2, m, l, alpha, qk_scale, 0, col_t, p.Tk);
       pack_p(s, pf);
     }
 
@@ -1027,6 +1205,9 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
 #pragma unroll
       for (int kk = 0; kk < kQkSteps; ++kk) wgmma_ss(s, q_desc(q_tile, kk), k_desc(sj, kk), kk > 0);
       wgmma_commit();
+      if constexpr (DENSE && !kDensePrefetch<D>) {
+        if (p.bias_pairs) load_dense_pairs(bp, p, off, j * kBlockN + col_t);  // under the q·kᵀ
+      }
       mbar_wait(v_full(sp), ((g + j - 1) / kStages) & 1);
       fence_regs(o);
       wgmma_fence();
@@ -1036,10 +1217,13 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
       // the scores first; their softmax runs under the p·v products
       wgmma_wait<1>();
       fence_regs(s);
-      if constexpr (BIAS) read_bias(b2, bias_slot(sj), col_t);
+      if constexpr (BIAS && !DENSE) read_bias(b2, bias_slot(sj), col_t);
       mbar_arrive(k_empty(sj));
       if (j == n_tiles - 1) mbar_arrive(q_empty(qb));  // the item's last read of q
-      softmax_tile<MODE, BIAS>(s, b2, m, l, alpha, qk_scale, j * kBlockN, col_t, p.Tk);
+      if constexpr (DENSE)
+        softmax_dense<D>(s, m, l, alpha, qk_scale, bp, off, p, item, j, n_tiles, n_qt, kBlockM,
+                         64 * c + row_c, col_t);
+      else softmax_tile<MODE, BIAS>(s, b2, m, l, alpha, qk_scale, j * kBlockN, col_t, p.Tk);
       wgmma_wait<0>();
       fence_regs(o);
 #pragma unroll
@@ -1144,6 +1328,15 @@ __global__ void __launch_bounds__(128 * (kExactConsumers<D> + 1), 1)
     attn_exact_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
   attn_sm90_body<D, kExact, BIAS, kExactConsumers<D>>(maps.m, p);
 }
+// K2 with a dense bias: two consumer warpgroups at every head dim, whose 232
+// registers hold the bias's 32 prefetched pairs beside s, o and p (see the
+// note)
+constexpr int kDenseConsumers = 2;
+template <int D>
+__global__ void __launch_bounds__(128 * (kDenseConsumers + 1), 1)
+    attn_exact_dense_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
+  attn_sm90_body<D, kExact, true, kDenseConsumers, true>(maps.m, p);
+}
 // K4's consumer warpgroups: two, three at D=64 without a bias (see the note)
 template <int D, bool BIAS>
 constexpr int kClampConsumers = D == 64 && !BIAS ? 3 : 2;
@@ -1199,11 +1392,15 @@ Launch launch_of(Kernel kernel) {
   return {kernel, NC, Smem<D, NC>::kBytes, scaled_q(MODE)};
 }
 
-// The kernel of `mode` at head dim D, with or without a bias, or none where
-// it is not built: X4 (mode 6) at D=72 only, X1-X3 (modes 4, 5, 7) not at
-// D=64, no bias in X1-X4 (modes 4-7).
+// The kernel of `mode` at head dim D, with or without a bias (a dense one
+// in mode 2 only), or none where it is not built: X4 (mode 6) at D=72
+// only, X1-X3 (modes 4, 5, 7) not at D=64, no bias in X1-X4 (modes 4-7).
 template <int D>
-Launch sm90_launch(int mode, bool bias) {
+Launch sm90_launch(int mode, bool bias, bool dense) {
+  if (dense)
+    return mode == 2 && bias
+               ? launch_of<D, kDenseConsumers, kExact>(attn_exact_dense_sm90_kernel<D>)
+               : Launch{};
   switch (mode) {
     case 0:
       if (bias)
@@ -1261,28 +1458,44 @@ Launch sm90_launch(int mode, bool bias) {
 // counts its zero pad keys elsewhere); 6: its clamp softmax with the
 // denominator from the p·v products (X4, D=72, any Tk); 7: its bf16(q·kᵀ)·v
 // with no softmax (X1, Tk % 128 == 0, as 4 and 5). bias: null, or a
-// key-padding bias (B|1, 1, 1, Tk) in modes 0-3, bf16 (bias_bf16 = 1) or
-// fp32, with element strides bias_strides (batch, key), 0 where it
-// broadcasts (`bias_operand`). scale = 1/√D, which the exact modes (0, 2) multiply
-// into the fp32 scores; q_scale = scale·log2e rounded to bf16, which the
-// helpers of modes 1 and 3-6 multiply into q (`scaled_q`); mode 7 reads
-// neither. Mode 2, and any
-// mode at Tk ≤ kPersistentTiles · 128, launches one block per SM, which
-// walks the work items; the others one block per item. Returns 0, a cudaError_t of the
-// launch, or 100000 + the CUresult of a refused tensor map.
+// key-padding bias (B|1, 1, 1, Tk) in modes 0-3 (`bias_operand`), or with
+// bias_dense = 1 a bias (B|1, H|1, Tq|1, Tk|1) in mode 2
+// (`dense_bias_operand`; `attn_exact_dense_sm90_kernel`); bf16 (bias_bf16 =
+// 1) or fp32, with element strides bias_strides (batch, head, query row,
+// key), 0 where it broadcasts (a key-padding bias's head and row strides
+// are 0); bias_pairs = 1 says a dense bf16 bias has 4-byte-aligned pairs of
+// neighbouring keys (an even base, key stride 1, even strides and an even
+// Tk), which the entry checks. scale = 1/√D, which the exact modes (0, 2)
+// multiply into the fp32 scores; q_scale = scale·log2e rounded to bf16,
+// which the helpers of modes 1 and 3-6 multiply into q (`scaled_q`); mode 7
+// reads neither. n_pad: the reference's pad keys on the route (`pad_keys`:
+// to a multiple of 128 on the single-tile and clamp routes, of the
+// streaming route's key block in mode 0, none on the XLA route of a dense
+// bias past the single tile); 0 in modes 4-7, whatever is passed: X1-X3's
+// Tk is a multiple of 128, X4's reference masks them. Mode 2, and any mode
+// at Tk ≤ kPersistentTiles · 128, launches one block per SM, which walks
+// the work items; the others one block per item. Returns 0, a cudaError_t
+// of the launch, or 100000 + the CUresult of a refused tensor map.
 extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void* v, void* o,
                                        const unsigned long long* maps,
                                        const long long* o_strides, const void* bias,
-                                       const long long* bias_strides, int bias_bf16, int B,
-                                       int H, int Tq, int Tk, float scale, float q_scale,
-                                       int mode, void* stream) {
-  if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || mode < 0 || mode > 7 ||
+                                       const long long* bias_strides, int bias_bf16,
+                                       int bias_dense, int bias_pairs, int B, int H, int Tq,
+                                       int Tk, float scale, float q_scale, int mode, int n_pad,
+                                       void* stream) {
+  if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || mode < 0 || mode > 7 || n_pad < 0 ||
       ((mode == 4 || mode == 5 || mode == 7) && Tk % kBlockN != 0))
     return (int)cudaErrorInvalidValue;
   const bool has_bias = bias != nullptr;
-  const Launch launch = maps[0] == 128 ? sm90_launch<128>(mode, has_bias)
-                        : maps[0] == 72 ? sm90_launch<72>(mode, has_bias)
-                        : maps[0] == 64 ? sm90_launch<64>(mode, has_bias)
+  const bool dense = has_bias && bias_dense;
+  if (dense && bias_pairs &&
+      !(bias_bf16 && reinterpret_cast<uintptr_t>(bias) % 4 == 0 && bias_strides[3] == 1 &&
+        Tk % 2 == 0 && bias_strides[0] % 2 == 0 && bias_strides[1] % 2 == 0 &&
+        bias_strides[2] % 2 == 0))
+    return (int)cudaErrorInvalidValue;
+  const Launch launch = maps[0] == 128 ? sm90_launch<128>(mode, has_bias, dense)
+                        : maps[0] == 72 ? sm90_launch<72>(mode, has_bias, dense)
+                        : maps[0] == 64 ? sm90_launch<64>(mode, has_bias, dense)
                                         : Launch{};
   const int block_m = 64 * launch.consumers;  // query rows per work item
   const long long n_items = (long long)B * H * ((Tq + block_m - 1) / block_m);
@@ -1336,22 +1549,20 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
   Params p;
   p.bias = bias;
   p.bias_sb = has_bias ? bias_strides[0] : 0;
-  p.bias_sk = has_bias ? bias_strides[1] : 0;
+  p.bias_sh = has_bias ? bias_strides[1] : 0;
+  p.bias_sq = has_bias ? bias_strides[2] : 0;
+  p.bias_sk = has_bias ? bias_strides[3] : 0;
   p.bias_bf16 = bias_bf16;
+  p.bias_pairs = dense && bias_pairs;
   p.H = H;
   p.Tq = Tq;
   p.Tk = Tk;
   p.n_items = (int)n_items;
-  // the reference's pad keys: to a multiple of 128, or of the streaming
-  // route's key block min(1536, round_up(Tk, 128)); none in the harness's
-  // modes: X1-X3's Tk is a multiple of 128, X4's reference masks them
-  const int tk128 = (Tk + 127) / 128 * 128;
-  const int bk = mode == 0 ? (tk128 < 1536 ? tk128 : 1536) : 128;
-  p.n_pad = mode >= 4 ? 0 : (Tk + bk - 1) / bk * bk - Tk;
+  p.n_pad = mode >= 4 ? 0 : n_pad;
   p.scale = launch.q_prescaled ? q_scale : scale;
   // above 48 KB dynamic shared memory needs an opt-in (once per kernel)
-  static bool opted_in[3][8][2] = {};
-  bool& opted = opted_in[maps[0] == 128 ? 0 : maps[0] == 72 ? 1 : 2][mode][has_bias];
+  static bool opted_in[3][8][3] = {};
+  bool& opted = opted_in[maps[0] == 128 ? 0 : maps[0] == 72 ? 1 : 2][mode][dense ? 2 : has_bias];
   if (!opted) {
     const cudaError_t err = cudaFuncSetAttribute(
         launch.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, launch.smem);

@@ -41,7 +41,11 @@ take the Hopper body of ``csrc/attention_sm90.cu`` (wgmma fed by TMA;
 the exact single-tile route (K1; K2 with a bias) — PixArt's 256²
 self-attention and its text cross-attention at 256² and 512², FLUX.1-dev's
 joint attention at 256², and the reference's width-reduced FLUX (head dim
-64) in its routing experiment (scripts/exp_attn_pixart256.py); the
+64) in its routing experiment (scripts/exp_attn_pixart256.py) — and, on
+that route and on the XLA route of a dense bias past the tile, with any
+other bias that broadcasts (dense, per head, per query row, strided:
+``attn_exact_dense_sm90_kernel``, read by the consumers in its own dtype;
+`dense_bias_operand`), which no served path sends; the
 transposed clamp route (K4, with a bias too) — PixArt's 1024²
 self-attention and its text cross-attention at 1024² and PixArt-Σ's at
 2048², and the width-reduced FLUX at 256² as the router sends it; the
@@ -58,13 +62,13 @@ whose q, k and v TMA can map take the fp32 body of
 3×TF32 split; `_takes_f32`) on every route — K1, K2 (with any bias that
 broadcasts, dense ones too), K4, K5 and K6 — under the same counters. The
 body of ``csrc/attention.cu`` (a compile-time variant per route) takes
-the rest: bf16 dense biases and other head dims on its mma.sync kernels,
-and fp32 at other head dims or in strides TMA cannot map on its SIMT
-kernel. The choice depends on route, dtype, head dim, bias and (fp32) the
-operands' strides only. A bf16 call for the Hopper
-body whose operands TMA cannot map (`tma_operand`: a 16-byte-aligned base
-and strides), or whose bias the body does not read (`bias_operand`: bf16
-or fp32), raises; it never drops back to the other body.
+the rest: bf16 at other head dims on its mma.sync kernels, and fp32 at
+other head dims or in strides TMA cannot map on its SIMT kernel. The
+choice depends on route, dtype, head dim, bias and (fp32) the operands'
+strides only. A bf16 call for the Hopper body whose operands TMA cannot
+map (`tma_operand`: a 16-byte-aligned base and strides), or whose bias the
+body does not read (`bias_operand`, `dense_bias_operand`: bf16 or fp32),
+raises; it never drops back to the other body.
 
 The exact routes' pad keys. The reference pads the keys of the exact
 routes with keys of score −1e9 whose rows of v are 0: to round_up(Tk, 128)
@@ -185,9 +189,11 @@ def _sm90_kernel():
             ctypes.c_void_p,  # o
             ctypes.POINTER(ctypes.c_ulonglong),  # 3 × 11 tensor-map arguments
             ctypes.POINTER(ctypes.c_longlong),  # o's strides (b, t, h)
-            ctypes.c_void_p,  # key-padding bias (modes 0-3) or NULL
-            ctypes.POINTER(ctypes.c_longlong),  # its strides (batch, key)
+            ctypes.c_void_p,  # key-padding bias (modes 0-3), dense bias (mode 2) or NULL
+            ctypes.POINTER(ctypes.c_longlong),  # its strides (batch, head, query row, key)
             ctypes.c_int,  # the bias is bf16 (1) or fp32 (0)
+            ctypes.c_int,  # the bias is dense (1) or a key-padding one (0)
+            ctypes.c_int,  # a dense bf16 bias has 4-byte-aligned key pairs (1)
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H Tq Tk
             ctypes.c_float,  # scale: 1/√D (the exact modes)
             ctypes.c_float,  # q_scale: bf16(scale·log2e) (the modes with a pre-scaled q)
@@ -196,6 +202,7 @@ def _sm90_kernel():
             # 4 the harness's no max (X2), 5 its max on a pre-scaled q (X3),
             # 6 its clamp with the denominator from the p·v products (X4),
             # 7 its bf16(q·kᵀ)·v with no softmax (X1)
+            ctypes.c_int,  # n_pad: the route's pad keys (`pad_keys`; 0 in modes 4-7)
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -577,36 +584,67 @@ def bias_operand(bias: torch.Tensor, batch: int) -> tuple[list[int], int]:
     return strides, _SM90_BIAS_DTYPES[bias.dtype]
 
 
+def dense_bias_operand(bias: torch.Tensor, tk: int) -> tuple[list[int], int, int]:
+    """The launch arguments of the Hopper body's dense bias (B|1, H|1,
+    Tq|1, Tk|1) on the exact single-tile and XLA routes
+    (``attn_exact_dense_sm90_kernel``): its element strides over the batch,
+    the heads, the query rows and the keys, each 0 where the bias
+    broadcasts; its dtype's code (1 bf16, 0 fp32); and whether its
+    consumers may load it as 4-byte pairs of neighbouring keys (1: bf16
+    with an even element offset of the base, key stride 1, even strides and
+    an even `tk`), else they load each value where it is used. Any strides
+    and any element-aligned base will do. Raises ValueError for a bias in
+    another dtype."""
+    if bias.dtype not in _SM90_BIAS_DTYPES:
+        raise ValueError(f"the Hopper body reads a bf16 or fp32 bias; got {bias.dtype}")
+    strides = [0 if bias.shape[i] == 1 else bias.stride(i) for i in range(4)]
+    pairs = (bias.dtype == torch.bfloat16 and bias.data_ptr() % 4 == 0 and strides[3] == 1
+             and tk % 2 == 0 and all(s % 2 == 0 for s in strides[:3]))
+    return strides, _SM90_BIAS_DTYPES[bias.dtype], int(pairs)
+
+
 def _takes_sm90(counter: str, q: torch.Tensor, bias: Optional[torch.Tensor]) -> bool:
     """Whether a call of the route that counts under `counter` goes to the
     Hopper body (csrc/attention_sm90.cu): bf16 at a head dim the body is
     built for on that route (`_SM90_MODES`), without a bias or, on a route
-    whose kernel takes one (`_SM90_BIAS`), with a key-padding bias. A
-    function of route, dtype, head dim and bias only."""
+    whose kernel takes one (`_SM90_BIAS`), with a key-padding bias; on the
+    exact single-tile route (``attention``: the XLA route of a dense bias
+    past the tile too) with any bias. A function of route, dtype, head dim
+    and bias only."""
     return (q.dtype == torch.bfloat16 and q.shape[-1] in _SM90_MODES[counter][1]
-            and (bias is None or (counter in _SM90_BIAS
-                                  and _key_padding_bias_ok(bias, q.shape[0]))))
+            and (bias is None or counter == "attention" or (
+                counter in _SM90_BIAS and _key_padding_bias_ok(bias, q.shape[0]))))
 
 
 def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
-                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 bias: Optional[torch.Tensor] = None, n_pad: int = 0) -> torch.Tensor:
     """One launch of the Hopper body in the mode of counter `name`
-    (``attention``: exact single-tile, K1, or K2 with a key-padding `bias`;
-    ``attention_long``: clamp transposed, K4; ``attention_rowblock``: clamp
-    row-block, K5, each also with a key-padding `bias`;
-    ``attention_flash``: exact streaming, K6, also with a key-padding
-    `bias`; ``xattn_nomax`` and ``xattn_max``: the attention-variant
-    harness's exp2 softmax without and with the max on a pre-scaled q, X2
-    and X3, no bias, Tk % 128 == 0; ``xattn_fd``: its clamp softmax with
-    the denominator from the p·v products, X4, D=72, no bias, any Tk;
-    ``xattn_matmul_only``: its bf16(q·kᵀ)·v with no softmax, X1, no bias,
-    Tk % 128 == 0).
+    (``attention``: exact single-tile, K1, or K2 with a key-padding `bias`
+    or, under its own kernel name, any other `bias` that broadcasts from
+    (B|1, H|1, Tq|1, Tk|1); ``attention_long``: clamp transposed, K4;
+    ``attention_rowblock``: clamp row-block, K5, each also with a
+    key-padding `bias`; ``attention_flash``: exact streaming, K6, also with
+    a key-padding `bias`; ``xattn_nomax`` and ``xattn_max``: the
+    attention-variant harness's exp2 softmax without and with the max on a
+    pre-scaled q, X2 and X3, no bias, Tk % 128 == 0; ``xattn_fd``: its
+    clamp softmax with the denominator from the p·v products, X4, D=72, no
+    bias, any Tk; ``xattn_matmul_only``: its bf16(q·kᵀ)·v with no softmax,
+    X1, no bias, Tk % 128 == 0), with the route's `n_pad` pad keys
+    (`pad_keys`; the harness's modes take none).
     Raises where TMA cannot map an operand (`tma_operand`) or the body does
-    not read the bias (`bias_operand`). Counts it under `name`, or
-    ``name_bias``."""
+    not read the bias (`bias_operand`, `dense_bias_operand`). Counts it
+    under `name`, or ``name_bias``."""
     maps = [a for t, n in ((q, "q"), (k, "k"), (v, "v")) for a in tma_operand(t, n)]
     b, tq, h, d = q.shape
-    bias_strides, bias_bf16 = ([0, 0], 0) if bias is None else bias_operand(bias, b)
+    tk = k.shape[1]
+    dense = bias is not None and not _key_padding_bias_ok(bias, b)
+    if bias is None:
+        bias_strides, bias_bf16, pairs = [0, 0, 0, 0], 0, 0
+    elif dense:
+        bias_strides, bias_bf16, pairs = dense_bias_operand(bias, tk)
+    else:
+        (sb, sk), bias_bf16 = bias_operand(bias, b)
+        bias_strides, pairs = [sb, 0, 0, sk], 0
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     mode = _SM90_MODES[name][0]
@@ -617,8 +655,8 @@ def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
             (ctypes.c_ulonglong * len(maps))(*maps),
             (ctypes.c_longlong * 3)(out.stride(0), out.stride(1), out.stride(2)),
             None if bias is None else bias.data_ptr(),
-            (ctypes.c_longlong * 2)(*bias_strides), bias_bf16,
-            b, h, tq, k.shape[1], 1.0 / math.sqrt(d), clamp_scale(d, q.dtype), mode,
+            (ctypes.c_longlong * 4)(*bias_strides), bias_bf16, int(dense), pairs,
+            b, h, tq, tk, 1.0 / math.sqrt(d), clamp_scale(d, q.dtype), mode, n_pad,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if status != 0:
@@ -683,7 +721,7 @@ def transposed_attention(
     if q.device.type == "cpu":
         return transposed_attention_reference(q, k, v, bias)
     if _takes_sm90("attention_long", q, bias):
-        return _launch_sm90(q, k, v, "attention_long", bias)
+        return _launch_sm90(q, k, v, "attention_long", bias, pad_keys("clamp", k.shape[1]))
     if _takes_f32(q, k, v):
         return _launch_f32(q, k, v, "attention_long", bias, pad_keys("clamp", k.shape[1]))
     return _launch(q, k, v, bias, 1, pad_keys("clamp", k.shape[1]))
@@ -702,7 +740,8 @@ def rowblock_attention(
     if q.device.type == "cpu":
         return rowblock_attention_reference(q, k, v, bias)
     if _takes_sm90("attention_rowblock", q, bias):
-        return _launch_sm90(q, k, v, "attention_rowblock", bias)
+        return _launch_sm90(q, k, v, "attention_rowblock", bias,
+                            pad_keys("rowblock", k.shape[1]))
     if _takes_f32(q, k, v):
         return _launch_f32(q, k, v, "attention_rowblock", bias, pad_keys("rowblock", k.shape[1]))
     return _launch(q, k, v, bias, 2, pad_keys("rowblock", k.shape[1]))
@@ -722,7 +761,7 @@ def flash_attention(
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, bias)
     if _takes_sm90("attention_flash", q, bias):
-        return _launch_sm90(q, k, v, "attention_flash", bias)
+        return _launch_sm90(q, k, v, "attention_flash", bias, pad_keys("flash", k.shape[1]))
     if _takes_f32(q, k, v):
         return _launch_f32(q, k, v, "attention_flash", bias, pad_keys("flash", k.shape[1]))
     return _launch(q, k, v, bias, 3, pad_keys("flash", k.shape[1]))
@@ -744,7 +783,7 @@ def single_tile_attention(
     if q.device.type == "cpu":
         return fused_attention_reference(q, k, v, bias, n_pad)
     if _takes_sm90("attention", q, bias):
-        return _launch_sm90(q, k, v, "attention", bias)
+        return _launch_sm90(q, k, v, "attention", bias, n_pad)
     if _takes_f32(q, k, v):
         return _launch_f32(q, k, v, "attention", bias, n_pad)
     return _launch(q, k, v, bias, 0, n_pad)
@@ -780,7 +819,7 @@ def fused_attention(
     if q.device.type == "cpu":
         return fused_attention_reference(q, k, v, bias, n_pad)
     if _takes_sm90("attention", q, bias):
-        return _launch_sm90(q, k, v, "attention", bias)
+        return _launch_sm90(q, k, v, "attention", bias, n_pad)
     if _takes_f32(q, k, v):
         return _launch_f32(q, k, v, "attention", bias, n_pad)
     return _launch(q, k, v, bias, 0, n_pad)

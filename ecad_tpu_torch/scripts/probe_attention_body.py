@@ -22,6 +22,15 @@ Rows, bf16 at the shape the main path gives each kernel:
 * K2 at PixArt-256's cross-attention (16, 256, 16, 72) → 120 keys with the
   text bias in bf16, with ``no_bias_loads`` (the helper warps write 0 for
   the bias);
+* K2 with a dense bf16 bias (B, H, Tq, Tk) (``attn_exact_dense_sm90_kernel``)
+  at PixArt-256's cross-attention (16, 256, 16, 72) → 120, at FLUX-256's
+  width (4, 768, 24, 128) → 768 and past the single tile (2, 4096, 16, 72)
+  → 4096, and at the width-reduced FLUX-256's (8, 768, 24, 64) → 768, with
+  ``dense_no_prefetch`` (each tile's bias pairs loaded just after its own
+  q·kᵀ is issued, D=128's form, at every head dim), ``dense_prefetch``
+  (one tile ahead at every head dim, D=128 too), ``dense_scalar_loads`` (the
+  form a bias without aligned pairs takes: each value a 2-byte load where
+  it is used) and ``no_dense_bias_loads`` (pairs of 0 for the bias);
 * K4 with a bias at PixArt-1024's cross-attention (4, 4096, 16, 72) → 120
   keys with the text bias in bf16, with ``one_block_per_item`` (a grid of
   items instead of one persistent block per SM), ``items_in_runs`` (a run
@@ -96,7 +105,7 @@ producer-side warpgroup: three helper warps instead of seven), ``no_vt``
 or of q·kᵀ).
 
 A variant that only reschedules the same arithmetic (``two_consumers``,
-``helpers_three_warps``,
+``helpers_three_warps``, ``dense_no_prefetch``, ``dense_prefetch``, ``dense_scalar_loads``,
 ``k6_bias_three_consumers``, ``d64_two_consumers``, ``clamp_two_consumers``,
 ``clamp_bias_three_consumers``, ``clamp_three_consumers``, ``rowblock_three_consumers``,
 ``rowblock_two_consumers``, ``one_block_per_item``,
@@ -186,6 +195,19 @@ K4_BIAS_VARIANTS = {
                   "    if (t < 0) {\n      // rows past Tq are outside the map")],
 }
 K5_BIAS_VARIANTS = {"no_bias_loads": K2_VARIANTS["no_bias_loads"]}
+# K2 with a dense bias: its pairs loaded under their own tile's q·kᵀ or one
+# tile ahead at every head dim, its values loaded one by one at their use,
+# or not loaded at all
+K2_DENSE_VARIANTS = {
+    "dense_no_prefetch": [("constexpr bool kDensePrefetch = D != 128;",
+                           "constexpr bool kDensePrefetch = false;")],
+    "dense_prefetch": [("constexpr bool kDensePrefetch = D != 128;",
+                        "constexpr bool kDensePrefetch = true;")],
+    "dense_scalar_loads": [("  p.bias_pairs = dense && bias_pairs;", "  p.bias_pairs = 0;")],
+    "no_dense_bias_loads": [
+        ("? __ldg(reinterpret_cast<const unsigned int*>(bias + off[r] + col + 8 * j))",
+         "? 0u")],
+}
 # K5 at D=72 and 64: the other consumer count of each width and bias form
 ROWBLOCK_CONSUMERS = "constexpr int kRowblockConsumers = D != 128 && !BIAS ? 3 : 2;"
 K5_VARIANTS = {"rowblock_two_consumers": [
@@ -290,8 +312,9 @@ X4_VARIANTS = {
          '        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db_tail), "r"(1),\n'
          '          "l"(db_tail + 128));\n  }\n}')],
 }
-# row → (q shape, keys, text lengths of the bias or None, the wrapper's
-# counter, its variants, timing reps and calls per rep)
+# row → (q shape, keys, text lengths of the bias, "dense" for a dense bf16
+# (B, H, Tq, Tk) bias, or None, the wrapper's counter, its variants, timing
+# reps and calls per rep)
 ROWS = {
     "k6_pixart2048": ((2, 16384, 16, 72), 16384, None, "attention_flash", K6_VARIANTS, 3, 5),
     "k6_bias_pixart2048": ((2, 16384, 16, 72), 16384, (15384, 9000), "attention_flash",
@@ -300,6 +323,14 @@ ROWS = {
                          3, 5),
     "k2_pixart256_cross": ((16, 256, 16, 72), 120, (7, 60, 120), "attention", K2_VARIANTS,
                            7, 20),
+    "k2_dense_pixart256_cross": ((16, 256, 16, 72), 120, "dense", "attention",
+                                 K2_DENSE_VARIANTS, 7, 20),
+    "k2_dense_flux256": ((4, 768, 24, 128), 768, "dense", "attention", K2_DENSE_VARIANTS,
+                         7, 20),
+    "k2_dense_past_the_tile": ((2, 4096, 16, 72), 4096, "dense", "attention",
+                               K2_DENSE_VARIANTS, 3, 5),
+    "k2_dense_dim1536": ((8, 768, 24, 64), 768, "dense", "attention", K2_DENSE_VARIANTS,
+                         7, 20),
     "k4_bias_pixart1024_cross": ((4, 4096, 16, 72), 120, (7, 60, 120), "attention_long",
                                  K4_BIAS_VARIANTS, 7, 20),
     "k5_bias_flux1024": ((1, 4608, 24, 128), 4608, (4508,), "attention_rowblock",
@@ -445,7 +476,7 @@ EXACT = ("two_consumers", "helpers_three_warps", "k6_bias_three_consumers", "d64
          "rowblock_three_consumers",
          "rowblock_two_consumers", "one_block_per_item", "items_in_runs",
          "bias_after_q", "xmax_two_consumers", "xnomax_two_consumers", "xfd_three_consumers",
-         "xmatmul_two_consumers")
+         "xmatmul_two_consumers", "dense_no_prefetch", "dense_prefetch", "dense_scalar_loads")
 # the device kernel of each counter (its name, and whether it carries the
 # BIAS flag in its template arguments)
 KERNELS = {"attention_flash": ("attn_flash_sm90_kernel", True),
@@ -458,10 +489,14 @@ KERNELS = {"attention_flash": ("attn_flash_sm90_kernel", True),
            "xattn_matmul_only": ("attn_xmatmul_sm90_kernel", False)}
 
 
-def kernel_symbol(counter: str, d: int, bias: bool, body: str = "sm90") -> str:
+def kernel_symbol(counter: str, d: int, bias: bool, body: str = "sm90",
+                  dense: bool = False) -> str:
     """The part of the mangled name that tells a row's kernel apart, e.g.
     ``attn_flash_sm90_kernelILi72ELb1E`` (``attn_flash_f32_sm90_kernel...``
-    on the fp32 body)."""
+    on the fp32 body; ``attn_exact_dense_sm90_kernelILi72E`` for K2 with a
+    dense bias)."""
+    if dense:
+        return f"attn_exact_dense_sm90_kernelILi{d}E"
     name, flagged = KERNELS[counter]
     if body == "f32":
         name = name.replace("_sm90_kernel", "_f32_sm90_kernel")
@@ -550,7 +585,10 @@ def main(argv=None) -> list[dict]:
             q, k, v = (torch.randn(s, generator=gen, device="cuda").to(BODIES[body][4])
                        for s in (shape, (b, tk, h, d), (b, tk, h, d)))
             bias = None
-            if lengths is not None:  # the models' text bias, (1 − mask)·−10000 in bf16
+            if lengths == "dense":
+                bias = torch.randn((b, h, shape[1], tk), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+            elif lengths is not None:  # the models' text bias, (1 − mask)·−10000 in bf16
                 keep = torch.arange(tk, device="cuda")[None] < torch.tensor(
                     [lengths[i % len(lengths)] for i in range(b)], device="cuda")[:, None]
                 bias = torch.where(keep, 0.0, -10000.0).to(torch.bfloat16)[:, None, None, :]
@@ -561,7 +599,9 @@ def main(argv=None) -> list[dict]:
                     if body == "f32":
                         return A._launch_f32(q, k, v, counter, bias,
                                              A.pad_keys(ROUTES[counter], tk))
-                    return A._launch_sm90(q, k, v, counter, bias)
+                    return A._launch_sm90(q, k, v, counter, bias,
+                                          A.pad_keys(ROUTES[counter], tk)
+                                          if counter in ROUTES else 0)
                 return go
 
             names = ["source", *variants]
@@ -574,7 +614,7 @@ def main(argv=None) -> list[dict]:
             times = {n: [] for n in names}
             for n in (names + names[::-1]) * args.rounds:
                 times[n].append(device_ms(call(n), reps, inner)[0])
-            symbol = kernel_symbol(counter, d, bias is not None, body)
+            symbol = kernel_symbol(counter, d, bias is not None, body, lengths == "dense")
             spilled = {n: [b for k, b in spills[body, n].items() if symbol in k] for n in names}
             result = {"row": row, "body": body, "shape": list(shape), "keys": tk, "card": card,
                       "ms": times, "bit_identical": same, "spill_bytes": spilled,

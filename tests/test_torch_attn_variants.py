@@ -413,7 +413,8 @@ def test_harness_kernel_routing(case, monkeypatch):
     fn, dtype, d, tk, want = HARNESS_ROUTES[case]
     calls = []
     monkeypatch.setattr(port_attention, "_launch_sm90",
-                        lambda q, k, v, counter, bias=None: calls.append(("sm90", counter)))
+                        lambda q, k, v, counter, bias=None, n_pad=0: calls.append(
+                            ("sm90", counter)))
     monkeypatch.setattr(port_attention, "_launch",
                         lambda q, k, v, bias, variant, n_pad: calls.append(("mma", variant)))
     tdt = torch.bfloat16 if dtype == "bf16" else torch.float32

@@ -143,6 +143,30 @@ def test_attention_bf16_d64_matches_pallas(bias):
     )
 
 
+@pytest.mark.parametrize("d", [64, 72, 128])
+def test_attention_bf16_dense_bias_matches_pallas(d):
+    """K2 with a dense bias in bf16, which the Hopper body now takes on the
+    exact single-tile route at head dims 64, 72 and 128: the plain version
+    against ``_attn_kernel_bias`` in interpret mode at the reference's odd
+    shape (tq 30, tk 300: 84 pad keys) with a bf16 (B, H, Tq, Tk) bias,
+    which both sides widen to fp32 exactly. Both take bf16 operands into an
+    fp32 softmax and round the fp32 result once: agreement to one bf16 ulp
+    (2^-7 of an O(1) output)."""
+    rng = np.random.default_rng(47)
+    q, k, v = (x.astype(jnp.bfloat16) for x in _qkv(rng, 2, 30, 300, 2, d))
+    bias = rng.standard_normal((2, 2, 30, 300), dtype=np.float32).astype(jnp.bfloat16)
+    want = jax_fused_attention(*(jnp.asarray(x) for x in (q, k, v)), bias=jnp.asarray(bias),
+                               interpret=True)
+    as_t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)  # noqa: E731
+    args = [as_t(x) for x in (q, k, v, bias)]
+    assert attention_route(tuple(args[0].shape), 300, args[3]) == "exact"
+    got = fused_attention(*args)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32), rtol=2**-7, atol=2**-7
+    )
+
+
 @pytest.mark.parametrize("bias", [None, "key_padding"])
 @pytest.mark.parametrize("route", ["transposed", "flash"])
 def test_clamp_and_streaming_bf16_d64_match_pallas(route, bias, monkeypatch):
@@ -1049,7 +1073,19 @@ HOPPER_ROUTES = {
                                        ("sm90", "attention_bias")),
     "pixart512_cross_k2": ("fused", (16, 1024, 16, 72), 120, "bf16", "padding",
                            ("sm90", "attention_bias")),
-    "exact_dense_bias_d72": ("fused", (2, 30, 2, 72), 300, "bf16", "dense", ("mma", 0)),
+    "exact_dense_bias_d72": ("fused", (2, 30, 2, 72), 300, "bf16", "dense",
+                             ("sm90", "attention_bias")),
+    # any bias that is not a key-padding one, on the single-tile route, at
+    # each head dim the Hopper body is built for: a dense (B, H, Tq, Tk), a
+    # per-head (1, H, 1, Tk) and a per-query-row (B, 1, Tq, Tk) bias
+    **{f"single_tile_{kind}_bias_d{d}": ("fused", (2, 30, 2, d), 300, "bf16", kind,
+                                   ("sm90", "attention_bias"))
+       for d in (64, 72, 128) for kind in ("dense", "per_head", "per_query")},
+    # the XLA route of a dense bias past the single tile takes the same kernel
+    "exact_xla_dense_bias_d64": ("fused", (2, 4096, 2, 64), 4096, "bf16", "dense",
+                                 ("sm90", "attention_bias")),
+    # a head dim the Hopper body is not built for keeps attention.cu
+    "exact_dense_bias_d36": ("fused", (2, 30, 2, 36), 300, "bf16", "dense", ("mma", 0)),
     "exact_key_padding_fp32": ("fused", (2, 30, 2, 72), 300, "fp32", "padding",
                                ("f32", "attention_bias")),
     "exact_key_padding_d64": ("fused", (2, 30, 2, 64), 300, "bf16", "padding",
@@ -1157,17 +1193,19 @@ def test_hopper_body_routing(name, monkeypatch):
     single-tile exact (K1), transposed clamp (K4), row-block clamp (K5) and
     streaming (K6) routes launch the Hopper body, and so do bf16 calls with
     a key-padding bias on each of them (K2, and K4, K5 and K6 with a bias,
-    at the same head dims), the bias passed on; fp32 calls at a head dim the
-    fp32 body is built for (16, 32, 64, 72, 128) in strides TMA can map
+    at the same head dims), the bias passed on, and bf16 calls with any
+    other bias (dense, per head, per query row) on the single-tile route and
+    on the XLA route of a dense bias past the tile; fp32 calls at a head dim
+    the fp32 body is built for (16, 32, 64, 72, 128) in strides TMA can map
     launch the fp32 body on every route, with any bias the route takes (a
-    dense one on the single-tile route); every other call — a bf16 dense
-    bias, another head dim, fp32 rows 292 bytes apart — keeps its
-    csrc/attention.cu variant. Tensors on the meta device reach the launch
-    decision without a card; the launchers are replaced by recorders."""
+    dense one on the single-tile route); every other call — another head
+    dim, fp32 rows 292 bytes apart — keeps its csrc/attention.cu variant.
+    Tensors on the meta device reach the launch decision without a card;
+    the launchers are replaced by recorders."""
     wrapper, shape, tk, dtype, bias_kind, want = HOPPER_ROUTES[name]
     calls = []
 
-    def sm90(q, k, v, counter, bias=None):
+    def sm90(q, k, v, counter, bias=None, n_pad=0):
         calls.append(("sm90", counter if bias is None else counter + "_bias"))
 
     monkeypatch.setattr(port_attention, "_launch_sm90", sm90)
@@ -1183,7 +1221,8 @@ def test_hopper_body_routing(name, monkeypatch):
     q = torch.empty((b, tq, h, width), dtype=tdt, device="meta")[..., :d]
     kv = torch.empty((b, tk, h, width), dtype=tdt, device="meta")[..., :d]
     bias = {None: None, "padding": (b, 1, 1, tk), "broadcast": (1, 1, 1, tk),
-            "dense": (b, h, tq, tk)}[bias_kind]
+            "dense": (b, h, tq, tk), "per_head": (1, h, 1, tk),
+            "per_query": (b, 1, tq, tk)}[bias_kind]
     bias = bias and torch.zeros(bias, dtype=tdt, device="meta")
     fn = {"fused": fused_attention, "rowblock": rowblock_attention,
           "flash": flash_attention, "transposed": transposed_attention,
@@ -1192,9 +1231,10 @@ def test_hopper_body_routing(name, monkeypatch):
     assert calls == [want]
 
 
-# (wrapper, q shape, tk, dtype, bias kind) → the pad keys the csrc/attention.cu
-# launch gets: none on the reference's XLA route (a dense bias past the
-# single tile), round_up(Tk, 128) − Tk on the single-tile and clamp routes,
+# (wrapper, q shape, tk, dtype, bias kind) → the pad keys the launch gets
+# (the Hopper body's in bf16, the fp32 body's or csrc/attention.cu's): none
+# on the reference's XLA route (a dense bias past the single tile),
+# round_up(Tk, 128) − Tk on the single-tile and clamp routes,
 # round_up(Tk, min(1536, round_up(Tk, 128))) − Tk on the streaming one
 PAD_KEY_LAUNCHES = {
     "dense_bias_past_the_tile_bf16": ("fused", (1, 2048, 2, 72), 1100, "bf16", "dense", 0),
@@ -1205,20 +1245,27 @@ PAD_KEY_LAUNCHES = {
     "clamp_key_padding_fp32": ("transposed", (2, 30, 2, 72), 300, "fp32", "padding", 84),
     "flash_key_padding_fp32": ("flash", (2, 30, 2, 72), 1600, "fp32", "padding", 1472),
     "flash_key_padding_d64": ("flash", (2, 30, 2, 64), 300, "fp32", "padding", 84),
+    "dense_bias_single_tile_d128": ("fused", (2, 30, 2, 128), 300, "bf16", "dense", 84),
+    "dense_bias_single_tile_d36": ("fused", (2, 30, 2, 36), 300, "bf16", "dense", 84),
+    "key_padding_single_tile_bf16": ("fused", (2, 30, 2, 72), 300, "bf16", "padding", 84),
+    "clamp_key_padding_bf16": ("transposed", (2, 30, 2, 72), 300, "bf16", "padding", 84),
+    "rowblock_key_padding_bf16": ("rowblock", (2, 30, 2, 128), 300, "bf16", "padding", 84),
+    "flash_key_padding_bf16": ("flash", (2, 30, 2, 72), 1600, "bf16", "padding", 1472),
 }
 
 
 @pytest.mark.parametrize("name", sorted(PAD_KEY_LAUNCHES))
 def test_mma_launches_get_the_routes_pad_keys(name, monkeypatch):
-    """csrc/attention.cu's C entry, and the fp32 body's, take the pad keys
-    from the wrapper: the route's count (`pad_keys`), 0 on the XLA route of
-    a dense bias past the single tile, which the reference computes without
-    pad keys. Meta tensors reach the launch; the launchers are replaced by
-    recorders."""
+    """Every C entry — the Hopper body's (bf16 at head dim 64, 72 or 128,
+    a dense bias too), csrc/attention.cu's and the fp32 body's — takes the
+    pad keys from the wrapper: the route's count (`pad_keys`), 0 on the XLA
+    route of a dense bias past the single tile, which the reference computes
+    without pad keys. Meta tensors reach the launch; the launchers are
+    replaced by recorders."""
     wrapper, shape, tk, dtype, bias_kind, n_pad = PAD_KEY_LAUNCHES[name]
     calls = []
     monkeypatch.setattr(port_attention, "_launch_sm90",
-                        lambda *a, **kw: pytest.fail("took the Hopper body"))
+                        lambda q, k, v, counter, bias=None, n_pad=0: calls.append(n_pad))
     monkeypatch.setattr(port_attention, "_launch",
                         lambda q, k, v, bias, variant, n: calls.append(n))
     monkeypatch.setattr(port_attention, "_launch_f32",
@@ -1230,7 +1277,7 @@ def test_mma_launches_get_the_routes_pad_keys(name, monkeypatch):
     bias = torch.zeros((b, h, tq, tk) if bias_kind == "dense" else (b, 1, 1, tk),
                        dtype=tdt, device="meta")
     fn = {"fused": fused_attention, "flash": flash_attention,
-          "transposed": transposed_attention}[wrapper]
+          "transposed": transposed_attention, "rowblock": rowblock_attention}[wrapper]
     fn(q, kv, kv, bias)
     assert calls == [n_pad]
 
@@ -1406,11 +1453,11 @@ def test_bias_operand_arguments(name):
     (torch.float64, "bf16 or fp32"),
 ])
 def test_bias_operand_refusals(bias, match, monkeypatch):
-    """What the Hopper body does not read raises, through bias_operand and
-    through the single-tile, clamp and streaming wrappers: a bias that is not (B|1, 1,
-    1, Tk), or one in another dtype than bf16 or fp32; a dense bias is sent
-    to csrc/attention.cu by the router (test_hopper_body_routing) and so
-    never reaches bias_operand there."""
+    """What the key-padding kernels do not read raises, through bias_operand
+    and through the single-tile, clamp and streaming wrappers: a bias that
+    is not (B|1, 1, 1, Tk), or one in another dtype than bf16 or fp32; any
+    other bias takes the dense kernel on the single-tile route
+    (`dense_bias_operand`) and so never reaches bias_operand there."""
     shape, dtype = (bias, torch.float32) if isinstance(bias, tuple) else ((4, 1, 1, 120), bias)
     b = torch.zeros(shape, dtype=dtype)
     with pytest.raises(ValueError, match=match):
@@ -1429,6 +1476,60 @@ def test_bias_operand_refusals(bias, match, monkeypatch):
                          (rowblock_attention, (q128, kv128, kv128))):
             with pytest.raises(ValueError, match="bf16 or fp32"):
                 fn(*args, torch.empty(4, 1, 1, 120, dtype=dtype, device="meta"))
+
+
+# dense bias → its launch arguments on the Hopper body: ([batch, head, query
+# row, key strides] in elements, 0 where it broadcasts; dtype code, 1 bf16,
+# 0 fp32; 4-byte key pairs, 1 where a bf16 bias has them), at Tk = 300
+_bf16 = torch.bfloat16
+DENSE_BIAS_OPERANDS = {
+    "dense_bf16": (lambda: torch.zeros(2, 3, 30, 300, dtype=_bf16),
+                   ([27000, 9000, 300, 1], 1, 1)),
+    "dense_fp32": (lambda: torch.zeros(2, 3, 30, 300), ([27000, 9000, 300, 1], 0, 0)),
+    "per_head": (lambda: torch.zeros(1, 3, 1, 300, dtype=_bf16), ([0, 300, 0, 1], 1, 1)),
+    "per_query": (lambda: torch.zeros(2, 1, 30, 300, dtype=_bf16), ([9000, 0, 300, 1], 1, 1)),
+    "batch_broadcast": (lambda: torch.zeros(1, 3, 30, 300, dtype=_bf16),
+                        ([0, 9000, 300, 1], 1, 1)),
+    "key_broadcast": (lambda: torch.zeros(2, 3, 30, 1, dtype=_bf16).expand(2, 3, 30, 300),
+                      ([90, 30, 1, 0], 1, 0)),
+    "transposed_view": (lambda: torch.zeros(2, 3, 300, 30, dtype=_bf16).transpose(2, 3),
+                        ([27000, 9000, 1, 30], 1, 0)),
+    "rows_301_apart": (lambda: torch.zeros(2, 3, 30, 301, dtype=_bf16)[..., :300],
+                       ([27090, 9030, 301, 1], 1, 0)),
+    "offset_base": (lambda: torch.zeros(2 * 3 * 30 * 300 + 1, dtype=_bf16)[1:].view(
+        2, 3, 30, 300), ([27000, 9000, 300, 1], 1, 0)),
+    "every_other_key": (lambda: torch.zeros(2, 3, 30, 600, dtype=_bf16)[..., ::2],
+                        ([54000, 18000, 600, 2], 1, 0)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DENSE_BIAS_OPERANDS))
+def test_dense_bias_operand_arguments(name):
+    """A dense bias reaches the Hopper body as a pointer, its four strides
+    (0 on each broadcast dimension) and its dtype; its consumers load bf16
+    key pairs 4 bytes at a time where the base, the strides and Tk allow it
+    (not at rows 301 keys apart, a base off 4 bytes, a transposed or
+    key-strided view, or fp32), else each value where it is used."""
+    make, want = DENSE_BIAS_OPERANDS[name]
+    assert port_attention.dense_bias_operand(make(), 300) == want
+    assert port_attention.dense_bias_operand(make(), 301)[2] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_dense_bias_operand_refusals(dtype, monkeypatch):
+    """A dense bias in a dtype the Hopper body does not read raises, through
+    dense_bias_operand and through the router on the single-tile route and
+    the XLA route past it; it is not sent to csrc/attention.cu instead."""
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        port_attention.dense_bias_operand(torch.zeros(2, 2, 30, 300, dtype=dtype), 300)
+    monkeypatch.setattr(port_attention, "_launch",
+                        lambda *a, **kw: pytest.fail("fell back to attention.cu"))
+    for tq, tk in ((30, 300), (2048, 1100)):
+        q = torch.empty(1, tq, 2, 72, dtype=torch.bfloat16, device="meta")
+        kv = torch.empty(1, tk, 2, 72, dtype=torch.bfloat16, device="meta")
+        bias = torch.empty(1, 2, tq, tk, dtype=dtype, device="meta")
+        with pytest.raises(ValueError, match="bf16 or fp32"):
+            fused_attention(q, kv, kv, bias)
 
 
 @pytest.mark.parametrize("d", [128, 72])
@@ -1530,6 +1631,33 @@ def _hopper_exact_body(q, k, v, bias, n_pad):
     return (o * (f / l)).to(torch.bfloat16).permute(0, 2, 1, 3)
 
 
+@pytest.mark.parametrize("kernel,names,want", [
+    ("attn_exact_dense_sm90_kernel<72>",
+     ["void (anonymous namespace)::attn_exact_dense_sm90_kernel<72>((anonymous namespace)::Maps, "
+      "(anonymous namespace)::Params)"], True),
+    ("attn_exact_dense_sm90_kernel<72>",
+     ["_ZN50_GLOBAL__N__c1e0a0bd_17_attention_sm90_cu_e66bb11028attn_exact_dense_sm90_kernel"
+      "ILi72EEEvNS_4MapsENS_6ParamsE"], True),
+    ("attn_exact_dense_sm90_kernel<72>",
+     ["void (anonymous namespace)::attn_exact_sm90_kernel<72, true>(Maps, Params)"], False),
+    ("attn_exact_dense_sm90_kernel<128>",
+     ["void (anonymous namespace)::attn_exact_dense_sm90_kernel<72>(Maps, Params)"], False),
+    ("attn_exact_sm90_kernel<72, true>",
+     ["_ZN50_GLOBAL__N__c1e0a0bd_17_attention_sm90_cu_e66bb11022attn_exact_sm90_kernel"
+      "ILi72ELb1EEEvNS_4MapsENS_6ParamsE"], True),
+    ("attn_exact_sm90_kernel<72, true>",
+     ["void (anonymous namespace)::attn_exact_dense_sm90_kernel<72>(Maps, Params)"], False),
+    ("attn_exact_dense_sm90_kernel<72>",
+     ["void (anonymous namespace)::attn_exact_dense_sm90_kernel<72>(Maps, Params)",
+      "void attn_bf16_kernel<72, true>(Params)"], False),
+])
+def test_chip_smoke_names_the_hopper_kernel(kernel, names, want):
+    """chip_smoke.py's profile check: a Hopper kernel named with its head
+    dim alone (the dense K2) or with its BIAS flag too, demangled or
+    mangled, and nothing of csrc/attention.cu beside it."""
+    assert _chip_smoke_module().ran_hopper_kernel(names, kernel) is want
+
+
 def _least_atol_per_std(got, want, rtol):
     """The least atol that passes `got` beside `rtol`, per the std of
     `want` (chip_smoke.py's `least_atol_per_std`)."""
@@ -1585,6 +1713,53 @@ def test_hopper_k2_arithmetic_matches_attn_kernel_bias(case):
         assert float(got[:1].abs().max()) == 0.0
     bf16_atol, bf16_rtol = _chip_smoke_module().BF16_TOL
     assert atol <= bf16_atol and K2_BODY_TOL["rtol"] <= bf16_rtol
+
+
+# case → (the dense bias's shape, its dtype, a fill for rows 0-7 of batch
+# row 0 or None): queries to 120 keys at (2, 256, 2, 72), as K2's cases
+K2_DENSE_BODY_CASES = {
+    "dense_bf16": ((2, 2, 256, 120), "bf16", None),
+    "per_head_fp32": ((1, 2, 1, 120), "fp32", None),
+    "per_query_bf16": ((2, 1, 256, 120), "bf16", None),
+    "dense_rows_minus_1e9": ((2, 2, 256, 120), "fp32", -1e9),
+    "dense_rows_minus_2e9": ((2, 2, 256, 120), "fp32", -2e9),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K2_DENSE_BODY_CASES))
+def test_hopper_dense_k2_arithmetic_matches_attn_kernel_bias(case):
+    """The arithmetic of the Hopper body's K2 with a dense bias
+    (``attn_exact_dense_sm90_kernel``: the same as with a key-padding bias —
+    fp32(bias·log2e) folded into the log2-domain FFMA, the max on the
+    biased score, p rounded to bf16 against its tile's running max, the
+    route's 8 pad keys — with a bias value per score, `_hopper_exact_body`)
+    against `_attn_kernel_bias` in interpret mode at (2, 256, 2, 72) → 120
+    keys, bf16, with dense, per-head and per-query biases: within
+    K2_BODY_TOL; in rows whose every key has a bias of −1e9 both give
+    Σv/128, below it 0."""
+    shape, dtype, fill = K2_DENSE_BODY_CASES[case]
+    rng = np.random.default_rng(48)
+    q, k, v = (x.astype(jnp.bfloat16) for x in _qkv(rng, 2, 256, 120, 2, 72))
+    bias = rng.standard_normal(shape, dtype=np.float32) * 3
+    if fill is not None:
+        bias[0, :, :8] = fill
+    if dtype == "bf16":
+        bias = bias.astype(jnp.bfloat16)
+    want = torch.from_numpy(np.asarray(jax_fused_attention(
+        *(jnp.asarray(x) for x in (q, k, v)), bias=jnp.asarray(bias), interpret=True),
+        np.float32))
+    as_t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(  # noqa: E731
+        torch.bfloat16 if x.dtype == jnp.bfloat16 else torch.float32)
+    got = _hopper_exact_body(*(as_t(x) for x in (q, k, v, bias)), n_pad=8).float()
+    atol = K2_BODY_TOL["share"] * float(want.std())
+    torch.testing.assert_close(got, want, atol=atol, rtol=K2_BODY_TOL["rtol"])
+    if fill == -1e9:
+        mean_v = as_t(v).float()[:1].sum(1, keepdim=True) / 128
+        for side in (got, want):
+            torch.testing.assert_close(side[:1, :8], mean_v.expand_as(side[:1, :8]),
+                                       atol=2**-7, rtol=2**-7)
+    elif fill == -2e9:
+        assert float(got[:1, :8].abs().max()) == 0.0 == float(want[:1, :8].abs().max())
 
 
 def test_hopper_k6_arithmetic_matches_flash_kernel_at_d72(monkeypatch):
