@@ -53,17 +53,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    128), whose output
    must be Σv/Tk_pad within 2^-7 relative, a check shown to reject the
    pad keys counted twice (Σv/(Tk_pad + n_pad)); a call whose operands TMA
-   cannot map (at d=64 also a base off 16 bytes and rows 136 bytes apart,
-   on the single-tile, clamp, row-block and streaming routes, with and
-   without a bias; K5 also at d=72, rows 152 bytes apart), or whose bias
-   the body does not read (fp16; K5 at d=64, 72 and 128), raises there.
-   fp32 calls at head dims 16, 32, 64, 72 and 128 whose operands TMA can
-   map run on the fp32 body (``csrc/attention_f32_sm90.cu``: 3×TF32 on
-   wgmma) on every route, with any bias the route takes (a dense one on
-   the single-tile route); fp32 at d=36 and on rows TMA cannot map run on
-   attention.cu's SIMT kernel, which a profile of each such case must name,
-   with no bias, a key-padding bias through each wrapper and a dense bias
-   on the single-tile route. bf16 calls at d=64, 72 and 128 with any other
+   cannot map (d=36; rows off 16 bytes; at d=64 also a base off 16 bytes
+   and rows 136 bytes apart, on the single-tile, clamp, row-block and
+   streaming routes, with and without a bias; K5 also at d=72, rows 152
+   bytes apart) runs on the Hopper body through packed copies, held to its
+   plain version and named by a profile (`on_hopper_body`, in bf16 and
+   fp32); a call whose bias the body does not read (fp16; K5 at d=64, 72
+   and 128) raises. fp32 calls at every head dim up to 256 run on the fp32
+   body (``csrc/attention_f32_sm90.cu``: 3×TF32 on wgmma) on every route,
+   with any bias the route takes (a dense one on the single-tile route).
+   Every route at head dims between and past the old widths (`WIDTH_DIMS`:
+   bf16 16 to 256, fp32 8 to 256) is held to its plain version at the
+   reference's acceptance shapes, and a profile names each route's kernel
+   at the width the head dim runs at (`width_cases`). bf16 calls at d=64, 72 and 128 with any other
    bias (dense, per head, per query row, strided) on the single-tile route
    and on the XLA route past it run on the Hopper body's
    ``attn_exact_dense_sm90_kernel`` (`dense_bias_cases`): at tq=30, tk=300
@@ -71,7 +73,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    transposed view, each named by a profile; at 768 keys, each shown to
    reject a dropped or repeated 128-key tile; logits near ±40, q×1e4, rows
    biased −1e9 (Σv/384) and −2e9 (0); an fp16 or fp64 bias refused.
-   The rest (bf16 at other head dims) run on ``csrc/attention.cu``. The
+   No call runs on ``csrc/attention.cu``. The
    exact kernels (K2 in bf16 on the Hopper body, with a key-padding and a
    dense bias, and in fp32 on the fp32 body, K6
    with a bias at d=64, 72 and 128) are also held against the plain versions
@@ -109,11 +111,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    counted and named by a profile, held to its plain version (past one key
    tile shown to reject a dropped or repeated 128-key tile), timed in turns
    against attention.cu's mma.sync body (``old_body_ms``) and SDPA with the
-   bias as a float mask. What stays on ``attention.cu`` (bf16 at head dim
-   32 on its mma.sync kernel, fp32 at 36 on its SIMT kernel, both at
-   PixArt-256's self-attention shape) is timed once beside one SDPA call,
-   named by a profile, with its bound (the report's
-   ``stays_on_attention_cu``). K3
+   bias as a float mask. The widths' rows (`WIDTH_ROWS`: bf16 K1 at d=32
+   and 36 and fp32 K1 at d=36 at PixArt-256's self-attention shape, the two
+   routes that lost to SDPA on ``attention.cu``; K1, K4, K5 and K6 past
+   d=128 in bf16, K1, K4 and K6 in fp32), each reached through its wrapper
+   with its launch counted and named by a profile, held to its plain
+   version and timed in turns against ``attention.cu`` (at d ≤ 128,
+   ``old_body_ms``) and SDPA; the bf16 d=36 row's operand copies timed
+   alone (``copy_ms``). A sweep times each route at each width beside SDPA
+   (the report's ``width_sweep``). K3
    (``csrc/modlnorm_sm90.cu``) also at
    each width a served path gives it: PixArt-1024's (4, 4096, 1152),
    PixArt-Σ-2048's (2, 16384, 1152) and FLUX.1-dev-1024's image, text and
@@ -567,39 +573,51 @@ def rejects(name: str, faulty: torch.Tensor, want: torch.Tensor, tol) -> None:
 
 
 def refused(name: str, fn, *args) -> None:
-    """Raises unless `fn(*args)` raises ValueError: a call the Hopper body
-    cannot map with TMA is refused, not sent to another body."""
+    """Raises unless `fn(*args)` raises ValueError: a bias the Hopper body
+    does not read is refused, not sent to another body."""
     try:
         fn(*args)
     except ValueError as err:
         REPORT.setdefault("refused", {})[name] = str(err)
         log(f"  {name}: refused ({err})")
         return
-    raise AssertionError(f"{name}: accepted operands TMA cannot map")
+    raise AssertionError(f"{name}: accepted a bias the Hopper body does not read")
 
 
-def on_simt_kernel(name: str, fn, *args) -> None:
-    """Raises unless an fp32 call `fn(q, k, v[, bias])` that the fp32 body
-    does not take (a head dim it is not built for, operands TMA cannot map:
-    `_takes_f32`) runs on csrc/attention.cu's SIMT kernel, by a profile of
-    it."""
-    from ecad_tpu_torch.ops.attention import _takes_f32
+def on_hopper_body(name: str, dtype, *calls) -> None:
+    """Raises unless the calls (each `fn, q, k, v[, bias]`), in one profile,
+    run on `dtype`'s Hopper body — csrc/attention_sm90.cu's kernels in bf16,
+    csrc/attention_f32_sm90.cu's in fp32, one kernel name a route — and on
+    nothing of csrc/attention.cu: operands TMA cannot map (a head dim that
+    is not a multiple of 8 in bf16, rows off 16 bytes) go there too, as
+    copies."""
+    kernel = {"fused_attention": "attn_exact", "single_tile_attention": "attn_exact",
+              "transposed_attention": "attn_clamp", "rowblock_attention": "attn_rowblock",
+              "flash_attention": "attn_flash"}
+    suffix = "_f32_sm90_kernel" if dtype == torch.float32 else "_sm90_kernel"
+    want = {kernel[fn.__name__] + suffix for fn, *_ in calls}
 
-    names = device_kernel_names(lambda: fn(*args),
-                                want=lambda ns: any("attn_f32_kernel" in n for n in ns))
-    if _takes_f32(*args[:3]) or not any("attn_f32_kernel" in n for n in names) or any(
-            "_f32_sm90_kernel" in n for n in names):
-        raise AssertionError(f"{name} ran {names}, not attention.cu's attn_f32_kernel")
-    REPORT.setdefault("simt_kernel_cases", {})[name] = [n for n in names if "attn" in n]
+    def ours(ns):
+        return all(any(w in n for n in ns) for w in want)
+
+    def each():
+        for fn, *args in calls:
+            fn(*args)
+
+    names = device_kernel_names(each, want=ours)
+    if not ours(names) or any("_bf16_kernel" in n or "attn_f32_kernel" in n for n in names):
+        raise AssertionError(f"{name} ran {names}, not the Hopper body alone")
+    REPORT.setdefault("unmapped_operand_kernels", {})[name] = [n for n in names if "attn" in n]
 
 
-def simt_bias_cases(rnd) -> None:
-    """The SIMT kernel's bias forms (attn_f32_kernel<true, false|true>),
-    which fp32 calls at d=36 or on rows TMA cannot map still take: a
-    key-padding bias per batch at [100, 200, 256] of 300 keys through each
-    wrapper (K2, K4, K5 and K6), and a dense (B, H, Tq, Tk) bias on the
-    exact route, each held to its plain version at ``FP32_TOL`` and shown by
-    a profile to run on attention.cu's SIMT kernel."""
+def unmapped_bias_cases(rnd, dtype, tol) -> None:
+    """Operands TMA cannot map — a head dim of 36 (bf16 rows of 72 bytes;
+    fp32 at 36 maps, and runs at width 40) and rows cut from wider ones,
+    off 16 bytes — with each bias form: a key-padding bias per batch at
+    [100, 200, 256] of 300 keys through each wrapper (K2, K4, K5 and K6),
+    and a dense (B, H, Tq, Tk) bias on the exact route, each held to its
+    plain version and shown by a profile to run on the Hopper body
+    (`on_hopper_body`), where csrc/attention.cu's kernels took them before."""
     from ecad_tpu_torch.ops import (
         flash_attention,
         flash_attention_reference,
@@ -611,26 +629,27 @@ def simt_bias_cases(rnd) -> None:
         transposed_attention_reference,
     )
 
-    wide = [rnd(3, t, 2, 80) for t in (30, 300, 300)]
+    tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+    wide = [rnd(3, t, 2, 80, dtype=dtype) for t in (30, 300, 300)]
     operands = {
-        "d36": tuple(rnd(3, t, 2, 36) for t in (30, 300, 300)),
+        "d36": tuple(rnd(3, t, 2, 36, dtype=dtype) for t in (30, 300, 300)),
         "misaligned_rows_d72": (wide[0][..., 1:73], wide[1][..., 3:75], wide[2][..., 5:77]),
     }
     padding = key_padding_bias([100, 200, 256], 300, -1e9)
     dense = rnd(3, 2, 30, 300)
-    for tag, qkv in operands.items():
+    for what, qkv in operands.items():
+        calls = []
         for route, fn, plain in (
                 ("attention", fused_attention, fused_attention_reference),
                 ("attention_long", transposed_attention, transposed_attention_reference),
                 ("attention_rowblock", rowblock_attention, rowblock_attention_reference),
                 ("attention_flash", flash_attention, flash_attention_reference)):
-            name = f"{route}_bias/fp32/{tag}_key_padding_100_200_256_tq30_tk300"
-            compare(name, fn(*qkv, padding), plain(*qkv, padding), FP32_TOL)
-            on_simt_kernel(name, fn, *qkv, padding)
-        name = f"attention_bias/fp32/{tag}_dense_bias_tq30_tk300"
-        compare(name, fused_attention(*qkv, dense), fused_attention_reference(*qkv, dense),
-                FP32_TOL)
-        on_simt_kernel(name, fused_attention, *qkv, dense)
+            name = f"{route}_bias/{tag}/{what}_key_padding_100_200_256_tq30_tk300"
+            compare(name, fn(*qkv, padding), plain(*qkv, padding), tol)
+            calls.append((fn, *qkv, padding))
+        name = f"attention_bias/{tag}/{what}_dense_bias_tq30_tk300"
+        compare(name, fused_attention(*qkv, dense), fused_attention_reference(*qkv, dense), tol)
+        on_hopper_body(f"{tag}/{what}_biases", dtype, *calls, (fused_attention, *qkv, dense))
 
 
 def key_padding_bias(lengths, tk, fill, dtype=torch.float32):
@@ -694,19 +713,12 @@ def attention_cases() -> None:
         # there is Σv/Tk_pad) or −2e9 (0), beside a ragged row: K2 (at d=64
         # and 72) and K6's bias variant (at d=64, 72 and 128), on the Hopper
         # body in bf16, on the fp32 body in fp32, against the repaired plain
-        # versions
-        from ecad_tpu_torch.ops.attention import _takes_f32, _takes_sm90
-
+        # versions (the body is the dtype's: every call takes one)
         for fill in (-1e9, -2e9):
             for d in (64, 72, 128):
                 qm, km, vm = (rnd(2, 8, 2, d, dtype=dtype), rnd(2, 300, 2, d, dtype=dtype),
                               rnd(2, 300, 2, d, dtype=dtype))
                 bias_m = key_padding_bias([0, 280], 300, fill)
-                on_sm90 = (dtype == torch.bfloat16, dtype == torch.bfloat16)
-                if (_takes_sm90("attention", qm, bias_m), _takes_sm90(
-                        "attention_flash", qm, bias_m)) != on_sm90 or _takes_f32(
-                            qm, km, vm) != (dtype == torch.float32):
-                    raise AssertionError(f"every_key_biased_{fill:g} at d={d}: wrong body")
                 if d != 128:
                     case(f"every_key_biased_{fill:g}" + ("" if d == 64 else f"_d{d}"),
                          qm, km, vm, bias_m)
@@ -729,47 +741,45 @@ def attention_cases() -> None:
         case("dense_bias",
              rnd(2, 40, 3, 64, dtype=dtype), rnd(2, 70, 3, 64, dtype=dtype),
              rnd(2, 70, 3, 64, dtype=dtype), rnd(2, 3, 40, 70))
-        # head dim not a multiple of 8, and rows off 16-byte alignment:
-        # the element-wise (non-cp.async) load path
+        # head dim not a multiple of 8 (bf16 rows of 72 bytes), and rows
+        # off 16-byte alignment: operands TMA cannot map, which reach the
+        # Hopper bodies as packed copies (`tma_copy`), with or without a bias
         d36 = (rnd(2, 130, 2, 36, dtype=dtype), rnd(2, 300, 2, 36, dtype=dtype),
                rnd(2, 300, 2, 36, dtype=dtype))
         case("unaligned_tq130_tk300_d36", *d36)
         wide = rnd(2, 64, 3, 80, dtype=dtype)
         misaligned = (wide[..., 1:73], wide[..., 3:75], wide[..., 5:77])
-        if dtype == torch.float32:
-            # the fp32 calls the fp32 body does not take stay on attention.cu
-            on_simt_kernel("attention/fp32/unaligned_tq130_tk300_d36", fused_attention, *d36)
-            on_simt_kernel("attention/fp32/misaligned_rows_d72", fused_attention, *misaligned)
-            simt_bias_cases(rnd)
+        case("misaligned_rows_d72", *misaligned)
+        on_hopper_body(f"{tag}/d36_and_misaligned_rows_d72", dtype, (fused_attention, *d36),
+                       (fused_attention, *misaligned), (transposed_attention, *d36),
+                       (transposed_attention, *misaligned))
+        unmapped_bias_cases(rnd, dtype, tol)
         if dtype == torch.bfloat16:
-            # the Hopper body refuses what TMA cannot map, with or without
-            # K2's bias, and a bias it does not read; none of them is sent
-            # to attention.cu
-            refused("attention/bf16/misaligned_rows_d72", fused_attention, *misaligned)
-            refused("attention_bias/bf16/misaligned_rows_d72_key_padding", fused_attention,
-                    *misaligned, key_padding_bias([64, 50], 64, -1e9))
-            refused("attention_long/bf16/misaligned_rows_d72", transposed_attention,
-                    *misaligned)
-            refused("attention_flash/bf16/misaligned_rows_d72", flash_attention, *misaligned)
-            # and at d=64, where K4 and K6 take the Hopper body too: a base
-            # off 16 bytes, and rows 136 bytes apart
+            # at d=64 too, where K4 and K6 take the Hopper body: a base off
+            # 16 bytes, and rows 136 bytes apart, with and without a bias
             misaligned64 = (wide[..., 1:65], wide[..., 3:67], wide[..., 5:69])
             strided64 = tuple(rnd(2, 64, 3, 68, dtype=dtype)[..., :64] for _ in range(3))
+            bias64 = key_padding_bias([64, 50], 64, -1e9)
             for fault, qkv in (("misaligned_rows", misaligned64), ("row_stride_136_bytes",
                                                                     strided64)):
-                bias64 = key_padding_bias([64, 50], 64, -1e9)
-                for name, fn in (("attention", fused_attention),
-                                 ("attention_long", transposed_attention),
-                                 ("attention_flash", flash_attention)):
-                    refused(f"{name}/bf16/{fault}_d64", fn, *qkv)
-                    refused(f"{name}_bias/bf16/{fault}_d64_key_padding", fn, *qkv, bias64)
+                calls = []
+                for name, fn, plain, ftol in (
+                        ("attention", fused_attention, fused_attention_reference, tol),
+                        ("attention_long", transposed_attention,
+                         transposed_attention_reference, clamp_bf16_tol),
+                        ("attention_flash", flash_attention, flash_attention_reference,
+                         flash_bf16_tol)):
+                    for suffix, bb in (("", None), ("_key_padding", bias64)):
+                        label = f"{name}{'_bias' if bb is not None else ''}/bf16/{fault}_d64{suffix}"
+                        compare(label, fn(*qkv, bb), plain(*qkv, bb), ftol)
+                        calls.append((fn, *qkv, bb))
+                on_hopper_body(f"bf16/{fault}_d64", dtype, *calls)
+            # a bias the body does not read is refused, not sent elsewhere
             refused("attention_bias/bf16/fp16_bias", fused_attention,
                     rnd(2, 16, 2, 72, dtype=dtype), rnd(2, 120, 2, 72, dtype=dtype),
                     rnd(2, 120, 2, 72, dtype=dtype),
                     key_padding_bias([7, 60], 120, -1e4, torch.float16))
             dense_bias_cases(rnd)
-        else:
-            case("misaligned_rows_d72", *misaligned)
         # the reference's extreme-logits case (tests/test_ops.py:165-187) at
         # its own shape, d=64: logits to ±40 log2 within its 2e-3 — in bf16
         # beside one bf16 ulp of the output, which both sides round once
@@ -807,11 +817,12 @@ def attention_cases() -> None:
         clamp_case("per_batch_key_padding_100_200_256", rnd(3, 128, 2, 72, dtype=dtype),
                    rnd(3, 256, 2, 72, dtype=dtype), rnd(3, 256, 2, 72, dtype=dtype),
                    key_padding_bias([100, 200, 256], 256, -1e9))
+        clamp_case("misaligned_rows_d72", *misaligned)
         if dtype == torch.bfloat16:
-            # K4 and K5 with a bias refuse what TMA cannot map and a bias
-            # they do not read, as K2 does
-            refused("attention_long_bias/bf16/misaligned_rows_d72_key_padding",
-                    transposed_attention, *misaligned, key_padding_bias([64, 50], 64, -1e9))
+            # K4 and K5 with a bias take what TMA cannot map through a copy
+            # and refuse a bias they do not read, as K2 does
+            clamp_case("misaligned_rows_d72_key_padding", *misaligned,
+                       key_padding_bias([64, 50], 64, -1e9))
             for name, fn, d in (("attention_long_bias", transposed_attention, 72),
                                 ("attention_rowblock_bias", rowblock_attention, 128),
                                 ("attention_rowblock_bias", rowblock_attention, 72),
@@ -833,12 +844,6 @@ def attention_cases() -> None:
             clamp_case("key_padding_logits_times_6_d72", rnd(1, 16, 1, 72, dtype=dtype, scale=6.0),
                        rnd(1, 256, 1, 72, dtype=dtype), rnd(1, 256, 1, 72, dtype=dtype),
                        key_padding_bias([200], 256, -1e4, dtype))
-        else:
-            clamp_case("misaligned_rows_d72", *misaligned)
-            on_simt_kernel("attention_long/fp32/misaligned_rows_d72", transposed_attention,
-                           *misaligned)
-            on_simt_kernel("attention_long/fp32/unaligned_tq130_tk300_d36",
-                           transposed_attention, *d36)
         clamp_case("q_times_1e4", rnd(1, 128, 1, 72, dtype=dtype, scale=1e4),
                    rnd(1, 256, 1, 72, dtype=dtype), rnd(1, 256, 1, 72, dtype=dtype),
                    **({} if dtype == torch.bfloat16 else {"tol": HOT_FP32_TOL}))
@@ -937,18 +942,21 @@ def attention_cases() -> None:
                               rnd(3, 120, 2, d, dtype=dtype), rnd(3, 120, 2, d, dtype=dtype),
                               key_padding_bias([60], 120, -10000.0, dtype))
         if dtype == torch.bfloat16:
-            # and refuses, with and without a bias, what TMA cannot map: a
-            # base off 16 bytes, and rows 136 bytes apart at d=64 (152 at
-            # d=72, whose rows take 144)
+            # and takes, with and without a bias, what TMA cannot map as a
+            # copy: a base off 16 bytes, and rows 136 bytes apart at d=64
+            # (152 at d=72, whose rows take 144)
+            calls = []
             for d in (64, 72):
                 wide_d = rnd(2, 64, 3, d + 8, dtype=dtype)
                 off = (wide_d[..., 1:d + 1], wide_d[..., 3:d + 3], wide_d[..., 5:d + 5])
                 apart = tuple(rnd(2, 64, 3, d + 4, dtype=dtype)[..., :d] for _ in range(3))
                 for fault, qkv in (("misaligned_rows", off),
                                    (f"row_stride_{2 * (d + 4)}_bytes", apart)):
-                    refused(f"attention_rowblock/bf16/{fault}_d{d}", rowblock_attention, *qkv)
-                    refused(f"attention_rowblock_bias/bf16/{fault}_d{d}_key_padding",
-                            rowblock_attention, *qkv, key_padding_bias([64, 50], 64, -1e9))
+                    rowblock_case(f"{fault}_d{d}", *qkv)
+                    rowblock_case(f"{fault}_d{d}_key_padding", *qkv,
+                                  key_padding_bias([64, 50], 64, -1e9))
+                    calls.append((rowblock_attention, *qkv))
+            on_hopper_body("attention_rowblock/bf16/unmapped_rows_d64_d72", dtype, *calls)
 
         # the streaming exact softmax (K6) at the reference's
         # TestFlashAttention shapes (tests/test_ops.py:58-122), at their
@@ -1209,6 +1217,7 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
 
     log("kernel phase")
     attention_cases()
+    width_cases()
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf = torch.bfloat16
     h, t, l, d, dim = 16, 256, 120, 72, 1152
@@ -1415,7 +1424,8 @@ def kernel_phase(b2: int, b2_1024: int) -> dict:
     rows += hopper_kernel_rows(rnd, bound, nbytes)
     rows += dense_kernel_rows(rnd, bound, nbytes)
     rows += f32_kernel_rows(rnd, nbytes)
-    REPORT["stays_on_attention_cu"] = attention_cu_rows(rnd, nbytes)
+    rows += width_kernel_rows(rnd, bound, nbytes)
+    REPORT["width_sweep"] = width_sweep(rnd, bound)
     rows += flash_kernel_rows(rnd, bound, nbytes)
 
     rows += k3_served_rows(rnd, bound, nbytes)
@@ -1972,67 +1982,269 @@ def f32_kernel_rows(rnd, nbytes) -> list[dict]:
     return rows
 
 
-# what stays on csrc/attention.cu, timed beside one
-# `scaled_dot_product_attention` call in its dtype: row → (q's shape, keys,
-# dtype, the kernel a profile must name). bf16 at a head dim the Hopper body
-# is not built for (PixArt-256's self-attention shape at 32) on the mma.sync
-# kernel; fp32 at 36 on the SIMT kernel
-ATTENTION_CU_ROWS = {
-    "attention_bf16_d32_pixart256_self": ((16, 256, 16, 32), 256, torch.bfloat16,
-                                          "attn_bf16_kernel"),
-    "attention_fp32_d36_pixart256_self": ((16, 256, 16, 36), 256, torch.float32,
-                                          "attn_f32_kernel"),
+# Head dims on the Hopper bodies at every new width, most between two
+# widths: bf16 16, 32, 36 (width 64, through a copy), 100 (128), 160 (192),
+# 200 and 256 (256); fp32 8 (16), 36 (40), 80 (96), 160 (192) and 256
+WIDTH_DIMS = {torch.bfloat16: (16, 32, 36, 100, 160, 200, 256),
+              torch.float32: (8, 36, 80, 160, 256)}
+
+
+def width_cases() -> None:
+    """Each head dim of `WIDTH_DIMS` on each route, held to its plain version
+    at the reference's acceptance shapes (tq 30, tk 300; key padding per
+    batch at [100, 200, 256]; a dense bias on the single-tile route; logits
+    near ±40 (log2) within 2e-3 beside one bf16 ulp, on the streaming route
+    in bf16 within `flash_bf16_tol`; q×1e4 finite), within ``BF16_TOL`` or
+    ``FP32_TOL``; and a profile of one call of each route at
+    the head dim names the Hopper kernel of the width it runs at
+    (`sm90_width`, `f32_width`) and nothing of csrc/attention.cu."""
+    from ecad_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+
+    def rnd(*shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    routes = (("attention", A.single_tile_attention,
+               lambda *a: A.fused_attention_reference(*a, n_pad=A.pad_keys("exact", a[1].shape[1]))),
+              ("attention_long", A.transposed_attention, A.transposed_attention_reference),
+              ("attention_rowblock", A.rowblock_attention, A.rowblock_attention_reference),
+              ("attention_flash", A.flash_attention, A.flash_attention_reference))
+    kernels = {"attention": "exact", "attention_long": "clamp",
+               "attention_rowblock": "rowblock", "attention_flash": "flash"}
+    for dtype, dims in WIDTH_DIMS.items():
+        tag, tol = ("bf16", BF16_TOL) if dtype == torch.bfloat16 else ("fp32", FP32_TOL)
+        hot_tol = (2e-3, 2.0 ** -7) if dtype == torch.bfloat16 else FP32_TOL
+        for d in dims:
+            q, k, v = (rnd(3, t, 2, d, dtype=dtype) for t in (30, 300, 300))
+            padding = key_padding_bias([100, 200, 256], 300, -1e9)
+            q40, k40, v40 = (rnd(1, 16, 1, d, dtype=dtype, scale=6.0),
+                             rnd(1, 256, 1, d, dtype=dtype), rnd(1, 256, 1, d, dtype=dtype))
+            q_hot = rnd(1, 128, 1, d, dtype=dtype, scale=1e4)
+            for counter, fn, plain in routes:
+                compare(f"{counter}/{tag}/width_tq30_tk300_d{d}", fn(q, k, v),
+                        plain(q, k, v), tol)
+                compare(f"{counter}_bias/{tag}/width_key_padding_100_200_256_d{d}",
+                        fn(q, k, v, padding), plain(q, k, v, padding), tol)
+                # the streaming route rounds p to bf16 against its tile's
+                # running max, the plain version against the row's: K6's
+                # bf16 rule there, as in every other K6 check
+                compare(f"{counter}/{tag}/width_logits_near_40_d{d}", fn(q40, k40, v40),
+                        plain(q40, k40, v40),
+                        flash_bf16_tol if counter == "attention_flash" and tag == "bf16"
+                        else hot_tol)
+                hot = fn(q_hot, k40, v40)
+                if hot.shape != q_hot.shape or not torch.isfinite(hot.float()).all():
+                    raise AssertionError(f"{counter}/{tag}: q×1e4 gave non-finite output at d={d}")
+            dense = rnd(3, 2, 30, 300, dtype=torch.float32)
+            compare(f"attention_bias/{tag}/width_dense_bias_d{d}",
+                    A.single_tile_attention(q, k, v, dense),
+                    A.fused_attention_reference(q, k, v, dense, A.pad_keys("exact", 300)), tol)
+            if dtype == torch.bfloat16:
+                w, body = A.sm90_width(d), "sm90_kernel"
+            else:
+                w, body = A.f32_width(d), "f32_sm90_kernel"
+            want = [f"attn_{kernels[c]}_{body}<{w}, false>" for c, _, _ in routes]
+
+            def each_route():
+                for _, fn, _ in routes:
+                    fn(q, k, v)
+
+            names = device_kernel_names(each_route,
+                                        want=lambda ns: all(ran_hopper_kernel(ns, x) for x in want))
+            REPORT.setdefault("width_device_kernels", {})[f"{tag}/d{d}"] = [
+                n for n in names if "attn" in n]
+            if not all(ran_hopper_kernel(names, x) for x in want):
+                raise AssertionError(f"{tag} d={d} ran {names}, not {want}")
+
+
+# The kernel rows of the widths, each reached through the wrapper
+# that reaches it: row → (q's shape, keys, dtype, wrapper, route,
+# csrc/attention.cu's variant (None past 128, which it does not take), the
+# Hopper kernel a profile must name, the TPU kernel). bf16 at D=32 and fp32
+# at D=36 at PixArt-256's self-attention shape (the two routes that lost to
+# SDPA on attention.cu), bf16 at D=36 (its operands reach the body as
+# copies), and past 128 one shape a route
+WIDTH_ROWS = {
+    "attention_d32": ((16, 256, 16, 32), 256, torch.bfloat16, "single", "exact", 0,
+                      "attn_exact_sm90_kernel<32, false>", ":58 (_attn_kernel)"),
+    "attention_fp32_d36": ((16, 256, 16, 36), 256, torch.float32, "single", "exact", 0,
+                           "attn_exact_f32_sm90_kernel<40, false>", ":58 (_attn_kernel)"),
+    "attention_d36": ((16, 256, 16, 36), 256, torch.bfloat16, "single", "exact", 0,
+                      "attn_exact_sm90_kernel<64, false>", ":58 (_attn_kernel)"),
+    "attention_d256": ((16, 256, 8, 256), 256, torch.bfloat16, "single", "exact", None,
+                       "attn_exact_sm90_kernel<256, false>", ":58 (_attn_kernel)"),
+    "attention_long_d160": ((4, 4096, 8, 160), 4096, torch.bfloat16, "fused", "clamp", None,
+                            "attn_clamp_sm90_kernel<192, false>",
+                            ":344 (_transposed_kernel_nobias)"),
+    "attention_rowblock_d256": ((1, 4096, 12, 256), 4096, torch.bfloat16, "fused", "rowblock",
+                                None, "attn_rowblock_sm90_kernel<256, false>",
+                                ":274 (_rowblock_kernel_nobias)"),
+    "attention_flash_d256": ((1, 4608, 12, 256), 4608, torch.bfloat16, "fused", "flash", None,
+                             "attn_flash_sm90_kernel<256, false>", ":151 (_flash_kernel)"),
+    "attention_fp32_d256": ((16, 256, 8, 256), 256, torch.float32, "single", "exact", None,
+                            "attn_exact_f32_sm90_kernel<256, false>", ":58 (_attn_kernel)"),
+    "attention_long_fp32_d160": ((4, 4096, 8, 160), 4096, torch.float32, "fused", "clamp", None,
+                                 "attn_clamp_f32_sm90_kernel<192, false>",
+                                 ":344 (_transposed_kernel_nobias)"),
+    "attention_flash_fp32_d256": ((1, 4608, 12, 256), 4608, torch.float32, "fused", "flash",
+                                  None, "attn_flash_f32_sm90_kernel<256, false>",
+                                  ":151 (_flash_kernel)"),
+}
+WIDTH_TURNS = ("old", "new", "sdpa", "sdpa", "new", "old")
+
+
+def width_kernel_rows(rnd, bound, nbytes) -> list[dict]:
+    """The `WIDTH_ROWS`: each reached through its wrapper with its launch
+    counted (the row's launches: no served path runs these head dims),
+    named by a profile (its Hopper kernel and nothing of csrc/attention.cu),
+    held to its plain version (``BF16_TOL`` / the clamp's and the streaming
+    route's bf16 tolerances, ``FP32_TOL``; per slice past 4096 keys), then
+    timed in turns (`WIDTH_TURNS`) against csrc/attention.cu's body where
+    it takes the head dim (``old_body_ms``: the mma.sync kernel in bf16,
+    the SIMT kernel in fp32) and one ``scaled_dot_product_attention`` call
+    in the row's dtype. bf16's bound is the tensor cores' rate, fp32's the
+    3×TF32 one (and ``fma_bound_ms``). The bf16 D=36 row's operands reach
+    the kernel as copies and o comes back through one (`tma_copy`):
+    ``copy_ms`` times those copies alone."""
+    import torch.nn.functional as F
+
+    from ecad_tpu_torch.ops import attention as A
+
+    plains = {"exact": A.fused_attention_reference, "clamp": A.transposed_attention_reference,
+              "rowblock": A.rowblock_attention_reference, "flash": A.flash_attention_reference}
+    wrappers = {"single": A.single_tile_attention, "fused": A.fused_attention}
+    rows = []
+    for name, (shape, tk, dtype, wrapper, route, variant, kernel, replaces) in WIDTH_ROWS.items():
+        b, tq, h, d = shape
+        q, k, v = (rnd(*s, dtype=dtype) for s in (shape, (b, tk, h, d), (b, tk, h, d)))
+        fn = wrappers[wrapper]
+        counter = ROUTE_COUNTERS[route]
+        out = []
+        counts = counted(lambda: out.append(fn(q, k, v)))
+        got = out.pop()
+        if counts != {**dict.fromkeys(COUNTERS, 0), counter: 1}:
+            raise AssertionError(f"{name}: launches {counts}, not one {counter}")
+        fp32 = dtype == torch.float32
+        REPORT.setdefault("f32_row_launches" if fp32 else "hopper_row_launches", {})[name] = 1
+        names = device_kernel_names(lambda: fn(q, k, v),
+                                    want=lambda ns: ran_hopper_kernel(ns, kernel))
+        REPORT.setdefault("width_row_device_kernels", {})[name] = [n for n in names if "attn" in n]
+        if not ran_hopper_kernel(names, kernel):
+            raise AssertionError(f"{name} ran {names}, not {kernel} alone")
+        big = tk >= 4096
+        plain = ((lambda *a, p=plains[route]: by_slices(p, *a)) if big else plains[route])
+        if route == "exact":
+            plain = lambda *a: A.fused_attention_reference(*a, n_pad=A.pad_keys("exact", tk))  # noqa: E731
+        tol = FP32_TOL if fp32 else {"exact": BF16_TOL, "clamp": clamp_bf16_tol,
+                                     "rowblock": clamp_bf16_tol, "flash": flash_bf16_tol}[route]
+        err = compare(f"{counter}/{'fp32' if fp32 else 'bf16'}/{name}_"
+                      f"{'x'.join(map(str, shape))}_to_{tk}", got, plain(q, k, v), tol)
+        del got
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        n_pad = A.pad_keys(route, tk)
+        fns = {"new": lambda: fn(q, k, v),
+               "old": lambda: A._launch(q, k, v, None, variant, n_pad),
+               "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt)}
+        turns = WIDTH_TURNS if variant is not None else WIDTH_TURNS[1:-1]
+        heavy = fp32 and big
+        reps, inner = (3, 2) if heavy else (5, 5) if big else (7, 20)
+        times = {w: [] for w in turns}
+        for i, which in enumerate(turns):
+            label = name if which == "new" and not times["new"] else f"{name}/{which}/{i}"
+            times[which].append(timed_ms(label, fns[which], reps=reps, inner=inner,
+                                         clocks=label == name))
+        REPORT.setdefault("width_row_turns", {})[name] = times
+        flops = 4 * b * h * tq * tk * d
+        extra = {}
+        if fp32:
+            tb = nbytes(q, k, v, q) / HBM_BYTES_PER_S
+            tf = 3 * flops / TF32_FLOPS
+            b_ms, by = max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
+            extra["fma_bound_ms"] = flops / FP32_FLOPS * 1e3
+        else:
+            b_ms, by = bound(nbytes(q, k, v, q), flops)
+        if variant is not None:
+            extra["old_body_ms"] = statistics.median(times["old"])
+        if A._tma_strides(q)[1]:
+            def copies():
+                A.tma_copy(q), A.tma_copy(k), A.tma_copy(v)
+                return A._padded(tuple(q.shape), q.dtype, q.device, -(-d // 8) * 8).contiguous()
+            extra["copy_ms"] = timed_ms(f"{name}/copies", copies)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="ecad_tpu_torch/csrc/" + ("attention_f32_sm90.cu" if fp32 else
+                                             "attention_sm90.cu"),
+            replaces=f"ecad_tpu/ops/attention.py{replaces}", max_abs_err=err,
+            ms=statistics.median(times["new"]),
+            plain_ms=timed_ms(f"{name}/plain", lambda: plain(q, k, v),
+                              reps=1 if big else 3, inner=1 if big else 5),
+            bound_ms=b_ms, bound_by=by, library_ms=statistics.median(times["sdpa"]),
+            **extra))
+        log(f"  {name}: {rows[-1]['ms']:.4f} ms, SDPA {rows[-1]['library_ms']:.4f} ms"
+            + (f", attention.cu {extra['old_body_ms']:.4f} ms" if variant is not None else ""))
+        del q, k, v, qt, kt, vt
+    return rows
+
+
+# The widths' sweep: one timing of each route at each head dim of
+# `SWEEP_DIMS` (the built widths and some between them) beside one SDPA
+# call, at a shape per route and dtype: dtype → route → (q's shape but D,
+# keys, wrapper)
+SWEEP_DIMS = {torch.bfloat16: (16, 32, 36, 64, 72, 100, 128, 160, 192, 256),
+              torch.float32: (16, 32, 36, 40, 72, 80, 96, 128, 160, 192, 256)}
+SWEEP_SHAPES = {
+    torch.bfloat16: {"exact": ((16, 256, 8), 256), "clamp": ((4, 4096, 8), 4096),
+                     "rowblock": ((4, 4096, 8), 4096), "flash": ((1, 9728, 8), 9728)},
+    torch.float32: {"exact": ((16, 256, 8), 256), "clamp": ((2, 2048, 8), 2048),
+                    "rowblock": ((2, 2048, 8), 2048), "flash": ((1, 4608, 8), 4608)},
 }
 
 
-def attention_cu_rows(rnd, nbytes) -> dict:
-    """One timing of each call that stays on csrc/attention.cu
-    (`ATTENTION_CU_ROWS`) beside one SDPA call and its plain version on the
-    same inputs, with its bound (bf16: the tensor cores' rate; fp32: the
-    FMA rate outside them, which its SIMT kernel uses) and its launch
-    counted, so that a later
-    kernel PR can tell whether it loses to the library and by what factor.
-    A profile must name the row's attention.cu kernel and no Hopper one;
-    output finite, of q's shape; its plain version's agreement is checked
-    at the reference's shapes above. Not a kernel row: no kernel of this
-    repository but csrc/attention.cu's, which the kernels line's rows
-    replaced, runs there."""
-
+def width_sweep(rnd, bound) -> dict:
+    """`SWEEP_SHAPES` × `SWEEP_DIMS`: each route's wrapper (the single-tile,
+    transposed, row-block and streaming ones, called directly) timed once
+    beside one SDPA call on the same inputs, with its bound (bf16: bytes or
+    the tensor cores; fp32: bytes or 3×TF32) and the width it ran at. Its
+    output is checked finite and of q's shape; its agreement with the plain
+    versions is `width_cases`'s, at the reference's shapes."""
     import torch.nn.functional as F
 
-    from ecad_tpu_torch.ops import fused_attention, fused_attention_reference
+    from ecad_tpu_torch.ops import attention as A
 
+    wrappers = {"exact": A.single_tile_attention, "clamp": A.transposed_attention,
+                "rowblock": A.rowblock_attention, "flash": A.flash_attention}
     out = {}
-    for name, (shape, tk, dtype, kernel) in ATTENTION_CU_ROWS.items():
-        b, tq, h, d = shape
-        q, k, v = rnd(*shape, dtype=dtype), rnd(b, tk, h, d, dtype=dtype), rnd(b, tk, h, d,
-                                                                            dtype=dtype)
-        res = []
-        counts = counted(lambda: res.append(fused_attention(q, k, v)))
-        got = res.pop()
-        if got.shape != q.shape or not torch.isfinite(got.float()).all():
-            raise AssertionError(f"{name}: {tuple(got.shape)}, finite "
-                                 f"{bool(torch.isfinite(got.float()).all())}")
-        del got
-        names = device_kernel_names(lambda: fused_attention(q, k, v),
-                                    want=lambda ns: any(kernel in n for n in ns))
-        if not any(kernel in n for n in names) or any("sm90_kernel" in n for n in names):
-            raise AssertionError(f"{name} ran {names}, not attention.cu's {kernel}")
-        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-        ms = timed_ms(name, lambda: fused_attention(q, k, v), clocks=True)
-        sdpa = timed_ms(f"{name}/sdpa", lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        plain = timed_ms(f"{name}/plain", lambda: fused_attention_reference(q, k, v), reps=3,
-                         inner=5)
-        flops = 4 * b * h * tq * tk * d
-        tb = nbytes(q, k, v, q) / HBM_BYTES_PER_S
-        tf = flops / (BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
-        out[name] = {"shape": list(shape), "keys": tk, "dtype": str(dtype).split(".")[-1],
-                     "kernel": [n for n in names if "attn" in n], "ms": ms, "sdpa_ms": sdpa,
-                     "plain_ms": plain, "over_sdpa": ms / sdpa, "bound_ms": max(tb, tf) * 1e3,
-                     "bound_by": "bytes" if tb >= tf else "operations",
-                     "launches": {c: n for c, n in counts.items() if n}}
-        log(f"  {name} (attention.cu): {ms:.4f} ms, SDPA {sdpa:.4f} ms")
-        del q, k, v, qt, kt, vt
+    for dtype, dims in SWEEP_DIMS.items():
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for d in dims:
+            for route, ((b, tq, h), tk) in SWEEP_SHAPES[dtype].items():
+                q, k, v = (rnd(b, t, h, d, dtype=dtype) for t in (tq, tk, tk))
+                fn = wrappers[route]
+                got = fn(q, k, v)
+                if got.shape != q.shape or not torch.isfinite(got.float()).all():
+                    raise AssertionError(f"sweep {tag} {route} d={d}: non-finite or misshapen")
+                del got
+                qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+                reps, inner = (3, 2) if tq * tk >= 2048 * 2048 else (5, 10)
+                ms = timed_ms(f"sweep/{tag}/{route}/d{d}", lambda: fn(q, k, v), reps, inner)
+                sdpa = timed_ms(f"sweep/{tag}/{route}/d{d}/sdpa",
+                                lambda: F.scaled_dot_product_attention(qt, kt, vt), reps, inner)
+                flops = 4 * b * h * tq * tk * d
+                nb = (q.numel() * 2 + k.numel() * 2) * q.element_size()
+                if dtype == torch.bfloat16:
+                    b_ms, by = bound(nb, flops)
+                    w = A.sm90_width(d)
+                else:
+                    tb, tf = nb / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS
+                    b_ms, by = max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
+                    w = A.f32_width(d)
+                out[f"{tag}/{route}/d{d}"] = {"shape": [b, tq, h, d], "keys": tk, "width": w,
+                                              "ms": ms, "sdpa_ms": sdpa, "bound_ms": b_ms,
+                                              "bound_by": by}
+                del q, k, v, qt, kt, vt
+        log(f"  sweep {tag}: " + ", ".join(
+            f"d{d} {out[f'{tag}/exact/d{d}']['ms']:.4f}" for d in dims))
     return out
 
 

@@ -2,8 +2,12 @@
 // tensor cores through a 3×TF32 split, fed by TMA through mbarriers, with two
 // producer-side warpgroups (a TMA warp and seven helper warps) and one or two
 // consumer warpgroups. fp32 q, k, v of
-// shape (B, T, H, D), D = 16, 32, 64, 72 or 128 (a template argument), in
-// 16-byte-aligned strides, in two softmax modes under four kernel names, one
+// shape (B, T, H, d), any d up to 256, run at the built width D (the
+// template argument) at or above it — 16, 32, 40, 64, 72, 96, 128, 192 or
+// 256 (ops/attention.py's `f32_width`; TF32's k-step is 8, so every width is
+// a multiple of 8, and the maps' inner dim d leaves columns d..D−1 to TMA's
+// zero fill) — in 16-byte-aligned strides (the wrapper hands other layouts
+// over as packed copies, `tma_copy`), in two softmax modes under four kernel names, one
 // per route (and a BIAS flag in the name, so that a profile files the forms
 // apart):
 //
@@ -116,10 +120,20 @@
 // (`s_one_pass`, `pv_one_pass`) takes 16–17 % off K4: each pass costs more
 // than its share of the products' bound.
 //
+// Widths. 40 (d=33-40; PixArt-256's shape at d=36 runs there, with
+// 144-byte rows TMA maps) and 96 (d=73-96, one consumer and 32-key stages,
+// as 128) take the D ≤ 128 form. Past 128, q's big and small parts for 64
+// rows take 96 or 128 KB, so a stage is 16 keys (k big and small, vᵀ big
+// and small: 48 or 64 KB), two stages at 192 and one at 256 (192 KB in
+// all; at 256 the tile's loads and splits no longer overlap the products),
+// one consumer; o's 96 or 128 accumulators and a second set for the tile's
+// p·v would not fit beside the rest, so p·v runs in 64-column chunks of vᵀ,
+// each into 32 accumulators of its own from zero and added to o in IEEE
+// fp32 before the next. The o store writes all D columns: below the width
+// the wrapper hands over a wider o and keeps its first d.
+//
 // No CUTLASS or CuTe: inline PTX, as in attention_sm90.cu, keeps the build
-// to seconds. The fp32 calls this body does not take — head dims it is not
-// built for (36: not a multiple of 8), operands TMA cannot map — run on
-// attention.cu's SIMT kernel, by the Python router's rule.
+// to seconds. Every fp32 call up to d=256 runs here, in any layout.
 
 #include <cuda.h>  // CUtensorMap and the types cuTensorMapEncodeTiled takes
 #include <cuda_runtime.h>
@@ -149,10 +163,10 @@ enum Mode : int { kExact = 0, kClamp = 1 };
 // vᵀ's ([D][keys] in keys/8 key groups). Every part is a multiple of 1 KB.
 template <int D>
 struct Cfg {
-  static_assert(D % 8 == 0 && D >= 16 && D <= 128, "head dims: multiples of 8 up to 128");
+  static_assert(D % 8 == 0 && D >= 16 && D <= 256, "widths: multiples of 8 up to 256");
   static constexpr int kNC = D > 72 ? 1 : 2;
-  static constexpr int kBN = D > 72 ? 32 : 64;
-  static constexpr int kStages = 2;
+  static constexpr int kBN = D > 128 ? 16 : D > 72 ? 32 : 64;
+  static constexpr int kStages = D > 192 ? 1 : 2;
   static constexpr int kRowsQ = 64 * kNC;
   static constexpr int kQ = kRowsQ * D * 4;  // one part of q
   static constexpr int kKV = kBN * D * 4;    // one part of k or of vᵀ
@@ -219,6 +233,12 @@ __device__ __forceinline__ uint64_t desc_sw32(uint32_t addr) {
 #define F32_REGS32                                                                             \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
   "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define F32_REGS20 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}"
+#define F32_REGS48                                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "  \
+  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47}"
 #define F32_REGS36                                                                             \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
   "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35}"
@@ -246,8 +266,10 @@ __device__ __forceinline__ uint64_t desc_sw32(uint32_t addr) {
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d) {
-  static_assert(N == 32 || N == 64, "key tiles of 32 or 64");
-  if constexpr (N == 32)
+  static_assert(N == 16 || N == 32 || N == 64, "key tiles of 16, 32 or 64");
+  if constexpr (N == 16)
+    F32_SS(16, F32_REGS8, "%8", "%9", "%10", F32_ACC8(0));
+  else if constexpr (N == 32)
     F32_SS(32, F32_REGS16, "%16", "%17", "%18", F32_ACC16(0));
   else
     F32_SS(64, F32_REGS32, "%32", "%33", "%34", F32_ACC32(0));
@@ -263,14 +285,37 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
     F32_RS(16, F32_REGS8, "{%8, %9, %10, %11}", "%12", "%13", F32_ACC8(0));
   else if constexpr (N == 32)
     F32_RS(32, F32_REGS16, "{%16, %17, %18, %19}", "%20", "%21", F32_ACC16(0));
+  else if constexpr (N == 40)
+    F32_RS(40, F32_REGS20, "{%20, %21, %22, %23}", "%24", "%25", F32_ACC16(0), F32_ACC4(16));
   else if constexpr (N == 64)
     F32_RS(64, F32_REGS32, "{%32, %33, %34, %35}", "%36", "%37", F32_ACC32(0));
   else if constexpr (N == 72)
     F32_RS(72, F32_REGS36, "{%36, %37, %38, %39}", "%40", "%41", F32_ACC32(0), F32_ACC4(32));
+  else if constexpr (N == 96)
+    F32_RS(96, F32_REGS48, "{%48, %49, %50, %51}", "%52", "%53", F32_ACC32(0), F32_ACC16(32));
   else if constexpr (N == 128)
     F32_RS(128, F32_REGS64, "{%64, %65, %66, %67}", "%68", "%69", F32_ACC32(0), F32_ACC32(32));
   else
-    static_assert(N == 16, "the body is built at head dims 16, 32, 64, 72 and 128");
+    static_assert(N == 16, "p·v's widths: 16, 32, 40, 64, 72, 96 and 128 (64-column chunks past)");
+}
+
+// One pass of the scores past D=128: STEPS k-steps of wgmma_ss, each
+// operand's descriptor stepped by its bytes a k-step (`da_step`, `db_step`)
+// from the first, the next one made only once the product before it is
+// issued (the empty asm orders them). Unrolled as below D=128, with the
+// descriptors of all 3·D/8 products made up front beside o's 128
+// accumulators, they spilled 450-700 bytes. FIRST: the pass's first
+// product overwrites the scores.
+template <int BN, int STEPS, bool FIRST>
+__device__ __forceinline__ void scores_stepped(float (&sc)[BN / 2], uint64_t da, uint64_t db,
+                                               uint32_t da_step, uint32_t db_step) {
+#pragma unroll
+  for (int kc = 0; kc < STEPS; ++kc) {
+    wgmma_ss<BN>(sc, da, db, FIRST && kc == 0 ? 0 : 1);
+    da += da_step >> 4;
+    db += db_step >> 4;
+    asm volatile("" : "+l"(da), "+l"(db));
+  }
 }
 
 // 2^x in one special-function instruction (`exp2f` adds instructions for
@@ -447,12 +492,22 @@ __device__ __forceinline__ void attn_f32_body(const CUtensorMap* maps, const Par
       // s = q·kᵀ: the small products, then the big one
       float sc[BN / 2];
       wgmma_fence();
+      if constexpr (D > 128) {
+        // the small products, then the big one, as below
+        scores_stepped<BN, D / 8, true>(sc, q_desc(q_small, 0), k_desc(kb, 0), C::kRowsQ * 32,
+                                        BN * 32);
+        scores_stepped<BN, D / 8, false>(sc, q_desc(q_big, 0), k_desc(ks, 0), C::kRowsQ * 32,
+                                         BN * 32);
+        scores_stepped<BN, D / 8, false>(sc, q_desc(q_big, 0), k_desc(kb, 0), C::kRowsQ * 32,
+                                         BN * 32);
+      } else {
 #pragma unroll
-      for (int kc = 0; kc < D / 8; ++kc) wgmma_ss<BN>(sc, q_desc(q_small, kc), k_desc(kb, kc), kc);
+        for (int kc = 0; kc < D / 8; ++kc) wgmma_ss<BN>(sc, q_desc(q_small, kc), k_desc(kb, kc), kc);
 #pragma unroll
-      for (int kc = 0; kc < D / 8; ++kc) wgmma_ss<BN>(sc, q_desc(q_big, kc), k_desc(ks, kc), 1);
+        for (int kc = 0; kc < D / 8; ++kc) wgmma_ss<BN>(sc, q_desc(q_big, kc), k_desc(ks, kc), 1);
 #pragma unroll
-      for (int kc = 0; kc < D / 8; ++kc) wgmma_ss<BN>(sc, q_desc(q_big, kc), k_desc(kb, kc), 1);
+        for (int kc = 0; kc < D / 8; ++kc) wgmma_ss<BN>(sc, q_desc(q_big, kc), k_desc(kb, kc), 1);
+      }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -519,28 +574,59 @@ __device__ __forceinline__ void attn_f32_body(const CUtensorMap* maps, const Par
       // this tile's p·v into accumulators of its own, from zero; then o =
       // o·alpha + that in IEEE fp32 (see the note: the tensor cores'
       // accumulation, carried over every key tile, drifted past fp32's
-      // tolerance)
-      float ot[D / 2];
+      // tolerance). Past D=128 o's 64-column chunks one after the other, so
+      // that a thread holds o and one chunk's accumulators, not o twice.
+      if constexpr (D > 128) {
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) ot[i] = 0.f;
-      wgmma_fence();
+        for (int ch = 0; ch < D / 64; ++ch) {
+          float ot[32];
 #pragma unroll
-      for (int kk = 0; kk < BN / 8; ++kk) wgmma_rs<D>(ot, ps[kk], vt_desc(vb, kk));
+          for (int i = 0; i < 32; ++i) ot[i] = 0.f;
+          wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BN / 8; ++kk) wgmma_rs<D>(ot, pb[kk], vt_desc(vs, kk));
+          for (int kk = 0; kk < BN / 8; ++kk)
+            wgmma_rs<64>(ot, ps[kk], vt_desc(vb + 2048 * ch, kk));
 #pragma unroll
-      for (int kk = 0; kk < BN / 8; ++kk) wgmma_rs<D>(ot, pb[kk], vt_desc(vb, kk));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(ot);
+          for (int kk = 0; kk < BN / 8; ++kk)
+            wgmma_rs<64>(ot, pb[kk], vt_desc(vs + 2048 * ch, kk));
 #pragma unroll
-      for (int kk = 0; kk < BN / 8; ++kk) {
-        fence_regs(pb[kk]);
-        fence_regs(ps[kk]);
+          for (int kk = 0; kk < BN / 8; ++kk)
+            wgmma_rs<64>(ot, pb[kk], vt_desc(vb + 2048 * ch, kk));
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(ot);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) o[32 * ch + i] = fmaf(o[32 * ch + i], alpha[(i >> 1) & 1], ot[i]);
+        }
+#pragma unroll
+        for (int kk = 0; kk < BN / 8; ++kk) {
+          fence_regs(pb[kk]);
+          fence_regs(ps[kk]);
+        }
+        mbar_arrive(kv_empty(s));
+      } else {
+        float ot[D / 2];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) ot[i] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 8; ++kk) wgmma_rs<D>(ot, ps[kk], vt_desc(vb, kk));
+#pragma unroll
+        for (int kk = 0; kk < BN / 8; ++kk) wgmma_rs<D>(ot, pb[kk], vt_desc(vs, kk));
+#pragma unroll
+        for (int kk = 0; kk < BN / 8; ++kk) wgmma_rs<D>(ot, pb[kk], vt_desc(vb, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(ot);
+#pragma unroll
+        for (int kk = 0; kk < BN / 8; ++kk) {
+          fence_regs(pb[kk]);
+          fence_regs(ps[kk]);
+        }
+        mbar_arrive(kv_empty(s));
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] = fmaf(o[i], alpha[(i >> 1) & 1], ot[i]);
       }
-      mbar_arrive(kv_empty(s));
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] = fmaf(o[i], alpha[(i >> 1) & 1], ot[i]);
     }
 
     // epilogue: the row sums over the quad, the reference's pad keys, one
@@ -621,11 +707,14 @@ Launch f32_launch(int route, bool bias) {
 
 }  // namespace
 
-// q, k, v: fp32 (B, T, H, D), D = 16, 32, 64, 72 or 128; `maps` holds 7
-// values for each of q, k and v in turn: the dims {D, H, T, B} and the byte
-// strides of H, T and B (each a multiple of 16, the base 16-byte aligned),
-// as ops/attention.py's `f32_tma_operand` computes them. strides: 7 int64 —
-// o's element strides (b, t, h), then the bias's (b, h, q, k), 0 where it
+// q, k, v: fp32 (B, T, H, d), d ≤ `width`, one of the built widths 16, 32,
+// 40, 64, 72, 96, 128, 192 and 256 (columns d..width−1 zero-filled by TMA);
+// `maps` holds 7 values for each of q, k and v in turn: the dims {d, H, T,
+// B} and the byte strides of H, T and B (each a multiple of 16, the base
+// 16-byte aligned), as ops/attention.py's `f32_tma_operand` computes them.
+// o: fp32 (B, Tq, H, width), all of its columns written (the wrapper hands
+// a wider o where d < width and keeps its first d columns). strides: 7
+// int64 — o's element strides (b, t, h), then the bias's (b, h, q, k), 0 where it
 // broadcasts. bias: null or fp32; a key-padding one (B|1, 1, 1, Tk)
 // on the clamp routes. route: 0 the exact softmax of the streaming route
 // (K6), 1 the clamp softmax of the row-block route (K5), 2 the exact
@@ -639,17 +728,21 @@ extern "C" int ecad_attention_f32_sm90_fwd(const float* q, const float* k, const
                                            float* o, const unsigned long long* maps,
                                            const long long* strides, const float* bias, int B,
                                            int H, int Tq, int Tk, float scale, int route,
-                                           int n_pad, void* stream) {
+                                           int n_pad, int width, void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || route < 0 || route > 3 || n_pad < 0 ||
-      maps[7] != maps[0] || maps[14] != maps[0])
+      maps[7] != maps[0] || maps[14] != maps[0] || maps[0] < 1 || maps[0] > (unsigned)width)
     return (int)cudaErrorInvalidValue;
   const bool has_bias = bias != nullptr;
-  const unsigned long long D = maps[0];
+  const int D = width;
   const Launch launch = D == 16    ? f32_launch<16>(route, has_bias)
                         : D == 32  ? f32_launch<32>(route, has_bias)
+                        : D == 40  ? f32_launch<40>(route, has_bias)
                         : D == 64  ? f32_launch<64>(route, has_bias)
                         : D == 72  ? f32_launch<72>(route, has_bias)
+                        : D == 96  ? f32_launch<96>(route, has_bias)
                         : D == 128 ? f32_launch<128>(route, has_bias)
+                        : D == 192 ? f32_launch<192>(route, has_bias)
+                        : D == 256 ? f32_launch<256>(route, has_bias)
                                    : Launch{};
   if (launch.kernel == nullptr) return (int)cudaErrorInvalidValue;
   const long long n_items = (long long)B * H * ((Tq + launch.rows - 1) / launch.rows);
@@ -664,7 +757,8 @@ extern "C" int ecad_attention_f32_sm90_fwd(const float* q, const float* k, const
     const cuuint64_t dims[4] = {a[0], a[1], a[2], a[3]};
     const cuuint64_t gstrides[3] = {a[4], a[5], a[6]};
     // q and k: 8 columns (32 bytes: the swizzle's width) of one head, the
-    // item's rows or a stage's keys; v: whole rows of a stage's keys
+    // item's rows or a stage's keys; v: whole rows of the width, of a stage's
+    // keys
     const cuuint32_t box[4] = {i == 2 ? (cuuint32_t)D : 8u, 1,
                                (cuuint32_t)(i == 0 ? launch.rows : launch.keys), 1};
     const CUresult r = encode(&tmaps.m[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
@@ -686,8 +780,17 @@ extern "C" int ecad_attention_f32_sm90_fwd(const float* q, const float* k, const
   p.n_pad = n_pad;
   p.scale = scale;
   // above 48 KB dynamic shared memory needs an opt-in (once per kernel)
-  static bool opted_in[5][4][2] = {};
-  bool& opted = opted_in[D == 16 ? 0 : D == 32 ? 1 : D == 64 ? 2 : D == 72 ? 3 : 4][route][has_bias];
+  static bool opted_in[9][4][2] = {};
+  const int wi = D == 16    ? 0
+                 : D == 32  ? 1
+                 : D == 40  ? 2
+                 : D == 64  ? 3
+                 : D == 72  ? 4
+                 : D == 96  ? 5
+                 : D == 128 ? 6
+                 : D == 192 ? 7
+                            : 8;
+  bool& opted = opted_in[wi][route][has_bias];
   if (!opted) {
     const cudaError_t err = cudaFuncSetAttribute(
         launch.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, launch.smem);

@@ -1,7 +1,8 @@
 // Attention forward for Hopper (sm_90a): wgmma fed by TMA through
 // mbarriers, with a producer warpgroup and two consumer warpgroups. bf16 q,
-// k, v of shape (B, T, H, D), D = 64, 72 or 128 (a template argument; the
-// harness's X1-X4 not at 64), in any
+// k, v of shape (B, T, H, d), any d up to 256, run at the built width D
+// (the template argument) at or above it: 16, 32, 64, 72, 128, 192 or 256
+// (the harness's X1-X4 at 72 and 128 only; see "Widths" below), in any
 // 16-byte-aligned strides, in six softmax modes (a template argument, as in
 // attention.cu) under nine kernel names, one per route and one per mode of
 // the attention-variant harness; every exact and clamp kernel also takes a
@@ -360,6 +361,39 @@
 //     ms against 1.41 and 0.85 on two at (8, 4096, 16, 72) and (64, 1024,
 //     16, 72); two keep the body free of spills.
 //
+// Widths. The routes' kernels are built at seven widths, and a call
+// at head dim d runs at the smallest at or above it (ops/attention.py's
+// `sm90_width`): d ≤ 16 at 16, ≤ 32 at 32, ≤ 64 at 64, ≤ 72 at 72, ≤ 128
+// at 128, ≤ 192 at 192, ≤ 256 at 256. The tensor maps' inner dim is d, so
+// TMA zero-fills columns d..D−1 of q, k and v (and counts their bytes), and
+// o's map stores only d columns: the padding costs loads and products,
+// never a result. What each width wastes at its worst: 16 at d=1 (15/16
+// of the columns), 32 at 17 (47 %), 64 at 33 (48 %), 72 at 65 (10 %), 128 at
+// 73 (43 %), 192 at 129 (33 %), 256 at 193 (25 %).
+//   * D=32 and 16: a row is 64 or 32 bytes, one box under the 64- or
+//     32-byte swizzle (not half of a 128-byte box, whose other half TMA
+//     would fill with zeros at the cost of real data): q·kᵀ's k-steps move
+//     32 bytes along that row (two at D=32, one at 16), 8-row groups 512 or
+//     256 bytes apart; p·v is one m64n32k16 or m64n16k16 of v read MN-major
+//     under the same swizzle. o is staged under it and stored by TMA. K4,
+//     K5 and K6 run D=64's consumer counts (three; K4 and K5 with a bias
+//     two), K1 and K2 two (`kExactConsumers`).
+//   * D=192 and 256: a 128-key tile of k or v would be 48 or 64 KB and its
+//     scores 64 registers a consumer thread beside o's 96 or 128, so a key
+//     tile is 64 keys (q·kᵀ m64n64k16, 12 or 16 k-steps over 64-column
+//     boxes; p·v four k-steps of one m64n192k16 or m64n256k16, its boxes the
+//     descriptor's leading offset apart), two consumers (232 registers), and
+//     q one buffer of 48 or 64 KB; three or two ring stages: 192 KB. Each
+//     consumer's 64 rows of q are also its staging rows for the o store, so
+//     it arrives on q's empty barrier once that store has read them (not
+//     after its last q·kᵀ of the item): the next item's q load waits for the
+//     epilogue, the price of the one buffer.
+//   * Operands TMA cannot map — a base off 16 bytes, strides that are not
+//     multiples of 16 bytes (any d % 8 ≠ 0: rows of 2d bytes) — reach the
+//     kernel as packed copies whose rows are a multiple of 16 bytes apart
+//     (the wrapper's `tma_copy`), and o at such a d comes back through a
+//     copy of its padded rows; the kernels are the same.
+//
 // Where trouble was met, and what the code does about it:
 //   1. The tensor map comes from the driver API (`cuTensorMapEncodeTiled`);
 //     it is fetched through the runtime's `cudaGetDriverEntryPoint*`, so
@@ -443,50 +477,77 @@
 
 namespace {
 
-constexpr int kBlockN = 128;  // keys per tile
-constexpr int kQBufs = 2;  // q tiles: the next item's loads while this one runs
+constexpr int kBlockN = 128;  // keys per tile at D ≤ 128
 constexpr int kHelperThreads = 96;  // the producer warpgroup's warps 1-3
-constexpr int kPersistentTiles = 6;  // key tiles an item up to which a launch is persistent
+constexpr int kPersistentTiles = 6;  // 128-key tiles an item up to which a launch is persistent
 
-// A tile of `rows` rows (128 keys of k or v; 64 query rows per consumer
-// warpgroup of q) in shared memory. D=128: two 64-column boxes under the
-// 128-byte swizzle, 256 bytes a row. D=64: one such box, 128 bytes a row.
-// D=72: one such box (columns 0-63), the unswizzled tail box (columns
-// 64-71, 16 bytes a row) and as many zeros after it, which q·kᵀ's fifth
-// k-step reads as columns 72-79: 160 bytes a row, of which TMA writes 144.
+// The widths the body is built at (the template argument D): a call's head
+// dim d runs at the smallest of them at or above it, with columns d..D−1
+// zero-filled by TMA (the tensor map's inner dim is d) and never stored (nor
+// is o's: its map's inner dim is d too). A row of D columns is kNB boxes of
+// kBW columns under the swizzle of their width (kBW·2 bytes: 128 at 64
+// columns, 64 at 32, 32 at 16), D=72 one 64-column box and the 8-column
+// tail. Past D=128 a key tile is 64 keys and q has one buffer (below).
+template <int D>
+struct Width {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 72 || D == 128 || D == 192 || D == 256,
+                "the body is built at widths 16, 32, 64, 72, 128, 192 and 256");
+  static constexpr int kBW = D < 64 ? D : 64;        // a box's columns
+  static constexpr int kNB = D == 72 ? 1 : D / kBW;  // swizzled boxes a row
+  static constexpr int kRow = 2 * kBW;               // a box row's bytes: the swizzle's width
+};
+// keys per tile: 128, or 64 past D=128, where a 128-key tile of k or v
+// would take 64 KB and its scores 64 more registers a thread beside o's
+template <int D>
+constexpr int kTileKeys = D > 128 ? 64 : kBlockN;
+// q tiles: two (the next item's loads while this one runs), one past
+// D=128, where each consumer's rows of q are also its staging rows for o
+template <int D>
+constexpr int kQBufs = D > 128 ? 1 : 2;
+
+// A tile of `rows` rows (kTileKeys keys of k or v; 64 query rows per
+// consumer warpgroup of q) in shared memory: kNB boxes of kBW columns, one
+// after the other. D=128: two 64-column boxes under the 128-byte swizzle,
+// 256 bytes a row. D=64: one such box, 128 bytes a row. D=72: one such box
+// (columns 0-63), the unswizzled tail box (columns 64-71, 16 bytes a row)
+// and as many zeros after it, which q·kᵀ's fifth k-step reads as columns
+// 72-79: 160 bytes a row, of which TMA writes 144. D=32 and 16: one box of
+// 64 or 32 bytes a row; D=192 and 256: three or four 64-column boxes.
 // The ring has kStages stages of k and v: two at D=128 (192 KB with the q
 // buffers), three at D=72 (160 KB with two consumers, 180 KB with three),
-// where the loads are the larger share of a tile's time, four at D=64,
-// whose 16 KB tiles leave room for them (176 KB with the q buffers of
-// three consumers).
+// where the loads are the larger share of a tile's time, four at D ≤ 64,
+// whose tiles leave room for them (176 KB with the q buffers of three
+// consumers at D=64), three of 64 keys at D=192 and two at D=256 (192 KB
+// with q's one buffer).
 template <int D>
 struct TileOf {
-  static_assert(D == 64 || D == 72 || D == 128, "the body is built at head dims 64, 72 and 128");
   int rows;
-  __host__ __device__ constexpr int box() const { return rows * 128; }  // a 64-column swizzled box
+  __host__ __device__ constexpr int box() const { return rows * Width<D>::kRow; }
   __host__ __device__ constexpr int tail() const { return rows * 16; }  // D=72's 8-column tail
   __host__ __device__ constexpr int bytes() const {
-    return D == 128 ? 2 * box() : D == 64 ? box() : box() + 2 * tail();
+    return D == 72 ? box() + 2 * tail() : Width<D>::kNB * box();
   }
   __host__ __device__ constexpr int load() const {
-    return D == 128 ? 2 * box() : D == 64 ? box() : box() + tail();
+    return D == 72 ? box() + tail() : Width<D>::kNB * box();
   }
 };
 
 // The shared memory of a block with NC consumer warpgroups (NC·64 query
 // rows a work item): the q buffers, the k and v stages, each consumer's
-// staging rows for the o store (64 × D bf16), each stage's bias slot (128
-// fp32), the barriers (q: full, empty and ready; k, v: full and empty),
-// and 1024 bytes to align the base: 226 KB at D=128, 181 KB at D=72 (210
-// KB with three consumers), 203 KB at D=64 (three consumers).
+// staging rows for the o store (64 × D bf16; past D=128 its rows of q),
+// each stage's bias slot (one fp32 a key), the barriers (q: full, empty and
+// ready; k, v: full and empty), and 1024 bytes to align the base: 226 KB at
+// D=128, 181 KB at D=72 (210 KB with three consumers), 203 KB at D=64
+// (three consumers), 192 KB at D=192 and 256.
 template <int D, int NC>
 struct Smem {
-  static constexpr TileOf<D> kQ{64 * NC}, kKV{kBlockN};
-  static constexpr int kStages = D == 128 ? 2 : D == 72 ? 3 : 4;
-  static constexpr int kOut = 64 * D * 2;  // 16 KB at D=128, 9 KB at D=72, 8 KB at D=64
-  static constexpr int kBarriers = 3 * kQBufs + 4 * kStages;
-  static constexpr int kBytes = kQBufs * kQ.bytes() + 2 * kStages * kKV.bytes() + NC * kOut +
-                                kStages * kBlockN * 4 + kBarriers * 8 + 1024;
+  static constexpr TileOf<D> kQ{64 * NC}, kKV{kTileKeys<D>};
+  static constexpr int kStages = D == 128 ? 2 : D == 72 ? 3 : D <= 64 ? 4 : D == 192 ? 3 : 2;
+  // 16 KB at D=128, 9 KB at D=72, 8 KB at D=64; none past D=128
+  static constexpr int kOut = D > 128 ? 0 : 64 * D * 2;
+  static constexpr int kBarriers = 3 * kQBufs<D> + 4 * kStages;
+  static constexpr int kBytes = kQBufs<D> * kQ.bytes() + 2 * kStages * kKV.bytes() + NC * kOut +
+                                kStages * kTileKeys<D> * 4 + kBarriers * 8 + 1024;
 };
 constexpr int kBoxBytes = TileOf<72>{kBlockN}.box();    // 16 KB: a k or v tile's 64-column box
 constexpr int kTailBytes = TileOf<72>{kBlockN}.tail();  // 2 KB: its 8-column tail at D=72
@@ -549,15 +610,22 @@ __device__ __forceinline__ void tma_store(uint32_t src, const CUtensorMap* map, 
       : "memory");
 }
 
-// A bf16 tile (`tile`'s rows) at rows `row` of (batch b, head h): two
-// 64-column boxes of `map`, one after the other (D=128), one (D=64), or one
-// and the 8-column box of `tail` at column 64 after it (D=72).
+// A bf16 tile (`tile`'s rows) at rows `row` of (batch b, head h): the
+// boxes of `map`, one after the other (two 64-column ones at D=128, one at
+// D ≤ 64), or one and the 8-column box of `tail` at column 64 after it
+// (D=72).
 template <int D>
 __device__ __forceinline__ void tma_tile(uint32_t dst, TileOf<D> tile, const CUtensorMap* map,
                                          const CUtensorMap* tail, uint32_t bar, int h, int row,
                                          int b) {
   tma_load(dst, map, bar, 0, h, row, b);
-  if constexpr (D != 64) tma_load(dst + tile.box(), D == 128 ? map : tail, bar, 64, h, row, b);
+  if constexpr (D == 72 || D == 128)
+    tma_load(dst + tile.box(), D == 128 ? map : tail, bar, 64, h, row, b);
+  if constexpr (D > 128) {
+#pragma unroll
+    for (int j = 1; j < Width<D>::kNB; ++j)
+      tma_load(dst + j * tile.box(), map, bar, 64 * j, h, row, b);
+  }
 }
 
 // --- wgmma ------------------------------------------------------------------
@@ -660,6 +728,83 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N], const uint32_t (&a)[4], 
   }
 }
 
+// The other widths' products. A descriptor under the 64- or 32-byte
+// swizzle of the narrow widths' boxes (layout type 2 or 3; 1 is
+// `desc_sw128`'s).
+template <int LAYOUT>
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(LAYOUT) << 62);
+}
+
+#define WGMMA_R0_63                                                                    \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "               \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "    \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "    \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define WGMMA_R64_95                                                                   \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "    \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+#define WGMMA_R96_127                                                                        \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, " \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "   \
+  "%125, %126, %127"
+#define WGMMA_ACC32(i) WGMMA_ACC8(i), WGMMA_ACC8(i + 8), WGMMA_ACC8(i + 16), WGMMA_ACC8(i + 24)
+
+// The scores of a 64-key tile (D > 128): d (64 × 64, fp32) (+)= a (64 ×
+// 16, shared, K-major) · b (16 × 64, shared, K-major).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_ACC32(0)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// o += p·v over all N = D columns in one product at the widths other than
+// 64, 72 and 128: d (64 × N, fp32) += a (64 × 16, bf16 registers) · b (16 ×
+// N, shared, MN-major: the transpose bit; its boxes the descriptor's
+// leading offset apart).
+template <int N>
+__device__ __forceinline__ void wgmma_rs_wide(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16"
+        " {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : WGMMA_ACC8(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16"
+        " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+        " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : WGMMA_ACC8(0), WGMMA_ACC8(8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 192) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %101, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16"
+        " {" WGMMA_R0_63 ", " WGMMA_R64_95 "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : WGMMA_ACC32(0), WGMMA_ACC32(32), WGMMA_ACC32(64)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    static_assert(N == 256, "p·v's other widths: 16, 32, 192 and 256");
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16"
+        " {" WGMMA_R0_63 ", " WGMMA_R64_95 ", " WGMMA_R96_127
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : WGMMA_ACC32(0), WGMMA_ACC32(32), WGMMA_ACC32(64), WGMMA_ACC32(96)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+}
+
 // 2^x in one special-function instruction. `exp2f` also computes results
 // below 2^-126 exactly, which costs extra instructions on every score;
 // here none can matter: the clamp's results are at least 2^-100, and the
@@ -692,11 +837,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // with b2's product into an FFMA; a key past Tk still weighs 0, not the
 // 2^-100 its −∞ would clip to, since the epilogue adds the reference's pad
 // keys.
-template <bool MASK, bool BIAS, bool CLIP, bool SUM>
-__device__ __forceinline__ void softmax_nomax(float (&s)[64], const float (&b2)[BIAS ? 32 : 1],
+template <bool MASK, bool BIAS, bool CLIP, bool SUM, int NS>
+__device__ __forceinline__ void softmax_nomax(float (&s)[NS], const float (&b2)[BIAS ? NS / 2 : 1],
                                               float (&l)[2], int col0, int Tk) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     const int col = col0 + (i >> 2) * 8 + (i & 1);
     const float x = BIAS ? __fadd_rn(s[i], b2[BIAS ? 2 * (i >> 2) + (i & 1) : 0]) : s[i];
     float p = ex2(CLIP ? fminf(fmaxf(x, kClampLo), kClampHi) : x);
@@ -711,12 +856,12 @@ __device__ __forceinline__ void softmax_nomax(float (&s)[64], const float (&b2)[
 // earlier tiles (returned in alpha), p = exp2(s·scale·log2e − m·scale·log2e)
 // in place with the scale folded into one FFMA, Σp into l after rescaling it.
 // X3 takes it with qk_scale = 1 on its pre-scaled scores: p = exp2(s − m).
-template <bool MASK>
-__device__ __forceinline__ void softmax_exact(float (&s)[64], float (&m)[2], float (&l)[2],
+template <bool MASK, int NS>
+__device__ __forceinline__ void softmax_exact(float (&s)[NS], float (&m)[2], float (&l)[2],
                                               float (&alpha)[2], float qk_scale, int col0, int Tk) {
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     const int col = col0 + (i >> 2) * 8 + (i & 1);
     if (MASK && col >= Tk) s[i] = -INFINITY;
     mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
@@ -732,7 +877,7 @@ __device__ __forceinline__ void softmax_exact(float (&s)[64], float (&m)[2], flo
     shift[r] = -mx[r] * qk_scale;
   }
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     const int r = (i >> 1) & 1;
     const float p = ex2(fmaf(s[i], qk_scale, shift[r]));
     s[i] = p;
@@ -745,13 +890,13 @@ __device__ __forceinline__ void softmax_exact(float (&s)[64], float (&m)[2], flo
 // staged slot, a dense one from the consumer's own loads), the running max
 // m of s₂ (log2 domain), the rescale factor of the earlier tiles (alpha),
 // p = exp2(s₂ − m) in place, Σp into l after rescaling it.
-template <class B2>
-__device__ __forceinline__ void softmax_exact_bias(float (&s)[64], B2 b2, float (&m)[2],
+template <class B2, int NS>
+__device__ __forceinline__ void softmax_exact_bias(float (&s)[NS], B2 b2, float (&m)[2],
                                                    float (&l)[2], float (&alpha)[2],
                                                    float qk_scale) {
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     s[i] = fmaf(s[i], qk_scale, b2(i));
     mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
   }
@@ -764,7 +909,7 @@ __device__ __forceinline__ void softmax_exact_bias(float (&s)[64], B2 b2, float 
     l[r] *= alpha[r];
   }
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     const int r = (i >> 1) & 1;
     const float p = ex2(s[i] - mx[r]);
     s[i] = p;
@@ -777,11 +922,12 @@ __device__ __forceinline__ void softmax_exact_bias(float (&s)[64], B2 b2, float 
 // thread `ht` (of kHelperThreads): plain loads in the bias's own dtype
 // (bf16 widens exactly: its bits are an fp32's upper half), any batch and
 // key stride.
+template <int BN>
 __device__ __forceinline__ void write_bias(float* slot, const Params& p, int b, int col0,
                                            int ht) {
   const unsigned short* const bf16_bias = static_cast<const unsigned short*>(p.bias);
   const float* const f32_bias = static_cast<const float*>(p.bias);
-  for (int i = ht; i < kBlockN; i += kHelperThreads) {
+  for (int i = ht; i < BN; i += kHelperThreads) {
     const int col = col0 + i;
     float x = -INFINITY;
     if (col < p.Tk) {
@@ -795,10 +941,12 @@ __device__ __forceinline__ void write_bias(float* slot, const Params& p, int b, 
 }
 
 // This consumer thread's 32 columns of a key tile's bias slot (b2[2j + e]
-// for column col_t + 8j + e): 16 eight-byte loads from shared memory.
-__device__ __forceinline__ void read_bias(float (&b2)[32], const float* slot, int col_t) {
+// for column col_t + 8j + e): 16 eight-byte loads from shared memory (16
+// columns, 8 loads, in a 64-key tile).
+template <int N>
+__device__ __forceinline__ void read_bias(float (&b2)[N], const float* slot, int col_t) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 2; ++j) {
     const float2 x = *reinterpret_cast<const float2*>(slot + col_t + 8 * j);
     b2[2 * j] = x.x;
     b2[2 * j + 1] = x.y;
@@ -819,11 +967,12 @@ constexpr uint32_t kNegInfPair = 0xFF80FF80u;
 // + 1) as 4-byte loads, −∞ past Tk (Tk is even, so a pair is in or out).
 // At D=64 and 72 issued one tile ahead of their use (`kDensePrefetch`): a
 // load completes only where its register is first read.
-__device__ __forceinline__ void load_dense_pairs(uint32_t (&w)[32], const Params& p,
+template <int NP>
+__device__ __forceinline__ void load_dense_pairs(uint32_t (&w)[NP], const Params& p,
                                                  const long long (&off)[2], int col) {
   const unsigned short* const bias = static_cast<const unsigned short*>(p.bias);
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < NP / 2; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       w[2 * j + r] = col + 8 * j < p.Tk
@@ -832,7 +981,8 @@ __device__ __forceinline__ void load_dense_pairs(uint32_t (&w)[32], const Params
 }
 
 // Score i's bias from the pairs, times log2e in fp32 (bf16 widens exactly).
-__device__ __forceinline__ float pair_bias_log2(const uint32_t (&w)[32], int i) {
+template <int NP>
+__device__ __forceinline__ float pair_bias_log2(const uint32_t (&w)[NP], int i) {
   const uint32_t x = w[2 * (i >> 2) + ((i >> 1) & 1)];
   return __uint_as_float(i & 1 ? x & 0xFFFF0000u : x << 16) * kLog2e;
 }
@@ -866,10 +1016,10 @@ __device__ __forceinline__ void dense_rows(long long (&at)[2], const Params& p, 
 
 // The dense bias's pairs are loaded one tile ahead of their use (the next
 // tile of the item, or the next item's first), under this tile's p·v, at
-// D=64 and 72; at D=128 just after their own tile's q·kᵀ is issued, under
+// D < 128; at D ≥ 128 just after their own tile's q·kᵀ is issued, under
 // it (see the note)
 template <int D>
-constexpr bool kDensePrefetch = D != 128;
+constexpr bool kDensePrefetch = D < 128;
 
 // Key tile j's exact softmax in `item` with a dense bias: from the pairs in
 // `bp` (`kDensePrefetch`), then, one tile ahead, the next tile's pairs into
@@ -877,18 +1027,18 @@ constexpr bool kDensePrefetch = D != 128;
 // tile's p·v and that item's q load); or, where the bias has no aligned
 // bf16 pairs, each value loaded where it is used. `off`: this thread's rows
 // of `item`.
-template <int D>
-__device__ __forceinline__ void softmax_dense(float (&s)[64], float (&m)[2], float (&l)[2],
+template <int D, int NS>
+__device__ __forceinline__ void softmax_dense(float (&s)[NS], float (&m)[2], float (&l)[2],
                                               float (&alpha)[2], float qk_scale,
-                                              uint32_t (&bp)[32], const long long (&off)[2],
+                                              uint32_t (&bp)[NS / 2], const long long (&off)[2],
                                               const Params& p, int item, int j, int n_tiles,
                                               int n_qt, int block_m, int row_t, int col_t) {
-  const int col0 = j * kBlockN + col_t;
+  const int col0 = j * kTileKeys<D> + col_t;
   if (p.bias_pairs) {
     softmax_exact_bias(s, [&](int i) { return pair_bias_log2(bp, i); }, m, l, alpha, qk_scale);
     if (kDensePrefetch<D>) {
       if (j + 1 < n_tiles) {
-        load_dense_pairs(bp, p, off, col0 + kBlockN);
+        load_dense_pairs(bp, p, off, col0 + kTileKeys<D>);
       } else if (const int next_item = item + gridDim.x; next_item < p.n_items) {
         long long next[2];
         dense_rows(next, p, next_item, n_qt, block_m, row_t);
@@ -904,11 +1054,11 @@ __device__ __forceinline__ void softmax_dense(float (&s)[64], float (&m)[2], flo
 // One key tile's softmax, masked only where the tile passes Tk (in the
 // exact mode with a bias, through the bias b2; X1-X3 never pass it). X1
 // has none: its p is s itself.
-template <int MODE, bool BIAS>
-__device__ __forceinline__ void softmax_tile(float (&s)[64], const float (&b2)[BIAS ? 32 : 1],
+template <int MODE, bool BIAS, int NS>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], const float (&b2)[BIAS ? NS / 2 : 1],
                                              float (&m)[2], float (&l)[2], float (&alpha)[2],
                                              float qk_scale, int k0, int col_t, int Tk) {
-  const bool edge = k0 + kBlockN > Tk;
+  const bool edge = k0 + 2 * NS > Tk;  // a tile of 2·NS keys
   if constexpr (MODE == kMatmulOnly) {
     (void)edge;
   } else if constexpr (!online_max(MODE)) {
@@ -924,11 +1074,13 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], const float (&b2)[B
   }
 }
 
-// p (fp32, accumulator layout) → the bf16 A fragments of eight k16 steps:
-// k-step kk covers score columns 16kk..16kk+15, i.e. d[8kk .. 8kk + 7].
-__device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&p)[8][4]) {
+// p (fp32, accumulator layout) → the bf16 A fragments of eight k16 steps
+// (four in a 64-key tile): k-step kk covers score columns 16kk..16kk+15,
+// i.e. d[8kk .. 8kk + 7].
+template <int NS>
+__device__ __forceinline__ void pack_p(const float (&s)[NS], uint32_t (&p)[NS / 8][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < NS / 8; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i) p[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
 }
@@ -941,8 +1093,8 @@ __device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&p)[8][4]
 template <int D, int MODE, bool BIAS, int NC, bool DENSE = false>
 __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Params& p) {
   static_assert(NC == 2 || NC == 3, "two or three consumer warpgroups");
-  static_assert(D != 64 || MODE == kExact || MODE == kClamp,
-                "D=64 is built for the exact and clamp modes only");
+  static_assert(D == 72 || D == 128 || MODE == kExact || MODE == kClamp,
+                "the harness's modes are built at D=72 and 128 only");
   static_assert(!ones_denominator(MODE) || (D == 72 && !BIAS),
                 "X4's ones column is D=72's tenth column block, without a bias");
   static_assert(!DENSE || (BIAS && MODE == kExact), "a dense bias on the exact mode only");
@@ -952,6 +1104,15 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
   // them (128 × (40 + 2 × 232) and 128 × (24 + 3 × 160) ≤ 65536)
   constexpr int kProducerRegs = NC == 2 ? 40 : 24, kConsumerRegs = NC == 2 ? 232 : 160;
   constexpr int kQkSteps = (D + 15) / 16;  // k16 steps of q·kᵀ: 8 at D=128, 5 at D=72, 4 at D=64
+  constexpr int kBN = kTileKeys<D>;        // keys a tile: 128, 64 past D=128
+  constexpr int kNS = kBN / 2;             // a thread's scores of a tile
+  constexpr int kPvSteps = kBN / 16;       // k16 steps of p·v
+  constexpr int kQB = kQBufs<D>;
+  // past D=128 each consumer's rows of q are its staging rows for the o
+  // store, so it frees q's buffer once that store has read them, not after
+  // its last q·kᵀ of the item
+  constexpr bool kOverlay = D > 128;
+  using W = Width<D>;
   // a thread's fp32 accumulators of o (64 × D) and, in X4, of the
   // denominator's column block (64 × 8: column 72 of a 64 × 80 product)
   constexpr int kAcc = D / 2 + (ones_denominator(MODE) ? 4 : 0);
@@ -967,27 +1128,31 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* const gbase = smem_raw + (base - raw);
   auto q_s = [&](int qb) { return base + qb * kQ.bytes(); };
-  auto k_s = [&](int s) { return base + kQBufs * kQ.bytes() + s * kKV.bytes(); };
+  auto k_s = [&](int s) { return base + kQB * kQ.bytes() + s * kKV.bytes(); };
   auto v_s = [&](int s) { return k_s(kStages + s); };
-  auto out_s = [&](int c) { return k_s(2 * kStages) + c * S::kOut; };
-  auto bias_slot = [&](int s) {
-    return reinterpret_cast<float*>(gbase + (out_s(NC) - base) + s * kBlockN * 4);
+  // consumer c's staging rows: its rows of q's one buffer past D=128
+  auto out_s = [&](int c) {
+    return kOverlay ? q_s(0) + c * 64 * W::kRow : k_s(2 * kStages) + c * S::kOut;
   };
-  const uint32_t bars = out_s(NC) + kStages * kBlockN * 4;
+  const uint32_t slots = k_s(2 * kStages) + NC * S::kOut;
+  auto bias_slot = [&](int s) {
+    return reinterpret_cast<float*>(gbase + (slots - base) + s * kBN * 4);
+  };
+  const uint32_t bars = slots + kStages * kBN * 4;
   auto q_full = [&](int qb) { return bars + 8 * qb; };
-  auto q_empty = [&](int qb) { return bars + 8 * (kQBufs + qb); };
-  auto q_ready = [&](int qb) { return bars + 8 * (2 * kQBufs + qb); };
-  auto k_full = [&](int s) { return bars + 8 * (3 * kQBufs + s); };
-  auto v_full = [&](int s) { return bars + 8 * (3 * kQBufs + kStages + s); };
-  auto k_empty = [&](int s) { return bars + 8 * (3 * kQBufs + 2 * kStages + s); };
-  auto v_empty = [&](int s) { return bars + 8 * (3 * kQBufs + 3 * kStages + s); };
+  auto q_empty = [&](int qb) { return bars + 8 * (kQB + qb); };
+  auto q_ready = [&](int qb) { return bars + 8 * (2 * kQB + qb); };
+  auto k_full = [&](int s) { return bars + 8 * (3 * kQB + s); };
+  auto v_full = [&](int s) { return bars + 8 * (3 * kQB + kStages + s); };
+  auto k_empty = [&](int s) { return bars + 8 * (3 * kQB + 2 * kStages + s); };
+  auto v_empty = [&](int s) { return bars + 8 * (3 * kQB + 3 * kStages + s); };
 
   const int n_qt = (p.Tq + kBlockM - 1) / kBlockM;
-  const int n_tiles = (p.Tk + kBlockN - 1) / kBlockN;
+  const int n_tiles = (p.Tk + kBN - 1) / kBN;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
-    for (int qb = 0; qb < kQBufs; ++qb) {
+    for (int qb = 0; qb < kQB; ++qb) {
       mbar_init(q_full(qb), 1);
       mbar_init(q_empty(qb), kConsumerThreads);
       mbar_init(q_ready(qb), kHelperThreads);
@@ -1014,8 +1179,8 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
       for (int item = blockIdx.x; item < p.n_items; item += gridDim.x, ++it) {
         const int bh = item / n_qt;
         const int b = bh / p.H, h = bh % p.H;
-        const int qb = it % kQBufs;
-        mbar_wait(q_empty(qb), ((it / kQBufs) & 1) ^ 1);  // the first round finds it free
+        const int qb = it % kQB;
+        mbar_wait(q_empty(qb), ((it / kQB) & 1) ^ 1);  // the first round finds it free
         mbar_expect_tx(q_full(qb), kQ.load());
         tma_tile<D>(q_s(qb), kQ, &maps[0], &maps[3], q_full(qb), h, (item % n_qt) * kBlockM, b);
         for (int j = 0; j < n_tiles; ++j, ++g) {
@@ -1023,10 +1188,10 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
           const uint32_t free_parity = ((g / kStages) & 1) ^ 1;  // the first round finds it free
           mbar_wait(k_empty(s), free_parity);
           mbar_expect_tx(k_full(s), kKV.load());
-          tma_tile<D>(k_s(s), kKV, &maps[1], &maps[4], k_full(s), h, j * kBlockN, b);
+          tma_tile<D>(k_s(s), kKV, &maps[1], &maps[4], k_full(s), h, j * kBN, b);
           mbar_wait(v_empty(s), free_parity);
           mbar_expect_tx(v_full(s), kKV.load());
-          tma_tile<D>(v_s(s), kKV, &maps[2], &maps[5], v_full(s), h, j * kBlockN, b);
+          tma_tile<D>(v_s(s), kKV, &maps[2], &maps[5], v_full(s), h, j * kBN, b);
         }
       }
     } else if (kHelpers && threadIdx.x >= 128 - kHelperThreads) {
@@ -1043,16 +1208,16 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
       auto bias_tile = [&](int b, int j) {
         const int s = g % kStages;
         mbar_wait(k_empty(s), ((g / kStages) & 1) ^ 1);  // the first round finds it free
-        write_bias(bias_slot(s), p, b, j * kBlockN, ht);
+        write_bias<kBN>(bias_slot(s), p, b, j * kBN, ht);
         mbar_arrive(k_full(s));
         ++g;
       };
       for (int item = blockIdx.x; item < p.n_items; item += gridDim.x, ++it) {
-        const int qb = it % kQBufs;
+        const int qb = it % kQB;
         const int b = item / n_qt / p.H;
         if constexpr (BIAS) bias_tile(b, 0);
         if constexpr (scaled_q(MODE)) {
-          mbar_wait(q_full(qb), (it / kQBufs) & 1);
+          mbar_wait(q_full(qb), (it / kQB) & 1);
           uint4* const q = reinterpret_cast<uint4*>(gbase + (q_s(qb) - base));
           for (int i = ht; i < kQ.load() / 16; i += kHelperThreads) {
             uint4 x = q[i];
@@ -1089,15 +1254,33 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
   // columns 72-79 from the zeros one tail on), v MN-major (64-column boxes
   // 16 KB apart, 8-key groups 1024 bytes apart; the tail's 8-key groups 128
   // bytes apart)
+  // (the narrow widths: a box of 32 or 16 columns under the 64- or 32-byte
+  // swizzle, the descriptors' layout type 2 or 3, 8-row groups 512 or 256
+  // bytes apart, two k-steps or one a row)
+  constexpr int kNarrowLayout = W::kBW == 32 ? 2 : 3;
   auto q_desc = [&](uint32_t q, int kk) {
     if (D == 72 && kk == 4) return desc_plain(q + kQ.box() + 1024 * c, kQ.tail(), 128);
+    if constexpr (D < 64) {
+      constexpr int kSteps = W::kBW / 16;
+      return desc_sw<kNarrowLayout>(q + (kk / kSteps) * kQ.box() + 64 * W::kRow * c +
+                                        (kk % kSteps) * 32, 16, 8 * W::kRow);
+    }
     return desc_sw128(q + (kk / 4) * kQ.box() + 8192 * c + (kk % 4) * 32, 16, 1024);
   };
   auto k_desc = [&](int s, int kk) {
     if (D == 72 && kk == 4) return desc_plain(k_s(s) + kBoxBytes, kTailBytes, 128);
-    return desc_sw128(k_s(s) + (kk / 4) * kBoxBytes + (kk % 4) * 32, 16, 1024);
+    if constexpr (D < 64) {
+      constexpr int kSteps = W::kBW / 16;
+      return desc_sw<kNarrowLayout>(k_s(s) + (kk / kSteps) * kKV.box() + (kk % kSteps) * 32, 16,
+                                    8 * W::kRow);
+    }
+    return desc_sw128(k_s(s) + (kk / 4) * kKV.box() + (kk % 4) * 32, 16, 1024);
   };
-  auto v_desc = [&](int s, int kk) { return desc_sw128(v_s(s) + kk * 2048, kBoxBytes, 1024); };
+  auto v_desc = [&](int s, int kk) {
+    if constexpr (D < 64)
+      return desc_sw<kNarrowLayout>(v_s(s) + kk * 16 * W::kRow, kKV.box(), 8 * W::kRow);
+    return desc_sw128(v_s(s) + kk * 2048, kKV.box(), 1024);
+  };
   // X4's ones tile, 128 keys × 8 columns laid out as v's tail box, column
   // 0 = 1: the 2 KB after each stage's v tail, which TMA never writes, so
   // that the tail and the ones are one 16-column B operand, its two 8-column
@@ -1110,8 +1293,10 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
                           ones_denominator(MODE) ? kTailBytes : 128));
     else if constexpr (D == 64)
       wgmma_rs64(o, a, v_desc(s, kk));
-    else
+    else if constexpr (D == 128)
       wgmma_rs(o, a, v_desc(s, kk));
+    else
+      wgmma_rs_wide<D>(o, a, v_desc(s, kk));
   };
   if constexpr (D == 72) {
     // the zeros after the tails of the q buffers and the k stages (and X4's
@@ -1122,7 +1307,7 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
         *reinterpret_cast<uint4*>(gbase + (at - base) + i) = x;
     };
     const uint4 zeros = make_uint4(0u, 0u, 0u, 0u);
-    for (int qb = 0; qb < kQBufs; ++qb) fill(q_s(qb) + kQ.box() + kQ.tail(), kQ.tail(), zeros);
+    for (int qb = 0; qb < kQB; ++qb) fill(q_s(qb) + kQ.box() + kQ.tail(), kQ.tail(), zeros);
     for (int s = 0; s < kStages; ++s) fill(k_s(s) + kKV.box() + kKV.tail(), kKV.tail(), zeros);
     // bf16 1.0 in each 16-byte row's first half-word
     if constexpr (ones_denominator(MODE))
@@ -1136,18 +1321,24 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
   auto q_in = [&](int qb) { return scaled_q(MODE) ? q_ready(qb) : q_full(qb); };
   // this consumer's staging rows for the o store (64 × D bf16: at D=128
   // two 64-column boxes under the 128-byte swizzle, at D=64 one, at D=72
-  // rows of 144 bytes)
+  // rows of 144 bytes, at D=32 and 16 one box under the 64- or 32-byte
+  // swizzle; past D=128 its rows of q's boxes, kQ.box() apart)
   const uint32_t out_tile = out_s(c);
+  constexpr int kOutBox = kOverlay ? kQ.box() : 8192;  // a 64-column box's staging rows
   auto out_at = [&](int row, int jb) {
-    return D != 72 ? (jb / 8) * 8192 + row * 128 + (((jb % 8) ^ (row % 8)) * 16) + 2 * col_t
+    if constexpr (D == 32)
+      return row * 64 + (((jb % 4) ^ ((row >> 1) % 4)) * 16) + 2 * col_t;
+    else if constexpr (D == 16)
+      return row * 32 + (((jb % 2) ^ ((row >> 2) % 2)) * 16) + 2 * col_t;
+    return D != 72 ? (jb / 8) * kOutBox + row * 128 + (((jb % 8) ^ (row % 8)) * 16) + 2 * col_t
                    : row * 144 + jb * 16 + 2 * col_t;
   };
 
-  float b2[BIAS && !DENSE ? 32 : 1];
+  float b2[BIAS && !DENSE ? kNS / 2 : 1];
   // DENSE: this thread's two rows of the item (`dense_rows`) and the pairs
   // of the next tile whose softmax reads them (`softmax_dense`)
   long long off[DENSE ? 2 : 1];
-  uint32_t bp[DENSE ? 32 : 1];
+  uint32_t bp[DENSE ? kNS / 2 : 1];
   if constexpr (DENSE && kDensePrefetch<D>) {
     if (p.bias_pairs && blockIdx.x < p.n_items) {
       dense_rows(off, p, blockIdx.x, n_qt, kBlockM, 64 * c + row_c);
@@ -1159,16 +1350,16 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
     const int bh = item / n_qt;
     const int b = bh / p.H, h = bh % p.H;
     const int q0 = (item % n_qt) * kBlockM;
-    const int qb = it % kQBufs;
+    const int qb = it % kQB;
     const uint32_t q_tile = q_s(qb);
     if constexpr (DENSE) dense_rows(off, p, item, n_qt, kBlockM, 64 * c + row_c);
-    mbar_wait(q_in(qb), (it / kQBufs) & 1);
+    mbar_wait(q_in(qb), (it / kQB) & 1);
 
     float o[kAcc];
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) o[i] = 0.f;
-    float s[64];
-    uint32_t pf[8][4];
+    float s[kNS];
+    uint32_t pf[kPvSteps][4];
     float m[2] = {-INFINITY, -INFINITY};  // with a bias, in the log2 domain
     float l[2] = {0.f, 0.f};  // this thread's partial sums, reduced at the end
     float alpha[2] = {1.f, 1.f};
@@ -1188,7 +1379,7 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
       fence_regs(s);
       if constexpr (BIAS && !DENSE) read_bias(b2, bias_slot(s0), col_t);
       mbar_arrive(k_empty(s0));
-      if (n_tiles == 1) mbar_arrive(q_empty(qb));  // the item's last read of q
+      if (!kOverlay && n_tiles == 1) mbar_arrive(q_empty(qb));  // the item's last read of q
       if constexpr (DENSE)
         softmax_dense<D>(s, m, l, alpha, qk_scale, bp, off, p, item, 0, n_tiles, n_qt, kBlockM,
                          64 * c + row_c, col_t);
@@ -1206,28 +1397,28 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
       for (int kk = 0; kk < kQkSteps; ++kk) wgmma_ss(s, q_desc(q_tile, kk), k_desc(sj, kk), kk > 0);
       wgmma_commit();
       if constexpr (DENSE && !kDensePrefetch<D>) {
-        if (p.bias_pairs) load_dense_pairs(bp, p, off, j * kBlockN + col_t);  // under the q·kᵀ
+        if (p.bias_pairs) load_dense_pairs(bp, p, off, j * kBN + col_t);  // under the q·kᵀ
       }
       mbar_wait(v_full(sp), ((g + j - 1) / kStages) & 1);
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) pv(o, pf[kk], sp, kk);
+      for (int kk = 0; kk < kPvSteps; ++kk) pv(o, pf[kk], sp, kk);
       wgmma_commit();
       // the scores first; their softmax runs under the p·v products
       wgmma_wait<1>();
       fence_regs(s);
       if constexpr (BIAS && !DENSE) read_bias(b2, bias_slot(sj), col_t);
       mbar_arrive(k_empty(sj));
-      if (j == n_tiles - 1) mbar_arrive(q_empty(qb));  // the item's last read of q
+      if (!kOverlay && j == n_tiles - 1) mbar_arrive(q_empty(qb));  // the item's last read of q
       if constexpr (DENSE)
         softmax_dense<D>(s, m, l, alpha, qk_scale, bp, off, p, item, j, n_tiles, n_qt, kBlockM,
                          64 * c + row_c, col_t);
-      else softmax_tile<MODE, BIAS>(s, b2, m, l, alpha, qk_scale, j * kBlockN, col_t, p.Tk);
+      else softmax_tile<MODE, BIAS>(s, b2, m, l, alpha, qk_scale, j * kBN, col_t, p.Tk);
       wgmma_wait<0>();
       fence_regs(o);
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) fence_regs(pf[kk]);
+      for (int kk = 0; kk < kPvSteps; ++kk) fence_regs(pf[kk]);
       mbar_arrive(v_empty(sp));
       if constexpr (online_max(MODE)) {
 #pragma unroll
@@ -1242,12 +1433,12 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) pv(o, pf[kk], sl, kk);
+      for (int kk = 0; kk < kPvSteps; ++kk) pv(o, pf[kk], sl, kk);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) fence_regs(pf[kk]);
+      for (int kk = 0; kk < kPvSteps; ++kk) fence_regs(pf[kk]);
       mbar_arrive(v_empty(sl));
     }
 
@@ -1295,7 +1486,18 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
       // rows past Tq are outside the map: TMA does not store them
       tma_store(out_tile, &maps[6], 0, h, q0 + 64 * c, b);
       if constexpr (D == 128) tma_store(out_tile + 8192, &maps[6], 64, h, q0 + 64 * c, b);
+      if constexpr (kOverlay) {
+#pragma unroll
+        for (int jb = 1; jb < W::kNB; ++jb)
+          tma_store(out_tile + jb * kOutBox, &maps[6], 64 * jb, h, q0 + 64 * c, b);
+      }
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+    if constexpr (kOverlay) {
+      // q's buffer is free once the store has read this consumer's rows of it
+      if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+      mbar_arrive(q_empty(qb));
     }
   }
   // the staging rows stay until the last store has read them
@@ -1309,18 +1511,21 @@ __device__ __forceinline__ void attn_sm90_body(const CUtensorMap* maps, const Pa
 struct Maps {
   CUtensorMap m[7];
 };
-// K6's, X1's, X2's and X3's consumer warpgroups: three at D=72 (see the
-// note), two at D=128; K6 with a bias takes two at D=72 too (see the note)
+// K6's, X1's, X2's and X3's consumer warpgroups: three at D ≤ 72 (see the
+// note), two from D=128 on; K6 with a bias takes two at D=72 too (see the
+// note)
 template <int D>
-constexpr int kFlashConsumers = D == 128 ? 2 : 3;
+constexpr int kFlashConsumers = D >= 128 ? 2 : 3;
 template <int D, bool BIAS>
-constexpr int kStreamConsumers = BIAS && D != 64 ? 2 : kFlashConsumers<D>;
+constexpr int kStreamConsumers = BIAS && D > 64 ? 2 : kFlashConsumers<D>;
 template <int D, bool BIAS>
 __global__ void __launch_bounds__(128 * (kStreamConsumers<D, BIAS> + 1), 1)
     attn_flash_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
   attn_sm90_body<D, kExact, BIAS, kStreamConsumers<D, BIAS>>(maps.m, p);
 }
-// K1's and K2's consumer warpgroups: two, three at D=64 (see the note)
+// K1's and K2's consumer warpgroups: two, three at D=64 (see the note;
+// at 32 and 16 two were 17 and 18 % faster than three at PixArt-256's
+// (16, 256, 16, D), scripts/probe_attention_body.py's `exact_narrow_three`)
 template <int D>
 constexpr int kExactConsumers = D == 64 ? 3 : 2;
 template <int D, bool BIAS>
@@ -1337,19 +1542,20 @@ __global__ void __launch_bounds__(128 * (kDenseConsumers + 1), 1)
     attn_exact_dense_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
   attn_sm90_body<D, kExact, true, kDenseConsumers, true>(maps.m, p);
 }
-// K4's consumer warpgroups: two, three at D=64 without a bias (see the note)
+// K4's consumer warpgroups: two, three at D ≤ 64 without a bias (see the
+// note)
 template <int D, bool BIAS>
-constexpr int kClampConsumers = D == 64 && !BIAS ? 3 : 2;
+constexpr int kClampConsumers = D <= 64 && !BIAS ? 3 : 2;
 template <int D, bool BIAS>
 __global__ void __launch_bounds__(128 * (kClampConsumers<D, BIAS> + 1), 1)
     attn_clamp_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
   attn_sm90_body<D, kClamp, BIAS, kClampConsumers<D, BIAS>>(maps.m, p);
 }
 // K5's consumer warpgroups: K4's function on K4's body, with a count of its
-// own: three at D=72 and 64 without a bias, two with one and at D=128 (see
+// own: three at D ≤ 72 without a bias, two with one and from D=128 on (see
 // the note)
 template <int D, bool BIAS>
-constexpr int kRowblockConsumers = D != 128 && !BIAS ? 3 : 2;
+constexpr int kRowblockConsumers = D < 128 && !BIAS ? 3 : 2;
 template <int D, bool BIAS>
 __global__ void __launch_bounds__(128 * (kRowblockConsumers<D, BIAS> + 1), 1)
     attn_rowblock_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
@@ -1392,9 +1598,9 @@ Launch launch_of(Kernel kernel) {
   return {kernel, NC, Smem<D, NC>::kBytes, scaled_q(MODE)};
 }
 
-// The kernel of `mode` at head dim D, with or without a bias (a dense one
-// in mode 2 only), or none where it is not built: X4 (mode 6) at D=72
-// only, X1-X3 (modes 4, 5, 7) not at D=64, no bias in X1-X4 (modes 4-7).
+// The kernel of `mode` at width D, with or without a bias (a dense one in
+// mode 2 only), or none where it is not built: X4 (mode 6) at D=72 only,
+// X1-X3 (modes 4, 5, 7) at D=72 and 128 only, no bias in X1-X4 (modes 4-7).
 template <int D>
 Launch sm90_launch(int mode, bool bias, bool dense) {
   if (dense)
@@ -1420,11 +1626,11 @@ Launch sm90_launch(int mode, bool bias, bool dense) {
         return launch_of<D, kClampConsumers<D, true>, kClamp>(attn_clamp_sm90_kernel<D, true>);
       return launch_of<D, kClampConsumers<D, false>, kClamp>(attn_clamp_sm90_kernel<D, false>);
     case 4:
-      if constexpr (D != 64)
+      if constexpr (D == 72 || D == 128)
         if (!bias) return launch_of<D, kFlashConsumers<D>, kNoMax>(attn_xnomax_sm90_kernel<D>);
       return Launch{};
     case 5:
-      if constexpr (D != 64)
+      if constexpr (D == 72 || D == 128)
         if (!bias)
           return launch_of<D, kFlashConsumers<D>, kMaxScaledQ>(attn_xmax_sm90_kernel<D>);
       return Launch{};
@@ -1433,7 +1639,7 @@ Launch sm90_launch(int mode, bool bias, bool dense) {
         if (!bias) return launch_of<D, 2, kClampFD>(attn_xfd_sm90_kernel<D>);
       return Launch{};
     case 7:
-      if constexpr (D != 64)
+      if constexpr (D == 72 || D == 128)
         if (!bias)
           return launch_of<D, kFlashConsumers<D>, kMatmulOnly>(attn_xmatmul_sm90_kernel<D>);
       return Launch{};
@@ -1444,12 +1650,13 @@ Launch sm90_launch(int mode, bool bias, bool dense) {
 
 }  // namespace
 
-// q, k, v: bf16 (B, T, H, D), D = 64, 72 or 128 (64 in modes 0-3);
-// `maps` holds 11 values for
-// each of q, k, v in turn: the dims {D, H, T, B}, the byte strides of H, T
-// and B, and the box {64, 1, 128, 1}, as ops/attention.py's `tma_operand`
-// computes them. o: bf16 (B, Tq, H, D) with element strides o_strides (b,
-// t, h), each a multiple of 8 (TMA stores it). mode 0: the exact softmax
+// q, k, v: bf16 (B, T, H, d), d ≤ `width`, one of the built widths 16, 32,
+// 64, 72, 128, 192 and 256 (modes 4-7 at 72 and 128 only); `maps` holds 11
+// values for each of q, k, v in turn: the dims {d, H, T, B}, the byte
+// strides of H, T and B, and the box {width's box columns (64, 32 or 16), 1,
+// its tile's keys (128, 64 past 128), 1}, as ops/attention.py's
+// `tma_operand` computes them. o: bf16 (B, Tq, H, d) with element strides
+// o_strides (b, t, h), each a multiple of 8 (TMA stores it). mode 0: the exact softmax
 // of the streaming route (K6); 1: the clamp softmax of the row-block route
 // (K5); 2: the exact softmax of the single-tile route (K1, or K2
 // with a bias); 3: the clamp softmax of the transposed route (K4); 4: the
@@ -1482,7 +1689,7 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
                                        const long long* bias_strides, int bias_bf16,
                                        int bias_dense, int bias_pairs, int B, int H, int Tq,
                                        int Tk, float scale, float q_scale, int mode, int n_pad,
-                                       void* stream) {
+                                       int width, void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || mode < 0 || mode > 7 || n_pad < 0 ||
       ((mode == 4 || mode == 5 || mode == 7) && Tk % kBlockN != 0))
     return (int)cudaErrorInvalidValue;
@@ -1493,10 +1700,19 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
         Tk % 2 == 0 && bias_strides[0] % 2 == 0 && bias_strides[1] % 2 == 0 &&
         bias_strides[2] % 2 == 0))
     return (int)cudaErrorInvalidValue;
-  const Launch launch = maps[0] == 128 ? sm90_launch<128>(mode, has_bias, dense)
-                        : maps[0] == 72 ? sm90_launch<72>(mode, has_bias, dense)
-                        : maps[0] == 64 ? sm90_launch<64>(mode, has_bias, dense)
-                                        : Launch{};
+  const Launch launch = width == 128   ? sm90_launch<128>(mode, has_bias, dense)
+                        : width == 72  ? sm90_launch<72>(mode, has_bias, dense)
+                        : width == 64  ? sm90_launch<64>(mode, has_bias, dense)
+                        : width == 32  ? sm90_launch<32>(mode, has_bias, dense)
+                        : width == 16  ? sm90_launch<16>(mode, has_bias, dense)
+                        : width == 192 ? sm90_launch<192>(mode, has_bias, dense)
+                        : width == 256 ? sm90_launch<256>(mode, has_bias, dense)
+                                       : Launch{};
+  // the boxes of the width's tiles: 64-column ones (32 and 16 columns at
+  // the narrow widths) of 128 keys (64 past 128)
+  const unsigned long long box_cols = width < 64 ? width : 64, box_keys = width > 128 ? 64 : 128;
+  if (maps[0] < 1 || (int)maps[0] > width || (width == 72 && maps[0] <= 64))
+    return (int)cudaErrorInvalidValue;
   const int block_m = 64 * launch.consumers;  // query rows per work item
   const long long n_items = (long long)B * H * ((Tq + block_m - 1) / block_m);
   if (launch.kernel == nullptr || n_items > 0x7fffffff) return (int)cudaErrorInvalidValue;
@@ -1510,15 +1726,19 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
                   box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   };
-  // q, k, v under the 128-byte swizzle, then (D=72) their 8-column tails
-  // without swizzle; at D=128 and D=64 the last three are copies, never read
+  // q, k, v under the swizzle of their box's width (128 bytes at 64
+  // columns), then (D=72) their 8-column tails without swizzle; at the other
+  // widths the last three are copies, never read
+  const CUtensorMapSwizzle swizzle = box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
   Maps tmaps;
   const void* ptrs[3] = {q, k, v};
   for (int i = 0; i < 6; ++i) {
     const unsigned long long* a = maps + 11 * (i % 3);
-    if (a[0] != maps[0] || a[7] != 64 || a[8] != 1 || a[9] != kBlockN || a[10] != 1)
+    if (a[0] != maps[0] || a[7] != box_cols || a[8] != 1 || a[9] != box_keys || a[10] != 1)
       return (int)cudaErrorInvalidValue;
-    if (i >= 3 && maps[0] != 72) {
+    if (i >= 3 && width != 72) {
       tmaps.m[i] = tmaps.m[i - 3];
       continue;
     }
@@ -1528,22 +1748,20 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
     const cuuint32_t rows = i % 3 == 0 ? (cuuint32_t)block_m : (cuuint32_t)a[9];
     const cuuint32_t box[4] = {i < 3 ? (cuuint32_t)a[7] : 8u, (cuuint32_t)a[8], rows,
                                (cuuint32_t)a[10]};
-    const CUresult r =
-        encode_map(&tmaps.m[i], ptrs[i % 3], dims, strides, box,
-                   i < 3 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
+    const CUresult r = encode_map(&tmaps.m[i], ptrs[i % 3], dims, strides, box,
+                                  i < 3 ? swizzle : CU_TENSOR_MAP_SWIZZLE_NONE);
     if (r != CUDA_SUCCESS) return 100000 + (int)r;
   }
   {
-    // o, stored 64 rows a consumer warpgroup: at D=128 two 64-column boxes
-    // under the 128-byte swizzle, at D=64 one, at D=72 one 72-column box
-    // without it
-    const bool swizzled = maps[0] != 72;
+    // o, stored 64 rows a consumer warpgroup in the boxes of its width (at
+    // D=128 two 64-column boxes under the 128-byte swizzle, at D=64 one), at
+    // D=72 one 72-column box without swizzle; columns past d are not stored
+    const bool swizzled = width != 72;
     const cuuint64_t dims[4] = {maps[0], (cuuint64_t)H, (cuuint64_t)Tq, (cuuint64_t)B};
     const cuuint64_t strides[3] = {2ull * o_strides[2], 2ull * o_strides[1], 2ull * o_strides[0]};
-    const cuuint32_t box[4] = {swizzled ? 64u : 72u, 1, 64, 1};
-    const CUresult r =
-        encode_map(&tmaps.m[6], o, dims, strides, box,
-                   swizzled ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
+    const cuuint32_t box[4] = {swizzled ? (cuuint32_t)box_cols : 72u, 1, 64, 1};
+    const CUresult r = encode_map(&tmaps.m[6], o, dims, strides, box,
+                                  swizzled ? swizzle : CU_TENSOR_MAP_SWIZZLE_NONE);
     if (r != CUDA_SUCCESS) return 100000 + (int)r;
   }
   Params p;
@@ -1561,8 +1779,15 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
   p.n_pad = mode >= 4 ? 0 : n_pad;
   p.scale = launch.q_prescaled ? q_scale : scale;
   // above 48 KB dynamic shared memory needs an opt-in (once per kernel)
-  static bool opted_in[3][8][3] = {};
-  bool& opted = opted_in[maps[0] == 128 ? 0 : maps[0] == 72 ? 1 : 2][mode][dense ? 2 : has_bias];
+  static bool opted_in[7][8][3] = {};
+  const int wi = width == 128  ? 0
+                 : width == 72 ? 1
+                 : width == 64 ? 2
+                 : width == 32 ? 3
+                 : width == 16 ? 4
+                 : width == 192 ? 5
+                               : 6;
+  bool& opted = opted_in[wi][mode][dense ? 2 : has_bias];
   if (!opted) {
     const cudaError_t err = cudaFuncSetAttribute(
         launch.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, launch.smem);

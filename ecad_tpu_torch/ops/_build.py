@@ -22,6 +22,10 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "ecad_tpu_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# every build's code flags; --split-compile=0 runs the optimizer's passes on
+# each kernel in parallel, on every core (the attention sources' seventy
+# kernels took 92 s in one thread)
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--split-compile=0")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -52,7 +56,7 @@ def library_path(name: str) -> Path:
 
 def _command(name: str, out: Path) -> list[str]:
     return [
-        nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+        nvcc(), *COMPILE_FLAGS, "-shared",
         "-Xcompiler", "-fPIC", "-Xptxas", "-v",
         "-o", str(out), str(CSRC_DIR / f"{name}.cu"),
     ]

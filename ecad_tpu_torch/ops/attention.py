@@ -1,5 +1,5 @@
-"""Fused attention: the hand-written CUDA kernel, its plain versions and
-the routing between its two softmax variants.
+"""Fused attention: the hand-written CUDA kernels, their plain versions and
+the routing between the two softmax variants.
 
 `fused_attention(q, k, v, bias=None)` takes ``(B, T, H, D)`` tensors, as
 ``ecad_tpu.ops.fused_attention`` does, and picks the function to compute
@@ -34,10 +34,12 @@ the way that one does (`attention_route`):
   dtype for p·v. `flash_attention` launches it under its own kernel name
   and counters; plain version: `flash_attention_reference`.
 
-Every route runs on one of three hand-written CUDA C++ sources (each says
-what bounds its kernels on the H100). bf16 calls at head dim 64, 72 or 128
-take the Hopper body of ``csrc/attention_sm90.cu`` (wgmma fed by TMA;
-`_takes_sm90`), without a bias or with a key-padding bias (B|1, 1, 1, Tk):
+Every route runs on one of two hand-written CUDA C++ sources (each says
+what bounds its kernels on the H100). bf16 calls at any head dim up to
+256 take the Hopper body of ``csrc/attention_sm90.cu`` (wgmma fed by TMA;
+`_takes_sm90`), built at widths 16, 32, 64, 72, 128, 192 and 256 (a call
+runs at the smallest at or above its head dim, `sm90_width`), without a
+bias or with a key-padding bias (B|1, 1, 1, Tk):
 the exact single-tile route (K1; K2 with a bias) — PixArt's 256²
 self-attention and its text cross-attention at 256² and 512², FLUX.1-dev's
 joint attention at 256², and the reference's width-reduced FLUX (head dim
@@ -51,24 +53,26 @@ self-attention and its text cross-attention at 1024² and PixArt-Σ's at
 2048², and the width-reduced FLUX at 256² as the router sends it; the
 streaming route (K6, with a bias too) — PixArt-Σ's 2048² self-attention,
 FLUX.1-dev's at 1536² and the width-reduced FLUX's; and the row-block
-route (K5, with a bias too) — FLUX.1-dev at 1024², and at 64 and 72 what
-`rowblock_attention` called directly reaches (the router takes that route
-at 128 alone; the kernel shoot-out, scripts/bench_attention_kernels.py,
-calls it at 72). No served path runs head dim 64. The attention-variant
-harness's X1, X2 and X3 take the same body in bf16 at 72 and 128, and X4
-at 72 (`attn_variants`). fp32 calls at head dim 16, 32, 64, 72 or 128
-whose q, k and v TMA can map take the fp32 body of
+route (K5, with a bias too) — FLUX.1-dev at 1024², and at other head dims
+what `rowblock_attention` called directly reaches (the router takes that
+route at multiples of 128 alone; the kernel shoot-out,
+scripts/bench_attention_kernels.py, calls it at 72). Served paths run
+head dims 72 and 128 only. The attention-variant harness's X1, X2 and X3
+take the same body in bf16 at 72 and 128, and X4 at 72 (`attn_variants`).
+fp32 calls at any head dim up to 256 take the fp32 body of
 ``csrc/attention_f32_sm90.cu`` (the products on the tensor cores through a
-3×TF32 split; `_takes_f32`) on every route — K1, K2 (with any bias that
-broadcasts, dense ones too), K4, K5 and K6 — under the same counters. The
-body of ``csrc/attention.cu`` (a compile-time variant per route) takes
-the rest: bf16 at other head dims on its mma.sync kernels, and fp32 at
-other head dims or in strides TMA cannot map on its SIMT kernel. The
-choice depends on route, dtype, head dim, bias and (fp32) the operands'
-strides only. A bf16 call for the Hopper body whose operands TMA cannot
-map (`tma_operand`: a 16-byte-aligned base and strides), or whose bias the
-body does not read (`bias_operand`, `dense_bias_operand`: bf16 or fp32),
-raises; it never drops back to the other body.
+3×TF32 split), built at widths 16, 32, 40, 64, 72, 96, 128,
+192 and 256 (`f32_width`), on every route — K1, K2 (with any bias that
+broadcasts, dense ones too), K4, K5 and K6 — under the same counters.
+Operands TMA cannot map (a base off 16 bytes, strides that are not
+multiples of 16 bytes: bf16 at a head dim that is not a multiple of 8, fp32
+at one that is not a multiple of 4) reach either body as a packed copy
+(`tma_copy`). Past head dim 256 a CUDA call raises, naming the limit; the
+plain versions on the CPU take any. A bf16 call whose bias the body does
+not read (`bias_operand`, `dense_bias_operand`: bf16 or fp32) raises. The
+old ``csrc/attention.cu`` body (`_launch`) is reached by no wrapper: the
+kernel checks and scripts/compare_attention_bodies.py time it beside the
+Hopper bodies.
 
 The exact routes' pad keys. The reference pads the keys of the exact
 routes with keys of score −1e9 whose rows of v are 0: to round_up(Tk, 128)
@@ -93,6 +97,7 @@ X3, X4 and X1: modes 4, 5, 6 and 7 of the Hopper body) are wrapped in
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -117,26 +122,32 @@ LAUNCHES = {
 _VARIANTS = {0: "attention", 1: "attention_long", 2: "attention_rowblock", 3: "attention_flash"}
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-MAX_HEAD_DIM = 128
+# the widest head dim the card's kernels take (the plain versions take any)
+MAX_HEAD_DIM = 256
 _FN = None
 _SM90_FN = None
 _F32_FN = None
-# the Hopper body's kernels (csrc/attention_sm90.cu), by counter name: the
-# C entry's mode and the head dims it is built for; the last four are the
-# attention-variant harness's X2, X3, X4 and X1 (`attn_variants`)
-_SM90_MODES = {"attention_flash": (0, (72, 128, 64)), "attention_rowblock": (1, (72, 128, 64)),
-               "attention": (2, (72, 128, 64)), "attention_long": (3, (72, 128, 64)),
+# the widths the Hopper body (csrc/attention_sm90.cu) is built at: a head
+# dim d runs at the smallest at or above it, its columns past d zero-filled
+SM90_WIDTHS = (16, 32, 64, 72, 128, 192, 256)
+# the Hopper body's kernels, by counter name: the C entry's mode and the
+# widths it is built for; the last four are the attention-variant harness's
+# X2, X3, X4 and X1 (`attn_variants`), built at 72 and 128 (X4 at 72) and
+# taken only at those head dims
+_SM90_MODES = {"attention_flash": (0, SM90_WIDTHS), "attention_rowblock": (1, SM90_WIDTHS),
+               "attention": (2, SM90_WIDTHS), "attention_long": (3, SM90_WIDTHS),
                "xattn_nomax": (4, (72, 128)), "xattn_max": (5, (72, 128)),
                "xattn_fd": (6, (72,)), "xattn_matmul_only": (7, (72, 128))}
+_SM90_HARNESS = ("xattn_nomax", "xattn_max", "xattn_fd", "xattn_matmul_only")
 # the routes whose Hopper kernel also takes a key-padding bias: K2, K4, K5, K6
 _SM90_BIAS = ("attention", "attention_long", "attention_rowblock", "attention_flash")
 # the bias dtypes the Hopper body reads, with the C entry's code for each
 _SM90_BIAS_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SM90_BOX = (64, 1, 128, 1)  # 64 columns (128 bytes: the swizzle's width), 1 head, 128 rows
 # the fp32 Hopper body's kernels (csrc/attention_f32_sm90.cu), by counter
-# name: the C entry's route; and the head dims it is built for
+# name: the C entry's route; and the widths it is built at (multiples of 8,
+# TF32's k-step), each head dim at the smallest at or above it
 _F32_ROUTES = {"attention_flash": 0, "attention_rowblock": 1, "attention": 2, "attention_long": 3}
-F32_HEAD_DIMS = (16, 32, 64, 72, 128)
+F32_WIDTHS = (16, 32, 40, 64, 72, 96, 128, 192, 256)
 
 # The reference's routing constants (ecad_tpu/ops/attention.py :95, :134,
 # :148). They decide WHICH function a shape gets — the clamp softmax or the
@@ -203,6 +214,7 @@ def _sm90_kernel():
             # 6 its clamp with the denominator from the p·v products (X4),
             # 7 its bf16(q·kᵀ)·v with no softmax (X1)
             ctypes.c_int,  # n_pad: the route's pad keys (`pad_keys`; 0 in modes 4-7)
+            ctypes.c_int,  # the width the call runs at (`sm90_width`)
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -227,6 +239,7 @@ def _f32_kernel():
             ctypes.c_int,  # route: 0 streaming (K6), 1 row-block (K5), 2 single-tile (K1,
             # K2), 3 transposed (K4)
             ctypes.c_int,  # n_pad: the route's pad keys (`pad_keys`)
+            ctypes.c_int,  # the width the call runs at (`f32_width`)
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -293,8 +306,6 @@ def _check(q, k, v, bias) -> None:
         )
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}")
     if bias is not None:
         target = (b, h, tq, k.shape[1])
         if bias.dim() != 4 or any(
@@ -357,9 +368,11 @@ def pad_keys(route: str, tk: int) -> int:
     return _round_up(tk, block) - tk
 
 
+@functools.lru_cache(maxsize=None)
 def clamp_scale(d: int, dtype: torch.dtype) -> float:
     """scale·log2e = log2(e)/√D rounded to `dtype`, as the reference's
-    ``jnp.asarray(scale, q.dtype)`` (:378-383) rounds it."""
+    ``jnp.asarray(scale, q.dtype)`` (:378-383) rounds it (kept per (D,
+    dtype): every launch passes it, and making it takes a tensor)."""
     return float(torch.tensor(_LOG2E / math.sqrt(d)).to(dtype))
 
 
@@ -446,8 +459,10 @@ def _launch(
     n_pad: int,
 ) -> torch.Tensor:
     """One launch of csrc/attention.cu's kernel on q's device (its mma.sync
-    body in bf16, its SIMT kernel in fp32): `variant` 0 is the exact
-    softmax, 1 the clamp softmax of the transposed route (K4), 2 that of the
+    body in bf16, its SIMT kernel in fp32, at head dims up to 128): the old
+    body, which no wrapper reaches; chip_smoke.py's kernel checks and
+    scripts/compare_attention_bodies.py time it beside the Hopper bodies.
+    `variant` 0 is the exact softmax, 1 the clamp softmax of the transposed route (K4), 2 that of the
     row-block route (K5), 3 the exact softmax of the streaming route (K6),
     with the route's `n_pad` pad keys (`pad_keys`). Counts it."""
     if q.device.type != "cuda":
@@ -496,26 +511,66 @@ def _launch(
     return out
 
 
-def tma_operand(t: torch.Tensor, name: str) -> list[int]:
+def _smallest_width(widths: tuple, d: int) -> int:
+    """The smallest of `widths` at or above head dim `d`; ValueError past
+    the widest, naming the limit."""
+    for w in widths:
+        if d <= w:
+            return w
+    raise ValueError(f"head dim {d} > {widths[-1]}: the card's attention kernels are built "
+                     f"up to head dim {widths[-1]} (the plain versions on the CPU take any)")
+
+
+def sm90_width(d: int, counter: str = "attention") -> int:
+    """The width of the Hopper body a bf16 call at head dim `d` on the route
+    of `counter` runs at: the smallest built width at or above `d` on the
+    four routes, `d` itself for the harness's X1-X4 (their widths only).
+    Raises ValueError where none is built."""
+    widths = _SM90_MODES[counter][1]
+    if counter in _SM90_HARNESS:
+        if d not in widths:
+            raise ValueError(f"the attention-variant harness's {counter} takes head dims "
+                             f"{widths}; got {d}")
+        return d
+    return _smallest_width(widths, d)
+
+
+def f32_width(d: int) -> int:
+    """The width of the fp32 Hopper body an fp32 call at head dim `d` runs
+    at: the smallest of `F32_WIDTHS` at or above `d`."""
+    return _smallest_width(F32_WIDTHS, d)
+
+
+def tma_operand(t: torch.Tensor, name: str, width: Optional[int] = None) -> list[int]:
     """The arguments of the 4-D TMA tensor map of a bf16 (B, T, H, D)
-    operand of the Hopper body, D = 64, 72 or 128: the dims {D, H, T, B}
-    (innermost first), the byte strides of H, T and B, and the box {64, 1,
-    128, 1} — 11 integers. The C entry builds from them a map under the
-    128-byte swizzle (columns 0-63, the whole row at D=64, and 64-127 at
-    D=128) and, at D=72, one with an 8-column box and no swizzle for
-    columns 64-71. TMA needs a
-    16-byte-aligned base and strides that are multiples of 16 bytes (below
-    2^40); a dimension of size 1 is never stepped along, so it takes the
-    packed stride. Raises ValueError where the operand does not meet
-    them."""
+    operand of the Hopper body at `width` (by default `sm90_width(D)`): the
+    dims {D, H, T, B} (innermost first), the byte strides of H, T and B, and
+    the box {the width's box columns, 1, its tile's keys, 1} — 11 integers.
+    The box is 64 columns (128 bytes, the 128-byte swizzle's width: columns
+    0-63, the whole row at width 64, and 64-127, … at 128, 192 and 256) or,
+    at widths 32 and 16, the whole row under the 64- or 32-byte swizzle; its
+    rows are 128 keys, 64 past width 128. At width 72 the C entry adds a map
+    with an 8-column box and no swizzle for columns 64-71. Columns from D to
+    the width are TMA's zero fill. TMA needs a 16-byte-aligned base and
+    strides that are multiples of 16 bytes (below 2^40); a dimension of size
+    1 is never stepped along, so it takes the packed stride. Raises
+    ValueError where the operand does not meet them (`tma_copy` makes a copy
+    that does)."""
     b, tt, h, d = t.shape
-    if t.dtype != torch.bfloat16 or d not in (64, 72, 128):
-        raise ValueError(f"{name}: the Hopper body takes bf16 at head dim 64, 72 or 128; got "
-                         f"{t.dtype}, {d}")
+    if t.dtype != torch.bfloat16 or d > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: the Hopper body takes bf16 at head dims up to {MAX_HEAD_DIM}; "
+                         f"got {t.dtype}, {d}")
+    width = sm90_width(d) if width is None else width
     strides, problem = _tma_strides(t)
     if problem:
         raise ValueError(name + problem)
-    return [d, h, tt, b, *strides, *_SM90_BOX]
+    return [d, h, tt, b, *strides, *_sm90_box(width)]
+
+
+def _sm90_box(width: int) -> list[int]:
+    """The Hopper body's box at `width`: {64 columns (the whole row at 32
+    and 16), 1 head, 128 keys (64 past 128), 1 batch entry}."""
+    return [min(width, 64), 1, 64 if width > 128 else 128, 1]
 
 
 def _tma_strides(t: torch.Tensor) -> tuple[list[int], str]:
@@ -523,16 +578,18 @@ def _tma_strides(t: torch.Tensor) -> tuple[list[int], str]:
     tensor map, and "" — or no strides and what TMA cannot take: a last
     dim that is not contiguous, a base off 16 bytes, a stride that is not a
     multiple of 16 bytes (below 2^40). A dimension of size 1 is never
-    stepped along, so it takes the packed stride."""
+    stepped along, so it takes the packed stride, rounded up to 16 bytes
+    (a head of 36 bf16 in rows padded to 40: 80 bytes)."""
     b, tt, h, d = t.shape
-    if t.stride(3) != 1:
+    sb_, st_, sh_, sd_ = t.stride()
+    if sd_ != 1:
         return [], " must be contiguous in its last dim"
     if t.data_ptr() % 16:
         return [], f": TMA needs a 16-byte-aligned base; got {t.data_ptr():#x}"
     elem = t.element_size()
     strides, packed = [], d * elem
-    for size, stride in ((h, t.stride(2)), (tt, t.stride(1)), (b, t.stride(0))):
-        sb = stride * elem if size > 1 else packed
+    for size, stride in ((h, sh_), (tt, st_), (b, sb_)):
+        sb = stride * elem if size > 1 else _round_up(packed, 16)
         if sb % 16 or not 0 < sb < 2**40:
             return [], (f": TMA needs strides that are multiples of 16 bytes; "
                         f"got strides {t.stride()} of {t.dtype}")
@@ -541,31 +598,54 @@ def _tma_strides(t: torch.Tensor) -> tuple[list[int], str]:
     return strides, ""
 
 
+def _padded(shape: tuple, dtype: torch.dtype, device, cols: int) -> torch.Tensor:
+    """An empty (B, T, H, D) tensor whose rows are `cols` ≥ D elements
+    apart: a view of the first D columns of a packed (B, T, H, cols) one."""
+    b, tt, h, d = shape
+    out = torch.empty((b, tt, h, cols), dtype=dtype, device=device)
+    return out if cols == d else out[..., :d]
+
+
+def tma_copy(t: torch.Tensor) -> torch.Tensor:
+    """`t` where TMA can map it (`_tma_strides`), else a copy that it can:
+    packed, each row padded to a multiple of 16 bytes (the padding is never
+    read: the map's inner dim stays D). What a base off 16 bytes, strides
+    TMA cannot step (bf16 at D % 8 ≠ 0, fp32 at D % 4 ≠ 0) or a last dim
+    that is not contiguous costs on the card: one copy of the operand."""
+    if not _tma_strides(t)[1]:
+        return t
+    out = _padded(tuple(t.shape), t.dtype, t.device, _round_up(t.shape[-1], 16 // t.element_size()))
+    return out.copy_(t)
+
+
+def _tma_ready(t: torch.Tensor) -> tuple[torch.Tensor, list[int]]:
+    """`t` and its tensor map's dims {D, H, T, B} and byte strides of H, T
+    and B (`_tma_strides`), or a copy TMA can map (`tma_copy`) and its
+    own: each operand's strides found once a launch."""
+    strides, problem = _tma_strides(t)
+    if problem:
+        t = tma_copy(t)
+        strides = _tma_strides(t)[0]
+    b, tt, h, d = t.shape
+    return t, [d, h, tt, b, *strides]
+
+
 def f32_tma_operand(t: torch.Tensor, name: str) -> list[int]:
     """The arguments of the TMA tensor map of an fp32 (B, T, H, D) operand
-    of the fp32 Hopper body, D in `F32_HEAD_DIMS`: the dims {D, H, T, B}
-    and the byte strides of H, T and B — 7 integers; the C entry loads q
-    and k in 8-column boxes under the 32-byte swizzle, v in whole rows.
-    Raises ValueError where TMA cannot map the operand (`_tma_strides`)."""
+    of the fp32 Hopper body, D ≤ 256: the dims {D, H, T, B} and the byte
+    strides of H, T and B — 7 integers; the C entry loads q and k in
+    8-column boxes under the 32-byte swizzle and v in rows of the call's
+    width (`f32_width`), columns from D on TMA's zero fill. Raises ValueError
+    where TMA cannot map the operand (`_tma_strides`; `tma_copy` makes a copy
+    that it can)."""
     b, tt, h, d = t.shape
-    if t.dtype != torch.float32 or d not in F32_HEAD_DIMS:
-        raise ValueError(f"{name}: the fp32 Hopper body takes fp32 at head dim "
-                         f"{', '.join(map(str, F32_HEAD_DIMS))}; got {t.dtype}, {d}")
+    if t.dtype != torch.float32 or d > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: the fp32 Hopper body takes fp32 at head dims up to "
+                         f"{MAX_HEAD_DIM}; got {t.dtype}, {d}")
     strides, problem = _tma_strides(t)
     if problem:
         raise ValueError(name + problem)
     return [d, h, tt, b, *strides]
-
-
-def _takes_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
-    """Whether an fp32 call goes to the fp32 Hopper body
-    (csrc/attention_f32_sm90.cu) rather than attention.cu's SIMT kernel:
-    fp32 at a head dim the body is built for (`F32_HEAD_DIMS`), with q, k
-    and v in strides TMA can map (`_tma_strides`). Each route's kernel there
-    takes the route's bias. A function of dtype, head dim and the operands'
-    layout only."""
-    return (q.dtype == torch.float32 and q.shape[-1] in F32_HEAD_DIMS
-            and not any(_tma_strides(t)[1] for t in (q, k, v)))
 
 
 def bias_operand(bias: torch.Tensor, batch: int) -> tuple[list[int], int]:
@@ -605,13 +685,15 @@ def dense_bias_operand(bias: torch.Tensor, tk: int) -> tuple[list[int], int, int
 
 def _takes_sm90(counter: str, q: torch.Tensor, bias: Optional[torch.Tensor]) -> bool:
     """Whether a call of the route that counts under `counter` goes to the
-    Hopper body (csrc/attention_sm90.cu): bf16 at a head dim the body is
-    built for on that route (`_SM90_MODES`), without a bias or, on a route
-    whose kernel takes one (`_SM90_BIAS`), with a key-padding bias; on the
-    exact single-tile route (``attention``: the XLA route of a dense bias
-    past the tile too) with any bias. A function of route, dtype, head dim
-    and bias only."""
-    return (q.dtype == torch.bfloat16 and q.shape[-1] in _SM90_MODES[counter][1]
+    Hopper body (csrc/attention_sm90.cu): bf16 at a head dim up to
+    `MAX_HEAD_DIM` (the harness's X1-X4 at their own widths only), without a
+    bias or, on a route whose kernel takes one (`_SM90_BIAS`), with a
+    key-padding bias; on the exact single-tile route (``attention``: the XLA
+    route of a dense bias past the tile too) with any bias. A function of
+    route, dtype, head dim and bias only."""
+    d = q.shape[-1]
+    fits = d in _SM90_MODES[counter][1] if counter in _SM90_HARNESS else d <= MAX_HEAD_DIM
+    return (q.dtype == torch.bfloat16 and fits
             and (bias is None or counter == "attention" or (
                 counter in _SM90_BIAS and _key_padding_bias_ok(bias, q.shape[0]))))
 
@@ -630,12 +712,17 @@ def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
     clamp softmax with the denominator from the p·v products, X4, D=72, no
     bias, any Tk; ``xattn_matmul_only``: its bf16(q·kᵀ)·v with no softmax,
     X1, no bias, Tk % 128 == 0), with the route's `n_pad` pad keys
-    (`pad_keys`; the harness's modes take none).
-    Raises where TMA cannot map an operand (`tma_operand`) or the body does
-    not read the bias (`bias_operand`, `dense_bias_operand`). Counts it
-    under `name`, or ``name_bias``."""
-    maps = [a for t, n in ((q, "q"), (k, "k"), (v, "v")) for a in tma_operand(t, n)]
+    (`pad_keys`; the harness's modes take none), at the width `sm90_width`
+    gives. Operands TMA cannot map go to the kernel as copies (`tma_copy`),
+    and at a head dim that is not a multiple of 8 o comes back through one
+    (its rows' padding). Raises where no width takes the head dim or the
+    body does not read the bias (`bias_operand`, `dense_bias_operand`).
+    Counts it under `name`, or ``name_bias``."""
     b, tq, h, d = q.shape
+    width = sm90_width(d, name)
+    (q, qm), (k, km), (v, vm) = (_tma_ready(t) for t in (q, k, v))
+    box = _sm90_box(width)
+    maps = [*qm, *box, *km, *box, *vm, *box]
     tk = k.shape[1]
     dense = bias is not None and not _key_padding_bias_ok(bias, b)
     if bias is None:
@@ -648,7 +735,8 @@ def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     mode = _SM90_MODES[name][0]
-    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    # o's rows a multiple of 16 bytes apart, as its TMA store needs
+    out = _padded((b, tq, h, d), q.dtype, q.device, _round_up(d, 8))
     with torch.cuda.device(q.device):
         status = _sm90_kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -656,7 +744,7 @@ def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
             (ctypes.c_longlong * 3)(out.stride(0), out.stride(1), out.stride(2)),
             None if bias is None else bias.data_ptr(),
             (ctypes.c_longlong * 4)(*bias_strides), bias_bf16, int(dense), pairs,
-            b, h, tq, tk, 1.0 / math.sqrt(d), clamp_scale(d, q.dtype), mode, n_pad,
+            b, h, tq, tk, 1.0 / math.sqrt(d), clamp_scale(d, q.dtype), mode, n_pad, width,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if status != 0:
@@ -665,7 +753,7 @@ def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
             f"the CUresult of a refused tensor map; q {tuple(q.shape)}, k {tuple(k.shape)})"
         )
     LAUNCHES[name if bias is None else name + "_bias"] += 1
-    return out
+    return out.contiguous()
 
 
 def _launch_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
@@ -675,14 +763,19 @@ def _launch_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
     broadcasts from (B|1, H|1, Tq|1, Tk|1), dense too; ``attention_flash``:
     exact streaming, K6; ``attention_long`` and ``attention_rowblock``:
     clamp transposed, K4, and row-block, K5; these three with no bias or a
-    key-padding one), with the route's `n_pad` pad keys (`pad_keys`).
-    Raises where TMA cannot map an operand (`f32_tma_operand`). Counts it
-    under `name`, or ``name_bias``."""
-    maps = [a for t, n in ((q, "q"), (k, "k"), (v, "v")) for a in f32_tma_operand(t, n)]
+    key-padding one), with the route's `n_pad` pad keys (`pad_keys`), at the
+    width `f32_width` gives. Operands TMA cannot map go to the kernel as
+    copies (`tma_copy`); the kernel writes all of the width's columns of o,
+    so below the width o comes back through a copy of its first D. Raises
+    where no width takes the head dim. Counts it under `name`, or
+    ``name_bias``."""
+    b, tq, h, d = q.shape
+    width = f32_width(d)
+    (q, qm), (k, km), (v, vm) = (_tma_ready(t) for t in (q, k, v))
+    maps = [*qm, *km, *vm]
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
-    b, tq, h, d = q.shape
-    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    out = _padded((b, tq, h, d), q.dtype, q.device, width)
     strides = [out.stride(0), out.stride(1), out.stride(2)]
     if bias is not None:
         bias = bias.float()
@@ -696,7 +789,7 @@ def _launch_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             (ctypes.c_ulonglong * len(maps))(*maps), (ctypes.c_longlong * 7)(*strides),
             None if bias is None else bias.data_ptr(),
-            b, h, tq, k.shape[1], scale, route, n_pad,
+            b, h, tq, k.shape[1], scale, route, n_pad, width,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if status != 0:
@@ -705,7 +798,18 @@ def _launch_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
             f"the CUresult of a refused tensor map; q {tuple(q.shape)}, k {tuple(k.shape)})"
         )
     LAUNCHES[name if bias is None else name + "_bias"] += 1
-    return out
+    return out.contiguous()
+
+
+def _launch_card(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
+                 bias: Optional[torch.Tensor], n_pad: int) -> torch.Tensor:
+    """The route of counter `name` on q's device: bf16 on the Hopper body
+    (`_launch_sm90`), fp32 on the fp32 one (`_launch_f32`), at any head dim
+    up to `MAX_HEAD_DIM` and in any layout; past it a ValueError that names
+    the limit. csrc/attention.cu's `_launch` is not reached."""
+    if q.dtype == torch.bfloat16:
+        return _launch_sm90(q, k, v, name, bias, n_pad)
+    return _launch_f32(q, k, v, name, bias, n_pad)
 
 
 def transposed_attention(
@@ -720,11 +824,7 @@ def transposed_attention(
     _check_key_padding(q, k, v, bias)
     if q.device.type == "cpu":
         return transposed_attention_reference(q, k, v, bias)
-    if _takes_sm90("attention_long", q, bias):
-        return _launch_sm90(q, k, v, "attention_long", bias, pad_keys("clamp", k.shape[1]))
-    if _takes_f32(q, k, v):
-        return _launch_f32(q, k, v, "attention_long", bias, pad_keys("clamp", k.shape[1]))
-    return _launch(q, k, v, bias, 1, pad_keys("clamp", k.shape[1]))
+    return _launch_card(q, k, v, "attention_long", bias, pad_keys("clamp", k.shape[1]))
 
 
 def rowblock_attention(
@@ -739,12 +839,7 @@ def rowblock_attention(
     _check_key_padding(q, k, v, bias)
     if q.device.type == "cpu":
         return rowblock_attention_reference(q, k, v, bias)
-    if _takes_sm90("attention_rowblock", q, bias):
-        return _launch_sm90(q, k, v, "attention_rowblock", bias,
-                            pad_keys("rowblock", k.shape[1]))
-    if _takes_f32(q, k, v):
-        return _launch_f32(q, k, v, "attention_rowblock", bias, pad_keys("rowblock", k.shape[1]))
-    return _launch(q, k, v, bias, 2, pad_keys("rowblock", k.shape[1]))
+    return _launch_card(q, k, v, "attention_rowblock", bias, pad_keys("rowblock", k.shape[1]))
 
 
 def flash_attention(
@@ -760,11 +855,7 @@ def flash_attention(
     _check_key_padding(q, k, v, bias)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, bias)
-    if _takes_sm90("attention_flash", q, bias):
-        return _launch_sm90(q, k, v, "attention_flash", bias, pad_keys("flash", k.shape[1]))
-    if _takes_f32(q, k, v):
-        return _launch_f32(q, k, v, "attention_flash", bias, pad_keys("flash", k.shape[1]))
-    return _launch(q, k, v, bias, 3, pad_keys("flash", k.shape[1]))
+    return _launch_card(q, k, v, "attention_flash", bias, pad_keys("flash", k.shape[1]))
 
 
 def single_tile_attention(
@@ -782,11 +873,7 @@ def single_tile_attention(
     n_pad = pad_keys("exact", k.shape[1])
     if q.device.type == "cpu":
         return fused_attention_reference(q, k, v, bias, n_pad)
-    if _takes_sm90("attention", q, bias):
-        return _launch_sm90(q, k, v, "attention", bias, n_pad)
-    if _takes_f32(q, k, v):
-        return _launch_f32(q, k, v, "attention", bias, n_pad)
-    return _launch(q, k, v, bias, 0, n_pad)
+    return _launch_card(q, k, v, "attention", bias, n_pad)
 
 
 def _check_key_padding(q, k, v, bias) -> None:
@@ -818,8 +905,4 @@ def fused_attention(
     n_pad = pad_keys(route, k.shape[1])
     if q.device.type == "cpu":
         return fused_attention_reference(q, k, v, bias, n_pad)
-    if _takes_sm90("attention", q, bias):
-        return _launch_sm90(q, k, v, "attention", bias, n_pad)
-    if _takes_f32(q, k, v):
-        return _launch_f32(q, k, v, "attention", bias, n_pad)
-    return _launch(q, k, v, bias, 0, n_pad)
+    return _launch_card(q, k, v, "attention", bias, n_pad)

@@ -1,12 +1,22 @@
 """The Hopper bodies (``csrc/attention_sm90.cu`` in bf16,
 ``csrc/attention_f32_sm90.cu`` in fp32) against the kernels of
 ``csrc/attention.cu`` they replaced (its mma.sync body in bf16, its SIMT
-kernel in fp32; attention.cu still serves bf16 dense biases and other head
-dims), kernel by kernel, in turns, in one process on one card; and the
-harness's X3 against one library call, in turns.
+kernel in fp32; no wrapper reaches it any more), or against an older
+tree's wrappers (``--parent DIR``), kernel by kernel, in turns, in one
+process on one card; and the harness's X3 against one library call, in
+turns.
 
     python -m ecad_tpu_torch.scripts.compare_attention_bodies [--out bodies.json]
-        [--rows attention_d64,attention_bias_d64]
+        [--rows attention_d64,attention_bias_d64] [--parent DIR]
+
+With ``--parent DIR`` (the root of an older checkout, unpacked for
+instance with ``git archive <commit> ecad_tpu_torch | tar -x -C
+build/parent``) the old side of each row is that tree's wrapper of the
+same name, its ``ecad_tpu_torch/ops`` package loaded from its files
+(`compare_modlnorm_bodies.load_ops`), which builds its own sources: the
+way to time this tree's kernels against the parent's where their machine
+code differs (`compare_sass`); each row then also says whether the two
+trees' outputs are bit-identical.
 
 Rows, each bf16 at the shape the main path gives it: K1 (the exact
 single-tile softmax, variant 0 of attention.cu's C entry) at FLUX-256's
@@ -191,12 +201,19 @@ def main(argv=None) -> list[dict]:
     parser.add_argument("--out", type=Path, default=None)
     parser.add_argument("--rows", default=None,
                         help="comma-separated rows of CASES (default: all, then X3)")
+    parser.add_argument("--parent", type=Path, default=None,
+                        help="an older checkout whose wrappers are the old side")
     args = parser.parse_args(argv)
     cases = CASES if args.rows is None else {r: CASES[r] for r in args.rows.split(",")}
     if not torch.cuda.is_available():
         raise SystemExit("compare_attention_bodies: needs a CUDA card")
     card = card_name()
     _build.build_all()
+    parent = None
+    if args.parent is not None:
+        from ecad_tpu_torch.scripts.compare_modlnorm_bodies import load_ops
+
+        parent = load_ops(args.parent.resolve(), "parent_ecad_tpu_torch_ops").attention
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for counter, (shape, tk, lengths, variant, new_fn, plain, share) in cases.items():
@@ -211,7 +228,9 @@ def main(argv=None) -> list[dict]:
             bias = torch.where(keep, 0.0, -10000.0).to(dtype)[:, None, None, :]
         n_pad = A.pad_keys(ROUTE[variant], tk)
         qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-        bodies = {"old": lambda: A._launch(q, k, v, bias, variant, n_pad),
+        old_fn = None if parent is None else getattr(parent, new_fn.__name__)
+        bodies = {"old": (lambda: A._launch(q, k, v, bias, variant, n_pad)) if parent is None
+                  else (lambda: old_fn(q, k, v, bias)),
                   "new": lambda: new_fn(q, k, v, bias),
                   "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
                       qt, kt, vt, attn_mask=bias)}
@@ -242,7 +261,10 @@ def main(argv=None) -> list[dict]:
         row = {
             "counter": counter, "shape": list(shape), "keys": tk, "card": card,
             "dtype": str(dtype).split(".")[-1],
-            "old_body": f"attention.cu variant {variant}",
+            "old_body": (f"attention.cu variant {variant}" if parent is None
+                         else f"{args.parent}'s {new_fn.__name__}"),
+            **({} if parent is None else
+               {"bit_identical": bool(torch.equal(bodies["old"](), bodies["new"]()))}),
             "old_ms": times["old"], "new_ms": times["new"],
             "old_over_new": statistics.median(times["old"]) / statistics.median(times["new"]),
             "sdpa_ms": sdpa,
@@ -257,7 +279,7 @@ def main(argv=None) -> list[dict]:
         rows.append(row)
         if any(c[1] for c in checks.values()):
             raise SystemExit(f"{counter}: a body is beyond its tolerance: {checks}")
-    for shape, s in SHAPES.items() if args.rows is None else ():
+    for shape, s in SHAPES.items() if args.rows is None and parent is None else ():
         row = x3_against_sdpa(shape, s, gen, card)
         print(json.dumps(row), flush=True)
         rows.append(row)

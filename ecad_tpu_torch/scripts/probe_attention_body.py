@@ -57,6 +57,12 @@ Rows, bf16 at the shape the main path gives each kernel:
   serves that width;
 * K1 at FLUX-256's joint attention (4, 768, 24, 128), with
   ``items_in_runs``;
+* K1 at head dims 32 and 16 at PixArt-256's self-attention shape (16, 256,
+  16, D), and K2 at 32 to its 120 text keys, with ``exact_narrow_three``
+  (three consumer warpgroups, as at 64, instead of two); K4, K5 and K6 at
+  32 and 16 ((4, 4096, 8, D); K6 (1, 9728, 8, D)) with ``clamp_narrow_two``,
+  ``rowblock_narrow_two`` and ``flash_narrow_two`` (two consumer warpgroups
+  instead of D=64's three);
 * K1 at head dim 64, the reference's width-reduced FLUX 256² (8, 768, 24,
   64), with ``d64_two_consumers`` (two consumer warpgroups and 128-row
   items instead of three and 192), K6's ``no_softmax``, ``no_exp2``,
@@ -106,7 +112,9 @@ or of q·kᵀ).
 
 A variant that only reschedules the same arithmetic (``two_consumers``,
 ``helpers_three_warps``, ``dense_no_prefetch``, ``dense_prefetch``, ``dense_scalar_loads``,
-``k6_bias_three_consumers``, ``d64_two_consumers``, ``clamp_two_consumers``,
+``k6_bias_three_consumers``, ``d64_two_consumers``, ``exact_narrow_three``,
+``clamp_narrow_two``, ``rowblock_narrow_two``, ``flash_narrow_two``,
+``clamp_two_consumers``,
 ``clamp_bias_three_consumers``, ``clamp_three_consumers``, ``rowblock_three_consumers``,
 ``rowblock_two_consumers``, ``one_block_per_item``,
 ``items_in_runs``, ``bias_after_q``, ``xmax_two_consumers``,
@@ -142,7 +150,7 @@ from ecad_tpu_torch.utils.timing import card_name, card_sample, device_ms
 
 # variant → [(text in the source, its replacement), ...]
 K6_VARIANTS = {
-    "two_consumers": [("constexpr int kFlashConsumers = D == 128 ? 2 : 3;",
+    "two_consumers": [("constexpr int kFlashConsumers = D >= 128 ? 2 : 3;",
                        "constexpr int kFlashConsumers = 2;")],
     "no_softmax": [(
         "    if (edge) softmax_exact<true>(s, m, l, alpha, qk_scale, k0 + col_t, Tk);\n"
@@ -153,13 +161,13 @@ K6_VARIANTS = {
     "no_kv_loads": [
         (f"          mbar_expect_tx({x}_full(s), kKV.load());\n"
          f"          tma_tile<D>({x}_s(s), kKV, &maps[{i}], &maps[{i + 3}], {x}_full(s), h, "
-         "j * kBlockN, b);",
+         "j * kBN, b);",
          f"          if (g < kStages) {{ mbar_expect_tx({x}_full(s), kKV.load());\n"
          f"          tma_tile<D>({x}_s(s), kKV, &maps[{i}], &maps[{i + 3}], {x}_full(s), h, "
-         f"j * kBlockN, b); }} else mbar_arrive({x}_full(s));")
+         f"j * kBN, b); }} else mbar_arrive({x}_full(s));")
         for x, i in (("k", 1), ("v", 2))],
     "no_pv": [("      wgmma_fence();\n#pragma unroll\n"
-               "      for (int kk = 0; kk < 8; ++kk) pv(o, pf[kk], sp, kk);\n"
+               "      for (int kk = 0; kk < kPvSteps; ++kk) pv(o, pf[kk], sp, kk);\n"
                "      wgmma_commit();", "      wgmma_commit();")],
     # the m64n8k16's instruction taken out of its asm (its operands stay)
     "no_pv_tail": [('        " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}"\n'
@@ -172,7 +180,7 @@ K2_VARIANTS = {
 }
 K6_BIAS_VARIANTS = {
     **K2_VARIANTS,
-    "k6_bias_three_consumers": [("constexpr int kStreamConsumers = BIAS && D != 64 ? 2 : "
+    "k6_bias_three_consumers": [("constexpr int kStreamConsumers = BIAS && D > 64 ? 2 : "
                                  "kFlashConsumers<D>;",
                                  "constexpr int kStreamConsumers = kFlashConsumers<D>;")],
 }
@@ -199,9 +207,9 @@ K5_BIAS_VARIANTS = {"no_bias_loads": K2_VARIANTS["no_bias_loads"]}
 # tile ahead at every head dim, its values loaded one by one at their use,
 # or not loaded at all
 K2_DENSE_VARIANTS = {
-    "dense_no_prefetch": [("constexpr bool kDensePrefetch = D != 128;",
+    "dense_no_prefetch": [("constexpr bool kDensePrefetch = D < 128;",
                            "constexpr bool kDensePrefetch = false;")],
-    "dense_prefetch": [("constexpr bool kDensePrefetch = D != 128;",
+    "dense_prefetch": [("constexpr bool kDensePrefetch = D < 128;",
                         "constexpr bool kDensePrefetch = true;")],
     "dense_scalar_loads": [("  p.bias_pairs = dense && bias_pairs;", "  p.bias_pairs = 0;")],
     "no_dense_bias_loads": [
@@ -209,12 +217,12 @@ K2_DENSE_VARIANTS = {
          "? 0u")],
 }
 # K5 at D=72 and 64: the other consumer count of each width and bias form
-ROWBLOCK_CONSUMERS = "constexpr int kRowblockConsumers = D != 128 && !BIAS ? 3 : 2;"
+ROWBLOCK_CONSUMERS = "constexpr int kRowblockConsumers = D < 128 && !BIAS ? 3 : 2;"
 K5_VARIANTS = {"rowblock_two_consumers": [
     (ROWBLOCK_CONSUMERS, "constexpr int kRowblockConsumers = 2;")]}
 K5_BIAS_NARROW_VARIANTS = {
     "rowblock_three_consumers": [
-        (ROWBLOCK_CONSUMERS, "constexpr int kRowblockConsumers = D == 128 ? 2 : 3;")],
+        (ROWBLOCK_CONSUMERS, "constexpr int kRowblockConsumers = D >= 128 ? 2 : 3;")],
     **K5_BIAS_VARIANTS}
 D64_VARIANTS = {"d64_two_consumers": [("constexpr int kExactConsumers = D == 64 ? 3 : 2;",
                                         "constexpr int kExactConsumers = 2;")]}
@@ -223,6 +231,21 @@ K1_D64_VARIANTS = {
     **{n: K6_VARIANTS[n] for n in ("no_softmax", "no_exp2", "no_pv", "no_kv_loads")},
 }
 K2_D64_VARIANTS = {**K2_VARIANTS, **D64_VARIANTS}
+# K1 and K2 at the narrow widths (32 and 16) on three consumer warpgroups,
+# as at 64, instead of two
+NARROW_VARIANTS = {"exact_narrow_three": [("constexpr int kExactConsumers = D == 64 ? 3 : 2;",
+                                           "constexpr int kExactConsumers = D <= 64 ? 3 : 2;")]}
+# K4, K5 and K6 at the narrow widths on two consumer warpgroups instead of
+# D=64's three
+NARROW_CLAMP_VARIANTS = {"clamp_narrow_two": [
+    ("constexpr int kClampConsumers = D <= 64 && !BIAS ? 3 : 2;",
+     "constexpr int kClampConsumers = D == 64 && !BIAS ? 3 : 2;")]}
+NARROW_ROWBLOCK_VARIANTS = {"rowblock_narrow_two": [
+    ("constexpr int kRowblockConsumers = D < 128 && !BIAS ? 3 : 2;",
+     "constexpr int kRowblockConsumers = D < 128 && D >= 64 && !BIAS ? 3 : 2;")]}
+NARROW_FLASH_VARIANTS = {"flash_narrow_two": [
+    ("constexpr int kFlashConsumers = D >= 128 ? 2 : 3;",
+     "constexpr int kFlashConsumers = D >= 128 || D < 64 ? 2 : 3;")]}
 # K4 and K6 at D=64: the exp2s of every fourth or eighth column block of a
 # tile's scores from the FMA pipes (`ex2_poly`: x = j + f with j = rint(x)
 # by the 1.5·2^23 trick, 2^f by a degree-3 polynomial on [−½, ½], relative
@@ -257,7 +280,7 @@ def poly_edits(n: int) -> list[tuple[str, str]]:
 
 POLY_VARIANTS = {f"poly_every_{n}": poly_edits(n) for n in (4, 8)}
 K4_D64_VARIANTS = {
-    "clamp_two_consumers": [("constexpr int kClampConsumers = D == 64 && !BIAS ? 3 : 2;",
+    "clamp_two_consumers": [("constexpr int kClampConsumers = D <= 64 && !BIAS ? 3 : 2;",
                              "constexpr int kClampConsumers = 2;")],
     "one_block_per_item": K4_BIAS_VARIANTS["one_block_per_item"],
     **POLY_VARIANTS,
@@ -270,12 +293,12 @@ K4_D64_VARIANTS = {
     **{n: K6_VARIANTS[n] for n in ("no_pv", "no_kv_loads")},
 }
 K4_D72_VARIANTS = {"clamp_three_consumers": [
-    ("constexpr int kClampConsumers = D == 64 && !BIAS ? 3 : 2;",
-     "constexpr int kClampConsumers = D != 128 && !BIAS ? 3 : 2;")]}
+    ("constexpr int kClampConsumers = D <= 64 && !BIAS ? 3 : 2;",
+     "constexpr int kClampConsumers = D < 128 && !BIAS ? 3 : 2;")]}
 K4_BIAS_D64_VARIANTS = {
     "clamp_bias_three_consumers": [
-        ("constexpr int kClampConsumers = D == 64 && !BIAS ? 3 : 2;",
-         "constexpr int kClampConsumers = D == 64 ? 3 : 2;")],
+        ("constexpr int kClampConsumers = D <= 64 && !BIAS ? 3 : 2;",
+         "constexpr int kClampConsumers = D <= 64 ? 3 : 2;")],
     "one_block_per_item": K4_BIAS_VARIANTS["one_block_per_item"],
     **K2_VARIANTS, "poly_every_4": POLY_VARIANTS["poly_every_4"]}
 K6_D64_VARIANTS = {
@@ -344,6 +367,16 @@ ROWS = {
     "k5_dim1536": ((8, 768, 24, 64), 768, None, "attention_rowblock", K5_VARIANTS, 7, 20),
     "k5_bias_dim1536": ((8, 768, 24, 64), 768, (700,), "attention_rowblock",
                         K5_BIAS_NARROW_VARIANTS, 7, 20),
+    "k1_d32_pixart256": ((16, 256, 16, 32), 256, None, "attention", NARROW_VARIANTS, 7, 20),
+    "k1_d16_pixart256": ((16, 256, 16, 16), 256, None, "attention", NARROW_VARIANTS, 7, 20),
+    "k2_d32_pixart256_cross": ((16, 256, 16, 32), 120, (7, 60, 120), "attention",
+                               NARROW_VARIANTS, 7, 20),
+    **{f"k{k}_d{d}": (shape, shape[1], None, counter, variants, 5, 5)
+       for d in (32, 16)
+       for k, shape, counter, variants in (
+           (4, (4, 4096, 8, d), "attention_long", NARROW_CLAMP_VARIANTS),
+           (5, (4, 4096, 8, d), "attention_rowblock", NARROW_ROWBLOCK_VARIANTS),
+           (6, (1, 9728, 8, d), "attention_flash", NARROW_FLASH_VARIANTS))},
     "k1_flux256": ((4, 768, 24, 128), 768, None, "attention",
                    {"items_in_runs": K4_BIAS_VARIANTS["items_in_runs"]}, 7, 20),
     "k1_dim1536": ((8, 768, 24, 64), 768, None, "attention", K1_D64_VARIANTS, 7, 20),
@@ -398,19 +431,19 @@ __device__ __forceinline__ void pv_mma_sync(float (&o)[D / 2], const uint32_t (&
 
 """
 F32_PV = """#pragma unroll
-      for (int kk = 0; kk < BN / 8; ++kk) wgmma_rs<D>(ot, ps[kk], vt_desc(vb, kk));
+        for (int kk = 0; kk < BN / 8; ++kk) wgmma_rs<D>(ot, ps[kk], vt_desc(vb, kk));
 #pragma unroll
-      for (int kk = 0; kk < BN / 8; ++kk) wgmma_rs<D>(ot, pb[kk], vt_desc(vs, kk));
+        for (int kk = 0; kk < BN / 8; ++kk) wgmma_rs<D>(ot, pb[kk], vt_desc(vs, kk));
 """
 F32_PV_BIG = """#pragma unroll
-      for (int kk = 0; kk < BN / 8; ++kk) wgmma_rs<D>(ot, pb[kk], vt_desc(vb, kk));
+        for (int kk = 0; kk < BN / 8; ++kk) wgmma_rs<D>(ot, pb[kk], vt_desc(vb, kk));
 """
 F32_S = """#pragma unroll
-      for (int kc = 0; kc < D / 8; ++kc) wgmma_ss<BN>(sc, q_desc(q_small, kc), k_desc(kb, kc), kc);
+        for (int kc = 0; kc < D / 8; ++kc) wgmma_ss<BN>(sc, q_desc(q_small, kc), k_desc(kb, kc), kc);
 #pragma unroll
-      for (int kc = 0; kc < D / 8; ++kc) wgmma_ss<BN>(sc, q_desc(q_big, kc), k_desc(ks, kc), 1);
+        for (int kc = 0; kc < D / 8; ++kc) wgmma_ss<BN>(sc, q_desc(q_big, kc), k_desc(ks, kc), 1);
 #pragma unroll
-      for (int kc = 0; kc < D / 8; ++kc) wgmma_ss<BN>(sc, q_desc(q_big, kc), k_desc(kb, kc), 1);"""
+        for (int kc = 0; kc < D / 8; ++kc) wgmma_ss<BN>(sc, q_desc(q_big, kc), k_desc(kb, kc), 1);"""
 F32_VT = "          write_vt<D, BN>(kb + 2 * C::kKV, kb + 3 * C::kKV, kb + C::kKV, ht);\n"
 F32_NO_VT = [(F32_VT, "")]
 F32_NO_K_SPLIT = [("          split_tile(kb, kb + C::kKV, C::kKV, 1.f, ht);\n", "")]
@@ -426,19 +459,19 @@ F32_VARIANTS = {
                  "            reinterpret_cast<float4*>(kb + 2 * C::kKV)[i] = hi;\n"
                  "            reinterpret_cast<float4*>(kb + 3 * C::kKV)[i] = lo;\n"
                  "          }\n"),
-        ("      wgmma_fence();\n" + F32_PV + F32_PV_BIG + """      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(ot);
+        ("        wgmma_fence();\n" + F32_PV + F32_PV_BIG + """        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(ot);
 #pragma unroll
-      for (int kk = 0; kk < BN / 8; ++kk) {
-        fence_regs(pb[kk]);
-        fence_regs(ps[kk]);
-      }""", "      pv_mma_sync<D, BN>(ot, pb, ps, reinterpret_cast<const float*>(gen(vb)),\n"
-              "                         reinterpret_cast<const float*>(gen(vs)), lane);")],
-    "bn32_three_stages": [("  static constexpr int kBN = D > 72 ? 32 : 64;\n"
-                           "  static constexpr int kStages = 2;",
-                           "  static constexpr int kBN = 32;\n"
-                           "  static constexpr int kStages = D > 72 ? 2 : 3;")],
+        for (int kk = 0; kk < BN / 8; ++kk) {
+          fence_regs(pb[kk]);
+          fence_regs(ps[kk]);
+        }""", "        pv_mma_sync<D, BN>(ot, pb, ps, reinterpret_cast<const float*>(gen(vb)),\n"
+              "                           reinterpret_cast<const float*>(gen(vs)), lane);")],
+    "bn32_three_stages": [("  static constexpr int kBN = D > 128 ? 16 : D > 72 ? 32 : 64;\n"
+                           "  static constexpr int kStages = D > 192 ? 1 : 2;",
+                           "  static constexpr int kBN = D > 128 ? 16 : 32;\n"
+                           "  static constexpr int kStages = D > 192 ? 1 : D > 72 ? 2 : 3;")],
     "helpers_three_warps": [("constexpr int kProducerGroups = 2;",
                              "constexpr int kProducerGroups = 1;")],
     "no_vt": F32_NO_VT,
@@ -449,7 +482,7 @@ F32_VARIANTS = {
     "no_pv": [(F32_PV + F32_PV_BIG, "")],
     "pv_one_pass": [(F32_PV, "")],
     "s_one_pass": [(F32_S, """#pragma unroll
-      for (int kc = 0; kc < D / 8; ++kc) wgmma_ss<BN>(sc, q_desc(q_big, kc), k_desc(kb, kc), kc);""")],
+        for (int kc = 0; kc < D / 8; ++kc) wgmma_ss<BN>(sc, q_desc(q_big, kc), k_desc(kb, kc), kc);""")],
 }
 F32_ROWS = {
     "f32_k4_pixart1024": ((4, 4096, 16, 72), 4096, None, "attention_long", F32_VARIANTS, 3, 2),
@@ -471,7 +504,8 @@ BODIES = {"sm90": ("attention_sm90", "ecad_attention_sm90_fwd", "_SM90_FN", A._s
 ROUTES = {"attention": "exact", "attention_long": "clamp", "attention_rowblock": "rowblock",
           "attention_flash": "flash"}
 # the same arithmetic, rescheduled
-EXACT = ("two_consumers", "helpers_three_warps", "k6_bias_three_consumers", "d64_two_consumers",
+EXACT = ("two_consumers", "helpers_three_warps", "exact_narrow_three", "clamp_narrow_two",
+         "rowblock_narrow_two", "flash_narrow_two", "k6_bias_three_consumers", "d64_two_consumers",
          "clamp_two_consumers", "clamp_bias_three_consumers", "clamp_three_consumers",
          "rowblock_three_consumers",
          "rowblock_two_consumers", "one_block_per_item", "items_in_runs",
@@ -536,7 +570,7 @@ def build(sources: dict[str, str], out_dir: Path) -> tuple[dict, dict]:
         cu = out_dir / f"{name}.cu"
         cu.write_text(src)
         so = out_dir / f"lib{name}.so"
-        cmd = [_build.nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+        cmd = [_build.nvcc(), *_build.COMPILE_FLAGS, "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(_build.CSRC_DIR),
                "-o", str(so), str(cu)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,

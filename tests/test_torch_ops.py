@@ -799,13 +799,96 @@ def test_flash_attention_rejects_dense_bias():
     [
         ((1, 4, 2, 8), (1, 5, 2, 8), (1, 6, 2, 8)),  # k/v mismatch
         ((1, 4, 2, 8), (2, 4, 2, 8), (2, 4, 2, 8)),  # batch mismatch
-        ((1, 4, 2, 136), (1, 4, 2, 136), (1, 4, 2, 136)),  # head dim > 128
+        ((1, 4, 2, 136), (1, 4, 2, 128), (1, 4, 2, 128)),  # head dim mismatch
     ],
 )
 def test_attention_rejects_bad_shapes(shapes):
     q, k, v = (torch.zeros(s) for s in shapes)
     with pytest.raises(ValueError):
         fused_attention(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# head dims past 128 and odd head dims: the reference pads D to round_up(D,
+# 128) (or 16 on the clamp transposed route) and computes; so do the plain
+# versions, on every route, as the card's kernels do up to 256
+# ---------------------------------------------------------------------------
+
+# name → (route, q shape, tk, bias kind): each route at a shape that
+# reaches it (the exact one at the reference's odd tq 30, tk 300, with no
+# bias, a key-padding bias per batch at [100, 200, 256] of 300 keys (a
+# third batch entry broadcasts it) and a dense one)
+WIDE_CASES = {
+    **{f"exact{tag}_d{d}": ("exact", (3, 30, 2, d), 300, bias)
+       for d in (160, 256)
+       for tag, bias in (("", None), ("_key_padding", "padding"), ("_dense", "dense"))},
+    "clamp_d160": ("clamp", (1, 512, 1, 160), 512, None),
+    "rowblock_d256": ("rowblock", (1, 1536, 1, 256), 1536, None),
+    **{f"flash_d{d}": ("flash", (1, 512, 1, d), 4224, None) for d in (160, 256)},
+}
+# bf16 on each route as its own parity tests hold it: one bf16 ulp (the
+# exact and clamp routes), and p's other rounding on the streaming one
+WIDE_TOL = {"fp32": dict(rtol=2e-5, atol=2e-5),
+            "bf16": {"exact": dict(rtol=2**-7, atol=2**-7), "clamp": CLAMP_TOL["bf16"],
+                     "rowblock": CLAMP_TOL["bf16"], "flash": dict(rtol=2e-3, atol=2e-3)}}
+
+
+def _wide_inputs(rng, shape, tk, bias_kind):
+    b, tq, h, d = shape
+    q, k, v = _qkv(rng, b, tq, tk, h, d)
+    bias = {None: None, "padding": _key_padding([100, 200, 256], tk),
+            "dense": rng.standard_normal((b, h, tq, tk), dtype=np.float32)}[bias_kind]
+    return q, k, v, bias
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(WIDE_CASES))
+def test_attention_past_head_dim_128_matches_pallas(case, dtype):
+    """Head dims 160 and 256, which the port's wrappers refused before and
+    the reference computes (padding D to 256): `fused_attention` on the CPU
+    against the JAX package's in interpret mode on each route a shape
+    reaches — exact (no bias, key padding, dense bias), clamp at 160,
+    row-block at 256, streaming past 8192×128 key elements — in fp32 and
+    bf16."""
+    route, shape, tk, bias_kind = WIDE_CASES[case]
+    rng = np.random.default_rng(60)
+    q, k, v, bias = _wide_inputs(rng, shape, tk, bias_kind)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    want = jax_fused_attention(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                               bias=None if bias is None else jnp.asarray(bias), interpret=True)
+    args = [torch.from_numpy(a).to(tdt) for a in (q, k, v)]
+    tbias = None if bias is None else torch.from_numpy(bias)
+    assert attention_route(tuple(args[0].shape), tk, tbias) == route
+    got = fused_attention(*args, tbias)
+    assert got.dtype == tdt and got.shape == shape
+    tol = WIDE_TOL["fp32"] if dtype == "fp32" else WIDE_TOL["bf16"][route]
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("route", ["exact", "clamp"])
+@pytest.mark.parametrize("d", [8, 20, 36, 48, 80, 100])
+def test_attention_at_odd_head_dims_matches_pallas(d, route, dtype):
+    """Head dims the Hopper bodies run at a wider built width (columns past
+    D zero), in bf16 at 20, 36 and 100 through a padded copy of the
+    operands (rows not a multiple of 16 bytes): the plain versions the
+    wrappers run on the CPU against the JAX package in interpret mode at
+    the reference's odd shape (tq 30, tk 300) with a key-padding bias —
+    `fused_attention` on the exact single-tile route, `transposed_attention`
+    against `_transposed_attention` on the clamp one."""
+    rng = np.random.default_rng(61 + d)
+    q, k, v, bias = _wide_inputs(rng, (3, 30, 2, d), 300, "padding")
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    jargs = [jnp.asarray(a, jdt) for a in (q, k, v)]
+    if route == "exact":
+        want = jax_fused_attention(*jargs, bias=jnp.asarray(bias), interpret=True)
+        port = fused_attention
+    else:
+        want = jax_attention._transposed_attention(*jargs, jnp.asarray(bias), interpret=True)
+        port = transposed_attention
+    got = port(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)), torch.from_numpy(bias))
+    tol = (dict(rtol=2e-5, atol=2e-5) if dtype == "fp32" else dict(rtol=2**-7, atol=2**-7))
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
 
 
 def test_attention_rejects_bias_that_does_not_broadcast():
@@ -1084,8 +1167,29 @@ HOPPER_ROUTES = {
     # the XLA route of a dense bias past the single tile takes the same kernel
     "exact_xla_dense_bias_d64": ("fused", (2, 4096, 2, 64), 4096, "bf16", "dense",
                                  ("sm90", "attention_bias")),
-    # a head dim the Hopper body is not built for keeps attention.cu
-    "exact_dense_bias_d36": ("fused", (2, 30, 2, 36), 300, "bf16", "dense", ("mma", 0)),
+    # a head dim between the built widths runs at the next one up
+    "exact_dense_bias_d36": ("fused", (2, 30, 2, 36), 300, "bf16", "dense",
+                             ("sm90", "attention_bias")),
+    # the narrow widths, a head dim whose rows TMA cannot map (a copy), and
+    # past 128
+    "exact_d16": ("fused", (2, 30, 2, 16), 300, "bf16", None, ("sm90", "attention")),
+    "pixart256_shape_exact_d32": ("fused", (16, 256, 16, 32), 256, "bf16", None,
+                                  ("sm90", "attention")),
+    "exact_d36_rows_72_bytes": ("fused", (16, 256, 16, 36), 256, "bf16", None,
+                                ("sm90", "attention")),
+    "exact_key_padding_d256": ("fused", (2, 30, 2, 256), 300, "bf16", "padding",
+                               ("sm90", "attention_bias")),
+    "rowblock_d256": ("fused", (1, 1536, 1, 256), 1536, "bf16", None,
+                      ("sm90", "attention_rowblock")),
+    "clamp_d160": ("fused", (4, 4096, 8, 160), 4096, "bf16", None, ("sm90", "attention_long")),
+    "flash_d256": ("fused", (1, 4608, 12, 256), 4608, "bf16", None,
+                   ("sm90", "attention_flash")),
+    "exact_fp32_d160": ("fused", (2, 30, 2, 160), 300, "fp32", "dense",
+                        ("f32", "attention_bias")),
+    "flash_fp32_d256": ("fused", (1, 512, 1, 256), 4224, "fp32", None,
+                        ("f32", "attention_flash")),
+    "transposed_fp32_d256": ("transposed", (2, 30, 2, 256), 300, "fp32", "padding",
+                             ("f32", "attention_long_bias")),
     "exact_key_padding_fp32": ("fused", (2, 30, 2, 72), 300, "fp32", "padding",
                                ("f32", "attention_bias")),
     "exact_key_padding_d64": ("fused", (2, 30, 2, 64), 300, "bf16", "padding",
@@ -1094,8 +1198,8 @@ HOPPER_ROUTES = {
     "exact_d64": ("fused", (2, 30, 2, 64), 300, "bf16", None, ("sm90", "attention")),
     "exact_fp32_d64": ("fused", (2, 30, 2, 64), 300, "fp32", None, ("f32", "attention")),
     # fp32 on the fp32 body at the tiny test doubles' head dims, with a dense
-    # bias (the single-tile route takes any bias there); on attention.cu at a
-    # head dim it is not built for and on rows TMA cannot map
+    # bias (the single-tile route takes any bias there), at a head dim
+    # between its widths and on rows TMA cannot map (a copy)
     "exact_fp32_d16": ("fused", (2, 30, 2, 16), 300, "fp32", None, ("f32", "attention")),
     "exact_fp32_d32": ("fused", (2, 30, 2, 32), 300, "fp32", None, ("f32", "attention")),
     "flash_fp32_d32": ("flash", (1, 8464, 2, 32), 8464, "fp32", None,
@@ -1103,11 +1207,13 @@ HOPPER_ROUTES = {
     "exact_dense_bias_fp32_d72": ("fused", (2, 30, 2, 72), 300, "fp32", "dense",
                                   ("f32", "attention_bias")),
     "exact_fp32_misaligned_rows_d72": ("fused", (2, 30, 2, 72), 300, "fp32_rows_292_bytes",
-                                       None, ("mma", 0)),
+                                       None, ("f32", "attention")),
     "transposed_fp32_misaligned_rows_d72": ("transposed", (2, 30, 2, 72), 300,
-                                            "fp32_rows_292_bytes", None, ("mma", 1)),
-    "exact_fp32_d36": ("fused", (2, 130, 2, 36), 300, "fp32", None, ("mma", 0)),
-    "transposed_fp32_d36": ("transposed", (2, 130, 2, 36), 300, "fp32", None, ("mma", 1)),
+                                            "fp32_rows_292_bytes", None,
+                                            ("f32", "attention_long")),
+    "exact_fp32_d36": ("fused", (2, 130, 2, 36), 300, "fp32", None, ("f32", "attention")),
+    "transposed_fp32_d36": ("transposed", (2, 130, 2, 36), 300, "fp32", None,
+                            ("f32", "attention_long")),
     # the reference's width-reduced FLUX (dim 1536, head dim 64) at 256²:
     # forced onto the single-tile route (K1, K2 with a bias) on the Hopper
     # body; the router sends the same shape to the clamp (K4), on the Hopper
@@ -1135,10 +1241,11 @@ HOPPER_ROUTES = {
     "transposed_key_padding_fp32": ("transposed", (2, 30, 2, 72), 300, "fp32", "padding",
                                     ("f32", "attention_long_bias")),
     "transposed_key_padding_d36": ("transposed", (2, 30, 2, 36), 300, "bf16", "padding",
-                                   ("mma", 1)),
+                                   ("sm90", "attention_long_bias")),
     "transposed_fp32": ("transposed", (2, 30, 2, 72), 300, "fp32", None,
                         ("f32", "attention_long")),
-    "transposed_d36": ("transposed", (2, 30, 2, 36), 300, "bf16", None, ("mma", 1)),
+    "transposed_d36": ("transposed", (2, 30, 2, 36), 300, "bf16", None,
+                       ("sm90", "attention_long")),
     "rowblock_key_padding": ("rowblock", (2, 30, 2, 128), 300, "bf16", "padding",
                              ("sm90", "attention_rowblock_bias")),
     "rowblock_key_padding_d64": ("rowblock", (2, 30, 2, 64), 300, "bf16", "padding",
@@ -1175,7 +1282,8 @@ HOPPER_ROUTES = {
     # (scripts/bench_attention_kernels.py `pixart1024`)
     "rowblock_d72": ("rowblock", (8, 4096, 16, 72), 4096, "bf16", None,
                      ("sm90", "attention_rowblock")),
-    "rowblock_d36": ("rowblock", (2, 30, 2, 36), 300, "bf16", None, ("mma", 2)),
+    "rowblock_d36": ("rowblock", (2, 30, 2, 36), 300, "bf16", None,
+                     ("sm90", "attention_rowblock")),
     "rowblock_fp32_d72": ("rowblock", (2, 30, 2, 72), 300, "fp32", None,
                           ("f32", "attention_rowblock")),
     "rowblock_key_padding_d128": ("fused", (1, 4608, 24, 128), 4608, "bf16", "padding",
@@ -1189,19 +1297,18 @@ HOPPER_ROUTES = {
 
 @pytest.mark.parametrize("name", sorted(HOPPER_ROUTES))
 def test_hopper_body_routing(name, monkeypatch):
-    """bf16 calls without a bias at head dim 64, 72 or 128 on the
+    """bf16 calls without a bias at any head dim up to 256 on the
     single-tile exact (K1), transposed clamp (K4), row-block clamp (K5) and
     streaming (K6) routes launch the Hopper body, and so do bf16 calls with
-    a key-padding bias on each of them (K2, and K4, K5 and K6 with a bias,
-    at the same head dims), the bias passed on, and bf16 calls with any
-    other bias (dense, per head, per query row) on the single-tile route and
-    on the XLA route of a dense bias past the tile; fp32 calls at a head dim
-    the fp32 body is built for (16, 32, 64, 72, 128) in strides TMA can map
-    launch the fp32 body on every route, with any bias the route takes (a
-    dense one on the single-tile route); every other call — another head
-    dim, fp32 rows 292 bytes apart — keeps its csrc/attention.cu variant.
-    Tensors on the meta device reach the launch decision without a card;
-    the launchers are replaced by recorders."""
+    a key-padding bias on each of them (K2, and K4, K5 and K6 with a bias),
+    the bias passed on, and bf16 calls with any other bias (dense, per head,
+    per query row) on the single-tile route and on the XLA route of a dense
+    bias past the tile; fp32 calls at any head dim up to 256, in any strides
+    (fp32 rows 292 bytes apart too), launch the fp32 body on every route,
+    with any bias the route takes (a dense one on the single-tile route); no
+    call keeps a csrc/attention.cu variant. Tensors on the meta device reach
+    the launch decision without a card; the launchers are replaced by
+    recorders."""
     wrapper, shape, tk, dtype, bias_kind, want = HOPPER_ROUTES[name]
     calls = []
 
@@ -1309,19 +1416,79 @@ def test_hopper_bodies_share_the_common_header(source):
 def test_f32_tma_operand_arguments():
     """The fp32 body's tensor map of a (B, T, H, D) operand: dims {D, H, T,
     B} and the byte strides of H, T, B (a dimension of one takes the packed
-    stride); a head dim it is not built for, a base off 16 bytes and rows
-    292 bytes apart raise, and `_takes_f32` sends such calls elsewhere."""
+    stride); a head dim past 256, a base off 16 bytes and rows 292 bytes
+    apart raise, and the launch maps a copy of the last two (`tma_copy`)."""
     x = torch.zeros(2, 300, 3, 72)
     assert port_attention.f32_tma_operand(x, "q") == [72, 3, 300, 2, 288, 864, 259200]
     one = torch.zeros(1, 300, 1, 16)
     assert port_attention.f32_tma_operand(one, "k") == [16, 1, 300, 1, 64, 64, 19200]
-    assert port_attention._takes_f32(x, x, x)
-    for bad, match in ((torch.zeros(2, 30, 2, 36), "head dim"),
+    for bad, match in ((torch.zeros(2, 30, 2, 257), "head dims up to 256"),
                        (torch.zeros(2 * 30 * 2 * 72 + 1)[1:].view(2, 30, 2, 72), "16-byte"),
                        (torch.zeros(2, 30, 2, 73)[..., :72], "multiples of 16")):
         with pytest.raises(ValueError, match=match):
             port_attention.f32_tma_operand(bad, "v")
-        assert not port_attention._takes_f32(*((bad,) * 3 if match == "head dim" else (x, x, bad)))
+        if bad.shape[-1] <= 256:
+            copy = port_attention.tma_copy(bad)
+            assert port_attention.f32_tma_operand(copy, "v")[:4] == [72, 2, 30, 2]
+            torch.testing.assert_close(copy, bad, rtol=0, atol=0)
+
+
+# (dtype, q shape) → the TMA arguments of q at the width the call runs at
+# (`sm90_width`, `f32_width`), and that width: the narrow bf16 widths' box
+# is the whole row (32 or 16 columns under the 64- or 32-byte swizzle), past
+# 128 the box is 64 columns by 64 keys; fp32 rows of 36 floats (144 bytes)
+# map as they are, and run at width 40
+TMA_WIDTH_CASES = {
+    "bf16_d32": (torch.bfloat16, (16, 256, 16, 32),
+                 [32, 16, 256, 16, 64, 1024, 256 * 1024, 32, 1, 128, 1], 32),
+    "bf16_d16": (torch.bfloat16, (2, 30, 2, 16), [16, 2, 30, 2, 32, 64, 30 * 64, 16, 1, 128, 1],
+                 16),
+    "bf16_d40": (torch.bfloat16, (2, 30, 2, 40), [40, 2, 30, 2, 80, 160, 30 * 160, 64, 1, 128, 1],
+                 64),
+    "bf16_d160": (torch.bfloat16, (4, 4096, 8, 160),
+                  [160, 8, 4096, 4, 320, 2560, 4096 * 2560, 64, 1, 64, 1], 192),
+    "bf16_d256": (torch.bfloat16, (1, 4608, 12, 256),
+                  [256, 12, 4608, 1, 512, 6144, 4608 * 6144, 64, 1, 64, 1], 256),
+    "fp32_d36": (torch.float32, (16, 256, 16, 36), [36, 16, 256, 16, 144, 2304, 256 * 2304],
+                 40),
+    "fp32_d256": (torch.float32, (1, 512, 1, 256), [256, 1, 512, 1, 1024, 1024, 512 * 1024],
+                  256),
+    "fp32_d80": (torch.float32, (2, 30, 2, 80), [80, 2, 30, 2, 320, 640, 30 * 640], 96),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TMA_WIDTH_CASES))
+def test_tma_operand_arguments_at_the_new_widths(case):
+    dtype, shape, want, width = TMA_WIDTH_CASES[case]
+    x = torch.empty(shape, dtype=dtype, device="meta")
+    if dtype == torch.bfloat16:
+        assert port_attention.sm90_width(shape[-1]) == width
+        assert port_attention.tma_operand(x, "q") == want
+    else:
+        assert port_attention.f32_width(shape[-1]) == width
+        assert port_attention.f32_tma_operand(x, "q") == want
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((2, 30, 2, 36), [36, 2, 30, 2, 80, 160, 30 * 160, 64, 1, 128, 1]),
+    # one head and one batch entry: their strides, never stepped along, are
+    # the padded row's 80 bytes and 16 rows of it, not the packed 72
+    ((1, 16, 1, 36), [36, 1, 16, 1, 80, 80, 16 * 80, 64, 1, 128, 1]),
+])
+def test_tma_copy_maps_bf16_rows_of_72_bytes(shape, want):
+    """bf16 at D=36 (72-byte rows: TMA cannot step them) goes to the
+    Hopper body as a packed copy whose rows are 80 bytes apart, the map's
+    inner dim staying 36; an operand TMA can map is passed as it is."""
+    x = torch.randn(shape).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        port_attention.tma_operand(x, "q")
+    copy = port_attention.tma_copy(x)
+    b, t, h, _ = shape
+    assert copy.stride() == (t * h * 40, h * 40, 40, 1)
+    assert port_attention.tma_operand(copy, "q") == want
+    torch.testing.assert_close(copy, x, rtol=0, atol=0)
+    y = torch.zeros(2, 30, 2, 40, dtype=torch.bfloat16)
+    assert port_attention.tma_copy(y) is y
 
 
 def test_tma_operand_arguments():
@@ -1369,9 +1536,9 @@ def test_tma_operand_arguments_at_d64():
                                                          768 * 24 * 128]
 
 
-@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("d", [257, 320])
 def test_tma_operand_refuses_other_head_dims(d):
-    with pytest.raises(ValueError, match="head dim 64, 72 or 128"):
+    with pytest.raises(ValueError, match="head dims up to 256"):
         port_attention.tma_operand(torch.zeros(1, 8, 1, d, dtype=torch.bfloat16), "q")
 
 
@@ -1536,11 +1703,13 @@ def test_dense_bias_operand_refusals(dtype, monkeypatch):
 @pytest.mark.parametrize("fault", ["base_off_16_bytes", "row_stride_264_bytes",
                                    "head_dim_not_contiguous"])
 def test_hopper_body_refuses_what_tma_cannot_map(fault, d, monkeypatch):
-    """A bf16 call for the Hopper body whose base or strides TMA cannot
-    take raises — through the single-tile, transposed and streaming
-    wrappers, and at D=128 the row-block one — with or without a
-    key-padding bias; it is not sent to the csrc/attention.cu body
-    instead."""
+    """A bf16 operand whose base or strides TMA cannot take has no tensor
+    map (`tma_operand` raises); a call with one goes to the Hopper body all
+    the same — through the single-tile, transposed, streaming and row-block
+    wrappers, with or without a key-padding bias — as a packed copy that
+    maps (`tma_copy`, equal to the operand), and is not sent to the
+    csrc/attention.cu body. Meta tensors reach the launcher's last check
+    (the device) with every argument made."""
     if fault == "base_off_16_bytes":
         bad = torch.zeros(2 * 64 * 2 * d + 1, dtype=torch.bfloat16)[1:].view(2, 64, 2, d)
     elif fault == "row_stride_264_bytes":  # 132 elements per head row
@@ -1549,6 +1718,9 @@ def test_hopper_body_refuses_what_tma_cannot_map(fault, d, monkeypatch):
         bad = torch.zeros(2, 64, d, 2, dtype=torch.bfloat16).transpose(2, 3)
     with pytest.raises(ValueError, match="TMA|contiguous"):
         port_attention.tma_operand(bad, "q")
+    copy = port_attention.tma_copy(bad)
+    assert port_attention.tma_operand(copy, "q")[:4] == [d, 2, 64, 2]
+    torch.testing.assert_close(copy, bad, rtol=0, atol=0)
     monkeypatch.setattr(port_attention, "_launch",
                         lambda *a, **kw: pytest.fail("fell back to attention.cu"))
     good = torch.empty(2, 64, 2, d, dtype=torch.bfloat16, device="meta")
@@ -1557,16 +1729,62 @@ def test_hopper_body_refuses_what_tma_cannot_map(fault, d, monkeypatch):
     if fault == "base_off_16_bytes":  # a meta view keeps the 2-byte offset
         meta_bad = torch.empty(bad.numel() + 1, dtype=torch.bfloat16,
                                device="meta")[1:].view(bad.shape)
-    wrappers = [fused_attention, transposed_attention, flash_attention]
-    if d == 128:
-        wrappers.append(rowblock_attention)
-    for fn in wrappers:
-        with pytest.raises(ValueError, match="TMA|contiguous"):
-            fn(good, meta_bad, good)
+    wrappers = [fused_attention, transposed_attention, flash_attention, rowblock_attention]
     bias = torch.empty(2, 1, 1, 64, dtype=torch.bfloat16, device="meta")
     for fn in wrappers:
-        with pytest.raises(ValueError, match="TMA|contiguous"):
-            fn(good, meta_bad, good, bias)
+        for b in (None, bias):
+            with pytest.raises(ValueError, match="unsupported device meta"):
+                fn(good, meta_bad, good, b)
+
+
+# layouts of a (B, T, H, D) operand: packed, rows cut from wider ones (not a
+# multiple of 16 bytes apart), a base off 16 bytes, the last two dims swapped
+NO_ATTENTION_CU_LAYOUTS = ("packed", "rows_cut", "base_off_16_bytes", "d_not_contiguous")
+
+
+def _meta_operand(shape, dtype, layout):
+    b, t, h, d = shape
+    if layout == "packed":
+        return torch.empty(shape, dtype=dtype, device="meta")
+    if layout == "rows_cut":
+        return torch.empty((b, t, h, d + 3), dtype=dtype, device="meta")[..., 1:d + 1]
+    if layout == "base_off_16_bytes":
+        return torch.empty(b * t * h * d + 1, dtype=dtype, device="meta")[1:].view(shape)
+    return torch.empty((b, t, d, h), dtype=dtype, device="meta").transpose(2, 3)
+
+
+@pytest.mark.parametrize("bh", [(2, 2), (1, 1)])
+@pytest.mark.parametrize("layout", NO_ATTENTION_CU_LAYOUTS)
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("d", [1, 8, 15, 16, 17, 32, 36, 40, 63, 64, 65, 72, 80, 100, 127,
+                               128, 129, 160, 192, 200, 255, 256])
+def test_no_wrapper_reaches_attention_cu(d, dtype, layout, bh, monkeypatch):
+    """Every CUDA call at a head dim up to 256, in bf16 or fp32, in any
+    layout (with one batch entry and one head too), with each bias its
+    wrapper accepts (none, a key-padding one, a dense one on the single-tile
+    route), reaches the Hopper bodies' launchers (`_launch_sm90`,
+    `_launch_f32`) with tensor maps made — meta tensors stop at their
+    device check — and never csrc/attention.cu's `_launch`; at 257 the
+    launcher raises, naming the limit."""
+    monkeypatch.setattr(port_attention, "_launch",
+                        lambda *a, **kw: pytest.fail("reached attention.cu"))
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    b, h = bh
+    q = _meta_operand((b, 30, h, d), tdt, layout)
+    k = _meta_operand((b, 300, h, d), tdt, layout)
+    v = torch.empty((b, 300, h, d), dtype=tdt, device="meta")
+    padding = torch.empty(b, 1, 1, 300, dtype=tdt, device="meta")
+    dense = torch.empty(b, h, 30, 300, dtype=tdt, device="meta")
+    calls = [(fn, bias) for fn in (transposed_attention, rowblock_attention, flash_attention)
+             for bias in (None, padding)]
+    calls += [(fn, bias) for fn in (fused_attention, port_attention.single_tile_attention)
+              for bias in (None, padding, dense)]
+    for fn, bias in calls:
+        with pytest.raises(ValueError, match="unsupported device meta"):
+            fn(q, k, v, bias)
+    wide = torch.empty((b, 30, h, 257), dtype=tdt, device="meta")
+    with pytest.raises(ValueError, match="built up to head dim 256"):
+        fused_attention(wide, wide, wide)
 
 
 # ---------------------------------------------------------------------------
@@ -2020,6 +2238,30 @@ def test_f32_probe_variants_edit_the_current_source(variant):
     assert probe_attention_body.variant_source(src, edits) != src
     with pytest.raises(ValueError, match="does not match"):
         probe_attention_body.variant_source(src.replace(edits[0][0], ""), edits)
+
+
+@pytest.mark.parametrize("new,want", [
+    # UR4 and UR5 swapped: the same instructions, another allocation
+    (["USHF.R.U32.HI UR8, URZ, 0x1, UR4", "UIADD3 UR5, UR5, UR7, URZ",
+      "UIADD3 UR4, UR4, 0x1, URZ"], 3),
+    (["USHF.R.U32.HI UR8, URZ, 0x1, UR5", "UIADD3 UR4, UR4, UR7, URZ",
+      "UIADD3 UR4, UR4, 0x1, URZ"], 1),
+    # another constant, another opcode, one instruction fewer
+    (["USHF.R.U32.HI UR8, URZ, 0x1, UR5", "UIADD3 UR4, UR4, UR7, URZ",
+      "UIADD3 UR5, UR5, 0x2, URZ"], None),
+    (["USHF.R.U32.HI UR8, URZ, 0x1, UR5", "UIMAD UR4, UR4, UR7, URZ",
+      "UIADD3 UR5, UR5, 0x1, URZ"], None),
+    (["USHF.R.U32.HI UR8, URZ, 0x1, UR5", "UIADD3 UR4, UR4, UR7, URZ"], None),
+])
+def test_compare_sass_tells_another_register_allocation_from_other_code(new, want):
+    """scripts/compare_sass.py counts the instructions that name other
+    registers where two builds are otherwise the same instructions in the
+    same order, and tells any other difference apart."""
+    from ecad_tpu_torch.scripts.compare_sass import registers_only
+
+    old = ["USHF.R.U32.HI UR8, URZ, 0x1, UR5", "UIADD3 UR4, UR4, UR7, URZ",
+           "UIADD3 UR5, UR5, 0x1, URZ"]
+    assert registers_only(old, new) == want
 
 
 def test_probe_script_needs_a_card():
