@@ -59,13 +59,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    bytes apart) runs on the Hopper body through packed copies, held to its
    plain version and named by a profile (`on_hopper_body`, in bf16 and
    fp32); a call whose bias the body does not read (fp16; K5 at d=64, 72
-   and 128) raises. fp32 calls at every head dim up to 256 run on the fp32
-   body (``csrc/attention_f32_sm90.cu``: 3×TF32 on wgmma) on every route,
+   and 128) raises. fp32 calls at every head dim run on the fp32
+   body (``csrc/attention_f32_sm90.cu``: 3×TF32 on wgmma; at width 256 a
+   cluster of two blocks) on every route,
    with any bias the route takes (a dense one on the single-tile route).
    Every route at head dims between and past the old widths (`WIDTH_DIMS`:
-   bf16 16 to 256, fp32 8 to 256) is held to its plain version at the
-   reference's acceptance shapes, and a profile names each route's kernel
-   at the width the head dim runs at (`width_cases`). bf16 calls at d=64, 72 and 128 with any other
+   bf16 16 to 512, fp32 8 to 512; past 256 the bodies' streamed forms) is
+   held to its plain version at the reference's acceptance shapes with its
+   launch counted, and a profile names each route's kernel at the width
+   the head dim runs at (`width_cases`). bf16 calls at d=64, 72 and 128 with any other
    bias (dense, per head, per query row, strided) on the single-tile route
    and on the XLA route past it run on the Hopper body's
    ``attn_exact_dense_sm90_kernel`` (`dense_bias_cases`): at tq=30, tk=300
@@ -380,6 +382,7 @@ nvcc/ptxas log) goes to ``--report`` (default
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -1984,9 +1987,27 @@ def f32_kernel_rows(rnd, nbytes) -> list[dict]:
 
 # Head dims on the Hopper bodies at every new width, most between two
 # widths: bf16 16, 32, 36 (width 64, through a copy), 100 (128), 160 (192),
-# 200 and 256 (256); fp32 8 (16), 36 (40), 80 (96), 160 (192) and 256
-WIDTH_DIMS = {torch.bfloat16: (16, 32, 36, 100, 160, 200, 256),
-              torch.float32: (8, 36, 80, 160, 256)}
+# 200 and 256 (256); fp32 8 (16), 36 (40), 80 (96), 160 (192) and 256; and
+# past 256 the streamed forms at 320 (o in two slices, the last part full)
+# and 512 (two or four full slices)
+WIDTH_DIMS = {torch.bfloat16: (16, 32, 36, 100, 160, 200, 256, 320, 512),
+              torch.float32: (8, 36, 80, 160, 256, 320, 512)}
+
+
+def hopper_kernel(route: str, dtype, d: int, bias: str = "false") -> str:
+    """The Hopper kernel a call of `route` ("exact", "clamp", "rowblock",
+    "flash") at head dim `d` in `dtype` launches, as a profile names it:
+    ``attn_clamp_sm90_kernel<192, false>`` at a built width (`sm90_width`,
+    `f32_width`), ``attn_clamp_wide_sm90_kernel<256, false>`` past 256
+    (the streamed form, its slice of o's columns in the name; fp32
+    ``attn_clamp_f32_wide_sm90_kernel<128, false>``)."""
+    from ecad_tpu_torch.ops import attention as A
+
+    f32 = "_f32" if dtype == torch.float32 else ""
+    if d > A.MAX_HEAD_DIM:
+        return f"attn_{route}{f32}_wide_sm90_kernel<{A.WIDE_SLICE[dtype]}, {bias}>"
+    w = A.f32_width(d) if f32 else A.sm90_width(d)
+    return f"attn_{route}{f32}_sm90_kernel<{w}, {bias}>"
 
 
 def width_cases() -> None:
@@ -2022,16 +2043,29 @@ def width_cases() -> None:
                              rnd(1, 256, 1, d, dtype=dtype), rnd(1, 256, 1, d, dtype=dtype))
             q_hot = rnd(1, 128, 1, d, dtype=dtype, scale=1e4)
             for counter, fn, plain in routes:
-                compare(f"{counter}/{tag}/width_tq30_tk300_d{d}", fn(q, k, v),
-                        plain(q, k, v), tol)
-                compare(f"{counter}_bias/{tag}/width_key_padding_100_200_256_d{d}",
-                        fn(q, k, v, padding), plain(q, k, v, padding), tol)
+                for bias, name in ((None, f"{counter}/{tag}/width_tq30_tk300_d{d}"),
+                                   (padding, f"{counter}_bias/{tag}/width_key_padding_"
+                                             f"100_200_256_d{d}")):
+                    # one launch of the route's counter: its Hopper kernel
+                    out = []
+                    counts = counted(lambda: out.append(fn(q, k, v, bias)))
+                    want_counter = counter if bias is None else counter + "_bias"
+                    if counts != {**dict.fromkeys(COUNTERS, 0), want_counter: 1}:
+                        raise AssertionError(f"{name}: launches {counts}, not one {want_counter}")
+                    compare(name, out.pop(), plain(q, k, v, bias), tol)
                 # the streaming route rounds p to bf16 against its tile's
                 # running max, the plain version against the row's: K6's
-                # bf16 rule there, as in every other K6 check
+                # bf16 rule there, as in every other K6 check; past 256 every
+                # route's streamed form too: its scores, summed over 512
+                # columns in another order, flip the bf16 rounding of a
+                # dominant p often enough to put an output 2 ulps off (the
+                # exact route, whose p the plain version keeps in fp32: 1 of
+                # 8192 elements; the clamp routes with other inputs: 5 of
+                # 8192; NVIDIA H100 80GB HBM3)
                 compare(f"{counter}/{tag}/width_logits_near_40_d{d}", fn(q40, k40, v40),
                         plain(q40, k40, v40),
-                        flash_bf16_tol if counter == "attention_flash" and tag == "bf16"
+                        flash_bf16_tol if tag == "bf16" and (
+                            counter == "attention_flash" or d > A.MAX_HEAD_DIM)
                         else hot_tol)
                 hot = fn(q_hot, k40, v40)
                 if hot.shape != q_hot.shape or not torch.isfinite(hot.float()).all():
@@ -2040,11 +2074,7 @@ def width_cases() -> None:
             compare(f"attention_bias/{tag}/width_dense_bias_d{d}",
                     A.single_tile_attention(q, k, v, dense),
                     A.fused_attention_reference(q, k, v, dense, A.pad_keys("exact", 300)), tol)
-            if dtype == torch.bfloat16:
-                w, body = A.sm90_width(d), "sm90_kernel"
-            else:
-                w, body = A.f32_width(d), "f32_sm90_kernel"
-            want = [f"attn_{kernels[c]}_{body}<{w}, false>" for c, _, _ in routes]
+            want = [hopper_kernel(kernels[c], dtype, d) for c, _, _ in routes]
 
             def each_route():
                 for _, fn, _ in routes:
@@ -2061,10 +2091,11 @@ def width_cases() -> None:
 # The kernel rows of the widths, each reached through the wrapper
 # that reaches it: row → (q's shape, keys, dtype, wrapper, route,
 # csrc/attention.cu's variant (None past 128, which it does not take), the
-# Hopper kernel a profile must name, the TPU kernel). bf16 at D=32 and fp32
-# at D=36 at PixArt-256's self-attention shape (the two routes that lost to
-# SDPA on attention.cu), bf16 at D=36 (its operands reach the body as
-# copies), and past 128 one shape a route
+# Hopper kernel a profile must name, the TPU kernel[, the lengths of a
+# key-padding bias, cycled over the batch]). bf16 at D=32 and fp32 at D=36
+# at PixArt-256's self-attention shape (the two routes that lost to SDPA on
+# attention.cu), bf16 at D=36 (its operands reach the body as copies), past
+# 128 one shape a route, and past 256 every route
 WIDTH_ROWS = {
     "attention_d32": ((16, 256, 16, 32), 256, torch.bfloat16, "single", "exact", 0,
                       "attn_exact_sm90_kernel<32, false>", ":58 (_attn_kernel)"),
@@ -2090,6 +2121,34 @@ WIDTH_ROWS = {
     "attention_flash_fp32_d256": ((1, 4608, 12, 256), 4608, torch.float32, "fused", "flash",
                                   None, "attn_flash_f32_sm90_kernel<256, false>",
                                   ":151 (_flash_kernel)"),
+    # fp32 K4 and K5 at width 256 on their wrappers, at the sweep's shape
+    "attention_long_fp32_d256": ((2, 2048, 8, 256), 2048, torch.float32, "transposed", "clamp",
+                                 None, "attn_clamp_f32_sm90_kernel<256, false>",
+                                 ":344 (_transposed_kernel_nobias)"),
+    "attention_rowblock_fp32_d256": ((2, 2048, 8, 256), 2048, torch.float32, "rowblock",
+                                     "rowblock", None, "attn_rowblock_f32_sm90_kernel<256, false>",
+                                     ":274 (_rowblock_kernel_nobias)"),
+    # past 256: each route's streamed form at head dim 512, K2 with the
+    # models' text bias to 120 keys
+    **{f"{counter}{'_fp32' if dtype == torch.float32 else ''}_d512": (
+        shape, tk, dtype, wrapper, route, None,
+        f"attn_{kernel}{'_f32' if dtype == torch.float32 else ''}_wide_sm90_kernel"
+        f"<{256 if dtype == torch.bfloat16 else 128}, {'true' if lengths else 'false'}>",
+        replaces, lengths)
+       for dtype, clamp_shape, flash_shape in (
+           (torch.bfloat16, (4, 4096, 8, 512), (1, 4608, 8, 512)),
+           (torch.float32, (2, 2048, 8, 512), (1, 4608, 8, 512)))
+       for counter, shape, tk, wrapper, route, kernel, replaces, lengths in (
+           ("attention", (16, 256, 8, 512), 256, "single", "exact", "exact",
+            ":58 (_attn_kernel)", None),
+           ("attention_bias", (16, 256, 8, 512), 120, "single", "exact", "exact",
+            ":75 (_attn_kernel_bias)", (7, 60, 120)),
+           ("attention_long", clamp_shape, clamp_shape[1], "transposed", "clamp", "clamp",
+            ":344 (_transposed_kernel_nobias)", None),
+           ("attention_rowblock", clamp_shape, clamp_shape[1], "rowblock", "rowblock",
+            "rowblock", ":274 (_rowblock_kernel_nobias)", None),
+           ("attention_flash", flash_shape, flash_shape[1], "flash", "flash", "flash",
+            ":151 (_flash_kernel)", None))},
 }
 WIDTH_TURNS = ("old", "new", "sdpa", "sdpa", "new", "old")
 
@@ -2113,13 +2172,18 @@ def width_kernel_rows(rnd, bound, nbytes) -> list[dict]:
 
     plains = {"exact": A.fused_attention_reference, "clamp": A.transposed_attention_reference,
               "rowblock": A.rowblock_attention_reference, "flash": A.flash_attention_reference}
-    wrappers = {"single": A.single_tile_attention, "fused": A.fused_attention}
+    wrappers = {"single": A.single_tile_attention, "fused": A.fused_attention,
+                "transposed": A.transposed_attention, "rowblock": A.rowblock_attention,
+                "flash": A.flash_attention}
     rows = []
-    for name, (shape, tk, dtype, wrapper, route, variant, kernel, replaces) in WIDTH_ROWS.items():
+    for name, (shape, tk, dtype, wrapper, route, variant, kernel, replaces,
+               *lengths) in WIDTH_ROWS.items():
         b, tq, h, d = shape
         q, k, v = (rnd(*s, dtype=dtype) for s in (shape, (b, tk, h, d), (b, tk, h, d)))
-        fn = wrappers[wrapper]
-        counter = ROUTE_COUNTERS[route]
+        bias = None if not lengths or lengths[0] is None else key_padding_bias(
+            [lengths[0][i % len(lengths[0])] for i in range(b)], tk, -10000.0, dtype)
+        fn = functools.partial(wrappers[wrapper], bias=bias)
+        counter = ROUTE_COUNTERS[route] + ("" if bias is None else "_bias")
         out = []
         counts = counted(lambda: out.append(fn(q, k, v)))
         got = out.pop()
@@ -2133,9 +2197,11 @@ def width_kernel_rows(rnd, bound, nbytes) -> list[dict]:
         if not ran_hopper_kernel(names, kernel):
             raise AssertionError(f"{name} ran {names}, not {kernel} alone")
         big = tk >= 4096
-        plain = ((lambda *a, p=plains[route]: by_slices(p, *a)) if big else plains[route])
+        plain = ((lambda *a, p=plains[route]: by_slices(p, *a, bias)) if big
+                 else functools.partial(plains[route], bias=bias))
         if route == "exact":
-            plain = lambda *a: A.fused_attention_reference(*a, n_pad=A.pad_keys("exact", tk))  # noqa: E731
+            plain = functools.partial(A.fused_attention_reference, bias=bias,  # noqa: E731
+                                      n_pad=A.pad_keys("exact", tk))
         tol = FP32_TOL if fp32 else {"exact": BF16_TOL, "clamp": clamp_bf16_tol,
                                      "rowblock": clamp_bf16_tol, "flash": flash_bf16_tol}[route]
         err = compare(f"{counter}/{'fp32' if fp32 else 'bf16'}/{name}_"
@@ -2145,9 +2211,9 @@ def width_kernel_rows(rnd, bound, nbytes) -> list[dict]:
         n_pad = A.pad_keys(route, tk)
         fns = {"new": lambda: fn(q, k, v),
                "old": lambda: A._launch(q, k, v, None, variant, n_pad),
-               "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt)}
+               "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)}
         turns = WIDTH_TURNS if variant is not None else WIDTH_TURNS[1:-1]
-        heavy = fp32 and big
+        heavy = fp32 and (big or tq * tk >= 2048 * 2048)
         reps, inner = (3, 2) if heavy else (5, 5) if big else (7, 20)
         times = {w: [] for w in turns}
         for i, which in enumerate(turns):
@@ -2157,13 +2223,14 @@ def width_kernel_rows(rnd, bound, nbytes) -> list[dict]:
         REPORT.setdefault("width_row_turns", {})[name] = times
         flops = 4 * b * h * tq * tk * d
         extra = {}
+        moved = nbytes(q, k, v, q, *(() if bias is None else (bias,)))
         if fp32:
-            tb = nbytes(q, k, v, q) / HBM_BYTES_PER_S
+            tb = moved / HBM_BYTES_PER_S
             tf = 3 * flops / TF32_FLOPS
             b_ms, by = max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
             extra["fma_bound_ms"] = flops / FP32_FLOPS * 1e3
         else:
-            b_ms, by = bound(nbytes(q, k, v, q), flops)
+            b_ms, by = bound(moved, flops)
         if variant is not None:
             extra["old_body_ms"] = statistics.median(times["old"])
         if A._tma_strides(q)[1]:
@@ -2178,12 +2245,12 @@ def width_kernel_rows(rnd, bound, nbytes) -> list[dict]:
             replaces=f"ecad_tpu/ops/attention.py{replaces}", max_abs_err=err,
             ms=statistics.median(times["new"]),
             plain_ms=timed_ms(f"{name}/plain", lambda: plain(q, k, v),
-                              reps=1 if big else 3, inner=1 if big else 5),
+                              reps=1 if big or heavy else 3, inner=1 if big or heavy else 5),
             bound_ms=b_ms, bound_by=by, library_ms=statistics.median(times["sdpa"]),
             **extra))
         log(f"  {name}: {rows[-1]['ms']:.4f} ms, SDPA {rows[-1]['library_ms']:.4f} ms"
             + (f", attention.cu {extra['old_body_ms']:.4f} ms" if variant is not None else ""))
-        del q, k, v, qt, kt, vt
+        del q, k, v, qt, kt, vt, bias
     return rows
 
 
@@ -2191,8 +2258,8 @@ def width_kernel_rows(rnd, bound, nbytes) -> list[dict]:
 # `SWEEP_DIMS` (the built widths and some between them) beside one SDPA
 # call, at a shape per route and dtype: dtype → route → (q's shape but D,
 # keys, wrapper)
-SWEEP_DIMS = {torch.bfloat16: (16, 32, 36, 64, 72, 100, 128, 160, 192, 256),
-              torch.float32: (16, 32, 36, 40, 72, 80, 96, 128, 160, 192, 256)}
+SWEEP_DIMS = {torch.bfloat16: (16, 32, 36, 64, 72, 100, 128, 160, 192, 256, 320, 512),
+              torch.float32: (16, 32, 36, 40, 72, 80, 96, 128, 160, 192, 256, 320, 512)}
 SWEEP_SHAPES = {
     torch.bfloat16: {"exact": ((16, 256, 8), 256), "clamp": ((4, 4096, 8), 4096),
                      "rowblock": ((4, 4096, 8), 4096), "flash": ((1, 9728, 8), 9728)},

@@ -6,10 +6,11 @@
 // template argument) at or above it — 16, 32, 40, 64, 72, 96, 128, 192 or
 // 256 (ops/attention.py's `f32_width`; TF32's k-step is 8, so every width is
 // a multiple of 8, and the maps' inner dim d leaves columns d..D−1 to TMA's
-// zero fill) — in 16-byte-aligned strides (the wrapper hands other layouts
-// over as packed copies, `tma_copy`), in two softmax modes under four kernel names, one
-// per route (and a BIAS flag in the name, so that a profile files the forms
-// apart):
+// zero fill), and any d past 256 on a streamed form of the same routes (see
+// "past D=256" below) — in 16-byte-aligned strides (the wrapper hands other
+// layouts over as packed copies, `tma_copy`), in two softmax modes under
+// four kernel names, one per route (and a BIAS flag in the name, so that a
+// profile files the forms apart):
 //
 //   * exact: `attn_exact_f32_sm90_kernel<D, BIAS>` (K1; K2 with a bias)
 //     replaces the single-tile kernels `_attn_kernel` (ecad_tpu/ops/
@@ -122,18 +123,44 @@
 //
 // Widths. 40 (d=33-40; PixArt-256's shape at d=36 runs there, with
 // 144-byte rows TMA maps) and 96 (d=73-96, one consumer and 32-key stages,
-// as 128) take the D ≤ 128 form. Past 128, q's big and small parts for 64
-// rows take 96 or 128 KB, so a stage is 16 keys (k big and small, vᵀ big
-// and small: 48 or 64 KB), two stages at 192 and one at 256 (192 KB in
-// all; at 256 the tile's loads and splits no longer overlap the products),
-// one consumer; o's 96 or 128 accumulators and a second set for the tile's
-// p·v would not fit beside the rest, so p·v runs in 64-column chunks of vᵀ,
-// each into 32 accumulators of its own from zero and added to o in IEEE
-// fp32 before the next. The o store writes all D columns: below the width
-// the wrapper hands over a wider o and keeps its first d.
+// as 128) take the D ≤ 128 form. At 192, q's big and small parts for 64
+// rows take 96 KB, so a stage is 16 keys (k big and small, vᵀ big and
+// small: 48 KB), two stages, one consumer; o's 96 accumulators and a second
+// set for the tile's p·v would not fit beside the rest, so p·v runs in
+// 64-column chunks of vᵀ, each into 32 accumulators of its own from zero and
+// added to o in IEEE fp32 before the next. The o store writes all D
+// columns: below the width the wrapper hands over a wider o and keeps its
+// first d.
+//
+// Width 256: a cluster of two blocks (`kSplit`). In one block, as the
+// 192 form, q's parts took 128 KB, leaving one 16-key stage (the tile's
+// loads and splits no longer overlapped the products), S came from wgmma at
+// N = 16, and o's 128 accumulators beside a chunk's p·v spilled 448-676
+// bytes under the 168 registers of a 384-thread block: 9.66 ms for K6 at
+// (1, 4608, 12, 256) against SDPA fp32's 6.34 (NVIDIA H100 80GB HBM3, 700 W,
+// scripts/probe_attention_body.py's `no_cluster`). So each block of the
+// pair takes 128 of the item's columns of q, k, v and o — the width-128
+// form: 64 KB of q, two stages of 32 keys, S at N = 32, 64 accumulators of
+// o, no spill — and the two partial scores of a tile are summed through
+// distributed shared memory: each consumer thread stores its 16 partial
+// scores into the peer block's buffer (`st.shared::cluster`, two buffers by
+// the tile's parity) and arrives on the peer's barrier with release at
+// cluster scope; it waits for the peer's on its own, adds the two in rank
+// order (the same fp32 sum in both blocks, so both take the same softmax
+// and the same p), and tells the peer its buffer is free. Each block then
+// runs the tile's p·v on its 128 columns of v and stores its columns of o.
+// K6 there took 6.23 ms against SDPA fp32's 6.43, K5 at (2, 2048, 8, 256)
+// 1.55 against 1.64 (the probe's rows `f32_k6_d256`, `f32_k5_d256`). Builds
+// that issued the next tile's scores before awaiting the peer's (so that
+// the round trip ran under them), which needs a third stage and so 24-key
+// tiles, took 7.4 ms, with one producer-side warpgroup 7.1. The blocks
+// wait for each other before their first exchange and before they exit
+// (`barrier.cluster`); the launch sizes the grid to the clusters that can
+// be resident at once (`cudaOccupancyMaxActiveClusters`; a cluster for
+// every pair of SMs timed the same), and each cluster walks the items.
 //
 // No CUTLASS or CuTe: inline PTX, as in attention_sm90.cu, keeps the build
-// to seconds. Every fp32 call up to d=256 runs here, in any layout.
+// to seconds. Every fp32 call runs here, in any layout.
 
 #include <cuda.h>  // CUtensorMap and the types cuTensorMapEncodeTiled takes
 #include <cuda_runtime.h>
@@ -161,7 +188,10 @@ enum Mode : int { kExact = 0, kClamp = 1 };
 // stages, and the bytes of each part. q: 64 rows a consumer, big and small;
 // a stage: k's big and small parts ([keys][D] in D/8 column groups) and
 // vᵀ's ([D][keys] in keys/8 key groups). Every part is a multiple of 1 KB.
-template <int D>
+// SPLIT: the blocks of a cluster that share a work item, each with D of
+// its columns (see the note on width 256): their partial scores' exchange
+// buffers (two of a consumer's scores of a tile) and its four barriers.
+template <int D, int SPLIT = 1>
 struct Cfg {
   static_assert(D % 8 == 0 && D >= 16 && D <= 256, "widths: multiples of 8 up to 256");
   static constexpr int kNC = D > 72 ? 1 : 2;
@@ -171,8 +201,9 @@ struct Cfg {
   static constexpr int kQ = kRowsQ * D * 4;  // one part of q
   static constexpr int kKV = kBN * D * 4;    // one part of k or of vᵀ
   static constexpr int kStage = 4 * kKV;
-  static constexpr int kBarriers = 3 + 3 * kStages;
-  static constexpr int kBytes = 2 * kQ + kStages * kStage + kBarriers * 8 + 1024;
+  static constexpr int kXchg = SPLIT > 1 ? 2 * 128 * kNC * (kBN / 2) * 4 : 0;
+  static constexpr int kBarriers = 3 + 3 * kStages + (SPLIT > 1 ? 4 : 0);
+  static constexpr int kBytes = 2 * kQ + kStages * kStage + kXchg + kBarriers * 8 + 1024;
   static constexpr int kThreads = 128 * (kProducerGroups + kNC);
   // a consumer thread's registers: what the producer side gives away, at
   // most 240
@@ -327,14 +358,178 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// --- the cluster's exchange (width 256) ------------------------------------------
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// `addr` in this block's shared memory → the same offset in block `rank`'s
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void peer_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// `mbar_wait` for a phase that another block's arrivals complete
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A consumer thread's partial scores of a tile (its block's columns of
+// q·kᵀ) into the peer block's buffer `buf` (16-byte piece i of thread t at
+// (128·i + t)·16: a warp's pieces side by side, no bank conflict), an
+// arrival on the peer's `full` barrier of that buffer; then the peer's from
+// this block's own once its `full` barrier says they are there, summed with
+// this block's in rank order — the same fp32 sum in both blocks, so both
+// take the same softmax — and an arrival on the peer's `empty` barrier.
+// This block's `empty` barrier says the peer has read the buffer's last
+// round.
+template <int N>
+__device__ __forceinline__ void exchange_scores(float (&sc)[N], uint32_t buf, uint32_t full,
+                                                uint32_t empty, uint32_t parity, int t,
+                                                uint32_t rank) {
+  const uint32_t peer = rank ^ 1u;
+  mbar_wait_cluster(empty, parity ^ 1);  // the first round finds it free
+  const uint32_t dst = peer_addr(buf + t * 16, peer);
+#pragma unroll
+  for (int i = 0; i < N; i += 4)
+    asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst + 128 * 4 * i),
+                 "f"(sc[i]), "f"(sc[i + 1]), "f"(sc[i + 2]), "f"(sc[i + 3])
+                 : "memory");
+  peer_arrive(peer_addr(full, peer));
+  mbar_wait_cluster(full, parity);
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    float x[4];
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(x[0]), "=f"(x[1]), "=f"(x[2]), "=f"(x[3])
+                 : "r"(buf + t * 16 + 128 * 4 * i)
+                 : "memory");
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sc[i + e] = rank == 0 ? __fadd_rn(sc[i + e], x[e]) : __fadd_rn(x[e], sc[i + e]);
+  }
+  peer_arrive(peer_addr(empty, peer));
+}
+
+// One key tile's softmax on the accumulator layout (sc[4jb + e] is row
+// rows[e / 2], column k0 + 8jb + col_t + e % 2): the clamp's exp2(clip(s + bias·log2e, −100, 80)) or the
+// exact mode's online max (alpha: the rescale of the earlier tiles), then
+// p's big and small tf32 A fragments, k-step kk's logical column t key
+// 8kk + 2t and column t + 4 key 8kk + 2t + 1 (vᵀ's order).
+template <int MODE, bool BIAS, int NS>
+__device__ __forceinline__ void f32_softmax_tile(float (&sc)[NS], float (&m)[2], float (&l)[2],
+                                                 float (&alpha)[2], uint32_t (&pb)[NS / 4][4],
+                                                 uint32_t (&ps)[NS / 4][4], const Params& p,
+                                                 int b, int h, const int (&rows)[2], int k0,
+                                                 int col_t) {
+  alpha[0] = alpha[1] = 1.f;
+  if constexpr (MODE == kClamp) {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int col = k0 + 8 * (i >> 2) + col_t + (i & 1);
+      float x = sc[i];
+      if constexpr (BIAS)
+        if (col < p.Tk)
+          x = __fadd_rn(x, __fmul_rn(bias_at(p, b, h, rows[(i >> 1) & 1], col), kLog2e));
+      const float pe = col < p.Tk ? ex2(fminf(fmaxf(x, kClampLo), kClampHi)) : 0.f;
+      sc[i] = pe;
+      l[(i >> 1) & 1] += pe;
+    }
+  } else {
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int col = k0 + 8 * (i >> 2) + col_t + (i & 1), r = (i >> 1) & 1;
+      float x = sc[i];
+      if constexpr (BIAS)
+        if (col < p.Tk) x = __fadd_rn(x, bias_at(p, b, h, rows[r], col));
+      if (col >= p.Tk) x = -INFINITY;
+      sc[i] = x;
+      mx[r] = fmaxf(mx[r], x);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = ex2(__fmul_rn(__fsub_rn(m[r], mx[r]), kLog2e));  // exp(−∞) = 0 on the first tile
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int r = (i >> 1) & 1;
+      const float pe = ex2(__fmul_rn(__fsub_rn(sc[i], m[r]), kLog2e));
+      sc[i] = pe;
+      l[r] += pe;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < NS / 4; ++kk) {
+    const float f[4] = {sc[4 * kk], sc[4 * kk + 2], sc[4 * kk + 1], sc[4 * kk + 3]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      pb[kk][e] = tf32(f[e]);
+      ps[kk][e] = tf32(__fsub_rn(f[e], __uint_as_float(pb[kk][e])));
+    }
+  }
+}
+
+// The epilogue of a consumer's rows: the row sums over the quad, the
+// reference's pad keys, one divide, fp32 stores of two columns at a time of
+// o's columns col0 .. col0 + 2·NO − 1 (with END, those below `end` only:
+// o's rows are padded to its width, so a pair at a column below `end` fits).
+template <int MODE, bool END, int NO>
+__device__ __forceinline__ void f32_store_o(const float (&o)[NO], float (&l)[2],
+                                            const float (&m)[2], const Params& p, int b, int h,
+                                            const int (&rows)[2], int col0, int end, int col_t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    float f = 1.f;
+    if constexpr (MODE == kClamp) {
+      l[r] += (float)p.n_pad * kTwoPowMinus100;
+    } else if (p.n_pad > 0) {
+      // n_pad keys of score −1e9: f = 1 and the added term 0 unless every
+      // score of the row is near −1e9 or below it
+      const float mp = fmaxf(m[r], kPadScore);
+      f = ex2(__fmul_rn(__fsub_rn(m[r], mp), kLog2e));
+      l[r] = l[r] * f + (float)p.n_pad * ex2(__fmul_rn(kPadScore - mp, kLog2e));
+    }
+    if (rows[r] >= p.Tq) continue;
+    const float inv = f / l[r];
+    float* const out =
+        p.o + b * p.o_sb + (long long)rows[r] * p.o_st + h * p.o_sh + col0 + col_t;
+#pragma unroll
+    for (int jb = 0; jb < NO / 4; ++jb)
+      if (!END || col0 + 8 * jb + col_t < end)
+        *reinterpret_cast<float2*>(out + 8 * jb) =
+            make_float2(o[4 * jb + 2 * r] * inv, o[4 * jb + 2 * r + 1] * inv);
+  }
+}
+
 // The helpers' split of a tile in place, elementwise (the swizzle does not
 // matter): x·scale rounded to fp32 (q) or x (k, scale 1), big over x, small
 // at the same offset in `small`.
+template <int HT = kHelperThreads>
 __device__ __forceinline__ void split_tile(unsigned char* big, unsigned char* small, int bytes,
                                            float scale, int ht) {
   float4* const b4 = reinterpret_cast<float4*>(big);
   float4* const s4 = reinterpret_cast<float4*>(small);
-  for (int i = ht; i < bytes / 16; i += kHelperThreads) {
+  for (int i = ht; i < bytes / 16; i += HT) {
     const float4 x = b4[i];
     float4 hi, lo;
     split(__fmul_rn(x.x, scale), hi.x, lo.x);
@@ -353,11 +548,11 @@ __device__ __forceinline__ void split_tile(unsigned char* big, unsigned char* sm
 // (chunk 0), 1, 3, 5, 7 (chunk 1). A helper thread takes one chunk: four
 // keys of one column, so the reads of a warp take 32 neighbouring columns
 // of a row.
-template <int D, int BN>
+template <int D, int BN, int HT = kHelperThreads>
 __device__ __forceinline__ void write_vt(unsigned char* big, unsigned char* small,
                                          const unsigned char* raw, int ht) {
   const float* const v = reinterpret_cast<const float*>(raw);
-  for (int i = ht; i < BN / 8 * 2 * D; i += kHelperThreads) {
+  for (int i = ht; i < BN / 8 * 2 * D; i += HT) {
     const int grp = i / (2 * D), half = i / D % 2, d = i % D;
     float x[4];
 #pragma unroll
@@ -375,11 +570,14 @@ __device__ __forceinline__ void write_vt(unsigned char* big, unsigned char* smal
 
 // The shared body of the four kernels, one work item (batch·head, query
 // tile of 64·kNC rows) after another, from blockIdx.x in steps of
-// gridDim.x; maps: q's and k's (8-column boxes under the 32-byte swizzle)
-// and v's (whole rows, no swizzle).
-template <int D, int MODE, bool BIAS>
+// gridDim.x (from the cluster's index in steps of the clusters' count, with
+// SPLIT blocks a cluster: each takes D columns of the item's q, k, v and o,
+// from column D·rank, and the partial scores are summed through the
+// cluster's shared memory); maps: q's and k's (8-column boxes under the
+// 32-byte swizzle) and v's (whole rows of the block's columns, no swizzle).
+template <int D, int MODE, bool BIAS, int SPLIT = 1>
 __device__ __forceinline__ void attn_f32_body(const CUtensorMap* maps, const Params& p) {
-  using C = Cfg<D>;
+  using C = Cfg<D, SPLIT>;
   constexpr int NC = C::kNC, BN = C::kBN, ST = C::kStages;
   constexpr int kConsumerThreads = 128 * NC;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -392,11 +590,19 @@ __device__ __forceinline__ void attn_f32_body(const CUtensorMap* maps, const Par
   // stage s: k big, k small, vᵀ big, vᵀ small; TMA lands k's raw tile in
   // its big part and v's in its small part
   auto k_big = [&](int s) { return base + 2 * C::kQ + s * C::kStage; };
-  const uint32_t bars = base + 2 * C::kQ + ST * C::kStage;
+  const uint32_t xchg = base + 2 * C::kQ + ST * C::kStage;  // SPLIT: two score buffers
+  const uint32_t bars = xchg + C::kXchg;
   const uint32_t q_full = bars, q_ready = bars + 8, q_empty = bars + 16;
   auto k_full = [&](int s) { return bars + 24 + 8 * s; };
   auto kv_ready = [&](int s) { return bars + 24 + 8 * (ST + s); };
   auto kv_empty = [&](int s) { return bars + 24 + 8 * (2 * ST + s); };
+  // SPLIT: score buffer x's full and empty barriers
+  auto x_full = [&](int x) { return bars + 24 + 8 * (3 * ST + x); };
+  auto x_empty = [&](int x) { return bars + 24 + 8 * (3 * ST + 2 + x); };
+  // SPLIT: this block's rank in its cluster and its first column; the
+  // cluster's index and the clusters' count
+  const uint32_t rank = blockIdx.x % SPLIT;
+  const int col0 = D * rank;
 
   const int n_qt = (p.Tq + C::kRowsQ - 1) / C::kRowsQ;
   const int n_tiles = (p.Tk + BN - 1) / BN;
@@ -411,9 +617,15 @@ __device__ __forceinline__ void attn_f32_body(const CUtensorMap* maps, const Par
       mbar_init(kv_ready(s), kHelperThreads);
       mbar_init(kv_empty(s), kConsumerThreads);
     }
+    if constexpr (SPLIT > 1)
+      for (int x = 0; x < 2; ++x) {
+        mbar_init(x_full(x), kConsumerThreads);
+        mbar_init(x_empty(x), kConsumerThreads);
+      }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  if constexpr (SPLIT > 1) cluster_sync();  // the peer's barriers are ready
 
   if (wg < kProducerGroups) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
@@ -422,20 +634,20 @@ __device__ __forceinline__ void attn_f32_body(const CUtensorMap* maps, const Par
       // last one's), then the ring of k and v tiles; `g` counts the ring's
       // tiles
       int g = 0, it = 0;
-      for (int item = blockIdx.x; item < p.n_items; item += gridDim.x, ++it) {
+      for (int item = blockIdx.x / SPLIT; item < p.n_items; item += gridDim.x / SPLIT, ++it) {
         const int bh = item / n_qt, b = bh / p.H, h = bh % p.H;
         mbar_wait(q_empty, (it & 1) ^ 1);  // the first round finds it free
         mbar_expect_tx(q_full, C::kQ);
         for (int c = 0; c < D / 8; ++c)
-          tma_load(q_big + c * C::kRowsQ * 32, &maps[0], q_full, 8 * c, h,
+          tma_load(q_big + c * C::kRowsQ * 32, &maps[0], q_full, col0 + 8 * c, h,
                    (item % n_qt) * C::kRowsQ, b);
         for (int j = 0; j < n_tiles; ++j, ++g) {
           const int s = g % ST;
           mbar_wait(kv_empty(s), ((g / ST) & 1) ^ 1);
           mbar_expect_tx(k_full(s), 2 * C::kKV);
           for (int c = 0; c < D / 8; ++c)
-            tma_load(k_big(s) + c * BN * 32, &maps[1], k_full(s), 8 * c, h, j * BN, b);
-          tma_load(k_big(s) + C::kKV, &maps[2], k_full(s), 0, h, j * BN, b);
+            tma_load(k_big(s) + c * BN * 32, &maps[1], k_full(s), col0 + 8 * c, h, j * BN, b);
+          tma_load(k_big(s) + C::kKV, &maps[2], k_full(s), col0, h, j * BN, b);
         }
       }
     } else if (threadIdx.x >= 32) {
@@ -443,7 +655,7 @@ __device__ __forceinline__ void attn_f32_body(const CUtensorMap* maps, const Par
       // then (once every helper has read that) split k over it
       const int ht = threadIdx.x - 32;
       int g = 0, it = 0;
-      for (int item = blockIdx.x; item < p.n_items; item += gridDim.x, ++it) {
+      for (int item = blockIdx.x / SPLIT; item < p.n_items; item += gridDim.x / SPLIT, ++it) {
         mbar_wait(q_full, it & 1);
         split_tile(gen(q_big), gen(q_small), C::kQ, p.scale, ht);
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -475,7 +687,7 @@ __device__ __forceinline__ void attn_f32_body(const CUtensorMap* maps, const Par
   auto vt_desc = [&](uint32_t vt, int kk) { return desc_sw32(vt + kk * D * 32); };
 
   int g = 0, it = 0;
-  for (int item = blockIdx.x; item < p.n_items; item += gridDim.x, ++it) {
+  for (int item = blockIdx.x / SPLIT; item < p.n_items; item += gridDim.x / SPLIT, ++it) {
     const int bh = item / n_qt, b = bh / p.H, h = bh % p.H;
     const int q0 = (item % n_qt) * C::kRowsQ;
     const int rows[2] = {q0 + row_c, q0 + row_c + 8};
@@ -512,65 +724,15 @@ __device__ __forceinline__ void attn_f32_body(const CUtensorMap* maps, const Par
       wgmma_wait<0>();
       fence_regs(sc);
       if (j == n_tiles - 1) mbar_arrive(q_empty);  // the item's last read of q
+      if constexpr (SPLIT > 1)  // the peer's columns of the scores
+        exchange_scores(sc, xchg + (g & 1) * 128 * (BN / 2) * 4, x_full(g & 1), x_empty(g & 1),
+                        (g >> 1) & 1, threadIdx.x - 128 * kProducerGroups, rank);
 
-      // the softmax on the accumulator layout: sc[4jb + e] is row
-      // rows[e / 2], column k0 + 8jb + col_t + e % 2; alpha: the exact
-      // mode's rescale of the earlier tiles (1 in the clamp mode)
-      float alpha[2] = {1.f, 1.f};
-      if constexpr (MODE == kClamp) {
-#pragma unroll
-        for (int i = 0; i < BN / 2; ++i) {
-          const int col = k0 + 8 * (i >> 2) + col_t + (i & 1);
-          float x = sc[i];
-          if constexpr (BIAS)
-            if (col < p.Tk)
-              x = __fadd_rn(x, __fmul_rn(bias_at(p, b, h, rows[(i >> 1) & 1], col), kLog2e));
-          const float pe = col < p.Tk ? ex2(fminf(fmaxf(x, kClampLo), kClampHi)) : 0.f;
-          sc[i] = pe;
-          l[(i >> 1) & 1] += pe;
-        }
-      } else {
-        float mx[2] = {m[0], m[1]};
-#pragma unroll
-        for (int i = 0; i < BN / 2; ++i) {
-          const int col = k0 + 8 * (i >> 2) + col_t + (i & 1), r = (i >> 1) & 1;
-          float x = sc[i];
-          if constexpr (BIAS)
-            if (col < p.Tk)
-              x = __fadd_rn(x, bias_at(p, b, h, rows[r], col));
-          if (col >= p.Tk) x = -INFINITY;
-          sc[i] = x;
-          mx[r] = fmaxf(mx[r], x);
-        }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-          alpha[r] = ex2(__fmul_rn(__fsub_rn(m[r], mx[r]), kLog2e));  // exp(−∞) = 0 on the first tile
-          m[r] = mx[r];
-          l[r] *= alpha[r];
-        }
-#pragma unroll
-        for (int i = 0; i < BN / 2; ++i) {
-          const int r = (i >> 1) & 1;
-          const float pe = ex2(__fmul_rn(__fsub_rn(sc[i], m[r]), kLog2e));
-          sc[i] = pe;
-          l[r] += pe;
-        }
-      }
-
-      // p's A fragments, big and small: k-step kk's logical column t is key
-      // 8kk + 2t and column t + 4 key 8kk + 2t + 1 (vᵀ's order)
+      // the softmax on the accumulator layout, p's A fragments (alpha: the
+      // exact mode's rescale of the earlier tiles, 1 in the clamp mode)
+      float alpha[2];
       uint32_t pb[BN / 8][4], ps[BN / 8][4];
-#pragma unroll
-      for (int kk = 0; kk < BN / 8; ++kk) {
-        const float f[4] = {sc[4 * kk], sc[4 * kk + 2], sc[4 * kk + 1], sc[4 * kk + 3]};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          pb[kk][e] = tf32(f[e]);
-          ps[kk][e] = tf32(__fsub_rn(f[e], __uint_as_float(pb[kk][e])));
-        }
-      }
+      f32_softmax_tile<MODE, BIAS>(sc, m, l, alpha, pb, ps, p, b, h, rows, k0, col_t);
       // this tile's p·v into accumulators of its own, from zero; then o =
       // o·alpha + that in IEEE fp32 (see the note: the tensor cores'
       // accumulation, carried over every key tile, drifted past fp32's
@@ -629,30 +791,7 @@ __device__ __forceinline__ void attn_f32_body(const CUtensorMap* maps, const Par
       }
     }
 
-    // epilogue: the row sums over the quad, the reference's pad keys, one
-    // divide, fp32 stores of two columns a time
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-      float f = 1.f;
-      if constexpr (MODE == kClamp) {
-        l[r] += (float)p.n_pad * kTwoPowMinus100;
-      } else if (p.n_pad > 0) {
-        // n_pad keys of score −1e9: f = 1 and the added term 0 unless every
-        // score of the row is near −1e9 or below it
-        const float mp = fmaxf(m[r], kPadScore);
-        f = ex2(__fmul_rn(__fsub_rn(m[r], mp), kLog2e));
-        l[r] = l[r] * f + (float)p.n_pad * ex2(__fmul_rn(kPadScore - mp, kLog2e));
-      }
-      if (rows[r] >= p.Tq) continue;
-      const float inv = f / l[r];
-      float* const out = p.o + b * p.o_sb + (long long)rows[r] * p.o_st + h * p.o_sh + col_t;
-#pragma unroll
-      for (int jb = 0; jb < D / 8; ++jb)
-        *reinterpret_cast<float2*>(out + 8 * jb) =
-            make_float2(o[4 * jb + 2 * r] * inv, o[4 * jb + 2 * r + 1] * inv);
-    }
+    f32_store_o<MODE, false>(o, l, m, p, b, h, rows, col0, 0, col_t);
   }
 }
 
@@ -660,49 +799,417 @@ struct Maps {
   CUtensorMap m[3];  // q, k, v
 };
 
+// The blocks of a cluster at width D: two at 256 (see the note), one below
+template <int D>
+constexpr int kSplit = D == 256 ? 2 : 1;
+// a block's columns and its tiles
+template <int D>
+using BlockCfg = Cfg<D / kSplit<D>, kSplit<D>>;
+// the body of a kernel at width D, and what its blocks do past it: at 256
+// the cluster waits for its peer before it exits (the peer's last exchange
+// reads and writes this block's shared memory)
+template <int D, int MODE, bool BIAS>
+__device__ __forceinline__ void attn_f32_kernel_body(const CUtensorMap* maps, const Params& p) {
+  attn_f32_body<D / kSplit<D>, MODE, BIAS, kSplit<D>>(maps, p);
+  if constexpr (kSplit<D> > 1) cluster_sync();
+}
+
 // Four kernel names, so that a profile tells K1 (K2 with a bias), K6, K4 and
 // K5 apart; a thread block is the producer side's warpgroups and kNC
 // consumers.
 template <int D, bool BIAS>
-__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+__global__ void __launch_bounds__(BlockCfg<D>::kThreads, 1)
     attn_exact_f32_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
-  attn_f32_body<D, kExact, BIAS>(maps.m, p);
+  attn_f32_kernel_body<D, kExact, BIAS>(maps.m, p);
 }
 template <int D, bool BIAS>
-__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+__global__ void __launch_bounds__(BlockCfg<D>::kThreads, 1)
     attn_flash_f32_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
-  attn_f32_body<D, kExact, BIAS>(maps.m, p);
+  attn_f32_kernel_body<D, kExact, BIAS>(maps.m, p);
 }
 template <int D, bool BIAS>
-__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+__global__ void __launch_bounds__(BlockCfg<D>::kThreads, 1)
     attn_clamp_f32_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
-  attn_f32_body<D, kClamp, BIAS>(maps.m, p);
+  attn_f32_kernel_body<D, kClamp, BIAS>(maps.m, p);
 }
 template <int D, bool BIAS>
-__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+__global__ void __launch_bounds__(BlockCfg<D>::kThreads, 1)
     attn_rowblock_f32_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
-  attn_f32_body<D, kClamp, BIAS>(maps.m, p);
+  attn_f32_kernel_body<D, kClamp, BIAS>(maps.m, p);
+}
+
+// --- past D=256: the streamed body ----------------------------------------------
+//
+// Past 256 no built width holds q's big and small parts (128 KB for 64 rows
+// at 256 already) beside a stage of k and v, nor o's accumulators in the
+// registers. So a work item is (batch·head, 64-row query tile, slice of
+// kWideSlice columns of o), and q·kᵀ walks the head dim in 64-column chunks
+// through a ring of slots, each holding q's 64 rows of the chunk as TMA
+// lands them (eight 8-column boxes under the 32-byte swizzle, 16 KB) and
+// the chunk of a 32-key tile of k, split in place by the helpers (8 KB big,
+// 8 KB small): nothing but that loop grows with d. q is split in the
+// consumer's registers instead, from its raw boxes — the tf32 A fragment of
+// a k-step is columns t and t + 4 of rows r and r + 8, which the swizzle
+// puts in 32 different banks for a warp — so the scores are wgmma with q
+// from registers (m64n32k8, three TF32 products: the small terms of the
+// chunk, then the big one). Each chunk's scores start from zero in
+// accumulators of their own and are added to the tile's in IEEE fp32, as
+// each tile's p·v is added to o below D=256. p·v takes the slice: v's
+// 32 × kWideSlice raw tile as TMA lands it (whole rows of the slice, no
+// swizzle), whose vᵀ big and small the helpers write as below D=256. One
+// producer-side warpgroup (the TMA thread, three helper warps): a
+// 256-thread block, so the consumer's o, scores and fragments fit its
+// registers. An item's q chunks are loaded again for each key tile and its
+// scores computed again for each slice (ceil(d / 128)): the simple form.
+// The bias, the softmax, the pad keys and the store are the main body's,
+// o's columns past d never written.
+constexpr int kWideSlice = 128;  // o's columns a work item
+constexpr int kWideBN = 32;      // keys a tile
+constexpr int kWideSlots = 3;    // ring slots of (q chunk, k chunk)
+constexpr int kWideQ = 64 * 64 * 4;               // q's 64 rows × 64 columns, raw: 16 KB
+constexpr int kWideK = kWideBN * 64 * 4;          // one part of k's chunk: 8 KB
+constexpr int kWideSlot = kWideQ + 2 * kWideK;    // 32 KB
+constexpr int kWideV = kWideBN * kWideSlice * 4;  // v's raw slice, vᵀ big, vᵀ small: 16 KB each
+constexpr int kWideVStages = 2;
+constexpr int kWideHelpers = 96;
+constexpr int kWideBytes = kWideSlots * kWideSlot + kWideVStages * 3 * kWideV +
+                           3 * (kWideSlots + kWideVStages) * 8 + 1024;
+
+struct WideParams {
+  Params p;
+  int d;         // the head dim
+  int n_steps;   // ceil(d / 8): q·kᵀ's k-steps
+  int n_slices;  // ceil(d / kWideSlice): o's slices
+};
+
+template <int MODE, bool BIAS>
+__device__ __forceinline__ void attn_f32_wide_body(const CUtensorMap* maps, const WideParams& w) {
+  const Params& p = w.p;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - raw);
+  auto gen = [&](uint32_t a) { return gbase + (a - base); };
+  auto slot = [&](int s) { return base + s * kWideSlot; };
+  // v stage s: v's raw slice, vᵀ big, vᵀ small
+  auto v_raw = [&](int s) { return base + kWideSlots * kWideSlot + s * 3 * kWideV; };
+  const uint32_t bars = base + kWideSlots * kWideSlot + kWideVStages * 3 * kWideV;
+  auto slot_full = [&](int s) { return bars + 8 * s; };
+  auto slot_ready = [&](int s) { return bars + 8 * (kWideSlots + s); };
+  auto slot_empty = [&](int s) { return bars + 8 * (2 * kWideSlots + s); };
+  auto v_full = [&](int s) { return bars + 8 * (3 * kWideSlots + s); };
+  auto v_ready = [&](int s) { return bars + 8 * (3 * kWideSlots + kWideVStages + s); };
+  auto v_empty = [&](int s) { return bars + 8 * (3 * kWideSlots + 2 * kWideVStages + s); };
+
+  const int n_qt = (p.Tq + 63) / 64;
+  const int n_tiles = (p.Tk + kWideBN - 1) / kWideBN;
+  const int n_chunks = (w.n_steps + 7) / 8;
+  const int wg = threadIdx.x / 128;
+  auto decode = [&](int item, int& b, int& h, int& q0, int& sl) {
+    sl = item % w.n_slices;
+    const int rest = item / w.n_slices;
+    q0 = (rest % n_qt) * 64;
+    const int bh = rest / n_qt;
+    b = bh / p.H;
+    h = bh % p.H;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWideSlots; ++s) {
+      mbar_init(slot_full(s), 1);
+      mbar_init(slot_ready(s), kWideHelpers);
+      mbar_init(slot_empty(s), 128);
+    }
+    for (int s = 0; s < kWideVStages; ++s) {
+      mbar_init(v_full(s), 1);
+      mbar_init(v_ready(s), kWideHelpers);
+      mbar_init(v_empty(s), 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      // producer: for each key tile, its chunks of q and k (the boxes below
+      // d), then v's slice
+      int g = 0, gv = 0;
+      for (int item = blockIdx.x; item < p.n_items; item += gridDim.x) {
+        int b, h, q0, sl;
+        decode(item, b, h, q0, sl);
+        for (int j = 0; j < n_tiles; ++j) {
+          for (int ch = 0; ch < n_chunks; ++ch, ++g) {
+            const int s = g % kWideSlots;
+            const int nb = min(8, w.n_steps - 8 * ch);
+            mbar_wait(slot_empty(s), ((g / kWideSlots) & 1) ^ 1);
+            mbar_expect_tx(slot_full(s), nb * (64 * 32 + kWideBN * 32));
+            for (int bx = 0; bx < nb; ++bx) {
+              tma_load(slot(s) + bx * 64 * 32, &maps[0], slot_full(s), 8 * (8 * ch + bx), h, q0, b);
+              tma_load(slot(s) + kWideQ + bx * kWideBN * 32, &maps[1], slot_full(s),
+                       8 * (8 * ch + bx), h, j * kWideBN, b);
+            }
+          }
+          const int vs = gv % kWideVStages;
+          mbar_wait(v_empty(vs), ((gv / kWideVStages) & 1) ^ 1);
+          mbar_expect_tx(v_full(vs), kWideV);
+          tma_load(v_raw(vs), &maps[2], v_full(vs), sl * kWideSlice, h, j * kWideBN, b);
+          ++gv;
+        }
+      }
+    } else if (threadIdx.x >= 32) {
+      // helpers: split each slot's k chunk in place, write each v slice's vᵀ
+      const int ht = threadIdx.x - 32;
+      int g = 0, gv = 0;
+      for (int item = blockIdx.x; item < p.n_items; item += gridDim.x)
+        for (int j = 0; j < n_tiles; ++j) {
+          for (int ch = 0; ch < n_chunks; ++ch, ++g) {
+            const int s = g % kWideSlots;
+            mbar_wait(slot_full(s), (g / kWideSlots) & 1);
+            unsigned char* const kb = gen(slot(s) + kWideQ);
+            split_tile<kWideHelpers>(kb, kb + kWideK, kWideK, 1.f, ht);
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            mbar_arrive(slot_ready(s));
+          }
+          const int vs = gv % kWideVStages;
+          mbar_wait(v_full(vs), (gv / kWideVStages) & 1);
+          unsigned char* const vr = gen(v_raw(vs));
+          write_vt<kWideSlice, kWideBN, kWideHelpers>(vr + kWideV, vr + 2 * kWideV, vr, ht);
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          mbar_arrive(v_ready(vs));
+          ++gv;
+        }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(240));
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const int row_c = 16 * (t / 32) + lane / 4;  // this thread's first row of the item's 64
+  const int col_t = 2 * (lane % 4);
+  // its q fragment's four values in a raw 8-column box (rows 32 bytes,
+  // 16-byte halves swapped in rows 4-7 of each 8): a[0] row r column t, a[1]
+  // row r + 8, a[2] and a[3] column t + 4
+  const int sw = (row_c >> 2) & 1, t4 = lane % 4;
+  const int q_at[4] = {row_c * 8 + (sw << 2) + t4, (row_c + 8) * 8 + (sw << 2) + t4,
+                       row_c * 8 + ((sw ^ 1) << 2) + t4, (row_c + 8) * 8 + ((sw ^ 1) << 2) + t4};
+  auto k_desc = [&](uint32_t k, int bx) { return desc_sw32(k + bx * kWideBN * 32); };
+  auto vt_desc = [&](uint32_t vt, int kk) { return desc_sw32(vt + kk * kWideSlice * 32); };
+  int g = 0, gv = 0;
+  for (int item = blockIdx.x; item < p.n_items; item += gridDim.x) {
+    int b, h, q0, sl;
+    decode(item, b, h, q0, sl);
+    const int rows[2] = {q0 + row_c, q0 + row_c + 8};
+    float o[kWideSlice / 2];
+#pragma unroll
+    for (int i = 0; i < kWideSlice / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    for (int j = 0; j < n_tiles; ++j) {
+      const int k0 = j * kWideBN;
+      float sc[kWideBN / 2];
+      for (int ch = 0; ch < n_chunks; ++ch, ++g) {
+        const int s = g % kWideSlots;
+        const int nb = min(8, w.n_steps - 8 * ch);
+        mbar_wait(slot_ready(s), (g / kWideSlots) & 1);
+        // q's fragments of the chunk, scaled in fp32 and split
+        // (all eight boxes, so that the loop unrolls and the fragments stay
+        // in registers: a box past d holds stale values its k-step skips)
+        const float* const qr = reinterpret_cast<const float*>(gen(slot(s)));
+        uint32_t qb[8][4], qs[8][4];
+#pragma unroll
+        for (int bx = 0; bx < 8; ++bx) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float big, small;
+            split(__fmul_rn(qr[bx * 512 + q_at[e]], p.scale), big, small);
+            qb[bx][e] = __float_as_uint(big);
+            qs[bx][e] = __float_as_uint(small);
+          }
+        }
+        // k's descriptors stepped a box at a time, each made once the
+        // product before it is issued (as `scores_stepped`: made up front
+        // they would take registers beside q's fragments)
+        const uint32_t kb = slot(s) + kWideQ, ks = kb + kWideK;
+        float scc[kWideBN / 2];
+        wgmma_fence();
+        auto pass = [&](const uint32_t (&a)[8][4], uint32_t k, bool first) {
+          uint64_t dk = k_desc(k, 0);
+#pragma unroll
+          for (int bx = 0; bx < 8; ++bx) {
+            if (bx < nb) wgmma_rs<kWideBN>(scc, a[bx], dk, first && bx == 0 ? 0 : 1);
+            dk += (kWideBN * 32) >> 4;
+            asm volatile("" : "+l"(dk));
+          }
+        };
+        pass(qs, kb, true);   // the small terms,
+        pass(qb, ks, false);
+        pass(qb, kb, false);  // then the big one
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(scc);
+#pragma unroll
+        for (int bx = 0; bx < 8; ++bx) {
+          fence_regs(qb[bx]);
+          fence_regs(qs[bx]);
+        }
+        mbar_arrive(slot_empty(s));
+#pragma unroll
+        for (int i = 0; i < kWideBN / 2; ++i) sc[i] = ch == 0 ? scc[i] : __fadd_rn(sc[i], scc[i]);
+      }
+
+      // the softmax on the accumulator layout, p's fragments
+      float alpha[2];
+      uint32_t pb[kWideBN / 8][4], ps[kWideBN / 8][4];
+      f32_softmax_tile<MODE, BIAS>(sc, m, l, alpha, pb, ps, p, b, h, rows, k0, col_t);
+      // the tile's p·v over the slice into accumulators of its own, then o
+      const int vs = gv % kWideVStages;
+      const uint32_t vb = v_raw(vs) + kWideV, vsm = vb + kWideV;
+      mbar_wait(v_ready(vs), (gv / kWideVStages) & 1);
+      float ot[kWideSlice / 2];
+#pragma unroll
+      for (int i = 0; i < kWideSlice / 2; ++i) ot[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWideBN / 8; ++kk) wgmma_rs<kWideSlice>(ot, ps[kk], vt_desc(vb, kk));
+#pragma unroll
+      for (int kk = 0; kk < kWideBN / 8; ++kk) wgmma_rs<kWideSlice>(ot, pb[kk], vt_desc(vsm, kk));
+#pragma unroll
+      for (int kk = 0; kk < kWideBN / 8; ++kk) wgmma_rs<kWideSlice>(ot, pb[kk], vt_desc(vb, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(ot);
+#pragma unroll
+      for (int kk = 0; kk < kWideBN / 8; ++kk) {
+        fence_regs(pb[kk]);
+        fence_regs(ps[kk]);
+      }
+      mbar_arrive(v_empty(vs));
+      ++gv;
+#pragma unroll
+      for (int i = 0; i < kWideSlice / 2; ++i) o[i] = fmaf(o[i], alpha[(i >> 1) & 1], ot[i]);
+    }
+
+    f32_store_o<MODE, true>(o, l, m, p, b, h, rows, sl * kWideSlice, w.d, col_t);
+  }
+}
+
+// The streamed body's kernels, one name a route as below D=256 (the slice
+// width in the name)
+template <int W, bool BIAS>
+__global__ void __launch_bounds__(256, 1)
+    attn_exact_f32_wide_sm90_kernel(const __grid_constant__ Maps maps, const WideParams w) {
+  attn_f32_wide_body<kExact, BIAS>(maps.m, w);
+}
+template <int W, bool BIAS>
+__global__ void __launch_bounds__(256, 1)
+    attn_flash_f32_wide_sm90_kernel(const __grid_constant__ Maps maps, const WideParams w) {
+  attn_f32_wide_body<kExact, BIAS>(maps.m, w);
+}
+template <int W, bool BIAS>
+__global__ void __launch_bounds__(256, 1)
+    attn_clamp_f32_wide_sm90_kernel(const __grid_constant__ Maps maps, const WideParams w) {
+  attn_f32_wide_body<kClamp, BIAS>(maps.m, w);
+}
+template <int W, bool BIAS>
+__global__ void __launch_bounds__(256, 1)
+    attn_rowblock_f32_wide_sm90_kernel(const __grid_constant__ Maps maps, const WideParams w) {
+  attn_f32_wide_body<kClamp, BIAS>(maps.m, w);
+}
+
+// The streamed body's launch: q and k in 8-column boxes (q's of 64 rows,
+// k's of 32 keys) under the 32-byte swizzle, v in rows of the slice's
+// columns of 32 keys, one block per SM walking (batch·head, query tile,
+// slice) items.
+int wide_f32_fwd(const float* q, const float* k, const float* v, float* o,
+                 const unsigned long long* maps, const long long* strides, const float* bias,
+                 int B, int H, int Tq, int Tk, float scale, int route, int n_pad, void* stream) {
+  using WideKernel = void (*)(const Maps, const WideParams);
+  const bool has_bias = bias != nullptr;
+  const WideKernel kernels[4][2] = {
+      {attn_flash_f32_wide_sm90_kernel<kWideSlice, false>,
+       attn_flash_f32_wide_sm90_kernel<kWideSlice, true>},
+      {attn_rowblock_f32_wide_sm90_kernel<kWideSlice, false>,
+       attn_rowblock_f32_wide_sm90_kernel<kWideSlice, true>},
+      {attn_exact_f32_wide_sm90_kernel<kWideSlice, false>,
+       attn_exact_f32_wide_sm90_kernel<kWideSlice, true>},
+      {attn_clamp_f32_wide_sm90_kernel<kWideSlice, false>,
+       attn_clamp_f32_wide_sm90_kernel<kWideSlice, true>},
+  };
+  const WideKernel kernel = kernels[route][has_bias];
+  const int d = (int)maps[0];
+  const int n_slices = (d + kWideSlice - 1) / kWideSlice;
+  const long long n_items = (long long)B * H * ((Tq + 63) / 64) * n_slices;
+  if (n_items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  Maps tmaps;
+  const void* ptrs[3] = {q, k, v};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) {
+    const unsigned long long* a = maps + 7 * i;
+    const cuuint64_t dims[4] = {a[0], a[1], a[2], a[3]};
+    const cuuint64_t gstrides[3] = {a[4], a[5], a[6]};
+    const cuuint32_t box[4] = {i == 2 ? (cuuint32_t)kWideSlice : 8u, 1,
+                               i == 0 ? 64u : (cuuint32_t)kWideBN, 1};
+    const CUresult r = encode(&tmaps.m[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                              const_cast<void*>(ptrs[i]), dims, gstrides, box, elem,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              i == 2 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_32B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return 100000 + (int)r;
+  }
+  WideParams w;
+  Params& p = w.p;
+  p.o = o;
+  p.o_sb = strides[0], p.o_st = strides[1], p.o_sh = strides[2];
+  p.bias = bias;
+  p.b_sb = strides[3], p.b_sh = strides[4], p.b_sq = strides[5], p.b_sk = strides[6];
+  p.H = H;
+  p.Tq = Tq;
+  p.Tk = Tk;
+  p.n_items = (int)n_items;
+  p.n_pad = n_pad;
+  p.scale = scale;
+  w.d = d;
+  w.n_steps = (d + 7) / 8;
+  w.n_slices = n_slices;
+  static bool opted_in[4][2] = {};
+  bool& opted = opted_in[route][has_bias];
+  if (!opted) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWideBytes);
+    if (err != cudaSuccess) return (int)err;
+    opted = true;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = n_items < sms ? (int)n_items : sms;
+  kernel<<<grid, 256, kWideBytes, static_cast<cudaStream_t>(stream)>>>(tmaps, w);
+  return (int)cudaGetLastError();
 }
 
 using Kernel = void (*)(const Maps, const Params);
 
 struct Launch {
   Kernel kernel = nullptr;
-  int threads = 0, smem = 0, rows = 0, keys = 0;
+  int threads = 0, smem = 0, rows = 0, keys = 0, split = 1;
 };
 
 // The kernel of `route` (0 streaming K6, 1 row-block K5, 2 single-tile K1 or
 // K2, 3 transposed K4) at head dim D, with or without a bias.
 template <int D>
 Launch f32_launch(int route, bool bias) {
-  using C = Cfg<D>;
+  using C = BlockCfg<D>;
   Kernel kernels[4][2] = {
       {attn_flash_f32_sm90_kernel<D, false>, attn_flash_f32_sm90_kernel<D, true>},
       {attn_rowblock_f32_sm90_kernel<D, false>, attn_rowblock_f32_sm90_kernel<D, true>},
       {attn_exact_f32_sm90_kernel<D, false>, attn_exact_f32_sm90_kernel<D, true>},
       {attn_clamp_f32_sm90_kernel<D, false>, attn_clamp_f32_sm90_kernel<D, true>},
   };
-  return {kernels[route][bias], C::kThreads, C::kBytes, C::kRowsQ, C::kBN};
+  return {kernels[route][bias], C::kThreads, C::kBytes, C::kRowsQ, C::kBN, kSplit<D>};
 }
 
 }  // namespace
@@ -732,6 +1239,11 @@ extern "C" int ecad_attention_f32_sm90_fwd(const float* q, const float* k, const
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || route < 0 || route > 3 || n_pad < 0 ||
       maps[7] != maps[0] || maps[14] != maps[0] || maps[0] < 1 || maps[0] > (unsigned)width)
     return (int)cudaErrorInvalidValue;
+  if (width > 256)
+    return width % 64 != 0 || maps[0] <= 256
+               ? (int)cudaErrorInvalidValue
+               : wide_f32_fwd(q, k, v, o, maps, strides, bias, B, H, Tq, Tk, scale, route, n_pad,
+                              stream);
   const bool has_bias = bias != nullptr;
   const int D = width;
   const Launch launch = D == 16    ? f32_launch<16>(route, has_bias)
@@ -759,7 +1271,7 @@ extern "C" int ecad_attention_f32_sm90_fwd(const float* q, const float* k, const
     // q and k: 8 columns (32 bytes: the swizzle's width) of one head, the
     // item's rows or a stage's keys; v: whole rows of the width, of a stage's
     // keys
-    const cuuint32_t box[4] = {i == 2 ? (cuuint32_t)D : 8u, 1,
+    const cuuint32_t box[4] = {i == 2 ? (cuuint32_t)(D / launch.split) : 8u, 1,
                                (cuuint32_t)(i == 0 ? launch.rows : launch.keys), 1};
     const CUresult r = encode(&tmaps.m[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
                               const_cast<void*>(ptrs[i]), dims, gstrides, box, elem,
@@ -801,6 +1313,29 @@ extern "C" int ecad_attention_f32_sm90_fwd(const float* q, const float* k, const
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
+  if (launch.split > 1) {
+    // clusters of `split` blocks, as many as can be resident at once (each
+    // walks the items)
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = launch.split;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(sms / launch.split * launch.split);
+    cfg.blockDim = dim3(launch.threads);
+    cfg.dynamicSmemBytes = launch.smem;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, launch.kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+    if (n_items < clusters) clusters = (int)n_items;
+    cfg.gridDim = dim3(clusters * launch.split);
+    return (int)cudaLaunchKernelEx(&cfg, launch.kernel, tmaps, p);
+  }
   const int grid = n_items < sms ? (int)n_items : sms;
   launch.kernel<<<grid, launch.threads, launch.smem, static_cast<cudaStream_t>(stream)>>>(tmaps,
                                                                                          p);

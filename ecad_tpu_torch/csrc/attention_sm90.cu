@@ -2,7 +2,8 @@
 // mbarriers, with a producer warpgroup and two consumer warpgroups. bf16 q,
 // k, v of shape (B, T, H, d), any d up to 256, run at the built width D
 // (the template argument) at or above it: 16, 32, 64, 72, 128, 192 or 256
-// (the harness's X1-X4 at 72 and 128 only; see "Widths" below), in any
+// (the harness's X1-X4 at 72 and 128 only; see "Widths" below), and any d
+// past 256 on a streamed form of the four routes ("past D=256"), in any
 // 16-byte-aligned strides, in six softmax modes (a template argument, as in
 // attention.cu) under nine kernel names, one per route and one per mode of
 // the attention-variant harness; every exact and clamp kernel also takes a
@@ -388,6 +389,8 @@
 //     it arrives on q's empty barrier once that store has read them (not
 //     after its last q·kᵀ of the item): the next item's q load waits for the
 //     epilogue, the price of the one buffer.
+//   * Past 256: the streamed body (`attn_<route>_wide_sm90_kernel`, see
+//     "past D=256" below): q·kᵀ in 64-column chunks, o in 256-column slices.
 //   * Operands TMA cannot map — a base off 16 bytes, strides that are not
 //     multiples of 16 bytes (any d % 8 ≠ 0: rows of 2d bytes) — reach the
 //     kernel as packed copies whose rows are a multiple of 16 bytes apart
@@ -1583,6 +1586,290 @@ __global__ void __launch_bounds__(384, 1)
   attn_sm90_body<D, kClampFD, false, 2>(maps.m, p);
 }
 
+// --- past D=256: the streamed body ----------------------------------------------
+//
+// A head dim past 256 has no built width: its q tile and k/v tiles would
+// not fit shared memory beside each other (q alone is 128 KB for 128 rows
+// at d=512) and o's accumulators not the registers. So a work item is
+// (batch·head, 128-row query tile, slice of kWideSlice columns of o), and
+// q·kᵀ walks the head dim in 64-column chunks: each ring slot holds one
+// 64-column box of q's 128 rows and the same box of a 64-key tile of k (24
+// KB), so nothing but that loop grows with d; the tile's scores add up over
+// the chunks in the wgmma accumulators (fp32), then its softmax, then p·v
+// over v's slice (four 64-column boxes: the p·v of the D=256 form) into o's
+// 128 accumulators a thread. An item's q chunks are loaded again for each
+// key tile, and its scores again for each slice of o (ceil(d / 256) of
+// them): the simple form, paid in loads and products. A bias of any form
+// (key padding or dense, bf16 or fp32, any strides) is read value by value
+// where the softmax uses it, as the dense kernel does without aligned pairs;
+// the clamp modes' q × bf16(scale·log2e) is rounded to bf16 by the helper
+// warps in each slot, as the main body scales its q tile. o is stored from
+// the registers, two columns at a time, its columns past d never written.
+constexpr int kWideSlice = 256;  // o's columns a work item
+constexpr int kWideKeys = 64;    // keys a tile
+constexpr int kWideSlots = 4;    // ring slots of (q box, k box)
+constexpr int kWideVStages = 2;  // ring stages of v's slice
+constexpr int kWideQBox = 128 * 128;       // 128 query rows × 64 columns, 16 KB
+constexpr int kWideKBox = kWideKeys * 128; // 64 keys × 64 columns, 8 KB
+constexpr int kWideSlot = kWideQBox + kWideKBox;
+constexpr int kWideV = (kWideSlice / 64) * kWideKBox;  // 32 KB
+constexpr int kWideBytes =
+    kWideSlots * kWideSlot + kWideVStages * kWideV + (3 * kWideSlots + 2 * kWideVStages) * 8 + 1024;
+
+struct WideMaps {
+  CUtensorMap m[3];  // q, k, v: 64-column boxes under the 128-byte swizzle
+};
+struct WideParams {
+  Params p;
+  void* o;
+  long long o_sb, o_st, o_sh;  // o's element strides (b, t, h)
+  int d;         // the head dim
+  int n_boxes;   // ceil(d / 64): q·kᵀ's chunks
+  int n_slices;  // ceil(d / kWideSlice): o's slices
+};
+
+template <int MODE, bool BIAS>
+__device__ __forceinline__ void attn_wide_sm90_body(const CUtensorMap* maps, const WideParams& w) {
+  static_assert(MODE == kExact || MODE == kClamp, "the routes' two softmax modes");
+  constexpr int kConsumerThreads = 256;
+  constexpr int kNS = kWideKeys / 2;  // a thread's scores of a tile
+  const Params& p = w.p;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - raw);
+  auto slot = [&](int s) { return base + s * kWideSlot; };
+  auto v_s = [&](int s) { return base + kWideSlots * kWideSlot + s * kWideV; };
+  const uint32_t bars = base + kWideSlots * kWideSlot + kWideVStages * kWideV;
+  auto slot_full = [&](int s) { return bars + 8 * s; };
+  auto slot_ready = [&](int s) { return bars + 8 * (kWideSlots + s); };
+  auto slot_empty = [&](int s) { return bars + 8 * (2 * kWideSlots + s); };
+  auto v_full = [&](int s) { return bars + 8 * (3 * kWideSlots + s); };
+  auto v_empty = [&](int s) { return bars + 8 * (3 * kWideSlots + kWideVStages + s); };
+
+  const int n_qt = (p.Tq + 127) / 128;
+  const int n_tiles = (p.Tk + kWideKeys - 1) / kWideKeys;
+  const int wg = threadIdx.x / 128;
+  // item → (batch·head, query tile, slice): neighbouring items share q and k
+  auto decode = [&](int item, int& b, int& h, int& q0, int& sl) {
+    sl = item % w.n_slices;
+    const int rest = item / w.n_slices;
+    q0 = (rest % n_qt) * 128;
+    const int bh = rest / n_qt;
+    b = bh / p.H;
+    h = bh % p.H;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWideSlots; ++s) {
+      mbar_init(slot_full(s), 1);
+      mbar_init(slot_ready(s), kHelperThreads);
+      mbar_init(slot_empty(s), kConsumerThreads);
+    }
+    for (int s = 0; s < kWideVStages; ++s) {
+      mbar_init(v_full(s), 1);
+      mbar_init(v_empty(s), kConsumerThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(40));
+    if (threadIdx.x == 0) {
+      // producer: for each key tile, its chunks of q and k, then v's slice
+      // (boxes wholly past d are not loaded: their columns of o are never
+      // stored)
+      int g = 0, gv = 0;
+      for (int item = blockIdx.x; item < p.n_items; item += gridDim.x) {
+        int b, h, q0, sl;
+        decode(item, b, h, q0, sl);
+        const int v_boxes = min(kWideSlice / 64, (w.d - sl * kWideSlice + 63) / 64);
+        for (int j = 0; j < n_tiles; ++j) {
+          for (int cb = 0; cb < w.n_boxes; ++cb, ++g) {
+            const int s = g % kWideSlots;
+            mbar_wait(slot_empty(s), ((g / kWideSlots) & 1) ^ 1);
+            mbar_expect_tx(slot_full(s), kWideSlot);
+            tma_load(slot(s), &maps[0], slot_full(s), 64 * cb, h, q0, b);
+            tma_load(slot(s) + kWideQBox, &maps[1], slot_full(s), 64 * cb, h, j * kWideKeys, b);
+          }
+          const int vs = gv % kWideVStages;
+          mbar_wait(v_empty(vs), ((gv / kWideVStages) & 1) ^ 1);
+          mbar_expect_tx(v_full(vs), v_boxes * kWideKBox);
+          for (int i = 0; i < v_boxes; ++i)
+            tma_load(v_s(vs) + i * kWideKBox, &maps[2], v_full(vs), sl * kWideSlice + 64 * i, h,
+                     j * kWideKeys, b);
+          ++gv;
+        }
+      }
+    } else if (MODE == kClamp && threadIdx.x >= 128 - kHelperThreads) {
+      // helpers: each slot's q box × bf16(scale·log2e), rounded to bf16 in
+      // place, then a proxy fence and the slot's ready barrier
+      const int ht = threadIdx.x - (128 - kHelperThreads);
+      int g = 0;
+      for (int item = blockIdx.x; item < p.n_items; item += gridDim.x)
+        for (int j = 0; j < n_tiles; ++j)
+          for (int cb = 0; cb < w.n_boxes; ++cb, ++g) {
+            const int s = g % kWideSlots;
+            mbar_wait(slot_full(s), (g / kWideSlots) & 1);
+            uint4* const q = reinterpret_cast<uint4*>(gbase + (slot(s) - base));
+            for (int i = ht; i < kWideQBox / 16; i += kHelperThreads) {
+              uint4 x = q[i];
+              uint32_t* e = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&e[u]);
+                e[u] = pack_bf16(__low2float(v) * p.scale, __high2float(v) * p.scale);
+              }
+              q[i] = x;
+            }
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            mbar_arrive(slot_ready(s));
+          }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(232));
+  const int c = wg - 1;
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const int row_c = 16 * (t / 32) + lane / 4;  // this thread's first row of the consumer's 64
+  const int col_t = 2 * (lane % 4);
+  const float qk_scale = MODE == kExact ? p.scale * kLog2e : 1.f;
+  auto slot_in = [&](int s) { return MODE == kClamp ? slot_ready(s) : slot_full(s); };
+  int g = 0, gv = 0;
+  for (int item = blockIdx.x; item < p.n_items; item += gridDim.x) {
+    int b, h, q0, sl;
+    decode(item, b, h, q0, sl);
+    long long off[2];  // this thread's two rows in the bias (a row past Tq read as Tq − 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      off[r] = b * p.bias_sb + h * p.bias_sh +
+               (long long)min(q0 + 64 * c + row_c + 8 * r, p.Tq - 1) * p.bias_sq;
+    float o[kWideSlice / 2];
+#pragma unroll
+    for (int i = 0; i < kWideSlice / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2] = {1.f, 1.f};
+    for (int j = 0; j < n_tiles; ++j) {
+      // s = q·kᵀ over the chunks, each slot freed once its products are done
+      float s[kNS];
+      int prev = 0;
+      for (int cb = 0; cb < w.n_boxes; ++cb, ++g) {
+        const int sg = g % kWideSlots;
+        mbar_wait(slot_in(sg), (g / kWideSlots) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss(s, desc_sw128(slot(sg) + 8192 * c + kk * 32, 16, 1024),
+                   desc_sw128(slot(sg) + kWideQBox + kk * 32, 16, 1024), cb > 0 || kk > 0);
+        wgmma_commit();
+        if (cb > 0) {
+          wgmma_wait<1>();
+          mbar_arrive(slot_empty(prev));
+        }
+        prev = sg;
+      }
+      wgmma_wait<0>();
+      fence_regs(s);
+      mbar_arrive(slot_empty(prev));
+      const int col0 = j * kWideKeys + col_t;
+      const bool edge = (j + 1) * kWideKeys > p.Tk;
+      if constexpr (MODE == kExact) {
+        if constexpr (BIAS)
+          softmax_exact_bias(s, [&](int i) { return dense_bias_log2(p, off, col0, i); }, m, l,
+                             alpha, qk_scale);
+        else if (edge)
+          softmax_exact<true>(s, m, l, alpha, qk_scale, col0, p.Tk);
+        else
+          softmax_exact<false>(s, m, l, alpha, qk_scale, col0, p.Tk);
+#pragma unroll
+        for (int i = 0; i < kWideSlice / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      } else {
+        // p = exp2(clip(s + bias·log2e, −100, 80)) in a plain add, 0 past Tk
+#pragma unroll
+        for (int i = 0; i < kNS; ++i) {
+          const int col = col0 + (i >> 2) * 8 + (i & 1);
+          float x = s[i];
+          if constexpr (BIAS)
+            if (col < p.Tk) x = __fadd_rn(x, dense_bias_log2(p, off, col0, i));
+          const float pe = col < p.Tk ? ex2(fminf(fmaxf(x, kClampLo), kClampHi)) : 0.f;
+          s[i] = pe;
+          l[(i >> 1) & 1] += pe;
+        }
+      }
+      uint32_t pf[kWideKeys / 16][4];
+      pack_p(s, pf);
+      // o += p·v over the slice
+      const int vs = gv % kWideVStages;
+      mbar_wait(v_full(vs), (gv / kWideVStages) & 1);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWideKeys / 16; ++kk)
+        wgmma_rs_wide<kWideSlice>(o, pf[kk], desc_sw128(v_s(vs) + kk * 2048, kWideKBox, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < kWideKeys / 16; ++kk) fence_regs(pf[kk]);
+      mbar_arrive(v_empty(vs));
+      ++gv;
+    }
+    // epilogue: as the main body's, then o's pairs of columns below d
+    float f[2] = {1.f, 1.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      if constexpr (MODE == kClamp) {
+        l[r] += (float)p.n_pad * kTwoPowMinus100;
+      } else if (p.n_pad > 0) {
+        const float m2 = BIAS ? m[r] : m[r] * qk_scale;
+        const float mp = fmaxf(m2, kPadScoreLog2);
+        f[r] = ex2(m2 - mp);
+        l[r] = l[r] * f[r] + (float)p.n_pad * ex2(kPadScoreLog2 - mp);
+      }
+      const int row = q0 + 64 * c + row_c + 8 * r;
+      if (row >= p.Tq) continue;
+      const float inv = f[r] / l[r];
+      __nv_bfloat16* const out = static_cast<__nv_bfloat16*>(w.o) + b * w.o_sb +
+                                 (long long)row * w.o_st + h * w.o_sh;
+#pragma unroll
+      for (int jb = 0; jb < kWideSlice / 8; ++jb) {
+        const int col = sl * kWideSlice + 8 * jb + col_t;
+        // o's rows are padded to a multiple of 8: a pair at col < d fits
+        if (col < w.d)
+          *reinterpret_cast<uint32_t*>(out + col) =
+              pack_bf16(o[4 * jb + 2 * r] * inv, o[4 * jb + 2 * r + 1] * inv);
+      }
+    }
+  }
+}
+
+// The streamed body's kernels, one name a route as below D=256 (the slice
+// width in the name; BIAS: any bias, dense or key-padding)
+template <int W, bool BIAS>
+__global__ void __launch_bounds__(384, 1)
+    attn_flash_wide_sm90_kernel(const __grid_constant__ WideMaps maps, const WideParams w) {
+  attn_wide_sm90_body<kExact, BIAS>(maps.m, w);
+}
+template <int W, bool BIAS>
+__global__ void __launch_bounds__(384, 1)
+    attn_rowblock_wide_sm90_kernel(const __grid_constant__ WideMaps maps, const WideParams w) {
+  attn_wide_sm90_body<kClamp, BIAS>(maps.m, w);
+}
+template <int W, bool BIAS>
+__global__ void __launch_bounds__(384, 1)
+    attn_exact_wide_sm90_kernel(const __grid_constant__ WideMaps maps, const WideParams w) {
+  attn_wide_sm90_body<kExact, BIAS>(maps.m, w);
+}
+template <int W, bool BIAS>
+__global__ void __launch_bounds__(384, 1)
+    attn_clamp_wide_sm90_kernel(const __grid_constant__ WideMaps maps, const WideParams w) {
+  attn_wide_sm90_body<kClamp, BIAS>(maps.m, w);
+}
+
 using Kernel = void (*)(const Maps, const Params);
 
 // A kernel with its consumer warpgroups, its dynamic shared memory and
@@ -1648,6 +1935,85 @@ Launch sm90_launch(int mode, bool bias, bool dense) {
   }
 }
 
+// The streamed body's launch (width past 256): q, k, v mapped in 64-column
+// boxes (q's of 128 rows, k's and v's of 64 keys), any bias read value by
+// value, one block per SM walking (batch·head, query tile, slice) items.
+int wide_sm90_fwd(const void* q, const void* k, const void* v, void* o,
+                  const unsigned long long* maps, const long long* o_strides, const void* bias,
+                  const long long* bias_strides, int bias_bf16, int B, int H, int Tq, int Tk,
+                  float scale, float q_scale, int mode, int n_pad, int width, void* stream) {
+  using WideKernel = void (*)(const WideMaps, const WideParams);
+  const int d = (int)maps[0];
+  if (mode > 3 || width % 64 != 0 || d <= 256 || d > width) return (int)cudaErrorInvalidValue;
+  const bool has_bias = bias != nullptr;
+  const WideKernel kernels[4][2] = {
+      {attn_flash_wide_sm90_kernel<kWideSlice, false>,
+       attn_flash_wide_sm90_kernel<kWideSlice, true>},
+      {attn_rowblock_wide_sm90_kernel<kWideSlice, false>,
+       attn_rowblock_wide_sm90_kernel<kWideSlice, true>},
+      {attn_exact_wide_sm90_kernel<kWideSlice, false>,
+       attn_exact_wide_sm90_kernel<kWideSlice, true>},
+      {attn_clamp_wide_sm90_kernel<kWideSlice, false>,
+       attn_clamp_wide_sm90_kernel<kWideSlice, true>},
+  };
+  const WideKernel kernel = kernels[mode][has_bias];
+  const int n_slices = (d + kWideSlice - 1) / kWideSlice;
+  const long long n_items = (long long)B * H * ((Tq + 127) / 128) * n_slices;
+  if (n_items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  WideMaps tmaps;
+  const void* ptrs[3] = {q, k, v};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) {
+    const unsigned long long* a = maps + 11 * i;
+    if (a[0] != maps[0]) return (int)cudaErrorInvalidValue;
+    const cuuint64_t dims[4] = {a[0], a[1], a[2], a[3]};
+    const cuuint64_t strides[3] = {a[4], a[5], a[6]};
+    const cuuint32_t box[4] = {64, 1, i == 0 ? 128u : (cuuint32_t)kWideKeys, 1};
+    const CUresult r = encode(&tmaps.m[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                              const_cast<void*>(ptrs[i]), dims, strides, box, elem,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return 100000 + (int)r;
+  }
+  WideParams w;
+  Params& p = w.p;
+  p.bias = bias;
+  p.bias_sb = has_bias ? bias_strides[0] : 0;
+  p.bias_sh = has_bias ? bias_strides[1] : 0;
+  p.bias_sq = has_bias ? bias_strides[2] : 0;
+  p.bias_sk = has_bias ? bias_strides[3] : 0;
+  p.bias_bf16 = bias_bf16;
+  p.bias_pairs = 0;
+  p.H = H;
+  p.Tq = Tq;
+  p.Tk = Tk;
+  p.n_items = (int)n_items;
+  p.n_pad = n_pad;
+  p.scale = mode == 1 || mode == 3 ? q_scale : scale;
+  w.o = o;
+  w.o_sb = o_strides[0], w.o_st = o_strides[1], w.o_sh = o_strides[2];
+  w.d = d;
+  w.n_boxes = (d + 63) / 64;
+  w.n_slices = n_slices;
+  static bool opted_in[4][2] = {};
+  bool& opted = opted_in[mode][has_bias];
+  if (!opted) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWideBytes);
+    if (err != cudaSuccess) return (int)err;
+    opted = true;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = n_items < sms ? (int)n_items : sms;
+  kernel<<<grid, 384, kWideBytes, static_cast<cudaStream_t>(stream)>>>(tmaps, w);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v: bf16 (B, T, H, d), d ≤ `width`, one of the built widths 16, 32,
@@ -1693,6 +2059,9 @@ extern "C" int ecad_attention_sm90_fwd(const void* q, const void* k, const void*
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || mode < 0 || mode > 7 || n_pad < 0 ||
       ((mode == 4 || mode == 5 || mode == 7) && Tk % kBlockN != 0))
     return (int)cudaErrorInvalidValue;
+  if (width > 256)
+    return wide_sm90_fwd(q, k, v, o, maps, o_strides, bias, bias_strides, bias_bf16, B, H, Tq, Tk,
+                         scale, q_scale, mode, n_pad, width, stream);
   const bool has_bias = bias != nullptr;
   const bool dense = has_bias && bias_dense;
   if (dense && bias_pairs &&

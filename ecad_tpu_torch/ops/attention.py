@@ -67,8 +67,11 @@ broadcasts, dense ones too), K4, K5 and K6 — under the same counters.
 Operands TMA cannot map (a base off 16 bytes, strides that are not
 multiples of 16 bytes: bf16 at a head dim that is not a multiple of 8, fp32
 at one that is not a multiple of 4) reach either body as a packed copy
-(`tma_copy`). Past head dim 256 a CUDA call raises, naming the limit; the
-plain versions on the CPU take any. A bf16 call whose bias the body does
+(`tma_copy`). Past head dim 256 either body runs a streamed form of each
+route (`WIDE_SLICE`): q·kᵀ over all of the head dim in column boxes that
+stream through shared memory beside k's, p·v over one slice of o's columns
+a work item; there is no upper limit on the head dim, on the card or in
+the plain versions. A bf16 call whose bias the body does
 not read (`bias_operand`, `dense_bias_operand`: bf16 or fp32) raises. The
 old ``csrc/attention.cu`` body (`_launch`) is reached by no wrapper: the
 kernel checks and scripts/compare_attention_bodies.py time it beside the
@@ -122,8 +125,11 @@ LAUNCHES = {
 _VARIANTS = {0: "attention", 1: "attention_long", 2: "attention_rowblock", 3: "attention_flash"}
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-# the widest head dim the card's kernels take (the plain versions take any)
+# the widest head dim the built widths take; past it each body's streamed
+# form runs (`sm90_width`, `f32_width`), o in slices of `WIDE_SLICE` columns
 MAX_HEAD_DIM = 256
+# o's columns a work item of the streamed forms past `MAX_HEAD_DIM`, by dtype
+WIDE_SLICE = {torch.bfloat16: 256, torch.float32: 128}
 _FN = None
 _SM90_FN = None
 _F32_FN = None
@@ -512,20 +518,20 @@ def _launch(
 
 
 def _smallest_width(widths: tuple, d: int) -> int:
-    """The smallest of `widths` at or above head dim `d`; ValueError past
-    the widest, naming the limit."""
+    """The smallest of `widths` at or above head dim `d`; past the widest
+    (`MAX_HEAD_DIM`), round_up(d, 64): the streamed form, whose q·kᵀ walks
+    the head dim in 64-column chunks."""
     for w in widths:
         if d <= w:
             return w
-    raise ValueError(f"head dim {d} > {widths[-1]}: the card's attention kernels are built "
-                     f"up to head dim {widths[-1]} (the plain versions on the CPU take any)")
+    return _round_up(d, 64)
 
 
 def sm90_width(d: int, counter: str = "attention") -> int:
     """The width of the Hopper body a bf16 call at head dim `d` on the route
     of `counter` runs at: the smallest built width at or above `d` on the
-    four routes, `d` itself for the harness's X1-X4 (their widths only).
-    Raises ValueError where none is built."""
+    four routes, round_up(d, 64) past 256 (the streamed form), `d` itself
+    for the harness's X1-X4 (their widths only; ValueError at another)."""
     widths = _SM90_MODES[counter][1]
     if counter in _SM90_HARNESS:
         if d not in widths:
@@ -537,7 +543,8 @@ def sm90_width(d: int, counter: str = "attention") -> int:
 
 def f32_width(d: int) -> int:
     """The width of the fp32 Hopper body an fp32 call at head dim `d` runs
-    at: the smallest of `F32_WIDTHS` at or above `d`."""
+    at: the smallest of `F32_WIDTHS` at or above `d`, round_up(d, 64) past
+    256 (the streamed form)."""
     return _smallest_width(F32_WIDTHS, d)
 
 
@@ -547,19 +554,19 @@ def tma_operand(t: torch.Tensor, name: str, width: Optional[int] = None) -> list
     dims {D, H, T, B} (innermost first), the byte strides of H, T and B, and
     the box {the width's box columns, 1, its tile's keys, 1} — 11 integers.
     The box is 64 columns (128 bytes, the 128-byte swizzle's width: columns
-    0-63, the whole row at width 64, and 64-127, … at 128, 192 and 256) or,
-    at widths 32 and 16, the whole row under the 64- or 32-byte swizzle; its
+    0-63, the whole row at width 64, and 64-127, … at 128, 192, 256 and past
+    256, where q·kᵀ streams the boxes of a row one after the other) or, at
+    widths 32 and 16, the whole row under the 64- or 32-byte swizzle; its
     rows are 128 keys, 64 past width 128. At width 72 the C entry adds a map
     with an 8-column box and no swizzle for columns 64-71. Columns from D to
     the width are TMA's zero fill. TMA needs a 16-byte-aligned base and
     strides that are multiples of 16 bytes (below 2^40); a dimension of size
     1 is never stepped along, so it takes the packed stride. Raises
-    ValueError where the operand does not meet them (`tma_copy` makes a copy
-    that does)."""
+    ValueError for another dtype or where the operand does not meet them
+    (`tma_copy` makes a copy that does)."""
     b, tt, h, d = t.shape
-    if t.dtype != torch.bfloat16 or d > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: the Hopper body takes bf16 at head dims up to {MAX_HEAD_DIM}; "
-                         f"got {t.dtype}, {d}")
+    if t.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the Hopper body takes bf16; got {t.dtype}")
     width = sm90_width(d) if width is None else width
     strides, problem = _tma_strides(t)
     if problem:
@@ -632,16 +639,16 @@ def _tma_ready(t: torch.Tensor) -> tuple[torch.Tensor, list[int]]:
 
 def f32_tma_operand(t: torch.Tensor, name: str) -> list[int]:
     """The arguments of the TMA tensor map of an fp32 (B, T, H, D) operand
-    of the fp32 Hopper body, D ≤ 256: the dims {D, H, T, B} and the byte
-    strides of H, T and B — 7 integers; the C entry loads q and k in
-    8-column boxes under the 32-byte swizzle and v in rows of the call's
-    width (`f32_width`), columns from D on TMA's zero fill. Raises ValueError
-    where TMA cannot map the operand (`_tma_strides`; `tma_copy` makes a copy
-    that it can)."""
+    of the fp32 Hopper body: the dims {D, H, T, B} and the byte strides of
+    H, T and B — 7 integers; the C entry loads q and k in 8-column boxes
+    under the 32-byte swizzle and v in rows of the call's width
+    (`f32_width`; past 256 in slices of `WIDE_SLICE` columns), columns from
+    D on TMA's zero fill. Raises ValueError for another dtype or where TMA
+    cannot map the operand (`_tma_strides`; `tma_copy` makes a copy that it
+    can)."""
     b, tt, h, d = t.shape
-    if t.dtype != torch.float32 or d > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: the fp32 Hopper body takes fp32 at head dims up to "
-                         f"{MAX_HEAD_DIM}; got {t.dtype}, {d}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name}: the fp32 Hopper body takes fp32; got {t.dtype}")
     strides, problem = _tma_strides(t)
     if problem:
         raise ValueError(name + problem)
@@ -685,14 +692,14 @@ def dense_bias_operand(bias: torch.Tensor, tk: int) -> tuple[list[int], int, int
 
 def _takes_sm90(counter: str, q: torch.Tensor, bias: Optional[torch.Tensor]) -> bool:
     """Whether a call of the route that counts under `counter` goes to the
-    Hopper body (csrc/attention_sm90.cu): bf16 at a head dim up to
-    `MAX_HEAD_DIM` (the harness's X1-X4 at their own widths only), without a
+    Hopper body (csrc/attention_sm90.cu): bf16 at any head dim (the
+    harness's X1-X4 at their own widths only), without a
     bias or, on a route whose kernel takes one (`_SM90_BIAS`), with a
     key-padding bias; on the exact single-tile route (``attention``: the XLA
     route of a dense bias past the tile too) with any bias. A function of
     route, dtype, head dim and bias only."""
     d = q.shape[-1]
-    fits = d in _SM90_MODES[counter][1] if counter in _SM90_HARNESS else d <= MAX_HEAD_DIM
+    fits = d in _SM90_MODES[counter][1] if counter in _SM90_HARNESS else True
     return (q.dtype == torch.bfloat16 and fits
             and (bias is None or counter == "attention" or (
                 counter in _SM90_BIAS and _key_padding_bias_ok(bias, q.shape[0]))))
@@ -713,10 +720,11 @@ def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
     bias, any Tk; ``xattn_matmul_only``: its bf16(q·kᵀ)·v with no softmax,
     X1, no bias, Tk % 128 == 0), with the route's `n_pad` pad keys
     (`pad_keys`; the harness's modes take none), at the width `sm90_width`
-    gives. Operands TMA cannot map go to the kernel as copies (`tma_copy`),
+    gives (past 256 the streamed form of the route, any bias read value by
+    value). Operands TMA cannot map go to the kernel as copies (`tma_copy`),
     and at a head dim that is not a multiple of 8 o comes back through one
-    (its rows' padding). Raises where no width takes the head dim or the
-    body does not read the bias (`bias_operand`, `dense_bias_operand`).
+    (its rows' padding). Raises where no width takes the head dim (X1-X4)
+    or the body does not read the bias (`bias_operand`, `dense_bias_operand`).
     Counts it under `name`, or ``name_bias``."""
     b, tq, h, d = q.shape
     width = sm90_width(d, name)
@@ -764,11 +772,11 @@ def _launch_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
     exact streaming, K6; ``attention_long`` and ``attention_rowblock``:
     clamp transposed, K4, and row-block, K5; these three with no bias or a
     key-padding one), with the route's `n_pad` pad keys (`pad_keys`), at the
-    width `f32_width` gives. Operands TMA cannot map go to the kernel as
-    copies (`tma_copy`); the kernel writes all of the width's columns of o,
-    so below the width o comes back through a copy of its first D. Raises
-    where no width takes the head dim. Counts it under `name`, or
-    ``name_bias``."""
+    width `f32_width` gives (past 256 the streamed form). Operands TMA
+    cannot map go to the kernel as copies (`tma_copy`); the kernel writes
+    all of the width's columns of o (the streamed form its first D), so
+    below the width o comes back through a copy of its first D. Counts it
+    under `name`, or ``name_bias``."""
     b, tq, h, d = q.shape
     width = f32_width(d)
     (q, qm), (k, km), (v, vm) = (_tma_ready(t) for t in (q, k, v))
@@ -805,8 +813,7 @@ def _launch_card(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
                  bias: Optional[torch.Tensor], n_pad: int) -> torch.Tensor:
     """The route of counter `name` on q's device: bf16 on the Hopper body
     (`_launch_sm90`), fp32 on the fp32 one (`_launch_f32`), at any head dim
-    up to `MAX_HEAD_DIM` and in any layout; past it a ValueError that names
-    the limit. csrc/attention.cu's `_launch` is not reached."""
+    and in any layout. csrc/attention.cu's `_launch` is not reached."""
     if q.dtype == torch.bfloat16:
         return _launch_sm90(q, k, v, name, bias, n_pad)
     return _launch_f32(q, k, v, name, bias, n_pad)

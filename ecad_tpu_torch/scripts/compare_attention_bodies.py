@@ -63,8 +63,13 @@ at the harness's three shapes, in turns — X3, SDPA, SDPA, X3 — three times
 a shape (`X3_ROUNDS`): one row a shape with both lists of times and the
 ratio of their medians.
 
+With ``--parent`` the rows also take the fp32 body at width 192 (head dim
+160; `PARENT_CASES`: K1 at (16, 256, 8, 160), K4 and K5 at (2, 2048, 8,
+160), K6 at (1, 4608, 8, 160)), against the parent's wrappers alone.
+
 Prints one JSON line per row, and writes them to ``--out``. ``--rows``
-takes a comma-separated subset of the bodies' rows (`CASES`) and skips X3.
+takes a comma-separated subset of the bodies' rows (`CASES`, and
+`PARENT_CASES` with ``--parent``) and skips X3.
 """
 
 from __future__ import annotations
@@ -153,6 +158,19 @@ F32_CASES = {
                              A.flash_attention_reference, None),
 }
 CASES.update(F32_CASES)
+# rows taken only against a parent tree (``--parent``): the fp32 body at
+# width 192, which attention.cu never took (its SIMT kernel ends at head dim
+# 128) and whose machine code moved beside the parent's (`compare_sass`)
+PARENT_CASES = {
+    "attention_fp32_d160": ((16, 256, 8, 160), 256, None, 0, A.fused_attention,
+                            A.fused_attention_reference, None),
+    "attention_long_fp32_d160": ((2, 2048, 8, 160), 2048, None, 1, A.fused_attention,
+                                 A.transposed_attention_reference, None),
+    "attention_rowblock_fp32_d160": ((2, 2048, 8, 160), 2048, None, 2, A.rowblock_attention,
+                                     A.rowblock_attention_reference, None),
+    "attention_flash_fp32_d160": ((1, 4608, 8, 160), 4608, None, 3, A.fused_attention,
+                                  A.flash_attention_reference, None),
+}
 # attention.cu's variant → its route, for the route's pad keys (`pad_keys`)
 ROUTE = {0: "exact", 1: "clamp", 2: "rowblock", 3: "flash"}
 X3_ROUNDS = 3
@@ -204,7 +222,8 @@ def main(argv=None) -> list[dict]:
     parser.add_argument("--parent", type=Path, default=None,
                         help="an older checkout whose wrappers are the old side")
     args = parser.parse_args(argv)
-    cases = CASES if args.rows is None else {r: CASES[r] for r in args.rows.split(",")}
+    every = CASES if args.parent is None else {**CASES, **PARENT_CASES}
+    cases = every if args.rows is None else {r: every[r] for r in args.rows.split(",")}
     if not torch.cuda.is_available():
         raise SystemExit("compare_attention_bodies: needs a CUDA card")
     card = card_name()

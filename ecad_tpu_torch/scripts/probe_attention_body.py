@@ -108,10 +108,19 @@ producer-side warpgroup: three helper warps instead of seven), ``no_vt``
 (the helpers write no vᵀ), ``no_k_split`` (nor split k), ``no_helper_work``
 (neither), ``no_softmax`` (clamp: p = s), ``no_pv`` (no p·v products),
 ``pv_one_pass`` and ``s_one_pass`` (only the big·big TF32 product of p·v,
-or of q·kᵀ).
+or of q·kᵀ). At width 256, K6 at (1, 4608, 12, 256) and K5 at (2, 2048, 8,
+256), the two-block cluster's form (each block the width-128 form on half
+of the head dim, the partial scores summed through the cluster's shared
+memory) against ``no_cluster`` (one
+block, one 16-key stage: the form before it), ``no_cluster_three_helper_
+warps`` (that form with one producer-side warpgroup, a 256-thread block),
+the cluster with three helper warps a block (``cluster_three_helper_warps``,
+a 256-thread block) and with each product's descriptor made as it is
+issued (``cluster_stepped_scores``).
 
 A variant that only reschedules the same arithmetic (``two_consumers``,
-``helpers_three_warps``, ``dense_no_prefetch``, ``dense_prefetch``, ``dense_scalar_loads``,
+``helpers_three_warps``, ``cluster_three_helper_warps``, ``dense_no_prefetch``,
+``dense_prefetch``, ``dense_scalar_loads``,
 ``k6_bias_three_consumers``, ``d64_two_consumers``, ``exact_narrow_three``,
 ``clamp_narrow_two``, ``rowblock_narrow_two``, ``flash_narrow_two``,
 ``clamp_two_consumers``,
@@ -477,14 +486,36 @@ F32_VARIANTS = {
     "no_vt": F32_NO_VT,
     "no_k_split": F32_NO_K_SPLIT,
     "no_helper_work": F32_NO_VT + F32_NO_K_SPLIT,
-    "no_softmax": [("          const float pe = col < p.Tk ? ex2(fminf(fmaxf(x, kClampLo), "
-                    "kClampHi)) : 0.f;", "          const float pe = x;")],
+    "no_softmax": [("      const float pe = col < p.Tk ? ex2(fminf(fmaxf(x, kClampLo), "
+                    "kClampHi)) : 0.f;", "      const float pe = x;")],
     "no_pv": [(F32_PV + F32_PV_BIG, "")],
     "pv_one_pass": [(F32_PV, "")],
     "s_one_pass": [(F32_S, """#pragma unroll
         for (int kc = 0; kc < D / 8; ++kc) wgmma_ss<BN>(sc, q_desc(q_big, kc), k_desc(kb, kc), kc);""")],
 }
+# fp32 at width 256: the two-block cluster's form (the source) against the
+# one-block form it replaced (`no_cluster`: q's big and small parts for 64
+# rows, 128 KB, leave one stage of 16 keys; o's 128 accumulators and a
+# chunk's 32 beside the rest under the 168 registers of a 384-thread block),
+# that form on one producer-side warpgroup (`no_cluster_three_helper_warps`:
+# a 256-thread block, whose consumer ptxas may give 240 registers), and the
+# cluster's blocks on one producer-side warpgroup (`cluster_three_helper_
+# warps`, three helper warps instead of seven)
+F32_NO_CLUSTER = [("constexpr int kSplit = D == 256 ? 2 : 1;", "constexpr int kSplit = 1;")]
+# the scores' products with each descriptor made as the product is issued
+# (`scores_stepped`, as past width 128), not made up front
+F32_CLUSTER_STEPPED = [
+    ("      if constexpr (D > 128) {\n        // the small products, then the big one",
+     "      if constexpr (D > 128 || SPLIT > 1) {\n        // the small products, then the big one")]
+F32_D256_VARIANTS = {"no_cluster": F32_NO_CLUSTER,
+                     "no_cluster_three_helper_warps":
+                         F32_NO_CLUSTER + F32_VARIANTS["helpers_three_warps"],
+                     "cluster_three_helper_warps": F32_VARIANTS["helpers_three_warps"],
+                     "cluster_stepped_scores": F32_CLUSTER_STEPPED}
 F32_ROWS = {
+    "f32_k6_d256": ((1, 4608, 12, 256), 4608, None, "attention_flash", F32_D256_VARIANTS, 3, 2),
+    "f32_k5_d256": ((2, 2048, 8, 256), 2048, None, "attention_rowblock", F32_D256_VARIANTS, 3,
+                    2),
     "f32_k4_pixart1024": ((4, 4096, 16, 72), 4096, None, "attention_long", F32_VARIANTS, 3, 2),
     "f32_k5_flux1024": ((1, 4608, 24, 128), 4608, None, "attention_rowblock",
                         {n: e for n, e in F32_VARIANTS.items() if n != "bn32_three_stages"},
@@ -504,7 +535,8 @@ BODIES = {"sm90": ("attention_sm90", "ecad_attention_sm90_fwd", "_SM90_FN", A._s
 ROUTES = {"attention": "exact", "attention_long": "clamp", "attention_rowblock": "rowblock",
           "attention_flash": "flash"}
 # the same arithmetic, rescheduled
-EXACT = ("two_consumers", "helpers_three_warps", "exact_narrow_three", "clamp_narrow_two",
+EXACT = ("two_consumers", "helpers_three_warps", "cluster_three_helper_warps",
+         "exact_narrow_three", "clamp_narrow_two",
          "rowblock_narrow_two", "flash_narrow_two", "k6_bias_three_consumers", "d64_two_consumers",
          "clamp_two_consumers", "clamp_bias_three_consumers", "clamp_three_consumers",
          "rowblock_three_consumers",

@@ -438,17 +438,19 @@ def _mm_3xtf32(a, b, passes=3):
     return acc + np.matmul(ab, bb)
 
 
-def _emulated_f32_body(q, k, v, bias, route, passes=3):
+def _emulated_f32_body(q, k, v, bias, route, passes=3, scores=None):
     """The fp32 body's arithmetic in numpy on (B, T, H, D) inputs: q scaled
     in fp32 (1/√D on the exact route, clamp_scale(D, float32) on the clamp
-    one), s = q·kᵀ and o = p·v through `_mm_3xtf32`, the exact softmax with
-    the route's pad keys of score −1e9 or the clamp's exp2(clip(s, −100,
-    80)) with n_pad·2^-100 in Σp."""
+    one), s = q·kᵀ and o = p·v through `_mm_3xtf32` (s through `scores`
+    where given), the exact softmax with the route's pad keys of score −1e9
+    or the clamp's exp2(clip(s, −100, 80)) with n_pad·2^-100 in Σp."""
     d, tk = q.shape[-1], k.shape[1]
     qh, kh, vh = (np.transpose(a, (0, 2, 1, 3)) for a in (q, k, v))
     n_pad = port_attention.pad_keys(route, tk)
+    if scores is None:
+        scores = lambda a, b: _mm_3xtf32(a, b, passes)  # noqa: E731
     if route == "exact":
-        s = _mm_3xtf32(qh * np.float32(1.0 / np.sqrt(d)), np.swapaxes(kh, -1, -2), passes)
+        s = scores(qh * np.float32(1.0 / np.sqrt(d)), np.swapaxes(kh, -1, -2))
         if bias is not None:
             s = s + bias
         m = np.maximum(s.max(-1, keepdims=True), np.float32(-1e9) if n_pad else -np.inf)
@@ -456,7 +458,7 @@ def _emulated_f32_body(q, k, v, bias, route, passes=3):
         denom = p.sum(-1, keepdims=True) + np.float32(n_pad) * np.exp(np.float32(-1e9) - m)
     else:
         scale = np.float32(port_attention.clamp_scale(d, torch.float32))
-        s = _mm_3xtf32(qh * scale, np.swapaxes(kh, -1, -2), passes)
+        s = scores(qh * scale, np.swapaxes(kh, -1, -2))
         if bias is not None:
             s = s + bias * np.float32(1.4426950408889634)
         p = np.exp2(np.clip(s, -100, 80))
@@ -476,6 +478,61 @@ TF32X3_CASES = {
                                                 (100, 200, 256)),
     "clamp_logits_times_6_d128": ("clamp", 1, 16, 256, 1, 128, 6.0, None),
 }
+
+
+def _emulated_f32_wide_scores(qh, kt, passes=3, chunk=64):
+    """q·kᵀ as the fp32 body takes it where it sums partial scores: the head
+    dim in `chunk`-column parts (64 in the streamed form past head dim 256,
+    128 in the two-block cluster at width 256), each part's three TF32
+    products (`_mm_3xtf32`) from zero, the parts' scores added in fp32 in
+    order."""
+    s = None
+    for c in range(0, qh.shape[-1], chunk):
+        part = _mm_3xtf32(qh[..., c:c + chunk], kt[..., c:c + chunk, :], passes)
+        s = part if s is None else (s + part).astype(np.float32)
+    return s
+
+
+# (route, b, tq, tk, d, q scale, key-padding lengths or None, the columns a
+# part of the scores): the streamed form past head dim 256 (64) and the
+# two-block cluster at width 256 (128), at chip_smoke.py's fp32 shapes
+TF32X3_WIDE_CASES = {
+    "exact_key_padding_d320": ("exact", 3, 30, 300, 320, 1.0, (100, 200, 256), 64),
+    "exact_logits_times_6_d512": ("exact", 1, 16, 256, 512, 6.0, None, 64),
+    "clamp_key_padding_d320": ("clamp", 3, 30, 300, 320, 1.0, (100, 200, 256), 64),
+    "clamp_logits_times_6_d512": ("clamp", 1, 16, 256, 512, 6.0, None, 64),
+    "exact_key_padding_d256_halves": ("exact", 3, 30, 300, 256, 1.0, (100, 200, 256), 128),
+    "clamp_logits_times_6_d256_halves": ("clamp", 1, 16, 256, 256, 6.0, None, 128),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TF32X3_WIDE_CASES))
+def test_3xtf32_streamed_emulation_meets_fp32_tol(case):
+    """Two forms of the fp32 body change the order of the scores' fp32 sums
+    and not p·v's (o's columns are apart): the streamed form past head dim
+    256 (each 64-column chunk of q·kᵀ from zero in accumulators of its own,
+    the chunks added in IEEE fp32) and the two-block cluster at width 256
+    (each block's 128 columns, the two partial scores added in fp32 — the
+    same sum in both blocks). `_emulated_f32_body` with those scores
+    (`_emulated_f32_wide_scores`) against the Pallas kernels in interpret mode
+    at head dims 256, 320 and 512: within chip_smoke.py's FP32_TOL (atol 1e-5,
+    rtol 1e-5); one plain TF32 pass misses it."""
+    route, b, tq, tk, d, qscale, lengths, chunk = TF32X3_WIDE_CASES[case]
+    rng = np.random.default_rng(24)
+    q, k, v = _qkv(rng, b, tq, tk, 1, d)
+    q = q * np.float32(qscale)
+    bias = None if lengths is None else _key_padding_bias_np(lengths, tk)
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    jbias = None if bias is None else jnp.asarray(bias)
+    want = np.asarray(jax_fused_attention(*args, bias=jbias, interpret=True) if route == "exact"
+                      else jax_attention._transposed_attention(*args, jbias, interpret=True))
+    atol, rtol = _chip_smoke_module().FP32_TOL
+    got = _emulated_f32_body(q, k, v, bias, route,
+                             scores=lambda a, b_: _emulated_f32_wide_scores(a, b_, 3, chunk))
+    np.testing.assert_allclose(got, want, atol=atol, rtol=rtol)
+    one_pass = _emulated_f32_body(q, k, v, bias, route, passes=1,
+                                  scores=lambda a, b_: _emulated_f32_wide_scores(a, b_, 1, chunk))
+    assert (np.abs(one_pass - want) > atol + rtol * np.abs(want)).any()
 
 
 @pytest.mark.parametrize("case", sorted(TF32X3_CASES))
@@ -852,6 +909,46 @@ def test_attention_past_head_dim_128_matches_pallas(case, dtype):
     bf16."""
     route, shape, tk, bias_kind = WIDE_CASES[case]
     rng = np.random.default_rng(60)
+    q, k, v, bias = _wide_inputs(rng, shape, tk, bias_kind)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    want = jax_fused_attention(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                               bias=None if bias is None else jnp.asarray(bias), interpret=True)
+    args = [torch.from_numpy(a).to(tdt) for a in (q, k, v)]
+    tbias = None if bias is None else torch.from_numpy(bias)
+    assert attention_route(tuple(args[0].shape), tk, tbias) == route
+    got = fused_attention(*args, tbias)
+    assert got.dtype == tdt and got.shape == shape
+    tol = WIDE_TOL["fp32"] if dtype == "fp32" else WIDE_TOL["bf16"][route]
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
+
+
+# name → (route, q shape, tk, bias kind) past head dim 256, where the
+# card runs the streamed forms: each route at a shape that reaches it — the
+# exact one (no bias, key padding, dense) at every head dim, the clamp one
+# at 264 and 320 (a 1 MiB score tile, D % 128 ≠ 0), the row-block one at
+# 384 and 512 (past the 8 MiB tile, D % 128 = 0), the streaming one at 320
+# and 512 (past 8192×128 key elements)
+WIDER_CASES = {
+    **{f"exact{tag}_d{d}": ("exact", (3, 30, 2, d), 300, bias)
+       for d in (264, 320, 384, 512)
+       for tag, bias in (("", None), ("_key_padding", "padding"), ("_dense", "dense"))},
+    **{f"clamp_d{d}": ("clamp", (1, 512, 1, d), 512, None) for d in (264, 320)},
+    **{f"rowblock_d{d}": ("rowblock", (1, 1536, 1, d), 1536, None) for d in (384, 512)},
+    **{f"flash_d{d}": ("flash", (1, 512, 1, d), 4224, None) for d in (320, 512)},
+}
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(WIDER_CASES))
+def test_attention_past_head_dim_256_matches_pallas(case, dtype):
+    """Head dims 264, 320, 384 and 512, which the port's kernels refused
+    before and the reference computes (padding D to a multiple of 128):
+    `fused_attention` on the CPU against the JAX package's in interpret mode
+    on each route a shape reaches — exact (no bias, key padding, dense
+    bias), clamp, row-block, streaming — in fp32 and bf16, within
+    `WIDE_TOL`."""
+    route, shape, tk, bias_kind = WIDER_CASES[case]
+    rng = np.random.default_rng(62)
     q, k, v, bias = _wide_inputs(rng, shape, tk, bias_kind)
     jdt, tdt = (jnp.float32, torch.float32) if dtype == "fp32" else (jnp.bfloat16, torch.bfloat16)
     want = jax_fused_attention(*(jnp.asarray(a, jdt) for a in (q, k, v)),
@@ -1288,6 +1385,13 @@ HOPPER_ROUTES = {
                           ("f32", "attention_rowblock")),
     "rowblock_key_padding_d128": ("fused", (1, 4608, 24, 128), 4608, "bf16", "padding",
                                   ("sm90", "attention_rowblock_bias")),
+    # past head dim 256: the streamed forms, any bias a route takes
+    "exact_dense_d320": ("fused", (2, 30, 2, 320), 300, "bf16", "dense",
+                         ("sm90", "attention_bias")),
+    "flash_key_padding_fp32_d512": ("flash", (2, 30, 2, 512), 300, "fp32", "padding",
+                                    ("f32", "attention_flash_bias")),
+    "rowblock_d384": ("fused", (1, 1536, 1, 384), 1536, "bf16", None,
+                      ("sm90", "attention_rowblock")),
     "transposed_d72": ("transposed", (2, 30, 2, 72), 300, "bf16", None,
                        ("sm90", "attention_long")),
     "pixart2048_flash_d72": ("fused", (2, 16384, 16, 72), 16384, "bf16", None,
@@ -1416,21 +1520,24 @@ def test_hopper_bodies_share_the_common_header(source):
 def test_f32_tma_operand_arguments():
     """The fp32 body's tensor map of a (B, T, H, D) operand: dims {D, H, T,
     B} and the byte strides of H, T, B (a dimension of one takes the packed
-    stride); a head dim past 256, a base off 16 bytes and rows 292 bytes
-    apart raise, and the launch maps a copy of the last two (`tma_copy`)."""
+    stride), at any head dim (past 256 the streamed form maps the same
+    operand in 8-column boxes and v in slices of its columns); rows of 257
+    floats (1028 bytes apart), a base off 16 bytes and rows 292 bytes apart
+    raise, and the launch maps a copy of each (`tma_copy`)."""
     x = torch.zeros(2, 300, 3, 72)
     assert port_attention.f32_tma_operand(x, "q") == [72, 3, 300, 2, 288, 864, 259200]
     one = torch.zeros(1, 300, 1, 16)
     assert port_attention.f32_tma_operand(one, "k") == [16, 1, 300, 1, 64, 64, 19200]
-    for bad, match in ((torch.zeros(2, 30, 2, 257), "head dims up to 256"),
+    wide = torch.zeros(2, 30, 2, 320)
+    assert port_attention.f32_tma_operand(wide, "k") == [320, 2, 30, 2, 1280, 2560, 76800]
+    for bad, match in ((torch.zeros(2, 30, 2, 257), "multiples of 16"),
                        (torch.zeros(2 * 30 * 2 * 72 + 1)[1:].view(2, 30, 2, 72), "16-byte"),
                        (torch.zeros(2, 30, 2, 73)[..., :72], "multiples of 16")):
         with pytest.raises(ValueError, match=match):
             port_attention.f32_tma_operand(bad, "v")
-        if bad.shape[-1] <= 256:
-            copy = port_attention.tma_copy(bad)
-            assert port_attention.f32_tma_operand(copy, "v")[:4] == [72, 2, 30, 2]
-            torch.testing.assert_close(copy, bad, rtol=0, atol=0)
+        copy = port_attention.tma_copy(bad)
+        assert port_attention.f32_tma_operand(copy, "v")[:4] == [bad.shape[-1], 2, 30, 2]
+        torch.testing.assert_close(copy, bad, rtol=0, atol=0)
 
 
 # (dtype, q shape) → the TMA arguments of q at the width the call runs at
@@ -1454,6 +1561,10 @@ TMA_WIDTH_CASES = {
     "fp32_d256": (torch.float32, (1, 512, 1, 256), [256, 1, 512, 1, 1024, 1024, 512 * 1024],
                   256),
     "fp32_d80": (torch.float32, (2, 30, 2, 80), [80, 2, 30, 2, 320, 640, 30 * 640], 96),
+    # past 256: the streamed forms at round_up(d, 64)
+    "bf16_d320": (torch.bfloat16, (1, 64, 2, 320),
+                  [320, 2, 64, 1, 640, 1280, 64 * 1280, 64, 1, 64, 1], 320),
+    "fp32_d512": (torch.float32, (1, 64, 2, 512), [512, 2, 64, 1, 2048, 4096, 64 * 4096], 512),
 }
 
 
@@ -1538,8 +1649,21 @@ def test_tma_operand_arguments_at_d64():
 
 @pytest.mark.parametrize("d", [257, 320])
 def test_tma_operand_refuses_other_head_dims(d):
-    with pytest.raises(ValueError, match="head dims up to 256"):
-        port_attention.tma_operand(torch.zeros(1, 8, 1, d, dtype=torch.bfloat16), "q")
+    """Past head dim 256 the Hopper body's streamed form maps a bf16 operand
+    as the widths past 128 do — 64-column boxes of 64 keys, which q·kᵀ
+    walks along the row — at the width round_up(d, 64); rows TMA cannot
+    step (257 bf16, 514 bytes) are refused and their packed copy maps
+    (`tma_copy`); another dtype is refused."""
+    x = torch.zeros(1, 8, 1, d, dtype=torch.bfloat16)
+    assert port_attention.sm90_width(d) == -(-d // 64) * 64
+    if d % 8:
+        with pytest.raises(ValueError, match="multiples of 16"):
+            port_attention.tma_operand(x, "q")
+        x = port_attention.tma_copy(x)
+    row = 2 * (-(-d // 8) * 8)  # bytes a row, padded to 16
+    assert port_attention.tma_operand(x, "q") == [d, 1, 8, 1, row, row, 8 * row, 64, 1, 64, 1]
+    with pytest.raises(ValueError, match="takes bf16"):
+        port_attention.tma_operand(torch.zeros(1, 8, 1, d), "q")
 
 
 def test_pixart_attention_operands_map_at_d72():
@@ -1764,8 +1888,9 @@ def test_no_wrapper_reaches_attention_cu(d, dtype, layout, bh, monkeypatch):
     wrapper accepts (none, a key-padding one, a dense one on the single-tile
     route), reaches the Hopper bodies' launchers (`_launch_sm90`,
     `_launch_f32`) with tensor maps made — meta tensors stop at their
-    device check — and never csrc/attention.cu's `_launch`; at 257 the
-    launcher raises, naming the limit."""
+    device check — and never csrc/attention.cu's `_launch`; and so does
+    every route past 256 (257, 320, 512: the streamed forms), reaching no
+    plain version either."""
     monkeypatch.setattr(port_attention, "_launch",
                         lambda *a, **kw: pytest.fail("reached attention.cu"))
     tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
@@ -1782,9 +1907,20 @@ def test_no_wrapper_reaches_attention_cu(d, dtype, layout, bh, monkeypatch):
     for fn, bias in calls:
         with pytest.raises(ValueError, match="unsupported device meta"):
             fn(q, k, v, bias)
-    wide = torch.empty((b, 30, h, 257), dtype=tdt, device="meta")
-    with pytest.raises(ValueError, match="built up to head dim 256"):
-        fused_attention(wide, wide, wide)
+    for name in ("fused_attention_reference", "transposed_attention_reference",
+                 "rowblock_attention_reference", "flash_attention_reference"):
+        monkeypatch.setattr(port_attention, name,
+                            lambda *a, name=name, **kw: pytest.fail(f"reached {name}"))
+    for wide_d in (257, 320, 512):
+        qw = _meta_operand((b, 30, h, wide_d), tdt, layout)
+        kw = _meta_operand((b, 300, h, wide_d), tdt, layout)
+        vw = torch.empty((b, 300, h, wide_d), dtype=tdt, device="meta")
+        dense_w = torch.empty(b, h, 30, 300, dtype=tdt, device="meta")
+        for fn, bias in calls:
+            if bias is dense:
+                bias = dense_w
+            with pytest.raises(ValueError, match="unsupported device meta"):
+                fn(qw, kw, vw, bias)
 
 
 # ---------------------------------------------------------------------------
