@@ -60,11 +60,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    plain version and named by a profile (`on_hopper_body`, in bf16 and
    fp32); a call whose bias the body does not read (fp16; K5 at d=64, 72
    and 128) raises. fp32 calls at every head dim run on the fp32
-   body (``csrc/attention_f32_sm90.cu``: 3×TF32 on wgmma; at width 256 a
-   cluster of two blocks) on every route,
+   body (``csrc/attention_f32_sm90.cu``: 3×TF32 on wgmma; at widths 256,
+   384 and 512 clusters of two, three and four blocks, whose ``ptxas``
+   spill at 384 and 512 must be 0) on every route,
    with any bias the route takes (a dense one on the single-tile route).
    Every route at head dims between and past the old widths (`WIDTH_DIMS`:
-   bf16 16 to 512, fp32 8 to 512; past 256 the bodies' streamed forms) is
+   bf16 16 to 512, fp32 8 to 640; past 256 in bf16 and 512 in fp32 the
+   bodies' streamed forms) is
    held to its plain version at the reference's acceptance shapes with its
    launch counted, and a profile names each route's kernel at the width
    the head dim runs at (`width_cases`). bf16 calls at d=64, 72 and 128 with any other
@@ -192,7 +194,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ``genetic.train --dp 2`` cycle (rank 1 opens no file for writing and
    rank 0 writes the one-process run's files; each rank's denoise calls
    take half of one process's batch, one dp all-gather a call; the scores
-   within `SEARCH_AMP_TOL` of one process's). Records per mode each rank's peak
+   within `SEARCH_AMP_TOL` of one process's); then ``dryrun_multichip(2)``
+   as a user calls it, on the card (two gloo ranks sharing it, one tiny
+   evaluation, a finite score). Records per mode each rank's peak
    memory beside one rank's, ms per trajectory (two ranks sharing one
    card over gloo: not a scaling result) and the collectives' payload
    bytes per trajectory, on a line of their own.
@@ -385,6 +389,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import shutil
 import statistics
 import struct
@@ -505,12 +510,24 @@ def check_card() -> str:
 
 def build_kernels() -> None:
     from ecad_tpu_torch.ops import _build
+    from ecad_tpu_torch.scripts.probe_attention_body import spill_bytes
 
     t0 = time.perf_counter()
     _build.build_all()
     REPORT["build_s"] = time.perf_counter() - t0
     REPORT["build_logs"] = dict(_build.BUILD_LOGS)
     log(f"built {sorted(_build.BUILD_LOGS) or 'nothing new'} in {REPORT['build_s']:.1f} s")
+    # the clusters of three and four blocks (widths 384 and 512) must not
+    # spill (empty where the sources were built before this process)
+    spills = {name: n for name, n in
+              spill_bytes(_build.BUILD_LOGS.get("attention_f32_sm90", "")).items()
+              if re.search(r"f32_sm90_kernelILi(384|512)E", name)}
+    REPORT["f32_cluster_spill_bytes"] = spills
+    if "attention_f32_sm90" in _build.BUILD_LOGS and len(spills) != 16:
+        raise AssertionError(f"ptxas reported {len(spills)} of the 16 fp32 cluster kernels "
+                             "at widths 384 and 512")
+    if any(spills.values()):
+        raise AssertionError(f"the fp32 clusters at widths 384 and 512 spill: {spills}")
 
 
 # ---------------------------------------------------------------------------
@@ -1987,24 +2004,28 @@ def f32_kernel_rows(rnd, nbytes) -> list[dict]:
 
 # Head dims on the Hopper bodies at every new width, most between two
 # widths: bf16 16, 32, 36 (width 64, through a copy), 100 (128), 160 (192),
-# 200 and 256 (256); fp32 8 (16), 36 (40), 80 (96), 160 (192) and 256; and
-# past 256 the streamed forms at 320 (o in two slices, the last part full)
-# and 512 (two or four full slices)
+# 200 and 256 (256), past 256 the streamed form at 320 (o in two slices,
+# the last part full) and 512 (two full slices); fp32 8 (16), 36 (40), 80
+# (96), 160 (192) and 256, the clusters of three blocks at 320 (the last
+# block's columns past d zeros) and 384 (full) and of four at 512, and the
+# streamed form at 640 (five full slices)
 WIDTH_DIMS = {torch.bfloat16: (16, 32, 36, 100, 160, 200, 256, 320, 512),
-              torch.float32: (8, 36, 80, 160, 256, 320, 512)}
+              torch.float32: (8, 36, 80, 160, 256, 320, 384, 512, 640)}
 
 
 def hopper_kernel(route: str, dtype, d: int, bias: str = "false") -> str:
     """The Hopper kernel a call of `route` ("exact", "clamp", "rowblock",
     "flash") at head dim `d` in `dtype` launches, as a profile names it:
     ``attn_clamp_sm90_kernel<192, false>`` at a built width (`sm90_width`,
-    `f32_width`), ``attn_clamp_wide_sm90_kernel<256, false>`` past 256
-    (the streamed form, its slice of o's columns in the name; fp32
+    `f32_width`; fp32 ``attn_clamp_f32_sm90_kernel<512, false>`` on four
+    blocks of 128 columns), ``attn_clamp_wide_sm90_kernel<256, false>``
+    past the widest (`MAX_HEAD_DIM`: bf16 256, fp32 512; the streamed form,
+    its slice of o's columns in the name; fp32
     ``attn_clamp_f32_wide_sm90_kernel<128, false>``)."""
     from ecad_tpu_torch.ops import attention as A
 
     f32 = "_f32" if dtype == torch.float32 else ""
-    if d > A.MAX_HEAD_DIM:
+    if d > A.MAX_HEAD_DIM[dtype]:
         return f"attn_{route}{f32}_wide_sm90_kernel<{A.WIDE_SLICE[dtype]}, {bias}>"
     w = A.f32_width(d) if f32 else A.sm90_width(d)
     return f"attn_{route}{f32}_sm90_kernel<{w}, {bias}>"
@@ -2065,7 +2086,7 @@ def width_cases() -> None:
                 compare(f"{counter}/{tag}/width_logits_near_40_d{d}", fn(q40, k40, v40),
                         plain(q40, k40, v40),
                         flash_bf16_tol if tag == "bf16" and (
-                            counter == "attention_flash" or d > A.MAX_HEAD_DIM)
+                            counter == "attention_flash" or d > A.MAX_HEAD_DIM[dtype])
                         else hot_tol)
                 hot = fn(q_hot, k40, v40)
                 if hot.shape != q_hot.shape or not torch.isfinite(hot.float()).all():
@@ -2128,12 +2149,13 @@ WIDTH_ROWS = {
     "attention_rowblock_fp32_d256": ((2, 2048, 8, 256), 2048, torch.float32, "rowblock",
                                      "rowblock", None, "attn_rowblock_f32_sm90_kernel<256, false>",
                                      ":274 (_rowblock_kernel_nobias)"),
-    # past 256: each route's streamed form at head dim 512, K2 with the
-    # models' text bias to 120 keys
+    # past 256: each route at head dim 512, K2 with the models' text bias
+    # to 120 keys: bf16's streamed form, fp32's cluster of four blocks
     **{f"{counter}{'_fp32' if dtype == torch.float32 else ''}_d512": (
         shape, tk, dtype, wrapper, route, None,
-        f"attn_{kernel}{'_f32' if dtype == torch.float32 else ''}_wide_sm90_kernel"
-        f"<{256 if dtype == torch.bfloat16 else 128}, {'true' if lengths else 'false'}>",
+        f"attn_{kernel}_wide_sm90_kernel<256, {'true' if lengths else 'false'}>"
+        if dtype == torch.bfloat16 else
+        f"attn_{kernel}_f32_sm90_kernel<512, {'true' if lengths else 'false'}>",
         replaces, lengths)
        for dtype, clamp_shape, flash_shape in (
            (torch.bfloat16, (4, 4096, 8, 512), (1, 4608, 8, 512)),
@@ -2149,6 +2171,10 @@ WIDTH_ROWS = {
             "rowblock", ":274 (_rowblock_kernel_nobias)", None),
            ("attention_flash", flash_shape, flash_shape[1], "flash", "flash", "flash",
             ":151 (_flash_kernel)", None))},
+    # fp32 past 512: the streamed form, on K6's route
+    "attention_flash_fp32_d640": ((1, 4608, 8, 640), 4608, torch.float32, "flash", "flash", None,
+                                  "attn_flash_f32_wide_sm90_kernel<128, false>",
+                                  ":151 (_flash_kernel)"),
 }
 WIDTH_TURNS = ("old", "new", "sdpa", "sdpa", "new", "old")
 
@@ -2233,6 +2259,10 @@ def width_kernel_rows(rnd, bound, nbytes) -> list[dict]:
             b_ms, by = bound(moved, flops)
         if variant is not None:
             extra["old_body_ms"] = statistics.median(times["old"])
+        if fp32 and 256 <= A.f32_width(d) <= A.MAX_HEAD_DIM[dtype]:
+            # the clusters resident at once: the launch's grid
+            extra["clusters"] = A.f32_resident_clusters(A.f32_width(d), ROUTE_COUNTERS[route],
+                                                        bias is not None)
         if A._tma_strides(q)[1]:
             def copies():
                 A.tma_copy(q), A.tma_copy(k), A.tma_copy(v)
@@ -5864,7 +5894,8 @@ def parallel_phase(smi: str) -> dict:
     """Multi-process parallelism on the one card: a one-rank NCCL group
     (the one-rank references, the tp code path through NCCL), then two
     gloo ranks sharing the card (`parallel_two_ranks`), each spawn with a
-    deadline and a file rendezvous. Checks each mode's final latents
+    deadline and a file rendezvous, then `dryrun_multichip(2)` on the card
+    (two gloo ranks sharing it: one tiny evaluation, a finite score). Checks each mode's final latents
     against the one-rank trajectory within `PARALLEL_TOL`, each rank's
     launches against its local shapes, the PNG union of `generate_images`
     over two ranks against the one-process set (no file twice), the
@@ -5875,7 +5906,7 @@ def parallel_phase(smi: str) -> dict:
     import tempfile
 
     from ecad_tpu_torch.benchmark import generate_embeddings
-    from ecad_tpu_torch.parallel import spawn
+    from ecad_tpu_torch.parallel import dryrun_multichip, spawn
     from PIL import Image
 
     log("parallel phase: one-rank NCCL group, then two gloo ranks on the one card")
@@ -5901,6 +5932,11 @@ def parallel_phase(smi: str) -> dict:
         spawn(parallel_two_ranks, 2, (str(out),), backend="gloo", device="cuda",
               timeout_s=PARALLEL_SPAWN_S, init_dir=out)
         result["two_ranks_s"] = time.perf_counter() - t0
+        # the port's dry run as a user calls it: on the card, two gloo ranks
+        # sharing it
+        t0 = time.perf_counter()
+        dryrun_multichip(2, timeout_s=PARALLEL_SPAWN_S)
+        result["dryrun_multichip_s"] = time.perf_counter() - t0
         one = torch.load(out / "one_rank.pt")
         ranks = [torch.load(out / f"rank{r}.pt") for r in range(2)]
         data = _load_inputs(out)

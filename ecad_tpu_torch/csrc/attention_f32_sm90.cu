@@ -2,12 +2,12 @@
 // tensor cores through a 3×TF32 split, fed by TMA through mbarriers, with two
 // producer-side warpgroups (a TMA warp and seven helper warps) and one or two
 // consumer warpgroups. fp32 q, k, v of
-// shape (B, T, H, d), any d up to 256, run at the built width D (the
-// template argument) at or above it — 16, 32, 40, 64, 72, 96, 128, 192 or
-// 256 (ops/attention.py's `f32_width`; TF32's k-step is 8, so every width is
-// a multiple of 8, and the maps' inner dim d leaves columns d..D−1 to TMA's
-// zero fill), and any d past 256 on a streamed form of the same routes (see
-// "past D=256" below) — in 16-byte-aligned strides (the wrapper hands other
+// shape (B, T, H, d), any d up to 512, run at the built width D (the
+// template argument) at or above it — 16, 32, 40, 64, 72, 96, 128, 192,
+// 256, 384 or 512 (ops/attention.py's `f32_width`; TF32's k-step is 8, so
+// every width is a multiple of 8, and the maps' inner dim d leaves columns
+// d..D−1 to TMA's zero fill), and any d past 512 on a streamed form of the
+// same routes (see "past D=512" below) — in 16-byte-aligned strides (the wrapper hands other
 // layouts over as packed copies, `tma_copy`), in two softmax modes under
 // four kernel names, one per route (and a BIAS flag in the name, so that a
 // profile files the forms apart):
@@ -159,6 +159,36 @@
 // be resident at once (`cudaOccupancyMaxActiveClusters`; a cluster for
 // every pair of SMs timed the same), and each cluster walks the items.
 //
+// Widths 384 and 512: clusters of three and four blocks (d = 257-384 and
+// 385-512), each the width-128 form on its 128 columns, as at 256; columns
+// past d are TMA's zero fill, which adds exact zeros to the scores, and o's
+// rows are padded to the width. The N partial scores of a tile are summed
+// in one order in every block, ((s0 + s1) + s2) + s3 in IEEE fp32, so all
+// N blocks take bit-equal softmaxes and the same p; each block then runs
+// p·v on its columns of v and stores its columns of o. Each product is
+// computed once and q read once an item, where the streamed form past 512
+// computes the scores again for each 128-column slice of o. What shared
+// memory leaves for the exchange decides its form: the width-128 form
+// takes 196,608 of the 232,448 bytes a block may have (q's two parts 64 KB,
+// two stages 128 KB), the barriers and the alignment 1,128 more, and one
+// peer's partial tile is 8 KB (128 threads × 16 scores × 4 B). N = 3: a
+// buffer for each of two peers by the tile's parity, 32 KB (230,504 bytes
+// in all). N = 4: three peers by two parities, 48 KB, does not fit; all to
+// all with one buffer a peer does (24 KB, 222,312 bytes: a block writes a
+// tile's scores once every peer has read the last tile's). Its rival,
+// reduce-scatter then all-gather by the consumer's four warps (warp w's 16
+// rows summed in block w and sent back: 2 KB messages, half the bytes over
+// two round trips), gave the same sums bit for bit and was 10 % slower at
+// K5 (2, 2048, 8, 512), even at K2 (scripts/probe_attention_body.py's
+// rows `f32_k5_d512`, `f32_k2_d512`, NVIDIA H100 80GB HBM3, 700 W), and was
+// dropped. The exchange is still most of the time past 256: without it K5
+// there took 2.30 ms against 5.68 (the probe's `no_exchange`), about 1.1 µs
+// a peer and a key tile. Each peer's stores are followed by their own
+// arrival, and the peers' parts loaded one at a time as the sum reaches
+// them: every peer's stores before the first arrival, or every part loaded
+// before the sum, took K5 there to 6.20-6.65 ms (the probe's
+// `stores_first`).
+//
 // No CUTLASS or CuTe: inline PTX, as in attention_sm90.cu, keeps the build
 // to seconds. Every fp32 call runs here, in any layout.
 
@@ -189,8 +219,9 @@ enum Mode : int { kExact = 0, kClamp = 1 };
 // a stage: k's big and small parts ([keys][D] in D/8 column groups) and
 // vᵀ's ([D][keys] in keys/8 key groups). Every part is a multiple of 1 KB.
 // SPLIT: the blocks of a cluster that share a work item, each with D of
-// its columns (see the note on width 256): their partial scores' exchange
-// buffers (two of a consumer's scores of a tile) and its four barriers.
+// its columns (see the notes on widths 256, 384 and 512): their partial
+// scores' exchange buffers, by rounds (the tile's parity, or one round at
+// four blocks), and their four barriers.
 template <int D, int SPLIT = 1>
 struct Cfg {
   static_assert(D % 8 == 0 && D >= 16 && D <= 256, "widths: multiples of 8 up to 256");
@@ -201,7 +232,10 @@ struct Cfg {
   static constexpr int kQ = kRowsQ * D * 4;  // one part of q
   static constexpr int kKV = kBN * D * 4;    // one part of k or of vᵀ
   static constexpr int kStage = 4 * kKV;
-  static constexpr int kXchg = SPLIT > 1 ? 2 * 128 * kNC * (kBN / 2) * 4 : 0;
+  static constexpr int kPeer = 128 * kNC * (kBN / 2) * 4;  // a block's partial scores of a tile
+  static constexpr int kXchgRounds = SPLIT == 4 ? 1 : 2;
+  static constexpr int kXchgRound = (SPLIT - 1) * kPeer;  // a round's buffers: one a peer
+  static constexpr int kXchg = SPLIT > 1 ? kXchgRounds * kXchgRound : 0;
   static constexpr int kBarriers = 3 + 3 * kStages + (SPLIT > 1 ? 4 : 0);
   static constexpr int kBytes = 2 * kQ + kStages * kStage + kXchg + kBarriers * 8 + 1024;
   static constexpr int kThreads = 128 * (kProducerGroups + kNC);
@@ -358,7 +392,7 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// --- the cluster's exchange (width 256) ------------------------------------------
+// --- the cluster's exchange (widths 256, 384 and 512) ----------------------------
 
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\n barrier.cluster.wait.acquire;\n" ::: "memory");
@@ -388,40 +422,64 @@ __device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity)
 }
 
 // A consumer thread's partial scores of a tile (its block's columns of
-// q·kᵀ) into the peer block's buffer `buf` (16-byte piece i of thread t at
-// (128·i + t)·16: a warp's pieces side by side, no bank conflict), an
-// arrival on the peer's `full` barrier of that buffer; then the peer's from
-// this block's own once its `full` barrier says they are there, summed with
-// this block's in rank order — the same fp32 sum in both blocks, so both
-// take the same softmax — and an arrival on the peer's `empty` barrier.
-// This block's `empty` barrier says the peer has read the buffer's last
-// round.
-template <int N>
+// q·kᵀ) summed with the SPLIT − 1 peer blocks' (all to all): they go
+// into each peer's buffer `buf` (this block's part of it at its rank among
+// the peer's sources; 16-byte piece i of thread t at (128·i + t)·16: a
+// warp's pieces side by side, no bank conflict), with an arrival on the
+// peer's `full` barrier; then the peers' parts from this block's own once
+// its `full` barrier says they are all there, summed with this block's in
+// rank order — the same fp32 sum in every block, so all take the same
+// softmax — and an arrival on each peer's `empty` barrier. This block's
+// `empty` barrier says every peer has read the buffer's last round.
+template <int SPLIT, int N>
 __device__ __forceinline__ void exchange_scores(float (&sc)[N], uint32_t buf, uint32_t full,
                                                 uint32_t empty, uint32_t parity, int t,
                                                 uint32_t rank) {
-  const uint32_t peer = rank ^ 1u;
+  constexpr uint32_t kPart = 128 * N * 4;
   mbar_wait_cluster(empty, parity ^ 1);  // the first round finds it free
-  const uint32_t dst = peer_addr(buf + t * 16, peer);
 #pragma unroll
-  for (int i = 0; i < N; i += 4)
-    asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst + 128 * 4 * i),
-                 "f"(sc[i]), "f"(sc[i + 1]), "f"(sc[i + 2]), "f"(sc[i + 3])
-                 : "memory");
-  peer_arrive(peer_addr(full, peer));
+  for (int j = 1; j < SPLIT; ++j) {
+    const uint32_t peer = (rank + j) % SPLIT;
+    const uint32_t dst = peer_addr(buf + (rank - (rank > peer)) * kPart + t * 16, peer);
+#pragma unroll
+    for (int i = 0; i < N; i += 4)
+      asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst + 128 * 4 * i),
+                   "f"(sc[i]), "f"(sc[i + 1]), "f"(sc[i + 2]), "f"(sc[i + 3])
+                   : "memory");
+    peer_arrive(peer_addr(full, peer));
+  }
   mbar_wait_cluster(full, parity);
 #pragma unroll
   for (int i = 0; i < N; i += 4) {
     float x[4];
-    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-                 : "=f"(x[0]), "=f"(x[1]), "=f"(x[2]), "=f"(x[3])
-                 : "r"(buf + t * 16 + 128 * 4 * i)
-                 : "memory");
+    if constexpr (SPLIT == 2) {  // the peer's part, then the two in rank order
+      asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=f"(x[0]), "=f"(x[1]), "=f"(x[2]), "=f"(x[3])
+                   : "r"(buf + t * 16 + 128 * 4 * i)
+                   : "memory");
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      sc[i + e] = rank == 0 ? __fadd_rn(sc[i + e], x[e]) : __fadd_rn(x[e], sc[i + e]);
+      for (int e = 0; e < 4; ++e)
+        sc[i + e] = rank == 0 ? __fadd_rn(sc[i + e], x[e]) : __fadd_rn(x[e], sc[i + e]);
+    } else {  // block r's part (this block's own scores at r = rank), in rank order
+      float acc[4];
+#pragma unroll
+      for (int r = 0; r < SPLIT; ++r) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[e] = sc[i + e];
+        if (r != rank)
+          asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                       : "=f"(x[0]), "=f"(x[1]), "=f"(x[2]), "=f"(x[3])
+                       : "r"(buf + (r - (r > rank)) * kPart + t * 16 + 128 * 4 * i)
+                       : "memory");
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[e] = r == 0 ? x[e] : __fadd_rn(acc[e], x[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[i + e] = acc[e];
+    }
   }
-  peer_arrive(peer_addr(empty, peer));
+#pragma unroll
+  for (int j = 1; j < SPLIT; ++j) peer_arrive(peer_addr(empty, (rank + j) % SPLIT));
 }
 
 // One key tile's softmax on the accumulator layout (sc[4jb + e] is row
@@ -590,7 +648,7 @@ __device__ __forceinline__ void attn_f32_body(const CUtensorMap* maps, const Par
   // stage s: k big, k small, vᵀ big, vᵀ small; TMA lands k's raw tile in
   // its big part and v's in its small part
   auto k_big = [&](int s) { return base + 2 * C::kQ + s * C::kStage; };
-  const uint32_t xchg = base + 2 * C::kQ + ST * C::kStage;  // SPLIT: two score buffers
+  const uint32_t xchg = base + 2 * C::kQ + ST * C::kStage;  // SPLIT: the score buffers
   const uint32_t bars = xchg + C::kXchg;
   const uint32_t q_full = bars, q_ready = bars + 8, q_empty = bars + 16;
   auto k_full = [&](int s) { return bars + 24 + 8 * s; };
@@ -619,8 +677,8 @@ __device__ __forceinline__ void attn_f32_body(const CUtensorMap* maps, const Par
     }
     if constexpr (SPLIT > 1)
       for (int x = 0; x < 2; ++x) {
-        mbar_init(x_full(x), kConsumerThreads);
-        mbar_init(x_empty(x), kConsumerThreads);
+        mbar_init(x_full(x), (SPLIT - 1) * kConsumerThreads);
+        mbar_init(x_empty(x), (SPLIT - 1) * kConsumerThreads);
       }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -724,9 +782,13 @@ __device__ __forceinline__ void attn_f32_body(const CUtensorMap* maps, const Par
       wgmma_wait<0>();
       fence_regs(sc);
       if (j == n_tiles - 1) mbar_arrive(q_empty);  // the item's last read of q
-      if constexpr (SPLIT > 1)  // the peer's columns of the scores
-        exchange_scores(sc, xchg + (g & 1) * 128 * (BN / 2) * 4, x_full(g & 1), x_empty(g & 1),
-                        (g >> 1) & 1, threadIdx.x - 128 * kProducerGroups, rank);
+      if constexpr (SPLIT > 1) {  // the peers' columns of the scores
+        // the round's buffers: by the tile's parity, or one
+        const int x = C::kXchgRounds == 2 ? g & 1 : 0;
+        const uint32_t parity = C::kXchgRounds == 2 ? (g >> 1) & 1 : g & 1;
+        exchange_scores<SPLIT>(sc, xchg + x * C::kXchgRound, x_full(x), x_empty(x), parity,
+                               threadIdx.x - 128 * kProducerGroups, rank);
+      }
 
       // the softmax on the accumulator layout, p's A fragments (alpha: the
       // exact mode's rescale of the earlier tiles, 1 in the clamp mode)
@@ -799,14 +861,15 @@ struct Maps {
   CUtensorMap m[3];  // q, k, v
 };
 
-// The blocks of a cluster at width D: two at 256 (see the note), one below
+// The blocks of a cluster at width D: two at 256, three at 384, four at 512
+// (see the notes), one below
 template <int D>
-constexpr int kSplit = D == 256 ? 2 : 1;
+constexpr int kSplit = D == 256 ? 2 : D > 256 ? D / 128 : 1;
 // a block's columns and its tiles
 template <int D>
 using BlockCfg = Cfg<D / kSplit<D>, kSplit<D>>;
-// the body of a kernel at width D, and what its blocks do past it: at 256
-// the cluster waits for its peer before it exits (the peer's last exchange
+// the body of a kernel at width D, and what its blocks do past it: from 256
+// the cluster waits for its peers before it exits (their last exchange
 // reads and writes this block's shared memory)
 template <int D, int MODE, bool BIAS>
 __device__ __forceinline__ void attn_f32_kernel_body(const CUtensorMap* maps, const Params& p) {
@@ -838,10 +901,12 @@ __global__ void __launch_bounds__(BlockCfg<D>::kThreads, 1)
   attn_f32_kernel_body<D, kClamp, BIAS>(maps.m, p);
 }
 
-// --- past D=256: the streamed body ----------------------------------------------
+// --- past D=512: the streamed body ----------------------------------------------
 //
-// Past 256 no built width holds q's big and small parts (128 KB for 64 rows
-// at 256 already) beside a stage of k and v, nor o's accumulators in the
+// Past 512 no built width takes the head dim (a cluster of more than four
+// blocks is not portable, and its exchange would outgrow shared memory), and
+// one block holds neither q's big and small parts (128 KB for 64 rows at 256
+// already) beside a stage of k and v, nor o's accumulators in its
 // registers. So a work item is (batch·head, 64-row query tile, slice of
 // kWideSlice columns of o), and q·kᵀ walks the head dim in 64-column chunks
 // through a ring of slots, each holding q's 64 rows of the chunk as TMA
@@ -854,9 +919,9 @@ __global__ void __launch_bounds__(BlockCfg<D>::kThreads, 1)
 // from registers (m64n32k8, three TF32 products: the small terms of the
 // chunk, then the big one). Each chunk's scores start from zero in
 // accumulators of their own and are added to the tile's in IEEE fp32, as
-// each tile's p·v is added to o below D=256. p·v takes the slice: v's
+// each tile's p·v is added to o at the built widths. p·v takes the slice: v's
 // 32 × kWideSlice raw tile as TMA lands it (whole rows of the slice, no
-// swizzle), whose vᵀ big and small the helpers write as below D=256. One
+// swizzle), whose vᵀ big and small the helpers write as at the built widths. One
 // producer-side warpgroup (the TMA thread, three helper warps): a
 // 256-thread block, so the consumer's o, scores and fragments fit its
 // registers. An item's q chunks are loaded again for each key tile and its
@@ -1094,8 +1159,8 @@ __device__ __forceinline__ void attn_f32_wide_body(const CUtensorMap* maps, cons
   }
 }
 
-// The streamed body's kernels, one name a route as below D=256 (the slice
-// width in the name)
+// The streamed body's kernels, one name a route as at the built widths (the
+// slice width in the name)
 template <int W, bool BIAS>
 __global__ void __launch_bounds__(256, 1)
     attn_exact_f32_wide_sm90_kernel(const __grid_constant__ Maps maps, const WideParams w) {
@@ -1212,15 +1277,80 @@ Launch f32_launch(int route, bool bias) {
   return {kernels[route][bias], C::kThreads, C::kBytes, C::kRowsQ, C::kBN, kSplit<D>};
 }
 
+// The built widths: `f32_launch<kWidths[i]>` below, `opted_in`'s first index
+constexpr int kWidths[] = {16, 32, 40, 64, 72, 96, 128, 192, 256, 384, 512};
+constexpr int kNumWidths = sizeof(kWidths) / sizeof(kWidths[0]);
+// the widest built width: past it the streamed form
+constexpr int kMaxWidth = 512;
+
+Launch launch_at(int width, int route, bool bias) {
+  return width == 16    ? f32_launch<16>(route, bias)
+         : width == 32  ? f32_launch<32>(route, bias)
+         : width == 40  ? f32_launch<40>(route, bias)
+         : width == 64  ? f32_launch<64>(route, bias)
+         : width == 72  ? f32_launch<72>(route, bias)
+         : width == 96  ? f32_launch<96>(route, bias)
+         : width == 128 ? f32_launch<128>(route, bias)
+         : width == 192 ? f32_launch<192>(route, bias)
+         : width == 256 ? f32_launch<256>(route, bias)
+         : width == 384 ? f32_launch<384>(route, bias)
+         : width == 512 ? f32_launch<512>(route, bias)
+                        : Launch{};
+}
+
+// The kernel's opt-in to its dynamic shared memory (above 48 KB it needs
+// one, once per kernel)
+cudaError_t opt_in(const Launch& launch, int width, int route, bool bias) {
+  static bool opted_in[kNumWidths][4][2] = {};
+  int wi = 0;
+  while (kWidths[wi] != width) ++wi;
+  bool& opted = opted_in[wi][route][bias];
+  if (!opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        launch.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, launch.smem);
+    if (err != cudaSuccess) return err;
+    opted = true;
+  }
+  return cudaSuccess;
+}
+
+// A launch of clusters of `launch.split` blocks on `sms` SMs: `cfg` (whose
+// attribute is `attr`) and the clusters that can be resident at once
+// (`cudaOccupancyMaxActiveClusters`)
+cudaError_t cluster_config(const Launch& launch, int sms, cudaStream_t stream,
+                           cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int& clusters) {
+  cfg = {};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = launch.split;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(sms / launch.split * launch.split);
+  cfg.blockDim = dim3(launch.threads);
+  cfg.dynamicSmemBytes = launch.smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(&clusters, launch.kernel, &cfg);
+}
+
+cudaError_t sm_count(int& sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
+}
+
 }  // namespace
 
 // q, k, v: fp32 (B, T, H, d), d ≤ `width`, one of the built widths 16, 32,
-// 40, 64, 72, 96, 128, 192 and 256 (columns d..width−1 zero-filled by TMA);
+// 40, 64, 72, 96, 128, 192, 256, 384 and 512 (columns d..width−1
+// zero-filled by TMA), or past 512 round_up(d, 64) (the streamed form);
 // `maps` holds 7 values for each of q, k and v in turn: the dims {d, H, T,
 // B} and the byte strides of H, T and B (each a multiple of 16, the base
 // 16-byte aligned), as ops/attention.py's `f32_tma_operand` computes them.
-// o: fp32 (B, Tq, H, width), all of its columns written (the wrapper hands
-// a wider o where d < width and keeps its first d columns). strides: 7
+// o: fp32 (B, Tq, H, width), all of its columns written at a built width
+// (the wrapper hands a wider o where d < width and keeps its first d
+// columns). strides: 7
 // int64 — o's element strides (b, t, h), then the bias's (b, h, q, k), 0 where it
 // broadcasts. bias: null or fp32; a key-padding one (B|1, 1, 1, Tk)
 // on the clamp routes. route: 0 the exact softmax of the streaming route
@@ -1229,8 +1359,9 @@ Launch f32_launch(int route, bool bias) {
 // softmax of the transposed route (K4). scale: 1/√D on the exact routes,
 // clamp_scale(D, float32) on the clamp ones. n_pad: the reference's pad keys
 // on the route. Launches one block per SM (or per item, if fewer), which
-// walks the work items. Returns 0, a cudaError_t of the launch, or 100000 +
-// the CUresult of a refused tensor map.
+// walks the work items; from width 256 clusters, as many as can be
+// resident. Returns 0, a cudaError_t of the launch, or 100000 + the
+// CUresult of a refused tensor map.
 extern "C" int ecad_attention_f32_sm90_fwd(const float* q, const float* k, const float* v,
                                            float* o, const unsigned long long* maps,
                                            const long long* strides, const float* bias, int B,
@@ -1239,23 +1370,14 @@ extern "C" int ecad_attention_f32_sm90_fwd(const float* q, const float* k, const
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || route < 0 || route > 3 || n_pad < 0 ||
       maps[7] != maps[0] || maps[14] != maps[0] || maps[0] < 1 || maps[0] > (unsigned)width)
     return (int)cudaErrorInvalidValue;
-  if (width > 256)
-    return width % 64 != 0 || maps[0] <= 256
+  if (width > kMaxWidth)
+    return width % 64 != 0 || maps[0] <= kMaxWidth
                ? (int)cudaErrorInvalidValue
                : wide_f32_fwd(q, k, v, o, maps, strides, bias, B, H, Tq, Tk, scale, route, n_pad,
                               stream);
   const bool has_bias = bias != nullptr;
   const int D = width;
-  const Launch launch = D == 16    ? f32_launch<16>(route, has_bias)
-                        : D == 32  ? f32_launch<32>(route, has_bias)
-                        : D == 40  ? f32_launch<40>(route, has_bias)
-                        : D == 64  ? f32_launch<64>(route, has_bias)
-                        : D == 72  ? f32_launch<72>(route, has_bias)
-                        : D == 96  ? f32_launch<96>(route, has_bias)
-                        : D == 128 ? f32_launch<128>(route, has_bias)
-                        : D == 192 ? f32_launch<192>(route, has_bias)
-                        : D == 256 ? f32_launch<256>(route, has_bias)
-                                   : Launch{};
+  const Launch launch = launch_at(D, route, has_bias);
   if (launch.kernel == nullptr) return (int)cudaErrorInvalidValue;
   const long long n_items = (long long)B * H * ((Tq + launch.rows - 1) / launch.rows);
   if (n_items > 0x7fffffff) return (int)cudaErrorInvalidValue;
@@ -1269,8 +1391,8 @@ extern "C" int ecad_attention_f32_sm90_fwd(const float* q, const float* k, const
     const cuuint64_t dims[4] = {a[0], a[1], a[2], a[3]};
     const cuuint64_t gstrides[3] = {a[4], a[5], a[6]};
     // q and k: 8 columns (32 bytes: the swizzle's width) of one head, the
-    // item's rows or a stage's keys; v: whole rows of the width, of a stage's
-    // keys
+    // item's rows or a stage's keys; v: whole rows of the width (of a
+    // cluster's block), of a stage's keys
     const cuuint32_t box[4] = {i == 2 ? (cuuint32_t)(D / launch.split) : 8u, 1,
                                (cuuint32_t)(i == 0 ? launch.rows : launch.keys), 1};
     const CUresult r = encode(&tmaps.m[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
@@ -1291,45 +1413,17 @@ extern "C" int ecad_attention_f32_sm90_fwd(const float* q, const float* k, const
   p.n_items = (int)n_items;
   p.n_pad = n_pad;
   p.scale = scale;
-  // above 48 KB dynamic shared memory needs an opt-in (once per kernel)
-  static bool opted_in[9][4][2] = {};
-  const int wi = D == 16    ? 0
-                 : D == 32  ? 1
-                 : D == 40  ? 2
-                 : D == 64  ? 3
-                 : D == 72  ? 4
-                 : D == 96  ? 5
-                 : D == 128 ? 6
-                 : D == 192 ? 7
-                            : 8;
-  bool& opted = opted_in[wi][route][has_bias];
-  if (!opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        launch.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, launch.smem);
-    if (err != cudaSuccess) return (int)err;
-    opted = true;
-  }
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaError_t err = opt_in(launch, D, route, has_bias);
+  int sms = 0;
+  if (err == cudaSuccess) err = sm_count(sms);
   if (err != cudaSuccess) return (int)err;
   if (launch.split > 1) {
     // clusters of `split` blocks, as many as can be resident at once (each
     // walks the items)
-    cudaLaunchConfig_t cfg = {};
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = launch.split;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.gridDim = dim3(sms / launch.split * launch.split);
-    cfg.blockDim = dim3(launch.threads);
-    cfg.dynamicSmemBytes = launch.smem;
-    cfg.stream = static_cast<cudaStream_t>(stream);
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
     int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, launch.kernel, &cfg);
+    err = cluster_config(launch, sms, static_cast<cudaStream_t>(stream), cfg, attr, clusters);
     if (err != cudaSuccess) return (int)err;
     if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
     if (n_items < clusters) clusters = (int)n_items;
@@ -1340,4 +1434,22 @@ extern "C" int ecad_attention_f32_sm90_fwd(const float* q, const float* k, const
   launch.kernel<<<grid, launch.threads, launch.smem, static_cast<cudaStream_t>(stream)>>>(tmaps,
                                                                                          p);
   return (int)cudaGetLastError();
+}
+
+// The clusters of the kernel of `route` (as above) at the built `width`,
+// with or without a bias, that can be resident on the card at once
+// (`cudaOccupancyMaxActiveClusters`; 1 for a width that launches no
+// cluster), or −cudaError_t.
+extern "C" int ecad_attention_f32_sm90_clusters(int width, int route, int bias) {
+  if (route < 0 || route > 3) return -(int)cudaErrorInvalidValue;
+  const Launch launch = launch_at(width, route, bias != 0);
+  if (launch.kernel == nullptr) return -(int)cudaErrorInvalidValue;
+  if (launch.split == 1) return 1;
+  cudaError_t err = opt_in(launch, width, route, bias != 0);
+  int sms = 0, clusters = 0;
+  if (err == cudaSuccess) err = sm_count(sms);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (err == cudaSuccess) err = cluster_config(launch, sms, nullptr, cfg, attr, clusters);
+  return err == cudaSuccess ? clusters : -(int)err;
 }

@@ -59,15 +59,17 @@ route at multiples of 128 alone; the kernel shoot-out,
 scripts/bench_attention_kernels.py, calls it at 72). Served paths run
 head dims 72 and 128 only. The attention-variant harness's X1, X2 and X3
 take the same body in bf16 at 72 and 128, and X4 at 72 (`attn_variants`).
-fp32 calls at any head dim up to 256 take the fp32 body of
+fp32 calls at any head dim up to 512 take the fp32 body of
 ``csrc/attention_f32_sm90.cu`` (the products on the tensor cores through a
 3×TF32 split), built at widths 16, 32, 40, 64, 72, 96, 128,
-192 and 256 (`f32_width`), on every route — K1, K2 (with any bias that
+192, 256, 384 and 512 (`f32_width`; from 256 on clusters of two, three and
+four blocks of 128 columns), on every route — K1, K2 (with any bias that
 broadcasts, dense ones too), K4, K5 and K6 — under the same counters.
 Operands TMA cannot map (a base off 16 bytes, strides that are not
 multiples of 16 bytes: bf16 at a head dim that is not a multiple of 8, fp32
 at one that is not a multiple of 4) reach either body as a packed copy
-(`tma_copy`). Past head dim 256 either body runs a streamed form of each
+(`tma_copy`). Past its widest width (`MAX_HEAD_DIM`: 256 in bf16, 512 in
+fp32) either body runs a streamed form of each
 route (`WIDE_SLICE`): q·kᵀ over all of the head dim in column boxes that
 stream through shared memory beside k's, p·v over one slice of o's columns
 a work item; there is no upper limit on the head dim, on the card or in
@@ -125,9 +127,10 @@ LAUNCHES = {
 _VARIANTS = {0: "attention", 1: "attention_long", 2: "attention_rowblock", 3: "attention_flash"}
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-# the widest head dim the built widths take; past it each body's streamed
-# form runs (`sm90_width`, `f32_width`), o in slices of `WIDE_SLICE` columns
-MAX_HEAD_DIM = 256
+# the widest head dim the built widths take, by dtype; past it each body's
+# streamed form runs (`sm90_width`, `f32_width`), o in slices of
+# `WIDE_SLICE` columns
+MAX_HEAD_DIM = {torch.bfloat16: 256, torch.float32: 512}
 # o's columns a work item of the streamed forms past `MAX_HEAD_DIM`, by dtype
 WIDE_SLICE = {torch.bfloat16: 256, torch.float32: 128}
 _FN = None
@@ -151,9 +154,10 @@ _SM90_BIAS = ("attention", "attention_long", "attention_rowblock", "attention_fl
 _SM90_BIAS_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the fp32 Hopper body's kernels (csrc/attention_f32_sm90.cu), by counter
 # name: the C entry's route; and the widths it is built at (multiples of 8,
-# TF32's k-step), each head dim at the smallest at or above it
+# TF32's k-step), each head dim at the smallest at or above it: 256, 384
+# and 512 on clusters of 2, 3 and 4 blocks of 128 columns
 _F32_ROUTES = {"attention_flash": 0, "attention_rowblock": 1, "attention": 2, "attention_long": 3}
-F32_WIDTHS = (16, 32, 40, 64, 72, 96, 128, 192, 256)
+F32_WIDTHS = (16, 32, 40, 64, 72, 96, 128, 192, 256, 384, 512)
 
 # The reference's routing constants (ecad_tpu/ops/attention.py :95, :134,
 # :148). They decide WHICH function a shape gets — the clamp softmax or the
@@ -543,9 +547,27 @@ def sm90_width(d: int, counter: str = "attention") -> int:
 
 def f32_width(d: int) -> int:
     """The width of the fp32 Hopper body an fp32 call at head dim `d` runs
-    at: the smallest of `F32_WIDTHS` at or above `d`, round_up(d, 64) past
-    256 (the streamed form)."""
+    at: the smallest of `F32_WIDTHS` at or above `d` (384 for d 257-384,
+    512 for 385-512: clusters of three and four blocks), round_up(d, 64)
+    past 512 (the streamed form)."""
     return _smallest_width(F32_WIDTHS, d)
+
+
+def f32_resident_clusters(width: int, counter: str, bias: bool = False) -> int:
+    """The clusters of the fp32 body's kernel of `counter`'s route at the
+    built `width` (with or without a bias) that the card holds at once
+    (`cudaOccupancyMaxActiveClusters`: its launch's grid; 1 below 256,
+    where no cluster launches). Needs a card; raises if the query fails."""
+    from ._build import load_library
+
+    fn = load_library("attention_f32_sm90").ecad_attention_f32_sm90_clusters
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(0):
+        n = fn(width, _F32_ROUTES[counter], int(bias))
+    if n < 0:
+        raise RuntimeError(f"cluster query at width {width} failed: cudaError_t {-n}")
+    return n
 
 
 def tma_operand(t: torch.Tensor, name: str, width: Optional[int] = None) -> list[int]:
@@ -642,7 +664,7 @@ def f32_tma_operand(t: torch.Tensor, name: str) -> list[int]:
     of the fp32 Hopper body: the dims {D, H, T, B} and the byte strides of
     H, T and B — 7 integers; the C entry loads q and k in 8-column boxes
     under the 32-byte swizzle and v in rows of the call's width
-    (`f32_width`; past 256 in slices of `WIDE_SLICE` columns), columns from
+    (`f32_width`; past 512 in slices of `WIDE_SLICE` columns), columns from
     D on TMA's zero fill. Raises ValueError for another dtype or where TMA
     cannot map the operand (`_tma_strides`; `tma_copy` makes a copy that it
     can)."""
@@ -772,7 +794,7 @@ def _launch_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
     exact streaming, K6; ``attention_long`` and ``attention_rowblock``:
     clamp transposed, K4, and row-block, K5; these three with no bias or a
     key-padding one), with the route's `n_pad` pad keys (`pad_keys`), at the
-    width `f32_width` gives (past 256 the streamed form). Operands TMA
+    width `f32_width` gives (past 512 the streamed form). Operands TMA
     cannot map go to the kernel as copies (`tma_copy`); the kernel writes
     all of the width's columns of o (the streamed form its first D), so
     below the width o comes back through a copy of its first D. Counts it

@@ -6,15 +6,14 @@ port's counterpart of ``__graft_entry__.dryrun_multichip``.
 dp over the (candidate × prompt) batch, tp=2 over heads and MLP width
 (where n is even), at the tiny PixArt shapes: one candidate evaluated
 cooperatively by `genetic.evaluate.CandidateEvaluator` on a mesh over the
-n ranks (fidelity scorer). With n cards visible the ranks run on them, one
-card each, over NCCL; with fewer, the ranks run on the CPU over gloo — an
-explicit branch that says so on stderr, as the reference re-executes on a
-virtual CPU mesh when fewer devices are visible.
+n ranks (fidelity scorer). It runs on the card by default: with n cards visible
+the ranks take one each, over NCCL; with fewer, the n ranks share the
+visible cards over gloo (as chip_smoke.py's two ranks share its one card).
+With no card it raises; the ranks run on the CPU over gloo only when the
+caller asks for it with ``device="cpu"``.
 """
 
 from __future__ import annotations
-
-import sys
 
 import numpy as np
 import torch
@@ -58,15 +57,21 @@ def _dryrun_rank(rank: int, world: int, device: str) -> None:
               f"{scores['total_score']:.4f}, collectives {dict(mesh.calls)}", flush=True)
 
 
-def dryrun_multichip(n_devices: int, timeout_s: float = 300.0) -> None:
-    """Run `_dryrun_rank` on `n_devices` ranks (module docstring); raises if
-    a rank fails or outlives `timeout_s`."""
-    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if cards >= n_devices:
-        backend, device = "nccl", "cuda"
+def dryrun_multichip(n_devices: int, device: str = "cuda", timeout_s: float = 300.0) -> None:
+    """Run `_dryrun_rank` on `n_devices` ranks (module docstring) on
+    `device`: ``cuda`` (NCCL where `n_devices` cards are visible, else gloo
+    ranks sharing them; RuntimeError before any rank starts when no card is
+    visible) or ``cpu`` (gloo). Raises if a rank fails or outlives
+    `timeout_s`."""
+    if device == "cpu":
+        backend = "gloo"
+    elif device == "cuda":
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if cards == 0:
+            raise RuntimeError("dryrun_multichip: device='cuda' but no card is visible; "
+                               "pass device='cpu' to run the ranks on the CPU")
+        backend = "nccl" if cards >= n_devices else "gloo"
     else:
-        print(f"dryrun_multichip: {cards} card(s) visible for {n_devices} ranks: running "
-              f"{n_devices} gloo ranks on the CPU", file=sys.stderr, flush=True)
-        backend, device = "gloo", "cpu"
+        raise ValueError(f"dryrun_multichip: device must be 'cuda' or 'cpu'; got {device!r}")
     spawn(_dryrun_rank, n_devices, (device,), backend=backend, device=device,
           timeout_s=timeout_s)

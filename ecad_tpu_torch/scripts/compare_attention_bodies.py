@@ -65,7 +65,10 @@ ratio of their medians.
 
 With ``--parent`` the rows also take the fp32 body at width 192 (head dim
 160; `PARENT_CASES`: K1 at (16, 256, 8, 160), K4 and K5 at (2, 2048, 8,
-160), K6 at (1, 4608, 8, 160)), against the parent's wrappers alone.
+160), K6 at (1, 4608, 8, 160)), at width 256 (K5 at (2, 2048, 8, 256), K6
+at (1, 4608, 12, 256)) and at head dims 384 and 512 (K1 and K2 → 120 keys
+with the text bias at (16, 256, 8, D), K4 and K5 at (2, 2048, 8, D), K6 at
+(1, 4608, 8, D)), against the parent's wrappers alone.
 
 Prints one JSON line per row, and writes them to ``--out``. ``--rows``
 takes a comma-separated subset of the bodies' rows (`CASES`, and
@@ -170,6 +173,26 @@ PARENT_CASES = {
                                      A.rowblock_attention_reference, None),
     "attention_flash_fp32_d160": ((1, 4608, 8, 160), 4608, None, 3, A.fused_attention,
                                   A.flash_attention_reference, None),
+    # width 256, the two-block cluster: its arithmetic kept, bit for bit
+    "attention_rowblock_fp32_d256": ((2, 2048, 8, 256), 2048, None, 2, A.rowblock_attention,
+                                     A.rowblock_attention_reference, None),
+    "attention_flash_fp32_d256": ((1, 4608, 12, 256), 4608, None, 3, A.flash_attention,
+                                  A.flash_attention_reference, None),
+    # widths 384 and 512: the clusters of three and four blocks against the
+    # streamed form the parent runs there
+    **{f"{name}_fp32_d{d}": (shape[:3] + (d,), tk, lengths, variant, fn, plain, None)
+       for d in (384, 512)
+       for name, shape, tk, lengths, variant, fn, plain in (
+           ("attention", (16, 256, 8), 256, None, 0, A.single_tile_attention,
+            A.fused_attention_reference),
+           ("attention_bias", (16, 256, 8), 120, (7, 60, 120), 0, A.single_tile_attention,
+            A.fused_attention_reference),
+           ("attention_long", (2, 2048, 8), 2048, None, 1, A.transposed_attention,
+            A.transposed_attention_reference),
+           ("attention_rowblock", (2, 2048, 8), 2048, None, 2, A.rowblock_attention,
+            A.rowblock_attention_reference),
+           ("attention_flash", (1, 4608, 8), 4608, None, 3, A.flash_attention,
+            A.flash_attention_reference))},
 }
 # attention.cu's variant → its route, for the route's pad keys (`pad_keys`)
 ROUTE = {0: "exact", 1: "clamp", 2: "rowblock", 3: "flash"}

@@ -116,10 +116,18 @@ block, one 16-key stage: the form before it), ``no_cluster_three_helper_
 warps`` (that form with one producer-side warpgroup, a 256-thread block),
 the cluster with three helper warps a block (``cluster_three_helper_warps``,
 a 256-thread block) and with each product's descriptor made as it is
-issued (``cluster_stepped_scores``).
+issued (``cluster_stepped_scores``). At widths 512 and 384, K2 at (16, 256,
+8, D) → 120 keys with the text bias and K5 at (2, 2048, 8, D), the clusters
+of four and three blocks against ``streamed`` (the streamed form every
+width past 256 took before them: the parent's kernels in the same build),
+``stores_first`` (every peer's stores before the first arrival: one
+release wait a tile, not one a peer)
+and ``no_exchange`` (no partial scores summed: wrong, what the exchange
+costs).
 
 A variant that only reschedules the same arithmetic (``two_consumers``,
-``helpers_three_warps``, ``cluster_three_helper_warps``, ``dense_no_prefetch``,
+``helpers_three_warps``, ``cluster_three_helper_warps``, ``stores_first``,
+``dense_no_prefetch``,
 ``dense_prefetch``, ``dense_scalar_loads``,
 ``k6_bias_three_consumers``, ``d64_two_consumers``, ``exact_narrow_three``,
 ``clamp_narrow_two``, ``rowblock_narrow_two``, ``flash_narrow_two``,
@@ -501,7 +509,7 @@ F32_VARIANTS = {
 # a 256-thread block, whose consumer ptxas may give 240 registers), and the
 # cluster's blocks on one producer-side warpgroup (`cluster_three_helper_
 # warps`, three helper warps instead of seven)
-F32_NO_CLUSTER = [("constexpr int kSplit = D == 256 ? 2 : 1;", "constexpr int kSplit = 1;")]
+F32_NO_CLUSTER = [("constexpr int kSplit = D == 256 ? 2 : ", "constexpr int kSplit = ")]
 # the scores' products with each descriptor made as the product is issued
 # (`scores_stepped`, as past width 128), not made up front
 F32_CLUSTER_STEPPED = [
@@ -512,7 +520,38 @@ F32_D256_VARIANTS = {"no_cluster": F32_NO_CLUSTER,
                          F32_NO_CLUSTER + F32_VARIANTS["helpers_three_warps"],
                      "cluster_three_helper_warps": F32_VARIANTS["helpers_three_warps"],
                      "cluster_stepped_scores": F32_CLUSTER_STEPPED}
+# fp32 at widths 384 and 512: the clusters of three and four blocks (the
+# source) against the streamed form they replaced there (`streamed`: the C
+# entry sends every width past 256 to it, as before), with every peer's
+# stores issued before the first arrival (`stores_first`: one release wait
+# a tile, not one a peer), and without the exchange
+# (`no_exchange`: each block's softmax on its own partial scores — wrong,
+# what the exchange costs)
+F32_STREAMED = [("constexpr int kMaxWidth = 512;", "constexpr int kMaxWidth = 256;")]
+F32_STORES_FIRST = [("""                   : "memory");
+    peer_arrive(peer_addr(full, peer));
+  }
+  mbar_wait_cluster(full, parity);
+""", """                   : "memory");
+  }
+#pragma unroll
+  for (int j = 1; j < SPLIT; ++j) peer_arrive(peer_addr(full, (rank + j) % SPLIT));
+  mbar_wait_cluster(full, parity);
+""")]
+F32_NO_EXCHANGE = [("""        exchange_scores<SPLIT>(sc, xchg + x * C::kXchgRound, x_full(x), x_empty(x), parity,
+                               threadIdx.x - 128 * kProducerGroups, rank);
+""", "        (void)x, (void)parity;\n")]
+F32_WIDE_VARIANTS = {"streamed": F32_STREAMED, "stores_first": F32_STORES_FIRST,
+                     "no_exchange": F32_NO_EXCHANGE}
 F32_ROWS = {
+    "f32_k2_d512": ((16, 256, 8, 512), 120, (7, 60, 120), "attention", F32_WIDE_VARIANTS, 5,
+                    10),
+    "f32_k5_d512": ((2, 2048, 8, 512), 2048, None, "attention_rowblock", F32_WIDE_VARIANTS, 3,
+                    2),
+    "f32_k2_d384": ((16, 256, 8, 384), 120, (7, 60, 120), "attention", F32_WIDE_VARIANTS, 5,
+                    10),
+    "f32_k5_d384": ((2, 2048, 8, 384), 2048, None, "attention_rowblock", F32_WIDE_VARIANTS, 3,
+                    2),
     "f32_k6_d256": ((1, 4608, 12, 256), 4608, None, "attention_flash", F32_D256_VARIANTS, 3, 2),
     "f32_k5_d256": ((2, 2048, 8, 256), 2048, None, "attention_rowblock", F32_D256_VARIANTS, 3,
                     2),
@@ -535,7 +574,7 @@ BODIES = {"sm90": ("attention_sm90", "ecad_attention_sm90_fwd", "_SM90_FN", A._s
 ROUTES = {"attention": "exact", "attention_long": "clamp", "attention_rowblock": "rowblock",
           "attention_flash": "flash"}
 # the same arithmetic, rescheduled
-EXACT = ("two_consumers", "helpers_three_warps", "cluster_three_helper_warps",
+EXACT = ("two_consumers", "helpers_three_warps", "cluster_three_helper_warps", "stores_first",
          "exact_narrow_three", "clamp_narrow_two",
          "rowblock_narrow_two", "flash_narrow_two", "k6_bias_three_consumers", "d64_two_consumers",
          "clamp_two_consumers", "clamp_bias_three_consumers", "clamp_three_consumers",

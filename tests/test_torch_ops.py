@@ -482,10 +482,11 @@ TF32X3_CASES = {
 
 def _emulated_f32_wide_scores(qh, kt, passes=3, chunk=64):
     """q·kᵀ as the fp32 body takes it where it sums partial scores: the head
-    dim in `chunk`-column parts (64 in the streamed form past head dim 256,
-    128 in the two-block cluster at width 256), each part's three TF32
-    products (`_mm_3xtf32`) from zero, the parts' scores added in fp32 in
-    order."""
+    dim in `chunk`-column parts (64 in the streamed form past head dim 512,
+    128 in the clusters of two, three and four blocks at widths 256, 384 and
+    512), each part's three TF32 products (`_mm_3xtf32`) from zero, the
+    parts' scores added in fp32 in order (((s0 + s1) + s2) + s3: the
+    clusters' rank order, the same in every block)."""
     s = None
     for c in range(0, qh.shape[-1], chunk):
         part = _mm_3xtf32(qh[..., c:c + chunk], kt[..., c:c + chunk, :], passes)
@@ -494,8 +495,9 @@ def _emulated_f32_wide_scores(qh, kt, passes=3, chunk=64):
 
 
 # (route, b, tq, tk, d, q scale, key-padding lengths or None, the columns a
-# part of the scores): the streamed form past head dim 256 (64) and the
-# two-block cluster at width 256 (128), at chip_smoke.py's fp32 shapes
+# part of the scores): the streamed form past head dim 512 (64) and the
+# clusters at widths 256, 384 and 512 (128: two, three and four blocks, the
+# last block's columns past d zeros), at chip_smoke.py's fp32 shapes
 TF32X3_WIDE_CASES = {
     "exact_key_padding_d320": ("exact", 3, 30, 300, 320, 1.0, (100, 200, 256), 64),
     "exact_logits_times_6_d512": ("exact", 1, 16, 256, 512, 6.0, None, 64),
@@ -503,6 +505,10 @@ TF32X3_WIDE_CASES = {
     "clamp_logits_times_6_d512": ("clamp", 1, 16, 256, 512, 6.0, None, 64),
     "exact_key_padding_d256_halves": ("exact", 3, 30, 300, 256, 1.0, (100, 200, 256), 128),
     "clamp_logits_times_6_d256_halves": ("clamp", 1, 16, 256, 256, 6.0, None, 128),
+    "exact_key_padding_d320_three_blocks": ("exact", 3, 30, 300, 320, 1.0, (100, 200, 256), 128),
+    "clamp_logits_times_6_d320_three_blocks": ("clamp", 1, 16, 256, 320, 6.0, None, 128),
+    "exact_logits_times_6_d512_four_blocks": ("exact", 1, 16, 256, 512, 6.0, None, 128),
+    "clamp_key_padding_d512_four_blocks": ("clamp", 3, 30, 300, 512, 1.0, (100, 200, 256), 128),
 }
 
 
@@ -510,13 +516,14 @@ TF32X3_WIDE_CASES = {
 def test_3xtf32_streamed_emulation_meets_fp32_tol(case):
     """Two forms of the fp32 body change the order of the scores' fp32 sums
     and not p·v's (o's columns are apart): the streamed form past head dim
-    256 (each 64-column chunk of q·kᵀ from zero in accumulators of its own,
-    the chunks added in IEEE fp32) and the two-block cluster at width 256
-    (each block's 128 columns, the two partial scores added in fp32 — the
-    same sum in both blocks). `_emulated_f32_body` with those scores
-    (`_emulated_f32_wide_scores`) against the Pallas kernels in interpret mode
-    at head dims 256, 320 and 512: within chip_smoke.py's FP32_TOL (atol 1e-5,
-    rtol 1e-5); one plain TF32 pass misses it."""
+    512 (each 64-column chunk of q·kᵀ from zero in accumulators of its own,
+    the chunks added in IEEE fp32) and the clusters of two, three and four
+    blocks at widths 256, 384 and 512 (each block's 128 columns, the partial
+    scores added in fp32 in rank order — the same sum in every block).
+    `_emulated_f32_body` with those scores (`_emulated_f32_wide_scores`)
+    against the Pallas kernels in interpret mode at head dims 256, 320 and
+    512: within chip_smoke.py's FP32_TOL (atol 1e-5, rtol 1e-5); one plain
+    TF32 pass misses it."""
     route, b, tq, tk, d, qscale, lengths, chunk = TF32X3_WIDE_CASES[case]
     rng = np.random.default_rng(24)
     q, k, v = _qkv(rng, b, tq, tk, 1, d)
@@ -1565,6 +1572,9 @@ TMA_WIDTH_CASES = {
     "bf16_d320": (torch.bfloat16, (1, 64, 2, 320),
                   [320, 2, 64, 1, 640, 1280, 64 * 1280, 64, 1, 64, 1], 320),
     "fp32_d512": (torch.float32, (1, 64, 2, 512), [512, 2, 64, 1, 2048, 4096, 64 * 4096], 512),
+    # fp32 past 256: the clusters at 384 and 512, the streamed form past 512
+    "fp32_d320": (torch.float32, (1, 64, 2, 320), [320, 2, 64, 1, 1280, 2560, 64 * 2560], 384),
+    "fp32_d640": (torch.float32, (1, 64, 2, 640), [640, 2, 64, 1, 2560, 5120, 64 * 5120], 640),
 }
 
 
@@ -1889,8 +1899,9 @@ def test_no_wrapper_reaches_attention_cu(d, dtype, layout, bh, monkeypatch):
     route), reaches the Hopper bodies' launchers (`_launch_sm90`,
     `_launch_f32`) with tensor maps made — meta tensors stop at their
     device check — and never csrc/attention.cu's `_launch`; and so does
-    every route past 256 (257, 320, 512: the streamed forms), reaching no
-    plain version either."""
+    every route past 256 in both dtypes (bf16's streamed form; fp32's
+    clusters at 257, 320, 384, 385 and 512 and its streamed form at 513 and
+    640), reaching no plain version either."""
     monkeypatch.setattr(port_attention, "_launch",
                         lambda *a, **kw: pytest.fail("reached attention.cu"))
     tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
@@ -1911,7 +1922,7 @@ def test_no_wrapper_reaches_attention_cu(d, dtype, layout, bh, monkeypatch):
                  "rowblock_attention_reference", "flash_attention_reference"):
         monkeypatch.setattr(port_attention, name,
                             lambda *a, name=name, **kw: pytest.fail(f"reached {name}"))
-    for wide_d in (257, 320, 512):
+    for wide_d in (257, 320, 384, 385, 512, 513, 640):
         qw = _meta_operand((b, 30, h, wide_d), tdt, layout)
         kw = _meta_operand((b, 300, h, wide_d), tdt, layout)
         vw = torch.empty((b, 300, h, wide_d), dtype=tdt, device="meta")
@@ -1985,6 +1996,18 @@ def _hopper_exact_body(q, k, v, bias, n_pad):
     return (o * (f / l)).to(torch.bfloat16).permute(0, 2, 1, 3)
 
 
+# fp32 head dim → the kernel chip_smoke.py's profiles must name on the
+# clamp route: the two-block cluster at 256, three blocks to 384, four to
+# 512, the streamed form past it (its slice of o's columns in the name)
+F32_WIDE_KERNELS = {256: "attn_clamp_f32_sm90_kernel<256, false>",
+                    257: "attn_clamp_f32_sm90_kernel<384, false>",
+                    384: "attn_clamp_f32_sm90_kernel<384, false>",
+                    385: "attn_clamp_f32_sm90_kernel<512, false>",
+                    512: "attn_clamp_f32_sm90_kernel<512, false>",
+                    513: "attn_clamp_f32_wide_sm90_kernel<128, false>",
+                    640: "attn_clamp_f32_wide_sm90_kernel<128, false>"}
+
+
 @pytest.mark.parametrize("kernel,names,want", [
     ("attn_exact_dense_sm90_kernel<72>",
      ["void (anonymous namespace)::attn_exact_dense_sm90_kernel<72>((anonymous namespace)::Maps, "
@@ -2004,12 +2027,35 @@ def _hopper_exact_body(q, k, v, bias, n_pad):
     ("attn_exact_dense_sm90_kernel<72>",
      ["void (anonymous namespace)::attn_exact_dense_sm90_kernel<72>(Maps, Params)",
       "void attn_bf16_kernel<72, true>(Params)"], False),
+    # fp32 at 256, 257, 384, 385, 512, 513 and 640: the clusters' kernels
+    # and the streamed form's, each named in a demangled profile
+    *[(k, [f"void (anonymous namespace)::{k}((anonymous namespace)::Maps, "
+           "(anonymous namespace)::Params)"], True) for k in F32_WIDE_KERNELS.values()],
+    ("attn_clamp_f32_sm90_kernel<512, false>",
+     ["void (anonymous namespace)::attn_clamp_f32_sm90_kernel<384, false>(Maps, Params)"], False),
 ])
 def test_chip_smoke_names_the_hopper_kernel(kernel, names, want):
     """chip_smoke.py's profile check: a Hopper kernel named with its head
     dim alone (the dense K2) or with its BIAS flag too, demangled or
     mangled, and nothing of csrc/attention.cu beside it."""
     assert _chip_smoke_module().ran_hopper_kernel(names, kernel) is want
+
+
+@pytest.mark.parametrize("d", sorted(F32_WIDE_KERNELS))
+def test_chip_smoke_names_the_f32_kernel_past_256(d):
+    """`hopper_kernel` names the fp32 cluster kernels at 256, 384 and 512 and
+    the streamed form past 512, and the profile check takes that name from a
+    demangled profile and not the other form's."""
+    smoke = _chip_smoke_module()
+    kernel = smoke.hopper_kernel("clamp", torch.float32, d)
+    assert kernel == F32_WIDE_KERNELS[d]
+    width = kernel.split("<")[1].split(",")[0]
+    ran = [f"void (anonymous namespace)::{kernel.split('<')[0]}<{width}, false>("
+           "(anonymous namespace)::Maps, (anonymous namespace)::Params)"]
+    assert smoke.ran_hopper_kernel(ran, kernel)
+    other = ("attn_clamp_f32_wide_sm90_kernel<128, false>" if "wide" not in kernel
+             else "attn_clamp_f32_sm90_kernel<512, false>")
+    assert not smoke.ran_hopper_kernel(ran, other)
 
 
 def _least_atol_per_std(got, want, rtol):
